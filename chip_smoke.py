@@ -21,20 +21,48 @@ Phases, one JSON line each:
              whole batch held against the plain version, as in phase 3.
 5. z384    — the large-Z path: auto resolves to fused_zlane, batch 512,
              the whole batch held against the plain version.
-6. kernels — per kernel: launches in its path's run, max abs error against
+6. gnn_compare — the corrected-GNN kernels (corrected_v2, corrected)
+             against their plain versions on perturbed seeded parameters:
+             {input injection on, off} x {fixed T, early exit with
+             conv_iter}, share_layers once, at toy_4x8 Z=4 h=16, nr_2_0_4
+             Z=4 h=64 and nr_2_0_32 Z=32 h=64, T=2, odd batch sizes.  Bars:
+             soft bits within 2e-2 on frames whose conv_iter agrees,
+             decisions equal on >= 99.9% of bits, conv_iter equal on >= 99%
+             of frames.  Then the noise floor at nr_2_0_32: kernel against
+             plain version beside plain version on the card against itself
+             on the CPU, at 1 iteration (held within 1e-5), 2 (within 2e-2)
+             and 3 (measured: the iteration at which the two first differ
+             and how the error grows; decisions held at every depth).
+7. gnn_zero_init — untrained parameters: both kernels with early exit give
+             the bits and conv_iter of the fused min-sum kernel (alpha 0.8),
+             exactly, at nr_2_0_32 Z=32.
+8. gnn_main — the flagship serving path at full width: nr_2_0_32 Z=32 h=64,
+             trained checkpoints read from results/ by the port's own
+             msgpack reader, batch 2048, 0 dB, early exit: T=10 and T=20
+             through corrected_v2, T=10 through corrected; the counted
+             launch's whole batch and 64 frames at -3 dB (where half the
+             frames fail) against the plain version, stopped frames against
+             the tensor-op syndrome check, the fixed-T kernel against the module's forward
+             within 3e-2, and BER/FER on encoded random codewords.
+9. kernels — per kernel: launches in its path's run, max abs error against
              the plain version, kernel / plain time, and the bound: the
              operations the batch's frames need over their conv_iter
              iterations, or its bytes, whichever takes longer on the card.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
+``--only classical`` or ``--only gnn`` runs the build and that half alone
+(for development; the kernels line then lists that half).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -45,6 +73,7 @@ import torch
 PEAK_BYTES = 3.35e12
 PEAK_F32_OPS = 67e12 / 2
 PEAK_I32_OPS = 67e12 / 4
+PEAK_BF16_TENSOR_OPS = 989e12  # dense bf16 on the tensor cores
 # Operations one min-sum iteration (flooding, convergence tracked) of one
 # frame needs, whatever the kernel does; derived in the header of
 # ldpc_tpu_torch/ops/csrc/fused_minsum.cu.  (float32, int32) per lifted edge,
@@ -117,50 +146,12 @@ def compare(dec, llr: torch.Tensor, label: str, plain_out=None) -> float:
     return err
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
-        return 1
-
+def classical_phases(lib, smi: str) -> list[dict]:
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
     from ldpc_tpu_torch.models.classical import (
         MinSumScaledDecoder, _resolve_backend, decode_min_sum)
-    from ldpc_tpu_torch.ops import _build, fused_minsum as fm, qc_msg
+    from ldpc_tpu_torch.ops import fused_minsum as fm, qc_msg
     from ldpc_tpu_torch.utils.metrics import decode_throughput
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
-          "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
-
-    # 2. build
-    t0 = time.time()
-    _build.build("fused_minsum")
-    lib = fm.kernel_library()
-    ptxas = [ln.strip() for ln in _build.build_log("fused_minsum").splitlines()
-             if "registers" in ln or "spill" in ln]
-    # Resident blocks per SM of the main-path kernels, from the CUDA runtime.
-    occupancy = {}
-    for code, Z in (("nr_2_0_32", 32), ("nr_2_0_32", 384)):
-        qc = qc_layout(get_base_graph(code), Z)
-        dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
-        if Z == 32:
-            fpb = fm.pick_fused_batch_tile(qc)
-            occupancy[f"fused Z={Z} frames_per_block={fpb}"] = lib.ldpc_fused_occupancy(*dims, fpb, 0, 0)
-        else:
-            occupancy[f"fused_zlane Z={Z}"] = lib.ldpc_zlane_occupancy(*dims, 0, 0)
-    if min(occupancy.values()) < 1:
-        raise AssertionError(f"a main-path kernel cannot be resident: {occupancy}")
-    emit({"phase": "build", "seconds": round(time.time() - t0, 3), "ptxas": ptxas,
-          "blocks_per_sm": occupancy})
 
     # 3. compare each kernel with its plain version
     flags = [(m, s, tr, ee) for m in ("minsum", "sumproduct") for s in ("flooding", "layered")
@@ -276,10 +267,8 @@ def main() -> int:
           "bound_by": bby384, "bit_errors": bit_errors384, "mean_conv_iter": mean_conv384,
           "nvidia_smi": smi})
 
-    # 6. kernels
-    print(smi, flush=True)
     src = "ldpc_tpu_torch/ops/csrc/fused_minsum.cu"
-    emit({"kernels": [
+    return [
         {"name": "fused", "route": "cuda", "source": src,
          "replaces": "ldpc_tpu/ops/pallas_minsum.py:143", "launches": launches_main["fused"],
          "max_abs_err": max(max_err["fused"], err_main), "ms": ms, "plain_ms": plain_ms,
@@ -290,7 +279,371 @@ def main() -> int:
          "max_abs_err": max(max_err["fused_zlane"], err_z), "ms": ms384,
          "plain_ms": plain_ms384, "bound_ms": bms384, "bound_by": bby384,
          "library_ms": None},
-    ]})
+    ]
+
+
+# ---------------------------------------------------------------------------
+# The corrected min-sum GNN path
+# ---------------------------------------------------------------------------
+
+GNN_SOFT_ATOL = 2e-2  # soft bits, kernel vs plain version, frames with equal conv_iter
+GNN_MIN_BIT_AGREEMENT = 0.999
+GNN_MIN_CONV_AGREEMENT = 0.99
+GNN_MODULE_ATOL = 3e-2  # fixed-T kernel vs the module's forward
+# Mean conv_iter the JAX package records for the same checkpoints, batch and
+# SNR (BENCH_r05.json: iteration counts, not speeds), and the window held.
+GNN_MEAN_CONV = {10: 4.45, 20: 3.86}
+GNN_MEAN_CONV_WINDOW = 0.5
+
+
+def gnn_bound_ms(qc, h: int, inject: bool, kind: str, conv: torch.Tensor) -> tuple[float, str]:
+    """Least time for this batch's corrected-GNN decode, derived in the header
+    of ldpc_tpu_torch/ops/csrc/fused_gnn.cu: products at the dense bf16
+    tensor-core rate, elementwise and min-sum work at the float32 rate, LLRs
+    read and soft bits written once; a frame needs conv_iter iterations and
+    2 conv_iter - 1 corrections."""
+    E, n, M = qc.num_edges, qc.num_vars, qc.num_base_rows * qc.Z
+    inj = int(inject)
+    iterations = float(conv.sum().item())
+    corrections = float((2 * conv - 1).sum().item())
+    first = 2 * h * h * (2 * E + (1 + 2 * inj) * n + M)
+    if kind == "corrected_v2":
+        products = first + 4 * h * E
+        elementwise = (8 + inj) * h * E + (2 + 3 * inj) * h * n + 3 * h * M + E
+    else:
+        products = first + (4 * h * h + 2 * h) * E
+        elementwise = (15 + inj) * h * E + (1 + 3 * inj) * h * n + h * M + E
+    t_tensor = corrections * products / PEAK_BF16_TENSOR_OPS
+    t_f32 = ((corrections * elementwise + iterations * (12 * E + 4 * M + 2 * n)) / PEAK_F32_OPS
+             + iterations * (E + M) / PEAK_I32_OPS)
+    t_bytes = conv.shape[0] * (8 * n + 4) / PEAK_BYTES
+    t_ops = max(t_tensor, t_f32)
+    return (t_ops * 1e3, "operations") if t_ops >= t_bytes else (t_bytes * 1e3, "bytes")
+
+
+def gnn_compare(dec, llr: torch.Tensor, label: str, phase: str = "gnn_compare",
+                kernel_out=None, plain_out=None) -> float:
+    """A corrected-GNN kernel against its plain version on the card
+    (``kernel_out``, ``plain_out``: their results on ``llr``, if already at
+    hand); returns the max |soft difference| over frames whose conv_iter
+    agrees."""
+    out_k = kernel_out if kernel_out is not None else dec(llr)
+    out_p = plain_out if plain_out is not None else dec.plain(llr)
+    torch.cuda.synchronize()
+    if dec.return_iterations:
+        (soft_k, conv_k), (soft_p, conv_p) = out_k, out_p
+    else:
+        soft_k, soft_p = out_k, out_p
+        conv_k = conv_p = torch.full((llr.shape[0],), float(dec.num_iterations), device=llr.device)
+    assert soft_k.shape == soft_p.shape == llr.shape and soft_k.dtype == torch.float32, label
+    assert bool(torch.isfinite(soft_k).all()) and float(soft_k.min()) >= 0.0 \
+        and float(soft_k.max()) <= 1.0, label
+    same = conv_k == conv_p
+    conv_agreement = same.float().mean().item()
+    bit_agreement = ((soft_k > 0.5) == (soft_p > 0.5)).float().mean().item()
+    err = (soft_k - soft_p)[same].abs().max().item() if bool(same.any()) else 0.0
+    ok = (err <= GNN_SOFT_ATOL and bit_agreement >= GNN_MIN_BIT_AGREEMENT
+          and conv_agreement >= GNN_MIN_CONV_AGREEMENT)
+    emit({"phase": phase, "case": label, "frames": llr.shape[0], "max_abs_err": err,
+          "bit_agreement": bit_agreement, "conv_agreement": conv_agreement,
+          "mean_conv_iter": conv_k.mean().item(), "ok": ok})
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version: {label}")
+    return err
+
+
+def perturbed_model(plan, T: int, h: int, inject: bool, share: bool, scale: float, seed: int):
+    """A corrected decoder with trained-like parameters: initialised from a
+    seed, then every parameter moved by scale * normal noise, so that the
+    projections are non-zero and the corrections matter."""
+    from ldpc_tpu_torch.models import create_corrected_minsum_gnn_decoder
+
+    gen = torch.Generator().manual_seed(seed)
+    model = create_corrected_minsum_gnn_decoder(plan, num_iterations=T, hidden_dim=h,
+                                                input_injection=inject, share_layers=share,
+                                                generator=gen)
+    with torch.no_grad():
+        for param in model.parameters():
+            param.add_((scale * torch.randn(param.shape, generator=gen)).to(param.device))
+    return model
+
+
+def gnn_phases(smi: str) -> list[dict]:
+    from ldpc_tpu_torch import convert
+    from ldpc_tpu_torch.codes import encoder_from_H, expand_base_matrix, get_base_graph, qc_layout
+    from ldpc_tpu_torch.models import create_corrected_minsum_gnn_decoder
+    from ldpc_tpu_torch.ops import fused_gnn as fg, fused_minsum as fm, qc_msg
+    from ldpc_tpu_torch.utils import bpsk_awgn_llr, compute_ber_fer
+    from ldpc_tpu_torch.utils.metrics import decode_throughput
+
+    lib = fg.kernel_library()
+    builders = {"corrected_v2": fg.make_fused_corrected_gnn_decoder_v2,
+                "corrected": fg.make_fused_corrected_gnn_decoder}
+    max_err = {kind: 0.0 for kind in builders}
+
+    # 6. gnn_compare
+    # Frames at three SNRs each, so that some stop after one iteration, some
+    # after two and some never.  The parameter noise is smaller at h=64: the
+    # bf16 steps grow with the activations, and with them what one flipped
+    # rounding moves.
+    for code, Z, h, B, snrs, scale in (("toy_4x8", 4, 16, 37, (1.0, 3.0, 6.0), 0.05),
+                                       ("nr_2_0_4", 4, 64, 21, (1.0, 4.0, 7.0), 0.02),
+                                       ("nr_2_0_32", 32, 64, 13, (1.0, 4.0, 7.0), 0.02)):
+        qc = qc_layout(get_base_graph(code), Z)
+        plan = qc_msg.make_plan(qc)
+        dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges, qc.num_edge_types)
+        llr = torch.cat([llrs(qc.num_vars, len(range(i, B, 3)), snr, seed=Z + h + i)
+                         for i, snr in enumerate(snrs)])
+        cases = [(inject, False, ee) for inject in (True, False) for ee in (False, True)]
+        cases.append((True, True, True))  # share_layers once
+        for kind, build in builders.items():
+            # the wrapper's shared-memory and scratch plans are the kernel's
+            assert lib.ldpc_corrected_gnn_smem_bytes(fg.VARIANT[kind], h, *dims) \
+                == fg.corrected_smem_bytes(kind, qc, h)
+            assert lib.ldpc_corrected_gnn_scratch_floats(h, *dims[:3]) \
+                == fg.corrected_scratch_floats(qc, h)
+            for inject, share, ee in cases:
+                model = perturbed_model(plan, 2, h, inject, share, scale, seed=7)
+                dec = build(qc, model, 2, h, share_layers=share, input_injection=inject,
+                            early_exit=ee, return_iterations=ee)
+                label = (f"{kind} {code} Z={Z} h={h} B={B} T=2 inject={inject} "
+                         f"share={share} early_exit={ee}")
+                max_err[kind] = max(max_err[kind], gnn_compare(dec, llr, label))
+
+    # The noise floor of that comparison, at nr_2_0_32 Z=32 h=64: the plain
+    # version on the card against itself on the CPU (the same function, another
+    # summation order inside torch.matmul) beside the kernel against the plain
+    # version.  At T=1 a single correction reaches the output and no flipped
+    # bf16 rounding can cascade: there the kernel is held within 1e-5; at T=2
+    # within the bar above.  T=3 is beyond that bar and is measured, not held to
+    # it: one model of three iterations decoded to depth 1, 2 and 3 (a decoder of
+    # depth d runs the model's first d iterations), which shows the iteration at
+    # which kernel and plain version first differ by more than 1e-5, how the
+    # error grows from there, and what share of the outputs it touches.  Held at
+    # every depth: decisions equal on >= 99.9% of bits.
+    qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
+    plan32 = qc_msg.make_plan(qc32)
+    n = qc32.num_vars
+    llr = llrs(n, 3, 3.0, seed=32)
+    model = perturbed_model(plan32, 3, 64, True, False, 0.02, seed=7)
+    for kind, build in builders.items():
+        by_depth, first_differing = [], None
+        for depth in (1, 2, 3):
+            dec = build(qc32, model, depth, 64, input_injection=True)
+            soft_k, soft_p = dec(llr), dec.plain(llr)
+            soft_cpu = build(qc32, model, depth, 64, input_injection=True, device="cpu")(llr.cpu())
+            diff = (soft_k - soft_p).abs()
+            err = diff.max().item()
+            floor = (soft_p - soft_cpu.to(llr.device)).abs().max().item()
+            agreement = ((soft_k > 0.5) == (soft_p > 0.5)).float().mean().item()
+            if first_differing is None and err > 1e-5:
+                first_differing = depth
+            by_depth.append({"iterations": depth, "max_abs_err": err,
+                             "plain_card_vs_plain_cpu": floor,
+                             "err_over_floor": err / floor if floor > 0 else None,
+                             "outputs_above_1e-3": (diff > 1e-3).float().mean().item(),
+                             "bit_agreement": agreement})
+            bar = {1: 1e-5, 2: GNN_SOFT_ATOL}.get(depth)
+            if agreement < GNN_MIN_BIT_AGREEMENT or (bar is not None and err > bar):
+                raise AssertionError(f"{kind} kernel disagrees with its plain version at "
+                                     f"{depth} iterations: {by_depth[-1]}")
+            if bar is not None:
+                max_err[kind] = max(max_err[kind], err)
+        emit({"phase": "gnn_compare", "case": f"noise floor {kind} nr_2_0_32 h=64",
+              "first_iteration_differing": first_differing, "by_depth": by_depth, "ok": True})
+
+    # 7. gnn_zero_init: untrained corrections are zero -> exactly min-sum
+    T0, B0 = 10, 512
+    llr = llrs(n, B0, 1.5, seed=11)
+    bits_ms, conv_ms = fm.make_fused_minsum(qc32, T0, 0.8, early_exit=True)(llr)
+    untrained = create_corrected_minsum_gnn_decoder(
+        plan32, num_iterations=T0, hidden_dim=64, input_injection=True,
+        generator=torch.Generator().manual_seed(5))
+    for kind, build in builders.items():
+        soft, conv = build(qc32, untrained, T0, 64, early_exit=True, return_iterations=True)(llr)
+        torch.cuda.synchronize()
+        bits_same = bool(torch.equal((soft > 0.5).float(), bits_ms))
+        conv_same = bool(torch.equal(conv, conv_ms.float()))
+        emit({"phase": "gnn_zero_init", "kernel": kind, "batch": B0, "iterations": T0,
+              "bits_identical": bits_same, "conv_iter_identical": conv_same,
+              "mean_conv_iter": conv.mean().item(),
+              "converged_share": (conv < T0).float().mean().item()})
+        if not (bits_same and conv_same):
+            raise AssertionError(f"untrained {kind} kernel is not the fused min-sum decoder")
+
+    # 8. gnn_main: trained checkpoints, nr_2_0_32 Z=32 h=64, batch 2048, 0 dB
+    H, B, SNR, HARD_SNR = 64, 2048, 0.0, -3.0
+    llr = llrs(n, B, SNR, seed=2)
+    llr_hard = llrs(n, 64, HARD_SNR, seed=9)
+    entries = []
+    results = Path(__file__).resolve().parent / "results"
+    runs = (("corrected_v2", 10, "corrected10_gnn_nr_2_0_32_ft3.msgpack", True),
+            ("corrected_v2", 20, "corrected20_gnn_nr_2_0_32_ft.msgpack", False),
+            ("corrected", 10, "corrected10_gnn_nr_2_0_32_ft3.msgpack", True))
+    models = {}
+    for kind, T, ckpt, in_kernels_line in runs:  # the T=20 run is an extra reading of corrected_v2
+        if T not in models:
+            models[T] = create_corrected_minsum_gnn_decoder(
+                plan32, num_iterations=T, hidden_dim=H, input_injection=True)
+            convert.load_message_gnn(results / ckpt, models[T])  # missing file: raises
+        model = models[T]
+        dec = builders[kind](qc32, model, T, H, input_injection=True, early_exit=True,
+                             return_iterations=True)
+        for key in fg.LAUNCHES:
+            fg.LAUNCHES[key] = 0
+        counted_out = dec(llr)
+        soft, conv = counted_out
+        torch.cuda.synchronize()
+        launches = dict(fg.LAUNCHES)
+        if launches[kind] != 1:
+            raise AssertionError(f"gnn main path did not run the {kind} kernel: {launches}")
+        assert soft.shape == (B, n) and conv.shape == (B,) and conv.dtype == torch.float32
+        assert bool(torch.isfinite(soft).all()) and float(soft.min()) >= 0.0 \
+            and float(soft.max()) <= 1.0
+        mean_conv = conv.mean().item()
+        if abs(mean_conv - GNN_MEAN_CONV[T]) > GNN_MEAN_CONV_WINDOW:
+            raise AssertionError(f"{kind} T={T}: mean conv_iter {mean_conv} is outside "
+                                 f"{GNN_MEAN_CONV[T]} +- {GNN_MEAN_CONV_WINDOW}")
+        ms, _ = cuda_ms(lambda: dec(llr), reps=3)
+        # The counted launch's whole batch against the plain version's timed run
+        # on the same batch: the shape at which the kernel is timed, every block
+        # walking many frames.
+        plain_ms, plain_out = cuda_ms(lambda: dec.plain(llr), reps=1)
+        err = gnn_compare(dec, llr, f"{kind} main path T={T} whole batch", phase="gnn_main",
+                          kernel_out=counted_out, plain_out=plain_out)
+        del plain_out
+        # At 0 dB nearly every frame stops and emits 0/1 decisions; at HARD_SNR
+        # about half the frames run all T iterations and emit soft values.
+        err = max(err, gnn_compare(dec, llr_hard, f"{kind} T={T} {HARD_SNR} dB, 64 frames",
+                                   phase="gnn_main"))
+        # A frame that stopped did so on a valid syndrome: hold that with the
+        # tensor-op syndrome check, which shares nothing with the kernel.
+        stopped = conv < T
+        valid = qc_msg.syndrome_ok(qc_msg.llr_to_cz((soft[stopped] > 0.5).float(), plan32), plan32)
+        if not bool(valid.all()):
+            raise AssertionError(f"{kind} T={T}: a stopped frame is no codeword")
+        bms, bby = gnn_bound_ms(qc32, H, True, kind, conv)
+        # all-zero codewords: decisions of 1 are errors
+        hard = (soft > 0.5).float()
+        emit({"phase": "gnn_main", "kernel": kind, "checkpoint": ckpt, "code": "nr_2_0_32",
+              "Z": 32, "hidden_dim": H, "iterations": T, "batch": B, "snr_db": SNR,
+              "launches": launches, "ms_per_batch": ms,
+              "bits_per_s": decode_throughput(B, n, ms / 1e3, name=f"{kind}_T{T}"),
+              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+              "mean_conv_iter": mean_conv, "converged_share": (conv < T).float().mean().item(),
+              "ber_zero_codeword": hard.mean().item(),
+              "fer_zero_codeword": (hard.sum(dim=1) > 0).float().mean().item(),
+              "nvidia_smi": smi})
+        if in_kernels_line:
+            entries.append({
+                "name": kind, "route": "cuda", "source": "ldpc_tpu_torch/ops/csrc/fused_gnn.cu",
+                "replaces": "ldpc_tpu/ops/pallas_gnn.py:" + ("1791" if kind == "corrected_v2"
+                                                            else "1341"),
+                "launches": launches[kind], "max_abs_err": max(max_err[kind], err), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None})
+
+    # The fixed-T kernel against the module's own forward (bf16) on the main
+    # path's LLRs and on the hard ones, within the JAX package's bar.
+    model = models[10]
+    fixed = fg.make_fused_corrected_gnn_decoder_v2(qc32, model, 10, H, input_injection=True)
+    module_err = {}
+    for label, x in (("main", llr[:64]), ("hard", llr_hard)):
+        with torch.no_grad():
+            soft_module, _ = model(x, plan32)
+        soft_fixed = fixed(x)
+        torch.cuda.synchronize()
+        module_err[label] = {
+            "max_abs_err": (soft_fixed - soft_module).abs().max().item(),
+            "bit_agreement": ((soft_fixed > 0.5) == (soft_module > 0.5)).float().mean().item(),
+            "frames_in_error": ((soft_module > 0.5).sum(dim=1) > 0).float().mean().item()}
+    # BER / FER on GF(2)-encoded random codewords (the all-zero codeword
+    # misleads for this family, which is not sign-symmetric).
+    enc = encoder_from_H(expand_base_matrix(get_base_graph("nr_2_0_32"), 32))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tx = enc.random_codewords(gen, B)
+    early = fg.make_fused_corrected_gnn_decoder_v2(qc32, model, 10, H, input_injection=True,
+                                                   early_exit=True, return_iterations=True)
+    CODEWORD_SNR = -2.0
+    soft_tx, conv_tx = early(bpsk_awgn_llr(gen, tx, CODEWORD_SNR))
+    ber, fer = (float(x) for x in compute_ber_fer(tx, (soft_tx > 0.5).float()))
+    ok = (max(e["max_abs_err"] for e in module_err.values()) <= GNN_MODULE_ATOL
+          and min(e["bit_agreement"] for e in module_err.values()) >= GNN_MIN_BIT_AGREEMENT
+          and fer < 0.2)
+    emit({"phase": "gnn_main", "case": "fixed T=10 corrected_v2 vs MessageGNNDecoder forward, "
+          "64 frames", "snr_db": {"main": SNR, "hard": HARD_SNR}, "module": module_err,
+          "random_codewords": {"snr_db": CODEWORD_SNR, "batch": B, "ber": ber, "fer": fer,
+                               "mean_conv_iter": conv_tx.mean().item()}, "ok": ok})
+    if not ok:
+        raise AssertionError("corrected_v2 disagrees with the module, or does not decode")
+    return entries
+
+
+def build_all() -> dict:
+    """Compile every CUDA source of the port, one nvcc per source, together."""
+    from ldpc_tpu_torch.ops import _build
+
+    stems = ("fused_minsum", "fused_gnn")
+    with ThreadPoolExecutor(len(stems)) as pool:
+        list(pool.map(_build.build, stems))
+    return {stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
+                   if "registers" in ln or "spill" in ln] for stem in stems}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=["classical", "gnn"], default=None)
+    only = ap.parse_args(argv).only
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 1
+
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+    from ldpc_tpu_torch.ops import fused_gnn as fg, fused_minsum as fm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # 2. build
+    t0 = time.time()
+    ptxas = build_all()
+    lib = fm.kernel_library()
+    # Resident blocks per SM of the main-path kernels, from the CUDA runtime.
+    occupancy = {}
+    for code, Z in (("nr_2_0_32", 32), ("nr_2_0_32", 384)):
+        qc = qc_layout(get_base_graph(code), Z)
+        dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
+        if Z == 32:
+            fpb = fm.pick_fused_batch_tile(qc)
+            occupancy[f"fused Z={Z} frames_per_block={fpb}"] = lib.ldpc_fused_occupancy(*dims, fpb, 0, 0)
+            for name, variant in fg.VARIANT.items():
+                occupancy[f"{name} Z={Z} h=64"] = fg.kernel_library().ldpc_corrected_gnn_occupancy(
+                    variant, 64, *dims, qc.num_edge_types)
+        else:
+            occupancy[f"fused_zlane Z={Z}"] = lib.ldpc_zlane_occupancy(*dims, 0, 0)
+    if min(occupancy.values()) < 1:
+        raise AssertionError(f"a main-path kernel cannot be resident: {occupancy}")
+    emit({"phase": "build", "seconds": round(time.time() - t0, 3), "ptxas": ptxas,
+          "blocks_per_sm": occupancy})
+
+    entries = []
+    if only != "gnn":
+        entries += classical_phases(lib, smi)
+    if only != "classical":
+        entries += gnn_phases(smi)
+
+    # 9. kernels
+    print(smi, flush=True)
+    emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -8,6 +8,9 @@ imports torch and numpy only, never JAX or ``ldpc_tpu``:
 - QC message-passing ops (plain PyTorch)           -> :mod:`ldpc_tpu_torch.ops.qc_msg`
 - Fused decode kernels, CUDA C++ for Hopper        -> :mod:`ldpc_tpu_torch.ops.fused_minsum`
 - Classical BP / scaled min-sum decoders           -> :mod:`ldpc_tpu_torch.models`
+- Message-centered GNN decoder family              -> :mod:`ldpc_tpu_torch.models.message_gnn`
+- Fused corrected-GNN serving kernels, CUDA C++    -> :mod:`ldpc_tpu_torch.ops.fused_gnn`
+- flax msgpack checkpoints -> ``state_dict``       -> :mod:`ldpc_tpu_torch.convert`
 
 Entry points take ``device`` (default ``"cuda"``) and raise without a card
 unless given ``device="cpu"``; random functions take a ``torch.Generator``.

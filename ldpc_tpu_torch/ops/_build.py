@@ -24,6 +24,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# Flags of single sources.  fused_gnn: no contraction of a * b + c into an
+# FMA, so its min-sum skeleton rounds like the plain version; its matrix
+# products call fmaf themselves.
+EXTRA_FLAGS: dict[str, tuple[str, ...]] = {"fused_gnn": ("-fmad=false",)}
+
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
@@ -38,7 +43,8 @@ def nvcc_path() -> str:
 
 def library_path(stem: str) -> Path:
     src = _CSRC / f"{stem}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(stem, ())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{stem}_{digest}.so"
 
 
@@ -53,7 +59,8 @@ def build(stem: str) -> Path:
     if lib.exists():
         return lib
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{stem}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *EXTRA_FLAGS.get(stem, ()), "-o", str(tmp),
+           str(_CSRC / f"{stem}.cu")]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lib.with_name(lib.name + ".log").write_text(proc.stdout)
     if proc.returncode != 0:

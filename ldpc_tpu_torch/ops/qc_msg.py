@@ -252,3 +252,60 @@ def syndrome_ok(bits_cz: torch.Tensor, plan: QCPlan) -> torch.Tensor:
     grouped = group_to_check(bits_edge, plan, pad_value=0.0)
     parity = torch.remainder(torch.sum(grouped, dim=1), 2.0)  # (R, Z, B)
     return torch.all((parity == 0.0).reshape(-1, parity.shape[-1]), dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Feature-space group aggregations (message-GNN support)
+# ---------------------------------------------------------------------------
+#
+# The normalized-adjacency aggregation of the message GNN is exactly the
+# within-group mean (the same-variable and same-check graphs are disjoint
+# unions of cliques), so both are incidence products over the QC layout.
+
+
+def _incidence_sum(inc: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+    """(G, K) 0/1 incidence times (K, ...) features, accumulated in float32."""
+    K = feats.shape[0]
+    flat = feats.reshape(K, -1).to(torch.float32)
+    return torch.matmul(inc, flat).reshape((inc.shape[0],) + tuple(feats.shape[1:]))
+
+
+def var_group_mean(feats: torch.Tensor, plan: QCPlan) -> torch.Tensor:
+    """Mean over messages sharing my variable: (K, Z, B, H) -> (K, Z, B, H).
+
+    Sums accumulate in float32; the mean is cast back to the input dtype.
+    """
+    sums = _incidence_sum(plan.col_incidence, feats)
+    counts = plan.col_incidence.sum(dim=1)[:, None, None, None]
+    mean = (sums / torch.clamp(counts, min=1.0)).to(feats.dtype)
+    return mean[plan.edge_col]
+
+
+def check_group_mean(feats: torch.Tensor, plan: QCPlan) -> torch.Tensor:
+    """Mean over messages sharing my check: (K, Z, B, H) -> (K, Z, B, H).
+
+    Roll to check alignment, incidence product, distribute, roll back.  Sums
+    accumulate in float32; the mean is cast back to the input dtype.
+    """
+    K, Z, B, H = feats.shape
+    to_check = plan.roll_to_check[:, :, None, None].expand(K, Z, B, H)
+    rolled = torch.gather(feats, 1, to_check)
+    rowsum = _incidence_sum(plan.row_incidence, rolled)
+    counts = plan.row_incidence.sum(dim=1)[:, None, None, None]
+    rowmean = (rowsum / torch.clamp(counts, min=1.0)).to(feats.dtype)
+    per_edge_chk = rowmean[plan.edge_row]  # (K, Z, B, H) check-aligned
+    to_var = plan.roll_to_var[:, :, None, None].expand(K, Z, B, H)
+    return torch.gather(per_edge_chk, 1, to_var)
+
+
+# ---------------------------------------------------------------------------
+# Per-edge parameter plumbing
+# ---------------------------------------------------------------------------
+
+
+def flat_to_qc_var(flat_params, qc: QCLayout):
+    """Reference-ordered flat per-edge vector (E,) -> var-aligned (K, Z)."""
+    idx = qc.flat_edge_id_var_aligned()
+    if isinstance(flat_params, torch.Tensor):
+        return flat_params[torch.as_tensor(idx, dtype=torch.int64, device=flat_params.device)]
+    return flat_params[idx]
