@@ -44,15 +44,45 @@ Phases, one JSON line each:
              frames fail) against the plain version, stopped frames against
              the tensor-op syndrome check, the fixed-T kernel against the module's forward
              within 3e-2, and BER/FER on encoded random codewords.
-9. kernels — per kernel: launches in its path's run, max abs error against
+9. nms_compare — the trained neural min-sum kernel (fused_neural) against
+             its plain version on perturbed parameters: every weight
+             sharing, depth 0-3, alpha and offset shared and per iteration,
+             at nr_2_0_4 Z=4, nr_2_0_32 Z=32 and Z=128 (state in global
+             scratch).  Bits identical.
+10. nms_unit — unit weights (scalar w_ch 1, depth 0, alpha 1, offset 0)
+             against fused min-sum at alpha 1 without tracking: decisions
+             equal on >= 99.99% of bits (the variable update adds in another
+             order), the count printed.
+11. nms_main — results/oms10_per_iter_nr_2_0_32.msgpack (T=10, depth 2, per
+             iteration) at nr_2_0_32 Z=32, batch 65536 GF(2)-encoded random
+             codewords, QPSK at -3 dB: BER within 5% of 8.89e-3
+             (results/README.md), the whole batch identical to the plain
+             version.
+12. msg_gnn_compare — the fully-neural kernels (msg_gnn_v2, msg_gnn)
+             against their plain versions, T=2, h 16 and 64, injection and
+             share_layers, seeded parameters moved by 0.02 noise: soft bits
+             within 3e-2, decisions identical where the plain version is
+             confident (|p - 0.5| > 0.05).  Then one T=3 model decoded to
+             depth 1, 2, 3 beside the plain version's card-against-CPU
+             difference (printed).
+13. msg_gnn_main — bench.py section_msg_gnn at full width: nr_2_0_32 Z=32
+             h=64, T=20, no injection, batch 2048, BPSK all-zero at 3 dB:
+             msg_gnn_v2 (as the bench serves it) and msg_gnn, each whole
+             batch against the plain version: decisions equal on >= 99.9%.
+14. serve  — ldpc_tpu_torch.serve_trained_decoder with --model message_gnn
+             and --model neural_minsum on the committed nr_2_0_4 checkpoints
+             (defaults: batch 4096, 0 dB), BER/FER printed beside
+             results/nr_2_0_4_comparison.json's; each launch counter moves.
+15. kernels — per kernel: launches in its path's run, max abs error against
              the plain version, kernel / plain time, and the bound: the
-             operations the batch's frames need over their conv_iter
-             iterations, or its bytes, whichever takes longer on the card.
+             operations the batch's frames need (over their conv_iter
+             iterations where they stop early), or its bytes, whichever
+             takes longer on the card.
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
-``--only classical`` or ``--only gnn`` runs the build and that half alone
-(for development; the kernels line then lists that half).
+``--only classical|gnn|nms|msg_gnn`` runs the build and that part alone (for
+development; the kernels line then lists that part).
 """
 from __future__ import annotations
 
@@ -352,6 +382,14 @@ def gnn_compare(dec, llr: torch.Tensor, label: str, phase: str = "gnn_compare",
     return err
 
 
+def add_noise(model, scale: float, gen: torch.Generator):
+    """Every parameter of ``model`` moved by scale * normal noise from ``gen``."""
+    with torch.no_grad():
+        for param in model.parameters():
+            param.add_((scale * torch.randn(param.shape, generator=gen)).to(param.device))
+    return model
+
+
 def perturbed_model(plan, T: int, h: int, inject: bool, share: bool, scale: float, seed: int):
     """A corrected decoder with trained-like parameters: initialised from a
     seed, then every parameter moved by scale * normal noise, so that the
@@ -362,10 +400,7 @@ def perturbed_model(plan, T: int, h: int, inject: bool, share: bool, scale: floa
     model = create_corrected_minsum_gnn_decoder(plan, num_iterations=T, hidden_dim=h,
                                                 input_injection=inject, share_layers=share,
                                                 generator=gen)
-    with torch.no_grad():
-        for param in model.parameters():
-            param.add_((scale * torch.randn(param.shape, generator=gen)).to(param.device))
-    return model
+    return add_noise(model, scale, gen)
 
 
 def gnn_phases(smi: str) -> list[dict]:
@@ -578,27 +613,405 @@ def gnn_phases(smi: str) -> list[dict]:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The trained neural min-sum path
+# ---------------------------------------------------------------------------
+
+# OMS(10, per-iter) on nr_2_0_32 Z=32 at -3 dB, QPSK, GF(2)-encoded random
+# codewords, 1.0e9 bits (results/README.md, table row -3 dB), and the window held.
+NMS_BER_REF = 8.89e-3
+NMS_BER_WINDOW = 0.05
+NMS_UNIT_MIN_AGREEMENT = 0.9999
+
+
+def nms_bound_ms(qc, T: int, L: int, B: int) -> tuple[float, str]:
+    """Least time for a batch of the trained min-sum decode, derived in the
+    header of ldpc_tpu_torch/ops/csrc/fused_neural.cu: T check halves and
+    T - 1 variable halves of float32 work (none an FMA), LLRs read and bits
+    written once."""
+    E, M, n = qc.num_edges, qc.num_base_rows * qc.Z, qc.num_vars
+    ops = T * (7 * E + 8 * M) + (T - 1) * (4 + 2 * L) * E + E + 2 * n
+    t_ops = B * ops / PEAK_F32_OPS * 1e3
+    t_bytes = (B * n * 8 + T * E * 4) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def perturbed_nms(plan, seed: int, scale: float = 0.1, **kw):
+    """A NeuralMinSumDecoder with every parameter moved by scale * normal
+    noise from a seed, so that weights, taps, alpha and offset all matter."""
+    from ldpc_tpu_torch.models import NeuralMinSumDecoder
+
+    model = NeuralMinSumDecoder(plan, **kw)
+    gen = torch.Generator().manual_seed(seed)
+    return add_noise(model, scale, gen)
+
+
+def nms_phases(smi: str) -> list[dict]:
+    from ldpc_tpu_torch import convert
+    from ldpc_tpu_torch.codes import encoder_from_H, expand_base_matrix, get_base_graph, qc_layout
+    from ldpc_tpu_torch.models import NeuralMinSumDecoder
+    from ldpc_tpu_torch.ops import fused_minsum as fm, fused_neural as fn, qc_msg
+    from ldpc_tpu_torch.utils import compute_ber_fer, qpsk_awgn_llr
+    from ldpc_tpu_torch.utils.metrics import decode_throughput
+
+    lib = fn.kernel_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # nms_compare: every weight sharing, depth 0-3, alpha and offset shared
+    # and per iteration, perturbed parameters; Z=128 keeps the state in global
+    # scratch, where each resident block loops over frames: the last case
+    # hands every block three frames or more.  Bits identical to the plain
+    # version.
+    max_err = 0.0
+    cases = [("nr_2_0_4", 4, 37, "scalar", 0, False, False, False),
+             ("nr_2_0_4", 4, 37, "cell", 2, True, False, False),
+             ("nr_2_0_4", 4, 37, "type", 1, True, False, True),
+             ("nr_2_0_4", 4, 37, "edge", 2, True, True, True),
+             ("nr_2_0_32", 32, 13, "edge", 2, True, True, True),
+             ("nr_2_0_32", 32, 13, "type", 0, True, True, False),
+             ("nr_2_0_32", 32, 13, "cell", 1, False, True, True),
+             ("nr_2_0_32", 128, 5, "edge", 2, True, True, True),
+             ("nr_2_0_32", 128, 5, "scalar", 3, True, False, False),
+             ("nr_2_0_32", 128, None, "edge", 2, True, True, True)]
+    for code, Z, B, sharing, L, learn_a, learn_o, per_it in cases:
+        qc = qc_layout(get_base_graph(code), Z)
+        plan = qc_msg.make_plan(qc)
+        T = 5
+        model = perturbed_nms(plan, seed=Z + L, num_iterations=T, depth_L=L,
+                              weight_sharing=sharing, learnable_alpha=learn_a,
+                              learnable_offset=learn_o, per_iteration=per_it)
+        dec = fn.make_fused_neural_minsum(qc, model, T, L, per_iteration=per_it)
+        dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges, T, L)
+        # the wrapper's shared-memory plan is the kernel's
+        assert lib.ldpc_neural_smem_bytes(*dims, dec.frames_per_block, int(dec.shared)) == \
+            fn.neural_smem_bytes(qc, T, L, dec.frames_per_block, dec.shared)
+        resident = None if dec.shared else lib.ldpc_neural_occupancy(*dims, 1, 0) * sms
+        if B is None:  # three frames or more for every resident block
+            B = 3 * resident + 1
+        llr = torch.cat([llrs(qc.num_vars, len(range(i, B, 2)), snr, seed=Z + i)
+                         for i, snr in enumerate((0.5, 2.0))])
+        bits_k, bits_p = dec(llr), dec.plain(llr)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(bits_k, bits_p))
+        max_err = max(max_err, (bits_k - bits_p).abs().max().item())
+        emit({"phase": "nms_compare", "case": f"{code} Z={Z} B={B} T={T} {sharing} L={L} "
+              f"alpha={learn_a} offset={learn_o} per_iteration={per_it}",
+              "state": "shared" if dec.shared else "global", "frames_per_block":
+              dec.frames_per_block, "resident_blocks": resident, "bits_identical": same,
+              "bit_errors_vs_zero": int(bits_k.sum().item()), "ok": same})
+        if not same:
+            raise AssertionError("fused_neural kernel disagrees with its plain version")
+
+    qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
+    plan32 = qc_msg.make_plan(qc32)
+    n = qc32.num_vars
+
+    # nms_unit: unit weights are plain min-sum at alpha 1.  The variable update
+    # adds in another order than fused's ((colsum - c2v) + llr against
+    # (llr + colsum) - c2v), so decisions may differ on a few bits.
+    T_UNIT, B_UNIT = 10, 4096
+    unit = NeuralMinSumDecoder(plan32, num_iterations=T_UNIT, depth_L=0, weight_sharing="scalar")
+    llr = llrs(n, B_UNIT, 1.0, seed=21)
+    bits_u = fn.make_fused_neural_minsum(qc32, unit, T_UNIT, 0)(llr)
+    bits_f, _ = fm.make_fused_minsum(qc32, T_UNIT, 1.0, track_convergence=False)(llr)
+    differ = int((bits_u != bits_f).sum().item())
+    agreement = 1.0 - differ / bits_u.numel()
+    ok = agreement >= NMS_UNIT_MIN_AGREEMENT
+    emit({"phase": "nms_unit", "batch": B_UNIT, "iterations": T_UNIT, "snr_db": 1.0,
+          "bits_differing": differ, "bit_agreement": agreement,
+          "frame_errors_fused": int((bits_f.sum(dim=1) > 0).sum().item()), "ok": ok})
+    if not ok:
+        raise AssertionError("unit-weight fused_neural is not min-sum")
+
+    # nms_main: the trained per-iteration offset min-sum of
+    # tools/high_precision_flagship.py at nr_2_0_32 Z=32, -3 dB.
+    T, L, B, SNR = 10, 2, 65536, -3.0
+    ckpt = "oms10_per_iter_nr_2_0_32.msgpack"
+    model = NeuralMinSumDecoder(plan32, num_iterations=T, depth_L=L, weight_sharing="edge",
+                                learnable_alpha=True, learnable_offset=True, per_iteration=True,
+                                loss_mode="mean")
+    convert.load_neural_min_sum(Path(__file__).resolve().parent / "results" / ckpt, model)
+    enc = encoder_from_H(expand_base_matrix(get_base_graph("nr_2_0_32"), 32))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tx = enc.random_codewords(gen, B)
+    llr = qpsk_awgn_llr(gen, tx, SNR)
+    dec = fn.make_fused_neural_minsum(qc32, model, T, L, per_iteration=True)
+    fn.LAUNCHES["fused_neural"] = 0
+    bits = dec(llr)
+    torch.cuda.synchronize()
+    launches = fn.LAUNCHES["fused_neural"]
+    if launches != 1:
+        raise AssertionError(f"nms main path did not run the fused_neural kernel: {launches}")
+    assert bits.shape == (B, n) and bits.dtype == torch.float32
+    ber, fer = (float(x) for x in compute_ber_fer(tx, bits))
+    ms, _ = cuda_ms(lambda: dec(llr), reps=5)
+    plain_ms, bits_p = cuda_ms(lambda: dec.plain(llr), reps=1)
+    same = bool(torch.equal(bits, bits_p))
+    max_err = max(max_err, (bits - bits_p).abs().max().item())
+    del bits_p
+    bms, bby = nms_bound_ms(qc32, T, L, B)
+    # Where the time goes: the same batch through a decoder of depth 1 (the
+    # seed, one check half, the output) and through one without residual taps
+    # (L=0).  A fixed T: the time depends on the shape, not on the weights.
+    variants_ms = {}
+    for name, depth, taps in (("depth_1", 1, L), ("no_taps", T, 0)):
+        other = perturbed_nms(plan32, seed=depth + taps, num_iterations=depth, depth_L=taps,
+                              weight_sharing="edge", learnable_alpha=True,
+                              learnable_offset=True, per_iteration=True)
+        vdec = fn.make_fused_neural_minsum(qc32, other, depth, taps, per_iteration=True)
+        variants_ms[name] = cuda_ms(lambda: vdec(llr), reps=5)[0]
+    variants_ms["per_iteration"] = (ms - variants_ms["depth_1"]) / (T - 1)
+    ok = same and abs(ber / NMS_BER_REF - 1.0) <= NMS_BER_WINDOW
+    emit({"phase": "nms_main", "checkpoint": ckpt, "code": "nr_2_0_32", "Z": 32,
+          "iterations": T, "depth_L": L, "batch": B, "snr_db": SNR, "launches": launches,
+          "ms_per_batch": ms, "bits_per_s": decode_throughput(B, n, ms / 1e3, name="nms"),
+          "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "ber": ber, "fer": fer,
+          "ber_reference": NMS_BER_REF, "whole_batch_identical": same, "variants_ms": variants_ms,
+          "blocks_per_sm": lib.ldpc_neural_occupancy(32, qc32.num_base_rows, qc32.num_base_cols,
+                                                     qc32.num_base_edges, T, L,
+                                                     dec.frames_per_block, int(dec.shared)),
+          "nvidia_smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"nms main path: identical={same}, BER {ber} against "
+                             f"{NMS_BER_REF} +- {NMS_BER_WINDOW:.0%}")
+    return [{"name": "fused_neural", "route": "cuda",
+             "source": "ldpc_tpu_torch/ops/csrc/fused_neural.cu",
+             "replaces": "ldpc_tpu/ops/pallas_neural.py:111", "launches": launches,
+             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+             "bound_by": bby, "library_ms": None}]
+
+
+# ---------------------------------------------------------------------------
+# The fully-neural message GNN path
+# ---------------------------------------------------------------------------
+
+MSG_SOFT_ATOL = 3e-2  # the JAX package's bar (tests/test_pallas_gnn.py)
+MSG_CONFIDENT = 0.05  # decisions held where the plain version has |p - 0.5| > this
+MSG_MIN_BIT_AGREEMENT = 0.999
+MSG_MIN_MIXED = 1e-3  # least share of each decision among confident bits, where held
+
+
+def msg_bound_ms(qc, h: int, T: int, inject: bool, kind: str, B: int) -> tuple[float, str]:
+    """Least time for a batch of the fully-neural decode, derived in the
+    header of ldpc_tpu_torch/ops/csrc/fused_msg_gnn.cu: the (h, h) products
+    at the dense bf16 tensor-core rate, elementwise work at the float32 rate
+    (the two run beside each other), LLRs read and soft bits written once."""
+    E, n, M = qc.num_edges, qc.num_vars, qc.num_base_rows * qc.Z
+    inj = int(inject)
+    products = B * T * 2 * h * h * (4 * E + n + M + 2 * inj * n)
+    per_layer = (2 * E + n + M) * h + (6 + 2 * inj) * h * E \
+        + (3 if kind == "msg_gnn" else 1) * h * E + (inj * n * h if kind == "msg_gnn" else 0)
+    elementwise = B * (T * per_layer + (T - 1) * h * E + 2 * E * h + 2 * inj * n * h
+                       + 2 * E * h + 2 * E + 4 * n)
+    t_ops = max(products / PEAK_BF16_TENSOR_OPS, elementwise / PEAK_F32_OPS) * 1e3
+    t_bytes = B * n * 8 / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def perturbed_msg_model(plan, T: int, h: int, inject: bool, share: bool, seed: int,
+                        scale: float = 0.02):
+    """A fully-neural decoder initialised from a seed, every parameter moved
+    by scale * normal noise: the zero-init output projection would make the
+    untrained outputs independent of the GNN."""
+    from ldpc_tpu_torch.models import create_message_gnn_decoder
+
+    gen = torch.Generator().manual_seed(seed)
+    model = create_message_gnn_decoder(plan, num_iterations=T, hidden_dim=h,
+                                       input_injection=inject, share_layers=share, generator=gen)
+    return add_noise(model, scale, gen)
+
+
+def msg_compare(soft_k: torch.Tensor, soft_p: torch.Tensor, label: str, phase: str,
+                atol: float | None = MSG_SOFT_ATOL, min_agreement: float | None = None,
+                mixed: bool = False) -> float:
+    """Kernel against plain version: soft bits within ``atol`` and decisions
+    identical where the plain version is confident; or, with
+    ``min_agreement``, decisions equal on that share of all bits.  With
+    ``mixed``, the plain version's confident decisions must hold both values
+    (a run that decides every bit alike cannot tell a kernel from a
+    constant).  Returns the largest soft difference."""
+    torch.cuda.synchronize()
+    assert soft_k.shape == soft_p.shape and soft_k.dtype == torch.float32, label
+    assert bool(torch.isfinite(soft_k).all()) and float(soft_k.min()) >= 0.0 \
+        and float(soft_k.max()) <= 1.0, label
+    err = (soft_k - soft_p).abs().max().item()
+    same = (soft_k > 0.5) == (soft_p > 0.5)
+    confident = (soft_p - 0.5).abs() > MSG_CONFIDENT
+    agreement = same.float().mean().item()
+    confident_same = bool(same[confident].all())
+    ones = (soft_p[confident] > 0.5).float().mean().item()
+    if min_agreement is None:
+        ok = (atol is None or err <= atol) and confident_same
+    else:
+        ok = agreement >= min_agreement
+    if mixed:
+        ok = ok and MSG_MIN_MIXED <= ones <= 1.0 - MSG_MIN_MIXED
+    emit({"phase": phase, "case": label, "frames": soft_k.shape[0], "max_abs_err": err,
+          "bit_agreement": agreement, "confident_share": confident.float().mean().item(),
+          "confident_ones_share": ones, "confident_decisions_identical": confident_same,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version: {label}")
+    return err
+
+
+def msg_gnn_phases(smi: str) -> list[dict]:
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+    from ldpc_tpu_torch.ops import fused_gnn as fg, qc_msg
+    from ldpc_tpu_torch.utils.metrics import decode_throughput
+
+    lib = fg.msg_kernel_library()
+    builders = {"msg_gnn_v2": fg.make_fused_gnn_decoder_v2, "msg_gnn": fg.make_fused_gnn_decoder}
+    max_err = {kind: 0.0 for kind in builders}
+
+    # msg_gnn_compare: T=2, h 16 and 64, injection and share_layers.
+    for code, Z, h, B in (("toy_4x8", 4, 16, 37), ("nr_2_0_4", 4, 64, 21),
+                          ("nr_2_0_32", 32, 64, 13)):
+        qc = qc_layout(get_base_graph(code), Z)
+        plan = qc_msg.make_plan(qc)
+        dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
+        llr = torch.cat([llrs(qc.num_vars, len(range(i, B, 3)), snr, seed=Z + h + i)
+                         for i, snr in enumerate((0.0, 2.0, 4.0))])
+        for inject, share in ((False, False), (True, False), (True, True)):
+            assert lib.ldpc_msg_gnn_smem_bytes(h, *dims) == fg.msg_gnn_smem_bytes(qc, h)
+            assert lib.ldpc_msg_gnn_scratch_floats(h, *dims, int(inject)) == \
+                fg.msg_gnn_scratch_floats(qc, h, inject)
+            model = perturbed_msg_model(plan, 2, h, inject, share, seed=7)
+            for kind, build in builders.items():
+                dec = build(qc, model, 2, h, share_layers=share, input_injection=inject)
+                label = f"{kind} {code} Z={Z} h={h} B={B} T=2 inject={inject} share={share}"
+                err = msg_compare(dec(llr), dec.plain(llr), label, "msg_gnn_compare")
+                max_err[kind] = max(max_err[kind], err)
+
+    # The noise floor at nr_2_0_32 Z=32 h=64: one T=3 model decoded to depth
+    # 1, 2 and 3, the kernel against the plain version beside the plain version
+    # on the card against itself on the CPU.  Printed; decisions held where
+    # the plain version is confident.
+    qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
+    plan32 = qc_msg.make_plan(qc32)
+    n = qc32.num_vars
+    llr = llrs(n, 3, 2.0, seed=32)
+    model = perturbed_msg_model(plan32, 3, 64, True, False, seed=7)
+    for kind, build in builders.items():
+        by_depth = []
+        for depth in (1, 2, 3):
+            dec = build(qc32, model, depth, 64, input_injection=True)
+            soft_k, soft_p = dec(llr), dec.plain(llr)
+            soft_cpu = build(qc32, model, depth, 64, input_injection=True, device="cpu")(llr.cpu())
+            by_depth.append({"iterations": depth,
+                             "max_abs_err": (soft_k - soft_p).abs().max().item(),
+                             "plain_card_vs_plain_cpu":
+                                 (soft_p - soft_cpu.to(llr.device)).abs().max().item()})
+            msg_compare(soft_k, soft_p, f"noise floor {kind} depth {depth}", "msg_gnn_compare",
+                        atol=None)
+        emit({"phase": "msg_gnn_compare", "case": f"noise floor {kind} nr_2_0_32 h=64",
+              "by_depth": by_depth, "ok": True})
+
+    # msg_gnn_main: bench.py section_msg_gnn at full width.
+    H, T, B, SNR = 64, 20, 2048, 3.0
+    llr = llrs(n, B, SNR, seed=12)
+    # The random T=20 model decides every bit 1, so its run cannot tell a
+    # kernel from a constant.  First the whole batch through a T=2 model of
+    # the same width, which does not saturate: every resident block decodes
+    # many frames, each held within the soft bar with confident decisions
+    # identical, and both decisions present.
+    t2_model = perturbed_msg_model(plan32, 2, H, False, False, seed=11)
+    for kind, build in builders.items():
+        dec = build(qc32, t2_model, 2, H)
+        err = msg_compare(dec(llr), dec.plain(llr), f"{kind} T=2 whole batch of {B}",
+                          "msg_gnn_main", mixed=True)
+        max_err[kind] = max(max_err[kind], err)
+    model = perturbed_msg_model(plan32, T, H, False, False, seed=11)
+    entries = []
+    for kind in ("msg_gnn_v2", "msg_gnn"):  # v2 as the bench serves it, then v1
+        dec = builders[kind](qc32, model, T, H)
+        for key in fg.LAUNCHES:
+            fg.LAUNCHES[key] = 0
+        soft = dec(llr)
+        torch.cuda.synchronize()
+        launches = dict(fg.LAUNCHES)
+        if launches[kind] != 1:
+            raise AssertionError(f"msg_gnn main path did not run the {kind} kernel: {launches}")
+        ms, _ = cuda_ms(lambda: dec(llr), reps=2)
+        plain_ms, soft_p = cuda_ms(lambda: dec.plain(llr), reps=1)
+        err = msg_compare(soft, soft_p, f"{kind} main path T={T} whole batch", "msg_gnn_main",
+                          min_agreement=MSG_MIN_BIT_AGREEMENT)
+        del soft_p
+        bms, bby = msg_bound_ms(qc32, H, T, False, kind, B)
+        # Where the time goes: a decoder of depth 1 (seed, one layer, output).
+        shallow = builders[kind](qc32, model, 1, H)
+        depth_1 = cuda_ms(lambda: shallow(llr), reps=3)[0]
+        hard = (soft > 0.5).float()  # all-zero codewords: decisions of 1 are errors
+        emit({"phase": "msg_gnn_main", "kernel": kind, "code": "nr_2_0_32", "Z": 32,
+              "hidden_dim": H, "iterations": T, "batch": B, "snr_db": SNR,
+              "launches": launches, "ms_per_batch": ms,
+              "bits_per_s": decode_throughput(B, n, ms / 1e3, name=kind), "plain_ms": plain_ms,
+              "bound_ms": bms, "bound_by": bby, "max_abs_err": err,
+              "variants_ms": {"depth_1": depth_1, "per_layer": (ms - depth_1) / (T - 1)},
+              "ber_zero_codeword": hard.mean().item(),
+              "fer_zero_codeword": (hard.sum(dim=1) > 0).float().mean().item(),
+              "blocks_per_sm": lib.ldpc_msg_gnn_occupancy(
+                  fg.MSG_VARIANT[kind], H, 32, qc32.num_base_rows, qc32.num_base_cols,
+                  qc32.num_base_edges),
+              "nvidia_smi": smi})
+        entries.append({
+            "name": kind, "route": "cuda", "source": "ldpc_tpu_torch/ops/csrc/fused_msg_gnn.cu",
+            "replaces": "ldpc_tpu/ops/pallas_gnn.py:" + ("295" if kind == "msg_gnn_v2" else "137"),
+            "launches": launches[kind], "max_abs_err": max(max_err[kind], err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None})
+    return entries[::-1]
+
+
+# Printed beside the serving entry point's numbers, not held: that file's
+# protocol may differ (results/nr_2_0_4_comparison.json at 0 dB).
+SERVE_REFERENCE = {"message_gnn": ("Message GNN (trained)", 0.0498, 0.959),
+                   "neural_minsum": ("Neural min-sum 5it (trained)", 1.91e-3, 0.0727)}
+
+
+def serve_phase() -> None:
+    """The serving entry point on the committed nr_2_0_4 checkpoints, with
+    its defaults (batch 4096, 0 dB, random codewords)."""
+    from ldpc_tpu_torch import serve_trained_decoder
+    from ldpc_tpu_torch.ops import fused_gnn as fg, fused_neural as fn
+
+    results = Path(__file__).resolve().parent / "results"
+    for model, ckpt, counters, kind in (
+            ("message_gnn", "message_gnn_nr_2_0_4.msgpack", fg.LAUNCHES, "msg_gnn"),
+            ("neural_minsum", "standard_nr_2_0_4.msgpack", fn.LAUNCHES, "fused_neural")):
+        for key in counters:
+            counters[key] = 0
+        out = serve_trained_decoder.main(["--model", model, "--checkpoint",
+                                          str(results / ckpt)])
+        torch.cuda.synchronize()
+        name, ber_ref, fer_ref = SERVE_REFERENCE[model]
+        ok = counters[kind] >= 1 and out["device"] == "cuda"
+        emit({"phase": "serve", "checkpoint": ckpt, "launches": counters[kind], **out,
+              "reference": {"name": name, "ber": ber_ref, "fer": fer_ref}, "ok": ok})
+        if not ok:
+            raise AssertionError(f"serve_trained_decoder --model {model} did not run its kernel")
+
+
 def build_all() -> dict:
     """Compile every CUDA source of the port, one nvcc per source, together."""
     from ldpc_tpu_torch.ops import _build
 
-    stems = ("fused_minsum", "fused_gnn")
+    stems = ("fused_minsum", "fused_gnn", "fused_neural", "fused_msg_gnn")
     with ThreadPoolExecutor(len(stems)) as pool:
         list(pool.map(_build.build, stems))
     return {stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
-                   if "registers" in ln or "spill" in ln] for stem in stems}
+                   if "registers" in ln or "spill" in ln or "Function properties" in ln]
+            for stem in stems}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["classical", "gnn"], default=None)
+    ap.add_argument("--only", choices=["classical", "gnn", "nms", "msg_gnn"], default=None)
     only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
 
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
-    from ldpc_tpu_torch.ops import fused_gnn as fg, fused_minsum as fm
+    from ldpc_tpu_torch.ops import fused_gnn as fg, fused_minsum as fm, fused_neural as fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -628,6 +1041,12 @@ def main(argv=None) -> int:
             for name, variant in fg.VARIANT.items():
                 occupancy[f"{name} Z={Z} h=64"] = fg.kernel_library().ldpc_corrected_gnn_occupancy(
                     variant, 64, *dims, qc.num_edge_types)
+            for name, variant in fg.MSG_VARIANT.items():
+                occupancy[f"{name} Z={Z} h=64"] = fg.msg_kernel_library().ldpc_msg_gnn_occupancy(
+                    variant, 64, *dims)
+            shared, fpb = fn.neural_plan(qc, 10, 2)
+            occupancy[f"fused_neural Z={Z} T=10 L=2"] = fn.kernel_library().ldpc_neural_occupancy(
+                *dims, 10, 2, fpb, int(shared))
         else:
             occupancy[f"fused_zlane Z={Z}"] = lib.ldpc_zlane_occupancy(*dims, 0, 0)
     if min(occupancy.values()) < 1:
@@ -636,12 +1055,18 @@ def main(argv=None) -> int:
           "blocks_per_sm": occupancy})
 
     entries = []
-    if only != "gnn":
+    if only in (None, "classical"):
         entries += classical_phases(lib, smi)
-    if only != "classical":
+    if only in (None, "gnn"):
         entries += gnn_phases(smi)
+    if only in (None, "nms"):
+        entries += nms_phases(smi)
+    if only in (None, "msg_gnn"):
+        entries += msg_gnn_phases(smi)
+    if only is None:
+        serve_phase()
 
-    # 9. kernels
+    # 15. kernels
     print(smi, flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,8 +9,11 @@ imports torch and numpy only, never JAX or ``ldpc_tpu``:
 - Fused decode kernels, CUDA C++ for Hopper        -> :mod:`ldpc_tpu_torch.ops.fused_minsum`
 - Classical BP / scaled min-sum decoders           -> :mod:`ldpc_tpu_torch.models`
 - Message-centered GNN decoder family              -> :mod:`ldpc_tpu_torch.models.message_gnn`
-- Fused corrected-GNN serving kernels, CUDA C++    -> :mod:`ldpc_tpu_torch.ops.fused_gnn`
+- Neural / offset min-sum decoders                 -> :mod:`ldpc_tpu_torch.models.neural_min_sum`
+- Fused GNN serving kernels, CUDA C++              -> :mod:`ldpc_tpu_torch.ops.fused_gnn`
+- Fused trained min-sum kernel, CUDA C++           -> :mod:`ldpc_tpu_torch.ops.fused_neural`
 - flax msgpack checkpoints -> ``state_dict``       -> :mod:`ldpc_tpu_torch.convert`
+- Serving entry point (``python -m``)              -> :mod:`ldpc_tpu_torch.serve_trained_decoder`
 
 Entry points take ``device`` (default ``"cuda"``) and raise without a card
 unless given ``device="cpu"``; random functions take a ``torch.Generator``.

@@ -11,7 +11,9 @@ files; :func:`read_flax_msgpack` reads them with a small msgpack reader of
 this package's own (``struct`` and numpy), :func:`message_gnn_state_dict_from_numpy`
 renames and transposes the flax tree into the ``state_dict`` of
 :class:`ldpc_tpu_torch.models.message_gnn.MessageGNNDecoder`, and
-:func:`load_message_gnn` does both for a model.
+:func:`load_message_gnn` does both for a model.  A neural min-sum tree
+(``w_ch``, ``w_res``, ``alpha``, ``offset``) carries over as stored:
+:func:`neural_min_sum_state_dict_from_numpy` and :func:`load_neural_min_sum`.
 """
 from __future__ import annotations
 
@@ -209,3 +211,26 @@ def load_message_gnn(path, model) -> None:
     if "params" not in tree:
         raise KeyError(f"{path} holds no 'params' entry")
     model.load_state_dict(message_gnn_state_dict_from_numpy(tree["params"]), strict=True)
+
+
+_NEURAL_MIN_SUM_PARAMS = ("w_ch", "w_res", "alpha", "offset")
+
+
+def neural_min_sum_state_dict_from_numpy(tree: Mapping, dtype=torch.float32) -> dict:
+    """flax parameter tree of a ``NeuralMinSumDecoder`` -> the port module's
+    ``state_dict``: the same names, the shapes as stored."""
+    p = _flax_params(tree)
+    unknown = set(p) - set(_NEURAL_MIN_SUM_PARAMS)
+    if unknown:
+        raise KeyError(f"unexpected entries {sorted(unknown)} in a NeuralMinSumDecoder "
+                       "parameter tree")
+    return {k: torch.as_tensor(np.array(v), dtype=dtype) for k, v in p.items()}
+
+
+def load_neural_min_sum(path, model) -> None:
+    """Load a flax checkpoint's parameters into ``model`` (a
+    ``NeuralMinSumDecoder`` with matching hyperparameters), strictly."""
+    tree = read_flax_msgpack(path)
+    if "params" not in tree:
+        raise KeyError(f"{path} holds no 'params' entry")
+    model.load_state_dict(neural_min_sum_state_dict_from_numpy(tree["params"]), strict=True)

@@ -1,6 +1,6 @@
-"""Decoder model families: the classical decoders and the message-centered
-GNN family (fully neural, hybrid and corrected min-sum).  The neural min-sum
-and node-centered GNN families follow in later slices."""
+"""Decoder model families: the classical decoders, the neural min-sum
+decoders and the message-centered GNN family (fully neural, hybrid and
+corrected min-sum).  The node-centered GNN follows in a later slice."""
 
 from ldpc_tpu_torch.models.classical import (  # noqa: F401
     BeliefPropagationDecoder,
@@ -17,4 +17,9 @@ from ldpc_tpu_torch.models.message_gnn import (  # noqa: F401
     create_custom_minsum_message_gnn_decoder,
     create_custom_variable_message_gnn_decoder,
     create_message_gnn_decoder,
+)
+from ldpc_tpu_torch.models.neural_min_sum import (  # noqa: F401
+    NeuralMinSumDecoder,
+    make_standard_decoder,
+    make_tied_decoder,
 )

@@ -2,8 +2,9 @@
 
 Each ``csrc/<stem>.cu`` exposes a plain C interface and compiles into
 ``build/lib<stem>_<hash>.so`` next to this file (a directory git ignores);
-the hash covers the source and the flags, so an edited source rebuilds and
-an unchanged one is built once per checkout.
+the hash covers the source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header rebuilds and an unchanged one is built
+once per checkout.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -24,10 +25,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Flags of single sources.  fused_gnn: no contraction of a * b + c into an
-# FMA, so its min-sum skeleton rounds like the plain version; its matrix
+# Flags of single sources: no contraction of a * b + c into an FMA, so the
+# elementwise steps round like the plain versions; the GNN sources' matrix
 # products call fmaf themselves.
-EXTRA_FLAGS: dict[str, tuple[str, ...]] = {"fused_gnn": ("-fmad=false",)}
+EXTRA_FLAGS: dict[str, tuple[str, ...]] = {
+    stem: ("-fmad=false",) for stem in ("fused_gnn", "fused_msg_gnn", "fused_neural")}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -44,7 +46,9 @@ def nvcc_path() -> str:
 def library_path(stem: str) -> Path:
     src = _CSRC / f"{stem}.cu"
     flags = NVCC_FLAGS + EXTRA_FLAGS.get(stem, ())
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    key = src.read_bytes() + headers + " ".join(flags).encode()
+    digest = hashlib.sha256(key).hexdigest()[:16]
     return BUILD_DIR / f"lib{stem}_{digest}.so"
 
 

@@ -130,6 +130,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gnn_common.cuh"
+
 namespace {
 
 constexpr float kBig = 1e9f;  // stand-in for +inf, as _BIG in the JAX package
@@ -166,7 +168,6 @@ struct Graph {
   const int* type;      // (K) message type (index of the shift value)
 };
 
-__host__ __device__ inline int round4(int x) { return (x + 3) / 4 * 4; }
 __host__ __device__ inline int num_weights(int variant) { return variant == 2 ? 6 : 8; }
 __host__ __device__ inline int small_floats(int variant, int H) {
   return variant == 2 ? 4 * H + 4 : 3 * H + 4;
@@ -195,48 +196,7 @@ __host__ __device__ inline Layout make_layout(int variant, int H, int Z, int R, 
   return L;
 }
 
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 __device__ __forceinline__ float sign_of(float x) { return x < 0.0f ? -1.0f : 1.0f; }
-
-// out[j] = sum_i W[j*H + i] * x[i] for j < H, four rows at a time; W in
-// shared memory (every thread reads the same address), x in registers.
-template <int H, typename Sink>
-__device__ __forceinline__ void matvec(const float* __restrict__ W, const float (&x)[H],
-                                       Sink&& sink) {
-  constexpr int Q = H / 4;
-#pragma unroll 1
-  for (int j = 0; j < H; j += 4) {
-    const float4* w = reinterpret_cast<const float4*>(W + j * H);
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < Q; ++i) {
-      const float4 p0 = w[i], p1 = w[i + Q], p2 = w[i + 2 * Q], p3 = w[i + 3 * Q];
-      a0 = fmaf(p0.x, x[4 * i], a0);
-      a1 = fmaf(p1.x, x[4 * i], a1);
-      a2 = fmaf(p2.x, x[4 * i], a2);
-      a3 = fmaf(p3.x, x[4 * i], a3);
-      a0 = fmaf(p0.y, x[4 * i + 1], a0);
-      a1 = fmaf(p1.y, x[4 * i + 1], a1);
-      a2 = fmaf(p2.y, x[4 * i + 1], a2);
-      a3 = fmaf(p3.y, x[4 * i + 1], a3);
-      a0 = fmaf(p0.z, x[4 * i + 2], a0);
-      a1 = fmaf(p1.z, x[4 * i + 2], a1);
-      a2 = fmaf(p2.z, x[4 * i + 2], a2);
-      a3 = fmaf(p3.z, x[4 * i + 2], a3);
-      a0 = fmaf(p0.w, x[4 * i + 3], a0);
-      a1 = fmaf(p1.w, x[4 * i + 3], a1);
-      a2 = fmaf(p2.w, x[4 * i + 3], a2);
-      a3 = fmaf(p3.w, x[4 * i + 3], a3);
-    }
-    sink(j, a0);
-    sink(j + 1, a1);
-    sink(j + 2, a2);
-    sink(j + 3, a3);
-  }
-}
 
 // Pointers into a block's shared memory and scratch.
 template <int H>

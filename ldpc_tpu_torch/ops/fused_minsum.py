@@ -340,6 +340,24 @@ def kernel_library():
     return _build.load("fused_minsum", _SIGNATURES)
 
 
+def _check_llr(llr: torch.Tensor, device: torch.device, n: int) -> None:
+    """The input checks every fused decoder makes before it decodes."""
+    if llr.device.type != device.type:
+        raise ValueError(f"decoder was built for {device}, llr is on {llr.device}")
+    if llr.dtype != torch.float32:
+        raise TypeError(f"llr must be float32, got {llr.dtype}")
+    if llr.ndim != 2 or llr.shape[1] != n:
+        raise ValueError(f"llr must be (B, {n}), got {tuple(llr.shape)}")
+
+
+def _resident_grid(per_sm: int, name: str, device: torch.device) -> int:
+    """Blocks that can be resident on the whole card at once, from a
+    kernel's occupancy query (blocks per SM, or -cudaError_t)."""
+    if per_sm < 1:
+        raise RuntimeError(f"{name} kernel cannot be resident (occupancy query gave {per_sm})")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _check_rc(lib, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.ldpc_cuda_error_string(rc).decode()
@@ -370,22 +388,14 @@ class FusedDecoder:
         self.graph = torch.as_tensor(_graph_array(self.st), device=device)
         self._plain_index: dict[torch.device, _PlainIndex] = {}
 
-    def _check_llr(self, llr: torch.Tensor) -> None:
-        if llr.device.type != self.device.type:
-            raise ValueError(f"decoder was built for {self.device}, llr is on {llr.device}")
-        if llr.dtype != torch.float32:
-            raise TypeError(f"llr must be float32, got {llr.dtype}")
-        if llr.ndim != 2 or llr.shape[1] != self.n:
-            raise ValueError(f"llr must be (B, {self.n}), got {tuple(llr.shape)}")
-
     def __call__(self, llr: torch.Tensor):
-        self._check_llr(llr)
+        _check_llr(llr, self.device, self.n)
         if llr.device.type == "cuda":
             return self._launch(llr)
         return self.plain(llr)
 
     def plain(self, llr: torch.Tensor):
-        self._check_llr(llr)
+        _check_llr(llr, self.device, self.n)
         ix = self._plain_index.get(llr.device)
         if ix is None:
             ix = self._plain_index[llr.device] = _PlainIndex(self.st, llr.device)

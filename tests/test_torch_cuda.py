@@ -11,7 +11,10 @@ conv_iter within 1 (the kernel's logf/tanhf round differently from torch's).
 The corrected-GNN kernels: soft bits within 2e-2 on frames whose conv_iter
 agrees, decisions equal on >= 99.9% of bits, conv_iter equal on >= 99% of
 frames (the products sum in another order than torch.matmul, which can flip a
-bf16 rounding); untrained, they are the fused min-sum kernel exactly.
+bf16 rounding); untrained, they are the fused min-sum kernel exactly.  The
+trained min-sum kernel (fused_neural): bits identical.  The fully-neural GNN
+kernels (msg_gnn, msg_gnn_v2) at T=2: soft bits within 3e-2, decisions equal
+where the plain version is confident.
 """
 import pytest
 import torch
@@ -77,6 +80,14 @@ GNN_BUILDERS = {"corrected_v2": fg.make_fused_corrected_gnn_decoder_v2,
                 "corrected": fg.make_fused_corrected_gnn_decoder}
 
 
+def _add_noise(model, scale, gen):
+    """Every parameter moved by scale * normal noise from ``gen``."""
+    with torch.no_grad():
+        for param in model.parameters():
+            param.add_((scale * torch.randn(param.shape, generator=gen)).to(param.device))
+    return model
+
+
 def _corrected_model(plan, T, h, inject, share, perturb):
     """Seeded parameters, moved by normal noise when ``perturb``: 0.05 up to
     h=16, 0.02 above.  The bf16 steps grow with the activations: at h=64 and
@@ -90,10 +101,7 @@ def _corrected_model(plan, T, h, inject, share, perturb):
                                                 input_injection=inject, share_layers=share,
                                                 generator=gen)
     if perturb:
-        with torch.no_grad():
-            for param in model.parameters():
-                scale = 0.05 if h <= 16 else 0.02
-                param.add_((scale * torch.randn(param.shape, generator=gen)).to(param.device))
+        _add_noise(model, 0.05 if h <= 16 else 0.02, gen)
     return model
 
 
@@ -144,3 +152,122 @@ def test_corrected_gnn_launch_errors_raise():
         dec(torch.zeros((qc.num_vars, 3), device="cuda").t())
     with pytest.raises(ValueError, match="built for cuda"):
         dec(torch.zeros((3, qc.num_vars)))
+
+
+def _nms_model(plan, T, L, sharing, learn_a, learn_o, per_it):
+    """A NeuralMinSumDecoder with every parameter moved by 0.1 normal noise."""
+    from ldpc_tpu_torch.models import NeuralMinSumDecoder
+
+    model = NeuralMinSumDecoder(plan, num_iterations=T, depth_L=L, weight_sharing=sharing,
+                                learnable_alpha=learn_a, learnable_offset=learn_o,
+                                per_iteration=per_it)
+    return _add_noise(model, 0.1, torch.Generator().manual_seed(T + L))
+
+
+@pytest.mark.parametrize("name,Z,batch", [("toy_4x8", 4, 19), ("nr_2_0_4", 4, 21),
+                                          ("nr_2_0_32", 32, 5), ("nr_2_0_32", 128, 3)])
+@pytest.mark.parametrize("sharing,L,learn_a,learn_o,per_it", [
+    ("scalar", 0, False, False, False), ("cell", 2, True, False, False),
+    ("type", 1, True, False, True), ("edge", 2, True, True, True), ("edge", 3, True, True, False)])
+def test_fused_neural_kernel_matches_plain(name, Z, batch, sharing, L, learn_a, learn_o, per_it):
+    """B3: bits identical to the plain version; Z=128 keeps the state in
+    global scratch."""
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    qc = tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+    model = _nms_model(qc_msg.make_plan(qc), 4, L, sharing, learn_a, learn_o, per_it)
+    dec = fn.make_fused_neural_minsum(qc, model, 4, L, per_iteration=per_it)
+    assert dec.shared == (Z != 128)
+    llr = _llr(qc.num_vars, batch, 1.0, seed=Z + L)
+    before = fn.LAUNCHES["fused_neural"]
+    bits_k, bits_p = dec(llr), dec.plain(llr)
+    torch.cuda.synchronize()
+    assert fn.LAUNCHES["fused_neural"] == before + 1
+    assert bits_k.is_cuda and torch.equal(bits_k, bits_p)
+
+
+def _msg_model(plan, T, h, inject, share):
+    from ldpc_tpu_torch.models import create_message_gnn_decoder
+
+    gen = torch.Generator().manual_seed(7)
+    model = create_message_gnn_decoder(plan, num_iterations=T, hidden_dim=h,
+                                       input_injection=inject, share_layers=share, generator=gen)
+    return _add_noise(model, 0.02, gen)
+
+
+MSG_BUILDERS = {"msg_gnn": fg.make_fused_gnn_decoder, "msg_gnn_v2": fg.make_fused_gnn_decoder_v2}
+
+
+@pytest.mark.parametrize("kind", list(MSG_BUILDERS))
+@pytest.mark.parametrize("name,Z,h,batch", [("toy_4x8", 4, 16, 19), ("nr_2_0_4", 4, 64, 11),
+                                            ("nr_2_0_32", 32, 64, 3)])
+@pytest.mark.parametrize("inject,share", [(False, False), (True, False), (True, True)])
+def test_msg_gnn_kernel_matches_plain(kind, name, Z, h, batch, inject, share):
+    """B6 and B7 at T=2: soft bits within 3e-2 of the plain version,
+    decisions identical where the plain version is confident."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+    model = _msg_model(qc_msg.make_plan(qc), 2, h, inject, share)
+    dec = MSG_BUILDERS[kind](qc, model, 2, h, share_layers=share, input_injection=inject)
+    llr = _llr(qc.num_vars, batch, 2.0, seed=Z + h)
+    before = fg.LAUNCHES[kind]
+    soft_k, soft_p = dec(llr), dec.plain(llr)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES[kind] == before + 1
+    assert soft_k.is_cuda and soft_k.shape == llr.shape
+    assert (soft_k - soft_p).abs().max().item() <= 3e-2
+    confident = (soft_p - 0.5).abs() > 0.05
+    assert bool(((soft_k > 0.5) == (soft_p > 0.5))[confident].all())
+
+
+@pytest.mark.parametrize("kind", ["fused_neural", *MSG_BUILDERS])
+def test_resident_blocks_decode_several_frames(kind):
+    """A batch of three frames or more per resident block, so that each block
+    takes later frames into the scratch slice its earlier frames used: B3
+    with its state in global scratch (Z=128) bits identical, B6 and B7 at the
+    T=2 bar."""
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if kind == "fused_neural":
+        qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 128)
+        dec = fn.make_fused_neural_minsum(qc, _nms_model(qc_msg.make_plan(qc), 4, 2, "edge", True,
+                                                         True, True), 4, 2, per_iteration=True)
+        assert not dec.shared
+        dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges, 4, 2)
+        resident = fn.kernel_library().ldpc_neural_occupancy(*dims, 1, 0) * sms
+    else:
+        qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_4"), 4)
+        dec = MSG_BUILDERS[kind](qc, _msg_model(qc_msg.make_plan(qc), 2, 64, True, False), 2, 64,
+                                 input_injection=True)
+        dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
+        resident = fg.msg_kernel_library().ldpc_msg_gnn_occupancy(fg.MSG_VARIANT[kind], 64,
+                                                                   *dims) * sms
+    llr = _llr(qc.num_vars, 3 * resident + 1, 1.0, seed=5)
+    out_k, out_p = dec(llr), dec.plain(llr)
+    torch.cuda.synchronize()
+    if kind == "fused_neural":
+        assert torch.equal(out_k, out_p)
+    else:
+        assert (out_k - out_p).abs().max().item() <= 3e-2
+        confident = (out_p - 0.5).abs() > 0.05
+        assert bool(((out_k > 0.5) == (out_p > 0.5))[confident].all())
+
+
+def test_slice3_raising_paths():
+    """A width without an instantiation; a CPU tensor or a strided one for a
+    card decoder."""
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    qc = tcodes.qc_layout(tcodes.get_base_graph("toy_4x8"), 4)
+    plan = qc_msg.make_plan(qc)
+    with pytest.raises(ValueError, match="hidden_dim in"):
+        fg.make_fused_gnn_decoder(qc, _msg_model(plan, 2, 32, False, False), 2, 32)
+    dec = fn.make_fused_neural_minsum(qc, _nms_model(plan, 3, 2, "edge", True, True, True), 3, 2,
+                                      per_iteration=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        dec(torch.zeros((qc.num_vars, 3), device="cuda").t())
+    with pytest.raises(ValueError, match="built for cuda"):
+        dec(torch.zeros((3, qc.num_vars)))
+    msg = fg.make_fused_gnn_decoder_v2(qc, _msg_model(plan, 2, 16, False, False), 2, 16)
+    with pytest.raises(ValueError, match="built for cuda"):
+        msg(torch.zeros((3, qc.num_vars)))
