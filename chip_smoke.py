@@ -5,7 +5,8 @@
 Phases, one JSON line each:
 
 1. device  — the card's name and power limit (nvidia-smi); no card: exit 1.
-2. build   — compile every CUDA source of the port with nvcc (sm_90a); the
+2. build   — compile every CUDA source of the port with nvcc (sm_90a), one
+             process per source, all started together; the
              main-path kernels' resident blocks per SM from the runtime.
 3. compare — each kernel against its plain PyTorch version on the card, for
              {minsum, sumproduct} x {flooding, layered} x {tracking,
@@ -58,8 +59,9 @@ Phases, one JSON line each:
              codewords, QPSK at -3 dB: BER within 5% of 8.89e-3
              (results/README.md), the whole batch identical to the plain
              version.
-12. msg_gnn_compare — the fully-neural kernels (msg_gnn_v2, msg_gnn)
-             against their plain versions, T=2, h 16 and 64, injection and
+12. msg_gnn_compare — the fully-neural kernels (msg_gnn_v2, msg_gnn,
+             msg_gnn_v3, msg_gnn_v4) against their plain versions, T=2, h 16
+             and 64, injection and
              share_layers, seeded parameters moved by 0.02 noise: soft bits
              within 3e-2, decisions identical where the plain version is
              confident (|p - 0.5| > 0.05).  Then one T=3 model decoded to
@@ -67,13 +69,26 @@ Phases, one JSON line each:
              difference (printed).
 13. msg_gnn_main — bench.py section_msg_gnn at full width: nr_2_0_32 Z=32
              h=64, T=20, no injection, batch 2048, BPSK all-zero at 3 dB:
-             msg_gnn_v2 (as the bench serves it) and msg_gnn, each whole
-             batch against the plain version: decisions equal on >= 99.9%.
+             first a T=2 model on the whole batch at the T=2 bar, then
+             msg_gnn_v2 (as the bench serves it), msg_gnn, msg_gnn_v3 and
+             msg_gnn_v4, each whole batch against the plain version:
+             decisions equal on >= 99.9%; each also at depth 1.
 14. serve  — ldpc_tpu_torch.serve_trained_decoder with --model message_gnn
              and --model neural_minsum on the committed nr_2_0_4 checkpoints
              (defaults: batch 4096, 0 dB), BER/FER printed beside
              results/nr_2_0_4_comparison.json's; each launch counter moves.
-15. kernels — per kernel: launches in its path's run, max abs error against
+15. bench_gnn_kernel — python -m ldpc_tpu_torch.tools.bench_gnn_kernel at
+             its defaults (nr_2_0_4 Z=4, h=64, T=5, injection, batch 2048) on
+             the committed nr_2_0_4 checkpoints: the six fused variants
+             (msg_gnn, _v2, _v3, _v4 on the message GNN, corrected and
+             corrected_v2 on the corrected GNN) against the module's forward
+             on the card: >= 99.9% of the module's confident decisions equal,
+             each kernel launched; Mbit/s, MFU and max |diff| printed.
+16. probe  — python -m ldpc_tpu_torch.tools.probe_agg_mxu at its defaults
+             (nr_2_0_32 Z=32, h=64, L=10, 128 frames): variant vpu identical
+             to the plain version, mxu within one bf16 step; microseconds per
+             frame and iteration.
+17. kernels — per kernel: launches in its path's run, max abs error against
              the plain version, kernel / plain time, and the bound: the
              operations the batch's frames need (over their conv_iter
              iterations where they stop early), or its bytes, whichever
@@ -81,8 +96,9 @@ Phases, one JSON line each:
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
-``--only classical|gnn|nms|msg_gnn`` runs the build and that part alone (for
-development; the kernels line then lists that part).
+``--only classical|gnn|nms|msg_gnn|tools`` runs the build and that part alone
+(for development; the kernels line then lists that part; ``tools`` is phases
+15 and 16).
 """
 from __future__ import annotations
 
@@ -96,14 +112,9 @@ from pathlib import Path
 
 import torch
 
-# Published H100 SXM peaks (NVIDIA data sheet, full 700 W power limit):
-# HBM3 bandwidth, and float32 outside the tensor cores, 67 TFLOP/s counting
-# an FMA as two operations.  The decode has no FMA, so float32 operations
-# run at half that; int32 has half the float32 lanes.
-PEAK_BYTES = 3.35e12
-PEAK_F32_OPS = 67e12 / 2
-PEAK_I32_OPS = 67e12 / 4
-PEAK_BF16_TENSOR_OPS = 989e12  # dense bf16 on the tensor cores
+from ldpc_tpu_torch.utils.profiling import (PEAK_BF16_TENSOR_OPS, PEAK_BYTES, PEAK_F32_OPS,
+                                            PEAK_I32_OPS)
+
 # Operations one min-sum iteration (flooding, convergence tracked) of one
 # frame needs, whatever the kernel does; derived in the header of
 # ldpc_tpu_torch/ops/csrc/fused_minsum.cu.  (float32, int32) per lifted edge,
@@ -788,21 +799,43 @@ MSG_SOFT_ATOL = 3e-2  # the JAX package's bar (tests/test_pallas_gnn.py)
 MSG_CONFIDENT = 0.05  # decisions held where the plain version has |p - 0.5| > this
 MSG_MIN_BIT_AGREEMENT = 0.999
 MSG_MIN_MIXED = 1e-3  # least share of each decision among confident bits, where held
+# The TPU kernel each fully-neural kernel replaces (ldpc_tpu/ops/pallas_gnn.py), B6..B9.
+MSG_TPU_LINE = {"msg_gnn": "137", "msg_gnn_v2": "295", "msg_gnn_v3": "644", "msg_gnn_v4": "952"}
 
 
 def msg_bound_ms(qc, h: int, T: int, inject: bool, kind: str, B: int) -> tuple[float, str]:
     """Least time for a batch of the fully-neural decode, derived in the
     header of ldpc_tpu_torch/ops/csrc/fused_msg_gnn.cu: the (h, h) products
     at the dense bf16 tensor-core rate, elementwise work at the float32 rate
-    (the two run beside each other), LLRs read and soft bits written once."""
+    (the two run beside each other), LLRs read and soft bits written once.
+    Each kernel does its own products: B8 projects every message by W1ca
+    instead of every check mean, B9's last layer has no second product."""
     E, n, M = qc.num_edges, qc.num_vars, qc.num_base_rows * qc.Z
     inj = int(inject)
-    products = B * T * 2 * h * h * (4 * E + n + M + 2 * inj * n)
-    per_layer = (2 * E + n + M) * h + (6 + 2 * inj) * h * E \
-        + (3 if kind == "msg_gnn" else 1) * h * E + (inj * n * h if kind == "msg_gnn" else 0)
-    elementwise = B * (T * per_layer + (T - 1) * h * E + 2 * E * h + 2 * inj * n * h
+    mat = 2 * h * h
+    if kind in ("msg_gnn", "msg_gnn_v2"):
+        products = T * (4 * E + n + M + 2 * inj * n) * mat
+        per_layer = (2 * E + n + M) * h + (6 + 2 * inj) * h * E \
+            + (3 if kind == "msg_gnn" else 1) * h * E + (inj * n * h if kind == "msg_gnn" else 0)
+        elementwise = (T * per_layer + (T - 1) * h * E + 2 * E * h + 2 * inj * n * h
                        + 2 * E * h + 2 * E + 4 * n)
-    t_ops = max(products / PEAK_BF16_TENSOR_OPS, elementwise / PEAK_F32_OPS) * 1e3
+    else:
+        # per layer: means (E adds, n or M multiplies), the b1v, b1c and LLR
+        # adds of the shared terms; per message: two adds and two ReLUs (+1
+        # with injection), b2, the delta of te, the residual from layer 1 on;
+        # once: seed 3 E h (+2 n h with injection)
+        shared = (2 * E + 2 * n + 2 * M + inj * n) * h
+        seed = 3 * E * h + 2 * inj * n * h
+        if kind == "msg_gnn_v3":
+            products = T * (5 * E + n + 2 * inj * n) * mat
+            elementwise = (T * (shared + (6 + inj) * h * E) + (T - 1) * h * E + seed
+                           + 2 * E * h + 2 * E + 4 * n)
+        else:  # msg_gnn_v4: T - 1 full layers and a thin last one
+            products = ((T - 1) * (4 * E + n + M + 2 * inj * n) + (2 * E + n + M + 2 * inj * n)) \
+                * mat + E * 2 * (2 * h + (h if T > 1 else 0))
+            elementwise = (T * shared + (T - 1) * (6 + inj) * h * E + max(T - 2, 0) * h * E
+                           + (4 + inj) * h * E + (E if T > 1 else 0) + seed + 2 * E + 4 * n)
+    t_ops = max(B * products / PEAK_BF16_TENSOR_OPS, B * elementwise / PEAK_F32_OPS) * 1e3
     t_bytes = B * n * 8 / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -860,7 +893,9 @@ def msg_gnn_phases(smi: str) -> list[dict]:
     from ldpc_tpu_torch.utils.metrics import decode_throughput
 
     lib = fg.msg_kernel_library()
-    builders = {"msg_gnn_v2": fg.make_fused_gnn_decoder_v2, "msg_gnn": fg.make_fused_gnn_decoder}
+    builders = {"msg_gnn_v2": fg.make_fused_gnn_decoder_v2, "msg_gnn": fg.make_fused_gnn_decoder,
+                "msg_gnn_v3": fg.make_fused_gnn_decoder_v3,
+                "msg_gnn_v4": fg.make_fused_gnn_decoder_v4}
     max_err = {kind: 0.0 for kind in builders}
 
     # msg_gnn_compare: T=2, h 16 and 64, injection and share_layers.
@@ -872,11 +907,14 @@ def msg_gnn_phases(smi: str) -> list[dict]:
         llr = torch.cat([llrs(qc.num_vars, len(range(i, B, 3)), snr, seed=Z + h + i)
                          for i, snr in enumerate((0.0, 2.0, 4.0))])
         for inject, share in ((False, False), (True, False), (True, True)):
-            assert lib.ldpc_msg_gnn_smem_bytes(h, *dims) == fg.msg_gnn_smem_bytes(qc, h)
-            assert lib.ldpc_msg_gnn_scratch_floats(h, *dims, int(inject)) == \
-                fg.msg_gnn_scratch_floats(qc, h, inject)
             model = perturbed_msg_model(plan, 2, h, inject, share, seed=7)
             for kind, build in builders.items():
+                # the wrapper's shared-memory and scratch plans are the kernel's
+                variant = fg.MSG_VARIANT[kind]
+                assert lib.ldpc_msg_gnn_smem_bytes(variant, h, *dims) == \
+                    fg.msg_gnn_smem_bytes(qc, h, kind)
+                assert lib.ldpc_msg_gnn_scratch_floats(variant, h, *dims, int(inject)) == \
+                    fg.msg_gnn_scratch_floats(qc, h, inject, kind)
                 dec = build(qc, model, 2, h, share_layers=share, input_injection=inject)
                 label = f"{kind} {code} Z={Z} h={h} B={B} T=2 inject={inject} share={share}"
                 err = msg_compare(dec(llr), dec.plain(llr), label, "msg_gnn_compare")
@@ -921,8 +959,8 @@ def msg_gnn_phases(smi: str) -> list[dict]:
                           "msg_gnn_main", mixed=True)
         max_err[kind] = max(max_err[kind], err)
     model = perturbed_msg_model(plan32, T, H, False, False, seed=11)
-    entries = []
-    for kind in ("msg_gnn_v2", "msg_gnn"):  # v2 as the bench serves it, then v1
+    entries = {}
+    for kind in ("msg_gnn_v2", "msg_gnn", "msg_gnn_v3", "msg_gnn_v4"):  # v2 as the bench serves it
         dec = builders[kind](qc32, model, T, H)
         for key in fg.LAUNCHES:
             fg.LAUNCHES[key] = 0
@@ -953,12 +991,12 @@ def msg_gnn_phases(smi: str) -> list[dict]:
                   fg.MSG_VARIANT[kind], H, 32, qc32.num_base_rows, qc32.num_base_cols,
                   qc32.num_base_edges),
               "nvidia_smi": smi})
-        entries.append({
+        entries[kind] = {
             "name": kind, "route": "cuda", "source": "ldpc_tpu_torch/ops/csrc/fused_msg_gnn.cu",
-            "replaces": "ldpc_tpu/ops/pallas_gnn.py:" + ("295" if kind == "msg_gnn_v2" else "137"),
+            "replaces": "ldpc_tpu/ops/pallas_gnn.py:" + MSG_TPU_LINE[kind],
             "launches": launches[kind], "max_abs_err": max(max_err[kind], err), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None})
-    return entries[::-1]
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None}
+    return [entries[kind] for kind in MSG_TPU_LINE]
 
 
 # Printed beside the serving entry point's numbers, not held: that file's
@@ -990,11 +1028,81 @@ def serve_phase() -> None:
             raise AssertionError(f"serve_trained_decoder --model {model} did not run its kernel")
 
 
+BENCH_MIN_AGREEMENT = 0.999  # each fused variant against the module's confident decisions
+
+
+def bench_phase(smi: str) -> None:
+    """The GNN kernel bench at its defaults (nr_2_0_4 Z=4, h=64, T=5,
+    injection, batch 2048) on the committed nr_2_0_4 checkpoints: each of
+    the six fused variants against the module's forward on the card."""
+    from ldpc_tpu_torch.ops import fused_gnn as fg
+    from ldpc_tpu_torch.tools import bench_gnn_kernel
+
+    results = Path(__file__).resolve().parent / "results"
+    for key in fg.LAUNCHES:
+        fg.LAUNCHES[key] = 0
+    out = bench_gnn_kernel.main(
+        ["--gnn-checkpoint", str(results / "message_gnn_nr_2_0_4.msgpack"),
+         "--corrected-checkpoint", str(results / "corrected_gnn_nr_2_0_4.msgpack")])
+    torch.cuda.synchronize()
+    launches = dict(fg.LAUNCHES)
+    variants = out["variants"]
+    ok = len(variants) == 6 and all(
+        v["decision_agreement"] >= BENCH_MIN_AGREEMENT and launches[v["kernel"]] >= 1
+        for v in variants.values())
+    emit({"phase": "bench_gnn_kernel", **out, "launches": launches, "nvidia_smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"bench_gnn_kernel: a variant disagrees with the module or did "
+                             f"not launch: {variants} {launches}")
+
+
+PROBE_MXU_MAX_STEPS = 1.0  # the tensor cores' float32 sums need not round as IEEE adds do
+
+
+def probe_phase(smi: str) -> list[dict]:
+    """The aggregation probe at its defaults (nr_2_0_32 Z=32, h=64, L=10, 128
+    frames): both variants against the plain version, timed."""
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+    from ldpc_tpu_torch.tools import probe_agg_mxu as pm
+
+    for key in pm.LAUNCHES:
+        pm.LAUNCHES[key] = 0
+    out = pm.main([])
+    torch.cuda.synchronize()
+    launches = dict(pm.LAUNCHES)
+    res = out["results"]
+    ok = (res["vpu"]["identical"] and res["mxu"]["bf16_steps"] <= PROBE_MXU_MAX_STEPS
+          and min(launches.values()) >= 1)
+    cfg = out["config"]
+    qc = qc_layout(get_base_graph(cfg["code"]), cfg["Z"])
+    h, L, frames = cfg["hidden"], cfg["iters"], out["frames"]
+    feats = pm.random_features(qc, h, frames, torch.device("cuda"))
+    plain_ms, _ = cuda_ms(lambda: pm.reference(feats, qc, L), reps=1)
+    # Least time: the features read and written once, against the float32
+    # additions and multiplications of the means.
+    E, M = qc.num_edges, qc.num_base_rows * qc.Z
+    t_bytes = 2 * frames * qc.num_base_edges * h * qc.Z * 2 / PEAK_BYTES * 1e3
+    t_ops = L * frames * (E + M) * h / PEAK_F32_OPS * 1e3
+    bms, bby = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    emit({"phase": "probe", **out, "launches": launches, "plain_ms": plain_ms, "bound_ms": bms,
+          "bound_by": bby, "nvidia_smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"probe: a variant disagrees with the plain version or did not "
+                             f"launch: {res} {launches}")
+    return [{"name": "probe_agg", "route": "cuda",
+             "source": "ldpc_tpu_torch/ops/csrc/probe_agg_mxu.cu",
+             "replaces": "tools/probe_agg_mxu.py:48", "launches": sum(launches.values()),
+             "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+             "ms": res["vpu"]["ms"], "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+             "library_ms": None, "variants_ms": {v: r["ms"] for v, r in res.items()},
+             "us_per_frame_iteration": {v: r["us_per_frame_iteration"] for v, r in res.items()}}]
+
+
 def build_all() -> dict:
     """Compile every CUDA source of the port, one nvcc per source, together."""
     from ldpc_tpu_torch.ops import _build
 
-    stems = ("fused_minsum", "fused_gnn", "fused_neural", "fused_msg_gnn")
+    stems = ("fused_minsum", "fused_gnn", "fused_neural", "fused_msg_gnn", "probe_agg_mxu")
     with ThreadPoolExecutor(len(stems)) as pool:
         list(pool.map(_build.build, stems))
     return {stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
@@ -1004,7 +1112,8 @@ def build_all() -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["classical", "gnn", "nms", "msg_gnn"], default=None)
+    ap.add_argument("--only", choices=["classical", "gnn", "nms", "msg_gnn", "tools"],
+                    default=None)
     only = ap.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -1065,8 +1174,11 @@ def main(argv=None) -> int:
         entries += msg_gnn_phases(smi)
     if only is None:
         serve_phase()
+    if only in (None, "tools"):
+        bench_phase(smi)
+        entries += probe_phase(smi)
 
-    # 15. kernels
+    # 17. kernels
     print(smi, flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

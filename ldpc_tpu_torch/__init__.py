@@ -14,6 +14,8 @@ imports torch and numpy only, never JAX or ``ldpc_tpu``:
 - Fused trained min-sum kernel, CUDA C++           -> :mod:`ldpc_tpu_torch.ops.fused_neural`
 - flax msgpack checkpoints -> ``state_dict``       -> :mod:`ldpc_tpu_torch.convert`
 - Serving entry point (``python -m``)              -> :mod:`ldpc_tpu_torch.serve_trained_decoder`
+- GNN kernel bench, aggregation probe (``-m``)     -> :mod:`ldpc_tpu_torch.tools`
+- Rooflines at the H100's peaks, profiler traces  -> :mod:`ldpc_tpu_torch.utils.profiling`
 
 Entry points take ``device`` (default ``"cuda"``) and raise without a card
 unless given ``device="cpu"``; random functions take a ``torch.Generator``.

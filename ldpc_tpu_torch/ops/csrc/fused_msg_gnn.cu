@@ -7,16 +7,21 @@
 //                              entry point ldpc_msg_gnn
 //   * msg_gnn_v2_kernel<H>  <- _kernel_v2  (make_fused_gnn_decoder_v2),
 //                              entry point ldpc_msg_gnn_v2
-// The two compute the same function and differ in one bf16 rounding (and, with
-// input injection, in the order of one float32 sum): layer<H, 6> and
-// layer<H, 7> below.  H is the hidden width, built for 16 and 64.  Python
-// wrappers, weight packing (_extract) and the plain PyTorch version of each
-// kernel: ldpc_tpu_torch/ops/fused_gnn.py.  Built with -fmad=false: every
-// fused multiply-add below is an explicit fmaf in a matrix product, and the
-// elementwise steps round after every operation as the plain version does.
+//   * msg_gnn_v3_kernel<H>  <- _kernel_v3  (make_fused_gnn_decoder_v3),
+//                              entry point ldpc_msg_gnn_v3
+//   * msg_gnn_v4_kernel<H>  <- _kernel_v4  (make_fused_gnn_decoder_v4),
+//                              entry point ldpc_msg_gnn_v4
+// The four compute the same function and differ in where they round to bf16
+// and in the order of some float32 sums: layer<H, 6>, layer<H, 7>,
+// fold_layer<H, 8> and fold_layer<H, 9> below.  H is the hidden width, built
+// for 16 and 64.  Python wrappers, weight packing (_extract, _extract_v3) and
+// the plain PyTorch version of each kernel: ldpc_tpu_torch/ops/fused_gnn.py.
+// Built with -fmad=false: every fused multiply-add below is an explicit fmaf
+// in a matrix product, and the elementwise steps round after every operation
+// as the plain version does.
 //
-// What both compute, per frame
-// ----------------------------
+// What B6 and B7 compute, per frame
+// ---------------------------------
 // Messages are var-aligned per base edge k: message (k, z) belongs to
 // variable (col[k], z) and to check (row[k], (z - shift[k]) mod Z).  Each
 // message carries h features, f (bf16):
@@ -42,6 +47,34 @@
 //           soft = 1 / (1 + exp(llr + acc)).
 // Every product accumulates in float32 (bf16 x bf16 products are exact in
 // float32, so only the summation order differs from the plain version's).
+//
+// What B8 and B9 compute, per frame
+// ---------------------------------
+// The type embeddings te_t (per edge) ride in the features instead of the
+// first-layer biases; the delta table dte (T + 1, K, h) moves them on: block
+// 0 is te_0, block 1 te_1, block t >= 2 te_t - te_{t-1}, te_T = 0.
+//   seed:   f = bf16((llr * emb_w + emb_b) + dte[0]); lf = bf16(llr * emb_w
+//           + emb_b) with injection.
+//   layer t (b1v, b1c, b2 = b2v + b2c of layer t):
+//     vmean  = bf16(sum of f over the variable's messages * (1 / degree))
+//     pre_col = ((W1va vmean) + b1v) + W1vl lf,   llr_c = W1cl lf
+//     B8: pre_row = (sum over the check's messages of W1ca f) * (1 / degree)
+//         + b1c, in float32 (no bf16 mean)
+//     B9: pre_row = (W1ca bf16(sum of f over the check * (1 / degree))) + b1c
+//     per message: h1v = bf16(relu(W1vf f + pre_col)),
+//                  h1c = bf16(relu((W1cf f + pre_row[check]) + llr_c))
+//     out = bf16([W2v W2c] [h1v; h1c] + b2)   (B8's b2 is bf16: the TPU
+//           kernel adds it through a ones-row of the product)
+//     d = bf16(dte[t + 1]);  t = 0: f = bf16(out + d);
+//     B8 after: f = bf16(bf16(out + f) + d);  B9 after: f = bf16(bf16(out + d) + f)
+//   B8 output: as B6.  B9's last layer (t = T - 1) computes h1 alone and
+//   per message s = w2last . [h1v; h1c] + (T > 1 ? proj8 . f : 0), with
+//   w2last = bf16(proj [W2v W2c]), proj8 = bf16(proj); output acc = sum over
+//   the variable's messages of ((acc + s) + dsc[k]), dsc = proj_b + proj .
+//   b2 - proj . te_{T-1} (float32).
+// Each bf16 addition rounds: the JAX kernels in interpret mode agree with
+// that (tests/test_torch_msg_gnn_v34.py), and not with one rounding at the
+// end of a chain.
 //
 // What changed against the TPU kernels
 // ------------------------------------
@@ -94,11 +127,20 @@
 // FMA issue limits it is not measured.  Using wgmma needs the messages of a
 // warp group gathered into 64-row tiles and is left to later work.
 //
+// B8 and B9 run the same skeleton.  B8 computes W1ca f per message in the
+// check's thread (its first phase does a message's worth of products per
+// member) and sums them in the scratch; B9 writes no features in its last
+// layer, only K*Z output scalars.  Per layer of a frame their products are
+//   B8: 5E + n + 2 inj n    (three first-layer and two second-layer per message)
+//   B9: 4E + n + M + 2 inj n, and in the last layer 2E + n + M + 2 inj n
+//       products plus 3h multiply-adds per message.
+// Their bounds are derived beside msg_bound_ms in chip_smoke.py.
+//
 // Shared memory of a block (4-byte words; see make_layout): graph, inverse
-// degrees, the frame's LLRs, embedding and projection, the layer's second-
-// layer biases, four h*h weight matrices (float32) and the first-layer
-// staging (2h bf16 per thread): 144 KB at the main path's shapes, one block
-// of 256 threads per SM.
+// degrees, the frame's LLRs, embedding and projection, the layer's biases,
+// B9's w2last and dsc, four h*h weight matrices (float32) and the
+// first-layer staging (2h bf16 per thread): 144 KB at the main path's shapes,
+// one block of 256 threads per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,9 +163,12 @@ struct Args {
   const int* graph;          // row_ptr, row_edge, col_ptr, col_edge, shift, col, row, type
   const float* inv;          // 1/degree per column (C), then per row (R)
   const __nv_bfloat16* w;    // (T, 8, H, H)
-  const float* tab;          // (T, 2, K, H): b1v, b1c per edge (type embeddings folded in)
-  const float* small;        // (T, 2H): B6 b2v, b2c; B7 b2v + b2c, 0
-  const float* emb;          // emb_w (H), emb_b (H), proj_w (H), proj_b
+  const float* tab;          // B6/B7 (T, 2, K, H): b1v, b1c per edge (type embeddings
+                             // folded in); B8/B9 (T + 1, K, H): the delta table dte
+  const float* small;        // B6 (T, 2H) b2v, b2c; B7 (T, 2H) b2v + b2c, 0;
+                             // B8/B9 (T, 3H) b1v, b1c, b2 (B8's b2 bf16-rounded)
+  const float* emb;          // emb_w (H), emb_b (H), proj_w (H), proj_b; B9: bf16(proj_w), 0
+  const float* extra;        // B9: w2last (2H), dsc (K); unused otherwise
   int B, Z, R, C, K, T, inject;
 };
 
@@ -139,17 +184,21 @@ struct Graph {
 
 // Offsets (in 4-byte words) of a block's shared memory.
 struct Layout {
-  int graph, inv, llr, emb, small, w, stage, total;
+  int graph, inv, llr, emb, small, extra, w, stage, total;
 };
 
-__host__ __device__ inline Layout make_layout(int H, int Z, int R, int C, int K) {
+// B8 and B9 keep the type embeddings in the features (V >= 8).
+__host__ __device__ constexpr bool folded(int V) { return V >= 8; }
+
+__host__ __device__ inline Layout make_layout(int V, int H, int Z, int R, int C, int K) {
   Layout L;
   int o = 0;
   L.graph = o; o += round4(6 * K + R + C + 2);
   L.inv = o; o += round4(C + R);
   L.llr = o; o += round4(C * Z);
   L.emb = o; o += round4(3 * H + 1);
-  L.small = o; o += 2 * H;
+  L.small = o; o += folded(V) ? 3 * H : 2 * H;
+  L.extra = o; o += V == 9 ? round4(2 * H + K) : 0;
   L.w = o; o += 4 * H * H;
   L.stage = o; o += H * kThreads;  // 2H bf16 per thread
   L.total = o;
@@ -157,12 +206,14 @@ __host__ __device__ inline Layout make_layout(int H, int Z, int R, int C, int K)
 }
 
 // Floats of one block's global scratch: pre_col (C), pre_row (R), with
-// injection the LLR terms (2C), each Z*H float32; then the features, K*Z*H
-// bf16.
-__host__ __device__ inline long long scratch_floats(int H, int Z, int R, int C, int K,
+// injection the LLR terms (B6/B7 2C, both sides; B8/B9 C, the check side),
+// each Z*H float32; then the features, K*Z*H bf16; B9 then its per-message
+// output scalars, K*Z float32.
+__host__ __device__ inline long long scratch_floats(int V, int H, int Z, int R, int C, int K,
                                                     int inject) {
-  return static_cast<long long>(C + R + (inject ? 2 * C : 0)) * Z * H +
-         static_cast<long long>(K) * Z * H / 2;
+  const int llr_terms = inject ? (folded(V) ? C : 2 * C) : 0;
+  return static_cast<long long>(C + R + llr_terms) * Z * H +
+         static_cast<long long>(K) * Z * H / 2 + (V == 9 ? static_cast<long long>(K) * Z : 0);
 }
 
 // The second layer of one message, rows four at a time: B6 sums W2v x and
@@ -209,11 +260,13 @@ struct Block {
   float* llr;
   const float *emb_w, *emb_b, *proj_w;
   float proj_b;
-  float* small;            // the staged layer's second-layer biases
+  float* small;            // the staged layer's biases
+  const float *w2last, *dsc;  // B9's folded last layer (shared memory)
   float* w;                // the staged phase's four weight matrices
   __nv_bfloat16* stage;    // [2H][kThreads] first-layer outputs
   float *pre_col, *pre_row, *pre_llr_v, *pre_llr_c;  // global scratch, [group][j][z]
   __nv_bfloat16* feats;    // global scratch, [k][q][z]
+  float* s_all;            // B9: global scratch, [k][z] output scalars
   int Z, R, C, K;
 };
 
@@ -341,8 +394,153 @@ __device__ void layer(const Args& a, const Block<H>& b, int t) {
   __syncthreads();
 }
 
-// The decode both kernels share: frames from the atomic counter, the seed,
-// T layers of layer<H, V>, the output.
+// Layer t of one frame for B8 (V = 8) and B9 (V = 9), whose features carry
+// the type embeddings: phase 1 (variables and checks), phase 2 (messages).
+// B9's last layer (t = T - 1) writes no features, only each message's output
+// scalar.  Starts and ends with a barrier.
+template <int H, int V>
+__device__ void fold_layer(const Args& a, const Block<H>& b, int t) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int Z = b.Z, C = b.C, K = b.K, n = C * Z, M = b.R * Z;
+  const Graph& g = b.g;
+  const __nv_bfloat16* F = b.feats;
+  const bool inject = a.inject;
+  const float *b1v = b.small, *b1c = b.small + H, *b2 = b.small + 2 * H;
+
+  stage_weights<H>(a, b, t, kWva);
+  for (int i = tid; i < 3 * H; i += nt) b.small[i] = a.small[static_cast<size_t>(t) * 3 * H + i];
+  __syncthreads();
+
+  // Phase 1: per variable, W1va times the mean of its messages' features,
+  // plus b1v and the LLR term (W1vl lf), and the check side's LLR term W1cl
+  // lf; per check, B9: W1ca times the mean of its messages' rolled features,
+  // plus b1c; B8: the mean of W1ca times each message's rolled features, in
+  // float32, plus b1c.
+  for (int i = tid; i < n + M; i += nt) {
+    float x[H];
+#pragma unroll
+    for (int q = 0; q < H; ++q) x[q] = 0.0f;
+    if (i < n) {
+      const int c = i / Z, z = i - c * Z;
+      for (int j = g.col_ptr[c]; j < g.col_ptr[c + 1]; ++j) {
+        const __nv_bfloat16* fk = F + static_cast<size_t>(g.col_edge[j]) * H * Z + z;
+#pragma unroll
+        for (int q = 0; q < H; ++q) x[q] = __fadd_rn(x[q], __bfloat162float(fk[q * Z]));
+      }
+      const float inv = b.inv_dc[c];
+#pragma unroll
+      for (int q = 0; q < H; ++q) x[q] = bf16r(__fmul_rn(x[q], inv));
+      float* pc = b.pre_col + static_cast<size_t>(c) * H * Z + z;
+      matvec<H>(b.w + kWva * H * H, x, [&](int j, float s) { pc[j * Z] = __fadd_rn(s, b1v[j]); });
+      if (inject) {
+        embed<H>(x, b.llr[i], b.emb_w, b.emb_b);
+        matvec<H>(b.w + kWvl * H * H, x,
+                  [&](int j, float s) { pc[j * Z] = __fadd_rn(pc[j * Z], s); });
+        float* lc = b.pre_llr_c + static_cast<size_t>(c) * H * Z + z;
+        matvec<H>(b.w + kWcl * H * H, x, [&](int j, float s) { lc[j * Z] = s; });
+      }
+    } else {
+      const int rz = i - n, r = rz / Z, zc = rz - r * Z;
+      float* pr = b.pre_row + static_cast<size_t>(r) * H * Z + zc;
+      const float inv = b.inv_dr[r];
+      for (int j = g.row_ptr[r]; j < g.row_ptr[r + 1]; ++j) {
+        const int k = g.row_edge[j];
+        int v = zc + g.shift[k];
+        v = v >= Z ? v - Z : v;
+        const __nv_bfloat16* fk = F + static_cast<size_t>(k) * H * Z + v;
+        if constexpr (V == 9) {
+#pragma unroll
+          for (int q = 0; q < H; ++q) x[q] = __fadd_rn(x[q], __bfloat162float(fk[q * Z]));
+        } else {
+#pragma unroll
+          for (int q = 0; q < H; ++q) x[q] = __bfloat162float(fk[q * Z]);
+          const bool first = j == g.row_ptr[r];
+          matvec<H>(b.w + kWca * H * H, x, [&](int jj, float s) {
+            pr[jj * Z] = first ? s : __fadd_rn(pr[jj * Z], s);
+          });
+        }
+      }
+      if constexpr (V == 9) {
+#pragma unroll
+        for (int q = 0; q < H; ++q) x[q] = bf16r(__fmul_rn(x[q], inv));
+        matvec<H>(b.w + kWca * H * H, x, [&](int j, float s) { pr[j * Z] = __fadd_rn(s, b1c[j]); });
+      } else {
+        for (int j = 0; j < H; ++j) pr[j * Z] = __fadd_rn(__fmul_rn(pr[j * Z], inv), b1c[j]);
+      }
+    }
+  }
+  __syncthreads();  // the scratch writes above are visible to the whole block
+  stage_weights<H>(a, b, t, kWvf);
+  __syncthreads();
+
+  // Phase 2: per message, the first layer, then B9's last layer: the thin
+  // rows w2last . h1 (+ proj . f after layer 1) into s_all; otherwise the
+  // second layer and the writeback with the next delta of the type
+  // embeddings, in place.
+  const bool residual = t >= 1;
+  const bool last = V == 9 && t == a.T - 1;
+  const float* dte = a.tab + static_cast<size_t>(t + 1) * K * H;
+  __nv_bfloat16* st = b.stage + tid;
+  for (int i = tid; i < K * Z; i += nt) {
+    const int k = i / Z, z = i - k * Z;
+    const int c = g.col[k];
+    int zc = z - g.shift[k];
+    zc = zc < 0 ? zc + Z : zc;
+    const float* pc = b.pre_col + static_cast<size_t>(c) * H * Z + z;
+    const float* lc = b.pre_llr_c + static_cast<size_t>(c) * H * Z + z;
+    const float* pr = b.pre_row + static_cast<size_t>(g.row[k]) * H * Z + zc;
+    __nv_bfloat16* fk = b.feats + static_cast<size_t>(k) * H * Z + z;
+    float x[H];
+#pragma unroll
+    for (int q = 0; q < H; ++q) x[q] = __bfloat162float(fk[q * Z]);
+    matvec<H>(b.w + (kWvf - kWvf) * H * H, x, [&](int j, float s) {
+      st[j * kThreads] = __float2bfloat16_rn(fmaxf(__fadd_rn(s, pc[j * Z]), 0.0f));
+    });
+    matvec<H>(b.w + (kWcf - kWvf) * H * H, x, [&](int j, float s) {
+      float p = __fadd_rn(s, pr[j * Z]);
+      if (inject) p = __fadd_rn(p, lc[j * Z]);
+      st[(H + j) * kThreads] = __float2bfloat16_rn(fmaxf(p, 0.0f));
+    });
+    float rres = 0.0f;
+    if (last && residual) {
+#pragma unroll
+      for (int q = 0; q < H; ++q) rres = fmaf(b.proj_w[q], x[q], rres);  // proj8 . f
+    }
+    float y[H];
+#pragma unroll
+    for (int q = 0; q < H; ++q) {
+      x[q] = __bfloat162float(st[q * kThreads]);
+      y[q] = __bfloat162float(st[(H + q) * kThreads]);
+    }
+    if (last) {
+      float s = 0.0f;
+#pragma unroll
+      for (int q = 0; q < H; ++q) s = fmaf(b.w2last[q], x[q], s);
+#pragma unroll
+      for (int q = 0; q < H; ++q) s = fmaf(b.w2last[H + q], y[q], s);
+      b.s_all[i] = residual ? __fadd_rn(s, rres) : s;
+      continue;
+    }
+    const float* dk = dte + static_cast<size_t>(k) * H;
+    second_layer<H, 7>(b.w + (kW2v - kWvf) * H * H, b.w + (kW2c - kWvf) * H * H, x, y,
+                       [&](int j, float s, float) {
+                         const float out = bf16r(__fadd_rn(s, b2[j]));
+                         const float d = bf16r(dk[j]);
+                         float f;
+                         if (!residual)
+                           f = __fadd_rn(out, d);
+                         else if constexpr (V == 8)
+                           f = __fadd_rn(bf16r(__fadd_rn(out, __bfloat162float(fk[j * Z]))), d);
+                         else
+                           f = __fadd_rn(bf16r(__fadd_rn(out, d)), __bfloat162float(fk[j * Z]));
+                         fk[j * Z] = __float2bfloat16_rn(f);
+                       });
+  }
+  __syncthreads();
+}
+
+// The decode the four kernels share: frames from the atomic counter, the
+// seed, T layers of layer<H, V> or fold_layer<H, V>, the output.
 template <int H, int V>
 __device__ __forceinline__ void decode_frames(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -351,12 +549,14 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
   const int Z = a.Z, R = a.R, C = a.C, K = a.K;
   const int n = C * Z;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const Layout L = make_layout(H, Z, R, C, K);
+  const Layout L = make_layout(V, H, Z, R, C, K);
 
   int* s_graph = reinterpret_cast<int*>(smem + L.graph);
   for (int i = tid; i < 6 * K + R + C + 2; i += nt) s_graph[i] = a.graph[i];
   for (int i = tid; i < C + R; i += nt) smem[L.inv + i] = a.inv[i];
   for (int i = tid; i < 3 * H + 1; i += nt) smem[L.emb + i] = a.emb[i];
+  if (V == 9)
+    for (int i = tid; i < 2 * H + K; i += nt) smem[L.extra + i] = a.extra[i];
 
   Block<H> b;
   b.g.row_ptr = s_graph;
@@ -373,15 +573,20 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
   b.emb_b = b.emb_w + H;
   b.proj_w = b.emb_b + H;
   b.small = smem + L.small;
+  b.w2last = smem + L.extra;
+  b.dsc = b.w2last + 2 * H;
   b.w = smem + L.w;
   b.stage = reinterpret_cast<__nv_bfloat16*>(smem + L.stage);
   const size_t zh = static_cast<size_t>(Z) * H;
   b.pre_col = a.scratch + static_cast<size_t>(blockIdx.x) *
-                              scratch_floats(H, Z, R, C, K, a.inject);
+                              scratch_floats(V, H, Z, R, C, K, a.inject);
   b.pre_row = b.pre_col + C * zh;
-  b.pre_llr_v = b.pre_row + R * zh;
-  b.pre_llr_c = b.pre_llr_v + C * zh;
-  b.feats = reinterpret_cast<__nv_bfloat16*>(b.pre_row + (R + (a.inject ? 2 * C : 0)) * zh);
+  // B6/B7 keep the LLR terms of both sides, B8/B9 the check side's alone.
+  b.pre_llr_v = folded(V) ? nullptr : b.pre_row + R * zh;
+  b.pre_llr_c = b.pre_row + (folded(V) ? R : R + C) * zh;
+  const int llr_groups = a.inject ? (folded(V) ? C : 2 * C) : 0;
+  b.feats = reinterpret_cast<__nv_bfloat16*>(b.pre_row + (R + llr_groups) * zh);
+  b.s_all = reinterpret_cast<float*>(b.feats + static_cast<size_t>(K) * zh);
   b.Z = Z;
   b.R = R;
   b.C = C;
@@ -400,27 +605,42 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
     for (int i = tid; i < n; i += nt) b.llr[i] = llr_f[i];
     __syncthreads();
 
-    // Seed: every message's features from its variable's LLR.
+    // Seed: every message's features from its variable's LLR (B8/B9: plus
+    // the type embedding of layer 0, block 0 of the delta table).
     for (int i = tid; i < K * H * Z; i += nt) {
       const int k = i / (H * Z), qz = i - k * H * Z, q = qz / Z, z = qz - q * Z;
       const float m = b.llr[g.col[k] * Z + z];
-      b.feats[i] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(m, b.emb_w[q]), b.emb_b[q]));
+      float x = __fadd_rn(__fmul_rn(m, b.emb_w[q]), b.emb_b[q]);
+      if (folded(V)) x = __fadd_rn(x, a.tab[k * H + q]);
+      b.feats[i] = __float2bfloat16_rn(x);
     }
     __syncthreads();
 
-    for (int t = 0; t < a.T; ++t) layer<H, V>(a, b, t);
+    for (int t = 0; t < a.T; ++t) {
+      if constexpr (folded(V))
+        fold_layer<H, V>(a, b, t);
+      else
+        layer<H, V>(a, b, t);
+    }
 
-    // Output: projection, per-variable sum, sigmoid of the bit-1 logit.
+    // Output: per variable, the sum over its messages of their projection
+    // plus proj_b (B9: of their output scalar plus dsc), then the sigmoid of
+    // the bit-1 logit.
     for (int i = tid; i < n; i += nt) {
       const int c = i / Z, z = i - c * Z;
       float acc = 0.0f;
       for (int j = g.col_ptr[c]; j < g.col_ptr[c + 1]; ++j) {
-        const __nv_bfloat16* fk = b.feats + static_cast<size_t>(g.col_edge[j]) * H * Z + z;
-        float contrib = 0.0f;
+        const int k = g.col_edge[j];
+        if constexpr (V == 9) {
+          acc = __fadd_rn(__fadd_rn(acc, b.s_all[k * Z + z]), b.dsc[k]);
+        } else {
+          const __nv_bfloat16* fk = b.feats + static_cast<size_t>(k) * H * Z + z;
+          float contrib = 0.0f;
 #pragma unroll
-        for (int q = 0; q < H; ++q)
-          contrib = __fadd_rn(contrib, __fmul_rn(__bfloat162float(fk[q * Z]), b.proj_w[q]));
-        acc = __fadd_rn(__fadd_rn(acc, contrib), b.proj_b);
+          for (int q = 0; q < H; ++q)
+            contrib = __fadd_rn(contrib, __fmul_rn(__bfloat162float(fk[q * Z]), b.proj_w[q]));
+          acc = __fadd_rn(__fadd_rn(acc, contrib), b.proj_b);
+        }
       }
       soft_f[i] = 1.0f / (1.0f + expf(__fadd_rn(b.llr[i], acc)));
     }
@@ -440,6 +660,20 @@ __global__ void __launch_bounds__(kThreads, 1) msg_gnn_v2_kernel(const Args a) {
   decode_frames<H, 7>(a);
 }
 
+// B8, _kernel_v3: type embeddings in the features, the check side's W1ca
+// products averaged in float32, b2 in bf16.
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1) msg_gnn_v3_kernel(const Args a) {
+  decode_frames<H, 8>(a);
+}
+
+// B9, _kernel_v4: type embeddings in the features on B7's layer, the last
+// layer folded into thin rows.
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1) msg_gnn_v4_kernel(const Args a) {
+  decode_frames<H, 9>(a);
+}
+
 using KernelFn = void (*)(const Args);
 
 KernelFn pick_kernel(int variant, int H) {
@@ -453,6 +687,16 @@ KernelFn pick_kernel(int variant, int H) {
       case 16: return msg_gnn_v2_kernel<16>;
       case 64: return msg_gnn_v2_kernel<64>;
     }
+  } else if (variant == 8) {
+    switch (H) {
+      case 16: return msg_gnn_v3_kernel<16>;
+      case 64: return msg_gnn_v3_kernel<64>;
+    }
+  } else if (variant == 9) {
+    switch (H) {
+      case 16: return msg_gnn_v4_kernel<16>;
+      case 64: return msg_gnn_v4_kernel<64>;
+    }
   }
   return nullptr;
 }
@@ -461,14 +705,15 @@ KernelFn pick_kernel(int variant, int H) {
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs.
-long long ldpc_msg_gnn_smem_bytes(int H, int Z, int R, int C, int K) {
-  return 4LL * make_layout(H, Z, R, C, K).total;
+// Bytes of dynamic shared memory one block of `variant` (6..9) needs.
+long long ldpc_msg_gnn_smem_bytes(int variant, int H, int Z, int R, int C, int K) {
+  return 4LL * make_layout(variant, H, Z, R, C, K).total;
 }
 
-// Floats of global scratch one block needs.
-long long ldpc_msg_gnn_scratch_floats(int H, int Z, int R, int C, int K, int inject) {
-  return scratch_floats(H, Z, R, C, K, inject);
+// Floats of global scratch one block of `variant` needs.
+long long ldpc_msg_gnn_scratch_floats(int variant, int H, int Z, int R, int C, int K,
+                                      int inject) {
+  return scratch_floats(variant, H, Z, R, C, K, inject);
 }
 
 // Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or
@@ -476,7 +721,7 @@ long long ldpc_msg_gnn_scratch_floats(int H, int Z, int R, int C, int K, int inj
 int ldpc_msg_gnn_occupancy(int variant, int H, int Z, int R, int C, int K) {
   KernelFn kernel = pick_kernel(variant, H);
   if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = ldpc_msg_gnn_smem_bytes(H, Z, R, C, K);
+  const long long smem = ldpc_msg_gnn_smem_bytes(variant, H, Z, R, C, K);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   int blocks = 0;
@@ -485,14 +730,14 @@ int ldpc_msg_gnn_occupancy(int variant, int H, int Z, int R, int C, int K) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// Launches one of the two kernels on `stream` with `grid` blocks, no sync.
+// Launches one of the four kernels on `stream` with `grid` blocks, no sync.
 static int launch(int variant, int H, const void* llr, void* soft, void* counter, void* scratch,
                   const void* graph, const void* inv, const void* w, const void* tab,
-                  const void* small, const void* emb, int B, int Z, int R, int C, int K, int T,
-                  int inject, int grid, void* stream) {
+                  const void* small, const void* emb, const void* extra, int B, int Z, int R,
+                  int C, int K, int T, int inject, int grid, void* stream) {
   KernelFn kernel = pick_kernel(variant, H);
   if (kernel == nullptr || grid < 1 || B < 1 || T < 1) return cudaErrorInvalidValue;
-  const long long smem = ldpc_msg_gnn_smem_bytes(H, Z, R, C, K);
+  const long long smem = ldpc_msg_gnn_smem_bytes(variant, H, Z, R, C, K);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -507,6 +752,7 @@ static int launch(int variant, int H, const void* llr, void* soft, void* counter
   a.tab = static_cast<const float*>(tab);
   a.small = static_cast<const float*>(small);
   a.emb = static_cast<const float*>(emb);
+  a.extra = static_cast<const float*>(extra);
   a.B = B;
   a.Z = Z;
   a.R = R;
@@ -518,24 +764,22 @@ static int launch(int variant, int H, const void* llr, void* soft, void* counter
   return cudaGetLastError();
 }
 
-// The entry point of msg_gnn_kernel (_kernel).  `counter` must hold 0.
-// Returns a cudaError_t (0 on success).
-int ldpc_msg_gnn(int H, const void* llr, void* soft, void* counter, void* scratch,
-                 const void* graph, const void* inv, const void* w, const void* tab,
-                 const void* small, const void* emb, int B, int Z, int R, int C, int K, int T,
-                 int inject, int grid, void* stream) {
-  return launch(6, H, llr, soft, counter, scratch, graph, inv, w, tab, small, emb, B, Z, R, C, K,
-                T, inject, grid, stream);
-}
+// The entry points, one per kernel, with the same arguments.  `counter` must
+// hold 0; `extra` is read by B9 alone.  Each returns a cudaError_t (0 on
+// success).
+#define LDPC_MSG_GNN_ENTRY(name, variant)                                                      \
+  int name(int H, const void* llr, void* soft, void* counter, void* scratch, const void* graph, \
+           const void* inv, const void* w, const void* tab, const void* small, const void* emb, \
+           const void* extra, int B, int Z, int R, int C, int K, int T, int inject, int grid,    \
+           void* stream) {                                                                      \
+    return launch(variant, H, llr, soft, counter, scratch, graph, inv, w, tab, small, emb,     \
+                  extra, B, Z, R, C, K, T, inject, grid, stream);                               \
+  }
 
-// The entry point of msg_gnn_v2_kernel (_kernel_v2), same arguments.
-int ldpc_msg_gnn_v2(int H, const void* llr, void* soft, void* counter, void* scratch,
-                    const void* graph, const void* inv, const void* w, const void* tab,
-                    const void* small, const void* emb, int B, int Z, int R, int C, int K, int T,
-                    int inject, int grid, void* stream) {
-  return launch(7, H, llr, soft, counter, scratch, graph, inv, w, tab, small, emb, B, Z, R, C, K,
-                T, inject, grid, stream);
-}
+LDPC_MSG_GNN_ENTRY(ldpc_msg_gnn, 6)     // msg_gnn_kernel (_kernel)
+LDPC_MSG_GNN_ENTRY(ldpc_msg_gnn_v2, 7)  // msg_gnn_v2_kernel (_kernel_v2)
+LDPC_MSG_GNN_ENTRY(ldpc_msg_gnn_v3, 8)  // msg_gnn_v3_kernel (_kernel_v3)
+LDPC_MSG_GNN_ENTRY(ldpc_msg_gnn_v4, 9)  // msg_gnn_v4_kernel (_kernel_v4)
 
 const char* ldpc_msg_gnn_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,7 +1,7 @@
 """Fused message-GNN decoders: the whole decode of a message-centered GNN in
 one CUDA kernel (counterpart of ``ldpc_tpu.ops.pallas_gnn``).
 
-Four hand-written kernels, in two sources:
+Six hand-written kernels, in two sources:
 
 ``csrc/fused_gnn.cu``, the corrected min-sum GNN (the flagship), served for a
 :class:`ldpc_tpu_torch.models.message_gnn.MessageGNNDecoder` with
@@ -22,6 +22,12 @@ Four hand-written kernels, in two sources:
   halves of each MLP's second layer rounded to bf16 apart and added in bf16.
 * ``msg_gnn_v2`` (replaces ``pallas_gnn._kernel_v2``): the same function
   with the second layer's two halves summed in float32 and rounded once.
+* ``msg_gnn_v3`` (replaces ``pallas_gnn._kernel_v3``): the type embeddings
+  ride in the features (``_extract_v3``, the delta table ``dte``), the
+  check side projects each message and averages in float32, b2 is bf16.
+* ``msg_gnn_v4`` (replaces ``pallas_gnn._kernel_v4``): v3's folds on
+  ``msg_gnn_v2``'s layer, the last layer folded into thin rows through the
+  output projection (``w2last``, ``proj8``, ``dsc``).
 
 ``params`` is the module or its ``state_dict``.  Input (B, n) float32 LLRs;
 output (B, n) float32 soft bits (probabilities of bit 1) and, for the
@@ -56,7 +62,8 @@ from ldpc_tpu_torch.ops.fused_minsum import (_SMEM_BUDGET, _check_llr, _resident
                                              _structure)
 from ldpc_tpu_torch.ops.qc_msg import _BIG
 
-LAUNCHES: dict[str, int] = {"corrected_v2": 0, "corrected": 0, "msg_gnn": 0, "msg_gnn_v2": 0}
+LAUNCHES: dict[str, int] = {"corrected_v2": 0, "corrected": 0, "msg_gnn": 0, "msg_gnn_v2": 0,
+                            "msg_gnn_v3": 0, "msg_gnn_v4": 0}
 
 KERNEL_HIDDEN_DIMS = (16, 64)  # instantiations in csrc/fused_gnn.cu and csrc/fused_msg_gnn.cu
 VARIANT = {"corrected_v2": 2, "corrected": 1}
@@ -202,6 +209,63 @@ def _extract(params, qc: QCLayout, num_iterations: int, hidden_dim: int, share_l
         **_fold_type_embeddings(p, layers, qc, h, h_in))
 
 
+def _extract_v3(params, qc: QCLayout, num_iterations: int, hidden_dim: int, share_layers: bool,
+                input_injection: bool) -> dict:
+    """Parameters of a fully-neural MessageGNNDecoder -> the ``msg_gnn_v3``
+    and ``msg_gnn_v4`` tables, as the JAX package's ``_extract_v3`` packs
+    them (float32, unrounded): the first-layer blocks W1vf, W1cf, W1va, W1ca,
+    W1vl, W1cl and W2v, W2c (T, h, h) as (out, in); b1v, b1c and b2 = b2v +
+    b2c (T, h); the type embedding of each edge ``te`` (T, K, h), kept raw."""
+    p = _np_params(params)
+    h, T, K = hidden_dim, num_iterations, qc.num_base_edges
+    out = {name: np.zeros((T, h, h), np.float32)
+           for name in ("W1vf", "W1cf", "W1va", "W1ca", "W1vl", "W1cl", "W2v", "W2c")}
+    out.update(b1v=np.zeros((T, h), np.float32), b1c=np.zeros((T, h), np.float32),
+               b2=np.zeros((T, h), np.float32), te=np.zeros((T, K, h), np.float32))
+    for t in range(T):
+        name = "gnn_layer" if share_layers else f"gnn_layer_{t}"
+        out["te"][t] = p[f"{name}.message_type_embeddings"][np.asarray(qc.edge_type)]
+        for rel, s in (("var_to_check_update", "v"), ("check_to_var_update", "c")):
+            w1 = p[f"{name}.{rel}.Dense_0.weight"]  # (h, 2h or 3h)
+            out[f"W1{s}f"][t] = w1[:, 0:h]
+            out[f"W1{s}a"][t] = w1[:, h:2 * h]
+            if input_injection:
+                out[f"W1{s}l"][t] = w1[:, 2 * h:3 * h]
+            out[f"b1{s}"][t] = p[f"{name}.{rel}.Dense_0.bias"]
+            out[f"W2{s}"][t] = p[f"{name}.{rel}.Dense_1.weight"]
+            out["b2"][t] += p[f"{name}.{rel}.Dense_1.bias"]
+    return dict(emb_w=p["input_embedding.weight"].reshape(h),
+                emb_b=p["input_embedding.bias"].reshape(h),
+                proj_w=p["output_projection.weight"].reshape(h),
+                proj_b=float(p["output_projection.bias"].reshape(())), **out)
+
+
+def _te_deltas(te: np.ndarray) -> np.ndarray:
+    """The delta table ``dte`` (T + 1, K, h) of the JAX builders: block 0 is
+    te_0 (the seed), block 1 te_1 in full (layer 0 has no residual, so its
+    output carries no te_0 to cancel), block t >= 2 te_t - te_{t-1}, with
+    te_T = 0.  Block t + 1 is added at the end of layer t."""
+    zero = np.zeros_like(te[:1])
+    return np.concatenate([te[:1], np.concatenate([te[1:], zero])
+                           - np.concatenate([zero, te[1:]])]).astype(np.float32)
+
+
+def _last_layer_folds(x: dict) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``msg_gnn_v4``'s folded last layer (pallas_gnn.py:1171-1196): the last
+    features are only read through the output projection, which is linear,
+    so proj . feats_T = (proj [W2v W2c]) . h1 + proj . feats_{T-1} + dsc.
+    Returns w2last (2h,) and proj8 (h,), rounded to bf16 as the kernels read
+    them, and the float32 per-edge scalars dsc (K,) = proj_b + proj . b2_{T-1}
+    - proj . te_{T-1} (the residual stream carries te_{T-1} only for T > 1)."""
+    pw, te = x["proj_w"], x["te"]
+    T = te.shape[0]
+    w2last = _bf16_round(np.concatenate([pw @ x["W2v"][T - 1], pw @ x["W2c"][T - 1]])).numpy()
+    proj8 = _bf16_round(pw).numpy()
+    dsc = np.zeros(te.shape[1], np.float32)
+    dsc[:] = x["proj_b"] + pw @ x["b2"][T - 1] - (te[T - 1] @ pw if T > 1 else 0.0)
+    return w2last, proj8, dsc
+
+
 # ---------------------------------------------------------------------------
 # Packed device tables shared by a kernel and its plain version
 # ---------------------------------------------------------------------------
@@ -278,18 +342,20 @@ def _structure_tensors(qc: QCLayout, device: torch.device):
     return inv.to(device), graph.to(device)
 
 
+def _r4(x: int) -> int:
+    """x rounded up to a multiple of 4 (shared-memory words, 16-byte aligned)."""
+    return -(-x // 4) * 4
+
+
 def corrected_smem_bytes(kind: str, qc: QCLayout, hidden_dim: int) -> int:
     """Dynamic shared memory of one block (mirrors make_layout in
     csrc/fused_gnn.cu): graph, inverse degrees, v2c, c2v, LLRs, column sums,
     embedding, the layer's small vectors, corrected_v2's ebias table and the
     layer's 6 or 8 (h, h) weight matrices, all 4-byte words."""
-    def r4(x):
-        return -(-x // 4) * 4
-
     K, Z, C, R, h = qc.num_base_edges, qc.Z, qc.num_base_cols, qc.num_base_rows, hidden_dim
     v2 = kind == "corrected_v2"
-    words = (r4(6 * K + R + C + 2) + r4(C + R) + 2 * r4(K * Z) + 2 * r4(C * Z) + 2 * h
-             + (4 * h + 4 if v2 else 3 * h + 4) + (r4(qc.num_edge_types * h) if v2 else 0)
+    words = (_r4(6 * K + R + C + 2) + _r4(C + R) + 2 * _r4(K * Z) + 2 * _r4(C * Z) + 2 * h
+             + (4 * h + 4 if v2 else 3 * h + 4) + (_r4(qc.num_edge_types * h) if v2 else 0)
              + (6 if v2 else 8) * h * h)
     return 4 * words
 
@@ -703,8 +769,10 @@ def make_fused_corrected_gnn_decoder_v2(
 # The fully-neural message GNN: tables, plain version, launch
 # ---------------------------------------------------------------------------
 
-MSG_VARIANT = {"msg_gnn": 6, "msg_gnn_v2": 7}
-_MSG_ENTRY = {"msg_gnn": "ldpc_msg_gnn", "msg_gnn_v2": "ldpc_msg_gnn_v2"}
+MSG_VARIANT = {"msg_gnn": 6, "msg_gnn_v2": 7, "msg_gnn_v3": 8, "msg_gnn_v4": 9}
+_MSG_ENTRY = {"msg_gnn": "ldpc_msg_gnn", "msg_gnn_v2": "ldpc_msg_gnn_v2",
+              "msg_gnn_v3": "ldpc_msg_gnn_v3", "msg_gnn_v4": "ldpc_msg_gnn_v4"}
+_FOLDED = ("msg_gnn_v3", "msg_gnn_v4")  # the type embeddings ride in the features
 _MSG_THREADS = 256  # kThreads in csrc/fused_msg_gnn.cu
 
 
@@ -714,53 +782,94 @@ class _MsgTables:
     ``w`` (T, 8, h, h): layer t's weight matrices, values rounded to bf16,
     kept as float32 (``w_bf16`` for the kernel), order va, ca, vl, cl, vf,
     cf, W2v, W2c (the LLR blocks vl, cl are zero without injection).
-    ``tab`` (T, 2, K, h): first-layer biases per edge, b1v then b1c.
-    ``small`` (T, 2h): ``msg_gnn`` b2v, b2c; ``msg_gnn_v2`` b2v + b2c, 0.
-    ``emb`` (3h + 1): emb_w, emb_b, proj_w, proj_b.
+    ``tab``: ``msg_gnn[_v2]`` (T, 2, K, h), the first-layer biases per edge,
+    b1v then b1c; ``msg_gnn_v3/_v4`` (T + 1, K, h), the delta table ``dte``.
+    ``small``: ``msg_gnn`` (T, 2h) b2v, b2c; ``msg_gnn_v2`` (T, 2h) b2v +
+    b2c, 0; ``msg_gnn_v3/_v4`` (T, 3h) b1v, b1c, b2 (v3's b2 rounded to bf16:
+    it enters the product through a ones-row).
+    ``emb`` (3h + 1): emb_w, emb_b, proj_w, proj_b; ``msg_gnn_v4`` holds
+    bf16(proj_w) and 0 (its proj_b rides in ``dsc``).
+    ``extra``: ``msg_gnn_v4`` (2h + K) w2last, dsc; else one zero.
     """
 
     def __init__(self, kind: str, qc: QCLayout, params, T: int, h: int, share_layers: bool,
                  input_injection: bool, device: torch.device):
-        x = _extract(params, qc, T, h, share_layers, input_injection)
-        W1v, W1c = x["W1v"], x["W1c"]
-        zero = np.zeros((T, h, h), np.float32)
-        w = np.stack([W1v[:, :, h:2 * h], W1c[:, :, h:2 * h],
-                      W1v[:, :, 2 * h:3 * h] if input_injection else zero,
-                      W1c[:, :, 2 * h:3 * h] if input_injection else zero,
-                      W1v[:, :, 0:h], W1c[:, :, 0:h], x["W2v"], x["W2c"]], axis=1)
-        if kind == "msg_gnn":
-            small = np.concatenate([x["b2v"], x["b2c"]], axis=1)
+        extra = np.zeros(1, np.float32)
+        if kind in _FOLDED:
+            x = _extract_v3(params, qc, T, h, share_layers, input_injection)
+            w = np.stack([x[name] for name in ("W1va", "W1ca", "W1vl", "W1cl", "W1vf", "W1cf",
+                                               "W2v", "W2c")], axis=1)
+            b2 = _bf16_round(x["b2"]).numpy() if kind == "msg_gnn_v3" else x["b2"]
+            small = np.concatenate([x["b1v"], x["b1c"], b2], axis=1)
+            tab = _te_deltas(x["te"])
+            proj_w, proj_b = x["proj_w"], x["proj_b"]
+            if kind == "msg_gnn_v4":
+                w2last, proj_w, dsc = _last_layer_folds(x)
+                proj_b = 0.0
+                extra = np.concatenate([w2last, dsc])
         else:
-            small = np.concatenate([x["b2v"] + x["b2c"], np.zeros_like(x["b2c"])], axis=1)
-        tab = np.stack([x["bias1v"], x["bias1c"]], axis=1).transpose(0, 1, 3, 2)
+            x = _extract(params, qc, T, h, share_layers, input_injection)
+            W1v, W1c = x["W1v"], x["W1c"]
+            zero = np.zeros((T, h, h), np.float32)
+            w = np.stack([W1v[:, :, h:2 * h], W1c[:, :, h:2 * h],
+                          W1v[:, :, 2 * h:3 * h] if input_injection else zero,
+                          W1c[:, :, 2 * h:3 * h] if input_injection else zero,
+                          W1v[:, :, 0:h], W1c[:, :, 0:h], x["W2v"], x["W2c"]], axis=1)
+            if kind == "msg_gnn":
+                small = np.concatenate([x["b2v"], x["b2c"]], axis=1)
+            else:
+                small = np.concatenate([x["b2v"] + x["b2c"], np.zeros_like(x["b2c"])], axis=1)
+            tab = np.stack([x["bias1v"], x["bias1c"]], axis=1).transpose(0, 1, 3, 2)
+            proj_w, proj_b = x["proj_w"], x["proj_b"]
         self.w = _bf16_round(w).to(device)
         self.w_bf16 = self.w.to(torch.bfloat16).contiguous()
         self.tab = torch.from_numpy(np.ascontiguousarray(tab, np.float32)).to(device)
         self.small = torch.from_numpy(np.ascontiguousarray(small, np.float32)).to(device)
         self.emb = torch.from_numpy(np.concatenate(
-            [x["emb_w"], x["emb_b"], x["proj_w"], [x["proj_b"]]]).astype(np.float32)).to(device)
+            [x["emb_w"], x["emb_b"], proj_w, [proj_b]]).astype(np.float32)).to(device)
+        self.extra = torch.from_numpy(np.ascontiguousarray(extra, np.float32)).to(device)
         self.inv, self.graph = _structure_tensors(qc, device)
 
 
-def msg_gnn_smem_bytes(qc: QCLayout, hidden_dim: int) -> int:
-    """Dynamic shared memory of one ``msg_gnn`` block (mirrors make_layout in
+def msg_gnn_smem_bytes(qc: QCLayout, hidden_dim: int, kind: str = "msg_gnn") -> int:
+    """Dynamic shared memory of one ``kind`` block (mirrors make_layout in
     csrc/fused_msg_gnn.cu): graph, inverse degrees, the frame's LLRs,
-    embedding and projection, second-layer biases, four (h, h) float32
-    weight matrices and 2h bf16 of staging per thread, in 4-byte words."""
-    def r4(x):
-        return -(-x // 4) * 4
-
+    embedding and projection, the layer's biases (2h, or 3h for v3/v4),
+    v4's w2last and dsc, four (h, h) float32 weight matrices and 2h bf16 of
+    staging per thread, in 4-byte words."""
     K, Z, C, R, h = qc.num_base_edges, qc.Z, qc.num_base_cols, qc.num_base_rows, hidden_dim
-    words = (r4(6 * K + R + C + 2) + r4(C + R) + r4(C * Z) + r4(3 * h + 1) + 2 * h
+    words = (_r4(6 * K + R + C + 2) + _r4(C + R) + _r4(C * Z) + _r4(3 * h + 1)
+             + (3 * h if kind in _FOLDED else 2 * h)
+             + (_r4(2 * h + K) if kind == "msg_gnn_v4" else 0)
              + 4 * h * h + h * _MSG_THREADS)
     return 4 * words
 
 
-def msg_gnn_scratch_floats(qc: QCLayout, hidden_dim: int, input_injection: bool) -> int:
-    """Global scratch of one resident block: a frame's features (bf16) and
-    its per-variable and per-check first-layer terms (float32)."""
+def msg_gnn_scratch_floats(qc: QCLayout, hidden_dim: int, input_injection: bool,
+                           kind: str = "msg_gnn") -> int:
+    """Global scratch of one resident block: a frame's features (bf16), its
+    per-variable and per-check first-layer terms (float32; with injection the
+    LLR terms of both sides, or of the check side alone for v3/v4, whose
+    variable side folds into the per-variable term) and v4's per-message
+    output scalars."""
     K, Z, C, R, h = qc.num_base_edges, qc.Z, qc.num_base_cols, qc.num_base_rows, hidden_dim
-    return (C + R + (2 * C if input_injection else 0)) * Z * h + K * Z * h // 2
+    llr_terms = (C if kind in _FOLDED else 2 * C) if input_injection else 0
+    return ((C + R + llr_terms) * Z * h + K * Z * h // 2
+            + (K * Z if kind == "msg_gnn_v4" else 0))
+
+
+def _variable_sums(terms: torch.Tensor, adds: torch.Tensor, ix: _PlainIndex) -> torch.Tensor:
+    """The output stage's per-variable sum, (B, K, Z) -> (B, C, Z): over a
+    column's messages in col_members order, acc = (acc + terms[k]) + adds[k]
+    (``adds`` (K,) or a scalar); pads add nothing."""
+    K = terms.shape[1]
+    adds = adds.expand(K)
+    acc = terms.new_zeros((terms.shape[0], ix.col_edges.shape[0], terms.shape[2]))
+    for j in range(ix.col_edges.shape[1]):
+        v = ix.col_valid[:, j][None, :, None]
+        k = ix.col_edges[:, j].clamp(max=K - 1)
+        acc = torch.where(v, (acc + terms[:, k]) + adds[k][None, :, None], acc)
+    return acc
 
 
 class _MsgPlain:
@@ -773,12 +882,24 @@ class _MsgPlain:
         self.ix = _PlainIndex(qc, tables.w.device)
         self.Z, self.C, self.R, self.K = qc.Z, qc.num_base_cols, qc.num_base_rows, qc.num_base_edges
 
+    def _to_edges(self, pre_row: torch.Tensor) -> torch.Tensor:
+        """Check-aligned (B, R, Z, h) -> the value each message reads (B, K, Z, h)."""
+        B, h = pre_row.shape[0], pre_row.shape[-1]
+        return pre_row.reshape(B, self.R * self.Z, h)[:, self.ix.edge_check].reshape(
+            B, self.K, self.Z, h)
+
+    def _soft(self, llr: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        """Output stage: projection, per-variable sum, sigmoid of the bit-1 logit."""
+        h = self.h
+        contrib = (f * self.tb.emb[2 * h:3 * h]).sum(dim=-1)  # (B, K, Z)
+        acc = _variable_sums(contrib, self.tb.emb[3 * h], self.ix)
+        return 1.0 / (1.0 + torch.exp(llr + acc.reshape(llr.shape[0], -1)))
+
     def decode(self, llr: torch.Tensor) -> torch.Tensor:
         """(B, n) -> soft bits (B, n)."""
-        tb, ix, h, Z, K = self.tb, self.ix, self.h, self.Z, self.K
+        tb, ix, h, Z = self.tb, self.ix, self.h, self.Z
         B = llr.shape[0]
-        emb_w, emb_b, proj_w = tb.emb[:h], tb.emb[h:2 * h], tb.emb[2 * h:3 * h]
-        proj_b = tb.emb[3 * h]
+        emb_w, emb_b = tb.emb[:h], tb.emb[h:2 * h]
         inv_dc = tb.inv[: self.C][None, :, None, None]
         inv_dr = tb.inv[self.C:][None, :, None, None]
         llr_cz = llr.reshape(B, self.C, Z)
@@ -792,9 +913,8 @@ class _MsgPlain:
             vmean = _r(_member_sum(f, ix.col_edges, ix.col_valid) * inv_dc)  # (B, C, Z, h)
             pre_col = vmean @ Wva
             pre_row = _r(_row_sum(f, ix, self.R) * inv_dr) @ Wca
-            pre_row_e = pre_row.reshape(B, self.R * Z, h)[:, ix.edge_check].reshape(B, K, Z, h)
             pv = f @ Wvf
-            pc = (f @ Wcf + pre_row_e) + b1c
+            pc = (f @ Wcf + self._to_edges(pre_row)) + b1c
             if self.kind == "msg_gnn":
                 if self.inject:
                     pre_col = pre_col + lf @ Wvl
@@ -811,23 +931,74 @@ class _MsgPlain:
             else:
                 new = _r(torch.cat([h1v, h1c], dim=-1) @ torch.cat([W2v, W2c], dim=0) + b2[:h])
             f = _r(new + f) if t >= 1 else new  # residual from layer 2 on
-        contrib = (f * proj_w).sum(dim=-1)  # (B, K, Z)
-        acc = torch.zeros_like(llr_cz)
-        for j in range(ix.col_edges.shape[1]):  # col_members order; pads add nothing
-            v = ix.col_valid[:, j][None, :, None]
-            term = contrib[:, ix.col_edges[:, j].clamp(max=K - 1)]
-            acc = torch.where(v, (acc + term) + proj_b, acc)
-        return 1.0 / (1.0 + torch.exp(llr + acc.reshape(B, -1)))
+        return self._soft(llr, f)
 
 
-_MSG_LAUNCH = ([_I] + [_P] * 10 + [_I] * 8 + [_P], _I)
+class _FoldPlain(_MsgPlain):
+    """The plain version of ``msg_gnn_v3`` or ``msg_gnn_v4``: the type
+    embeddings ride in the features (seeded with te_0, moved on by the delta
+    table at each writeback), the first-layer biases fold into the
+    per-variable and per-check terms, and the v-side LLR term into the
+    per-variable one.  v3 projects each message by W1ca and averages the
+    products over the check in float32; v4 averages the features, rounds the
+    mean to bf16 and projects it, and folds its last layer into thin rows."""
+
+    def decode(self, llr: torch.Tensor) -> torch.Tensor:
+        tb, ix, h, Z, T = self.tb, self.ix, self.h, self.Z, self.T
+        v4 = self.kind == "msg_gnn_v4"
+        B = llr.shape[0]
+        inv_dc = tb.inv[: self.C][None, :, None, None]
+        inv_dr = tb.inv[self.C:][None, :, None, None]
+        llr_cz = llr.reshape(B, self.C, Z)
+        f0 = llr_cz[..., None] * tb.emb[:h] + tb.emb[h:2 * h]  # (B, C, Z, h) float32
+        lf = _r(f0) if self.inject else None
+        f = _r(f0[:, ix.cols] + tb.tab[0][None, :, None, :])  # (B, K, Z, h)
+        ones = f.new_ones(f.shape[:-1] + (1,))
+        for t in range(T):
+            Wva, Wca, Wvl, Wcl, Wvf, Wcf, W2v, W2c = (tb.w[t, i].t() for i in range(8))
+            b1v, b1c, b2 = tb.small[t, :h], tb.small[t, h:2 * h], tb.small[t, 2 * h:]
+            vmean = _r(_member_sum(f, ix.col_edges, ix.col_valid) * inv_dc)  # (B, C, Z, h)
+            pre_col = vmean @ Wva + b1v
+            if self.inject:
+                pre_col = pre_col + lf @ Wvl
+            if v4:
+                pre_row = _r(_row_sum(f, ix, self.R) * inv_dr) @ Wca + b1c
+            else:
+                pre_row = _row_sum(f @ Wca, ix, self.R) * inv_dr + b1c
+            pv = f @ Wvf + pre_col[:, ix.cols]
+            pc = f @ Wcf + self._to_edges(pre_row)
+            if self.inject:
+                pc = pc + (lf @ Wcl)[:, ix.cols]
+            h1 = torch.cat([_r(torch.relu(pv)), _r(torch.relu(pc))], dim=-1)  # (B, K, Z, 2h)
+            if v4 and t == T - 1:  # thin last layer: per-message output scalars
+                w2last, dsc = tb.extra[:2 * h], tb.extra[2 * h:]
+                s = h1 @ w2last
+                if t > 0:
+                    s = s + f @ tb.emb[2 * h:3 * h]
+                acc = _variable_sums(s, dsc, ix)
+                return 1.0 / (1.0 + torch.exp(llr + acc.reshape(B, -1)))
+            W2 = torch.cat([W2v, W2c], dim=0)  # (2h, h)
+            if v4:
+                out = _r(h1 @ W2 + b2)
+            else:  # b2 through the ones-row of the product
+                out = _r(torch.cat([h1, ones], dim=-1) @ torch.cat([W2, b2[None]], dim=0))
+            d = _r(tb.tab[t + 1])[None, :, None, :]
+            if t == 0:
+                f = _r(out + d)
+            elif v4:
+                f = _r(_r(out + d) + f)
+            else:
+                f = _r(_r(out + f) + d)
+        return self._soft(llr, f)
+
+
+# H, llr, soft, counter, scratch, graph, inv, w, tab, small, emb, extra,
+# B, Z, R, C, K, T, inject, grid, stream
+_MSG_LAUNCH = ([_I] + [_P] * 11 + [_I] * 8 + [_P], _I)
 _MSG_SIGNATURES = {
-    # H, llr, soft, counter, scratch, graph, inv, w, tab, small, emb,
-    # B, Z, R, C, K, T, inject, grid, stream
-    "ldpc_msg_gnn": _MSG_LAUNCH,
-    "ldpc_msg_gnn_v2": _MSG_LAUNCH,
-    "ldpc_msg_gnn_smem_bytes": ([_I] * 5, ctypes.c_longlong),  # H, Z, R, C, K
-    "ldpc_msg_gnn_scratch_floats": ([_I] * 6, ctypes.c_longlong),  # ..., inject
+    **{entry: _MSG_LAUNCH for entry in _MSG_ENTRY.values()},
+    "ldpc_msg_gnn_smem_bytes": ([_I] * 6, ctypes.c_longlong),  # variant, H, Z, R, C, K
+    "ldpc_msg_gnn_scratch_floats": ([_I] * 7, ctypes.c_longlong),  # ..., inject
     "ldpc_msg_gnn_occupancy": ([_I] * 6, _I),  # variant, H, Z, R, C, K
     "ldpc_msg_gnn_cuda_error_string": ([_I], ctypes.c_char_p),
 }
@@ -855,8 +1026,9 @@ class FusedMessageGNNDecoder(_ResidentGridDecoder):
                                  share_layers, self.input_injection, device)
 
     def _new_plain(self):
-        return _MsgPlain(self.kind, self.qc, self.tables, self.num_iterations, self.hidden_dim,
-                         self.input_injection)
+        plain = _FoldPlain if self.kind in _FOLDED else _MsgPlain
+        return plain(self.kind, self.qc, self.tables, self.num_iterations, self.hidden_dim,
+                     self.input_injection)
 
     def _run_plain(self, llr: torch.Tensor) -> torch.Tensor:
         outs = self._plain_chunks(llr)
@@ -874,19 +1046,19 @@ class FusedMessageGNNDecoder(_ResidentGridDecoder):
         dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
         self._launch_grid(
             llr, lambda: lib.ldpc_msg_gnn_occupancy(MSG_VARIANT[self.kind], h, *dims),
-            msg_gnn_scratch_floats(qc, h, self.input_injection),
+            msg_gnn_scratch_floats(qc, h, self.input_injection, self.kind),
             lambda counter, scratch, grid, stream: getattr(lib, _MSG_ENTRY[self.kind])(
                 h, llr.data_ptr(), soft.data_ptr(), counter, scratch, tb.graph.data_ptr(),
                 tb.inv.data_ptr(), tb.w_bf16.data_ptr(), tb.tab.data_ptr(), tb.small.data_ptr(),
-                tb.emb.data_ptr(), B, *dims, self.num_iterations, int(self.input_injection),
-                grid, stream),
+                tb.emb.data_ptr(), tb.extra.data_ptr(), B, *dims, self.num_iterations,
+                int(self.input_injection), grid, stream),
             lib.ldpc_msg_gnn_cuda_error_string)
         return soft
 
 
 def _make_msg(kind: str, qc: QCLayout, params, num_iterations: int, hidden_dim: int,
               share_layers: bool, input_injection: bool, device) -> FusedMessageGNNDecoder:
-    _check_build(kind, num_iterations, hidden_dim, msg_gnn_smem_bytes(qc, hidden_dim),
+    _check_build(kind, num_iterations, hidden_dim, msg_gnn_smem_bytes(qc, hidden_dim, kind),
                  "LLRs, one phase's weights and the first-layer staging", qc)
     return FusedMessageGNNDecoder(kind, qc, params, num_iterations, hidden_dim, share_layers,
                                   input_injection, resolve_device(device))
@@ -934,4 +1106,49 @@ def make_fused_gnn_decoder_v2(
     JAX builder's and change nothing here."""
     del mm_group, interpret
     return _make_msg("msg_gnn_v2", qc, params, num_iterations, hidden_dim, share_layers,
+                     input_injection, device)
+
+
+def make_fused_gnn_decoder_v3(
+    qc: QCLayout,
+    params,
+    num_iterations: int = 5,
+    hidden_dim: int = 64,
+    share_layers: bool = False,
+    input_injection: bool = False,
+    interpret: bool = False,
+    device="cuda",
+) -> FusedMessageGNNDecoder:
+    """The fully-neural decoder as ``pallas_gnn._kernel_v3`` computes it:
+    the type embeddings ride in the bf16 features, the first-layer biases
+    and the v-side LLR term fold into the per-variable and per-check terms,
+    the check side projects each message by W1ca and averages the products
+    in float32, and b2 enters the second product through a bf16 ones-row.
+    Same flags and outputs as :func:`make_fused_gnn_decoder`; ``interpret``
+    changes nothing here."""
+    del interpret
+    return _make_msg("msg_gnn_v3", qc, params, num_iterations, hidden_dim, share_layers,
+                     input_injection, device)
+
+
+def make_fused_gnn_decoder_v4(
+    qc: QCLayout,
+    params,
+    num_iterations: int = 5,
+    hidden_dim: int = 64,
+    share_layers: bool = False,
+    input_injection: bool = False,
+    mm_group: int = 16,
+    interpret: bool = False,
+    device="cuda",
+) -> FusedMessageGNNDecoder:
+    """The fully-neural decoder as ``pallas_gnn._kernel_v4`` computes it:
+    v3's folds on :func:`make_fused_gnn_decoder_v2`'s layer (the check mean
+    rounded to bf16 and projected, b2 added in float32), with the last
+    layer's second product and writeback folded into thin rows through the
+    output projection.  ``mm_group`` (the TPU kernel's edge-group size)
+    changes no number: each message's column of the product is independent;
+    it and ``interpret`` change nothing here."""
+    del mm_group, interpret
+    return _make_msg("msg_gnn_v4", qc, params, num_iterations, hidden_dim, share_layers,
                      input_injection, device)

@@ -1,4 +1,4 @@
-"""Utilities: channel simulation, metrics."""
+"""Utilities: channel simulation, metrics, profiling and rooflines."""
 
 from ldpc_tpu_torch.utils.channel import (  # noqa: F401
     awgn_channel,

@@ -119,14 +119,20 @@ def test_encoder_matches_jax(name, Z):
 
 
 def test_import_leaves_jax_out():
+    """Every module of the port, found by walking the package, and
+    chip_smoke.py import without JAX, flax, msgpack or ldpc_tpu."""
     code = (
-        "import sys\n"
-        "import ldpc_tpu_torch, ldpc_tpu_torch.codes, ldpc_tpu_torch.utils, "
-        "ldpc_tpu_torch.utils.metrics, ldpc_tpu_torch.ops.qc_msg, "
-        "ldpc_tpu_torch.ops.fused_minsum, ldpc_tpu_torch.ops._build, "
-        "ldpc_tpu_torch.models, ldpc_tpu_torch.convert\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ldpc_tpu')]\n"
-        "print(bad)\n"
+        "import importlib, pkgutil, sys\n"
+        "import ldpc_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(ldpc_tpu_torch.__path__, "
+        "'ldpc_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'ldpc_tpu_torch.tools.bench_gnn_kernel' in names, names\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'msgpack', 'ldpc_tpu')]\n"
+        "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

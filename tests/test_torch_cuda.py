@@ -13,8 +13,10 @@ agrees, decisions equal on >= 99.9% of bits, conv_iter equal on >= 99% of
 frames (the products sum in another order than torch.matmul, which can flip a
 bf16 rounding); untrained, they are the fused min-sum kernel exactly.  The
 trained min-sum kernel (fused_neural): bits identical.  The fully-neural GNN
-kernels (msg_gnn, msg_gnn_v2) at T=2: soft bits within 3e-2, decisions equal
-where the plain version is confident.
+kernels (msg_gnn, msg_gnn_v2, msg_gnn_v3, msg_gnn_v4) at T=2: soft bits within
+3e-2, decisions equal where the plain version is confident.  The aggregation
+probe: vpu identical to its plain version, mxu within one bf16 step (the
+tensor cores' float32 sums need not round as IEEE additions do).
 """
 import pytest
 import torch
@@ -195,7 +197,9 @@ def _msg_model(plan, T, h, inject, share):
     return _add_noise(model, 0.02, gen)
 
 
-MSG_BUILDERS = {"msg_gnn": fg.make_fused_gnn_decoder, "msg_gnn_v2": fg.make_fused_gnn_decoder_v2}
+MSG_BUILDERS = {"msg_gnn": fg.make_fused_gnn_decoder, "msg_gnn_v2": fg.make_fused_gnn_decoder_v2,
+                "msg_gnn_v3": fg.make_fused_gnn_decoder_v3,
+                "msg_gnn_v4": fg.make_fused_gnn_decoder_v4}
 
 
 @pytest.mark.parametrize("kind", list(MSG_BUILDERS))
@@ -203,8 +207,8 @@ MSG_BUILDERS = {"msg_gnn": fg.make_fused_gnn_decoder, "msg_gnn_v2": fg.make_fuse
                                             ("nr_2_0_32", 32, 64, 3)])
 @pytest.mark.parametrize("inject,share", [(False, False), (True, False), (True, True)])
 def test_msg_gnn_kernel_matches_plain(kind, name, Z, h, batch, inject, share):
-    """B6 and B7 at T=2: soft bits within 3e-2 of the plain version,
-    decisions identical where the plain version is confident."""
+    """B6, B7, B8 and B9 at T=2: soft bits within 3e-2 of the plain
+    version, decisions identical where the plain version is confident."""
     qc = tcodes.qc_layout(tcodes.get_base_graph(name), Z)
     model = _msg_model(qc_msg.make_plan(qc), 2, h, inject, share)
     dec = MSG_BUILDERS[kind](qc, model, 2, h, share_layers=share, input_injection=inject)
@@ -223,7 +227,7 @@ def test_msg_gnn_kernel_matches_plain(kind, name, Z, h, batch, inject, share):
 def test_resident_blocks_decode_several_frames(kind):
     """A batch of three frames or more per resident block, so that each block
     takes later frames into the scratch slice its earlier frames used: B3
-    with its state in global scratch (Z=128) bits identical, B6 and B7 at the
+    with its state in global scratch (Z=128) bits identical, B6-B9 at the
     T=2 bar."""
     from ldpc_tpu_torch.ops import fused_neural as fn
 
@@ -271,3 +275,71 @@ def test_slice3_raising_paths():
     msg = fg.make_fused_gnn_decoder_v2(qc, _msg_model(plan, 2, 16, False, False), 2, 16)
     with pytest.raises(ValueError, match="built for cuda"):
         msg(torch.zeros((3, qc.num_vars)))
+
+
+@pytest.mark.parametrize("T", [1, 3])
+def test_msg_gnn_v4_peeled_layers(T):
+    """B9 at T=1 (its thin last layer alone, no residual) and T=3 (a middle
+    layer), at nr_2_0_4 h=64 with injection."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_4"), 4)
+    model = _msg_model(qc_msg.make_plan(qc), T, 64, True, False)
+    dec = fg.make_fused_gnn_decoder_v4(qc, model, T, 64, input_injection=True)
+    llr = _llr(qc.num_vars, 9, 2.0, seed=T)
+    soft_k, soft_p = dec(llr), dec.plain(llr)
+    torch.cuda.synchronize()
+    assert (soft_k - soft_p).abs().max().item() <= 3e-2
+    confident = (soft_p - 0.5).abs() > 0.05
+    assert bool(((soft_k > 0.5) == (soft_p > 0.5))[confident].all())
+
+
+@pytest.mark.parametrize("variant", ["vpu", "mxu"])
+@pytest.mark.parametrize("name,Z,h,L,frames", [("toy_4x8", 4, 16, 3, 5),
+                                               ("nr_2_0_4", 24, 16, 2, 3),
+                                               ("nr_2_0_32", 32, 64, 10, 9)])
+def test_probe_kernel_matches_plain(variant, name, Z, h, L, frames):
+    """B10: vpu identical to the plain version, mxu within one bf16 step; Z=4
+    and Z=24 pad the tensor cores' lanes to 16 and 32."""
+    from ldpc_tpu_torch.tools import probe_agg_mxu as pm
+
+    qc = tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+    feats = pm.random_features(qc, h, frames, torch.device("cuda"), seed=Z)
+    probe = pm.make_probe(qc, h, L, variant)
+    before = pm.LAUNCHES[variant]
+    out_k, out_p = probe(feats), probe.plain(feats)
+    torch.cuda.synchronize()
+    assert pm.LAUNCHES[variant] == before + 1
+    assert out_k.shape == feats.shape and out_k.dtype == torch.bfloat16
+    if variant == "vpu":
+        assert torch.equal(out_k, out_p)
+    else:
+        assert pm.bf16_steps(out_k, out_p) <= 1.0
+
+
+def test_probe_raising_paths():
+    from ldpc_tpu_torch.tools import probe_agg_mxu as pm
+
+    qc = tcodes.qc_layout(tcodes.get_base_graph("toy_4x8"), 4)
+    probe = pm.make_probe(qc, 16, 2, "mxu")
+    with pytest.raises(ValueError, match="built for cuda"):
+        probe(torch.zeros((2, qc.num_base_edges, 16, 4), dtype=torch.bfloat16))
+    feats = torch.zeros((2, qc.num_base_edges, 4, 16), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        probe(feats.transpose(-1, -2))
+
+
+def test_trace_records_the_cards_kernels(tmp_path):
+    """utils.profiling.trace on the card: the probe kernel shows up with
+    device time in the profiler's sums and in the written trace."""
+    from ldpc_tpu_torch.tools import probe_agg_mxu as pm
+    from ldpc_tpu_torch.utils import profiling
+
+    qc = tcodes.qc_layout(tcodes.get_base_graph("toy_4x8"), 4)
+    probe = pm.make_probe(qc, 16, 2, "vpu")
+    feats = pm.random_features(qc, 16, 4, torch.device("cuda"))
+    with profiling.trace(tmp_path) as prof:
+        with profiling.annotate("probe"):
+            probe(feats)
+        torch.cuda.synchronize()
+    device_us = sum(e.device_time_total for e in prof.key_averages() if "probe_vpu" in e.key)
+    assert device_us > 0
+    assert "probe_vpu" in (tmp_path / "trace.json").read_text()
