@@ -10,16 +10,30 @@ Phases, one JSON line each:
              main-path kernels' resident blocks per SM from the runtime.
 3. compare — each kernel against its plain PyTorch version on the card, for
              {minsum, sumproduct} x {flooding, layered} x {tracking,
-             throughput mode, early exit}: fused at nr_2_0_4 Z=4 and
-             nr_2_0_32 Z=32 (batches that are not a multiple of the block's
-             frames), fused_zlane at nr_2_0_32 Z=384; plus the fused serving
-             path against the tensor-op decode_min_sum.  Min-sum: bits and
+             throughput mode, early exit}: make_fused_minsum (min-sum
+             flooding on fused_retire, the rest on fused) at toy_4x8 Z=4,
+             nr_2_0_4 Z=4 and nr_2_0_32 Z=24, 32 and 64 (batches that are not
+             a multiple of the block's frames), fused_zlane at nr_2_0_32
+             Z=384; fused_retire also at -2, 1 and 6 dB and on quantised LLRs
+             with ties and exact zeros (-0.0 among them); min-sum flooding
+             on a code with a row of 31 members (the fused kernel's: wider
+             than fused_retire takes); plus the serving path against the
+             tensor-op decode_min_sum.  Min-sum: bits and
              conv_iter identical.  Sum-product: bits agree on >= 99.9% and
              conv_iter within 1 (logf/tanhf round differently from torch's).
 4. main    — the serving path at full width: nr_2_0_32, Z=32, batch 65536,
              20 iterations, 3 dB BPSK LLRs made on the card, through
-             MinSumScaledDecoder(backend="auto") and make_fused_minsum; the
-             whole batch held against the plain version, as in phase 3.
+             MinSumScaledDecoder(backend="auto") (with and without early
+             stopping) and make_fused_minsum, all on fused_retire (launch
+             counts); the whole batch held against the plain version, 0 bit
+             errors, mean conv_iter in [2.9, 3.1].  The kernel timed in five
+             rounds, each beside its throughput-mode and early-exit flags
+             on the same batch (early exit's output identical), the median
+             and every round printed; a torch.profiler trace of one decode
+             (trace_main: device time and launches by kernel).
+4b. layered — the layered min-sum serving path (the fused kernel's) on the
+             main path's batch: launch counts, whole batch against the plain
+             version, time and bound.
 5. z384    — the large-Z path: auto resolves to fused_zlane, batch 512,
              the whole batch held against the plain version.
 6. gnn_compare — the corrected-GNN kernels (corrected_v2, corrected)
@@ -122,6 +136,11 @@ from ldpc_tpu_torch.utils.profiling import (PEAK_BF16_TENSOR_OPS, PEAK_BYTES, PE
 OPS_PER_EDGE = (9, 1)
 OPS_PER_CHECK = (4, 1)
 OPS_PER_VAR = (2, 0)
+# The layered schedule folds each new c2v into the belief at once
+# ((belief + new) - old: two adds where flooding's column sum has one) and
+# has no column sum, so a variable needs its hard decision alone.
+OPS_PER_EDGE_LAYERED = (10, 1)
+OPS_PER_VAR_LAYERED = (1, 0)
 
 
 def emit(obj: dict) -> None:
@@ -142,18 +161,52 @@ def cuda_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
-def bound_ms(qc, conv: torch.Tensor) -> tuple[float, str]:
-    """Least time for this batch's decode: LLRs read and bits + conv_iter
-    written once, against the operations of the iterations each frame needs
-    (its conv_iter: later ones change neither its frozen bits nor conv_iter)."""
+def bound_ms(qc, conv: torch.Tensor, layered: bool = False) -> tuple[float, str]:
+    """Least time for this batch's min-sum decode: LLRs read and bits +
+    conv_iter written once, against the operations of the iterations each
+    frame needs (its conv_iter: later ones change neither its frozen bits nor
+    conv_iter)."""
     B, n = conv.shape[0], qc.num_vars
     frame_iterations = int(conv.sum().item())
     counts = (qc.num_edges, qc.num_base_rows * qc.Z, n)
-    f32, i32 = (sum(c * per[i] for c, per in zip(counts, (OPS_PER_EDGE, OPS_PER_CHECK, OPS_PER_VAR)))
-                * frame_iterations for i in (0, 1))
+    per_item = ((OPS_PER_EDGE_LAYERED, OPS_PER_CHECK, OPS_PER_VAR_LAYERED) if layered
+                else (OPS_PER_EDGE, OPS_PER_CHECK, OPS_PER_VAR))
+    f32, i32 = (sum(c * per[i] for c, per in zip(counts, per_item)) * frame_iterations
+                for i in (0, 1))
     t_ops = (f32 / PEAK_F32_OPS + i32 / PEAK_I32_OPS) * 1e3
     t_bytes = (B * n * 4 * 2 + B * 4) / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def trace_split(fn, name: str) -> dict:
+    """One call of ``fn`` under ``utils.profiling.trace`` (the trace is written
+    to build/traces/<name>/): device time and launches of each kernel, and
+    the wall time of the call, synchronised."""
+    from ldpc_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    with profiling.trace(Path(__file__).resolve().parent / "build" / "traces" / name) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {e.key: {"device_ms": e.self_device_time_total / 1e3, "launches": e.count}
+               for e in prof.key_averages() if e.self_device_time_total > 0}
+    return {"wall_ms": wall_ms, "device_ms": sum(k["device_ms"] for k in kernels.values()),
+            "kernels": kernels}
+
+
+def wide_row_code():
+    """A (4, 32) base graph at Z=4 whose first row has 31 members, more than
+    fused_retire's state word holds signs of."""
+    import numpy as np
+    from ldpc_tpu_torch.codes import BaseGraph, qc_layout
+
+    rng = np.random.default_rng(3)
+    shifts = np.where(rng.random((4, 32)) < 0.4, rng.integers(0, 4, (4, 32)), -1)
+    shifts[0] = np.append(rng.integers(0, 4, 31), -1)
+    shifts[1, 31] = 1
+    return qc_layout(BaseGraph("wide", shifts), 4)
 
 
 def llrs(n: int, B: int, snr_db: float, seed: int) -> torch.Tensor:
@@ -173,11 +226,13 @@ def compare(dec, llr: torch.Tensor, label: str, plain_out=None) -> float:
     torch.cuda.synchronize()
     assert bits_k.shape == bits_p.shape == llr.shape, label
     assert bool(torch.isfinite(bits_k).all()), label
-    agree = (bits_k == bits_p).float().mean().item()
+    # float64: a float32 mean on the card scales by a rounded 1/N, so an
+    # agreement of every bit can print as 0.99999994.
+    agree = (bits_k == bits_p).double().mean().item()
     dconv = (conv_k - conv_p).abs().max().item()
     err = (bits_k - bits_p).abs().max().item()
     if dec.mode == "minsum":
-        ok = agree == 1.0 and dconv == 0
+        ok = bool(torch.equal(bits_k, bits_p)) and dconv == 0
     else:
         ok = agree >= 0.999 and dconv <= 1
     emit({"phase": "compare", "case": label, "bit_agreement": agree,
@@ -194,19 +249,27 @@ def classical_phases(lib, smi: str) -> list[dict]:
     from ldpc_tpu_torch.ops import fused_minsum as fm, qc_msg
     from ldpc_tpu_torch.utils.metrics import decode_throughput
 
-    # 3. compare each kernel with its plain version
+    # 3. compare each kernel with its plain version.  Min-sum with the
+    # flooding schedule runs on fused_retire, sum-product and layered on fused.
     flags = [(m, s, tr, ee) for m in ("minsum", "sumproduct") for s in ("flooding", "layered")
              for tr, ee in ((True, False), (False, False), (True, True))]
-    max_err = {"fused": 0.0, "fused_zlane": 0.0}
-    cases = [("fused", "nr_2_0_4", 4, 37, None, 1.0),
+    max_err = {"fused_retire": 0.0, "fused": 0.0, "fused_zlane": 0.0}
+    cases = [("fused", "toy_4x8", 4, 23, None, 0.5),
+             ("fused", "nr_2_0_4", 4, 37, None, 1.0),
+             ("fused", "nr_2_0_32", 24, 41, None, 1.5),
              ("fused", "nr_2_0_32", 32, 50, 3, 1.5),
+             ("fused", "nr_2_0_32", 64, 29, None, 1.5),
              ("fused_zlane", "nr_2_0_32", 384, 20, 7, 1.5)]
+    rlib = fm.retire_kernel_library()
     for kind_, code, Z, B, bt, snr in cases:
         qc = qc_layout(get_base_graph(code), Z)
         dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
-        if kind_ == "fused":  # the wrapper's shared-memory plan is the kernel's
+        if kind_ == "fused":  # the wrappers' shared-memory plans are the kernels'
             fpb = bt or fm.pick_fused_batch_tile(qc)
             assert lib.ldpc_fused_smem_bytes(*dims, fpb) == fm.fused_smem_bytes(qc, fpb)
+            for parts, frames in fm.retire_plans(qc):
+                assert rlib.ldpc_retire_smem_bytes(*dims, parts, frames) == \
+                    fm.retire_smem_bytes(qc, parts, frames)
         else:
             assert lib.ldpc_zlane_smem_bytes(*dims) == fm.zlane_smem_bytes(qc)
         llr = llrs(qc.num_vars, B, snr, seed=Z)
@@ -214,22 +277,45 @@ def classical_phases(lib, smi: str) -> list[dict]:
         for mode, sched, tr, ee in flags:
             dec = build(qc, 20, 0.75, batch_tile=bt, mode=mode, track_convergence=tr,
                         early_exit=ee, schedule=sched)
-            label = f"{kind_} {code} Z={Z} B={B} {mode} {sched} track={tr} early_exit={ee}"
-            max_err[kind_] = max(max_err[kind_], compare(dec, llr, label))
+            name = "fused_retire" if kind_ == "fused" and dec.retire else kind_
+            label = f"{name} {code} Z={Z} B={B} {mode} {sched} track={tr} early_exit={ee}"
+            max_err[name] = max(max_err[name], compare(dec, llr, label))
+    # fused_retire on batches that hold frames that never converge (-2 dB),
+    # converge at iteration 1 (6 dB) and a mix, and on quantised LLRs with
+    # ties (m1 == m2) and exact zeros, -0.0 among them (sign(0) = +1).
+    qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
+    for snr, step in ((-2.0, None), (1.0, None), (6.0, None), (1.0, 1.0)):
+        llr = llrs(qc32.num_vars, 1003, snr, seed=7)
+        if step:
+            llr = torch.round(llr / step) * step
+            llr[::5, ::7] = -0.0
+        for tr, ee in ((True, False), (False, False), (True, True)):
+            dec = fm.make_fused_minsum(qc32, 20, 0.75, track_convergence=tr, early_exit=ee)
+            label = f"fused_retire nr_2_0_32 Z=32 B=1003 {snr} dB quantised={step} " \
+                    f"track={tr} early_exit={ee}"
+            max_err["fused_retire"] = max(max_err["fused_retire"], compare(dec, llr, label))
+    # Min-sum flooding on a code whose rows are wider than fused_retire
+    # takes runs on the fused kernel.
+    qcw = wide_row_code()
+    llr = llrs(qcw.num_vars, 37, 4.0, seed=5)
+    for tr, ee in ((True, False), (False, False), (True, True)):
+        dec = fm.make_fused_minsum(qcw, 20, 0.75, track_convergence=tr, early_exit=ee)
+        assert not dec.retire
+        label = f"fused wide rows (31 members) Z=4 B=37 minsum flooding track={tr} early_exit={ee}"
+        max_err["fused"] = max(max_err["fused"], compare(dec, llr, label))
     # The serving path against the tensor-op path (the JAX package's bar:
     # identical bits, conv_iter within 1 on at most 1% of frames).
-    qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
     llr = llrs(qc32.num_vars, 256, 1.5, seed=1)
     bits_k, conv_k = fm.make_fused_minsum(qc32, 20, 0.75)(llr)
     ref = decode_min_sum(llr, qc_msg.make_plan(qc32), 20, 0.75)
     dconv = (conv_k - ref.conv_iter).abs()
     ok = bool((bits_k == ref.bits).all()) and int(dconv.max()) <= 1 and \
         float((dconv > 0).float().mean()) <= 0.01
-    emit({"phase": "compare", "case": "fused vs decode_min_sum nr_2_0_32 Z=32 B=256",
+    emit({"phase": "compare", "case": "fused_retire vs decode_min_sum nr_2_0_32 Z=32 B=256",
           "bits_identical": bool((bits_k == ref.bits).all()),
           "conv_diff_share": float((dconv > 0).float().mean()), "ok": ok})
     if not ok:
-        raise AssertionError("fused kernel disagrees with decode_min_sum")
+        raise AssertionError("fused_retire kernel disagrees with decode_min_sum")
 
     # 4. main path: nr_2_0_32 Z=32, batch 65536, 20 iterations, 3 dB
     ITERS, B = 20, 65536
@@ -237,42 +323,91 @@ def classical_phases(lib, smi: str) -> list[dict]:
     assert _resolve_backend("auto", qc32) == "fused"
     llr = llrs(n, B, 3.0, seed=0)
     server = MinSumScaledDecoder(qc32, ITERS, 0.75, early_stopping=False, backend="auto")
+    stopping = MinSumScaledDecoder(qc32, ITERS, 0.75, early_stopping=True, backend="auto")
     fused = fm.make_fused_minsum(qc32, ITERS, 0.75)
     for key in fm.LAUNCHES:
         fm.LAUNCHES[key] = 0
     bits_s, iters = server.decode(llr)
+    bits_e, iters_e = stopping.decode(llr)
     bits, conv = fused(llr)
     torch.cuda.synchronize()
     launches_main = dict(fm.LAUNCHES)
-    if launches_main["fused"] < 2:
-        raise AssertionError(f"main path did not run the fused kernel: {launches_main}")
+    if launches_main["fused_retire"] < 3 or launches_main["fused"] or launches_main["fused_zlane"]:
+        raise AssertionError(f"main path did not run the fused_retire kernel: {launches_main}")
     assert bits.shape == (B, n) and conv.shape == (B,) and conv.dtype == torch.int32
     assert bool(torch.equal(bits, bits_s)) and iters == ITERS
+    assert bool(torch.equal(bits, bits_e)) and iters_e == int(conv.max())
     bit_errors = int(bits.sum().item())
     frame_errors = int((bits.sum(dim=1) > 0).sum().item())
     mean_conv = float(conv.float().mean().item())
-    if bit_errors > B * n * 1e-6 or not 2.0 <= mean_conv <= 4.0:
+    if bit_errors or not 2.9 <= mean_conv <= 3.1:
         raise AssertionError(f"main path decodes wrongly: {bit_errors} bit errors, "
                              f"mean conv_iter {mean_conv}")
-    ms, _ = cuda_ms(lambda: fused(llr), reps=10)
+    # The card's clocks settle under load; time once they have (about 1 s).
+    settle = time.perf_counter() + 1.0
+    while time.perf_counter() < settle:
+        fused(llr)
+        torch.cuda.synchronize()
+    # The kernel and its other flags on the same batch, interleaved in rounds.
+    flag_decs = {"tracked": fused,
+                 "throughput_mode": fm.make_fused_minsum(qc32, ITERS, 0.75,
+                                                         track_convergence=False),
+                 "early_exit": fm.make_fused_minsum(qc32, ITERS, 0.75, early_exit=True)}
+    rounds_ms = {name: [] for name in flag_decs}
+    for _ in range(5):
+        for name, dec in flag_decs.items():
+            t, out = cuda_ms(lambda d=dec: d(llr), reps=4)
+            rounds_ms[name].append(t)
+            if name == "early_exit" and not (torch.equal(out[0], bits)
+                                             and torch.equal(out[1], conv)):
+                raise AssertionError("fused_retire with early exit differs")
+    median = {name: sorted(r)[len(r) // 2] for name, r in rounds_ms.items()}
+    ms = median["tracked"]
     ms_server, _ = cuda_ms(lambda: server.decode(llr), reps=5)
     plain_ms, plain_out = cuda_ms(lambda: fused.plain(llr), reps=1)
-    err_main = compare(fused, llr, f"fused main path B={B}", plain_out)
+    err_main = compare(fused, llr, f"fused_retire main path B={B}", plain_out)
     del plain_out
     bms, bby = bound_ms(qc32, conv)
-    # Where the time goes: the same batch through the kernel's other flags.
-    variants_ms = {
-        name: cuda_ms(lambda dec=fm.make_fused_minsum(qc32, ITERS, 0.75, **kw): dec(llr), reps=3)[0]
-        for name, kw in (("throughput_mode", {"track_convergence": False}),
-                         ("early_exit", {"early_exit": True}),
-                         ("layered", {"schedule": "layered"}))
-    }
+    occupancy = dict(zip(("parts", "frames_per_block", "blocks_per_sm"),
+                         fm.retire_plan(qc32, True)))
+    occupancy["frames_per_sm"] = occupancy["frames_per_block"] * occupancy["blocks_per_sm"]
+    occupancy["warps_per_sm"] = occupancy["frames_per_sm"] * occupancy["parts"]
+    occupancy["smem_bytes_per_frame"] = fm.retire_smem_bytes(qc32, 1, 2) - \
+        fm.retire_smem_bytes(qc32, 1, 1)
+    emit({"phase": "trace_main", "batch": B, **trace_split(lambda: fused(llr), "main")})
     emit({"phase": "main", "code": "nr_2_0_32", "Z": 32, "batch": B, "iterations": ITERS,
-          "snr_db": 3.0, "backend": "fused", "launches": launches_main,
+          "snr_db": 3.0, "backend": "fused_retire", "launches": launches_main,
           "bits_per_s": decode_throughput(B, n, ms / 1e3, name="minsum"),
-          "ms_per_batch": ms, "server_ms_per_batch": ms_server, "plain_ms": plain_ms,
-          "variants_ms": variants_ms, "bound_ms": bms, "bound_by": bby, "bit_errors": bit_errors,
+          "ms_per_batch": ms, "bound_ms": bms, "bound_by": bby,
+          "server_ms_per_batch": ms_server, "plain_ms": plain_ms,
+          "variants_ms": {name: median[name] for name in ("throughput_mode", "early_exit")},
+          "rounds_ms": rounds_ms, "occupancy": occupancy,
+          "bit_errors": bit_errors,
           "frame_errors": frame_errors, "mean_conv_iter": mean_conv, "nvidia_smi": smi})
+
+    # 4b. the layered min-sum serving path, the fused kernel's (same code,
+    # batch and SNR as the main path)
+    layered = MinSumScaledDecoder(qc32, ITERS, 0.75, early_stopping=False, backend="auto",
+                                  schedule="layered")
+    lay_dec = fm.make_fused_minsum(qc32, ITERS, 0.75, schedule="layered")
+    for key in fm.LAUNCHES:
+        fm.LAUNCHES[key] = 0
+    bits_l, _ = layered.decode(llr)
+    bits_ld, conv_l = lay_dec(llr)
+    torch.cuda.synchronize()
+    launches_lay = dict(fm.LAUNCHES)
+    if launches_lay["fused"] < 2 or launches_lay["fused_retire"]:
+        raise AssertionError(f"layered path did not run the fused kernel: {launches_lay}")
+    assert bool(torch.equal(bits_l, bits_ld)) and int(bits_l.sum().item()) == 0
+    ms_lay, _ = cuda_ms(lambda: lay_dec(llr), reps=3)
+    plain_ms_lay, plain_out = cuda_ms(lambda: lay_dec.plain(llr), reps=1)
+    err_lay = compare(lay_dec, llr, f"fused layered path B={B}", plain_out)
+    del plain_out
+    bms_lay, bby_lay = bound_ms(qc32, conv_l, layered=True)
+    emit({"phase": "layered", "code": "nr_2_0_32", "Z": 32, "batch": B, "iterations": ITERS,
+          "snr_db": 3.0, "backend": "fused", "launches": launches_lay, "ms_per_batch": ms_lay,
+          "bound_ms": bms_lay, "bound_by": bby_lay, "plain_ms": plain_ms_lay,
+          "mean_conv_iter": float(conv_l.float().mean().item()), "nvidia_smi": smi})
 
     # 5. Z=384 path: auto resolves to fused_zlane
     B384 = 512
@@ -310,10 +445,15 @@ def classical_phases(lib, smi: str) -> list[dict]:
 
     src = "ldpc_tpu_torch/ops/csrc/fused_minsum.cu"
     return [
-        {"name": "fused", "route": "cuda", "source": src,
-         "replaces": "ldpc_tpu/ops/pallas_minsum.py:143", "launches": launches_main["fused"],
-         "max_abs_err": max(max_err["fused"], err_main), "ms": ms, "plain_ms": plain_ms,
+        {"name": "fused_retire", "route": "cuda",
+         "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
+         "replaces": "ldpc_tpu/ops/pallas_minsum.py:143", "launches": launches_main["fused_retire"],
+         "max_abs_err": max(max_err["fused_retire"], err_main), "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bms, "bound_by": bby, "library_ms": None},
+        {"name": "fused", "route": "cuda", "source": src,
+         "replaces": "ldpc_tpu/ops/pallas_minsum.py:143", "launches": launches_lay["fused"],
+         "max_abs_err": max(max_err["fused"], err_lay), "ms": ms_lay, "plain_ms": plain_ms_lay,
+         "bound_ms": bms_lay, "bound_by": bby_lay, "library_ms": None},
         {"name": "fused_zlane", "route": "cuda", "source": src,
          "replaces": "ldpc_tpu/ops/pallas_minsum.py:399",
          "launches": launches_z["fused_zlane"],
@@ -1102,7 +1242,8 @@ def build_all() -> dict:
     """Compile every CUDA source of the port, one nvcc per source, together."""
     from ldpc_tpu_torch.ops import _build
 
-    stems = ("fused_minsum", "fused_gnn", "fused_neural", "fused_msg_gnn", "probe_agg_mxu")
+    stems = ("fused_minsum", "fused_retire", "fused_gnn", "fused_neural", "fused_msg_gnn",
+             "probe_agg_mxu")
     with ThreadPoolExecutor(len(stems)) as pool:
         list(pool.map(_build.build, stems))
     return {stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
@@ -1147,6 +1288,8 @@ def main(argv=None) -> int:
         if Z == 32:
             fpb = fm.pick_fused_batch_tile(qc)
             occupancy[f"fused Z={Z} frames_per_block={fpb}"] = lib.ldpc_fused_occupancy(*dims, fpb, 0, 0)
+            parts, frames, per_sm = fm.retire_plan(qc, True)
+            occupancy[f"fused_retire Z={Z} parts={parts} frames_per_block={frames}"] = per_sm
             for name, variant in fg.VARIANT.items():
                 occupancy[f"{name} Z={Z} h=64"] = fg.kernel_library().ldpc_corrected_gnn_occupancy(
                     variant, 64, *dims, qc.num_edge_types)

@@ -1,0 +1,419 @@
+// Scaled min-sum with the flooding schedule for Hopper (sm_90a): a frame's
+// whole decode in one group of warps, compressed check state, the syndrome
+// read off the next check pass, and frames that leave the kernel the
+// iteration they converge.
+//
+// Replaces, for mode "minsum" and schedule "flooding" (the bench.py headline
+// and the port's main path), the TPU kernel of ldpc_tpu/ops/pallas_minsum.py:
+//   * retire_minsum_kernel<TRACK, POW2>  <- _kernel (make_fused_minsum),
+//                                           entry point ldpc_retire_minsum
+// It took the place of fused_minsum_kernel (fused_minsum.cu) on that path;
+// sum-product, the layered schedule, large Z and codes with rows of more
+// than 27 members (the wrapper's retire_kernel_fits) stay there.  Python wrapper
+// and the plain PyTorch version it is held against (fused_decode_plain):
+// ldpc_tpu_torch/ops/fused_minsum.py.  A numpy model of this source's
+// algorithm on the wrapper's structure tables: tests/test_torch_minsum_retire.py.
+//
+// What it computes (the TPU kernel's order)
+// -----------------------------------------
+// Lifted check (r, z) reaches, through member j of base row r (base edge k),
+// the variable (col[k], (z + shift[k]) mod Z).  Per iteration every check
+// takes v2c = belief - c2v for its members, folds |v2c| into a running
+// (m1, m2) with the 1e9 sentinel and v2c < 0 into a sign product (sign(0) =
+// +1), and sends member j  c2v = alpha * sp * sign(v2c_j) * loo_j  with
+// loo_j = |v2c_j| > m1 ? m1 : m2, 0 where it is the sentinel; then every
+// belief is  llr + (the variable's c2v summed from 0 in col_members order).
+// With tracking, the first iteration whose hard decisions satisfy every
+// check freezes the frame's bits and sets conv_iter; without, all
+// max_iterations run and conv_iter = max_iterations.  Bits and conv_iter
+// are identical to the plain version and to the JAX package.
+//
+// What bounds it on the card
+// --------------------------
+// The operations the decode needs per iteration of one frame, whatever this
+// source does (counted in fused_minsum.cu): per lifted edge 9 float32 and 1
+// int32, per lifted check 4 + 1, per variable 2 + 0; float32 at 33.5e12 per
+// second (no FMA), int32 at 16.75e12.  A frame needs conv_iter iterations:
+// later ones change neither its bits nor conv_iter.  Main path (nr_2_0_32
+// Z=32, B=65536, 3 dB, mean conv_iter 3.014): 0.476 ms of operations against
+// 0.26 ms of bytes (LLRs read, bits written once).
+//
+// What the design does about it
+// -----------------------------
+// 1. Frames retire.  A frame's bits and conv_iter do not depend on the
+//    iterations after it converges, so its group stops there, writes the
+//    bits and takes the next frame from an atomic counter (a persistent grid
+//    of the blocks that can be resident).  In throughput mode no frame
+//    retires; early_exit changes nothing here, the outputs being the same.
+// 2. Compressed check state.  A check's c2v is kept as A = (alpha * m1,
+//    alpha * m2), sentinel already 0, and a word W: the output sign of
+//    member j at bit j (27 bits) and the argmin in the top 5 bits; 12 bytes
+//    a check, 16 KB a frame at Z=32 where 25 KB of c2v floats were.  Member
+//    j's c2v is (j == argmin ? A.y : A.x) with sign bit j of W.  Exact:
+//    alpha * sp * sign * loo is +-(alpha * loo), since products of +-1 do not
+//    round, and at a tie (m1 == m2) every tied member's loo is the same.  So
+//    the check pass reads each member's belief once and writes 12 bytes a
+//    check, where the replaced kernel read belief and c2v twice per edge
+//    and wrote c2v per edge.
+// 3. Syndrome folded into the check pass.  Iteration t's check pass reads
+//    the beliefs of iteration t - 1 before the column pass overwrites them,
+//    so it XORs their hard decisions per check on the way; a vote of the
+//    group (bar.red.or, __any_sync for one warp) is the barrier between the
+//    passes.  If no check is violated the frame converged at iteration t - 1
+//    and its frozen bits are those same beliefs, still in shared memory.
+//    The last iteration needs no parity pass: whether or not its beliefs
+//    satisfy the checks, the outputs are conv_iter = max_iterations and
+//    their decisions.
+// 4. No run-time division: a thread's lane z and its rows and columns are
+//    fixed, frame offsets are computed once per frame, and a roll by s is
+//    (z + s) & (Z - 1) for Z a power of two (POW2; the block's offset, a
+//    multiple of Z, is OR-ed in), else  v = z + s; v -= v >= Z ? Z : 0.  The
+//    structure holds each member's belief offset col*Z and shift (row
+//    members) and its row's state offset r*Z, shift, position and sign shift
+//    (column members).  The members of a row are folded from a switch on
+//    the row's degree that falls through, last member first, so each
+//    member's position is a constant.
+// 5. Barriers and occupancy.  A frame group is ceil(Z / 32) warps per part
+//    (thread = z, so a warp's shared-memory accesses are a rotation of 32
+//    consecutive words: conflict-free) and `parts` parts, each a contiguous
+//    range of rows and of columns cut to about equal work.  The group's two
+//    barriers an iteration are a named barrier of its own (bar.sync id, n;
+//    __syncwarp for a group of one warp); groups of a block share only the
+//    structure.  The wrapper picks parts (up to 4) and frames per block by
+//    the runtime's occupancy query.
+//
+// Shared memory: the structure (6K + R + C + 2 ints and two part tables,
+// 5.0 KB for NR BG2) once a block, and per frame the beliefs and the LLRs
+// (C*Z floats each) and the check state (3 R*Z words): 4 (2 C*Z + 3 R*Z)
+// bytes, 29,440 at NR BG2 Z=32.  Main path: 7 frames of 4 parts (28 warps,
+// 896 threads) in one block per SM, 57-62 registers a thread (ptxas), no
+// spills.  A row may have at most 27 members (NR rows have at most 19).
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): main path
+// about 3.2 ms per batch of 65536, throughput mode 16.2 ms; the kernel it
+// replaced took 48.6 and 34.2 ms on the same card and batch.  Most
+// instructions of both passes are compares, selects, min/max and logic
+// (cuobjdump -sass of the built library).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kBig = 1e9f;  // stand-in for +inf, as _BIG in the JAX package
+constexpr int kSignBits = 27;  // members a state word holds signs of
+constexpr unsigned kNoMember = 31;  // argmin of a check whose every |v2c| >= kBig
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxGroups = 15;  // named barriers 1..15, one a frame group
+
+__host__ __device__ inline int structure_words(int R, int C, int K, int parts) {
+  return (6 * K + R + C + 2 + 2 * (parts + 1) + 3) / 4 * 4;
+}
+
+__host__ __device__ inline int frame_words(int Z, int R, int C) {
+  return (2 * C * Z + 3 * R * Z + 3) / 4 * 4;
+}
+
+// a with its sign bit flipped where bit 31 of `bits` is set.
+__device__ __forceinline__ float flip_if(float a, unsigned bits) {
+  return __uint_as_float(__float_as_uint(a) ^ (bits & 0x80000000u));
+}
+
+// The threads of one frame group: a warp, or `threads` threads that share
+// named barrier `id` (1..15; 0 is __syncthreads').
+struct Group {
+  int id, threads;
+  __device__ __forceinline__ void sync() const {
+    if (threads == 32)
+      __syncwarp();
+    else
+      asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+  }
+  // A barrier that also returns whether any thread of the group passed true.
+  __device__ __forceinline__ bool sync_or(bool pred) const {
+    if (threads == 32) {
+      const bool any = __any_sync(0xffffffffu, pred);
+      __syncwarp();
+      return any;
+    }
+    unsigned out;
+    asm volatile(
+        "{\n\t.reg .pred p, q;\n\t"
+        "setp.ne.u32 p, %1, 0;\n\t"
+        "bar.red.or.pred q, %2, %3, p;\n\t"
+        "selp.u32 %0, 1, 0, q;\n\t}"
+        : "=r"(out)
+        : "r"(static_cast<unsigned>(pred)), "r"(id), "r"(threads)
+        : "memory");
+    return out != 0u;
+  }
+};
+
+// Structure in shared memory, as ldpc_tpu_torch/ops/fused_minsum.py
+// _retire_structure lays it out: column members in col_members order (K
+// int4: r*Z, shift, j << 27, 31 - j for member j of its row), row members in
+// row order (K int2: col*Z, shift), row_ptr (R+1),
+// col_ptr (C+1), and the first row and column of each part (parts+1 each).
+struct Structure {
+  const int4* col_mem;
+  const int2* row_mem;
+  const int* row_ptr;
+  const int* col_ptr;
+  const int* row_part;
+  const int* col_part;
+};
+
+// Lane v of a roll by s of a circulant block: (z + s) mod Z, where s < Z.
+// With Z a power of two it is (z + s) & (Z - 1), and OR-ing in the block's
+// offset (a multiple of Z) adds it.
+template <bool POW2>
+__device__ __forceinline__ int rolled(int z, int s, int offset, int Z) {
+  if (POW2) return ((z + s) & (Z - 1)) | offset;
+  int v = z + s;
+  v -= v >= Z ? Z : 0;
+  return v + offset;
+}
+
+// Check pass of lifted check (r, z): reads the member beliefs once and the
+// check's state (A: alpha*m1, alpha*m2; W: the output sign of member j at
+// bit j, the argmin in the top bits), writes its new state; returns the hard
+// decisions of the beliefs it read XOR-ed together in bit 31.  Beliefs are
+// never -0.0 (a load adds +0.0, a column sum starts from +0.0), so v2c is
+// never -0.0 and the sign bit of a belief or of v2c is its "< 0".
+//
+// The members are folded from the last to the first, entering the switch at
+// member d - 1 and falling through, so every member index is a constant and
+// no per-member bound check is made.  m1, m2, the sign product and the
+// parity do not depend on the order; with "<=" the argmin is still the first
+// member that reaches m1 (if no |v2c| is below the sentinel both outputs
+// are 0 and the argmin is not read).
+template <bool TRACK, bool POW2>
+__device__ __forceinline__ unsigned check_pass(const Structure& s, const float* bel, float2* A,
+                                               unsigned* W, int r, int z, int Z, float alpha) {
+  const int q = r * Z + z;
+  const float2 a = A[q];
+  const unsigned w_old = W[q];
+  const unsigned arg_old = w_old >> kSignBits;
+  const int j0 = s.row_ptr[r], d = s.row_ptr[r + 1] - j0;
+  const int2* mem = s.row_mem + j0;
+  float m1 = kBig, m2 = kBig;
+  unsigned arg = kNoMember, neg = 0u, parity = 0u;
+  auto member = [&](int j) {
+    const int2 m = mem[j];
+    const float b = bel[rolled<POW2>(z, m.y, m.x, Z)];
+    const float x = b - flip_if(static_cast<unsigned>(j) == arg_old ? a.y : a.x, w_old << (31 - j));
+    const float mag = fabsf(x);
+    neg = __funnelshift_l(__float_as_uint(x), neg, 1);  // (neg << 1) | (x < 0)
+    if (TRACK) parity ^= __float_as_uint(b);
+    arg = mag <= m1 ? static_cast<unsigned>(j) : arg;
+    m2 = fminf(fmaxf(mag, m1), m2);
+    m1 = fminf(mag, m1);
+  };
+  switch (d) {
+#define RETIRE_MEMBER(J) \
+  case (J) + 1:          \
+    member(J);           \
+    [[fallthrough]];
+    RETIRE_MEMBER(26) RETIRE_MEMBER(25) RETIRE_MEMBER(24) RETIRE_MEMBER(23) RETIRE_MEMBER(22)
+    RETIRE_MEMBER(21) RETIRE_MEMBER(20) RETIRE_MEMBER(19) RETIRE_MEMBER(18) RETIRE_MEMBER(17)
+    RETIRE_MEMBER(16) RETIRE_MEMBER(15) RETIRE_MEMBER(14) RETIRE_MEMBER(13) RETIRE_MEMBER(12)
+    RETIRE_MEMBER(11) RETIRE_MEMBER(10) RETIRE_MEMBER(9) RETIRE_MEMBER(8) RETIRE_MEMBER(7)
+    RETIRE_MEMBER(6) RETIRE_MEMBER(5) RETIRE_MEMBER(4) RETIRE_MEMBER(3) RETIRE_MEMBER(2)
+    RETIRE_MEMBER(1) RETIRE_MEMBER(0)
+#undef RETIRE_MEMBER
+    default:
+      break;
+  }
+  const unsigned sp = (__popc(neg) & 1) ? (1u << d) - 1u : 0u;
+  A[q] = make_float2(alpha * (m1 < kBig ? m1 : 0.0f), alpha * (m2 < kBig ? m2 : 0.0f));
+  W[q] = (neg ^ sp) | (arg << kSignBits);
+  return parity;
+}
+
+// Column pass of variable (c, z): its c2v expanded from the check states and
+// summed from 0 in col_members order, plus its LLR.
+template <bool POW2>
+__device__ __forceinline__ float column_pass(const Structure& s, const float* llr, const float2* A,
+                                             const unsigned* W, int c, int z, int Z) {
+  float cs = 0.0f;
+  const int i1 = s.col_ptr[c + 1];
+#pragma unroll 4
+  for (int i = s.col_ptr[c]; i < i1; ++i) {
+    const int4 m = s.col_mem[i];
+    const int q = rolled<POW2>(z, Z - m.y, m.x, Z);  // (z - shift) mod Z in row r
+    const float2 a = A[q];
+    const unsigned w = W[q];
+    const float v = ((w ^ static_cast<unsigned>(m.z)) & 0xf8000000u) == 0u ? a.y : a.x;
+    cs = cs + flip_if(v, w << m.w);
+  }
+  return llr[c * Z + z] + cs;
+}
+
+// A frame group of `parts` * ceil(Z / 32) warps decodes frames from the
+// counter until the batch is done.  Warp w of a group covers lanes
+// z = 32 * (w % zw) + lane (zw = ceil(Z / 32) warps span Z) and part
+// w / zw: the rows and columns between row_part / col_part [part] and
+// [part + 1].  Thread (z, part) owns lifted checks (r, z) and variables
+// (c, z) of its part's rows and columns.
+template <bool TRACK, bool POW2>
+__global__ void __launch_bounds__(kMaxThreads)
+retire_minsum_kernel(const float* __restrict__ llr, float* __restrict__ bits,
+                     int* __restrict__ conv, int* __restrict__ next_frame,
+                     const int* __restrict__ structure, int B, int Z, int R, int C, int K,
+                     int max_iterations, float alpha, int parts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_frame[kMaxGroups];
+  int* s_struct = reinterpret_cast<int*>(smem);
+  const int sw = structure_words(R, C, K, parts);
+  for (int i = threadIdx.x; i < 6 * K + R + C + 2 + 2 * (parts + 1); i += blockDim.x)
+    s_struct[i] = structure[i];
+  Structure s;
+  s.col_mem = reinterpret_cast<const int4*>(s_struct);
+  s.row_mem = reinterpret_cast<const int2*>(s_struct + 4 * K);
+  s.row_ptr = s_struct + 6 * K;
+  s.col_ptr = s.row_ptr + R + 1;
+  s.row_part = s.col_ptr + C + 1;
+  s.col_part = s.row_part + parts + 1;
+  __syncthreads();
+
+  const int n = C * Z, RZ = R * Z;
+  const int zw = (Z + 31) / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gwarps = zw * parts;
+  const int g = warp / gwarps, wg = warp - g * gwarps;
+  const Group grp{g + 1, 32 * gwarps};
+  const int gi = 32 * wg + lane;  // thread index within the group
+  const int part = wg / zw;
+  const int z = 32 * (wg - part * zw) + lane;
+  const bool active = z < Z;
+  const int r0 = s.row_part[part], r1 = s.row_part[part + 1];
+  const int c0 = s.col_part[part], c1 = s.col_part[part + 1];
+  float* bel = reinterpret_cast<float*>(s_struct + sw) + g * frame_words(Z, R, C);
+  float* L = bel + n;
+  float2* A = reinterpret_cast<float2*>(L + n);  // 8-byte aligned: 2n is even
+  unsigned* W = reinterpret_cast<unsigned*>(A + RZ);
+
+  for (;;) {
+    int f;
+    if (grp.threads == 32) {
+      f = lane == 0 ? atomicAdd(next_frame, 1) : 0;
+      f = __shfl_sync(0xffffffffu, f, 0);
+    } else {
+      if (gi == 0) s_frame[g] = atomicAdd(next_frame, 1);
+      grp.sync();
+      f = s_frame[g];
+    }
+    if (f >= B) break;
+    const float* src = llr + static_cast<size_t>(f) * n;
+    for (int i = gi; i < n; i += grp.threads) {
+      const float x = src[i];
+      bel[i] = x + 0.0f;  // -0.0 -> +0.0; the same decisions and v2c
+      L[i] = x;
+    }
+    for (int i = gi; i < RZ; i += grp.threads) {
+      A[i] = make_float2(0.0f, 0.0f);
+      W[i] = 0u;
+    }
+    grp.sync();
+
+    int t = 0;
+    bool converged = false;
+    for (; t < max_iterations; ++t) {
+      unsigned parity = 0u;
+      if (active)
+        for (int r = r0; r < r1; ++r)
+          parity |= check_pass<TRACK, POW2>(s, bel, A, W, r, z, Z, alpha);
+      if (TRACK && t > 0) {
+        // The beliefs of iteration t - 1 satisfy every check: conv_iter = t.
+        if (!grp.sync_or(parity >> 31)) {
+          converged = true;
+          break;
+        }
+      } else {
+        grp.sync();
+      }
+      if (active)
+        for (int c = c0; c < c1; ++c) bel[c * Z + z] = column_pass<POW2>(s, L, A, W, c, z, Z);
+      grp.sync();
+    }
+    if (gi == 0) conv[f] = converged ? t : max_iterations;
+    float* out = bits + static_cast<size_t>(f) * n;
+    for (int i = gi; i < n; i += grp.threads) out[i] = bel[i] < 0.0f ? 1.0f : 0.0f;
+    grp.sync();  // the next frame's LLRs overwrite bel
+  }
+}
+
+using Kernel = decltype(&retire_minsum_kernel<true, true>);
+
+Kernel pick_kernel(int track, int Z) {
+  const bool pow2 = (Z & (Z - 1)) == 0;
+  return track ? (pow2 ? &retire_minsum_kernel<true, true> : &retire_minsum_kernel<true, false>)
+               : (pow2 ? &retire_minsum_kernel<false, true> : &retire_minsum_kernel<false, false>);
+}
+
+long long retire_smem(int Z, int R, int C, int K, int parts, int frames) {
+  return 4LL * (structure_words(R, C, K, parts) +
+                static_cast<long long>(frames) * frame_words(Z, R, C));
+}
+
+int retire_threads(int Z, int parts, int frames) { return 32 * ((Z + 31) / 32) * parts * frames; }
+
+cudaError_t launch(int track, const float* llr, float* bits, int* conv, int* counter,
+                   const int* structure, int B, int Z, int R, int C, int K, int T, float alpha,
+                   int parts, int frames, int grid, cudaStream_t stream) {
+  const long long smem = retire_smem(Z, R, C, K, parts, frames);
+  const Kernel kernel = pick_kernel(track, Z);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, retire_threads(Z, parts, frames), smem, stream>>>(
+      llr, bits, conv, counter, structure, B, Z, R, C, K, T, alpha, parts);
+  return cudaGetLastError();
+}
+
+bool valid_plan(int Z, int parts, int frames) {
+  return parts >= 1 && frames >= 1 && frames <= kMaxGroups &&
+         retire_threads(Z, parts, frames) <= kMaxThreads;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decodes B frames: `grid` blocks of `frames` frame groups, each of `parts`
+// parts (the row and column ranges the structure's part tables give);
+// `counter` is one int32 set to 0.  Returns a cudaError_t (0 on success).
+// Launches on `stream`, no sync.
+int ldpc_retire_minsum(const void* llr, void* bits, void* conv, void* counter,
+                       const void* structure, int B, int Z, int R, int C, int K, int T,
+                       float alpha, int track, int parts, int frames, int grid, void* stream) {
+  if (B < 1 || grid < 1 || !valid_plan(Z, parts, frames)) return cudaErrorInvalidValue;
+  return launch(
+      track, static_cast<const float*>(llr), static_cast<float*>(bits), static_cast<int*>(conv),
+      static_cast<int*>(counter), static_cast<const int*>(structure), B, Z, R, C, K, T, alpha,
+      parts, frames, grid, static_cast<cudaStream_t>(stream));
+}
+
+long long ldpc_retire_smem_bytes(int Z, int R, int C, int K, int parts, int frames) {
+  return retire_smem(Z, R, C, K, parts, frames);
+}
+
+// Resident blocks per SM of a launch with these arguments
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -cudaError_t.
+int ldpc_retire_occupancy(int Z, int R, int C, int K, int parts, int frames, int track) {
+  if (!valid_plan(Z, parts, frames)) return -static_cast<int>(cudaErrorInvalidValue);
+  const Kernel kernel = pick_kernel(track, Z);
+  const long long smem = retire_smem(Z, R, C, K, parts, frames);
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        retire_threads(Z, parts, frames), smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+const char* ldpc_retire_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

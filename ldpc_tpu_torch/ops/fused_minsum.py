@@ -1,14 +1,25 @@
 """Fused min-sum / BP decoders: the whole decode loop in one CUDA kernel
 (counterpart of ``ldpc_tpu.ops.pallas_minsum``).
 
-Two hand-written kernels live in ``csrc/fused_minsum.cu``:
+Three hand-written kernels replace the two TPU kernels:
 
-* ``fused`` (replaces ``pallas_minsum._kernel``): a few frames per thread
-  block, with all decode state (c2v, beliefs, channel LLRs) in shared
-  memory.  Fits while one frame's state is below the block's shared memory
-  (Z=32 on NR BG2: about 42 KB a frame).
-* ``fused_zlane`` (replaces ``pallas_minsum._kernel_zlane``): the same
-  semantics when a frame's state exceeds shared memory (the 5G maximum
+* ``fused_retire`` (``csrc/fused_retire.cu``, replaces
+  ``pallas_minsum._kernel`` for scaled min-sum with the flooding schedule,
+  the ``bench.py`` headline): a group of warps decodes a frame (ceil(Z / 32)
+  warps span Z, times up to 4 parts that split its rows and columns), with
+  the check state compressed to (alpha*m1, alpha*m2, argmin, signs) and the
+  beliefs and LLRs in shared memory; the syndrome is folded into the next
+  check pass, and a frame leaves the kernel the iteration it converges, its
+  group taking the next frame from an atomic counter.
+* ``fused`` (``csrc/fused_minsum.cu``, replaces ``pallas_minsum._kernel`` for
+  sum-product, the layered schedule and min-sum flooding on codes that
+  ``fused_retire`` does not take, those with rows of more than 27 members;
+  :func:`retire_kernel_fits` decides): a few frames per thread block, with
+  all decode state (c2v, beliefs, channel LLRs) in shared memory.  Fits
+  while one frame's state is below the block's shared memory (Z=32 on NR
+  BG2: about 42 KB a frame); ``fused_kernel_fits`` decides for both.
+* ``fused_zlane`` (same file, replaces ``pallas_minsum._kernel_zlane``): the
+  same semantics when a frame's state exceeds shared memory (the 5G maximum
   Z=384): c2v lives in a global scratch buffer, beliefs in shared memory,
   and each block walks over frames one at a time.
 
@@ -27,7 +38,7 @@ sequential column sums in ``col_members`` order), so min-sum results are
 bit-identical between the two.  ``FusedDecoder.plain`` runs the plain version
 on any device, for comparisons.
 
-The two kernels compute the same function, so one plain version serves both.
+The kernels compute the same function, so one plain version serves them all.
 ``LAUNCHES`` counts kernel launches per kernel name.
 """
 from __future__ import annotations
@@ -47,8 +58,12 @@ from ldpc_tpu_torch.ops.qc_msg import _BIG, _phi
 _SMEM_BUDGET = 232_448 - 1024
 _MAX_FRAMES_PER_BLOCK = 32  # kMaxFramesPerBlock in csrc/fused_minsum.cu
 _FUSED_THREADS = 256  # kFusedThreads in csrc/fused_minsum.cu
+_RETIRE_MAX_THREADS = 1024  # kMaxThreads in csrc/fused_retire.cu
+_RETIRE_MAX_GROUPS = 15  # kMaxGroups in csrc/fused_retire.cu: frames a block
+_RETIRE_MAX_DEGREE = 27  # kSignBits in csrc/fused_retire.cu: members of a row
+_RETIRE_MAX_PARTS = 4  # parts a frame's rows and columns are split into
 
-LAUNCHES: dict[str, int] = {"fused": 0, "fused_zlane": 0}
+LAUNCHES: dict[str, int] = {"fused_retire": 0, "fused": 0, "fused_zlane": 0}
 
 
 class _Structure(NamedTuple):
@@ -123,6 +138,70 @@ def pick_fused_batch_tile(qc: QCLayout) -> int:
 
 def zlane_kernel_fits(qc: QCLayout) -> bool:
     return qc.Z % 8 == 0 and zlane_smem_bytes(qc) <= _SMEM_BUDGET
+
+
+def retire_smem_bytes(qc: QCLayout, parts: int = 1, frames: int = 1) -> int:
+    """Dynamic shared memory of one ``fused_retire`` block: structure
+    (6K + R + C + 2 int32 and two part tables) plus, per frame, the beliefs
+    and the LLRs (C*Z float32 each) and the compressed check state (3 words
+    per lifted check)."""
+    K, Z, C, R = qc.num_base_edges, qc.Z, qc.num_base_cols, qc.num_base_rows
+    words = -(-(6 * K + R + C + 2 + 2 * (parts + 1)) // 4) * 4
+    return 4 * (words + frames * (-(-(2 * C * Z + 3 * R * Z) // 4) * 4))
+
+
+def retire_threads(qc: QCLayout, parts: int, frames: int) -> int:
+    """Threads of a ``fused_retire`` block: per frame, ``parts`` times the
+    ceil(Z / 32) warps that span Z."""
+    return 32 * -(-qc.Z // 32) * parts * frames
+
+
+def retire_plans(qc: QCLayout) -> list[tuple[int, int]]:
+    """The (parts, frames per block) a ``fused_retire`` launch may take:
+    at most 15 frames and 1024 threads a block, within shared memory."""
+    return [(p, f) for p in range(1, _RETIRE_MAX_PARTS + 1)
+            for f in range(1, _RETIRE_MAX_GROUPS + 1)
+            if retire_threads(qc, p, f) <= _RETIRE_MAX_THREADS
+            and retire_smem_bytes(qc, p, f) <= _SMEM_BUDGET]
+
+
+def retire_kernel_fits(qc: QCLayout) -> bool:
+    """Whether ``fused_retire`` takes the code: rows of at most 27 members
+    (the signs its state word holds) and a frame within a block."""
+    return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_plans(qc))
+
+
+def _balanced_bounds(costs, parts: int) -> list[int]:
+    """parts + 1 bounds that cut ``costs`` into contiguous runs of about
+    equal sum."""
+    cum = np.concatenate([[0], np.cumsum(costs)])
+    inner = [int(np.abs(cum - cum[-1] * p / parts).argmin()) for p in range(1, parts)]
+    return list(np.maximum.accumulate([0] + inner + [len(costs)]))
+
+
+def _retire_structure(st: _Structure, parts: int = 1) -> np.ndarray:
+    """Structure for ``fused_retire``, int32: column members in col_members
+    order as (r*Z, shift, j << 27, 31 - j) with j the member's position in
+    its row (the state word's argmin field, and the shift that brings its
+    sign, bit j, to bit 31) (4K), row members in row order as (col*Z,
+    shift) (2K), row_ptr (R+1), col_ptr (C+1), then the
+    first row and the first column of each of ``parts`` parts (parts+1
+    each), cut so that the parts carry about equal work (a check costs its
+    members plus 6, a variable its members plus 3)."""
+    Z = st.Z
+    member = {}
+    for r, members in enumerate(st.row_members):
+        for j, k in enumerate(members):
+            member[k] = (r * Z, st.shifts[k], j << 27, 31 - j)
+    col_mem = [member[k] for m in st.col_members for k in m]
+    row_mem = [(st.cols[k] * Z, st.shifts[k]) for m in st.row_members for k in m]
+    row_deg = [len(m) for m in st.row_members]
+    col_deg = [len(m) for m in st.col_members]
+    words = [np.asarray(col_mem, np.int64).reshape(-1), np.asarray(row_mem).reshape(-1),
+             np.cumsum([0] + row_deg), np.cumsum([0] + col_deg),
+             _balanced_bounds(np.add(row_deg, 6), parts),
+             _balanced_bounds(np.add(col_deg, 3), parts)]
+    return np.concatenate([np.asarray(w, np.int64) for w in words]).astype(np.uint32).view(np.int32)
 
 
 def _graph_array(st: _Structure) -> np.ndarray:
@@ -331,6 +410,15 @@ _SIGNATURES = {
     "ldpc_zlane_occupancy": ([_I] * 6, _I),
     "ldpc_cuda_error_string": ([_I], ctypes.c_char_p),
 }
+_RETIRE_SIGNATURES = {
+    # llr, bits, conv, counter, structure, B, Z, R, C, K, T, alpha,
+    # track, parts, frames_per_block, grid, stream
+    "ldpc_retire_minsum": ([_P] * 5 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
+    "ldpc_retire_smem_bytes": ([_I] * 6, ctypes.c_longlong),
+    # Z, R, C, K, parts, frames_per_block, track -> blocks per SM
+    "ldpc_retire_occupancy": ([_I] * 7, _I),
+    "ldpc_retire_error_string": ([_I], ctypes.c_char_p),
+}
 
 
 def kernel_library():
@@ -338,6 +426,31 @@ def kernel_library():
     from ldpc_tpu_torch.ops import _build
 
     return _build.load("fused_minsum", _SIGNATURES)
+
+
+def retire_kernel_library():
+    """The compiled ``csrc/fused_retire.cu``, built on first use."""
+    from ldpc_tpu_torch.ops import _build
+
+    return _build.load("fused_retire", _RETIRE_SIGNATURES)
+
+
+def retire_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
+                lib=None) -> tuple[int, int, int]:
+    """(parts, frames per block, resident blocks per SM) of ``fused_retire``:
+    of :func:`retire_plans` (those with ``parts`` if given), the most
+    resident frames per SM by the runtime's occupancy query, then the most
+    parts, then the fewest frames per block."""
+    lib = lib or retire_kernel_library()
+    dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
+    best, key = (0, 0, 0), (0, 0, 0)
+    for p, f in retire_plans(qc):
+        if parts is not None and p != parts:
+            continue
+        per_sm = lib.ldpc_retire_occupancy(*dims, p, f, int(track_convergence))
+        if (per_sm * f, p, -f) > key:
+            best, key = (p, f, per_sm), (per_sm * f, p, -f)
+    return best
 
 
 def _check_llr(llr: torch.Tensor, device: torch.device, n: int) -> None:
@@ -369,12 +482,16 @@ class FusedDecoder:
 
     Launches the ``kind`` kernel for CUDA tensors and runs the plain version
     for CPU tensors; ``plain(llr)`` runs the plain version on any device.
+    ``kind`` "fused" launches ``fused_retire`` for min-sum with the flooding
+    schedule on the codes it takes (:func:`retire_kernel_fits`) and the
+    ``fused`` kernel otherwise.
     """
 
     def __init__(self, kind: str, qc: QCLayout, max_iterations: int, alpha: float,
                  batch_tile: int, mode: str, track_convergence: bool, early_exit: bool,
                  schedule: str, device: torch.device):
         self.kind = kind
+        self.qc = qc
         self.st = _structure(qc)
         self.n = self.st.C * self.st.Z
         self.max_iterations = int(max_iterations)
@@ -385,8 +502,15 @@ class FusedDecoder:
         self.early_exit = bool(early_exit)
         self.schedule = schedule
         self.device = device
-        self.graph = torch.as_tensor(_graph_array(self.st), device=device)
+        self.retire = (kind == "fused" and mode == "minsum" and schedule == "flooding"
+                       and retire_kernel_fits(qc))
+        self.graph = None if self.retire else torch.as_tensor(_graph_array(self.st),
+                                                              device=device)
         self._plain_index: dict[torch.device, _PlainIndex] = {}
+        # fused_retire launch plans (parts, frames per block, resident blocks,
+        # structure on that card) by (card, parts asked for), made at the
+        # first launch on each.
+        self._retire_plans: dict[tuple[torch.device, int | None], tuple] = {}
 
     def __call__(self, llr: torch.Tensor):
         _check_llr(llr, self.device, self.n)
@@ -406,6 +530,8 @@ class FusedDecoder:
     def _launch(self, llr: torch.Tensor):
         if not llr.is_contiguous():
             raise ValueError("llr must be contiguous")
+        if self.retire:
+            return self._launch_retire(llr)
         st = self.st
         B = llr.shape[0]
         bits = torch.empty_like(llr)
@@ -436,6 +562,38 @@ class FusedDecoder:
         LAUNCHES[self.kind] += 1
         return bits, conv
 
+    def _launch_retire(self, llr: torch.Tensor, parts: int | None = None):
+        """``fused_retire`` on ``llr`` (contiguous, on a card); ``parts``
+        fixes the parts a frame is split into instead of :func:`retire_plan`'s
+        choice."""
+        st = self.st
+        B = llr.shape[0]
+        bits = torch.empty_like(llr)
+        conv = torch.empty((B,), dtype=torch.int32, device=llr.device)
+        if B == 0:
+            return bits, conv
+        lib = retire_kernel_library()
+        with torch.cuda.device(llr.device):
+            plan = self._retire_plans.get((llr.device, parts))
+            if plan is None:
+                p, frames, per_sm = retire_plan(self.qc, self.track_convergence, parts, lib)
+                resident = _resident_grid(per_sm, "fused_retire", llr.device)
+                structure = torch.as_tensor(_retire_structure(st, p), device=llr.device)
+                plan = self._retire_plans[(llr.device, parts)] = (p, frames, resident, structure)
+            p, frames, resident, structure = plan
+            grid = min(resident, -(-B // frames))
+            counter = torch.zeros((1,), dtype=torch.int32, device=llr.device)
+            stream = torch.cuda.current_stream(llr.device).cuda_stream
+            rc = lib.ldpc_retire_minsum(
+                llr.data_ptr(), bits.data_ptr(), conv.data_ptr(), counter.data_ptr(),
+                structure.data_ptr(), B, st.Z, st.R, st.C, st.K, self.max_iterations,
+                self.alpha, int(self.track_convergence), p, frames, grid, stream)
+        if rc != 0:
+            msg = lib.ldpc_retire_error_string(rc).decode()
+            raise RuntimeError(f"fused_retire kernel launch failed: CUDA error {rc} ({msg})")
+        LAUNCHES["fused_retire"] += 1
+        return bits, conv
+
 
 def _check_flags(mode: str, schedule: str, track_convergence: bool, early_exit: bool):
     if early_exit and not track_convergence:
@@ -459,14 +617,20 @@ def make_fused_minsum(
 ) -> FusedDecoder:
     """Build the fused decoder: (B, n) LLRs -> (bits (B, n), conv_iter (B,)).
 
-    ``batch_tile`` frames decode per thread block with all state in shared
-    memory (default: :func:`pick_fused_batch_tile`).  ``mode``: "minsum"
+    Min-sum with the flooding schedule runs on ``fused_retire``, which
+    picks its own frames per block (:func:`retire_plan`), on the codes it
+    takes (:func:`retire_kernel_fits`); sum-product, the layered schedule
+    and the codes ``fused_retire`` does not take run on ``fused``,
+    ``batch_tile`` frames per thread block with all state in shared memory
+    (default: :func:`pick_fused_batch_tile`).  ``batch_tile`` is checked against the
+    ``fused`` kernel's shared memory either way.  ``mode``: "minsum"
     (scaled, uses alpha) or "sumproduct" (BP).  ``track_convergence=False``
     skips the per-iteration syndrome/freeze pass (throughput mode: conv_iter
     returns max_iterations everywhere, bits are the final-iteration
     decisions).  ``early_exit=True`` (requires tracking) stops each block's
     iteration loop once all its frames have valid syndromes, with the same
-    outputs.  ``schedule``: "flooding" or "layered" (each base row's new c2v
+    outputs (``fused_retire`` lets each frame go the iteration it converges
+    either way).  ``schedule``: "flooding" or "layered" (each base row's new c2v
     folds into the beliefs at once).  The JAX builder's ``interpret`` flag has
     no counterpart: a CPU tensor runs the plain version.
     """

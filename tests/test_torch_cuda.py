@@ -21,7 +21,8 @@ tensor cores' float32 sums need not round as IEEE additions do).
 import pytest
 import torch
 
-from test_torch_parity import ALL_FLAGS, assert_decoder_parity, to_numpy
+from test_torch_parity import (ALL_FLAGS, EARLY_EXIT, THROUGHPUT, TRACKING,
+                               assert_decoder_parity, to_numpy)
 
 import ldpc_tpu_torch.codes as tcodes
 from ldpc_tpu_torch.models import create_corrected_minsum_gnn_decoder
@@ -50,14 +51,117 @@ def test_kernel_matches_plain(kind, name, Z, batch, mode, schedule, track, early
     dec = build(qc, 10, 0.75, mode=mode, track_convergence=track, early_exit=early_exit,
                 schedule=schedule)
     llr = _llr(qc.num_vars, batch, 1.0, seed=Z)
-    before = fm.LAUNCHES[kind]
+    # min-sum flooding runs on fused_retire, the rest on fused / fused_zlane
+    name_ = "fused_retire" if dec.retire else kind
+    before = fm.LAUNCHES[name_]
     bits_k, conv_k = dec(llr)
-    assert fm.LAUNCHES[kind] == before + 1
+    assert fm.LAUNCHES[name_] == before + 1
     bits_p, conv_p = dec.plain(llr)
     torch.cuda.synchronize()
     assert bits_k.is_cuda and conv_k.dtype == torch.int32
     assert_decoder_parity(mode, to_numpy(bits_k), to_numpy(conv_k), to_numpy(bits_p),
                           to_numpy(conv_p))
+
+
+# fused_retire at every shape it serves; batches that are not a multiple of
+# the frames a block holds (7 at Z=32, 3 at Z=64, 10 to 15 below).
+RETIRE_SHAPES = [("toy_4x8", 4, 31), ("nr_2_0_4", 8, 53), ("nr_2_0_32", 24, 45),
+                 ("nr_2_0_32", 32, 97), ("nr_2_0_32", 64, 23)]
+
+
+def _assert_identical(out_k, out_p):
+    (bits_k, conv_k), (bits_p, conv_p) = out_k, out_p
+    torch.cuda.synchronize()
+    assert bits_k.is_cuda and conv_k.dtype == torch.int32
+    assert torch.equal(bits_k, bits_p) and torch.equal(conv_k, conv_p)
+
+
+@pytest.mark.parametrize("snr_db", [-2.0, 1.0, 4.0])
+@pytest.mark.parametrize("track,early_exit", [TRACKING, THROUGHPUT, EARLY_EXIT])
+@pytest.mark.parametrize("name,Z,batch", RETIRE_SHAPES)
+def test_retire_kernel_matches_plain(name, Z, batch, track, early_exit, snr_db):
+    """Frames that never converge (-2 dB), that converge early (4 dB) and a
+    mix: bits and conv_iter identical to the plain version."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+    dec = fm.make_fused_minsum(qc, 12, 0.75, track_convergence=track, early_exit=early_exit)
+    llr = _llr(qc.num_vars, batch, snr_db, seed=Z + int(snr_db))
+    before = fm.LAUNCHES["fused_retire"]
+    out = dec(llr)
+    assert fm.LAUNCHES["fused_retire"] == before + 1
+    _assert_identical(out, dec.plain(llr))
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 4])
+def test_retire_kernel_ties_and_zeros(parts):
+    """Quantised LLRs (tied minimums, m1 == m2) with exact +0.0 and -0.0
+    (sign(0) = +1), every split of a frame into parts (warps)."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    llr = torch.round(_llr(qc.num_vars, 61, 1.0, seed=3) / 2.0) * 2.0
+    llr[::3, ::5] = 0.0
+    llr[1::3, 2::5] = -0.0
+    for track in (True, False):
+        dec = fm.make_fused_minsum(qc, 12, 0.75, track_convergence=track)
+        _assert_identical(dec._launch_retire(llr, parts=parts), dec.plain(llr))
+
+
+def test_retire_kernel_groups_take_several_frames():
+    """More frames than resident frame groups: each group takes frames from
+    the counter until the batch is done."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    dec = fm.make_fused_minsum(qc, 20, 0.75)
+    llr = _llr(qc.num_vars, 4001, 1.5, seed=11)
+    parts, frames, per_sm = fm.retire_plan(qc, True)
+    assert 4001 > frames * per_sm * torch.cuda.get_device_properties(0).multi_processor_count
+    _assert_identical(dec(llr), dec.plain(llr))
+
+
+@pytest.mark.parametrize("track", [True, False])
+def test_wide_rows_run_on_the_fused_kernel(track):
+    """A code with a row of 31 members, more than fused_retire's state word
+    holds signs of: min-sum flooding launches the fused kernel, bits and
+    conv_iter identical to the plain version."""
+    from test_torch_minsum_retire import wide_row_shifts
+
+    qc = tcodes.qc_layout(tcodes.BaseGraph("wide", wide_row_shifts()), 4)
+    dec = fm.make_fused_minsum(qc, 12, 0.75, track_convergence=track)
+    llr = _llr(qc.num_vars, 37, 4.0, seed=5)
+    before = dict(fm.LAUNCHES)
+    out = dec(llr)
+    assert fm.LAUNCHES["fused"] == before["fused"] + 1
+    assert fm.LAUNCHES["fused_retire"] == before["fused_retire"]
+    _assert_identical(out, dec.plain(llr))
+
+
+@pytest.mark.skipif("torch.cuda.device_count() < 2", reason="needs two NVIDIA cards")
+def test_one_decoder_on_two_cards():
+    """One decoder serves LLRs on two cards: each launch reads the structure
+    from its own card."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    for dec in (fm.make_fused_minsum(qc, 12, 0.75), fm.make_fused_bp(qc, 5)):
+        for card in (0, 1, 0):
+            llr = _llr(qc.num_vars, 29, 1.0, seed=card).to(f"cuda:{card}")
+            bits, conv = dec(llr)
+            assert bits.device == llr.device
+            bits_p, conv_p = dec.plain(llr)
+            assert_decoder_parity(dec.mode, to_numpy(bits), to_numpy(conv), to_numpy(bits_p),
+                                  to_numpy(conv_p))
+
+
+def test_minsum_flooding_launches_retire_kernel():
+    """Min-sum flooding (builder and serving object) launches fused_retire;
+    sum-product and the layered schedule launch the fused kernel."""
+    from ldpc_tpu_torch.models.classical import MinSumScaledDecoder
+
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    llr = _llr(qc.num_vars, 9, 1.0, seed=2)
+    before = dict(fm.LAUNCHES)
+    fm.make_fused_minsum(qc, 5)(llr)
+    MinSumScaledDecoder(qc, 5, backend="auto").decode(llr)
+    fm.make_fused_bp(qc, 5)(llr)
+    fm.make_fused_minsum(qc, 5, schedule="layered")(llr)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_retire"] == before["fused_retire"] + 2
+    assert fm.LAUNCHES["fused"] == before["fused"] + 2
 
 
 def test_zlane_frames_per_block_loop():
