@@ -7,7 +7,10 @@ Phases, one JSON line each:
 1. device  — the card's name and power limit (nvidia-smi); no card: exit 1.
 2. build   — compile every CUDA source of the port with nvcc (sm_90a), one
              process per source, all started together; the
-             main-path kernels' resident blocks per SM from the runtime.
+             main-path kernels' resident blocks per SM from the runtime;
+             msg_gnn_v2's block shape (its occupancy plan) and registers a
+             thread, and the HMMA (tensor-core) instructions of each of its
+             kernels in cuobjdump -sass (none fails).
 3. compare — each kernel against its plain PyTorch version on the card, for
              {minsum, sumproduct} x {flooding, layered} x {tracking,
              throughput mode, early exit}: make_fused_minsum (min-sum
@@ -78,15 +81,22 @@ Phases, one JSON line each:
              and 64, injection and
              share_layers, seeded parameters moved by 0.02 noise: soft bits
              within 3e-2, decisions identical where the plain version is
-             confident (|p - 0.5| > 0.05).  Then one T=3 model decoded to
-             depth 1, 2, 3 beside the plain version's card-against-CPU
-             difference (printed).
+             confident (|p - 0.5| > 0.05).  msg_gnn_v2 on the exact inputs of
+             ops/msg_gnn_exact.py (every sum exact in any order): identical
+             to the plain version (torch.equal), toy_4x8 h=16, nr_2_0_4 and
+             nr_2_0_32 h=64, injection and share_layers.  Then one T=3 model
+             decoded to depth 1, 2, 3 beside the plain version's
+             card-against-CPU difference (printed).
 13. msg_gnn_main — bench.py section_msg_gnn at full width: nr_2_0_32 Z=32
              h=64, T=20, no injection, batch 2048, BPSK all-zero at 3 dB:
              first a T=2 model on the whole batch at the T=2 bar, then
              msg_gnn_v2 (as the bench serves it), msg_gnn, msg_gnn_v3 and
              msg_gnn_v4, each whole batch against the plain version:
-             decisions equal on >= 99.9%; each also at depth 1.
+             decisions equal on >= 99.9%; each also at depth 1.  msg_gnn_v2
+             (the bench's kernel) is timed in five rounds, median and every
+             round printed, and traced once in a process of its own
+             (trace_msg_gnn: device time and launches by kernel; a second
+             profiler session in one process recorded no kernel).
 14. serve  — ldpc_tpu_torch.serve_trained_decoder with --model message_gnn
              and --model neural_minsum on the committed nr_2_0_4 checkpoints
              (defaults: batch 4096, 0 dB), BER/FER printed beside
@@ -1027,12 +1037,62 @@ def msg_compare(soft_k: torch.Tensor, soft_p: torch.Tensor, label: str, phase: s
     return err
 
 
+def tc_shape(qc, h: int, inject: bool) -> dict:
+    """msg_gnn_v2's block shape from its occupancy plan, and the registers a
+    thread and spill bytes of its instantiation from the compiler's report."""
+    import re
+
+    from ldpc_tpu_torch.ops import _build, fused_gnn as fg
+
+    warps, blocks = fg.msg_gnn_tc_plan(qc, h, inject)
+    log = _build.build_log("fused_msg_gnn_tc")
+    props = log[log.index("Function properties for _ZN"):]
+    name = f"msg_gnn_v2_tc_kernelILi{h}ELb{int(inject)}E"
+    report = props[props.index(name):].split("Compile time")[0]
+    return {"warps_per_block": warps, "blocks_per_sm": blocks, "warps_per_sm": warps * blocks,
+            "registers_per_thread": int(re.search(r"Used (\d+) registers", report).group(1)),
+            "spill_store_bytes": int(re.search(r"(\d+) bytes spill stores", report).group(1))}
+
+
+MSG_MAIN = dict(H=64, T=20, B=2048, SNR=3.0, model_seed=11, llr_seed=12)
+
+
+def trace_msg_gnn() -> dict:
+    """One msg_gnn_v2 decode of the msg_gnn_main batch under the profiler."""
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+    from ldpc_tpu_torch.ops import fused_gnn as fg, qc_msg
+
+    m = MSG_MAIN
+    qc = qc_layout(get_base_graph("nr_2_0_32"), 32)
+    model = perturbed_msg_model(qc_msg.make_plan(qc), m["T"], m["H"], False, False,
+                                seed=m["model_seed"])
+    llr = llrs(qc.num_vars, m["B"], m["SNR"], seed=m["llr_seed"])
+    dec = fg.make_fused_gnn_decoder_v2(qc, model, m["T"], m["H"])
+    dec(llr)  # warm-up: the plan and the first launch
+    return {"phase": "trace_msg_gnn", "kernel": "msg_gnn_v2", "batch": m["B"],
+            **trace_split(lambda: dec(llr), "msg_gnn")}
+
+
+def trace_msg_gnn_in_child() -> dict:
+    """trace_msg_gnn in a process of its own: a second torch.profiler
+    session in one process (after trace_main) recorded no kernel on the
+    card.  The child loads the libraries this process built."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trace-msg-gnn"],
+                         capture_output=True, text=True, timeout=600, check=True).stdout
+    result = json.loads(out.strip().splitlines()[-1])
+    if result["device_ms"] <= 0:
+        raise AssertionError(f"trace_msg_gnn recorded no device time: {result}")
+    return result
+
+
 def msg_gnn_phases(smi: str) -> list[dict]:
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
     from ldpc_tpu_torch.ops import fused_gnn as fg, qc_msg
+    from ldpc_tpu_torch.ops.msg_gnn_exact import EXACT_CASES, exact_msg_gnn_case
     from ldpc_tpu_torch.utils.metrics import decode_throughput
 
     lib = fg.msg_kernel_library()
+    tc_lib = fg.tc_kernel_library()
     builders = {"msg_gnn_v2": fg.make_fused_gnn_decoder_v2, "msg_gnn": fg.make_fused_gnn_decoder,
                 "msg_gnn_v3": fg.make_fused_gnn_decoder_v3,
                 "msg_gnn_v4": fg.make_fused_gnn_decoder_v4}
@@ -1050,15 +1110,42 @@ def msg_gnn_phases(smi: str) -> list[dict]:
             model = perturbed_msg_model(plan, 2, h, inject, share, seed=7)
             for kind, build in builders.items():
                 # the wrapper's shared-memory and scratch plans are the kernel's
-                variant = fg.MSG_VARIANT[kind]
-                assert lib.ldpc_msg_gnn_smem_bytes(variant, h, *dims) == \
-                    fg.msg_gnn_smem_bytes(qc, h, kind)
-                assert lib.ldpc_msg_gnn_scratch_floats(variant, h, *dims, int(inject)) == \
-                    fg.msg_gnn_scratch_floats(qc, h, inject, kind)
+                if kind == "msg_gnn_v2":
+                    warps = fg.msg_gnn_tc_plan(qc, h, inject)[0]
+                    for w in (1, warps):
+                        assert tc_lib.ldpc_msg_gnn_tc_smem_bytes(h, int(inject), *dims, w) == \
+                            fg.msg_gnn_smem_bytes(qc, h, kind, inject, w)
+                    assert tc_lib.ldpc_msg_gnn_tc_scratch_floats(h, *dims) == \
+                        fg.msg_gnn_scratch_floats(qc, h, inject, kind)
+                else:
+                    variant = fg.MSG_VARIANT[kind]
+                    assert lib.ldpc_msg_gnn_smem_bytes(variant, h, *dims) == \
+                        fg.msg_gnn_smem_bytes(qc, h, kind)
+                    assert lib.ldpc_msg_gnn_scratch_floats(variant, h, *dims, int(inject)) == \
+                        fg.msg_gnn_scratch_floats(qc, h, inject, kind)
                 dec = build(qc, model, 2, h, share_layers=share, input_injection=inject)
                 label = f"{kind} {code} Z={Z} h={h} B={B} T=2 inject={inject} share={share}"
                 err = msg_compare(dec(llr), dec.plain(llr), label, "msg_gnn_compare")
                 max_err[kind] = max(max_err[kind], err)
+
+    # Exact inputs (ops/msg_gnn_exact.py): every sum of the decode is exact in
+    # any order, so msg_gnn_v2 must equal its plain version bit for bit.
+    for code, Z, h, B, inject, share in EXACT_CASES:
+        qc = qc_layout(get_base_graph(code), Z)
+        model, llr_np = exact_msg_gnn_case(qc, h, B, inject, share)
+        dec = fg.make_fused_gnn_decoder_v2(qc, model, 2, h, share_layers=share,
+                                           input_injection=inject)
+        llr = torch.from_numpy(llr_np).cuda()
+        soft_k, soft_p = dec(llr), dec.plain(llr)
+        torch.cuda.synchronize()
+        ok = bool(torch.equal(soft_k, soft_p))
+        emit({"phase": "msg_gnn_compare", "case": f"msg_gnn_v2 exact {code} Z={Z} h={h} B={B} "
+              f"inject={inject} share={share}", "identical": ok,
+              "max_abs_err": (soft_k - soft_p).abs().max().item(),
+              "ones_share": (soft_p > 0.5).float().mean().item(), "ok": ok})
+        if not ok:
+            raise AssertionError(f"msg_gnn_v2 differs from its plain version on exact inputs: "
+                                 f"{code} Z={Z} h={h} inject={inject} share={share}")
 
     # The noise floor at nr_2_0_32 Z=32 h=64: one T=3 model decoded to depth
     # 1, 2 and 3, the kernel against the plain version beside the plain version
@@ -1085,8 +1172,8 @@ def msg_gnn_phases(smi: str) -> list[dict]:
               "by_depth": by_depth, "ok": True})
 
     # msg_gnn_main: bench.py section_msg_gnn at full width.
-    H, T, B, SNR = 64, 20, 2048, 3.0
-    llr = llrs(n, B, SNR, seed=12)
+    H, T, B, SNR = MSG_MAIN["H"], MSG_MAIN["T"], MSG_MAIN["B"], MSG_MAIN["SNR"]
+    llr = llrs(n, B, SNR, seed=MSG_MAIN["llr_seed"])
     # The random T=20 model decides every bit 1, so its run cannot tell a
     # kernel from a constant.  First the whole batch through a T=2 model of
     # the same width, which does not saturate: every resident block decodes
@@ -1098,7 +1185,7 @@ def msg_gnn_phases(smi: str) -> list[dict]:
         err = msg_compare(dec(llr), dec.plain(llr), f"{kind} T=2 whole batch of {B}",
                           "msg_gnn_main", mixed=True)
         max_err[kind] = max(max_err[kind], err)
-    model = perturbed_msg_model(plan32, T, H, False, False, seed=11)
+    model = perturbed_msg_model(plan32, T, H, False, False, seed=MSG_MAIN["model_seed"])
     entries = {}
     for kind in ("msg_gnn_v2", "msg_gnn", "msg_gnn_v3", "msg_gnn_v4"):  # v2 as the bench serves it
         dec = builders[kind](qc32, model, T, H)
@@ -1109,7 +1196,13 @@ def msg_gnn_phases(smi: str) -> list[dict]:
         launches = dict(fg.LAUNCHES)
         if launches[kind] != 1:
             raise AssertionError(f"msg_gnn main path did not run the {kind} kernel: {launches}")
-        ms, _ = cuda_ms(lambda: dec(llr), reps=2)
+        rounds_ms = None
+        if kind == "msg_gnn_v2":  # bench.py's kernel: five rounds and a profiler trace
+            rounds_ms = [cuda_ms(lambda: dec(llr), reps=2)[0] for _ in range(5)]
+            ms = sorted(rounds_ms)[2]
+            emit(trace_msg_gnn_in_child())
+        else:
+            ms, _ = cuda_ms(lambda: dec(llr), reps=2)
         plain_ms, soft_p = cuda_ms(lambda: dec.plain(llr), reps=1)
         err = msg_compare(soft, soft_p, f"{kind} main path T={T} whole batch", "msg_gnn_main",
                           min_agreement=MSG_MIN_BIT_AGREEMENT)
@@ -1125,14 +1218,15 @@ def msg_gnn_phases(smi: str) -> list[dict]:
               "bits_per_s": decode_throughput(B, n, ms / 1e3, name=kind), "plain_ms": plain_ms,
               "bound_ms": bms, "bound_by": bby, "max_abs_err": err,
               "variants_ms": {"depth_1": depth_1, "per_layer": (ms - depth_1) / (T - 1)},
+              "rounds_ms": rounds_ms,
               "ber_zero_codeword": hard.mean().item(),
               "fer_zero_codeword": (hard.sum(dim=1) > 0).float().mean().item(),
-              "blocks_per_sm": lib.ldpc_msg_gnn_occupancy(
-                  fg.MSG_VARIANT[kind], H, 32, qc32.num_base_rows, qc32.num_base_cols,
-                  qc32.num_base_edges),
+              "blocks_per_sm": fg.msg_gnn_blocks_per_sm(kind, qc32, H),
+              **(tc_shape(qc32, H, False) if kind == "msg_gnn_v2" else {}),
               "nvidia_smi": smi})
         entries[kind] = {
-            "name": kind, "route": "cuda", "source": "ldpc_tpu_torch/ops/csrc/fused_msg_gnn.cu",
+            "name": kind, "route": "cuda", "source": "ldpc_tpu_torch/ops/csrc/"
+            + ("fused_msg_gnn_tc.cu" if kind == "msg_gnn_v2" else "fused_msg_gnn.cu"),
             "replaces": "ldpc_tpu/ops/pallas_gnn.py:" + MSG_TPU_LINE[kind],
             "launches": launches[kind], "max_abs_err": max(max_err[kind], err), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None}
@@ -1243,7 +1337,7 @@ def build_all() -> dict:
     from ldpc_tpu_torch.ops import _build
 
     stems = ("fused_minsum", "fused_retire", "fused_gnn", "fused_neural", "fused_msg_gnn",
-             "probe_agg_mxu")
+             "fused_msg_gnn_tc", "probe_agg_mxu")
     with ThreadPoolExecutor(len(stems)) as pool:
         list(pool.map(_build.build, stems))
     return {stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
@@ -1251,14 +1345,37 @@ def build_all() -> dict:
             for stem in stems}
 
 
+def sass_mma_counts(stem: str) -> dict:
+    """HMMA instructions per kernel in ``cuobjdump -sass`` of a built
+    library: the products that run on the tensor cores."""
+    from ldpc_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(stem))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["classical", "gnn", "nms", "msg_gnn", "tools"],
                     default=None)
-    only = ap.parse_args(argv).only
+    ap.add_argument("--trace-msg-gnn", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    only = args.only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
+    if args.trace_msg_gnn:  # the child of trace_msg_gnn_in_child
+        emit(trace_msg_gnn())
+        return 0
 
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
     from ldpc_tpu_torch.ops import fused_gnn as fg, fused_minsum as fm, fused_neural as fn
@@ -1293,9 +1410,8 @@ def main(argv=None) -> int:
             for name, variant in fg.VARIANT.items():
                 occupancy[f"{name} Z={Z} h=64"] = fg.kernel_library().ldpc_corrected_gnn_occupancy(
                     variant, 64, *dims, qc.num_edge_types)
-            for name, variant in fg.MSG_VARIANT.items():
-                occupancy[f"{name} Z={Z} h=64"] = fg.msg_kernel_library().ldpc_msg_gnn_occupancy(
-                    variant, 64, *dims)
+            for name in ("msg_gnn", "msg_gnn_v2", "msg_gnn_v3", "msg_gnn_v4"):
+                occupancy[f"{name} Z={Z} h=64"] = fg.msg_gnn_blocks_per_sm(name, qc, 64)
             shared, fpb = fn.neural_plan(qc, 10, 2)
             occupancy[f"fused_neural Z={Z} T=10 L=2"] = fn.kernel_library().ldpc_neural_occupancy(
                 *dims, 10, 2, fpb, int(shared))
@@ -1303,8 +1419,14 @@ def main(argv=None) -> int:
             occupancy[f"fused_zlane Z={Z}"] = lib.ldpc_zlane_occupancy(*dims, 0, 0)
     if min(occupancy.values()) < 1:
         raise AssertionError(f"a main-path kernel cannot be resident: {occupancy}")
+    qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
+    hmma = sass_mma_counts("fused_msg_gnn_tc")
+    if not hmma or min(hmma.values()) < 1:
+        raise AssertionError(f"msg_gnn_v2's kernels have no tensor-core instructions: {hmma}")
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "ptxas": ptxas,
-          "blocks_per_sm": occupancy})
+          "blocks_per_sm": occupancy, "hmma_per_kernel": hmma,
+          "msg_gnn_v2_shape": {f"nr_2_0_32 Z=32 h={h} inject={inj}": tc_shape(qc32, h, inj)
+                               for h in (16, 64) for inj in (False, True)}})
 
     entries = []
     if only in (None, "classical"):

@@ -27,7 +27,9 @@ NVCC_FLAGS = (
 
 # Flags of single sources: no contraction of a * b + c into an FMA, so the
 # elementwise steps round like the plain versions; the GNN sources' matrix
-# products call fmaf themselves.
+# products call fmaf themselves.  fused_msg_gnn_tc.cu needs no flag: its
+# products are tensor-core mma and its elementwise multiplies are
+# __fmul_rn, which is never contracted (see its header).
 EXTRA_FLAGS: dict[str, tuple[str, ...]] = {
     stem: ("-fmad=false",) for stem in ("fused_gnn", "fused_msg_gnn", "fused_neural")}
 

@@ -5,16 +5,16 @@
 // Replaces the TPU kernels of ldpc_tpu/ops/pallas_gnn.py:
 //   * msg_gnn_kernel<H>     <- _kernel     (make_fused_gnn_decoder),
 //                              entry point ldpc_msg_gnn
-//   * msg_gnn_v2_kernel<H>  <- _kernel_v2  (make_fused_gnn_decoder_v2),
-//                              entry point ldpc_msg_gnn_v2
 //   * msg_gnn_v3_kernel<H>  <- _kernel_v3  (make_fused_gnn_decoder_v3),
 //                              entry point ldpc_msg_gnn_v3
 //   * msg_gnn_v4_kernel<H>  <- _kernel_v4  (make_fused_gnn_decoder_v4),
 //                              entry point ldpc_msg_gnn_v4
-// The four compute the same function and differ in where they round to bf16
-// and in the order of some float32 sums: layer<H, 6>, layer<H, 7>,
-// fold_layer<H, 8> and fold_layer<H, 9> below.  H is the hidden width, built
-// for 16 and 64.  Python wrappers, weight packing (_extract, _extract_v3) and
+// B7 (_kernel_v2, make_fused_gnn_decoder_v2) runs on the tensor cores in
+// fused_msg_gnn_tc.cu; its function is described below beside B6's.
+// The kernels compute the same function and differ in where they round to
+// bf16 and in the order of some float32 sums: layer<H> (B6), fold_layer<H,
+// 8> and fold_layer<H, 9> below.  H is the hidden width, built for 16 and
+// 64.  Python wrappers, weight packing (_extract, _extract_v3) and
 // the plain PyTorch version of each kernel: ldpc_tpu_torch/ops/fused_gnn.py.
 // Built with -fmad=false: every fused multiply-add below is an explicit fmaf
 // in a matrix product, and the elementwise steps round after every operation
@@ -101,8 +101,9 @@
 //
 // What bounds it on the card
 // --------------------------
-// Per layer of one frame, with E = K*Z messages, n = C*Z variables, M = R*Z
-// checks, inj = 1 with input injection:
+// Per layer of one frame (B6; B7 had the same counts on this skeleton), with
+// E = K*Z messages, n = C*Z variables, M = R*Z checks, inj = 1 with input
+// injection:
 //   products: (4E + n + M + 2 inj n) products of (h, h) by a vector, 2h^2
 //     operations each (first layer per message twice, second layer twice;
 //     one per variable and check mean; the LLR terms per variable).  They
@@ -163,9 +164,9 @@ struct Args {
   const int* graph;          // row_ptr, row_edge, col_ptr, col_edge, shift, col, row, type
   const float* inv;          // 1/degree per column (C), then per row (R)
   const __nv_bfloat16* w;    // (T, 8, H, H)
-  const float* tab;          // B6/B7 (T, 2, K, H): b1v, b1c per edge (type embeddings
+  const float* tab;          // B6 (T, 2, K, H): b1v, b1c per edge (type embeddings
                              // folded in); B8/B9 (T + 1, K, H): the delta table dte
-  const float* small;        // B6 (T, 2H) b2v, b2c; B7 (T, 2H) b2v + b2c, 0;
+  const float* small;        // B6 (T, 2H) b2v, b2c;
                              // B8/B9 (T, 3H) b1v, b1c, b2 (B8's b2 bf16-rounded)
   const float* emb;          // emb_w (H), emb_b (H), proj_w (H), proj_b; B9: bf16(proj_w), 0
   const float* extra;        // B9: w2last (2H), dsc (K); unused otherwise
@@ -206,7 +207,8 @@ __host__ __device__ inline Layout make_layout(int V, int H, int Z, int R, int C,
 }
 
 // Floats of one block's global scratch: pre_col (C), pre_row (R), with
-// injection the LLR terms (B6/B7 2C, both sides; B8/B9 C, the check side),
+// injection the LLR terms (B6 2C: it reads the check side's, the room of
+// the variable side's keeps its layout; B8/B9 C, the check side),
 // each Z*H float32; then the features, K*Z*H bf16; B9 then its per-message
 // output scalars, K*Z float32.
 __host__ __device__ inline long long scratch_floats(int V, int H, int Z, int R, int C, int K,
@@ -217,8 +219,8 @@ __host__ __device__ inline long long scratch_floats(int V, int H, int Z, int R, 
 }
 
 // The second layer of one message, rows four at a time: B6 sums W2v x and
-// W2c y apart (sink(j, sv, sc)); B7 continues one sum over both
-// (sink(j, s, 0)).
+// W2c y apart (sink(j, sv, sc)); V = 7 continues one sum over both
+// (sink(j, s, 0)), as B8 and B9 do.
 template <int H, int V, typename Sink>
 __device__ __forceinline__ void second_layer(const float* __restrict__ W2v,
                                              const float* __restrict__ W2c, const float (&x)[H],
@@ -264,7 +266,7 @@ struct Block {
   const float *w2last, *dsc;  // B9's folded last layer (shared memory)
   float* w;                // the staged phase's four weight matrices
   __nv_bfloat16* stage;    // [2H][kThreads] first-layer outputs
-  float *pre_col, *pre_row, *pre_llr_v, *pre_llr_c;  // global scratch, [group][j][z]
+  float *pre_col, *pre_row, *pre_llr_c;  // global scratch, [group][j][z]
   __nv_bfloat16* feats;    // global scratch, [k][q][z]
   float* s_all;            // B9: global scratch, [k][z] output scalars
   int Z, R, C, K;
@@ -278,9 +280,9 @@ __device__ void stage_weights(const Args& a, const Block<H>& b, int t, int first
   for (int i = threadIdx.x; i < 4 * H * H; i += blockDim.x) b.w[i] = __bfloat162float(wl[i]);
 }
 
-// Layer t of one frame: phase 1 (variables and checks), phase 2 (messages).
-// Starts and ends with a barrier.
-template <int H, int V>
+// Layer t of one frame for B6: phase 1 (variables and checks), phase 2
+// (messages).  Starts and ends with a barrier.
+template <int H>
 __device__ void layer(const Args& a, const Block<H>& b, int t) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int Z = b.Z, C = b.C, K = b.K, n = C * Z, M = b.R * Z;
@@ -311,13 +313,8 @@ __device__ void layer(const Args& a, const Block<H>& b, int t) {
       matvec<H>(b.w + kWva * H * H, x, [&](int j, float s) { pc[j * Z] = s; });
       if (a.inject) {
         embed<H>(x, b.llr[i], b.emb_w, b.emb_b);
-        if constexpr (V == 6) {
-          matvec<H>(b.w + kWvl * H * H, x,
-                    [&](int j, float s) { pc[j * Z] = __fadd_rn(pc[j * Z], s); });
-        } else {
-          float* lv = b.pre_llr_v + static_cast<size_t>(c) * H * Z + z;
-          matvec<H>(b.w + kWvl * H * H, x, [&](int j, float s) { lv[j * Z] = s; });
-        }
+        matvec<H>(b.w + kWvl * H * H, x,
+                  [&](int j, float s) { pc[j * Z] = __fadd_rn(pc[j * Z], s); });
         float* lc = b.pre_llr_c + static_cast<size_t>(c) * H * Z + z;
         matvec<H>(b.w + kWcl * H * H, x, [&](int j, float s) { lc[j * Z] = s; });
       }
@@ -353,7 +350,6 @@ __device__ void layer(const Args& a, const Block<H>& b, int t) {
     int zc = z - g.shift[k];
     zc = zc < 0 ? zc + Z : zc;
     const float* pc = b.pre_col + static_cast<size_t>(c) * H * Z + z;
-    const float* lv = b.pre_llr_v + static_cast<size_t>(c) * H * Z + z;
     const float* lc = b.pre_llr_c + static_cast<size_t>(c) * H * Z + z;
     const float* pr = b.pre_row + static_cast<size_t>(g.row[k]) * H * Z + zc;
     const float* b1v = b1 + static_cast<size_t>(k) * H;
@@ -363,9 +359,7 @@ __device__ void layer(const Args& a, const Block<H>& b, int t) {
 #pragma unroll
     for (int q = 0; q < H; ++q) x[q] = __bfloat162float(fk[q * Z]);
     matvec<H>(b.w + (kWvf - kWvf) * H * H, x, [&](int j, float s) {
-      float p = __fadd_rn(__fadd_rn(s, pc[j * Z]), b1v[j]);
-      if (V == 7 && inject) p = __fadd_rn(p, lv[j * Z]);
-      st[j * kThreads] = __float2bfloat16_rn(fmaxf(p, 0.0f));
+      st[j * kThreads] = __float2bfloat16_rn(fmaxf(__fadd_rn(__fadd_rn(s, pc[j * Z]), b1v[j]), 0.0f));
     });
     matvec<H>(b.w + (kWcf - kWvf) * H * H, x, [&](int j, float s) {
       float p = __fadd_rn(__fadd_rn(s, pr[j * Z]), b1c[j]);
@@ -379,14 +373,10 @@ __device__ void layer(const Args& a, const Block<H>& b, int t) {
       y[q] = __bfloat162float(st[(H + q) * kThreads]);
     }
     const float* b2 = b.small;
-    second_layer<H, V>(b.w + (kW2v - kWvf) * H * H, b.w + (kW2c - kWvf) * H * H, x, y,
+    second_layer<H, 6>(b.w + (kW2v - kWvf) * H * H, b.w + (kW2c - kWvf) * H * H, x, y,
                        [&](int j, float sv, float sc) {
-                         float out;
-                         if constexpr (V == 6)
-                           out = bf16r(__fadd_rn(bf16r(__fadd_rn(sv, b2[j])),
-                                                 bf16r(__fadd_rn(sc, b2[H + j]))));
-                         else
-                           out = bf16r(__fadd_rn(sv, b2[j]));
+                         float out = bf16r(__fadd_rn(bf16r(__fadd_rn(sv, b2[j])),
+                                                     bf16r(__fadd_rn(sc, b2[H + j]))));
                          if (residual) out = bf16r(__fadd_rn(out, __bfloat162float(fk[j * Z])));
                          fk[j * Z] = __float2bfloat16_rn(out);
                        });
@@ -539,7 +529,7 @@ __device__ void fold_layer(const Args& a, const Block<H>& b, int t) {
   __syncthreads();
 }
 
-// The decode the four kernels share: frames from the atomic counter, the
+// The decode the three kernels share: frames from the atomic counter, the
 // seed, T layers of layer<H, V> or fold_layer<H, V>, the output.
 template <int H, int V>
 __device__ __forceinline__ void decode_frames(const Args& a) {
@@ -581,8 +571,8 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
   b.pre_col = a.scratch + static_cast<size_t>(blockIdx.x) *
                               scratch_floats(V, H, Z, R, C, K, a.inject);
   b.pre_row = b.pre_col + C * zh;
-  // B6/B7 keep the LLR terms of both sides, B8/B9 the check side's alone.
-  b.pre_llr_v = folded(V) ? nullptr : b.pre_row + R * zh;
+  // B6's slice has room for the LLR terms of both sides, B8/B9's for the
+  // check side's alone.
   b.pre_llr_c = b.pre_row + (folded(V) ? R : R + C) * zh;
   const int llr_groups = a.inject ? (folded(V) ? C : 2 * C) : 0;
   b.feats = reinterpret_cast<__nv_bfloat16*>(b.pre_row + (R + llr_groups) * zh);
@@ -620,7 +610,7 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
       if constexpr (folded(V))
         fold_layer<H, V>(a, b, t);
       else
-        layer<H, V>(a, b, t);
+        layer<H>(a, b, t);
     }
 
     // Output: per variable, the sum over its messages of their projection
@@ -654,12 +644,6 @@ __global__ void __launch_bounds__(kThreads, 1) msg_gnn_kernel(const Args a) {
   decode_frames<H, 6>(a);
 }
 
-// B7, _kernel_v2: one float32 sum over both halves, rounded once.
-template <int H>
-__global__ void __launch_bounds__(kThreads, 1) msg_gnn_v2_kernel(const Args a) {
-  decode_frames<H, 7>(a);
-}
-
 // B8, _kernel_v3: type embeddings in the features, the check side's W1ca
 // products averaged in float32, b2 in bf16.
 template <int H>
@@ -682,11 +666,6 @@ KernelFn pick_kernel(int variant, int H) {
       case 16: return msg_gnn_kernel<16>;
       case 64: return msg_gnn_kernel<64>;
     }
-  } else if (variant == 7) {
-    switch (H) {
-      case 16: return msg_gnn_v2_kernel<16>;
-      case 64: return msg_gnn_v2_kernel<64>;
-    }
   } else if (variant == 8) {
     switch (H) {
       case 16: return msg_gnn_v3_kernel<16>;
@@ -705,7 +684,7 @@ KernelFn pick_kernel(int variant, int H) {
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of `variant` (6..9) needs.
+// Bytes of dynamic shared memory one block of `variant` (6, 8 or 9) needs.
 long long ldpc_msg_gnn_smem_bytes(int variant, int H, int Z, int R, int C, int K) {
   return 4LL * make_layout(variant, H, Z, R, C, K).total;
 }
@@ -730,7 +709,7 @@ int ldpc_msg_gnn_occupancy(int variant, int H, int Z, int R, int C, int K) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// Launches one of the four kernels on `stream` with `grid` blocks, no sync.
+// Launches one of the three kernels on `stream` with `grid` blocks, no sync.
 static int launch(int variant, int H, const void* llr, void* soft, void* counter, void* scratch,
                   const void* graph, const void* inv, const void* w, const void* tab,
                   const void* small, const void* emb, const void* extra, int B, int Z, int R,
@@ -777,7 +756,6 @@ static int launch(int variant, int H, const void* llr, void* soft, void* counter
   }
 
 LDPC_MSG_GNN_ENTRY(ldpc_msg_gnn, 6)     // msg_gnn_kernel (_kernel)
-LDPC_MSG_GNN_ENTRY(ldpc_msg_gnn_v2, 7)  // msg_gnn_v2_kernel (_kernel_v2)
 LDPC_MSG_GNN_ENTRY(ldpc_msg_gnn_v3, 8)  // msg_gnn_v3_kernel (_kernel_v3)
 LDPC_MSG_GNN_ENTRY(ldpc_msg_gnn_v4, 9)  // msg_gnn_v4_kernel (_kernel_v4)
 

@@ -1,0 +1,707 @@
+// B7 on the tensor cores for Hopper (sm_90a): the whole forward of a trained
+// fully-neural MessageGNNDecoder (LLR embedding, T GNN layers, output
+// projection, per-variable sum, sigmoid) in one kernel launch, its message
+// products as bf16 mma.sync tiles with float32 accumulators.
+//
+// Replaces the TPU kernel ldpc_tpu/ops/pallas_gnn.py:295 _kernel_v2
+// (make_fused_gnn_decoder_v2, pallas_call at :519):
+//   msg_gnn_v2_tc_kernel<H, INJ>, entry point ldpc_msg_gnn_v2.
+// H is the hidden width, built for 16 and 64; INJ is input injection.  The
+// Python wrapper, the packed weight layout (pack_tc_weights) and the plain
+// PyTorch version (_MsgPlain): ldpc_tpu_torch/ops/fused_gnn.py.
+//
+// What it computes, per frame
+// ---------------------------
+// Messages are var-aligned per base edge k: message i = k*Z + z belongs to
+// variable (col[k], z) and to check (row[k], (z - shift[k]) mod Z).  Each
+// message carries h bf16 features f.
+//   seed:  f = bf16(llr[col[k], z] * emb_w + emb_b)
+//   layer t (weights of layer t rounded to bf16; the type embeddings folded
+//   into per-edge first-layer biases b1v[t, k], b1c[t, k], float32):
+//     vmean = bf16(sum of f over the variable's messages * (1 / degree))
+//     rmean = bf16(sum of f over the check's messages * (1 / degree))
+//     per message, with lf = bf16(llr[col[k], z] * emb_w + emb_b) (INJ only):
+//       pv  = [f | vmean[col[k], z] | lf] . [W1vf W1va W1vl]^T + b1v[k]
+//       pc  = [f | rmean[row[k], (z - shift[k]) mod Z] | lf] . [W1cf W1ca W1cl]^T + b1c[k]
+//       new = bf16([bf16(relu(pv)) | bf16(relu(pc))] . [W2v W2c]^T + b2),  b2 = b2v + b2c
+//       f   = new at t = 0, bf16(new + f) after (residual from layer 2 on)
+//   output: acc = sum over the variable's messages of
+//           ((acc + sum_q f[q] * proj_w[q]) + proj_b); soft = 1 / (1 + exp(llr + acc)).
+// Against the plain version only the float32 summation order changes: it
+// adds the shared first-layer terms as separate products,
+// ((W1vf f + W1va vmean) + b1v) + W1vl lf; here each first-layer output is
+// one accumulation over its 2h (3h with injection) inputs, then plus b1.
+// Every bf16 rounding point is the plain version's.
+//
+// Design
+// ------
+// A frame's state does not fit in a block (the features alone are K*Z*h
+// bf16, 807 KB at nr_2_0_32 Z=32 h=64), so it lives in a global scratch
+// slice per resident block, sized by the grid; frames come from an atomic
+// counter.  The slice holds, message-major, one 2h-byte row per message:
+// the features [k*Z + z][q], then the means vmean [c*Z + z][q] and rmean
+// [r*Z + z][q] (bf16, (K*Z + (C + R)*Z) * h * 2 bytes: 1.19 MB at the main
+// path's shapes).  A layer runs in two phases separated by barriers:
+//   1. no products: each thread sums one 16-byte chunk (8 features) of one
+//      variable's or check's members, in member order, and stores the bf16
+//      mean; meanwhile cp.async stages the layer's weights.
+//   2. each warp takes 16-message tiles over the flat message index (any Z:
+//      the per-row k may change inside a tile).  cp.async (16 B a thread)
+//      gathers the tile's feature rows, vmean rows at (col, z) and rmean
+//      rows at (row, (z - shift) mod Z) into the warp's shared memory,
+//      double-buffered: the next tile's rows load while this one computes.
+//      ldmatrix reads the A fragments; the lf fragments are built in
+//      registers from the frame's LLRs.  mma.sync m16n8k16 (bf16 in, float32
+//      accumulators) computes pv and pc; their C fragments plus b1, relu and
+//      bf16-packed are the A fragments of the second layer, so the first
+//      layer's outputs never leave registers.  The epilogue adds b2 and the
+//      residual (read from the staged tile), writes the tile in place in
+//      shared memory and copies it out with 16-byte stores: a message reads
+//      only its own row and the means, so the update is in place.
+// Weights, per layer, bf16 in shared memory as [out][in] rows: W1v (h x
+// 2h or 3h), W1c (likewise), W2 = [W2v W2c] (h x 2h).  Each row is padded
+// by 8 bf16 (16 bytes), not swizzled, so the eight 16-byte rows one ldmatrix
+// phase reads fall in eight different bank quads; the staged tiles are
+// padded the same way.  The wrapper packs the weights in exactly this
+// layout, padding included, so staging is a straight 16-byte copy.
+// Shared memory (H = 64, nr_2_0_32 Z = 32): structure, inverse degrees, the
+// frame's LLRs, embedding, b2 about 13 KB; weights 52,224 B (68,608 B with
+// injection); 13,824 B of tile buffers per warp.
+//
+// Block shape: ldpc_msg_gnn_tc_plan asks the runtime's occupancy query for
+// every warp count from 1 to kMaxWarps and takes the one with the most
+// resident warps per SM (ties: the smaller block, so more frames are in
+// flight).  At H = 64 shared memory decides it: 11 warps, one block per SM
+// (8 warps before); the registers a thread are in the build log (-Xptxas
+// -v, _build.build_log) and chip_smoke.py prints them beside the plan.
+//
+// Flags: built without -fmad=false.  The only products are the mma's; every
+// elementwise multiply that is followed by an add (the embedding, the mean's
+// scale, the projection) is written with __fmul_rn / __fadd_rn, which the
+// compiler never contracts into an FMA, and the remaining float adds have no
+// multiply to contract with.  So the flag would change no result here.
+//
+// What bounds it on the card
+// --------------------------
+// The least work is the bound of B6/B7 in chip_smoke.py (msg_bound_ms):
+// (4E + n + M) (h, h) products a layer of a frame at the dense bf16 rate,
+// 9.576 ms for the main path (nr_2_0_32 Z=32 h=64, T=20, batch 2048).  This
+// design does 6E products instead (pv and pc each carry their shared term,
+// +34%), 13 ms at the full tensor-core rate; mma.sync with gathered tiles
+// reaches a fraction of it.  Scratch traffic per layer of a frame: phase 1
+// reads the features twice (1.6 MB) and writes the means (0.39 MB); phase 2
+// reads the features and the gathered mean rows (0.8 + 1.6 MB) and writes
+// the features (0.8 MB): about 5.2 MB, 213 GB for the batch, 64 ms at 3.35
+// TB/s if none of it stays in the 50 MB L2 (132 frames in flight hold 157
+// MB of scratch).
+//
+// H = 128 under this design: the weights alone are 202,752 B (268,288 B
+// with injection) and a warp's two tile buffers 26,112 B, so one block
+// does not fit the 227 KB a block can use; H = 128 needs the weights
+// streamed through shared memory a matrix at a time, or single-buffered
+// tiles and no injection (not built).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kMaxWarps = 12;
+constexpr int kTile = 16;  // messages a tile: the mma's M
+
+__host__ __device__ inline int round4(int x) { return (x + 3) / 4 * 4; }
+
+// Compile-time shapes of one instantiation, in bf16 elements.
+template <int H, bool INJ>
+struct Shape {
+  static constexpr int KIN = (INJ ? 3 : 2) * H;  // first-layer inputs
+  static constexpr int WS1 = KIN + 8;            // padded row of W1v, W1c
+  static constexpr int WS2 = 2 * H + 8;          // padded row of W2
+  static constexpr int AS = H + 8;               // padded row of a staged tile
+  static constexpr int LW = H * (2 * WS1 + WS2);  // one layer's packed weights
+  static constexpr int SEG = kTile * AS;          // one staged segment (16 rows)
+  static constexpr int BUF = 3 * SEG;             // f, vmean, rmean rows of a tile
+  static constexpr int CPR = H / 8;               // 16-byte chunks a row
+  static constexpr int RPP = 32 / CPR;            // rows a warp moves per pass
+  static constexpr int NT = H / 8;                // n-tiles of an h-wide output
+  static constexpr int KT = H / 16;               // k-tiles of an h-wide input
+};
+
+struct Args {
+  const float* llr;          // (B, n)
+  float* soft;               // (B, n)
+  int* counter;              // next frame to hand out, starts at 0
+  __nv_bfloat16* scratch;    // (grid, scratch_elems): features, vmean, rmean
+  const int* graph;          // row_ptr, row_edge, col_ptr, col_edge, shift, col, row, type
+  const float* inv;          // 1/degree per column (C), then per row (R)
+  const __nv_bfloat16* w;    // (T, LW) packed: W1v, W1c, W2, padded rows
+  const float* tab;          // (T, 2, K, H): b1v, b1c per edge (type embeddings folded in)
+  const float* small;        // (T, 2H): b2 = b2v + b2c, then zeros
+  const float* emb;          // emb_w (H), emb_b (H), proj_w (H), proj_b
+  int B, Z, R, C, K, T;
+};
+
+// Byte offsets of a block's dynamic shared memory (all 16-byte aligned).
+struct Layout {
+  int graph, inv, llr, emb, b2, w, stage, total;
+};
+
+__host__ __device__ inline Layout make_layout(int H, int inject, int Z, int R, int C, int K,
+                                              int warps) {
+  const int kin = (inject ? 3 : 2) * H;
+  Layout L;
+  int o = 0;
+  L.graph = o; o += 4 * round4(6 * K + R + C + 2);
+  L.inv = o; o += 4 * round4(C + R);
+  L.llr = o; o += 4 * round4(C * Z);
+  L.emb = o; o += 4 * round4(3 * H + 1);
+  L.b2 = o; o += 4 * H;
+  L.w = o; o += 2 * H * (2 * (kin + 8) + 2 * H + 8);
+  L.stage = o; o += warps * 2 * 2 * 3 * kTile * (H + 8);
+  L.total = o;
+  return L;
+}
+
+// bf16 elements of one block's scratch: features (K*Z rows), vmean (C*Z),
+// rmean (R*Z), h each.
+__host__ __device__ inline long long scratch_elems(int H, int Z, int R, int C, int K) {
+  return static_cast<long long>(K + C + R) * Z * H;
+}
+
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled where !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 in one register, lo in the low half (the lower
+// column of a fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x[0..7] += the 8 bf16 features in v (16 bytes).
+__device__ __forceinline__ void add8(float (&x)[8], const uint4& v) {
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(b[e]);
+    x[2 * e] = __fadd_rn(x[2 * e], f.x);
+    x[2 * e + 1] = __fadd_rn(x[2 * e + 1], f.y);
+  }
+}
+
+// x[0..7] = the sum, in member order, of chunk u of the feature rows
+// row(j) for j in [begin, end): four rows' loads in flight at a time.
+template <int H, typename Row>
+__device__ __forceinline__ void sum_members(float (&x)[8], const __nv_bfloat16* feats, int u,
+                                            int begin, int end, Row&& row) {
+  auto chunk = [&](int j) {
+    return *reinterpret_cast<const uint4*>(feats + static_cast<size_t>(row(j)) * H + u * 8);
+  };
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] = 0.0f;
+  int j = begin;
+  for (; j + 4 <= end; j += 4) {
+    const uint4 v0 = chunk(j), v1 = chunk(j + 1), v2 = chunk(j + 2), v3 = chunk(j + 3);
+    add8(x, v0);
+    add8(x, v1);
+    add8(x, v2);
+    add8(x, v3);
+  }
+  for (; j < end; ++j) add8(x, chunk(j));
+}
+
+// The bf16 embedding of LLR m at features q, q + 1.
+__device__ __forceinline__ uint32_t embed2(float m, const float* emb_w, const float* emb_b,
+                                           int q) {
+  return pack_bf16(__fadd_rn(__fmul_rn(m, emb_w[q]), emb_b[q]),
+                   __fadd_rn(__fmul_rn(m, emb_w[q + 1]), emb_b[q + 1]));
+}
+
+struct Graph {
+  const int *row_ptr, *row_edge, *col_ptr, *col_edge, *shift, *col, *row;
+};
+
+// Pointers into a block's shared memory and scratch.
+struct Block {
+  Graph g;
+  const float *inv_dc, *inv_dr, *emb_w, *emb_b, *proj_w;
+  float* llr;
+  float* b2;
+  __nv_bfloat16* w;      // the staged layer's W1v, W1c, W2
+  __nv_bfloat16* stage;  // this warp's two tile buffers
+  __nv_bfloat16 *feats, *vmean, *rmean;  // global scratch, one h-row each
+  float proj_b;
+  int Z, R, C, K, E, n, M;
+};
+
+// Starts the copy of tile `tile`'s rows into `buf`: its messages' features,
+// their variables' vmean rows and their checks' rmean rows (rows past the
+// last message are zeros).  One commit group.
+template <int H, bool INJ>
+__device__ __forceinline__ void load_tile(const Block& b, __nv_bfloat16* buf, int tile,
+                                          int lane) {
+  using S = Shape<H, INJ>;
+  const int u = lane % S::CPR;
+#pragma unroll
+  for (int pass = 0; pass < kTile / S::RPP; ++pass) {
+    const int r = lane / S::CPR + pass * S::RPP;
+    const int i = tile * kTile + r;
+    const bool valid = i < b.E;
+    const int k = valid ? i / b.Z : 0;
+    const int z = valid ? i - k * b.Z : 0;
+    int zc = z - b.g.shift[k];
+    zc = zc < 0 ? zc + b.Z : zc;
+    const int dst = r * S::AS + u * 8;
+    cp_async16(buf + dst, b.feats + static_cast<size_t>(valid ? i : 0) * H + u * 8, valid);
+    cp_async16(buf + S::SEG + dst, b.vmean + static_cast<size_t>(b.g.col[k] * b.Z + z) * H + u * 8,
+               valid);
+    cp_async16(buf + 2 * S::SEG + dst,
+               b.rmean + static_cast<size_t>(b.g.row[k] * b.Z + zc) * H + u * 8, valid);
+  }
+  cp_async_commit();
+}
+
+// acc = [F | Mean | lf] . W^T over one staged tile: F and Mean are staged
+// segments (16 rows), lf the A fragments of the LLR features, W a padded
+// (H x KIN) weight block in shared memory.
+template <int H, bool INJ>
+__device__ __forceinline__ void first_layer(float (&acc)[H / 8][4], const __nv_bfloat16* F,
+                                            const __nv_bfloat16* Mean,
+                                            const uint32_t (&lf)[H / 16][4],
+                                            const __nv_bfloat16* W, int lane) {
+  using S = Shape<H, INJ>;
+  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8, acol = (lane >> 4) * 8;
+  const int brow = (lane >> 4) * 8 + (lane & 7), bcol = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int nt = 0; nt < S::NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+#pragma unroll
+  for (int seg = 0; seg < (INJ ? 3 : 2); ++seg) {
+#pragma unroll
+    for (int kt = 0; kt < S::KT; ++kt) {
+      uint32_t a[4];
+      if (seg < 2) {
+        ldmatrix_x4(a, (seg == 0 ? F : Mean) + arow * S::AS + kt * 16 + acol);
+      } else {
+        a[0] = lf[kt][0]; a[1] = lf[kt][1]; a[2] = lf[kt][2]; a[3] = lf[kt][3];
+      }
+      const int kcol = seg * H + kt * 16 + bcol;
+#pragma unroll
+      for (int p = 0; p < S::NT / 2; ++p) {
+        uint32_t w[4];
+        ldmatrix_x4(w, W + (p * 16 + brow) * S::WS1 + kcol);
+        mma_bf16(acc[2 * p], a, w[0], w[1]);
+        mma_bf16(acc[2 * p + 1], a, w[2], w[3]);
+      }
+    }
+  }
+}
+
+// The first layer's epilogue: plus the per-row bias b1 (rows g and g + 8 of
+// the tile, edges k0 and k1), relu, bf16, packed as the second layer's A
+// fragments (k-tile p = output columns 16p .. 16p + 15).
+template <int H>
+__device__ __forceinline__ void relu_pack(const float (&acc)[H / 8][4], const float* b_r0,
+                                          const float* b_r1, int tig, uint32_t (&h)[H / 16][4]) {
+#pragma unroll
+  for (int p = 0; p < H / 16; ++p) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int nt = 2 * p + half, j = nt * 8 + 2 * tig;
+      const float2 u = __ldg(reinterpret_cast<const float2*>(b_r0 + j));
+      const float2 v = __ldg(reinterpret_cast<const float2*>(b_r1 + j));
+      h[p][2 * half] = pack_bf16(fmaxf(__fadd_rn(acc[nt][0], u.x), 0.0f),
+                                 fmaxf(__fadd_rn(acc[nt][1], u.y), 0.0f));
+      h[p][2 * half + 1] = pack_bf16(fmaxf(__fadd_rn(acc[nt][2], v.x), 0.0f),
+                                     fmaxf(__fadd_rn(acc[nt][3], v.y), 0.0f));
+    }
+  }
+}
+
+// One staged tile of layer t: both MLPs, the residual, the features written
+// back in place in `buf` and then to the scratch.
+template <int H, bool INJ>
+__device__ __forceinline__ void compute_tile(const Args& a, const Block& b, __nv_bfloat16* buf,
+                                             int tile, int t, int lane) {
+  using S = Shape<H, INJ>;
+  const int g = lane >> 2, tig = lane & 3;
+  const int i0 = tile * kTile + g, i1 = i0 + 8;
+  const int k0 = i0 < b.E ? i0 / b.Z : b.K - 1;
+  const int k1 = i1 < b.E ? i1 / b.Z : b.K - 1;
+  __nv_bfloat16* F = buf;
+
+  uint32_t lf[H / 16][4];
+  if constexpr (INJ) {
+    const float m0 = i0 < b.E ? b.llr[b.g.col[k0] * b.Z + (i0 - k0 * b.Z)] : 0.0f;
+    const float m1 = i1 < b.E ? b.llr[b.g.col[k1] * b.Z + (i1 - k1 * b.Z)] : 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < S::KT; ++kt) {
+      const int q = kt * 16 + 2 * tig;
+      lf[kt][0] = embed2(m0, b.emb_w, b.emb_b, q);
+      lf[kt][1] = embed2(m1, b.emb_w, b.emb_b, q);
+      lf[kt][2] = embed2(m0, b.emb_w, b.emb_b, q + 8);
+      lf[kt][3] = embed2(m1, b.emb_w, b.emb_b, q + 8);
+    }
+  }
+
+  const float* b1 = a.tab + static_cast<size_t>(t) * 2 * b.K * H;
+  const __nv_bfloat16* W1v = b.w;
+  const __nv_bfloat16* W1c = b.w + H * S::WS1;
+  const __nv_bfloat16* W2 = b.w + 2 * H * S::WS1;
+  float acc[S::NT][4];
+  uint32_t h1v[S::KT][4], h1c[S::KT][4];
+  first_layer<H, INJ>(acc, F, buf + S::SEG, lf, W1v, lane);
+  relu_pack<H>(acc, b1 + static_cast<size_t>(k0) * H, b1 + static_cast<size_t>(k1) * H, tig, h1v);
+  first_layer<H, INJ>(acc, F, buf + 2 * S::SEG, lf, W1c, lane);
+  relu_pack<H>(acc, b1 + static_cast<size_t>(b.K + k0) * H,
+               b1 + static_cast<size_t>(b.K + k1) * H, tig, h1c);
+
+  // Second layer: [h1v | h1c] . [W2v W2c]^T, one float32 sum over both.
+  const int brow = (lane >> 4) * 8 + (lane & 7), bcol = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int nt = 0; nt < S::NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+#pragma unroll
+    for (int kt = 0; kt < S::KT; ++kt) {
+      const uint32_t(&x)[4] = side == 0 ? h1v[kt] : h1c[kt];
+      const int kcol = side * H + kt * 16 + bcol;
+#pragma unroll
+      for (int p = 0; p < S::NT / 2; ++p) {
+        uint32_t w[4];
+        ldmatrix_x4(w, W2 + (p * 16 + brow) * S::WS2 + kcol);
+        mma_bf16(acc[2 * p], x, w[0], w[1]);
+        mma_bf16(acc[2 * p + 1], x, w[2], w[3]);
+      }
+    }
+  }
+
+  // Epilogue: plus b2, bf16; the residual from layer 2 on; in place.
+  const bool residual = t >= 1;
+#pragma unroll
+  for (int nt = 0; nt < S::NT; ++nt) {
+    const int j = nt * 8 + 2 * tig;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      __nv_bfloat162* fp = reinterpret_cast<__nv_bfloat162*>(F + (g + 8 * rr) * S::AS + j);
+      float o0 = bf16r(__fadd_rn(acc[nt][2 * rr], b.b2[j]));
+      float o1 = bf16r(__fadd_rn(acc[nt][2 * rr + 1], b.b2[j + 1]));
+      if (residual) {
+        const float2 old = __bfloat1622float2(*fp);
+        o0 = __fadd_rn(o0, old.x);
+        o1 = __fadd_rn(o1, old.y);
+      }
+      *fp = __floats2bfloat162_rn(o0, o1);
+    }
+  }
+  __syncwarp();
+  const int u = lane % S::CPR;
+#pragma unroll
+  for (int pass = 0; pass < kTile / S::RPP; ++pass) {
+    const int r = lane / S::CPR + pass * S::RPP;
+    const int i = tile * kTile + r;
+    if (i < b.E)
+      *reinterpret_cast<uint4*>(b.feats + static_cast<size_t>(i) * H + u * 8) =
+          *reinterpret_cast<const uint4*>(F + r * S::AS + u * 8);
+  }
+}
+
+// Layer t of one frame: phase 1 (means; the weights stage meanwhile), phase 2
+// (message tiles).  Starts and ends with a barrier.
+template <int H, bool INJ>
+__device__ void layer(const Args& a, const Block& b, int t) {
+  using S = Shape<H, INJ>;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int Z = b.Z;
+  const Graph& g = b.g;
+
+  const __nv_bfloat16* wl = a.w + static_cast<size_t>(t) * S::LW;
+  for (int c = tid; c < S::LW / 8; c += nthreads) cp_async16(b.w + c * 8, wl + c * 8, true);
+  cp_async_commit();
+  for (int j = tid; j < H; j += nthreads) b.b2[j] = a.small[static_cast<size_t>(t) * 2 * H + j];
+
+  // Phase 1: one 16-byte chunk of one variable's or check's mean a thread.
+  for (int c = tid; c < (b.n + b.M) * S::CPR; c += nthreads) {
+    const int row = c / S::CPR, u = c - row * S::CPR;
+    float x[8];
+    float inv;
+    __nv_bfloat16* dst;
+    if (row < b.n) {
+      const int cc = row / Z, z = row - cc * Z;
+      sum_members<H>(x, b.feats, u, g.col_ptr[cc], g.col_ptr[cc + 1],
+                     [&](int j) { return g.col_edge[j] * Z + z; });
+      inv = b.inv_dc[cc];
+      dst = b.vmean + static_cast<size_t>(row) * H + u * 8;
+    } else {
+      const int rz = row - b.n, r = rz / Z, zc = rz - r * Z;
+      sum_members<H>(x, b.feats, u, g.row_ptr[r], g.row_ptr[r + 1], [&](int j) {
+        const int k = g.row_edge[j];
+        const int v = zc + g.shift[k];
+        return k * Z + (v >= Z ? v - Z : v);
+      });
+      inv = b.inv_dr[r];
+      dst = b.rmean + static_cast<size_t>(rz) * H + u * 8;
+    }
+    uint4 out;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] = pack_bf16(__fmul_rn(x[2 * e], inv), __fmul_rn(x[2 * e + 1], inv));
+    *reinterpret_cast<uint4*>(dst) = out;
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // means, weights and b2 visible to the whole block
+
+  // Phase 2: 16-message tiles, a warp each, the next tile's rows in flight.
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int ntiles = (b.E + kTile - 1) / kTile;
+  __nv_bfloat16* bufs[2] = {b.stage, b.stage + S::BUF};
+  int cur = 0;
+  if (warp < ntiles) load_tile<H, INJ>(b, bufs[0], warp, lane);
+  for (int tile = warp; tile < ntiles; tile += nwarps) {
+    const int next = tile + nwarps;
+    if (next < ntiles) {
+      load_tile<H, INJ>(b, bufs[cur ^ 1], next, lane);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    compute_tile<H, INJ>(a, b, bufs[cur], tile, t, lane);
+    __syncwarp();  // this buffer is read out before it is loaded again
+    cur ^= 1;
+  }
+  __syncthreads();
+}
+
+template <int H, bool INJ>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_v2_tc_kernel(const Args a) {
+  using S = Shape<H, INJ>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_frame;
+  const int Z = a.Z, R = a.R, C = a.C, K = a.K;
+  const int n = C * Z;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const Layout L = make_layout(H, INJ, Z, R, C, K, nthreads / 32);
+
+  int* s_graph = reinterpret_cast<int*>(smem + L.graph);
+  float* s_inv = reinterpret_cast<float*>(smem + L.inv);
+  float* s_emb = reinterpret_cast<float*>(smem + L.emb);
+  for (int i = tid; i < 6 * K + R + C + 2; i += nthreads) s_graph[i] = a.graph[i];
+  for (int i = tid; i < C + R; i += nthreads) s_inv[i] = a.inv[i];
+  for (int i = tid; i < 3 * H + 1; i += nthreads) s_emb[i] = a.emb[i];
+
+  Block b;
+  b.g.row_ptr = s_graph;
+  b.g.row_edge = b.g.row_ptr + R + 1;
+  b.g.col_ptr = b.g.row_edge + K;
+  b.g.col_edge = b.g.col_ptr + C + 1;
+  b.g.shift = b.g.col_edge + K;
+  b.g.col = b.g.shift + K;
+  b.g.row = b.g.col + K;
+  b.inv_dc = s_inv;
+  b.inv_dr = s_inv + C;
+  b.emb_w = s_emb;
+  b.emb_b = s_emb + H;
+  b.proj_w = s_emb + 2 * H;
+  b.llr = reinterpret_cast<float*>(smem + L.llr);
+  b.b2 = reinterpret_cast<float*>(smem + L.b2);
+  b.w = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
+  b.stage = reinterpret_cast<__nv_bfloat16*>(smem + L.stage) + (tid >> 5) * 2 * S::BUF;
+  b.feats = a.scratch + static_cast<size_t>(blockIdx.x) * scratch_elems(H, Z, R, C, K);
+  b.vmean = b.feats + static_cast<size_t>(K) * Z * H;
+  b.rmean = b.vmean + static_cast<size_t>(n) * H;
+  b.Z = Z;
+  b.R = R;
+  b.C = C;
+  b.K = K;
+  b.E = K * Z;
+  b.n = n;
+  b.M = R * Z;
+  const Graph& g = b.g;
+  __syncthreads();
+  b.proj_b = s_emb[3 * H];
+
+  for (;;) {
+    if (tid == 0) s_frame = atomicAdd(a.counter, 1);
+    __syncthreads();
+    const int f = s_frame;
+    if (f >= a.B) break;
+    const float* llr_f = a.llr + static_cast<size_t>(f) * n;
+    float* soft_f = a.soft + static_cast<size_t>(f) * n;
+    for (int i = tid; i < n; i += nthreads) b.llr[i] = llr_f[i];
+    __syncthreads();
+
+    // Seed: every message's features from its variable's LLR, 8 a thread.
+    for (int c = tid; c < b.E * S::CPR; c += nthreads) {
+      const int i = c / S::CPR, u = c - i * S::CPR;
+      const int k = i / Z, z = i - k * Z;
+      const float m = b.llr[g.col[k] * Z + z];
+      uint4 out;
+      uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] = embed2(m, b.emb_w, b.emb_b, u * 8 + 2 * e);
+      *reinterpret_cast<uint4*>(b.feats + static_cast<size_t>(i) * H + u * 8) = out;
+    }
+    __syncthreads();
+
+    for (int t = 0; t < a.T; ++t) layer<H, INJ>(a, b, t);
+
+    // Output: per variable, the sum over its messages of their projection
+    // plus proj_b, then the sigmoid of the bit-1 logit.
+    for (int i = tid; i < n; i += nthreads) {
+      const int c = i / Z, z = i - c * Z;
+      float acc = 0.0f;
+      for (int j = g.col_ptr[c]; j < g.col_ptr[c + 1]; ++j) {
+        const __nv_bfloat16* fk = b.feats + static_cast<size_t>(g.col_edge[j] * Z + z) * H;
+        float contrib = 0.0f;
+#pragma unroll
+        for (int q = 0; q < H; q += 8) {
+          const uint4 v = *reinterpret_cast<const uint4*>(fk + q);
+          const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = __bfloat1622float2(p[e]);
+            contrib = __fadd_rn(contrib, __fmul_rn(x.x, b.proj_w[q + 2 * e]));
+            contrib = __fadd_rn(contrib, __fmul_rn(x.y, b.proj_w[q + 2 * e + 1]));
+          }
+        }
+        acc = __fadd_rn(__fadd_rn(acc, contrib), b.proj_b);
+      }
+      soft_f[i] = 1.0f / (1.0f + expf(__fadd_rn(b.llr[i], acc)));
+    }
+    __syncthreads();
+  }
+}
+
+using KernelFn = void (*)(const Args);
+
+KernelFn pick_kernel(int H, int inject) {
+  switch (H) {
+    case 16: return inject ? msg_gnn_v2_tc_kernel<16, true> : msg_gnn_v2_tc_kernel<16, false>;
+    case 64: return inject ? msg_gnn_v2_tc_kernel<64, true> : msg_gnn_v2_tc_kernel<64, false>;
+  }
+  return nullptr;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of dynamic shared memory one block of `warps` warps needs.
+long long ldpc_msg_gnn_tc_smem_bytes(int H, int inject, int Z, int R, int C, int K, int warps) {
+  return make_layout(H, inject, Z, R, C, K, warps).total;
+}
+
+// Floats of global scratch one block needs (bf16 features and means).
+long long ldpc_msg_gnn_tc_scratch_floats(int H, int Z, int R, int C, int K) {
+  return scratch_elems(H, Z, R, C, K) / 2;
+}
+
+// The block shape: for each warp count 1..kMaxWarps the runtime's occupancy
+// query; *warps, *blocks of the count with the most resident warps per SM
+// (ties: the fewer warps a block).  Returns a cudaError_t; 0 blocks where
+// not even one warp's block fits.
+int ldpc_msg_gnn_tc_plan(int H, int inject, int Z, int R, int C, int K, int* warps, int* blocks) {
+  KernelFn kernel = pick_kernel(H, inject);
+  *warps = 0;
+  *blocks = 0;
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  for (int w = 1; w <= kMaxWarps; ++w) {
+    const long long smem = make_layout(H, inject, Z, R, C, K, w).total;
+    if (smem > optin) break;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    int per_sm = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * w, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm * w > *blocks * *warps) {
+      *warps = w;
+      *blocks = per_sm;
+    }
+  }
+  return cudaSuccess;
+}
+
+// Launches msg_gnn_v2_tc_kernel on `stream` with `grid` blocks of `warps`
+// warps, no sync.  `counter` must hold 0.  Returns a cudaError_t.
+int ldpc_msg_gnn_v2(int H, const void* llr, void* soft, void* counter, void* scratch,
+                    const void* graph, const void* inv, const void* w, const void* tab,
+                    const void* small, const void* emb, int B, int Z, int R, int C, int K, int T,
+                    int inject, int grid, int warps, void* stream) {
+  KernelFn kernel = pick_kernel(H, inject);
+  if (kernel == nullptr || grid < 1 || B < 1 || T < 1 || warps < 1 || warps > kMaxWarps)
+    return cudaErrorInvalidValue;
+  const long long smem = make_layout(H, inject, Z, R, C, K, warps).total;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  Args a;
+  a.llr = static_cast<const float*>(llr);
+  a.soft = static_cast<float*>(soft);
+  a.counter = static_cast<int*>(counter);
+  a.scratch = static_cast<__nv_bfloat16*>(scratch);
+  a.graph = static_cast<const int*>(graph);
+  a.inv = static_cast<const float*>(inv);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.tab = static_cast<const float*>(tab);
+  a.small = static_cast<const float*>(small);
+  a.emb = static_cast<const float*>(emb);
+  a.B = B;
+  a.Z = Z;
+  a.R = R;
+  a.C = C;
+  a.K = K;
+  a.T = T;
+  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+const char* ldpc_msg_gnn_tc_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

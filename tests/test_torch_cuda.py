@@ -14,7 +14,8 @@ frames (the products sum in another order than torch.matmul, which can flip a
 bf16 rounding); untrained, they are the fused min-sum kernel exactly.  The
 trained min-sum kernel (fused_neural): bits identical.  The fully-neural GNN
 kernels (msg_gnn, msg_gnn_v2, msg_gnn_v3, msg_gnn_v4) at T=2: soft bits within
-3e-2, decisions equal where the plain version is confident.  The aggregation
+3e-2, decisions equal where the plain version is confident; msg_gnn_v2 on the
+exact inputs of ops/msg_gnn_exact.py: identical.  The aggregation
 probe: vpu identical to its plain version, mxu within one bf16 step (the
 tensor cores' float32 sums need not round as IEEE additions do).
 """
@@ -27,6 +28,7 @@ from test_torch_parity import (ALL_FLAGS, EARLY_EXIT, THROUGHPUT, TRACKING,
 import ldpc_tpu_torch.codes as tcodes
 from ldpc_tpu_torch.models import create_corrected_minsum_gnn_decoder
 from ldpc_tpu_torch.ops import fused_gnn as fg, fused_minsum as fm, qc_msg
+from ldpc_tpu_torch.ops.msg_gnn_exact import EXACT_CASES, exact_msg_gnn_case
 from ldpc_tpu_torch.utils import bpsk_awgn_llr
 
 pytestmark = [
@@ -327,6 +329,22 @@ def test_msg_gnn_kernel_matches_plain(kind, name, Z, h, batch, inject, share):
     assert bool(((soft_k > 0.5) == (soft_p > 0.5))[confident].all())
 
 
+@pytest.mark.parametrize("code,Z,h,batch,inject,share", EXACT_CASES)
+def test_msg_gnn_v2_exact_inputs_identical(code, Z, h, batch, inject, share):
+    """B7 on inputs whose every sum is exact in any order
+    (ops/msg_gnn_exact.py): its tensor-core tiles must give the plain
+    version's soft bits exactly, so an index or shift fault shows."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph(code), Z)
+    model, llr = exact_msg_gnn_case(qc, h, batch, inject, share)
+    dec = fg.make_fused_gnn_decoder_v2(qc, model, 2, h, share_layers=share, input_injection=inject)
+    llr = torch.from_numpy(llr).cuda()
+    before = fg.LAUNCHES["msg_gnn_v2"]
+    soft_k, soft_p = dec(llr), dec.plain(llr)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["msg_gnn_v2"] == before + 1
+    assert torch.equal(soft_k, soft_p)
+
+
 @pytest.mark.parametrize("kind", ["fused_neural", *MSG_BUILDERS])
 def test_resident_blocks_decode_several_frames(kind):
     """A batch of three frames or more per resident block, so that each block
@@ -347,9 +365,7 @@ def test_resident_blocks_decode_several_frames(kind):
         qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_4"), 4)
         dec = MSG_BUILDERS[kind](qc, _msg_model(qc_msg.make_plan(qc), 2, 64, True, False), 2, 64,
                                  input_injection=True)
-        dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
-        resident = fg.msg_kernel_library().ldpc_msg_gnn_occupancy(fg.MSG_VARIANT[kind], 64,
-                                                                   *dims) * sms
+        resident = fg.msg_gnn_blocks_per_sm(kind, qc, 64, True) * sms
     llr = _llr(qc.num_vars, 3 * resident + 1, 1.0, seed=5)
     out_k, out_p = dec(llr), dec.plain(llr)
     torch.cuda.synchronize()

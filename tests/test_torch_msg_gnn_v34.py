@@ -199,9 +199,13 @@ def test_plans_and_raising_paths():
     a kernel instantiation raises, and so does the card without a card."""
     _, _, qt, pt = both_plans("nr_2_0_32", 32)
     K, C, R, Z = qt.num_base_edges, qt.num_base_cols, qt.num_base_rows, qt.Z
-    v2 = tfg.msg_gnn_smem_bytes(qt, 64, "msg_gnn_v2")
-    assert tfg.msg_gnn_smem_bytes(qt, 64, "msg_gnn_v3") == v2 + 4 * 64
-    assert tfg.msg_gnn_smem_bytes(qt, 64, "msg_gnn_v4") == v2 + 4 * 64 + 4 * (
+    # graph, inverse degrees, LLRs, embedding and projection, four float32
+    # (h, h) matrices and 2h bf16 of staging per thread; then the layer's
+    # biases (3h) and v4's w2last and dsc, all 4-byte words
+    base = 4 * ((6 * K + R + C + 2 + 3) // 4 * 4 + (C + R + 3) // 4 * 4 + C * Z + 196
+                + 4 * 64 * 64 + 64 * 256)
+    assert tfg.msg_gnn_smem_bytes(qt, 64, "msg_gnn_v3") == base + 4 * 3 * 64
+    assert tfg.msg_gnn_smem_bytes(qt, 64, "msg_gnn_v4") == base + 4 * 3 * 64 + 4 * (
         (2 * 64 + K + 3) // 4 * 4)
     feats = K * Z * 32
     assert tfg.msg_gnn_scratch_floats(qt, 64, True, "msg_gnn_v3") == (2 * C + R) * Z * 64 + feats
