@@ -8,9 +8,10 @@ Phases, one JSON line each:
 2. build   — compile every CUDA source of the port with nvcc (sm_90a), one
              process per source, all started together; the
              main-path kernels' resident blocks per SM from the runtime;
-             msg_gnn_v2's block shape (its occupancy plan) and registers a
-             thread, and the HMMA (tensor-core) instructions of each of its
-             kernels in cuobjdump -sass (none fails).
+             the tensor-core kernels' (msg_gnn_v2, corrected_v2) block
+             shapes (their occupancy plans) and registers a thread, and the
+             HMMA (tensor-core) instructions of each of their kernels in
+             cuobjdump -sass (none fails).
 3. compare — each kernel against its plain PyTorch version on the card, for
              {minsum, sumproduct} x {flooding, layered} x {tracking,
              throughput mode, early exit}: make_fused_minsum (min-sum
@@ -51,6 +52,10 @@ Phases, one JSON line each:
              on the CPU, at 1 iteration (held within 1e-5), 2 (within 2e-2)
              and 3 (measured: the iteration at which the two first differ
              and how the error grows; decisions held at every depth).
+             corrected_v2 on the exact inputs of ops/msg_gnn_exact.py
+             (every reordered sum exact): soft bits and conv_iter identical
+             to the plain version (torch.equal), toy_4x8 h=16, nr_2_0_4 and
+             nr_2_0_32 h=64, injection, share_layers and early exit.
 7. gnn_zero_init — untrained parameters: both kernels with early exit give
              the bits and conv_iter of the fused min-sum kernel (alpha 0.8),
              exactly, at nr_2_0_32 Z=32.
@@ -62,6 +67,15 @@ Phases, one JSON line each:
              frames fail) against the plain version, stopped frames against
              the tensor-op syndrome check, the fixed-T kernel against the module's forward
              within 3e-2, and BER/FER on encoded random codewords.
+             corrected_v2 (bench.py's corrected kernel) is timed in five
+             rounds, T=10 and T=20 interleaved, median and every round
+             printed, and traced once in a process of its own (trace_gnn).
+8b. gnn_bench_nr_2_0_4 — bench.py section_corrected_gnn on the card:
+             results/corrected_gnn_nr_2_0_4.msgpack, nr_2_0_4 Z=4 (tiles
+             span columns and rows of different degree), T=5, h=64,
+             injection, batch 4096, 3 dB, early exit: corrected_v2 in five
+             rounds, the whole batch against the plain version at the
+             gnn_compare bars.
 9. nms_compare — the trained neural min-sum kernel (fused_neural) against
              its plain version on perturbed parameters: every weight
              sharing, depth 0-3, alpha and offset shared and per iteration,
@@ -120,6 +134,8 @@ Phases, one JSON line each:
 
 The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
+The replaced kernels' times (PERF.md §5) come from this script run from an
+unpacked ``git archive`` of the parent commit, in the same call.
 ``--only classical|gnn|nms|msg_gnn|tools`` runs the build and that part alone
 (for development; the kernels line then lists that part; ``tools`` is phases
 15 and 16).
@@ -485,6 +501,13 @@ GNN_MODULE_ATOL = 3e-2  # fixed-T kernel vs the module's forward
 # SNR (BENCH_r05.json: iteration counts, not speeds), and the window held.
 GNN_MEAN_CONV = {10: 4.45, 20: 3.86}
 GNN_MEAN_CONV_WINDOW = 0.5
+# gnn_main: nr_2_0_32 Z=32, the trained checkpoints of results/ by T.
+GNN_MAIN = dict(H=64, B=2048, SNR=0.0, llr_seed=2)
+GNN_CHECKPOINTS = {10: "corrected10_gnn_nr_2_0_32_ft3.msgpack",
+                   20: "corrected20_gnn_nr_2_0_32_ft.msgpack"}
+# bench.py section_corrected_gnn (bench.py:227-266).
+GNN_BENCH = dict(code="nr_2_0_4", Z=4, H=64, T=5, B=4096, SNR=3.0, llr_seed=3,
+                 checkpoint="corrected_gnn_nr_2_0_4.msgpack")
 
 
 def gnn_bound_ms(qc, h: int, inject: bool, kind: str, conv: torch.Tensor) -> tuple[float, str]:
@@ -543,6 +566,34 @@ def gnn_compare(dec, llr: torch.Tensor, label: str, phase: str = "gnn_compare",
     return err
 
 
+def checkpoint_model(plan, T: int, h: int, name: str):
+    """A corrected decoder with injection loaded from results/<name> by the
+    port's own msgpack reader (a missing file raises)."""
+    from ldpc_tpu_torch import convert
+    from ldpc_tpu_torch.models import create_corrected_minsum_gnn_decoder
+
+    model = create_corrected_minsum_gnn_decoder(plan, num_iterations=T, hidden_dim=h,
+                                                input_injection=True)
+    convert.load_message_gnn(Path(__file__).resolve().parent / "results" / name, model)
+    return model
+
+
+def trace_gnn() -> dict:
+    """One corrected_v2 decode of the gnn_main batch (T=10) under the profiler."""
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+    from ldpc_tpu_torch.ops import fused_gnn as fg, qc_msg
+
+    m = GNN_MAIN
+    qc = qc_layout(get_base_graph("nr_2_0_32"), 32)
+    model = checkpoint_model(qc_msg.make_plan(qc), 10, m["H"], GNN_CHECKPOINTS[10])
+    llr = llrs(qc.num_vars, m["B"], m["SNR"], seed=m["llr_seed"])
+    dec = fg.make_fused_corrected_gnn_decoder_v2(qc, model, 10, m["H"], input_injection=True,
+                                                 early_exit=True, return_iterations=True)
+    dec(llr)  # warm-up: the plan and the first launch
+    return {"phase": "trace_gnn", "kernel": "corrected_v2", "iterations": 10, "batch": m["B"],
+            **trace_split(lambda: dec(llr), "gnn")}
+
+
 def add_noise(model, scale: float, gen: torch.Generator):
     """Every parameter of ``model`` moved by scale * normal noise from ``gen``."""
     with torch.no_grad():
@@ -565,14 +616,15 @@ def perturbed_model(plan, T: int, h: int, inject: bool, share: bool, scale: floa
 
 
 def gnn_phases(smi: str) -> list[dict]:
-    from ldpc_tpu_torch import convert
     from ldpc_tpu_torch.codes import encoder_from_H, expand_base_matrix, get_base_graph, qc_layout
     from ldpc_tpu_torch.models import create_corrected_minsum_gnn_decoder
     from ldpc_tpu_torch.ops import fused_gnn as fg, fused_minsum as fm, qc_msg
+    from ldpc_tpu_torch.ops.msg_gnn_exact import CORRECTED_EXACT_CASES, exact_corrected_case
     from ldpc_tpu_torch.utils import bpsk_awgn_llr, compute_ber_fer
     from ldpc_tpu_torch.utils.metrics import decode_throughput
 
     lib = fg.kernel_library()
+    tc_lib = fg.corrected_tc_library()
     builders = {"corrected_v2": fg.make_fused_corrected_gnn_decoder_v2,
                 "corrected": fg.make_fused_corrected_gnn_decoder}
     max_err = {kind: 0.0 for kind in builders}
@@ -587,17 +639,20 @@ def gnn_phases(smi: str) -> list[dict]:
                                        ("nr_2_0_32", 32, 64, 13, (1.0, 4.0, 7.0), 0.02)):
         qc = qc_layout(get_base_graph(code), Z)
         plan = qc_msg.make_plan(qc)
-        dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges, qc.num_edge_types)
+        dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
         llr = torch.cat([llrs(qc.num_vars, len(range(i, B, 3)), snr, seed=Z + h + i)
                          for i, snr in enumerate(snrs)])
         cases = [(inject, False, ee) for inject in (True, False) for ee in (False, True)]
         cases.append((True, True, True))  # share_layers once
+        # the wrappers' shared-memory and scratch plans are the kernels'
+        for inject in (False, True):
+            assert tc_lib.ldpc_corrected_tc_smem_bytes(h, int(inject), *dims, qc.num_edge_types) \
+                == fg.corrected_smem_bytes("corrected_v2", qc, h, inject)
+        assert lib.ldpc_corrected_gnn_smem_bytes(h, *dims) == fg.corrected_smem_bytes(
+            "corrected", qc, h)
+        assert lib.ldpc_corrected_gnn_scratch_floats(h, *dims[:3]) \
+            == fg.corrected_scratch_floats(qc, h)
         for kind, build in builders.items():
-            # the wrapper's shared-memory and scratch plans are the kernel's
-            assert lib.ldpc_corrected_gnn_smem_bytes(fg.VARIANT[kind], h, *dims) \
-                == fg.corrected_smem_bytes(kind, qc, h)
-            assert lib.ldpc_corrected_gnn_scratch_floats(h, *dims[:3]) \
-                == fg.corrected_scratch_floats(qc, h)
             for inject, share, ee in cases:
                 model = perturbed_model(plan, 2, h, inject, share, scale, seed=7)
                 dec = build(qc, model, 2, h, share_layers=share, input_injection=inject,
@@ -605,6 +660,30 @@ def gnn_phases(smi: str) -> list[dict]:
                 label = (f"{kind} {code} Z={Z} h={h} B={B} T=2 inject={inject} "
                          f"share={share} early_exit={ee}")
                 max_err[kind] = max(max_err[kind], gnn_compare(dec, llr, label))
+
+    # Exact inputs (ops/msg_gnn_exact.py): every sum corrected_v2 reorders is
+    # exact in any order, so it must equal its plain version bit for bit.
+    for code, Z, h, B, inject, share, ee in CORRECTED_EXACT_CASES:
+        qc = qc_layout(get_base_graph(code), Z)
+        model, llr_np = exact_corrected_case(qc, h, B, inject, share)
+        dec = fg.make_fused_corrected_gnn_decoder_v2(qc, model, 2, h, share_layers=share,
+                                                     input_injection=inject, early_exit=ee,
+                                                     return_iterations=ee)
+        llr = torch.from_numpy(llr_np).cuda()
+        out_k, out_p = dec(llr), dec.plain(llr)
+        torch.cuda.synchronize()
+        (soft_k, conv_k), (soft_p, conv_p) = (out_k, out_p) if ee else ((out_k, None),
+                                                                       (out_p, None))
+        ok = bool(torch.equal(soft_k, soft_p)) and (not ee or bool(torch.equal(conv_k, conv_p)))
+        emit({"phase": "gnn_compare", "case": f"corrected_v2 exact {code} Z={Z} h={h} B={B} "
+              f"inject={inject} share={share} early_exit={ee}", "identical": ok,
+              "max_abs_err": (soft_k - soft_p).abs().max().item(),
+              "ones_share": (soft_p > 0.5).float().mean().item(),
+              "conv_iter": conv_p.tolist() if ee else None, "ok": ok})
+        if not ok:
+            raise AssertionError(f"corrected_v2 differs from its plain version on exact inputs: "
+                                 f"{code} Z={Z} h={h} inject={inject} share={share} "
+                                 f"early_exit={ee}")
 
     # The noise floor of that comparison, at nr_2_0_32 Z=32 h=64: the plain
     # version on the card against itself on the CPU (the same function, another
@@ -668,23 +747,23 @@ def gnn_phases(smi: str) -> list[dict]:
             raise AssertionError(f"untrained {kind} kernel is not the fused min-sum decoder")
 
     # 8. gnn_main: trained checkpoints, nr_2_0_32 Z=32 h=64, batch 2048, 0 dB
-    H, B, SNR, HARD_SNR = 64, 2048, 0.0, -3.0
-    llr = llrs(n, B, SNR, seed=2)
+    H, B, SNR, HARD_SNR = GNN_MAIN["H"], GNN_MAIN["B"], GNN_MAIN["SNR"], -3.0
+    llr = llrs(n, B, SNR, seed=GNN_MAIN["llr_seed"])
     llr_hard = llrs(n, 64, HARD_SNR, seed=9)
     entries = []
-    results = Path(__file__).resolve().parent / "results"
-    runs = (("corrected_v2", 10, "corrected10_gnn_nr_2_0_32_ft3.msgpack", True),
-            ("corrected_v2", 20, "corrected20_gnn_nr_2_0_32_ft.msgpack", False),
-            ("corrected", 10, "corrected10_gnn_nr_2_0_32_ft3.msgpack", True))
-    models = {}
-    for kind, T, ckpt, in_kernels_line in runs:  # the T=20 run is an extra reading of corrected_v2
-        if T not in models:
-            models[T] = create_corrected_minsum_gnn_decoder(
-                plan32, num_iterations=T, hidden_dim=H, input_injection=True)
-            convert.load_message_gnn(results / ckpt, models[T])  # missing file: raises
-        model = models[T]
-        dec = builders[kind](qc32, model, T, H, input_injection=True, early_exit=True,
-                             return_iterations=True)
+    models = {T: checkpoint_model(plan32, T, H, name) for T, name in GNN_CHECKPOINTS.items()}
+    runs = (("corrected_v2", 10, True), ("corrected_v2", 20, False), ("corrected", 10, True))
+    decoders = {(kind, T): builders[kind](qc32, models[T], T, H, input_injection=True,
+                                          early_exit=True, return_iterations=True)
+                for kind, T, _ in runs}
+    # corrected_v2, the kernel bench.py's corrected sections serve: five
+    # rounds, T=10 and T=20 interleaved, the median as its time.
+    rounds_ms = {10: [], 20: []}
+    for _ in range(5):
+        for T in rounds_ms:
+            rounds_ms[T].append(cuda_ms(lambda: decoders[("corrected_v2", T)](llr), reps=2)[0])
+    for kind, T, in_kernels_line in runs:  # the T=20 run is an extra reading of corrected_v2
+        dec = decoders[(kind, T)]
         for key in fg.LAUNCHES:
             fg.LAUNCHES[key] = 0
         counted_out = dec(llr)
@@ -700,7 +779,10 @@ def gnn_phases(smi: str) -> list[dict]:
         if abs(mean_conv - GNN_MEAN_CONV[T]) > GNN_MEAN_CONV_WINDOW:
             raise AssertionError(f"{kind} T={T}: mean conv_iter {mean_conv} is outside "
                                  f"{GNN_MEAN_CONV[T]} +- {GNN_MEAN_CONV_WINDOW}")
-        ms, _ = cuda_ms(lambda: dec(llr), reps=3)
+        if kind == "corrected_v2":
+            ms = sorted(rounds_ms[T])[2]
+        else:
+            ms, _ = cuda_ms(lambda: dec(llr), reps=3)
         # The counted launch's whole batch against the plain version's timed run
         # on the same batch: the shape at which the kernel is timed, every block
         # walking many frames.
@@ -721,22 +803,29 @@ def gnn_phases(smi: str) -> list[dict]:
         bms, bby = gnn_bound_ms(qc32, H, True, kind, conv)
         # all-zero codewords: decisions of 1 are errors
         hard = (soft > 0.5).float()
-        emit({"phase": "gnn_main", "kernel": kind, "checkpoint": ckpt, "code": "nr_2_0_32",
-              "Z": 32, "hidden_dim": H, "iterations": T, "batch": B, "snr_db": SNR,
-              "launches": launches, "ms_per_batch": ms,
+        emit({"phase": "gnn_main", "kernel": kind, "checkpoint": GNN_CHECKPOINTS[T],
+              "code": "nr_2_0_32", "Z": 32, "hidden_dim": H, "iterations": T, "batch": B,
+              "snr_db": SNR, "launches": launches, "ms_per_batch": ms,
+              "rounds_ms": rounds_ms[T] if kind == "corrected_v2" else None,
               "bits_per_s": decode_throughput(B, n, ms / 1e3, name=f"{kind}_T{T}"),
               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+              "bound_share": bms / ms,
               "mean_conv_iter": mean_conv, "converged_share": (conv < T).float().mean().item(),
               "ber_zero_codeword": hard.mean().item(),
               "fer_zero_codeword": (hard.sum(dim=1) > 0).float().mean().item(),
+              "blocks_per_sm": fg.corrected_blocks_per_sm(kind, qc32, H),
+              **(tc_shape(qc32, H, True, kind) if kind == "corrected_v2" else {}),
               "nvidia_smi": smi})
         if in_kernels_line:
             entries.append({
-                "name": kind, "route": "cuda", "source": "ldpc_tpu_torch/ops/csrc/fused_gnn.cu",
+                "name": kind, "route": "cuda", "source": "ldpc_tpu_torch/ops/csrc/"
+                + ("fused_gnn_tc.cu" if kind == "corrected_v2" else "fused_gnn.cu"),
                 "replaces": "ldpc_tpu/ops/pallas_gnn.py:" + ("1791" if kind == "corrected_v2"
                                                             else "1341"),
                 "launches": launches[kind], "max_abs_err": max(max_err[kind], err), "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None})
+        if kind == "corrected_v2" and T == 10:
+            emit(trace_in_child("gnn"))
 
     # The fixed-T kernel against the module's own forward (bf16) on the main
     # path's LLRs and on the hard ones, within the JAX package's bar.
@@ -771,6 +860,42 @@ def gnn_phases(smi: str) -> list[dict]:
                                "mean_conv_iter": conv_tx.mean().item()}, "ok": ok})
     if not ok:
         raise AssertionError("corrected_v2 disagrees with the module, or does not decode")
+
+    # 8b. gnn_bench_nr_2_0_4: bench.py section_corrected_gnn.
+    g = GNN_BENCH
+    qc4 = qc_layout(get_base_graph(g["code"]), g["Z"])
+    model4 = checkpoint_model(qc_msg.make_plan(qc4), g["T"], g["H"], g["checkpoint"])
+    dec4 = fg.make_fused_corrected_gnn_decoder_v2(qc4, model4, g["T"], g["H"],
+                                                  input_injection=True, early_exit=True,
+                                                  return_iterations=True)
+    llr4 = llrs(qc4.num_vars, g["B"], g["SNR"], seed=g["llr_seed"])
+    for key in fg.LAUNCHES:
+        fg.LAUNCHES[key] = 0
+    out4 = dec4(llr4)
+    torch.cuda.synchronize()
+    launches = dict(fg.LAUNCHES)
+    if launches["corrected_v2"] != 1:
+        raise AssertionError(f"the nr_2_0_4 bench configuration did not run corrected_v2: "
+                             f"{launches}")
+    rounds4 = [cuda_ms(lambda: dec4(llr4), reps=3)[0] for _ in range(5)]
+    ms4 = sorted(rounds4)[2]
+    plain_ms4, plain4 = cuda_ms(lambda: dec4.plain(llr4), reps=1)
+    err4 = gnn_compare(dec4, llr4, f"corrected_v2 {g['code']} Z={g['Z']} T={g['T']} whole batch "
+                       f"of {g['B']}", phase="gnn_bench_nr_2_0_4", kernel_out=out4,
+                       plain_out=plain4)
+    soft4, conv4 = out4
+    bms4, bby4 = gnn_bound_ms(qc4, g["H"], True, "corrected_v2", conv4)
+    hard4 = (soft4 > 0.5).float()
+    emit({"phase": "gnn_bench_nr_2_0_4", "kernel": "corrected_v2", "checkpoint": g["checkpoint"],
+          "code": g["code"], "Z": g["Z"], "hidden_dim": g["H"], "iterations": g["T"],
+          "batch": g["B"], "snr_db": g["SNR"], "launches": launches, "ms_per_batch": ms4,
+          "rounds_ms": rounds4,
+          "bits_per_s": decode_throughput(g["B"], qc4.num_vars, ms4 / 1e3, name="corrected_gnn"),
+          "plain_ms": plain_ms4, "bound_ms": bms4, "bound_by": bby4, "bound_share": bms4 / ms4,
+          "mean_conv_iter": conv4.mean().item(), "ber_zero_codeword": hard4.mean().item(),
+          "fer_zero_codeword": (hard4.sum(dim=1) > 0).float().mean().item(),
+          **tc_shape(qc4, g["H"], True, "corrected_v2"), "nvidia_smi": smi})
+    entries[0]["max_abs_err"] = max(entries[0]["max_abs_err"], err4)
     return entries
 
 
@@ -1037,17 +1162,25 @@ def msg_compare(soft_k: torch.Tensor, soft_p: torch.Tensor, label: str, phase: s
     return err
 
 
-def tc_shape(qc, h: int, inject: bool) -> dict:
-    """msg_gnn_v2's block shape from its occupancy plan, and the registers a
-    thread and spill bytes of its instantiation from the compiler's report."""
+# The tensor-core kernels: (source stem, kernel template name).
+TC_KERNELS = {"msg_gnn_v2": ("fused_msg_gnn_tc", "msg_gnn_v2_tc_kernel"),
+              "corrected_v2": ("fused_gnn_tc", "corrected_v2_tc_kernel")}
+
+
+def tc_shape(qc, h: int, inject: bool, kind: str = "msg_gnn_v2") -> dict:
+    """A tensor-core kernel's block shape from its occupancy plan, and the
+    registers a thread and spill bytes of its instantiation from the
+    compiler's report."""
     import re
 
     from ldpc_tpu_torch.ops import _build, fused_gnn as fg
 
-    warps, blocks = fg.msg_gnn_tc_plan(qc, h, inject)
-    log = _build.build_log("fused_msg_gnn_tc")
+    plan = fg.msg_gnn_tc_plan if kind == "msg_gnn_v2" else fg.corrected_tc_plan
+    warps, blocks = plan(qc, h, inject)
+    stem, kernel = TC_KERNELS[kind]
+    log = _build.build_log(stem)
     props = log[log.index("Function properties for _ZN"):]
-    name = f"msg_gnn_v2_tc_kernelILi{h}ELb{int(inject)}E"
+    name = f"{kernel}ILi{h}ELb{int(inject)}E"
     report = props[props.index(name):].split("Compile time")[0]
     return {"warps_per_block": warps, "blocks_per_sm": blocks, "warps_per_sm": warps * blocks,
             "registers_per_thread": int(re.search(r"Used (\d+) registers", report).group(1)),
@@ -1073,15 +1206,15 @@ def trace_msg_gnn() -> dict:
             **trace_split(lambda: dec(llr), "msg_gnn")}
 
 
-def trace_msg_gnn_in_child() -> dict:
-    """trace_msg_gnn in a process of its own: a second torch.profiler
-    session in one process (after trace_main) recorded no kernel on the
-    card.  The child loads the libraries this process built."""
-    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trace-msg-gnn"],
+def trace_in_child(name: str) -> dict:
+    """trace_gnn or trace_msg_gnn in a process of its own: a second
+    torch.profiler session in one process (after trace_main) recorded no
+    kernel on the card.  The child loads the libraries this process built."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trace", name],
                          capture_output=True, text=True, timeout=600, check=True).stdout
     result = json.loads(out.strip().splitlines()[-1])
     if result["device_ms"] <= 0:
-        raise AssertionError(f"trace_msg_gnn recorded no device time: {result}")
+        raise AssertionError(f"trace_{name} recorded no device time: {result}")
     return result
 
 
@@ -1200,7 +1333,7 @@ def msg_gnn_phases(smi: str) -> list[dict]:
         if kind == "msg_gnn_v2":  # bench.py's kernel: five rounds and a profiler trace
             rounds_ms = [cuda_ms(lambda: dec(llr), reps=2)[0] for _ in range(5)]
             ms = sorted(rounds_ms)[2]
-            emit(trace_msg_gnn_in_child())
+            emit(trace_in_child("msg_gnn"))
         else:
             ms, _ = cuda_ms(lambda: dec(llr), reps=2)
         plain_ms, soft_p = cuda_ms(lambda: dec.plain(llr), reps=1)
@@ -1336,8 +1469,8 @@ def build_all() -> dict:
     """Compile every CUDA source of the port, one nvcc per source, together."""
     from ldpc_tpu_torch.ops import _build
 
-    stems = ("fused_minsum", "fused_retire", "fused_gnn", "fused_neural", "fused_msg_gnn",
-             "fused_msg_gnn_tc", "probe_agg_mxu")
+    stems = ("fused_minsum", "fused_retire", "fused_gnn", "fused_gnn_tc", "fused_neural",
+             "fused_msg_gnn", "fused_msg_gnn_tc", "probe_agg_mxu")
     with ThreadPoolExecutor(len(stems)) as pool:
         list(pool.map(_build.build, stems))
     return {stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
@@ -1367,14 +1500,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["classical", "gnn", "nms", "msg_gnn", "tools"],
                     default=None)
-    ap.add_argument("--trace-msg-gnn", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--trace", choices=["gnn", "msg_gnn"], help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = args.only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
-    if args.trace_msg_gnn:  # the child of trace_msg_gnn_in_child
-        emit(trace_msg_gnn())
+    if args.trace is not None:  # the child of trace_in_child
+        emit(trace_gnn() if args.trace == "gnn" else trace_msg_gnn())
         return 0
 
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
@@ -1407,9 +1540,8 @@ def main(argv=None) -> int:
             occupancy[f"fused Z={Z} frames_per_block={fpb}"] = lib.ldpc_fused_occupancy(*dims, fpb, 0, 0)
             parts, frames, per_sm = fm.retire_plan(qc, True)
             occupancy[f"fused_retire Z={Z} parts={parts} frames_per_block={frames}"] = per_sm
-            for name, variant in fg.VARIANT.items():
-                occupancy[f"{name} Z={Z} h=64"] = fg.kernel_library().ldpc_corrected_gnn_occupancy(
-                    variant, 64, *dims, qc.num_edge_types)
+            for name in ("corrected_v2", "corrected"):
+                occupancy[f"{name} Z={Z} h=64"] = fg.corrected_blocks_per_sm(name, qc, 64)
             for name in ("msg_gnn", "msg_gnn_v2", "msg_gnn_v3", "msg_gnn_v4"):
                 occupancy[f"{name} Z={Z} h=64"] = fg.msg_gnn_blocks_per_sm(name, qc, 64)
             shared, fpb = fn.neural_plan(qc, 10, 2)
@@ -1420,13 +1552,15 @@ def main(argv=None) -> int:
     if min(occupancy.values()) < 1:
         raise AssertionError(f"a main-path kernel cannot be resident: {occupancy}")
     qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
-    hmma = sass_mma_counts("fused_msg_gnn_tc")
-    if not hmma or min(hmma.values()) < 1:
-        raise AssertionError(f"msg_gnn_v2's kernels have no tensor-core instructions: {hmma}")
+    hmma = {kind: sass_mma_counts(stem) for kind, (stem, _) in TC_KERNELS.items()}
+    if any(not counts or min(counts.values()) < 1 for counts in hmma.values()):
+        raise AssertionError(f"a tensor-core kernel has no tensor-core instructions: {hmma}")
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "ptxas": ptxas,
           "blocks_per_sm": occupancy, "hmma_per_kernel": hmma,
-          "msg_gnn_v2_shape": {f"nr_2_0_32 Z=32 h={h} inject={inj}": tc_shape(qc32, h, inj)
-                               for h in (16, 64) for inj in (False, True)}})
+          **{f"{kind}_shape": {f"nr_2_0_32 Z=32 h={h} inject={inj}":
+                               tc_shape(qc32, h, inj, kind)
+                               for h in (16, 64) for inj in (False, True)}
+             for kind in TC_KERNELS}})
 
     entries = []
     if only in (None, "classical"):

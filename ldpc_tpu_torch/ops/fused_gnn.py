@@ -1,19 +1,22 @@
 """Fused message-GNN decoders: the whole decode of a message-centered GNN in
 one CUDA kernel (counterpart of ``ldpc_tpu.ops.pallas_gnn``).
 
-Six hand-written kernels, in three sources:
+Six hand-written kernels, in four sources:
 
-``csrc/fused_gnn.cu``, the corrected min-sum GNN (the flagship), served for a
+``csrc/fused_gnn_tc.cu`` and ``csrc/fused_gnn.cu``, the corrected min-sum GNN
+(the flagship), served for a
 :class:`ldpc_tpu_torch.models.message_gnn.MessageGNNDecoder` with
 ``var_mode = check_mode = "corrected"``, ``depth_L = 0``, ``damping = 1``
 (``create_corrected_minsum_gnn_decoder``):
 
-* ``corrected_v2`` (replaces ``pallas_gnn._corrected_kernel_v2``): min-sum
-  half-updates in exact float32 plus a GNN correction per half-update, the
-  second MLP layer and the projection folded into one thin product.
-* ``corrected`` (replaces ``pallas_gnn._corrected_kernel``): the same
-  decoder with the second layer not folded: full (h, h) products, bf16 layer
-  outputs, float32 projection.
+* ``corrected_v2`` (replaces ``pallas_gnn._corrected_kernel_v2``;
+  ``fused_gnn_tc.cu``, its products as tensor-core tiles, a frame's whole
+  state in shared memory): min-sum half-updates in exact float32 plus a GNN
+  correction per half-update, the second MLP layer and the projection folded
+  into one thin product.
+* ``corrected`` (replaces ``pallas_gnn._corrected_kernel``; ``fused_gnn.cu``):
+  the same decoder with the second layer not folded: full (h, h) products,
+  bf16 layer outputs, float32 projection.
 
 ``csrc/fused_msg_gnn.cu`` and ``csrc/fused_msg_gnn_tc.cu``, the fully-neural
 message GNN (``create_message_gnn_decoder``):
@@ -48,6 +51,8 @@ second-layer outputs and their sum.  The first- and second-layer weights,
 and ``corrected_v2``'s folded ``w2p`` and ``cconst``, are rounded to bf16
 when the decoder is built.  Those of the fully-neural decoders are listed in
 the headers of ``csrc/fused_msg_gnn.cu`` and ``csrc/fused_msg_gnn_tc.cu``.
+The tensor-core kernels (``corrected_v2``, ``msg_gnn_v2``) sum each product
+in another float32 order than the plain version; nothing else differs.
 Products accumulate in float32.
 """
 from __future__ import annotations
@@ -67,9 +72,7 @@ from ldpc_tpu_torch.ops.qc_msg import _BIG
 LAUNCHES: dict[str, int] = {"corrected_v2": 0, "corrected": 0, "msg_gnn": 0, "msg_gnn_v2": 0,
                             "msg_gnn_v3": 0, "msg_gnn_v4": 0}
 
-KERNEL_HIDDEN_DIMS = (16, 64)  # instantiations in csrc/fused_gnn.cu, fused_msg_gnn[_tc].cu
-VARIANT = {"corrected_v2": 2, "corrected": 1}
-_ENTRY = {"corrected_v2": "ldpc_corrected_gnn_v2", "corrected": "ldpc_corrected_gnn"}
+KERNEL_HIDDEN_DIMS = (16, 64)  # instantiations in csrc/fused_gnn[_tc].cu, fused_msg_gnn[_tc].cu
 _PLAIN_CHUNK_BYTES = 64 * 2**20  # one (frames, K, Z, h) float32 tensor of the plain version
 
 
@@ -284,7 +287,9 @@ class _Tables:
 
     ``w`` (2T, NW, h, h): the layer's weight matrices, values already rounded
     to bf16, kept as float32 for the plain version and as bf16 (``w_bf16``)
-    for the kernel; order vf, cf, ca, va, vl, cl[, W2v, W2c].
+    for the kernel; order vf, cf, ca, va, vl, cl[, W2v, W2c].  For
+    ``corrected_v2``, ``w_bf16`` is packed by
+    :func:`pack_corrected_tc_weights`.
     ``small`` (2T, 4h + 4) for corrected_v2: b1v, b1c, w2p (v, c), cconst;
     (2T, 3h + 4) for corrected: b2v, b2c, pw, pb.
     ``tab``: corrected_v2's ebias per message type (2T, types, h);
@@ -319,7 +324,8 @@ class _Tables:
                 np.stack([x["bias1v"], x["bias1c"]], axis=1).transpose(0, 1, 3, 2))
         self.w_ch, self.alpha = x["w_ch"], x["alpha"]
         self.w = _bf16_round(w).to(device)
-        self.w_bf16 = self.w.to(torch.bfloat16).contiguous()
+        self.w_bf16 = (pack_corrected_tc_weights(self.w, input_injection)
+                       if kind == "corrected_v2" else self.w.to(torch.bfloat16).contiguous())
         self.small = torch.from_numpy(np.ascontiguousarray(small, np.float32)).to(device)
         self.tab = torch.from_numpy(np.ascontiguousarray(tab, np.float32)).to(device)
         self.emb = torch.from_numpy(np.concatenate([x["emb_w"], x["emb_b"]])).to(device)
@@ -349,22 +355,44 @@ def _r4(x: int) -> int:
     return -(-x // 4) * 4
 
 
-def corrected_smem_bytes(kind: str, qc: QCLayout, hidden_dim: int) -> int:
-    """Dynamic shared memory of one block (mirrors make_layout in
+def corrected_tc_matrices(input_injection: bool) -> int:
+    """(h, h) first-layer matrices ``corrected_v2`` stages a layer: vf, cf,
+    ca, va, then vl, cl with injection."""
+    return 6 if input_injection else 4
+
+
+def pack_corrected_tc_weights(w: torch.Tensor, inject: bool) -> torch.Tensor:
+    """``_Tables.w`` (2T, 6, h, h) of ``corrected_v2``, bf16 values as
+    float32 -> the tensor-core kernel's packed bf16 layout (2T, NM * h * (h +
+    8)), as it stages it in shared memory: the matrices vf, cf, ca, va (and
+    vl, cl with injection), each h rows (out) of its h inputs then 8 zeros."""
+    nm = corrected_tc_matrices(inject)
+    T2 = w.shape[0]
+    padded = torch.nn.functional.pad(w[:, :nm], (0, 8))
+    return padded.reshape(T2, -1).to(torch.bfloat16).contiguous()
+
+
+def corrected_smem_bytes(kind: str, qc: QCLayout, hidden_dim: int,
+                         input_injection: bool = True) -> int:
+    """Dynamic shared memory of one block.  ``corrected`` (make_layout in
     csrc/fused_gnn.cu): graph, inverse degrees, v2c, c2v, LLRs, column sums,
-    embedding, the layer's small vectors, corrected_v2's ebias table and the
-    layer's 6 or 8 (h, h) weight matrices, all 4-byte words."""
+    embedding, the layer's small vectors and its 8 (h, h) float32 weight
+    matrices, all 4-byte words.  ``corrected_v2`` (make_layout in
+    csrc/fused_gnn_tc.cu): the same state plus the variable-side partial of
+    each message, the layer's ebias table and its 4 or 6 (injection) padded
+    bf16 matrices."""
     K, Z, C, R, h = qc.num_base_edges, qc.Z, qc.num_base_cols, qc.num_base_rows, hidden_dim
-    v2 = kind == "corrected_v2"
-    words = (_r4(6 * K + R + C + 2) + _r4(C + R) + 2 * _r4(K * Z) + 2 * _r4(C * Z) + 2 * h
-             + (4 * h + 4 if v2 else 3 * h + 4) + (_r4(qc.num_edge_types * h) if v2 else 0)
-             + (6 if v2 else 8) * h * h)
-    return 4 * words
+    state = _r4(6 * K + R + C + 2) + _r4(C + R) + 2 * _r4(K * Z) + 2 * _r4(C * Z) + 2 * h
+    if kind == "corrected_v2":
+        words = state + _r4(K * Z) + 4 * h + 4 + qc.num_edge_types * h
+        return 4 * words + 2 * corrected_tc_matrices(input_injection) * h * (h + 8)
+    return 4 * (state + 3 * h + 4 + 8 * h * h)
 
 
 def corrected_scratch_floats(qc: QCLayout, hidden_dim: int) -> int:
-    """Global scratch of one resident block: the per-variable and per-check
-    first-layer terms of one frame."""
+    """Global scratch of one resident ``corrected`` block: the per-variable
+    and per-check first-layer terms of one frame (``corrected_v2`` takes
+    none)."""
     return (2 * qc.num_base_cols + qc.num_base_rows) * hidden_dim * qc.Z
 
 
@@ -549,25 +577,67 @@ class _Plain:
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# H, llr, soft, conv, counter, scratch, graph, inv, w, tab, small, emb,
-# B, Z, R, C, K, ntypes, T, inject, early_exit, w_ch, alpha, grid, stream
-_LAUNCH = ([_I] + [_P] * 11 + [_I] * 9 + [_F, _F, _I, _P], _I)
 _SIGNATURES = {
-    "ldpc_corrected_gnn_v2": _LAUNCH,
-    "ldpc_corrected_gnn": _LAUNCH,
-    # variant, H, Z, R, C, K, ntypes
-    "ldpc_corrected_gnn_smem_bytes": ([_I] * 7, ctypes.c_longlong),
-    "ldpc_corrected_gnn_scratch_floats": ([_I] * 4, ctypes.c_longlong),
-    "ldpc_corrected_gnn_occupancy": ([_I] * 7, _I),
+    # H, llr, soft, conv, counter, scratch, graph, inv, w, tab, small, emb,
+    # B, Z, R, C, K, T, inject, early_exit, w_ch, alpha, grid, stream
+    "ldpc_corrected_gnn": ([_I] + [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P], _I),
+    "ldpc_corrected_gnn_smem_bytes": ([_I] * 5, ctypes.c_longlong),  # H, Z, R, C, K
+    "ldpc_corrected_gnn_scratch_floats": ([_I] * 4, ctypes.c_longlong),  # H, Z, R, C
+    "ldpc_corrected_gnn_occupancy": ([_I] * 5, _I),  # H, Z, R, C, K
     "ldpc_gnn_cuda_error_string": ([_I], ctypes.c_char_p),
+}
+_CORRECTED_TC_SIGNATURES = {
+    # H, llr, soft, conv, counter, graph, inv, w, tab, small, emb,
+    # B, Z, R, C, K, ntypes, T, inject, early_exit, w_ch, alpha, grid, warps, stream
+    "ldpc_corrected_gnn_v2": ([_I] + [_P] * 10 + [_I] * 9 + [_F, _F, _I, _I, _P], _I),
+    # H, inject, Z, R, C, K, ntypes
+    "ldpc_corrected_tc_smem_bytes": ([_I] * 7, ctypes.c_longlong),
+    "ldpc_corrected_tc_plan": ([_I] * 7 + [_P, _P], _I),  # ..., *warps, *blocks
+    "ldpc_corrected_tc_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
 
 def kernel_library():
-    """The compiled ``csrc/fused_gnn.cu``, built on first use."""
+    """The compiled ``csrc/fused_gnn.cu`` (``corrected``), built on first use."""
     from ldpc_tpu_torch.ops import _build
 
     return _build.load("fused_gnn", _SIGNATURES)
+
+
+def corrected_tc_library():
+    """The compiled ``csrc/fused_gnn_tc.cu`` (``corrected_v2``), built on
+    first use."""
+    from ldpc_tpu_torch.ops import _build
+
+    return _build.load("fused_gnn_tc", _CORRECTED_TC_SIGNATURES)
+
+
+def _dims(qc: QCLayout) -> tuple[int, int, int, int]:
+    return qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges
+
+
+def corrected_tc_plan(qc: QCLayout, hidden_dim: int, input_injection: bool) -> tuple[int, int]:
+    """(warps a block, blocks an SM) of the ``corrected_v2`` kernel on the
+    current card: the runtime's occupancy query over every block size, the
+    most resident warps per SM (csrc/fused_gnn_tc.cu)."""
+    lib = corrected_tc_library()
+    warps, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.ldpc_corrected_tc_plan(hidden_dim, int(input_injection), *_dims(qc),
+                                    qc.num_edge_types, ctypes.addressof(warps),
+                                    ctypes.addressof(blocks))
+    if rc != 0:
+        msg = lib.ldpc_corrected_tc_cuda_error_string(rc).decode()
+        raise RuntimeError(f"corrected_v2 occupancy query failed: CUDA error {rc} ({msg})")
+    return warps.value, blocks.value
+
+
+def corrected_blocks_per_sm(kind: str, qc: QCLayout, hidden_dim: int,
+                            input_injection: bool = True) -> int:
+    """Resident blocks per SM of a corrected kernel (or -cudaError_t for
+    ``corrected``)."""
+    if kind == "corrected_v2":
+        return corrected_tc_plan(qc, hidden_dim, input_injection)[1]
+    return kernel_library().ldpc_corrected_gnn_occupancy(hidden_dim, *_dims(qc))
 
 
 class _ResidentGridDecoder:
@@ -660,6 +730,7 @@ class FusedCorrectedDecoder(_ResidentGridDecoder):
         super().__init__(kind, qc, num_iterations, hidden_dim, input_injection)
         self.early_exit = bool(early_exit)
         self.return_iterations = bool(return_iterations)
+        self._warps = 0  # corrected_v2's block size, from its plan at the first launch
         self.tables = _Tables(kind, qc, params, self.num_iterations, self.hidden_dim,
                               share_layers, self.input_injection, device)
 
@@ -685,19 +756,33 @@ class FusedCorrectedDecoder(_ResidentGridDecoder):
         conv = torch.empty((B,), dtype=torch.float32, device=llr.device)
         if B == 0:
             return self._result(soft, conv)
-        lib = kernel_library()
-        dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges, qc.num_edge_types)
-        self._launch_grid(
-            llr, lambda: lib.ldpc_corrected_gnn_occupancy(VARIANT[self.kind], h, *dims),
-            corrected_scratch_floats(qc, h),
-            lambda counter, scratch, grid, stream: getattr(lib, _ENTRY[self.kind])(
-                h, llr.data_ptr(), soft.data_ptr(),
-                conv.data_ptr() if self.return_iterations else None, counter, scratch,
-                tb.graph.data_ptr(), tb.inv.data_ptr(), tb.w_bf16.data_ptr(), tb.tab.data_ptr(),
-                tb.small.data_ptr(), tb.emb.data_ptr(), B, *dims, self.num_iterations,
-                int(self.input_injection), int(self.early_exit), tb.w_ch, tb.alpha, grid,
-                stream),
-            lib.ldpc_gnn_cuda_error_string)
+        conv_ptr = conv.data_ptr() if self.return_iterations else None
+        flags = (self.num_iterations, int(self.input_injection), int(self.early_exit), tb.w_ch,
+                 tb.alpha)
+        tables = (tb.graph.data_ptr(), tb.inv.data_ptr(), tb.w_bf16.data_ptr(),
+                  tb.tab.data_ptr(), tb.small.data_ptr(), tb.emb.data_ptr())
+        if self.kind == "corrected_v2":
+            lib = corrected_tc_library()
+
+            def blocks_per_sm() -> int:
+                self._warps, blocks = corrected_tc_plan(qc, h, self.input_injection)
+                return blocks
+
+            self._launch_grid(
+                llr, blocks_per_sm, 0,
+                lambda counter, scratch, grid, stream: lib.ldpc_corrected_gnn_v2(
+                    h, llr.data_ptr(), soft.data_ptr(), conv_ptr, counter, *tables, B,
+                    *_dims(qc), qc.num_edge_types, *flags, grid, self._warps, stream),
+                lib.ldpc_corrected_tc_cuda_error_string)
+        else:
+            lib = kernel_library()
+            self._launch_grid(
+                llr, lambda: lib.ldpc_corrected_gnn_occupancy(h, *_dims(qc)),
+                corrected_scratch_floats(qc, h),
+                lambda counter, scratch, grid, stream: lib.ldpc_corrected_gnn(
+                    h, llr.data_ptr(), soft.data_ptr(), conv_ptr, counter, scratch, *tables, B,
+                    *_dims(qc), *flags, grid, stream),
+                lib.ldpc_gnn_cuda_error_string)
         return self._result(soft, conv)
 
 
@@ -706,7 +791,8 @@ def _make(kind: str, qc: QCLayout, params, num_iterations: int, hidden_dim: int,
           device) -> FusedCorrectedDecoder:
     if return_iterations and not early_exit:
         raise ValueError("return_iterations requires early_exit=True")
-    _check_build(kind, num_iterations, hidden_dim, corrected_smem_bytes(kind, qc, hidden_dim),
+    _check_build(kind, num_iterations, hidden_dim,
+                 corrected_smem_bytes(kind, qc, hidden_dim, input_injection),
                  "messages, LLRs and one layer's weights", qc)
     return FusedCorrectedDecoder(kind, qc, params, num_iterations, hidden_dim, share_layers,
                                  input_injection, early_exit, return_iterations,

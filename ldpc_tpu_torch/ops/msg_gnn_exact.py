@@ -19,7 +19,32 @@ plain version on these inputs: the bar is ``torch.equal``.  The ReLUs are
 never negative here; the 3e-2 cases hold them.
 
 ``EXACT_CASES`` are the configurations the tests and ``chip_smoke.py`` hold
-to that bar.  Nothing here needs a card.
+to that bar.
+
+``exact_corrected_case`` does the same for the corrected min-sum GNN
+(``create_corrected_minsum_gnn_decoder``, B4).  There the messages are
+min-sum messages of both signs, corrected by float32 sums, so their own
+quanta are fine; what makes the reordered sums exact is that each one
+multiplies bf16 values bounded away from 0.  The only sums a kernel may
+reorder are its products: the features f = bf16(m * emb_w + ebias), the
+variable means and the LLR features lf times first-layer weights, the
+check's sum of those products, and bf16(relu(.)) of the first layer times
+the folded second layer w2p.  Embedding weights 0, 1/128 or 1/64 against
+biases of 2 or 3 (plus type embeddings 0, 1/2 or 1) keep every f, mean and
+lf in [1.5, 4.5] while |m| < 32: bf16 values there are multiples of 2**-7.
+First-layer weights 1/h or 2/h on a quarter of the entries and first-layer
+biases 1 or 2 keep every first-layer output at 1 or above, so its bf16 is a
+multiple of 2**-7 too (the ReLUs never clip here).  Second-layer weights
+1/h or 2/h on an eighth of the entries and projections of +-1/64 make w2p a
+small multiple of 2**-6 / h.  alpha is 3/4 and w_ch 1/2.  The LLRs are
+multiples of 1/2 with magnitudes up to 4, each frame with its own share of
+negative bits (0 to one half), so that some frames stop after one or two
+iterations and the others end with soft bits of both decisions.  The
+bounds are checked value by value on the CPU (tests/test_torch_corrected_tc.py);
+every other operation of the decode runs in the same order in a kernel and
+its plain version.  ``CORRECTED_EXACT_CASES`` adds the early-exit flag.
+
+Nothing here needs a card.
 """
 from __future__ import annotations
 
@@ -42,11 +67,39 @@ EXACT_CASES = (
 )
 EXACT_SEED = 5
 
+# (code, Z, hidden_dim, batch, input_injection, share_layers, early_exit)
+CORRECTED_EXACT_CASES = (
+    ("toy_4x8", 4, 16, 10, False, False, False),
+    ("toy_4x8", 4, 16, 10, True, False, True),
+    ("toy_4x8", 4, 16, 10, True, True, False),
+    ("nr_2_0_4", 4, 64, 10, False, False, True),
+    ("nr_2_0_4", 4, 64, 10, True, False, False),
+    ("nr_2_0_4", 4, 64, 10, True, True, True),
+    ("nr_2_0_32", 32, 64, 5, False, False, False),
+    ("nr_2_0_32", 32, 64, 5, True, False, True),
+    ("nr_2_0_32", 32, 64, 5, True, True, False),
+)
+# Share of negative LLRs of frame i: NEGATIVE_SHARES[i % 5].
+NEGATIVE_SHARES = (0.0, 0.02, 0.1, 0.3, 0.5)
+
 
 def _dyadic(rng: np.random.Generator, shape, values, density: float) -> np.ndarray:
     """Entries drawn from ``values`` on a ``density`` share, else 0."""
     vals = rng.choice(np.asarray(values, np.float64), size=shape)
     return np.where(rng.random(shape) < density, vals, 0.0).astype(np.float32)
+
+
+def _set_parameters(model, rng: np.random.Generator, values: dict) -> None:
+    """Every non-empty parameter of ``model`` drawn by ``_dyadic`` from the
+    entry of ``values`` (name ending -> (values, share)) its name ends with."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.numel() == 0:
+                continue
+            key = next((k for k in values if name.endswith(k)), None)
+            if key is None:
+                raise ValueError(f"no exact value chosen for parameter {name}")
+            p.copy_(torch.from_numpy(_dyadic(rng, tuple(p.shape), *values[key])))
 
 
 def exact_msg_gnn_case(qc: QCLayout, hidden_dim: int, batch: int, input_injection: bool,
@@ -71,11 +124,37 @@ def exact_msg_gnn_case(qc: QCLayout, hidden_dim: int, batch: int, input_injectio
         "output_projection.bias": ((-1.0,), 1.0),
         "message_type_embeddings": ((0.0,), 1.0),
     }
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            key = next((k for k in values if name.endswith(k)), None)
-            if key is None:
-                raise ValueError(f"no exact value chosen for parameter {name}")
-            p.copy_(torch.from_numpy(_dyadic(rng, tuple(p.shape), *values[key])))
+    _set_parameters(model, rng, values)
     llr = (rng.integers(0, 9, (batch, qc.num_vars)) / 2.0).astype(np.float32)
     return model, llr
+
+
+def exact_corrected_case(qc: QCLayout, hidden_dim: int, batch: int, input_injection: bool,
+                         share_layers: bool, seed: int = EXACT_SEED, num_iterations: int = 2):
+    """(corrected model on the CPU, LLRs (batch, n) float32 numpy) of an
+    exact case of the corrected min-sum GNN."""
+    from ldpc_tpu_torch.models import create_corrected_minsum_gnn_decoder
+    from ldpc_tpu_torch.ops import qc_msg
+
+    rng = np.random.default_rng(seed)
+    model = create_corrected_minsum_gnn_decoder(
+        qc_msg.make_plan(qc, device="cpu"), num_iterations=num_iterations,
+        hidden_dim=hidden_dim, input_injection=input_injection, share_layers=share_layers)
+    h = hidden_dim
+    _set_parameters(model, rng, {
+        "w_ch": ((0.5,), 1.0),
+        "alpha": ((0.75,), 1.0),
+        "input_embedding.weight": ((0.0, 1.0 / 128, 1.0 / 64), 1.0),
+        "input_embedding.bias": ((2.0, 3.0), 1.0),
+        "message_type_embeddings": ((0.0, 0.5, 1.0), 1.0),
+        "Dense_0.weight": ((1.0 / h, 2.0 / h), 0.25),
+        "Dense_0.bias": ((1.0, 2.0), 1.0),
+        "Dense_1.weight": ((1.0 / h, 2.0 / h), 0.125),
+        "Dense_1.bias": ((0.0, 0.25), 1.0),
+        "_proj.weight": ((-1.0 / 64, 1.0 / 64), 1.0),
+        "_proj.bias": ((0.0,), 1.0),
+    })
+    mags = rng.integers(1, 9, (batch, qc.num_vars)) / 2.0
+    shares = np.asarray([NEGATIVE_SHARES[i % len(NEGATIVE_SHARES)] for i in range(batch)])
+    negative = rng.random((batch, qc.num_vars)) < shares[:, None]
+    return model, np.where(negative, -mags, mags).astype(np.float32)

@@ -11,7 +11,9 @@ conv_iter within 1 (the kernel's logf/tanhf round differently from torch's).
 The corrected-GNN kernels: soft bits within 2e-2 on frames whose conv_iter
 agrees, decisions equal on >= 99.9% of bits, conv_iter equal on >= 99% of
 frames (the products sum in another order than torch.matmul, which can flip a
-bf16 rounding); untrained, they are the fused min-sum kernel exactly.  The
+bf16 rounding); untrained, they are the fused min-sum kernel exactly;
+corrected_v2 (tensor cores) on the exact inputs of ops/msg_gnn_exact.py:
+soft bits and conv_iter identical.  The
 trained min-sum kernel (fused_neural): bits identical.  The fully-neural GNN
 kernels (msg_gnn, msg_gnn_v2, msg_gnn_v3, msg_gnn_v4) at T=2: soft bits within
 3e-2, decisions equal where the plain version is confident; msg_gnn_v2 on the
@@ -28,7 +30,8 @@ from test_torch_parity import (ALL_FLAGS, EARLY_EXIT, THROUGHPUT, TRACKING,
 import ldpc_tpu_torch.codes as tcodes
 from ldpc_tpu_torch.models import create_corrected_minsum_gnn_decoder
 from ldpc_tpu_torch.ops import fused_gnn as fg, fused_minsum as fm, qc_msg
-from ldpc_tpu_torch.ops.msg_gnn_exact import EXACT_CASES, exact_msg_gnn_case
+from ldpc_tpu_torch.ops.msg_gnn_exact import (CORRECTED_EXACT_CASES, EXACT_CASES,
+                                              exact_corrected_case, exact_msg_gnn_case)
 from ldpc_tpu_torch.utils import bpsk_awgn_llr
 
 pytestmark = [
@@ -250,6 +253,28 @@ def test_untrained_corrected_gnn_is_fused_minsum(kind):
                                     return_iterations=True)(llr)
     bits, conv_ms = fm.make_fused_minsum(qc, 8, 0.8, early_exit=True)(llr)
     assert torch.equal((soft > 0.5).float(), bits) and torch.equal(conv, conv_ms.float())
+
+
+@pytest.mark.parametrize("code,Z,h,batch,inject,share,early_exit", CORRECTED_EXACT_CASES)
+def test_corrected_v2_exact_inputs_identical(code, Z, h, batch, inject, share, early_exit):
+    """B4 on inputs whose every reordered sum is exact in any order
+    (ops/msg_gnn_exact.py): its tensor-core passes must give the plain
+    version's soft bits and conv_iter exactly, so an index, shift or gather
+    fault shows."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph(code), Z)
+    model, llr = exact_corrected_case(qc, h, batch, inject, share)
+    dec = fg.make_fused_corrected_gnn_decoder_v2(qc, model, 2, h, share_layers=share,
+                                                 input_injection=inject, early_exit=early_exit,
+                                                 return_iterations=early_exit)
+    llr = torch.from_numpy(llr).cuda()
+    before = fg.LAUNCHES["corrected_v2"]
+    out_k, out_p = dec(llr), dec.plain(llr)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["corrected_v2"] == before + 1
+    if early_exit:
+        assert torch.equal(out_k[0], out_p[0]) and torch.equal(out_k[1], out_p[1])
+    else:
+        assert torch.equal(out_k, out_p)
 
 
 def test_corrected_gnn_launch_errors_raise():

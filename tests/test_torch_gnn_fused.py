@@ -105,7 +105,8 @@ def test_argument_errors():
         tfg.make_fused_corrected_gnn_decoder(qt, [1, 2], device="cpu", **kw)
     # the plan of shared memory: main-path shapes fit one block, as the source says
     qc32 = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
-    assert tfg.corrected_smem_bytes("corrected_v2", qc32, 64) == 4 * 44324
+    # corrected_v2 (csrc/fused_gnn_tc.cu): a frame's state and six padded bf16 matrices
+    assert tfg.corrected_smem_bytes("corrected_v2", qc32, 64, True) == 104_208 + 6 * 64 * 72 * 2
     assert tfg.corrected_smem_bytes("corrected", qc32, 64) == 4 * 50404
     assert tfg.corrected_scratch_floats(qc32, 64) == (2 * 52 + 42) * 64 * 32
 

@@ -60,12 +60,15 @@ def _exact_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     products is exact in any order: per output, the products' magnitudes
     add up to less than 2**24 times the least quantum of its nonzero
     products (an a-quantum times a w-quantum)."""
-    qa = _quanta(a).reshape(-1, a.shape[-1])
-    qw = _quanta(w)
+    # log2 of the quanta: exact integers (inf for zeros), summed per product
+    la = torch.log2(_quanta(a).reshape(-1, a.shape[-1])).float()
+    lw = torch.log2(_quanta(w)).float()
     bound = (a.double().abs() @ w.double().abs().t()).reshape(-1, w.shape[0])
-    for j in range(w.shape[0]):
-        q = (qa * qw[j]).amin(dim=1)  # inf where a row meets no nonzero weight
-        assert bool((bound[:, j] < 2.0 ** 24 * q).all()), f"output {j}: a product is not exact"
+    rows = max(1, 2 ** 22 // lw.numel())
+    for i in range(0, la.shape[0], rows):
+        # least quantum of each output's products; inf where a row meets no nonzero weight
+        q = torch.pow(2.0, (la[i:i + rows, None, :] + lw[None]).amin(dim=2).double())
+        assert bool((bound[i:i + rows] < 2.0 ** 24 * q).all()), "a product is not exact"
     return a @ w.t()
 
 
