@@ -7,7 +7,8 @@ Phases, one JSON line each:
 1. device  — the card's name and power limit (nvidia-smi); no card: exit 1.
 2. build   — compile every CUDA source of the port with nvcc (sm_90a), one
              process per source, all started together; the
-             main-path kernels' resident blocks per SM from the runtime;
+             main-path kernels' resident blocks per SM from the runtime
+             (retire_zlane's with its parts at Z=384), registers per kernel;
              the tensor-core kernels' (msg_gnn_v2, corrected_v2) block
              shapes (their occupancy plans) and registers a thread, and the
              HMMA (tensor-core) instructions of each of their kernels in
@@ -17,8 +18,10 @@ Phases, one JSON line each:
              throughput mode, early exit}: make_fused_minsum (min-sum
              flooding on fused_retire, the rest on fused) at toy_4x8 Z=4,
              nr_2_0_4 Z=4 and nr_2_0_32 Z=24, 32 and 64 (batches that are not
-             a multiple of the block's frames), fused_zlane at nr_2_0_32
-             Z=384; fused_retire also at -2, 1 and 6 dB and on quantised LLRs
+             a multiple of the block's frames), make_fused_minsum_zlane
+             (min-sum flooding on retire_zlane, the rest on fused_zlane) at
+             nr_2_0_32 Z=384; fused_retire at Z=32 and retire_zlane at Z=384
+             and Z=256 also at -2, 1 and 6 dB and on quantised LLRs
              with ties and exact zeros (-0.0 among them); min-sum flooding
              on a code with a row of 31 members (the fused kernel's: wider
              than fused_retire takes); plus the serving path against the
@@ -38,8 +41,23 @@ Phases, one JSON line each:
 4b. layered — the layered min-sum serving path (the fused kernel's) on the
              main path's batch: launch counts, whole batch against the plain
              version, time and bound.
-5. z384    — the large-Z path: auto resolves to fused_zlane, batch 512,
-             the whole batch held against the plain version.
+5. z384    — bench.py section_z384: nr_2_0_32 Z=384, batch 512, 20
+             iterations, 3 dB, no early stop, through
+             MinSumScaledDecoder(backend="auto") (fused_zlane, whose
+             min-sum flooding runs on retire_zlane) and
+             make_fused_minsum_zlane: retire_zlane launched, no other kernel;
+             the whole batch identical to the plain version, 0 bit errors,
+             mean conv_iter printed.  Timed in five rounds beside its
+             throughput mode and the kernel it replaced (fused_zlane through
+             _launch_zlane, output identical), median and every round
+             printed; traced once in a process of its own (trace_z384).
+             What bounds it (split_probe): retire_zlane with one part (half
+             the warps a frame), and at Z=240, where a whole frame fits a
+             block, fused_retire beside retire_zlane (one frame per SM
+             either way), outputs identical.
+5b. z384_layered — fused_zlane's own path: layered min-sum at Z=384 on the
+             same batch (server and builder, launch counts), the whole
+             batch against the plain version, time and bound.
 6. gnn_compare — the corrected-GNN kernels (corrected_v2, corrected)
              against their plain versions on perturbed seeded parameters:
              {input injection on, off} x {fixed T, early exit with
@@ -222,6 +240,55 @@ def trace_split(fn, name: str) -> dict:
             "kernels": kernels}
 
 
+# bench.py section_z384 (bench.py:383-405): nr_2_0_32 Z=384, batch 512, 3 dB.
+Z384 = dict(B=512, SNR=3.0, llr_seed=3)
+
+
+def trace_z384() -> dict:
+    """One retire_zlane decode of the z384 batch under the profiler."""
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+    from ldpc_tpu_torch.ops import fused_minsum as fm
+
+    qc = qc_layout(get_base_graph("nr_2_0_32"), 384)
+    llr = llrs(qc.num_vars, Z384["B"], Z384["SNR"], seed=Z384["llr_seed"])
+    dec = fm.make_fused_minsum_zlane(qc, 20, 0.75)
+    dec(llr)  # warm-up: the plan and the first launch
+    return {"phase": "trace_z384", "kernel": "retire_zlane", "batch": Z384["B"],
+            **trace_split(lambda: dec(llr), "z384")}
+
+
+def split_probe(zdec, llr384: torch.Tensor, iterations: int) -> dict:
+    """What bounds retire_zlane: its time at Z=384 with one part (half the
+    warps a frame), and at Z=240, where a whole frame still fits a block
+    (one frame of 32 warps per SM either way), fused_retire (state words
+    and LLRs in shared memory) beside retire_zlane (state words in the L2
+    slice, LLRs from the input rows) on one batch, tracked and in
+    throughput mode; outputs identical."""
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+    from ldpc_tpu_torch.ops import fused_minsum as fm
+
+    out = {"z384_parts": {p: cuda_ms(lambda p=p: zdec._launch_retire(llr384, parts=p), reps=5)[0]
+                          for p in fm.retire_zlane_plans(zdec.qc)}}
+    qc = qc_layout(get_base_graph("nr_2_0_32"), 240)
+    llr = llrs(qc.num_vars, 1056, 3.0, seed=5)
+    for track in (True, False):
+        # make_fused_minsum refuses Z=240 (the fused kernel's frame does not
+        # fit), so the fused_retire decoder is built directly.
+        whole = fm.FusedDecoder("fused", qc, iterations, 0.75, 1, "minsum", track, False,
+                                "flooding", llr.device)
+        split = fm.make_fused_minsum_zlane(qc, iterations, 0.75, track_convergence=track)
+        assert (whole.route, split.route) == ("fused_retire", "retire_zlane")
+        a, b = whole(llr), split(llr)
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError("fused_retire and retire_zlane differ at Z=240")
+        out[f"z240_B1056_{'tracked' if track else 'throughput_mode'}"] = {
+            "plans": {"fused_retire": fm.retire_plan(qc, track)[:2],
+                      "retire_zlane": fm.retire_zlane_plan(qc, track)[:1]},
+            "fused_retire_ms": cuda_ms(lambda: whole(llr), reps=5)[0],
+            "retire_zlane_ms": cuda_ms(lambda: split(llr), reps=5)[0]}
+    return out
+
+
 def wide_row_code():
     """A (4, 32) base graph at Z=4 whose first row has 31 members, more than
     fused_retire's state word holds signs of."""
@@ -279,7 +346,7 @@ def classical_phases(lib, smi: str) -> list[dict]:
     # flooding schedule runs on fused_retire, sum-product and layered on fused.
     flags = [(m, s, tr, ee) for m in ("minsum", "sumproduct") for s in ("flooding", "layered")
              for tr, ee in ((True, False), (False, False), (True, True))]
-    max_err = {"fused_retire": 0.0, "fused": 0.0, "fused_zlane": 0.0}
+    max_err = {name: 0.0 for name in fm.LAUNCHES}
     cases = [("fused", "toy_4x8", 4, 23, None, 0.5),
              ("fused", "nr_2_0_4", 4, 37, None, 1.0),
              ("fused", "nr_2_0_32", 24, 41, None, 1.5),
@@ -298,28 +365,36 @@ def classical_phases(lib, smi: str) -> list[dict]:
                     fm.retire_smem_bytes(qc, parts, frames)
         else:
             assert lib.ldpc_zlane_smem_bytes(*dims) == fm.zlane_smem_bytes(qc)
+            for parts in fm.retire_zlane_plans(qc):
+                assert rlib.ldpc_retire_zlane_smem_bytes(*dims, parts) == \
+                    fm.retire_zlane_smem_bytes(qc, parts)
         llr = llrs(qc.num_vars, B, snr, seed=Z)
         build = fm.make_fused_minsum if kind_ == "fused" else fm.make_fused_minsum_zlane
         for mode, sched, tr, ee in flags:
             dec = build(qc, 20, 0.75, batch_tile=bt, mode=mode, track_convergence=tr,
                         early_exit=ee, schedule=sched)
-            name = "fused_retire" if kind_ == "fused" and dec.retire else kind_
-            label = f"{name} {code} Z={Z} B={B} {mode} {sched} track={tr} early_exit={ee}"
-            max_err[name] = max(max_err[name], compare(dec, llr, label))
-    # fused_retire on batches that hold frames that never converge (-2 dB),
-    # converge at iteration 1 (6 dB) and a mix, and on quantised LLRs with
-    # ties (m1 == m2) and exact zeros, -0.0 among them (sign(0) = +1).
+            label = f"{dec.route} {code} Z={Z} B={B} {mode} {sched} track={tr} early_exit={ee}"
+            max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
+    # fused_retire (Z=32) and retire_zlane (Z=384; Z=256, a power of two) on
+    # batches that hold frames that never converge (-2 dB), converge at
+    # iteration 1 (6 dB) and a mix, and on quantised LLRs with ties
+    # (m1 == m2) and exact zeros, -0.0 among them (sign(0) = +1).
     qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
-    for snr, step in ((-2.0, None), (1.0, None), (6.0, None), (1.0, 1.0)):
-        llr = llrs(qc32.num_vars, 1003, snr, seed=7)
-        if step:
-            llr = torch.round(llr / step) * step
-            llr[::5, ::7] = -0.0
-        for tr, ee in ((True, False), (False, False), (True, True)):
-            dec = fm.make_fused_minsum(qc32, 20, 0.75, track_convergence=tr, early_exit=ee)
-            label = f"fused_retire nr_2_0_32 Z=32 B=1003 {snr} dB quantised={step} " \
-                    f"track={tr} early_exit={ee}"
-            max_err["fused_retire"] = max(max_err["fused_retire"], compare(dec, llr, label))
+    hard = [(fm.make_fused_minsum, qc32, 1003)] + [
+        (fm.make_fused_minsum_zlane, qc_layout(get_base_graph("nr_2_0_32"), Z), 301)
+        for Z in (384, 256)]
+    for build, qc, B in hard:
+        for snr, step in ((-2.0, None), (1.0, None), (6.0, None), (1.0, 1.0)):
+            llr = llrs(qc.num_vars, B, snr, seed=7)
+            if step:
+                llr = torch.round(llr / step) * step
+                llr[::5, ::7] = -0.0
+            for tr, ee in ((True, False), (False, False), (True, True)):
+                dec = build(qc, 20, 0.75, track_convergence=tr, early_exit=ee)
+                assert dec.retire
+                label = f"{dec.route} nr_2_0_32 Z={qc.Z} B={B} {snr} dB quantised={step} " \
+                        f"track={tr} early_exit={ee}"
+                max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
     # Min-sum flooding on a code whose rows are wider than fused_retire
     # takes runs on the fused kernel.
     qcw = wide_row_code()
@@ -358,8 +433,9 @@ def classical_phases(lib, smi: str) -> list[dict]:
     bits, conv = fused(llr)
     torch.cuda.synchronize()
     launches_main = dict(fm.LAUNCHES)
-    if launches_main["fused_retire"] < 3 or launches_main["fused"] or launches_main["fused_zlane"]:
-        raise AssertionError(f"main path did not run the fused_retire kernel: {launches_main}")
+    if launches_main["fused_retire"] < 3 or \
+            sum(launches_main.values()) != launches_main["fused_retire"]:
+        raise AssertionError(f"main path did not run fused_retire alone: {launches_main}")
     assert bits.shape == (B, n) and conv.shape == (B,) and conv.dtype == torch.int32
     assert bool(torch.equal(bits, bits_s)) and iters == ITERS
     assert bool(torch.equal(bits, bits_e)) and iters_e == int(conv.max())
@@ -422,8 +498,8 @@ def classical_phases(lib, smi: str) -> list[dict]:
     bits_ld, conv_l = lay_dec(llr)
     torch.cuda.synchronize()
     launches_lay = dict(fm.LAUNCHES)
-    if launches_lay["fused"] < 2 or launches_lay["fused_retire"]:
-        raise AssertionError(f"layered path did not run the fused kernel: {launches_lay}")
+    if launches_lay["fused"] < 2 or sum(launches_lay.values()) != launches_lay["fused"]:
+        raise AssertionError(f"layered path did not run the fused kernel alone: {launches_lay}")
     assert bool(torch.equal(bits_l, bits_ld)) and int(bits_l.sum().item()) == 0
     ms_lay, _ = cuda_ms(lambda: lay_dec(llr), reps=3)
     plain_ms_lay, plain_out = cuda_ms(lambda: lay_dec.plain(llr), reps=1)
@@ -435,39 +511,97 @@ def classical_phases(lib, smi: str) -> list[dict]:
           "bound_ms": bms_lay, "bound_by": bby_lay, "plain_ms": plain_ms_lay,
           "mean_conv_iter": float(conv_l.float().mean().item()), "nvidia_smi": smi})
 
-    # 5. Z=384 path: auto resolves to fused_zlane
-    B384 = 512
+    # 5. Z=384 path (bench.py section_z384): auto resolves to fused_zlane,
+    # whose min-sum flooding runs on retire_zlane
+    B384 = Z384["B"]
     qc384 = qc_layout(get_base_graph("nr_2_0_32"), 384)
     assert _resolve_backend("auto", qc384) == "fused_zlane"
     n384 = qc384.num_vars
-    llr384 = llrs(n384, B384, 3.0, seed=3)
+    llr384 = llrs(n384, B384, Z384["SNR"], seed=Z384["llr_seed"])
     server384 = MinSumScaledDecoder(qc384, ITERS, 0.75, early_stopping=False, backend="auto")
     zfused = fm.make_fused_minsum_zlane(qc384, ITERS, 0.75)
+    zthr = fm.make_fused_minsum_zlane(qc384, ITERS, 0.75, track_convergence=False)
+    assert zfused.route == zthr.route == "retire_zlane"
     for key in fm.LAUNCHES:
         fm.LAUNCHES[key] = 0
     bits_s, _ = server384.decode(llr384)
     bits, conv = zfused(llr384)
     torch.cuda.synchronize()
     launches_z = dict(fm.LAUNCHES)
-    if launches_z["fused_zlane"] < 2:
-        raise AssertionError(f"Z=384 path did not run the zlane kernel: {launches_z}")
+    if launches_z["retire_zlane"] < 2 or sum(launches_z.values()) != launches_z["retire_zlane"]:
+        raise AssertionError(f"Z=384 path did not run the retire_zlane kernel alone: {launches_z}")
     assert bits.shape == (B384, n384) and bool(torch.equal(bits, bits_s))
     bit_errors384 = int(bits.sum().item())
+    frame_errors384 = int((bits.sum(dim=1) > 0).sum().item())
     mean_conv384 = float(conv.float().mean().item())
-    if bit_errors384 > B384 * n384 * 1e-6 or not 2.0 <= mean_conv384 <= 6.0:
+    if bit_errors384 or not 2.0 <= mean_conv384 <= 6.0:
         raise AssertionError(f"Z=384 path decodes wrongly: {bit_errors384} bit errors, "
                              f"mean conv_iter {mean_conv384}")
-    ms384, _ = cuda_ms(lambda: zfused(llr384), reps=5)
     plain_ms384, plain_out = cuda_ms(lambda: zfused.plain(llr384), reps=1)
-    err_z = compare(zfused, llr384, f"fused_zlane main path Z=384 B={B384}", plain_out)
+    err_z = compare(zfused, llr384, f"retire_zlane z384 B={B384}", plain_out)
     del plain_out
+    err_z = max(err_z, compare(zthr, llr384, f"retire_zlane z384 B={B384} throughput mode"))
+    settle = time.perf_counter() + 1.0
+    while time.perf_counter() < settle:
+        zfused(llr384)
+        torch.cuda.synchronize()
+    # The kernel, its throughput mode and the kernel it replaced on the same
+    # batch, interleaved in rounds.
+    z_runs = {"tracked": (lambda: zfused(llr384), 10),
+              "throughput_mode": (lambda: zthr(llr384), 5),
+              "replaced_fused_zlane": (lambda: zfused._launch_zlane(llr384), 3)}
+    z_rounds = {name: [] for name in z_runs}
+    for _ in range(5):
+        for name, (fn, reps) in z_runs.items():
+            t, out = cuda_ms(fn, reps=reps)
+            z_rounds[name].append(t)
+            if name == "replaced_fused_zlane" and not (torch.equal(out[0], bits)
+                                                       and torch.equal(out[1], conv)):
+                raise AssertionError("the replaced fused_zlane kernel's output differs")
+    z_median = {name: sorted(r)[len(r) // 2] for name, r in z_rounds.items()}
+    ms384 = z_median["tracked"]
     bms384, bby384 = bound_ms(qc384, conv)
+    z_occupancy = dict(zip(("parts", "blocks_per_sm"), fm.retire_zlane_plan(qc384, True)))
+    z_occupancy["warps_per_block"] = fm.retire_threads(qc384, z_occupancy["parts"], 1) // 32
+    z_occupancy["smem_bytes"] = fm.retire_zlane_smem_bytes(qc384, z_occupancy["parts"])
+    z_occupancy["scratch_bytes_per_block"] = fm.retire_zlane_scratch_bytes(qc384)
+    z_probe = split_probe(zfused, llr384, ITERS)
+    emit(trace_in_child("z384"))
     emit({"phase": "z384", "code": "nr_2_0_32", "Z": 384, "batch": B384, "iterations": ITERS,
-          "snr_db": 3.0, "backend": "fused_zlane", "launches": launches_z,
+          "snr_db": Z384["SNR"], "backend": "retire_zlane", "launches": launches_z,
           "bits_per_s": decode_throughput(B384, n384, ms384 / 1e3, name="z384"),
           "ms_per_batch": ms384, "plain_ms": plain_ms384, "bound_ms": bms384,
-          "bound_by": bby384, "bit_errors": bit_errors384, "mean_conv_iter": mean_conv384,
-          "nvidia_smi": smi})
+          "bound_by": bby384,
+          "variants_ms": {name: z_median[name]
+                          for name in ("throughput_mode", "replaced_fused_zlane")},
+          "speedup_over_replaced": z_median["replaced_fused_zlane"] / ms384,
+          "rounds_ms": z_rounds, "occupancy": z_occupancy, "split_probe": z_probe,
+          "bit_errors": bit_errors384,
+          "frame_errors": frame_errors384, "mean_conv_iter": mean_conv384, "nvidia_smi": smi})
+
+    # 5b. fused_zlane's own path: layered min-sum at Z=384, same batch
+    zlay_server = MinSumScaledDecoder(qc384, ITERS, 0.75, early_stopping=False, backend="auto",
+                                      schedule="layered")
+    zlay = fm.make_fused_minsum_zlane(qc384, ITERS, 0.75, schedule="layered")
+    for key in fm.LAUNCHES:
+        fm.LAUNCHES[key] = 0
+    bits_zl, _ = zlay_server.decode(llr384)
+    bits_zld, conv_zl = zlay(llr384)
+    torch.cuda.synchronize()
+    launches_zl = dict(fm.LAUNCHES)
+    if launches_zl["fused_zlane"] < 2 or sum(launches_zl.values()) != launches_zl["fused_zlane"]:
+        raise AssertionError(f"Z=384 layered path did not run fused_zlane alone: {launches_zl}")
+    assert bool(torch.equal(bits_zl, bits_zld)) and int(bits_zl.sum().item()) == 0
+    ms_zl, _ = cuda_ms(lambda: zlay(llr384), reps=3)
+    plain_ms_zl, plain_out = cuda_ms(lambda: zlay.plain(llr384), reps=1)
+    err_zl = compare(zlay, llr384, f"fused_zlane layered z384 B={B384}", plain_out)
+    del plain_out
+    bms_zl, bby_zl = bound_ms(qc384, conv_zl, layered=True)
+    emit({"phase": "z384_layered", "code": "nr_2_0_32", "Z": 384, "batch": B384,
+          "iterations": ITERS, "snr_db": Z384["SNR"], "backend": "fused_zlane",
+          "launches": launches_zl, "ms_per_batch": ms_zl, "bound_ms": bms_zl,
+          "bound_by": bby_zl, "plain_ms": plain_ms_zl,
+          "mean_conv_iter": float(conv_zl.float().mean().item()), "nvidia_smi": smi})
 
     src = "ldpc_tpu_torch/ops/csrc/fused_minsum.cu"
     return [
@@ -480,11 +614,16 @@ def classical_phases(lib, smi: str) -> list[dict]:
          "replaces": "ldpc_tpu/ops/pallas_minsum.py:143", "launches": launches_lay["fused"],
          "max_abs_err": max(max_err["fused"], err_lay), "ms": ms_lay, "plain_ms": plain_ms_lay,
          "bound_ms": bms_lay, "bound_by": bby_lay, "library_ms": None},
+        {"name": "retire_zlane", "route": "cuda",
+         "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
+         "replaces": "ldpc_tpu/ops/pallas_minsum.py:399", "launches": launches_z["retire_zlane"],
+         "max_abs_err": max(max_err["retire_zlane"], err_z), "ms": ms384,
+         "plain_ms": plain_ms384, "bound_ms": bms384, "bound_by": bby384, "library_ms": None},
         {"name": "fused_zlane", "route": "cuda", "source": src,
          "replaces": "ldpc_tpu/ops/pallas_minsum.py:399",
-         "launches": launches_z["fused_zlane"],
-         "max_abs_err": max(max_err["fused_zlane"], err_z), "ms": ms384,
-         "plain_ms": plain_ms384, "bound_ms": bms384, "bound_by": bby384,
+         "launches": launches_zl["fused_zlane"],
+         "max_abs_err": max(max_err["fused_zlane"], err_zl), "ms": ms_zl,
+         "plain_ms": plain_ms_zl, "bound_ms": bms_zl, "bound_by": bby_zl,
          "library_ms": None},
     ]
 
@@ -1207,7 +1346,7 @@ def trace_msg_gnn() -> dict:
 
 
 def trace_in_child(name: str) -> dict:
-    """trace_gnn or trace_msg_gnn in a process of its own: a second
+    """trace_z384, trace_gnn or trace_msg_gnn in a process of its own: a second
     torch.profiler session in one process (after trace_main) recorded no
     kernel on the card.  The child loads the libraries this process built."""
     out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trace", name],
@@ -1500,14 +1639,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["classical", "gnn", "nms", "msg_gnn", "tools"],
                     default=None)
-    ap.add_argument("--trace", choices=["gnn", "msg_gnn"], help=argparse.SUPPRESS)
+    ap.add_argument("--trace", choices=["z384", "gnn", "msg_gnn"], help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = args.only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
     if args.trace is not None:  # the child of trace_in_child
-        emit(trace_gnn() if args.trace == "gnn" else trace_msg_gnn())
+        emit({"z384": trace_z384, "gnn": trace_gnn, "msg_gnn": trace_msg_gnn}[args.trace]())
         return 0
 
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
@@ -1549,6 +1688,8 @@ def main(argv=None) -> int:
                 *dims, 10, 2, fpb, int(shared))
         else:
             occupancy[f"fused_zlane Z={Z}"] = lib.ldpc_zlane_occupancy(*dims, 0, 0)
+            parts, per_sm = fm.retire_zlane_plan(qc, True)
+            occupancy[f"retire_zlane Z={Z} parts={parts}"] = per_sm
     if min(occupancy.values()) < 1:
         raise AssertionError(f"a main-path kernel cannot be resident: {occupancy}")
     qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)

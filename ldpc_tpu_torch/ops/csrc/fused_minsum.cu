@@ -4,10 +4,11 @@
 // Replaces the TPU kernels of ldpc_tpu/ops/pallas_minsum.py:
 //   * fused_minsum_kernel  <- _kernel        (make_fused_minsum, make_fused_bp)
 //   * zlane_minsum_kernel  <- _kernel_zlane  (make_fused_minsum_zlane)
-// fused_minsum_kernel runs scaled min-sum with the flooding schedule only
-// on codes with rows of more than 27 members: the wrapper sends the rest to
-// retire_minsum_kernel (fused_retire.cu), which took its place on the main
-// path.  The note below is this file's.
+// Neither runs scaled min-sum with the flooding schedule on the codes
+// fused_retire.cu takes (rows of at most 27 members): the wrapper sends
+// those to retire_minsum_kernel (the main path) and, at large Z, to
+// retire_zlane_kernel (bench.py's z384 section), which took their place.
+// The note below is this file's.
 // Python wrappers, and the plain PyTorch version both kernels are held
 // against: ldpc_tpu_torch/ops/fused_minsum.py.
 //

@@ -3,14 +3,22 @@
 // read off the next check pass, and frames that leave the kernel the
 // iteration they converge.
 //
-// Replaces, for mode "minsum" and schedule "flooding" (the bench.py headline
-// and the port's main path), the TPU kernel of ldpc_tpu/ops/pallas_minsum.py:
-//   * retire_minsum_kernel<TRACK, POW2>  <- _kernel (make_fused_minsum),
-//                                           entry point ldpc_retire_minsum
-// It took the place of fused_minsum_kernel (fused_minsum.cu) on that path;
-// sum-product, the layered schedule, large Z and codes with rows of more
-// than 27 members (the wrapper's retire_kernel_fits) stay there.  Python wrapper
-// and the plain PyTorch version it is held against (fused_decode_plain):
+// Replaces, for mode "minsum" and schedule "flooding", the TPU kernels of
+// ldpc_tpu/ops/pallas_minsum.py:
+//   * retire_minsum_kernel<TRACK, POW2>  <- _kernel (make_fused_minsum), the
+//                                           bench.py headline and the port's
+//                                           main path; entry ldpc_retire_minsum
+//   * retire_zlane_kernel<TRACK, POW2>   <- _kernel_zlane
+//                                           (make_fused_minsum_zlane), large Z
+//                                           (bench.py's z384 section); entry
+//                                           ldpc_retire_zlane
+// They took the place of fused_minsum_kernel and zlane_minsum_kernel
+// (fused_minsum.cu) on that path; sum-product, the layered schedule and codes
+// with rows of more than 27 members (the wrapper's retire_kernel_fits and
+// retire_zlane_fits) stay there.  Both kernels run one algorithm, the device
+// functions check_pass and column_pass on one frame loop (decode_frames); they
+// differ only in where a frame's state lives.  Python wrapper and the plain
+// PyTorch version both are held against (fused_decode_plain):
 // ldpc_tpu_torch/ops/fused_minsum.py.  A numpy model of this source's
 // algorithm on the wrapper's structure tables: tests/test_torch_minsum_retire.py.
 //
@@ -36,7 +44,8 @@
 // second (no FMA), int32 at 16.75e12.  A frame needs conv_iter iterations:
 // later ones change neither its bits nor conv_iter.  Main path (nr_2_0_32
 // Z=32, B=65536, 3 dB, mean conv_iter 3.014): 0.476 ms of operations against
-// 0.26 ms of bytes (LLRs read, bits written once).
+// 0.26 ms of bytes (LLRs read, bits written once).  z384 (nr_2_0_32 Z=384,
+// B=512, 3 dB, mean conv_iter 3.32): 0.049 ms of operations.
 //
 // What the design does about it
 // -----------------------------
@@ -53,7 +62,7 @@
 //    alpha * sp * sign * loo is +-(alpha * loo), since products of +-1 do not
 //    round, and at a tie (m1 == m2) every tied member's loo is the same.  So
 //    the check pass reads each member's belief once and writes 12 bytes a
-//    check, where the replaced kernel read belief and c2v twice per edge
+//    check, where the replaced kernels read belief and c2v twice per edge
 //    and wrote c2v per edge.
 // 3. Syndrome folded into the check pass.  Iteration t's check pass reads
 //    the beliefs of iteration t - 1 before the column pass overwrites them,
@@ -81,19 +90,36 @@
 //    __syncwarp for a group of one warp); groups of a block share only the
 //    structure.  The wrapper picks parts (up to 4) and frames per block by
 //    the runtime's occupancy query.
+// 6. Large Z (retire_zlane_kernel).  A whole frame, 4 (2 C*Z + 3 R*Z)
+//    bytes, is 353 KB at Z=384, over the 227 KB a block can use.  So one
+//    frame group a block keeps in shared memory the beliefs (C*Z floats) and
+//    A (R*Z float2), which the column pass reads per edge (8 bytes) and the
+//    check pass per member; the state words W (R*Z, 4 bytes per edge in the
+//    column pass) live in the block's slice of a global scratch, 64.5 KB at
+//    Z=384, which stays in L2 (132 slices, 8.5 MB); the column pass reads
+//    the LLRs from the frame's input row.  L2 sees about 0.5 MB a frame and
+//    iteration, where the replaced kernel moved about 1.2 MB of c2v floats
+//    through a 303 KB slice a frame (80 MB in flight, over the 50 MB L2).
 //
 // Shared memory: the structure (6K + R + C + 2 ints and two part tables,
-// 5.0 KB for NR BG2) once a block, and per frame the beliefs and the LLRs
-// (C*Z floats each) and the check state (3 R*Z words): 4 (2 C*Z + 3 R*Z)
-// bytes, 29,440 at NR BG2 Z=32.  Main path: 7 frames of 4 parts (28 warps,
-// 896 threads) in one block per SM, 57-62 registers a thread (ptxas), no
-// spills.  A row may have at most 27 members (NR rows have at most 19).
+// 5.0 KB for NR BG2) once a block, and per frame of retire_minsum_kernel the
+// beliefs and the LLRs (C*Z floats each) and the check state (3 R*Z words):
+// 4 (2 C*Z + 3 R*Z) bytes, 29,440 at NR BG2 Z=32.  Main path: 7 frames of 4
+// parts (28 warps, 896 threads) in one block per SM, 57-62 registers a
+// thread (ptxas), no spills.  retire_zlane_kernel: 4 (C*Z + 2 R*Z) bytes of
+// frame state, 208,896 at Z=384 (2 parts: 24 warps, one block per SM).  A
+// row may have at most 27 members (NR rows have at most 19).
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): main path
 // about 3.2 ms per batch of 65536, throughput mode 16.2 ms; the kernel it
 // replaced took 48.6 and 34.2 ms on the same card and batch.  Most
 // instructions of both passes are compares, selects, min/max and logic
-// (cuobjdump -sass of the built library).
+// (cuobjdump -sass of the built library).  z384: about 0.60 ms per batch
+// of 512 (58 registers, 24 warps a block, one block per SM), throughput
+// mode 2.7 ms, where zlane_minsum_kernel took 6.95 ms.  What sets its pace
+// is the warps a frame: with one part (12 warps) it takes 1.55x as long;
+// the L2 slice costs 7-13% against shared memory at Z=240, where both
+// layouts fit one frame of 32 warps per SM (chip_smoke.py split_probe).
 
 #include <cuda_runtime.h>
 
@@ -248,22 +274,9 @@ __device__ __forceinline__ float column_pass(const Structure& s, const float* ll
   return llr[c * Z + z] + cs;
 }
 
-// A frame group of `parts` * ceil(Z / 32) warps decodes frames from the
-// counter until the batch is done.  Warp w of a group covers lanes
-// z = 32 * (w % zw) + lane (zw = ceil(Z / 32) warps span Z) and part
-// w / zw: the rows and columns between row_part / col_part [part] and
-// [part + 1].  Thread (z, part) owns lifted checks (r, z) and variables
-// (c, z) of its part's rows and columns.
-template <bool TRACK, bool POW2>
-__global__ void __launch_bounds__(kMaxThreads)
-retire_minsum_kernel(const float* __restrict__ llr, float* __restrict__ bits,
-                     int* __restrict__ conv, int* __restrict__ next_frame,
-                     const int* __restrict__ structure, int B, int Z, int R, int C, int K,
-                     int max_iterations, float alpha, int parts) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_frame[kMaxGroups];
-  int* s_struct = reinterpret_cast<int*>(smem);
-  const int sw = structure_words(R, C, K, parts);
+// The structure, copied into shared memory at s_struct; ends with a barrier.
+__device__ __forceinline__ Structure load_structure(int* s_struct, const int* __restrict__ structure,
+                                                    int R, int C, int K, int parts) {
   for (int i = threadIdx.x; i < 6 * K + R + C + 2 + 2 * (parts + 1); i += blockDim.x)
     s_struct[i] = structure[i];
   Structure s;
@@ -274,56 +287,86 @@ retire_minsum_kernel(const float* __restrict__ llr, float* __restrict__ bits,
   s.row_part = s.col_ptr + C + 1;
   s.col_part = s.row_part + parts + 1;
   __syncthreads();
+  return s;
+}
 
-  const int n = C * Z, RZ = R * Z;
+// What a thread works on.  A frame group is `parts` * ceil(Z / 32) warps;
+// warp w of group g covers lanes z = 32 * (w % zw) + lane (zw = ceil(Z / 32)
+// warps span Z) and part w / zw: the rows and columns between
+// row_part / col_part [part] and [part + 1].  Thread (z, part) owns lifted
+// checks (r, z) and variables (c, z) of its part's rows and columns.
+struct Lanes {
+  Group grp;
+  int g, gi;  // the group, and the thread's index within it
+  int z, r0, r1, c0, c1;
+  bool active;
+};
+
+__device__ __forceinline__ Lanes lanes_of(const Structure& s, int Z, int parts) {
   const int zw = (Z + 31) / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gwarps = zw * parts;
   const int g = warp / gwarps, wg = warp - g * gwarps;
-  const Group grp{g + 1, 32 * gwarps};
-  const int gi = 32 * wg + lane;  // thread index within the group
   const int part = wg / zw;
-  const int z = 32 * (wg - part * zw) + lane;
-  const bool active = z < Z;
-  const int r0 = s.row_part[part], r1 = s.row_part[part + 1];
-  const int c0 = s.col_part[part], c1 = s.col_part[part + 1];
-  float* bel = reinterpret_cast<float*>(s_struct + sw) + g * frame_words(Z, R, C);
-  float* L = bel + n;
-  float2* A = reinterpret_cast<float2*>(L + n);  // 8-byte aligned: 2n is even
-  unsigned* W = reinterpret_cast<unsigned*>(A + RZ);
+  Lanes t;
+  t.grp = Group{g + 1, 32 * gwarps};
+  t.g = g;
+  t.gi = 32 * wg + lane;
+  t.z = 32 * (wg - part * zw) + lane;
+  t.active = t.z < Z;
+  t.r0 = s.row_part[part];
+  t.r1 = s.row_part[part + 1];
+  t.c0 = s.col_part[part];
+  t.c1 = s.col_part[part + 1];
+  return t;
+}
 
+// A frame group decodes frames from the counter until the batch is done.
+// bel and A are the group's, in shared memory; W is its state words, in
+// shared memory or in its block's slice of global scratch.  With STAGED a
+// frame's LLRs are copied into L (shared memory) and the column passes read
+// them there; without, they read them from the frame's input row.
+template <bool TRACK, bool POW2, bool STAGED>
+__device__ __forceinline__ void decode_frames(const Structure& s, const Lanes& t, int* s_frame,
+                                              const float* __restrict__ llr, float* bits, int* conv,
+                                              int* next_frame, float* bel, float* L, float2* A,
+                                              unsigned* W, int B, int Z, int R, int C,
+                                              int max_iterations, float alpha) {
+  const int n = C * Z, RZ = R * Z;
+  const Group& grp = t.grp;
   for (;;) {
     int f;
     if (grp.threads == 32) {
-      f = lane == 0 ? atomicAdd(next_frame, 1) : 0;
+      f = t.gi == 0 ? atomicAdd(next_frame, 1) : 0;
       f = __shfl_sync(0xffffffffu, f, 0);
     } else {
-      if (gi == 0) s_frame[g] = atomicAdd(next_frame, 1);
+      if (t.gi == 0) *s_frame = atomicAdd(next_frame, 1);
       grp.sync();
-      f = s_frame[g];
+      f = *s_frame;
     }
     if (f >= B) break;
     const float* src = llr + static_cast<size_t>(f) * n;
-    for (int i = gi; i < n; i += grp.threads) {
+    for (int i = t.gi; i < n; i += grp.threads) {
       const float x = src[i];
       bel[i] = x + 0.0f;  // -0.0 -> +0.0; the same decisions and v2c
-      L[i] = x;
+      if (STAGED) L[i] = x;
     }
-    for (int i = gi; i < RZ; i += grp.threads) {
+    for (int i = t.gi; i < RZ; i += grp.threads) {
       A[i] = make_float2(0.0f, 0.0f);
       W[i] = 0u;
     }
     grp.sync();
+    const float* lf = STAGED ? L : src;
 
-    int t = 0;
+    int it = 0;
     bool converged = false;
-    for (; t < max_iterations; ++t) {
+    for (; it < max_iterations; ++it) {
       unsigned parity = 0u;
-      if (active)
-        for (int r = r0; r < r1; ++r)
-          parity |= check_pass<TRACK, POW2>(s, bel, A, W, r, z, Z, alpha);
-      if (TRACK && t > 0) {
-        // The beliefs of iteration t - 1 satisfy every check: conv_iter = t.
+      if (t.active)
+        for (int r = t.r0; r < t.r1; ++r)
+          parity |= check_pass<TRACK, POW2>(s, bel, A, W, r, t.z, Z, alpha);
+      if (TRACK && it > 0) {
+        // The beliefs of iteration it - 1 satisfy every check: conv_iter = it.
         if (!grp.sync_or(parity >> 31)) {
           converged = true;
           break;
@@ -331,18 +374,67 @@ retire_minsum_kernel(const float* __restrict__ llr, float* __restrict__ bits,
       } else {
         grp.sync();
       }
-      if (active)
-        for (int c = c0; c < c1; ++c) bel[c * Z + z] = column_pass<POW2>(s, L, A, W, c, z, Z);
+      if (t.active)
+        for (int c = t.c0; c < t.c1; ++c)
+          bel[c * Z + t.z] = column_pass<POW2>(s, lf, A, W, c, t.z, Z);
       grp.sync();
     }
-    if (gi == 0) conv[f] = converged ? t : max_iterations;
+    if (t.gi == 0) conv[f] = converged ? it : max_iterations;
     float* out = bits + static_cast<size_t>(f) * n;
-    for (int i = gi; i < n; i += grp.threads) out[i] = bel[i] < 0.0f ? 1.0f : 0.0f;
+    for (int i = t.gi; i < n; i += grp.threads) out[i] = bel[i] < 0.0f ? 1.0f : 0.0f;
     grp.sync();  // the next frame's LLRs overwrite bel
   }
 }
 
+// Up to 15 frame groups a block; a group's beliefs, LLRs and state words in
+// shared memory.
+template <bool TRACK, bool POW2>
+__global__ void __launch_bounds__(kMaxThreads)
+retire_minsum_kernel(const float* __restrict__ llr, float* __restrict__ bits,
+                     int* __restrict__ conv, int* __restrict__ next_frame,
+                     const int* __restrict__ structure, int B, int Z, int R, int C, int K,
+                     int max_iterations, float alpha, int parts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_frame[kMaxGroups];
+  int* s_struct = reinterpret_cast<int*>(smem);
+  const Structure s = load_structure(s_struct, structure, R, C, K, parts);
+  const Lanes t = lanes_of(s, Z, parts);
+  const int n = C * Z;
+  float* bel = reinterpret_cast<float*>(s_struct + structure_words(R, C, K, parts)) +
+               t.g * frame_words(Z, R, C);
+  float* L = bel + n;
+  float2* A = reinterpret_cast<float2*>(L + n);  // 8-byte aligned: 2n is even
+  unsigned* W = reinterpret_cast<unsigned*>(A + R * Z);
+  decode_frames<TRACK, POW2, true>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel, L, A,
+                                   W, B, Z, R, C, max_iterations, alpha);
+}
+
+// One frame group a block, for Z where a whole frame exceeds shared memory:
+// beliefs and A in shared memory, the state words W in the block's slice
+// (R*Z words) of `scratch`, LLRs read from the input rows.  W is written by
+// the check pass and read by other threads of the group after a barrier,
+// so it is read with ordinary (coherent) loads: scratch is neither const
+// nor __restrict__, which keeps the compiler off the read-only path.
+template <bool TRACK, bool POW2>
+__global__ void __launch_bounds__(kMaxThreads)
+retire_zlane_kernel(const float* __restrict__ llr, float* __restrict__ bits,
+                    int* __restrict__ conv, int* __restrict__ next_frame, unsigned* scratch,
+                    const int* __restrict__ structure, int B, int Z, int R, int C, int K,
+                    int max_iterations, float alpha, int parts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_frame;
+  int* s_struct = reinterpret_cast<int*>(smem);
+  const Structure s = load_structure(s_struct, structure, R, C, K, parts);
+  const Lanes t = lanes_of(s, Z, parts);
+  float* bel = reinterpret_cast<float*>(s_struct + structure_words(R, C, K, parts));
+  float2* A = reinterpret_cast<float2*>(bel + C * Z);  // 8-byte aligned: Z is even
+  unsigned* W = scratch + static_cast<size_t>(blockIdx.x) * R * Z;
+  decode_frames<TRACK, POW2, false>(s, t, &s_frame, llr, bits, conv, next_frame, bel, nullptr, A,
+                                    W, B, Z, R, C, max_iterations, alpha);
+}
+
 using Kernel = decltype(&retire_minsum_kernel<true, true>);
+using ZlaneKernel = decltype(&retire_zlane_kernel<true, true>);
 
 Kernel pick_kernel(int track, int Z) {
   const bool pow2 = (Z & (Z - 1)) == 0;
@@ -350,30 +442,43 @@ Kernel pick_kernel(int track, int Z) {
                : (pow2 ? &retire_minsum_kernel<false, true> : &retire_minsum_kernel<false, false>);
 }
 
+ZlaneKernel pick_zlane_kernel(int track, int Z) {
+  const bool pow2 = (Z & (Z - 1)) == 0;
+  return track ? (pow2 ? &retire_zlane_kernel<true, true> : &retire_zlane_kernel<true, false>)
+               : (pow2 ? &retire_zlane_kernel<false, true> : &retire_zlane_kernel<false, false>);
+}
+
 long long retire_smem(int Z, int R, int C, int K, int parts, int frames) {
   return 4LL * (structure_words(R, C, K, parts) +
                 static_cast<long long>(frames) * frame_words(Z, R, C));
 }
 
+// Structure, beliefs (C*Z floats) and A (R*Z float2).
+long long zlane_smem(int Z, int R, int C, int K, int parts) {
+  return 4LL * (structure_words(R, C, K, parts) + static_cast<long long>(C + 2 * R) * Z);
+}
+
 int retire_threads(int Z, int parts, int frames) { return 32 * ((Z + 31) / 32) * parts * frames; }
 
-cudaError_t launch(int track, const float* llr, float* bits, int* conv, int* counter,
-                   const int* structure, int B, int Z, int R, int C, int K, int T, float alpha,
-                   int parts, int frames, int grid, cudaStream_t stream) {
-  const long long smem = retire_smem(Z, R, C, K, parts, frames);
-  const Kernel kernel = pick_kernel(track, Z);
+// Sets the kernel's dynamic shared memory; with `blocks`, also asks the
+// runtime how many blocks of `threads` can be resident on one SM.
+template <typename Fn>
+cudaError_t prepare(Fn kernel, long long smem, int threads, int* blocks) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, retire_threads(Z, parts, frames), smem, stream>>>(
-      llr, bits, conv, counter, structure, B, Z, R, C, K, T, alpha, parts);
-  return cudaGetLastError();
+  if (err == cudaSuccess && blocks != nullptr)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
+  return err;
 }
 
 bool valid_plan(int Z, int parts, int frames) {
   return parts >= 1 && frames >= 1 && frames <= kMaxGroups &&
          retire_threads(Z, parts, frames) <= kMaxThreads;
 }
+
+// Z even keeps A 8-byte aligned; the wrapper asks Z % 8 == 0, as the TPU
+// kernel does.
+bool valid_zlane_plan(int Z, int parts) { return Z % 8 == 0 && valid_plan(Z, parts, 1); }
 
 }  // namespace
 
@@ -387,28 +492,59 @@ int ldpc_retire_minsum(const void* llr, void* bits, void* conv, void* counter,
                        const void* structure, int B, int Z, int R, int C, int K, int T,
                        float alpha, int track, int parts, int frames, int grid, void* stream) {
   if (B < 1 || grid < 1 || !valid_plan(Z, parts, frames)) return cudaErrorInvalidValue;
-  return launch(
-      track, static_cast<const float*>(llr), static_cast<float*>(bits), static_cast<int*>(conv),
+  const long long smem = retire_smem(Z, R, C, K, parts, frames);
+  const Kernel kernel = pick_kernel(track, Z);
+  const int threads = retire_threads(Z, parts, frames);
+  cudaError_t err = prepare(kernel, smem, threads, nullptr);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(llr), static_cast<float*>(bits), static_cast<int*>(conv),
       static_cast<int*>(counter), static_cast<const int*>(structure), B, Z, R, C, K, T, alpha,
-      parts, frames, grid, static_cast<cudaStream_t>(stream));
+      parts);
+  return cudaGetLastError();
+}
+
+// As ldpc_retire_minsum, one frame group a block: `scratch` holds grid * R*Z
+// uint32 state words, one slice a block.
+int ldpc_retire_zlane(const void* llr, void* bits, void* conv, void* counter, void* scratch,
+                      const void* structure, int B, int Z, int R, int C, int K, int T,
+                      float alpha, int track, int parts, int grid, void* stream) {
+  if (B < 1 || grid < 1 || !valid_zlane_plan(Z, parts)) return cudaErrorInvalidValue;
+  const long long smem = zlane_smem(Z, R, C, K, parts);
+  const ZlaneKernel kernel = pick_zlane_kernel(track, Z);
+  const int threads = retire_threads(Z, parts, 1);
+  cudaError_t err = prepare(kernel, smem, threads, nullptr);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(llr), static_cast<float*>(bits), static_cast<int*>(conv),
+      static_cast<int*>(counter), static_cast<unsigned*>(scratch),
+      static_cast<const int*>(structure), B, Z, R, C, K, T, alpha, parts);
+  return cudaGetLastError();
 }
 
 long long ldpc_retire_smem_bytes(int Z, int R, int C, int K, int parts, int frames) {
   return retire_smem(Z, R, C, K, parts, frames);
 }
 
+long long ldpc_retire_zlane_smem_bytes(int Z, int R, int C, int K, int parts) {
+  return zlane_smem(Z, R, C, K, parts);
+}
+
 // Resident blocks per SM of a launch with these arguments
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -cudaError_t.
 int ldpc_retire_occupancy(int Z, int R, int C, int K, int parts, int frames, int track) {
   if (!valid_plan(Z, parts, frames)) return -static_cast<int>(cudaErrorInvalidValue);
-  const Kernel kernel = pick_kernel(track, Z);
-  const long long smem = retire_smem(Z, R, C, K, parts, frames);
   int blocks = 0;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                        retire_threads(Z, parts, frames), smem);
+  const cudaError_t err = prepare(pick_kernel(track, Z), retire_smem(Z, R, C, K, parts, frames),
+                                  retire_threads(Z, parts, frames), &blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+int ldpc_retire_zlane_occupancy(int Z, int R, int C, int K, int parts, int track) {
+  if (!valid_zlane_plan(Z, parts)) return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err = prepare(pick_zlane_kernel(track, Z), zlane_smem(Z, R, C, K, parts),
+                                  retire_threads(Z, parts, 1), &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 

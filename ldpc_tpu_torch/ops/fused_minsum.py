@@ -1,7 +1,7 @@
 """Fused min-sum / BP decoders: the whole decode loop in one CUDA kernel
 (counterpart of ``ldpc_tpu.ops.pallas_minsum``).
 
-Three hand-written kernels replace the two TPU kernels:
+Four hand-written kernels replace the two TPU kernels:
 
 * ``fused_retire`` (``csrc/fused_retire.cu``, replaces
   ``pallas_minsum._kernel`` for scaled min-sum with the flooding schedule,
@@ -11,6 +11,12 @@ Three hand-written kernels replace the two TPU kernels:
   beliefs and LLRs in shared memory; the syndrome is folded into the next
   check pass, and a frame leaves the kernel the iteration it converges, its
   group taking the next frame from an atomic counter.
+* ``retire_zlane`` (same file, replaces ``pallas_minsum._kernel_zlane`` for
+  scaled min-sum with the flooding schedule, ``bench.py``'s z384 section):
+  the same algorithm, one frame group a block, for Z where a whole frame
+  exceeds shared memory: beliefs and (alpha*m1, alpha*m2) in shared memory,
+  the argmin and sign words in the block's slice of a global scratch (L2),
+  LLRs read from the input rows.  :func:`retire_zlane_fits` decides.
 * ``fused`` (``csrc/fused_minsum.cu``, replaces ``pallas_minsum._kernel`` for
   sum-product, the layered schedule and min-sum flooding on codes that
   ``fused_retire`` does not take, those with rows of more than 27 members;
@@ -18,12 +24,14 @@ Three hand-written kernels replace the two TPU kernels:
   all decode state (c2v, beliefs, channel LLRs) in shared memory.  Fits
   while one frame's state is below the block's shared memory (Z=32 on NR
   BG2: about 42 KB a frame); ``fused_kernel_fits`` decides for both.
-* ``fused_zlane`` (same file, replaces ``pallas_minsum._kernel_zlane``): the
-  same semantics when a frame's state exceeds shared memory (the 5G maximum
+* ``fused_zlane`` (``csrc/fused_minsum.cu``, replaces
+  ``pallas_minsum._kernel_zlane`` for sum-product, the layered schedule and
+  min-sum flooding on codes ``retire_zlane`` does not take): the same
+  semantics when a frame's state exceeds shared memory (the 5G maximum
   Z=384): c2v lives in a global scratch buffer, beliefs in shared memory,
   and each block walks over frames one at a time.
 
-Both take every flag the TPU kernels take: ``mode`` ("minsum" scaled by
+The builders take every flag the TPU kernels take: ``mode`` ("minsum" scaled by
 ``alpha``, or "sumproduct"), ``schedule`` ("flooding" or "layered"),
 ``track_convergence`` and ``early_exit``.  Semantics match
 :func:`ldpc_tpu_torch.models.classical.decode_min_sum` (per-frame
@@ -63,7 +71,7 @@ _RETIRE_MAX_GROUPS = 15  # kMaxGroups in csrc/fused_retire.cu: frames a block
 _RETIRE_MAX_DEGREE = 27  # kSignBits in csrc/fused_retire.cu: members of a row
 _RETIRE_MAX_PARTS = 4  # parts a frame's rows and columns are split into
 
-LAUNCHES: dict[str, int] = {"fused_retire": 0, "fused": 0, "fused_zlane": 0}
+LAUNCHES: dict[str, int] = {"fused_retire": 0, "fused": 0, "retire_zlane": 0, "fused_zlane": 0}
 
 
 class _Structure(NamedTuple):
@@ -140,14 +148,20 @@ def zlane_kernel_fits(qc: QCLayout) -> bool:
     return qc.Z % 8 == 0 and zlane_smem_bytes(qc) <= _SMEM_BUDGET
 
 
+def _retire_structure_words(qc: QCLayout, parts: int) -> int:
+    """int32 words of :func:`_retire_structure` in shared memory: 6K + R +
+    C + 2 and two part tables, rounded up to 16 bytes."""
+    R, C, K = qc.num_base_rows, qc.num_base_cols, qc.num_base_edges
+    return -(-(6 * K + R + C + 2 + 2 * (parts + 1)) // 4) * 4
+
+
 def retire_smem_bytes(qc: QCLayout, parts: int = 1, frames: int = 1) -> int:
-    """Dynamic shared memory of one ``fused_retire`` block: structure
-    (6K + R + C + 2 int32 and two part tables) plus, per frame, the beliefs
-    and the LLRs (C*Z float32 each) and the compressed check state (3 words
-    per lifted check)."""
-    K, Z, C, R = qc.num_base_edges, qc.Z, qc.num_base_cols, qc.num_base_rows
-    words = -(-(6 * K + R + C + 2 + 2 * (parts + 1)) // 4) * 4
-    return 4 * (words + frames * (-(-(2 * C * Z + 3 * R * Z) // 4) * 4))
+    """Dynamic shared memory of one ``fused_retire`` block: structure plus,
+    per frame, the beliefs and the LLRs (C*Z float32 each) and the
+    compressed check state (3 words per lifted check)."""
+    Z, C, R = qc.Z, qc.num_base_cols, qc.num_base_rows
+    return 4 * (_retire_structure_words(qc, parts)
+                + frames * (-(-(2 * C * Z + 3 * R * Z) // 4) * 4))
 
 
 def retire_threads(qc: QCLayout, parts: int, frames: int) -> int:
@@ -169,6 +183,36 @@ def retire_kernel_fits(qc: QCLayout) -> bool:
     """Whether ``fused_retire`` takes the code: rows of at most 27 members
     (the signs its state word holds) and a frame within a block."""
     return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_plans(qc))
+
+
+def retire_zlane_smem_bytes(qc: QCLayout, parts: int = 1) -> int:
+    """Dynamic shared memory of one ``retire_zlane`` block (one frame):
+    structure plus the beliefs (C*Z float32) and (alpha*m1, alpha*m2) of
+    each lifted check (R*Z float32 pairs)."""
+    Z, C, R = qc.Z, qc.num_base_cols, qc.num_base_rows
+    return 4 * (_retire_structure_words(qc, parts) + C * Z + 2 * R * Z)
+
+
+def retire_zlane_scratch_bytes(qc: QCLayout) -> int:
+    """Global scratch of one ``retire_zlane`` block: a state word (argmin
+    and signs) per lifted check."""
+    return 4 * qc.num_base_rows * qc.Z
+
+
+def retire_zlane_plans(qc: QCLayout) -> list[int]:
+    """The parts a ``retire_zlane`` frame may be split into: at most 1024
+    threads a block, within shared memory."""
+    return [p for p in range(1, _RETIRE_MAX_PARTS + 1)
+            if retire_threads(qc, p, 1) <= _RETIRE_MAX_THREADS
+            and retire_zlane_smem_bytes(qc, p) <= _SMEM_BUDGET]
+
+
+def retire_zlane_fits(qc: QCLayout) -> bool:
+    """Whether ``retire_zlane`` takes the code: Z % 8 == 0 (as the TPU
+    kernel), rows of at most 27 members and a frame's beliefs and check
+    state within a block."""
+    return (qc.Z % 8 == 0 and qc.dr_max <= _RETIRE_MAX_DEGREE
+            and bool(retire_zlane_plans(qc)))
 
 
 def _balanced_bounds(costs, parts: int) -> list[int]:
@@ -414,9 +458,14 @@ _RETIRE_SIGNATURES = {
     # llr, bits, conv, counter, structure, B, Z, R, C, K, T, alpha,
     # track, parts, frames_per_block, grid, stream
     "ldpc_retire_minsum": ([_P] * 5 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
+    # llr, bits, conv, counter, scratch, structure, B, Z, R, C, K, T, alpha,
+    # track, parts, grid, stream
+    "ldpc_retire_zlane": ([_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P], _I),
     "ldpc_retire_smem_bytes": ([_I] * 6, ctypes.c_longlong),
-    # Z, R, C, K, parts, frames_per_block, track -> blocks per SM
+    "ldpc_retire_zlane_smem_bytes": ([_I] * 5, ctypes.c_longlong),
+    # Z, R, C, K, parts, [frames_per_block,] track -> blocks per SM
     "ldpc_retire_occupancy": ([_I] * 7, _I),
+    "ldpc_retire_zlane_occupancy": ([_I] * 6, _I),
     "ldpc_retire_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -453,6 +502,35 @@ def retire_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
     return best
 
 
+def retire_zlane_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
+                      lib=None) -> tuple[int, int]:
+    """(parts, resident blocks per SM) of ``retire_zlane``: of
+    :func:`retire_zlane_plans` (``parts`` if given), the most resident
+    blocks per SM by the runtime's occupancy query, then the most parts."""
+    lib = lib or retire_kernel_library()
+    dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
+    best = (0, 0)
+    for p in retire_zlane_plans(qc):
+        if parts is not None and p != parts:
+            continue
+        per_sm = lib.ldpc_retire_zlane_occupancy(*dims, p, int(track_convergence))
+        if (per_sm, p) > best[::-1]:
+            best = (p, per_sm)
+    return best
+
+
+def _route(kind: str, qc: QCLayout, mode: str, schedule: str) -> str:
+    """The kernel a decoder of ``kind`` launches (its ``LAUNCHES`` key):
+    min-sum flooding on the retiring kernel of its size where that takes
+    the code, the rest on ``kind``'s own."""
+    if mode == "minsum" and schedule == "flooding":
+        if kind == "fused" and retire_kernel_fits(qc):
+            return "fused_retire"
+        if kind == "fused_zlane" and retire_zlane_fits(qc):
+            return "retire_zlane"
+    return kind
+
+
 def _check_llr(llr: torch.Tensor, device: torch.device, n: int) -> None:
     """The input checks every fused decoder makes before it decodes."""
     if llr.device.type != device.type:
@@ -480,11 +558,13 @@ def _check_rc(lib, rc: int, name: str) -> None:
 class FusedDecoder:
     """``decode(llr) -> (bits (B, n) f32, conv_iter (B,) int32)``.
 
-    Launches the ``kind`` kernel for CUDA tensors and runs the plain version
-    for CPU tensors; ``plain(llr)`` runs the plain version on any device.
-    ``kind`` "fused" launches ``fused_retire`` for min-sum with the flooding
-    schedule on the codes it takes (:func:`retire_kernel_fits`) and the
-    ``fused`` kernel otherwise.
+    Launches the ``route`` kernel for CUDA tensors and runs the plain
+    version for CPU tensors; ``plain(llr)`` runs the plain version on any
+    device.  ``kind`` "fused" routes min-sum with the flooding schedule to
+    ``fused_retire`` on the codes it takes (:func:`retire_kernel_fits`),
+    ``kind`` "fused_zlane" to ``retire_zlane`` (:func:`retire_zlane_fits`);
+    the rest runs on the ``kind`` kernel.  ``retire`` says whether the route
+    is one of the two retiring kernels.
     """
 
     def __init__(self, kind: str, qc: QCLayout, max_iterations: int, alpha: float,
@@ -502,14 +582,15 @@ class FusedDecoder:
         self.early_exit = bool(early_exit)
         self.schedule = schedule
         self.device = device
-        self.retire = (kind == "fused" and mode == "minsum" and schedule == "flooding"
-                       and retire_kernel_fits(qc))
-        self.graph = None if self.retire else torch.as_tensor(_graph_array(self.st),
-                                                              device=device)
+        self.route = _route(kind, qc, mode, schedule)
+        self.retire = self.route in ("fused_retire", "retire_zlane")
+        # fused_zlane decoders keep the CSR structure for _launch_zlane.
+        self.graph = None if self.route == "fused_retire" else torch.as_tensor(
+            _graph_array(self.st), device=device)
         self._plain_index: dict[torch.device, _PlainIndex] = {}
-        # fused_retire launch plans (parts, frames per block, resident blocks,
-        # structure on that card) by (card, parts asked for), made at the
-        # first launch on each.
+        # Retiring kernels' launch plans (parts, frames per block, resident
+        # blocks, structure on that card) by (card, parts asked for), made at
+        # the first launch on each.
         self._retire_plans: dict[tuple[torch.device, int | None], tuple] = {}
 
     def __call__(self, llr: torch.Tensor):
@@ -532,6 +613,18 @@ class FusedDecoder:
             raise ValueError("llr must be contiguous")
         if self.retire:
             return self._launch_retire(llr)
+        return self._launch_csr(llr, self.kind)
+
+    def _launch_zlane(self, llr: torch.Tensor):
+        """``fused_zlane`` on ``llr`` (contiguous, on a card) whatever the
+        route: the kernel min-sum flooding ran on before ``retire_zlane``,
+        kept so the two can be timed side by side."""
+        if self.kind != "fused_zlane":
+            raise ValueError(f"a {self.kind} decoder has no zlane launch")
+        return self._launch_csr(llr, "fused_zlane")
+
+    def _launch_csr(self, llr: torch.Tensor, kind: str):
+        """The ``fused`` or ``fused_zlane`` kernel on ``llr``."""
         st = self.st
         B = llr.shape[0]
         bits = torch.empty_like(llr)
@@ -544,7 +637,7 @@ class FusedDecoder:
                  int(self.track_convergence), int(self.early_exit))
         with torch.cuda.device(llr.device):
             stream = torch.cuda.current_stream(llr.device).cuda_stream
-            if self.kind == "fused":
+            if kind == "fused":
                 rc = lib.ldpc_fused_minsum(
                     llr.data_ptr(), bits.data_ptr(), conv.data_ptr(), graph.data_ptr(),
                     B, st.Z, st.R, st.C, st.K, self.max_iterations, self.alpha,
@@ -558,14 +651,15 @@ class FusedDecoder:
                     llr.data_ptr(), bits.data_ptr(), conv.data_ptr(), scratch.data_ptr(),
                     graph.data_ptr(), B, st.Z, st.R, st.C, st.K, self.max_iterations,
                     self.alpha, *flags, grid, stream)
-        _check_rc(lib, rc, self.kind)
-        LAUNCHES[self.kind] += 1
+        _check_rc(lib, rc, kind)
+        LAUNCHES[kind] += 1
         return bits, conv
 
     def _launch_retire(self, llr: torch.Tensor, parts: int | None = None):
-        """``fused_retire`` on ``llr`` (contiguous, on a card); ``parts``
-        fixes the parts a frame is split into instead of :func:`retire_plan`'s
-        choice."""
+        """The route's retiring kernel (``fused_retire`` or ``retire_zlane``)
+        on ``llr`` (contiguous, on a card); ``parts`` fixes the parts a frame
+        is split into instead of the plan's choice.  ``retire_zlane`` runs
+        at most ``batch_tile`` frames in flight, if given."""
         st = self.st
         B = llr.shape[0]
         bits = torch.empty_like(llr)
@@ -573,25 +667,38 @@ class FusedDecoder:
         if B == 0:
             return bits, conv
         lib = retire_kernel_library()
+        zlane = self.route == "retire_zlane"
         with torch.cuda.device(llr.device):
             plan = self._retire_plans.get((llr.device, parts))
             if plan is None:
-                p, frames, per_sm = retire_plan(self.qc, self.track_convergence, parts, lib)
-                resident = _resident_grid(per_sm, "fused_retire", llr.device)
+                if zlane:
+                    p, per_sm = retire_zlane_plan(self.qc, self.track_convergence, parts, lib)
+                    frames = 1
+                else:
+                    p, frames, per_sm = retire_plan(self.qc, self.track_convergence, parts, lib)
+                resident = _resident_grid(per_sm, self.route, llr.device)
                 structure = torch.as_tensor(_retire_structure(st, p), device=llr.device)
                 plan = self._retire_plans[(llr.device, parts)] = (p, frames, resident, structure)
             p, frames, resident, structure = plan
             grid = min(resident, -(-B // frames))
             counter = torch.zeros((1,), dtype=torch.int32, device=llr.device)
             stream = torch.cuda.current_stream(llr.device).cuda_stream
-            rc = lib.ldpc_retire_minsum(
-                llr.data_ptr(), bits.data_ptr(), conv.data_ptr(), counter.data_ptr(),
-                structure.data_ptr(), B, st.Z, st.R, st.C, st.K, self.max_iterations,
-                self.alpha, int(self.track_convergence), p, frames, grid, stream)
+            pointers = (llr.data_ptr(), bits.data_ptr(), conv.data_ptr(), counter.data_ptr())
+            args = (B, st.Z, st.R, st.C, st.K, self.max_iterations, self.alpha,
+                    int(self.track_convergence), p)
+            if zlane:
+                grid = min(grid, self.batch_tile or grid)
+                scratch = torch.empty((grid * retire_zlane_scratch_bytes(self.qc),),
+                                      dtype=torch.uint8, device=llr.device)
+                rc = lib.ldpc_retire_zlane(*pointers, scratch.data_ptr(), structure.data_ptr(),
+                                           *args, grid, stream)
+            else:
+                rc = lib.ldpc_retire_minsum(*pointers, structure.data_ptr(), *args, frames, grid,
+                                            stream)
         if rc != 0:
             msg = lib.ldpc_retire_error_string(rc).decode()
-            raise RuntimeError(f"fused_retire kernel launch failed: CUDA error {rc} ({msg})")
-        LAUNCHES["fused_retire"] += 1
+            raise RuntimeError(f"{self.route} kernel launch failed: CUDA error {rc} ({msg})")
+        LAUNCHES[self.route] += 1
         return bits, conv
 
 
@@ -665,10 +772,15 @@ def make_fused_minsum_zlane(
     """Large-Z fused decoder: (B, n) LLRs -> (bits, conv_iter).
 
     Same semantics as :func:`make_fused_minsum`, for Z where one frame's state
-    exceeds a block's shared memory.  ``batch_tile`` is the number of frames
-    in flight, one per thread block, each with K*Z*4 bytes of global c2v
-    scratch (default: two blocks per streaming multiprocessor).  Requires
-    Z % 8 == 0, as the JAX builder does.
+    exceeds a block's shared memory.  Min-sum with the flooding schedule
+    runs on ``retire_zlane`` on the codes it takes
+    (:func:`retire_zlane_fits`): one frame group a block, a persistent grid
+    of the blocks that can be resident, each with R*Z*4 bytes of global
+    state-word scratch.  Sum-product, the layered schedule and the other
+    codes run on ``fused_zlane``, one frame per thread block at a time, each
+    block with K*Z*4 bytes of global c2v scratch (default: two blocks per
+    streaming multiprocessor).  ``batch_tile``, for either, caps the frames
+    in flight (one a block).  Requires Z % 8 == 0, as the JAX builder does.
     """
     _check_flags(mode, schedule, track_convergence, early_exit)
     Z = qc.Z

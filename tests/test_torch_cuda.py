@@ -56,11 +56,13 @@ def test_kernel_matches_plain(kind, name, Z, batch, mode, schedule, track, early
     dec = build(qc, 10, 0.75, mode=mode, track_convergence=track, early_exit=early_exit,
                 schedule=schedule)
     llr = _llr(qc.num_vars, batch, 1.0, seed=Z)
-    # min-sum flooding runs on fused_retire, the rest on fused / fused_zlane
-    name_ = "fused_retire" if dec.retire else kind
-    before = fm.LAUNCHES[name_]
+    # min-sum flooding runs on fused_retire / retire_zlane, the rest on
+    # fused / fused_zlane
+    assert dec.route == (("fused_retire" if kind == "fused" else "retire_zlane")
+                         if (mode, schedule) == ("minsum", "flooding") else kind)
+    before = fm.LAUNCHES[dec.route]
     bits_k, conv_k = dec(llr)
-    assert fm.LAUNCHES[name_] == before + 1
+    assert fm.LAUNCHES[dec.route] == before + 1
     bits_p, conv_p = dec.plain(llr)
     torch.cuda.synchronize()
     assert bits_k.is_cuda and conv_k.dtype == torch.int32
@@ -170,12 +172,101 @@ def test_minsum_flooding_launches_retire_kernel():
 
 
 def test_zlane_frames_per_block_loop():
-    """Fewer blocks than frames: each block walks several frames."""
+    """Fewer blocks than frames: each block walks several frames, on
+    retire_zlane (min-sum flooding) and on fused_zlane (its old kernel,
+    and sum-product)."""
     qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 384)
     dec = fm.make_fused_minsum_zlane(qc, 10, batch_tile=3)
     llr = _llr(qc.num_vars, 10, 1.5, seed=1)
     (bk, ck), (bp, cp) = dec(llr), dec.plain(llr)
     assert_decoder_parity("minsum", to_numpy(bk), to_numpy(ck), to_numpy(bp), to_numpy(cp))
+    _assert_identical(dec._launch_zlane(llr), (bp, cp))
+    bp_dec = fm.make_fused_minsum_zlane(qc, 10, batch_tile=3, mode="sumproduct")
+    (bk, ck), (bp, cp) = bp_dec(llr), bp_dec.plain(llr)
+    assert_decoder_parity("sumproduct", to_numpy(bk), to_numpy(ck), to_numpy(bp), to_numpy(cp))
+
+
+# retire_zlane (min-sum flooding at large Z): Z=256 is a power of two, 288
+# and 384 are not.
+def _hard_llrs(kind: str, n: int, batch: int, seed: int) -> torch.Tensor:
+    """Frames that never converge (noise alone), that converge at iteration
+    1 (12 dB), a mix (1 dB), and quantised LLRs with tied minimums and exact
+    +0.0 and -0.0 (sign(0) = +1)."""
+    if kind == "never_converged":
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return 2.0 * torch.randn((batch, n), generator=gen, device="cuda")
+    llr = _llr(n, batch, 12.0 if kind == "converged_at_1" else 1.0, seed)
+    if kind == "ties_zeros":
+        llr = torch.round(llr / 2.0) * 2.0
+        llr[::3, ::5] = 0.0
+        llr[1::3, 2::5] = -0.0
+    return llr
+
+
+ZLANE_KINDS = ("never_converged", "converged_at_1", "mixed", "ties_zeros")
+
+
+@pytest.mark.parametrize("track,early_exit", [TRACKING, THROUGHPUT, EARLY_EXIT])
+@pytest.mark.parametrize("Z", [256, 288, 384])
+def test_retire_zlane_matches_plain(Z, track, early_exit):
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), Z)
+    dec = fm.make_fused_minsum_zlane(qc, 12, 0.75, track_convergence=track,
+                                     early_exit=early_exit)
+    assert dec.route == "retire_zlane"
+    for i, kind in enumerate(ZLANE_KINDS):
+        llr = _hard_llrs(kind, qc.num_vars, 37, seed=Z + i)
+        before = dict(fm.LAUNCHES)
+        out = dec(llr)
+        assert fm.LAUNCHES["retire_zlane"] == before["retire_zlane"] + 1
+        assert fm.LAUNCHES["fused_zlane"] == before["fused_zlane"]
+        _assert_identical(out, dec.plain(llr))
+        conv = out[1]
+        if track and kind == "converged_at_1":
+            assert bool((conv == 1).all())
+        if kind == "never_converged" or not track:
+            assert bool((conv == 12).all())
+
+
+@pytest.mark.parametrize("batch", [1, 7, 513])
+def test_retire_zlane_batches(batch):
+    """One frame, fewer frames than blocks, and more frames than the blocks
+    that can be resident: each block takes frames from the counter."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 384)
+    dec = fm.make_fused_minsum_zlane(qc, 20, 0.75)
+    llr = _llr(qc.num_vars, batch, 1.5, seed=batch)
+    _assert_identical(dec(llr), dec.plain(llr))
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 4])
+def test_retire_zlane_parts(parts):
+    """Every split of a frame into parts at Z=256 (8 warps a part), each
+    block serving many frames (batch_tile=3)."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 256)
+    llr = _hard_llrs("ties_zeros", qc.num_vars, 29, seed=parts)
+    for track in (True, False):
+        dec = fm.make_fused_minsum_zlane(qc, 12, 0.75, track_convergence=track, batch_tile=3)
+        _assert_identical(dec._launch_retire(llr, parts=parts), dec.plain(llr))
+
+
+def test_minsum_flooding_at_z384_launches_retire_zlane():
+    """Min-sum flooding at Z=384 (builder and serving object) launches
+    retire_zlane and no other kernel; sum-product and the layered schedule
+    launch fused_zlane."""
+    from ldpc_tpu_torch.models.classical import MinSumScaledDecoder
+
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 384)
+    llr = _llr(qc.num_vars, 9, 1.0, seed=2)
+    before = dict(fm.LAUNCHES)
+    fm.make_fused_minsum_zlane(qc, 5)(llr)
+    MinSumScaledDecoder(qc, 5, backend="auto").decode(llr)
+    torch.cuda.synchronize()
+    moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {"fused_retire": 0, "fused": 0, "retire_zlane": 2, "fused_zlane": 0}
+    fm.make_fused_minsum_zlane(qc, 5, mode="sumproduct")(llr)
+    fm.make_fused_minsum_zlane(qc, 5, schedule="layered")(llr)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["fused_zlane"] == before["fused_zlane"] + 2
+    assert fm.LAUNCHES["retire_zlane"] == before["retire_zlane"] + 2
 
 
 def test_launch_errors_raise():
