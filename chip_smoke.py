@@ -9,8 +9,8 @@ Phases, one JSON line each:
              process per source, all started together; the
              main-path kernels' resident blocks per SM from the runtime
              (retire_zlane's with its parts at Z=384), registers per kernel;
-             the tensor-core kernels' (msg_gnn_v2, corrected_v2) block
-             shapes (their occupancy plans) and registers a thread, and the
+             the tensor-core kernels' (msg_gnn_v2, msg_gnn_v3, corrected_v2)
+             block shapes (their occupancy plans) and registers a thread, and the
              HMMA (tensor-core) instructions of each of their kernels in
              cuobjdump -sass (none fails).
 3. compare — each kernel against its plain PyTorch version on the card, for
@@ -113,10 +113,12 @@ Phases, one JSON line each:
              and 64, injection and
              share_layers, seeded parameters moved by 0.02 noise: soft bits
              within 3e-2, decisions identical where the plain version is
-             confident (|p - 0.5| > 0.05).  msg_gnn_v2 on the exact inputs of
-             ops/msg_gnn_exact.py (every sum exact in any order): identical
-             to the plain version (torch.equal), toy_4x8 h=16, nr_2_0_4 and
-             nr_2_0_32 h=64, injection and share_layers.  Then one T=3 model
+             confident (|p - 0.5| > 0.05).  msg_gnn_v2 and msg_gnn_v3 on the
+             exact inputs of ops/msg_gnn_exact.py (every sum exact in any
+             order): identical to the plain version (torch.equal), toy_4x8
+             h=16, nr_2_0_4 and nr_2_0_32 h=64, injection and share_layers;
+             msg_gnn_v3 also with nonzero type embeddings (EXACT_TE_CASES,
+             T 2 and 3), which only its delta table carries.  Then one T=3 model
              decoded to depth 1, 2, 3 beside the plain version's
              card-against-CPU difference (printed).
 13. msg_gnn_main — bench.py section_msg_gnn at full width: nr_2_0_32 Z=32
@@ -124,9 +126,10 @@ Phases, one JSON line each:
              first a T=2 model on the whole batch at the T=2 bar, then
              msg_gnn_v2 (as the bench serves it), msg_gnn, msg_gnn_v3 and
              msg_gnn_v4, each whole batch against the plain version:
-             decisions equal on >= 99.9%; each also at depth 1.  msg_gnn_v2
-             (the bench's kernel) is timed in five rounds, median and every
-             round printed, and traced once in a process of its own
+             decisions equal on >= 99.9%; each also at depth 1.  The
+             tensor-core kernels, msg_gnn_v2 (the bench's kernel) and
+             msg_gnn_v3, are timed in five rounds, median and every round
+             printed, and traced once each in a process of its own
              (trace_msg_gnn: device time and launches by kernel; a second
              profiler session in one process recorded no kernel).
 14. serve  — ldpc_tpu_torch.serve_trained_decoder with --model message_gnn
@@ -1303,6 +1306,7 @@ def msg_compare(soft_k: torch.Tensor, soft_p: torch.Tensor, label: str, phase: s
 
 # The tensor-core kernels: (source stem, kernel template name).
 TC_KERNELS = {"msg_gnn_v2": ("fused_msg_gnn_tc", "msg_gnn_v2_tc_kernel"),
+              "msg_gnn_v3": ("fused_msg_gnn_tc", "msg_gnn_v3_tc_kernel"),
               "corrected_v2": ("fused_gnn_tc", "corrected_v2_tc_kernel")}
 
 
@@ -1314,8 +1318,10 @@ def tc_shape(qc, h: int, inject: bool, kind: str = "msg_gnn_v2") -> dict:
 
     from ldpc_tpu_torch.ops import _build, fused_gnn as fg
 
-    plan = fg.msg_gnn_tc_plan if kind == "msg_gnn_v2" else fg.corrected_tc_plan
-    warps, blocks = plan(qc, h, inject)
+    if kind == "corrected_v2":
+        warps, blocks = fg.corrected_tc_plan(qc, h, inject)
+    else:
+        warps, blocks = fg.msg_gnn_tc_plan(qc, h, inject, kind)
     stem, kernel = TC_KERNELS[kind]
     log = _build.build_log(stem)
     props = log[log.index("Function properties for _ZN"):]
@@ -1329,8 +1335,9 @@ def tc_shape(qc, h: int, inject: bool, kind: str = "msg_gnn_v2") -> dict:
 MSG_MAIN = dict(H=64, T=20, B=2048, SNR=3.0, model_seed=11, llr_seed=12)
 
 
-def trace_msg_gnn() -> dict:
-    """One msg_gnn_v2 decode of the msg_gnn_main batch under the profiler."""
+def trace_msg_gnn(kind: str = "msg_gnn_v2") -> dict:
+    """One decode of the msg_gnn_main batch by a tensor-core kernel
+    (msg_gnn_v2 or msg_gnn_v3) under the profiler."""
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
     from ldpc_tpu_torch.ops import fused_gnn as fg, qc_msg
 
@@ -1339,14 +1346,17 @@ def trace_msg_gnn() -> dict:
     model = perturbed_msg_model(qc_msg.make_plan(qc), m["T"], m["H"], False, False,
                                 seed=m["model_seed"])
     llr = llrs(qc.num_vars, m["B"], m["SNR"], seed=m["llr_seed"])
-    dec = fg.make_fused_gnn_decoder_v2(qc, model, m["T"], m["H"])
+    build = {"msg_gnn_v2": fg.make_fused_gnn_decoder_v2,
+             "msg_gnn_v3": fg.make_fused_gnn_decoder_v3}[kind]
+    dec = build(qc, model, m["T"], m["H"])
     dec(llr)  # warm-up: the plan and the first launch
-    return {"phase": "trace_msg_gnn", "kernel": "msg_gnn_v2", "batch": m["B"],
-            **trace_split(lambda: dec(llr), "msg_gnn")}
+    return {"phase": "trace_msg_gnn", "kernel": kind, "batch": m["B"],
+            **trace_split(lambda: dec(llr), kind)}
 
 
 def trace_in_child(name: str) -> dict:
-    """trace_z384, trace_gnn or trace_msg_gnn in a process of its own: a second
+    """trace_z384, trace_gnn or trace_msg_gnn (``msg_gnn``: of msg_gnn_v2;
+    ``msg_gnn_v3``) in a process of its own: a second
     torch.profiler session in one process (after trace_main) recorded no
     kernel on the card.  The child loads the libraries this process built."""
     out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trace", name],
@@ -1360,7 +1370,8 @@ def trace_in_child(name: str) -> dict:
 def msg_gnn_phases(smi: str) -> list[dict]:
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
     from ldpc_tpu_torch.ops import fused_gnn as fg, qc_msg
-    from ldpc_tpu_torch.ops.msg_gnn_exact import EXACT_CASES, exact_msg_gnn_case
+    from ldpc_tpu_torch.ops.msg_gnn_exact import (EXACT_CASES, EXACT_TE_CASES,
+                                                  EXACT_TYPE_EMBEDDINGS, exact_msg_gnn_case)
     from ldpc_tpu_torch.utils.metrics import decode_throughput
 
     lib = fg.msg_kernel_library()
@@ -1389,6 +1400,14 @@ def msg_gnn_phases(smi: str) -> list[dict]:
                             fg.msg_gnn_smem_bytes(qc, h, kind, inject, w)
                     assert tc_lib.ldpc_msg_gnn_tc_scratch_floats(h, *dims) == \
                         fg.msg_gnn_scratch_floats(qc, h, inject, kind)
+                elif kind == "msg_gnn_v3":
+                    warps = fg.msg_gnn_tc_plan(qc, h, inject, kind)[0]
+                    for w in (1, warps):
+                        assert tc_lib.ldpc_msg_gnn_v3_tc_smem_bytes(h, int(inject), *dims, w) == \
+                            fg.msg_gnn_smem_bytes(qc, h, kind, inject, w)
+                    assert tc_lib.ldpc_msg_gnn_v3_tc_scratch_floats(
+                        h, Z, qc.num_base_cols, qc.num_base_edges) == \
+                        fg.msg_gnn_scratch_floats(qc, h, inject, kind)
                 else:
                     variant = fg.MSG_VARIANT[kind]
                     assert lib.ldpc_msg_gnn_smem_bytes(variant, h, *dims) == \
@@ -1400,24 +1419,28 @@ def msg_gnn_phases(smi: str) -> list[dict]:
                 err = msg_compare(dec(llr), dec.plain(llr), label, "msg_gnn_compare")
                 max_err[kind] = max(max_err[kind], err)
 
-    # Exact inputs (ops/msg_gnn_exact.py): every sum of the decode is exact in
-    # any order, so msg_gnn_v2 must equal its plain version bit for bit.
-    for code, Z, h, B, inject, share in EXACT_CASES:
+    # Exact inputs (ops/msg_gnn_exact.py): every sum the tensor-core kernels
+    # reorder is exact in any order, so each must equal its plain version bit
+    # for bit; msg_gnn_v3 also with nonzero type embeddings (its delta table).
+    exact = [(kind, *case, 2, (0.0,)) for kind in ("msg_gnn_v2", "msg_gnn_v3")
+             for case in EXACT_CASES]
+    exact += [("msg_gnn_v3", *case, EXACT_TYPE_EMBEDDINGS) for case in EXACT_TE_CASES]
+    for kind, code, Z, h, B, inject, share, T, te in exact:
         qc = qc_layout(get_base_graph(code), Z)
-        model, llr_np = exact_msg_gnn_case(qc, h, B, inject, share)
-        dec = fg.make_fused_gnn_decoder_v2(qc, model, 2, h, share_layers=share,
-                                           input_injection=inject)
+        model, llr_np = exact_msg_gnn_case(qc, h, B, inject, share, num_iterations=T,
+                                           type_embeddings=te)
+        dec = builders[kind](qc, model, T, h, share_layers=share, input_injection=inject)
         llr = torch.from_numpy(llr_np).cuda()
         soft_k, soft_p = dec(llr), dec.plain(llr)
         torch.cuda.synchronize()
         ok = bool(torch.equal(soft_k, soft_p))
-        emit({"phase": "msg_gnn_compare", "case": f"msg_gnn_v2 exact {code} Z={Z} h={h} B={B} "
-              f"inject={inject} share={share}", "identical": ok,
+        label = (f"{kind} exact {code} Z={Z} h={h} B={B} T={T} inject={inject} share={share} "
+                 f"type_embeddings={te}")
+        emit({"phase": "msg_gnn_compare", "case": label, "identical": ok,
               "max_abs_err": (soft_k - soft_p).abs().max().item(),
               "ones_share": (soft_p > 0.5).float().mean().item(), "ok": ok})
         if not ok:
-            raise AssertionError(f"msg_gnn_v2 differs from its plain version on exact inputs: "
-                                 f"{code} Z={Z} h={h} inject={inject} share={share}")
+            raise AssertionError(f"differs from its plain version on exact inputs: {label}")
 
     # The noise floor at nr_2_0_32 Z=32 h=64: one T=3 model decoded to depth
     # 1, 2 and 3, the kernel against the plain version beside the plain version
@@ -1469,10 +1492,10 @@ def msg_gnn_phases(smi: str) -> list[dict]:
         if launches[kind] != 1:
             raise AssertionError(f"msg_gnn main path did not run the {kind} kernel: {launches}")
         rounds_ms = None
-        if kind == "msg_gnn_v2":  # bench.py's kernel: five rounds and a profiler trace
+        if kind in ("msg_gnn_v2", "msg_gnn_v3"):  # five rounds and a profiler trace
             rounds_ms = [cuda_ms(lambda: dec(llr), reps=2)[0] for _ in range(5)]
             ms = sorted(rounds_ms)[2]
-            emit(trace_in_child("msg_gnn"))
+            emit(trace_in_child("msg_gnn" if kind == "msg_gnn_v2" else kind))
         else:
             ms, _ = cuda_ms(lambda: dec(llr), reps=2)
         plain_ms, soft_p = cuda_ms(lambda: dec.plain(llr), reps=1)
@@ -1494,11 +1517,11 @@ def msg_gnn_phases(smi: str) -> list[dict]:
               "ber_zero_codeword": hard.mean().item(),
               "fer_zero_codeword": (hard.sum(dim=1) > 0).float().mean().item(),
               "blocks_per_sm": fg.msg_gnn_blocks_per_sm(kind, qc32, H),
-              **(tc_shape(qc32, H, False) if kind == "msg_gnn_v2" else {}),
+              **(tc_shape(qc32, H, False, kind) if kind in TC_KERNELS else {}),
               "nvidia_smi": smi})
         entries[kind] = {
             "name": kind, "route": "cuda", "source": "ldpc_tpu_torch/ops/csrc/"
-            + ("fused_msg_gnn_tc.cu" if kind == "msg_gnn_v2" else "fused_msg_gnn.cu"),
+            + ("fused_msg_gnn_tc.cu" if kind in TC_KERNELS else "fused_msg_gnn.cu"),
             "replaces": "ldpc_tpu/ops/pallas_gnn.py:" + MSG_TPU_LINE[kind],
             "launches": launches[kind], "max_abs_err": max(max_err[kind], err), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None}
@@ -1639,14 +1662,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["classical", "gnn", "nms", "msg_gnn", "tools"],
                     default=None)
-    ap.add_argument("--trace", choices=["z384", "gnn", "msg_gnn"], help=argparse.SUPPRESS)
+    ap.add_argument("--trace", choices=["z384", "gnn", "msg_gnn", "msg_gnn_v3"],
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = args.only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
     if args.trace is not None:  # the child of trace_in_child
-        emit({"z384": trace_z384, "gnn": trace_gnn, "msg_gnn": trace_msg_gnn}[args.trace]())
+        emit({"z384": trace_z384, "gnn": trace_gnn, "msg_gnn": trace_msg_gnn,
+              "msg_gnn_v3": lambda: trace_msg_gnn("msg_gnn_v3")}[args.trace]())
         return 0
 
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
@@ -1693,7 +1718,7 @@ def main(argv=None) -> int:
     if min(occupancy.values()) < 1:
         raise AssertionError(f"a main-path kernel cannot be resident: {occupancy}")
     qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
-    hmma = {kind: sass_mma_counts(stem) for kind, (stem, _) in TC_KERNELS.items()}
+    hmma = {stem: sass_mma_counts(stem) for stem in dict(TC_KERNELS.values())}
     if any(not counts or min(counts.values()) < 1 for counts in hmma.values()):
         raise AssertionError(f"a tensor-core kernel has no tensor-core instructions: {hmma}")
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "ptxas": ptxas,

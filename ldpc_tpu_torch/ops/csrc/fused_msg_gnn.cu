@@ -5,17 +5,16 @@
 // Replaces the TPU kernels of ldpc_tpu/ops/pallas_gnn.py:
 //   * msg_gnn_kernel<H>     <- _kernel     (make_fused_gnn_decoder),
 //                              entry point ldpc_msg_gnn
-//   * msg_gnn_v3_kernel<H>  <- _kernel_v3  (make_fused_gnn_decoder_v3),
-//                              entry point ldpc_msg_gnn_v3
 //   * msg_gnn_v4_kernel<H>  <- _kernel_v4  (make_fused_gnn_decoder_v4),
 //                              entry point ldpc_msg_gnn_v4
-// B7 (_kernel_v2, make_fused_gnn_decoder_v2) runs on the tensor cores in
-// fused_msg_gnn_tc.cu; its function is described below beside B6's.
+// B7 (_kernel_v2, make_fused_gnn_decoder_v2) and B8 (_kernel_v3,
+// make_fused_gnn_decoder_v3) run on the tensor cores in fused_msg_gnn_tc.cu;
+// their functions are described below beside B6's and B9's.
 // The kernels compute the same function and differ in where they round to
-// bf16 and in the order of some float32 sums: layer<H> (B6), fold_layer<H,
-// 8> and fold_layer<H, 9> below.  H is the hidden width, built for 16 and
-// 64.  Python wrappers, weight packing (_extract, _extract_v3) and
-// the plain PyTorch version of each kernel: ldpc_tpu_torch/ops/fused_gnn.py.
+// bf16 and in the order of some float32 sums: layer<H> (B6) and
+// fold_layer<H, 9> below.  H is the hidden width, built for 16 and 64.
+// Python wrappers, weight packing (_extract, _extract_v3) and the plain
+// PyTorch version of each kernel: ldpc_tpu_torch/ops/fused_gnn.py.
 // Built with -fmad=false: every fused multiply-add below is an explicit fmaf
 // in a matrix product, and the elementwise steps round after every operation
 // as the plain version does.
@@ -128,14 +127,12 @@
 // FMA issue limits it is not measured.  Using wgmma needs the messages of a
 // warp group gathered into 64-row tiles and is left to later work.
 //
-// B8 and B9 run the same skeleton.  B8 computes W1ca f per message in the
-// check's thread (its first phase does a message's worth of products per
-// member) and sums them in the scratch; B9 writes no features in its last
-// layer, only K*Z output scalars.  Per layer of a frame their products are
-//   B8: 5E + n + 2 inj n    (three first-layer and two second-layer per message)
-//   B9: 4E + n + M + 2 inj n, and in the last layer 2E + n + M + 2 inj n
-//       products plus 3h multiply-adds per message.
-// Their bounds are derived beside msg_bound_ms in chip_smoke.py.
+// B9 runs the same skeleton; it writes no features in its last layer, only
+// K*Z output scalars.  Per layer of a frame its products are 4E + n + M +
+// 2 inj n, and in the last layer 2E + n + M + 2 inj n products plus 3h
+// multiply-adds per message.  B8's products (5E + n + 2 inj n: W1ca per
+// message) are on the tensor cores in fused_msg_gnn_tc.cu.  The bounds are
+// derived beside msg_bound_ms in chip_smoke.py.
 //
 // Shared memory of a block (4-byte words; see make_layout): graph, inverse
 // degrees, the frame's LLRs, embedding and projection, the layer's biases,
@@ -165,9 +162,8 @@ struct Args {
   const float* inv;          // 1/degree per column (C), then per row (R)
   const __nv_bfloat16* w;    // (T, 8, H, H)
   const float* tab;          // B6 (T, 2, K, H): b1v, b1c per edge (type embeddings
-                             // folded in); B8/B9 (T + 1, K, H): the delta table dte
-  const float* small;        // B6 (T, 2H) b2v, b2c;
-                             // B8/B9 (T, 3H) b1v, b1c, b2 (B8's b2 bf16-rounded)
+                             // folded in); B9 (T + 1, K, H): the delta table dte
+  const float* small;        // B6 (T, 2H) b2v, b2c; B9 (T, 3H) b1v, b1c, b2
   const float* emb;          // emb_w (H), emb_b (H), proj_w (H), proj_b; B9: bf16(proj_w), 0
   const float* extra;        // B9: w2last (2H), dsc (K); unused otherwise
   int B, Z, R, C, K, T, inject;
@@ -188,8 +184,8 @@ struct Layout {
   int graph, inv, llr, emb, small, extra, w, stage, total;
 };
 
-// B8 and B9 keep the type embeddings in the features (V >= 8).
-__host__ __device__ constexpr bool folded(int V) { return V >= 8; }
+// B9 keeps the type embeddings in the features.
+__host__ __device__ constexpr bool folded(int V) { return V == 9; }
 
 __host__ __device__ inline Layout make_layout(int V, int H, int Z, int R, int C, int K) {
   Layout L;
@@ -208,7 +204,7 @@ __host__ __device__ inline Layout make_layout(int V, int H, int Z, int R, int C,
 
 // Floats of one block's global scratch: pre_col (C), pre_row (R), with
 // injection the LLR terms (B6 2C: it reads the check side's, the room of
-// the variable side's keeps its layout; B8/B9 C, the check side),
+// the variable side's keeps its layout; B9 C, the check side),
 // each Z*H float32; then the features, K*Z*H bf16; B9 then its per-message
 // output scalars, K*Z float32.
 __host__ __device__ inline long long scratch_floats(int V, int H, int Z, int R, int C, int K,
@@ -220,7 +216,7 @@ __host__ __device__ inline long long scratch_floats(int V, int H, int Z, int R, 
 
 // The second layer of one message, rows four at a time: B6 sums W2v x and
 // W2c y apart (sink(j, sv, sc)); V = 7 continues one sum over both
-// (sink(j, s, 0)), as B8 and B9 do.
+// (sink(j, s, 0)), as B9 does.
 template <int H, int V, typename Sink>
 __device__ __forceinline__ void second_layer(const float* __restrict__ W2v,
                                              const float* __restrict__ W2c, const float (&x)[H],
@@ -384,10 +380,10 @@ __device__ void layer(const Args& a, const Block<H>& b, int t) {
   __syncthreads();
 }
 
-// Layer t of one frame for B8 (V = 8) and B9 (V = 9), whose features carry
-// the type embeddings: phase 1 (variables and checks), phase 2 (messages).
-// B9's last layer (t = T - 1) writes no features, only each message's output
-// scalar.  Starts and ends with a barrier.
+// Layer t of one frame for B9 (V = 9), whose features carry the type
+// embeddings: phase 1 (variables and checks), phase 2 (messages).  Its last
+// layer (t = T - 1) writes no features, only each message's output scalar.
+// Starts and ends with a barrier.
 template <int H, int V>
 __device__ void fold_layer(const Args& a, const Block<H>& b, int t) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -403,9 +399,8 @@ __device__ void fold_layer(const Args& a, const Block<H>& b, int t) {
 
   // Phase 1: per variable, W1va times the mean of its messages' features,
   // plus b1v and the LLR term (W1vl lf), and the check side's LLR term W1cl
-  // lf; per check, B9: W1ca times the mean of its messages' rolled features,
-  // plus b1c; B8: the mean of W1ca times each message's rolled features, in
-  // float32, plus b1c.
+  // lf; per check, W1ca times the mean of its messages' rolled features,
+  // plus b1c.
   for (int i = tid; i < n + M; i += nt) {
     float x[H];
 #pragma unroll
@@ -438,25 +433,12 @@ __device__ void fold_layer(const Args& a, const Block<H>& b, int t) {
         int v = zc + g.shift[k];
         v = v >= Z ? v - Z : v;
         const __nv_bfloat16* fk = F + static_cast<size_t>(k) * H * Z + v;
-        if constexpr (V == 9) {
 #pragma unroll
-          for (int q = 0; q < H; ++q) x[q] = __fadd_rn(x[q], __bfloat162float(fk[q * Z]));
-        } else {
-#pragma unroll
-          for (int q = 0; q < H; ++q) x[q] = __bfloat162float(fk[q * Z]);
-          const bool first = j == g.row_ptr[r];
-          matvec<H>(b.w + kWca * H * H, x, [&](int jj, float s) {
-            pr[jj * Z] = first ? s : __fadd_rn(pr[jj * Z], s);
-          });
-        }
+        for (int q = 0; q < H; ++q) x[q] = __fadd_rn(x[q], __bfloat162float(fk[q * Z]));
       }
-      if constexpr (V == 9) {
 #pragma unroll
-        for (int q = 0; q < H; ++q) x[q] = bf16r(__fmul_rn(x[q], inv));
-        matvec<H>(b.w + kWca * H * H, x, [&](int j, float s) { pr[j * Z] = __fadd_rn(s, b1c[j]); });
-      } else {
-        for (int j = 0; j < H; ++j) pr[j * Z] = __fadd_rn(__fmul_rn(pr[j * Z], inv), b1c[j]);
-      }
+      for (int q = 0; q < H; ++q) x[q] = bf16r(__fmul_rn(x[q], inv));
+      matvec<H>(b.w + kWca * H * H, x, [&](int j, float s) { pr[j * Z] = __fadd_rn(s, b1c[j]); });
     }
   }
   __syncthreads();  // the scratch writes above are visible to the whole block
@@ -519,8 +501,6 @@ __device__ void fold_layer(const Args& a, const Block<H>& b, int t) {
                          float f;
                          if (!residual)
                            f = __fadd_rn(out, d);
-                         else if constexpr (V == 8)
-                           f = __fadd_rn(bf16r(__fadd_rn(out, __bfloat162float(fk[j * Z]))), d);
                          else
                            f = __fadd_rn(bf16r(__fadd_rn(out, d)), __bfloat162float(fk[j * Z]));
                          fk[j * Z] = __float2bfloat16_rn(f);
@@ -529,8 +509,8 @@ __device__ void fold_layer(const Args& a, const Block<H>& b, int t) {
   __syncthreads();
 }
 
-// The decode the three kernels share: frames from the atomic counter, the
-// seed, T layers of layer<H, V> or fold_layer<H, V>, the output.
+// The decode the two kernels share: frames from the atomic counter, the
+// seed, T layers of layer<H> or fold_layer<H, 9>, the output.
 template <int H, int V>
 __device__ __forceinline__ void decode_frames(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -571,7 +551,7 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
   b.pre_col = a.scratch + static_cast<size_t>(blockIdx.x) *
                               scratch_floats(V, H, Z, R, C, K, a.inject);
   b.pre_row = b.pre_col + C * zh;
-  // B6's slice has room for the LLR terms of both sides, B8/B9's for the
+  // B6's slice has room for the LLR terms of both sides, B9's for the
   // check side's alone.
   b.pre_llr_c = b.pre_row + (folded(V) ? R : R + C) * zh;
   const int llr_groups = a.inject ? (folded(V) ? C : 2 * C) : 0;
@@ -595,8 +575,8 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
     for (int i = tid; i < n; i += nt) b.llr[i] = llr_f[i];
     __syncthreads();
 
-    // Seed: every message's features from its variable's LLR (B8/B9: plus
-    // the type embedding of layer 0, block 0 of the delta table).
+    // Seed: every message's features from its variable's LLR (B9: plus the
+    // type embedding of layer 0, block 0 of the delta table).
     for (int i = tid; i < K * H * Z; i += nt) {
       const int k = i / (H * Z), qz = i - k * H * Z, q = qz / Z, z = qz - q * Z;
       const float m = b.llr[g.col[k] * Z + z];
@@ -644,13 +624,6 @@ __global__ void __launch_bounds__(kThreads, 1) msg_gnn_kernel(const Args a) {
   decode_frames<H, 6>(a);
 }
 
-// B8, _kernel_v3: type embeddings in the features, the check side's W1ca
-// products averaged in float32, b2 in bf16.
-template <int H>
-__global__ void __launch_bounds__(kThreads, 1) msg_gnn_v3_kernel(const Args a) {
-  decode_frames<H, 8>(a);
-}
-
 // B9, _kernel_v4: type embeddings in the features on B7's layer, the last
 // layer folded into thin rows.
 template <int H>
@@ -666,11 +639,6 @@ KernelFn pick_kernel(int variant, int H) {
       case 16: return msg_gnn_kernel<16>;
       case 64: return msg_gnn_kernel<64>;
     }
-  } else if (variant == 8) {
-    switch (H) {
-      case 16: return msg_gnn_v3_kernel<16>;
-      case 64: return msg_gnn_v3_kernel<64>;
-    }
   } else if (variant == 9) {
     switch (H) {
       case 16: return msg_gnn_v4_kernel<16>;
@@ -684,7 +652,7 @@ KernelFn pick_kernel(int variant, int H) {
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of `variant` (6, 8 or 9) needs.
+// Bytes of dynamic shared memory one block of `variant` (6 or 9) needs.
 long long ldpc_msg_gnn_smem_bytes(int variant, int H, int Z, int R, int C, int K) {
   return 4LL * make_layout(variant, H, Z, R, C, K).total;
 }
@@ -709,7 +677,7 @@ int ldpc_msg_gnn_occupancy(int variant, int H, int Z, int R, int C, int K) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// Launches one of the three kernels on `stream` with `grid` blocks, no sync.
+// Launches one of the two kernels on `stream` with `grid` blocks, no sync.
 static int launch(int variant, int H, const void* llr, void* soft, void* counter, void* scratch,
                   const void* graph, const void* inv, const void* w, const void* tab,
                   const void* small, const void* emb, const void* extra, int B, int Z, int R,
@@ -756,7 +724,6 @@ static int launch(int variant, int H, const void* llr, void* soft, void* counter
   }
 
 LDPC_MSG_GNN_ENTRY(ldpc_msg_gnn, 6)     // msg_gnn_kernel (_kernel)
-LDPC_MSG_GNN_ENTRY(ldpc_msg_gnn_v3, 8)  // msg_gnn_v3_kernel (_kernel_v3)
 LDPC_MSG_GNN_ENTRY(ldpc_msg_gnn_v4, 9)  // msg_gnn_v4_kernel (_kernel_v4)
 
 const char* ldpc_msg_gnn_cuda_error_string(int err) {

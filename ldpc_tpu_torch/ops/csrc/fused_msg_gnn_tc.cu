@@ -1,16 +1,18 @@
-// B7 on the tensor cores for Hopper (sm_90a): the whole forward of a trained
-// fully-neural MessageGNNDecoder (LLR embedding, T GNN layers, output
-// projection, per-variable sum, sigmoid) in one kernel launch, its message
-// products as bf16 mma.sync tiles with float32 accumulators.
+// B7 and B8 on the tensor cores for Hopper (sm_90a): the whole forward of a
+// trained fully-neural MessageGNNDecoder (LLR embedding, T GNN layers,
+// output projection, per-variable sum, sigmoid) in one kernel launch, its
+// message products as bf16 mma.sync tiles with float32 accumulators.
 //
-// Replaces the TPU kernel ldpc_tpu/ops/pallas_gnn.py:295 _kernel_v2
-// (make_fused_gnn_decoder_v2, pallas_call at :519):
-//   msg_gnn_v2_tc_kernel<H, INJ>, entry point ldpc_msg_gnn_v2.
+// Replaces the TPU kernels of ldpc_tpu/ops/pallas_gnn.py:
+//   * msg_gnn_v2_tc_kernel<H, INJ> <- :295 _kernel_v2 (make_fused_gnn_decoder_v2,
+//                                     pallas_call at :519), entry point ldpc_msg_gnn_v2
+//   * msg_gnn_v3_tc_kernel<H, INJ> <- :644 _kernel_v3 (make_fused_gnn_decoder_v3,
+//                                     pallas_call at :882), entry point ldpc_msg_gnn_v3
 // H is the hidden width, built for 16 and 64; INJ is input injection.  The
-// Python wrapper, the packed weight layout (pack_tc_weights) and the plain
-// PyTorch version (_MsgPlain): ldpc_tpu_torch/ops/fused_gnn.py.
+// Python wrapper, the packed weight layouts (pack_tc_weights) and the plain
+// PyTorch versions (_MsgPlain, _FoldPlain): ldpc_tpu_torch/ops/fused_gnn.py.
 //
-// What it computes, per frame
+// What B7 computes, per frame
 // ---------------------------
 // Messages are var-aligned per base edge k: message i = k*Z + z belongs to
 // variable (col[k], z) and to check (row[k], (z - shift[k]) mod Z).  Each
@@ -33,57 +35,110 @@
 // one accumulation over its 2h (3h with injection) inputs, then plus b1.
 // Every bf16 rounding point is the plain version's.
 //
+// What B8 computes, per frame
+// ---------------------------
+// The type embeddings te_t (per edge) ride in the features; the delta table
+// dte (T + 1, K, h), float32, moves them on: block 0 is te_0, block 1 te_1,
+// block t >= 2 te_t - te_{t-1}, te_T = 0.  b1v, b1c, b2 = b2v + b2c per
+// layer (b2 rounded to bf16: the TPU kernel adds it through a ones-row).
+//   seed:  f = bf16((llr[col[k], z] * emb_w + emb_b) + dte[0, k])
+//   layer t:
+//     vmean   = bf16(sum of f over the variable's messages * (1 / degree))
+//     pre_row = (sum over the check's messages of W1ca f) * (1 / degree) + b1c,
+//               float32, no bf16 mean
+//     per message, lf as in B7:
+//       pv  = [f | vmean | lf] . [W1vf W1va W1vl]^T + b1v
+//       pc  = ((W1cf f) + pre_row[check]) + W1cl lf
+//       out = bf16([bf16(relu(pv)) | bf16(relu(pc))] . [W2v W2c]^T + b2)
+//       d   = bf16(dte[t + 1, k]);  f = bf16(out + d) at t = 0,
+//             bf16(bf16(out + f) + d) after
+//   output: as B7.
+// The plain version sums pv as (W1vf f + ((W1va vmean + b1v) + W1vl lf)),
+// pre_row's products member by member, and b2 inside the second product;
+// here each is one float32 accumulation.  pc keeps the plain version's
+// order: pre_row carries a factor 1/degree, so it is no multiple of the
+// products' quanta and a sum with it would not be exact in another order
+// even on exact inputs.  Every bf16 rounding point is the plain version's,
+// in its order.
+//
 // Design
 // ------
 // A frame's state does not fit in a block (the features alone are K*Z*h
 // bf16, 807 KB at nr_2_0_32 Z=32 h=64), so it lives in a global scratch
 // slice per resident block, sized by the grid; frames come from an atomic
 // counter.  The slice holds, message-major, one 2h-byte row per message:
-// the features [k*Z + z][q], then the means vmean [c*Z + z][q] and rmean
-// [r*Z + z][q] (bf16, (K*Z + (C + R)*Z) * h * 2 bytes: 1.19 MB at the main
-// path's shapes).  A layer runs in two phases separated by barriers:
+// the features [k*Z + z][q], then the means vmean [c*Z + z][q] and (B7)
+// rmean [r*Z + z][q].  A layer runs in two phases separated by barriers:
 //   1. no products: each thread sums one 16-byte chunk (8 features) of one
-//      variable's or check's members, in member order, and stores the bf16
-//      mean; meanwhile cp.async stages the layer's weights.
-//   2. each warp takes 16-message tiles over the flat message index (any Z:
-//      the per-row k may change inside a tile).  cp.async (16 B a thread)
-//      gathers the tile's feature rows, vmean rows at (col, z) and rmean
-//      rows at (row, (z - shift) mod Z) into the warp's shared memory,
-//      double-buffered: the next tile's rows load while this one computes.
-//      ldmatrix reads the A fragments; the lf fragments are built in
-//      registers from the frame's LLRs.  mma.sync m16n8k16 (bf16 in, float32
-//      accumulators) computes pv and pc; their C fragments plus b1, relu and
-//      bf16-packed are the A fragments of the second layer, so the first
-//      layer's outputs never leave registers.  The epilogue adds b2 and the
-//      residual (read from the staged tile), writes the tile in place in
-//      shared memory and copies it out with 16-byte stores: a message reads
-//      only its own row and the means, so the update is in place.
-// Weights, per layer, bf16 in shared memory as [out][in] rows: W1v (h x
-// 2h or 3h), W1c (likewise), W2 = [W2v W2c] (h x 2h).  Each row is padded
+//      variable's (B7: or check's) members, in member order, and stores the
+//      bf16 mean; meanwhile cp.async stages the layer's weights.
+//   2. B7, message-major: each warp takes 16-message tiles over the flat
+//      message index (any Z: the per-row k may change inside a tile).
+//      cp.async (16 B a thread) gathers the tile's feature rows, vmean rows
+//      at (col, z) and rmean rows at (row, (z - shift) mod Z) into the
+//      warp's shared memory, double-buffered: the next tile's rows load
+//      while this one computes.  ldmatrix reads the A fragments; the lf
+//      fragments are built in registers from the frame's LLRs.  mma.sync
+//      m16n8k16 (bf16 in, float32 accumulators) computes pv and pc; their
+//      C fragments plus b1, relu and bf16-packed are the A fragments of the
+//      second layer, so the first layer's outputs never leave registers.
+//      The epilogue adds b2 and the residual (read from the staged tile),
+//      writes the tile in place in shared memory and copies it out with
+//      16-byte stores: a message reads only its own row and the means, so
+//      the update is in place.
+//   2. B8, check-major (the shape of B4's check pass, fused_gnn_tc.cu): a
+//      warp takes 16 flat checks r*Z + zc a tile, dealt from a queue in the
+//      code's order (row degrees differ, the base graphs list heavy rows
+//      first).  A tile runs 2 * dmax stages (dmax: its rows' largest
+//      degree), each one member slot's rows gathered with cp.async,
+//      double-buffered across stages and into the next tile's first:
+//        W1ca stages: the features of member s of every row at (k, (zc +
+//          shift[k]) mod Z); pre_row accumulates W1ca f over all members in
+//          one float32 accumulator; after the last, times 1/degree plus b1c.
+//          pre_row stays in registers as C fragments, never in scratch.
+//        update stages: member s's features and vmean rows; pv as one
+//          product over [f | vmean | lf]; pc 16 outputs at a time, W1cf f
+//          plus pre_row plus W1cl lf (the A fragments of f held in
+//          registers); relu and bf16 pack into the second layer's A
+//          fragments; [W2v
+//          W2c]; the epilogue adds b2, the residual and the delta, and the
+//          tile goes back in place.  Each message belongs to one check, so
+//          its old features are read, for W1ca and for its own update, by
+//          the tile that writes them alone.
+//      At Z < 16 a tile spans rows of different degree (nr_2_0_4, Z = 4): a
+//      slot past a row's degree is a zero A row and writes nothing.  The
+//      deltas dte[t + 1] are staged in shared memory as bf16 in phase 1
+//      (25 KB at nr_2_0_32 h = 64); reading them from L2 as float32 in the
+//      epilogue instead measured 3% slower at the same block shape.
+// Weights, per layer, bf16 in shared memory as [out][in] rows, each padded
 // by 8 bf16 (16 bytes), not swizzled, so the eight 16-byte rows one ldmatrix
 // phase reads fall in eight different bank quads; the staged tiles are
-// padded the same way.  The wrapper packs the weights in exactly this
-// layout, padding included, so staging is a straight 16-byte copy.
+// padded the same way.  B7: W1v, W1c (h x 2h or 3h), W2 = [W2v W2c] (h x
+// 2h).  B8: W1v = [W1vf W1va (W1vl)] (h x 2h or 3h), W1c = [W1cf (W1cl)]
+// (h x h or 2h), W1ca (h x h), W2 (h x 2h): 53,248 B at h = 64 (69,632 B
+// with injection).  The wrapper packs them in exactly this layout, padding
+// included, so staging is a straight 16-byte copy.
 // Shared memory (H = 64, nr_2_0_32 Z = 32): structure, inverse degrees, the
-// frame's LLRs, embedding, b2 about 13 KB; weights 52,224 B (68,608 B with
-// injection); 13,824 B of tile buffers per warp.
+// frame's LLRs, embedding, biases about 13 KB; B7: weights 52,224 B (68,608
+// B with injection), 13,824 B of tile buffers per warp; B8: weights as
+// above, the staged deltas 25,216 B, 9,216 B of stage buffers per warp.
 //
-// Block shape: ldpc_msg_gnn_tc_plan asks the runtime's occupancy query for
-// every warp count from 1 to kMaxWarps and takes the one with the most
+// Block shape: the plan functions ask the runtime's occupancy query for
+// every warp count from 1 to kMaxWarps and take the one with the most
 // resident warps per SM (ties: the smaller block, so more frames are in
-// flight).  At H = 64 shared memory decides it: 11 warps, one block per SM
-// (8 warps before); the registers a thread are in the build log (-Xptxas
-// -v, _build.build_log) and chip_smoke.py prints them beside the plan.
+// flight).  The registers a thread are in the build log (-Xptxas -v,
+// _build.build_log) and chip_smoke.py prints them beside the plan.
 //
 // Flags: built without -fmad=false.  The only products are the mma's; every
 // elementwise multiply that is followed by an add (the embedding, the mean's
-// scale, the projection) is written with __fmul_rn / __fadd_rn, which the
-// compiler never contracts into an FMA, and the remaining float adds have no
-// multiply to contract with.  So the flag would change no result here.
+// scale, pre_row's scale, the projection) is written with __fmul_rn /
+// __fadd_rn, which the compiler never contracts into an FMA, and the
+// remaining float adds have no multiply to contract with.  So the flag
+// would change no result here.
 //
 // What bounds it on the card
 // --------------------------
-// The least work is the bound of B6/B7 in chip_smoke.py (msg_bound_ms):
+// B7: the least work is the bound of B6/B7 in chip_smoke.py (msg_bound_ms):
 // (4E + n + M) (h, h) products a layer of a frame at the dense bf16 rate,
 // 9.576 ms for the main path (nr_2_0_32 Z=32 h=64, T=20, batch 2048).  This
 // design does 6E products instead (pv and pc each carry their shared term,
@@ -94,8 +149,17 @@
 // the features (0.8 MB): about 5.2 MB, 213 GB for the batch, 64 ms at 3.35
 // TB/s if none of it stays in the 50 MB L2 (132 frames in flight hold 157
 // MB of scratch).
+// B8: the least work is msg_bound_ms' v3 count, (5E + n + 2 inj n)
+// products a layer (each message's W1ca product is the TPU kernel's own
+// formula), 11.259 ms at the main path.  This design does 6E (+ 2 inj E:
+// W1vl and W1cl per message) products, 12.8 ms at the full tensor-core rate.
+// Scratch traffic per layer of a frame: phase 1 reads the features (0.8 MB)
+// and writes vmean (0.2 MB); phase 2 gathers the features twice (1.6 MB)
+// and vmean once per message (0.8 MB) and writes the features (0.8 MB):
+// about 4.2 MB, 172 GB for the batch, 51 ms at 3.35 TB/s if none of it
+// stays in L2 (132 frames in flight hold 135 MB of scratch).
 //
-// H = 128 under this design: the weights alone are 202,752 B (268,288 B
+// H = 128 under this design: B7's weights alone are 202,752 B (268,288 B
 // with injection) and a warp's two tile buffers 26,112 B, so one block
 // does not fit the 227 KB a block can use; H = 128 needs the weights
 // streamed through shared memory a matrix at a time, or single-buffered
@@ -109,65 +173,83 @@
 namespace {
 
 constexpr int kMaxWarps = 12;
-constexpr int kTile = 16;  // messages a tile: the mma's M
+constexpr int kTile = 16;  // rows a tile: the mma's M
 
 __host__ __device__ inline int round4(int x) { return (x + 3) / 4 * 4; }
 
+// Per-kind sizes, in bf16 elements: one layer's packed weights (B7: W1v, W1c
+// of kin + 8 and W2 of 2h + 8 a row; B8: W1v of kin + 8, W1c of kin - h + 8,
+// W1ca of h + 8, W2 of 2h + 8) and the segments of a warp's tile buffer (B7:
+// f, vmean, rmean rows; B8: f, vmean rows).
+__host__ __device__ constexpr int layer_weights(int H, bool inject, bool v3) {
+  return v3 ? H * (((inject ? 3 : 2) * H + 8) + ((inject ? 2 : 1) * H + 8) + (H + 8) + (2 * H + 8))
+            : H * (2 * ((inject ? 3 : 2) * H + 8) + 2 * H + 8);
+}
+
+__host__ __device__ constexpr int tile_segments(bool v3) { return v3 ? 2 : 3; }
+
 // Compile-time shapes of one instantiation, in bf16 elements.
-template <int H, bool INJ>
+template <int H, bool INJ, bool V3>
 struct Shape {
-  static constexpr int KIN = (INJ ? 3 : 2) * H;  // first-layer inputs
-  static constexpr int WS1 = KIN + 8;            // padded row of W1v, W1c
-  static constexpr int WS2 = 2 * H + 8;          // padded row of W2
-  static constexpr int AS = H + 8;               // padded row of a staged tile
-  static constexpr int LW = H * (2 * WS1 + WS2);  // one layer's packed weights
-  static constexpr int SEG = kTile * AS;          // one staged segment (16 rows)
-  static constexpr int BUF = 3 * SEG;             // f, vmean, rmean rows of a tile
-  static constexpr int CPR = H / 8;               // 16-byte chunks a row
-  static constexpr int RPP = 32 / CPR;            // rows a warp moves per pass
-  static constexpr int NT = H / 8;                // n-tiles of an h-wide output
-  static constexpr int KT = H / 16;               // k-tiles of an h-wide input
+  static constexpr int WSV = (INJ ? 3 : 2) * H + 8;  // padded row of W1v (B7: and W1c)
+  static constexpr int WSC = (INJ ? 2 : 1) * H + 8;  // B8: padded row of W1c, f (, lf)
+  static constexpr int WSA = H + 8;                  // B8: padded row of W1ca
+  static constexpr int WS2 = 2 * H + 8;              // padded row of W2
+  static constexpr int LW = layer_weights(H, INJ, V3);
+  static constexpr int AS = H + 8;                   // padded row of a staged tile
+  static constexpr int SEG = kTile * AS;             // one staged segment (16 rows)
+  static constexpr int BUF = tile_segments(V3) * SEG;  // one tile buffer
+  static constexpr int CPR = H / 8;                  // 16-byte chunks a row
+  static constexpr int RPP = 32 / CPR;               // rows a warp moves per pass
+  static constexpr int NT = H / 8;                   // n-tiles of an h-wide output
+  static constexpr int KT = H / 16;                  // k-tiles of an h-wide input
 };
 
 struct Args {
   const float* llr;          // (B, n)
   float* soft;               // (B, n)
   int* counter;              // next frame to hand out, starts at 0
-  __nv_bfloat16* scratch;    // (grid, scratch_elems): features, vmean, rmean
+  __nv_bfloat16* scratch;    // (grid, scratch_elems): features, vmean (, rmean)
   const int* graph;          // row_ptr, row_edge, col_ptr, col_edge, shift, col, row, type
   const float* inv;          // 1/degree per column (C), then per row (R)
-  const __nv_bfloat16* w;    // (T, LW) packed: W1v, W1c, W2, padded rows
-  const float* tab;          // (T, 2, K, H): b1v, b1c per edge (type embeddings folded in)
-  const float* small;        // (T, 2H): b2 = b2v + b2c, then zeros
+  const __nv_bfloat16* w;    // (T, LW) packed, padded rows
+  const float* tab;          // B7 (T, 2, K, H): b1v, b1c per edge (type embeddings
+                             // folded in); B8 (T + 1, K, H): the delta table dte
+  const float* small;        // B7 (T, 2H): b2 = b2v + b2c, then zeros;
+                             // B8 (T, 3H): b1v, b1c, bf16(b2)
   const float* emb;          // emb_w (H), emb_b (H), proj_w (H), proj_b
   int B, Z, R, C, K, T;
 };
 
 // Byte offsets of a block's dynamic shared memory (all 16-byte aligned).
 struct Layout {
-  int graph, inv, llr, emb, b2, w, stage, total;
+  int graph, inv, llr, emb, small, w, dte, stage, total;
 };
 
 __host__ __device__ inline Layout make_layout(int H, int inject, int Z, int R, int C, int K,
-                                              int warps) {
-  const int kin = (inject ? 3 : 2) * H;
+                                              int warps, bool v3) {
   Layout L;
   int o = 0;
   L.graph = o; o += 4 * round4(6 * K + R + C + 2);
   L.inv = o; o += 4 * round4(C + R);
   L.llr = o; o += 4 * round4(C * Z);
   L.emb = o; o += 4 * round4(3 * H + 1);
-  L.b2 = o; o += 4 * H;
-  L.w = o; o += 2 * H * (2 * (kin + 8) + 2 * H + 8);
-  L.stage = o; o += warps * 2 * 2 * 3 * kTile * (H + 8);
+  L.small = o; o += 4 * (v3 ? 3 : 1) * H;  // B7: b2; B8: b1v, b1c, b2
+  L.w = o; o += 2 * layer_weights(H, inject, v3);
+  L.dte = o; o += v3 ? 2 * K * H : 0;      // B8: dte[t + 1], bf16
+  L.stage = o; o += warps * 2 * 2 * tile_segments(v3) * kTile * (H + 8);
   L.total = o;
   return L;
 }
 
-// bf16 elements of one block's scratch: features (K*Z rows), vmean (C*Z),
-// rmean (R*Z), h each.
+// bf16 elements of one block's scratch: features (K*Z rows), vmean (C*Z)
+// and, for B7, rmean (R*Z), h each.
 __host__ __device__ inline long long scratch_elems(int H, int Z, int R, int C, int K) {
   return static_cast<long long>(K + C + R) * Z * H;
+}
+
+__host__ __device__ inline long long scratch_elems_v3(int H, int Z, int C, int K) {
+  return static_cast<long long>(K + C) * Z * H;
 }
 
 __device__ __forceinline__ float bf16r(float x) {
@@ -265,52 +347,99 @@ struct Block {
   Graph g;
   const float *inv_dc, *inv_dr, *emb_w, *emb_b, *proj_w;
   float* llr;
-  float* b2;
-  __nv_bfloat16* w;      // the staged layer's W1v, W1c, W2
+  float* small;          // the staged layer's biases: B7 b2; B8 b1v, b1c, b2
+  __nv_bfloat16* w;      // the staged layer's weights
+  __nv_bfloat16* dte;    // B8: the staged dte[t + 1] (K x H)
   __nv_bfloat16* stage;  // this warp's two tile buffers
   __nv_bfloat16 *feats, *vmean, *rmean;  // global scratch, one h-row each
   float proj_b;
   int Z, R, C, K, E, n, M;
 };
 
-// Starts the copy of tile `tile`'s rows into `buf`: its messages' features,
-// their variables' vmean rows and their checks' rmean rows (rows past the
-// last message are zeros).  One commit group.
-template <int H, bool INJ>
-__device__ __forceinline__ void load_tile(const Block& b, __nv_bfloat16* buf, int tile,
-                                          int lane) {
-  using S = Shape<H, INJ>;
-  const int u = lane % S::CPR;
-#pragma unroll
-  for (int pass = 0; pass < kTile / S::RPP; ++pass) {
-    const int r = lane / S::CPR + pass * S::RPP;
-    const int i = tile * kTile + r;
-    const bool valid = i < b.E;
-    const int k = valid ? i / b.Z : 0;
-    const int z = valid ? i - k * b.Z : 0;
-    int zc = z - b.g.shift[k];
-    zc = zc < 0 ? zc + b.Z : zc;
-    const int dst = r * S::AS + u * 8;
-    cp_async16(buf + dst, b.feats + static_cast<size_t>(valid ? i : 0) * H + u * 8, valid);
-    cp_async16(buf + S::SEG + dst, b.vmean + static_cast<size_t>(b.g.col[k] * b.Z + z) * H + u * 8,
-               valid);
-    cp_async16(buf + 2 * S::SEG + dst,
-               b.rmean + static_cast<size_t>(b.g.row[k] * b.Z + zc) * H + u * 8, valid);
+// Chunk u (8 features) of the bf16 mean of group `row`: variable row (row <
+// n) or check row - n, over its members in member order.
+template <int H>
+__device__ __forceinline__ void mean_chunk(const Block& b, int row, int u) {
+  const int Z = b.Z;
+  const Graph& g = b.g;
+  float x[8];
+  float inv;
+  __nv_bfloat16* dst;
+  if (row < b.n) {
+    const int cc = row / Z, z = row - cc * Z;
+    sum_members<H>(x, b.feats, u, g.col_ptr[cc], g.col_ptr[cc + 1],
+                   [&](int j) { return g.col_edge[j] * Z + z; });
+    inv = b.inv_dc[cc];
+    dst = b.vmean + static_cast<size_t>(row) * H + u * 8;
+  } else {
+    const int rz = row - b.n, r = rz / Z, zc = rz - r * Z;
+    sum_members<H>(x, b.feats, u, g.row_ptr[r], g.row_ptr[r + 1], [&](int j) {
+      const int k = g.row_edge[j];
+      const int v = zc + g.shift[k];
+      return k * Z + (v >= Z ? v - Z : v);
+    });
+    inv = b.inv_dr[r];
+    dst = b.rmean + static_cast<size_t>(rz) * H + u * 8;
   }
-  cp_async_commit();
+  uint4 out;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) o[e] = pack_bf16(__fmul_rn(x[2 * e], inv), __fmul_rn(x[2 * e + 1], inv));
+  *reinterpret_cast<uint4*>(dst) = out;
+}
+
+// The A fragment of k-tile kt of a staged 16-row segment (rows of H + 8).
+template <int H>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* seg, int kt,
+                                       int lane) {
+  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8, acol = (lane >> 4) * 8;
+  ldmatrix_x4(a, seg + arow * (H + 8) + kt * 16 + acol);
+}
+
+// acc += a . W^T over all H outputs for one 16-column k-tile of input: a the
+// A fragment, W a padded [out][in] block in shared memory (rows of ws bf16),
+// kcol the k-tile's first input column.
+template <int H>
+__device__ __forceinline__ void mma_ktile(float (&acc)[H / 8][4], const uint32_t (&a)[4],
+                                          const __nv_bfloat16* W, int ws, int kcol, int lane) {
+  const int brow = (lane >> 4) * 8 + (lane & 7), bcol = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int p = 0; p < H / 16; ++p) {
+    uint32_t w[4];
+    ldmatrix_x4(w, W + (p * 16 + brow) * ws + kcol + bcol);
+    mma_bf16(acc[2 * p], a, w[0], w[1]);
+    mma_bf16(acc[2 * p + 1], a, w[2], w[3]);
+  }
+}
+
+// acc[0..1] = a . W^T for outputs 16p .. 16p + 15 (n-tiles 2p, 2p + 1): a
+// the A fragments of an h-wide input, W a padded [out][in] block (rows of ws
+// bf16), kcol the input's first column in it.
+template <int H>
+__device__ __forceinline__ void product16(float (&acc)[2][4], const uint32_t (&a)[H / 16][4],
+                                          const __nv_bfloat16* W, int ws, int kcol, int p,
+                                          int lane) {
+  const int brow = (lane >> 4) * 8 + (lane & 7), bcol = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[0][i] = acc[1][i] = 0.0f;
+#pragma unroll
+  for (int kt = 0; kt < H / 16; ++kt) {
+    uint32_t w[4];
+    ldmatrix_x4(w, W + (p * 16 + brow) * ws + kcol + kt * 16 + bcol);
+    mma_bf16(acc[0], a[kt], w[0], w[1]);
+    mma_bf16(acc[1], a[kt], w[2], w[3]);
+  }
 }
 
 // acc = [F | Mean | lf] . W^T over one staged tile: F and Mean are staged
 // segments (16 rows), lf the A fragments of the LLR features, W a padded
-// (H x KIN) weight block in shared memory.
+// (H x 2H, or 3H with injection) weight block in shared memory.
 template <int H, bool INJ>
 __device__ __forceinline__ void first_layer(float (&acc)[H / 8][4], const __nv_bfloat16* F,
                                             const __nv_bfloat16* Mean,
                                             const uint32_t (&lf)[H / 16][4],
                                             const __nv_bfloat16* W, int lane) {
-  using S = Shape<H, INJ>;
-  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8, acol = (lane >> 4) * 8;
-  const int brow = (lane >> 4) * 8 + (lane & 7), bcol = ((lane >> 3) & 1) * 8;
+  using S = Shape<H, INJ, false>;
 #pragma unroll
   for (int nt = 0; nt < S::NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
 #pragma unroll
@@ -319,18 +448,11 @@ __device__ __forceinline__ void first_layer(float (&acc)[H / 8][4], const __nv_b
     for (int kt = 0; kt < S::KT; ++kt) {
       uint32_t a[4];
       if (seg < 2) {
-        ldmatrix_x4(a, (seg == 0 ? F : Mean) + arow * S::AS + kt * 16 + acol);
+        load_a<H>(a, seg == 0 ? F : Mean, kt, lane);
       } else {
         a[0] = lf[kt][0]; a[1] = lf[kt][1]; a[2] = lf[kt][2]; a[3] = lf[kt][3];
       }
-      const int kcol = seg * H + kt * 16 + bcol;
-#pragma unroll
-      for (int p = 0; p < S::NT / 2; ++p) {
-        uint32_t w[4];
-        ldmatrix_x4(w, W + (p * 16 + brow) * S::WS1 + kcol);
-        mma_bf16(acc[2 * p], a, w[0], w[1]);
-        mma_bf16(acc[2 * p + 1], a, w[2], w[3]);
-      }
+      mma_ktile<H>(acc, a, W, S::WSV, seg * H + kt * 16, lane);
     }
   }
 }
@@ -356,12 +478,74 @@ __device__ __forceinline__ void relu_pack(const float (&acc)[H / 8][4], const fl
   }
 }
 
+// acc = [h1v | h1c] . [W2v W2c]^T, one float32 sum over both halves; W2 a
+// padded (H x 2H) block in shared memory.
+template <int H>
+__device__ __forceinline__ void second_layer(float (&acc)[H / 8][4],
+                                             const uint32_t (&h1v)[H / 16][4],
+                                             const uint32_t (&h1c)[H / 16][4],
+                                             const __nv_bfloat16* W2, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < H / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+#pragma unroll
+    for (int kt = 0; kt < H / 16; ++kt)
+      mma_ktile<H>(acc, side == 0 ? h1v[kt] : h1c[kt], W2, 2 * H + 8, side * H + kt * 16, lane);
+  }
+}
+
+// The lf A fragments (every k-tile) of a tile's rows g (LLR m0) and g + 8 (m1).
+template <int H>
+__device__ __forceinline__ void llr_frags(uint32_t (&lf)[H / 16][4], const Block& b, float m0,
+                                          float m1, int tig) {
+#pragma unroll
+  for (int kt = 0; kt < H / 16; ++kt) {
+    const int q = kt * 16 + 2 * tig;
+    lf[kt][0] = embed2(m0, b.emb_w, b.emb_b, q);
+    lf[kt][1] = embed2(m1, b.emb_w, b.emb_b, q);
+    lf[kt][2] = embed2(m0, b.emb_w, b.emb_b, q + 8);
+    lf[kt][3] = embed2(m1, b.emb_w, b.emb_b, q + 8);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B7: message-major tiles
+// ---------------------------------------------------------------------------
+
+// Starts the copy of tile `tile`'s rows into `buf`: its messages' features,
+// their variables' vmean rows and their checks' rmean rows (rows past the
+// last message are zeros).  One commit group.
+template <int H, bool INJ>
+__device__ __forceinline__ void load_tile(const Block& b, __nv_bfloat16* buf, int tile,
+                                          int lane) {
+  using S = Shape<H, INJ, false>;
+  const int u = lane % S::CPR;
+#pragma unroll
+  for (int pass = 0; pass < kTile / S::RPP; ++pass) {
+    const int r = lane / S::CPR + pass * S::RPP;
+    const int i = tile * kTile + r;
+    const bool valid = i < b.E;
+    const int k = valid ? i / b.Z : 0;
+    const int z = valid ? i - k * b.Z : 0;
+    int zc = z - b.g.shift[k];
+    zc = zc < 0 ? zc + b.Z : zc;
+    const int dst = r * S::AS + u * 8;
+    cp_async16(buf + dst, b.feats + static_cast<size_t>(valid ? i : 0) * H + u * 8, valid);
+    cp_async16(buf + S::SEG + dst, b.vmean + static_cast<size_t>(b.g.col[k] * b.Z + z) * H + u * 8,
+               valid);
+    cp_async16(buf + 2 * S::SEG + dst,
+               b.rmean + static_cast<size_t>(b.g.row[k] * b.Z + zc) * H + u * 8, valid);
+  }
+  cp_async_commit();
+}
+
 // One staged tile of layer t: both MLPs, the residual, the features written
 // back in place in `buf` and then to the scratch.
 template <int H, bool INJ>
 __device__ __forceinline__ void compute_tile(const Args& a, const Block& b, __nv_bfloat16* buf,
                                              int tile, int t, int lane) {
-  using S = Shape<H, INJ>;
+  using S = Shape<H, INJ, false>;
   const int g = lane >> 2, tig = lane & 3;
   const int i0 = tile * kTile + g, i1 = i0 + 8;
   const int k0 = i0 < b.E ? i0 / b.Z : b.K - 1;
@@ -372,20 +556,13 @@ __device__ __forceinline__ void compute_tile(const Args& a, const Block& b, __nv
   if constexpr (INJ) {
     const float m0 = i0 < b.E ? b.llr[b.g.col[k0] * b.Z + (i0 - k0 * b.Z)] : 0.0f;
     const float m1 = i1 < b.E ? b.llr[b.g.col[k1] * b.Z + (i1 - k1 * b.Z)] : 0.0f;
-#pragma unroll
-    for (int kt = 0; kt < S::KT; ++kt) {
-      const int q = kt * 16 + 2 * tig;
-      lf[kt][0] = embed2(m0, b.emb_w, b.emb_b, q);
-      lf[kt][1] = embed2(m1, b.emb_w, b.emb_b, q);
-      lf[kt][2] = embed2(m0, b.emb_w, b.emb_b, q + 8);
-      lf[kt][3] = embed2(m1, b.emb_w, b.emb_b, q + 8);
-    }
+    llr_frags<H>(lf, b, m0, m1, tig);
   }
 
   const float* b1 = a.tab + static_cast<size_t>(t) * 2 * b.K * H;
   const __nv_bfloat16* W1v = b.w;
-  const __nv_bfloat16* W1c = b.w + H * S::WS1;
-  const __nv_bfloat16* W2 = b.w + 2 * H * S::WS1;
+  const __nv_bfloat16* W1c = b.w + H * S::WSV;
+  const __nv_bfloat16* W2 = b.w + 2 * H * S::WSV;
   float acc[S::NT][4];
   uint32_t h1v[S::KT][4], h1c[S::KT][4];
   first_layer<H, INJ>(acc, F, buf + S::SEG, lf, W1v, lane);
@@ -393,26 +570,7 @@ __device__ __forceinline__ void compute_tile(const Args& a, const Block& b, __nv
   first_layer<H, INJ>(acc, F, buf + 2 * S::SEG, lf, W1c, lane);
   relu_pack<H>(acc, b1 + static_cast<size_t>(b.K + k0) * H,
                b1 + static_cast<size_t>(b.K + k1) * H, tig, h1c);
-
-  // Second layer: [h1v | h1c] . [W2v W2c]^T, one float32 sum over both.
-  const int brow = (lane >> 4) * 8 + (lane & 7), bcol = ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int nt = 0; nt < S::NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
-#pragma unroll
-  for (int side = 0; side < 2; ++side) {
-#pragma unroll
-    for (int kt = 0; kt < S::KT; ++kt) {
-      const uint32_t(&x)[4] = side == 0 ? h1v[kt] : h1c[kt];
-      const int kcol = side * H + kt * 16 + bcol;
-#pragma unroll
-      for (int p = 0; p < S::NT / 2; ++p) {
-        uint32_t w[4];
-        ldmatrix_x4(w, W2 + (p * 16 + brow) * S::WS2 + kcol);
-        mma_bf16(acc[2 * p], x, w[0], w[1]);
-        mma_bf16(acc[2 * p + 1], x, w[2], w[3]);
-      }
-    }
-  }
+  second_layer<H>(acc, h1v, h1c, W2, lane);
 
   // Epilogue: plus b2, bf16; the residual from layer 2 on; in place.
   const bool residual = t >= 1;
@@ -422,8 +580,8 @@ __device__ __forceinline__ void compute_tile(const Args& a, const Block& b, __nv
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       __nv_bfloat162* fp = reinterpret_cast<__nv_bfloat162*>(F + (g + 8 * rr) * S::AS + j);
-      float o0 = bf16r(__fadd_rn(acc[nt][2 * rr], b.b2[j]));
-      float o1 = bf16r(__fadd_rn(acc[nt][2 * rr + 1], b.b2[j + 1]));
+      float o0 = bf16r(__fadd_rn(acc[nt][2 * rr], b.small[j]));
+      float o1 = bf16r(__fadd_rn(acc[nt][2 * rr + 1], b.small[j + 1]));
       if (residual) {
         const float2 old = __bfloat1622float2(*fp);
         o0 = __fadd_rn(o0, old.x);
@@ -448,44 +606,17 @@ __device__ __forceinline__ void compute_tile(const Args& a, const Block& b, __nv
 // (message tiles).  Starts and ends with a barrier.
 template <int H, bool INJ>
 __device__ void layer(const Args& a, const Block& b, int t) {
-  using S = Shape<H, INJ>;
+  using S = Shape<H, INJ, false>;
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int Z = b.Z;
-  const Graph& g = b.g;
 
   const __nv_bfloat16* wl = a.w + static_cast<size_t>(t) * S::LW;
   for (int c = tid; c < S::LW / 8; c += nthreads) cp_async16(b.w + c * 8, wl + c * 8, true);
   cp_async_commit();
-  for (int j = tid; j < H; j += nthreads) b.b2[j] = a.small[static_cast<size_t>(t) * 2 * H + j];
+  for (int j = tid; j < H; j += nthreads) b.small[j] = a.small[static_cast<size_t>(t) * 2 * H + j];
 
   // Phase 1: one 16-byte chunk of one variable's or check's mean a thread.
-  for (int c = tid; c < (b.n + b.M) * S::CPR; c += nthreads) {
-    const int row = c / S::CPR, u = c - row * S::CPR;
-    float x[8];
-    float inv;
-    __nv_bfloat16* dst;
-    if (row < b.n) {
-      const int cc = row / Z, z = row - cc * Z;
-      sum_members<H>(x, b.feats, u, g.col_ptr[cc], g.col_ptr[cc + 1],
-                     [&](int j) { return g.col_edge[j] * Z + z; });
-      inv = b.inv_dc[cc];
-      dst = b.vmean + static_cast<size_t>(row) * H + u * 8;
-    } else {
-      const int rz = row - b.n, r = rz / Z, zc = rz - r * Z;
-      sum_members<H>(x, b.feats, u, g.row_ptr[r], g.row_ptr[r + 1], [&](int j) {
-        const int k = g.row_edge[j];
-        const int v = zc + g.shift[k];
-        return k * Z + (v >= Z ? v - Z : v);
-      });
-      inv = b.inv_dr[r];
-      dst = b.rmean + static_cast<size_t>(rz) * H + u * 8;
-    }
-    uint4 out;
-    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[e] = pack_bf16(__fmul_rn(x[2 * e], inv), __fmul_rn(x[2 * e + 1], inv));
-    *reinterpret_cast<uint4*>(dst) = out;
-  }
+  for (int c = tid; c < (b.n + b.M) * S::CPR; c += nthreads)
+    mean_chunk<H>(b, c / S::CPR, c % S::CPR);
   cp_async_wait<0>();
   __syncthreads();  // means, weights and b2 visible to the whole block
 
@@ -511,15 +642,299 @@ __device__ void layer(const Args& a, const Block& b, int t) {
   __syncthreads();
 }
 
+// ---------------------------------------------------------------------------
+// B8: check-major tiles
+// ---------------------------------------------------------------------------
+
+// The next tile for this warp from the block's queue (lane 0 takes it, every
+// lane gets it).
+__device__ __forceinline__ int next_tile(int* queue, int lane) {
+  int tile = 0;
+  if (lane == 0) tile = atomicAdd(queue, 1);
+  return __shfl_sync(0xffffffffu, tile, 0);
+}
+
+// A tile row: its base row, its lane zc, its first member slot and its
+// degree (0: no row).
+struct TileRow {
+  int grp, z, j0, d;
+};
+
+__device__ __forceinline__ TileRow tile_row(const Block& b, int tile, int r) {
+  TileRow t{0, 0, 0, 0};
+  const int i = tile * kTile + r;
+  if (i < b.M) {
+    t.grp = i / b.Z;
+    t.z = i - t.grp * b.Z;
+    t.j0 = b.g.row_ptr[t.grp];
+    t.d = b.g.row_ptr[t.grp + 1] - t.j0;
+  }
+  return t;
+}
+
+// Member slot s of a tile row: its base edge k and lane v = (zc + shift[k])
+// mod Z, so its message is k*Z + v and its variable col[k]*Z + v; ok is
+// false past the row's degree.
+struct Member {
+  int k, v;
+  bool ok;
+};
+
+__device__ __forceinline__ Member member_of(const Block& b, const TileRow& r, int s) {
+  Member m{0, 0, false};
+  if (s < r.d) {
+    m.k = b.g.row_edge[r.j0 + s];
+    const int v = r.z + b.g.shift[m.k];
+    m.v = v >= b.Z ? v - b.Z : v;
+    m.ok = true;
+  }
+  return m;
+}
+
+// The largest degree of a tile's 16 rows (every lane gets it).
+__device__ __forceinline__ int tile_degree(const Block& b, int tile, int lane) {
+  return __reduce_max_sync(0xffffffffu, tile_row(b, tile, lane & 15).d);
+}
+
+// Starts the copy of stage st of tile `tile` (dmax its largest degree) into
+// `buf`: st < dmax, the features of member slot st of every row; st >= dmax,
+// the features and vmean rows of member slot st - dmax (zero rows where a
+// row has no such member).  One commit group.
 template <int H, bool INJ>
-__global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_v2_tc_kernel(const Args a) {
-  using S = Shape<H, INJ>;
+__device__ __forceinline__ void load_stage(const Block& b, __nv_bfloat16* buf, int tile, int st,
+                                           int dmax, int lane) {
+  using S = Shape<H, INJ, true>;
+  const bool update = st >= dmax;
+  const int s = update ? st - dmax : st;
+  const int u = lane % S::CPR;
+#pragma unroll
+  for (int pass = 0; pass < kTile / S::RPP; ++pass) {
+    const int r = lane / S::CPR + pass * S::RPP;
+    const Member m = member_of(b, tile_row(b, tile, r), s);
+    const int dst = r * S::AS + u * 8;
+    cp_async16(buf + dst, b.feats + static_cast<size_t>(m.k * b.Z + m.v) * H + u * 8, m.ok);
+    if (update)
+      cp_async16(buf + S::SEG + dst,
+                 b.vmean + static_cast<size_t>(b.g.col[m.k] * b.Z + m.v) * H + u * 8, m.ok);
+  }
+  cp_async_commit();
+}
+
+// Update stage of member slot s of a tile (rows r0 = g, r1 = g + 8 of this
+// thread): both MLPs with pre_row from registers, b2, the residual and the
+// delta; the tile's rows written back in place in `buf`, then to the scratch.
+template <int H, bool INJ>
+__device__ __forceinline__ void update_members(const Block& b, __nv_bfloat16* buf,
+                                               const float (&pre)[H / 8][4], const TileRow& r0,
+                                               const TileRow& r1, int tile, int s, int t,
+                                               int lane) {
+  using S = Shape<H, INJ, true>;
+  const int g = lane >> 2, tig = lane & 3;
+  const Member m0 = member_of(b, r0, s), m1 = member_of(b, r1, s);
+  __nv_bfloat16* F = buf;
+  const __nv_bfloat16* W1v = b.w;
+  const __nv_bfloat16* W1c = W1v + H * S::WSV;
+  const __nv_bfloat16* W2 = W1c + H * (S::WSC + S::WSA);
+  const float* b1v = b.small;
+  const float* b2 = b.small + 2 * H;
+
+  uint32_t lf[H / 16][4];
+  if constexpr (INJ)
+    llr_frags<H>(lf, b, m0.ok ? b.llr[b.g.col[m0.k] * b.Z + m0.v] : 0.0f,
+                 m1.ok ? b.llr[b.g.col[m1.k] * b.Z + m1.v] : 0.0f, tig);
+
+  float acc[S::NT][4];
+  uint32_t h1v[S::KT][4], h1c[S::KT][4];
+  // pv = [f | vmean | lf] . W1v^T + b1v
+  first_layer<H, INJ>(acc, F, buf + S::SEG, lf, W1v, lane);
+#pragma unroll
+  for (int p = 0; p < S::KT; ++p) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int nt = 2 * p + half;
+      const float2 u = *reinterpret_cast<const float2*>(b1v + nt * 8 + 2 * tig);
+      h1v[p][2 * half] = pack_bf16(fmaxf(__fadd_rn(acc[nt][0], u.x), 0.0f),
+                                   fmaxf(__fadd_rn(acc[nt][1], u.y), 0.0f));
+      h1v[p][2 * half + 1] = pack_bf16(fmaxf(__fadd_rn(acc[nt][2], u.x), 0.0f),
+                                       fmaxf(__fadd_rn(acc[nt][3], u.y), 0.0f));
+    }
+  }
+  // pc = ((W1cf f) + pre_row) + W1cl lf, 16 outputs at a time
+  {
+    uint32_t fa[S::KT][4];
+#pragma unroll
+    for (int kt = 0; kt < S::KT; ++kt) load_a<H>(fa[kt], F, kt, lane);
+#pragma unroll
+    for (int p = 0; p < S::KT; ++p) {
+      float x[2][4];
+      product16<H>(x, fa, W1c, S::WSC, 0, p, lane);
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[half][i] = __fadd_rn(x[half][i], pre[2 * p + half][i]);
+      if constexpr (INJ) {
+        float l[2][4];
+        product16<H>(l, lf, W1c, S::WSC, H, p, lane);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x[half][i] = __fadd_rn(x[half][i], l[half][i]);
+      }
+      h1c[p][0] = pack_bf16(fmaxf(x[0][0], 0.0f), fmaxf(x[0][1], 0.0f));
+      h1c[p][1] = pack_bf16(fmaxf(x[0][2], 0.0f), fmaxf(x[0][3], 0.0f));
+      h1c[p][2] = pack_bf16(fmaxf(x[1][0], 0.0f), fmaxf(x[1][1], 0.0f));
+      h1c[p][3] = pack_bf16(fmaxf(x[1][2], 0.0f), fmaxf(x[1][3], 0.0f));
+    }
+  }
+  second_layer<H>(acc, h1v, h1c, W2, lane);
+
+  // Epilogue: out = bf16(acc + b2); f = bf16(out + d) at t = 0, else
+  // bf16(bf16(out + f) + d); in place.
+#pragma unroll
+  for (int nt = 0; nt < S::NT; ++nt) {
+    const int j = nt * 8 + 2 * tig;
+    const float2 bb = *reinterpret_cast<const float2*>(b2 + j);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      __nv_bfloat162* fp = reinterpret_cast<__nv_bfloat162*>(F + (g + 8 * rr) * S::AS + j);
+      const float2 d = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(b.dte + (rr == 0 ? m0.k : m1.k) * H + j));
+      float o0 = bf16r(__fadd_rn(acc[nt][2 * rr], bb.x));
+      float o1 = bf16r(__fadd_rn(acc[nt][2 * rr + 1], bb.y));
+      if (t >= 1) {
+        const float2 old = __bfloat1622float2(*fp);
+        o0 = bf16r(__fadd_rn(o0, old.x));
+        o1 = bf16r(__fadd_rn(o1, old.y));
+      }
+      *fp = __floats2bfloat162_rn(__fadd_rn(o0, d.x), __fadd_rn(o1, d.y));
+    }
+  }
+  __syncwarp();
+  const int u = lane % S::CPR;
+#pragma unroll
+  for (int pass = 0; pass < kTile / S::RPP; ++pass) {
+    const int r = lane / S::CPR + pass * S::RPP;
+    const Member m = member_of(b, tile_row(b, tile, r), s);
+    if (m.ok)
+      *reinterpret_cast<uint4*>(b.feats + static_cast<size_t>(m.k * b.Z + m.v) * H + u * 8) =
+          *reinterpret_cast<const uint4*>(F + r * S::AS + u * 8);
+  }
+}
+
+// Phase 2 of B8's layer t for one warp: check tiles from `queue` until none
+// is left.  Each tile runs dmax W1ca stages, then dmax update stages; the
+// next stage's rows (at the tile's last, the next tile's first) load while
+// a stage computes.
+template <int H, bool INJ>
+__device__ __forceinline__ void check_tiles(const Args& a, const Block& b, int t, int* queue) {
+  using S = Shape<H, INJ, true>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+  const int ntiles = (b.M + kTile - 1) / kTile;
+  const __nv_bfloat16* W1ca = b.w + H * (S::WSV + S::WSC);
+  const float* b1c = b.small + H;
+  __nv_bfloat16* bufs[2] = {b.stage, b.stage + S::BUF};
+  int cur = 0;
+  int tile = next_tile(queue, lane);
+  int dmax = tile < ntiles ? tile_degree(b, tile, lane) : 0;
+  if (tile < ntiles) load_stage<H, INJ>(b, bufs[0], tile, 0, dmax, lane);
+  while (tile < ntiles) {
+    const int next = next_tile(queue, lane);
+    const int dnext = next < ntiles ? tile_degree(b, next, lane) : 0;
+    const TileRow r0 = tile_row(b, tile, g), r1 = tile_row(b, tile, g + 8);
+    // Waits for stage st's rows, with the following stage's in flight.
+    auto arrive = [&](int st) {
+      if (st + 1 < 2 * dmax) {
+        load_stage<H, INJ>(b, bufs[cur ^ 1], tile, st + 1, dmax, lane);
+        cp_async_wait<1>();
+      } else if (next < ntiles) {
+        load_stage<H, INJ>(b, bufs[cur ^ 1], next, 0, dnext, lane);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();
+    };
+
+    // pre_row = (sum over members of W1ca f) * (1 / degree) + b1c.
+    float pre[S::NT][4];
+#pragma unroll
+    for (int nt = 0; nt < S::NT; ++nt) pre[nt][0] = pre[nt][1] = pre[nt][2] = pre[nt][3] = 0.0f;
+    for (int s = 0; s < dmax; ++s) {
+      arrive(s);
+#pragma unroll
+      for (int kt = 0; kt < S::KT; ++kt) {
+        uint32_t fa[4];
+        load_a<H>(fa, bufs[cur], kt, lane);
+        mma_ktile<H>(pre, fa, W1ca, S::WSA, kt * 16, lane);
+      }
+      __syncwarp();  // this buffer is read out before it is loaded again
+      cur ^= 1;
+    }
+    {
+      const float inv0 = r0.d > 0 ? b.inv_dr[r0.grp] : 0.0f;
+      const float inv1 = r1.d > 0 ? b.inv_dr[r1.grp] : 0.0f;
+#pragma unroll
+      for (int nt = 0; nt < S::NT; ++nt) {
+        const float2 bv = *reinterpret_cast<const float2*>(b1c + nt * 8 + 2 * tig);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pre[nt][i] = __fadd_rn(__fmul_rn(pre[nt][i], i < 2 ? inv0 : inv1), (i & 1) ? bv.y : bv.x);
+      }
+    }
+
+    for (int s = 0; s < dmax; ++s) {
+      arrive(dmax + s);
+      update_members<H, INJ>(b, bufs[cur], pre, r0, r1, tile, s, t, lane);
+      __syncwarp();
+      cur ^= 1;
+    }
+    tile = next;
+    dmax = dnext;
+  }
+}
+
+// B8's layer t of one frame: phase 1 (variable means; the weights, biases
+// and deltas stage meanwhile), phase 2 (check tiles).  Starts and ends with
+// a barrier.
+template <int H, bool INJ>
+__device__ void layer_v3(const Args& a, const Block& b, int t, int* queue) {
+  using S = Shape<H, INJ, true>;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+
+  const __nv_bfloat16* wl = a.w + static_cast<size_t>(t) * S::LW;
+  for (int c = tid; c < S::LW / 8; c += nthreads) cp_async16(b.w + c * 8, wl + c * 8, true);
+  cp_async_commit();
+  for (int j = tid; j < 3 * H; j += nthreads)
+    b.small[j] = a.small[static_cast<size_t>(t) * 3 * H + j];
+  const float4* d = reinterpret_cast<const float4*>(a.tab + static_cast<size_t>(t + 1) * b.K * H);
+  for (int i = tid; i < b.K * H / 4; i += nthreads) {
+    const float4 x = __ldg(d + i);
+    reinterpret_cast<uint2*>(b.dte)[i] = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+  }
+  if (tid == 0) *queue = 0;
+
+  // Phase 1: one 16-byte chunk of one variable's mean a thread.
+  for (int c = tid; c < b.n * S::CPR; c += nthreads) mean_chunk<H>(b, c / S::CPR, c % S::CPR);
+  cp_async_wait<0>();
+  __syncthreads();  // vmean, weights, biases, deltas and the queue visible to the whole block
+
+  check_tiles<H, INJ>(a, b, t, queue);
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// The frame loop both kernels share
+// ---------------------------------------------------------------------------
+
+template <int H, bool INJ, bool V3>
+__device__ __forceinline__ void decode_frames(const Args& a) {
+  using S = Shape<H, INJ, V3>;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_frame;
+  __shared__ int s_frame, s_queue;
   const int Z = a.Z, R = a.R, C = a.C, K = a.K;
   const int n = C * Z;
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const Layout L = make_layout(H, INJ, Z, R, C, K, nthreads / 32);
+  const Layout L = make_layout(H, INJ, Z, R, C, K, nthreads / 32, V3);
 
   int* s_graph = reinterpret_cast<int*>(smem + L.graph);
   float* s_inv = reinterpret_cast<float*>(smem + L.inv);
@@ -542,10 +957,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_v2_tc_kernel(const 
   b.emb_b = s_emb + H;
   b.proj_w = s_emb + 2 * H;
   b.llr = reinterpret_cast<float*>(smem + L.llr);
-  b.b2 = reinterpret_cast<float*>(smem + L.b2);
+  b.small = reinterpret_cast<float*>(smem + L.small);
   b.w = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
+  b.dte = reinterpret_cast<__nv_bfloat16*>(smem + L.dte);
   b.stage = reinterpret_cast<__nv_bfloat16*>(smem + L.stage) + (tid >> 5) * 2 * S::BUF;
-  b.feats = a.scratch + static_cast<size_t>(blockIdx.x) * scratch_elems(H, Z, R, C, K);
+  b.feats = a.scratch + static_cast<size_t>(blockIdx.x) *
+                            (V3 ? scratch_elems_v3(H, Z, C, K) : scratch_elems(H, Z, R, C, K));
   b.vmean = b.feats + static_cast<size_t>(K) * Z * H;
   b.rmean = b.vmean + static_cast<size_t>(n) * H;
   b.Z = Z;
@@ -569,7 +986,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_v2_tc_kernel(const 
     for (int i = tid; i < n; i += nthreads) b.llr[i] = llr_f[i];
     __syncthreads();
 
-    // Seed: every message's features from its variable's LLR, 8 a thread.
+    // Seed: every message's features from its variable's LLR (B8: plus te_0,
+    // block 0 of the delta table), 8 a thread.
     for (int c = tid; c < b.E * S::CPR; c += nthreads) {
       const int i = c / S::CPR, u = c - i * S::CPR;
       const int k = i / Z, z = i - k * Z;
@@ -577,12 +995,26 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_v2_tc_kernel(const 
       uint4 out;
       uint32_t* o = reinterpret_cast<uint32_t*>(&out);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[e] = embed2(m, b.emb_w, b.emb_b, u * 8 + 2 * e);
+      for (int e = 0; e < 4; ++e) {
+        const int q = u * 8 + 2 * e;
+        if constexpr (V3) {
+          const float2 d = __ldg(reinterpret_cast<const float2*>(a.tab + k * H + q));
+          o[e] = pack_bf16(__fadd_rn(__fadd_rn(__fmul_rn(m, b.emb_w[q]), b.emb_b[q]), d.x),
+                           __fadd_rn(__fadd_rn(__fmul_rn(m, b.emb_w[q + 1]), b.emb_b[q + 1]), d.y));
+        } else {
+          o[e] = embed2(m, b.emb_w, b.emb_b, q);
+        }
+      }
       *reinterpret_cast<uint4*>(b.feats + static_cast<size_t>(i) * H + u * 8) = out;
     }
     __syncthreads();
 
-    for (int t = 0; t < a.T; ++t) layer<H, INJ>(a, b, t);
+    for (int t = 0; t < a.T; ++t) {
+      if constexpr (V3)
+        layer_v3<H, INJ>(a, b, t, &s_queue);
+      else
+        layer<H, INJ>(a, b, t);
+    }
 
     // Output: per variable, the sum over its messages of their projection
     // plus proj_b, then the sigmoid of the bit-1 logit.
@@ -611,36 +1043,40 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_v2_tc_kernel(const 
   }
 }
 
+// B7, _kernel_v2: message-major tiles, the type embeddings in per-edge biases.
+template <int H, bool INJ>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_v2_tc_kernel(const Args a) {
+  decode_frames<H, INJ, false>(a);
+}
+
+// B8, _kernel_v3: check-major tiles, the type embeddings in the features,
+// pre_row in registers.
+template <int H, bool INJ>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_v3_tc_kernel(const Args a) {
+  decode_frames<H, INJ, true>(a);
+}
+
 using KernelFn = void (*)(const Args);
 
-KernelFn pick_kernel(int H, int inject) {
+KernelFn pick_kernel(bool v3, int H, int inject) {
   switch (H) {
-    case 16: return inject ? msg_gnn_v2_tc_kernel<16, true> : msg_gnn_v2_tc_kernel<16, false>;
-    case 64: return inject ? msg_gnn_v2_tc_kernel<64, true> : msg_gnn_v2_tc_kernel<64, false>;
+    case 16:
+      if (v3) return inject ? msg_gnn_v3_tc_kernel<16, true> : msg_gnn_v3_tc_kernel<16, false>;
+      return inject ? msg_gnn_v2_tc_kernel<16, true> : msg_gnn_v2_tc_kernel<16, false>;
+    case 64:
+      if (v3) return inject ? msg_gnn_v3_tc_kernel<64, true> : msg_gnn_v3_tc_kernel<64, false>;
+      return inject ? msg_gnn_v2_tc_kernel<64, true> : msg_gnn_v2_tc_kernel<64, false>;
   }
   return nullptr;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Bytes of dynamic shared memory one block of `warps` warps needs.
-long long ldpc_msg_gnn_tc_smem_bytes(int H, int inject, int Z, int R, int C, int K, int warps) {
-  return make_layout(H, inject, Z, R, C, K, warps).total;
-}
-
-// Floats of global scratch one block needs (bf16 features and means).
-long long ldpc_msg_gnn_tc_scratch_floats(int H, int Z, int R, int C, int K) {
-  return scratch_elems(H, Z, R, C, K) / 2;
-}
-
 // The block shape: for each warp count 1..kMaxWarps the runtime's occupancy
 // query; *warps, *blocks of the count with the most resident warps per SM
-// (ties: the fewer warps a block).  Returns a cudaError_t; 0 blocks where
-// not even one warp's block fits.
-int ldpc_msg_gnn_tc_plan(int H, int inject, int Z, int R, int C, int K, int* warps, int* blocks) {
-  KernelFn kernel = pick_kernel(H, inject);
+// (ties: the fewer warps a block).  smem(w) is the dynamic shared memory of
+// a block of w warps.  Returns a cudaError_t; 0 blocks where not even one
+// warp's block fits.
+template <typename Smem>
+int plan_blocks(KernelFn kernel, Smem&& smem_of, int* warps, int* blocks) {
   *warps = 0;
   *blocks = 0;
   if (kernel == nullptr) return cudaErrorInvalidValue;
@@ -650,7 +1086,7 @@ int ldpc_msg_gnn_tc_plan(int H, int inject, int Z, int R, int C, int K, int* war
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
   for (int w = 1; w <= kMaxWarps; ++w) {
-    const long long smem = make_layout(H, inject, Z, R, C, K, w).total;
+    const long long smem = smem_of(w);
     if (smem > optin) break;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
@@ -666,19 +1102,21 @@ int ldpc_msg_gnn_tc_plan(int H, int inject, int Z, int R, int C, int K, int* war
   return cudaSuccess;
 }
 
-// Launches msg_gnn_v2_tc_kernel on `stream` with `grid` blocks of `warps`
-// warps, no sync.  `counter` must hold 0.  Returns a cudaError_t.
-int ldpc_msg_gnn_v2(int H, const void* llr, void* soft, void* counter, void* scratch,
-                    const void* graph, const void* inv, const void* w, const void* tab,
-                    const void* small, const void* emb, int B, int Z, int R, int C, int K, int T,
-                    int inject, int grid, int warps, void* stream) {
-  KernelFn kernel = pick_kernel(H, inject);
-  if (kernel == nullptr || grid < 1 || B < 1 || T < 1 || warps < 1 || warps > kMaxWarps)
+// Launches `kernel` with `grid` blocks of `warps` warps and `smem` bytes of
+// dynamic shared memory on `stream`, no sync.
+int launch(KernelFn kernel, const Args& a, int grid, int warps, long long smem, void* stream) {
+  if (kernel == nullptr || grid < 1 || a.B < 1 || a.T < 1 || warps < 1 || warps > kMaxWarps)
     return cudaErrorInvalidValue;
-  const long long smem = make_layout(H, inject, Z, R, C, K, warps).total;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
+}
+
+Args make_args(const void* llr, void* soft, void* counter, void* scratch, const void* graph,
+               const void* inv, const void* w, const void* tab, const void* small,
+               const void* emb, int B, int Z, int R, int C, int K, int T) {
   Args a;
   a.llr = static_cast<const float*>(llr);
   a.soft = static_cast<float*>(soft);
@@ -696,8 +1134,71 @@ int ldpc_msg_gnn_v2(int H, const void* llr, void* soft, void* counter, void* scr
   a.C = C;
   a.K = K;
   a.T = T;
-  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  return a;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of dynamic shared memory one B7 block of `warps` warps needs.
+long long ldpc_msg_gnn_tc_smem_bytes(int H, int inject, int Z, int R, int C, int K, int warps) {
+  return make_layout(H, inject, Z, R, C, K, warps, false).total;
+}
+
+// Floats of global scratch one B7 block needs (bf16 features and means).
+long long ldpc_msg_gnn_tc_scratch_floats(int H, int Z, int R, int C, int K) {
+  return scratch_elems(H, Z, R, C, K) / 2;
+}
+
+// B7's block shape (plan_blocks).  Returns a cudaError_t.
+int ldpc_msg_gnn_tc_plan(int H, int inject, int Z, int R, int C, int K, int* warps, int* blocks) {
+  return plan_blocks(pick_kernel(false, H, inject),
+                     [&](int w) { return make_layout(H, inject, Z, R, C, K, w, false).total; },
+                     warps, blocks);
+}
+
+// Launches msg_gnn_v2_tc_kernel on `stream` with `grid` blocks of `warps`
+// warps, no sync.  `counter` must hold 0.  Returns a cudaError_t.
+int ldpc_msg_gnn_v2(int H, const void* llr, void* soft, void* counter, void* scratch,
+                    const void* graph, const void* inv, const void* w, const void* tab,
+                    const void* small, const void* emb, int B, int Z, int R, int C, int K, int T,
+                    int inject, int grid, int warps, void* stream) {
+  return launch(pick_kernel(false, H, inject),
+                make_args(llr, soft, counter, scratch, graph, inv, w, tab, small, emb, B, Z, R, C,
+                          K, T),
+                grid, warps, make_layout(H, inject, Z, R, C, K, warps, false).total, stream);
+}
+
+// Bytes of dynamic shared memory one B8 block of `warps` warps needs.
+long long ldpc_msg_gnn_v3_tc_smem_bytes(int H, int inject, int Z, int R, int C, int K, int warps) {
+  return make_layout(H, inject, Z, R, C, K, warps, true).total;
+}
+
+// Floats of global scratch one B8 block needs (bf16 features and vmean).
+long long ldpc_msg_gnn_v3_tc_scratch_floats(int H, int Z, int C, int K) {
+  return scratch_elems_v3(H, Z, C, K) / 2;
+}
+
+// B8's block shape (plan_blocks).  Returns a cudaError_t.
+int ldpc_msg_gnn_v3_tc_plan(int H, int inject, int Z, int R, int C, int K, int* warps,
+                            int* blocks) {
+  return plan_blocks(pick_kernel(true, H, inject),
+                     [&](int w) { return make_layout(H, inject, Z, R, C, K, w, true).total; },
+                     warps, blocks);
+}
+
+// Launches msg_gnn_v3_tc_kernel on `stream` with `grid` blocks of `warps`
+// warps, no sync.  `counter` must hold 0; `tab` is the delta table (T + 1,
+// K, H), `small` (T, 3H).  Returns a cudaError_t.
+int ldpc_msg_gnn_v3(int H, const void* llr, void* soft, void* counter, void* scratch,
+                    const void* graph, const void* inv, const void* w, const void* tab,
+                    const void* small, const void* emb, int B, int Z, int R, int C, int K, int T,
+                    int inject, int grid, int warps, void* stream) {
+  return launch(pick_kernel(true, H, inject),
+                make_args(llr, soft, counter, scratch, graph, inv, w, tab, small, emb, B, Z, R, C,
+                          K, T),
+                grid, warps, make_layout(H, inject, Z, R, C, K, warps, true).total, stream);
 }
 
 const char* ldpc_msg_gnn_tc_cuda_error_string(int err) {

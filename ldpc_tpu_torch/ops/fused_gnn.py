@@ -26,9 +26,11 @@ message GNN (``create_message_gnn_decoder``):
 * ``msg_gnn_v2`` (replaces ``pallas_gnn._kernel_v2``; ``fused_msg_gnn_tc.cu``,
   its message products as tensor-core tiles): the same function with the
   second layer's two halves summed in float32 and rounded once.
-* ``msg_gnn_v3`` (replaces ``pallas_gnn._kernel_v3``): the type embeddings
-  ride in the features (``_extract_v3``, the delta table ``dte``), the
-  check side projects each message and averages in float32, b2 is bf16.
+* ``msg_gnn_v3`` (replaces ``pallas_gnn._kernel_v3``; ``fused_msg_gnn_tc.cu``,
+  check-major tensor-core tiles that keep the check side's sum in
+  registers): the type embeddings ride in the features (``_extract_v3``,
+  the delta table ``dte``), the check side projects each message and
+  averages in float32, b2 is bf16.
 * ``msg_gnn_v4`` (replaces ``pallas_gnn._kernel_v4``): v3's folds on
   ``msg_gnn_v2``'s layer, the last layer folded into thin rows through the
   output projection (``w2last``, ``proj8``, ``dsc``).
@@ -51,8 +53,9 @@ second-layer outputs and their sum.  The first- and second-layer weights,
 and ``corrected_v2``'s folded ``w2p`` and ``cconst``, are rounded to bf16
 when the decoder is built.  Those of the fully-neural decoders are listed in
 the headers of ``csrc/fused_msg_gnn.cu`` and ``csrc/fused_msg_gnn_tc.cu``.
-The tensor-core kernels (``corrected_v2``, ``msg_gnn_v2``) sum each product
-in another float32 order than the plain version; nothing else differs.
+The tensor-core kernels (``corrected_v2``, ``msg_gnn_v2``, ``msg_gnn_v3``)
+sum each product in another float32 order than the plain version; nothing
+else differs.
 Products accumulate in float32.
 """
 from __future__ import annotations
@@ -857,14 +860,16 @@ def make_fused_corrected_gnn_decoder_v2(
 # The fully-neural message GNN: tables, plain version, launch
 # ---------------------------------------------------------------------------
 
-# The kernels of csrc/fused_msg_gnn.cu by variant; msg_gnn_v2 is csrc/fused_msg_gnn_tc.cu's.
-MSG_VARIANT = {"msg_gnn": 6, "msg_gnn_v3": 8, "msg_gnn_v4": 9}
-_MSG_ENTRY = {"msg_gnn": "ldpc_msg_gnn", "msg_gnn_v3": "ldpc_msg_gnn_v3",
-              "msg_gnn_v4": "ldpc_msg_gnn_v4"}
+# The kernels of csrc/fused_msg_gnn.cu by variant; msg_gnn_v2 and msg_gnn_v3
+# are csrc/fused_msg_gnn_tc.cu's.
+MSG_VARIANT = {"msg_gnn": 6, "msg_gnn_v4": 9}
+_MSG_ENTRY = {"msg_gnn": "ldpc_msg_gnn", "msg_gnn_v4": "ldpc_msg_gnn_v4"}
 _FOLDED = ("msg_gnn_v3", "msg_gnn_v4")  # the type embeddings ride in the features
 _MSG_THREADS = 256  # kThreads in csrc/fused_msg_gnn.cu
-_TC = "msg_gnn_v2"  # the tensor-core kernel
-_TILE = 16  # kTile in csrc/fused_msg_gnn_tc.cu: messages a tile
+_TC = "msg_gnn_v2"  # the message-major tensor-core kernel
+_TC_V3 = "msg_gnn_v3"  # the check-major tensor-core kernel
+_TC_KINDS = (_TC, _TC_V3)
+_TILE = 16  # kTile in csrc/fused_msg_gnn_tc.cu: messages (v3: checks) a tile
 
 
 def tc_row_widths(h: int, inject: bool) -> tuple[int, int]:
@@ -873,17 +878,29 @@ def tc_row_widths(h: int, inject: bool) -> tuple[int, int]:
     return (3 if inject else 2) * h + 8, 2 * h + 8
 
 
-def pack_tc_weights(w: torch.Tensor, inject: bool) -> torch.Tensor:
-    """``_MsgTables.w`` (T, 8, h, h), bf16 values as float32 -> the
-    ``msg_gnn_v2`` kernel's packed bf16 layout (T, h * (2 * ws1 + ws2)), as
-    it stages it in shared memory: W1v = [W1vf W1va (W1vl)] and W1c = [W1cf
-    W1ca (W1cl)] (h rows of ws1), then W2 = [W2v W2c] (h rows of ws2), each
-    row (out) its inputs then zeros."""
-    T, _, h, _ = w.shape
+def tc_weight_blocks(h: int, inject: bool, kind: str = _TC) -> tuple:
+    """The packed matrices of one layer of a tensor-core kernel, in order:
+    ((indices into ``_MsgTables.w``, whose inputs a row concatenates),
+    padded row length in bf16).  ``msg_gnn_v2``: W1v = [W1vf W1va (W1vl)],
+    W1c = [W1cf W1ca (W1cl)], W2 = [W2v W2c].  ``msg_gnn_v3``: W1v = [W1vf
+    W1va (W1vl)], W1c = [W1cf (W1cl)], W1ca, W2 = [W2v W2c]."""
     ws1, ws2 = tc_row_widths(h, inject)
-    blocks = ((4, 0, 2), (5, 1, 3)) if inject else ((4, 0), (5, 1))  # vf va vl, cf ca cl
+    w2 = ((6, 7), ws2)
+    if kind == _TC:  # _MsgTables.w order: va, ca, vl, cl, vf, cf, W2v, W2c
+        return (((4, 0, 2) if inject else (4, 0), ws1),
+                ((5, 1, 3) if inject else (5, 1), ws1), w2)
+    return (((4, 0, 2) if inject else (4, 0), ws1),
+            ((5, 3) if inject else (5,), (2 if inject else 1) * h + 8), ((1,), h + 8), w2)
+
+
+def pack_tc_weights(w: torch.Tensor, inject: bool, kind: str = _TC) -> torch.Tensor:
+    """``_MsgTables.w`` (T, 8, h, h), bf16 values as float32 -> the ``kind``
+    tensor-core kernel's packed bf16 layout (T, h * sum of row lengths), as it
+    stages it in shared memory: the matrices of :func:`tc_weight_blocks`,
+    each h rows (out) of its inputs then zeros."""
+    T, _, h, _ = w.shape
     parts = []
-    for idx, width in ((blocks[0], ws1), (blocks[1], ws1), ((6, 7), ws2)):
+    for idx, width in tc_weight_blocks(h, inject, kind):
         rows = torch.cat([w[:, i] for i in idx], dim=2)  # (T, h, inputs)
         parts.append(torch.nn.functional.pad(rows, (0, width - rows.shape[2])).reshape(T, -1))
     return torch.cat(parts, dim=1).to(torch.bfloat16).contiguous()
@@ -895,7 +912,7 @@ class _MsgTables:
     ``w`` (T, 8, h, h): layer t's weight matrices, values rounded to bf16,
     kept as float32, order va, ca, vl, cl, vf, cf, W2v, W2c (the LLR blocks
     vl, cl are zero without injection); ``w_bf16`` the kernel's copy, for
-    ``msg_gnn_v2`` packed by :func:`pack_tc_weights`.
+    ``msg_gnn_v2`` and ``msg_gnn_v3`` packed by :func:`pack_tc_weights`.
     ``tab``: ``msg_gnn[_v2]`` (T, 2, K, h), the first-layer biases per edge,
     b1v then b1c; ``msg_gnn_v3/_v4`` (T + 1, K, h), the delta table ``dte``.
     ``small``: ``msg_gnn`` (T, 2h) b2v, b2c; ``msg_gnn_v2`` (T, 2h) b2v +
@@ -936,7 +953,7 @@ class _MsgTables:
             tab = np.stack([x["bias1v"], x["bias1c"]], axis=1).transpose(0, 1, 3, 2)
             proj_w, proj_b = x["proj_w"], x["proj_b"]
         self.w = _bf16_round(w).to(device)
-        self.w_bf16 = (pack_tc_weights(self.w, input_injection) if kind == _TC
+        self.w_bf16 = (pack_tc_weights(self.w, input_injection, kind) if kind in _TC_KINDS
                        else self.w.to(torch.bfloat16).contiguous())
         self.tab = torch.from_numpy(np.ascontiguousarray(tab, np.float32)).to(device)
         self.small = torch.from_numpy(np.ascontiguousarray(small, np.float32)).to(device)
@@ -950,20 +967,25 @@ def msg_gnn_smem_bytes(qc: QCLayout, hidden_dim: int, kind: str = "msg_gnn",
                        input_injection: bool = False, warps: int = 1) -> int:
     """Dynamic shared memory of one ``kind`` block (mirrors make_layout in
     csrc/fused_msg_gnn.cu): graph, inverse degrees, the frame's LLRs,
-    embedding and projection, the layer's biases (2h, or 3h for v3/v4),
-    v4's w2last and dsc, four (h, h) float32 weight matrices and 2h bf16 of
-    staging per thread, in 4-byte words.  ``msg_gnn_v2`` (make_layout in
-    csrc/fused_msg_gnn_tc.cu) depends on injection and on the block's
-    ``warps``: graph, inverse degrees, LLRs, embedding and projection, b2,
-    the layer's packed bf16 weights and two 16-message tile buffers a warp
-    (features, vmean and rmean rows, h + 8 bf16 each)."""
+    embedding and projection, the layer's biases (2h, or 3h for v4), v4's
+    w2last and dsc, four (h, h) float32 weight matrices and 2h bf16 of
+    staging per thread, in 4-byte words.  The tensor-core kernels
+    (make_layout in csrc/fused_msg_gnn_tc.cu) depend on injection and on the
+    block's ``warps``: graph, inverse degrees, LLRs, embedding and
+    projection, the layer's biases (v2: b2; v3: b1v, b1c, b2), its packed
+    bf16 weights (:func:`tc_weight_blocks`), v3's staged deltas (K h bf16)
+    and two stage buffers a warp (16 rows of h + 8 bf16 each of v2's
+    features, vmean and rmean; of v3's features and vmean)."""
     K, Z, C, R, h = qc.num_base_edges, qc.Z, qc.num_base_cols, qc.num_base_rows, hidden_dim
-    if kind == _TC:
-        ws1, ws2 = tc_row_widths(h, input_injection)
-        return (4 * (_r4(6 * K + R + C + 2) + _r4(C + R) + _r4(C * Z) + _r4(3 * h + 1) + h)
-                + 2 * h * (2 * ws1 + ws2) + warps * 2 * 2 * 3 * _TILE * (h + 8))
+    if kind in _TC_KINDS:
+        v3 = kind == _TC_V3
+        weights = sum(width for _, width in tc_weight_blocks(h, input_injection, kind))
+        return (4 * (_r4(6 * K + R + C + 2) + _r4(C + R) + _r4(C * Z) + _r4(3 * h + 1)
+                     + (3 * h if v3 else h))
+                + 2 * h * weights + (2 * K * h if v3 else 0)
+                + warps * 2 * 2 * (2 if v3 else 3) * _TILE * (h + 8))
     words = (_r4(6 * K + R + C + 2) + _r4(C + R) + _r4(C * Z) + _r4(3 * h + 1)
-             + (3 * h if kind in _FOLDED else 2 * h)
+             + (3 * h if kind == "msg_gnn_v4" else 2 * h)
              + (_r4(2 * h + K) if kind == "msg_gnn_v4" else 0)
              + 4 * h * h + h * _MSG_THREADS)
     return 4 * words
@@ -973,14 +995,17 @@ def msg_gnn_scratch_floats(qc: QCLayout, hidden_dim: int, input_injection: bool,
                            kind: str = "msg_gnn") -> int:
     """Global scratch of one resident block: a frame's features (bf16), its
     per-variable and per-check first-layer terms (float32; with injection the
-    LLR terms of both sides, or of the check side alone for v3/v4, whose
+    LLR terms of both sides, or of the check side alone for v4, whose
     variable side folds into the per-variable term) and v4's per-message
     output scalars.  ``msg_gnn_v2``: the features, then the variable and
-    check means, one h-row of bf16 each (no first-layer terms)."""
+    check means, one h-row of bf16 each (no first-layer terms);
+    ``msg_gnn_v3``: the features and the variable means."""
     K, Z, C, R, h = qc.num_base_edges, qc.Z, qc.num_base_cols, qc.num_base_rows, hidden_dim
     if kind == _TC:
         return (K + C + R) * Z * h // 2
-    llr_terms = (C if kind in _FOLDED else 2 * C) if input_injection else 0
+    if kind == _TC_V3:
+        return (K + C) * Z * h // 2
+    llr_terms = (C if kind == "msg_gnn_v4" else 2 * C) if input_injection else 0
     return ((C + R + llr_terms) * Z * h + K * Z * h // 2
             + (K * Z if kind == "msg_gnn_v4" else 0))
 
@@ -1145,6 +1170,10 @@ _TC_SIGNATURES = {
     "ldpc_msg_gnn_tc_smem_bytes": ([_I] * 7, ctypes.c_longlong),  # H, inject, Z, R, C, K, warps
     "ldpc_msg_gnn_tc_scratch_floats": ([_I] * 5, ctypes.c_longlong),  # H, Z, R, C, K
     "ldpc_msg_gnn_tc_plan": ([_I] * 6 + [_P, _P], _I),  # ..., *warps, *blocks
+    "ldpc_msg_gnn_v3": ([_I] + [_P] * 10 + [_I] * 9 + [_P], _I),  # as ldpc_msg_gnn_v2
+    "ldpc_msg_gnn_v3_tc_smem_bytes": ([_I] * 7, ctypes.c_longlong),  # as v2's
+    "ldpc_msg_gnn_v3_tc_scratch_floats": ([_I] * 4, ctypes.c_longlong),  # H, Z, C, K
+    "ldpc_msg_gnn_v3_tc_plan": ([_I] * 6 + [_P, _P], _I),  # as v2's
     "ldpc_msg_gnn_tc_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -1156,18 +1185,22 @@ def tc_kernel_library():
     return _build.load("fused_msg_gnn_tc", _TC_SIGNATURES)
 
 
-def msg_gnn_tc_plan(qc: QCLayout, hidden_dim: int, input_injection: bool) -> tuple[int, int]:
-    """(warps a block, blocks an SM) of the ``msg_gnn_v2`` kernel on the
-    current card: the runtime's occupancy query over every block size, the
-    most resident warps per SM (csrc/fused_msg_gnn_tc.cu)."""
+def msg_gnn_tc_plan(qc: QCLayout, hidden_dim: int, input_injection: bool,
+                    kind: str = _TC) -> tuple[int, int]:
+    """(warps a block, blocks an SM) of a tensor-core kernel (``msg_gnn_v2``
+    or ``msg_gnn_v3``) on the current card: the runtime's occupancy query
+    over every block size, the most resident warps per SM
+    (csrc/fused_msg_gnn_tc.cu)."""
     lib = tc_kernel_library()
     warps, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    rc = lib.ldpc_msg_gnn_tc_plan(hidden_dim, int(input_injection), qc.Z, qc.num_base_rows,
-                                  qc.num_base_cols, qc.num_base_edges,
-                                  ctypes.addressof(warps), ctypes.addressof(blocks))
+    dims = (hidden_dim, int(input_injection), qc.Z, qc.num_base_rows, qc.num_base_cols,
+            qc.num_base_edges)
+    out = (ctypes.addressof(warps), ctypes.addressof(blocks))
+    plan = lib.ldpc_msg_gnn_v3_tc_plan if kind == _TC_V3 else lib.ldpc_msg_gnn_tc_plan
+    rc = plan(*dims, *out)
     if rc != 0:
         msg = lib.ldpc_msg_gnn_tc_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{_TC} occupancy query failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{kind} occupancy query failed: CUDA error {rc} ({msg})")
     return warps.value, blocks.value
 
 
@@ -1175,8 +1208,8 @@ def msg_gnn_blocks_per_sm(kind: str, qc: QCLayout, hidden_dim: int,
                           input_injection: bool = False) -> int:
     """Resident blocks per SM of a fully-neural kernel (or -cudaError_t for
     the kernels of csrc/fused_msg_gnn.cu)."""
-    if kind == _TC:
-        return msg_gnn_tc_plan(qc, hidden_dim, input_injection)[1]
+    if kind in _TC_KINDS:
+        return msg_gnn_tc_plan(qc, hidden_dim, input_injection, kind)[1]
     dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
     return msg_kernel_library().ldpc_msg_gnn_occupancy(MSG_VARIANT[kind], hidden_dim, *dims)
 
@@ -1192,7 +1225,7 @@ class FusedMessageGNNDecoder(_ResidentGridDecoder):
     def __init__(self, kind: str, qc: QCLayout, params, num_iterations: int, hidden_dim: int,
                  share_layers: bool, input_injection: bool, device: torch.device):
         super().__init__(kind, qc, num_iterations, hidden_dim, input_injection)
-        self._warps = 0  # msg_gnn_v2's block size, from its plan at the first launch
+        self._warps = 0  # a tensor-core kernel's block size, from its plan at the first launch
         self.tables = _MsgTables(kind, qc, params, self.num_iterations, self.hidden_dim,
                                  share_layers, self.input_injection, device)
 
@@ -1214,7 +1247,7 @@ class FusedMessageGNNDecoder(_ResidentGridDecoder):
         if B == 0:
             return soft
         dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
-        if self.kind == _TC:
+        if self.kind in _TC_KINDS:
             return self._launch_tc(llr, soft, dims)
         lib = msg_kernel_library()
         self._launch_grid(
@@ -1231,19 +1264,21 @@ class FusedMessageGNNDecoder(_ResidentGridDecoder):
     def _launch_tc(self, llr: torch.Tensor, soft: torch.Tensor, dims: tuple) -> torch.Tensor:
         qc, h, tb, inject = self.qc, self.hidden_dim, self.tables, self.input_injection
         lib = tc_kernel_library()
+        entry = lib.ldpc_msg_gnn_v3 if self.kind == _TC_V3 else lib.ldpc_msg_gnn_v2
 
         def blocks_per_sm() -> int:
-            self._warps, blocks = msg_gnn_tc_plan(qc, h, inject)
+            self._warps, blocks = msg_gnn_tc_plan(qc, h, inject, self.kind)
             return blocks
 
-        self._launch_grid(
-            llr, blocks_per_sm, msg_gnn_scratch_floats(qc, h, inject, _TC),
-            lambda counter, scratch, grid, stream: lib.ldpc_msg_gnn_v2(
-                h, llr.data_ptr(), soft.data_ptr(), counter, scratch, tb.graph.data_ptr(),
-                tb.inv.data_ptr(), tb.w_bf16.data_ptr(), tb.tab.data_ptr(), tb.small.data_ptr(),
-                tb.emb.data_ptr(), llr.shape[0], *dims, self.num_iterations, int(inject), grid,
-                self._warps, stream),
-            lib.ldpc_msg_gnn_tc_cuda_error_string)
+        def launch(counter, scratch, grid, stream):
+            return entry(h, llr.data_ptr(), soft.data_ptr(), counter, scratch,
+                         tb.graph.data_ptr(), tb.inv.data_ptr(), tb.w_bf16.data_ptr(),
+                         tb.tab.data_ptr(), tb.small.data_ptr(), tb.emb.data_ptr(),
+                         llr.shape[0], *dims, self.num_iterations, int(inject), grid,
+                         self._warps, stream)
+
+        self._launch_grid(llr, blocks_per_sm, msg_gnn_scratch_floats(qc, h, inject, self.kind),
+                          launch, lib.ldpc_msg_gnn_tc_cuda_error_string)
         return soft
 
 
@@ -1251,7 +1286,7 @@ def _make_msg(kind: str, qc: QCLayout, params, num_iterations: int, hidden_dim: 
               share_layers: bool, input_injection: bool, device) -> FusedMessageGNNDecoder:
     _check_build(kind, num_iterations, hidden_dim,
                  msg_gnn_smem_bytes(qc, hidden_dim, kind, input_injection),
-                 "LLRs, one phase's weights and the first-layer staging" if kind != _TC
+                 "LLRs, one phase's weights and the first-layer staging" if kind not in _TC_KINDS
                  else "LLRs, one layer's weights and one warp's tile buffers", qc)
     return FusedMessageGNNDecoder(kind, qc, params, num_iterations, hidden_dim, share_layers,
                                   input_injection, resolve_device(device))

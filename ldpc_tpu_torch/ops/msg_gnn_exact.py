@@ -5,9 +5,10 @@ must agree exactly, whatever order each sums in.
 LLRs from a numpy seed whose every value is dyadic and, before the output
 projection, nonnegative: first- and second-layer weights 1/h or 2/h on a
 quarter of the entries and 0 elsewhere, biases 0 or 1/4, embedding weights
-0, 1/8 or 1/4 and biases 1/4, 1/2 or 1, no type embeddings, LLRs multiples
-of 1/2 in [0, 4]; the projection is +-1/32 with bias -1, so the decisions
-take both values.  bf16 x bf16 products are exact in float32, and a sum of
+0, 1/8 or 1/4 and biases 1/4, 1/2 or 1, no type embeddings (or, with
+``type_embeddings``, entries drawn from those values), LLRs multiples of 1/2
+in [0, 4]; the projection is +-1/32 with bias -1, so the decisions take both
+values.  bf16 x bf16 products are exact in float32, and a sum of
 terms that are all multiples of one power of two Q is exact in any order,
 and through any alignment that keeps 24 bits below its largest term, while
 the terms' magnitudes add up to less than 2**24 Q.  With no negative value
@@ -19,7 +20,13 @@ plain version on these inputs: the bar is ``torch.equal``.  The ReLUs are
 never negative here; the 3e-2 cases hold them.
 
 ``EXACT_CASES`` are the configurations the tests and ``chip_smoke.py`` hold
-to that bar.
+to that bar.  ``EXACT_TE_CASES`` add type embeddings of 0, 1/4 or 1/2
+(``EXACT_TYPE_EMBEDDINGS``) for ``msg_gnn_v3``, whose features carry them:
+its seed adds te_0 and each writeback the next block of the delta table
+(te_{t+1} - te_t), so a wrong block or edge index there shows only where
+the embeddings are not zero.  The features stay nonnegative (a writeback
+removes te_t from a value it rounded up from at least te_t), and at T = 3
+the middle block is a difference of two nonzero embeddings.
 
 ``exact_corrected_case`` does the same for the corrected min-sum GNN
 (``create_corrected_minsum_gnn_decoder``, B4).  There the messages are
@@ -67,6 +74,14 @@ EXACT_CASES = (
 )
 EXACT_SEED = 5
 
+# (code, Z, hidden_dim, batch, input_injection, share_layers, num_iterations)
+EXACT_TE_CASES = (
+    ("toy_4x8", 4, 16, 7, True, False, 3),
+    ("nr_2_0_4", 4, 64, 5, False, False, 2),
+    ("nr_2_0_32", 32, 64, 3, False, False, 3),
+)
+EXACT_TYPE_EMBEDDINGS = (0.0, 0.25, 0.5)
+
 # (code, Z, hidden_dim, batch, input_injection, share_layers, early_exit)
 CORRECTED_EXACT_CASES = (
     ("toy_4x8", 4, 16, 10, False, False, False),
@@ -103,8 +118,10 @@ def _set_parameters(model, rng: np.random.Generator, values: dict) -> None:
 
 
 def exact_msg_gnn_case(qc: QCLayout, hidden_dim: int, batch: int, input_injection: bool,
-                       share_layers: bool, seed: int = EXACT_SEED, num_iterations: int = 2):
-    """(model on the CPU, LLRs (batch, n) float32 numpy) of an exact case."""
+                       share_layers: bool, seed: int = EXACT_SEED, num_iterations: int = 2,
+                       type_embeddings: tuple = (0.0,)):
+    """(model on the CPU, LLRs (batch, n) float32 numpy) of an exact case;
+    every type embedding entry drawn from ``type_embeddings``."""
     from ldpc_tpu_torch.models import create_message_gnn_decoder
     from ldpc_tpu_torch.ops import qc_msg
 
@@ -122,7 +139,7 @@ def exact_msg_gnn_case(qc: QCLayout, hidden_dim: int, batch: int, input_injectio
         "Dense_1.bias": ((0.0, 0.25), 1.0),
         "output_projection.weight": ((-1.0 / 32, 1.0 / 32), 1.0),
         "output_projection.bias": ((-1.0,), 1.0),
-        "message_type_embeddings": ((0.0,), 1.0),
+        "message_type_embeddings": (tuple(type_embeddings), 1.0),
     }
     _set_parameters(model, rng, values)
     llr = (rng.integers(0, 9, (batch, qc.num_vars)) / 2.0).astype(np.float32)

@@ -16,8 +16,9 @@ corrected_v2 (tensor cores) on the exact inputs of ops/msg_gnn_exact.py:
 soft bits and conv_iter identical.  The
 trained min-sum kernel (fused_neural): bits identical.  The fully-neural GNN
 kernels (msg_gnn, msg_gnn_v2, msg_gnn_v3, msg_gnn_v4) at T=2: soft bits within
-3e-2, decisions equal where the plain version is confident; msg_gnn_v2 on the
-exact inputs of ops/msg_gnn_exact.py: identical.  The aggregation
+3e-2, decisions equal where the plain version is confident; msg_gnn_v2 and
+msg_gnn_v3 on the exact inputs of ops/msg_gnn_exact.py (msg_gnn_v3 also with
+nonzero type embeddings): identical.  The aggregation
 probe: vpu identical to its plain version, mxu within one bf16 step (the
 tensor cores' float32 sums need not round as IEEE additions do).
 """
@@ -31,6 +32,7 @@ import ldpc_tpu_torch.codes as tcodes
 from ldpc_tpu_torch.models import create_corrected_minsum_gnn_decoder
 from ldpc_tpu_torch.ops import fused_gnn as fg, fused_minsum as fm, qc_msg
 from ldpc_tpu_torch.ops.msg_gnn_exact import (CORRECTED_EXACT_CASES, EXACT_CASES,
+                                              EXACT_TE_CASES, EXACT_TYPE_EMBEDDINGS,
                                               exact_corrected_case, exact_msg_gnn_case)
 from ldpc_tpu_torch.utils import bpsk_awgn_llr
 
@@ -458,6 +460,27 @@ def test_msg_gnn_v2_exact_inputs_identical(code, Z, h, batch, inject, share):
     soft_k, soft_p = dec(llr), dec.plain(llr)
     torch.cuda.synchronize()
     assert fg.LAUNCHES["msg_gnn_v2"] == before + 1
+    assert torch.equal(soft_k, soft_p)
+
+
+@pytest.mark.parametrize("code,Z,h,batch,inject,share,T,te",
+                         [(*case, 2, (0.0,)) for case in EXACT_CASES]
+                         + [(*case, EXACT_TYPE_EMBEDDINGS) for case in EXACT_TE_CASES])
+def test_msg_gnn_v3_exact_inputs_identical(code, Z, h, batch, inject, share, T, te):
+    """B8 on inputs whose every reordered sum is exact in any order
+    (ops/msg_gnn_exact.py), with and without type embeddings: its check
+    tiles must give the plain version's soft bits exactly, so an index,
+    shift or delta-table fault shows."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph(code), Z)
+    model, llr = exact_msg_gnn_case(qc, h, batch, inject, share, num_iterations=T,
+                                    type_embeddings=te)
+    dec = fg.make_fused_gnn_decoder_v3(qc, model, T, h, share_layers=share,
+                                       input_injection=inject)
+    llr = torch.from_numpy(llr).cuda()
+    before = fg.LAUNCHES["msg_gnn_v3"]
+    soft_k, soft_p = dec(llr), dec.plain(llr)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["msg_gnn_v3"] == before + 1
     assert torch.equal(soft_k, soft_p)
 
 

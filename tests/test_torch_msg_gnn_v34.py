@@ -204,11 +204,15 @@ def test_plans_and_raising_paths():
     # biases (3h) and v4's w2last and dsc, all 4-byte words
     base = 4 * ((6 * K + R + C + 2 + 3) // 4 * 4 + (C + R + 3) // 4 * 4 + C * Z + 196
                 + 4 * 64 * 64 + 64 * 256)
-    assert tfg.msg_gnn_smem_bytes(qt, 64, "msg_gnn_v3") == base + 4 * 3 * 64
+    # v3 runs on the tensor cores (csrc/fused_msg_gnn_tc.cu make_layout):
+    # the same structure, b1v, b1c, b2, packed bf16 weights W1v, W1c, W1ca,
+    # W2 with injection, the staged deltas and one warp's two stage buffers
+    assert tfg.msg_gnn_smem_bytes(qt, 64, "msg_gnn_v3", True) == 117_776
     assert tfg.msg_gnn_smem_bytes(qt, 64, "msg_gnn_v4") == base + 4 * 3 * 64 + 4 * (
         (2 * 64 + K + 3) // 4 * 4)
     feats = K * Z * 32
-    assert tfg.msg_gnn_scratch_floats(qt, 64, True, "msg_gnn_v3") == (2 * C + R) * Z * 64 + feats
+    # v3: the features and the variable means, bf16
+    assert tfg.msg_gnn_scratch_floats(qt, 64, True, "msg_gnn_v3") == C * Z * 32 + feats
     assert tfg.msg_gnn_scratch_floats(qt, 64, False, "msg_gnn_v4") == (C + R) * Z * 64 + feats \
         + K * Z
     model = create_message_gnn_decoder(pt, num_iterations=2, hidden_dim=32)
