@@ -9,8 +9,9 @@ Phases, one JSON line each:
              process per source, all started together; the
              main-path kernels' resident blocks per SM from the runtime
              (retire_zlane's with its parts at Z=384), registers per kernel;
-             the tensor-core kernels' (msg_gnn_v2, msg_gnn_v3, corrected_v2)
-             block shapes (their occupancy plans) and registers a thread, and the
+             the tensor-core kernels' (msg_gnn, msg_gnn_v2, msg_gnn_v3,
+             msg_gnn_v4, corrected_v2) block shapes (their occupancy plans)
+             and registers a thread, and the
              HMMA (tensor-core) instructions of each of their kernels in
              cuobjdump -sass (none fails).
 3. compare — each kernel against its plain PyTorch version on the card, for
@@ -113,12 +114,14 @@ Phases, one JSON line each:
              and 64, injection and
              share_layers, seeded parameters moved by 0.02 noise: soft bits
              within 3e-2, decisions identical where the plain version is
-             confident (|p - 0.5| > 0.05).  msg_gnn_v2 and msg_gnn_v3 on the
-             exact inputs of ops/msg_gnn_exact.py (every sum exact in any
+             confident (|p - 0.5| > 0.05).  All four on the exact inputs
+             of ops/msg_gnn_exact.py (every sum they reorder exact in any
              order): identical to the plain version (torch.equal), toy_4x8
              h=16, nr_2_0_4 and nr_2_0_32 h=64, injection and share_layers;
-             msg_gnn_v3 also with nonzero type embeddings (EXACT_TE_CASES,
-             T 2 and 3), which only its delta table carries.  Then one T=3 model
+             msg_gnn_v3 and msg_gnn_v4 also with nonzero type embeddings
+             (EXACT_TE_CASES, T 2 and 3), which only their delta tables
+             carry, and msg_gnn_v4 at T=1 (its thin last layer alone).  Then
+             one T=3 model
              decoded to depth 1, 2, 3 beside the plain version's
              card-against-CPU difference (printed).
 13. msg_gnn_main — bench.py section_msg_gnn at full width: nr_2_0_32 Z=32
@@ -126,12 +129,11 @@ Phases, one JSON line each:
              first a T=2 model on the whole batch at the T=2 bar, then
              msg_gnn_v2 (as the bench serves it), msg_gnn, msg_gnn_v3 and
              msg_gnn_v4, each whole batch against the plain version:
-             decisions equal on >= 99.9%; each also at depth 1.  The
-             tensor-core kernels, msg_gnn_v2 (the bench's kernel) and
-             msg_gnn_v3, are timed in five rounds, median and every round
-             printed, and traced once each in a process of its own
-             (trace_msg_gnn: device time and launches by kernel; a second
-             profiler session in one process recorded no kernel).
+             decisions equal on >= 99.9%; each also at depth 1.  Each is
+             timed in five rounds, median and every round printed, and
+             traced once in a process of its own (trace_msg_gnn: device
+             time and launches by kernel; a second profiler session in one
+             process recorded no kernel).
 14. serve  — ldpc_tpu_torch.serve_trained_decoder with --model message_gnn
              and --model neural_minsum on the committed nr_2_0_4 checkpoints
              (defaults: batch 4096, 0 dB), BER/FER printed beside
@@ -1222,7 +1224,7 @@ MSG_TPU_LINE = {"msg_gnn": "137", "msg_gnn_v2": "295", "msg_gnn_v3": "644", "msg
 
 def msg_bound_ms(qc, h: int, T: int, inject: bool, kind: str, B: int) -> tuple[float, str]:
     """Least time for a batch of the fully-neural decode, derived in the
-    header of ldpc_tpu_torch/ops/csrc/fused_msg_gnn.cu: the (h, h) products
+    header of ldpc_tpu_torch/ops/csrc/fused_msg_gnn_tc.cu: the (h, h) products
     at the dense bf16 tensor-core rate, elementwise work at the float32 rate
     (the two run beside each other), LLRs read and soft bits written once.
     Each kernel does its own products: B8 projects every message by W1ca
@@ -1305,8 +1307,10 @@ def msg_compare(soft_k: torch.Tensor, soft_p: torch.Tensor, label: str, phase: s
 
 
 # The tensor-core kernels: (source stem, kernel template name).
-TC_KERNELS = {"msg_gnn_v2": ("fused_msg_gnn_tc", "msg_gnn_v2_tc_kernel"),
+TC_KERNELS = {"msg_gnn": ("fused_msg_gnn_tc", "msg_gnn_tc_kernel"),
+              "msg_gnn_v2": ("fused_msg_gnn_tc", "msg_gnn_v2_tc_kernel"),
               "msg_gnn_v3": ("fused_msg_gnn_tc", "msg_gnn_v3_tc_kernel"),
+              "msg_gnn_v4": ("fused_msg_gnn_tc", "msg_gnn_v4_tc_kernel"),
               "corrected_v2": ("fused_gnn_tc", "corrected_v2_tc_kernel")}
 
 
@@ -1335,9 +1339,18 @@ def tc_shape(qc, h: int, inject: bool, kind: str = "msg_gnn_v2") -> dict:
 MSG_MAIN = dict(H=64, T=20, B=2048, SNR=3.0, model_seed=11, llr_seed=12)
 
 
-def trace_msg_gnn(kind: str = "msg_gnn_v2") -> dict:
-    """One decode of the msg_gnn_main batch by a tensor-core kernel
-    (msg_gnn_v2 or msg_gnn_v3) under the profiler."""
+def msg_builders() -> dict:
+    """The four fully-neural builders by kernel name, msg_gnn_v2 (the one
+    bench.py serves) first."""
+    from ldpc_tpu_torch.ops import fused_gnn as fg
+
+    return {"msg_gnn_v2": fg.make_fused_gnn_decoder_v2, "msg_gnn": fg.make_fused_gnn_decoder,
+            "msg_gnn_v3": fg.make_fused_gnn_decoder_v3, "msg_gnn_v4": fg.make_fused_gnn_decoder_v4}
+
+
+def trace_msg_gnn(kind: str) -> dict:
+    """One decode of the msg_gnn_main batch by one fully-neural kernel under
+    the profiler."""
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
     from ldpc_tpu_torch.ops import fused_gnn as fg, qc_msg
 
@@ -1346,17 +1359,15 @@ def trace_msg_gnn(kind: str = "msg_gnn_v2") -> dict:
     model = perturbed_msg_model(qc_msg.make_plan(qc), m["T"], m["H"], False, False,
                                 seed=m["model_seed"])
     llr = llrs(qc.num_vars, m["B"], m["SNR"], seed=m["llr_seed"])
-    build = {"msg_gnn_v2": fg.make_fused_gnn_decoder_v2,
-             "msg_gnn_v3": fg.make_fused_gnn_decoder_v3}[kind]
-    dec = build(qc, model, m["T"], m["H"])
+    dec = msg_builders()[kind](qc, model, m["T"], m["H"])
     dec(llr)  # warm-up: the plan and the first launch
     return {"phase": "trace_msg_gnn", "kernel": kind, "batch": m["B"],
             **trace_split(lambda: dec(llr), kind)}
 
 
 def trace_in_child(name: str) -> dict:
-    """trace_z384, trace_gnn or trace_msg_gnn (``msg_gnn``: of msg_gnn_v2;
-    ``msg_gnn_v3``) in a process of its own: a second
+    """trace_z384, trace_gnn or trace_msg_gnn (``name`` a fully-neural
+    kernel's) in a process of its own: a second
     torch.profiler session in one process (after trace_main) recorded no
     kernel on the card.  The child loads the libraries this process built."""
     out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trace", name],
@@ -1374,11 +1385,8 @@ def msg_gnn_phases(smi: str) -> list[dict]:
                                                   EXACT_TYPE_EMBEDDINGS, exact_msg_gnn_case)
     from ldpc_tpu_torch.utils.metrics import decode_throughput
 
-    lib = fg.msg_kernel_library()
     tc_lib = fg.tc_kernel_library()
-    builders = {"msg_gnn_v2": fg.make_fused_gnn_decoder_v2, "msg_gnn": fg.make_fused_gnn_decoder,
-                "msg_gnn_v3": fg.make_fused_gnn_decoder_v3,
-                "msg_gnn_v4": fg.make_fused_gnn_decoder_v4}
+    builders = msg_builders()
     max_err = {kind: 0.0 for kind in builders}
 
     # msg_gnn_compare: T=2, h 16 and 64, injection and share_layers.
@@ -1393,27 +1401,13 @@ def msg_gnn_phases(smi: str) -> list[dict]:
             model = perturbed_msg_model(plan, 2, h, inject, share, seed=7)
             for kind, build in builders.items():
                 # the wrapper's shared-memory and scratch plans are the kernel's
-                if kind == "msg_gnn_v2":
-                    warps = fg.msg_gnn_tc_plan(qc, h, inject)[0]
-                    for w in (1, warps):
-                        assert tc_lib.ldpc_msg_gnn_tc_smem_bytes(h, int(inject), *dims, w) == \
-                            fg.msg_gnn_smem_bytes(qc, h, kind, inject, w)
-                    assert tc_lib.ldpc_msg_gnn_tc_scratch_floats(h, *dims) == \
-                        fg.msg_gnn_scratch_floats(qc, h, inject, kind)
-                elif kind == "msg_gnn_v3":
-                    warps = fg.msg_gnn_tc_plan(qc, h, inject, kind)[0]
-                    for w in (1, warps):
-                        assert tc_lib.ldpc_msg_gnn_v3_tc_smem_bytes(h, int(inject), *dims, w) == \
-                            fg.msg_gnn_smem_bytes(qc, h, kind, inject, w)
-                    assert tc_lib.ldpc_msg_gnn_v3_tc_scratch_floats(
-                        h, Z, qc.num_base_cols, qc.num_base_edges) == \
-                        fg.msg_gnn_scratch_floats(qc, h, inject, kind)
-                else:
-                    variant = fg.MSG_VARIANT[kind]
-                    assert lib.ldpc_msg_gnn_smem_bytes(variant, h, *dims) == \
-                        fg.msg_gnn_smem_bytes(qc, h, kind)
-                    assert lib.ldpc_msg_gnn_scratch_floats(variant, h, *dims, int(inject)) == \
-                        fg.msg_gnn_scratch_floats(qc, h, inject, kind)
+                entry = fg.TC_ENTRY[kind]
+                warps = fg.msg_gnn_tc_plan(qc, h, inject, kind)[0]
+                for w in (1, warps):
+                    assert getattr(tc_lib, f"{entry}_tc_smem_bytes")(h, int(inject), *dims, w) \
+                        == fg.msg_gnn_smem_bytes(qc, h, kind, inject, w)
+                assert getattr(tc_lib, f"{entry}_tc_scratch_floats")(h, *dims) == \
+                    fg.msg_gnn_scratch_floats(qc, h, kind)
                 dec = build(qc, model, 2, h, share_layers=share, input_injection=inject)
                 label = f"{kind} {code} Z={Z} h={h} B={B} T=2 inject={inject} share={share}"
                 err = msg_compare(dec(llr), dec.plain(llr), label, "msg_gnn_compare")
@@ -1421,10 +1415,12 @@ def msg_gnn_phases(smi: str) -> list[dict]:
 
     # Exact inputs (ops/msg_gnn_exact.py): every sum the tensor-core kernels
     # reorder is exact in any order, so each must equal its plain version bit
-    # for bit; msg_gnn_v3 also with nonzero type embeddings (its delta table).
-    exact = [(kind, *case, 2, (0.0,)) for kind in ("msg_gnn_v2", "msg_gnn_v3")
-             for case in EXACT_CASES]
-    exact += [("msg_gnn_v3", *case, EXACT_TYPE_EMBEDDINGS) for case in EXACT_TE_CASES]
+    # for bit; msg_gnn_v3 and msg_gnn_v4 also with nonzero type embeddings
+    # (their delta tables), msg_gnn_v4 also at T=1 (its thin last layer alone).
+    exact = [(kind, *case, 2, (0.0,)) for kind in builders for case in EXACT_CASES]
+    exact += [(kind, *case, EXACT_TYPE_EMBEDDINGS) for kind in ("msg_gnn_v3", "msg_gnn_v4")
+              for case in EXACT_TE_CASES]
+    exact += [("msg_gnn_v4", *case, 1, (0.0,)) for case in EXACT_CASES]
     for kind, code, Z, h, B, inject, share, T, te in exact:
         qc = qc_layout(get_base_graph(code), Z)
         model, llr_np = exact_msg_gnn_case(qc, h, B, inject, share, num_iterations=T,
@@ -1482,8 +1478,8 @@ def msg_gnn_phases(smi: str) -> list[dict]:
         max_err[kind] = max(max_err[kind], err)
     model = perturbed_msg_model(plan32, T, H, False, False, seed=MSG_MAIN["model_seed"])
     entries = {}
-    for kind in ("msg_gnn_v2", "msg_gnn", "msg_gnn_v3", "msg_gnn_v4"):  # v2 as the bench serves it
-        dec = builders[kind](qc32, model, T, H)
+    for kind, build in builders.items():
+        dec = build(qc32, model, T, H)
         for key in fg.LAUNCHES:
             fg.LAUNCHES[key] = 0
         soft = dec(llr)
@@ -1491,20 +1487,17 @@ def msg_gnn_phases(smi: str) -> list[dict]:
         launches = dict(fg.LAUNCHES)
         if launches[kind] != 1:
             raise AssertionError(f"msg_gnn main path did not run the {kind} kernel: {launches}")
-        rounds_ms = None
-        if kind in ("msg_gnn_v2", "msg_gnn_v3"):  # five rounds and a profiler trace
-            rounds_ms = [cuda_ms(lambda: dec(llr), reps=2)[0] for _ in range(5)]
-            ms = sorted(rounds_ms)[2]
-            emit(trace_in_child("msg_gnn" if kind == "msg_gnn_v2" else kind))
-        else:
-            ms, _ = cuda_ms(lambda: dec(llr), reps=2)
+        # five rounds and a profiler trace
+        rounds_ms = [cuda_ms(lambda: dec(llr), reps=2)[0] for _ in range(5)]
+        ms = sorted(rounds_ms)[2]
+        emit(trace_in_child(kind))
         plain_ms, soft_p = cuda_ms(lambda: dec.plain(llr), reps=1)
         err = msg_compare(soft, soft_p, f"{kind} main path T={T} whole batch", "msg_gnn_main",
                           min_agreement=MSG_MIN_BIT_AGREEMENT)
         del soft_p
         bms, bby = msg_bound_ms(qc32, H, T, False, kind, B)
         # Where the time goes: a decoder of depth 1 (seed, one layer, output).
-        shallow = builders[kind](qc32, model, 1, H)
+        shallow = build(qc32, model, 1, H)
         depth_1 = cuda_ms(lambda: shallow(llr), reps=3)[0]
         hard = (soft > 0.5).float()  # all-zero codewords: decisions of 1 are errors
         emit({"phase": "msg_gnn_main", "kernel": kind, "code": "nr_2_0_32", "Z": 32,
@@ -1516,12 +1509,11 @@ def msg_gnn_phases(smi: str) -> list[dict]:
               "rounds_ms": rounds_ms,
               "ber_zero_codeword": hard.mean().item(),
               "fer_zero_codeword": (hard.sum(dim=1) > 0).float().mean().item(),
-              "blocks_per_sm": fg.msg_gnn_blocks_per_sm(kind, qc32, H),
-              **(tc_shape(qc32, H, False, kind) if kind in TC_KERNELS else {}),
+              "blocks_per_sm": fg.msg_gnn_tc_plan(qc32, H, False, kind)[1],
+              **tc_shape(qc32, H, False, kind),
               "nvidia_smi": smi})
         entries[kind] = {
-            "name": kind, "route": "cuda", "source": "ldpc_tpu_torch/ops/csrc/"
-            + ("fused_msg_gnn_tc.cu" if kind in TC_KERNELS else "fused_msg_gnn.cu"),
+            "name": kind, "route": "cuda", "source": "ldpc_tpu_torch/ops/csrc/fused_msg_gnn_tc.cu",
             "replaces": "ldpc_tpu/ops/pallas_gnn.py:" + MSG_TPU_LINE[kind],
             "launches": launches[kind], "max_abs_err": max(max_err[kind], err), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None}
@@ -1632,7 +1624,7 @@ def build_all() -> dict:
     from ldpc_tpu_torch.ops import _build
 
     stems = ("fused_minsum", "fused_retire", "fused_gnn", "fused_gnn_tc", "fused_neural",
-             "fused_msg_gnn", "fused_msg_gnn_tc", "probe_agg_mxu")
+             "fused_msg_gnn_tc", "probe_agg_mxu")
     with ThreadPoolExecutor(len(stems)) as pool:
         list(pool.map(_build.build, stems))
     return {stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
@@ -1662,16 +1654,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["classical", "gnn", "nms", "msg_gnn", "tools"],
                     default=None)
-    ap.add_argument("--trace", choices=["z384", "gnn", "msg_gnn", "msg_gnn_v3"],
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--trace", choices=["z384", "gnn", "msg_gnn", "msg_gnn_v2", "msg_gnn_v3",
+                                        "msg_gnn_v4"], help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = args.only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
     if args.trace is not None:  # the child of trace_in_child
-        emit({"z384": trace_z384, "gnn": trace_gnn, "msg_gnn": trace_msg_gnn,
-              "msg_gnn_v3": lambda: trace_msg_gnn("msg_gnn_v3")}[args.trace]())
+        emit(trace_z384() if args.trace == "z384" else trace_gnn() if args.trace == "gnn"
+             else trace_msg_gnn(args.trace))
         return 0
 
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
@@ -1707,7 +1699,7 @@ def main(argv=None) -> int:
             for name in ("corrected_v2", "corrected"):
                 occupancy[f"{name} Z={Z} h=64"] = fg.corrected_blocks_per_sm(name, qc, 64)
             for name in ("msg_gnn", "msg_gnn_v2", "msg_gnn_v3", "msg_gnn_v4"):
-                occupancy[f"{name} Z={Z} h=64"] = fg.msg_gnn_blocks_per_sm(name, qc, 64)
+                occupancy[f"{name} Z={Z} h=64"] = fg.msg_gnn_tc_plan(qc, 64, False, name)[1]
             shared, fpb = fn.neural_plan(qc, 10, 2)
             occupancy[f"fused_neural Z={Z} T=10 L=2"] = fn.kernel_library().ldpc_neural_occupancy(
                 *dims, 10, 2, fpb, int(shared))

@@ -1,19 +1,26 @@
-// B7 and B8 on the tensor cores for Hopper (sm_90a): the whole forward of a
-// trained fully-neural MessageGNNDecoder (LLR embedding, T GNN layers,
-// output projection, per-variable sum, sigmoid) in one kernel launch, its
-// message products as bf16 mma.sync tiles with float32 accumulators.
+// The fully-neural message-GNN decoders on the tensor cores for Hopper
+// (sm_90a): the whole forward of a trained MessageGNNDecoder (LLR embedding,
+// T GNN layers, output projection, per-variable sum, sigmoid) in one kernel
+// launch, its message products as bf16 mma.sync tiles with float32
+// accumulators.
 //
 // Replaces the TPU kernels of ldpc_tpu/ops/pallas_gnn.py:
+//   * msg_gnn_tc_kernel<H, INJ>    <- :137 _kernel (make_fused_gnn_decoder,
+//                                     pallas_call at :2230), entry point ldpc_msg_gnn
 //   * msg_gnn_v2_tc_kernel<H, INJ> <- :295 _kernel_v2 (make_fused_gnn_decoder_v2,
 //                                     pallas_call at :519), entry point ldpc_msg_gnn_v2
 //   * msg_gnn_v3_tc_kernel<H, INJ> <- :644 _kernel_v3 (make_fused_gnn_decoder_v3,
 //                                     pallas_call at :882), entry point ldpc_msg_gnn_v3
-// H is the hidden width, built for 16 and 64; INJ is input injection.  The
-// Python wrapper, the packed weight layouts (pack_tc_weights) and the plain
-// PyTorch versions (_MsgPlain, _FoldPlain): ldpc_tpu_torch/ops/fused_gnn.py.
+//   * msg_gnn_v4_tc_kernel<H, INJ> <- :952 _kernel_v4 (make_fused_gnn_decoder_v4,
+//                                     pallas_call at :1225), entry point ldpc_msg_gnn_v4
+// One skeleton; the variant V (6 .. 9, the number of the TPU kernel, B6 ..
+// B9) is a template argument.  H is the hidden width, built for 16 and 64;
+// INJ is input injection.  The Python wrapper, the packed weight layouts
+// (pack_tc_weights) and the plain PyTorch versions (_MsgPlain, _FoldPlain):
+// ldpc_tpu_torch/ops/fused_gnn.py.
 //
-// What B7 computes, per frame
-// ---------------------------
+// What B6 and B7 compute, per frame
+// ---------------------------------
 // Messages are var-aligned per base edge k: message i = k*Z + z belongs to
 // variable (col[k], z) and to check (row[k], (z - shift[k]) mod Z).  Each
 // message carries h bf16 features f.
@@ -25,41 +32,55 @@
 //     per message, with lf = bf16(llr[col[k], z] * emb_w + emb_b) (INJ only):
 //       pv  = [f | vmean[col[k], z] | lf] . [W1vf W1va W1vl]^T + b1v[k]
 //       pc  = [f | rmean[row[k], (z - shift[k]) mod Z] | lf] . [W1cf W1ca W1cl]^T + b1c[k]
-//       new = bf16([bf16(relu(pv)) | bf16(relu(pc))] . [W2v W2c]^T + b2),  b2 = b2v + b2c
+//       h1v = bf16(relu(pv)), h1c = bf16(relu(pc))
+//       B6: new = bf16(bf16(W2v h1v + b2v) + bf16(W2c h1c + b2c))
+//       B7: new = bf16([h1v | h1c] . [W2v W2c]^T + b2),  b2 = b2v + b2c
 //       f   = new at t = 0, bf16(new + f) after (residual from layer 2 on)
 //   output: acc = sum over the variable's messages of
 //           ((acc + sum_q f[q] * proj_w[q]) + proj_b); soft = 1 / (1 + exp(llr + acc)).
 // Against the plain version only the float32 summation order changes: it
-// adds the shared first-layer terms as separate products,
-// ((W1vf f + W1va vmean) + b1v) + W1vl lf; here each first-layer output is
-// one accumulation over its 2h (3h with injection) inputs, then plus b1.
-// Every bf16 rounding point is the plain version's.
+// adds the shared first-layer terms as separate products (B6 ((W1vf f +
+// (W1va vmean + W1vl lf)) + b1v); B7 ((W1vf f + W1va vmean) + b1v) + W1vl
+// lf; both ((W1cf f + W1ca rmean) + b1c) + W1cl lf); here each first-layer
+// output is one accumulation over its 2h (3h with injection) inputs, then
+// plus b1.  Every bf16 rounding point is the plain version's.
 //
-// What B8 computes, per frame
-// ---------------------------
+// What B8 and B9 compute, per frame
+// ---------------------------------
 // The type embeddings te_t (per edge) ride in the features; the delta table
 // dte (T + 1, K, h), float32, moves them on: block 0 is te_0, block 1 te_1,
 // block t >= 2 te_t - te_{t-1}, te_T = 0.  b1v, b1c, b2 = b2v + b2c per
-// layer (b2 rounded to bf16: the TPU kernel adds it through a ones-row).
+// layer (B8's b2 rounded to bf16: the TPU kernel adds it through a ones-row).
 //   seed:  f = bf16((llr[col[k], z] * emb_w + emb_b) + dte[0, k])
 //   layer t:
 //     vmean   = bf16(sum of f over the variable's messages * (1 / degree))
-//     pre_row = (sum over the check's messages of W1ca f) * (1 / degree) + b1c,
-//               float32, no bf16 mean
+//     B8: pre_row = (sum over the check's messages of W1ca f) * (1 / degree)
+//         + b1c, float32, no bf16 mean
+//     B9: rmean as B7's
 //     per message, lf as in B7:
 //       pv  = [f | vmean | lf] . [W1vf W1va W1vl]^T + b1v
-//       pc  = ((W1cf f) + pre_row[check]) + W1cl lf
+//       B8: pc = ((W1cf f) + pre_row[check]) + W1cl lf
+//       B9: pc = [f | rmean | lf] . [W1cf W1ca W1cl]^T + b1c
 //       out = bf16([bf16(relu(pv)) | bf16(relu(pc))] . [W2v W2c]^T + b2)
-//       d   = bf16(dte[t + 1, k]);  f = bf16(out + d) at t = 0,
-//             bf16(bf16(out + f) + d) after
-//   output: as B7.
-// The plain version sums pv as (W1vf f + ((W1va vmean + b1v) + W1vl lf)),
-// pre_row's products member by member, and b2 inside the second product;
-// here each is one float32 accumulation.  pc keeps the plain version's
-// order: pre_row carries a factor 1/degree, so it is no multiple of the
-// products' quanta and a sum with it would not be exact in another order
-// even on exact inputs.  Every bf16 rounding point is the plain version's,
-// in its order.
+//       d   = bf16(dte[t + 1, k]);  f = bf16(out + d) at t = 0, after:
+//             B8 bf16(bf16(out + f) + d), B9 bf16(bf16(out + d) + f)
+//   B8 output: as B7.
+//   B9's last layer (t = T - 1) writes no features: per message
+//     s = w2last . [h1v; h1c] + (T > 1 ? proj8 . f : 0),
+//   w2last = bf16(proj [W2v W2c]), proj8 = bf16(proj) (the output projection
+//   is linear, so it folds into the last second layer); output acc = sum
+//   over the variable's messages, in member order, of ((acc + s) + dsc[k]),
+//   dsc = proj_b + proj . b2 - proj . te_{T-1} (float32, per edge).
+// The plain version sums B8's pv as (W1vf f + ((W1va vmean + b1v) + W1vl
+// lf)), pre_row's products member by member, and b2 inside the second
+// product; B9's pv the same way, its pc as ((W1cf f + (W1ca rmean + b1c)) +
+// W1cl lf), and s as (w2last . h1) + (proj8 . f); here each is one float32
+// accumulation.  B8's pc keeps the plain version's order: pre_row carries a
+// factor 1/degree, so it is no multiple of the products' quanta and a sum
+// with it would not be exact in another order even on exact inputs.  Every
+// bf16 rounding point is the plain version's, in its order: each bf16
+// addition rounds (the JAX kernels in interpret mode agree, not one rounding
+// at the end of a chain; tests/test_torch_msg_gnn_v34.py).
 //
 // Design
 // ------
@@ -67,13 +88,14 @@
 // bf16, 807 KB at nr_2_0_32 Z=32 h=64), so it lives in a global scratch
 // slice per resident block, sized by the grid; frames come from an atomic
 // counter.  The slice holds, message-major, one 2h-byte row per message:
-// the features [k*Z + z][q], then the means vmean [c*Z + z][q] and (B7)
-// rmean [r*Z + z][q].  A layer runs in two phases separated by barriers:
+// the features [k*Z + z][q], then the means vmean [c*Z + z][q] and (all but
+// B8) rmean [r*Z + z][q]; B9 then one float32 output scalar per message.  A
+// layer runs in two phases separated by barriers:
 //   1. no products: each thread sums one 16-byte chunk (8 features) of one
-//      variable's (B7: or check's) members, in member order, and stores the
-//      bf16 mean; meanwhile cp.async stages the layer's weights.
-//   2. B7, message-major: each warp takes 16-message tiles over the flat
-//      message index (any Z: the per-row k may change inside a tile).
+//      variable's (all but B8: or check's) members, in member order, and
+//      stores the bf16 mean; meanwhile cp.async stages the layer's weights.
+//   2. B6, B7, B9, message-major: each warp takes 16-message tiles over the
+//      flat message index (any Z: the per-row k may change inside a tile).
 //      cp.async (16 B a thread) gathers the tile's feature rows, vmean rows
 //      at (col, z) and rmean rows at (row, (z - shift) mod Z) into the
 //      warp's shared memory, double-buffered: the next tile's rows load
@@ -82,10 +104,16 @@
 //      m16n8k16 (bf16 in, float32 accumulators) computes pv and pc; their
 //      C fragments plus b1, relu and bf16-packed are the A fragments of the
 //      second layer, so the first layer's outputs never leave registers.
-//      The epilogue adds b2 and the residual (read from the staged tile),
-//      writes the tile in place in shared memory and copies it out with
-//      16-byte stores: a message reads only its own row and the means, so
-//      the update is in place.
+//      B6 runs the second layer's halves through one accumulator in turn:
+//      W2v h1v, plus b2v, rounded and packed into registers as h1v's die;
+//      then W2c h1c (one accumulator set: a second would not fit beside
+//      B7's 168 registers a thread).  The epilogue adds b2 (B6: b2c, then
+//      out_v), the residual read from the staged tile (B9: and the delta,
+//      from L2 as float32), writes the tile in place in shared memory and
+//      copies it out with 16-byte stores: a message reads only its own row
+//      and the means, so the update is in place.  B9's last layer ends
+//      after the first layer: s is a thin mma (B4's: the row in column 0 of
+//      B, lanes 0..3 hold it) over [h1v | h1c | f], written to the scratch.
 //   2. B8, check-major (the shape of B4's check pass, fused_gnn_tc.cu): a
 //      warp takes 16 flat checks r*Z + zc a tile, dealt from a queue in the
 //      code's order (row degrees differ, the base graphs list heavy rows
@@ -113,15 +141,18 @@
 // Weights, per layer, bf16 in shared memory as [out][in] rows, each padded
 // by 8 bf16 (16 bytes), not swizzled, so the eight 16-byte rows one ldmatrix
 // phase reads fall in eight different bank quads; the staged tiles are
-// padded the same way.  B7: W1v, W1c (h x 2h or 3h), W2 = [W2v W2c] (h x
-// 2h).  B8: W1v = [W1vf W1va (W1vl)] (h x 2h or 3h), W1c = [W1cf (W1cl)]
-// (h x h or 2h), W1ca (h x h), W2 (h x 2h): 53,248 B at h = 64 (69,632 B
-// with injection).  The wrapper packs them in exactly this layout, padding
-// included, so staging is a straight 16-byte copy.
+// padded the same way.  B6, B7, B9: W1v, W1c (h x 2h or 3h), W2 = [W2v W2c]
+// (h x 2h).  B8: W1v = [W1vf W1va (W1vl)] (h x 2h or 3h), W1c = [W1cf
+// (W1cl)] (h x h or 2h), W1ca (h x h), W2 (h x 2h): 53,248 B at h = 64
+// (69,632 B with injection).  The wrapper packs them in exactly this layout,
+// padding included, so staging is a straight 16-byte copy.  B9's w2last and
+// dsc are read from L2 (once a tile in the last layer, once a member in the
+// output).
 // Shared memory (H = 64, nr_2_0_32 Z = 32): structure, inverse degrees, the
-// frame's LLRs, embedding, biases about 13 KB; B7: weights 52,224 B (68,608
-// B with injection), 13,824 B of tile buffers per warp; B8: weights as
-// above, the staged deltas 25,216 B, 9,216 B of stage buffers per warp.
+// frame's LLRs, embedding, biases about 13 KB (B6 b2v, b2c; B7 b2; B8, B9
+// b1v, b1c, b2); B6, B7, B9: weights 52,224 B (68,608 B with injection),
+// 13,824 B of tile buffers per warp; B8: weights as above, the staged deltas
+// 25,216 B, 9,216 B of stage buffers per warp.
 //
 // Block shape: the plan functions ask the runtime's occupancy query for
 // every warp count from 1 to kMaxWarps and take the one with the most
@@ -138,26 +169,40 @@
 //
 // What bounds it on the card
 // --------------------------
-// B7: the least work is the bound of B6/B7 in chip_smoke.py (msg_bound_ms):
-// (4E + n + M) (h, h) products a layer of a frame at the dense bf16 rate,
-// 9.576 ms for the main path (nr_2_0_32 Z=32 h=64, T=20, batch 2048).  This
-// design does 6E products instead (pv and pc each carry their shared term,
-// +34%), 13 ms at the full tensor-core rate; mma.sync with gathered tiles
-// reaches a fraction of it.  Scratch traffic per layer of a frame: phase 1
-// reads the features twice (1.6 MB) and writes the means (0.39 MB); phase 2
-// reads the features and the gathered mean rows (0.8 + 1.6 MB) and writes
-// the features (0.8 MB): about 5.2 MB, 213 GB for the batch, 64 ms at 3.35
-// TB/s if none of it stays in the 50 MB L2 (132 frames in flight hold 157
-// MB of scratch).
-// B8: the least work is msg_bound_ms' v3 count, (5E + n + 2 inj n)
-// products a layer (each message's W1ca product is the TPU kernel's own
-// formula), 11.259 ms at the main path.  This design does 6E (+ 2 inj E:
-// W1vl and W1cl per message) products, 12.8 ms at the full tensor-core rate.
-// Scratch traffic per layer of a frame: phase 1 reads the features (0.8 MB)
-// and writes vmean (0.2 MB); phase 2 gathers the features twice (1.6 MB)
-// and vmean once per message (0.8 MB) and writes the features (0.8 MB):
-// about 4.2 MB, 172 GB for the batch, 51 ms at 3.35 TB/s if none of it
-// stays in L2 (132 frames in flight hold 135 MB of scratch).
+// Per layer of one frame, with E = K*Z messages, n = C*Z variables, M = R*Z
+// checks, inj = 1 with input injection (chip_smoke.py msg_bound_ms derives
+// the bounds the same way):
+//   B6, B7: the least work is (4E + n + M + 2 inj n) (h, h) products by a
+//     vector (first layer per message twice on the message's own features,
+//     once per variable and check mean, the LLR terms per variable; second
+//     layer twice), 2h^2 operations each, bf16 x bf16 -> float32, at the
+//     tensor cores' dense bf16 rate, 989e12 per second.  The elementwise
+//     float32 work (means, biases, ReLUs, roundings, residual; none an FMA)
+//     runs beside it at 33.5e12 per second and is smaller.  LLRs are read
+//     and soft bits written once.  Main path (nr_2_0_32 Z=32 h=64, T=20, no
+//     injection, batch 2048): 9.576 ms.  This design does 6E products
+//     instead (pv and pc each carry their shared term, +34%), 13 ms at the
+//     full tensor-core rate; mma.sync with gathered tiles reaches a
+//     fraction of it.  Scratch traffic per layer of a frame: phase 1 reads
+//     the features twice (1.6 MB) and writes the means (0.39 MB); phase 2
+//     reads the features and the gathered mean rows (0.8 + 1.6 MB) and
+//     writes the features (0.8 MB): about 5.2 MB, 213 GB for the batch, 64
+//     ms at 3.35 TB/s if none of it stays in the 50 MB L2 (132 frames in
+//     flight hold 157 MB of scratch).
+//   B8: the least work is (5E + n + 2 inj n) products a layer (each
+//     message's W1ca product is the TPU kernel's own formula), 11.259 ms at
+//     the main path.  This design does 6E (+ 2 inj E: W1vl and W1cl per
+//     message) products, 12.8 ms at the full tensor-core rate.  Scratch
+//     traffic per layer of a frame: phase 1 reads the features (0.8 MB) and
+//     writes vmean (0.2 MB); phase 2 gathers the features twice (1.6 MB)
+//     and vmean once per message (0.8 MB) and writes the features (0.8
+//     MB): about 4.2 MB, 172 GB for the batch, 51 ms at 3.35 TB/s if none
+//     of it stays in L2 (132 frames in flight hold 135 MB of scratch).
+//   B9: B6's products for T - 1 layers; the last layer 2E + n + M + 2 inj n
+//     products plus 2h (3h after layer 0) multiply-adds per message: 9.367
+//     ms at the main path.  This design does B7's 6E products for T - 1
+//     layers and 4E plus a thin product in the last, with B7's scratch
+//     traffic.
 //
 // H = 128 under this design: B7's weights alone are 202,752 B (268,288 B
 // with injection) and a warp's two tile buffers 26,112 B, so one block
@@ -177,28 +222,41 @@ constexpr int kTile = 16;  // rows a tile: the mma's M
 
 __host__ __device__ inline int round4(int x) { return (x + 3) / 4 * 4; }
 
-// Per-kind sizes, in bf16 elements: one layer's packed weights (B7: W1v, W1c
-// of kin + 8 and W2 of 2h + 8 a row; B8: W1v of kin + 8, W1c of kin - h + 8,
-// W1ca of h + 8, W2 of 2h + 8) and the segments of a warp's tile buffer (B7:
-// f, vmean, rmean rows; B8: f, vmean rows).
-__host__ __device__ constexpr int layer_weights(int H, bool inject, bool v3) {
-  return v3 ? H * (((inject ? 3 : 2) * H + 8) + ((inject ? 2 : 1) * H + 8) + (H + 8) + (2 * H + 8))
-            : H * (2 * ((inject ? 3 : 2) * H + 8) + 2 * H + 8);
+// The variant V of the skeleton: the TPU kernel it replaces, 6 .. 9 (B6 ..
+// B9).  B8 runs check-major tiles, the others B7's message-major tiles; B8
+// and B9 carry the type embeddings in the features (the delta table).
+__host__ __device__ constexpr bool check_major(int V) { return V == 8; }
+__host__ __device__ constexpr bool folded(int V) { return V >= 8; }
+
+// Floats of one layer's biases in a.small, staged whole: B6 b2v, b2c; B7
+// b2; B8 and B9 b1v, b1c, b2.
+__host__ __device__ constexpr int small_floats(int H, int V) {
+  return (V == 7 ? 1 : V == 6 ? 2 : 3) * H;
 }
 
-__host__ __device__ constexpr int tile_segments(bool v3) { return v3 ? 2 : 3; }
+// Per-variant sizes, in bf16 elements: one layer's packed weights (B6, B7,
+// B9: W1v, W1c of kin + 8 and W2 of 2h + 8 a row; B8: W1v of kin + 8, W1c of
+// kin - h + 8, W1ca of h + 8, W2 of 2h + 8) and the segments of a warp's tile
+// buffer (message-major: f, vmean, rmean rows; B8: f, vmean rows).
+__host__ __device__ constexpr int layer_weights(int H, bool inject, int V) {
+  return check_major(V)
+             ? H * (((inject ? 3 : 2) * H + 8) + ((inject ? 2 : 1) * H + 8) + (H + 8) + (2 * H + 8))
+             : H * (2 * ((inject ? 3 : 2) * H + 8) + 2 * H + 8);
+}
+
+__host__ __device__ constexpr int tile_segments(int V) { return check_major(V) ? 2 : 3; }
 
 // Compile-time shapes of one instantiation, in bf16 elements.
-template <int H, bool INJ, bool V3>
+template <int H, bool INJ, int V>
 struct Shape {
-  static constexpr int WSV = (INJ ? 3 : 2) * H + 8;  // padded row of W1v (B7: and W1c)
+  static constexpr int WSV = (INJ ? 3 : 2) * H + 8;  // padded row of W1v (message-major: and W1c)
   static constexpr int WSC = (INJ ? 2 : 1) * H + 8;  // B8: padded row of W1c, f (, lf)
   static constexpr int WSA = H + 8;                  // B8: padded row of W1ca
   static constexpr int WS2 = 2 * H + 8;              // padded row of W2
-  static constexpr int LW = layer_weights(H, INJ, V3);
+  static constexpr int LW = layer_weights(H, INJ, V);
   static constexpr int AS = H + 8;                   // padded row of a staged tile
   static constexpr int SEG = kTile * AS;             // one staged segment (16 rows)
-  static constexpr int BUF = tile_segments(V3) * SEG;  // one tile buffer
+  static constexpr int BUF = tile_segments(V) * SEG;  // one tile buffer
   static constexpr int CPR = H / 8;                  // 16-byte chunks a row
   static constexpr int RPP = 32 / CPR;               // rows a warp moves per pass
   static constexpr int NT = H / 8;                   // n-tiles of an h-wide output
@@ -209,15 +267,16 @@ struct Args {
   const float* llr;          // (B, n)
   float* soft;               // (B, n)
   int* counter;              // next frame to hand out, starts at 0
-  __nv_bfloat16* scratch;    // (grid, scratch_elems): features, vmean (, rmean)
+  __nv_bfloat16* scratch;    // (grid, scratch_elems): features, vmean (, rmean) (, B9's s)
   const int* graph;          // row_ptr, row_edge, col_ptr, col_edge, shift, col, row, type
   const float* inv;          // 1/degree per column (C), then per row (R)
   const __nv_bfloat16* w;    // (T, LW) packed, padded rows
-  const float* tab;          // B7 (T, 2, K, H): b1v, b1c per edge (type embeddings
-                             // folded in); B8 (T + 1, K, H): the delta table dte
-  const float* small;        // B7 (T, 2H): b2 = b2v + b2c, then zeros;
-                             // B8 (T, 3H): b1v, b1c, bf16(b2)
-  const float* emb;          // emb_w (H), emb_b (H), proj_w (H), proj_b
+  const float* tab;          // B6, B7 (T, 2, K, H): b1v, b1c per edge (type embeddings
+                             // folded in); B8, B9 (T + 1, K, H): the delta table dte
+  const float* small;        // (T, small_floats): B6 b2v, b2c; B7 b2 = b2v + b2c;
+                             // B8 b1v, b1c, bf16(b2); B9 b1v, b1c, b2
+  const float* emb;          // emb_w (H), emb_b (H), proj_w (H), proj_b; B9: bf16(proj_w), 0
+  const float* extra;        // B9: w2last (2H), dsc (K); unused otherwise
   int B, Z, R, C, K, T;
 };
 
@@ -227,29 +286,27 @@ struct Layout {
 };
 
 __host__ __device__ inline Layout make_layout(int H, int inject, int Z, int R, int C, int K,
-                                              int warps, bool v3) {
+                                              int warps, int V) {
   Layout L;
   int o = 0;
   L.graph = o; o += 4 * round4(6 * K + R + C + 2);
   L.inv = o; o += 4 * round4(C + R);
   L.llr = o; o += 4 * round4(C * Z);
   L.emb = o; o += 4 * round4(3 * H + 1);
-  L.small = o; o += 4 * (v3 ? 3 : 1) * H;  // B7: b2; B8: b1v, b1c, b2
-  L.w = o; o += 2 * layer_weights(H, inject, v3);
-  L.dte = o; o += v3 ? 2 * K * H : 0;      // B8: dte[t + 1], bf16
-  L.stage = o; o += warps * 2 * 2 * tile_segments(v3) * kTile * (H + 8);
+  L.small = o; o += 4 * small_floats(H, V);
+  L.w = o; o += 2 * layer_weights(H, inject, V);
+  L.dte = o; o += check_major(V) ? 2 * K * H : 0;  // B8: dte[t + 1], bf16
+  L.stage = o; o += warps * 2 * 2 * tile_segments(V) * kTile * (H + 8);
   L.total = o;
   return L;
 }
 
-// bf16 elements of one block's scratch: features (K*Z rows), vmean (C*Z)
-// and, for B7, rmean (R*Z), h each.
-__host__ __device__ inline long long scratch_elems(int H, int Z, int R, int C, int K) {
-  return static_cast<long long>(K + C + R) * Z * H;
-}
-
-__host__ __device__ inline long long scratch_elems_v3(int H, int Z, int C, int K) {
-  return static_cast<long long>(K + C) * Z * H;
+// bf16 elements of one block's scratch: features (K*Z rows) and vmean (C*Z),
+// h each; message-major, then rmean (R*Z rows); B9, then each message's
+// output scalar (K*Z float32, rounded up to 16 bytes).
+__host__ __device__ inline long long scratch_elems(int V, int H, int Z, int R, int C, int K) {
+  if (check_major(V)) return static_cast<long long>(K + C) * Z * H;
+  return static_cast<long long>(K + C + R) * Z * H + (V == 9 ? 2LL * round4(K * Z) : 0);
 }
 
 __device__ __forceinline__ float bf16r(float x) {
@@ -352,6 +409,7 @@ struct Block {
   __nv_bfloat16* dte;    // B8: the staged dte[t + 1] (K x H)
   __nv_bfloat16* stage;  // this warp's two tile buffers
   __nv_bfloat16 *feats, *vmean, *rmean;  // global scratch, one h-row each
+  float* s_all;          // B9: each message's output scalar (global scratch)
   float proj_b;
   int Z, R, C, K, E, n, M;
 };
@@ -386,6 +444,13 @@ __device__ __forceinline__ void mean_chunk(const Block& b, int row, int u) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) o[e] = pack_bf16(__fmul_rn(x[2 * e], inv), __fmul_rn(x[2 * e + 1], inv));
   *reinterpret_cast<uint4*>(dst) = out;
+}
+
+// acc = 0 (the C fragments of an h-wide output).
+template <int H>
+__device__ __forceinline__ void zero(float (&acc)[H / 8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < H / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
 }
 
 // The A fragment of k-tile kt of a staged 16-row segment (rows of H + 8).
@@ -439,9 +504,8 @@ __device__ __forceinline__ void first_layer(float (&acc)[H / 8][4], const __nv_b
                                             const __nv_bfloat16* Mean,
                                             const uint32_t (&lf)[H / 16][4],
                                             const __nv_bfloat16* W, int lane) {
-  using S = Shape<H, INJ, false>;
-#pragma unroll
-  for (int nt = 0; nt < S::NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  using S = Shape<H, INJ, 7>;
+  zero<H>(acc);
 #pragma unroll
   for (int seg = 0; seg < (INJ ? 3 : 2); ++seg) {
 #pragma unroll
@@ -457,19 +521,19 @@ __device__ __forceinline__ void first_layer(float (&acc)[H / 8][4], const __nv_b
   }
 }
 
-// The first layer's epilogue: plus the per-row bias b1 (rows g and g + 8 of
-// the tile, edges k0 and k1), relu, bf16, packed as the second layer's A
+// The first layer's epilogue: plus the bias b1 (bias(rr, j): outputs j, j + 1
+// of row g + 8 rr of the tile), relu, bf16, packed as the second layer's A
 // fragments (k-tile p = output columns 16p .. 16p + 15).
-template <int H>
-__device__ __forceinline__ void relu_pack(const float (&acc)[H / 8][4], const float* b_r0,
-                                          const float* b_r1, int tig, uint32_t (&h)[H / 16][4]) {
+template <int H, typename Bias>
+__device__ __forceinline__ void relu_pack(const float (&acc)[H / 8][4], Bias&& bias, int tig,
+                                          uint32_t (&h)[H / 16][4]) {
 #pragma unroll
   for (int p = 0; p < H / 16; ++p) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int nt = 2 * p + half, j = nt * 8 + 2 * tig;
-      const float2 u = __ldg(reinterpret_cast<const float2*>(b_r0 + j));
-      const float2 v = __ldg(reinterpret_cast<const float2*>(b_r1 + j));
+      const float2 u = bias(0, j);
+      const float2 v = bias(1, j);
       h[p][2 * half] = pack_bf16(fmaxf(__fadd_rn(acc[nt][0], u.x), 0.0f),
                                  fmaxf(__fadd_rn(acc[nt][1], u.y), 0.0f));
       h[p][2 * half + 1] = pack_bf16(fmaxf(__fadd_rn(acc[nt][2], v.x), 0.0f),
@@ -478,21 +542,49 @@ __device__ __forceinline__ void relu_pack(const float (&acc)[H / 8][4], const fl
   }
 }
 
-// acc = [h1v | h1c] . [W2v W2c]^T, one float32 sum over both halves; W2 a
-// padded (H x 2H) block in shared memory.
+// acc += h . W2[:, side*H .. side*H + H)^T: one half of the second layer,
+// W2 = [W2v W2c] a padded (H x 2H) block in shared memory.
+template <int H>
+__device__ __forceinline__ void second_half(float (&acc)[H / 8][4], const uint32_t (&h)[H / 16][4],
+                                            const __nv_bfloat16* W2, int side, int lane) {
+#pragma unroll
+  for (int kt = 0; kt < H / 16; ++kt)
+    mma_ktile<H>(acc, h[kt], W2, 2 * H + 8, side * H + kt * 16, lane);
+}
+
+// acc = [h1v | h1c] . [W2v W2c]^T, one float32 sum over both halves.
 template <int H>
 __device__ __forceinline__ void second_layer(float (&acc)[H / 8][4],
                                              const uint32_t (&h1v)[H / 16][4],
                                              const uint32_t (&h1c)[H / 16][4],
                                              const __nv_bfloat16* W2, int lane) {
+  zero<H>(acc);
+  second_half<H>(acc, h1v, W2, 0, lane);
+  second_half<H>(acc, h1c, W2, 1, lane);
+}
+
+// B fragments of a thin (H-long) row as column 0 of a 16x8 B tile per k-tile:
+// lanes 0..3 (g = 0) hold it, every other lane zeros (B4's thin product).
+template <int H>
+__device__ __forceinline__ void thin_frags(uint32_t (&w)[H / 16][2], const float* row, int lane) {
+  const int tig = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < H / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
-#pragma unroll
-  for (int side = 0; side < 2; ++side) {
-#pragma unroll
-    for (int kt = 0; kt < H / 16; ++kt)
-      mma_ktile<H>(acc, side == 0 ? h1v[kt] : h1c[kt], W2, 2 * H + 8, side * H + kt * 16, lane);
+  for (int kt = 0; kt < H / 16; ++kt) {
+    const int q = kt * 16 + 2 * tig;
+    w[kt][0] = lane < 4 ? pack_bf16(row[q], row[q + 1]) : 0u;
+    w[kt][1] = lane < 4 ? pack_bf16(row[q + 8], row[q + 9]) : 0u;
   }
+}
+
+// s += a . row over an h-wide input (A fragments a), as a thin mma; s's
+// column 0 (held by tig = 0: s[0] row g, s[2] row g + 8) is the product.
+template <int H>
+__device__ __forceinline__ void thin_product(float (&s)[4], const uint32_t (&a)[H / 16][4],
+                                             const float* row, int lane) {
+  uint32_t w[H / 16][2];
+  thin_frags<H>(w, row, lane);
+#pragma unroll
+  for (int kt = 0; kt < H / 16; ++kt) mma_bf16(s, a[kt], w[kt][0], w[kt][1]);
 }
 
 // The lf A fragments (every k-tile) of a tile's rows g (LLR m0) and g + 8 (m1).
@@ -510,16 +602,16 @@ __device__ __forceinline__ void llr_frags(uint32_t (&lf)[H / 16][4], const Block
 }
 
 // ---------------------------------------------------------------------------
-// B7: message-major tiles
+// B6, B7 and B9: message-major tiles
 // ---------------------------------------------------------------------------
 
 // Starts the copy of tile `tile`'s rows into `buf`: its messages' features,
 // their variables' vmean rows and their checks' rmean rows (rows past the
 // last message are zeros).  One commit group.
-template <int H, bool INJ>
+template <int H, bool INJ, int V>
 __device__ __forceinline__ void load_tile(const Block& b, __nv_bfloat16* buf, int tile,
                                           int lane) {
-  using S = Shape<H, INJ, false>;
+  using S = Shape<H, INJ, V>;
   const int u = lane % S::CPR;
 #pragma unroll
   for (int pass = 0; pass < kTile / S::RPP; ++pass) {
@@ -540,12 +632,36 @@ __device__ __forceinline__ void load_tile(const Block& b, __nv_bfloat16* buf, in
   cp_async_commit();
 }
 
-// One staged tile of layer t: both MLPs, the residual, the features written
-// back in place in `buf` and then to the scratch.
-template <int H, bool INJ>
+// B9's last layer for one tile (rows i0 = g, i1 = g + 8 of this thread): no
+// features, s = w2last . [h1v; h1c] (+ proj8 . f after layer 0) per message,
+// one float32 accumulation as a thin mma, to the scratch.
+template <int H>
+__device__ __forceinline__ void last_layer(const Args& a, const Block& b, const __nv_bfloat16* F,
+                                           const uint32_t (&h1v)[H / 16][4],
+                                           const uint32_t (&h1c)[H / 16][4], int i0, int i1,
+                                           bool residual, int lane) {
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  thin_product<H>(s, h1v, a.extra, lane);
+  thin_product<H>(s, h1c, a.extra + H, lane);
+  if (residual) {
+    uint32_t fa[H / 16][4];
+#pragma unroll
+    for (int kt = 0; kt < H / 16; ++kt) load_a<H>(fa[kt], F, kt, lane);
+    thin_product<H>(s, fa, b.proj_w, lane);
+  }
+  if ((lane & 3) == 0) {
+    if (i0 < b.E) b.s_all[i0] = s[0];
+    if (i1 < b.E) b.s_all[i1] = s[2];
+  }
+}
+
+// One staged tile of layer t: both MLPs, the residual (B9: and the delta),
+// the features written back in place in `buf` and then to the scratch; B9's
+// last layer writes each message's output scalar instead.
+template <int H, bool INJ, int V>
 __device__ __forceinline__ void compute_tile(const Args& a, const Block& b, __nv_bfloat16* buf,
                                              int tile, int t, int lane) {
-  using S = Shape<H, INJ, false>;
+  using S = Shape<H, INJ, V>;
   const int g = lane >> 2, tig = lane & 3;
   const int i0 = tile * kTile + g, i1 = i0 + 8;
   const int k0 = i0 < b.E ? i0 / b.Z : b.K - 1;
@@ -559,29 +675,81 @@ __device__ __forceinline__ void compute_tile(const Args& a, const Block& b, __nv
     llr_frags<H>(lf, b, m0, m1, tig);
   }
 
+  // First-layer biases of outputs j, j + 1 of row g + 8 rr, b1v (side 0)
+  // or b1c (side 1): B9's per layer, staged; B6's and B7's per edge (the
+  // type embeddings folded in), from L2.
   const float* b1 = a.tab + static_cast<size_t>(t) * 2 * b.K * H;
+  auto bias = [&](int side, int rr, int j) -> float2 {
+    if constexpr (V == 9)
+      return *reinterpret_cast<const float2*>(b.small + side * H + j);
+    else
+      return __ldg(reinterpret_cast<const float2*>(
+          b1 + static_cast<size_t>(side * b.K + (rr ? k1 : k0)) * H + j));
+  };
   const __nv_bfloat16* W1v = b.w;
   const __nv_bfloat16* W1c = b.w + H * S::WSV;
   const __nv_bfloat16* W2 = b.w + 2 * H * S::WSV;
   float acc[S::NT][4];
   uint32_t h1v[S::KT][4], h1c[S::KT][4];
   first_layer<H, INJ>(acc, F, buf + S::SEG, lf, W1v, lane);
-  relu_pack<H>(acc, b1 + static_cast<size_t>(k0) * H, b1 + static_cast<size_t>(k1) * H, tig, h1v);
+  relu_pack<H>(acc, [&](int rr, int j) { return bias(0, rr, j); }, tig, h1v);
   first_layer<H, INJ>(acc, F, buf + 2 * S::SEG, lf, W1c, lane);
-  relu_pack<H>(acc, b1 + static_cast<size_t>(b.K + k0) * H,
-               b1 + static_cast<size_t>(b.K + k1) * H, tig, h1c);
-  second_layer<H>(acc, h1v, h1c, W2, lane);
+  relu_pack<H>(acc, [&](int rr, int j) { return bias(1, rr, j); }, tig, h1c);
+  if constexpr (V == 9) {
+    if (t == a.T - 1) {
+      last_layer<H>(a, b, F, h1v, h1c, i0, i1, t >= 1, lane);
+      return;
+    }
+  }
 
-  // Epilogue: plus b2, bf16; the residual from layer 2 on; in place.
+  // The second layer.  B6 rounds its halves apart: out_v = bf16(W2v h1v +
+  // b2v) first, packed into registers h1v no longer needs, then W2c h1c in
+  // the same accumulator; B7 and B9 sum both halves in one.
+  uint32_t ov[S::NT][2];
+  zero<H>(acc);
+  second_half<H>(acc, h1v, W2, 0, lane);
+  if constexpr (V == 6) {
+#pragma unroll
+    for (int nt = 0; nt < S::NT; ++nt) {
+      const int j = nt * 8 + 2 * tig;
+      const float2 b2v = *reinterpret_cast<const float2*>(b.small + j);
+      ov[nt][0] = pack_bf16(__fadd_rn(acc[nt][0], b2v.x), __fadd_rn(acc[nt][1], b2v.y));
+      ov[nt][1] = pack_bf16(__fadd_rn(acc[nt][2], b2v.x), __fadd_rn(acc[nt][3], b2v.y));
+    }
+    zero<H>(acc);
+  }
+  second_half<H>(acc, h1c, W2, 1, lane);
+
+  // Epilogue, in place.  B7: f = bf16(acc + b2), plus the residual from
+  // layer 2 on.  B6: f = bf16(out_v + bf16(acc + b2c)), the same residual.
+  // B9: out = bf16(acc + b2), d = bf16(dte[t + 1, k]); f = bf16(out + d) at
+  // t = 0, bf16(bf16(out + d) + f) after.
   const bool residual = t >= 1;
+  const float* b2 = b.small + (V == 7 ? 0 : V == 6 ? H : 2 * H);
+  const float* dte = a.tab + static_cast<size_t>(t + 1) * b.K * H;
 #pragma unroll
   for (int nt = 0; nt < S::NT; ++nt) {
     const int j = nt * 8 + 2 * tig;
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       __nv_bfloat162* fp = reinterpret_cast<__nv_bfloat162*>(F + (g + 8 * rr) * S::AS + j);
-      float o0 = bf16r(__fadd_rn(acc[nt][2 * rr], b.small[j]));
-      float o1 = bf16r(__fadd_rn(acc[nt][2 * rr + 1], b.small[j + 1]));
+      float o0 = bf16r(__fadd_rn(acc[nt][2 * rr], b2[j]));
+      float o1 = bf16r(__fadd_rn(acc[nt][2 * rr + 1], b2[j + 1]));
+      if constexpr (V == 6) {
+        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov[nt][rr]));
+        o0 = bf16r(__fadd_rn(v.x, o0));
+        o1 = bf16r(__fadd_rn(v.y, o1));
+      }
+      if constexpr (V == 9) {
+        const float2 d = __ldg(reinterpret_cast<const float2*>(
+            dte + static_cast<size_t>(rr ? k1 : k0) * H + j));
+        o0 = __fadd_rn(o0, bf16r(d.x));
+        o1 = __fadd_rn(o1, bf16r(d.y));
+        if (residual) {
+          o0 = bf16r(o0);
+          o1 = bf16r(o1);
+        }
+      }
       if (residual) {
         const float2 old = __bfloat1622float2(*fp);
         o0 = __fadd_rn(o0, old.x);
@@ -602,40 +770,41 @@ __device__ __forceinline__ void compute_tile(const Args& a, const Block& b, __nv
   }
 }
 
-// Layer t of one frame: phase 1 (means; the weights stage meanwhile), phase 2
-// (message tiles).  Starts and ends with a barrier.
-template <int H, bool INJ>
+// Layer t of one frame, message-major: phase 1 (means; the weights stage
+// meanwhile), phase 2 (message tiles).  Starts and ends with a barrier.
+template <int H, bool INJ, int V>
 __device__ void layer(const Args& a, const Block& b, int t) {
-  using S = Shape<H, INJ, false>;
+  using S = Shape<H, INJ, V>;
   const int tid = threadIdx.x, nthreads = blockDim.x;
 
   const __nv_bfloat16* wl = a.w + static_cast<size_t>(t) * S::LW;
   for (int c = tid; c < S::LW / 8; c += nthreads) cp_async16(b.w + c * 8, wl + c * 8, true);
   cp_async_commit();
-  for (int j = tid; j < H; j += nthreads) b.small[j] = a.small[static_cast<size_t>(t) * 2 * H + j];
+  for (int j = tid; j < small_floats(H, V); j += nthreads)
+    b.small[j] = a.small[static_cast<size_t>(t) * small_floats(H, V) + j];
 
   // Phase 1: one 16-byte chunk of one variable's or check's mean a thread.
   for (int c = tid; c < (b.n + b.M) * S::CPR; c += nthreads)
     mean_chunk<H>(b, c / S::CPR, c % S::CPR);
   cp_async_wait<0>();
-  __syncthreads();  // means, weights and b2 visible to the whole block
+  __syncthreads();  // means, weights and biases visible to the whole block
 
   // Phase 2: 16-message tiles, a warp each, the next tile's rows in flight.
   const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
   const int ntiles = (b.E + kTile - 1) / kTile;
   __nv_bfloat16* bufs[2] = {b.stage, b.stage + S::BUF};
   int cur = 0;
-  if (warp < ntiles) load_tile<H, INJ>(b, bufs[0], warp, lane);
+  if (warp < ntiles) load_tile<H, INJ, V>(b, bufs[0], warp, lane);
   for (int tile = warp; tile < ntiles; tile += nwarps) {
     const int next = tile + nwarps;
     if (next < ntiles) {
-      load_tile<H, INJ>(b, bufs[cur ^ 1], next, lane);
+      load_tile<H, INJ, V>(b, bufs[cur ^ 1], next, lane);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncwarp();
-    compute_tile<H, INJ>(a, b, bufs[cur], tile, t, lane);
+    compute_tile<H, INJ, V>(a, b, bufs[cur], tile, t, lane);
     __syncwarp();  // this buffer is read out before it is loaded again
     cur ^= 1;
   }
@@ -703,7 +872,7 @@ __device__ __forceinline__ int tile_degree(const Block& b, int tile, int lane) {
 template <int H, bool INJ>
 __device__ __forceinline__ void load_stage(const Block& b, __nv_bfloat16* buf, int tile, int st,
                                            int dmax, int lane) {
-  using S = Shape<H, INJ, true>;
+  using S = Shape<H, INJ, 8>;
   const bool update = st >= dmax;
   const int s = update ? st - dmax : st;
   const int u = lane % S::CPR;
@@ -728,7 +897,7 @@ __device__ __forceinline__ void update_members(const Block& b, __nv_bfloat16* bu
                                                const float (&pre)[H / 8][4], const TileRow& r0,
                                                const TileRow& r1, int tile, int s, int t,
                                                int lane) {
-  using S = Shape<H, INJ, true>;
+  using S = Shape<H, INJ, 8>;
   const int g = lane >> 2, tig = lane & 3;
   const Member m0 = member_of(b, r0, s), m1 = member_of(b, r1, s);
   __nv_bfloat16* F = buf;
@@ -747,18 +916,8 @@ __device__ __forceinline__ void update_members(const Block& b, __nv_bfloat16* bu
   uint32_t h1v[S::KT][4], h1c[S::KT][4];
   // pv = [f | vmean | lf] . W1v^T + b1v
   first_layer<H, INJ>(acc, F, buf + S::SEG, lf, W1v, lane);
-#pragma unroll
-  for (int p = 0; p < S::KT; ++p) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int nt = 2 * p + half;
-      const float2 u = *reinterpret_cast<const float2*>(b1v + nt * 8 + 2 * tig);
-      h1v[p][2 * half] = pack_bf16(fmaxf(__fadd_rn(acc[nt][0], u.x), 0.0f),
-                                   fmaxf(__fadd_rn(acc[nt][1], u.y), 0.0f));
-      h1v[p][2 * half + 1] = pack_bf16(fmaxf(__fadd_rn(acc[nt][2], u.x), 0.0f),
-                                       fmaxf(__fadd_rn(acc[nt][3], u.y), 0.0f));
-    }
-  }
+  relu_pack<H>(acc, [&](int, int j) { return *reinterpret_cast<const float2*>(b1v + j); }, tig,
+               h1v);
   // pc = ((W1cf f) + pre_row) + W1cl lf, 16 outputs at a time
   {
     uint32_t fa[S::KT][4];
@@ -827,7 +986,7 @@ __device__ __forceinline__ void update_members(const Block& b, __nv_bfloat16* bu
 // a stage computes.
 template <int H, bool INJ>
 __device__ __forceinline__ void check_tiles(const Args& a, const Block& b, int t, int* queue) {
-  using S = Shape<H, INJ, true>;
+  using S = Shape<H, INJ, 8>;
   const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
   const int ntiles = (b.M + kTile - 1) / kTile;
   const __nv_bfloat16* W1ca = b.w + H * (S::WSV + S::WSC);
@@ -898,7 +1057,7 @@ __device__ __forceinline__ void check_tiles(const Args& a, const Block& b, int t
 // a barrier.
 template <int H, bool INJ>
 __device__ void layer_v3(const Args& a, const Block& b, int t, int* queue) {
-  using S = Shape<H, INJ, true>;
+  using S = Shape<H, INJ, 8>;
   const int tid = threadIdx.x, nthreads = blockDim.x;
 
   const __nv_bfloat16* wl = a.w + static_cast<size_t>(t) * S::LW;
@@ -923,18 +1082,18 @@ __device__ void layer_v3(const Args& a, const Block& b, int t, int* queue) {
 }
 
 // ---------------------------------------------------------------------------
-// The frame loop both kernels share
+// The frame loop the four kernels share
 // ---------------------------------------------------------------------------
 
-template <int H, bool INJ, bool V3>
+template <int H, bool INJ, int V>
 __device__ __forceinline__ void decode_frames(const Args& a) {
-  using S = Shape<H, INJ, V3>;
+  using S = Shape<H, INJ, V>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_frame, s_queue;
   const int Z = a.Z, R = a.R, C = a.C, K = a.K;
   const int n = C * Z;
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const Layout L = make_layout(H, INJ, Z, R, C, K, nthreads / 32, V3);
+  const Layout L = make_layout(H, INJ, Z, R, C, K, nthreads / 32, V);
 
   int* s_graph = reinterpret_cast<int*>(smem + L.graph);
   float* s_inv = reinterpret_cast<float*>(smem + L.inv);
@@ -961,10 +1120,10 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
   b.w = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
   b.dte = reinterpret_cast<__nv_bfloat16*>(smem + L.dte);
   b.stage = reinterpret_cast<__nv_bfloat16*>(smem + L.stage) + (tid >> 5) * 2 * S::BUF;
-  b.feats = a.scratch + static_cast<size_t>(blockIdx.x) *
-                            (V3 ? scratch_elems_v3(H, Z, C, K) : scratch_elems(H, Z, R, C, K));
+  b.feats = a.scratch + static_cast<size_t>(blockIdx.x) * scratch_elems(V, H, Z, R, C, K);
   b.vmean = b.feats + static_cast<size_t>(K) * Z * H;
   b.rmean = b.vmean + static_cast<size_t>(n) * H;
+  b.s_all = reinterpret_cast<float*>(b.rmean + static_cast<size_t>(R) * Z * H);
   b.Z = Z;
   b.R = R;
   b.C = C;
@@ -986,8 +1145,8 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
     for (int i = tid; i < n; i += nthreads) b.llr[i] = llr_f[i];
     __syncthreads();
 
-    // Seed: every message's features from its variable's LLR (B8: plus te_0,
-    // block 0 of the delta table), 8 a thread.
+    // Seed: every message's features from its variable's LLR (B8, B9: plus
+    // te_0, block 0 of the delta table), 8 a thread.
     for (int c = tid; c < b.E * S::CPR; c += nthreads) {
       const int i = c / S::CPR, u = c - i * S::CPR;
       const int k = i / Z, z = i - k * Z;
@@ -997,7 +1156,7 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int q = u * 8 + 2 * e;
-        if constexpr (V3) {
+        if constexpr (folded(V)) {
           const float2 d = __ldg(reinterpret_cast<const float2*>(a.tab + k * H + q));
           o[e] = pack_bf16(__fadd_rn(__fadd_rn(__fmul_rn(m, b.emb_w[q]), b.emb_b[q]), d.x),
                            __fadd_rn(__fadd_rn(__fmul_rn(m, b.emb_w[q + 1]), b.emb_b[q + 1]), d.y));
@@ -1010,32 +1169,38 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
     __syncthreads();
 
     for (int t = 0; t < a.T; ++t) {
-      if constexpr (V3)
+      if constexpr (check_major(V))
         layer_v3<H, INJ>(a, b, t, &s_queue);
       else
-        layer<H, INJ>(a, b, t);
+        layer<H, INJ, V>(a, b, t);
     }
 
     // Output: per variable, the sum over its messages of their projection
-    // plus proj_b, then the sigmoid of the bit-1 logit.
+    // plus proj_b (B9: of their output scalar plus dsc[k]), then the sigmoid
+    // of the bit-1 logit.
     for (int i = tid; i < n; i += nthreads) {
       const int c = i / Z, z = i - c * Z;
       float acc = 0.0f;
       for (int j = g.col_ptr[c]; j < g.col_ptr[c + 1]; ++j) {
-        const __nv_bfloat16* fk = b.feats + static_cast<size_t>(g.col_edge[j] * Z + z) * H;
-        float contrib = 0.0f;
+        const int k = g.col_edge[j];
+        if constexpr (V == 9) {
+          acc = __fadd_rn(__fadd_rn(acc, b.s_all[k * Z + z]), __ldg(a.extra + 2 * H + k));
+        } else {
+          const __nv_bfloat16* fk = b.feats + static_cast<size_t>(k * Z + z) * H;
+          float contrib = 0.0f;
 #pragma unroll
-        for (int q = 0; q < H; q += 8) {
-          const uint4 v = *reinterpret_cast<const uint4*>(fk + q);
-          const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+          for (int q = 0; q < H; q += 8) {
+            const uint4 v = *reinterpret_cast<const uint4*>(fk + q);
+            const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 x = __bfloat1622float2(p[e]);
-            contrib = __fadd_rn(contrib, __fmul_rn(x.x, b.proj_w[q + 2 * e]));
-            contrib = __fadd_rn(contrib, __fmul_rn(x.y, b.proj_w[q + 2 * e + 1]));
+            for (int e = 0; e < 4; ++e) {
+              const float2 x = __bfloat1622float2(p[e]);
+              contrib = __fadd_rn(contrib, __fmul_rn(x.x, b.proj_w[q + 2 * e]));
+              contrib = __fadd_rn(contrib, __fmul_rn(x.y, b.proj_w[q + 2 * e + 1]));
+            }
           }
+          acc = __fadd_rn(__fadd_rn(acc, contrib), b.proj_b);
         }
-        acc = __fadd_rn(__fadd_rn(acc, contrib), b.proj_b);
       }
       soft_f[i] = 1.0f / (1.0f + expf(__fadd_rn(b.llr[i], acc)));
     }
@@ -1043,42 +1208,62 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
   }
 }
 
+// B6, _kernel: message-major tiles, the type embeddings in per-edge biases,
+// the second layer's halves rounded to bf16 apart.
+template <int H, bool INJ>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_tc_kernel(const Args a) {
+  decode_frames<H, INJ, 6>(a);
+}
+
 // B7, _kernel_v2: message-major tiles, the type embeddings in per-edge biases.
 template <int H, bool INJ>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_v2_tc_kernel(const Args a) {
-  decode_frames<H, INJ, false>(a);
+  decode_frames<H, INJ, 7>(a);
 }
 
 // B8, _kernel_v3: check-major tiles, the type embeddings in the features,
 // pre_row in registers.
 template <int H, bool INJ>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_v3_tc_kernel(const Args a) {
-  decode_frames<H, INJ, true>(a);
+  decode_frames<H, INJ, 8>(a);
+}
+
+// B9, _kernel_v4: message-major tiles, the type embeddings in the features,
+// the last layer folded into thin rows through the output projection.
+template <int H, bool INJ>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_v4_tc_kernel(const Args a) {
+  decode_frames<H, INJ, 9>(a);
 }
 
 using KernelFn = void (*)(const Args);
 
-KernelFn pick_kernel(bool v3, int H, int inject) {
+template <int H, bool INJ>
+KernelFn pick_variant(int V) {
+  switch (V) {
+    case 6: return msg_gnn_tc_kernel<H, INJ>;
+    case 7: return msg_gnn_v2_tc_kernel<H, INJ>;
+    case 8: return msg_gnn_v3_tc_kernel<H, INJ>;
+    case 9: return msg_gnn_v4_tc_kernel<H, INJ>;
+  }
+  return nullptr;
+}
+
+KernelFn pick_kernel(int V, int H, int inject) {
   switch (H) {
-    case 16:
-      if (v3) return inject ? msg_gnn_v3_tc_kernel<16, true> : msg_gnn_v3_tc_kernel<16, false>;
-      return inject ? msg_gnn_v2_tc_kernel<16, true> : msg_gnn_v2_tc_kernel<16, false>;
-    case 64:
-      if (v3) return inject ? msg_gnn_v3_tc_kernel<64, true> : msg_gnn_v3_tc_kernel<64, false>;
-      return inject ? msg_gnn_v2_tc_kernel<64, true> : msg_gnn_v2_tc_kernel<64, false>;
+    case 16: return inject ? pick_variant<16, true>(V) : pick_variant<16, false>(V);
+    case 64: return inject ? pick_variant<64, true>(V) : pick_variant<64, false>(V);
   }
   return nullptr;
 }
 
 // The block shape: for each warp count 1..kMaxWarps the runtime's occupancy
 // query; *warps, *blocks of the count with the most resident warps per SM
-// (ties: the fewer warps a block).  smem(w) is the dynamic shared memory of
-// a block of w warps.  Returns a cudaError_t; 0 blocks where not even one
-// warp's block fits.
-template <typename Smem>
-int plan_blocks(KernelFn kernel, Smem&& smem_of, int* warps, int* blocks) {
+// (ties: the fewer warps a block).  Returns a cudaError_t; 0 blocks where not
+// even one warp's block fits.
+int plan_blocks(int V, int H, int inject, int Z, int R, int C, int K, int* warps, int* blocks) {
   *warps = 0;
   *blocks = 0;
+  const KernelFn kernel = pick_kernel(V, H, inject);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -1086,7 +1271,7 @@ int plan_blocks(KernelFn kernel, Smem&& smem_of, int* warps, int* blocks) {
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
   for (int w = 1; w <= kMaxWarps; ++w) {
-    const long long smem = smem_of(w);
+    const long long smem = make_layout(H, inject, Z, R, C, K, w, V).total;
     if (smem > optin) break;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
@@ -1102,21 +1287,18 @@ int plan_blocks(KernelFn kernel, Smem&& smem_of, int* warps, int* blocks) {
   return cudaSuccess;
 }
 
-// Launches `kernel` with `grid` blocks of `warps` warps and `smem` bytes of
-// dynamic shared memory on `stream`, no sync.
-int launch(KernelFn kernel, const Args& a, int grid, int warps, long long smem, void* stream) {
-  if (kernel == nullptr || grid < 1 || a.B < 1 || a.T < 1 || warps < 1 || warps > kMaxWarps)
+// Launches variant V with `grid` blocks of `warps` warps on `stream`, no sync.
+int launch(int V, int H, const void* llr, void* soft, void* counter, void* scratch,
+           const void* graph, const void* inv, const void* w, const void* tab, const void* small,
+           const void* emb, const void* extra, int B, int Z, int R, int C, int K, int T,
+           int inject, int grid, int warps, void* stream) {
+  const KernelFn kernel = pick_kernel(V, H, inject);
+  if (kernel == nullptr || grid < 1 || B < 1 || T < 1 || warps < 1 || warps > kMaxWarps)
     return cudaErrorInvalidValue;
+  const long long smem = make_layout(H, inject, Z, R, C, K, warps, V).total;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
-}
-
-Args make_args(const void* llr, void* soft, void* counter, void* scratch, const void* graph,
-               const void* inv, const void* w, const void* tab, const void* small,
-               const void* emb, int B, int Z, int R, int C, int K, int T) {
   Args a;
   a.llr = static_cast<const float*>(llr);
   a.soft = static_cast<float*>(soft);
@@ -1128,78 +1310,51 @@ Args make_args(const void* llr, void* soft, void* counter, void* scratch, const 
   a.tab = static_cast<const float*>(tab);
   a.small = static_cast<const float*>(small);
   a.emb = static_cast<const float*>(emb);
+  a.extra = static_cast<const float*>(extra);
   a.B = B;
   a.Z = Z;
   a.R = R;
   a.C = C;
   a.K = K;
   a.T = T;
-  return a;
+  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one B7 block of `warps` warps needs.
-long long ldpc_msg_gnn_tc_smem_bytes(int H, int inject, int Z, int R, int C, int K, int warps) {
-  return make_layout(H, inject, Z, R, C, K, warps, false).total;
-}
+// Four entries per kernel, `name` its launch:
+//   name_tc_smem_bytes: bytes of dynamic shared memory one block of `warps`
+//     warps needs;
+//   name_tc_scratch_floats: floats of global scratch one block needs;
+//   name_tc_plan: the block shape (plan_blocks), a cudaError_t;
+//   name: launches the kernel on `stream` with `grid` blocks of `warps` warps,
+//     no sync; `counter` must hold 0, `extra` is read by B9 alone.  Returns a
+//     cudaError_t.
+#define LDPC_MSG_GNN_TC_ENTRIES(name, V)                                                        \
+  long long name##_tc_smem_bytes(int H, int inject, int Z, int R, int C, int K, int warps) {     \
+    return make_layout(H, inject, Z, R, C, K, warps, V).total;                                  \
+  }                                                                                              \
+  long long name##_tc_scratch_floats(int H, int Z, int R, int C, int K) {                        \
+    return scratch_elems(V, H, Z, R, C, K) / 2;                                                  \
+  }                                                                                              \
+  int name##_tc_plan(int H, int inject, int Z, int R, int C, int K, int* warps, int* blocks) {   \
+    return plan_blocks(V, H, inject, Z, R, C, K, warps, blocks);                                 \
+  }                                                                                              \
+  int name(int H, const void* llr, void* soft, void* counter, void* scratch, const void* graph,  \
+           const void* inv, const void* w, const void* tab, const void* small, const void* emb,  \
+           const void* extra, int B, int Z, int R, int C, int K, int T, int inject, int grid,    \
+           int warps, void* stream) {                                                            \
+    return launch(V, H, llr, soft, counter, scratch, graph, inv, w, tab, small, emb, extra, B,  \
+                  Z, R, C, K, T, inject, grid, warps, stream);                                   \
+  }
 
-// Floats of global scratch one B7 block needs (bf16 features and means).
-long long ldpc_msg_gnn_tc_scratch_floats(int H, int Z, int R, int C, int K) {
-  return scratch_elems(H, Z, R, C, K) / 2;
-}
-
-// B7's block shape (plan_blocks).  Returns a cudaError_t.
-int ldpc_msg_gnn_tc_plan(int H, int inject, int Z, int R, int C, int K, int* warps, int* blocks) {
-  return plan_blocks(pick_kernel(false, H, inject),
-                     [&](int w) { return make_layout(H, inject, Z, R, C, K, w, false).total; },
-                     warps, blocks);
-}
-
-// Launches msg_gnn_v2_tc_kernel on `stream` with `grid` blocks of `warps`
-// warps, no sync.  `counter` must hold 0.  Returns a cudaError_t.
-int ldpc_msg_gnn_v2(int H, const void* llr, void* soft, void* counter, void* scratch,
-                    const void* graph, const void* inv, const void* w, const void* tab,
-                    const void* small, const void* emb, int B, int Z, int R, int C, int K, int T,
-                    int inject, int grid, int warps, void* stream) {
-  return launch(pick_kernel(false, H, inject),
-                make_args(llr, soft, counter, scratch, graph, inv, w, tab, small, emb, B, Z, R, C,
-                          K, T),
-                grid, warps, make_layout(H, inject, Z, R, C, K, warps, false).total, stream);
-}
-
-// Bytes of dynamic shared memory one B8 block of `warps` warps needs.
-long long ldpc_msg_gnn_v3_tc_smem_bytes(int H, int inject, int Z, int R, int C, int K, int warps) {
-  return make_layout(H, inject, Z, R, C, K, warps, true).total;
-}
-
-// Floats of global scratch one B8 block needs (bf16 features and vmean).
-long long ldpc_msg_gnn_v3_tc_scratch_floats(int H, int Z, int C, int K) {
-  return scratch_elems_v3(H, Z, C, K) / 2;
-}
-
-// B8's block shape (plan_blocks).  Returns a cudaError_t.
-int ldpc_msg_gnn_v3_tc_plan(int H, int inject, int Z, int R, int C, int K, int* warps,
-                            int* blocks) {
-  return plan_blocks(pick_kernel(true, H, inject),
-                     [&](int w) { return make_layout(H, inject, Z, R, C, K, w, true).total; },
-                     warps, blocks);
-}
-
-// Launches msg_gnn_v3_tc_kernel on `stream` with `grid` blocks of `warps`
-// warps, no sync.  `counter` must hold 0; `tab` is the delta table (T + 1,
-// K, H), `small` (T, 3H).  Returns a cudaError_t.
-int ldpc_msg_gnn_v3(int H, const void* llr, void* soft, void* counter, void* scratch,
-                    const void* graph, const void* inv, const void* w, const void* tab,
-                    const void* small, const void* emb, int B, int Z, int R, int C, int K, int T,
-                    int inject, int grid, int warps, void* stream) {
-  return launch(pick_kernel(true, H, inject),
-                make_args(llr, soft, counter, scratch, graph, inv, w, tab, small, emb, B, Z, R, C,
-                          K, T),
-                grid, warps, make_layout(H, inject, Z, R, C, K, warps, true).total, stream);
-}
+LDPC_MSG_GNN_TC_ENTRIES(ldpc_msg_gnn, 6)     // msg_gnn_tc_kernel (B6, _kernel)
+LDPC_MSG_GNN_TC_ENTRIES(ldpc_msg_gnn_v2, 7)  // msg_gnn_v2_tc_kernel (B7, _kernel_v2)
+LDPC_MSG_GNN_TC_ENTRIES(ldpc_msg_gnn_v3, 8)  // msg_gnn_v3_tc_kernel (B8, _kernel_v3)
+LDPC_MSG_GNN_TC_ENTRIES(ldpc_msg_gnn_v4, 9)  // msg_gnn_v4_tc_kernel (B9, _kernel_v4)
 
 const char* ldpc_msg_gnn_tc_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

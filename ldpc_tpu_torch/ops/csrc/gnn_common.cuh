@@ -1,7 +1,6 @@
-// Device helpers shared by the GNN decoders (fused_gnn.cu, fused_msg_gnn.cu):
-// bf16 rounding, shared-memory word alignment and the float32 FMA product of
-// an (H, H) weight matrix in shared memory by a vector in registers.  Each
-// source includes this header and compiles on its own.
+// Device helpers of the float32 GNN decoder (fused_gnn.cu): bf16 rounding,
+// shared-memory word alignment and the float32 FMA product of an (H, H)
+// weight matrix in shared memory by a vector in registers.
 #pragma once
 
 #include <cuda_bf16.h>

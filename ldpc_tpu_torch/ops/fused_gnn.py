@@ -1,7 +1,7 @@
 """Fused message-GNN decoders: the whole decode of a message-centered GNN in
 one CUDA kernel (counterpart of ``ldpc_tpu.ops.pallas_gnn``).
 
-Six hand-written kernels, in four sources:
+Six hand-written kernels, in three sources:
 
 ``csrc/fused_gnn_tc.cu`` and ``csrc/fused_gnn.cu``, the corrected min-sum GNN
 (the flagship), served for a
@@ -18,22 +18,22 @@ Six hand-written kernels, in four sources:
   the same decoder with the second layer not folded: full (h, h) products,
   bf16 layer outputs, float32 projection.
 
-``csrc/fused_msg_gnn.cu`` and ``csrc/fused_msg_gnn_tc.cu``, the fully-neural
-message GNN (``create_message_gnn_decoder``):
+``csrc/fused_msg_gnn_tc.cu``, the fully-neural message GNN
+(``create_message_gnn_decoder``), four variants of one tensor-core skeleton:
 
-* ``msg_gnn`` (replaces ``pallas_gnn._kernel``): T GNN layers, the two
-  halves of each MLP's second layer rounded to bf16 apart and added in bf16.
-* ``msg_gnn_v2`` (replaces ``pallas_gnn._kernel_v2``; ``fused_msg_gnn_tc.cu``,
-  its message products as tensor-core tiles): the same function with the
-  second layer's two halves summed in float32 and rounded once.
-* ``msg_gnn_v3`` (replaces ``pallas_gnn._kernel_v3``; ``fused_msg_gnn_tc.cu``,
-  check-major tensor-core tiles that keep the check side's sum in
-  registers): the type embeddings ride in the features (``_extract_v3``,
-  the delta table ``dte``), the check side projects each message and
-  averages in float32, b2 is bf16.
-* ``msg_gnn_v4`` (replaces ``pallas_gnn._kernel_v4``): v3's folds on
-  ``msg_gnn_v2``'s layer, the last layer folded into thin rows through the
-  output projection (``w2last``, ``proj8``, ``dsc``).
+* ``msg_gnn`` (replaces ``pallas_gnn._kernel``; message-major tiles): T GNN
+  layers, the two halves of each MLP's second layer rounded to bf16 apart
+  and added in bf16.
+* ``msg_gnn_v2`` (replaces ``pallas_gnn._kernel_v2``; message-major tiles):
+  the same function with the second layer's two halves summed in float32
+  and rounded once.
+* ``msg_gnn_v3`` (replaces ``pallas_gnn._kernel_v3``; check-major tiles that
+  keep the check side's sum in registers): the type embeddings ride in the
+  features (``_extract_v3``, the delta table ``dte``), the check side
+  projects each message and averages in float32, b2 is bf16.
+* ``msg_gnn_v4`` (replaces ``pallas_gnn._kernel_v4``; message-major tiles):
+  v3's folds on ``msg_gnn_v2``'s layer, the last layer folded into thin
+  rows through the output projection (``w2last``, ``proj8``, ``dsc``).
 
 ``params`` is the module or its ``state_dict``.  Input (B, n) float32 LLRs;
 output (B, n) float32 soft bits (probabilities of bit 1) and, for the
@@ -52,10 +52,9 @@ features of a message, the per-variable mean, the LLR features,
 second-layer outputs and their sum.  The first- and second-layer weights,
 and ``corrected_v2``'s folded ``w2p`` and ``cconst``, are rounded to bf16
 when the decoder is built.  Those of the fully-neural decoders are listed in
-the headers of ``csrc/fused_msg_gnn.cu`` and ``csrc/fused_msg_gnn_tc.cu``.
-The tensor-core kernels (``corrected_v2``, ``msg_gnn_v2``, ``msg_gnn_v3``)
-sum each product in another float32 order than the plain version; nothing
-else differs.
+the header of ``csrc/fused_msg_gnn_tc.cu``.  The tensor-core kernels
+(``corrected_v2`` and the four fully-neural ones) sum each product in
+another float32 order than the plain version; nothing else differs.
 Products accumulate in float32.
 """
 from __future__ import annotations
@@ -75,7 +74,7 @@ from ldpc_tpu_torch.ops.qc_msg import _BIG
 LAUNCHES: dict[str, int] = {"corrected_v2": 0, "corrected": 0, "msg_gnn": 0, "msg_gnn_v2": 0,
                             "msg_gnn_v3": 0, "msg_gnn_v4": 0}
 
-KERNEL_HIDDEN_DIMS = (16, 64)  # instantiations in csrc/fused_gnn[_tc].cu, fused_msg_gnn[_tc].cu
+KERNEL_HIDDEN_DIMS = (16, 64)  # instantiations in csrc/fused_gnn[_tc].cu, fused_msg_gnn_tc.cu
 _PLAIN_CHUNK_BYTES = 64 * 2**20  # one (frames, K, Z, h) float32 tensor of the plain version
 
 
@@ -860,40 +859,38 @@ def make_fused_corrected_gnn_decoder_v2(
 # The fully-neural message GNN: tables, plain version, launch
 # ---------------------------------------------------------------------------
 
-# The kernels of csrc/fused_msg_gnn.cu by variant; msg_gnn_v2 and msg_gnn_v3
-# are csrc/fused_msg_gnn_tc.cu's.
-MSG_VARIANT = {"msg_gnn": 6, "msg_gnn_v4": 9}
-_MSG_ENTRY = {"msg_gnn": "ldpc_msg_gnn", "msg_gnn_v4": "ldpc_msg_gnn_v4"}
+# The kernels of csrc/fused_msg_gnn_tc.cu by kind: each one's launch entry,
+# whose name also prefixes its size and plan entries.
+TC_ENTRY = {"msg_gnn": "ldpc_msg_gnn", "msg_gnn_v2": "ldpc_msg_gnn_v2",
+             "msg_gnn_v3": "ldpc_msg_gnn_v3", "msg_gnn_v4": "ldpc_msg_gnn_v4"}
 _FOLDED = ("msg_gnn_v3", "msg_gnn_v4")  # the type embeddings ride in the features
-_MSG_THREADS = 256  # kThreads in csrc/fused_msg_gnn.cu
-_TC = "msg_gnn_v2"  # the message-major tensor-core kernel
-_TC_V3 = "msg_gnn_v3"  # the check-major tensor-core kernel
-_TC_KINDS = (_TC, _TC_V3)
+_CHECK_MAJOR = "msg_gnn_v3"  # the check-major kernel; the others are message-major
 _TILE = 16  # kTile in csrc/fused_msg_gnn_tc.cu: messages (v3: checks) a tile
 
 
 def tc_row_widths(h: int, inject: bool) -> tuple[int, int]:
-    """Padded row lengths (bf16) of the packed ``msg_gnn_v2`` weights: W1v
+    """Padded row lengths (bf16) of the packed message-major weights: W1v
     and W1c (2h or 3h inputs, plus 8), W2 (2h inputs, plus 8)."""
     return (3 if inject else 2) * h + 8, 2 * h + 8
 
 
-def tc_weight_blocks(h: int, inject: bool, kind: str = _TC) -> tuple:
+def tc_weight_blocks(h: int, inject: bool, kind: str = "msg_gnn_v2") -> tuple:
     """The packed matrices of one layer of a tensor-core kernel, in order:
     ((indices into ``_MsgTables.w``, whose inputs a row concatenates),
-    padded row length in bf16).  ``msg_gnn_v2``: W1v = [W1vf W1va (W1vl)],
-    W1c = [W1cf W1ca (W1cl)], W2 = [W2v W2c].  ``msg_gnn_v3``: W1v = [W1vf
-    W1va (W1vl)], W1c = [W1cf (W1cl)], W1ca, W2 = [W2v W2c]."""
+    padded row length in bf16).  Message-major (``msg_gnn``, ``msg_gnn_v2``,
+    ``msg_gnn_v4``): W1v = [W1vf W1va (W1vl)], W1c = [W1cf W1ca (W1cl)], W2
+    = [W2v W2c].  ``msg_gnn_v3``: W1v = [W1vf W1va (W1vl)], W1c = [W1cf
+    (W1cl)], W1ca, W2 = [W2v W2c]."""
     ws1, ws2 = tc_row_widths(h, inject)
     w2 = ((6, 7), ws2)
-    if kind == _TC:  # _MsgTables.w order: va, ca, vl, cl, vf, cf, W2v, W2c
+    if kind != _CHECK_MAJOR:  # _MsgTables.w order: va, ca, vl, cl, vf, cf, W2v, W2c
         return (((4, 0, 2) if inject else (4, 0), ws1),
                 ((5, 1, 3) if inject else (5, 1), ws1), w2)
     return (((4, 0, 2) if inject else (4, 0), ws1),
             ((5, 3) if inject else (5,), (2 if inject else 1) * h + 8), ((1,), h + 8), w2)
 
 
-def pack_tc_weights(w: torch.Tensor, inject: bool, kind: str = _TC) -> torch.Tensor:
+def pack_tc_weights(w: torch.Tensor, inject: bool, kind: str = "msg_gnn_v2") -> torch.Tensor:
     """``_MsgTables.w`` (T, 8, h, h), bf16 values as float32 -> the ``kind``
     tensor-core kernel's packed bf16 layout (T, h * sum of row lengths), as it
     stages it in shared memory: the matrices of :func:`tc_weight_blocks`,
@@ -911,12 +908,12 @@ class _MsgTables:
 
     ``w`` (T, 8, h, h): layer t's weight matrices, values rounded to bf16,
     kept as float32, order va, ca, vl, cl, vf, cf, W2v, W2c (the LLR blocks
-    vl, cl are zero without injection); ``w_bf16`` the kernel's copy, for
-    ``msg_gnn_v2`` and ``msg_gnn_v3`` packed by :func:`pack_tc_weights`.
+    vl, cl are zero without injection); ``w_bf16`` the kernel's copy, packed
+    by :func:`pack_tc_weights`.
     ``tab``: ``msg_gnn[_v2]`` (T, 2, K, h), the first-layer biases per edge,
     b1v then b1c; ``msg_gnn_v3/_v4`` (T + 1, K, h), the delta table ``dte``.
-    ``small``: ``msg_gnn`` (T, 2h) b2v, b2c; ``msg_gnn_v2`` (T, 2h) b2v +
-    b2c, 0; ``msg_gnn_v3/_v4`` (T, 3h) b1v, b1c, b2 (v3's b2 rounded to bf16:
+    ``small``: ``msg_gnn`` (T, 2h) b2v, b2c; ``msg_gnn_v2`` (T, h) b2v +
+    b2c; ``msg_gnn_v3/_v4`` (T, 3h) b1v, b1c, b2 (v3's b2 rounded to bf16:
     it enters the product through a ones-row).
     ``emb`` (3h + 1): emb_w, emb_b, proj_w, proj_b; ``msg_gnn_v4`` holds
     bf16(proj_w) and 0 (its proj_b rides in ``dsc``).
@@ -949,12 +946,11 @@ class _MsgTables:
             if kind == "msg_gnn":
                 small = np.concatenate([x["b2v"], x["b2c"]], axis=1)
             else:
-                small = np.concatenate([x["b2v"] + x["b2c"], np.zeros_like(x["b2c"])], axis=1)
+                small = x["b2v"] + x["b2c"]
             tab = np.stack([x["bias1v"], x["bias1c"]], axis=1).transpose(0, 1, 3, 2)
             proj_w, proj_b = x["proj_w"], x["proj_b"]
         self.w = _bf16_round(w).to(device)
-        self.w_bf16 = (pack_tc_weights(self.w, input_injection, kind) if kind in _TC_KINDS
-                       else self.w.to(torch.bfloat16).contiguous())
+        self.w_bf16 = pack_tc_weights(self.w, input_injection, kind)
         self.tab = torch.from_numpy(np.ascontiguousarray(tab, np.float32)).to(device)
         self.small = torch.from_numpy(np.ascontiguousarray(small, np.float32)).to(device)
         self.emb = torch.from_numpy(np.concatenate(
@@ -965,49 +961,32 @@ class _MsgTables:
 
 def msg_gnn_smem_bytes(qc: QCLayout, hidden_dim: int, kind: str = "msg_gnn",
                        input_injection: bool = False, warps: int = 1) -> int:
-    """Dynamic shared memory of one ``kind`` block (mirrors make_layout in
-    csrc/fused_msg_gnn.cu): graph, inverse degrees, the frame's LLRs,
-    embedding and projection, the layer's biases (2h, or 3h for v4), v4's
-    w2last and dsc, four (h, h) float32 weight matrices and 2h bf16 of
-    staging per thread, in 4-byte words.  The tensor-core kernels
-    (make_layout in csrc/fused_msg_gnn_tc.cu) depend on injection and on the
-    block's ``warps``: graph, inverse degrees, LLRs, embedding and
-    projection, the layer's biases (v2: b2; v3: b1v, b1c, b2), its packed
-    bf16 weights (:func:`tc_weight_blocks`), v3's staged deltas (K h bf16)
-    and two stage buffers a warp (16 rows of h + 8 bf16 each of v2's
-    features, vmean and rmean; of v3's features and vmean)."""
+    """Dynamic shared memory of one ``kind`` block of ``warps`` warps (mirrors
+    make_layout in csrc/fused_msg_gnn_tc.cu): graph, inverse degrees, the
+    frame's LLRs, embedding and projection, the layer's biases (one row of
+    ``_MsgTables.small``), its packed bf16 weights (:func:`tc_weight_blocks`),
+    v3's staged deltas (K h bf16) and two stage buffers a warp (16 rows of h
+    + 8 bf16 each of the message-major kernels' features, vmean and rmean; of
+    v3's features and vmean)."""
     K, Z, C, R, h = qc.num_base_edges, qc.Z, qc.num_base_cols, qc.num_base_rows, hidden_dim
-    if kind in _TC_KINDS:
-        v3 = kind == _TC_V3
-        weights = sum(width for _, width in tc_weight_blocks(h, input_injection, kind))
-        return (4 * (_r4(6 * K + R + C + 2) + _r4(C + R) + _r4(C * Z) + _r4(3 * h + 1)
-                     + (3 * h if v3 else h))
-                + 2 * h * weights + (2 * K * h if v3 else 0)
-                + warps * 2 * 2 * (2 if v3 else 3) * _TILE * (h + 8))
-    words = (_r4(6 * K + R + C + 2) + _r4(C + R) + _r4(C * Z) + _r4(3 * h + 1)
-             + (3 * h if kind == "msg_gnn_v4" else 2 * h)
-             + (_r4(2 * h + K) if kind == "msg_gnn_v4" else 0)
-             + 4 * h * h + h * _MSG_THREADS)
-    return 4 * words
+    v3 = kind == _CHECK_MAJOR
+    small = h if kind == "msg_gnn_v2" else (2 if kind == "msg_gnn" else 3) * h
+    weights = sum(width for _, width in tc_weight_blocks(h, input_injection, kind))
+    return (4 * (_r4(6 * K + R + C + 2) + _r4(C + R) + _r4(C * Z) + _r4(3 * h + 1) + small)
+            + 2 * h * weights + (2 * K * h if v3 else 0)
+            + warps * 2 * 2 * (2 if v3 else 3) * _TILE * (h + 8))
 
 
-def msg_gnn_scratch_floats(qc: QCLayout, hidden_dim: int, input_injection: bool,
-                           kind: str = "msg_gnn") -> int:
-    """Global scratch of one resident block: a frame's features (bf16), its
-    per-variable and per-check first-layer terms (float32; with injection the
-    LLR terms of both sides, or of the check side alone for v4, whose
-    variable side folds into the per-variable term) and v4's per-message
-    output scalars.  ``msg_gnn_v2``: the features, then the variable and
-    check means, one h-row of bf16 each (no first-layer terms);
-    ``msg_gnn_v3``: the features and the variable means."""
+def msg_gnn_scratch_floats(qc: QCLayout, hidden_dim: int, kind: str = "msg_gnn") -> int:
+    """Global scratch of one resident block (scratch_elems in
+    csrc/fused_msg_gnn_tc.cu), in floats: a frame's features and variable
+    means, one bf16 h-row each; the message-major kernels then the check
+    means; ``msg_gnn_v4`` then one float32 output scalar per message (K Z,
+    rounded up to 16 bytes).  Injection adds nothing."""
     K, Z, C, R, h = qc.num_base_edges, qc.Z, qc.num_base_cols, qc.num_base_rows, hidden_dim
-    if kind == _TC:
-        return (K + C + R) * Z * h // 2
-    if kind == _TC_V3:
+    if kind == _CHECK_MAJOR:
         return (K + C) * Z * h // 2
-    llr_terms = (C if kind == "msg_gnn_v4" else 2 * C) if input_injection else 0
-    return ((C + R + llr_terms) * Z * h + K * Z * h // 2
-            + (K * Z if kind == "msg_gnn_v4" else 0))
+    return (K + C + R) * Z * h // 2 + (_r4(K * Z) if kind == "msg_gnn_v4" else 0)
 
 
 def _variable_sums(terms: torch.Tensor, adds: torch.Tensor, ix: _PlainIndex) -> torch.Tensor:
@@ -1144,38 +1123,17 @@ class _FoldPlain(_MsgPlain):
         return self._soft(llr, f)
 
 
-# H, llr, soft, counter, scratch, graph, inv, w, tab, small, emb, extra,
-# B, Z, R, C, K, T, inject, grid, stream
-_MSG_LAUNCH = ([_I] + [_P] * 11 + [_I] * 8 + [_P], _I)
-_MSG_SIGNATURES = {
-    **{entry: _MSG_LAUNCH for entry in _MSG_ENTRY.values()},
-    "ldpc_msg_gnn_smem_bytes": ([_I] * 6, ctypes.c_longlong),  # variant, H, Z, R, C, K
-    "ldpc_msg_gnn_scratch_floats": ([_I] * 7, ctypes.c_longlong),  # ..., inject
-    "ldpc_msg_gnn_occupancy": ([_I] * 6, _I),  # variant, H, Z, R, C, K
-    "ldpc_msg_gnn_cuda_error_string": ([_I], ctypes.c_char_p),
-}
-
-
-def msg_kernel_library():
-    """The compiled ``csrc/fused_msg_gnn.cu``, built on first use."""
-    from ldpc_tpu_torch.ops import _build
-
-    return _build.load("fused_msg_gnn", _MSG_SIGNATURES)
-
-
-_TC_SIGNATURES = {
-    # H, llr, soft, counter, scratch, graph, inv, w, tab, small, emb,
-    # B, Z, R, C, K, T, inject, grid, warps, stream
-    "ldpc_msg_gnn_v2": ([_I] + [_P] * 10 + [_I] * 9 + [_P], _I),
-    "ldpc_msg_gnn_tc_smem_bytes": ([_I] * 7, ctypes.c_longlong),  # H, inject, Z, R, C, K, warps
-    "ldpc_msg_gnn_tc_scratch_floats": ([_I] * 5, ctypes.c_longlong),  # H, Z, R, C, K
-    "ldpc_msg_gnn_tc_plan": ([_I] * 6 + [_P, _P], _I),  # ..., *warps, *blocks
-    "ldpc_msg_gnn_v3": ([_I] + [_P] * 10 + [_I] * 9 + [_P], _I),  # as ldpc_msg_gnn_v2
-    "ldpc_msg_gnn_v3_tc_smem_bytes": ([_I] * 7, ctypes.c_longlong),  # as v2's
-    "ldpc_msg_gnn_v3_tc_scratch_floats": ([_I] * 4, ctypes.c_longlong),  # H, Z, C, K
-    "ldpc_msg_gnn_v3_tc_plan": ([_I] * 6 + [_P, _P], _I),  # as v2's
-    "ldpc_msg_gnn_tc_cuda_error_string": ([_I], ctypes.c_char_p),
-}
+_TC_SIGNATURES = {"ldpc_msg_gnn_tc_cuda_error_string": ([_I], ctypes.c_char_p)}
+for _entry in TC_ENTRY.values():
+    _TC_SIGNATURES.update({
+        # H, llr, soft, counter, scratch, graph, inv, w, tab, small, emb, extra,
+        # B, Z, R, C, K, T, inject, grid, warps, stream
+        _entry: ([_I] + [_P] * 11 + [_I] * 9 + [_P], _I),
+        # H, inject, Z, R, C, K, warps
+        f"{_entry}_tc_smem_bytes": ([_I] * 7, ctypes.c_longlong),
+        f"{_entry}_tc_scratch_floats": ([_I] * 5, ctypes.c_longlong),  # H, Z, R, C, K
+        f"{_entry}_tc_plan": ([_I] * 6 + [_P, _P], _I),  # H, inject, Z, R, C, K, *warps, *blocks
+    })
 
 
 def tc_kernel_library():
@@ -1186,32 +1144,20 @@ def tc_kernel_library():
 
 
 def msg_gnn_tc_plan(qc: QCLayout, hidden_dim: int, input_injection: bool,
-                    kind: str = _TC) -> tuple[int, int]:
-    """(warps a block, blocks an SM) of a tensor-core kernel (``msg_gnn_v2``
-    or ``msg_gnn_v3``) on the current card: the runtime's occupancy query
-    over every block size, the most resident warps per SM
-    (csrc/fused_msg_gnn_tc.cu)."""
+                    kind: str = "msg_gnn_v2") -> tuple[int, int]:
+    """(warps a block, blocks an SM) of the ``kind`` kernel on the current
+    card: the runtime's occupancy query over every block size, the most
+    resident warps per SM (csrc/fused_msg_gnn_tc.cu)."""
     lib = tc_kernel_library()
     warps, blocks = ctypes.c_int(0), ctypes.c_int(0)
     dims = (hidden_dim, int(input_injection), qc.Z, qc.num_base_rows, qc.num_base_cols,
             qc.num_base_edges)
-    out = (ctypes.addressof(warps), ctypes.addressof(blocks))
-    plan = lib.ldpc_msg_gnn_v3_tc_plan if kind == _TC_V3 else lib.ldpc_msg_gnn_tc_plan
-    rc = plan(*dims, *out)
+    rc = getattr(lib, f"{TC_ENTRY[kind]}_tc_plan")(*dims, ctypes.addressof(warps),
+                                                    ctypes.addressof(blocks))
     if rc != 0:
         msg = lib.ldpc_msg_gnn_tc_cuda_error_string(rc).decode()
         raise RuntimeError(f"{kind} occupancy query failed: CUDA error {rc} ({msg})")
     return warps.value, blocks.value
-
-
-def msg_gnn_blocks_per_sm(kind: str, qc: QCLayout, hidden_dim: int,
-                          input_injection: bool = False) -> int:
-    """Resident blocks per SM of a fully-neural kernel (or -cudaError_t for
-    the kernels of csrc/fused_msg_gnn.cu)."""
-    if kind in _TC_KINDS:
-        return msg_gnn_tc_plan(qc, hidden_dim, input_injection, kind)[1]
-    dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
-    return msg_kernel_library().ldpc_msg_gnn_occupancy(MSG_VARIANT[kind], hidden_dim, *dims)
 
 
 class FusedMessageGNNDecoder(_ResidentGridDecoder):
@@ -1225,7 +1171,7 @@ class FusedMessageGNNDecoder(_ResidentGridDecoder):
     def __init__(self, kind: str, qc: QCLayout, params, num_iterations: int, hidden_dim: int,
                  share_layers: bool, input_injection: bool, device: torch.device):
         super().__init__(kind, qc, num_iterations, hidden_dim, input_injection)
-        self._warps = 0  # a tensor-core kernel's block size, from its plan at the first launch
+        self._warps = 0  # the block size, from the kernel's plan at the first launch
         self.tables = _MsgTables(kind, qc, params, self.num_iterations, self.hidden_dim,
                                  share_layers, self.input_injection, device)
 
@@ -1241,30 +1187,12 @@ class FusedMessageGNNDecoder(_ResidentGridDecoder):
     def _launch(self, llr: torch.Tensor) -> torch.Tensor:
         if not llr.is_contiguous():
             raise ValueError("llr must be contiguous")
-        qc, h, tb = self.qc, self.hidden_dim, self.tables
-        B = llr.shape[0]
-        soft = torch.empty_like(llr)
-        if B == 0:
-            return soft
-        dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
-        if self.kind in _TC_KINDS:
-            return self._launch_tc(llr, soft, dims)
-        lib = msg_kernel_library()
-        self._launch_grid(
-            llr, lambda: lib.ldpc_msg_gnn_occupancy(MSG_VARIANT[self.kind], h, *dims),
-            msg_gnn_scratch_floats(qc, h, self.input_injection, self.kind),
-            lambda counter, scratch, grid, stream: getattr(lib, _MSG_ENTRY[self.kind])(
-                h, llr.data_ptr(), soft.data_ptr(), counter, scratch, tb.graph.data_ptr(),
-                tb.inv.data_ptr(), tb.w_bf16.data_ptr(), tb.tab.data_ptr(), tb.small.data_ptr(),
-                tb.emb.data_ptr(), tb.extra.data_ptr(), B, *dims, self.num_iterations,
-                int(self.input_injection), grid, stream),
-            lib.ldpc_msg_gnn_cuda_error_string)
-        return soft
-
-    def _launch_tc(self, llr: torch.Tensor, soft: torch.Tensor, dims: tuple) -> torch.Tensor:
         qc, h, tb, inject = self.qc, self.hidden_dim, self.tables, self.input_injection
+        soft = torch.empty_like(llr)
+        if llr.shape[0] == 0:
+            return soft
         lib = tc_kernel_library()
-        entry = lib.ldpc_msg_gnn_v3 if self.kind == _TC_V3 else lib.ldpc_msg_gnn_v2
+        entry = getattr(lib, TC_ENTRY[self.kind])
 
         def blocks_per_sm() -> int:
             self._warps, blocks = msg_gnn_tc_plan(qc, h, inject, self.kind)
@@ -1274,10 +1202,10 @@ class FusedMessageGNNDecoder(_ResidentGridDecoder):
             return entry(h, llr.data_ptr(), soft.data_ptr(), counter, scratch,
                          tb.graph.data_ptr(), tb.inv.data_ptr(), tb.w_bf16.data_ptr(),
                          tb.tab.data_ptr(), tb.small.data_ptr(), tb.emb.data_ptr(),
-                         llr.shape[0], *dims, self.num_iterations, int(inject), grid,
-                         self._warps, stream)
+                         tb.extra.data_ptr(), llr.shape[0], *_dims(qc), self.num_iterations,
+                         int(inject), grid, self._warps, stream)
 
-        self._launch_grid(llr, blocks_per_sm, msg_gnn_scratch_floats(qc, h, inject, self.kind),
+        self._launch_grid(llr, blocks_per_sm, msg_gnn_scratch_floats(qc, h, self.kind),
                           launch, lib.ldpc_msg_gnn_tc_cuda_error_string)
         return soft
 
@@ -1286,8 +1214,7 @@ def _make_msg(kind: str, qc: QCLayout, params, num_iterations: int, hidden_dim: 
               share_layers: bool, input_injection: bool, device) -> FusedMessageGNNDecoder:
     _check_build(kind, num_iterations, hidden_dim,
                  msg_gnn_smem_bytes(qc, hidden_dim, kind, input_injection),
-                 "LLRs, one phase's weights and the first-layer staging" if kind not in _TC_KINDS
-                 else "LLRs, one layer's weights and one warp's tile buffers", qc)
+                 "LLRs, one layer's weights and one warp's tile buffers", qc)
     return FusedMessageGNNDecoder(kind, qc, params, num_iterations, hidden_dim, share_layers,
                                   input_injection, resolve_device(device))
 

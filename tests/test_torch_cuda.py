@@ -16,9 +16,9 @@ corrected_v2 (tensor cores) on the exact inputs of ops/msg_gnn_exact.py:
 soft bits and conv_iter identical.  The
 trained min-sum kernel (fused_neural): bits identical.  The fully-neural GNN
 kernels (msg_gnn, msg_gnn_v2, msg_gnn_v3, msg_gnn_v4) at T=2: soft bits within
-3e-2, decisions equal where the plain version is confident; msg_gnn_v2 and
-msg_gnn_v3 on the exact inputs of ops/msg_gnn_exact.py (msg_gnn_v3 also with
-nonzero type embeddings): identical.  The aggregation
+3e-2, decisions equal where the plain version is confident; all four on the
+exact inputs of ops/msg_gnn_exact.py (msg_gnn_v3 and msg_gnn_v4 also with
+nonzero type embeddings, msg_gnn_v4 also at T=1): identical.  The aggregation
 probe: vpu identical to its plain version, mxu within one bf16 step (the
 tensor cores' float32 sums need not round as IEEE additions do).
 """
@@ -484,6 +484,30 @@ def test_msg_gnn_v3_exact_inputs_identical(code, Z, h, batch, inject, share, T, 
     assert torch.equal(soft_k, soft_p)
 
 
+@pytest.mark.parametrize("kind,code,Z,h,batch,inject,share,T,te",
+                         [("msg_gnn", *case, 2, (0.0,)) for case in EXACT_CASES]
+                         + [("msg_gnn_v4", *case, 2, (0.0,)) for case in EXACT_CASES]
+                         + [("msg_gnn_v4", *case, EXACT_TYPE_EMBEDDINGS)
+                            for case in EXACT_TE_CASES]
+                         + [("msg_gnn_v4", *case, 1, (0.0,)) for case in EXACT_CASES])
+def test_msg_gnn_v1_v4_exact_inputs_identical(kind, code, Z, h, batch, inject, share, T, te):
+    """B6 and B9 on inputs whose every reordered sum is exact in any order
+    (ops/msg_gnn_exact.py): their tensor-core tiles must give the plain
+    version's soft bits exactly, so an index, shift, second-layer split or
+    delta-table fault shows; B9 also with type embeddings and at T=1 (its
+    thin last layer alone)."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph(code), Z)
+    model, llr = exact_msg_gnn_case(qc, h, batch, inject, share, num_iterations=T,
+                                    type_embeddings=te)
+    dec = MSG_BUILDERS[kind](qc, model, T, h, share_layers=share, input_injection=inject)
+    llr = torch.from_numpy(llr).cuda()
+    before = fg.LAUNCHES[kind]
+    soft_k, soft_p = dec(llr), dec.plain(llr)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES[kind] == before + 1
+    assert torch.equal(soft_k, soft_p)
+
+
 @pytest.mark.parametrize("kind", ["fused_neural", *MSG_BUILDERS])
 def test_resident_blocks_decode_several_frames(kind):
     """A batch of three frames or more per resident block, so that each block
@@ -504,7 +528,7 @@ def test_resident_blocks_decode_several_frames(kind):
         qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_4"), 4)
         dec = MSG_BUILDERS[kind](qc, _msg_model(qc_msg.make_plan(qc), 2, 64, True, False), 2, 64,
                                  input_injection=True)
-        resident = fg.msg_gnn_blocks_per_sm(kind, qc, 64, True) * sms
+        resident = fg.msg_gnn_tc_plan(qc, 64, True, kind)[1] * sms
     llr = _llr(qc.num_vars, 3 * resident + 1, 1.0, seed=5)
     out_k, out_p = dec(llr), dec.plain(llr)
     torch.cuda.synchronize()

@@ -126,11 +126,15 @@ def test_plans_and_raising_paths():
     a kernel instantiation raises, and so does the card without a card."""
     _, _, qt, pt = both_plans("nr_2_0_32", 32)
     K, C, R, n = qt.num_base_edges, qt.num_base_cols, qt.num_base_rows, qt.num_vars
-    words = (6 * K + R + C + 2 + 3) // 4 * 4 + (C + R + 3) // 4 * 4 + n + 196 + 128 \
-        + 4 * 64 * 64 + 64 * 256
-    assert tfg.msg_gnn_smem_bytes(qt, 64) == 4 * words
-    assert tfg.msg_gnn_scratch_floats(qt, 64, False) == (C + R) * 32 * 64 + K * 32 * 32
-    assert tfg.msg_gnn_scratch_floats(qt, 64, True) == (3 * C + R) * 32 * 64 + K * 32 * 32
+    # B6 on the tensor cores (csrc/fused_msg_gnn_tc.cu make_layout), one warp:
+    # structure, inverse degrees, LLRs, embedding and projection, b2v and b2c,
+    # the packed bf16 weights W1v, W1c (2h + 8 a row) and W2 (2h + 8), and
+    # the warp's two tile buffers (16 rows of h + 8 bf16 of f, vmean, rmean)
+    words = (6 * K + R + C + 2 + 3) // 4 * 4 + (C + R + 3) // 4 * 4 + n + 196 + 128
+    assert tfg.msg_gnn_smem_bytes(qt, 64) == 4 * words + 2 * 64 * 3 * 136 + 2 * 2 * 3 * 16 * 72
+    assert tfg.msg_gnn_smem_bytes(qt, 64) == 79_504
+    # the features, vmean and rmean, one bf16 h-row each
+    assert tfg.msg_gnn_scratch_floats(qt, 64) == (K + C + R) * 32 * 32
     model = create_message_gnn_decoder(pt, num_iterations=2, hidden_dim=32)
     with pytest.raises(ValueError, match="hidden_dim in"):
         tfg.make_fused_gnn_decoder(qt, model, 2, 32, device="cpu")

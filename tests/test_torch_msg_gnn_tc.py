@@ -72,6 +72,46 @@ def _exact_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a @ w.t()
 
 
+def _span(a: torch.Tensor, w: torch.Tensor):
+    """Per output of a (..., in) @ w (out, in)^T: the sum of the products'
+    magnitudes and log2 of their least quantum (inf where every product is
+    0), each (rows, out)."""
+    la = torch.log2(_quanta(a).reshape(-1, a.shape[-1])).float()
+    lw = torch.log2(_quanta(w)).float()
+    bound = a.double().abs().reshape(-1, a.shape[-1]) @ w.double().abs().t()
+    rows = max(1, 2 ** 22 // lw.numel())
+    lq = torch.cat([(la[i:i + rows, None, :] + lw[None]).amin(dim=2)
+                    for i in range(0, la.shape[0], rows)])
+    return bound, lq
+
+
+def _assert_exact(bound: torch.Tensor, lq: torch.Tensor) -> None:
+    """Raises unless every sum whose terms' magnitudes add up to ``bound``
+    is below 2**24 times its least quantum 2**lq: then it is exact in any
+    order."""
+    assert bool((bound < 2.0 ** 24 * torch.pow(2.0, lq.double())).all()), "a sum is not exact"
+
+
+def _exact_acc(pairs, init: torch.Tensor | None = None) -> torch.Tensor:
+    """init + the sum of a @ w^T over (a, w) in ``pairs``, one float32
+    accumulation, after checking that it is exact in any order: per output,
+    the magnitudes of every product and of init add up to less than 2**24
+    times the least quantum among them."""
+    shape = pairs[0][0].shape[:-1] + (pairs[0][1].shape[0],)
+    bound, lq = 0.0, torch.full((1,), torch.inf)
+    for a, w in pairs:
+        b, q = _span(a, w)
+        bound, lq = bound + b, torch.minimum(lq, q)
+    acc = sum(a @ w.t() for a, w in pairs)
+    if init is not None:
+        init = init.expand(shape)
+        bound = bound + init.double().abs().reshape(bound.shape)
+        lq = torch.minimum(lq, torch.log2(_quanta(init)).reshape(bound.shape).float())
+        acc = init + acc
+    _assert_exact(bound, lq)
+    return acc
+
+
 def _r(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
@@ -118,9 +158,19 @@ def _member_sums(f: torch.Tensor, ptr: torch.Tensor, members, Z: int) -> torch.T
 
 
 def tile_model(dec, llr: torch.Tensor) -> torch.Tensor:
-    """The msg_gnn_v2 kernel's arithmetic, tile by tile, on the CPU."""
+    """A message-major kernel's arithmetic (``dec.kind``: msg_gnn_v2,
+    msg_gnn or msg_gnn_v4), tile by tile, on the CPU.  Each first-layer
+    output is one accumulation over [f | mean | lf] plus b1 (per edge; v4's
+    per layer).  The second layer: v2 one accumulation over [h1v | h1c]
+    plus b2; msg_gnn its halves apart, bf16(W2v h1v + b2v) and then bf16(W2c
+    h1c + b2c), added in bf16; v4 as v2, then the delta before the residual,
+    bf16(bf16(out + d) + f).  v4's features carry the type embeddings (the
+    delta table), and its last layer is the thin product w2last . h1 (+
+    proj8 . f after layer 0), one accumulation, summed per variable with
+    dsc."""
     qc, h, T, inject = dec.qc, dec.hidden_dim, dec.num_iterations, dec.input_injection
-    tb = dec.tables
+    tb, kind = dec.tables, dec.kind
+    v4 = kind == "msg_gnn_v4"
     Z, K, C = qc.Z, qc.num_base_edges, qc.num_base_cols
     E, n = K * Z, C * Z
     row_ptr, row_edge, col_ptr, col_edge, shift, col, row = _graph(dec)
@@ -134,14 +184,16 @@ def tile_model(dec, llr: torch.Tensor) -> torch.Tensor:
     z = i - k * Z
     vrow = col[k] * Z + z  # the message's variable: its vmean row and its LLR
     crow = row[k] * Z + (z - shift[k]) % Z  # its check: the rmean row
-    seed = _r(llr[:, vrow, None] * emb_w + emb_b)  # (B, E, h)
-    lf = seed
-    f = seed
+    lf = _r(llr[:, vrow, None] * emb_w + emb_b)  # (B, E, h)
+    f = _r((llr[:, vrow, None] * emb_w + emb_b) + tb.tab[0][k]) if v4 else lf
     ntiles = -(-E // TILE)
     pad = ntiles * TILE - E
 
     def tiles(x):  # (B, E, w) -> (B, tiles, 16, w), rows past E zero
         return torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(B, ntiles, TILE, -1)
+
+    def untile(x):  # (B, tiles, 16, w) -> (B, E, w)
+        return x.reshape(B, ntiles * TILE, -1)[:, :E]
 
     for t in range(T):
         vsum = _member_sums(f, col_ptr, lambda j, zs: col_edge[j] * Z + zs, Z)
@@ -153,31 +205,55 @@ def tile_model(dec, llr: torch.Tensor) -> torch.Tensor:
         if inject:
             parts_v.append(lf)
             parts_c.append(lf)
-        b1 = tb.tab[t]  # (2, K, h), per edge
-        b1v, b1c = tiles(b1[0][k].expand(B, E, h)), tiles(b1[1][k].expand(B, E, h))
-        pv = _exact_product(tiles(torch.cat(parts_v, dim=-1)), W1v[t])
-        pc = _exact_product(tiles(torch.cat(parts_c, dim=-1)), W1c[t])
-        _exact_sum(pv, b1v)
-        _exact_sum(pc, b1c)
-        h1 = torch.cat([_r(torch.relu(pv + b1v)), _r(torch.relu(pc + b1c))], dim=-1)
-        out = _exact_product(h1, W2[t])
-        b2 = tb.small[t, :h]
-        _exact_sum(out, b2)
-        new = _r(out + b2).reshape(B, ntiles * TILE, h)[:, :E]
-        if t >= 1:
+        if v4:  # per layer
+            b1v, b1c = tb.small[t, :h], tb.small[t, h:2 * h]
+        else:  # (2, K, h), per edge
+            b1v, b1c = (tiles(tb.tab[t][side][k].expand(B, E, h)) for side in (0, 1))
+        pv = _exact_acc([(tiles(torch.cat(parts_v, dim=-1)), W1v[t])], init=b1v)
+        pc = _exact_acc([(tiles(torch.cat(parts_c, dim=-1)), W1c[t])], init=b1c)
+        h1v, h1c = _r(torch.relu(pv)), _r(torch.relu(pc))
+        h1 = torch.cat([h1v, h1c], dim=-1)
+        if v4 and t == T - 1:  # the thin last layer: one output scalar a message
+            pairs = [(h1, tb.extra[None, :2 * h])]
+            if t >= 1:
+                pairs.append((tiles(f), proj_w[None]))
+            break
+        if kind == "msg_gnn":  # the halves rounded apart, out_v first
+            outs = [(_exact_product(x, W2[t][:, s * h:(s + 1) * h]), tb.small[t, s * h:(s + 1) * h])
+                    for s, x in enumerate((h1v, h1c))]
+            for out, b2 in outs:
+                _exact_sum(out, b2)
+            new = untile(_r(_r(outs[0][0] + outs[0][1]) + _r(outs[1][0] + outs[1][1])))
+        else:
+            out, b2 = _exact_product(h1, W2[t]), tb.small[t, 2 * h:3 * h] if v4 else tb.small[t, :h]
+            _exact_sum(out, b2)
+            new = untile(_r(out + b2))
+        if v4:
+            d = _r(tb.tab[t + 1][k])
+            new = _r(new + d) if t == 0 else _r(_r(new + d) + f)
+        elif t >= 1:
             _exact_sum(new, f)
             new = _r(new + f)
         f = new
 
-    contrib = _exact_product(f, proj_w[None])[..., 0]  # (B, E)
+    # The per-variable sums, in member order as the kernel adds them: v4's
+    # per message s plus its edge's float32 dsc (not dyadic: the order is
+    # the plain version's, not checked exact); the others' projection of
+    # the features plus proj_b.
+    if v4:
+        terms, adds = untile(_exact_acc(pairs))[..., 0], tb.extra[2 * h:]
+    else:
+        terms, adds = _exact_product(f, proj_w[None])[..., 0], proj_b.expand(K)
     acc = torch.zeros((B, n))
     for c in range(C):
         for j in range(int(col_ptr[c]), int(col_ptr[c + 1])):
             rows = col_edge[j] * Z + torch.arange(Z)
             sl = slice(c * Z, (c + 1) * Z)
-            _exact_sum(acc[:, sl], contrib[:, rows], proj_b)
-            acc[:, sl] = (acc[:, sl] + contrib[:, rows]) + proj_b
-    _exact_sum(llr, acc)
+            if not v4:
+                _exact_sum(acc[:, sl], terms[:, rows], adds[col_edge[j]])
+            acc[:, sl] = (acc[:, sl] + terms[:, rows]) + adds[col_edge[j]]
+    if not v4:
+        _exact_sum(llr, acc)
     return 1.0 / (1.0 + torch.exp(llr + acc))
 
 
@@ -233,9 +309,8 @@ def test_tc_plans():
         fixed + 2 * 64 * (2 * 200 + 136) + 11 * 2 * 2 * 3 * 16 * 72
     assert fg.msg_gnn_smem_bytes(qc, 64, "msg_gnn_v2", False, 11) <= 232_448
     # features, vmean, rmean: one bf16 h-row each, no float32 terms
-    for inject in (False, True):
-        assert fg.msg_gnn_scratch_floats(qc, 64, inject, "msg_gnn_v2") == (K + C + R) * Z * 32
-    assert fg.msg_gnn_scratch_floats(qc, 64, False, "msg_gnn_v2") * 4 == 1_191_936
+    assert fg.msg_gnn_scratch_floats(qc, 64, "msg_gnn_v2") == (K + C + R) * Z * 32
+    assert fg.msg_gnn_scratch_floats(qc, 64, "msg_gnn_v2") * 4 == 1_191_936
 
 
 def test_tc_raising_paths():

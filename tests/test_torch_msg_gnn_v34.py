@@ -199,21 +199,23 @@ def test_plans_and_raising_paths():
     a kernel instantiation raises, and so does the card without a card."""
     _, _, qt, pt = both_plans("nr_2_0_32", 32)
     K, C, R, Z = qt.num_base_edges, qt.num_base_cols, qt.num_base_rows, qt.Z
-    # graph, inverse degrees, LLRs, embedding and projection, four float32
-    # (h, h) matrices and 2h bf16 of staging per thread; then the layer's
-    # biases (3h) and v4's w2last and dsc, all 4-byte words
-    base = 4 * ((6 * K + R + C + 2 + 3) // 4 * 4 + (C + R + 3) // 4 * 4 + C * Z + 196
-                + 4 * 64 * 64 + 64 * 256)
-    # v3 runs on the tensor cores (csrc/fused_msg_gnn_tc.cu make_layout):
-    # the same structure, b1v, b1c, b2, packed bf16 weights W1v, W1c, W1ca,
-    # W2 with injection, the staged deltas and one warp's two stage buffers
+    # graph, inverse degrees, LLRs, embedding and projection, the layer's
+    # biases b1v, b1c, b2 (3h), all 4-byte words
+    base = 4 * ((6 * K + R + C + 2 + 3) // 4 * 4 + (C + R + 3) // 4 * 4 + C * Z + 196 + 3 * 64)
+    # both on the tensor cores (csrc/fused_msg_gnn_tc.cu make_layout), one
+    # warp.  v3: packed bf16 weights W1v, W1c, W1ca, W2 with injection, the
+    # staged deltas and two stage buffers (f and vmean rows); v4: B7's packed
+    # W1v, W1c, W2 and two tile buffers (f, vmean and rmean rows)
     assert tfg.msg_gnn_smem_bytes(qt, 64, "msg_gnn_v3", True) == 117_776
-    assert tfg.msg_gnn_smem_bytes(qt, 64, "msg_gnn_v4") == base + 4 * 3 * 64 + 4 * (
-        (2 * 64 + K + 3) // 4 * 4)
+    assert tfg.msg_gnn_smem_bytes(qt, 64, "msg_gnn_v4") == base + 2 * 64 * 3 * 136 \
+        + 2 * 2 * 3 * 16 * 72
+    assert tfg.msg_gnn_smem_bytes(qt, 64, "msg_gnn_v4") == 79_760
     feats = K * Z * 32
     # v3: the features and the variable means, bf16
-    assert tfg.msg_gnn_scratch_floats(qt, 64, True, "msg_gnn_v3") == C * Z * 32 + feats
-    assert tfg.msg_gnn_scratch_floats(qt, 64, False, "msg_gnn_v4") == (C + R) * Z * 64 + feats \
+    assert tfg.msg_gnn_scratch_floats(qt, 64, "msg_gnn_v3") == C * Z * 32 + feats
+    # v4: the features, vmean and rmean, bf16, then a float32 output scalar
+    # a message
+    assert tfg.msg_gnn_scratch_floats(qt, 64, "msg_gnn_v4") == (C + R) * Z * 32 + feats \
         + K * Z
     model = create_message_gnn_decoder(pt, num_iterations=2, hidden_dim=32)
     for build in (tfg.make_fused_gnn_decoder_v3, tfg.make_fused_gnn_decoder_v4):

@@ -24,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_msg_gnn_tc import _exact_sum, _graph, _member_sums, _quanta, _r
+from test_torch_msg_gnn_tc import (_assert_exact, _exact_acc, _exact_sum, _graph, _member_sums,
+                                 _r, _span)
 
 from ldpc_tpu_torch.codes import get_base_graph, qc_layout
 from ldpc_tpu_torch.ops import fused_gnn as fg
@@ -48,46 +49,6 @@ def unpack_v3_weights(packed: torch.Tensor, h: int, inject: bool):
         o += h * (width + 8)
     assert o == p.shape[1]
     return out
-
-
-def _span(a: torch.Tensor, w: torch.Tensor):
-    """Per output of a (..., in) @ w (out, in)^T: the sum of the products'
-    magnitudes and log2 of their least quantum (inf where every product is
-    0), each (rows, out)."""
-    la = torch.log2(_quanta(a).reshape(-1, a.shape[-1])).float()
-    lw = torch.log2(_quanta(w)).float()
-    bound = a.double().abs().reshape(-1, a.shape[-1]) @ w.double().abs().t()
-    rows = max(1, 2 ** 22 // lw.numel())
-    lq = torch.cat([(la[i:i + rows, None, :] + lw[None]).amin(dim=2)
-                    for i in range(0, la.shape[0], rows)])
-    return bound, lq
-
-
-def _assert_exact(bound: torch.Tensor, lq: torch.Tensor) -> None:
-    """Raises unless every sum whose terms' magnitudes add up to ``bound``
-    is below 2**24 times its least quantum 2**lq: then it is exact in any
-    order."""
-    assert bool((bound < 2.0 ** 24 * torch.pow(2.0, lq.double())).all()), "a sum is not exact"
-
-
-def _exact_acc(pairs, init: torch.Tensor | None = None) -> torch.Tensor:
-    """init + the sum of a @ w^T over (a, w) in ``pairs``, one float32
-    accumulation, after checking that it is exact in any order: per output,
-    the magnitudes of every product and of init add up to less than 2**24
-    times the least quantum among them."""
-    shape = pairs[0][0].shape[:-1] + (pairs[0][1].shape[0],)
-    bound, lq = 0.0, torch.full((1,), torch.inf)
-    for a, w in pairs:
-        b, q = _span(a, w)
-        bound, lq = bound + b, torch.minimum(lq, q)
-    acc = sum(a @ w.t() for a, w in pairs)
-    if init is not None:
-        init = init.expand(shape)
-        bound = bound + init.double().abs().reshape(bound.shape)
-        lq = torch.minimum(lq, torch.log2(_quanta(init)).reshape(bound.shape).float())
-        acc = init + acc
-    _assert_exact(bound, lq)
-    return acc
 
 
 def tile_model(dec, llr: torch.Tensor) -> torch.Tensor:
@@ -267,7 +228,7 @@ def test_v3_plans(code, Z):
             assert fg.msg_gnn_smem_bytes(qc, h, "msg_gnn_v3", inject, 12) == \
                 one + 11 * 2 * 2 * TILE * (h + 8) * 2
             # features and variable means, one bf16 h-row each
-            assert fg.msg_gnn_scratch_floats(qc, h, inject, "msg_gnn_v3") == (K + C) * Z * h // 2
+            assert fg.msg_gnn_scratch_floats(qc, h, "msg_gnn_v3") == (K + C) * Z * h // 2
             w = torch.zeros((2, 8, h, h))
             blocks = fg.tc_weight_blocks(h, inject, "msg_gnn_v3")
             assert fg.pack_tc_weights(w, inject, "msg_gnn_v3").shape == \
@@ -283,4 +244,4 @@ def test_v3_plans(code, Z):
         assert fg.msg_gnn_smem_bytes(qc, 64, "msg_gnn_v3", False, 2) - \
             fg.msg_gnn_smem_bytes(qc, 64, "msg_gnn_v3", False, 1) == 9_216
         assert fg.msg_gnn_smem_bytes(qc, 64, "msg_gnn_v3", True, 12) <= 232_448
-        assert fg.msg_gnn_scratch_floats(qc, 64, False, "msg_gnn_v3") * 4 == 1_019_904
+        assert fg.msg_gnn_scratch_floats(qc, 64, "msg_gnn_v3") * 4 == 1_019_904
