@@ -8,7 +8,9 @@ Phases, one JSON line each:
 2. build   — compile every CUDA source of the port with nvcc (sm_90a), one
              process per source, all started together; the
              main-path kernels' resident blocks per SM from the runtime
-             (retire_zlane's with its parts at Z=384), registers per kernel;
+             (retire_zlane's with its parts at Z=384, retire_layered's with
+             its plan at Z=32), registers per kernel (retire_layered's
+             registers and spills by name);
              the tensor-core kernels' (msg_gnn, msg_gnn_v2, msg_gnn_v3,
              msg_gnn_v4, corrected_v2) block shapes (their occupancy plans)
              and registers a thread, and the
@@ -17,15 +19,19 @@ Phases, one JSON line each:
 3. compare — each kernel against its plain PyTorch version on the card, for
              {minsum, sumproduct} x {flooding, layered} x {tracking,
              throughput mode, early exit}: make_fused_minsum (min-sum
-             flooding on fused_retire, the rest on fused) at toy_4x8 Z=4,
+             flooding on fused_retire, layered min-sum on retire_layered,
+             sum-product on fused) at toy_4x8 Z=4,
              nr_2_0_4 Z=4 and nr_2_0_32 Z=24, 32 and 64 (batches that are not
              a multiple of the block's frames), make_fused_minsum_zlane
              (min-sum flooding on retire_zlane, the rest on fused_zlane) at
-             nr_2_0_32 Z=384; fused_retire at Z=32 and retire_zlane at Z=384
-             and Z=256 also at -2, 1 and 6 dB and on quantised LLRs
-             with ties and exact zeros (-0.0 among them); min-sum flooding
+             nr_2_0_32 Z=384; fused_retire and retire_layered at Z=32 and
+             retire_zlane at Z=384 and Z=256 also at -2, 1 and 6 dB and on
+             quantised LLRs with ties and exact zeros (-0.0 among them);
+             min-sum flooding
              on a code with a row of 31 members (the fused kernel's: wider
-             than fused_retire takes); plus the serving path against the
+             than fused_retire takes), layered min-sum on one with a row
+             of 20 (retire_layered's run-time loop for rows wider than its
+             unrolled bodies); plus the serving path against the
              tensor-op decode_min_sum.  Min-sum: bits and
              conv_iter identical.  Sum-product: bits agree on >= 99.9% and
              conv_iter within 1 (logf/tanhf round differently from torch's).
@@ -39,9 +45,22 @@ Phases, one JSON line each:
              on the same batch (early exit's output identical), the median
              and every round printed; a torch.profiler trace of one decode
              (trace_main: device time and launches by kernel).
-4b. layered — the layered min-sum serving path (the fused kernel's) on the
-             main path's batch: launch counts, whole batch against the plain
-             version, time and bound.
+4b. layered — the layered min-sum serving path on the main path's batch
+             through MinSumScaledDecoder(schedule="layered") and
+             make_fused_minsum(schedule="layered"): retire_layered launched,
+             no other kernel; the whole batch identical to the plain version
+             (and in throughput mode), 0 bit errors, mean conv_iter printed.
+             Timed in five rounds beside its throughput mode and the kernel
+             it replaced (fused through _launch_fused, output identical),
+             median and every round printed; each split of a frame's row
+             groups over 1-3 warps timed (layered_parts); traced once in a
+             process of its own (trace_layered).
+4c. sumproduct — the fused kernel's own path since layered min-sum left it:
+             BeliefPropagationDecoder(early_stopping=False) and make_fused_bp
+             at the main path's batch, 20 iterations: fused launched, no
+             other kernel; the whole batch against the plain version at the
+             sum-product bars; time and bound (float32, int32 and the phi
+             transcendentals at the special-function rate).
 5. z384    — bench.py section_z384: nr_2_0_32 Z=384, batch 512, 20
              iterations, 3 dB, no early stop, through
              MinSumScaledDecoder(backend="auto") (fused_zlane, whose
@@ -166,6 +185,7 @@ unpacked ``git archive`` of the parent commit, in the same call.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -190,6 +210,14 @@ OPS_PER_VAR = (2, 0)
 # has no column sum, so a variable needs its hard decision alone.
 OPS_PER_EDGE_LAYERED = (10, 1)
 OPS_PER_VAR_LAYERED = (1, 0)
+# Sum-product flooding (counted in the same header): per lifted edge 16
+# float32, 1 int32 and 4 special-function operations (tanh and log of the
+# two phi); per lifted check 1 int32; per variable 2 float32.  The special
+# functions run on 16 units an SM and clock against 128 float32 lanes.
+OPS_PER_EDGE_SUMPRODUCT = (16, 1, 4)
+OPS_PER_CHECK_SUMPRODUCT = (0, 1, 0)
+OPS_PER_VAR_SUMPRODUCT = (2, 0, 0)
+PEAK_SFU_OPS = PEAK_F32_OPS / 8
 
 
 def emit(obj: dict) -> None:
@@ -227,6 +255,38 @@ def bound_ms(qc, conv: torch.Tensor, layered: bool = False) -> tuple[float, str]
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def bp_bound_ms(qc, conv: torch.Tensor) -> tuple[float, str]:
+    """bound_ms for sum-product flooding: the float32, int32 and
+    special-function operations of each frame's conv_iter iterations, each
+    at its rate, against the LLRs read and bits and conv_iter written."""
+    B, n = conv.shape[0], qc.num_vars
+    frame_iterations = int(conv.sum().item())
+    counts = (qc.num_edges, qc.num_base_rows * qc.Z, n)
+    per_item = (OPS_PER_EDGE_SUMPRODUCT, OPS_PER_CHECK_SUMPRODUCT, OPS_PER_VAR_SUMPRODUCT)
+    f32, i32, sfu = (sum(c * per[i] for c, per in zip(counts, per_item)) * frame_iterations
+                     for i in (0, 1, 2))
+    t_ops = (f32 / PEAK_F32_OPS + i32 / PEAK_I32_OPS + sfu / PEAK_SFU_OPS) * 1e3
+    t_bytes = (B * n * 4 * 2 + B * 4) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ptxas_of(stem: str, kernel: str) -> dict:
+    """Registers a thread and spill bytes of each instantiation of
+    ``kernel`` in the compiler's report for ``stem``."""
+    from ldpc_tpu_torch.ops import _build
+
+    out, name = {}, None
+    for line in _build.build_log(stem).splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+        elif name and "spill stores" in line:
+            out[name] = {"spill_bytes": [int(w) for w in line.replace(",", "").split()
+                                         if w.isdigit()][1:3]}
+        elif name and "registers" in line:
+            out[name]["registers"] = int(line.split("Used ")[1].split()[0])
+    return {k.split(kernel)[1][:12]: v for k, v in out.items()}
+
+
 def trace_split(fn, name: str) -> dict:
     """One call of ``fn`` under ``utils.profiling.trace`` (the trace is written
     to build/traces/<name>/): device time and launches of each kernel, and
@@ -262,6 +322,24 @@ def trace_z384() -> dict:
             **trace_split(lambda: dec(llr), "z384")}
 
 
+# The main path's batch: nr_2_0_32 Z=32, 65536 frames, 3 dB (bench.py
+# section_minsum); the layered and sum-product phases take it too.
+MAIN = dict(B=65536, SNR=3.0, llr_seed=0)
+
+
+def trace_layered() -> dict:
+    """One retire_layered decode of the main path's batch under the profiler."""
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+    from ldpc_tpu_torch.ops import fused_minsum as fm
+
+    qc = qc_layout(get_base_graph("nr_2_0_32"), 32)
+    llr = llrs(qc.num_vars, MAIN["B"], MAIN["SNR"], seed=MAIN["llr_seed"])
+    dec = fm.make_fused_minsum(qc, 20, 0.75, schedule="layered")
+    dec(llr)  # warm-up: the plan and the first launch
+    return {"phase": "trace_layered", "kernel": "retire_layered", "batch": MAIN["B"],
+            **trace_split(lambda: dec(llr), "layered")}
+
+
 def split_probe(zdec, llr384: torch.Tensor, iterations: int) -> dict:
     """What bounds retire_zlane: its time at Z=384 with one part (half the
     warps a frame), and at Z=240, where a whole frame still fits a block
@@ -294,16 +372,17 @@ def split_probe(zdec, llr384: torch.Tensor, iterations: int) -> dict:
     return out
 
 
-def wide_row_code():
-    """A (4, 32) base graph at Z=4 whose first row has 31 members, more than
-    fused_retire's state word holds signs of."""
+def wide_row_code(members: int = 31):
+    """A (4, 32) base graph at Z=4 whose first row has ``members`` members:
+    31 is more than fused_retire's state word holds signs of, 20 more than
+    retire_layered's unrolled rows take.  Every column has a member."""
     import numpy as np
     from ldpc_tpu_torch.codes import BaseGraph, qc_layout
 
     rng = np.random.default_rng(3)
     shifts = np.where(rng.random((4, 32)) < 0.4, rng.integers(0, 4, (4, 32)), -1)
-    shifts[0] = np.append(rng.integers(0, 4, 31), -1)
-    shifts[1, 31] = 1
+    shifts[0] = np.concatenate([rng.integers(0, 4, members), np.full(32 - members, -1)])
+    shifts[1, members:] = 1
     return qc_layout(BaseGraph("wide", shifts), 4)
 
 
@@ -343,12 +422,12 @@ def compare(dec, llr: torch.Tensor, label: str, plain_out=None) -> float:
 def classical_phases(lib, smi: str) -> list[dict]:
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
     from ldpc_tpu_torch.models.classical import (
-        MinSumScaledDecoder, _resolve_backend, decode_min_sum)
+        BeliefPropagationDecoder, MinSumScaledDecoder, _resolve_backend, decode_min_sum)
     from ldpc_tpu_torch.ops import fused_minsum as fm, qc_msg
     from ldpc_tpu_torch.utils.metrics import decode_throughput
 
-    # 3. compare each kernel with its plain version.  Min-sum with the
-    # flooding schedule runs on fused_retire, sum-product and layered on fused.
+    # 3. compare each kernel with its plain version.  Min-sum runs on
+    # fused_retire (flooding) and retire_layered (layered), sum-product on fused.
     flags = [(m, s, tr, ee) for m in ("minsum", "sumproduct") for s in ("flooding", "layered")
              for tr, ee in ((True, False), (False, False), (True, True))]
     max_err = {name: 0.0 for name in fm.LAUNCHES}
@@ -368,6 +447,10 @@ def classical_phases(lib, smi: str) -> list[dict]:
             for parts, frames in fm.retire_plans(qc):
                 assert rlib.ldpc_retire_smem_bytes(*dims, parts, frames) == \
                     fm.retire_smem_bytes(qc, parts, frames)
+            G = len(fm.row_groups(fm._structure(qc))) - 1
+            for _, frames in fm.retire_layered_plans(qc):
+                assert rlib.ldpc_retire_layered_smem_bytes(*dims, G, frames) == \
+                    fm.retire_layered_smem_bytes(qc, frames)
         else:
             assert lib.ldpc_zlane_smem_bytes(*dims) == fm.zlane_smem_bytes(qc)
             for parts in fm.retire_zlane_plans(qc):
@@ -380,12 +463,13 @@ def classical_phases(lib, smi: str) -> list[dict]:
                         early_exit=ee, schedule=sched)
             label = f"{dec.route} {code} Z={Z} B={B} {mode} {sched} track={tr} early_exit={ee}"
             max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
-    # fused_retire (Z=32) and retire_zlane (Z=384; Z=256, a power of two) on
-    # batches that hold frames that never converge (-2 dB), converge at
-    # iteration 1 (6 dB) and a mix, and on quantised LLRs with ties
-    # (m1 == m2) and exact zeros, -0.0 among them (sign(0) = +1).
+    # fused_retire and retire_layered (Z=32) and retire_zlane (Z=384; Z=256,
+    # a power of two) on batches that hold frames that never converge (-2
+    # dB), converge at iteration 1 (6 dB) and a mix, and on quantised LLRs
+    # with ties (m1 == m2) and exact zeros, -0.0 among them (sign(0) = +1).
     qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
-    hard = [(fm.make_fused_minsum, qc32, 1003)] + [
+    make_layered = functools.partial(fm.make_fused_minsum, schedule="layered")
+    hard = [(fm.make_fused_minsum, qc32, 1003), (make_layered, qc32, 1003)] + [
         (fm.make_fused_minsum_zlane, qc_layout(get_base_graph("nr_2_0_32"), Z), 301)
         for Z in (384, 256)]
     for build, qc, B in hard:
@@ -398,7 +482,7 @@ def classical_phases(lib, smi: str) -> list[dict]:
                 dec = build(qc, 20, 0.75, track_convergence=tr, early_exit=ee)
                 assert dec.retire
                 label = f"{dec.route} nr_2_0_32 Z={qc.Z} B={B} {snr} dB quantised={step} " \
-                        f"track={tr} early_exit={ee}"
+                        f"{dec.schedule} track={tr} early_exit={ee}"
                 max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
     # Min-sum flooding on a code whose rows are wider than fused_retire
     # takes runs on the fused kernel.
@@ -409,6 +493,18 @@ def classical_phases(lib, smi: str) -> list[dict]:
         assert not dec.retire
         label = f"fused wide rows (31 members) Z=4 B=37 minsum flooding track={tr} early_exit={ee}"
         max_err["fused"] = max(max_err["fused"], compare(dec, llr, label))
+    # Layered min-sum on a row of 20 members: retire_layered's run-time loop
+    # for rows wider than its unrolled bodies.
+    qcw = wide_row_code(20)
+    for snr in (1.0, 4.0):
+        llr = llrs(qcw.num_vars, 37, snr, seed=6)
+        for tr, ee in ((True, False), (False, False), (True, True)):
+            dec = fm.make_fused_minsum(qcw, 20, 0.75, track_convergence=tr, early_exit=ee,
+                                       schedule="layered")
+            assert dec.route == "retire_layered"
+            label = f"retire_layered wide rows (20 members) Z=4 B=37 {snr} dB track={tr} " \
+                    f"early_exit={ee}"
+            max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
     # The serving path against the tensor-op path (the JAX package's bar:
     # identical bits, conv_iter within 1 on at most 1% of frames).
     llr = llrs(qc32.num_vars, 256, 1.5, seed=1)
@@ -492,29 +588,102 @@ def classical_phases(lib, smi: str) -> list[dict]:
           "bit_errors": bit_errors,
           "frame_errors": frame_errors, "mean_conv_iter": mean_conv, "nvidia_smi": smi})
 
-    # 4b. the layered min-sum serving path, the fused kernel's (same code,
+    # 4b. the layered min-sum serving path on retire_layered (same code,
     # batch and SNR as the main path)
     layered = MinSumScaledDecoder(qc32, ITERS, 0.75, early_stopping=False, backend="auto",
                                   schedule="layered")
     lay_dec = fm.make_fused_minsum(qc32, ITERS, 0.75, schedule="layered")
+    lay_thr = fm.make_fused_minsum(qc32, ITERS, 0.75, schedule="layered",
+                                   track_convergence=False)
+    assert layered._fused.route == lay_dec.route == lay_thr.route == "retire_layered"
     for key in fm.LAUNCHES:
         fm.LAUNCHES[key] = 0
     bits_l, _ = layered.decode(llr)
     bits_ld, conv_l = lay_dec(llr)
     torch.cuda.synchronize()
     launches_lay = dict(fm.LAUNCHES)
-    if launches_lay["fused"] < 2 or sum(launches_lay.values()) != launches_lay["fused"]:
-        raise AssertionError(f"layered path did not run the fused kernel alone: {launches_lay}")
-    assert bool(torch.equal(bits_l, bits_ld)) and int(bits_l.sum().item()) == 0
-    ms_lay, _ = cuda_ms(lambda: lay_dec(llr), reps=3)
+    if launches_lay["retire_layered"] < 2 or \
+            sum(launches_lay.values()) != launches_lay["retire_layered"]:
+        raise AssertionError(f"layered path did not run retire_layered alone: {launches_lay}")
+    assert bits_ld.shape == (B, n) and bool(torch.equal(bits_l, bits_ld))
+    bit_errors_l = int(bits_ld.sum().item())
+    mean_conv_l = float(conv_l.float().mean().item())
+    if bit_errors_l or not 1.0 <= mean_conv_l <= 3.0:
+        raise AssertionError(f"layered path decodes wrongly: {bit_errors_l} bit errors, "
+                             f"mean conv_iter {mean_conv_l}")
     plain_ms_lay, plain_out = cuda_ms(lambda: lay_dec.plain(llr), reps=1)
-    err_lay = compare(lay_dec, llr, f"fused layered path B={B}", plain_out)
+    err_lay = compare(lay_dec, llr, f"retire_layered layered path B={B}", plain_out)
     del plain_out
+    err_lay = max(err_lay, compare(lay_thr, llr, f"retire_layered layered path B={B} "
+                                                 "throughput mode"))
+    settle = time.perf_counter() + 1.0
+    while time.perf_counter() < settle:
+        lay_dec(llr)
+        torch.cuda.synchronize()
+    # The kernel, its throughput mode and the kernel it replaced on the same
+    # batch, interleaved in rounds.
+    lay_runs = {"tracked": (lambda: lay_dec(llr), 10),
+                "throughput_mode": (lambda: lay_thr(llr), 3),
+                "replaced_fused": (lambda: lay_dec._launch_fused(llr), 1)}
+    lay_rounds = {name: [] for name in lay_runs}
+    for _ in range(5):
+        for name, (fn, reps) in lay_runs.items():
+            t, out = cuda_ms(fn, reps=reps)
+            lay_rounds[name].append(t)
+            if name == "replaced_fused" and not (torch.equal(out[0], bits_ld)
+                                                 and torch.equal(out[1], conv_l)):
+                raise AssertionError("the replaced fused kernel's layered output differs")
+    lay_median = {name: sorted(r)[len(r) // 2] for name, r in lay_rounds.items()}
+    ms_lay = lay_median["tracked"]
+    # What a frame's warps buy: the rows of a row group on 1, 2 or 3 warps.
+    lay_parts = {p: cuda_ms(lambda p=p: lay_dec._launch_retire(llr, parts=p), reps=5)[0]
+                 for p in sorted({p for p, _ in fm.retire_layered_plans(qc32)})}
     bms_lay, bby_lay = bound_ms(qc32, conv_l, layered=True)
+    lay_occupancy = dict(zip(("parts", "frames_per_block", "blocks_per_sm"),
+                             fm.retire_layered_plan(qc32, True)))
+    lay_occupancy["warps_per_sm"] = (lay_occupancy["parts"] * lay_occupancy["frames_per_block"]
+                                     * lay_occupancy["blocks_per_sm"])
+    lay_occupancy["smem_bytes_per_frame"] = fm.retire_layered_smem_bytes(qc32, 2) - \
+        fm.retire_layered_smem_bytes(qc32, 1)
+    lay_occupancy["smem_bytes_per_block"] = fm.retire_layered_smem_bytes(
+        qc32, lay_occupancy["frames_per_block"])
+    lay_occupancy["ptxas"] = ptxas_of("fused_retire", "retire_layered_kernel")
+    emit(trace_in_child("layered"))
     emit({"phase": "layered", "code": "nr_2_0_32", "Z": 32, "batch": B, "iterations": ITERS,
-          "snr_db": 3.0, "backend": "fused", "launches": launches_lay, "ms_per_batch": ms_lay,
-          "bound_ms": bms_lay, "bound_by": bby_lay, "plain_ms": plain_ms_lay,
-          "mean_conv_iter": float(conv_l.float().mean().item()), "nvidia_smi": smi})
+          "snr_db": 3.0, "backend": "retire_layered", "launches": launches_lay,
+          "bits_per_s": decode_throughput(B, n, ms_lay / 1e3, name="layered"),
+          "ms_per_batch": ms_lay, "bound_ms": bms_lay, "bound_by": bby_lay,
+          "plain_ms": plain_ms_lay,
+          "variants_ms": {name: lay_median[name] for name in ("throughput_mode",
+                                                              "replaced_fused")},
+          "speedup_over_replaced": lay_median["replaced_fused"] / ms_lay,
+          "rounds_ms": lay_rounds, "layered_parts_ms": lay_parts, "occupancy": lay_occupancy,
+          "bit_errors": bit_errors_l, "mean_conv_iter": mean_conv_l, "nvidia_smi": smi})
+
+    # 4c. sum-product, the fused kernel's own path (same code, batch and SNR)
+    bp_server = BeliefPropagationDecoder(qc32, ITERS, early_stopping=False, backend="auto")
+    bp_dec = fm.make_fused_bp(qc32, ITERS)
+    assert bp_server._fused.route == bp_dec.route == "fused"
+    for key in fm.LAUNCHES:
+        fm.LAUNCHES[key] = 0
+    bits_b, _ = bp_server.decode(llr)
+    bits_bd, conv_b = bp_dec(llr)
+    torch.cuda.synchronize()
+    launches_sp = dict(fm.LAUNCHES)
+    if launches_sp["fused"] < 2 or sum(launches_sp.values()) != launches_sp["fused"]:
+        raise AssertionError(f"sum-product path did not run the fused kernel alone: {launches_sp}")
+    assert bool(torch.equal(bits_b, bits_bd))
+    bit_errors_b = int(bits_bd.sum().item())
+    plain_ms_sp, plain_out = cuda_ms(lambda: bp_dec.plain(llr), reps=1)
+    err_sp = compare(bp_dec, llr, f"fused sum-product path B={B}", plain_out)
+    del plain_out
+    ms_sp, _ = cuda_ms(lambda: bp_dec(llr), reps=3)
+    bms_sp, bby_sp = bp_bound_ms(qc32, conv_b)
+    emit({"phase": "sumproduct", "code": "nr_2_0_32", "Z": 32, "batch": B,
+          "iterations": ITERS, "snr_db": 3.0, "backend": "fused", "launches": launches_sp,
+          "ms_per_batch": ms_sp, "bound_ms": bms_sp, "bound_by": bby_sp,
+          "plain_ms": plain_ms_sp, "bit_errors": bit_errors_b,
+          "mean_conv_iter": float(conv_b.float().mean().item()), "nvidia_smi": smi})
 
     # 5. Z=384 path (bench.py section_z384): auto resolves to fused_zlane,
     # whose min-sum flooding runs on retire_zlane
@@ -615,10 +784,17 @@ def classical_phases(lib, smi: str) -> list[dict]:
          "replaces": "ldpc_tpu/ops/pallas_minsum.py:143", "launches": launches_main["fused_retire"],
          "max_abs_err": max(max_err["fused_retire"], err_main), "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bms, "bound_by": bby, "library_ms": None},
+        {"name": "retire_layered", "route": "cuda",
+         "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
+         "replaces": "ldpc_tpu/ops/pallas_minsum.py:143",
+         "launches": launches_lay["retire_layered"],
+         "max_abs_err": max(max_err["retire_layered"], err_lay), "ms": ms_lay,
+         "plain_ms": plain_ms_lay, "bound_ms": bms_lay, "bound_by": bby_lay,
+         "library_ms": None},
         {"name": "fused", "route": "cuda", "source": src,
-         "replaces": "ldpc_tpu/ops/pallas_minsum.py:143", "launches": launches_lay["fused"],
-         "max_abs_err": max(max_err["fused"], err_lay), "ms": ms_lay, "plain_ms": plain_ms_lay,
-         "bound_ms": bms_lay, "bound_by": bby_lay, "library_ms": None},
+         "replaces": "ldpc_tpu/ops/pallas_minsum.py:143", "launches": launches_sp["fused"],
+         "max_abs_err": max(max_err["fused"], err_sp), "ms": ms_sp, "plain_ms": plain_ms_sp,
+         "bound_ms": bms_sp, "bound_by": bby_sp, "library_ms": None},
         {"name": "retire_zlane", "route": "cuda",
          "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
          "replaces": "ldpc_tpu/ops/pallas_minsum.py:399", "launches": launches_z["retire_zlane"],
@@ -1366,7 +1542,7 @@ def trace_msg_gnn(kind: str) -> dict:
 
 
 def trace_in_child(name: str) -> dict:
-    """trace_z384, trace_gnn or trace_msg_gnn (``name`` a fully-neural
+    """trace_z384, trace_layered, trace_gnn or trace_msg_gnn (``name`` a fully-neural
     kernel's) in a process of its own: a second
     torch.profiler session in one process (after trace_main) recorded no
     kernel on the card.  The child loads the libraries this process built."""
@@ -1654,16 +1830,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["classical", "gnn", "nms", "msg_gnn", "tools"],
                     default=None)
-    ap.add_argument("--trace", choices=["z384", "gnn", "msg_gnn", "msg_gnn_v2", "msg_gnn_v3",
-                                        "msg_gnn_v4"], help=argparse.SUPPRESS)
+    ap.add_argument("--trace", choices=["z384", "layered", "gnn", "msg_gnn", "msg_gnn_v2",
+                                        "msg_gnn_v3", "msg_gnn_v4"], help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = args.only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
     if args.trace is not None:  # the child of trace_in_child
-        emit(trace_z384() if args.trace == "z384" else trace_gnn() if args.trace == "gnn"
-             else trace_msg_gnn(args.trace))
+        traces = {"z384": trace_z384, "layered": trace_layered, "gnn": trace_gnn}
+        emit(traces[args.trace]() if args.trace in traces else trace_msg_gnn(args.trace))
         return 0
 
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
@@ -1696,6 +1872,8 @@ def main(argv=None) -> int:
             occupancy[f"fused Z={Z} frames_per_block={fpb}"] = lib.ldpc_fused_occupancy(*dims, fpb, 0, 0)
             parts, frames, per_sm = fm.retire_plan(qc, True)
             occupancy[f"fused_retire Z={Z} parts={parts} frames_per_block={frames}"] = per_sm
+            parts, frames, per_sm = fm.retire_layered_plan(qc, True)
+            occupancy[f"retire_layered Z={Z} parts={parts} frames_per_block={frames}"] = per_sm
             for name in ("corrected_v2", "corrected"):
                 occupancy[f"{name} Z={Z} h=64"] = fg.corrected_blocks_per_sm(name, qc, 64)
             for name in ("msg_gnn", "msg_gnn_v2", "msg_gnn_v3", "msg_gnn_v4"):
@@ -1714,6 +1892,7 @@ def main(argv=None) -> int:
     if any(not counts or min(counts.values()) < 1 for counts in hmma.values()):
         raise AssertionError(f"a tensor-core kernel has no tensor-core instructions: {hmma}")
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "ptxas": ptxas,
+          "retire_layered_ptxas": ptxas_of("fused_retire", "retire_layered_kernel"),
           "blocks_per_sm": occupancy, "hmma_per_kernel": hmma,
           **{f"{kind}_shape": {f"nr_2_0_32 Z=32 h={h} inject={inj}":
                                tc_shape(qc32, h, inj, kind)

@@ -4,11 +4,14 @@
 // Replaces the TPU kernels of ldpc_tpu/ops/pallas_minsum.py:
 //   * fused_minsum_kernel  <- _kernel        (make_fused_minsum, make_fused_bp)
 //   * zlane_minsum_kernel  <- _kernel_zlane  (make_fused_minsum_zlane)
-// Neither runs scaled min-sum with the flooding schedule on the codes
-// fused_retire.cu takes (rows of at most 27 members): the wrapper sends
-// those to retire_minsum_kernel (the main path) and, at large Z, to
-// retire_zlane_kernel (bench.py's z384 section), which took their place.
-// The note below is this file's.
+// Scaled min-sum on the codes fused_retire.cu takes (rows of at most 27
+// members) left them for that file's kernels: the wrapper sends flooding to
+// retire_minsum_kernel (the main path), the layered schedule to
+// retire_layered_kernel and, at large Z, flooding to retire_zlane_kernel
+// (bench.py's z384 section).  So fused_minsum_kernel serves sum-product
+// (both schedules) and min-sum on codes with wider rows, and
+// zlane_minsum_kernel sum-product and layered min-sum at large Z.  The note
+// below is this file's.
 // Python wrappers, and the plain PyTorch version both kernels are held
 // against: ldpc_tpu_torch/ops/fused_minsum.py.
 //
@@ -58,6 +61,15 @@
 // conv_iter 3.01): 65440 float32 + 7648 int32 operations per frame and
 // iteration, 0.48 ms, against 0.87 GB of LLRs and bits at 3.35 TB/s (0.26
 // ms): the bound is arithmetic.  At a fixed 20 iterations it would be 3.2 ms.
+// Sum-product (flooding, tracked), per lifted edge: sub (v2c), abs, clamp
+// (max, min), phi of |v2c| (halve, + 1e-30, negate: 3 float32; tanh and
+// log: 2 special-function operations), phi-sum add, sign-product fold,
+// leave-one-out subtract and clamp, phi of it (3 + 2), sign apply,
+// column-sum add = 16 float32 and 4 special-function operations, parity
+// xor = 1 int32; per lifted check the syndrome OR (1 int32); per variable
+// llr + column sum and the hard decision (2 float32).  The special-function
+// units do 16 operations an SM and clock against 128 float32 lanes:
+// 4.19e12 per second.  chip_smoke.py (bp_bound_ms) adds the three times.
 // This source does more per edge than the decode needs (about 20
 // operations): pass 2 recomputes pass 1's sub, abs and sign, it multiplies
 // by alpha and the sign product per edge, and it applies the sentinel per

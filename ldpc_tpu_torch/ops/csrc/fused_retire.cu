@@ -1,26 +1,36 @@
-// Scaled min-sum with the flooding schedule for Hopper (sm_90a): a frame's
-// whole decode in one group of warps, compressed check state, the syndrome
-// read off the next check pass, and frames that leave the kernel the
+// Scaled min-sum for Hopper (sm_90a): a frame's whole decode in one group of
+// warps, compressed check state, and frames that leave the kernel the
 // iteration they converge.
 //
-// Replaces, for mode "minsum" and schedule "flooding", the TPU kernels of
+// Replaces, for mode "minsum", the TPU kernels of
 // ldpc_tpu/ops/pallas_minsum.py:
-//   * retire_minsum_kernel<TRACK, POW2>  <- _kernel (make_fused_minsum), the
-//                                           bench.py headline and the port's
-//                                           main path; entry ldpc_retire_minsum
+//   * retire_minsum_kernel<TRACK, POW2>  <- _kernel (make_fused_minsum),
+//                                           flooding: the bench.py headline
+//                                           and the port's main path; entry
+//                                           ldpc_retire_minsum
 //   * retire_zlane_kernel<TRACK, POW2>   <- _kernel_zlane
-//                                           (make_fused_minsum_zlane), large Z
-//                                           (bench.py's z384 section); entry
+//                                           (make_fused_minsum_zlane),
+//                                           flooding at large Z (bench.py's
+//                                           z384 section); entry
 //                                           ldpc_retire_zlane
+//   * retire_layered_kernel<TRACK, POW2> <- _kernel, schedule "layered"
+//                                           (make_fused_minsum(schedule=
+//                                           "layered"), MinSumScaledDecoder(
+//                                           schedule="layered")); entry
+//                                           ldpc_retire_layered
 // They took the place of fused_minsum_kernel and zlane_minsum_kernel
-// (fused_minsum.cu) on that path; sum-product, the layered schedule and codes
-// with rows of more than 27 members (the wrapper's retire_kernel_fits and
-// retire_zlane_fits) stay there.  Both kernels run one algorithm, the device
-// functions check_pass and column_pass on one frame loop (decode_frames); they
-// differ only in where a frame's state lives.  Python wrapper and the plain
-// PyTorch version both are held against (fused_decode_plain):
-// ldpc_tpu_torch/ops/fused_minsum.py.  A numpy model of this source's
-// algorithm on the wrapper's structure tables: tests/test_torch_minsum_retire.py.
+// (fused_minsum.cu) on those paths; sum-product, layered min-sum at large Z
+// and codes with rows of more than 27 members (the wrapper's
+// retire_kernel_fits, retire_layered_fits and retire_zlane_fits) stay
+// there.  The two flooding kernels run one algorithm, the device functions
+// check_pass and column_pass on one frame loop (decode_frames), and differ
+// only in where a frame's state lives; the layered kernel shares their
+// state word, rolls, barriers and frame counter, and is described at its
+// own section below.  Python wrapper and the plain PyTorch version all are held against
+// (fused_decode_plain): ldpc_tpu_torch/ops/fused_minsum.py.  Numpy models
+// of this source's algorithms on the wrapper's structure tables:
+// tests/test_torch_minsum_retire.py (flooding),
+// tests/test_torch_minsum_layered.py (layered).
 //
 // What it computes (the TPU kernel's order)
 // -----------------------------------------
@@ -433,6 +443,313 @@ retire_zlane_kernel(const float* __restrict__ llr, float* __restrict__ bits,
                                     W, B, Z, R, C, max_iterations, alpha);
 }
 
+// ---------------------------------------------------------------------------
+// The layered schedule (retire_layered_kernel)
+// ---------------------------------------------------------------------------
+//
+// What it computes (the TPU kernel's order).  A sweep runs the base rows in
+// order; row r's Z lifted checks touch disjoint variables and run in
+// parallel.  Check (r, z) takes v2c = belief - old for its members (old: the
+// member's c2v from the previous sweep, 0 in the first), folds them as the
+// flooding kernels do, and each member's belief becomes (belief + new) - old
+// in float32, in that order.  With tracking, the first sweep after which the
+// hard decisions satisfy every check freezes the bits and sets conv_iter.
+//
+// What bounds it.  Operations (chip_smoke.py OPS_PER_EDGE_LAYERED, from the
+// flooding count in fused_minsum.cu): per lifted edge 10 float32 and 1
+// int32 (two adds fold the new c2v in, and there is no column sum), per
+// check 4 + 1, per variable 1 + 0, over each frame's conv_iter sweeps.  At the layered
+// phase's batch (nr_2_0_32 Z=32, 65536 frames, 3 dB, mean conv_iter 2.0):
+// 0.334 ms of operations against 0.26 ms of bytes.
+//
+// What the design does about it.
+// 1. Frames retire, as in the flooding kernels.  The syndrome cannot ride on
+//    the next sweep: row r of sweep t + 1 reads beliefs that rows 0..r - 1
+//    of the same sweep changed.  So after each sweep but the last a parity
+//    pass reads every check's members (all of a frame's warps share it, a
+//    warp stops at its first violated row); a frame that passes writes its
+//    bits from those beliefs, still in shared memory, and leaves.
+// 2. The flooding kernels' 12-byte check state, exact for the same reason;
+//    a lifted check's state is read and written by one thread only, so the
+//    whole row's old state stays in registers until every member has
+//    subtracted its old c2v, and the first sweep reads none (old c2v 0).
+// 3. A warp per frame (ceil(Z / 32) warps where Z > 32): lane z runs check
+//    (r, z) of every row, so rows follow each other with only a warp
+//    barrier between row groups.  A row's members are loaded before the fold
+//    (an unrolled body per degree up to 12, the loads of a constant count).
+// 4. Row groups: runs of consecutive rows that pairwise share no column
+//    commute exactly (28 groups of NR BG2's 42 rows: 10 of two rows, 2 of
+//    three), so a frame of `parts` warps runs a group's rows side by side
+//    with a named barrier between groups.
+// 5. Shared memory holds a frame's beliefs and check state, 4 (C*Z + 3 R*Z)
+//    bytes: 22,784 at NR BG2 Z=32, and the structure (2K + R + G + 2 ints,
+//    1,872 bytes) once a block; no LLR copy (the beliefs start from them and
+//    there is no column sum).  The wrapper takes the plan with the most
+//    resident frames by the runtime's occupancy query, then the most parts:
+//    at NR BG2 Z=32 10 frames of 3 warps in one block per SM.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 2.18 ms per
+// batch of 65536 at 3 dB (mean conv_iter 2.0), throughput mode 16.9 ms,
+// where fused_minsum_kernel took 96.4 ms on the same batch and card; one
+// warp a frame 2.68 ms, two 2.49 ms; 63-64 registers, 0-4 bytes spilled.
+
+__host__ __device__ inline int layered_structure_words(int R, int K, int G) {
+  return (2 * K + R + 1 + G + 1 + 3) / 4 * 4;
+}
+
+// A frame's beliefs (C*Z floats, rounded up to 16 bytes), then its check
+// state: A (R*Z float2), W (R*Z words).
+__host__ __device__ inline int layered_bel_words(int Z, int C) { return (C * Z + 3) / 4 * 4; }
+
+__host__ __device__ inline int layered_frame_words(int Z, int R, int C) {
+  return layered_bel_words(Z, C) + (3 * R * Z + 3) / 4 * 4;
+}
+
+// Structure in shared memory, as ldpc_tpu_torch/ops/fused_minsum.py
+// _layered_structure lays it out: row members in row order (K int2: col*Z,
+// shift), row_ptr (R+1), and the first row of each row group (G+1): runs of
+// consecutive rows that pairwise share no column.
+struct LayeredStructure {
+  const int2* row_mem;
+  const int* row_ptr;
+  const int* grp_ptr;
+};
+
+// Member j's c2v, expanded from its check's state (a: alpha*m1, alpha*m2;
+// w: output sign of member j at bit j, argmin in the top bits).
+__device__ __forceinline__ float c2v_of(float2 a, unsigned w, int j) {
+  return flip_if(static_cast<unsigned>(j) == (w >> kSignBits) ? a.y : a.x, w << (31 - j));
+}
+
+// One member's v2c folded into the check's running state: m1, m2, the
+// argmin and the sign bits.  Members come last first, so with "<=" the
+// argmin is the first member that reaches m1, and (neg << 1) | sign puts
+// member j's sign at bit j.  v2c is never -0.0 (see layered_row), so its
+// sign bit is its "< 0".
+__device__ __forceinline__ void fold(float x, int j, float& m1, float& m2, unsigned& arg,
+                                     unsigned& neg) {
+  const float mag = fabsf(x);
+  neg = __funnelshift_l(__float_as_uint(x), neg, 1);
+  arg = mag <= m1 ? static_cast<unsigned>(j) : arg;
+  m2 = fminf(fmaxf(mag, m1), m2);
+  m1 = fminf(mag, m1);
+}
+
+// The check's new state from the fold of its d members.
+__device__ __forceinline__ void new_state(float m1, float m2, unsigned arg, unsigned neg, int d,
+                                          float alpha, float2& an, unsigned& wn) {
+  const unsigned sp = (__popc(neg) & 1) ? (1u << d) - 1u : 0u;
+  an = make_float2(alpha * (m1 < kBig ? m1 : 0.0f), alpha * (m2 < kBig ? m2 : 0.0f));
+  wn = (neg ^ sp) | (arg << kSignBits);
+}
+
+// Base row r's update at lane z (state at q; FIRST: the first sweep, whose
+// old c2v are 0), for a row of D members (mem: its members).  Each member's
+// v2c is belief - old, and its belief becomes (belief + new) - old, in that
+// order, as the TPU kernel computes it.  All D beliefs are loaded before
+// the fold and kept in registers with the old c2v, so the new state
+// replaces the old one only after every member has used it.  Beliefs are
+// never -0.0 (a load adds +0.0, and (b + new) - old is -0.0 only if b is),
+// so neither is v2c.
+template <int D, bool POW2>
+__device__ __forceinline__ void layered_row(const int2* mem, float* bel, float2* A, unsigned* W,
+                                            int q, int z, int Z, float alpha, bool first) {
+  const float2 a = first ? make_float2(0.0f, 0.0f) : A[q];
+  const unsigned w = first ? 0u : W[q];
+  int pos[D];
+  float b[D], old[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const int2 m = mem[j];
+    pos[j] = rolled<POW2>(z, m.y, m.x, Z);
+    b[j] = bel[pos[j]];
+  }
+  float m1 = kBig, m2 = kBig;
+  unsigned arg = kNoMember, neg = 0u;
+#pragma unroll
+  for (int j = D - 1; j >= 0; --j) {
+    old[j] = c2v_of(a, w, j);
+    fold(b[j] - old[j], j, m1, m2, arg, neg);
+  }
+  float2 an;
+  unsigned wn;
+  new_state(m1, m2, arg, neg, D, alpha, an, wn);
+#pragma unroll
+  for (int j = 0; j < D; ++j) bel[pos[j]] = (b[j] + c2v_of(an, wn, j)) - old[j];
+  A[q] = an;
+  W[q] = wn;
+}
+
+// The same for rows of more than 12 members, with a run-time loop: the fold
+// reads the beliefs, the update reads them again (no other thread writes
+// them in between).
+template <bool POW2>
+__device__ __forceinline__ void layered_row_wide(const int2* mem, int d, float* bel, float2* A,
+                                                 unsigned* W, int q, int z, int Z, float alpha,
+                                                 bool first) {
+  const float2 a = first ? make_float2(0.0f, 0.0f) : A[q];
+  const unsigned w = first ? 0u : W[q];
+  float m1 = kBig, m2 = kBig;
+  unsigned arg = kNoMember, neg = 0u;
+  for (int j = d - 1; j >= 0; --j) {
+    const int2 m = mem[j];
+    fold(bel[rolled<POW2>(z, m.y, m.x, Z)] - c2v_of(a, w, j), j, m1, m2, arg, neg);
+  }
+  float2 an;
+  unsigned wn;
+  new_state(m1, m2, arg, neg, d, alpha, an, wn);
+  for (int j = 0; j < d; ++j) {
+    const int2 m = mem[j];
+    const int p = rolled<POW2>(z, m.y, m.x, Z);
+    bel[p] = (bel[p] + c2v_of(an, wn, j)) - c2v_of(a, w, j);
+  }
+  A[q] = an;
+  W[q] = wn;
+}
+
+// Base row r's update at lane z: rows of up to 12 members (NR base graph 2
+// has rows of 3 to 10) run an unrolled body with their beliefs and old c2v
+// in registers, wider ones the loop, which keeps the kernel within the 64
+// registers a thread that 1024 threads a block leave.
+template <bool POW2>
+__device__ __forceinline__ void layered_update(const LayeredStructure& s, float* bel, float2* A,
+                                               unsigned* W, int r, int z, int Z, float alpha,
+                                               bool first) {
+  const int j0 = s.row_ptr[r];
+  const int d = s.row_ptr[r + 1] - j0;
+  const int2* mem = s.row_mem + j0;
+  const int q = r * Z + z;
+  switch (d) {
+#define LAYERED_ROW(D)                                           \
+  case D:                                                        \
+    layered_row<D, POW2>(mem, bel, A, W, q, z, Z, alpha, first); \
+    break;
+    LAYERED_ROW(1) LAYERED_ROW(2) LAYERED_ROW(3) LAYERED_ROW(4) LAYERED_ROW(5) LAYERED_ROW(6)
+    LAYERED_ROW(7) LAYERED_ROW(8) LAYERED_ROW(9) LAYERED_ROW(10) LAYERED_ROW(11)
+    LAYERED_ROW(12)
+#undef LAYERED_ROW
+    default:
+      layered_row_wide<POW2>(mem, d, bel, A, W, q, z, Z, alpha, first);
+  }
+}
+
+// Whether lifted check (r, z) is violated: the XOR of its members' hard
+// decisions (the sign bits of their beliefs), in bit 31.
+template <bool POW2>
+__device__ __forceinline__ unsigned row_parity(const LayeredStructure& s, const float* bel, int r,
+                                               int z, int Z) {
+  unsigned p = 0u;
+  const int i1 = s.row_ptr[r + 1];
+#pragma unroll 4
+  for (int i = s.row_ptr[r]; i < i1; ++i) {
+    const int2 m = s.row_mem[i];
+    p ^= __float_as_uint(bel[rolled<POW2>(z, m.y, m.x, Z)]);
+  }
+  return p >> 31;
+}
+
+// Up to 32 frame groups a block (15 where a group is more than one warp: a
+// named barrier each), a group of `parts` times ceil(Z / 32) warps: warp w
+// of group g covers lanes z = 32 * (w % zw) + lane and part w / zw, which
+// runs rows grp_ptr[i] + part, + 2 parts, ... of each row group i and the
+// parity of rows part, part + parts, ...  A lifted check's state is read and
+// written by one thread only.  A group's beliefs and check state are in
+// shared memory; it decodes frames from the counter until the batch is done.
+// Where the LLR and bit rows are 16-byte aligned (n % 4 == 0) they move as
+// float4.
+template <bool TRACK, bool POW2>
+__global__ void __launch_bounds__(kMaxThreads)
+retire_layered_kernel(const float* __restrict__ llr, float* __restrict__ bits,
+                      int* __restrict__ conv, int* __restrict__ next_frame,
+                      const int* __restrict__ structure, int B, int Z, int R, int C, int K, int G,
+                      int max_iterations, float alpha, int parts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_frame[kMaxGroups];
+  int* s_struct = reinterpret_cast<int*>(smem);
+  for (int i = threadIdx.x; i < 2 * K + R + 1 + G + 1; i += blockDim.x) s_struct[i] = structure[i];
+  LayeredStructure s;
+  s.row_mem = reinterpret_cast<const int2*>(s_struct);
+  s.row_ptr = s_struct + 2 * K;
+  s.grp_ptr = s.row_ptr + R + 1;
+  __syncthreads();
+
+  const int zw = (Z + 31) / 32, gwarps = zw * parts;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = warp / gwarps, wg = warp - g * gwarps;
+  const int part = wg / zw;
+  const int z = 32 * (wg - part * zw) + lane, gi = 32 * wg + lane;
+  const bool active = z < Z;
+  const Group grp{g + 1, 32 * gwarps};
+  float* bel = reinterpret_cast<float*>(s_struct + layered_structure_words(R, K, G)) +
+               g * layered_frame_words(Z, R, C);
+  float2* A = reinterpret_cast<float2*>(bel + layered_bel_words(Z, C));
+  unsigned* W = reinterpret_cast<unsigned*>(A + R * Z);
+  const int n = C * Z;
+  const bool vec = n % 4 == 0 && (reinterpret_cast<size_t>(llr) & 15) == 0 &&
+                   (reinterpret_cast<size_t>(bits) & 15) == 0;
+
+  for (;;) {
+    int f;
+    if (grp.threads == 32) {
+      f = gi == 0 ? atomicAdd(next_frame, 1) : 0;
+      f = __shfl_sync(0xffffffffu, f, 0);
+    } else {
+      if (gi == 0) s_frame[g] = atomicAdd(next_frame, 1);
+      grp.sync();
+      f = s_frame[g];
+    }
+    if (f >= B) break;
+    const float* src = llr + static_cast<size_t>(f) * n;
+    if (vec) {
+#pragma unroll 8
+      for (int i = 4 * gi; i < n; i += 4 * grp.threads) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(src + i));
+        *reinterpret_cast<float4*>(bel + i) =  // -0.0 -> +0.0
+            make_float4(x.x + 0.0f, x.y + 0.0f, x.z + 0.0f, x.w + 0.0f);
+      }
+    } else {
+      for (int i = gi; i < n; i += grp.threads) bel[i] = src[i] + 0.0f;
+    }
+    grp.sync();
+
+    int done = max_iterations;
+    for (int it = 0; it < max_iterations; ++it) {
+      for (int i = 0; i < G; ++i) {
+        if (active)
+          for (int r = s.grp_ptr[i] + part; r < s.grp_ptr[i + 1]; r += parts)
+            layered_update<POW2>(s, bel, A, W, r, z, Z, alpha, it == 0);
+        grp.sync();
+      }
+      // The last sweep needs no parity pass: converged or not, the outputs
+      // are conv_iter = max_iterations and its decisions.  A warp stops at
+      // its first violated row.
+      if (TRACK && it + 1 < max_iterations) {
+        bool violated = false;
+        for (int r = part; r < R && !violated; r += parts)
+          violated = __any_sync(0xffffffffu, active && row_parity<POW2>(s, bel, r, z, Z));
+        if (!grp.sync_or(violated)) {
+          done = it + 1;
+          break;
+        }
+      }
+    }
+    if (gi == 0) conv[f] = done;
+    float* out = bits + static_cast<size_t>(f) * n;
+    if (vec) {
+#pragma unroll 8
+      for (int i = 4 * gi; i < n; i += 4 * grp.threads) {
+        const float4 x = *reinterpret_cast<const float4*>(bel + i);
+        *reinterpret_cast<float4*>(out + i) =
+            make_float4(x.x < 0.0f ? 1.0f : 0.0f, x.y < 0.0f ? 1.0f : 0.0f,
+                        x.z < 0.0f ? 1.0f : 0.0f, x.w < 0.0f ? 1.0f : 0.0f);
+      }
+    } else {
+      for (int i = gi; i < n; i += grp.threads) out[i] = bel[i] < 0.0f ? 1.0f : 0.0f;
+    }
+    grp.sync();  // the next frame's LLRs overwrite bel
+  }
+}
+
 using Kernel = decltype(&retire_minsum_kernel<true, true>);
 using ZlaneKernel = decltype(&retire_zlane_kernel<true, true>);
 
@@ -480,6 +797,28 @@ bool valid_plan(int Z, int parts, int frames) {
 // kernel does.
 bool valid_zlane_plan(int Z, int parts) { return Z % 8 == 0 && valid_plan(Z, parts, 1); }
 
+using LayeredKernel = decltype(&retire_layered_kernel<true, true>);
+
+LayeredKernel pick_layered_kernel(int track, int Z) {
+  const bool pow2 = (Z & (Z - 1)) == 0;
+  return track ? (pow2 ? &retire_layered_kernel<true, true> : &retire_layered_kernel<true, false>)
+               : (pow2 ? &retire_layered_kernel<false, true>
+                       : &retire_layered_kernel<false, false>);
+}
+
+long long layered_smem(int Z, int R, int C, int K, int G, int frames) {
+  return 4LL * (layered_structure_words(R, K, G) +
+                static_cast<long long>(frames) * layered_frame_words(Z, R, C));
+}
+
+// Up to 32 frame groups of one warp a block, 15 of more (a named barrier
+// each).
+bool valid_layered_plan(int Z, int parts, int frames) {
+  const int threads = retire_threads(Z, parts, frames);
+  return parts >= 1 && frames >= 1 && threads <= kMaxThreads &&
+         (frames <= kMaxGroups || threads == 32 * frames);
+}
+
 }  // namespace
 
 extern "C" {
@@ -522,6 +861,28 @@ int ldpc_retire_zlane(const void* llr, void* bits, void* conv, void* counter, vo
   return cudaGetLastError();
 }
 
+// Decodes B frames with the layered schedule: `grid` blocks of `frames`
+// frame groups, each of `parts` warps (times ceil(Z / 32)) that run the rows
+// of a row group side by side; the structure holds G row groups; `counter`
+// is one int32 set to 0.  Returns a cudaError_t (0 on success).  Launches on
+// `stream`, no sync.
+int ldpc_retire_layered(const void* llr, void* bits, void* conv, void* counter,
+                        const void* structure, int B, int Z, int R, int C, int K, int G, int T,
+                        float alpha, int track, int parts, int frames, int grid, void* stream) {
+  if (B < 1 || grid < 1 || G < 1 || !valid_layered_plan(Z, parts, frames))
+    return cudaErrorInvalidValue;
+  const long long smem = layered_smem(Z, R, C, K, G, frames);
+  const LayeredKernel kernel = pick_layered_kernel(track, Z);
+  const int threads = retire_threads(Z, parts, frames);
+  cudaError_t err = prepare(kernel, smem, threads, nullptr);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(llr), static_cast<float*>(bits), static_cast<int*>(conv),
+      static_cast<int*>(counter), static_cast<const int*>(structure), B, Z, R, C, K, G, T, alpha,
+      parts);
+  return cudaGetLastError();
+}
+
 long long ldpc_retire_smem_bytes(int Z, int R, int C, int K, int parts, int frames) {
   return retire_smem(Z, R, C, K, parts, frames);
 }
@@ -545,6 +906,20 @@ int ldpc_retire_zlane_occupancy(int Z, int R, int C, int K, int parts, int track
   int blocks = 0;
   const cudaError_t err = prepare(pick_zlane_kernel(track, Z), zlane_smem(Z, R, C, K, parts),
                                   retire_threads(Z, parts, 1), &blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+long long ldpc_retire_layered_smem_bytes(int Z, int R, int C, int K, int G, int frames) {
+  return layered_smem(Z, R, C, K, G, frames);
+}
+
+int ldpc_retire_layered_occupancy(int Z, int R, int C, int K, int G, int parts, int frames,
+                                  int track) {
+  if (!valid_layered_plan(Z, parts, frames)) return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err =
+      prepare(pick_layered_kernel(track, Z), layered_smem(Z, R, C, K, G, frames),
+              retire_threads(Z, parts, frames), &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 

@@ -1,7 +1,7 @@
 """Fused min-sum / BP decoders: the whole decode loop in one CUDA kernel
 (counterpart of ``ldpc_tpu.ops.pallas_minsum``).
 
-Four hand-written kernels replace the two TPU kernels:
+Five hand-written kernels replace the two TPU kernels:
 
 * ``fused_retire`` (``csrc/fused_retire.cu``, replaces
   ``pallas_minsum._kernel`` for scaled min-sum with the flooding schedule,
@@ -17,13 +17,22 @@ Four hand-written kernels replace the two TPU kernels:
   exceeds shared memory: beliefs and (alpha*m1, alpha*m2) in shared memory,
   the argmin and sign words in the block's slice of a global scratch (L2),
   LLRs read from the input rows.  :func:`retire_zlane_fits` decides.
+* ``retire_layered`` (same file, replaces ``pallas_minsum._kernel`` for
+  scaled min-sum with the layered schedule): a warp per frame (times
+  ceil(Z / 32)), whose lanes run one base row's Z checks and whose rows
+  follow in order with only warp barriers; the same compressed check state
+  and beliefs in shared memory (22,784 bytes a frame at NR BG2 Z=32), a
+  parity pass over all checks after each sweep, and frames that leave the
+  kernel the sweep they converge.  Rows of a row group (:func:`row_groups`:
+  consecutive rows that share no column) may run side by side on more
+  warps of the frame.  :func:`retire_layered_fits` decides.
 * ``fused`` (``csrc/fused_minsum.cu``, replaces ``pallas_minsum._kernel`` for
-  sum-product, the layered schedule and min-sum flooding on codes that
-  ``fused_retire`` does not take, those with rows of more than 27 members;
-  :func:`retire_kernel_fits` decides): a few frames per thread block, with
-  all decode state (c2v, beliefs, channel LLRs) in shared memory.  Fits
-  while one frame's state is below the block's shared memory (Z=32 on NR
-  BG2: about 42 KB a frame); ``fused_kernel_fits`` decides for both.
+  sum-product, both schedules, and min-sum on codes that ``fused_retire``
+  and ``retire_layered`` do not take, those with rows of more than 27
+  members): a few frames per thread block, with all decode state (c2v,
+  beliefs, channel LLRs) in shared memory.  Fits while one frame's state is
+  below the block's shared memory (Z=32 on NR BG2: about 42 KB a frame);
+  ``fused_kernel_fits`` decides for both.
 * ``fused_zlane`` (``csrc/fused_minsum.cu``, replaces
   ``pallas_minsum._kernel_zlane`` for sum-product, the layered schedule and
   min-sum flooding on codes ``retire_zlane`` does not take): the same
@@ -70,8 +79,12 @@ _RETIRE_MAX_THREADS = 1024  # kMaxThreads in csrc/fused_retire.cu
 _RETIRE_MAX_GROUPS = 15  # kMaxGroups in csrc/fused_retire.cu: frames a block
 _RETIRE_MAX_DEGREE = 27  # kSignBits in csrc/fused_retire.cu: members of a row
 _RETIRE_MAX_PARTS = 4  # parts a frame's rows and columns are split into
+# retire_layered: frames a block when a frame is one warp (32 warps); more
+# warps a frame take a named barrier each, so _RETIRE_MAX_GROUPS.
+_LAYERED_MAX_FRAMES = 32
 
-LAUNCHES: dict[str, int] = {"fused_retire": 0, "fused": 0, "retire_zlane": 0, "fused_zlane": 0}
+LAUNCHES: dict[str, int] = {"fused_retire": 0, "fused": 0, "retire_zlane": 0, "fused_zlane": 0,
+                            "retire_layered": 0}
 
 
 class _Structure(NamedTuple):
@@ -215,6 +228,59 @@ def retire_zlane_fits(qc: QCLayout) -> bool:
             and bool(retire_zlane_plans(qc)))
 
 
+def row_groups(st: _Structure) -> list[int]:
+    """First row of each row group, then R: runs of consecutive base rows
+    that pairwise share no column, taken greedily.  Rows of a group touch
+    disjoint beliefs, so the layered schedule may update them in any order
+    or side by side and compute the same bits."""
+    starts, cols = [0], set()
+    for r, members in enumerate(st.row_members):
+        row_cols = {st.cols[k] for k in members}
+        if cols & row_cols:
+            starts.append(r)
+            cols = set()
+        cols |= row_cols
+    return starts + [st.R]
+
+
+def _layered_structure_words(qc: QCLayout) -> int:
+    """int32 words of :func:`_layered_structure` in shared memory: 2K + R +
+    1 + G + 1, rounded up to 16 bytes."""
+    G = len(row_groups(_structure(qc))) - 1
+    return -(-(2 * qc.num_base_edges + qc.num_base_rows + G + 2) // 4) * 4
+
+
+def retire_layered_smem_bytes(qc: QCLayout, frames: int = 1) -> int:
+    """Dynamic shared memory of one ``retire_layered`` block: structure plus,
+    per frame, the beliefs (C*Z float32) and the compressed check state (3
+    words per lifted check), each rounded up to 16 bytes."""
+    Z, C, R = qc.Z, qc.num_base_cols, qc.num_base_rows
+    frame = -(-C * Z // 4) * 4 + -(-3 * R * Z // 4) * 4
+    return 4 * (_layered_structure_words(qc) + frames * frame)
+
+
+def retire_layered_plans(qc: QCLayout) -> list[tuple[int, int]]:
+    """The (parts, frames per block) a ``retire_layered`` launch may take:
+    parts up to the largest row group (a part runs one row of a group at a
+    time), at most 1024 threads a block, 32 frames of one warp or 15 of
+    more, within shared memory."""
+    largest = max(np.diff(row_groups(_structure(qc))))
+    plans = []
+    for p in range(1, min(largest, _RETIRE_MAX_PARTS) + 1):
+        one_warp = retire_threads(qc, p, 1) == 32
+        for f in range(1, (_LAYERED_MAX_FRAMES if one_warp else _RETIRE_MAX_GROUPS) + 1):
+            if retire_threads(qc, p, f) <= _RETIRE_MAX_THREADS and \
+                    retire_layered_smem_bytes(qc, f) <= _SMEM_BUDGET:
+                plans.append((p, f))
+    return plans
+
+
+def retire_layered_fits(qc: QCLayout) -> bool:
+    """Whether ``retire_layered`` takes the code: rows of at most 27 members
+    and a frame within a block."""
+    return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_layered_plans(qc))
+
+
 def _balanced_bounds(costs, parts: int) -> list[int]:
     """parts + 1 bounds that cut ``costs`` into contiguous runs of about
     equal sum."""
@@ -246,6 +312,16 @@ def _retire_structure(st: _Structure, parts: int = 1) -> np.ndarray:
              _balanced_bounds(np.add(row_deg, 6), parts),
              _balanced_bounds(np.add(col_deg, 3), parts)]
     return np.concatenate([np.asarray(w, np.int64) for w in words]).astype(np.uint32).view(np.int32)
+
+
+def _layered_structure(st: _Structure) -> np.ndarray:
+    """Structure for ``retire_layered``, int32: row members in row order as
+    (col*Z, shift) (2K), row_ptr (R+1) and the first row of each row group,
+    then R (:func:`row_groups`, G+1)."""
+    row_mem = [(st.cols[k] * st.Z, st.shifts[k]) for m in st.row_members for k in m]
+    words = [np.asarray(row_mem).reshape(-1), np.cumsum([0] + [len(m) for m in st.row_members]),
+             row_groups(st)]
+    return np.concatenate([np.asarray(w, np.int64) for w in words]).astype(np.int32)
 
 
 def _graph_array(st: _Structure) -> np.ndarray:
@@ -466,6 +542,12 @@ _RETIRE_SIGNATURES = {
     # Z, R, C, K, parts, [frames_per_block,] track -> blocks per SM
     "ldpc_retire_occupancy": ([_I] * 7, _I),
     "ldpc_retire_zlane_occupancy": ([_I] * 6, _I),
+    # llr, bits, conv, counter, structure, B, Z, R, C, K, G, T, alpha,
+    # track, parts, frames_per_block, grid, stream
+    "ldpc_retire_layered": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 4 + [_P], _I),
+    "ldpc_retire_layered_smem_bytes": ([_I] * 6, ctypes.c_longlong),
+    # Z, R, C, K, G, parts, frames_per_block, track -> blocks per SM
+    "ldpc_retire_layered_occupancy": ([_I] * 8, _I),
     "ldpc_retire_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -519,15 +601,38 @@ def retire_zlane_plan(qc: QCLayout, track_convergence: bool, parts: int | None =
     return best
 
 
+def retire_layered_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
+                        lib=None) -> tuple[int, int, int]:
+    """(parts, frames per block, resident blocks per SM) of
+    ``retire_layered``: of :func:`retire_layered_plans` (those with
+    ``parts`` if given), the most resident frames per SM by the runtime's
+    occupancy query, then the most parts, then the fewest frames per
+    block."""
+    lib = lib or retire_kernel_library()
+    dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges,
+            len(row_groups(_structure(qc))) - 1)
+    best, key = (0, 0, 0), (0, 0, 0)
+    for p, f in retire_layered_plans(qc):
+        if parts is not None and p != parts:
+            continue
+        per_sm = lib.ldpc_retire_layered_occupancy(*dims, p, f, int(track_convergence))
+        if (per_sm * f, p, -f) > key:
+            best, key = (p, f, per_sm), (per_sm * f, p, -f)
+    return best
+
+
 def _route(kind: str, qc: QCLayout, mode: str, schedule: str) -> str:
     """The kernel a decoder of ``kind`` launches (its ``LAUNCHES`` key):
-    min-sum flooding on the retiring kernel of its size where that takes
+    min-sum on the retiring kernel of its size and schedule where that takes
     the code, the rest on ``kind``'s own."""
-    if mode == "minsum" and schedule == "flooding":
-        if kind == "fused" and retire_kernel_fits(qc):
+    if mode == "minsum" and kind == "fused":
+        if schedule == "flooding" and retire_kernel_fits(qc):
             return "fused_retire"
-        if kind == "fused_zlane" and retire_zlane_fits(qc):
-            return "retire_zlane"
+        if schedule == "layered" and retire_layered_fits(qc):
+            return "retire_layered"
+    if mode == "minsum" and kind == "fused_zlane" and schedule == "flooding" \
+            and retire_zlane_fits(qc):
+        return "retire_zlane"
     return kind
 
 
@@ -561,10 +666,12 @@ class FusedDecoder:
     Launches the ``route`` kernel for CUDA tensors and runs the plain
     version for CPU tensors; ``plain(llr)`` runs the plain version on any
     device.  ``kind`` "fused" routes min-sum with the flooding schedule to
-    ``fused_retire`` on the codes it takes (:func:`retire_kernel_fits`),
-    ``kind`` "fused_zlane" to ``retire_zlane`` (:func:`retire_zlane_fits`);
-    the rest runs on the ``kind`` kernel.  ``retire`` says whether the route
-    is one of the two retiring kernels.
+    ``fused_retire`` (:func:`retire_kernel_fits`) and with the layered
+    schedule to ``retire_layered`` (:func:`retire_layered_fits`) on the
+    codes they take, ``kind`` "fused_zlane" min-sum flooding to
+    ``retire_zlane`` (:func:`retire_zlane_fits`); the rest runs on the
+    ``kind`` kernel.  ``retire`` says whether the route is one of the three
+    retiring kernels.
     """
 
     def __init__(self, kind: str, qc: QCLayout, max_iterations: int, alpha: float,
@@ -583,8 +690,9 @@ class FusedDecoder:
         self.schedule = schedule
         self.device = device
         self.route = _route(kind, qc, mode, schedule)
-        self.retire = self.route in ("fused_retire", "retire_zlane")
-        # fused_zlane decoders keep the CSR structure for _launch_zlane.
+        self.retire = self.route in ("fused_retire", "retire_zlane", "retire_layered")
+        # Decoders on retire_zlane and retire_layered keep the CSR structure
+        # for _launch_zlane and _launch_fused.
         self.graph = None if self.route == "fused_retire" else torch.as_tensor(
             _graph_array(self.st), device=device)
         self._plain_index: dict[torch.device, _PlainIndex] = {}
@@ -623,6 +731,14 @@ class FusedDecoder:
             raise ValueError(f"a {self.kind} decoder has no zlane launch")
         return self._launch_csr(llr, "fused_zlane")
 
+    def _launch_fused(self, llr: torch.Tensor):
+        """``fused`` on ``llr`` (contiguous, on a card) whatever the route:
+        the kernel layered min-sum ran on before ``retire_layered``, kept so
+        the two can be timed side by side."""
+        if self.kind != "fused" or self.graph is None:
+            raise ValueError(f"a {self.route} decoder has no fused launch")
+        return self._launch_csr(llr, "fused")
+
     def _launch_csr(self, llr: torch.Tensor, kind: str):
         """The ``fused`` or ``fused_zlane`` kernel on ``llr``."""
         st = self.st
@@ -656,10 +772,12 @@ class FusedDecoder:
         return bits, conv
 
     def _launch_retire(self, llr: torch.Tensor, parts: int | None = None):
-        """The route's retiring kernel (``fused_retire`` or ``retire_zlane``)
-        on ``llr`` (contiguous, on a card); ``parts`` fixes the parts a frame
-        is split into instead of the plan's choice.  ``retire_zlane`` runs
-        at most ``batch_tile`` frames in flight, if given."""
+        """The route's retiring kernel (``fused_retire``, ``retire_zlane`` or
+        ``retire_layered``) on ``llr`` (contiguous, on a card); ``parts``
+        fixes the parts a frame is split into (for ``retire_layered``, the
+        rows of a row group it runs side by side) instead of the plan's
+        choice.  ``retire_zlane`` runs at most ``batch_tile`` frames in
+        flight, if given."""
         st = self.st
         B = llr.shape[0]
         bits = torch.empty_like(llr)
@@ -668,16 +786,21 @@ class FusedDecoder:
             return bits, conv
         lib = retire_kernel_library()
         zlane = self.route == "retire_zlane"
+        layered = self.route == "retire_layered"
         with torch.cuda.device(llr.device):
             plan = self._retire_plans.get((llr.device, parts))
             if plan is None:
                 if zlane:
                     p, per_sm = retire_zlane_plan(self.qc, self.track_convergence, parts, lib)
                     frames = 1
+                elif layered:
+                    p, frames, per_sm = retire_layered_plan(self.qc, self.track_convergence,
+                                                            parts, lib)
                 else:
                     p, frames, per_sm = retire_plan(self.qc, self.track_convergence, parts, lib)
                 resident = _resident_grid(per_sm, self.route, llr.device)
-                structure = torch.as_tensor(_retire_structure(st, p), device=llr.device)
+                table = _layered_structure(st) if layered else _retire_structure(st, p)
+                structure = torch.as_tensor(table, device=llr.device)
                 plan = self._retire_plans[(llr.device, parts)] = (p, frames, resident, structure)
             p, frames, resident, structure = plan
             grid = min(resident, -(-B // frames))
@@ -692,6 +815,12 @@ class FusedDecoder:
                                       dtype=torch.uint8, device=llr.device)
                 rc = lib.ldpc_retire_zlane(*pointers, scratch.data_ptr(), structure.data_ptr(),
                                            *args, grid, stream)
+            elif layered:
+                G = structure.shape[0] - 2 * st.K - st.R - 2
+                rc = lib.ldpc_retire_layered(*pointers, structure.data_ptr(), B, st.Z, st.R,
+                                             st.C, st.K, G, self.max_iterations, self.alpha,
+                                             int(self.track_convergence), p, frames, grid,
+                                             stream)
             else:
                 rc = lib.ldpc_retire_minsum(*pointers, structure.data_ptr(), *args, frames, grid,
                                             stream)
@@ -724,10 +853,12 @@ def make_fused_minsum(
 ) -> FusedDecoder:
     """Build the fused decoder: (B, n) LLRs -> (bits (B, n), conv_iter (B,)).
 
-    Min-sum with the flooding schedule runs on ``fused_retire``, which
-    picks its own frames per block (:func:`retire_plan`), on the codes it
-    takes (:func:`retire_kernel_fits`); sum-product, the layered schedule
-    and the codes ``fused_retire`` does not take run on ``fused``,
+    Min-sum runs on ``fused_retire`` with the flooding schedule and on
+    ``retire_layered`` with the layered one, each picking its own frames
+    per block (:func:`retire_plan`, :func:`retire_layered_plan`), on the
+    codes they take (:func:`retire_kernel_fits`,
+    :func:`retire_layered_fits`); sum-product and the codes they do not take
+    run on ``fused``,
     ``batch_tile`` frames per thread block with all state in shared memory
     (default: :func:`pick_fused_batch_tile`).  ``batch_tile`` is checked against the
     ``fused`` kernel's shared memory either way.  ``mode``: "minsum"
@@ -736,8 +867,8 @@ def make_fused_minsum(
     returns max_iterations everywhere, bits are the final-iteration
     decisions).  ``early_exit=True`` (requires tracking) stops each block's
     iteration loop once all its frames have valid syndromes, with the same
-    outputs (``fused_retire`` lets each frame go the iteration it converges
-    either way).  ``schedule``: "flooding" or "layered" (each base row's new c2v
+    outputs (``fused_retire`` and ``retire_layered`` let each frame go the
+    iteration it converges either way).  ``schedule``: "flooding" or "layered" (each base row's new c2v
     folds into the beliefs at once).  The JAX builder's ``interpret`` flag has
     no counterpart: a CPU tensor runs the plain version.
     """

@@ -58,10 +58,11 @@ def test_kernel_matches_plain(kind, name, Z, batch, mode, schedule, track, early
     dec = build(qc, 10, 0.75, mode=mode, track_convergence=track, early_exit=early_exit,
                 schedule=schedule)
     llr = _llr(qc.num_vars, batch, 1.0, seed=Z)
-    # min-sum flooding runs on fused_retire / retire_zlane, the rest on
-    # fused / fused_zlane
-    assert dec.route == (("fused_retire" if kind == "fused" else "retire_zlane")
-                         if (mode, schedule) == ("minsum", "flooding") else kind)
+    # min-sum flooding runs on fused_retire / retire_zlane, layered min-sum
+    # on retire_layered (fused decoders), the rest on fused / fused_zlane
+    retiring = {("fused", "flooding"): "fused_retire", ("fused_zlane", "flooding"): "retire_zlane",
+                ("fused", "layered"): "retire_layered"}
+    assert dec.route == (retiring.get((kind, schedule), kind) if mode == "minsum" else kind)
     before = fm.LAUNCHES[dec.route]
     bits_k, conv_k = dec(llr)
     assert fm.LAUNCHES[dec.route] == before + 1
@@ -141,6 +142,87 @@ def test_wide_rows_run_on_the_fused_kernel(track):
     _assert_identical(out, dec.plain(llr))
 
 
+# retire_layered at every shape it serves: Z=4 (one warp, 4 lanes), Z=24 (not
+# a power of two), Z=32 and Z=64 (two warps span Z); batches that are not a
+# multiple of a block's frames.
+LAYERED_SHAPES = [("toy_4x8", 4, 67), ("nr_2_0_4", 4, 53), ("nr_2_0_32", 24, 45),
+                  ("nr_2_0_32", 32, 97), ("nr_2_0_32", 64, 23)]
+
+
+@pytest.mark.parametrize("snr_db", [-2.0, 1.0, 4.0])
+@pytest.mark.parametrize("track,early_exit", [TRACKING, THROUGHPUT, EARLY_EXIT])
+@pytest.mark.parametrize("name,Z,batch", LAYERED_SHAPES)
+def test_retire_layered_matches_plain(name, Z, batch, track, early_exit, snr_db):
+    """Layered min-sum: frames that never converge (-2 dB), that converge
+    early (4 dB) and a mix; bits and conv_iter identical to the plain
+    version, one launch of retire_layered."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+    dec = fm.make_fused_minsum(qc, 12, 0.75, track_convergence=track, early_exit=early_exit,
+                               schedule="layered")
+    llr = _llr(qc.num_vars, batch, snr_db, seed=Z + int(snr_db))
+    before = dict(fm.LAUNCHES)
+    out = dec(llr)
+    moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {k: int(k == "retire_layered") for k in before}
+    _assert_identical(out, dec.plain(llr))
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3])
+def test_retire_layered_ties_and_zeros(parts):
+    """Quantised LLRs (tied minimums) with exact +0.0 and -0.0, the rows of
+    a row group on 1, 2 or 3 warps of a frame."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    llr = torch.round(_llr(qc.num_vars, 61, 1.0, seed=3) / 2.0) * 2.0
+    llr[::3, ::5] = 0.0
+    llr[1::3, 2::5] = -0.0
+    for track in (True, False):
+        dec = fm.make_fused_minsum(qc, 12, 0.75, track_convergence=track, schedule="layered")
+        _assert_identical(dec._launch_retire(llr, parts=parts), dec.plain(llr))
+
+
+def test_retire_layered_groups_take_several_frames():
+    """More frames than resident frame groups, and the replaced fused kernel
+    on the same batch: all three identical."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    dec = fm.make_fused_minsum(qc, 20, 0.75, schedule="layered")
+    llr = _llr(qc.num_vars, 4001, 1.5, seed=11)
+    parts, frames, per_sm = fm.retire_layered_plan(qc, True)
+    assert 4001 > frames * per_sm * torch.cuda.get_device_properties(0).multi_processor_count
+    out = dec(llr)
+    _assert_identical(out, dec.plain(llr))
+    _assert_identical(dec._launch_fused(llr), out)
+
+
+@pytest.mark.parametrize("track,early_exit", [TRACKING, THROUGHPUT, EARLY_EXIT])
+def test_retire_layered_wide_rows(track, early_exit):
+    """A row of 20 members, wider than the kernel's unrolled bodies, runs
+    its run-time loop: bits and conv_iter identical to the plain version."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    shifts = np.where(rng.random((4, 32)) < 0.4, rng.integers(0, 4, (4, 32)), -1)
+    shifts[0] = np.concatenate([rng.integers(0, 4, 20), np.full(12, -1)])
+    shifts[1, 20:] = 1
+    qc = tcodes.qc_layout(tcodes.BaseGraph("wide", shifts), 4)
+    assert qc.dr_max == 20
+    dec = fm.make_fused_minsum(qc, 12, 0.75, track_convergence=track, early_exit=early_exit,
+                               schedule="layered")
+    assert dec.route == "retire_layered"
+    for snr_db in (1.0, 4.0):
+        llr = _llr(qc.num_vars, 37, snr_db, seed=6)
+        _assert_identical(dec(llr), dec.plain(llr))
+
+
+def test_retire_layered_refused_plan_raises():
+    """A plan the kernel cannot take raises; nothing falls back to fused."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    dec = fm.make_fused_minsum(qc, 5, schedule="layered")
+    before = dict(fm.LAUNCHES)
+    with pytest.raises(RuntimeError, match="retire_layered"):
+        dec._launch_retire(_llr(qc.num_vars, 3, 1.0, seed=1), parts=4)
+    assert fm.LAUNCHES == before
+
+
 @pytest.mark.skipif("torch.cuda.device_count() < 2", reason="needs two NVIDIA cards")
 def test_one_decoder_on_two_cards():
     """One decoder serves LLRs on two cards: each launch reads the structure
@@ -157,8 +239,9 @@ def test_one_decoder_on_two_cards():
 
 
 def test_minsum_flooding_launches_retire_kernel():
-    """Min-sum flooding (builder and serving object) launches fused_retire;
-    sum-product and the layered schedule launch the fused kernel."""
+    """Min-sum flooding (builder and serving object) launches fused_retire,
+    layered min-sum (builder and serving object) retire_layered; sum-product
+    launches the fused kernel."""
     from ldpc_tpu_torch.models.classical import MinSumScaledDecoder
 
     qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
@@ -168,9 +251,11 @@ def test_minsum_flooding_launches_retire_kernel():
     MinSumScaledDecoder(qc, 5, backend="auto").decode(llr)
     fm.make_fused_bp(qc, 5)(llr)
     fm.make_fused_minsum(qc, 5, schedule="layered")(llr)
+    MinSumScaledDecoder(qc, 5, backend="auto", schedule="layered").decode(llr)
     torch.cuda.synchronize()
-    assert fm.LAUNCHES["fused_retire"] == before["fused_retire"] + 2
-    assert fm.LAUNCHES["fused"] == before["fused"] + 2
+    moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {"fused_retire": 2, "fused": 1, "retire_zlane": 0, "fused_zlane": 0,
+                     "retire_layered": 2}
 
 
 def test_zlane_frames_per_block_loop():
@@ -263,7 +348,8 @@ def test_minsum_flooding_at_z384_launches_retire_zlane():
     MinSumScaledDecoder(qc, 5, backend="auto").decode(llr)
     torch.cuda.synchronize()
     moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
-    assert moved == {"fused_retire": 0, "fused": 0, "retire_zlane": 2, "fused_zlane": 0}
+    assert moved == {"fused_retire": 0, "fused": 0, "retire_zlane": 2, "fused_zlane": 0,
+                     "retire_layered": 0}
     fm.make_fused_minsum_zlane(qc, 5, mode="sumproduct")(llr)
     fm.make_fused_minsum_zlane(qc, 5, schedule="layered")(llr)
     torch.cuda.synchronize()
