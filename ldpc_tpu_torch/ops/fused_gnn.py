@@ -1,22 +1,21 @@
 """Fused message-GNN decoders: the whole decode of a message-centered GNN in
 one CUDA kernel (counterpart of ``ldpc_tpu.ops.pallas_gnn``).
 
-Six hand-written kernels, in three sources:
+Six hand-written kernels, in two sources:
 
-``csrc/fused_gnn_tc.cu`` and ``csrc/fused_gnn.cu``, the corrected min-sum GNN
-(the flagship), served for a
-:class:`ldpc_tpu_torch.models.message_gnn.MessageGNNDecoder` with
+``csrc/fused_gnn_tc.cu``, the corrected min-sum GNN (the flagship), served
+for a :class:`ldpc_tpu_torch.models.message_gnn.MessageGNNDecoder` with
 ``var_mode = check_mode = "corrected"``, ``depth_L = 0``, ``damping = 1``
-(``create_corrected_minsum_gnn_decoder``):
+(``create_corrected_minsum_gnn_decoder``), two kernels on one tensor-core
+skeleton (the min-sum half-updates in exact float32, a frame's whole state
+in shared memory, the correction's products as bf16 tiles):
 
-* ``corrected_v2`` (replaces ``pallas_gnn._corrected_kernel_v2``;
-  ``fused_gnn_tc.cu``, its products as tensor-core tiles, a frame's whole
-  state in shared memory): min-sum half-updates in exact float32 plus a GNN
+* ``corrected_v2`` (replaces ``pallas_gnn._corrected_kernel_v2``): a GNN
   correction per half-update, the second MLP layer and the projection folded
-  into one thin product.
-* ``corrected`` (replaces ``pallas_gnn._corrected_kernel``; ``fused_gnn.cu``):
-  the same decoder with the second layer not folded: full (h, h) products,
-  bf16 layer outputs, float32 projection.
+  into one thin product; two passes, variable-major then check-major.
+* ``corrected`` (replaces ``pallas_gnn._corrected_kernel``): the same
+  decoder with the second layer not folded: full (h, h) products, bf16
+  layer outputs, float32 projection; one variable-major pass.
 
 ``csrc/fused_msg_gnn_tc.cu``, the fully-neural message GNN
 (``create_message_gnn_decoder``), four variants of one tensor-core skeleton:
@@ -52,13 +51,13 @@ features of a message, the per-variable mean, the LLR features,
 second-layer outputs and their sum.  The first- and second-layer weights,
 and ``corrected_v2``'s folded ``w2p`` and ``cconst``, are rounded to bf16
 when the decoder is built.  Those of the fully-neural decoders are listed in
-the header of ``csrc/fused_msg_gnn_tc.cu``.  The tensor-core kernels
-(``corrected_v2`` and the four fully-neural ones) sum each product in
-another float32 order than the plain version; nothing else differs.
-Products accumulate in float32.
+the header of ``csrc/fused_msg_gnn_tc.cu``.  Every kernel sums each product,
+and ``corrected`` its projection, in another float32 order than the plain
+version; nothing else differs.  Products accumulate in float32.
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 from collections.abc import Mapping
 
@@ -74,7 +73,7 @@ from ldpc_tpu_torch.ops.qc_msg import _BIG
 LAUNCHES: dict[str, int] = {"corrected_v2": 0, "corrected": 0, "msg_gnn": 0, "msg_gnn_v2": 0,
                             "msg_gnn_v3": 0, "msg_gnn_v4": 0}
 
-KERNEL_HIDDEN_DIMS = (16, 64)  # instantiations in csrc/fused_gnn[_tc].cu, fused_msg_gnn_tc.cu
+KERNEL_HIDDEN_DIMS = (16, 64)  # instantiations in csrc/fused_gnn_tc.cu, fused_msg_gnn_tc.cu
 _PLAIN_CHUNK_BYTES = 64 * 2**20  # one (frames, K, Z, h) float32 tensor of the plain version
 
 
@@ -288,9 +287,8 @@ class _Tables:
     """What a launch and the plain version read, on one device.
 
     ``w`` (2T, NW, h, h): the layer's weight matrices, values already rounded
-    to bf16, kept as float32 for the plain version and as bf16 (``w_bf16``)
-    for the kernel; order vf, cf, ca, va, vl, cl[, W2v, W2c].  For
-    ``corrected_v2``, ``w_bf16`` is packed by
+    to bf16, kept as float32 for the plain version; order vf, cf, ca, va, vl,
+    cl[, W2v, W2c].  ``w_bf16``: the kernel's copy, packed by
     :func:`pack_corrected_tc_weights`.
     ``small`` (2T, 4h + 4) for corrected_v2: b1v, b1c, w2p (v, c), cconst;
     (2T, 3h + 4) for corrected: b2v, b2c, pw, pb.
@@ -326,12 +324,27 @@ class _Tables:
                 np.stack([x["bias1v"], x["bias1c"]], axis=1).transpose(0, 1, 3, 2))
         self.w_ch, self.alpha = x["w_ch"], x["alpha"]
         self.w = _bf16_round(w).to(device)
-        self.w_bf16 = (pack_corrected_tc_weights(self.w, input_injection)
-                       if kind == "corrected_v2" else self.w.to(torch.bfloat16).contiguous())
+        self.w_bf16 = pack_corrected_tc_weights(self.w, input_injection, kind)
         self.small = torch.from_numpy(np.ascontiguousarray(small, np.float32)).to(device)
         self.tab = torch.from_numpy(np.ascontiguousarray(tab, np.float32)).to(device)
         self.emb = torch.from_numpy(np.concatenate([x["emb_w"], x["emb_b"]])).to(device)
         self.inv, self.graph = _structure_tensors(qc, device)
+
+    def hidden_permuted(self, kind: str, perm: torch.Tensor) -> "_Tables":
+        """A copy for the plain version with the hidden units in the order
+        ``perm``: the same function, each product and the projection summed
+        in another float32 order.  The kernel's packed weights are shared,
+        not permuted."""
+        t = copy.copy(self)
+        h = perm.numel()
+        perm = perm.to(self.w.device)
+        t.w = self.w[:, :, perm][:, :, :, perm]
+        t.small = self.small.clone()
+        for i in range(4 if kind == "corrected_v2" else 3):  # the h-vectors first
+            t.small[:, i * h:(i + 1) * h] = self.small[:, i * h:(i + 1) * h][:, perm]
+        t.tab = self.tab[..., perm]
+        t.emb = torch.cat([self.emb[:h][perm], self.emb[h:][perm]])
+        return t
 
 
 def _structure_tensors(qc: QCLayout, device: torch.device):
@@ -357,45 +370,41 @@ def _r4(x: int) -> int:
     return -(-x // 4) * 4
 
 
-def corrected_tc_matrices(input_injection: bool) -> int:
-    """(h, h) first-layer matrices ``corrected_v2`` stages a layer: vf, cf,
-    ca, va, then vl, cl with injection."""
-    return 6 if input_injection else 4
+def corrected_tc_matrices(input_injection: bool, kind: str = "corrected_v2") -> int:
+    """(h, h) matrices a corrected kernel stages a layer: the first layer's
+    vf, cf, ca, va, then vl, cl with injection; ``corrected`` then W2v,
+    W2c."""
+    return (6 if input_injection else 4) + (2 if kind == "corrected" else 0)
 
 
-def pack_corrected_tc_weights(w: torch.Tensor, inject: bool) -> torch.Tensor:
-    """``_Tables.w`` (2T, 6, h, h) of ``corrected_v2``, bf16 values as
-    float32 -> the tensor-core kernel's packed bf16 layout (2T, NM * h * (h +
-    8)), as it stages it in shared memory: the matrices vf, cf, ca, va (and
-    vl, cl with injection), each h rows (out) of its h inputs then 8 zeros."""
-    nm = corrected_tc_matrices(inject)
-    T2 = w.shape[0]
-    padded = torch.nn.functional.pad(w[:, :nm], (0, 8))
-    return padded.reshape(T2, -1).to(torch.bfloat16).contiguous()
+def pack_corrected_tc_weights(w: torch.Tensor, inject: bool,
+                              kind: str = "corrected_v2") -> torch.Tensor:
+    """``_Tables.w`` (2T, 6 or 8, h, h), bf16 values as float32 -> the
+    tensor-core kernel's packed bf16 layout (2T, NM * h * (h + 8)), as it
+    stages it in shared memory: the matrices of
+    :func:`corrected_tc_matrices` in order, each h rows (out) of its h
+    inputs then 8 zeros."""
+    idx = list(range(corrected_tc_matrices(inject))) + ([6, 7] if kind == "corrected" else [])
+    padded = torch.nn.functional.pad(w[:, idx], (0, 8))
+    return padded.reshape(w.shape[0], -1).to(torch.bfloat16).contiguous()
 
 
 def corrected_smem_bytes(kind: str, qc: QCLayout, hidden_dim: int,
-                         input_injection: bool = True) -> int:
-    """Dynamic shared memory of one block.  ``corrected`` (make_layout in
-    csrc/fused_gnn.cu): graph, inverse degrees, v2c, c2v, LLRs, column sums,
-    embedding, the layer's small vectors and its 8 (h, h) float32 weight
-    matrices, all 4-byte words.  ``corrected_v2`` (make_layout in
-    csrc/fused_gnn_tc.cu): the same state plus the variable-side partial of
-    each message, the layer's ebias table and its 4 or 6 (injection) padded
-    bf16 matrices."""
+                         input_injection: bool = True, warps: int = 1) -> int:
+    """Dynamic shared memory of one block of ``warps`` warps (make_layout in
+    csrc/fused_gnn_tc.cu): graph, inverse degrees, v2c, c2v, LLRs, column
+    sums, embedding and the layer's small vectors, 4-byte words, and its
+    padded bf16 matrices (:func:`corrected_tc_matrices`).  ``corrected_v2``
+    adds the variable-side partial of each message and the layer's ebias
+    table; ``corrected`` with injection adds each warp's tile of pre_llr
+    (16 rows of h floats)."""
     K, Z, C, R, h = qc.num_base_edges, qc.Z, qc.num_base_cols, qc.num_base_rows, hidden_dim
     state = _r4(6 * K + R + C + 2) + _r4(C + R) + 2 * _r4(K * Z) + 2 * _r4(C * Z) + 2 * h
     if kind == "corrected_v2":
         words = state + _r4(K * Z) + 4 * h + 4 + qc.num_edge_types * h
-        return 4 * words + 2 * corrected_tc_matrices(input_injection) * h * (h + 8)
-    return 4 * (state + 3 * h + 4 + 8 * h * h)
-
-
-def corrected_scratch_floats(qc: QCLayout, hidden_dim: int) -> int:
-    """Global scratch of one resident ``corrected`` block: the per-variable
-    and per-check first-layer terms of one frame (``corrected_v2`` takes
-    none)."""
-    return (2 * qc.num_base_cols + qc.num_base_rows) * hidden_dim * qc.Z
+    else:
+        words = state + 3 * h + 4 + (warps * _TILE * h if input_injection else 0)
+    return 4 * words + 2 * corrected_tc_matrices(input_injection, kind) * h * (h + 8)
 
 
 # ---------------------------------------------------------------------------
@@ -579,36 +588,20 @@ class _Plain:
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    # H, llr, soft, conv, counter, scratch, graph, inv, w, tab, small, emb,
-    # B, Z, R, C, K, T, inject, early_exit, w_ch, alpha, grid, stream
-    "ldpc_corrected_gnn": ([_I] + [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P], _I),
-    "ldpc_corrected_gnn_smem_bytes": ([_I] * 5, ctypes.c_longlong),  # H, Z, R, C, K
-    "ldpc_corrected_gnn_scratch_floats": ([_I] * 4, ctypes.c_longlong),  # H, Z, R, C
-    "ldpc_corrected_gnn_occupancy": ([_I] * 5, _I),  # H, Z, R, C, K
-    "ldpc_gnn_cuda_error_string": ([_I], ctypes.c_char_p),
-}
 _CORRECTED_TC_SIGNATURES = {
-    # H, llr, soft, conv, counter, graph, inv, w, tab, small, emb,
-    # B, Z, R, C, K, ntypes, T, inject, early_exit, w_ch, alpha, grid, warps, stream
-    "ldpc_corrected_gnn_v2": ([_I] + [_P] * 10 + [_I] * 9 + [_F, _F, _I, _I, _P], _I),
-    # H, inject, Z, R, C, K, ntypes
-    "ldpc_corrected_tc_smem_bytes": ([_I] * 7, ctypes.c_longlong),
-    "ldpc_corrected_tc_plan": ([_I] * 7 + [_P, _P], _I),  # ..., *warps, *blocks
+    # v1 (0: corrected_v2, 1: corrected), H, llr, soft, conv, counter, graph, inv, w, tab,
+    # small, emb, B, Z, R, C, K, ntypes, T, inject, early_exit, w_ch, alpha, grid, warps, stream
+    "ldpc_corrected_gnn": ([_I, _I] + [_P] * 10 + [_I] * 9 + [_F, _F, _I, _I, _P], _I),
+    # v1, H, inject, Z, R, C, K, ntypes, warps
+    "ldpc_corrected_tc_smem_bytes": ([_I] * 9, ctypes.c_longlong),
+    "ldpc_corrected_tc_plan": ([_I] * 8 + [_P, _P], _I),  # v1, H, ..., ntypes, *warps, *blocks
     "ldpc_corrected_tc_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
 
-def kernel_library():
-    """The compiled ``csrc/fused_gnn.cu`` (``corrected``), built on first use."""
-    from ldpc_tpu_torch.ops import _build
-
-    return _build.load("fused_gnn", _SIGNATURES)
-
-
 def corrected_tc_library():
-    """The compiled ``csrc/fused_gnn_tc.cu`` (``corrected_v2``), built on
-    first use."""
+    """The compiled ``csrc/fused_gnn_tc.cu`` (``corrected_v2`` and
+    ``corrected``), built on first use."""
     from ldpc_tpu_torch.ops import _build
 
     return _build.load("fused_gnn_tc", _CORRECTED_TC_SIGNATURES)
@@ -618,28 +611,20 @@ def _dims(qc: QCLayout) -> tuple[int, int, int, int]:
     return qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges
 
 
-def corrected_tc_plan(qc: QCLayout, hidden_dim: int, input_injection: bool) -> tuple[int, int]:
-    """(warps a block, blocks an SM) of the ``corrected_v2`` kernel on the
-    current card: the runtime's occupancy query over every block size, the
-    most resident warps per SM (csrc/fused_gnn_tc.cu)."""
+def corrected_tc_plan(qc: QCLayout, hidden_dim: int, input_injection: bool,
+                      kind: str = "corrected_v2") -> tuple[int, int]:
+    """(warps a block, blocks an SM) of a corrected kernel on the current
+    card: the runtime's occupancy query over every block size, the most
+    resident warps per SM (csrc/fused_gnn_tc.cu)."""
     lib = corrected_tc_library()
     warps, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    rc = lib.ldpc_corrected_tc_plan(hidden_dim, int(input_injection), *_dims(qc),
-                                    qc.num_edge_types, ctypes.addressof(warps),
+    rc = lib.ldpc_corrected_tc_plan(int(kind == "corrected"), hidden_dim, int(input_injection),
+                                    *_dims(qc), qc.num_edge_types, ctypes.addressof(warps),
                                     ctypes.addressof(blocks))
     if rc != 0:
         msg = lib.ldpc_corrected_tc_cuda_error_string(rc).decode()
-        raise RuntimeError(f"corrected_v2 occupancy query failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{kind} occupancy query failed: CUDA error {rc} ({msg})")
     return warps.value, blocks.value
-
-
-def corrected_blocks_per_sm(kind: str, qc: QCLayout, hidden_dim: int,
-                            input_injection: bool = True) -> int:
-    """Resident blocks per SM of a corrected kernel (or -cudaError_t for
-    ``corrected``)."""
-    if kind == "corrected_v2":
-        return corrected_tc_plan(qc, hidden_dim, input_injection)[1]
-    return kernel_library().ldpc_corrected_gnn_occupancy(hidden_dim, *_dims(qc))
 
 
 class _ResidentGridDecoder:
@@ -732,7 +717,7 @@ class FusedCorrectedDecoder(_ResidentGridDecoder):
         super().__init__(kind, qc, num_iterations, hidden_dim, input_injection)
         self.early_exit = bool(early_exit)
         self.return_iterations = bool(return_iterations)
-        self._warps = 0  # corrected_v2's block size, from its plan at the first launch
+        self._warps = 0  # the block size, from the kernel's plan at the first launch
         self.tables = _Tables(kind, qc, params, self.num_iterations, self.hidden_dim,
                               share_layers, self.input_injection, device)
 
@@ -749,6 +734,18 @@ class FusedCorrectedDecoder(_ResidentGridDecoder):
             return self._result(torch.empty_like(llr), llr.new_empty((0,)))
         return self._result(torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
 
+    def plain_reordered(self, llr: torch.Tensor, perm: torch.Tensor):
+        """The plain version with the hidden units in the order ``perm``
+        (:meth:`_Tables.hidden_permuted`), in one chunk: what another
+        summation order alone moves, beside which a kernel's difference from
+        :meth:`plain` is read (chip_smoke.py's noise floor)."""
+        _check_llr(llr, self.tables.w.device, self.n)
+        plain = _Plain(self.kind, self.qc, self.tables.hidden_permuted(self.kind, perm),
+                       self.num_iterations, self.hidden_dim, self.input_injection,
+                       self.early_exit)
+        with torch.no_grad():
+            return self._result(*plain.decode(llr))
+
     def _launch(self, llr: torch.Tensor):
         if not llr.is_contiguous():
             raise ValueError("llr must be contiguous")
@@ -763,28 +760,19 @@ class FusedCorrectedDecoder(_ResidentGridDecoder):
                  tb.alpha)
         tables = (tb.graph.data_ptr(), tb.inv.data_ptr(), tb.w_bf16.data_ptr(),
                   tb.tab.data_ptr(), tb.small.data_ptr(), tb.emb.data_ptr())
-        if self.kind == "corrected_v2":
-            lib = corrected_tc_library()
+        lib = corrected_tc_library()
 
-            def blocks_per_sm() -> int:
-                self._warps, blocks = corrected_tc_plan(qc, h, self.input_injection)
-                return blocks
+        def blocks_per_sm() -> int:
+            self._warps, blocks = corrected_tc_plan(qc, h, self.input_injection, self.kind)
+            return blocks
 
-            self._launch_grid(
-                llr, blocks_per_sm, 0,
-                lambda counter, scratch, grid, stream: lib.ldpc_corrected_gnn_v2(
-                    h, llr.data_ptr(), soft.data_ptr(), conv_ptr, counter, *tables, B,
-                    *_dims(qc), qc.num_edge_types, *flags, grid, self._warps, stream),
-                lib.ldpc_corrected_tc_cuda_error_string)
-        else:
-            lib = kernel_library()
-            self._launch_grid(
-                llr, lambda: lib.ldpc_corrected_gnn_occupancy(h, *_dims(qc)),
-                corrected_scratch_floats(qc, h),
-                lambda counter, scratch, grid, stream: lib.ldpc_corrected_gnn(
-                    h, llr.data_ptr(), soft.data_ptr(), conv_ptr, counter, scratch, *tables, B,
-                    *_dims(qc), *flags, grid, stream),
-                lib.ldpc_gnn_cuda_error_string)
+        self._launch_grid(
+            llr, blocks_per_sm, 0,
+            lambda counter, scratch, grid, stream: lib.ldpc_corrected_gnn(
+                int(self.kind == "corrected"), h, llr.data_ptr(), soft.data_ptr(), conv_ptr,
+                counter, *tables, B, *_dims(qc), qc.num_edge_types, *flags, grid, self._warps,
+                stream),
+            lib.ldpc_corrected_tc_cuda_error_string)
         return self._result(soft, conv)
 
 

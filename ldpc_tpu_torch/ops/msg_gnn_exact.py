@@ -51,6 +51,16 @@ bounds are checked value by value on the CPU (tests/test_torch_corrected_tc.py);
 every other operation of the decode runs in the same order in a kernel and
 its plain version.  ``CORRECTED_EXACT_CASES`` adds the early-exit flag.
 
+The same cases hold B5 (``make_fused_corrected_gnn_decoder``), whose second
+layer is not folded.  It also reorders W1cf f + W1ca rmean (one
+accumulator; rmean is a mean of features, in [1.5, 4.5] like them), W2v h1
++ b2v and W2c h1 + b2c (h1 a multiple of 2**-7, the weights of 1/h, b2 0
+or 1/4: multiples of 2**-7 / h, far below 2**24 of them), and the
+projection sum_j lo_j pw_j (lo = bf16(out_v + out_c), a rounding of such
+a multiple, so again a multiple of 2**-7 / h, times +-1/64).  Each is
+exact in any order; tests/test_torch_corrected_v1_tc.py checks them value
+by value, with out_v + out_c, which both versions take as one addition.
+
 Nothing here needs a card.
 """
 from __future__ import annotations

@@ -32,11 +32,12 @@ from ldpc_tpu_torch.ops.msg_gnn_exact import CORRECTED_EXACT_CASES, exact_correc
 BIG = 1e9
 
 
-def unpack_corrected_tc_weights(packed: torch.Tensor, h: int, inject: bool) -> torch.Tensor:
+def unpack_corrected_tc_weights(packed: torch.Tensor, h: int, inject: bool,
+                                kind: str = "corrected_v2") -> torch.Tensor:
     """The packed (2T, NM * h * (h + 8)) bf16 weights -> (2T, NM, h, h)
-    float32 in the order vf, cf, ca, va (vl, cl); the row padding must be
-    zero."""
-    nm = fg.corrected_tc_matrices(inject)
+    float32 in the order vf, cf, ca, va (vl, cl) (``corrected``: then W2v,
+    W2c); the row padding must be zero."""
+    nm = fg.corrected_tc_matrices(inject, kind)
     w = packed.to(torch.float32).reshape(packed.shape[0], nm, h, h + 8)
     assert not w[..., h:].any()
     return w[..., :h]
@@ -62,7 +63,7 @@ class TileModel:
         self.Z, self.K, self.C, self.R = qc.Z, qc.num_base_edges, qc.num_base_cols, qc.num_base_rows
         (self.row_ptr, self.row_edge, self.col_ptr, self.col_edge, self.shift, self.col, self.row,
          self.type) = _graph(dec)
-        self.W = unpack_corrected_tc_weights(tb.w_bf16, self.h, self.inject)
+        self.W = unpack_corrected_tc_weights(tb.w_bf16, self.h, self.inject, dec.kind)
         self.emb_w, self.emb_b = tb.emb[: self.h], tb.emb[self.h:]
         self.inv_dc, self.inv_dr = tb.inv[: self.C], tb.inv[self.C:]
         self.tb = tb

@@ -11,9 +11,9 @@ conv_iter within 1 (the kernel's logf/tanhf round differently from torch's).
 The corrected-GNN kernels: soft bits within 2e-2 on frames whose conv_iter
 agrees, decisions equal on >= 99.9% of bits, conv_iter equal on >= 99% of
 frames (the products sum in another order than torch.matmul, which can flip a
-bf16 rounding); untrained, they are the fused min-sum kernel exactly;
-corrected_v2 (tensor cores) on the exact inputs of ops/msg_gnn_exact.py:
-soft bits and conv_iter identical.  The
+bf16 rounding); untrained, they are the fused min-sum kernel exactly; both
+(tensor cores) on the exact inputs of ops/msg_gnn_exact.py: soft bits and
+conv_iter identical.  The
 trained min-sum kernel (fused_neural): bits identical.  The fully-neural GNN
 kernels (msg_gnn, msg_gnn_v2, msg_gnn_v3, msg_gnn_v4) at T=2: soft bits within
 3e-2, decisions equal where the plain version is confident; all four on the
@@ -434,22 +434,22 @@ def test_untrained_corrected_gnn_is_fused_minsum(kind):
     assert torch.equal((soft > 0.5).float(), bits) and torch.equal(conv, conv_ms.float())
 
 
+@pytest.mark.parametrize("kind", list(GNN_BUILDERS))
 @pytest.mark.parametrize("code,Z,h,batch,inject,share,early_exit", CORRECTED_EXACT_CASES)
-def test_corrected_v2_exact_inputs_identical(code, Z, h, batch, inject, share, early_exit):
-    """B4 on inputs whose every reordered sum is exact in any order
-    (ops/msg_gnn_exact.py): its tensor-core passes must give the plain
+def test_corrected_v2_exact_inputs_identical(kind, code, Z, h, batch, inject, share, early_exit):
+    """B4 and B5 on inputs whose every reordered sum is exact in any order
+    (ops/msg_gnn_exact.py): their tensor-core passes must give the plain
     version's soft bits and conv_iter exactly, so an index, shift or gather
     fault shows."""
     qc = tcodes.qc_layout(tcodes.get_base_graph(code), Z)
     model, llr = exact_corrected_case(qc, h, batch, inject, share)
-    dec = fg.make_fused_corrected_gnn_decoder_v2(qc, model, 2, h, share_layers=share,
-                                                 input_injection=inject, early_exit=early_exit,
-                                                 return_iterations=early_exit)
+    dec = GNN_BUILDERS[kind](qc, model, 2, h, share_layers=share, input_injection=inject,
+                             early_exit=early_exit, return_iterations=early_exit)
     llr = torch.from_numpy(llr).cuda()
-    before = fg.LAUNCHES["corrected_v2"]
+    before = fg.LAUNCHES[kind]
     out_k, out_p = dec(llr), dec.plain(llr)
     torch.cuda.synchronize()
-    assert fg.LAUNCHES["corrected_v2"] == before + 1
+    assert fg.LAUNCHES[kind] == before + 1
     if early_exit:
         assert torch.equal(out_k[0], out_p[0]) and torch.equal(out_k[1], out_p[1])
     else:
@@ -594,12 +594,12 @@ def test_msg_gnn_v1_v4_exact_inputs_identical(kind, code, Z, h, batch, inject, s
     assert torch.equal(soft_k, soft_p)
 
 
-@pytest.mark.parametrize("kind", ["fused_neural", *MSG_BUILDERS])
+@pytest.mark.parametrize("kind", ["fused_neural", *MSG_BUILDERS, *GNN_BUILDERS])
 def test_resident_blocks_decode_several_frames(kind):
     """A batch of three frames or more per resident block, so that each block
-    takes later frames into the scratch slice its earlier frames used: B3
-    with its state in global scratch (Z=128) bits identical, B6-B9 at the
-    T=2 bar."""
+    takes later frames into the scratch slice or shared state its earlier
+    frames used: B3 with its state in global scratch (Z=128) bits identical,
+    B6-B9 at the T=2 bar, B4 and B5 at the corrected bars."""
     from ldpc_tpu_torch.ops import fused_neural as fn
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -610,6 +610,12 @@ def test_resident_blocks_decode_several_frames(kind):
         assert not dec.shared
         dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges, 4, 2)
         resident = fn.kernel_library().ldpc_neural_occupancy(*dims, 1, 0) * sms
+    elif kind in GNN_BUILDERS:
+        qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_4"), 4)
+        dec = GNN_BUILDERS[kind](qc, _corrected_model(qc_msg.make_plan(qc), 2, 64, True, False,
+                                                      perturb=True), 2, 64,
+                                 early_exit=True, return_iterations=True)
+        resident = fg.corrected_tc_plan(qc, 64, True, kind)[1] * sms
     else:
         qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_4"), 4)
         dec = MSG_BUILDERS[kind](qc, _msg_model(qc_msg.make_plan(qc), 2, 64, True, False), 2, 64,
@@ -620,6 +626,12 @@ def test_resident_blocks_decode_several_frames(kind):
     torch.cuda.synchronize()
     if kind == "fused_neural":
         assert torch.equal(out_k, out_p)
+    elif kind in GNN_BUILDERS:
+        (soft_k, conv_k), (soft_p, conv_p) = out_k, out_p
+        same = conv_k == conv_p
+        assert same.float().mean().item() >= 0.99
+        assert ((soft_k > 0.5) == (soft_p > 0.5)).float().mean().item() >= 0.999
+        assert (soft_k - soft_p)[same].abs().max().item() <= 2e-2
     else:
         assert (out_k - out_p).abs().max().item() <= 3e-2
         confident = (out_p - 0.5).abs() > 0.05

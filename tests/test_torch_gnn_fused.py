@@ -107,8 +107,10 @@ def test_argument_errors():
     qc32 = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
     # corrected_v2 (csrc/fused_gnn_tc.cu): a frame's state and six padded bf16 matrices
     assert tfg.corrected_smem_bytes("corrected_v2", qc32, 64, True) == 104_208 + 6 * 64 * 72 * 2
-    assert tfg.corrected_smem_bytes("corrected", qc32, 64) == 4 * 50404
-    assert tfg.corrected_scratch_floats(qc32, 64) == (2 * 52 + 42) * 64 * 32
+    # corrected (the same source): a frame's state, eight padded bf16 matrices
+    # and a warp's tile of pre_llr (16 x 64 floats) a warp; no global scratch
+    assert tfg.corrected_smem_bytes("corrected", qc32, 64) == 70_544 + 8 * 64 * 72 * 2 + 4096
+    assert tfg.corrected_smem_bytes("corrected", qc32, 64, True, warps=12) == 193_424
 
 
 @pytest.mark.parametrize("build", [tfg.make_fused_corrected_gnn_decoder_v2,
