@@ -4,14 +4,17 @@
 // Replaces the TPU kernels of ldpc_tpu/ops/pallas_minsum.py:
 //   * fused_minsum_kernel  <- _kernel        (make_fused_minsum, make_fused_bp)
 //   * zlane_minsum_kernel  <- _kernel_zlane  (make_fused_minsum_zlane)
-// Scaled min-sum on the codes fused_retire.cu takes (rows of at most 27
-// members) left them for that file's kernels: the wrapper sends flooding to
-// retire_minsum_kernel (the main path), the layered schedule to
-// retire_layered_kernel and, at large Z, flooding to retire_zlane_kernel
-// (bench.py's z384 section).  So fused_minsum_kernel serves sum-product
-// (both schedules) and min-sum on codes with wider rows, and
-// zlane_minsum_kernel sum-product and layered min-sum at large Z.  The note
-// below is this file's.
+// Scaled min-sum and sum-product flooding on the codes fused_retire.cu takes
+// (rows of at most 27 members) left them for that file's kernels: the
+// wrapper sends min-sum flooding to retire_minsum_kernel (the main path),
+// the layered schedule to retire_layered_kernel, sum-product flooding to
+// retire_sumproduct_kernel and, at large Z, min-sum flooding to
+// retire_zlane_kernel (bench.py's z384 section).  So fused_minsum_kernel
+// serves layered sum-product and both modes on codes with wider rows (and
+// stays callable for sum-product flooding, so the wrapper's _launch_fused
+// can time it beside retire_sumproduct), and zlane_minsum_kernel
+// sum-product and layered min-sum at large Z.  The note below is this
+// file's.
 // Python wrappers, and the plain PyTorch version both kernels are held
 // against: ldpc_tpu_torch/ops/fused_minsum.py.
 //

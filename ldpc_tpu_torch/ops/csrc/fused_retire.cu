@@ -1,9 +1,9 @@
-// Scaled min-sum for Hopper (sm_90a): a frame's whole decode in one group of
-// warps, compressed check state, and frames that leave the kernel the
+// Scaled min-sum and sum-product for Hopper (sm_90a): a frame's whole
+// decode in one group of warps, and frames that leave the kernel the
 // iteration they converge.
 //
-// Replaces, for mode "minsum", the TPU kernels of
-// ldpc_tpu/ops/pallas_minsum.py:
+// Replaces, for mode "minsum" and for sum-product flooding, the TPU kernels
+// of ldpc_tpu/ops/pallas_minsum.py:
 //   * retire_minsum_kernel<TRACK, POW2>  <- _kernel (make_fused_minsum),
 //                                           flooding: the bench.py headline
 //                                           and the port's main path; entry
@@ -18,19 +18,30 @@
 //                                           "layered"), MinSumScaledDecoder(
 //                                           schedule="layered")); entry
 //                                           ldpc_retire_layered
+//   * retire_sumproduct_kernel<TRACK, POW2> <- _kernel, mode "sumproduct",
+//                                           flooding (make_fused_bp,
+//                                           BeliefPropagationDecoder); entry
+//                                           ldpc_retire_sumproduct
 // They took the place of fused_minsum_kernel and zlane_minsum_kernel
-// (fused_minsum.cu) on those paths; sum-product, layered min-sum at large Z
-// and codes with rows of more than 27 members (the wrapper's
-// retire_kernel_fits, retire_layered_fits and retire_zlane_fits) stay
-// there.  The two flooding kernels run one algorithm, the device functions
-// check_pass and column_pass on one frame loop (decode_frames), and differ
-// only in where a frame's state lives; the layered kernel shares their
-// state word, rolls, barriers and frame counter, and is described at its
-// own section below.  Python wrapper and the plain PyTorch version all are held against
-// (fused_decode_plain): ldpc_tpu_torch/ops/fused_minsum.py.  Numpy models
-// of this source's algorithms on the wrapper's structure tables:
-// tests/test_torch_minsum_retire.py (flooding),
-// tests/test_torch_minsum_layered.py (layered).
+// (fused_minsum.cu) on those paths; layered sum-product, sum-product and
+// layered min-sum at large Z, and codes with rows of more than 27 members
+// (the wrapper's retire_kernel_fits, retire_sumproduct_fits,
+// retire_layered_fits and retire_zlane_fits) stay there.  The flooding
+// kernels run one frame loop (decode_frames) over a check pass and a column
+// pass: the two min-sum kernels share compressed state and passes and differ
+// only in where a frame's state lives; the sum-product kernel keeps one
+// float a lifted edge and has its own passes, described at its section
+// below.  The layered kernel shares their state word, rolls, barriers and
+// frame counter, and is described at its own section.  Python wrapper and
+// the plain PyTorch version all are held against (fused_decode_plain):
+// ldpc_tpu_torch/ops/fused_minsum.py.  CPU models of this source's
+// algorithms on the wrapper's structure tables:
+// tests/test_torch_minsum_retire.py (min-sum flooding),
+// tests/test_torch_minsum_layered.py (layered),
+// tests/test_torch_minsum_sumproduct_retire.py (sum-product).
+//
+// The min-sum flooding kernels
+// ============================
 //
 // What it computes (the TPU kernel's order)
 // -----------------------------------------
@@ -133,6 +144,8 @@
 
 #include <cuda_runtime.h>
 
+#include "phi.cuh"
+
 namespace {
 
 constexpr float kBig = 1e9f;  // stand-in for +inf, as _BIG in the JAX package
@@ -209,6 +222,24 @@ __device__ __forceinline__ int rolled(int z, int s, int offset, int Z) {
   return v + offset;
 }
 
+// A frame's check state and what the two passes do with it (decode_frames
+// runs either): min-sum keeps a check's c2v compressed, A = (alpha*m1,
+// alpha*m2) and the state word W; sum-product keeps one float a lifted edge
+// (see the sum-product section below).
+struct MinSumState {
+  float2* A;
+  unsigned* W;
+  float alpha;
+  int checks;  // R*Z entries of A and W
+};
+
+__device__ __forceinline__ void clear_state(const MinSumState& st, int i, int step) {
+  for (; i < st.checks; i += step) {
+    st.A[i] = make_float2(0.0f, 0.0f);
+    st.W[i] = 0u;
+  }
+}
+
 // Check pass of lifted check (r, z): reads the member beliefs once and the
 // check's state (A: alpha*m1, alpha*m2; W: the output sign of member j at
 // bit j, the argmin in the top bits), writes its new state; returns the hard
@@ -223,8 +254,11 @@ __device__ __forceinline__ int rolled(int z, int s, int offset, int Z) {
 // member that reaches m1 (if no |v2c| is below the sentinel both outputs
 // are 0 and the argmin is not read).
 template <bool TRACK, bool POW2>
-__device__ __forceinline__ unsigned check_pass(const Structure& s, const float* bel, float2* A,
-                                               unsigned* W, int r, int z, int Z, float alpha) {
+__device__ __forceinline__ unsigned check_pass(const Structure& s, const float* bel,
+                                               const MinSumState& st, int r, int z, int Z) {
+  float2* A = st.A;
+  unsigned* W = st.W;
+  const float alpha = st.alpha;
   const int q = r * Z + z;
   const float2 a = A[q];
   const unsigned w_old = W[q];
@@ -268,8 +302,10 @@ __device__ __forceinline__ unsigned check_pass(const Structure& s, const float* 
 // Column pass of variable (c, z): its c2v expanded from the check states and
 // summed from 0 in col_members order, plus its LLR.
 template <bool POW2>
-__device__ __forceinline__ float column_pass(const Structure& s, const float* llr, const float2* A,
-                                             const unsigned* W, int c, int z, int Z) {
+__device__ __forceinline__ float column_pass(const Structure& s, const float* llr,
+                                             const MinSumState& st, int c, int z, int Z) {
+  const float2* A = st.A;
+  const unsigned* W = st.W;
   float cs = 0.0f;
   const int i1 = s.col_ptr[c + 1];
 #pragma unroll 4
@@ -280,6 +316,146 @@ __device__ __forceinline__ float column_pass(const Structure& s, const float* ll
     const unsigned w = W[q];
     const float v = ((w ^ static_cast<unsigned>(m.z)) & 0xf8000000u) == 0u ? a.y : a.x;
     cs = cs + flip_if(v, w << m.w);
+  }
+  return llr[c * Z + z] + cs;
+}
+
+// ---------------------------------------------------------------------------
+// Sum-product flooding (retire_sumproduct_kernel): its state and passes
+// ---------------------------------------------------------------------------
+//
+// What it computes (the TPU kernel's order, pallas_minsum.py:202-223, as
+// fused_minsum_kernel<true, false> computes it).  Check (r, z) takes, for
+// its members j = 0..d-1 in row order, v2c x_j = belief - c2v_j, phi_j =
+// phi(clamp(|x_j|, 1e-7, 20)) with phi(x) = -logf(tanhf(x / 2) + 1e-30),
+// S = S + phi_j from S = 0, and the sign product (sign(0) = +1); member j
+// gets  c2v_j = sp * sign(x_j) * phi(max(S - phi_j, 1e-7)).  Every belief
+// is llr + (the variable's c2v summed from 0 in col_members order).
+// Tracking, conv_iter and the bits are the flooding min-sum kernel's.
+//
+// What bounds it.  Operations (fused_minsum.cu's header): per lifted edge
+// 16 float32, 1 int32 and 4 special-function operations (tanh and log of
+// two phi), per check 1 int32, per variable 2 float32, over each frame's
+// conv_iter iterations (chip_smoke.py bp_bound_ms).  Main batch (nr_2_0_32
+// Z=32, 65536 frames, 3 dB): 1.861 ms of operations, the special functions
+// the largest part.  An accurate tanhf or logf is tens of instructions, so a
+// phi is far from the bound's two special-function operations.
+//
+// What the design does about it.
+// 1. Frames retire, on decode_frames as min-sum flooding does: the syndrome
+//    of iteration t - 1 is read off iteration t's check pass, and a frame
+//    whose checks all hold writes its bits and leaves.  A frame runs about
+//    conv_iter + 1 check passes where fused_minsum_kernel ran 20 iterations.
+// 2. Each phi once.  A check keeps phi_j of its members in registers (rows
+//    of up to kPhiSlots members; wider rows park phi_j in the member's own
+//    c2v slot) between the fold and the outputs: two phi a member, where
+//    fused_minsum_kernel computes three (it recomputes v2c and phi_j).  The
+//    phi_j are added to S in member order 0..d-1 (the min-sum fold runs last
+//    member first; a float sum in that order would round differently).
+// 3. One float a lifted edge: each member's output is a value of its own, so
+//    the state does not compress.  c2v is check-aligned: the edge at row-
+//    order position i, check lane z, is at i*Z + z, so the check pass reads
+//    and writes its own lane; the column pass reads i*Z + (z - shift) mod Z,
+//    a rotation of 32 consecutive words.  Neither pass has bank conflicts.
+// 4. Signs: a sign is applied by flipping the sign bit (flip_if), which is
+//    multiplication by +-1 on +-0.0 too (phi returns -0.0 where tanhf rounds
+//    to 1); v2c is never -0.0 (beliefs are not, see check_pass above), so
+//    its sign bit is its "< 0".  The first iteration reads c2v = +0.0.
+// 5. The same float operations in the same order with the same libdevice
+//    functions as fused_minsum_kernel, so the two give identical bits and
+//    conv_iter; retirement changes no output.
+//
+// Shared memory and plan.  A frame's beliefs and c2v, 4 (C*Z + K*Z) bytes:
+// 31,872 at NR BG2 Z=32 (38,528 with its LLRs staged), and the structure
+// (5,152 bytes at 4 parts) once a block.  The wrapper takes the plan with
+// the most resident frames by the runtime's occupancy query: at NR BG2
+// Z=32, 7 frames of 4 parts (28 warps) a block with the LLRs read from the
+// input rows (5 frames staged), one block per SM, 59-64 registers a thread
+// (ptxas), no spills.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 10.10 ms per
+// batch of 65536 at 3 dB (mean conv_iter 2.96; the bound is 18% of it),
+// throughput mode 51.2 ms, where fused_minsum_kernel took 82.3 ms on the
+// same batch and card.  A phi is 47 SASS instructions, 2 of them MUFU
+// (ldpc_tpu_torch/tools/probe_phi.py: cuobjdump -sass), where the bound
+// counts 2 special-function operations, and the card runs 6.4e11 of them a
+// second; the batch's 3.3e9 phi take about half the kernel's time at that
+// rate.  A phi on the approximations (tanh.approx.f32, __logf) is 8
+// instructions at 2.8x the rate, but it rounds otherwise, and the kernel
+// must equal fused_minsum_kernel.
+
+constexpr int kPhiSlots = 12;  // members whose phi a check keeps in registers
+
+// c2v of a frame's lifted edges, check-aligned: the edge at row-order
+// position i (member j of row r: i = row_ptr[r] + j) and check lane z is
+// c2v[i*Z + z].
+struct SumProductState {
+  float* c2v;
+  int edges;  // K*Z
+};
+
+__device__ __forceinline__ void clear_state(const SumProductState& st, int i, int step) {
+  for (; i < st.edges; i += step) st.c2v[i] = 0.0f;
+}
+
+// Check pass of lifted check (r, z): new c2v for its members from the
+// beliefs and the old c2v; returns the hard decisions of the beliefs it read
+// XOR-ed together in bit 31.  The members run in row order, so S is summed
+// in the kernels' order; phi_j of each is computed once.
+template <bool TRACK, bool POW2>
+__device__ __forceinline__ unsigned check_pass(const Structure& s, const float* bel,
+                                               const SumProductState& st, int r, int z, int Z) {
+  const int j0 = s.row_ptr[r], d = s.row_ptr[r + 1] - j0;
+  const int2* mem = s.row_mem + j0;
+  float* c2v = st.c2v + j0 * Z + z;  // member j's c2v at c2v[j * Z]
+  float S = 0.0f;
+  unsigned neg = 0u, parity = 0u;
+  // Member j's v2c folded in: its sign at bit j of neg; returns phi_j.
+  auto fold = [&](int j) {
+    const int2 m = mem[j];
+    const float b = bel[rolled<POW2>(z, m.y, m.x, Z)];
+    const float x = b - c2v[j * Z];
+    neg |= (__float_as_uint(x) >> 31) << j;
+    if (TRACK) parity ^= __float_as_uint(b);
+    const float p = phi(fminf(fmaxf(fabsf(x), 1e-7f), 20.0f));
+    S = S + p;
+    return p;
+  };
+  // Member j's c2v from phi_j: sign bit sp ^ (sign of x_j).
+  auto out = [&](int j, float p, unsigned sp) {
+    return flip_if(phi(fmaxf(S - p, 1e-7f)), sp ^ (neg << (31 - j)));
+  };
+  if (d <= kPhiSlots) {
+    float ph[kPhiSlots];
+#pragma unroll
+    for (int j = 0; j < kPhiSlots; ++j)
+      if (j < d) ph[j] = fold(j);
+    const unsigned sp = (__popc(neg) & 1u) << 31;
+#pragma unroll
+    for (int j = 0; j < kPhiSlots; ++j)
+      if (j < d) c2v[j * Z] = out(j, ph[j], sp);
+  } else {
+    // Wider rows: phi_j waits in member j's own c2v slot, which no other
+    // thread reads before the pass's closing barrier.
+    for (int j = 0; j < d; ++j) c2v[j * Z] = fold(j);
+    const unsigned sp = (__popc(neg) & 1u) << 31;
+    for (int j = 0; j < d; ++j) c2v[j * Z] = out(j, c2v[j * Z], sp);
+  }
+  return parity;
+}
+
+// Column pass of variable (c, z): its c2v summed from 0 in col_members
+// order, plus its LLR.  The structure's column members carry the edge's
+// offset i*Z (not min-sum's r*Z).
+template <bool POW2>
+__device__ __forceinline__ float column_pass(const Structure& s, const float* llr,
+                                             const SumProductState& st, int c, int z, int Z) {
+  float cs = 0.0f;
+  const int i1 = s.col_ptr[c + 1];
+#pragma unroll 4
+  for (int i = s.col_ptr[c]; i < i1; ++i) {
+    const int4 m = s.col_mem[i];
+    cs = cs + st.c2v[rolled<POW2>(z, Z - m.y, m.x, Z)];  // (z - shift) mod Z
   }
   return llr[c * Z + z] + cs;
 }
@@ -332,17 +508,18 @@ __device__ __forceinline__ Lanes lanes_of(const Structure& s, int Z, int parts) 
 }
 
 // A frame group decodes frames from the counter until the batch is done.
-// bel and A are the group's, in shared memory; W is its state words, in
-// shared memory or in its block's slice of global scratch.  With STAGED a
+// bel is the group's, in shared memory; st is its check state (State:
+// MinSumState or SumProductState), in shared memory or, for min-sum's state
+// words at large Z, in its block's slice of global scratch.  With STAGED a
 // frame's LLRs are copied into L (shared memory) and the column passes read
 // them there; without, they read them from the frame's input row.
-template <bool TRACK, bool POW2, bool STAGED>
+template <bool TRACK, bool POW2, bool STAGED, typename State>
 __device__ __forceinline__ void decode_frames(const Structure& s, const Lanes& t, int* s_frame,
                                               const float* __restrict__ llr, float* bits, int* conv,
-                                              int* next_frame, float* bel, float* L, float2* A,
-                                              unsigned* W, int B, int Z, int R, int C,
-                                              int max_iterations, float alpha) {
-  const int n = C * Z, RZ = R * Z;
+                                              int* next_frame, float* bel, float* L,
+                                              const State& st, int B, int Z, int C,
+                                              int max_iterations) {
+  const int n = C * Z;
   const Group& grp = t.grp;
   for (;;) {
     int f;
@@ -361,10 +538,7 @@ __device__ __forceinline__ void decode_frames(const Structure& s, const Lanes& t
       bel[i] = x + 0.0f;  // -0.0 -> +0.0; the same decisions and v2c
       if (STAGED) L[i] = x;
     }
-    for (int i = t.gi; i < RZ; i += grp.threads) {
-      A[i] = make_float2(0.0f, 0.0f);
-      W[i] = 0u;
-    }
+    clear_state(st, t.gi, grp.threads);
     grp.sync();
     const float* lf = STAGED ? L : src;
 
@@ -374,7 +548,7 @@ __device__ __forceinline__ void decode_frames(const Structure& s, const Lanes& t
       unsigned parity = 0u;
       if (t.active)
         for (int r = t.r0; r < t.r1; ++r)
-          parity |= check_pass<TRACK, POW2>(s, bel, A, W, r, t.z, Z, alpha);
+          parity |= check_pass<TRACK, POW2>(s, bel, st, r, t.z, Z);
       if (TRACK && it > 0) {
         // The beliefs of iteration it - 1 satisfy every check: conv_iter = it.
         if (!grp.sync_or(parity >> 31)) {
@@ -386,7 +560,7 @@ __device__ __forceinline__ void decode_frames(const Structure& s, const Lanes& t
       }
       if (t.active)
         for (int c = t.c0; c < t.c1; ++c)
-          bel[c * Z + t.z] = column_pass<POW2>(s, lf, A, W, c, t.z, Z);
+          bel[c * Z + t.z] = column_pass<POW2>(s, lf, st, c, t.z, Z);
       grp.sync();
     }
     if (t.gi == 0) conv[f] = converged ? it : max_iterations;
@@ -415,8 +589,8 @@ retire_minsum_kernel(const float* __restrict__ llr, float* __restrict__ bits,
   float* L = bel + n;
   float2* A = reinterpret_cast<float2*>(L + n);  // 8-byte aligned: 2n is even
   unsigned* W = reinterpret_cast<unsigned*>(A + R * Z);
-  decode_frames<TRACK, POW2, true>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel, L, A,
-                                   W, B, Z, R, C, max_iterations, alpha);
+  decode_frames<TRACK, POW2, true>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel, L,
+                                   MinSumState{A, W, alpha, R * Z}, B, Z, C, max_iterations);
 }
 
 // One frame group a block, for Z where a whole frame exceeds shared memory:
@@ -439,8 +613,41 @@ retire_zlane_kernel(const float* __restrict__ llr, float* __restrict__ bits,
   float* bel = reinterpret_cast<float*>(s_struct + structure_words(R, C, K, parts));
   float2* A = reinterpret_cast<float2*>(bel + C * Z);  // 8-byte aligned: Z is even
   unsigned* W = scratch + static_cast<size_t>(blockIdx.x) * R * Z;
-  decode_frames<TRACK, POW2, false>(s, t, &s_frame, llr, bits, conv, next_frame, bel, nullptr, A,
-                                    W, B, Z, R, C, max_iterations, alpha);
+  decode_frames<TRACK, POW2, false>(s, t, &s_frame, llr, bits, conv, next_frame, bel, nullptr,
+                                    MinSumState{A, W, alpha, R * Z}, B, Z, C, max_iterations);
+}
+
+// A frame's beliefs, its LLRs if STAGED, then its c2v (K*Z floats), rounded
+// up to 16 bytes.
+__host__ __device__ inline int sumproduct_frame_words(int Z, int C, int K, int staged) {
+  return ((staged ? 2 : 1) * C * Z + K * Z + 3) / 4 * 4;
+}
+
+// Sum-product flooding: up to 15 frame groups a block, as
+// retire_minsum_kernel; a group's beliefs and c2v in shared memory, and its
+// LLRs too where `staged` (else the column passes read the input row).
+template <bool TRACK, bool POW2>
+__global__ void __launch_bounds__(kMaxThreads)
+retire_sumproduct_kernel(const float* __restrict__ llr, float* __restrict__ bits,
+                         int* __restrict__ conv, int* __restrict__ next_frame,
+                         const int* __restrict__ structure, int B, int Z, int R, int C, int K,
+                         int max_iterations, int parts, int staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_frame[kMaxGroups];
+  int* s_struct = reinterpret_cast<int*>(smem);
+  const Structure s = load_structure(s_struct, structure, R, C, K, parts);
+  const Lanes t = lanes_of(s, Z, parts);
+  const int n = C * Z;
+  float* bel = reinterpret_cast<float*>(s_struct + structure_words(R, C, K, parts)) +
+               t.g * sumproduct_frame_words(Z, C, K, staged);
+  if (staged)
+    decode_frames<TRACK, POW2, true>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
+                                     bel + n, SumProductState{bel + 2 * n, K * Z}, B, Z, C,
+                                     max_iterations);
+  else
+    decode_frames<TRACK, POW2, false>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
+                                      nullptr, SumProductState{bel + n, K * Z}, B, Z, C,
+                                      max_iterations);
 }
 
 // ---------------------------------------------------------------------------
@@ -797,6 +1004,21 @@ bool valid_plan(int Z, int parts, int frames) {
 // kernel does.
 bool valid_zlane_plan(int Z, int parts) { return Z % 8 == 0 && valid_plan(Z, parts, 1); }
 
+using SumProductKernel = decltype(&retire_sumproduct_kernel<true, true>);
+
+SumProductKernel pick_sumproduct_kernel(int track, int Z) {
+  const bool pow2 = (Z & (Z - 1)) == 0;
+  return track ? (pow2 ? &retire_sumproduct_kernel<true, true>
+                       : &retire_sumproduct_kernel<true, false>)
+               : (pow2 ? &retire_sumproduct_kernel<false, true>
+                       : &retire_sumproduct_kernel<false, false>);
+}
+
+long long sumproduct_smem(int Z, int R, int C, int K, int parts, int frames, int staged) {
+  return 4LL * (structure_words(R, C, K, parts) +
+                static_cast<long long>(frames) * sumproduct_frame_words(Z, C, K, staged));
+}
+
 using LayeredKernel = decltype(&retire_layered_kernel<true, true>);
 
 LayeredKernel pick_layered_kernel(int track, int Z) {
@@ -881,6 +1103,40 @@ int ldpc_retire_layered(const void* llr, void* bits, void* conv, void* counter,
       static_cast<int*>(counter), static_cast<const int*>(structure), B, Z, R, C, K, G, T, alpha,
       parts);
   return cudaGetLastError();
+}
+
+// Sum-product flooding, as ldpc_retire_minsum; `staged` copies each frame's
+// LLRs into shared memory.
+int ldpc_retire_sumproduct(const void* llr, void* bits, void* conv, void* counter,
+                           const void* structure, int B, int Z, int R, int C, int K, int T,
+                           int track, int parts, int frames, int staged, int grid,
+                           void* stream) {
+  if (B < 1 || grid < 1 || !valid_plan(Z, parts, frames)) return cudaErrorInvalidValue;
+  const long long smem = sumproduct_smem(Z, R, C, K, parts, frames, staged);
+  const SumProductKernel kernel = pick_sumproduct_kernel(track, Z);
+  const int threads = retire_threads(Z, parts, frames);
+  cudaError_t err = prepare(kernel, smem, threads, nullptr);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(llr), static_cast<float*>(bits), static_cast<int*>(conv),
+      static_cast<int*>(counter), static_cast<const int*>(structure), B, Z, R, C, K, T, parts,
+      staged);
+  return cudaGetLastError();
+}
+
+long long ldpc_retire_sumproduct_smem_bytes(int Z, int R, int C, int K, int parts, int frames,
+                                            int staged) {
+  return sumproduct_smem(Z, R, C, K, parts, frames, staged);
+}
+
+int ldpc_retire_sumproduct_occupancy(int Z, int R, int C, int K, int parts, int frames,
+                                     int staged, int track) {
+  if (!valid_plan(Z, parts, frames)) return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err =
+      prepare(pick_sumproduct_kernel(track, Z), sumproduct_smem(Z, R, C, K, parts, frames, staged),
+              retire_threads(Z, parts, frames), &blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 long long ldpc_retire_smem_bytes(int Z, int R, int C, int K, int parts, int frames) {

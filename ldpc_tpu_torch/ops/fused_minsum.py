@@ -1,7 +1,7 @@
 """Fused min-sum / BP decoders: the whole decode loop in one CUDA kernel
 (counterpart of ``ldpc_tpu.ops.pallas_minsum``).
 
-Five hand-written kernels replace the two TPU kernels:
+Six hand-written kernels replace the two TPU kernels:
 
 * ``fused_retire`` (``csrc/fused_retire.cu``, replaces
   ``pallas_minsum._kernel`` for scaled min-sum with the flooding schedule,
@@ -26,9 +26,18 @@ Five hand-written kernels replace the two TPU kernels:
   kernel the sweep they converge.  Rows of a row group (:func:`row_groups`:
   consecutive rows that share no column) may run side by side on more
   warps of the frame.  :func:`retire_layered_fits` decides.
+* ``retire_sumproduct`` (same file, replaces ``pallas_minsum._kernel`` for
+  sum-product with the flooding schedule, ``make_fused_bp`` and
+  ``BeliefPropagationDecoder``): ``fused_retire``'s frame loop, with one
+  float of c2v a lifted edge (check-aligned), each phi computed once and
+  kept in registers, the syndrome folded into the next check pass and
+  frames that leave the kernel the iteration they converge (31,872 bytes a
+  frame at NR BG2 Z=32, the LLRs read from the input row, or staged in
+  shared memory where the occupancy query prefers it).
+  :func:`retire_sumproduct_fits` decides.
 * ``fused`` (``csrc/fused_minsum.cu``, replaces ``pallas_minsum._kernel`` for
-  sum-product, both schedules, and min-sum on codes that ``fused_retire``
-  and ``retire_layered`` do not take, those with rows of more than 27
+  layered sum-product, and for min-sum and sum-product flooding on codes
+  that the retiring kernels do not take, those with rows of more than 27
   members): a few frames per thread block, with all decode state (c2v,
   beliefs, channel LLRs) in shared memory.  Fits while one frame's state is
   below the block's shared memory (Z=32 on NR BG2: about 42 KB a frame);
@@ -84,7 +93,7 @@ _RETIRE_MAX_PARTS = 4  # parts a frame's rows and columns are split into
 _LAYERED_MAX_FRAMES = 32
 
 LAUNCHES: dict[str, int] = {"fused_retire": 0, "fused": 0, "retire_zlane": 0, "fused_zlane": 0,
-                            "retire_layered": 0}
+                            "retire_layered": 0, "retire_sumproduct": 0}
 
 
 class _Structure(NamedTuple):
@@ -198,6 +207,33 @@ def retire_kernel_fits(qc: QCLayout) -> bool:
     return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_plans(qc))
 
 
+def retire_sumproduct_smem_bytes(qc: QCLayout, parts: int = 1, frames: int = 1,
+                                 staged: bool = False) -> int:
+    """Dynamic shared memory of one ``retire_sumproduct`` block: structure
+    plus, per frame, the beliefs (C*Z float32), the LLRs too if ``staged``,
+    and c2v (K*Z float32), rounded up to 16 bytes."""
+    Z, C, K = qc.Z, qc.num_base_cols, qc.num_base_edges
+    frame = -(-((2 if staged else 1) * C * Z + K * Z) // 4) * 4
+    return 4 * (_retire_structure_words(qc, parts) + frames * frame)
+
+
+def retire_sumproduct_plans(qc: QCLayout) -> list[tuple[int, int, bool]]:
+    """The (parts, frames per block, staged) a ``retire_sumproduct`` launch
+    may take: at most 15 frames and 1024 threads a block, within shared
+    memory."""
+    return [(p, f, staged) for p in range(1, _RETIRE_MAX_PARTS + 1)
+            for f in range(1, _RETIRE_MAX_GROUPS + 1) for staged in (False, True)
+            if retire_threads(qc, p, f) <= _RETIRE_MAX_THREADS
+            and retire_sumproduct_smem_bytes(qc, p, f, staged) <= _SMEM_BUDGET]
+
+
+def retire_sumproduct_fits(qc: QCLayout) -> bool:
+    """Whether ``retire_sumproduct`` takes the code: rows of at most 27
+    members (a word holds a check's signs, as in ``fused_retire``) and a
+    frame, with one float of c2v an edge, within a block."""
+    return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_sumproduct_plans(qc))
+
+
 def retire_zlane_smem_bytes(qc: QCLayout, parts: int = 1) -> int:
     """Dynamic shared memory of one ``retire_zlane`` block (one frame):
     structure plus the beliefs (C*Z float32) and (alpha*m1, alpha*m2) of
@@ -289,20 +325,24 @@ def _balanced_bounds(costs, parts: int) -> list[int]:
     return list(np.maximum.accumulate([0] + inner + [len(costs)]))
 
 
-def _retire_structure(st: _Structure, parts: int = 1) -> np.ndarray:
-    """Structure for ``fused_retire``, int32: column members in col_members
-    order as (r*Z, shift, j << 27, 31 - j) with j the member's position in
-    its row (the state word's argmin field, and the shift that brings its
-    sign, bit j, to bit 31) (4K), row members in row order as (col*Z,
-    shift) (2K), row_ptr (R+1), col_ptr (C+1), then the
+def _retire_structure(st: _Structure, parts: int = 1, per_edge: bool = False) -> np.ndarray:
+    """Structure for ``fused_retire`` (and ``retire_zlane``), int32: column
+    members in col_members order as (r*Z, shift, j << 27, 31 - j) with j the
+    member's position in its row (the state word's argmin field, and the
+    shift that brings its sign, bit j, to bit 31) (4K), row members in row
+    order as (col*Z, shift) (2K), row_ptr (R+1), col_ptr (C+1), then the
     first row and the first column of each of ``parts`` parts (parts+1
     each), cut so that the parts carry about equal work (a check costs its
-    members plus 6, a variable its members plus 3)."""
+    members plus 6, a variable its members plus 3).  ``per_edge`` (for
+    ``retire_sumproduct``, whose c2v is one float an edge) puts the edge's
+    offset i*Z in place of r*Z, with i = row_ptr[r] + j its position in row
+    order."""
     Z = st.Z
-    member = {}
+    member, i = {}, 0
     for r, members in enumerate(st.row_members):
         for j, k in enumerate(members):
-            member[k] = (r * Z, st.shifts[k], j << 27, 31 - j)
+            member[k] = ((i if per_edge else r) * Z, st.shifts[k], j << 27, 31 - j)
+            i += 1
     col_mem = [member[k] for m in st.col_members for k in m]
     row_mem = [(st.cols[k] * Z, st.shifts[k]) for m in st.row_members for k in m]
     row_deg = [len(m) for m in st.row_members]
@@ -548,6 +588,13 @@ _RETIRE_SIGNATURES = {
     "ldpc_retire_layered_smem_bytes": ([_I] * 6, ctypes.c_longlong),
     # Z, R, C, K, G, parts, frames_per_block, track -> blocks per SM
     "ldpc_retire_layered_occupancy": ([_I] * 8, _I),
+    # llr, bits, conv, counter, structure, B, Z, R, C, K, T,
+    # track, parts, frames_per_block, staged, grid, stream
+    "ldpc_retire_sumproduct": ([_P] * 5 + [_I] * 11 + [_P], _I),
+    # Z, R, C, K, parts, frames_per_block, staged
+    "ldpc_retire_sumproduct_smem_bytes": ([_I] * 7, ctypes.c_longlong),
+    # Z, R, C, K, parts, frames_per_block, staged, track -> blocks per SM
+    "ldpc_retire_sumproduct_occupancy": ([_I] * 8, _I),
     "ldpc_retire_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -581,6 +628,26 @@ def retire_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
         per_sm = lib.ldpc_retire_occupancy(*dims, p, f, int(track_convergence))
         if (per_sm * f, p, -f) > key:
             best, key = (p, f, per_sm), (per_sm * f, p, -f)
+    return best
+
+
+def retire_sumproduct_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
+                           lib=None) -> tuple[int, int, bool, int]:
+    """(parts, frames per block, staged, resident blocks per SM) of
+    ``retire_sumproduct``: of :func:`retire_sumproduct_plans` (those with
+    ``parts`` if given), the most resident frames per SM by the runtime's
+    occupancy query, then the most parts, then staged LLRs, then the fewest
+    frames per block."""
+    lib = lib or retire_kernel_library()
+    dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
+    best, key = (0, 0, False, 0), (0, 0, False, 0)
+    for p, f, staged in retire_sumproduct_plans(qc):
+        if parts is not None and p != parts:
+            continue
+        per_sm = lib.ldpc_retire_sumproduct_occupancy(*dims, p, f, int(staged),
+                                                      int(track_convergence))
+        if (per_sm * f, p, staged, -f) > key:
+            best, key = (p, f, staged, per_sm), (per_sm * f, p, staged, -f)
     return best
 
 
@@ -623,8 +690,11 @@ def retire_layered_plan(qc: QCLayout, track_convergence: bool, parts: int | None
 
 def _route(kind: str, qc: QCLayout, mode: str, schedule: str) -> str:
     """The kernel a decoder of ``kind`` launches (its ``LAUNCHES`` key):
-    min-sum on the retiring kernel of its size and schedule where that takes
-    the code, the rest on ``kind``'s own."""
+    min-sum, and sum-product flooding, on the retiring kernel of its size
+    and schedule where that takes the code, the rest on ``kind``'s own."""
+    if mode == "sumproduct" and kind == "fused" and schedule == "flooding" \
+            and retire_sumproduct_fits(qc):
+        return "retire_sumproduct"
     if mode == "minsum" and kind == "fused":
         if schedule == "flooding" and retire_kernel_fits(qc):
             return "fused_retire"
@@ -666,12 +736,14 @@ class FusedDecoder:
     Launches the ``route`` kernel for CUDA tensors and runs the plain
     version for CPU tensors; ``plain(llr)`` runs the plain version on any
     device.  ``kind`` "fused" routes min-sum with the flooding schedule to
-    ``fused_retire`` (:func:`retire_kernel_fits`) and with the layered
-    schedule to ``retire_layered`` (:func:`retire_layered_fits`) on the
-    codes they take, ``kind`` "fused_zlane" min-sum flooding to
-    ``retire_zlane`` (:func:`retire_zlane_fits`); the rest runs on the
-    ``kind`` kernel.  ``retire`` says whether the route is one of the three
-    retiring kernels.
+    ``fused_retire`` (:func:`retire_kernel_fits`), min-sum with the layered
+    schedule to ``retire_layered`` (:func:`retire_layered_fits`) and
+    sum-product with the flooding schedule to ``retire_sumproduct``
+    (:func:`retire_sumproduct_fits`) on the codes they take, ``kind``
+    "fused_zlane" min-sum flooding to ``retire_zlane``
+    (:func:`retire_zlane_fits`); the rest (layered sum-product, wider rows)
+    runs on the ``kind`` kernel.  ``retire`` says whether the route is one
+    of the four retiring kernels.
     """
 
     def __init__(self, kind: str, qc: QCLayout, max_iterations: int, alpha: float,
@@ -690,15 +762,16 @@ class FusedDecoder:
         self.schedule = schedule
         self.device = device
         self.route = _route(kind, qc, mode, schedule)
-        self.retire = self.route in ("fused_retire", "retire_zlane", "retire_layered")
-        # Decoders on retire_zlane and retire_layered keep the CSR structure
-        # for _launch_zlane and _launch_fused.
+        self.retire = self.route in ("fused_retire", "retire_zlane", "retire_layered",
+                                     "retire_sumproduct")
+        # Decoders on retire_zlane, retire_layered and retire_sumproduct keep
+        # the CSR structure for _launch_zlane and _launch_fused.
         self.graph = None if self.route == "fused_retire" else torch.as_tensor(
             _graph_array(self.st), device=device)
         self._plain_index: dict[torch.device, _PlainIndex] = {}
         # Retiring kernels' launch plans (parts, frames per block, resident
-        # blocks, structure on that card) by (card, parts asked for), made at
-        # the first launch on each.
+        # blocks, structure on that card, staged LLRs) by (card, parts asked
+        # for), made at the first launch on each.
         self._retire_plans: dict[tuple[torch.device, int | None], tuple] = {}
 
     def __call__(self, llr: torch.Tensor):
@@ -733,8 +806,9 @@ class FusedDecoder:
 
     def _launch_fused(self, llr: torch.Tensor):
         """``fused`` on ``llr`` (contiguous, on a card) whatever the route:
-        the kernel layered min-sum ran on before ``retire_layered``, kept so
-        the two can be timed side by side."""
+        the kernel layered min-sum and sum-product flooding ran on before
+        ``retire_layered`` and ``retire_sumproduct``, kept so the two can be
+        timed side by side."""
         if self.kind != "fused" or self.graph is None:
             raise ValueError(f"a {self.route} decoder has no fused launch")
         return self._launch_csr(llr, "fused")
@@ -772,12 +846,12 @@ class FusedDecoder:
         return bits, conv
 
     def _launch_retire(self, llr: torch.Tensor, parts: int | None = None):
-        """The route's retiring kernel (``fused_retire``, ``retire_zlane`` or
-        ``retire_layered``) on ``llr`` (contiguous, on a card); ``parts``
-        fixes the parts a frame is split into (for ``retire_layered``, the
-        rows of a row group it runs side by side) instead of the plan's
-        choice.  ``retire_zlane`` runs at most ``batch_tile`` frames in
-        flight, if given."""
+        """The route's retiring kernel (``fused_retire``, ``retire_zlane``,
+        ``retire_layered`` or ``retire_sumproduct``) on ``llr`` (contiguous,
+        on a card); ``parts`` fixes the parts a frame is split into (for
+        ``retire_layered``, the rows of a row group it runs side by side)
+        instead of the plan's choice.  ``retire_zlane`` runs at most
+        ``batch_tile`` frames in flight, if given."""
         st = self.st
         B = llr.shape[0]
         bits = torch.empty_like(llr)
@@ -787,22 +861,29 @@ class FusedDecoder:
         lib = retire_kernel_library()
         zlane = self.route == "retire_zlane"
         layered = self.route == "retire_layered"
+        sumproduct = self.route == "retire_sumproduct"
         with torch.cuda.device(llr.device):
             plan = self._retire_plans.get((llr.device, parts))
             if plan is None:
+                staged = False
                 if zlane:
                     p, per_sm = retire_zlane_plan(self.qc, self.track_convergence, parts, lib)
                     frames = 1
                 elif layered:
                     p, frames, per_sm = retire_layered_plan(self.qc, self.track_convergence,
                                                             parts, lib)
+                elif sumproduct:
+                    p, frames, staged, per_sm = retire_sumproduct_plan(
+                        self.qc, self.track_convergence, parts, lib)
                 else:
                     p, frames, per_sm = retire_plan(self.qc, self.track_convergence, parts, lib)
                 resident = _resident_grid(per_sm, self.route, llr.device)
-                table = _layered_structure(st) if layered else _retire_structure(st, p)
+                table = (_layered_structure(st) if layered
+                         else _retire_structure(st, p, per_edge=sumproduct))
                 structure = torch.as_tensor(table, device=llr.device)
-                plan = self._retire_plans[(llr.device, parts)] = (p, frames, resident, structure)
-            p, frames, resident, structure = plan
+                plan = self._retire_plans[(llr.device, parts)] = (p, frames, resident, structure,
+                                                                  staged)
+            p, frames, resident, structure, staged = plan
             grid = min(resident, -(-B // frames))
             counter = torch.zeros((1,), dtype=torch.int32, device=llr.device)
             stream = torch.cuda.current_stream(llr.device).cuda_stream
@@ -815,6 +896,11 @@ class FusedDecoder:
                                       dtype=torch.uint8, device=llr.device)
                 rc = lib.ldpc_retire_zlane(*pointers, scratch.data_ptr(), structure.data_ptr(),
                                            *args, grid, stream)
+            elif sumproduct:
+                rc = lib.ldpc_retire_sumproduct(*pointers, structure.data_ptr(), B, st.Z, st.R,
+                                                st.C, st.K, self.max_iterations,
+                                                int(self.track_convergence), p, frames,
+                                                int(staged), grid, stream)
             elif layered:
                 G = structure.shape[0] - 2 * st.K - st.R - 2
                 rc = lib.ldpc_retire_layered(*pointers, structure.data_ptr(), B, st.Z, st.R,
@@ -854,11 +940,13 @@ def make_fused_minsum(
     """Build the fused decoder: (B, n) LLRs -> (bits (B, n), conv_iter (B,)).
 
     Min-sum runs on ``fused_retire`` with the flooding schedule and on
-    ``retire_layered`` with the layered one, each picking its own frames
-    per block (:func:`retire_plan`, :func:`retire_layered_plan`), on the
-    codes they take (:func:`retire_kernel_fits`,
-    :func:`retire_layered_fits`); sum-product and the codes they do not take
-    run on ``fused``,
+    ``retire_layered`` with the layered one, sum-product flooding on
+    ``retire_sumproduct``, each picking its own frames per block
+    (:func:`retire_plan`, :func:`retire_layered_plan`,
+    :func:`retire_sumproduct_plan`), on the codes they take
+    (:func:`retire_kernel_fits`, :func:`retire_layered_fits`,
+    :func:`retire_sumproduct_fits`); layered sum-product and the codes they
+    do not take run on ``fused``,
     ``batch_tile`` frames per thread block with all state in shared memory
     (default: :func:`pick_fused_batch_tile`).  ``batch_tile`` is checked against the
     ``fused`` kernel's shared memory either way.  ``mode``: "minsum"
@@ -867,8 +955,8 @@ def make_fused_minsum(
     returns max_iterations everywhere, bits are the final-iteration
     decisions).  ``early_exit=True`` (requires tracking) stops each block's
     iteration loop once all its frames have valid syndromes, with the same
-    outputs (``fused_retire`` and ``retire_layered`` let each frame go the
-    iteration it converges either way).  ``schedule``: "flooding" or "layered" (each base row's new c2v
+    outputs (the retiring kernels let each frame go the iteration it
+    converges either way).  ``schedule``: "flooding" or "layered" (each base row's new c2v
     folds into the beliefs at once).  The JAX builder's ``interpret`` flag has
     no counterpart: a CPU tensor runs the plain version.
     """
@@ -934,6 +1022,8 @@ def make_fused_bp(
     batch_tile: int | None = None,
     device="cuda",
 ) -> FusedDecoder:
-    """Fused sum-product (belief propagation) decoder — see make_fused_minsum."""
+    """Fused sum-product (belief propagation) decoder, flooding: on
+    ``retire_sumproduct`` where it takes the code, else ``fused`` — see
+    make_fused_minsum."""
     return make_fused_minsum(qc, max_iterations, alpha=1.0, batch_tile=batch_tile,
                              mode="sumproduct", device=device)

@@ -7,7 +7,8 @@ also runs on a machine that has only the port's dependencies:
 
 (``--noconftest``: the suite's conftest.py configures JAX.)  Bars: min-sum
 bits and conv_iter identical; sum-product bits agree on >= 99.9% and
-conv_iter within 1 (the kernel's logf/tanhf round differently from torch's).
+conv_iter within 1 (the kernel's logf/tanhf round differently from torch's),
+and retire_sumproduct identical to the fused kernel it replaced.
 The corrected-GNN kernels: soft bits within 2e-2 on frames whose conv_iter
 agrees, decisions equal on >= 99.9% of bits, conv_iter equal on >= 99% of
 frames (the products sum in another order than torch.matmul, which can flip a
@@ -59,10 +60,13 @@ def test_kernel_matches_plain(kind, name, Z, batch, mode, schedule, track, early
                 schedule=schedule)
     llr = _llr(qc.num_vars, batch, 1.0, seed=Z)
     # min-sum flooding runs on fused_retire / retire_zlane, layered min-sum
-    # on retire_layered (fused decoders), the rest on fused / fused_zlane
-    retiring = {("fused", "flooding"): "fused_retire", ("fused_zlane", "flooding"): "retire_zlane",
-                ("fused", "layered"): "retire_layered"}
-    assert dec.route == (retiring.get((kind, schedule), kind) if mode == "minsum" else kind)
+    # on retire_layered and sum-product flooding on retire_sumproduct (fused
+    # decoders), the rest on fused / fused_zlane
+    retiring = {("minsum", "fused", "flooding"): "fused_retire",
+                ("minsum", "fused_zlane", "flooding"): "retire_zlane",
+                ("minsum", "fused", "layered"): "retire_layered",
+                ("sumproduct", "fused", "flooding"): "retire_sumproduct"}
+    assert dec.route == retiring.get((mode, kind, schedule), kind)
     before = fm.LAUNCHES[dec.route]
     bits_k, conv_k = dec(llr)
     assert fm.LAUNCHES[dec.route] == before + 1
@@ -241,7 +245,8 @@ def test_one_decoder_on_two_cards():
 def test_minsum_flooding_launches_retire_kernel():
     """Min-sum flooding (builder and serving object) launches fused_retire,
     layered min-sum (builder and serving object) retire_layered; sum-product
-    launches the fused kernel."""
+    flooding launches retire_sumproduct, layered sum-product the fused
+    kernel."""
     from ldpc_tpu_torch.models.classical import MinSumScaledDecoder
 
     qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
@@ -252,10 +257,11 @@ def test_minsum_flooding_launches_retire_kernel():
     fm.make_fused_bp(qc, 5)(llr)
     fm.make_fused_minsum(qc, 5, schedule="layered")(llr)
     MinSumScaledDecoder(qc, 5, backend="auto", schedule="layered").decode(llr)
+    fm.make_fused_minsum(qc, 5, mode="sumproduct", schedule="layered")(llr)
     torch.cuda.synchronize()
     moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
     assert moved == {"fused_retire": 2, "fused": 1, "retire_zlane": 0, "fused_zlane": 0,
-                     "retire_layered": 2}
+                     "retire_layered": 2, "retire_sumproduct": 1}
 
 
 def test_zlane_frames_per_block_loop():
@@ -349,12 +355,102 @@ def test_minsum_flooding_at_z384_launches_retire_zlane():
     torch.cuda.synchronize()
     moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
     assert moved == {"fused_retire": 0, "fused": 0, "retire_zlane": 2, "fused_zlane": 0,
-                     "retire_layered": 0}
+                     "retire_layered": 0, "retire_sumproduct": 0}
     fm.make_fused_minsum_zlane(qc, 5, mode="sumproduct")(llr)
     fm.make_fused_minsum_zlane(qc, 5, schedule="layered")(llr)
     torch.cuda.synchronize()
     assert fm.LAUNCHES["fused_zlane"] == before["fused_zlane"] + 2
     assert fm.LAUNCHES["retire_zlane"] == before["retire_zlane"] + 2
+
+
+# retire_sumproduct (sum-product flooding) at every shape it serves: Z=4 (one
+# warp, 4 lanes), Z=24 (not a power of two), Z=32 and Z=64 (two warps span
+# Z); batches that are not a multiple of a block's frames.
+SUMPRODUCT_SHAPES = [("toy_4x8", 4, 67), ("nr_2_0_4", 4, 53), ("nr_2_0_32", 24, 45),
+                     ("nr_2_0_32", 32, 97), ("nr_2_0_32", 64, 23)]
+
+
+def _assert_sumproduct(dec, llr, out):
+    """The sum-product bars against the plain version, and identical to the
+    fused kernel it replaced (same float operations in the same order)."""
+    bits_k, conv_k = out
+    bits_p, conv_p = dec.plain(llr)
+    assert_decoder_parity("sumproduct", to_numpy(bits_k), to_numpy(conv_k), to_numpy(bits_p),
+                          to_numpy(conv_p))
+    _assert_identical(dec._launch_fused(llr), out)
+
+
+@pytest.mark.parametrize("snr_db", [-2.0, 1.0, 4.0])
+@pytest.mark.parametrize("track,early_exit", [TRACKING, THROUGHPUT, EARLY_EXIT])
+@pytest.mark.parametrize("name,Z,batch", SUMPRODUCT_SHAPES)
+def test_retire_sumproduct_matches_plain_and_fused(name, Z, batch, track, early_exit, snr_db):
+    """Sum-product flooding: frames that never converge (-2 dB), that
+    converge early (4 dB) and a mix; one launch of retire_sumproduct."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+    dec = fm.make_fused_minsum(qc, 12, 1.0, mode="sumproduct", track_convergence=track,
+                               early_exit=early_exit)
+    llr = _llr(qc.num_vars, batch, snr_db, seed=Z + int(snr_db))
+    before = dict(fm.LAUNCHES)
+    out = dec(llr)
+    moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {k: int(k == "retire_sumproduct") for k in before}
+    _assert_sumproduct(dec, llr, out)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 4])
+def test_retire_sumproduct_ties_and_zeros(parts):
+    """Quantised LLRs (ties) with exact +0.0 and -0.0, every split of a
+    frame into parts."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    llr = torch.round(_llr(qc.num_vars, 61, 1.0, seed=3) / 2.0) * 2.0
+    llr[::3, ::5] = 0.0
+    llr[1::3, 2::5] = -0.0
+    for track in (True, False):
+        dec = fm.make_fused_bp(qc, 12) if track else fm.make_fused_minsum(
+            qc, 12, 1.0, mode="sumproduct", track_convergence=False)
+        _assert_sumproduct(dec, llr, dec._launch_retire(llr, parts=parts))
+
+
+def test_retire_sumproduct_groups_take_several_frames():
+    """More frames than resident frame groups, and a row of 20 members
+    (phi parked in the c2v slots): identical to the fused kernel."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    dec = fm.make_fused_bp(qc, 20)
+    llr = _llr(qc.num_vars, 4001, 1.5, seed=11)
+    parts, frames, staged, per_sm = fm.retire_sumproduct_plan(qc, True)
+    assert 4001 > frames * per_sm * torch.cuda.get_device_properties(0).multi_processor_count
+    _assert_sumproduct(dec, llr, dec(llr))
+    from test_torch_minsum_sumproduct_retire import wide_row_code
+
+    wide = wide_row_code(20)
+    dec = fm.make_fused_bp(wide, 12)
+    assert dec.route == "retire_sumproduct"
+    for snr_db in (3.0, 5.0, 7.0):
+        llr = _llr(wide.num_vars, 37, snr_db, seed=6)
+        _assert_sumproduct(dec, llr, dec(llr))
+
+
+def test_retire_sumproduct_refused_plan_raises():
+    """A plan the kernel cannot take raises; nothing falls back to fused."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    dec = fm.make_fused_bp(qc, 5)
+    before = dict(fm.LAUNCHES)
+    with pytest.raises(RuntimeError, match="retire_sumproduct"):
+        dec._launch_retire(_llr(qc.num_vars, 3, 1.0, seed=1), parts=5)
+    assert fm.LAUNCHES == before
+
+
+def test_probe_phi_runs():
+    """The phi probe (tools/probe_phi.py): both variants built, counted and
+    timed; the accurate phi takes more instructions than the approximate."""
+    from ldpc_tpu_torch.tools import probe_phi
+
+    out = probe_phi.main(["--n", "4096", "--reps", "4", "--rounds", "1"])
+    sass = out["sass_per_phi"]
+    assert sass["accurate"]["instructions"] > sass["mufu"]["instructions"] > 0
+    assert sass["mufu"]["mufu_instructions"] >= 2
+    assert all(rate > 0 for rate in out["phi_per_s"].values())
+    assert out["agreement"]["max_abs_diff"] < 1.0
 
 
 def test_launch_errors_raise():

@@ -320,10 +320,10 @@ def test_plans_and_shared_memory():
 
 
 def test_routes_and_launch_counters():
-    """Layered min-sum routes to retire_layered; sum-product layered, the
-    flooding schedule, rows over 27 members and fused_zlane keep their
-    kernels; the serving object reaches retire_layered; a CPU tensor moves
-    no launch counter."""
+    """Layered min-sum routes to retire_layered; sum-product layered, rows
+    over 27 members and fused_zlane keep their kernels, min-sum and
+    sum-product flooding go to theirs; the serving object reaches
+    retire_layered; a CPU tensor moves no launch counter."""
     from test_torch_minsum_retire import wide_row_shifts
 
     qc = _qc("nr_2_0_32", 32)
@@ -332,7 +332,8 @@ def test_routes_and_launch_counters():
     assert fm.make_fused_minsum(qc, 20, device="cpu").route == "fused_retire"
     sp = fm.make_fused_minsum(qc, 20, mode="sumproduct", schedule="layered", device="cpu")
     assert sp.route == "fused" and not sp.retire
-    assert fm.make_fused_bp(qc, 20, device="cpu").route == "fused"
+    bp = fm.make_fused_bp(qc, 20, device="cpu")
+    assert bp.route == "retire_sumproduct" and bp.retire
     server = MinSumScaledDecoder(qc, 20, 0.75, early_stopping=False, schedule="layered",
                                  device="cpu")
     assert server._fused.route == "retire_layered"

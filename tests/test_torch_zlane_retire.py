@@ -107,7 +107,7 @@ def test_dispatch():
     assert server._fused.route == "retire_zlane"
     # The route names a launch counter; a CPU tensor moves none of them.
     assert set(fm.LAUNCHES) == {"fused_retire", "fused", "retire_zlane", "fused_zlane",
-                                "retire_layered"}
+                                "retire_layered", "retire_sumproduct"}
     launches = dict(fm.LAUNCHES)
     small = _qc(24, "nr_2_0_4")
     llr = torch.zeros((2, small.num_vars))
