@@ -76,7 +76,9 @@ Phases, one JSON line each:
              process of its own (trace_sumproduct).
 4d. sumproduct_layered — the fused kernel's own path: layered sum-product
              through make_fused_minsum at the main path's batch, launch
-             counts, 0 bit errors, one timed run (no bound yet).
+             counts, 0 bit errors, mean conv_iter; five timed rounds, the
+             median and every round, and the bound (bp_bound_ms with the
+             layered counts of fused_minsum.cu's header).
 5. z384    — bench.py section_z384: nr_2_0_32 Z=384, batch 512, 20
              iterations, 3 dB, no early stop, through
              MinSumScaledDecoder(backend="auto") (fused_zlane, whose
@@ -135,20 +137,34 @@ Phases, one JSON line each:
              injection, batch 4096, 3 dB, early exit: corrected_v2 in five
              rounds, the whole batch against the plain version at the
              gnn_compare bars.
-9. nms_compare — the trained neural min-sum kernel (fused_neural) against
-             its plain version on perturbed parameters: every weight
-             sharing, depth 0-3, alpha and offset shared and per iteration,
-             at nr_2_0_4 Z=4, nr_2_0_32 Z=32 and Z=128 (state in global
-             scratch).  Bits identical.
+9. nms_compare — the trained neural min-sum kernels against their plain
+             version on perturbed parameters, each case through its route
+             (one launch of that kernel, no other): every weight sharing,
+             depth 0-3, alpha and offset shared and per iteration, at
+             nr_2_0_4 Z=4 and nr_2_0_32 Z=32 on neural_group (also with the
+             weights read from L2, staged where they fit, and through the
+             side door on fused_neural) and Z=128 on fused_neural (state in
+             global scratch).  Bits identical; each plan's shared-memory
+             bytes equal to the wrapper's.
+9b. nms_serve_shape — the serving entry point's neural min-sum decoder
+             (nr_2_0_4 Z=4, T=5, depth 2, the committed checkpoint, batch
+             4096, 0 dB): neural_group in five rounds beside fused_neural
+             through the side door, both identical to the plain version.
 10. nms_unit — unit weights (scalar w_ch 1, depth 0, alpha 1, offset 0)
-             against fused min-sum at alpha 1 without tracking: decisions
-             equal on >= 99.99% of bits (the variable update adds in another
-             order), the count printed.
+             through their route (neural_group) against fused min-sum at
+             alpha 1 without tracking: decisions equal on >= 99.99% of bits
+             (the variable update adds in another order), the count printed.
 11. nms_main — results/oms10_per_iter_nr_2_0_32.msgpack (T=10, depth 2, per
              iteration) at nr_2_0_32 Z=32, batch 65536 GF(2)-encoded random
-             codewords, QPSK at -3 dB: BER within 5% of 8.89e-3
-             (results/README.md), the whole batch identical to the plain
-             version.
+             codewords, QPSK at -3 dB, on neural_group (one launch): BER
+             within 5% of 8.89e-3 (results/README.md), the whole batch
+             identical to the plain version, and so is fused_neural's
+             through the side door.  Five rounds, neural_group beside
+             fused_neural and beside its weights read from L2, every round
+             and the medians printed; variants (depth 1, no taps, each with
+             the replaced kernel beside it, and every split of a frame into
+             parts, staged and from L2), the plan and ptxas registers and
+             spills.
 12. msg_gnn_compare — the fully-neural kernels (msg_gnn_v2, msg_gnn,
              msg_gnn_v3, msg_gnn_v4) against their plain versions, T=2, h 16
              and 64, injection and
@@ -177,7 +193,8 @@ Phases, one JSON line each:
 14. serve  — ldpc_tpu_torch.serve_trained_decoder with --model message_gnn
              and --model neural_minsum on the committed nr_2_0_4 checkpoints
              (defaults: batch 4096, 0 dB), BER/FER printed beside
-             results/nr_2_0_4_comparison.json's; each launch counter moves.
+             results/nr_2_0_4_comparison.json's; each launch counter moves
+             (neural min-sum: the counter of its route, neural_group).
 15. bench_gnn_kernel — python -m ldpc_tpu_torch.tools.bench_gnn_kernel at
              its defaults (nr_2_0_4 Z=4, h=64, T=5, injection, batch 2048) on
              the committed nr_2_0_4 checkpoints: the six fused variants
@@ -239,6 +256,11 @@ OPS_PER_VAR_LAYERED = (1, 0)
 OPS_PER_EDGE_SUMPRODUCT = (16, 1, 4)
 OPS_PER_CHECK_SUMPRODUCT = (0, 1, 0)
 OPS_PER_VAR_SUMPRODUCT = (2, 0, 0)
+# Layered sum-product (the same header): flooding's per-edge work less the
+# column-sum add, plus the fold (belief + new) - old, two adds: 17 float32;
+# a variable needs its hard decision alone, as layered min-sum.
+OPS_PER_EDGE_SUMPRODUCT_LAYERED = (17, 1, 4)
+OPS_PER_VAR_SUMPRODUCT_LAYERED = (1, 0, 0)
 PEAK_SFU_OPS = PEAK_F32_OPS / 8
 
 
@@ -277,14 +299,16 @@ def bound_ms(qc, conv: torch.Tensor, layered: bool = False) -> tuple[float, str]
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def bp_bound_ms(qc, conv: torch.Tensor) -> tuple[float, str]:
-    """bound_ms for sum-product flooding: the float32, int32 and
-    special-function operations of each frame's conv_iter iterations, each
-    at its rate, against the LLRs read and bits and conv_iter written."""
+def bp_bound_ms(qc, conv: torch.Tensor, layered: bool = False) -> tuple[float, str]:
+    """bound_ms for sum-product, flooding or ``layered``: the float32, int32
+    and special-function operations of each frame's conv_iter iterations,
+    each at its rate, against the LLRs read and bits and conv_iter written."""
     B, n = conv.shape[0], qc.num_vars
     frame_iterations = int(conv.sum().item())
     counts = (qc.num_edges, qc.num_base_rows * qc.Z, n)
-    per_item = (OPS_PER_EDGE_SUMPRODUCT, OPS_PER_CHECK_SUMPRODUCT, OPS_PER_VAR_SUMPRODUCT)
+    per_item = ((OPS_PER_EDGE_SUMPRODUCT_LAYERED, OPS_PER_CHECK_SUMPRODUCT,
+                 OPS_PER_VAR_SUMPRODUCT_LAYERED) if layered
+                else (OPS_PER_EDGE_SUMPRODUCT, OPS_PER_CHECK_SUMPRODUCT, OPS_PER_VAR_SUMPRODUCT))
     f32, i32, sfu = (sum(c * per[i] for c, per in zip(counts, per_item)) * frame_iterations
                      for i in (0, 1, 2))
     t_ops = (f32 / PEAK_F32_OPS + i32 / PEAK_I32_OPS + sfu / PEAK_SFU_OPS) * 1e3
@@ -805,10 +829,13 @@ def classical_phases(lib, smi: str) -> list[dict]:
     bit_errors_sl = int(bits_sl.sum().item())
     if bits_sl.shape != (B, n) or bit_errors_sl:
         raise AssertionError(f"layered sum-product decodes wrongly: {bit_errors_sl} bit errors")
-    ms_sl, _ = cuda_ms(lambda: sp_lay(llr), reps=1)
+    rounds_sl = [cuda_ms(lambda: sp_lay(llr), reps=1)[0] for _ in range(5)]
+    ms_sl = sorted(rounds_sl)[2]
+    bms_sl, bby_sl = bp_bound_ms(qc32, conv_sl, layered=True)
     emit({"phase": "sumproduct_layered", "code": "nr_2_0_32", "Z": 32, "batch": B,
           "iterations": ITERS, "snr_db": 3.0, "backend": "fused", "launches": launches_sl,
-          "ms_per_batch": ms_sl, "bit_errors": bit_errors_sl,
+          "ms_per_batch": ms_sl, "rounds_ms": rounds_sl, "bound_ms": bms_sl,
+          "bound_by": bby_sl, "bit_errors": bit_errors_sl,
           "mean_conv_iter": float(conv_sl.float().mean().item()), "nvidia_smi": smi})
 
     # 5. Z=384 path (bench.py section_z384): auto resolves to fused_zlane,
@@ -1401,6 +1428,18 @@ def perturbed_nms(plan, seed: int, scale: float = 0.1, **kw):
     return add_noise(model, scale, gen)
 
 
+def routed_launch(dec, llr: torch.Tensor, counters: dict) -> torch.Tensor:
+    """``dec(llr)`` with every launch counter set to 0 just before and read
+    just after: the decoder's route launched once, no other kernel."""
+    for key in counters:
+        counters[key] = 0
+    out = dec(llr)
+    torch.cuda.synchronize()
+    if counters[dec.route] != 1 or sum(counters.values()) != 1:
+        raise AssertionError(f"a {dec.route} decode launched {counters}")
+    return out
+
+
 def nms_phases(smi: str) -> list[dict]:
     from ldpc_tpu_torch import convert
     from ldpc_tpu_torch.codes import encoder_from_H, expand_base_matrix, get_base_graph, qc_layout
@@ -1412,11 +1451,15 @@ def nms_phases(smi: str) -> list[dict]:
     lib = fn.kernel_library()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # nms_compare: every weight sharing, depth 0-3, alpha and offset shared
-    # and per iteration, perturbed parameters; Z=128 keeps the state in global
-    # scratch, where each resident block loops over frames: the last case
-    # hands every block three frames or more.  Bits identical to the plain
-    # version.
-    max_err = 0.0
+    # and per iteration, perturbed parameters, each through its route: Z=4,
+    # Z=12 (a warp holds 8 and 2 frames side by side) and Z=32 on
+    # neural_group (held also with its weights read from L2 and,
+    # where they fit, from shared memory, and beside fused_neural through the
+    # side door), Z=128 on fused_neural with the state in global scratch,
+    # where each resident block loops over frames: the last case hands every
+    # block three frames or more.  Bits identical to the plain version.
+    max_err = {"neural_group": 0.0, "fused_neural": 0.0}
+    path_launches = {"neural_group": 0, "fused_neural": 0}
     cases = [("nr_2_0_4", 4, 37, "scalar", 0, False, False, False),
              ("nr_2_0_4", 4, 37, "cell", 2, True, False, False),
              ("nr_2_0_4", 4, 37, "type", 1, True, False, True),
@@ -1424,6 +1467,8 @@ def nms_phases(smi: str) -> list[dict]:
              ("nr_2_0_32", 32, 13, "edge", 2, True, True, True),
              ("nr_2_0_32", 32, 13, "type", 0, True, True, False),
              ("nr_2_0_32", 32, 13, "cell", 1, False, True, True),
+             ("nr_2_0_32", 32, 13, "edge", 3, True, True, True),
+             ("nr_2_0_32", 12, 9, "cell", 3, True, True, True),
              ("nr_2_0_32", 128, 5, "edge", 2, True, True, True),
              ("nr_2_0_32", 128, 5, "scalar", 3, True, False, False),
              ("nr_2_0_32", 128, None, "edge", 2, True, True, True)]
@@ -1435,26 +1480,69 @@ def nms_phases(smi: str) -> list[dict]:
                               weight_sharing=sharing, learnable_alpha=learn_a,
                               learnable_offset=learn_o, per_iteration=per_it)
         dec = fn.make_fused_neural_minsum(qc, model, T, L, per_iteration=per_it)
-        dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges, T, L)
-        # the wrapper's shared-memory plan is the kernel's
-        assert lib.ldpc_neural_smem_bytes(*dims, dec.frames_per_block, int(dec.shared)) == \
+        assert dec.route == ("fused_neural" if Z == 128 else "neural_group")
+        dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
+        # the wrapper's shared-memory plans are the kernels'
+        assert lib.ldpc_neural_smem_bytes(*dims, T, L, dec.frames_per_block, int(dec.shared)) == \
             fn.neural_smem_bytes(qc, T, L, dec.frames_per_block, dec.shared)
-        resident = None if dec.shared else lib.ldpc_neural_occupancy(*dims, 1, 0) * sms
+        if dec.route == "neural_group":
+            for staged in (False, True):
+                for p, f in fn.neural_group_plans(qc, L, staged):
+                    assert lib.ldpc_neural_group_smem_bytes(*dims, L, p, f, int(staged)) == \
+                        fn.neural_group_smem_bytes(qc, L, p, f, staged)
+        resident = None if dec.shared else lib.ldpc_neural_occupancy(*dims, T, L, 1, 0) * sms
         if B is None:  # three frames or more for every resident block
             B = 3 * resident + 1
         llr = torch.cat([llrs(qc.num_vars, len(range(i, B, 2)), snr, seed=Z + i)
                          for i, snr in enumerate((0.5, 2.0))])
-        bits_k, bits_p = dec(llr), dec.plain(llr)
+        bits_k = routed_launch(dec, llr, fn.LAUNCHES)
+        path_launches[dec.route] += 1
+        bits_p = dec.plain(llr)
+        others = {}
+        if dec.route == "neural_group":
+            others = {"weights_l2": dec._launch_group(llr, staged=False),
+                      "fused_neural": dec._launch_minsum(llr)}
+            if fn.neural_group_plans(qc, L, staged=True):
+                others["weights_staged"] = dec._launch_group(llr, staged=True)
         torch.cuda.synchronize()
-        same = bool(torch.equal(bits_k, bits_p))
-        max_err = max(max_err, (bits_k - bits_p).abs().max().item())
+        same = {name: bool(torch.equal(out, bits_p))
+                for name, out in (("route", bits_k), *others.items())}
+        max_err[dec.route] = max(max_err[dec.route], (bits_k - bits_p).abs().max().item())
+        ok = all(same.values())
         emit({"phase": "nms_compare", "case": f"{code} Z={Z} B={B} T={T} {sharing} L={L} "
-              f"alpha={learn_a} offset={learn_o} per_iteration={per_it}",
+              f"alpha={learn_a} offset={learn_o} per_iteration={per_it}", "route": dec.route,
               "state": "shared" if dec.shared else "global", "frames_per_block":
               dec.frames_per_block, "resident_blocks": resident, "bits_identical": same,
-              "bit_errors_vs_zero": int(bits_k.sum().item()), "ok": same})
-        if not same:
-            raise AssertionError("fused_neural kernel disagrees with its plain version")
+              "bit_errors_vs_zero": int(bits_k.sum().item()), "ok": ok})
+        if not ok:
+            raise AssertionError(f"{dec.route} disagrees with its plain version: {same}")
+
+    # nms_serve_shape: the decoder serve_trained_decoder --model neural_minsum
+    # builds (nr_2_0_4 Z=4, T=5, depth 2, edge weights, the committed
+    # checkpoint) at its batch of 4096, 0 dB: neural_group (8 frames a group
+    # at Z=4) in five rounds beside fused_neural through the side door, both
+    # identical to the plain version.
+    qc4 = qc_layout(get_base_graph("nr_2_0_4"), 4)
+    serve_model = NeuralMinSumDecoder(qc_msg.make_plan(qc4), num_iterations=5, depth_L=2,
+                                      weight_sharing="edge", learnable_alpha=True,
+                                      loss_mode="mean")
+    convert.load_neural_min_sum(Path(__file__).resolve().parent / "results" /
+                                "standard_nr_2_0_4.msgpack", serve_model)
+    serve_dec = fn.make_fused_neural_minsum(qc4, serve_model, 5, 2)
+    llr = llrs(qc4.num_vars, 4096, 0.0, seed=31)
+    bits_p = serve_dec.plain(llr)
+    same = {"neural_group": bool(torch.equal(routed_launch(serve_dec, llr, fn.LAUNCHES), bits_p)),
+            "fused_neural": bool(torch.equal(serve_dec._launch_minsum(llr), bits_p))}
+    serve_rounds = [{"neural_group": cuda_ms(lambda: serve_dec(llr), reps=20)[0],
+                     "replaced_fused_neural": cuda_ms(lambda: serve_dec._launch_minsum(llr),
+                                                      reps=20)[0]} for _ in range(5)]
+    serve_median = {k: sorted(r[k] for r in serve_rounds)[2] for k in serve_rounds[0]}
+    ok = all(same.values())
+    emit({"phase": "nms_serve_shape", "code": "nr_2_0_4", "Z": 4, "iterations": 5, "depth_L": 2,
+          "batch": 4096, "route": serve_dec.route, "identical": same, "median_ms": serve_median,
+          "rounds_ms": serve_rounds, "frames_per_group": fn.frames_per_group(qc4), "ok": ok})
+    if not ok:
+        raise AssertionError(f"neural min-sum at the serving shape differs: {same}")
 
     qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
     plan32 = qc_msg.make_plan(qc32)
@@ -1466,16 +1554,17 @@ def nms_phases(smi: str) -> list[dict]:
     T_UNIT, B_UNIT = 10, 4096
     unit = NeuralMinSumDecoder(plan32, num_iterations=T_UNIT, depth_L=0, weight_sharing="scalar")
     llr = llrs(n, B_UNIT, 1.0, seed=21)
-    bits_u = fn.make_fused_neural_minsum(qc32, unit, T_UNIT, 0)(llr)
+    unit_dec = fn.make_fused_neural_minsum(qc32, unit, T_UNIT, 0)
+    bits_u = routed_launch(unit_dec, llr, fn.LAUNCHES)
     bits_f, _ = fm.make_fused_minsum(qc32, T_UNIT, 1.0, track_convergence=False)(llr)
     differ = int((bits_u != bits_f).sum().item())
     agreement = 1.0 - differ / bits_u.numel()
     ok = agreement >= NMS_UNIT_MIN_AGREEMENT
     emit({"phase": "nms_unit", "batch": B_UNIT, "iterations": T_UNIT, "snr_db": 1.0,
-          "bits_differing": differ, "bit_agreement": agreement,
+          "route": unit_dec.route, "bits_differing": differ, "bit_agreement": agreement,
           "frame_errors_fused": int((bits_f.sum(dim=1) > 0).sum().item()), "ok": ok})
     if not ok:
-        raise AssertionError("unit-weight fused_neural is not min-sum")
+        raise AssertionError("unit-weight neural min-sum is not min-sum")
 
     # nms_main: the trained per-iteration offset min-sum of
     # tools/high_precision_flagship.py at nr_2_0_32 Z=32, -3 dB.
@@ -1490,49 +1579,79 @@ def nms_phases(smi: str) -> list[dict]:
     tx = enc.random_codewords(gen, B)
     llr = qpsk_awgn_llr(gen, tx, SNR)
     dec = fn.make_fused_neural_minsum(qc32, model, T, L, per_iteration=True)
-    fn.LAUNCHES["fused_neural"] = 0
-    bits = dec(llr)
-    torch.cuda.synchronize()
-    launches = fn.LAUNCHES["fused_neural"]
-    if launches != 1:
-        raise AssertionError(f"nms main path did not run the fused_neural kernel: {launches}")
+    assert dec.route == "neural_group"
+    bits = routed_launch(dec, llr, fn.LAUNCHES)
+    launches = fn.LAUNCHES["neural_group"]
     assert bits.shape == (B, n) and bits.dtype == torch.float32
     ber, fer = (float(x) for x in compute_ber_fer(tx, bits))
-    ms, _ = cuda_ms(lambda: dec(llr), reps=5)
+    old_bits = dec._launch_minsum(llr)
     plain_ms, bits_p = cuda_ms(lambda: dec.plain(llr), reps=1)
     same = bool(torch.equal(bits, bits_p))
-    max_err = max(max_err, (bits - bits_p).abs().max().item())
-    del bits_p
+    same_old = bool(torch.equal(old_bits, bits_p))
+    max_err["neural_group"] = max(max_err["neural_group"], (bits - bits_p).abs().max().item())
+    max_err["fused_neural"] = max(max_err["fused_neural"], (old_bits - bits_p).abs().max().item())
+    del bits_p, old_bits
+    # Five rounds, the kernel beside the one it replaced (fused_neural through
+    # the side door, _launch_minsum) and beside its weights read from L2.
+    rounds = []
+    for _ in range(5):
+        rounds.append({"neural_group": cuda_ms(lambda: dec(llr), reps=5)[0],
+                       "replaced_fused_neural": cuda_ms(lambda: dec._launch_minsum(llr),
+                                                        reps=3)[0],
+                       "weights_l2": cuda_ms(lambda: dec._launch_group(llr, staged=False),
+                                             reps=5)[0]})
+    median = {k: sorted(r[k] for r in rounds)[2] for k in rounds[0]}
+    ms = median["neural_group"]
     bms, bby = nms_bound_ms(qc32, T, L, B)
     # Where the time goes: the same batch through a decoder of depth 1 (the
-    # seed, one check half, the output) and through one without residual taps
-    # (L=0).  A fixed T: the time depends on the shape, not on the weights.
-    variants_ms = {}
+    # check pass and column pass of one iteration) and through one without
+    # residual taps (L=0), each beside the replaced kernel; every split of a
+    # frame into parts, weights staged and from L2.  A fixed T: the time
+    # depends on the shape, not on the weights.
+    variants_ms = {"weights_l2": median["weights_l2"]}
     for name, depth, taps in (("depth_1", 1, L), ("no_taps", T, 0)):
         other = perturbed_nms(plan32, seed=depth + taps, num_iterations=depth, depth_L=taps,
                               weight_sharing="edge", learnable_alpha=True,
                               learnable_offset=True, per_iteration=True)
         vdec = fn.make_fused_neural_minsum(qc32, other, depth, taps, per_iteration=True)
         variants_ms[name] = cuda_ms(lambda: vdec(llr), reps=5)[0]
+        variants_ms[f"{name}_replaced"] = cuda_ms(lambda: vdec._launch_minsum(llr), reps=3)[0]
     variants_ms["per_iteration"] = (ms - variants_ms["depth_1"]) / (T - 1)
-    ok = same and abs(ber / NMS_BER_REF - 1.0) <= NMS_BER_WINDOW
+    variants_ms["parts"] = {
+        f"{'staged' if staged else 'weights_l2'} parts={p}":
+            cuda_ms(lambda: dec._launch_group(llr, parts=p, staged=staged), reps=3)[0]
+        for staged in (True, False)
+        for p in sorted({p for p, _ in fn.neural_group_plans(qc32, L, staged)})}
+    group_plan = dict(zip(("parts", "frames_per_block", "blocks_per_sm"),
+                          fn.neural_group_plan(qc32, L, True)))
+    ok = same and same_old and abs(ber / NMS_BER_REF - 1.0) <= NMS_BER_WINDOW
     emit({"phase": "nms_main", "checkpoint": ckpt, "code": "nr_2_0_32", "Z": 32,
-          "iterations": T, "depth_L": L, "batch": B, "snr_db": SNR, "launches": launches,
-          "ms_per_batch": ms, "bits_per_s": decode_throughput(B, n, ms / 1e3, name="nms"),
+          "iterations": T, "depth_L": L, "batch": B, "snr_db": SNR, "route": dec.route,
+          "launches": launches, "ms_per_batch": ms,
+          "bits_per_s": decode_throughput(B, n, ms / 1e3, name="nms"),
           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "ber": ber, "fer": fer,
-          "ber_reference": NMS_BER_REF, "whole_batch_identical": same, "variants_ms": variants_ms,
-          "blocks_per_sm": lib.ldpc_neural_occupancy(32, qc32.num_base_rows, qc32.num_base_cols,
-                                                     qc32.num_base_edges, T, L,
-                                                     dec.frames_per_block, int(dec.shared)),
+          "ber_reference": NMS_BER_REF, "whole_batch_identical": same,
+          "replaced_identical": same_old,
+          "speedup_over_replaced": median["replaced_fused_neural"] / ms, "median_ms": median,
+          "rounds_ms": rounds, "variants_ms": variants_ms,
+          "plan": {**group_plan, "staged_weights": True,
+                   "smem_bytes_per_block": fn.neural_group_smem_bytes(
+                       qc32, L, group_plan["parts"], group_plan["frames_per_block"], True)},
+          "ptxas": ptxas_of("fused_neural", "neural_group_kernel"),
           "nvidia_smi": smi, "ok": ok})
     if not ok:
-        raise AssertionError(f"nms main path: identical={same}, BER {ber} against "
-                             f"{NMS_BER_REF} +- {NMS_BER_WINDOW:.0%}")
-    return [{"name": "fused_neural", "route": "cuda",
-             "source": "ldpc_tpu_torch/ops/csrc/fused_neural.cu",
-             "replaces": "ldpc_tpu/ops/pallas_neural.py:111", "launches": launches,
-             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-             "bound_by": bby, "library_ms": None}]
+        raise AssertionError(f"nms main path: identical={same}, replaced identical={same_old}, "
+                             f"BER {ber} against {NMS_BER_REF} +- {NMS_BER_WINDOW:.0%}")
+    entry = {"route": "cuda", "source": "ldpc_tpu_torch/ops/csrc/fused_neural.cu",
+             "replaces": "ldpc_tpu/ops/pallas_neural.py:111", "plain_ms": plain_ms,
+             "bound_ms": bms, "bound_by": bby, "library_ms": None}
+    # fused_neural's path: the Z=128 nms_compare cases (the codes neural_group
+    # does not take); its ms is nms_main through the side door.
+    return [{"name": "neural_group", "launches": launches, "max_abs_err": max_err["neural_group"],
+             "ms": ms, **entry},
+            {"name": "fused_neural", "launches": path_launches["fused_neural"],
+             "max_abs_err": max_err["fused_neural"], "ms": median["replaced_fused_neural"],
+             "ms_of": "nms_main through _launch_minsum (side door)", **entry}]
 
 
 # ---------------------------------------------------------------------------
@@ -1872,9 +1991,15 @@ def serve_phase() -> None:
     from ldpc_tpu_torch.ops import fused_gnn as fg, fused_neural as fn
 
     results = Path(__file__).resolve().parent / "results"
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+
+    # The route make_fused_neural_minsum takes for the entry point's decoder
+    # (nr_2_0_4 Z=4, depth 2).
+    nms_route = ("neural_group" if fn.neural_group_fits(qc_layout(get_base_graph("nr_2_0_4"), 4), 2)
+                 else "fused_neural")
     for model, ckpt, counters, kind in (
             ("message_gnn", "message_gnn_nr_2_0_4.msgpack", fg.LAUNCHES, "msg_gnn"),
-            ("neural_minsum", "standard_nr_2_0_4.msgpack", fn.LAUNCHES, "fused_neural")):
+            ("neural_minsum", "standard_nr_2_0_4.msgpack", fn.LAUNCHES, nms_route)):
         for key in counters:
             counters[key] = 0
         out = serve_trained_decoder.main(["--model", model, "--checkpoint",
@@ -1882,7 +2007,8 @@ def serve_phase() -> None:
         torch.cuda.synchronize()
         name, ber_ref, fer_ref = SERVE_REFERENCE[model]
         ok = counters[kind] >= 1 and out["device"] == "cuda"
-        emit({"phase": "serve", "checkpoint": ckpt, "launches": counters[kind], **out,
+        emit({"phase": "serve", "checkpoint": ckpt, "kernel": kind, "launches": dict(counters),
+              **out,
               "reference": {"name": name, "ber": ber_ref, "fer": fer_ref}, "ok": ok})
         if not ok:
             raise AssertionError(f"serve_trained_decoder --model {model} did not run its kernel")
@@ -2074,6 +2200,9 @@ def main(argv=None) -> int:
             shared, fpb = fn.neural_plan(qc, 10, 2)
             occupancy[f"fused_neural Z={Z} T=10 L=2"] = fn.kernel_library().ldpc_neural_occupancy(
                 *dims, 10, 2, fpb, int(shared))
+            parts, frames, per_sm = fn.neural_group_plan(qc, 2, True)
+            occupancy[f"neural_group Z={Z} L=2 parts={parts} frames_per_block={frames} "
+                      f"staged_weights=True"] = per_sm
         else:
             occupancy[f"fused_zlane Z={Z}"] = lib.ldpc_zlane_occupancy(*dims, 0, 0)
             parts, per_sm = fm.retire_zlane_plan(qc, True)

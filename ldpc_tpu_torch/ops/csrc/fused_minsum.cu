@@ -73,6 +73,14 @@
 // llr + column sum and the hard decision (2 float32).  The special-function
 // units do 16 operations an SM and clock against 128 float32 lanes:
 // 4.19e12 per second.  chip_smoke.py (bp_bound_ms) adds the three times.
+// Layered sum-product (fused_minsum_kernel's own path since the retiring
+// kernels took the rest), per lifted edge: the flooding count less the
+// column-sum add, plus the fold of the new c2v into the belief, (belief +
+// new) - old, two adds = 17 float32 and 4 special-function operations,
+// parity xor = 1 int32; per lifted check the syndrome OR (1 int32); per
+// variable the hard decision alone (1 float32), as layered min-sum counts
+// it (chip_smoke.py OPS_PER_EDGE_SUMPRODUCT_LAYERED, bp_bound_ms(...,
+// layered=True)).
 // This source does more per edge than the decode needs (about 20
 // operations): pass 2 recomputes pass 1's sub, abs and sign, it multiplies
 // by alpha and the sign product per edge, and it applies the sentinel per

@@ -1,16 +1,27 @@
 // Fused trained neural / offset min-sum decoder for Hopper (sm_90a): the
 // whole decode of a trained NeuralMinSumDecoder in one kernel launch.
 //
-// Replaces the TPU kernel of ldpc_tpu/ops/pallas_neural.py:
-//   * neural_minsum_kernel<SHARED>  <- kernel  (make_fused_neural_minsum),
-//                                      entry point ldpc_neural_minsum
-// Python wrapper, weight packing (_pack_weights) and the plain PyTorch
-// version: ldpc_tpu_torch/ops/fused_neural.py.  Built with -fmad=false: no
-// a * b + c is contracted into an FMA, so w * llr and the residual taps round
-// as the plain version rounds them, and the decisions are bit-identical.
+// Replaces the TPU kernel of ldpc_tpu/ops/pallas_neural.py:111 (`kernel`
+// of make_fused_neural_minsum, :87) with two kernels:
+//   * neural_group_kernel<POW2, L, STAGED>, entry ldpc_neural_group: codes
+//     with rows of at most 27 members, depth L <= 3 and a frame within a
+//     block (the wrapper's neural_group_fits): serve_trained_decoder
+//     --model neural_minsum and the OMS flagship record (chip_smoke.py
+//     nms_main).  Described below.
+//   * neural_minsum_kernel<SHARED>, entry ldpc_neural_minsum: the rest
+//     (Z = 128 at depth 2, depth 4, ...), and through the wrapper's side
+//     door (FusedNeuralDecoder._launch_minsum) any code, so the two can be
+//     timed side by side.  Described at its section at the end.
+// Python wrapper, weight packing (_pack_weights, check-aligned planes
+// _Tables.wc) and the plain PyTorch version both are held against
+// (neural_decode_plain): ldpc_tpu_torch/ops/fused_neural.py; a CPU model of
+// neural_group's algorithm on the wrapper's tables:
+// tests/test_torch_neural_group.py.  Built with -fmad=false: no a * b + c
+// is contracted into an FMA, so w * llr and the residual taps round as the
+// plain version rounds them, and the decisions are bit-identical.
 //
 // What it computes, per frame (the TPU kernel's order)
-// ------------------------------------------------------
+// ----------------------------------------------------
 // Messages are var-aligned per base edge k: x[k*Z + v] belongs to variable
 // (col[k], v) and to check (row[k], (v - shift[k]) mod Z); lifted check
 // (r, z) reaches, through member k, the lane (z + shift[k]) mod Z.
@@ -34,21 +45,6 @@
 // (per_iteration) or one shared plane: edge, cell, type and scalar sharing
 // are expanded to (K, Z) by the wrapper, as the TPU kernel's packing does.
 //
-// What changed against the TPU kernel
-// -----------------------------------
-// No lane rolls: one thread owns one lifted check (check half) or one
-// variable (variable half: its column sum, then each of its messages), and
-// walks CSR structure arrays in shared memory; a roll by s is the index
-// (z + s) mod Z.  LLRs are read as they come, (B, n) row-major.  The
-// per-iteration channel weights (T * E floats, 252 KB at nr_2_0_32 Z=32
-// T=10) stay in global memory, where L2 holds them for every block; alpha,
-// offset and the taps go to shared memory.  The state of a frame (c2v, q and
-// max(L, 1) - 1 more FIFO slots: (1 + max(L, 1)) * E floats, 75 KB at Z=32
-// L=2, plus its LLRs) stays in shared memory, `fpb` frames a block
-// (SHARED = true).  Where one frame's state does not fit (above Z of about
-// 100 at L=2) it lives in a global scratch slice per block, reused frame
-// after frame, and only the LLRs stay in shared memory (SHARED = false).
-//
 // What bounds it on the card
 // --------------------------
 // Operations the decode needs per frame, whatever this source does (T
@@ -69,26 +65,77 @@
 // Main path (nr_2_0_32 Z=32: E=6304, M=1344, n=1664; T=10, L=2, batch
 // 65536): T (7E + 8M) + (T - 1)(4 + 2L) E + E + 2n = 1.012e6 operations a
 // frame, 6.63e10 in all: 1.98 ms; the bytes take 0.26 ms.  The bound is
-// arithmetic.  This source does more per edge than the decode needs: the
-// second check pass recomputes |x| and sign(x), applies the offset, clamp,
-// sentinel and alpha per edge, and the variable half re-reads every state
-// word from shared memory; index arithmetic and structure reads come on top.
+// arithmetic.
 //
-// What the design does about it: all per-iteration state of a frame stays on
-// chip, so device memory sees each LLR read once and each bit written once;
-// the lanes of one base row (check half) or one base column (variable half)
-// are consecutive threads, so at Z=32 a warp runs one row or one column
-// without divergence and its shared-memory accesses are conflict-free.
-// What it does not yet do: balance the warps (a warp owns whole rows or
-// columns, whose degrees run from 1 to 23 on NR BG2), or keep fewer state
-// words than c2v, q and the FIFO (depth 2 takes 1.84x the time of depth 0).
+// neural_group_kernel: what its design does about it
+// --------------------------------------------------
+// It takes fused_retire.cu's skeleton (retire.cuh: frame groups, named
+// barriers, the structure tables and the 12-byte check state) without its
+// retirement: a trained decoder returns the decisions after exactly T check
+// halves (its weights change per iteration, so a frame whose checks hold at
+// t < T may still change its bits), so no frame leaves early and no parity
+// pass runs.
+// 1. Balanced frame groups.  A frame is decoded by `parts` * ceil(Z / 32)
+//    warps (up to 16), thread = lane z, so a roll by s is an index, (z + s)
+//    & (Z - 1) under POW2, else a conditional subtract; nothing divides in
+//    the passes.  Parts are contiguous ranges of rows and of columns cut to
+//    equal work (fused_minsum.py _balanced_bounds), and a group meets only
+//    at its own named barrier, twice an iteration.  At Z <= 16 a group
+//    decodes 32 / Z frames side by side (lane = frame * Z + z): frames that
+//    never leave early can share a warp's passes, where one frame would
+//    leave 32 - Z lanes idle (chip_smoke.py's serve phase, nr_2_0_4 Z=4,
+//    batch 4096 with codewords and channel: 1.200 ms with one frame a
+//    group, 0.564 ms with 8; nms_serve_shape times the kernel alone).
+// 2. Compressed check state: A = (alpha * max(m1' - offset, 0), alpha *
+//    max(m2' - offset, 0)), m' being m with the 1e9 sentinel replaced by 0,
+//    in the plain version's order (sentinel, subtract, clamp, multiply), and
+//    the word W: output signs and argmin.  Exact: ((alpha * sp) * sign) *
+//    loo is +-(alpha * loo), since products of +-1 do not round, and at a
+//    tie every tied member's loo is the same; a negative alpha or offset
+//    changes none of that, and a zero c2v keeps the plain version's sign.
+// 3. v2c rebuilt in the check pass; no q or c2v array.  The column pass
+//    writes one float a variable, cs, its c2v summed from +0.0 in
+//    col_members order (the last column pass writes the bits, llr + cs <
+//    0).  Check pass t + 1 rebuilds each member's message from cs, its old
+//    c2v (from the check's own state, in registers until the new state is
+//    written), w_t * llr and the taps (check_row below), and folds it.  T
+//    check passes and T column passes, where neural_minsum_kernel runs T
+//    check halves, T - 1 variable halves and an output pass.
+// 4. A check-aligned FIFO of L floats a lifted edge: the edge at row-order
+//    position i and check lane z is at i*Z + z, so a warp's accesses are 32
+//    consecutive words and only the thread of check (r, z) touches them; a
+//    ring indexed by t mod L replaces the slot-by-slot shift.  At L = 0 a
+//    frame keeps no per-edge state at all.
+// 5. Channel weights, check-aligned too (the wrapper repacks them, planes
+//    padded to 16 bytes).  STAGED: each iteration's plane (K*Z floats,
+//    25,216 B at Z=32) is copied into shared memory with cp.async, double-
+//    buffered, during the iteration before the one that reads it; since no
+//    frame retires, the groups of a block meet at a block barrier once an
+//    iteration.  Else each weight is read from L2 (14.9 GB of reads for the
+//    main batch).  The wrapper stages wherever a plan with the planes fits
+//    (at depth 2 up to Z = 32).
+// Shared memory: the structure (6K + R + C + 2 ints and two part tables,
+// 5,232 B at NR BG2 and 14 parts) and, staged, two weight planes once a
+// block; per frame 4 (2 C*Z + 3 R*Z + L K*Z) bytes: LLRs, cs, check state,
+// FIFO: 79,872 at NR BG2 Z=32, L=2 (29,440 at L=0).  The wrapper takes, of
+// the plans of at most 14 warps a group (the parts sweep: 14 parts ran
+// 2-5% faster than 16 at nms_main), the one with the most resident
+// frames by the runtime's occupancy query, then the most parts: main path,
+// 2 frames of 14 parts (28 warps) in one block per SM with the staged
+// planes; 54-64 registers a thread, no spills.
+// Measured (chip_smoke.py nms_main, NVIDIA H100 80GB HBM3, 700.00 W):
+// 13.29 ms per batch of 65536, where neural_minsum_kernel took 38.58 ms in
+// the same call (2.90x), 15% of the bound; the weights read from L2 14.28
+// ms; depth 0 10.95 ms (depth 2 is 1.21x it).
 
 #include <cuda_runtime.h>
+
+#include "retire.cuh"
 
 namespace {
 
 constexpr float kBig = 1e9f;  // stand-in for +inf, as _BIG in the JAX package
-constexpr int kMaxFramesPerBlock = 32;
+constexpr int kMaxFramesPerBlock = 32;  // neural_minsum_kernel
 // At one frame a block (Z=32) two blocks fit an SM; 512 threads a block
 // hide more shared-memory latency than 256 (PERF.md section 6, B3's times).
 constexpr int kThreads = 512;
@@ -233,6 +280,26 @@ __device__ __forceinline__ void decode_tile(const Graph& g, const Args& a, const
   __syncthreads();
 }
 
+// ---------------------------------------------------------------------------
+// neural_minsum_kernel (the first port of B3)
+// ---------------------------------------------------------------------------
+//
+// One thread owns one lifted check (check half) or one variable (variable
+// half: its column sum, then each of its messages), and walks CSR structure
+// arrays in shared memory; a roll by s is the index (z + s) mod Z.  LLRs are
+// read as they come, (B, n) row-major.  The per-iteration channel weights
+// stay in global memory, where L2 holds them for every block; alpha, offset
+// and the taps go to shared memory.  The state of a frame (c2v, q and
+// max(L, 1) - 1 more FIFO slots: (1 + max(L, 1)) * E floats, 75 KB at Z=32
+// L=2, plus its LLRs) stays in shared memory, `fpb` frames a block (SHARED
+// = true).  Where one frame's state does not fit (above Z of about 100 at
+// L=2) it lives in a global scratch slice per block, reused frame after
+// frame, and only the LLRs stay in shared memory (SHARED = false).  Its
+// warps are uneven (a warp owns whole rows or columns, whose degrees run
+// from 1 to 23 on NR BG2), every half ends at a block barrier, and it keeps
+// c2v, q and the FIFO as full floats: at nms_main depth 2 takes 1.33x the
+// time of depth 0 (chip_smoke.py variants_ms, no_taps_replaced).
+//
 // B3, pallas_neural.kernel.  SHARED: `fpb` frames a block, all state in
 // shared memory.  Otherwise: frames f = blockIdx.x, + gridDim.x, ..., one at
 // a time, state in the block's global scratch slice.
@@ -287,6 +354,303 @@ template <bool SHARED>
 cudaError_t prepare(long long smem) {
   return cudaFuncSetAttribute(neural_minsum_kernel<SHARED>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+}
+
+
+// ---------------------------------------------------------------------------
+// neural_group_kernel: a frame on a group of warps, compressed check state,
+// v2c rebuilt in the check pass, a check-aligned FIFO ring
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxDepth = 3;        // FIFO slots a lifted edge keeps at most
+constexpr int kMaxFrameWarps = 16;  // warps a frame group may have
+
+// Words of one iteration's channel weights (K*Z floats), rounded up to 16
+// bytes: the wrapper pads each plane so that it can be copied in 16-byte
+// pieces.
+__host__ __device__ inline int plane_words(int Z, int K) { return (K * Z + 3) / 4 * 4; }
+
+// A frame: its LLRs and column sums (C*Z floats each), its check state (A:
+// R*Z float2, W: R*Z words) and its FIFO (L planes of K*Z floats), rounded
+// up to 16 bytes.
+__host__ __device__ inline int group_frame_words(int Z, int R, int C, int K, int L) {
+  return (2 * C * Z + 3 * R * Z + L * K * Z + 3) / 4 * 4;
+}
+
+// Frames a frame group decodes side by side: 32 / Z where Z <= 16 (lane =
+// frame * Z + z), else one.
+__host__ __device__ inline int frames_per_group(int Z) { return Z <= 16 ? 32 / Z : 1; }
+
+long long group_smem(int Z, int R, int C, int K, int L, int parts, int groups, int staged) {
+  return 4LL * (structure_words(R, C, K, parts) + (staged ? 2LL * plane_words(Z, K) : 0LL) +
+                static_cast<long long>(groups) * frames_per_group(Z) *
+                    group_frame_words(Z, R, C, K, L));
+}
+
+// Copies `words` floats (a multiple of 4, 16-byte aligned) from global to
+// shared memory with cp.async, all threads of the block, as one group.
+__device__ __forceinline__ void stage_plane(float* dst, const float* src, int words) {
+  for (int i = 4 * threadIdx.x; i < words; i += 4 * blockDim.x) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src + i) : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void staged_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// What check pass p > 0 needs to rebuild its members' v2c: the variable half
+// of iteration t = p - 1 as neural_decode_plain runs it.
+struct Rebuild {
+  const float* w;        // iteration t's channel weights, check-aligned (i*Z + z)
+  float tap[kMaxDepth];  // w_res[t, l]
+  int read[kMaxDepth];   // FIFO offset (slot * K*Z) of q_{t-l}, slot (t - l) mod L
+  int write;             // FIFO offset of q_{t+1}, slot (t + 1) mod L
+  int taps;              // taps whose message is stored: min(L, t)
+  float live;            // 0 at t = 0, else 1
+};
+
+// Check pass of lifted check (r, z).  FIRST (pass 0): member j's v2c is its
+// LLR + 0.0 (-0.0 folds as +0.0, whose sign the plain version takes as +1).
+// Otherwise it is rebuilt from its variable's column sum, its old c2v (the
+// check's state, read once into registers), its weight times its LLR and
+// the taps on its FIFO,
+//   q = ((cs - c2v) + w * llr) + live * (sum over l < taps of tap_l * q_{t-l}),
+// and stored in the FIFO before it is folded (its own slot, which only this
+// thread reads: the member's edge is check-aligned).  q is never -0.0 (cs
+// starts from +0.0, so neither cs - c2v nor the sums after it are), so its
+// sign bit is its "< 0".  Taps whose slot the plain version holds at zero
+// (t - l < 1) are left out: they add +-0.0 to a sum that is never -0.0.  The
+// members are folded last first from a switch that falls through, as in
+// fused_retire.cu; then the check's new state: A = alpha * max(m' - offset,
+// 0) for m1 and m2 (m' the sentinel replaced by 0), W = output signs and
+// argmin.  Exact: ((alpha * sp) * sign) * loo is +-(alpha * loo), since
+// products of +-1 do not round, and at a tie every tied member's loo is the
+// same; a negative alpha or offset changes none of that.
+template <bool FIRST, bool POW2, int L>
+__device__ __forceinline__ void check_row(const Structure& s, const float* llr, const float* cs,
+                                          float2* A, unsigned* W, float* fifo, const Rebuild& rb,
+                                          float alpha, float offset, int r, int z, int Z) {
+  const int q = r * Z + z;
+  const int j0 = s.row_ptr[r], d = s.row_ptr[r + 1] - j0;
+  const int2* mem = s.row_mem + j0;
+  const int e0 = j0 * Z + z;  // member j's edge, check-aligned: e0 + j * Z
+  const float2 a = FIRST ? make_float2(0.0f, 0.0f) : A[q];
+  const unsigned w_old = FIRST ? 0u : W[q];
+  float m1 = kBig, m2 = kBig;
+  unsigned arg = kNoMember, neg = 0u;
+  auto member = [&](int j) {
+    const int2 m = mem[j];
+    const int v = rolled<POW2>(z, m.y, m.x, Z);
+    float x;
+    if (FIRST) {
+      x = llr[v] + 0.0f;
+    } else {
+      const int e = e0 + j * Z;
+      x = (cs[v] - c2v_of(a, w_old, j)) + rb.w[e] * llr[v];
+      if (L > 0) {
+        float res = 0.0f;
+#pragma unroll
+        for (int l = 0; l < L; ++l)
+          if (l < rb.taps) res = res + rb.tap[l] * fifo[rb.read[l] + e];
+        x = x + rb.live * res;
+        fifo[rb.write + e] = x;
+      }
+    }
+    fold(x, j, m1, m2, arg, neg);
+  };
+  switch (d) {
+#define NEURAL_MEMBER(J) \
+  case (J) + 1:          \
+    member(J);           \
+    [[fallthrough]];
+    NEURAL_MEMBER(26) NEURAL_MEMBER(25) NEURAL_MEMBER(24) NEURAL_MEMBER(23) NEURAL_MEMBER(22)
+    NEURAL_MEMBER(21) NEURAL_MEMBER(20) NEURAL_MEMBER(19) NEURAL_MEMBER(18) NEURAL_MEMBER(17)
+    NEURAL_MEMBER(16) NEURAL_MEMBER(15) NEURAL_MEMBER(14) NEURAL_MEMBER(13) NEURAL_MEMBER(12)
+    NEURAL_MEMBER(11) NEURAL_MEMBER(10) NEURAL_MEMBER(9) NEURAL_MEMBER(8) NEURAL_MEMBER(7)
+    NEURAL_MEMBER(6) NEURAL_MEMBER(5) NEURAL_MEMBER(4) NEURAL_MEMBER(3) NEURAL_MEMBER(2)
+    NEURAL_MEMBER(1) NEURAL_MEMBER(0)
+#undef NEURAL_MEMBER
+    default:
+      break;
+  }
+  const unsigned sp = (__popc(neg) & 1) ? (1u << d) - 1u : 0u;
+  const float m1z = m1 < kBig ? m1 : 0.0f, m2z = m2 < kBig ? m2 : 0.0f;
+  A[q] = make_float2(alpha * fmaxf(m1z - offset, 0.0f), alpha * fmaxf(m2z - offset, 0.0f));
+  W[q] = (neg ^ sp) | (arg << kSignBits);
+}
+
+// Variable (c, z)'s c2v, expanded from the check states and summed from +0.0
+// in col_members order.
+template <bool POW2>
+__device__ __forceinline__ float state_column_sum(const Structure& s, const float2* A,
+                                                  const unsigned* W, int c, int z, int Z) {
+  float cs = 0.0f;
+  const int i1 = s.col_ptr[c + 1];
+#pragma unroll 4
+  for (int i = s.col_ptr[c]; i < i1; ++i) {
+    const int4 m = s.col_mem[i];
+    const int q = rolled<POW2>(z, Z - m.y, m.x, Z);  // (z - shift) mod Z in row r
+    const float2 a = A[q];
+    const unsigned w = W[q];
+    const float v = ((w ^ static_cast<unsigned>(m.z)) & 0xf8000000u) == 0u ? a.y : a.x;
+    cs = cs + flip_if(v, w << m.w);
+  }
+  return cs;
+}
+
+// B3 on frame groups.  A block holds `groups` groups of `parts` * ceil(Z /
+// 32) warps, and a group decodes F = frames_per_group(Z) frames side by
+// side (at Z <= 16 lane = f * Z + z: no frame leaves early, so frames can
+// share a warp's passes).  Block b's groups take frames (b * groups + g) * F
+// + f, then + gridDim.x * groups * F, ... (a group past the batch leaves,
+// or, where a block barrier waits for it, decodes the batch's last frame
+// again and writes nothing; so does a lane past the batch).  A frame runs T
+// check passes, each followed by a column pass,
+// with its group's named barrier between them; the last column pass writes
+// the bits (llr + cs < 0).  STAGED: the channel weights are read from shared
+// memory, copied there with cp.async: a shared plane once a block, per-
+// iteration planes double-buffered, iteration t's plane (read by check pass
+// t + 1) copied during iteration t, with one block barrier an iteration in
+// place of the group's second.  Else each weight is read from global memory
+// (L2), 32 consecutive floats a warp.
+template <bool POW2, int L, bool STAGED>
+__global__ void __launch_bounds__(kMaxThreads)
+neural_group_kernel(const float* __restrict__ llr, float* __restrict__ bits,
+                    const int* __restrict__ structure, const float* __restrict__ w,
+                    const float* __restrict__ params, int B, int Z, int R, int C, int K, int T,
+                    int per_iteration, int parts, int groups) {
+  extern __shared__ __align__(16) float smem[];  // as neural_minsum_kernel declares it
+  int* s_struct = reinterpret_cast<int*>(smem);
+  const int pw = plane_words(Z, K);
+  float* s_w = reinterpret_cast<float*>(s_struct + structure_words(R, C, K, parts));
+  const bool restage = STAGED && per_iteration;
+  if (STAGED && !per_iteration) {
+    stage_plane(s_w, w, pw);
+    staged_wait();  // load_structure's barrier makes the plane visible
+  }
+  const Structure s = load_structure(s_struct, structure, R, C, K, parts);
+  const Lanes ln = lanes_of(s, Z, parts);
+  const Group& grp = ln.grp;
+  const int n = C * Z, KZ = K * Z, S = L > 1 ? L : 1;
+  // The thread's frame within its group (fl) and lane (z); once, at start.
+  const int F = frames_per_group(Z), fw = group_frame_words(Z, R, C, K, L);
+  const int lane = threadIdx.x & 31;
+  const int fl = F > 1 ? min(lane / Z, F - 1) : 0;
+  const int z = F > 1 ? lane - fl * Z : ln.z;
+  const bool active = F > 1 ? lane < F * Z : ln.active;
+  float* group_frames = s_w + (STAGED ? 2 * pw : 0) + ln.g * F * fw;
+  float* frame = group_frames + fl * fw;
+  float* s_llr = frame;
+  float* s_cs = frame + n;
+  float2* A = reinterpret_cast<float2*>(frame + 2 * n);  // 8-byte aligned: 2n is even
+  unsigned* W = reinterpret_cast<unsigned*>(A + R * Z);
+  float* fifo = reinterpret_cast<float*>(W + R * Z);
+  const float* alpha = params;
+  const float* offset = params + T;
+  const float* w_res = params + 2 * T;  // (T, max(L, 1))
+
+  for (int base = blockIdx.x * groups * F; base < B; base += gridDim.x * groups * F) {
+    const int first = base + ln.g * F;
+    if (first >= B && !restage) break;  // no block barrier waits for this group
+    for (int k = 0; k < F; ++k) {
+      const float* src = llr + static_cast<size_t>(min(first + k, B - 1)) * n;
+      for (int i = ln.gi; i < n; i += grp.threads) group_frames[k * fw + i] = src[i];
+    }
+    const bool owner = first + fl < B;
+    const int f = owner ? first + fl : B - 1;
+    if (restage && T > 1) stage_plane(s_w, w, pw);  // iteration 0's, for check pass 1
+    grp.sync();
+
+    for (int p = 0; p < T; ++p) {
+      if (active) {
+        if (p == 0) {
+          const Rebuild none{};
+          for (int r = ln.r0; r < ln.r1; ++r)
+            check_row<true, POW2, L>(s, s_llr, s_cs, A, W, fifo, none, __ldg(alpha),
+                                     __ldg(offset), r, z, Z);
+        } else {
+          const int t = p - 1;
+          Rebuild rb;
+          rb.w = STAGED ? s_w + (restage ? (t & 1) * pw : 0)
+                        : w + (per_iteration ? static_cast<size_t>(t) * pw : 0);
+          rb.live = t > 0 ? 1.0f : 0.0f;
+          rb.taps = min(L, t);
+          rb.write = L > 0 ? (p % S) * KZ : 0;
+#pragma unroll
+          for (int l = 0; l < kMaxDepth; ++l) {
+            rb.tap[l] = l < L ? __ldg(w_res + t * S + l) : 0.0f;
+            rb.read[l] = l < L ? ((t - l + S) % S) * KZ : 0;
+          }
+          for (int r = ln.r0; r < ln.r1; ++r)
+            check_row<false, POW2, L>(s, s_llr, s_cs, A, W, fifo, rb, __ldg(alpha + p),
+                                      __ldg(offset + p), r, z, Z);
+        }
+      }
+      grp.sync();
+      const bool last = p + 1 == T;
+      if (active) {
+        float* out = bits + static_cast<size_t>(f) * n;
+        for (int c = ln.c0; c < ln.c1; ++c) {
+          const int v = c * Z + z;
+          const float cs = state_column_sum<POW2>(s, A, W, c, z, Z);
+          if (!last)
+            s_cs[v] = cs;
+          else if (owner)
+            out[v] = s_llr[v] + cs < 0.0f ? 1.0f : 0.0f;
+        }
+      }
+      if (restage) {
+        // Every group is past check pass p, which read the other buffer.
+        staged_wait();
+        __syncthreads();
+        if (p + 1 < T - 1)
+          stage_plane(s_w + ((p + 1) & 1) * pw, w + static_cast<size_t>(p + 1) * pw, pw);
+      } else {
+        grp.sync();  // the next pass (or frame) overwrites what this one read
+      }
+    }
+  }
+}
+
+using GroupKernel = decltype(&neural_group_kernel<true, 0, false>);
+
+template <bool POW2, bool STAGED>
+GroupKernel group_kernel_of_depth(int L) {
+  switch (L) {
+    case 0:
+      return &neural_group_kernel<POW2, 0, STAGED>;
+    case 1:
+      return &neural_group_kernel<POW2, 1, STAGED>;
+    case 2:
+      return &neural_group_kernel<POW2, 2, STAGED>;
+    default:
+      return &neural_group_kernel<POW2, 3, STAGED>;
+  }
+}
+
+GroupKernel pick_group_kernel(int Z, int L, int staged) {
+  const bool pow2 = (Z & (Z - 1)) == 0;
+  if (pow2)
+    return staged ? group_kernel_of_depth<true, true>(L) : group_kernel_of_depth<true, false>(L);
+  return staged ? group_kernel_of_depth<false, true>(L) : group_kernel_of_depth<false, false>(L);
+}
+
+int group_threads(int Z, int parts, int groups) { return 32 * ((Z + 31) / 32) * parts * groups; }
+
+bool valid_group_plan(int Z, int L, int parts, int groups) {
+  return L >= 0 && L <= kMaxDepth && parts >= 1 && groups >= 1 && groups <= kMaxGroups &&
+         (Z + 31) / 32 * parts <= kMaxFrameWarps && group_threads(Z, parts, groups) <= kMaxThreads;
+}
+
+// Sets the kernel's dynamic shared memory; with `blocks`, also asks the
+// runtime how many blocks of `threads` can be resident on one SM.
+cudaError_t prepare_group(GroupKernel kernel, long long smem, int threads, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess && blocks != nullptr)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
+  return err;
 }
 
 }  // namespace
@@ -349,6 +713,46 @@ int ldpc_neural_minsum(const void* llr, void* bits, const void* graph, const voi
   else
     neural_minsum_kernel<false><<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+// The entry point of neural_group_kernel: `grid` blocks of `groups` frame
+// groups (each of frames_per_group(Z) frames) of `parts` parts (the
+// structure's part tables, fused_minsum.py _retire_structure), weights
+// check-aligned per plane (plane_words apart), STAGED where `staged`.
+// Launches on `stream`, no sync; returns a cudaError_t (0 on success).
+int ldpc_neural_group(const void* llr, void* bits, const void* structure, const void* w,
+                      const void* params, int B, int Z, int R, int C, int K, int T, int L,
+                      int per_iteration, int parts, int groups, int staged, int grid,
+                      void* stream) {
+  if (B < 1 || T < 1 || grid < 1 || !valid_group_plan(Z, L, parts, groups))
+    return cudaErrorInvalidValue;
+  const long long smem = group_smem(Z, R, C, K, L, parts, groups, staged);
+  const GroupKernel kernel = pick_group_kernel(Z, L, staged);
+  const int threads = group_threads(Z, parts, groups);
+  cudaError_t err = prepare_group(kernel, smem, threads, nullptr);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(llr), static_cast<float*>(bits), static_cast<const int*>(structure),
+      static_cast<const float*>(w), static_cast<const float*>(params), B, Z, R, C, K, T,
+      per_iteration, parts, groups);
+  return cudaGetLastError();
+}
+
+long long ldpc_neural_group_smem_bytes(int Z, int R, int C, int K, int L, int parts, int groups,
+                                       int staged) {
+  return group_smem(Z, R, C, K, L, parts, groups, staged);
+}
+
+// Resident blocks per SM of a neural_group launch with these arguments, or
+// -cudaError_t.
+int ldpc_neural_group_occupancy(int Z, int R, int C, int K, int L, int parts, int groups,
+                                int staged) {
+  if (!valid_group_plan(Z, L, parts, groups)) return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err =
+      prepare_group(pick_group_kernel(Z, L, staged), group_smem(Z, R, C, K, L, parts, groups, staged),
+                    group_threads(Z, parts, groups), &blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 const char* ldpc_neural_cuda_error_string(int err) {

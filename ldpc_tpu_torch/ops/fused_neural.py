@@ -1,21 +1,25 @@
 """Fused inference decoder for trained neural min-sum decoders: the whole
 decode in one CUDA kernel (counterpart of ``ldpc_tpu.ops.pallas_neural``).
 
-One hand-written kernel lives in ``csrc/fused_neural.cu``: ``fused_neural``
-(replaces ``pallas_neural.kernel``), the min-sum loop of
+Two hand-written kernels in ``csrc/fused_neural.cu`` replace
+``pallas_neural.kernel``: the min-sum loop of
 :mod:`ldpc_tpu_torch.ops.fused_minsum` with a trained model's per-iteration
 alpha and offset, per-edge channel weights and residual taps on a FIFO of
-past messages applied.  It serves a :class:`ldpc_tpu_torch.models.
-neural_min_sum.NeuralMinSumDecoder` with ``output_mode="sum_plus_input"``:
-input (B, n) float32 LLRs, output (B, n) float32 hard bits of
-``llr + colsum(c2v)`` after ``num_iterations`` check halves.
+past messages applied.  ``neural_group`` (a frame on a group of warps,
+compressed check state, v2c rebuilt in the check pass) takes every code
+with rows of at most 27 members at depth 0 to 3 whose frame fits a block
+(:func:`neural_group_fits`); ``fused_neural`` takes the rest.  They serve a
+:class:`ldpc_tpu_torch.models.neural_min_sum.NeuralMinSumDecoder` with
+``output_mode="sum_plus_input"``: input (B, n) float32 LLRs, output (B, n)
+float32 hard bits of ``llr + colsum(c2v)`` after ``num_iterations`` check
+halves.
 
 :func:`make_fused_neural_minsum` returns a :class:`FusedNeuralDecoder`.
-Called on a CUDA tensor it launches the kernel (and raises if the launch
-fails); called on a CPU tensor it runs the kernel's plain PyTorch version,
-which repeats the kernel's float operations in the same order, so the two
-give identical bits.  ``plain(llr)`` runs the plain version on any device.
-``LAUNCHES`` counts kernel launches.
+Called on a CUDA tensor it launches its route's kernel (and raises if the
+launch fails); called on a CPU tensor it runs the plain PyTorch version,
+which repeats the kernels' float operations in the same order, so all
+three give identical bits.  ``plain(llr)`` runs the plain version on any
+device.  ``LAUNCHES`` counts kernel launches by kernel.
 """
 from __future__ import annotations
 
@@ -27,14 +31,22 @@ import torch
 
 from ldpc_tpu_torch._device import resolve_device
 from ldpc_tpu_torch.codes.edge_layout import QCLayout
-from ldpc_tpu_torch.ops.fused_minsum import (_MAX_FRAMES_PER_BLOCK, _SMEM_BUDGET, _check_llr,
-                                             _graph_array, _graph_words, _PlainIndex,
-                                             _resident_grid, _sgn, _structure)
+from ldpc_tpu_torch.ops.fused_minsum import (_MAX_FRAMES_PER_BLOCK, _RETIRE_MAX_DEGREE,
+                                             _RETIRE_MAX_GROUPS, _RETIRE_MAX_THREADS,
+                                             _SMEM_BUDGET, _check_llr, _graph_array,
+                                             _graph_words, _PlainIndex, _resident_grid,
+                                             _retire_structure, _retire_structure_words,
+                                             _sgn, _structure, retire_threads)
 from ldpc_tpu_torch.ops.qc_msg import _BIG
 
-LAUNCHES: dict[str, int] = {"fused_neural": 0}
+LAUNCHES: dict[str, int] = {"fused_neural": 0, "neural_group": 0}
 
 _THREADS = 512  # kThreads in csrc/fused_neural.cu
+_GROUP_MAX_DEPTH = 3  # kMaxDepth: FIFO slots a lifted edge keeps
+_GROUP_MAX_FRAME_WARPS = 16  # kMaxFrameWarps: warps a frame group may have
+# Warps a group of the default plan has at most: at nms_main (NR BG2 Z=32,
+# depth 2) 14 parts run 2-5% faster than 16 (PERF.md, chip_smoke.py's parts sweep).
+_GROUP_PLAN_WARPS = 14
 
 
 def _np_tree(params) -> Mapping:
@@ -142,6 +154,77 @@ def neural_plan(qc: QCLayout, num_iterations: int, depth_L: int) -> tuple[bool, 
     return False, 1
 
 
+def _plane_words(qc: QCLayout) -> int:
+    """Words of one iteration's check-aligned channel weights (K*Z floats),
+    rounded up to 16 bytes (plane_words in csrc/fused_neural.cu)."""
+    return -(-qc.num_base_edges * qc.Z // 4) * 4
+
+
+def neural_group_frame_bytes(qc: QCLayout, depth_L: int) -> int:
+    """Shared memory of one ``neural_group`` frame: its LLRs and column sums
+    (C*Z float32 each), its compressed check state (3 words per lifted
+    check) and its FIFO (``depth_L`` floats per lifted edge), rounded up to
+    16 bytes."""
+    Z, R, C, K = qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges
+    return 4 * -(-(2 * C * Z + 3 * R * Z + depth_L * K * Z) // 4) * 4
+
+
+def frames_per_group(qc: QCLayout) -> int:
+    """Frames a ``neural_group`` frame group decodes side by side: 32 / Z
+    where Z <= 16 (a warp's lanes hold several frames), else one."""
+    return 32 // qc.Z if qc.Z <= 16 else 1
+
+
+def neural_group_smem_bytes(qc: QCLayout, depth_L: int, parts: int = 1, groups: int = 1,
+                            staged: bool = False) -> int:
+    """Dynamic shared memory of one ``neural_group`` block: the structure of
+    ``parts`` parts, two weight planes if ``staged``, and ``groups`` frame
+    groups of :func:`frames_per_group` frames."""
+    return (4 * _retire_structure_words(qc, parts) + (8 * _plane_words(qc) if staged else 0)
+            + groups * frames_per_group(qc) * neural_group_frame_bytes(qc, depth_L))
+
+
+def neural_group_plans(qc: QCLayout, depth_L: int, staged: bool = False) -> list[tuple[int, int]]:
+    """The (parts, frame groups per block) a ``neural_group`` launch may
+    take: at most 16 warps a group, 15 groups and 1024 threads a block,
+    parts no more than the base rows or columns, within shared memory."""
+    zw = -(-qc.Z // 32)
+    most = min(_GROUP_MAX_FRAME_WARPS // zw, qc.num_base_rows, qc.num_base_cols)
+    return [(p, f) for p in range(1, most + 1) for f in range(1, _RETIRE_MAX_GROUPS + 1)
+            if retire_threads(qc, p, f) <= _RETIRE_MAX_THREADS
+            and neural_group_smem_bytes(qc, depth_L, p, f, staged) <= _SMEM_BUDGET]
+
+
+def neural_group_fits(qc: QCLayout, depth_L: int) -> bool:
+    """Whether ``neural_group`` takes the code: rows of at most 27 members
+    (the signs a state word holds), depth 0 to 3 and a frame within a
+    block."""
+    return (qc.dr_max <= _RETIRE_MAX_DEGREE and 0 <= depth_L <= _GROUP_MAX_DEPTH
+            and bool(neural_group_plans(qc, depth_L)))
+
+
+def neural_group_plan(qc: QCLayout, depth_L: int, staged: bool, parts: int | None = None,
+                      lib=None) -> tuple[int, int, int]:
+    """(parts, frame groups per block, resident blocks per SM) of
+    ``neural_group``: of :func:`neural_group_plans` (those with ``parts``
+    if given, else those of at most 14 warps a group, the fastest in the
+    parts sweep of ``chip_smoke.py`` nms_main), the most resident groups per
+    SM by the runtime's occupancy query, then the most parts, then the
+    fewest groups per block."""
+    lib = lib or kernel_library()
+    dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges, depth_L)
+    zw = -(-qc.Z // 32)
+    best, key = (0, 0, 0), (0, 0, 0)
+    for p, f in neural_group_plans(qc, depth_L, staged):
+        allowed = p == parts if parts is not None else p * zw <= _GROUP_PLAN_WARPS
+        if not allowed:
+            continue
+        per_sm = lib.ldpc_neural_group_occupancy(*dims, p, f, int(staged))
+        if (per_sm * f, p, -f) > key:
+            best, key = (p, f, per_sm), (per_sm * f, p, -f)
+    return best
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch version of the kernel
 # ---------------------------------------------------------------------------
@@ -159,6 +242,16 @@ class _Tables:
         Zp = ((Z + 7) // 8) * 8
         w = w_cols.reshape(-1, Zp, K)[:, :Z, :].transpose(0, 2, 1)  # (T_eff, K, Z)
         self.w = torch.from_numpy(np.ascontiguousarray(w).reshape(w.shape[0], K * Z)).to(device)
+        # neural_group's weights, check-aligned: the edge at row-order
+        # position i (member j of row r) and check lane z is i*Z + z, the
+        # var-aligned k*Z + (z + shift[k]) mod Z; each plane padded to 16 bytes.
+        st = _structure(qc)
+        z = np.arange(Z)
+        perm = np.concatenate([k * Z + (z + st.shifts[k]) % Z
+                               for members in st.row_members for k in members])
+        wc = np.zeros((w.shape[0], _plane_words(qc)), np.float32)
+        wc[:, :K * Z] = w.reshape(w.shape[0], K * Z)[:, perm]
+        self.wc = torch.from_numpy(wc).to(device)
         self.params = torch.from_numpy(
             np.concatenate([alpha, offset, w_res.reshape(-1)]).astype(np.float32)).to(device)
         self.alpha = [float(a) for a in alpha]
@@ -201,11 +294,13 @@ def _column_sums(c2v: torch.Tensor, ix: _PlainIndex) -> torch.Tensor:
 
 
 def neural_decode_plain(llr: torch.Tensor, ix: _PlainIndex, edge_var: torch.Tensor,
-                        tables: _Tables, T: int, depth_L: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (B, n) -> (B, n) hard bits.
+                        tables: _Tables, T: int, depth_L: int,
+                        record: list | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernels: (B, n) -> (B, n) hard bits.
 
     ``edge_var`` (K*Z,) is each lifted edge's variable.  Slot 0 of the FIFO
-    is q, as in the kernel."""
+    is q, as in the TPU kernel.  ``record``, if given, receives a copy of
+    c2v (B, K*Z, var-aligned) after every check half."""
     B, E = llr.shape[0], edge_var.shape[0]
     llr_e = llr[:, edge_var]
     c2v = torch.zeros((B, E), dtype=torch.float32, device=llr.device)
@@ -213,6 +308,8 @@ def neural_decode_plain(llr: torch.Tensor, ix: _PlainIndex, edge_var: torch.Tens
     w = tables.w.to(llr.device)
     for t in range(T):
         _check_half(slots[0], c2v, ix, tables.alpha[t], tables.offset[t])
+        if record is not None:
+            record.append(c2v.clone())
         if t + 1 == T:
             break  # the last variable half feeds nothing
         live = 1.0 if t > 0 else 0.0
@@ -233,6 +330,13 @@ def neural_decode_plain(llr: torch.Tensor, ix: _PlainIndex, edge_var: torch.Tens
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
+    # llr, bits, structure, w, params, B, Z, R, C, K, T, L, per_iteration,
+    # parts, groups, staged, grid, stream
+    "ldpc_neural_group": ([_P] * 5 + [_I] * 12 + [_P], _I),
+    # Z, R, C, K, L, parts, groups, staged
+    "ldpc_neural_group_smem_bytes": ([_I] * 8, ctypes.c_longlong),
+    # Z, R, C, K, L, parts, groups, staged -> blocks per SM
+    "ldpc_neural_group_occupancy": ([_I] * 8, _I),
     # llr, bits, graph, w, params, scratch, B, Z, R, C, K, T, L, per_iteration,
     # fpb, shared, grid, stream
     "ldpc_neural_minsum": ([_P] * 6 + [_I] * 11 + [_P], _I),
@@ -254,8 +358,10 @@ def kernel_library():
 class FusedNeuralDecoder:
     """``decode(llr) -> bits``: (B, n) float32 LLRs to (B, n) float32 hard bits.
 
-    Launches the kernel for CUDA tensors and runs the plain version for CPU
-    tensors; ``plain(llr)`` runs the plain version on any device.
+    Launches the ``route`` kernel for CUDA tensors and runs the plain
+    version for CPU tensors; ``plain(llr)`` runs the plain version on any
+    device.  ``route`` is ``neural_group`` where :func:`neural_group_fits`
+    takes the code and depth, else ``fused_neural``.
     """
 
     def __init__(self, qc: QCLayout, params, num_iterations: int, depth_L: int,
@@ -266,6 +372,7 @@ class FusedNeuralDecoder:
         self.num_iterations = int(num_iterations)
         self.depth_L = int(depth_L)
         self.per_iteration = bool(per_iteration)
+        self.route = "neural_group" if neural_group_fits(qc, self.depth_L) else "fused_neural"
         self.shared, self.frames_per_block = neural_plan(qc, self.num_iterations, self.depth_L)
         self.tables = _Tables(qc, params, self.num_iterations, self.depth_L, self.per_iteration,
                               device)
@@ -275,12 +382,20 @@ class FusedNeuralDecoder:
         self._edge_var = (qc.edge_col[:, None] * qc.Z + z).reshape(-1)
         self._plain_index: dict[torch.device, tuple] = {}
         self._grid: int | None = None
+        # neural_group's launch plans (parts, frame groups per block, staged,
+        # resident blocks, structure on that card) by (card, parts, staged
+        # asked for).
+        self._group_plans: dict[tuple, tuple] = {}
 
     def __call__(self, llr: torch.Tensor) -> torch.Tensor:
         _check_llr(llr, self.device, self.n)
-        if llr.device.type == "cuda":
-            return self._launch(llr)
-        return self.plain(llr)
+        if llr.device.type != "cuda":
+            return self.plain(llr)
+        if not llr.is_contiguous():
+            raise ValueError("llr must be contiguous")
+        if self.route == "neural_group":
+            return self._launch_group(llr)
+        return self._launch_minsum(llr)
 
     def plain(self, llr: torch.Tensor) -> torch.Tensor:
         _check_llr(llr, self.device, self.n)
@@ -293,9 +408,49 @@ class FusedNeuralDecoder:
             return neural_decode_plain(llr, *index, self.tables, self.num_iterations,
                                        self.depth_L)
 
-    def _launch(self, llr: torch.Tensor) -> torch.Tensor:
-        if not llr.is_contiguous():
-            raise ValueError("llr must be contiguous")
+    def _launch_group(self, llr: torch.Tensor, parts: int | None = None,
+                      staged: bool | None = None) -> torch.Tensor:
+        """``neural_group`` on ``llr`` (contiguous, on a card); ``parts``
+        fixes the parts a frame is split into and ``staged`` whether the
+        weights are read from shared memory, instead of the plan's choice
+        (staged where a plan with the two weight planes fits, since that ran
+        7% faster at nms_main; from L2 elsewhere)."""
+        st, tb = self.st, self.tables
+        B = llr.shape[0]
+        bits = torch.empty_like(llr)
+        if B == 0:
+            return bits
+        lib = kernel_library()
+        with torch.cuda.device(llr.device):
+            key = (llr.device, parts, staged)
+            plan = self._group_plans.get(key)
+            if plan is None:
+                stage = True if staged is None else staged
+                p, groups, per_sm = neural_group_plan(self.qc, self.depth_L, stage, parts, lib)
+                if staged is None and not per_sm:
+                    stage = False
+                    p, groups, per_sm = neural_group_plan(self.qc, self.depth_L, False, parts, lib)
+                resident = _resident_grid(per_sm, "neural_group", llr.device)
+                structure = torch.as_tensor(_retire_structure(st, p), device=llr.device)
+                plan = self._group_plans[key] = (p, groups, stage, resident, structure)
+            p, groups, stage, resident, structure = plan
+            grid = min(resident, -(-B // (groups * frames_per_group(self.qc))))
+            stream = torch.cuda.current_stream(llr.device).cuda_stream
+            rc = lib.ldpc_neural_group(
+                llr.data_ptr(), bits.data_ptr(), structure.data_ptr(), tb.wc.data_ptr(),
+                tb.params.data_ptr(), B, st.Z, st.R, st.C, st.K, self.num_iterations,
+                self.depth_L, int(self.per_iteration), p, groups, int(stage), grid, stream)
+        if rc != 0:
+            msg = lib.ldpc_neural_cuda_error_string(rc).decode()
+            raise RuntimeError(f"neural_group kernel launch failed: CUDA error {rc} ({msg})")
+        LAUNCHES["neural_group"] += 1
+        return bits
+
+    def _launch_minsum(self, llr: torch.Tensor) -> torch.Tensor:
+        """``fused_neural`` on ``llr`` (contiguous, on a card) whatever the
+        route: the kernel codes ``neural_group`` does not take run on, and
+        the one every code ran on before it, kept so the two can be timed
+        side by side."""
         st, tb = self.st, self.tables
         B = llr.shape[0]
         bits = torch.empty_like(llr)

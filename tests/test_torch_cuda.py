@@ -15,7 +15,7 @@ frames (the products sum in another order than torch.matmul, which can flip a
 bf16 rounding); untrained, they are the fused min-sum kernel exactly; both
 (tensor cores) on the exact inputs of ops/msg_gnn_exact.py: soft bits and
 conv_iter identical.  The
-trained min-sum kernel (fused_neural): bits identical.  The fully-neural GNN
+trained min-sum kernels (neural_group, fused_neural): bits identical.  The fully-neural GNN
 kernels (msg_gnn, msg_gnn_v2, msg_gnn_v3, msg_gnn_v4) at T=2: soft bits within
 3e-2, decisions equal where the plain version is confident; all four on the
 exact inputs of ops/msg_gnn_exact.py (msg_gnn_v3 and msg_gnn_v4 also with
@@ -587,11 +587,101 @@ def test_fused_neural_kernel_matches_plain(name, Z, batch, sharing, L, learn_a, 
     dec = fn.make_fused_neural_minsum(qc, model, 4, L, per_iteration=per_it)
     assert dec.shared == (Z != 128)
     llr = _llr(qc.num_vars, batch, 1.0, seed=Z + L)
-    before = fn.LAUNCHES["fused_neural"]
+    before = fn.LAUNCHES[dec.route]
     bits_k, bits_p = dec(llr), dec.plain(llr)
     torch.cuda.synchronize()
-    assert fn.LAUNCHES["fused_neural"] == before + 1
+    assert fn.LAUNCHES[dec.route] == before + 1
     assert bits_k.is_cuda and torch.equal(bits_k, bits_p)
+
+
+# nms_compare's cases of chip_smoke.py that neural_group takes:
+# (code, Z, batch, sharing, depth, learnable alpha, learnable offset, per iteration)
+NEURAL_GROUP_CASES = [("nr_2_0_4", 4, 37, "scalar", 0, False, False, False),
+                      ("nr_2_0_4", 4, 37, "cell", 2, True, False, False),
+                      ("nr_2_0_4", 4, 37, "type", 1, True, False, True),
+                      ("nr_2_0_4", 4, 37, "edge", 2, True, True, True),
+                      ("nr_2_0_32", 32, 13, "edge", 2, True, True, True),
+                      ("nr_2_0_32", 32, 13, "type", 0, True, True, False),
+                      ("nr_2_0_32", 32, 13, "cell", 1, False, True, True),
+                      ("nr_2_0_32", 32, 13, "edge", 3, True, True, True),
+                      ("nr_2_0_32", 24, 9, "edge", 2, True, True, True),
+                      ("nr_2_0_32", 12, 9, "cell", 3, True, True, True),
+                      ("nr_2_0_32", 64, 5, "edge", 2, True, True, False)]
+
+
+def _neural_group_decoder(name, Z, sharing, L, learn_a, learn_o, per_it, T=5):
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    qc = tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+    model = _nms_model(qc_msg.make_plan(qc), T, L, sharing, learn_a, learn_o, per_it)
+    dec = fn.make_fused_neural_minsum(qc, model, T, L, per_iteration=per_it)
+    assert dec.route == "neural_group"
+    return qc, dec
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("name,Z,batch,sharing,L,learn_a,learn_o,per_it", NEURAL_GROUP_CASES)
+def test_neural_group_matches_plain(name, Z, batch, sharing, L, learn_a, learn_o, per_it, staged):
+    """B3 on neural_group, bits identical to the plain version with a frame
+    split into every count of parts its plans allow, weights from L2 and
+    staged in shared memory (where they fit); at Z=4 and Z=12 a warp holds 8
+    and 2 frames side by side (Z=12: 8 idle lanes), batches not a multiple
+    of them."""
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    qc, dec = _neural_group_decoder(name, Z, sharing, L, learn_a, learn_o, per_it)
+    llr = _llr(qc.num_vars, batch, 1.0, seed=Z + L)
+    bits_p = dec.plain(llr)
+    parts = sorted({p for p, _ in fn.neural_group_plans(qc, L, staged)})
+    if staged and not parts:
+        pytest.skip("the staged weights do not fit a block beside a frame")
+    for p in parts:
+        assert torch.equal(dec._launch_group(llr, parts=p, staged=staged), bits_p), p
+
+
+@pytest.mark.parametrize("kind", ["ties", "zeros"])
+@pytest.mark.parametrize("Z", [4, 32])
+def test_neural_group_ties_and_zeros(Z, kind):
+    """Quantised LLRs (tied magnitudes) and LLRs of +0.0 and -0.0."""
+    qc, dec = _neural_group_decoder("nr_2_0_32", Z, "edge", 2, True, True, True)
+    llr = _llr(qc.num_vars, 11, 1.0, seed=3)
+    if kind == "ties":
+        llr = torch.round(llr / 2.0) * 2.0
+    else:
+        mask = torch.rand(llr.shape, generator=torch.Generator().manual_seed(1)).to(llr.device)
+        llr = torch.where(mask < 0.2, 0.0, torch.where(mask > 0.9, -0.0, llr))
+    assert torch.equal(dec(llr), dec.plain(llr))
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_neural_group_groups_take_several_frames(staged):
+    """Three rounds or more for every frame group of the resident grid (8
+    frames a group at Z=4), and a last round that leaves some groups, and
+    some lanes of a group, without a frame."""
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    qc, dec = _neural_group_decoder("nr_2_0_4", 4, "edge", 2, True, True, True, T=3)
+    p, per_block, per_sm = fn.neural_group_plan(qc, 2, staged)
+    groups = per_sm * per_block * torch.cuda.get_device_properties(0).multi_processor_count
+    F = fn.frames_per_group(qc)
+    llr = _llr(qc.num_vars, 3 * groups * F + per_block * F // 2 + 3, 1.0, seed=4)
+    assert torch.equal(dec._launch_group(llr, staged=staged), dec.plain(llr))
+
+
+@pytest.mark.parametrize("name,Z,batch,sharing,L,learn_a,learn_o,per_it", NEURAL_GROUP_CASES)
+def test_neural_group_side_door_is_fused_neural(name, Z, batch, sharing, L, learn_a, learn_o,
+                                                per_it):
+    """The replaced kernel through the side door gives the same bits, and
+    each launch moves its own counter."""
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    qc, dec = _neural_group_decoder(name, Z, sharing, L, learn_a, learn_o, per_it)
+    llr = _llr(qc.num_vars, batch, 2.0, seed=Z)
+    before = dict(fn.LAUNCHES)
+    new, old = dec(llr), dec._launch_minsum(llr)
+    torch.cuda.synchronize()
+    assert torch.equal(new, old)
+    assert fn.LAUNCHES == {k: v + 1 for k, v in before.items()}
 
 
 def _msg_model(plan, T, h, inject, share):
