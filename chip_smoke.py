@@ -8,8 +8,10 @@ Phases, one JSON line each:
 2. build   — compile every CUDA source of the port with nvcc (sm_90a), one
              process per source, all started together; the
              main-path kernels' resident blocks per SM from the runtime
-             (retire_zlane's with its parts at Z=384, retire_layered's and
-             retire_sumproduct's with their plans at Z=32), registers per
+             (retire_zlane's, retire_zlane_layered's and
+             retire_zlane_sumproduct's with their plans at Z=384,
+             retire_layered's and retire_sumproduct's with their plans at
+             Z=32), registers per
              kernel (retire_layered's and retire_sumproduct's registers and
              spills by name); each retiring kernel's shared-memory bytes
              from the library against the wrapper's, every plan;
@@ -27,10 +29,13 @@ Phases, one JSON line each:
              on fused) at toy_4x8 Z=4,
              nr_2_0_4 Z=4 and nr_2_0_32 Z=24, 32 and 64 (batches that are not
              a multiple of the block's frames), make_fused_minsum_zlane
-             (min-sum flooding on retire_zlane, the rest on fused_zlane) at
+             (min-sum flooding on retire_zlane, layered min-sum on
+             retire_zlane_layered, sum-product flooding on
+             retire_zlane_sumproduct, layered sum-product on fused_zlane) at
              nr_2_0_32 Z=384; fused_retire, retire_layered and
-             retire_sumproduct at Z=32 and
-             retire_zlane at Z=384 and Z=256 also at -2, 1 and 6 dB and on
+             retire_sumproduct at Z=32 and retire_zlane,
+             retire_zlane_layered and retire_zlane_sumproduct at Z=384 and
+             Z=256 also at -2, 1 and 6 dB and on
              quantised LLRs with ties and exact zeros (-0.0 among them);
              min-sum flooding
              on a code with a row of 31 members (the fused kernel's: wider
@@ -42,7 +47,8 @@ Phases, one JSON line each:
              bits and conv_iter identical.  Sum-product: bits agree on >=
              99.9% and conv_iter within 1 (logf/tanhf round differently from
              torch's), and every retire_sumproduct case identical to the
-             fused kernel it replaced (through _launch_fused).
+             fused kernel it replaced (through _launch_fused), every
+             retire_zlane_sumproduct case to fused_zlane (_launch_zlane).
 4. main    — the serving path at full width: nr_2_0_32, Z=32, batch 65536,
              20 iterations, 3 dB BPSK LLRs made on the card, through
              MinSumScaledDecoder(backend="auto") (with and without early
@@ -92,10 +98,31 @@ Phases, one JSON line each:
              What bounds it (split_probe): retire_zlane with one part (half
              the warps a frame), and at Z=240, where a whole frame fits a
              block, fused_retire beside retire_zlane (one frame per SM
-             either way), outputs identical.
-5b. z384_layered — fused_zlane's own path: layered min-sum at Z=384 on the
-             same batch (server and builder, launch counts), the whole
-             batch against the plain version, time and bound.
+             either way), outputs identical; the same cost of the L2 slice
+             for retire_zlane_layered beside retire_layered at Z=256 and
+             retire_zlane_sumproduct beside retire_sumproduct at Z=224
+             (each also with the other's warps a frame), outputs identical.
+5b. z384_layered — layered min-sum at Z=384 on the same batch through
+             MinSumScaledDecoder(schedule="layered") and
+             make_fused_minsum_zlane(schedule="layered"):
+             retire_zlane_layered launched, no other kernel; the whole batch
+             identical to the plain version (and in throughput mode) and to
+             the replaced fused_zlane (_launch_zlane), 0 bit errors, mean
+             conv_iter printed.  Five rounds beside its throughput mode and
+             the replaced kernel, median and every round printed; every
+             parts count, the plan, occupancy, ptxas registers and spills.
+5c. z384_sumproduct — BeliefPropagationDecoder(early_stopping=False) and
+             make_fused_minsum_zlane(mode="sumproduct") on the same batch:
+             retire_zlane_sumproduct launched, no other kernel; the whole
+             batch at the sum-product bars against the plain version (and
+             in throughput mode) and identical to the replaced fused_zlane,
+             0 bit errors, mean conv_iter.  Five rounds beside its
+             throughput mode and the replaced kernel; every parts count,
+             bp_bound_ms, plan, occupancy, ptxas.
+5d. z384_sumproduct_layered — fused_zlane's own path: layered sum-product
+             at Z=384 on the same batch, launch counts, the whole batch at
+             the sum-product bars against the plain version, 0 bit errors;
+             five timed rounds and the bound.
 6. gnn_compare — the corrected-GNN kernels (corrected_v2, corrected)
              against their plain versions on perturbed seeded parameters:
              {input injection on, off} x {fixed T, early exit with
@@ -400,16 +427,20 @@ def trace_sumproduct() -> dict:
             **trace_split(lambda: dec(llr), "sumproduct")}
 
 
-def same_as_fused(dec, llr: torch.Tensor, label: str) -> None:
-    """A retire_sumproduct decoder's output identical (bits and conv_iter) to
-    the fused kernel's on the same input: the same float operations in the
-    same order."""
-    (bits_k, conv_k), (bits_f, conv_f) = dec(llr), dec._launch_fused(llr)
+def same_as_replaced(dec, llr: torch.Tensor, label: str) -> None:
+    """A sum-product retiring decoder's output identical (bits and
+    conv_iter) to the kernel it replaced on the same input (fused through
+    _launch_fused for retire_sumproduct, fused_zlane through _launch_zlane
+    for retire_zlane_sumproduct): the same float operations in the same
+    order."""
+    old, replaced = ((dec._launch_fused, "fused") if dec.kind == "fused"
+                     else (dec._launch_zlane, "fused_zlane"))
+    (bits_k, conv_k), (bits_f, conv_f) = dec(llr), old(llr)
     torch.cuda.synchronize()
     ok = bool(torch.equal(bits_k, bits_f)) and bool(torch.equal(conv_k, conv_f))
-    emit({"phase": "compare", "case": f"{label} against fused", "identical": ok, "ok": ok})
+    emit({"phase": "compare", "case": f"{label} against {replaced}", "identical": ok, "ok": ok})
     if not ok:
-        raise AssertionError(f"retire_sumproduct differs from the fused kernel: {label}")
+        raise AssertionError(f"{dec.route} differs from the {replaced} kernel: {label}")
 
 
 def split_probe(zdec, llr384: torch.Tensor, iterations: int) -> dict:
@@ -441,6 +472,35 @@ def split_probe(zdec, llr384: torch.Tensor, iterations: int) -> dict:
                       "retire_zlane": fm.retire_zlane_plan(qc, track)[:1]},
             "fused_retire_ms": cuda_ms(lambda: whole(llr), reps=5)[0],
             "retire_zlane_ms": cuda_ms(lambda: split(llr), reps=5)[0]}
+    # The same for the two large-Z kernels of the layered and sum-product
+    # paths, each at a Z where the whole frame of the kernel beside it still
+    # fits a block: layered min-sum at Z=256 (retire_layered, 184,144 bytes a
+    # frame) and sum-product flooding at Z=224 (retire_sumproduct, 223,104).
+    # "same_parts": the large-Z kernel with the warps a frame of the other.
+    for Z, mode, schedule in ((256, "minsum", "layered"), (224, "sumproduct", "flooding")):
+        qc = qc_layout(get_base_graph("nr_2_0_32"), Z)
+        llr = llrs(qc.num_vars, 1056, 3.0, seed=Z)
+        alpha = 0.75 if mode == "minsum" else 1.0
+        whole = fm.FusedDecoder("fused", qc, iterations, alpha, 1, mode, True, False, schedule,
+                                llr.device)
+        split = fm.make_fused_minsum_zlane(qc, iterations, alpha, mode=mode, schedule=schedule)
+        assert (whole.route, split.route) in (("retire_layered", "retire_zlane_layered"),
+                                              ("retire_sumproduct", "retire_zlane_sumproduct"))
+        parts = (fm.retire_layered_plan(qc, True) if mode == "minsum"
+                 else fm.retire_sumproduct_plan(qc, True))[0]
+        runs = {whole.route: lambda: whole(llr), split.route: lambda: split(llr),
+                f"{split.route}_same_parts": functools.partial(split._launch_retire, llr,
+                                                               parts=parts)}
+        outs = {name: fn() for name, fn in runs.items()}
+        ref = outs[whole.route]
+        if not all(torch.equal(o[0], ref[0]) and torch.equal(o[1], ref[1]) for o in outs.values()):
+            raise AssertionError(f"{whole.route} and {split.route} differ at Z={Z}")
+        out[f"z{Z}_B1056_{schedule}_{mode}"] = {
+            "plans": {whole.route: (fm.retire_layered_plan(qc, True) if mode == "minsum"
+                                    else fm.retire_sumproduct_plan(qc, True))[:-1],
+                      split.route: (fm.retire_zlane_layered_plan(qc, True) if mode == "minsum"
+                                    else fm.retire_zlane_sumproduct_plan(qc, True))},
+            **{f"{name}_ms": cuda_ms(fn, reps=5)[0] for name, fn in runs.items()}}
     return out
 
 
@@ -529,9 +589,7 @@ def classical_phases(lib, smi: str) -> list[dict]:
                     fm.retire_sumproduct_smem_bytes(qc, parts, frames, staged)
         else:
             assert lib.ldpc_zlane_smem_bytes(*dims) == fm.zlane_smem_bytes(qc)
-            for parts in fm.retire_zlane_plans(qc):
-                assert rlib.ldpc_retire_zlane_smem_bytes(*dims, parts) == \
-                    fm.retire_zlane_smem_bytes(qc, parts)
+            assert zlane_smem_agree(qc)
         llr = llrs(qc.num_vars, B, snr, seed=Z)
         build = fm.make_fused_minsum if kind_ == "fused" else fm.make_fused_minsum_zlane
         for mode, sched, tr, ee in flags:
@@ -539,8 +597,8 @@ def classical_phases(lib, smi: str) -> list[dict]:
                         early_exit=ee, schedule=sched)
             label = f"{dec.route} {code} Z={Z} B={B} {mode} {sched} track={tr} early_exit={ee}"
             max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
-            if dec.route == "retire_sumproduct":
-                same_as_fused(dec, llr, label)
+            if dec.route in ("retire_sumproduct", "retire_zlane_sumproduct"):
+                same_as_replaced(dec, llr, label)
     # fused_retire, retire_layered and retire_sumproduct (Z=32) and
     # retire_zlane (Z=384; Z=256, a power of two) on batches that hold frames
     # that never converge (-2 dB), converge at iteration 1 (6 dB) and a mix,
@@ -549,10 +607,13 @@ def classical_phases(lib, smi: str) -> list[dict]:
     qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
     make_layered = functools.partial(fm.make_fused_minsum, schedule="layered")
     make_sumproduct = functools.partial(fm.make_fused_minsum, mode="sumproduct")
+    zlane_builds = (fm.make_fused_minsum_zlane,
+                    functools.partial(fm.make_fused_minsum_zlane, schedule="layered"),
+                    functools.partial(fm.make_fused_minsum_zlane, mode="sumproduct"))
     hard = [(fm.make_fused_minsum, qc32, 1003), (make_layered, qc32, 1003),
             (make_sumproduct, qc32, 1003)] + [
-        (fm.make_fused_minsum_zlane, qc_layout(get_base_graph("nr_2_0_32"), Z), 301)
-        for Z in (384, 256)]
+        (build, qc_layout(get_base_graph("nr_2_0_32"), Z), 301)
+        for Z in (384, 256) for build in zlane_builds]
     for build, qc, B in hard:
         for snr, step in ((-2.0, None), (1.0, None), (6.0, None), (1.0, 1.0)):
             llr = llrs(qc.num_vars, B, snr, seed=7)
@@ -565,8 +626,8 @@ def classical_phases(lib, smi: str) -> list[dict]:
                 label = f"{dec.route} nr_2_0_32 Z={qc.Z} B={B} {snr} dB quantised={step} " \
                         f"{dec.schedule} track={tr} early_exit={ee}"
                 max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
-                if dec.route == "retire_sumproduct":
-                    same_as_fused(dec, llr, label)
+                if dec.route in ("retire_sumproduct", "retire_zlane_sumproduct"):
+                    same_as_replaced(dec, llr, label)
     # Min-sum flooding on a code whose rows are wider than fused_retire
     # takes runs on the fused kernel.
     qcw = wide_row_code()
@@ -593,7 +654,7 @@ def classical_phases(lib, smi: str) -> list[dict]:
                     f"early_exit={ee}"
             max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
             if mode == "sumproduct":
-                same_as_fused(dec, llr, label)
+                same_as_replaced(dec, llr, label)
     # The serving path against the tensor-op path (the JAX package's bar:
     # identical bits, conv_iter within 1 on at most 1% of frames).
     llr = llrs(qc32.num_vars, 256, 1.5, seed=1)
@@ -906,29 +967,174 @@ def classical_phases(lib, smi: str) -> list[dict]:
           "bit_errors": bit_errors384,
           "frame_errors": frame_errors384, "mean_conv_iter": mean_conv384, "nvidia_smi": smi})
 
-    # 5b. fused_zlane's own path: layered min-sum at Z=384, same batch
+    # 5b. layered min-sum at Z=384 on retire_zlane_layered (same batch)
     zlay_server = MinSumScaledDecoder(qc384, ITERS, 0.75, early_stopping=False, backend="auto",
                                       schedule="layered")
     zlay = fm.make_fused_minsum_zlane(qc384, ITERS, 0.75, schedule="layered")
+    zlay_thr = fm.make_fused_minsum_zlane(qc384, ITERS, 0.75, schedule="layered",
+                                          track_convergence=False)
+    assert zlay_server._fused.route == zlay.route == zlay_thr.route == "retire_zlane_layered"
     for key in fm.LAUNCHES:
         fm.LAUNCHES[key] = 0
     bits_zl, _ = zlay_server.decode(llr384)
     bits_zld, conv_zl = zlay(llr384)
     torch.cuda.synchronize()
     launches_zl = dict(fm.LAUNCHES)
-    if launches_zl["fused_zlane"] < 2 or sum(launches_zl.values()) != launches_zl["fused_zlane"]:
-        raise AssertionError(f"Z=384 layered path did not run fused_zlane alone: {launches_zl}")
-    assert bool(torch.equal(bits_zl, bits_zld)) and int(bits_zl.sum().item()) == 0
-    ms_zl, _ = cuda_ms(lambda: zlay(llr384), reps=3)
+    if launches_zl["retire_zlane_layered"] < 2 or \
+            sum(launches_zl.values()) != launches_zl["retire_zlane_layered"]:
+        raise AssertionError(f"Z=384 layered path did not run retire_zlane_layered alone: "
+                             f"{launches_zl}")
+    assert bits_zld.shape == (B384, n384) and bool(torch.equal(bits_zl, bits_zld))
+    bit_errors_zl = int(bits_zld.sum().item())
+    mean_conv_zl = float(conv_zl.float().mean().item())
+    if bit_errors_zl or not 1.0 <= mean_conv_zl <= 4.0:
+        raise AssertionError(f"Z=384 layered path decodes wrongly: {bit_errors_zl} bit errors, "
+                             f"mean conv_iter {mean_conv_zl}")
     plain_ms_zl, plain_out = cuda_ms(lambda: zlay.plain(llr384), reps=1)
-    err_zl = compare(zlay, llr384, f"fused_zlane layered z384 B={B384}", plain_out)
+    err_zl = compare(zlay, llr384, f"retire_zlane_layered z384 B={B384}", plain_out)
     del plain_out
+    err_zl = max(err_zl, compare(zlay_thr, llr384, f"retire_zlane_layered z384 B={B384} "
+                                                   "throughput mode"))
+    settle = time.perf_counter() + 1.0
+    while time.perf_counter() < settle:
+        zlay(llr384)
+        torch.cuda.synchronize()
+    # The kernel, its throughput mode and the kernel it replaced on the same
+    # batch, interleaved in rounds; the replaced kernel's output identical.
+    zl_runs = {"tracked": (lambda: zlay(llr384), 10),
+               "throughput_mode": (lambda: zlay_thr(llr384), 5),
+               "replaced_fused_zlane": (lambda: zlay._launch_zlane(llr384), 3)}
+    zl_rounds = {name: [] for name in zl_runs}
+    for _ in range(5):
+        for name, (fn, reps) in zl_runs.items():
+            t, out = cuda_ms(fn, reps=reps)
+            zl_rounds[name].append(t)
+            if name != "throughput_mode" and not (torch.equal(out[0], bits_zld)
+                                                  and torch.equal(out[1], conv_zl)):
+                raise AssertionError(f"{name} differs from retire_zlane_layered at Z=384")
+    zl_median = {name: sorted(r)[len(r) // 2] for name, r in zl_rounds.items()}
+    ms_zl = zl_median["tracked"]
+    # Each split of a frame's row groups.
+    zl_parts = {p: cuda_ms(lambda p=p: zlay._launch_retire(llr384, parts=p), reps=5)[0]
+                for p in sorted({p for p, _ in fm.retire_zlane_layered_plans(qc384)})}
     bms_zl, bby_zl = bound_ms(qc384, conv_zl, layered=True)
+    zl_plan = fm.retire_zlane_layered_plan(qc384, True)
+    zl_occupancy = dict(zip(("parts", "frames_per_block", "blocks_per_sm"), zl_plan))
+    zl_occupancy["warps_per_sm"] = (zl_plan[0] * zl_plan[1] * zl_plan[2]
+                                    * fm.retire_threads(qc384, 1, 1) // 32)
+    zl_occupancy["smem_bytes_per_block"] = fm.retire_zlane_layered_smem_bytes(qc384, zl_plan[1])
+    zl_occupancy["scratch_bytes_per_frame"] = fm.retire_zlane_layered_scratch_bytes(qc384)
+    zl_occupancy["ptxas"] = ptxas_of("fused_retire", "retire_zlane_layered_kernel")
     emit({"phase": "z384_layered", "code": "nr_2_0_32", "Z": 384, "batch": B384,
+          "iterations": ITERS, "snr_db": Z384["SNR"], "backend": "retire_zlane_layered",
+          "launches": launches_zl,
+          "bits_per_s": decode_throughput(B384, n384, ms_zl / 1e3, name="z384_layered"),
+          "ms_per_batch": ms_zl, "bound_ms": bms_zl, "bound_by": bby_zl,
+          "plain_ms": plain_ms_zl,
+          "variants_ms": {name: zl_median[name] for name in zl_runs if name != "tracked"},
+          "speedup_over_replaced": zl_median["replaced_fused_zlane"] / ms_zl,
+          "rounds_ms": zl_rounds, "parts_ms": zl_parts, "occupancy": zl_occupancy,
+          "bit_errors": bit_errors_zl, "mean_conv_iter": mean_conv_zl, "nvidia_smi": smi})
+
+    # 5c. sum-product flooding at Z=384 on retire_zlane_sumproduct (same batch)
+    bp384 = BeliefPropagationDecoder(qc384, ITERS, early_stopping=False, backend="auto")
+    zsp = fm.make_fused_minsum_zlane(qc384, ITERS, 1.0, mode="sumproduct")
+    zsp_thr = fm.make_fused_minsum_zlane(qc384, ITERS, 1.0, mode="sumproduct",
+                                         track_convergence=False)
+    assert bp384._fused.route == zsp.route == zsp_thr.route == "retire_zlane_sumproduct"
+    for key in fm.LAUNCHES:
+        fm.LAUNCHES[key] = 0
+    bits_zs, _ = bp384.decode(llr384)
+    bits_zsd, conv_zs = zsp(llr384)
+    torch.cuda.synchronize()
+    launches_zs = dict(fm.LAUNCHES)
+    if launches_zs["retire_zlane_sumproduct"] < 2 or \
+            sum(launches_zs.values()) != launches_zs["retire_zlane_sumproduct"]:
+        raise AssertionError(f"Z=384 sum-product path did not run retire_zlane_sumproduct "
+                             f"alone: {launches_zs}")
+    assert bits_zsd.shape == (B384, n384) and bool(torch.equal(bits_zs, bits_zsd))
+    bit_errors_zs = int(bits_zsd.sum().item())
+    mean_conv_zs = float(conv_zs.float().mean().item())
+    if bit_errors_zs or not 1.0 <= mean_conv_zs <= 6.0:
+        raise AssertionError(f"Z=384 sum-product path decodes wrongly: {bit_errors_zs} bit "
+                             f"errors, mean conv_iter {mean_conv_zs}")
+    plain_ms_zs, plain_out = cuda_ms(lambda: zsp.plain(llr384), reps=1)
+    err_zs = compare(zsp, llr384, f"retire_zlane_sumproduct z384 B={B384}", plain_out)
+    del plain_out
+    err_zs = max(err_zs, compare(zsp_thr, llr384, f"retire_zlane_sumproduct z384 B={B384} "
+                                                  "throughput mode"))
+    same_as_replaced(zsp_thr, llr384, f"retire_zlane_sumproduct z384 B={B384} throughput mode")
+    settle = time.perf_counter() + 1.0
+    while time.perf_counter() < settle:
+        zsp(llr384)
+        torch.cuda.synchronize()
+    # The kernel, its throughput mode and the kernel it replaced on the same
+    # batch, interleaved in rounds; the replaced kernel's output identical.
+    zs_runs = {"tracked": (lambda: zsp(llr384), 5),
+               "throughput_mode": (lambda: zsp_thr(llr384), 2),
+               "replaced_fused_zlane": (lambda: zsp._launch_zlane(llr384), 1)}
+    zs_rounds = {name: [] for name in zs_runs}
+    for _ in range(5):
+        for name, (fn, reps) in zs_runs.items():
+            t, out = cuda_ms(fn, reps=reps)
+            zs_rounds[name].append(t)
+            if name != "throughput_mode" and not (torch.equal(out[0], bits_zsd)
+                                                  and torch.equal(out[1], conv_zs)):
+                raise AssertionError(f"{name} differs from retire_zlane_sumproduct at Z=384")
+    zs_median = {name: sorted(r)[len(r) // 2] for name, r in zs_rounds.items()}
+    ms_zs = zs_median["tracked"]
+    zs_parts = {p: cuda_ms(lambda p=p: zsp._launch_retire(llr384, parts=p), reps=5)[0]
+                for p in fm.retire_zlane_sumproduct_plans(qc384)}
+    bms_zs, bby_zs = bp_bound_ms(qc384, conv_zs)
+    zs_occupancy = dict(zip(("parts", "blocks_per_sm"), fm.retire_zlane_sumproduct_plan(qc384,
+                                                                                      True)))
+    # What the occupancy query allows before the plan's cap.
+    zs_occupancy["blocks_per_sm_by_occupancy"] = {
+        p: fm.retire_kernel_library().ldpc_retire_zlane_sumproduct_occupancy(
+            384, qc384.num_base_rows, qc384.num_base_cols, qc384.num_base_edges, p, 1)
+        for p in fm.retire_zlane_sumproduct_plans(qc384)}
+    zs_occupancy["smem_bytes"] = fm.retire_zlane_sumproduct_smem_bytes(qc384,
+                                                                       zs_occupancy["parts"])
+    zs_occupancy["scratch_bytes_per_block"] = fm.retire_zlane_sumproduct_scratch_bytes(qc384)
+    zs_occupancy["ptxas"] = ptxas_of("fused_retire", "retire_zlane_sumproduct_kernel")
+    emit({"phase": "z384_sumproduct", "code": "nr_2_0_32", "Z": 384, "batch": B384,
+          "iterations": ITERS, "snr_db": Z384["SNR"], "backend": "retire_zlane_sumproduct",
+          "launches": launches_zs,
+          "bits_per_s": decode_throughput(B384, n384, ms_zs / 1e3, name="z384_sumproduct"),
+          "ms_per_batch": ms_zs, "bound_ms": bms_zs, "bound_by": bby_zs,
+          "plain_ms": plain_ms_zs,
+          "variants_ms": {name: zs_median[name] for name in zs_runs if name != "tracked"},
+          "speedup_over_replaced": zs_median["replaced_fused_zlane"] / ms_zs,
+          "rounds_ms": zs_rounds, "parts_ms": zs_parts, "occupancy": zs_occupancy,
+          "bit_errors": bit_errors_zs, "mean_conv_iter": mean_conv_zs, "nvidia_smi": smi})
+
+    # 5d. fused_zlane's own path: layered sum-product at Z=384 (same batch)
+    zsl = fm.make_fused_minsum_zlane(qc384, ITERS, 1.0, mode="sumproduct", schedule="layered")
+    assert zsl.route == "fused_zlane"
+    for key in fm.LAUNCHES:
+        fm.LAUNCHES[key] = 0
+    bits_zsl, conv_zsl = zsl(llr384)
+    torch.cuda.synchronize()
+    launches_zsl = dict(fm.LAUNCHES)
+    if launches_zsl["fused_zlane"] < 1 or sum(launches_zsl.values()) != launches_zsl["fused_zlane"]:
+        raise AssertionError(f"Z=384 layered sum-product did not run fused_zlane alone: "
+                             f"{launches_zsl}")
+    bit_errors_zsl = int(bits_zsl.sum().item())
+    if bits_zsl.shape != (B384, n384) or bit_errors_zsl:
+        raise AssertionError(f"Z=384 layered sum-product decodes wrongly: {bit_errors_zsl} "
+                             f"bit errors")
+    plain_ms_zsl, plain_out = cuda_ms(lambda: zsl.plain(llr384), reps=1)
+    err_zsl = compare(zsl, llr384, f"fused_zlane layered sum-product z384 B={B384}", plain_out)
+    del plain_out
+    rounds_zsl = [cuda_ms(lambda: zsl(llr384), reps=1)[0] for _ in range(5)]
+    bms_zsl, bby_zsl = bp_bound_ms(qc384, conv_zsl, layered=True)
+    emit({"phase": "z384_sumproduct_layered", "code": "nr_2_0_32", "Z": 384, "batch": B384,
           "iterations": ITERS, "snr_db": Z384["SNR"], "backend": "fused_zlane",
-          "launches": launches_zl, "ms_per_batch": ms_zl, "bound_ms": bms_zl,
-          "bound_by": bby_zl, "plain_ms": plain_ms_zl,
-          "mean_conv_iter": float(conv_zl.float().mean().item()), "nvidia_smi": smi})
+          "launches": launches_zsl, "ms_per_batch": sorted(rounds_zsl)[2],
+          "rounds_ms": rounds_zsl, "bound_ms": bms_zsl, "bound_by": bby_zsl,
+          "plain_ms": plain_ms_zsl,
+          "bit_errors": bit_errors_zsl,
+          "mean_conv_iter": float(conv_zsl.float().mean().item()), "nvidia_smi": smi})
 
     src = "ldpc_tpu_torch/ops/csrc/fused_minsum.cu"
     return [
@@ -964,12 +1170,29 @@ def classical_phases(lib, smi: str) -> list[dict]:
          "replaces": "ldpc_tpu/ops/pallas_minsum.py:399", "launches": launches_z["retire_zlane"],
          "max_abs_err": max(max_err["retire_zlane"], err_z), "ms": ms384,
          "plain_ms": plain_ms384, "bound_ms": bms384, "bound_by": bby384, "library_ms": None},
+        {"name": "retire_zlane_layered", "route": "cuda",
+         "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
+         "replaces": "ldpc_tpu/ops/pallas_minsum.py:399",
+         "launches": launches_zl["retire_zlane_layered"],
+         "max_abs_err": max(max_err["retire_zlane_layered"], err_zl), "ms": ms_zl,
+         "plain_ms": plain_ms_zl, "bound_ms": bms_zl, "bound_by": bby_zl, "library_ms": None},
+        {"name": "retire_zlane_sumproduct", "route": "cuda",
+         "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
+         "replaces": "ldpc_tpu/ops/pallas_minsum.py:399",
+         "launches": launches_zs["retire_zlane_sumproduct"],
+         "max_abs_err": max(max_err["retire_zlane_sumproduct"], err_zs), "ms": ms_zs,
+         "plain_ms": plain_ms_zs, "bound_ms": bms_zs, "bound_by": bby_zs, "library_ms": None},
+        # fused_zlane serves layered sum-product and rows over 27 members at
+        # large Z (launches: the z384_sumproduct_layered run); its ms is
+        # sum-product flooding through the side door, _launch_zlane, on the
+        # z384_sumproduct phase's batch, which bound_ms and plain_ms count.
         {"name": "fused_zlane", "route": "cuda", "source": src,
          "replaces": "ldpc_tpu/ops/pallas_minsum.py:399",
-         "launches": launches_zl["fused_zlane"],
-         "max_abs_err": max(max_err["fused_zlane"], err_zl), "ms": ms_zl,
-         "plain_ms": plain_ms_zl, "bound_ms": bms_zl, "bound_by": bby_zl,
-         "library_ms": None},
+         "launches": launches_zsl["fused_zlane"],
+         "max_abs_err": max(max_err["fused_zlane"], err_zsl),
+         "ms": zs_median["replaced_fused_zlane"],
+         "ms_of": "sum-product flooding through _launch_zlane (side door)",
+         "plain_ms": plain_ms_zs, "bound_ms": bms_zs, "bound_by": bby_zs, "library_ms": None},
     ]
 
 
@@ -2116,10 +2339,26 @@ def retire_smem_agree(qc32, qc384) -> dict:
             rlib.ldpc_retire_sumproduct_smem_bytes(*dims, p, f, s) ==
             fm.retire_sumproduct_smem_bytes(qc32, p, f, s)
             for p, f, s in fm.retire_sumproduct_plans(qc32)),
-        "retire_zlane": all(
-            rlib.ldpc_retire_zlane_smem_bytes(384, *dims[1:], p) == fm.retire_zlane_smem_bytes(
-                qc384, p) for p in fm.retire_zlane_plans(qc384)),
+        "retire_zlane, retire_zlane_layered, retire_zlane_sumproduct": zlane_smem_agree(qc384),
     }
+
+
+def zlane_smem_agree(qc) -> bool:
+    """Whether the library's shared-memory bytes of the three large-Z
+    retiring kernels equal the wrapper's for every plan it may take."""
+    from ldpc_tpu_torch.ops import fused_minsum as fm
+
+    rlib = fm.retire_kernel_library()
+    dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
+    G = len(fm.row_groups(fm._structure(qc))) - 1
+    return (all(rlib.ldpc_retire_zlane_smem_bytes(*dims, p) == fm.retire_zlane_smem_bytes(qc, p)
+                for p in fm.retire_zlane_plans(qc))
+            and all(rlib.ldpc_retire_zlane_layered_smem_bytes(*dims, G, f) ==
+                    fm.retire_zlane_layered_smem_bytes(qc, f)
+                    for _, f in fm.retire_zlane_layered_plans(qc))
+            and all(rlib.ldpc_retire_zlane_sumproduct_smem_bytes(*dims, p) ==
+                    fm.retire_zlane_sumproduct_smem_bytes(qc, p)
+                    for p in fm.retire_zlane_sumproduct_plans(qc)))
 
 
 def sass_mma_counts(stem: str) -> dict:
@@ -2207,6 +2446,11 @@ def main(argv=None) -> int:
             occupancy[f"fused_zlane Z={Z}"] = lib.ldpc_zlane_occupancy(*dims, 0, 0)
             parts, per_sm = fm.retire_zlane_plan(qc, True)
             occupancy[f"retire_zlane Z={Z} parts={parts}"] = per_sm
+            parts, frames, per_sm = fm.retire_zlane_layered_plan(qc, True)
+            occupancy[f"retire_zlane_layered Z={Z} parts={parts} "
+                      f"frames_per_block={frames}"] = per_sm
+            parts, per_sm = fm.retire_zlane_sumproduct_plan(qc, True)
+            occupancy[f"retire_zlane_sumproduct Z={Z} parts={parts}"] = per_sm
     if min(occupancy.values()) < 1:
         raise AssertionError(f"a main-path kernel cannot be resident: {occupancy}")
     qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)

@@ -178,6 +178,12 @@ def make_layered_minsum(qc: QCLayout, max_iterations: int = 20, alpha: float = 0
 def _resolve_backend(backend: str, qc: QCLayout | None = None) -> str:
     """``auto`` -> ``fused`` when one frame's state fits a block's shared
     memory, else ``fused_zlane``; raises when neither kernel takes the code.
+    Either backend sends min-sum (flooding and layered) and sum-product
+    flooding on to its retiring kernels where they take the code
+    (``fused_minsum._route``: at large Z ``retire_zlane``,
+    ``retire_zlane_layered`` and ``retire_zlane_sumproduct``); layered
+    sum-product and rows of more than 27 members run on the backend's own
+    kernel.
 
     ``plain`` is the tensor-op path (the JAX package's ``xla``), for tests
     and comparisons; it is never chosen by ``auto``.
@@ -220,7 +226,9 @@ class BeliefPropagationDecoder:
     stopping).
 
     ``backend``: "auto" (the fused kernel that takes the code), "fused",
-    "fused_zlane", or "plain" (the tensor-op path).
+    "fused_zlane", or "plain" (the tensor-op path).  Sum-product flooding on
+    the fused backends runs on ``retire_sumproduct``, or at large Z on
+    ``retire_zlane_sumproduct``, where they take the code.
     """
 
     qc: QCLayout
@@ -256,7 +264,10 @@ class BeliefPropagationDecoder:
 @dataclasses.dataclass(frozen=True)
 class MinSumScaledDecoder:
     """Object-style wrapper for scaled min-sum.  ``backend`` as in
-    :class:`BeliefPropagationDecoder`."""
+    :class:`BeliefPropagationDecoder`; the fused backends run the flooding
+    schedule on ``fused_retire`` (``retire_zlane`` at large Z) and the
+    layered one on ``retire_layered`` (``retire_zlane_layered``) where they
+    take the code."""
 
     qc: QCLayout
     max_iterations: int = 50

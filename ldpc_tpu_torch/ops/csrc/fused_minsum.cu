@@ -9,12 +9,13 @@
 // wrapper sends min-sum flooding to retire_minsum_kernel (the main path),
 // the layered schedule to retire_layered_kernel, sum-product flooding to
 // retire_sumproduct_kernel and, at large Z, min-sum flooding to
-// retire_zlane_kernel (bench.py's z384 section).  So fused_minsum_kernel
-// serves layered sum-product and both modes on codes with wider rows (and
-// stays callable for sum-product flooding, so the wrapper's _launch_fused
-// can time it beside retire_sumproduct), and zlane_minsum_kernel
-// sum-product and layered min-sum at large Z.  The note below is this
-// file's.
+// retire_zlane_kernel (bench.py's z384 section), layered min-sum to
+// retire_zlane_layered_kernel and sum-product flooding to
+// retire_zlane_sumproduct_kernel.  So fused_minsum_kernel and
+// zlane_minsum_kernel serve layered sum-product and both modes on codes with
+// wider rows (and stay callable for the paths they served before, so the
+// wrapper's _launch_fused and _launch_zlane can time them beside the
+// kernels that replaced them).  The note below is this file's.
 // Python wrappers, and the plain PyTorch version both kernels are held
 // against: ldpc_tpu_torch/ops/fused_minsum.py.
 //

@@ -22,23 +22,37 @@
 //                                           flooding (make_fused_bp,
 //                                           BeliefPropagationDecoder); entry
 //                                           ldpc_retire_sumproduct
+//   * retire_zlane_layered_kernel<TRACK, POW2>
+//                                        <- _kernel_zlane, schedule "layered"
+//                                           (make_fused_minsum_zlane(schedule=
+//                                           "layered"), MinSumScaledDecoder(
+//                                           schedule="layered") at large Z);
+//                                           entry ldpc_retire_zlane_layered
+//   * retire_zlane_sumproduct_kernel<TRACK, POW2>
+//                                        <- _kernel_zlane, mode "sumproduct",
+//                                           flooding (BeliefPropagationDecoder
+//                                           at large Z); entry
+//                                           ldpc_retire_zlane_sumproduct
 // They took the place of fused_minsum_kernel and zlane_minsum_kernel
-// (fused_minsum.cu) on those paths; layered sum-product, sum-product and
-// layered min-sum at large Z, and codes with rows of more than 27 members
-// (the wrapper's retire_kernel_fits, retire_sumproduct_fits,
-// retire_layered_fits and retire_zlane_fits) stay there.  The flooding
-// kernels run one frame loop (decode_frames) over a check pass and a column
-// pass: the two min-sum kernels share compressed state and passes and differ
-// only in where a frame's state lives; the sum-product kernel keeps one
-// float a lifted edge and has its own passes, described at its section
-// below.  The layered kernel shares their state word, rolls, barriers and
-// frame counter, and is described at its own section.  Python wrapper and
+// (fused_minsum.cu) on those paths; layered sum-product (at any Z) and codes
+// with rows of more than 27 members (the wrapper's retire_kernel_fits,
+// retire_sumproduct_fits, retire_layered_fits, retire_zlane_fits,
+// retire_zlane_layered_fits and retire_zlane_sumproduct_fits) stay there.
+// The flooding kernels run one frame loop (decode_frames) over a check pass
+// and a column pass: the two min-sum kernels share compressed state and
+// passes and differ only in where a frame's state lives; the two sum-product
+// kernels keep one float a lifted edge and have their own passes, described
+// at their section below.  The layered kernels share their state word,
+// rolls, barriers and frame counter, and are described at their own
+// sections.  Python wrapper and
 // the plain PyTorch version all are held against (fused_decode_plain):
 // ldpc_tpu_torch/ops/fused_minsum.py.  CPU models of this source's
 // algorithms on the wrapper's structure tables:
 // tests/test_torch_minsum_retire.py (min-sum flooding),
 // tests/test_torch_minsum_layered.py (layered),
-// tests/test_torch_minsum_sumproduct_retire.py (sum-product).
+// tests/test_torch_minsum_sumproduct_retire.py (sum-product),
+// tests/test_torch_zlane_retire_sched.py (both at large Z, the state as
+// the slices lay it out).
 //
 // The min-sum flooding kernels
 // ============================
@@ -721,42 +735,58 @@ __device__ __forceinline__ unsigned row_parity(const LayeredStructure& s, const 
   return p >> 31;
 }
 
-// Up to 32 frame groups a block (15 where a group is more than one warp: a
-// named barrier each), a group of `parts` times ceil(Z / 32) warps: warp w
-// of group g covers lanes z = 32 * (w % zw) + lane and part w / zw, which
-// runs rows grp_ptr[i] + part, + 2 parts, ... of each row group i and the
-// parity of rows part, part + parts, ...  A lifted check's state is read and
-// written by one thread only.  A group's beliefs and check state are in
-// shared memory; it decodes frames from the counter until the batch is done.
-// Where the LLR and bit rows are 16-byte aligned (n % 4 == 0) they move as
-// float4.
-template <bool TRACK, bool POW2>
-__global__ void __launch_bounds__(kMaxThreads)
-retire_layered_kernel(const float* __restrict__ llr, float* __restrict__ bits,
-                      int* __restrict__ conv, int* __restrict__ next_frame,
-                      const int* __restrict__ structure, int B, int Z, int R, int C, int K, int G,
-                      int max_iterations, float alpha, int parts) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_frame[kMaxGroups];
-  int* s_struct = reinterpret_cast<int*>(smem);
+// Layered structure in shared memory at s_struct (2K + R + 1 + G + 1 ints);
+// ends with a barrier.
+__device__ __forceinline__ LayeredStructure load_layered_structure(
+    int* s_struct, const int* __restrict__ structure, int R, int K, int G) {
   for (int i = threadIdx.x; i < 2 * K + R + 1 + G + 1; i += blockDim.x) s_struct[i] = structure[i];
   LayeredStructure s;
   s.row_mem = reinterpret_cast<const int2*>(s_struct);
   s.row_ptr = s_struct + 2 * K;
   s.grp_ptr = s.row_ptr + R + 1;
   __syncthreads();
+  return s;
+}
 
+// What a thread of a layered frame group works on.  A group is `parts`
+// times ceil(Z / 32) warps: warp w of group g covers lanes z = 32 * (w % zw)
+// + lane and part w / zw, which runs rows grp_ptr[i] + part, + 2 parts, ...
+// of each row group i and the parity of rows part, part + parts, ...  A
+// lifted check's state is read and written by one thread only.
+struct LayeredLanes {
+  Group grp;
+  int g, gi, part, z;
+  bool active;
+};
+
+__device__ __forceinline__ LayeredLanes layered_lanes(int Z, int parts) {
   const int zw = (Z + 31) / 32, gwarps = zw * parts;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = warp / gwarps, wg = warp - g * gwarps;
-  const int part = wg / zw;
-  const int z = 32 * (wg - part * zw) + lane, gi = 32 * wg + lane;
-  const bool active = z < Z;
-  const Group grp{g + 1, 32 * gwarps};
-  float* bel = reinterpret_cast<float*>(s_struct + layered_structure_words(R, K, G)) +
-               g * layered_frame_words(Z, R, C);
-  float2* A = reinterpret_cast<float2*>(bel + layered_bel_words(Z, C));
-  unsigned* W = reinterpret_cast<unsigned*>(A + R * Z);
+  LayeredLanes t;
+  t.grp = Group{g + 1, 32 * gwarps};
+  t.g = g;
+  t.part = wg / zw;
+  t.z = 32 * (wg - t.part * zw) + lane;
+  t.gi = 32 * wg + lane;
+  t.active = t.z < Z;
+  return t;
+}
+
+// A layered frame group decodes frames from the counter until the batch is
+// done: its beliefs (bel) in shared memory, its check state (A, W) in shared
+// memory or its slice of global scratch.  Where the LLR and bit rows are
+// 16-byte aligned (n % 4 == 0) they move as float4.
+template <bool TRACK, bool POW2>
+__device__ __forceinline__ void layered_frames(const LayeredStructure& s, const LayeredLanes& t,
+                                               int* s_frame, const float* __restrict__ llr,
+                                               float* __restrict__ bits, int* __restrict__ conv,
+                                               int* __restrict__ next_frame, float* bel,
+                                               float2* A, unsigned* W, int B, int Z, int R,
+                                               int C, int G, int max_iterations, float alpha,
+                                               int parts) {
+  const Group& grp = t.grp;
+  const int gi = t.gi;
   const int n = C * Z;
   const bool vec = n % 4 == 0 && (reinterpret_cast<size_t>(llr) & 15) == 0 &&
                    (reinterpret_cast<size_t>(bits) & 15) == 0;
@@ -767,9 +797,9 @@ retire_layered_kernel(const float* __restrict__ llr, float* __restrict__ bits,
       f = gi == 0 ? atomicAdd(next_frame, 1) : 0;
       f = __shfl_sync(0xffffffffu, f, 0);
     } else {
-      if (gi == 0) s_frame[g] = atomicAdd(next_frame, 1);
+      if (gi == 0) *s_frame = atomicAdd(next_frame, 1);
       grp.sync();
-      f = s_frame[g];
+      f = *s_frame;
     }
     if (f >= B) break;
     const float* src = llr + static_cast<size_t>(f) * n;
@@ -788,9 +818,9 @@ retire_layered_kernel(const float* __restrict__ llr, float* __restrict__ bits,
     int done = max_iterations;
     for (int it = 0; it < max_iterations; ++it) {
       for (int i = 0; i < G; ++i) {
-        if (active)
-          for (int r = s.grp_ptr[i] + part; r < s.grp_ptr[i + 1]; r += parts)
-            layered_update<POW2>(s, bel, A, W, r, z, Z, alpha, it == 0);
+        if (t.active)
+          for (int r = s.grp_ptr[i] + t.part; r < s.grp_ptr[i + 1]; r += parts)
+            layered_update<POW2>(s, bel, A, W, r, t.z, Z, alpha, it == 0);
         grp.sync();
       }
       // The last sweep needs no parity pass: converged or not, the outputs
@@ -798,8 +828,8 @@ retire_layered_kernel(const float* __restrict__ llr, float* __restrict__ bits,
       // its first violated row.
       if (TRACK && it + 1 < max_iterations) {
         bool violated = false;
-        for (int r = part; r < R && !violated; r += parts)
-          violated = __any_sync(0xffffffffu, active && row_parity<POW2>(s, bel, r, z, Z));
+        for (int r = t.part; r < R && !violated; r += parts)
+          violated = __any_sync(0xffffffffu, t.active && row_parity<POW2>(s, bel, r, t.z, Z));
         if (!grp.sync_or(violated)) {
           done = it + 1;
           break;
@@ -821,6 +851,149 @@ retire_layered_kernel(const float* __restrict__ llr, float* __restrict__ bits,
     }
     grp.sync();  // the next frame's LLRs overwrite bel
   }
+}
+
+// Up to 32 frame groups a block (15 where a group is more than one warp: a
+// named barrier each), each with its beliefs and check state in shared
+// memory.
+template <bool TRACK, bool POW2>
+__global__ void __launch_bounds__(kMaxThreads)
+retire_layered_kernel(const float* __restrict__ llr, float* __restrict__ bits,
+                      int* __restrict__ conv, int* __restrict__ next_frame,
+                      const int* __restrict__ structure, int B, int Z, int R, int C, int K, int G,
+                      int max_iterations, float alpha, int parts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_frame[kMaxGroups];
+  int* s_struct = reinterpret_cast<int*>(smem);
+  const LayeredStructure s = load_layered_structure(s_struct, structure, R, K, G);
+  const LayeredLanes t = layered_lanes(Z, parts);
+  float* bel = reinterpret_cast<float*>(s_struct + layered_structure_words(R, K, G)) +
+               t.g * layered_frame_words(Z, R, C);
+  float2* A = reinterpret_cast<float2*>(bel + layered_bel_words(Z, C));
+  unsigned* W = reinterpret_cast<unsigned*>(A + R * Z);
+  layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel, A, W, B, Z,
+                              R, C, G, max_iterations, alpha, parts);
+}
+
+// ---------------------------------------------------------------------------
+// Layered min-sum at large Z (retire_zlane_layered_kernel)
+// ---------------------------------------------------------------------------
+//
+// What it computes: retire_layered_kernel's function (above), bit for bit,
+// for Z where a frame's beliefs and check state exceed a block's shared
+// memory: 4 (C*Z + 3 R*Z) bytes, 273 KB at NR BG2 Z=384.
+//
+// What bounds it.  The layered operation count (chip_smoke.py
+// OPS_PER_EDGE_LAYERED) over each frame's conv_iter sweeps: 0.0313 ms at the
+// z384_layered phase's batch (nr_2_0_32 Z=384, 512 frames, 3 dB).  A sweep is
+// 28 row groups in a chain, each a barrier of the frame's warps, so what
+// sets the pace is latency: a row's state loads, its member loads and fold,
+// its belief and state stores, the barrier.
+//
+// What the design does about it.  retire_layered_kernel's frame loop (a
+// lane per check of a row, the row's old state in registers until every
+// member has used it, the first sweep reading no state, row groups side by
+// side on `parts`, a parity pass after each sweep but the last, frames that
+// retire from the counter), with the state split as retire_zlane_kernel
+// splits it: the beliefs (C*Z floats) stay in shared memory, and the check
+// state, A (R*Z float2) then W (R*Z words), lives in the frame group's slice
+// of a global scratch, which the L2 holds.  A lifted check's state is read
+// and written by its own thread only, so the slice needs no barrier of its
+// own; it is not cleared between frames (the first sweep reads none).
+// layered_row issues a row's state loads before its member loads, so their
+// L2 latency overlaps the shared-memory loads of the beliefs.
+//
+// Shared memory: the layered structure once a block and the beliefs of each
+// frame group: 79,872 bytes a frame at NR BG2 Z=384, so two frames of 12
+// warps an SM.  Scratch a frame group: 12 R*Z bytes (193,536 at Z=384).
+// The wrapper's plan takes the most resident frames by the runtime's
+// occupancy query: at Z=384 one frame of one part a block, two blocks an
+// SM; 64 registers, 20-28 bytes spilled.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 0.272-0.279 ms
+// per batch of 512 at 3 dB (mean conv_iter 2.0), where zlane_minsum_kernel
+// took 6.05-6.10 ms on the same batch and card.  A layout with A in shared memory
+// beside the beliefs (one frame of two parts an SM) took 0.25-0.6% longer
+// and was dropped.  At Z=256, where retire_layered's whole frame fits a
+// block, the slices cost nothing measurable (split_probe).
+
+// Scratch words of a frame group: A (8-byte aligned since Z % 8 == 0), then
+// W.
+__host__ __device__ inline long long zlane_layered_slice_words(int Z, int R) {
+  return 3LL * R * Z;
+}
+
+template <bool TRACK, bool POW2>
+__global__ void __launch_bounds__(kMaxThreads)
+retire_zlane_layered_kernel(const float* __restrict__ llr, float* __restrict__ bits,
+                            int* __restrict__ conv, int* __restrict__ next_frame,
+                            unsigned* scratch, const int* __restrict__ structure, int B, int Z,
+                            int R, int C, int K, int G, int max_iterations, float alpha,
+                            int parts, int frames) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_frame[kMaxGroups];
+  int* s_struct = reinterpret_cast<int*>(smem);
+  const LayeredStructure s = load_layered_structure(s_struct, structure, R, K, G);
+  const LayeredLanes t = layered_lanes(Z, parts);
+  float* bel = reinterpret_cast<float*>(s_struct + layered_structure_words(R, K, G)) +
+               t.g * layered_bel_words(Z, C);
+  unsigned* slice = scratch + (static_cast<long long>(blockIdx.x) * frames + t.g) *
+                                  zlane_layered_slice_words(Z, R);
+  float2* A = reinterpret_cast<float2*>(slice);
+  unsigned* W = slice + 2 * R * Z;
+  layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel, A, W, B, Z,
+                              R, C, G, max_iterations, alpha, parts);
+}
+
+// ---------------------------------------------------------------------------
+// Sum-product flooding at large Z (retire_zlane_sumproduct_kernel)
+// ---------------------------------------------------------------------------
+//
+// What it computes: retire_sumproduct_kernel's function for Z where a
+// frame's beliefs and c2v exceed a block's shared memory (4 (C*Z + K*Z)
+// bytes, 382 KB at NR BG2 Z=384); bits and conv_iter identical to
+// zlane_minsum_kernel<true, false> (fused_minsum.cu), whose check_update
+// computes the same float operations in the same order.
+//
+// What bounds it: the sum-product operation count (chip_smoke.py
+// bp_bound_ms) over each frame's conv_iter iterations, the phi the largest
+// part; about 0.17 ms at the z384_sumproduct phase's batch.
+//
+// What the design does about it.  decode_frames with retire_sumproduct's
+// passes (c2v check-aligned, each phi once and in registers, S summed in
+// member order, the syndrome read off the next check pass, frames that
+// retire) and one frame group a block: the beliefs (C*Z floats, 79,872
+// bytes at Z=384) in shared memory, c2v (K*Z floats, 302,592 bytes) in the
+// block's slice of a global scratch, the LLRs read from the frame's input
+// row.  The column pass reads other threads' c2v after the group's barrier,
+// so the slice is read with ordinary (coherent) loads, as retire_zlane's W.
+// The wrapper keeps one block an SM: 132 slices are 40 MB, which the 50 MB
+// L2 holds (zlane_minsum_kernel's two blocks an SM put 80 MB in flight).
+//
+// Shared memory: the structure and the beliefs, 85,008 bytes at NR BG2
+// Z=384 and 2 parts (24 warps); 64 registers, 0-16 bytes spilled.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 1.90 ms per
+// batch of 512 at 3 dB (mean conv_iter 3.1), where zlane_minsum_kernel took
+// 10.7 ms on the same batch and card with identical outputs; one part at two
+// blocks an SM took 12% longer; at Z=224, where retire_sumproduct's whole
+// frame fits a block, the c2v slice costs 13% (split_probe).
+
+template <bool TRACK, bool POW2>
+__global__ void __launch_bounds__(kMaxThreads)
+retire_zlane_sumproduct_kernel(const float* __restrict__ llr, float* __restrict__ bits,
+                               int* __restrict__ conv, int* __restrict__ next_frame,
+                               float* scratch, const int* __restrict__ structure, int B, int Z,
+                               int R, int C, int K, int max_iterations, int parts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_frame;
+  int* s_struct = reinterpret_cast<int*>(smem);
+  const Structure s = load_structure(s_struct, structure, R, C, K, parts);
+  const Lanes t = lanes_of(s, Z, parts);
+  float* bel = reinterpret_cast<float*>(s_struct + structure_words(R, C, K, parts));
+  float* c2v = scratch + static_cast<size_t>(blockIdx.x) * K * Z;
+  decode_frames<TRACK, POW2, false>(s, t, &s_frame, llr, bits, conv, next_frame, bel, nullptr,
+                                    SumProductState{c2v, K * Z}, B, Z, C, max_iterations);
 }
 
 using Kernel = decltype(&retire_minsum_kernel<true, true>);
@@ -905,6 +1078,42 @@ bool valid_layered_plan(int Z, int parts, int frames) {
   const int threads = retire_threads(Z, parts, frames);
   return parts >= 1 && frames >= 1 && threads <= kMaxThreads &&
          (frames <= kMaxGroups || threads == 32 * frames);
+}
+
+using ZlaneLayeredKernel = decltype(&retire_zlane_layered_kernel<true, true>);
+
+ZlaneLayeredKernel pick_zlane_layered_kernel(int track, int Z) {
+  const bool pow2 = (Z & (Z - 1)) == 0;
+  return track ? (pow2 ? &retire_zlane_layered_kernel<true, true>
+                       : &retire_zlane_layered_kernel<true, false>)
+               : (pow2 ? &retire_zlane_layered_kernel<false, true>
+                       : &retire_zlane_layered_kernel<false, false>);
+}
+
+// Structure and each frame's beliefs.
+long long zlane_layered_smem(int Z, int R, int C, int K, int G, int frames) {
+  return 4LL * (layered_structure_words(R, K, G) +
+                static_cast<long long>(frames) * layered_bel_words(Z, C));
+}
+
+// Z % 8 == 0, as the TPU kernel asks, keeps A 8-byte aligned in the slices.
+bool valid_zlane_layered_plan(int Z, int parts, int frames) {
+  return Z % 8 == 0 && valid_layered_plan(Z, parts, frames);
+}
+
+using ZlaneSumProductKernel = decltype(&retire_zlane_sumproduct_kernel<true, true>);
+
+ZlaneSumProductKernel pick_zlane_sumproduct_kernel(int track, int Z) {
+  const bool pow2 = (Z & (Z - 1)) == 0;
+  return track ? (pow2 ? &retire_zlane_sumproduct_kernel<true, true>
+                       : &retire_zlane_sumproduct_kernel<true, false>)
+               : (pow2 ? &retire_zlane_sumproduct_kernel<false, true>
+                       : &retire_zlane_sumproduct_kernel<false, false>);
+}
+
+// Structure and one frame's beliefs (C*Z floats).
+long long zlane_sumproduct_smem(int Z, int R, int C, int K, int parts) {
+  return 4LL * (structure_words(R, C, K, parts) + static_cast<long long>(C) * Z);
 }
 
 }  // namespace
@@ -1042,6 +1251,72 @@ int ldpc_retire_layered_occupancy(int Z, int R, int C, int K, int G, int parts, 
   const cudaError_t err =
       prepare(pick_layered_kernel(track, Z), layered_smem(Z, R, C, K, G, frames),
               retire_threads(Z, parts, frames), &blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// Layered min-sum at large Z, as ldpc_retire_layered: `scratch` holds grid
+// * frames slices of 3 R*Z words (A, then the uint32 state words W), one a
+// frame group.
+int ldpc_retire_zlane_layered(const void* llr, void* bits, void* conv, void* counter,
+                              void* scratch, const void* structure, int B, int Z, int R, int C,
+                              int K, int G, int T, float alpha, int track, int parts, int frames,
+                              int grid, void* stream) {
+  if (B < 1 || grid < 1 || G < 1 || !valid_zlane_layered_plan(Z, parts, frames))
+    return cudaErrorInvalidValue;
+  const long long smem = zlane_layered_smem(Z, R, C, K, G, frames);
+  const ZlaneLayeredKernel kernel = pick_zlane_layered_kernel(track, Z);
+  const int threads = retire_threads(Z, parts, frames);
+  cudaError_t err = prepare(kernel, smem, threads, nullptr);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(llr), static_cast<float*>(bits), static_cast<int*>(conv),
+      static_cast<int*>(counter), static_cast<unsigned*>(scratch),
+      static_cast<const int*>(structure), B, Z, R, C, K, G, T, alpha, parts, frames);
+  return cudaGetLastError();
+}
+
+long long ldpc_retire_zlane_layered_smem_bytes(int Z, int R, int C, int K, int G, int frames) {
+  return zlane_layered_smem(Z, R, C, K, G, frames);
+}
+
+int ldpc_retire_zlane_layered_occupancy(int Z, int R, int C, int K, int G, int parts, int frames,
+                                        int track) {
+  if (!valid_zlane_layered_plan(Z, parts, frames)) return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err = prepare(pick_zlane_layered_kernel(track, Z),
+                                  zlane_layered_smem(Z, R, C, K, G, frames),
+                                  retire_threads(Z, parts, frames), &blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// Sum-product flooding at large Z, as ldpc_retire_zlane: one frame group a
+// block; `scratch` holds grid slices of K*Z floats of c2v, one a block.
+int ldpc_retire_zlane_sumproduct(const void* llr, void* bits, void* conv, void* counter,
+                                 void* scratch, const void* structure, int B, int Z, int R, int C,
+                                 int K, int T, int track, int parts, int grid, void* stream) {
+  if (B < 1 || grid < 1 || !valid_zlane_plan(Z, parts)) return cudaErrorInvalidValue;
+  const long long smem = zlane_sumproduct_smem(Z, R, C, K, parts);
+  const ZlaneSumProductKernel kernel = pick_zlane_sumproduct_kernel(track, Z);
+  const int threads = retire_threads(Z, parts, 1);
+  cudaError_t err = prepare(kernel, smem, threads, nullptr);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(llr), static_cast<float*>(bits), static_cast<int*>(conv),
+      static_cast<int*>(counter), static_cast<float*>(scratch),
+      static_cast<const int*>(structure), B, Z, R, C, K, T, parts);
+  return cudaGetLastError();
+}
+
+long long ldpc_retire_zlane_sumproduct_smem_bytes(int Z, int R, int C, int K, int parts) {
+  return zlane_sumproduct_smem(Z, R, C, K, parts);
+}
+
+int ldpc_retire_zlane_sumproduct_occupancy(int Z, int R, int C, int K, int parts, int track) {
+  if (!valid_zlane_plan(Z, parts)) return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err =
+      prepare(pick_zlane_sumproduct_kernel(track, Z), zlane_sumproduct_smem(Z, R, C, K, parts),
+              retire_threads(Z, parts, 1), &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 

@@ -1,7 +1,7 @@
 """Fused min-sum / BP decoders: the whole decode loop in one CUDA kernel
 (counterpart of ``ldpc_tpu.ops.pallas_minsum``).
 
-Six hand-written kernels replace the two TPU kernels:
+Eight hand-written kernels replace the two TPU kernels:
 
 * ``fused_retire`` (``csrc/fused_retire.cu``, replaces
   ``pallas_minsum._kernel`` for scaled min-sum with the flooding schedule,
@@ -42,9 +42,19 @@ Six hand-written kernels replace the two TPU kernels:
   beliefs, channel LLRs) in shared memory.  Fits while one frame's state is
   below the block's shared memory (Z=32 on NR BG2: about 42 KB a frame);
   ``fused_kernel_fits`` decides for both.
+* ``retire_zlane_layered`` and ``retire_zlane_sumproduct`` (same file,
+  replace ``pallas_minsum._kernel_zlane`` for layered min-sum and for
+  sum-product flooding at large Z): ``retire_layered``'s and
+  ``retire_sumproduct``'s algorithms with the state split as
+  ``retire_zlane`` splits it.  Layered: the beliefs in shared memory, the
+  check state ((alpha*m1, alpha*m2) and the state words) in the frame
+  group's L2 slice; sum-product:
+  the beliefs in shared memory, c2v (K*Z floats) in the block's L2 slice,
+  one block an SM.  :func:`retire_zlane_layered_fits` and
+  :func:`retire_zlane_sumproduct_fits` decide.
 * ``fused_zlane`` (``csrc/fused_minsum.cu``, replaces
-  ``pallas_minsum._kernel_zlane`` for sum-product, the layered schedule and
-  min-sum flooding on codes ``retire_zlane`` does not take): the same
+  ``pallas_minsum._kernel_zlane`` for layered sum-product and for codes the
+  retiring kernels do not take, rows of more than 27 members): the same
   semantics when a frame's state exceeds shared memory (the 5G maximum
   Z=384): c2v lives in a global scratch buffer, beliefs in shared memory,
   and each block walks over frames one at a time.
@@ -91,9 +101,18 @@ _RETIRE_MAX_PARTS = 4  # parts a frame's rows and columns are split into
 # retire_layered: frames a block when a frame is one warp (32 warps); more
 # warps a frame take a named barrier each, so _RETIRE_MAX_GROUPS.
 _LAYERED_MAX_FRAMES = 32
+# retire_zlane_sumproduct: resident blocks an SM at most, each with a
+# 4*K*Z-byte c2v slice (302,592 bytes at NR BG2 Z=384): one keeps 132
+# slices (40 MB) within an H100's 50 MB L2, and a block of the most parts
+# beat every two-block plan at NR BG2 Z=224-384 (tools/probe_zlane_blocks.py).
+_ZLANE_SUMPRODUCT_BLOCKS_PER_SM = 1
 
+# The kernels of csrc/fused_retire.cu, each a route of its own.
+RETIRING = ("fused_retire", "retire_zlane", "retire_layered", "retire_sumproduct",
+            "retire_zlane_layered", "retire_zlane_sumproduct")
 LAUNCHES: dict[str, int] = {"fused_retire": 0, "fused": 0, "retire_zlane": 0, "fused_zlane": 0,
-                            "retire_layered": 0, "retire_sumproduct": 0}
+                            "retire_layered": 0, "retire_sumproduct": 0,
+                            "retire_zlane_layered": 0, "retire_zlane_sumproduct": 0}
 
 
 class _Structure(NamedTuple):
@@ -295,26 +314,89 @@ def retire_layered_smem_bytes(qc: QCLayout, frames: int = 1) -> int:
     return 4 * (_layered_structure_words(qc) + frames * frame)
 
 
-def retire_layered_plans(qc: QCLayout) -> list[tuple[int, int]]:
-    """The (parts, frames per block) a ``retire_layered`` launch may take:
-    parts up to the largest row group (a part runs one row of a group at a
-    time), at most 1024 threads a block, 32 frames of one warp or 15 of
-    more, within shared memory."""
+def _layered_plans(qc: QCLayout, smem_bytes) -> list[tuple[int, int]]:
+    """The (parts, frames per block) of a layered kernel whose block takes
+    ``smem_bytes(frames)`` of shared memory: parts up to the largest row
+    group (a part runs one row of a group at a time), at most 1024 threads a
+    block, 32 frames of one warp or 15 of more, within shared memory."""
     largest = max(np.diff(row_groups(_structure(qc))))
     plans = []
     for p in range(1, min(largest, _RETIRE_MAX_PARTS) + 1):
         one_warp = retire_threads(qc, p, 1) == 32
         for f in range(1, (_LAYERED_MAX_FRAMES if one_warp else _RETIRE_MAX_GROUPS) + 1):
             if retire_threads(qc, p, f) <= _RETIRE_MAX_THREADS and \
-                    retire_layered_smem_bytes(qc, f) <= _SMEM_BUDGET:
+                    smem_bytes(f) <= _SMEM_BUDGET:
                 plans.append((p, f))
     return plans
+
+
+def retire_layered_plans(qc: QCLayout) -> list[tuple[int, int]]:
+    """The (parts, frames per block) a ``retire_layered`` launch may take
+    (:func:`_layered_plans`)."""
+    return _layered_plans(qc, lambda f: retire_layered_smem_bytes(qc, f))
 
 
 def retire_layered_fits(qc: QCLayout) -> bool:
     """Whether ``retire_layered`` takes the code: rows of at most 27 members
     and a frame within a block."""
     return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_layered_plans(qc))
+
+
+def retire_zlane_layered_smem_bytes(qc: QCLayout, frames: int = 1) -> int:
+    """Dynamic shared memory of one ``retire_zlane_layered`` block:
+    ``retire_layered``'s structure plus, per frame, the beliefs (C*Z
+    float32, rounded up to 16 bytes)."""
+    frame = -(-qc.num_base_cols * qc.Z // 4) * 4
+    return 4 * (_layered_structure_words(qc) + frames * frame)
+
+
+def retire_zlane_layered_scratch_bytes(qc: QCLayout) -> int:
+    """Global scratch of one ``retire_zlane_layered`` frame group:
+    (alpha*m1, alpha*m2), then a state word (argmin and signs), per lifted
+    check."""
+    return 12 * qc.num_base_rows * qc.Z
+
+
+def retire_zlane_layered_plans(qc: QCLayout) -> list[tuple[int, int]]:
+    """The (parts, frames per block) a ``retire_zlane_layered`` launch
+    may take (:func:`_layered_plans`), for Z % 8 == 0."""
+    if qc.Z % 8:
+        return []
+    return _layered_plans(qc, lambda f: retire_zlane_layered_smem_bytes(qc, f))
+
+
+def retire_zlane_layered_fits(qc: QCLayout) -> bool:
+    """Whether ``retire_zlane_layered`` takes the code: Z % 8 == 0 (as the
+    TPU kernel), rows of at most 27 members and a frame's beliefs within a
+    block."""
+    return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_zlane_layered_plans(qc))
+
+
+def retire_zlane_sumproduct_smem_bytes(qc: QCLayout, parts: int = 1) -> int:
+    """Dynamic shared memory of one ``retire_zlane_sumproduct`` block (one
+    frame): structure plus the beliefs (C*Z float32)."""
+    return 4 * (_retire_structure_words(qc, parts) + qc.num_base_cols * qc.Z)
+
+
+def retire_zlane_sumproduct_scratch_bytes(qc: QCLayout) -> int:
+    """Global scratch of one ``retire_zlane_sumproduct`` block: c2v, one
+    float32 per lifted edge."""
+    return 4 * qc.num_base_edges * qc.Z
+
+
+def retire_zlane_sumproduct_plans(qc: QCLayout) -> list[int]:
+    """The parts a ``retire_zlane_sumproduct`` frame may be split into: at
+    most 1024 threads a block, within shared memory."""
+    return [p for p in range(1, _RETIRE_MAX_PARTS + 1)
+            if retire_threads(qc, p, 1) <= _RETIRE_MAX_THREADS
+            and retire_zlane_sumproduct_smem_bytes(qc, p) <= _SMEM_BUDGET]
+
+
+def retire_zlane_sumproduct_fits(qc: QCLayout) -> bool:
+    """Whether ``retire_zlane_sumproduct`` takes the code: Z % 8 == 0, rows
+    of at most 27 members and a frame's beliefs within a block."""
+    return (qc.Z % 8 == 0 and qc.dr_max <= _RETIRE_MAX_DEGREE
+            and bool(retire_zlane_sumproduct_plans(qc)))
 
 
 def _balanced_bounds(costs, parts: int) -> list[int]:
@@ -595,6 +677,19 @@ _RETIRE_SIGNATURES = {
     "ldpc_retire_sumproduct_smem_bytes": ([_I] * 7, ctypes.c_longlong),
     # Z, R, C, K, parts, frames_per_block, staged, track -> blocks per SM
     "ldpc_retire_sumproduct_occupancy": ([_I] * 8, _I),
+    # llr, bits, conv, counter, scratch, structure, B, Z, R, C, K, G, T,
+    # alpha, track, parts, frames_per_block, grid, stream
+    "ldpc_retire_zlane_layered": ([_P] * 6 + [_I] * 7 + [_F] + [_I] * 4 + [_P], _I),
+    # Z, R, C, K, G, frames_per_block
+    "ldpc_retire_zlane_layered_smem_bytes": ([_I] * 6, ctypes.c_longlong),
+    # Z, R, C, K, G, parts, frames_per_block, track -> blocks per SM
+    "ldpc_retire_zlane_layered_occupancy": ([_I] * 8, _I),
+    # llr, bits, conv, counter, scratch, structure, B, Z, R, C, K, T,
+    # track, parts, grid, stream
+    "ldpc_retire_zlane_sumproduct": ([_P] * 6 + [_I] * 9 + [_P], _I),
+    "ldpc_retire_zlane_sumproduct_smem_bytes": ([_I] * 5, ctypes.c_longlong),
+    # Z, R, C, K, parts, track -> blocks per SM
+    "ldpc_retire_zlane_sumproduct_occupancy": ([_I] * 6, _I),
     "ldpc_retire_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -688,22 +783,61 @@ def retire_layered_plan(qc: QCLayout, track_convergence: bool, parts: int | None
     return best
 
 
+def retire_zlane_layered_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
+                              lib=None) -> tuple[int, int, int]:
+    """(parts, frames per block, resident blocks per SM) of
+    ``retire_zlane_layered``: of :func:`retire_zlane_layered_plans` with
+    ``parts`` if given, the most resident frames per SM by the runtime's
+    occupancy query, then the most parts, then the fewest frames per
+    block."""
+    lib = lib or retire_kernel_library()
+    G = len(row_groups(_structure(qc))) - 1
+    dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges, G)
+    best, key = (0, 0, 0), (0, 0, 0)
+    for p, f in retire_zlane_layered_plans(qc):
+        if parts is not None and p != parts:
+            continue
+        per_sm = lib.ldpc_retire_zlane_layered_occupancy(*dims, p, f, int(track_convergence))
+        if (per_sm * f, p, -f) > key:
+            best, key = (p, f, per_sm), (per_sm * f, p, -f)
+    return best
+
+
+def retire_zlane_sumproduct_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
+                                 lib=None) -> tuple[int, int]:
+    """(parts, resident blocks per SM) of ``retire_zlane_sumproduct``: of
+    :func:`retire_zlane_sumproduct_plans` (``parts`` if given), with the
+    blocks an SM capped at ``_ZLANE_SUMPRODUCT_BLOCKS_PER_SM`` (what the L2
+    holds), the most resident warps per SM by the runtime's occupancy
+    query, then the most parts."""
+    lib = lib or retire_kernel_library()
+    dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
+    best, key = (0, 0), (0, 0)
+    for p in retire_zlane_sumproduct_plans(qc):
+        if parts is not None and p != parts:
+            continue
+        per_sm = min(_ZLANE_SUMPRODUCT_BLOCKS_PER_SM, lib.ldpc_retire_zlane_sumproduct_occupancy(
+            *dims, p, int(track_convergence)))
+        if (per_sm * p, p) > key:
+            best, key = (p, per_sm), (per_sm * p, p)
+    return best
+
+
 def _route(kind: str, qc: QCLayout, mode: str, schedule: str) -> str:
     """The kernel a decoder of ``kind`` launches (its ``LAUNCHES`` key):
     min-sum, and sum-product flooding, on the retiring kernel of its size
-    and schedule where that takes the code, the rest on ``kind``'s own."""
-    if mode == "sumproduct" and kind == "fused" and schedule == "flooding" \
-            and retire_sumproduct_fits(qc):
-        return "retire_sumproduct"
-    if mode == "minsum" and kind == "fused":
-        if schedule == "flooding" and retire_kernel_fits(qc):
-            return "fused_retire"
-        if schedule == "layered" and retire_layered_fits(qc):
-            return "retire_layered"
-    if mode == "minsum" and kind == "fused_zlane" and schedule == "flooding" \
-            and retire_zlane_fits(qc):
-        return "retire_zlane"
-    return kind
+    and schedule where that takes the code, the rest (layered sum-product,
+    wider rows) on ``kind``'s own."""
+    fits = {("fused", "minsum", "flooding"): ("fused_retire", retire_kernel_fits),
+            ("fused", "minsum", "layered"): ("retire_layered", retire_layered_fits),
+            ("fused", "sumproduct", "flooding"): ("retire_sumproduct", retire_sumproduct_fits),
+            ("fused_zlane", "minsum", "flooding"): ("retire_zlane", retire_zlane_fits),
+            ("fused_zlane", "minsum", "layered"): ("retire_zlane_layered",
+                                                   retire_zlane_layered_fits),
+            ("fused_zlane", "sumproduct", "flooding"): ("retire_zlane_sumproduct",
+                                                        retire_zlane_sumproduct_fits)}
+    route, takes = fits.get((kind, mode, schedule), (kind, None))
+    return route if takes is None or takes(qc) else kind
 
 
 def _check_llr(llr: torch.Tensor, device: torch.device, n: int) -> None:
@@ -739,11 +873,13 @@ class FusedDecoder:
     ``fused_retire`` (:func:`retire_kernel_fits`), min-sum with the layered
     schedule to ``retire_layered`` (:func:`retire_layered_fits`) and
     sum-product with the flooding schedule to ``retire_sumproduct``
-    (:func:`retire_sumproduct_fits`) on the codes they take, ``kind``
-    "fused_zlane" min-sum flooding to ``retire_zlane``
-    (:func:`retire_zlane_fits`); the rest (layered sum-product, wider rows)
-    runs on the ``kind`` kernel.  ``retire`` says whether the route is one
-    of the four retiring kernels.
+    (:func:`retire_sumproduct_fits`) on the codes they take; ``kind``
+    "fused_zlane" routes them to ``retire_zlane``, ``retire_zlane_layered``
+    and ``retire_zlane_sumproduct`` (:func:`retire_zlane_fits`,
+    :func:`retire_zlane_layered_fits`, :func:`retire_zlane_sumproduct_fits`);
+    the rest (layered sum-product, wider rows) runs on the ``kind`` kernel.
+    ``retire`` says whether the route is one of the six retiring kernels
+    (``RETIRING``).
     """
 
     def __init__(self, kind: str, qc: QCLayout, max_iterations: int, alpha: float,
@@ -762,17 +898,16 @@ class FusedDecoder:
         self.schedule = schedule
         self.device = device
         self.route = _route(kind, qc, mode, schedule)
-        self.retire = self.route in ("fused_retire", "retire_zlane", "retire_layered",
-                                     "retire_sumproduct")
-        # Decoders on retire_zlane, retire_layered and retire_sumproduct keep
-        # the CSR structure for _launch_zlane and _launch_fused.
+        self.retire = self.route in RETIRING
+        # Decoders on every retiring kernel but fused_retire keep the CSR
+        # structure for _launch_zlane and _launch_fused.
         self.graph = None if self.route == "fused_retire" else torch.as_tensor(
             _graph_array(self.st), device=device)
         self._plain_index: dict[torch.device, _PlainIndex] = {}
         # Retiring kernels' launch plans (parts, frames per block, resident
         # blocks, structure on that card, staged LLRs) by (card, parts asked
         # for), made at the first launch on each.
-        self._retire_plans: dict[tuple[torch.device, int | None], tuple] = {}
+        self._retire_plans: dict[tuple, tuple] = {}
 
     def __call__(self, llr: torch.Tensor):
         _check_llr(llr, self.device, self.n)
@@ -798,8 +933,10 @@ class FusedDecoder:
 
     def _launch_zlane(self, llr: torch.Tensor):
         """``fused_zlane`` on ``llr`` (contiguous, on a card) whatever the
-        route: the kernel min-sum flooding ran on before ``retire_zlane``,
-        kept so the two can be timed side by side."""
+        route: the kernel min-sum flooding, layered min-sum and sum-product
+        flooding ran on before ``retire_zlane``, ``retire_zlane_layered``
+        and ``retire_zlane_sumproduct``, kept so each can be timed beside
+        it."""
         if self.kind != "fused_zlane":
             raise ValueError(f"a {self.kind} decoder has no zlane launch")
         return self._launch_csr(llr, "fused_zlane")
@@ -846,12 +983,12 @@ class FusedDecoder:
         return bits, conv
 
     def _launch_retire(self, llr: torch.Tensor, parts: int | None = None):
-        """The route's retiring kernel (``fused_retire``, ``retire_zlane``,
-        ``retire_layered`` or ``retire_sumproduct``) on ``llr`` (contiguous,
-        on a card); ``parts`` fixes the parts a frame is split into (for
-        ``retire_layered``, the rows of a row group it runs side by side)
-        instead of the plan's choice.  ``retire_zlane`` runs at most
-        ``batch_tile`` frames in flight, if given."""
+        """The route's retiring kernel (one of ``RETIRING``) on ``llr``
+        (contiguous, on a card); ``parts`` fixes the parts a frame is split
+        into (for the layered kernels, the rows of a row group it runs side
+        by side) instead of the plan's choice.  The large-Z kernels run at
+        most ``batch_tile`` frames in flight, if given (at least one
+        block's)."""
         st = self.st
         B = llr.shape[0]
         bits = torch.empty_like(llr)
@@ -859,61 +996,80 @@ class FusedDecoder:
         if B == 0:
             return bits, conv
         lib = retire_kernel_library()
-        zlane = self.route == "retire_zlane"
-        layered = self.route == "retire_layered"
-        sumproduct = self.route == "retire_sumproduct"
+        route = self.route
         with torch.cuda.device(llr.device):
-            plan = self._retire_plans.get((llr.device, parts))
+            cache_key = (llr.device, parts)
+            plan = self._retire_plans.get(cache_key)
             if plan is None:
-                staged = False
-                if zlane:
+                # flag: staged LLRs (retire_sumproduct).
+                flag, frames = False, 1
+                if route == "retire_zlane":
                     p, per_sm = retire_zlane_plan(self.qc, self.track_convergence, parts, lib)
-                    frames = 1
-                elif layered:
+                elif route == "retire_zlane_sumproduct":
+                    p, per_sm = retire_zlane_sumproduct_plan(self.qc, self.track_convergence,
+                                                             parts, lib)
+                elif route == "retire_zlane_layered":
+                    p, frames, per_sm = retire_zlane_layered_plan(self.qc, self.track_convergence,
+                                                                  parts, lib)
+                elif route == "retire_layered":
                     p, frames, per_sm = retire_layered_plan(self.qc, self.track_convergence,
                                                             parts, lib)
-                elif sumproduct:
-                    p, frames, staged, per_sm = retire_sumproduct_plan(
+                elif route == "retire_sumproduct":
+                    p, frames, flag, per_sm = retire_sumproduct_plan(
                         self.qc, self.track_convergence, parts, lib)
                 else:
                     p, frames, per_sm = retire_plan(self.qc, self.track_convergence, parts, lib)
-                resident = _resident_grid(per_sm, self.route, llr.device)
-                table = (_layered_structure(st) if layered
-                         else _retire_structure(st, p, per_edge=sumproduct))
+                resident = _resident_grid(per_sm, route, llr.device)
+                table = (_layered_structure(st) if route in ("retire_layered",
+                                                             "retire_zlane_layered")
+                         else _retire_structure(st, p, per_edge=route in (
+                             "retire_sumproduct", "retire_zlane_sumproduct")))
                 structure = torch.as_tensor(table, device=llr.device)
-                plan = self._retire_plans[(llr.device, parts)] = (p, frames, resident, structure,
-                                                                  staged)
-            p, frames, resident, structure, staged = plan
+                plan = self._retire_plans[cache_key] = (p, frames, resident, structure, flag)
+            p, frames, resident, structure, flag = plan
             grid = min(resident, -(-B // frames))
+            if route in ("retire_zlane", "retire_zlane_layered", "retire_zlane_sumproduct") \
+                    and self.batch_tile:
+                grid = min(grid, max(1, self.batch_tile // frames))
             counter = torch.zeros((1,), dtype=torch.int32, device=llr.device)
             stream = torch.cuda.current_stream(llr.device).cuda_stream
             pointers = (llr.data_ptr(), bits.data_ptr(), conv.data_ptr(), counter.data_ptr())
-            args = (B, st.Z, st.R, st.C, st.K, self.max_iterations, self.alpha,
-                    int(self.track_convergence), p)
-            if zlane:
-                grid = min(grid, self.batch_tile or grid)
+            track = int(self.track_convergence)
+            args = (B, st.Z, st.R, st.C, st.K, self.max_iterations, self.alpha, track, p)
+            G = structure.shape[0] - 2 * st.K - st.R - 2
+            if route == "retire_zlane":
                 scratch = torch.empty((grid * retire_zlane_scratch_bytes(self.qc),),
                                       dtype=torch.uint8, device=llr.device)
                 rc = lib.ldpc_retire_zlane(*pointers, scratch.data_ptr(), structure.data_ptr(),
                                            *args, grid, stream)
-            elif sumproduct:
+            elif route == "retire_zlane_layered":
+                scratch = torch.empty(
+                    (grid * frames * retire_zlane_layered_scratch_bytes(self.qc),),
+                    dtype=torch.uint8, device=llr.device)
+                rc = lib.ldpc_retire_zlane_layered(
+                    *pointers, scratch.data_ptr(), structure.data_ptr(), B, st.Z, st.R, st.C,
+                    st.K, G, self.max_iterations, self.alpha, track, p, frames, grid, stream)
+            elif route == "retire_zlane_sumproduct":
+                scratch = torch.empty((grid * retire_zlane_sumproduct_scratch_bytes(self.qc),),
+                                      dtype=torch.uint8, device=llr.device)
+                rc = lib.ldpc_retire_zlane_sumproduct(
+                    *pointers, scratch.data_ptr(), structure.data_ptr(), B, st.Z, st.R, st.C,
+                    st.K, self.max_iterations, track, p, grid, stream)
+            elif route == "retire_sumproduct":
                 rc = lib.ldpc_retire_sumproduct(*pointers, structure.data_ptr(), B, st.Z, st.R,
-                                                st.C, st.K, self.max_iterations,
-                                                int(self.track_convergence), p, frames,
-                                                int(staged), grid, stream)
-            elif layered:
-                G = structure.shape[0] - 2 * st.K - st.R - 2
+                                                st.C, st.K, self.max_iterations, track, p,
+                                                frames, int(flag), grid, stream)
+            elif route == "retire_layered":
                 rc = lib.ldpc_retire_layered(*pointers, structure.data_ptr(), B, st.Z, st.R,
                                              st.C, st.K, G, self.max_iterations, self.alpha,
-                                             int(self.track_convergence), p, frames, grid,
-                                             stream)
+                                             track, p, frames, grid, stream)
             else:
                 rc = lib.ldpc_retire_minsum(*pointers, structure.data_ptr(), *args, frames, grid,
                                             stream)
         if rc != 0:
             msg = lib.ldpc_retire_error_string(rc).decode()
-            raise RuntimeError(f"{self.route} kernel launch failed: CUDA error {rc} ({msg})")
-        LAUNCHES[self.route] += 1
+            raise RuntimeError(f"{route} kernel launch failed: CUDA error {rc} ({msg})")
+        LAUNCHES[route] += 1
         return bits, conv
 
 
@@ -991,15 +1147,21 @@ def make_fused_minsum_zlane(
     """Large-Z fused decoder: (B, n) LLRs -> (bits, conv_iter).
 
     Same semantics as :func:`make_fused_minsum`, for Z where one frame's state
-    exceeds a block's shared memory.  Min-sum with the flooding schedule
-    runs on ``retire_zlane`` on the codes it takes
-    (:func:`retire_zlane_fits`): one frame group a block, a persistent grid
-    of the blocks that can be resident, each with R*Z*4 bytes of global
-    state-word scratch.  Sum-product, the layered schedule and the other
-    codes run on ``fused_zlane``, one frame per thread block at a time, each
-    block with K*Z*4 bytes of global c2v scratch (default: two blocks per
-    streaming multiprocessor).  ``batch_tile``, for either, caps the frames
-    in flight (one a block).  Requires Z % 8 == 0, as the JAX builder does.
+    exceeds a block's shared memory.  On the codes they take, min-sum runs
+    on ``retire_zlane`` (flooding, :func:`retire_zlane_fits`) and on
+    ``retire_zlane_layered`` (layered, :func:`retire_zlane_layered_fits`),
+    sum-product flooding on ``retire_zlane_sumproduct``
+    (:func:`retire_zlane_sumproduct_fits`): persistent grids of the blocks
+    that can be resident, frames that leave the kernel the iteration they
+    converge, the beliefs in shared memory and the check state, or part of
+    it, in each frame group's slice of a global scratch that the L2 holds
+    (R*Z*4 bytes of state words; K*Z*4 bytes of c2v for sum-product, one
+    block an SM).  Layered sum-product and codes with rows of more than 27
+    members run on ``fused_zlane``, one frame per thread block at a time,
+    each block with K*Z*4 bytes of global c2v scratch (default: two blocks
+    per streaming multiprocessor).  ``batch_tile``, for any of them, caps
+    the frames in flight (at least one block's).  Requires Z % 8 == 0, as
+    the JAX builder does.
     """
     _check_flags(mode, schedule, track_convergence, early_exit)
     Z = qc.Z

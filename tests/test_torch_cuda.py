@@ -60,12 +60,15 @@ def test_kernel_matches_plain(kind, name, Z, batch, mode, schedule, track, early
                 schedule=schedule)
     llr = _llr(qc.num_vars, batch, 1.0, seed=Z)
     # min-sum flooding runs on fused_retire / retire_zlane, layered min-sum
-    # on retire_layered and sum-product flooding on retire_sumproduct (fused
-    # decoders), the rest on fused / fused_zlane
+    # on retire_layered / retire_zlane_layered and sum-product flooding on
+    # retire_sumproduct / retire_zlane_sumproduct, the rest (layered
+    # sum-product) on fused / fused_zlane
     retiring = {("minsum", "fused", "flooding"): "fused_retire",
                 ("minsum", "fused_zlane", "flooding"): "retire_zlane",
                 ("minsum", "fused", "layered"): "retire_layered",
-                ("sumproduct", "fused", "flooding"): "retire_sumproduct"}
+                ("minsum", "fused_zlane", "layered"): "retire_zlane_layered",
+                ("sumproduct", "fused", "flooding"): "retire_sumproduct",
+                ("sumproduct", "fused_zlane", "flooding"): "retire_zlane_sumproduct"}
     assert dec.route == retiring.get((mode, kind, schedule), kind)
     before = fm.LAUNCHES[dec.route]
     bits_k, conv_k = dec(llr)
@@ -261,7 +264,8 @@ def test_minsum_flooding_launches_retire_kernel():
     torch.cuda.synchronize()
     moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
     assert moved == {"fused_retire": 2, "fused": 1, "retire_zlane": 0, "fused_zlane": 0,
-                     "retire_layered": 2, "retire_sumproduct": 1}
+                     "retire_layered": 2, "retire_sumproduct": 1, "retire_zlane_layered": 0,
+                     "retire_zlane_sumproduct": 0}
 
 
 def test_zlane_frames_per_block_loop():
@@ -343,8 +347,8 @@ def test_retire_zlane_parts(parts):
 
 def test_minsum_flooding_at_z384_launches_retire_zlane():
     """Min-sum flooding at Z=384 (builder and serving object) launches
-    retire_zlane and no other kernel; sum-product and the layered schedule
-    launch fused_zlane."""
+    retire_zlane and no other kernel; sum-product flooding launches
+    retire_zlane_sumproduct and the layered schedule retire_zlane_layered."""
     from ldpc_tpu_torch.models.classical import MinSumScaledDecoder
 
     qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 384)
@@ -355,12 +359,144 @@ def test_minsum_flooding_at_z384_launches_retire_zlane():
     torch.cuda.synchronize()
     moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
     assert moved == {"fused_retire": 0, "fused": 0, "retire_zlane": 2, "fused_zlane": 0,
-                     "retire_layered": 0, "retire_sumproduct": 0}
+                     "retire_layered": 0, "retire_sumproduct": 0, "retire_zlane_layered": 0,
+                     "retire_zlane_sumproduct": 0}
     fm.make_fused_minsum_zlane(qc, 5, mode="sumproduct")(llr)
     fm.make_fused_minsum_zlane(qc, 5, schedule="layered")(llr)
     torch.cuda.synchronize()
-    assert fm.LAUNCHES["fused_zlane"] == before["fused_zlane"] + 2
+    assert fm.LAUNCHES["retire_zlane_sumproduct"] == before["retire_zlane_sumproduct"] + 1
+    assert fm.LAUNCHES["retire_zlane_layered"] == before["retire_zlane_layered"] + 1
+    assert fm.LAUNCHES["fused_zlane"] == before["fused_zlane"]
     assert fm.LAUNCHES["retire_zlane"] == before["retire_zlane"] + 2
+
+
+# retire_zlane_layered and retire_zlane_sumproduct (layered min-sum and
+# sum-product flooding at large Z): Z=256 is a power of two, 288 and 384 are
+# not.
+ZLANE_PATHS = {"layered": {"schedule": "layered"}, "sumproduct": {"mode": "sumproduct"}}
+
+
+def _zlane_decoder(qc, path: str, T: int = 12, **kw):
+    dec = fm.make_fused_minsum_zlane(qc, T, 0.75 if path == "layered" else 1.0,
+                                     **ZLANE_PATHS[path], **kw)
+    assert dec.route == f"retire_zlane_{path}"
+    return dec
+
+
+def _assert_zlane_path(dec, llr, out):
+    """Layered: bits and conv_iter identical to the plain version;
+    sum-product: the sum-product bars against the plain version and
+    identical to fused_zlane (the same float operations in the same order).
+    Both identical to fused_zlane, through the side door."""
+    if dec.mode == "minsum":
+        _assert_identical(out, dec.plain(llr))
+    else:
+        bits_p, conv_p = dec.plain(llr)
+        assert_decoder_parity("sumproduct", to_numpy(out[0]), to_numpy(out[1]), to_numpy(bits_p),
+                              to_numpy(conv_p))
+    _assert_identical(dec._launch_zlane(llr), out)
+
+
+@pytest.mark.parametrize("path", ["layered", "sumproduct"])
+@pytest.mark.parametrize("track,early_exit", [TRACKING, THROUGHPUT, EARLY_EXIT])
+@pytest.mark.parametrize("Z", [256, 288, 384])
+def test_retire_zlane_paths_match_plain(Z, track, early_exit, path):
+    """Frames that never converge, that converge at iteration 1, a mix, and
+    quantised LLRs with ties and exact +0.0 and -0.0: one launch of the
+    path's kernel, no other."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), Z)
+    dec = _zlane_decoder(qc, path, track_convergence=track, early_exit=early_exit)
+    for i, kind in enumerate(ZLANE_KINDS):
+        llr = _hard_llrs(kind, qc.num_vars, 37, seed=Z + i)
+        before = dict(fm.LAUNCHES)
+        out = dec(llr)
+        moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
+        assert moved == {k: int(k == dec.route) for k in before}
+        _assert_zlane_path(dec, llr, out)
+        conv = out[1]
+        if track and kind == "converged_at_1":
+            assert bool((conv == 1).all())
+        if kind == "never_converged" or not track:
+            assert bool((conv == 12).all())
+
+
+@pytest.mark.parametrize("path", ["layered", "sumproduct"])
+@pytest.mark.parametrize("batch", [1, 7, 513])
+def test_retire_zlane_paths_batches(batch, path):
+    """One frame, fewer frames than blocks, and more frames than the frame
+    groups that can be resident: each takes frames from the counter."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 384)
+    dec = _zlane_decoder(qc, path, T=20)
+    llr = _llr(qc.num_vars, batch, 1.5, seed=batch)
+    _assert_zlane_path(dec, llr, dec(llr))
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3])
+def test_retire_zlane_layered_parts(parts):
+    """Every split of a frame's row groups at Z=256 (8 warps a part), ties
+    and zeros, each group serving many frames (batch_tile=3); and at Z=384,
+    1 and 2 parts."""
+    for Z in (256, 384):
+        qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), Z)
+        if parts not in {p for p, _ in fm.retire_zlane_layered_plans(qc)}:
+            continue
+        llr = _hard_llrs("ties_zeros", qc.num_vars, 29, seed=parts)
+        for track in (True, False):
+            dec = _zlane_decoder(qc, "layered", track_convergence=track, batch_tile=3)
+            _assert_identical(dec._launch_retire(llr, parts=parts), dec.plain(llr))
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 4])
+def test_retire_zlane_sumproduct_parts(parts):
+    """Every split of a frame into parts at Z=256 (8 warps a part), ties and
+    zeros, each block serving many frames (batch_tile=3): identical to
+    fused_zlane."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 256)
+    llr = _hard_llrs("ties_zeros", qc.num_vars, 29, seed=parts)
+    for track in (True, False):
+        dec = _zlane_decoder(qc, "sumproduct", track_convergence=track, batch_tile=3)
+        _assert_zlane_path(dec, llr, dec._launch_retire(llr, parts=parts))
+
+
+@pytest.mark.parametrize("path", ["layered", "sumproduct"])
+def test_retire_zlane_paths_batch_tile(path):
+    """batch_tile caps the frames in flight: 1, 2 and 5 frame groups serve
+    a batch of 23, outputs identical to the uncapped launch."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 384)
+    llr = _llr(qc.num_vars, 23, 1.0, seed=4)
+    ref = _zlane_decoder(qc, path)(llr)
+    for tile in (1, 2, 5):
+        out = _zlane_decoder(qc, path, batch_tile=tile)(llr)
+        _assert_identical(out, ref)
+    _assert_zlane_path(_zlane_decoder(qc, path), llr, ref)
+
+
+@pytest.mark.parametrize("path", ["layered", "sumproduct"])
+def test_retire_zlane_paths_refused_plan_raises(path):
+    """A plan the kernel cannot take raises; nothing falls back to
+    fused_zlane."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 384)
+    dec = _zlane_decoder(qc, path, T=5)
+    before = dict(fm.LAUNCHES)
+    with pytest.raises(RuntimeError, match=dec.route):
+        dec._launch_retire(_llr(qc.num_vars, 3, 1.0, seed=1), parts=5)
+    assert fm.LAUNCHES == before
+
+
+def test_probe_zlane_blocks_runs():
+    """The blocks-per-SM probe (tools/probe_zlane_blocks.py) times every
+    parts count under the plan's cap and leaves the cap as it found it."""
+    from ldpc_tpu_torch.tools import probe_zlane_blocks
+
+    cap = fm._ZLANE_SUMPRODUCT_BLOCKS_PER_SM
+    out = probe_zlane_blocks.main(["--z", "384", "--batch", "40", "--rounds", "1",
+                                   "--reps", "1"])
+    assert fm._ZLANE_SUMPRODUCT_BLOCKS_PER_SM == cap
+    case = out["cases"]["Z=384"]
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 384)
+    assert {f"parts={p} blocks_per_sm=1" for p in fm.retire_zlane_sumproduct_plans(qc)} <= \
+        set(case["median_ms"])
+    assert all(ms > 0 for ms in case["median_ms"].values())
 
 
 # retire_sumproduct (sum-product flooding) at every shape it serves: Z=4 (one

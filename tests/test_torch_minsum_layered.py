@@ -320,10 +320,11 @@ def test_plans_and_shared_memory():
 
 
 def test_routes_and_launch_counters():
-    """Layered min-sum routes to retire_layered; sum-product layered, rows
-    over 27 members and fused_zlane keep their kernels, min-sum and
-    sum-product flooding go to theirs; the serving object reaches
-    retire_layered; a CPU tensor moves no launch counter."""
+    """Layered min-sum routes to retire_layered (retire_zlane_layered on a
+    fused_zlane decoder); sum-product layered and rows over 27 members keep
+    their kernels, min-sum and sum-product flooding go to theirs; the
+    serving object reaches retire_layered; a CPU tensor moves no launch
+    counter."""
     from test_torch_minsum_retire import wide_row_shifts
 
     qc = _qc("nr_2_0_32", 32)
@@ -341,7 +342,7 @@ def test_routes_and_launch_counters():
     assert not fm.retire_layered_fits(wide)
     assert fm.make_fused_minsum(wide, 5, schedule="layered", device="cpu").route == "fused"
     zl = fm.make_fused_minsum_zlane(_qc("nr_2_0_32", 384), 5, schedule="layered", device="cpu")
-    assert zl.route == "fused_zlane"
+    assert zl.route == "retire_zlane_layered"
     assert "retire_layered" in fm.LAUNCHES
     launches = dict(fm.LAUNCHES)
     small = _qc("nr_2_0_4", 4)

@@ -293,9 +293,9 @@ def test_structure_carries_edge_offsets():
 def test_routes_and_launch_counters():
     """Sum-product flooding (builders and serving object) routes to
     retire_sumproduct where the retiring kernels take the code, keeping the
-    CSR structure for the replaced kernel; sum-product layered, rows over 27
-    members and fused_zlane keep their kernels; a CPU tensor moves no launch
-    counter."""
+    CSR structure for the replaced kernel (retire_zlane_sumproduct on a
+    fused_zlane decoder); sum-product layered and rows over 27 members keep
+    their kernels; a CPU tensor moves no launch counter."""
     from test_torch_minsum_retire import wide_row_shifts
 
     for name, Z in MODEL_CODES + [("nr_2_0_32", 64)]:
@@ -313,7 +313,7 @@ def test_routes_and_launch_counters():
     assert not fm.retire_sumproduct_fits(wide) and _bp(wide, 5).route == "fused"
     assert fm.retire_sumproduct_fits(wide_row_code(20))
     zl = fm.make_fused_minsum_zlane(_qc("nr_2_0_32", 384), 5, mode="sumproduct", device="cpu")
-    assert zl.route == "fused_zlane"
+    assert zl.route == "retire_zlane_sumproduct"
     assert "retire_sumproduct" in fm.LAUNCHES
     launches = dict(fm.LAUNCHES)
     small = _qc("nr_2_0_4", 4)
