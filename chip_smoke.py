@@ -8,13 +8,14 @@ Phases, one JSON line each:
 2. build   — compile every CUDA source of the port with nvcc (sm_90a), one
              process per source, all started together; the
              main-path kernels' resident blocks per SM from the runtime
-             (retire_zlane's, retire_zlane_layered's and
-             retire_zlane_sumproduct's with their plans at Z=384,
-             retire_layered's and retire_sumproduct's with their plans at
-             Z=32), registers per
-             kernel (retire_layered's and retire_sumproduct's registers and
-             spills by name); each retiring kernel's shared-memory bytes
-             from the library against the wrapper's, every plan;
+             (retire_zlane's, retire_zlane_layered's,
+             retire_zlane_sumproduct's and retire_zlane_layered_sumproduct's
+             with their plans at Z=384, retire_layered's,
+             retire_sumproduct's and retire_layered_sumproduct's with their
+             plans at Z=32), registers per kernel (the four layered kernels'
+             and retire_sumproduct's registers and spills by name); each
+             retiring kernel's shared-memory bytes from the library against
+             the wrapper's, every plan;
              the tensor-core kernels' (msg_gnn, msg_gnn_v2, msg_gnn_v3,
              msg_gnn_v4, corrected_v2, corrected) block shapes (their
              occupancy plans)
@@ -26,29 +27,29 @@ Phases, one JSON line each:
              throughput mode, early exit}: make_fused_minsum (min-sum
              flooding on fused_retire, layered min-sum on retire_layered,
              sum-product flooding on retire_sumproduct, layered sum-product
-             on fused) at toy_4x8 Z=4,
+             on retire_layered_sumproduct) at toy_4x8 Z=4,
              nr_2_0_4 Z=4 and nr_2_0_32 Z=24, 32 and 64 (batches that are not
              a multiple of the block's frames), make_fused_minsum_zlane
              (min-sum flooding on retire_zlane, layered min-sum on
              retire_zlane_layered, sum-product flooding on
-             retire_zlane_sumproduct, layered sum-product on fused_zlane) at
-             nr_2_0_32 Z=384; fused_retire, retire_layered and
-             retire_sumproduct at Z=32 and retire_zlane,
-             retire_zlane_layered and retire_zlane_sumproduct at Z=384 and
-             Z=256 also at -2, 1 and 6 dB and on
+             retire_zlane_sumproduct, layered sum-product on
+             retire_zlane_layered_sumproduct) at nr_2_0_32 Z=384; the four
+             Z=32 kernels and the four large-Z kernels at Z=384 and Z=256
+             also at -2, 1 and 6 dB and on
              quantised LLRs with ties and exact zeros (-0.0 among them);
-             min-sum flooding
-             on a code with a row of 31 members (the fused kernel's: wider
-             than fused_retire takes), layered min-sum and sum-product
-             flooding on one with a row of 20 (retire_layered's run-time
-             loop for rows wider than its unrolled bodies,
-             retire_sumproduct's phi parked in the c2v slots); plus the
+             min-sum flooding and layered sum-product
+             on a code with a row of 31 members (the fused kernel's, and at
+             Z=8 fused_zlane's: wider than the retiring kernels take; their
+             launch counts), layered min-sum and both sum-product schedules
+             on one with a row of 20 (the layered kernels' run-time loops
+             for rows wider than their unrolled bodies, retire_sumproduct's
+             phi parked in the c2v slots); plus the
              serving path against the tensor-op decode_min_sum.  Min-sum:
              bits and conv_iter identical.  Sum-product: bits agree on >=
              99.9% and conv_iter within 1 (logf/tanhf round differently from
-             torch's), and every retire_sumproduct case identical to the
-             fused kernel it replaced (through _launch_fused), every
-             retire_zlane_sumproduct case to fused_zlane (_launch_zlane).
+             torch's), and every case of the four sum-product retiring
+             kernels identical to the kernel it replaced (fused through
+             _launch_fused, fused_zlane through _launch_zlane).
 4. main    — the serving path at full width: nr_2_0_32, Z=32, batch 65536,
              20 iterations, 3 dB BPSK LLRs made on the card, through
              MinSumScaledDecoder(backend="auto") (with and without early
@@ -80,11 +81,18 @@ Phases, one JSON line each:
              (float32, int32 and the phi transcendentals at the
              special-function rate), plan and occupancy; traced once in a
              process of its own (trace_sumproduct).
-4d. sumproduct_layered — the fused kernel's own path: layered sum-product
-             through make_fused_minsum at the main path's batch, launch
-             counts, 0 bit errors, mean conv_iter; five timed rounds, the
-             median and every round, and the bound (bp_bound_ms with the
-             layered counts of fused_minsum.cu's header).
+4d. sumproduct_layered — layered sum-product through make_fused_minsum at
+             the main path's batch: retire_layered_sumproduct launched, no
+             other kernel; the whole batch against the plain version at the
+             sum-product bars (and in throughput mode) and identical to the
+             fused kernel it replaced (_launch_fused), 0 bit errors, mean
+             conv_iter.  Five rounds beside its throughput mode and the
+             replaced kernel, median and every round; each split of a
+             frame's row groups over 1-3 warps; c2v in L2 slices instead
+             (retire_zlane_layered_sumproduct at Z=32, its plan at each
+             parts count, outputs identical); bp_bound_ms with the
+             layered counts of fused_minsum.cu's header, plan, occupancy,
+             ptxas.
 5. z384    — bench.py section_z384: nr_2_0_32 Z=384, batch 512, 20
              iterations, 3 dB, no early stop, through
              MinSumScaledDecoder(backend="auto") (fused_zlane, whose
@@ -119,10 +127,16 @@ Phases, one JSON line each:
              0 bit errors, mean conv_iter.  Five rounds beside its
              throughput mode and the replaced kernel; every parts count,
              bp_bound_ms, plan, occupancy, ptxas.
-5d. z384_sumproduct_layered — fused_zlane's own path: layered sum-product
-             at Z=384 on the same batch, launch counts, the whole batch at
-             the sum-product bars against the plain version, 0 bit errors;
-             five timed rounds and the bound.
+5d. z384_sumproduct_layered — layered sum-product at Z=384 on the same
+             batch through make_fused_minsum_zlane:
+             retire_zlane_layered_sumproduct launched, no other kernel; the
+             whole batch at the sum-product bars against the plain version
+             (and in throughput mode) and identical to the replaced
+             fused_zlane, 0 bit errors.  Five rounds beside its throughput
+             mode, the replaced kernel and one frame group of two parts an
+             SM (parts=2) against the plan's two groups of one part, median
+             and every round; every parts count, bound, plan, occupancy,
+             ptxas.
 6. gnn_compare — the corrected-GNN kernels (corrected_v2, corrected)
              against their plain versions on perturbed seeded parameters:
              {input injection on, off} x {fixed T, early exit with
@@ -233,7 +247,8 @@ Phases, one JSON line each:
              (nr_2_0_32 Z=32, h=64, L=10, 128 frames): variant vpu identical
              to the plain version, mxu within one bf16 step; microseconds per
              frame and iteration.
-17. kernels — per kernel: launches in its path's run, max abs error against
+17. kernels — per kernel: launches in its path's run (fused and fused_zlane:
+             the wide-row compare cases'), max abs error against
              the plain version, kernel / plain time, and the bound: the
              operations the batch's frames need (over their conv_iter
              iterations where they stop early), or its bytes, whichever
@@ -427,12 +442,18 @@ def trace_sumproduct() -> dict:
             **trace_split(lambda: dec(llr), "sumproduct")}
 
 
+# The retiring kernels of sum-product, each identical to the kernel it
+# replaced (same_as_replaced).
+SUMPRODUCT_ROUTES = ("retire_sumproduct", "retire_zlane_sumproduct", "retire_layered_sumproduct",
+                     "retire_zlane_layered_sumproduct")
+
+
 def same_as_replaced(dec, llr: torch.Tensor, label: str) -> None:
-    """A sum-product retiring decoder's output identical (bits and
-    conv_iter) to the kernel it replaced on the same input (fused through
-    _launch_fused for retire_sumproduct, fused_zlane through _launch_zlane
-    for retire_zlane_sumproduct): the same float operations in the same
-    order."""
+    """A sum-product retiring decoder's output (SUMPRODUCT_ROUTES) identical
+    (bits and conv_iter) to the kernel it replaced on the same input (fused
+    through _launch_fused on a fused decoder, fused_zlane through
+    _launch_zlane on a fused_zlane decoder): the same float operations in
+    the same order."""
     old, replaced = ((dec._launch_fused, "fused") if dec.kind == "fused"
                      else (dec._launch_zlane, "fused_zlane"))
     (bits_k, conv_k), (bits_f, conv_f) = dec(llr), old(llr)
@@ -504,10 +525,10 @@ def split_probe(zdec, llr384: torch.Tensor, iterations: int) -> dict:
     return out
 
 
-def wide_row_code(members: int = 31):
-    """A (4, 32) base graph at Z=4 whose first row has ``members`` members:
+def wide_row_code(members: int = 31, Z: int = 4):
+    """A (4, 32) base graph at ``Z`` whose first row has ``members`` members:
     31 is more than fused_retire's state word holds signs of, 20 more than
-    retire_layered's unrolled rows take.  Every column has a member."""
+    the layered kernels' unrolled rows take.  Every column has a member."""
     import numpy as np
     from ldpc_tpu_torch.codes import BaseGraph, qc_layout
 
@@ -515,7 +536,7 @@ def wide_row_code(members: int = 31):
     shifts = np.where(rng.random((4, 32)) < 0.4, rng.integers(0, 4, (4, 32)), -1)
     shifts[0] = np.concatenate([rng.integers(0, 4, members), np.full(32 - members, -1)])
     shifts[1, members:] = 1
-    return qc_layout(BaseGraph("wide", shifts), 4)
+    return qc_layout(BaseGraph("wide", shifts), Z)
 
 
 def llrs(n: int, B: int, snr_db: float, seed: int) -> torch.Tensor:
@@ -560,7 +581,7 @@ def classical_phases(lib, smi: str) -> list[dict]:
 
     # 3. compare each kernel with its plain version.  Min-sum runs on
     # fused_retire (flooding) and retire_layered (layered), sum-product on
-    # retire_sumproduct (flooding) and fused (layered).
+    # retire_sumproduct (flooding) and retire_layered_sumproduct (layered).
     flags = [(m, s, tr, ee) for m in ("minsum", "sumproduct") for s in ("flooding", "layered")
              for tr, ee in ((True, False), (False, False), (True, True))]
     max_err = {name: 0.0 for name in fm.LAUNCHES}
@@ -587,6 +608,9 @@ def classical_phases(lib, smi: str) -> list[dict]:
             for parts, frames, staged in fm.retire_sumproduct_plans(qc):
                 assert rlib.ldpc_retire_sumproduct_smem_bytes(*dims, parts, frames, staged) == \
                     fm.retire_sumproduct_smem_bytes(qc, parts, frames, staged)
+            for _, frames in fm.retire_layered_sumproduct_plans(qc):
+                assert rlib.ldpc_retire_layered_sumproduct_smem_bytes(*dims, G, frames) == \
+                    fm.retire_layered_sumproduct_smem_bytes(qc, frames)
         else:
             assert lib.ldpc_zlane_smem_bytes(*dims) == fm.zlane_smem_bytes(qc)
             assert zlane_smem_agree(qc)
@@ -597,21 +621,25 @@ def classical_phases(lib, smi: str) -> list[dict]:
                         early_exit=ee, schedule=sched)
             label = f"{dec.route} {code} Z={Z} B={B} {mode} {sched} track={tr} early_exit={ee}"
             max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
-            if dec.route in ("retire_sumproduct", "retire_zlane_sumproduct"):
+            if dec.route in SUMPRODUCT_ROUTES:
                 same_as_replaced(dec, llr, label)
-    # fused_retire, retire_layered and retire_sumproduct (Z=32) and
-    # retire_zlane (Z=384; Z=256, a power of two) on batches that hold frames
+    # The four Z=32 kernels and the four large-Z ones (Z=384; Z=256, a power
+    # of two) on batches that hold frames
     # that never converge (-2 dB), converge at iteration 1 (6 dB) and a mix,
     # and on quantised LLRs with ties (m1 == m2) and exact zeros, -0.0 among
     # them (sign(0) = +1).
     qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
     make_layered = functools.partial(fm.make_fused_minsum, schedule="layered")
     make_sumproduct = functools.partial(fm.make_fused_minsum, mode="sumproduct")
+    make_sp_layered = functools.partial(fm.make_fused_minsum, mode="sumproduct",
+                                        schedule="layered")
     zlane_builds = (fm.make_fused_minsum_zlane,
                     functools.partial(fm.make_fused_minsum_zlane, schedule="layered"),
-                    functools.partial(fm.make_fused_minsum_zlane, mode="sumproduct"))
+                    functools.partial(fm.make_fused_minsum_zlane, mode="sumproduct"),
+                    functools.partial(fm.make_fused_minsum_zlane, mode="sumproduct",
+                                      schedule="layered"))
     hard = [(fm.make_fused_minsum, qc32, 1003), (make_layered, qc32, 1003),
-            (make_sumproduct, qc32, 1003)] + [
+            (make_sumproduct, qc32, 1003), (make_sp_layered, qc32, 1003)] + [
         (build, qc_layout(get_base_graph("nr_2_0_32"), Z), 301)
         for Z in (384, 256) for build in zlane_builds]
     for build, qc, B in hard:
@@ -626,30 +654,43 @@ def classical_phases(lib, smi: str) -> list[dict]:
                 label = f"{dec.route} nr_2_0_32 Z={qc.Z} B={B} {snr} dB quantised={step} " \
                         f"{dec.schedule} track={tr} early_exit={ee}"
                 max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
-                if dec.route in ("retire_sumproduct", "retire_zlane_sumproduct"):
+                if dec.route in SUMPRODUCT_ROUTES:
                     same_as_replaced(dec, llr, label)
-    # Min-sum flooding on a code whose rows are wider than fused_retire
-    # takes runs on the fused kernel.
-    qcw = wide_row_code()
-    llr = llrs(qcw.num_vars, 37, 4.0, seed=5)
-    for tr, ee in ((True, False), (False, False), (True, True)):
-        dec = fm.make_fused_minsum(qcw, 20, 0.75, track_convergence=tr, early_exit=ee)
-        assert not dec.retire
-        label = f"fused wide rows (31 members) Z=4 B=37 minsum flooding track={tr} early_exit={ee}"
-        max_err["fused"] = max(max_err["fused"], compare(dec, llr, label))
-    # Layered min-sum and sum-product flooding on a row of 20 members:
-    # retire_layered's run-time loop for rows wider than its unrolled bodies,
-    # and retire_sumproduct's phi parked in the c2v slots of rows wider than
-    # the 12 it keeps in registers.
+    # Codes whose rows are wider than the retiring kernels take run on the
+    # fused kernel (Z=4) and on fused_zlane (Z=8): min-sum flooding and
+    # layered sum-product.  These are the two kernels' own paths now, so
+    # their launches here are the kernels line's.
+    for key in fm.LAUNCHES:
+        fm.LAUNCHES[key] = 0
+    for Z, build in ((4, fm.make_fused_minsum), (8, fm.make_fused_minsum_zlane)):
+        qcw = wide_row_code(Z=Z)
+        llr = llrs(qcw.num_vars, 37, 4.0, seed=5)
+        for (tr, ee), mode in itertools.product(((True, False), (False, False), (True, True)),
+                                                ("minsum", "sumproduct")):
+            dec = build(qcw, 20, 0.75, track_convergence=tr, early_exit=ee, mode=mode,
+                        schedule="flooding" if mode == "minsum" else "layered")
+            assert dec.route == dec.kind and not dec.retire
+            label = f"{dec.route} wide rows (31 members) Z={Z} B=37 {mode} {dec.schedule} " \
+                    f"track={tr} early_exit={ee}"
+            max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
+    torch.cuda.synchronize()
+    launches_wide = dict(fm.LAUNCHES)
+    if launches_wide["fused"] < 6 or launches_wide["fused_zlane"] < 6 or \
+            sum(launches_wide.values()) != launches_wide["fused"] + launches_wide["fused_zlane"]:
+        raise AssertionError(f"wide rows did not run fused and fused_zlane alone: {launches_wide}")
+    # Layered min-sum and both sum-product schedules on a row of 20 members:
+    # the layered kernels' run-time loops for rows wider than their unrolled
+    # bodies, and retire_sumproduct's phi parked in the c2v slots of rows
+    # wider than the 12 it keeps in registers.
     qcw = wide_row_code(20)
     for snr in (1.0, 4.0, 6.0):
         llr = llrs(qcw.num_vars, 37, snr, seed=6)
-        for (tr, ee), mode in itertools.product(((True, False), (False, False), (True, True)),
-                                                ("minsum", "sumproduct")):
+        for (tr, ee), (mode, sched) in itertools.product(
+                ((True, False), (False, False), (True, True)),
+                (("minsum", "layered"), ("sumproduct", "flooding"), ("sumproduct", "layered"))):
             dec = fm.make_fused_minsum(qcw, 20, 0.75, track_convergence=tr, early_exit=ee,
-                                       mode=mode,
-                                       schedule="layered" if mode == "minsum" else "flooding")
-            assert dec.route == ("retire_layered" if mode == "minsum" else "retire_sumproduct")
+                                       mode=mode, schedule=sched)
+            assert dec.retire
             label = f"{dec.route} wide rows (20 members) Z=4 B=37 {snr} dB track={tr} " \
                     f"early_exit={ee}"
             max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
@@ -876,28 +917,87 @@ def classical_phases(lib, smi: str) -> list[dict]:
           "rounds_ms": sp_rounds, "occupancy": sp_occupancy, "bit_errors": bit_errors_b,
           "mean_conv_iter": mean_conv_b, "nvidia_smi": smi})
 
-    # 4d. the fused kernel's own path: layered sum-product (same batch)
+    # 4d. layered sum-product on retire_layered_sumproduct (same batch)
     sp_lay = fm.make_fused_minsum(qc32, ITERS, 1.0, mode="sumproduct", schedule="layered")
-    assert sp_lay.route == "fused"
+    sp_lay_thr = fm.make_fused_minsum(qc32, ITERS, 1.0, mode="sumproduct", schedule="layered",
+                                      track_convergence=False)
+    assert sp_lay.route == sp_lay_thr.route == "retire_layered_sumproduct"
     for key in fm.LAUNCHES:
         fm.LAUNCHES[key] = 0
     bits_sl, conv_sl = sp_lay(llr)
     torch.cuda.synchronize()
     launches_sl = dict(fm.LAUNCHES)
-    if launches_sl["fused"] < 1 or sum(launches_sl.values()) != launches_sl["fused"]:
-        raise AssertionError(f"layered sum-product did not run the fused kernel alone: "
-                             f"{launches_sl}")
+    if launches_sl["retire_layered_sumproduct"] < 1 or \
+            sum(launches_sl.values()) != launches_sl["retire_layered_sumproduct"]:
+        raise AssertionError(f"layered sum-product did not run retire_layered_sumproduct "
+                             f"alone: {launches_sl}")
     bit_errors_sl = int(bits_sl.sum().item())
-    if bits_sl.shape != (B, n) or bit_errors_sl:
-        raise AssertionError(f"layered sum-product decodes wrongly: {bit_errors_sl} bit errors")
-    rounds_sl = [cuda_ms(lambda: sp_lay(llr), reps=1)[0] for _ in range(5)]
-    ms_sl = sorted(rounds_sl)[2]
+    mean_conv_sl = float(conv_sl.float().mean().item())
+    if bits_sl.shape != (B, n) or bit_errors_sl or not 1.0 <= mean_conv_sl <= 3.0:
+        raise AssertionError(f"layered sum-product decodes wrongly: {bit_errors_sl} bit errors, "
+                             f"mean conv_iter {mean_conv_sl}")
+    plain_ms_sl, plain_out = cuda_ms(lambda: sp_lay.plain(llr), reps=1)
+    err_sl = compare(sp_lay, llr, f"retire_layered_sumproduct layered sum-product B={B}",
+                     plain_out)
+    del plain_out
+    err_sl = max(err_sl, compare(sp_lay_thr, llr, f"retire_layered_sumproduct layered "
+                                                  f"sum-product B={B} throughput mode"))
+    settle = time.perf_counter() + 1.0
+    while time.perf_counter() < settle:
+        sp_lay(llr)
+        torch.cuda.synchronize()
+    # The kernel, its throughput mode and the kernel it replaced on the same
+    # batch, interleaved in rounds; the replaced kernel's output identical.
+    sl_runs = {"tracked": (lambda: sp_lay(llr), 5),
+               "throughput_mode": (lambda: sp_lay_thr(llr), 2),
+               "replaced_fused": (lambda: sp_lay._launch_fused(llr), 1)}
+    sl_rounds = {name: [] for name in sl_runs}
+    for _ in range(5):
+        for name, (fn, reps) in sl_runs.items():
+            t, out = cuda_ms(fn, reps=reps)
+            sl_rounds[name].append(t)
+            if name != "throughput_mode" and not (torch.equal(out[0], bits_sl)
+                                                  and torch.equal(out[1], conv_sl)):
+                raise AssertionError(f"{name} differs from retire_layered_sumproduct")
+    sl_median = {name: sorted(r)[len(r) // 2] for name, r in sl_rounds.items()}
+    ms_sl = sl_median["tracked"]
+    # What a frame's warps buy: the rows of a row group on 1, 2 or 3 warps.
+    sl_parts = {p: cuda_ms(lambda p=p: sp_lay._launch_retire(llr, parts=p), reps=5)[0]
+                for p in sorted({p for p, _ in fm.retire_layered_sumproduct_plans(qc32)})}
+    # c2v in L2 slices instead of shared memory (retire_zlane_layered_sumproduct
+    # at Z=32), its plan at each parts count (frames an SM as the occupancy
+    # query allows); outputs identical.
+    sliced = fm.make_fused_minsum_zlane(qc32, ITERS, 1.0, mode="sumproduct",
+                                        schedule="layered")
+    sl_slices = {}
+    for p in sorted({p for p, _ in fm.retire_zlane_layered_sumproduct_plans(qc32)}):
+        out = sliced._launch_retire(llr, parts=p)
+        if not (torch.equal(out[0], bits_sl) and torch.equal(out[1], conv_sl)):
+            raise AssertionError("retire_zlane_layered_sumproduct differs at Z=32")
+        _, frames, per_sm = fm.retire_zlane_layered_sumproduct_plan(qc32, True, p)
+        sl_slices[f"parts={p} frames_per_sm={frames * per_sm}"] = cuda_ms(
+            lambda p=p: sliced._launch_retire(llr, parts=p), reps=5)[0]
+    del out
     bms_sl, bby_sl = bp_bound_ms(qc32, conv_sl, layered=True)
+    sl_plan = fm.retire_layered_sumproduct_plan(qc32, True)
+    sl_occupancy = dict(zip(("parts", "frames_per_block", "blocks_per_sm"), sl_plan))
+    sl_occupancy["warps_per_sm"] = sl_plan[0] * sl_plan[1] * sl_plan[2]
+    sl_occupancy["smem_bytes_per_frame"] = fm.retire_layered_sumproduct_smem_bytes(qc32, 2) - \
+        fm.retire_layered_sumproduct_smem_bytes(qc32, 1)
+    sl_occupancy["smem_bytes_per_block"] = fm.retire_layered_sumproduct_smem_bytes(
+        qc32, sl_plan[1])
+    sl_occupancy["ptxas"] = ptxas_of("fused_retire", "retire_layered_sumproduct_kernel")
     emit({"phase": "sumproduct_layered", "code": "nr_2_0_32", "Z": 32, "batch": B,
-          "iterations": ITERS, "snr_db": 3.0, "backend": "fused", "launches": launches_sl,
-          "ms_per_batch": ms_sl, "rounds_ms": rounds_sl, "bound_ms": bms_sl,
-          "bound_by": bby_sl, "bit_errors": bit_errors_sl,
-          "mean_conv_iter": float(conv_sl.float().mean().item()), "nvidia_smi": smi})
+          "iterations": ITERS, "snr_db": 3.0, "backend": "retire_layered_sumproduct",
+          "launches": launches_sl,
+          "bits_per_s": decode_throughput(B, n, ms_sl / 1e3, name="sumproduct_layered"),
+          "ms_per_batch": ms_sl, "bound_ms": bms_sl, "bound_by": bby_sl,
+          "plain_ms": plain_ms_sl,
+          "variants_ms": {name: sl_median[name] for name in sl_runs if name != "tracked"},
+          "speedup_over_replaced": sl_median["replaced_fused"] / ms_sl,
+          "rounds_ms": sl_rounds, "parts_ms": sl_parts, "c2v_in_l2_slices_ms": sl_slices,
+          "occupancy": sl_occupancy,
+          "bit_errors": bit_errors_sl, "mean_conv_iter": mean_conv_sl, "nvidia_smi": smi})
 
     # 5. Z=384 path (bench.py section_z384): auto resolves to fused_zlane,
     # whose min-sum flooding runs on retire_zlane
@@ -1108,33 +1208,78 @@ def classical_phases(lib, smi: str) -> list[dict]:
           "rounds_ms": zs_rounds, "parts_ms": zs_parts, "occupancy": zs_occupancy,
           "bit_errors": bit_errors_zs, "mean_conv_iter": mean_conv_zs, "nvidia_smi": smi})
 
-    # 5d. fused_zlane's own path: layered sum-product at Z=384 (same batch)
+    # 5d. layered sum-product at Z=384 on retire_zlane_layered_sumproduct
+    # (same batch)
     zsl = fm.make_fused_minsum_zlane(qc384, ITERS, 1.0, mode="sumproduct", schedule="layered")
-    assert zsl.route == "fused_zlane"
+    zsl_thr = fm.make_fused_minsum_zlane(qc384, ITERS, 1.0, mode="sumproduct",
+                                         schedule="layered", track_convergence=False)
+    assert zsl.route == zsl_thr.route == "retire_zlane_layered_sumproduct"
     for key in fm.LAUNCHES:
         fm.LAUNCHES[key] = 0
     bits_zsl, conv_zsl = zsl(llr384)
     torch.cuda.synchronize()
     launches_zsl = dict(fm.LAUNCHES)
-    if launches_zsl["fused_zlane"] < 1 or sum(launches_zsl.values()) != launches_zsl["fused_zlane"]:
-        raise AssertionError(f"Z=384 layered sum-product did not run fused_zlane alone: "
-                             f"{launches_zsl}")
+    if launches_zsl["retire_zlane_layered_sumproduct"] < 1 or \
+            sum(launches_zsl.values()) != launches_zsl["retire_zlane_layered_sumproduct"]:
+        raise AssertionError(f"Z=384 layered sum-product did not run "
+                             f"retire_zlane_layered_sumproduct alone: {launches_zsl}")
     bit_errors_zsl = int(bits_zsl.sum().item())
-    if bits_zsl.shape != (B384, n384) or bit_errors_zsl:
+    mean_conv_zsl = float(conv_zsl.float().mean().item())
+    if bits_zsl.shape != (B384, n384) or bit_errors_zsl or not 1.0 <= mean_conv_zsl <= 4.0:
         raise AssertionError(f"Z=384 layered sum-product decodes wrongly: {bit_errors_zsl} "
-                             f"bit errors")
+                             f"bit errors, mean conv_iter {mean_conv_zsl}")
     plain_ms_zsl, plain_out = cuda_ms(lambda: zsl.plain(llr384), reps=1)
-    err_zsl = compare(zsl, llr384, f"fused_zlane layered sum-product z384 B={B384}", plain_out)
+    err_zsl = compare(zsl, llr384, f"retire_zlane_layered_sumproduct z384 B={B384}", plain_out)
     del plain_out
-    rounds_zsl = [cuda_ms(lambda: zsl(llr384), reps=1)[0] for _ in range(5)]
+    err_zsl = max(err_zsl, compare(zsl_thr, llr384, f"retire_zlane_layered_sumproduct z384 "
+                                                    f"B={B384} throughput mode"))
+    # One frame group of two parts an SM, against the plan's two groups of
+    # one part.
+    one_group_plan = fm.retire_zlane_layered_sumproduct_plan(qc384, True, 2)
+    settle = time.perf_counter() + 1.0
+    while time.perf_counter() < settle:
+        zsl(llr384)
+        torch.cuda.synchronize()
+    # The kernel, its throughput mode, the replaced kernel and one frame
+    # group an SM on the same batch, interleaved in rounds; outputs identical.
+    zsl_runs = {"tracked": (lambda: zsl(llr384), 10),
+                "throughput_mode": (lambda: zsl_thr(llr384), 3),
+                "replaced_fused_zlane": (lambda: zsl._launch_zlane(llr384), 1),
+                "one_frame_group_parts_2": (lambda: zsl._launch_retire(llr384, parts=2), 10)}
+    zsl_rounds = {name: [] for name in zsl_runs}
+    for _ in range(5):
+        for name, (fn, reps) in zsl_runs.items():
+            t, out = cuda_ms(fn, reps=reps)
+            zsl_rounds[name].append(t)
+            if name != "throughput_mode" and not (torch.equal(out[0], bits_zsl)
+                                                  and torch.equal(out[1], conv_zsl)):
+                raise AssertionError(f"{name} differs from retire_zlane_layered_sumproduct")
+    zsl_median = {name: sorted(r)[len(r) // 2] for name, r in zsl_rounds.items()}
+    ms_zsl = zsl_median["tracked"]
+    zsl_parts = {p: cuda_ms(lambda p=p: zsl._launch_retire(llr384, parts=p), reps=5)[0]
+                 for p in sorted({p for p, _ in fm.retire_zlane_layered_sumproduct_plans(qc384)})}
     bms_zsl, bby_zsl = bp_bound_ms(qc384, conv_zsl, layered=True)
+    zsl_plan = fm.retire_zlane_layered_sumproduct_plan(qc384, True)
+    zsl_occupancy = {**dict(zip(("parts", "frames_per_block", "blocks_per_sm"), zsl_plan)),
+                     "plan_at_parts_2": one_group_plan}
+    zsl_occupancy["warps_per_sm"] = (zsl_plan[0] * zsl_plan[1] * zsl_plan[2]
+                                     * fm.retire_threads(qc384, 1, 1) // 32)
+    zsl_occupancy["smem_bytes_per_block"] = fm.retire_zlane_layered_sumproduct_smem_bytes(
+        qc384, zsl_plan[1])
+    zsl_occupancy["scratch_bytes_per_frame"] = \
+        fm.retire_zlane_layered_sumproduct_scratch_bytes(qc384)
+    zsl_occupancy["ptxas"] = ptxas_of("fused_retire", "retire_zlane_layered_sumproduct_kernel")
     emit({"phase": "z384_sumproduct_layered", "code": "nr_2_0_32", "Z": 384, "batch": B384,
-          "iterations": ITERS, "snr_db": Z384["SNR"], "backend": "fused_zlane",
-          "launches": launches_zsl, "ms_per_batch": sorted(rounds_zsl)[2],
-          "rounds_ms": rounds_zsl, "bound_ms": bms_zsl, "bound_by": bby_zsl,
+          "iterations": ITERS, "snr_db": Z384["SNR"],
+          "backend": "retire_zlane_layered_sumproduct", "launches": launches_zsl,
+          "bits_per_s": decode_throughput(B384, n384, ms_zsl / 1e3,
+                                          name="z384_sumproduct_layered"),
+          "ms_per_batch": ms_zsl, "bound_ms": bms_zsl, "bound_by": bby_zsl,
           "plain_ms": plain_ms_zsl,
-          "bit_errors": bit_errors_zsl,
-          "mean_conv_iter": float(conv_zsl.float().mean().item()), "nvidia_smi": smi})
+          "variants_ms": {name: zsl_median[name] for name in zsl_runs if name != "tracked"},
+          "speedup_over_replaced": zsl_median["replaced_fused_zlane"] / ms_zsl,
+          "rounds_ms": zsl_rounds, "parts_ms": zsl_parts, "occupancy": zsl_occupancy,
+          "bit_errors": bit_errors_zsl, "mean_conv_iter": mean_conv_zsl, "nvidia_smi": smi})
 
     src = "ldpc_tpu_torch/ops/csrc/fused_minsum.cu"
     return [
@@ -1156,12 +1301,18 @@ def classical_phases(lib, smi: str) -> list[dict]:
          "launches": launches_sp["retire_sumproduct"],
          "max_abs_err": max(max_err["retire_sumproduct"], err_sp), "ms": ms_sp,
          "plain_ms": plain_ms_sp, "bound_ms": bms_sp, "bound_by": bby_sp, "library_ms": None},
-        # fused serves layered sum-product and rows over 27 members (launches:
-        # the sumproduct_layered run); its ms is sum-product flooding through
-        # the side door, _launch_fused, on the sumproduct phase's batch, which
-        # bound_ms and plain_ms count.
+        {"name": "retire_layered_sumproduct", "route": "cuda",
+         "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
+         "replaces": "ldpc_tpu/ops/pallas_minsum.py:143",
+         "launches": launches_sl["retire_layered_sumproduct"],
+         "max_abs_err": max(max_err["retire_layered_sumproduct"], err_sl), "ms": ms_sl,
+         "plain_ms": plain_ms_sl, "bound_ms": bms_sl, "bound_by": bby_sl, "library_ms": None},
+        # fused serves rows over 27 members (launches: the wide-row compare
+        # cases); its ms is sum-product flooding through the side door,
+        # _launch_fused, on the sumproduct phase's batch, which bound_ms and
+        # plain_ms count.
         {"name": "fused", "route": "cuda", "source": src,
-         "replaces": "ldpc_tpu/ops/pallas_minsum.py:143", "launches": launches_sl["fused"],
+         "replaces": "ldpc_tpu/ops/pallas_minsum.py:143", "launches": launches_wide["fused"],
          "max_abs_err": max_err["fused"], "ms": sp_median["replaced_fused"],
          "ms_of": "sum-product flooding through _launch_fused (side door)",
          "plain_ms": plain_ms_sp, "bound_ms": bms_sp, "bound_by": bby_sp, "library_ms": None},
@@ -1182,14 +1333,20 @@ def classical_phases(lib, smi: str) -> list[dict]:
          "launches": launches_zs["retire_zlane_sumproduct"],
          "max_abs_err": max(max_err["retire_zlane_sumproduct"], err_zs), "ms": ms_zs,
          "plain_ms": plain_ms_zs, "bound_ms": bms_zs, "bound_by": bby_zs, "library_ms": None},
-        # fused_zlane serves layered sum-product and rows over 27 members at
-        # large Z (launches: the z384_sumproduct_layered run); its ms is
-        # sum-product flooding through the side door, _launch_zlane, on the
-        # z384_sumproduct phase's batch, which bound_ms and plain_ms count.
+        {"name": "retire_zlane_layered_sumproduct", "route": "cuda",
+         "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
+         "replaces": "ldpc_tpu/ops/pallas_minsum.py:399",
+         "launches": launches_zsl["retire_zlane_layered_sumproduct"],
+         "max_abs_err": max(max_err["retire_zlane_layered_sumproduct"], err_zsl), "ms": ms_zsl,
+         "plain_ms": plain_ms_zsl, "bound_ms": bms_zsl, "bound_by": bby_zsl, "library_ms": None},
+        # fused_zlane serves rows over 27 members at large Z (launches: the
+        # wide-row compare cases); its ms is sum-product flooding through
+        # the side door, _launch_zlane, on the z384_sumproduct phase's batch,
+        # which bound_ms and plain_ms count.
         {"name": "fused_zlane", "route": "cuda", "source": src,
          "replaces": "ldpc_tpu/ops/pallas_minsum.py:399",
-         "launches": launches_zsl["fused_zlane"],
-         "max_abs_err": max(max_err["fused_zlane"], err_zsl),
+         "launches": launches_wide["fused_zlane"],
+         "max_abs_err": max_err["fused_zlane"],
          "ms": zs_median["replaced_fused_zlane"],
          "ms_of": "sum-product flooding through _launch_zlane (side door)",
          "plain_ms": plain_ms_zs, "bound_ms": bms_zs, "bound_by": bby_zs, "library_ms": None},
@@ -2339,12 +2496,17 @@ def retire_smem_agree(qc32, qc384) -> dict:
             rlib.ldpc_retire_sumproduct_smem_bytes(*dims, p, f, s) ==
             fm.retire_sumproduct_smem_bytes(qc32, p, f, s)
             for p, f, s in fm.retire_sumproduct_plans(qc32)),
-        "retire_zlane, retire_zlane_layered, retire_zlane_sumproduct": zlane_smem_agree(qc384),
+        "retire_layered_sumproduct": all(
+            rlib.ldpc_retire_layered_sumproduct_smem_bytes(*dims, G, f) ==
+            fm.retire_layered_sumproduct_smem_bytes(qc32, f)
+            for _, f in fm.retire_layered_sumproduct_plans(qc32)),
+        "retire_zlane, retire_zlane_layered, retire_zlane_sumproduct, "
+        "retire_zlane_layered_sumproduct": zlane_smem_agree(qc384),
     }
 
 
 def zlane_smem_agree(qc) -> bool:
-    """Whether the library's shared-memory bytes of the three large-Z
+    """Whether the library's shared-memory bytes of the four large-Z
     retiring kernels equal the wrapper's for every plan it may take."""
     from ldpc_tpu_torch.ops import fused_minsum as fm
 
@@ -2358,7 +2520,10 @@ def zlane_smem_agree(qc) -> bool:
                     for _, f in fm.retire_zlane_layered_plans(qc))
             and all(rlib.ldpc_retire_zlane_sumproduct_smem_bytes(*dims, p) ==
                     fm.retire_zlane_sumproduct_smem_bytes(qc, p)
-                    for p in fm.retire_zlane_sumproduct_plans(qc)))
+                    for p in fm.retire_zlane_sumproduct_plans(qc))
+            and all(rlib.ldpc_retire_zlane_layered_sumproduct_smem_bytes(*dims, G, f) ==
+                    fm.retire_zlane_layered_sumproduct_smem_bytes(qc, f)
+                    for _, f in fm.retire_zlane_layered_sumproduct_plans(qc)))
 
 
 def sass_mma_counts(stem: str) -> dict:
@@ -2432,6 +2597,9 @@ def main(argv=None) -> int:
             parts, frames, staged, per_sm = fm.retire_sumproduct_plan(qc, True)
             occupancy[f"retire_sumproduct Z={Z} parts={parts} frames_per_block={frames} "
                       f"staged_llrs={staged}"] = per_sm
+            parts, frames, per_sm = fm.retire_layered_sumproduct_plan(qc, True)
+            occupancy[f"retire_layered_sumproduct Z={Z} parts={parts} "
+                      f"frames_per_block={frames}"] = per_sm
             for name in ("corrected_v2", "corrected"):
                 occupancy[f"{name} Z={Z} h=64"] = fg.corrected_tc_plan(qc, 64, True, name)[1]
             for name in ("msg_gnn", "msg_gnn_v2", "msg_gnn_v3", "msg_gnn_v4"):
@@ -2451,6 +2619,9 @@ def main(argv=None) -> int:
                       f"frames_per_block={frames}"] = per_sm
             parts, per_sm = fm.retire_zlane_sumproduct_plan(qc, True)
             occupancy[f"retire_zlane_sumproduct Z={Z} parts={parts}"] = per_sm
+            parts, frames, per_sm = fm.retire_zlane_layered_sumproduct_plan(qc, True)
+            occupancy[f"retire_zlane_layered_sumproduct Z={Z} parts={parts} "
+                      f"frames_per_block={frames}"] = per_sm
     if min(occupancy.values()) < 1:
         raise AssertionError(f"a main-path kernel cannot be resident: {occupancy}")
     qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
@@ -2462,11 +2633,15 @@ def main(argv=None) -> int:
     if any(not counts or min(counts.values()) < 1 for counts in hmma.values()):
         raise AssertionError(f"a tensor-core kernel has no tensor-core instructions: {hmma}")
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "ptxas": ptxas,
-          "retire_layered_ptxas": ptxas_of("fused_retire", "retire_layered_kernel"),
-          "retire_sumproduct_ptxas": ptxas_of("fused_retire", "retire_sumproduct_kernel"),
+          **{f"{name}_ptxas": ptxas_of("fused_retire", f"{name}_kernel")
+             for name in ("retire_layered", "retire_zlane_layered", "retire_sumproduct",
+                          "retire_layered_sumproduct", "retire_zlane_layered_sumproduct")},
           "retire_sumproduct_plan_nr_2_0_32_Z32": dict(zip(
               ("parts", "frames_per_block", "staged_llrs", "blocks_per_sm"),
               fm.retire_sumproduct_plan(qc32, True))),
+          "retire_layered_sumproduct_plan_nr_2_0_32_Z32": dict(zip(
+              ("parts", "frames_per_block", "blocks_per_sm"),
+              fm.retire_layered_sumproduct_plan(qc32, True))),
           "retire_smem_bytes_agree": smem_agree,
           "blocks_per_sm": occupancy, "hmma_per_kernel": hmma,
           **{f"{kind}_shape": {f"nr_2_0_32 Z=32 h={h} inject={inj}":

@@ -4,18 +4,20 @@
 // Replaces the TPU kernels of ldpc_tpu/ops/pallas_minsum.py:
 //   * fused_minsum_kernel  <- _kernel        (make_fused_minsum, make_fused_bp)
 //   * zlane_minsum_kernel  <- _kernel_zlane  (make_fused_minsum_zlane)
-// Scaled min-sum and sum-product flooding on the codes fused_retire.cu takes
-// (rows of at most 27 members) left them for that file's kernels: the
-// wrapper sends min-sum flooding to retire_minsum_kernel (the main path),
-// the layered schedule to retire_layered_kernel, sum-product flooding to
-// retire_sumproduct_kernel and, at large Z, min-sum flooding to
+// Every mode and schedule on the codes fused_retire.cu takes (rows of at
+// most 27 members) left them for that file's kernels: the wrapper sends
+// min-sum flooding to retire_minsum_kernel (the main path), layered min-sum
+// to retire_layered_kernel, sum-product flooding to
+// retire_sumproduct_kernel, layered sum-product to
+// retire_layered_sumproduct_kernel and, at large Z, min-sum flooding to
 // retire_zlane_kernel (bench.py's z384 section), layered min-sum to
-// retire_zlane_layered_kernel and sum-product flooding to
-// retire_zlane_sumproduct_kernel.  So fused_minsum_kernel and
-// zlane_minsum_kernel serve layered sum-product and both modes on codes with
-// wider rows (and stay callable for the paths they served before, so the
-// wrapper's _launch_fused and _launch_zlane can time them beside the
-// kernels that replaced them).  The note below is this file's.
+// retire_zlane_layered_kernel, sum-product flooding to
+// retire_zlane_sumproduct_kernel and layered sum-product to
+// retire_zlane_layered_sumproduct_kernel.  So fused_minsum_kernel and
+// zlane_minsum_kernel serve codes with wider rows alone (and stay callable
+// for the paths they served before, so the wrapper's _launch_fused and
+// _launch_zlane can time them beside the kernels that replaced them).  The
+// note below is this file's.
 // Python wrappers, and the plain PyTorch version both kernels are held
 // against: ldpc_tpu_torch/ops/fused_minsum.py.
 //
@@ -74,8 +76,8 @@
 // llr + column sum and the hard decision (2 float32).  The special-function
 // units do 16 operations an SM and clock against 128 float32 lanes:
 // 4.19e12 per second.  chip_smoke.py (bp_bound_ms) adds the three times.
-// Layered sum-product (fused_minsum_kernel's own path since the retiring
-// kernels took the rest), per lifted edge: the flooding count less the
+// Layered sum-product (retire_layered_sumproduct_kernel's path, which this
+// file's kernels served until it took it), per lifted edge: the flooding count less the
 // column-sum add, plus the fold of the new c2v into the belief, (belief +
 // new) - old, two adds = 17 float32 and 4 special-function operations,
 // parity xor = 1 int32; per lifted check the syndrome OR (1 int32); per

@@ -33,17 +33,24 @@
 //                                           flooding (BeliefPropagationDecoder
 //                                           at large Z); entry
 //                                           ldpc_retire_zlane_sumproduct
+//   * retire_layered_sumproduct_kernel<TRACK, POW2>
+//                                        <- _kernel, mode "sumproduct",
+//                                           schedule "layered"; entry
+//                                           ldpc_retire_layered_sumproduct
+//   * retire_zlane_layered_sumproduct_kernel<TRACK, POW2>
+//                                        <- _kernel_zlane, mode "sumproduct",
+//                                           schedule "layered"; entry
+//                                           ldpc_retire_zlane_layered_sumproduct
 // They took the place of fused_minsum_kernel and zlane_minsum_kernel
-// (fused_minsum.cu) on those paths; layered sum-product (at any Z) and codes
-// with rows of more than 27 members (the wrapper's retire_kernel_fits,
-// retire_sumproduct_fits, retire_layered_fits, retire_zlane_fits,
-// retire_zlane_layered_fits and retire_zlane_sumproduct_fits) stay there.
+// (fused_minsum.cu) on every path; codes with rows of more than 27 members
+// (the wrapper's retire_*_fits) stay there.
 // The flooding kernels run one frame loop (decode_frames) over a check pass
 // and a column pass: the two min-sum kernels share compressed state and
 // passes and differ only in where a frame's state lives; the two sum-product
 // kernels keep one float a lifted edge and have their own passes, described
-// at their section below.  The layered kernels share their state word,
-// rolls, barriers and frame counter, and are described at their own
+// at their section below.  The four layered kernels run one frame loop
+// (layered_frames) over a row update of their own check state (min-sum's
+// state words, sum-product's c2v), and are described at their own
 // sections.  Python wrapper and
 // the plain PyTorch version all are held against (fused_decode_plain):
 // ldpc_tpu_torch/ops/fused_minsum.py.  CPU models of this source's
@@ -52,7 +59,8 @@
 // tests/test_torch_minsum_layered.py (layered),
 // tests/test_torch_minsum_sumproduct_retire.py (sum-product),
 // tests/test_torch_zlane_retire_sched.py (both at large Z, the state as
-// the slices lay it out).
+// the slices lay it out), tests/test_torch_layered_sumproduct_retire.py
+// (layered sum-product, in shared memory and in the slices).
 //
 // The min-sum flooding kernels
 // ============================
@@ -333,6 +341,17 @@ __device__ __forceinline__ float column_pass(const Structure& s, const float* ll
 
 constexpr int kPhiSlots = 12;  // members whose phi a check keeps in registers
 
+// phi_j of a member whose v2c is x: phi(clamp(|x|, 1e-7, 20)).
+__device__ __forceinline__ float v2c_phi(float x) {
+  return phi(fminf(fmaxf(fabsf(x), 1e-7f), 20.0f));
+}
+
+// Member j's new c2v from the row's phi sum S and its own phi p: sign bit
+// sp ^ (bit j of neg), the sign product times the sign of its v2c.
+__device__ __forceinline__ float c2v_out(float S, float p, unsigned sp, unsigned neg, int j) {
+  return flip_if(phi(fmaxf(S - p, 1e-7f)), sp ^ (neg << (31 - j)));
+}
+
 // c2v of a frame's lifted edges, check-aligned: the edge at row-order
 // position i (member j of row r: i = row_ptr[r] + j) and check lane z is
 // c2v[i*Z + z].
@@ -364,14 +383,11 @@ __device__ __forceinline__ unsigned check_pass(const Structure& s, const float* 
     const float x = b - c2v[j * Z];
     neg |= (__float_as_uint(x) >> 31) << j;
     if (TRACK) parity ^= __float_as_uint(b);
-    const float p = phi(fminf(fmaxf(fabsf(x), 1e-7f), 20.0f));
+    const float p = v2c_phi(x);
     S = S + p;
     return p;
   };
-  // Member j's c2v from phi_j: sign bit sp ^ (sign of x_j).
-  auto out = [&](int j, float p, unsigned sp) {
-    return flip_if(phi(fmaxf(S - p, 1e-7f)), sp ^ (neg << (31 - j)));
-  };
+  auto out = [&](int j, float p, unsigned sp) { return c2v_out(S, p, sp, neg, j); };
   if (d <= kPhiSlots) {
     float ph[kPhiSlots];
 #pragma unroll
@@ -622,6 +638,16 @@ struct LayeredStructure {
   const int* grp_ptr;
 };
 
+// A layered frame's check state and what a row update does with it
+// (layered_frames runs either): min-sum keeps a check's c2v compressed, A =
+// (alpha*m1, alpha*m2) and the state word W (R*Z entries each); sum-product
+// keeps one float a lifted edge, check-aligned (see its section below).
+struct LayeredMinSumState {
+  float2* A;
+  unsigned* W;
+  float alpha;
+};
+
 // The check's new state from the fold of its d members.
 __device__ __forceinline__ void new_state(float m1, float m2, unsigned arg, unsigned neg, int d,
                                           float alpha, float2& an, unsigned& wn) {
@@ -699,24 +725,123 @@ __device__ __forceinline__ void layered_row_wide(const int2* mem, int d, float* 
 // in registers, wider ones the loop, which keeps the kernel within the 64
 // registers a thread that 1024 threads a block leave.
 template <bool POW2>
-__device__ __forceinline__ void layered_update(const LayeredStructure& s, float* bel, float2* A,
-                                               unsigned* W, int r, int z, int Z, float alpha,
+__device__ __forceinline__ void layered_update(const LayeredStructure& s, float* bel,
+                                               const LayeredMinSumState& st, int r, int z, int Z,
                                                bool first) {
   const int j0 = s.row_ptr[r];
   const int d = s.row_ptr[r + 1] - j0;
   const int2* mem = s.row_mem + j0;
   const int q = r * Z + z;
   switch (d) {
-#define LAYERED_ROW(D)                                           \
-  case D:                                                        \
-    layered_row<D, POW2>(mem, bel, A, W, q, z, Z, alpha, first); \
+#define LAYERED_ROW(D)                                                    \
+  case D:                                                                 \
+    layered_row<D, POW2>(mem, bel, st.A, st.W, q, z, Z, st.alpha, first); \
     break;
     LAYERED_ROW(1) LAYERED_ROW(2) LAYERED_ROW(3) LAYERED_ROW(4) LAYERED_ROW(5) LAYERED_ROW(6)
     LAYERED_ROW(7) LAYERED_ROW(8) LAYERED_ROW(9) LAYERED_ROW(10) LAYERED_ROW(11)
     LAYERED_ROW(12)
 #undef LAYERED_ROW
     default:
-      layered_row_wide<POW2>(mem, d, bel, A, W, q, z, Z, alpha, first);
+      layered_row_wide<POW2>(mem, d, bel, st.A, st.W, q, z, Z, st.alpha, first);
+  }
+}
+
+// c2v of a layered sum-product frame, check-aligned as retire_sumproduct's:
+// member j of row r at lane z is c2v[(row_ptr[r] + j) * Z + z], in shared
+// memory or the frame group's slice of global scratch (the layered
+// sum-product section below).
+struct LayeredSumProductState {
+  float* c2v;
+};
+
+// Base row r's sum-product update at lane z, for a row of D members (mem:
+// its members; c2v: member j's slot at c2v[j * Z]; FIRST: the first sweep,
+// whose old c2v are +0.0 and whose slots are not read).  Member j's v2c is
+// x_j = belief - old, phi_j = phi(clamp(|x_j|, 1e-7, 20)) computed once and
+// kept in a register, S = S + phi_j in member order 0..D-1; its new c2v is
+// sp * sign(x_j) * phi(max(S - phi_j, 1e-7)) and its belief becomes (belief
+// + new) - old.  Beliefs are never -0.0 (see layered_row), so neither is
+// x_j, and its sign bit is its "< 0".
+template <int D, bool POW2>
+__device__ __forceinline__ void layered_sp_row(const int2* mem, float* bel, float* c2v, int z,
+                                               int Z, bool first) {
+  int pos[D];
+  float b[D], old[D], ph[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const int2 m = mem[j];
+    pos[j] = rolled<POW2>(z, m.y, m.x, Z);
+    b[j] = bel[pos[j]];
+    old[j] = first ? 0.0f : c2v[j * Z];
+  }
+  float S = 0.0f;
+  unsigned neg = 0u;
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float x = b[j] - old[j];
+    neg |= (__float_as_uint(x) >> 31) << j;
+    ph[j] = v2c_phi(x);
+    S = S + ph[j];
+  }
+  const unsigned sp = (__popc(neg) & 1u) << 31;
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float v = c2v_out(S, ph[j], sp, neg, j);
+    bel[pos[j]] = (b[j] + v) - old[j];
+    c2v[j * Z] = v;
+  }
+}
+
+// The same for rows of more than kPhiSlots members, with run-time loops:
+// the update reads each belief and old c2v again (no other thread writes
+// them in between), and phi_j waits in a per-thread array in local memory.
+// Its c2v slot cannot hold it, as check_pass's does: the slot keeps the old
+// c2v, which the belief update subtracts.
+template <bool POW2>
+__device__ __forceinline__ void layered_sp_row_wide(const int2* mem, int d, float* bel,
+                                                    float* c2v, int z, int Z, bool first) {
+  float ph[kSignBits];
+  float S = 0.0f;
+  unsigned neg = 0u;
+  for (int j = 0; j < d; ++j) {
+    const int2 m = mem[j];
+    const float x = bel[rolled<POW2>(z, m.y, m.x, Z)] - (first ? 0.0f : c2v[j * Z]);
+    neg |= (__float_as_uint(x) >> 31) << j;
+    ph[j] = v2c_phi(x);
+    S = S + ph[j];
+  }
+  const unsigned sp = (__popc(neg) & 1u) << 31;
+  for (int j = 0; j < d; ++j) {
+    const int2 m = mem[j];
+    const int p = rolled<POW2>(z, m.y, m.x, Z);
+    const float v = c2v_out(S, ph[j], sp, neg, j);
+    bel[p] = (bel[p] + v) - (first ? 0.0f : c2v[j * Z]);
+    c2v[j * Z] = v;
+  }
+}
+
+// Base row r's sum-product update at lane z: rows of up to kPhiSlots
+// members (NR base graph 2 has rows of 3 to 10) run an unrolled body with
+// their beliefs, old c2v and phi in registers, wider ones the loop.
+template <bool POW2>
+__device__ __forceinline__ void layered_update(const LayeredStructure& s, float* bel,
+                                               const LayeredSumProductState& st, int r, int z,
+                                               int Z, bool first) {
+  const int j0 = s.row_ptr[r];
+  const int d = s.row_ptr[r + 1] - j0;
+  const int2* mem = s.row_mem + j0;
+  float* c2v = st.c2v + j0 * Z + z;
+  switch (d) {
+#define LAYERED_SP_ROW(D)                                    \
+  case D:                                                    \
+    layered_sp_row<D, POW2>(mem, bel, c2v, z, Z, first); \
+    break;
+    LAYERED_SP_ROW(1) LAYERED_SP_ROW(2) LAYERED_SP_ROW(3) LAYERED_SP_ROW(4) LAYERED_SP_ROW(5)
+    LAYERED_SP_ROW(6) LAYERED_SP_ROW(7) LAYERED_SP_ROW(8) LAYERED_SP_ROW(9) LAYERED_SP_ROW(10)
+    LAYERED_SP_ROW(11) LAYERED_SP_ROW(12)
+#undef LAYERED_SP_ROW
+    default:
+      layered_sp_row_wide<POW2>(mem, d, bel, c2v, z, Z, first);
   }
 }
 
@@ -774,17 +899,17 @@ __device__ __forceinline__ LayeredLanes layered_lanes(int Z, int parts) {
 }
 
 // A layered frame group decodes frames from the counter until the batch is
-// done: its beliefs (bel) in shared memory, its check state (A, W) in shared
-// memory or its slice of global scratch.  Where the LLR and bit rows are
-// 16-byte aligned (n % 4 == 0) they move as float4.
-template <bool TRACK, bool POW2>
+// done: its beliefs (bel) in shared memory, its check state (State:
+// LayeredMinSumState or LayeredSumProductState) in shared memory or its
+// slice of global scratch.  Where the LLR and bit rows are 16-byte aligned
+// (n % 4 == 0) they move as float4.
+template <bool TRACK, bool POW2, typename State>
 __device__ __forceinline__ void layered_frames(const LayeredStructure& s, const LayeredLanes& t,
                                                int* s_frame, const float* __restrict__ llr,
                                                float* __restrict__ bits, int* __restrict__ conv,
                                                int* __restrict__ next_frame, float* bel,
-                                               float2* A, unsigned* W, int B, int Z, int R,
-                                               int C, int G, int max_iterations, float alpha,
-                                               int parts) {
+                                               const State& st, int B, int Z, int R, int C,
+                                               int G, int max_iterations, int parts) {
   const Group& grp = t.grp;
   const int gi = t.gi;
   const int n = C * Z;
@@ -820,7 +945,7 @@ __device__ __forceinline__ void layered_frames(const LayeredStructure& s, const 
       for (int i = 0; i < G; ++i) {
         if (t.active)
           for (int r = s.grp_ptr[i] + t.part; r < s.grp_ptr[i + 1]; r += parts)
-            layered_update<POW2>(s, bel, A, W, r, t.z, Z, alpha, it == 0);
+            layered_update<POW2>(s, bel, st, r, t.z, Z, it == 0);
         grp.sync();
       }
       // The last sweep needs no parity pass: converged or not, the outputs
@@ -871,8 +996,9 @@ retire_layered_kernel(const float* __restrict__ llr, float* __restrict__ bits,
                t.g * layered_frame_words(Z, R, C);
   float2* A = reinterpret_cast<float2*>(bel + layered_bel_words(Z, C));
   unsigned* W = reinterpret_cast<unsigned*>(A + R * Z);
-  layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel, A, W, B, Z,
-                              R, C, G, max_iterations, alpha, parts);
+  layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
+                              LayeredMinSumState{A, W, alpha}, B, Z, R, C, G, max_iterations,
+                              parts);
 }
 
 // ---------------------------------------------------------------------------
@@ -941,8 +1067,9 @@ retire_zlane_layered_kernel(const float* __restrict__ llr, float* __restrict__ b
                                   zlane_layered_slice_words(Z, R);
   float2* A = reinterpret_cast<float2*>(slice);
   unsigned* W = slice + 2 * R * Z;
-  layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel, A, W, B, Z,
-                              R, C, G, max_iterations, alpha, parts);
+  layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
+                              LayeredMinSumState{A, W, alpha}, B, Z, R, C, G, max_iterations,
+                              parts);
 }
 
 // ---------------------------------------------------------------------------
@@ -994,6 +1121,140 @@ retire_zlane_sumproduct_kernel(const float* __restrict__ llr, float* __restrict_
   float* c2v = scratch + static_cast<size_t>(blockIdx.x) * K * Z;
   decode_frames<TRACK, POW2, false>(s, t, &s_frame, llr, bits, conv, next_frame, bel, nullptr,
                                     SumProductState{c2v, K * Z}, B, Z, C, max_iterations);
+}
+
+// ---------------------------------------------------------------------------
+// Layered sum-product (retire_layered_sumproduct_kernel,
+// retire_zlane_layered_sumproduct_kernel)
+// ---------------------------------------------------------------------------
+//
+// What they compute: exactly what fused_minsum_kernel<true, true> and
+// zlane_minsum_kernel<true, true> (fused_minsum.cu) compute, in the same
+// order, for the TPU kernels' layered sum-product (pallas_minsum.py:202-223,
+// the layered fold at :219-222, and :447-468).  A sweep runs the base rows
+// in order; for lifted check (r, z), members j = 0..d-1 in row order: x_j =
+// belief - old_j (old_j: the member's c2v of the previous sweep, +0.0 in the
+// first), phi_j = phi(clamp(|x_j|, 1e-7, 20)), S = S + phi_j from S = 0, and
+// the sign product (sign(0) = +1); member j's new c2v is sp * sign(x_j) *
+// phi(max(S - phi_j, 1e-7)), and each belief becomes (belief + new) - old,
+// in that order.  With tracking, the first sweep after which every check
+// holds freezes the bits and sets conv_iter.  The same libdevice logf and
+// tanhf (phi.cuh) in the same float operations, built with this file's
+// flags, so bits and conv_iter are identical to the replaced kernels'.  No
+// FMA can change a rounding here: the only product before a fold is +-1 *
+// phi, which is exact, and the sign is applied by flipping a bit; so,
+// unlike layered min-sum's alpha * loo, these kernels need no -fmad=false
+// and their JAX reference no FMA-free XLA.
+//
+// What bounds it.  Operations (fused_minsum.cu's header, chip_smoke.py
+// OPS_PER_EDGE_SUMPRODUCT_LAYERED): per lifted edge 17 float32, 1 int32 and
+// 4 special-function operations, per check 1 int32, per variable 1 float32,
+// over each frame's conv_iter sweeps (bp_bound_ms(..., layered=True)); at
+// NR BG2 Z=32, batch 65536, 3 dB (mean conv_iter 2.0) 1.275 ms, the special
+// functions the largest part.  A phi is 47 SASS instructions
+// (tools/probe_phi.py), far from the bound's two.
+//
+// What the design does about it.
+// 1. layered_frames' frame loop, as the layered min-sum kernels run it (the
+//    atomic frame counter, row groups side by side on `parts` warps with a
+//    named barrier a group, a parity pass after each sweep but the last,
+//    frames that retire the sweep they converge, float4 LLR and bit moves),
+//    with a check-aligned c2v as its check state.  A frame runs about
+//    conv_iter sweeps and conv_iter parity passes, where the replaced
+//    kernels ran 20 sweeps with a syndrome after each.
+// 2. Each phi once: a row's beliefs, old c2v and phi stay in registers
+//    (rows of up to kPhiSlots members) between the fold and the update, two
+//    phi a member where the replaced kernels compute three.  Wider rows run
+//    loops with phi_j in a per-thread local array (layered_sp_row_wide).
+// 3. c2v check-aligned: member j of row r, lane z at (row_ptr[r] + j) * Z +
+//    z, so a warp's lanes touch consecutive words (no bank conflicts; L2
+//    reads coalesce).  A lifted check's slots are read and written by its
+//    own thread only, so they need no barrier and are never cleared: the
+//    first sweep reads none.
+// 4. Where c2v lives.  retire_layered_sumproduct_kernel keeps a frame's
+//    beliefs (C*Z floats) and c2v (K*Z floats) in shared memory, 31,872
+//    bytes a frame at NR BG2 Z=32 beside the 1,872-byte layered structure:
+//    7 frames a block.  retire_zlane_layered_sumproduct_kernel, for Z where
+//    that exceeds a block, keeps the beliefs in shared memory (79,872 bytes
+//    at Z=384) and c2v (4 K*Z bytes, 302,592 at Z=384) in the frame group's
+//    slice of a global scratch.  The wrapper's plan takes as many frame
+//    groups an SM as the occupancy query allows, two at Z=384 (shared
+//    memory holds no third): two put 80 MB of slices in flight against the
+//    H100's 50 MB L2, and still beat one of twice the warps.
+// 5. Both kernels are built for at most kLayeredSumProductThreads (768)
+//    threads a block, which leaves them 80 registers a thread where
+//    kMaxThreads leaves 64: a block of 7 frames of 3 warps at Z=32 takes
+//    672 threads, and the plans at NR BG2 take at most 768 at Z=384.
+//
+// Shared memory and plan: see 4 and 5; the wrapper takes the plan with the
+// most resident frames by the runtime's occupancy query, then the fewest
+// parts (one warp a frame beat three by 1.0-1.6% at Z=32, and one part of
+// two frame groups beat two parts of one at Z=384): at NR BG2 Z=32 7
+// frames of one warp a block, one block an SM; at Z=384 one frame of one
+// part (12 warps) a block, two blocks an SM.  80 registers; 4-24 bytes
+// spilled at Z=32, 48-96 at Z=384 (ptxas).
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 6.674-6.689
+// ms per batch of 65536 at Z=32, 3 dB (mean conv_iter 2.0) with 7 frames of
+// one warp an SM (three warps a frame: 6.76-6.83 ms in earlier calls),
+// where fused_minsum_kernel<true, true> took 188.6-190.1 ms in the same
+// calls; 0.515-0.523 ms per batch of 512 at Z=384 with two frame groups
+// an SM (one of two parts: 0.566-0.575 ms), where zlane_minsum_kernel<true,
+// true> took 8.92-9.08 ms; outputs identical.  At Z=32 a sweep costs 2.67
+// ms of the batch (throughput mode; 3.44 ms at three warps a frame).
+// Neither more warps a frame nor more frames an SM (c2v in L2 slices,
+// retire_zlane_layered_sumproduct at Z=32 with 24 frames of one warp an
+// SM: 7.28-7.47 ms) make it faster.  The sweep's 8.3e8 phi take 1.29 ms of
+// it at tools/probe_phi.py's rate; the rest is not split.
+
+constexpr int kLayeredSumProductThreads = 768;
+
+// A frame's beliefs (C*Z floats, rounded up to 16 bytes), then its c2v (K*Z
+// floats, rounded up to 16 bytes).
+__host__ __device__ inline int layered_sumproduct_frame_words(int Z, int C, int K) {
+  return layered_bel_words(Z, C) + (K * Z + 3) / 4 * 4;
+}
+
+// Up to 24 frame groups a block (15 where a group is more than one warp), each
+// with its beliefs and c2v in shared memory.
+template <bool TRACK, bool POW2>
+__global__ void __launch_bounds__(kLayeredSumProductThreads)
+retire_layered_sumproduct_kernel(const float* __restrict__ llr, float* __restrict__ bits,
+                                 int* __restrict__ conv, int* __restrict__ next_frame,
+                                 const int* __restrict__ structure, int B, int Z, int R, int C,
+                                 int K, int G, int max_iterations, int parts) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_frame[kMaxGroups];
+  int* s_struct = reinterpret_cast<int*>(smem);
+  const LayeredStructure s = load_layered_structure(s_struct, structure, R, K, G);
+  const LayeredLanes t = layered_lanes(Z, parts);
+  float* bel = reinterpret_cast<float*>(s_struct + layered_structure_words(R, K, G)) +
+               t.g * layered_sumproduct_frame_words(Z, C, K);
+  layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
+                              LayeredSumProductState{bel + layered_bel_words(Z, C)}, B, Z, R, C,
+                              G, max_iterations, parts);
+}
+
+// Beliefs in shared memory, c2v in the frame group's slice (K*Z floats) of
+// `scratch`; a slice is read and written only by the thread that owns each
+// of its checks, so it needs no barrier and ordinary loads.
+template <bool TRACK, bool POW2>
+__global__ void __launch_bounds__(kLayeredSumProductThreads)
+retire_zlane_layered_sumproduct_kernel(const float* __restrict__ llr, float* __restrict__ bits,
+                                       int* __restrict__ conv, int* __restrict__ next_frame,
+                                       float* scratch, const int* __restrict__ structure, int B,
+                                       int Z, int R, int C, int K, int G, int max_iterations,
+                                       int parts, int frames) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_frame[kMaxGroups];
+  int* s_struct = reinterpret_cast<int*>(smem);
+  const LayeredStructure s = load_layered_structure(s_struct, structure, R, K, G);
+  const LayeredLanes t = layered_lanes(Z, parts);
+  float* bel = reinterpret_cast<float*>(s_struct + layered_structure_words(R, K, G)) +
+               t.g * layered_bel_words(Z, C);
+  float* c2v = scratch + (static_cast<long long>(blockIdx.x) * frames + t.g) * K * Z;
+  layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
+                              LayeredSumProductState{c2v}, B, Z, R, C, G, max_iterations, parts);
 }
 
 using Kernel = decltype(&retire_minsum_kernel<true, true>);
@@ -1114,6 +1375,42 @@ ZlaneSumProductKernel pick_zlane_sumproduct_kernel(int track, int Z) {
 // Structure and one frame's beliefs (C*Z floats).
 long long zlane_sumproduct_smem(int Z, int R, int C, int K, int parts) {
   return 4LL * (structure_words(R, C, K, parts) + static_cast<long long>(C) * Z);
+}
+
+using LayeredSumProductKernel = decltype(&retire_layered_sumproduct_kernel<true, true>);
+
+LayeredSumProductKernel pick_layered_sumproduct_kernel(int track, int Z) {
+  const bool pow2 = (Z & (Z - 1)) == 0;
+  return track ? (pow2 ? &retire_layered_sumproduct_kernel<true, true>
+                       : &retire_layered_sumproduct_kernel<true, false>)
+               : (pow2 ? &retire_layered_sumproduct_kernel<false, true>
+                       : &retire_layered_sumproduct_kernel<false, false>);
+}
+
+long long layered_sumproduct_smem(int Z, int R, int C, int K, int G, int frames) {
+  return 4LL * (layered_structure_words(R, K, G) +
+                static_cast<long long>(frames) * layered_sumproduct_frame_words(Z, C, K));
+}
+
+bool valid_layered_sumproduct_plan(int Z, int parts, int frames) {
+  return valid_layered_plan(Z, parts, frames) &&
+         retire_threads(Z, parts, frames) <= kLayeredSumProductThreads;
+}
+
+using ZlaneLayeredSumProductKernel =
+    decltype(&retire_zlane_layered_sumproduct_kernel<true, true>);
+
+ZlaneLayeredSumProductKernel pick_zlane_layered_sumproduct_kernel(int track, int Z) {
+  const bool pow2 = (Z & (Z - 1)) == 0;
+  return track ? (pow2 ? &retire_zlane_layered_sumproduct_kernel<true, true>
+                       : &retire_zlane_layered_sumproduct_kernel<true, false>)
+               : (pow2 ? &retire_zlane_layered_sumproduct_kernel<false, true>
+                       : &retire_zlane_layered_sumproduct_kernel<false, false>);
+}
+
+// Z % 8 == 0, as the TPU kernel asks.
+bool valid_zlane_layered_sumproduct_plan(int Z, int parts, int frames) {
+  return Z % 8 == 0 && valid_layered_sumproduct_plan(Z, parts, frames);
 }
 
 }  // namespace
@@ -1317,6 +1614,79 @@ int ldpc_retire_zlane_sumproduct_occupancy(int Z, int R, int C, int K, int parts
   const cudaError_t err =
       prepare(pick_zlane_sumproduct_kernel(track, Z), zlane_sumproduct_smem(Z, R, C, K, parts),
               retire_threads(Z, parts, 1), &blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// Layered sum-product, as ldpc_retire_layered: `grid` blocks of `frames`
+// frame groups of `parts` warps (times ceil(Z / 32)), each frame's beliefs
+// and c2v in shared memory; at most 768 threads a block.
+int ldpc_retire_layered_sumproduct(const void* llr, void* bits, void* conv, void* counter,
+                                   const void* structure, int B, int Z, int R, int C, int K,
+                                   int G, int T, int track, int parts, int frames, int grid,
+                                   void* stream) {
+  if (B < 1 || grid < 1 || G < 1 || !valid_layered_sumproduct_plan(Z, parts, frames))
+    return cudaErrorInvalidValue;
+  const long long smem = layered_sumproduct_smem(Z, R, C, K, G, frames);
+  const LayeredSumProductKernel kernel = pick_layered_sumproduct_kernel(track, Z);
+  const int threads = retire_threads(Z, parts, frames);
+  cudaError_t err = prepare(kernel, smem, threads, nullptr);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(llr), static_cast<float*>(bits), static_cast<int*>(conv),
+      static_cast<int*>(counter), static_cast<const int*>(structure), B, Z, R, C, K, G, T, parts);
+  return cudaGetLastError();
+}
+
+long long ldpc_retire_layered_sumproduct_smem_bytes(int Z, int R, int C, int K, int G,
+                                                    int frames) {
+  return layered_sumproduct_smem(Z, R, C, K, G, frames);
+}
+
+int ldpc_retire_layered_sumproduct_occupancy(int Z, int R, int C, int K, int G, int parts,
+                                             int frames, int track) {
+  if (!valid_layered_sumproduct_plan(Z, parts, frames))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err =
+      prepare(pick_layered_sumproduct_kernel(track, Z),
+              layered_sumproduct_smem(Z, R, C, K, G, frames), retire_threads(Z, parts, frames),
+              &blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// Layered sum-product at large Z, as ldpc_retire_zlane_layered: `scratch`
+// holds grid * frames slices of K*Z floats of c2v, one a frame group.
+int ldpc_retire_zlane_layered_sumproduct(const void* llr, void* bits, void* conv, void* counter,
+                                         void* scratch, const void* structure, int B, int Z,
+                                         int R, int C, int K, int G, int T, int track, int parts,
+                                         int frames, int grid, void* stream) {
+  if (B < 1 || grid < 1 || G < 1 || !valid_zlane_layered_sumproduct_plan(Z, parts, frames))
+    return cudaErrorInvalidValue;
+  const long long smem = zlane_layered_smem(Z, R, C, K, G, frames);
+  const ZlaneLayeredSumProductKernel kernel = pick_zlane_layered_sumproduct_kernel(track, Z);
+  const int threads = retire_threads(Z, parts, frames);
+  cudaError_t err = prepare(kernel, smem, threads, nullptr);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(llr), static_cast<float*>(bits), static_cast<int*>(conv),
+      static_cast<int*>(counter), static_cast<float*>(scratch),
+      static_cast<const int*>(structure), B, Z, R, C, K, G, T, parts, frames);
+  return cudaGetLastError();
+}
+
+long long ldpc_retire_zlane_layered_sumproduct_smem_bytes(int Z, int R, int C, int K, int G,
+                                                          int frames) {
+  return zlane_layered_smem(Z, R, C, K, G, frames);
+}
+
+int ldpc_retire_zlane_layered_sumproduct_occupancy(int Z, int R, int C, int K, int G, int parts,
+                                                   int frames, int track) {
+  if (!valid_zlane_layered_sumproduct_plan(Z, parts, frames))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err = prepare(pick_zlane_layered_sumproduct_kernel(track, Z),
+                                  zlane_layered_smem(Z, R, C, K, G, frames),
+                                  retire_threads(Z, parts, frames), &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 

@@ -1,7 +1,7 @@
 """Fused min-sum / BP decoders: the whole decode loop in one CUDA kernel
 (counterpart of ``ldpc_tpu.ops.pallas_minsum``).
 
-Eight hand-written kernels replace the two TPU kernels:
+Ten hand-written kernels replace the two TPU kernels:
 
 * ``fused_retire`` (``csrc/fused_retire.cu``, replaces
   ``pallas_minsum._kernel`` for scaled min-sum with the flooding schedule,
@@ -35,29 +35,36 @@ Eight hand-written kernels replace the two TPU kernels:
   frame at NR BG2 Z=32, the LLRs read from the input row, or staged in
   shared memory where the occupancy query prefers it).
   :func:`retire_sumproduct_fits` decides.
-* ``fused`` (``csrc/fused_minsum.cu``, replaces ``pallas_minsum._kernel`` for
-  layered sum-product, and for min-sum and sum-product flooding on codes
-  that the retiring kernels do not take, those with rows of more than 27
-  members): a few frames per thread block, with all decode state (c2v,
-  beliefs, channel LLRs) in shared memory.  Fits while one frame's state is
-  below the block's shared memory (Z=32 on NR BG2: about 42 KB a frame);
-  ``fused_kernel_fits`` decides for both.
-* ``retire_zlane_layered`` and ``retire_zlane_sumproduct`` (same file,
-  replace ``pallas_minsum._kernel_zlane`` for layered min-sum and for
-  sum-product flooding at large Z): ``retire_layered``'s and
-  ``retire_sumproduct``'s algorithms with the state split as
-  ``retire_zlane`` splits it.  Layered: the beliefs in shared memory, the
-  check state ((alpha*m1, alpha*m2) and the state words) in the frame
-  group's L2 slice; sum-product:
-  the beliefs in shared memory, c2v (K*Z floats) in the block's L2 slice,
-  one block an SM.  :func:`retire_zlane_layered_fits` and
-  :func:`retire_zlane_sumproduct_fits` decide.
+* ``retire_layered_sumproduct`` (same file, replaces ``pallas_minsum._kernel``
+  for sum-product with the layered schedule): ``retire_layered``'s frame
+  loop over a sum-product row update, one float of c2v a lifted edge
+  (check-aligned) and each phi computed once and kept in registers, the
+  beliefs and c2v in shared memory (31,872 bytes a frame at NR BG2 Z=32).
+  :func:`retire_layered_sumproduct_fits` decides.
+* ``fused`` (``csrc/fused_minsum.cu``, replaces ``pallas_minsum._kernel``
+  on codes that the retiring kernels do not take, those with rows of more
+  than 27 members): a few frames per thread block, with all decode state
+  (c2v, beliefs, channel LLRs) in shared memory.  Fits while one frame's
+  state is below the block's shared memory (Z=32 on NR BG2: about 42 KB a
+  frame); ``fused_kernel_fits`` decides.
+* ``retire_zlane_layered``, ``retire_zlane_sumproduct`` and
+  ``retire_zlane_layered_sumproduct`` (same file, replace
+  ``pallas_minsum._kernel_zlane`` for layered min-sum, sum-product flooding
+  and layered sum-product at large Z): ``retire_layered``'s,
+  ``retire_sumproduct``'s and ``retire_layered_sumproduct``'s algorithms
+  with the state split as ``retire_zlane`` splits it: the beliefs in shared
+  memory, the check state in an L2 slice (layered min-sum: (alpha*m1,
+  alpha*m2) and the state words, a frame group's; sum-product flooding: c2v
+  (K*Z floats), the block's, one block an SM; layered sum-product: c2v, a
+  frame group's, as many frame groups an SM as the occupancy query allows).
+  :func:`retire_zlane_layered_fits`, :func:`retire_zlane_sumproduct_fits`
+  and :func:`retire_zlane_layered_sumproduct_fits` decide.
 * ``fused_zlane`` (``csrc/fused_minsum.cu``, replaces
-  ``pallas_minsum._kernel_zlane`` for layered sum-product and for codes the
-  retiring kernels do not take, rows of more than 27 members): the same
-  semantics when a frame's state exceeds shared memory (the 5G maximum
-  Z=384): c2v lives in a global scratch buffer, beliefs in shared memory,
-  and each block walks over frames one at a time.
+  ``pallas_minsum._kernel_zlane`` for codes the retiring kernels do not
+  take, rows of more than 27 members): the same semantics when a frame's
+  state exceeds shared memory (the 5G maximum Z=384): c2v lives in a
+  global scratch buffer, beliefs in shared memory, and each block walks
+  over frames one at a time.
 
 The builders take every flag the TPU kernels take: ``mode`` ("minsum" scaled by
 ``alpha``, or "sumproduct"), ``schedule`` ("flooding" or "layered"),
@@ -106,13 +113,22 @@ _LAYERED_MAX_FRAMES = 32
 # slices (40 MB) within an H100's 50 MB L2, and a block of the most parts
 # beat every two-block plan at NR BG2 Z=224-384 (tools/probe_zlane_blocks.py).
 _ZLANE_SUMPRODUCT_BLOCKS_PER_SM = 1
+# retire_layered_sumproduct and retire_zlane_layered_sumproduct are built for
+# at most this many threads a block (kLayeredSumProductThreads), which leaves
+# them 80 registers a thread.
+_LAYERED_SUMPRODUCT_MAX_THREADS = 768
 
-# The kernels of csrc/fused_retire.cu, each a route of its own.
+# The kernels of csrc/fused_retire.cu, each a route of its own; the layered
+# ones read _layered_structure.
 RETIRING = ("fused_retire", "retire_zlane", "retire_layered", "retire_sumproduct",
-            "retire_zlane_layered", "retire_zlane_sumproduct")
+            "retire_zlane_layered", "retire_zlane_sumproduct", "retire_layered_sumproduct",
+            "retire_zlane_layered_sumproduct")
+_LAYERED_ROUTES = ("retire_layered", "retire_zlane_layered", "retire_layered_sumproduct",
+                   "retire_zlane_layered_sumproduct")
 LAUNCHES: dict[str, int] = {"fused_retire": 0, "fused": 0, "retire_zlane": 0, "fused_zlane": 0,
                             "retire_layered": 0, "retire_sumproduct": 0,
-                            "retire_zlane_layered": 0, "retire_zlane_sumproduct": 0}
+                            "retire_zlane_layered": 0, "retire_zlane_sumproduct": 0,
+                            "retire_layered_sumproduct": 0, "retire_zlane_layered_sumproduct": 0}
 
 
 class _Structure(NamedTuple):
@@ -314,18 +330,19 @@ def retire_layered_smem_bytes(qc: QCLayout, frames: int = 1) -> int:
     return 4 * (_layered_structure_words(qc) + frames * frame)
 
 
-def _layered_plans(qc: QCLayout, smem_bytes) -> list[tuple[int, int]]:
+def _layered_plans(qc: QCLayout, smem_bytes,
+                   max_threads: int = _RETIRE_MAX_THREADS) -> list[tuple[int, int]]:
     """The (parts, frames per block) of a layered kernel whose block takes
     ``smem_bytes(frames)`` of shared memory: parts up to the largest row
-    group (a part runs one row of a group at a time), at most 1024 threads a
-    block, 32 frames of one warp or 15 of more, within shared memory."""
+    group (a part runs one row of a group at a time), at most
+    ``max_threads`` threads a block, 32 frames of one warp or 15 of more,
+    within shared memory."""
     largest = max(np.diff(row_groups(_structure(qc))))
     plans = []
     for p in range(1, min(largest, _RETIRE_MAX_PARTS) + 1):
         one_warp = retire_threads(qc, p, 1) == 32
         for f in range(1, (_LAYERED_MAX_FRAMES if one_warp else _RETIRE_MAX_GROUPS) + 1):
-            if retire_threads(qc, p, f) <= _RETIRE_MAX_THREADS and \
-                    smem_bytes(f) <= _SMEM_BUDGET:
+            if retire_threads(qc, p, f) <= max_threads and smem_bytes(f) <= _SMEM_BUDGET:
                 plans.append((p, f))
     return plans
 
@@ -370,6 +387,60 @@ def retire_zlane_layered_fits(qc: QCLayout) -> bool:
     TPU kernel), rows of at most 27 members and a frame's beliefs within a
     block."""
     return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_zlane_layered_plans(qc))
+
+
+def retire_layered_sumproduct_smem_bytes(qc: QCLayout, frames: int = 1) -> int:
+    """Dynamic shared memory of one ``retire_layered_sumproduct`` block:
+    ``retire_layered``'s structure plus, per frame, the beliefs (C*Z
+    float32) and c2v (K*Z float32), each rounded up to 16 bytes."""
+    Z, C, K = qc.Z, qc.num_base_cols, qc.num_base_edges
+    frame = -(-C * Z // 4) * 4 + -(-K * Z // 4) * 4
+    return 4 * (_layered_structure_words(qc) + frames * frame)
+
+
+def retire_layered_sumproduct_plans(qc: QCLayout) -> list[tuple[int, int]]:
+    """The (parts, frames per block) a ``retire_layered_sumproduct`` launch
+    may take (:func:`_layered_plans`, at most 768 threads a block)."""
+    return _layered_plans(qc, lambda f: retire_layered_sumproduct_smem_bytes(qc, f),
+                          _LAYERED_SUMPRODUCT_MAX_THREADS)
+
+
+def retire_layered_sumproduct_fits(qc: QCLayout) -> bool:
+    """Whether ``retire_layered_sumproduct`` takes the code: rows of at most
+    27 members (a word holds a check's signs) and a frame's beliefs and c2v
+    within a block."""
+    return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_layered_sumproduct_plans(qc))
+
+
+def retire_zlane_layered_sumproduct_smem_bytes(qc: QCLayout, frames: int = 1) -> int:
+    """Dynamic shared memory of one ``retire_zlane_layered_sumproduct``
+    block: ``retire_layered``'s structure plus, per frame, the beliefs (C*Z
+    float32, rounded up to 16 bytes), as ``retire_zlane_layered``."""
+    return retire_zlane_layered_smem_bytes(qc, frames)
+
+
+def retire_zlane_layered_sumproduct_scratch_bytes(qc: QCLayout) -> int:
+    """Global scratch of one ``retire_zlane_layered_sumproduct`` frame
+    group: c2v, one float32 per lifted edge."""
+    return 4 * qc.num_base_edges * qc.Z
+
+
+def retire_zlane_layered_sumproduct_plans(qc: QCLayout) -> list[tuple[int, int]]:
+    """The (parts, frames per block) a ``retire_zlane_layered_sumproduct``
+    launch may take (:func:`_layered_plans`, at most 768 threads a block),
+    for Z % 8 == 0."""
+    if qc.Z % 8:
+        return []
+    return _layered_plans(qc, lambda f: retire_zlane_layered_sumproduct_smem_bytes(qc, f),
+                          _LAYERED_SUMPRODUCT_MAX_THREADS)
+
+
+def retire_zlane_layered_sumproduct_fits(qc: QCLayout) -> bool:
+    """Whether ``retire_zlane_layered_sumproduct`` takes the code: Z % 8 ==
+    0 (as the TPU kernel), rows of at most 27 members and a frame's beliefs
+    within a block."""
+    return (qc.dr_max <= _RETIRE_MAX_DEGREE
+            and bool(retire_zlane_layered_sumproduct_plans(qc)))
 
 
 def retire_zlane_sumproduct_smem_bytes(qc: QCLayout, parts: int = 1) -> int:
@@ -690,6 +761,20 @@ _RETIRE_SIGNATURES = {
     "ldpc_retire_zlane_sumproduct_smem_bytes": ([_I] * 5, ctypes.c_longlong),
     # Z, R, C, K, parts, track -> blocks per SM
     "ldpc_retire_zlane_sumproduct_occupancy": ([_I] * 6, _I),
+    # llr, bits, conv, counter, structure, B, Z, R, C, K, G, T,
+    # track, parts, frames_per_block, grid, stream
+    "ldpc_retire_layered_sumproduct": ([_P] * 5 + [_I] * 11 + [_P], _I),
+    # Z, R, C, K, G, frames_per_block
+    "ldpc_retire_layered_sumproduct_smem_bytes": ([_I] * 6, ctypes.c_longlong),
+    # Z, R, C, K, G, parts, frames_per_block, track -> blocks per SM
+    "ldpc_retire_layered_sumproduct_occupancy": ([_I] * 8, _I),
+    # llr, bits, conv, counter, scratch, structure, B, Z, R, C, K, G, T,
+    # track, parts, frames_per_block, grid, stream
+    "ldpc_retire_zlane_layered_sumproduct": ([_P] * 6 + [_I] * 11 + [_P], _I),
+    # Z, R, C, K, G, frames_per_block
+    "ldpc_retire_zlane_layered_sumproduct_smem_bytes": ([_I] * 6, ctypes.c_longlong),
+    # Z, R, C, K, G, parts, frames_per_block, track -> blocks per SM
+    "ldpc_retire_zlane_layered_sumproduct_occupancy": ([_I] * 8, _I),
     "ldpc_retire_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -823,19 +908,71 @@ def retire_zlane_sumproduct_plan(qc: QCLayout, track_convergence: bool, parts: i
     return best
 
 
+def retire_layered_sumproduct_plan(qc: QCLayout, track_convergence: bool,
+                                   parts: int | None = None, lib=None) -> tuple[int, int, int]:
+    """(parts, frames per block, resident blocks per SM) of
+    ``retire_layered_sumproduct``: of :func:`retire_layered_sumproduct_plans`
+    (those with ``parts`` if given), the most resident frames per SM by the
+    runtime's occupancy query, then the fewest parts, then the fewest frames
+    per block.  Fewest parts, where ``retire_layered`` takes the most: at NR
+    BG2 Z=32, 7 frames of one warp beat 7 of three warps by 1.0-1.6% in
+    every call that timed both (chip_smoke.py sumproduct_layered)."""
+    lib = lib or retire_kernel_library()
+    dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges,
+            len(row_groups(_structure(qc))) - 1)
+    best, key = (0, 0, 0), (0, 0, 0)
+    for p, f in retire_layered_sumproduct_plans(qc):
+        if parts is not None and p != parts:
+            continue
+        per_sm = lib.ldpc_retire_layered_sumproduct_occupancy(*dims, p, f,
+                                                             int(track_convergence))
+        if (per_sm * f, -p, -f) > key:
+            best, key = (p, f, per_sm), (per_sm * f, -p, -f)
+    return best
+
+
+def retire_zlane_layered_sumproduct_plan(qc: QCLayout, track_convergence: bool,
+                                         parts: int | None = None,
+                                         lib=None) -> tuple[int, int, int]:
+    """(parts, frames per block, resident blocks per SM) of
+    ``retire_zlane_layered_sumproduct``: of
+    :func:`retire_zlane_layered_sumproduct_plans` (those with ``parts`` if
+    given), the most resident frames per SM by the runtime's occupancy
+    query, then the fewest parts, then the fewest frames per block.  At NR
+    BG2 Z=384 that is two frame groups of one part an SM (shared memory
+    holds no third frame's beliefs): they beat one group of two parts by
+    9-11% (chip_smoke.py z384_sumproduct_layered), though their c2v slices
+    (80 MB) exceed an H100's 50 MB L2."""
+    lib = lib or retire_kernel_library()
+    dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges,
+            len(row_groups(_structure(qc))) - 1)
+    best, key = (0, 0, 0), (0, 0, 0)
+    for p, f in retire_zlane_layered_sumproduct_plans(qc):
+        if parts is not None and p != parts:
+            continue
+        per_sm = lib.ldpc_retire_zlane_layered_sumproduct_occupancy(*dims, p, f,
+                                                                   int(track_convergence))
+        if (per_sm * f, -p, -f) > key:
+            best, key = (p, f, per_sm), (per_sm * f, -p, -f)
+    return best
+
+
 def _route(kind: str, qc: QCLayout, mode: str, schedule: str) -> str:
-    """The kernel a decoder of ``kind`` launches (its ``LAUNCHES`` key):
-    min-sum, and sum-product flooding, on the retiring kernel of its size
-    and schedule where that takes the code, the rest (layered sum-product,
-    wider rows) on ``kind``'s own."""
+    """The kernel a decoder of ``kind`` launches (its ``LAUNCHES`` key): each
+    mode and schedule on the retiring kernel of its size where that takes
+    the code, the rest (rows over 27 members) on ``kind``'s own."""
     fits = {("fused", "minsum", "flooding"): ("fused_retire", retire_kernel_fits),
             ("fused", "minsum", "layered"): ("retire_layered", retire_layered_fits),
             ("fused", "sumproduct", "flooding"): ("retire_sumproduct", retire_sumproduct_fits),
+            ("fused", "sumproduct", "layered"): ("retire_layered_sumproduct",
+                                                 retire_layered_sumproduct_fits),
             ("fused_zlane", "minsum", "flooding"): ("retire_zlane", retire_zlane_fits),
             ("fused_zlane", "minsum", "layered"): ("retire_zlane_layered",
                                                    retire_zlane_layered_fits),
             ("fused_zlane", "sumproduct", "flooding"): ("retire_zlane_sumproduct",
-                                                        retire_zlane_sumproduct_fits)}
+                                                        retire_zlane_sumproduct_fits),
+            ("fused_zlane", "sumproduct", "layered"): ("retire_zlane_layered_sumproduct",
+                                                       retire_zlane_layered_sumproduct_fits)}
     route, takes = fits.get((kind, mode, schedule), (kind, None))
     return route if takes is None or takes(qc) else kind
 
@@ -871,15 +1008,17 @@ class FusedDecoder:
     version for CPU tensors; ``plain(llr)`` runs the plain version on any
     device.  ``kind`` "fused" routes min-sum with the flooding schedule to
     ``fused_retire`` (:func:`retire_kernel_fits`), min-sum with the layered
-    schedule to ``retire_layered`` (:func:`retire_layered_fits`) and
+    schedule to ``retire_layered`` (:func:`retire_layered_fits`),
     sum-product with the flooding schedule to ``retire_sumproduct``
-    (:func:`retire_sumproduct_fits`) on the codes they take; ``kind``
-    "fused_zlane" routes them to ``retire_zlane``, ``retire_zlane_layered``
-    and ``retire_zlane_sumproduct`` (:func:`retire_zlane_fits`,
-    :func:`retire_zlane_layered_fits`, :func:`retire_zlane_sumproduct_fits`);
-    the rest (layered sum-product, wider rows) runs on the ``kind`` kernel.
-    ``retire`` says whether the route is one of the six retiring kernels
-    (``RETIRING``).
+    (:func:`retire_sumproduct_fits`) and with the layered schedule to
+    ``retire_layered_sumproduct`` (:func:`retire_layered_sumproduct_fits`)
+    on the codes they take; ``kind`` "fused_zlane" routes them to
+    ``retire_zlane``, ``retire_zlane_layered``, ``retire_zlane_sumproduct``
+    and ``retire_zlane_layered_sumproduct`` (:func:`retire_zlane_fits`,
+    :func:`retire_zlane_layered_fits`, :func:`retire_zlane_sumproduct_fits`,
+    :func:`retire_zlane_layered_sumproduct_fits`); the rest (rows over 27
+    members) runs on the ``kind`` kernel.  ``retire`` says whether the
+    route is one of the eight retiring kernels (``RETIRING``).
     """
 
     def __init__(self, kind: str, qc: QCLayout, max_iterations: int, alpha: float,
@@ -933,19 +1072,18 @@ class FusedDecoder:
 
     def _launch_zlane(self, llr: torch.Tensor):
         """``fused_zlane`` on ``llr`` (contiguous, on a card) whatever the
-        route: the kernel min-sum flooding, layered min-sum and sum-product
-        flooding ran on before ``retire_zlane``, ``retire_zlane_layered``
-        and ``retire_zlane_sumproduct``, kept so each can be timed beside
-        it."""
+        route: the kernel every mode and schedule ran on before the
+        ``retire_zlane*`` kernels, kept so each can be timed beside it."""
         if self.kind != "fused_zlane":
             raise ValueError(f"a {self.kind} decoder has no zlane launch")
         return self._launch_csr(llr, "fused_zlane")
 
     def _launch_fused(self, llr: torch.Tensor):
         """``fused`` on ``llr`` (contiguous, on a card) whatever the route:
-        the kernel layered min-sum and sum-product flooding ran on before
-        ``retire_layered`` and ``retire_sumproduct``, kept so the two can be
-        timed side by side."""
+        the kernel layered min-sum and both sum-product schedules ran on
+        before ``retire_layered``, ``retire_sumproduct`` and
+        ``retire_layered_sumproduct``, kept so each can be timed beside
+        it."""
         if self.kind != "fused" or self.graph is None:
             raise ValueError(f"a {self.route} decoder has no fused launch")
         return self._launch_csr(llr, "fused")
@@ -1014,22 +1152,26 @@ class FusedDecoder:
                 elif route == "retire_layered":
                     p, frames, per_sm = retire_layered_plan(self.qc, self.track_convergence,
                                                             parts, lib)
+                elif route == "retire_layered_sumproduct":
+                    p, frames, per_sm = retire_layered_sumproduct_plan(
+                        self.qc, self.track_convergence, parts, lib)
+                elif route == "retire_zlane_layered_sumproduct":
+                    p, frames, per_sm = retire_zlane_layered_sumproduct_plan(
+                        self.qc, self.track_convergence, parts, lib)
                 elif route == "retire_sumproduct":
                     p, frames, flag, per_sm = retire_sumproduct_plan(
                         self.qc, self.track_convergence, parts, lib)
                 else:
                     p, frames, per_sm = retire_plan(self.qc, self.track_convergence, parts, lib)
                 resident = _resident_grid(per_sm, route, llr.device)
-                table = (_layered_structure(st) if route in ("retire_layered",
-                                                             "retire_zlane_layered")
+                table = (_layered_structure(st) if route in _LAYERED_ROUTES
                          else _retire_structure(st, p, per_edge=route in (
                              "retire_sumproduct", "retire_zlane_sumproduct")))
                 structure = torch.as_tensor(table, device=llr.device)
                 plan = self._retire_plans[cache_key] = (p, frames, resident, structure, flag)
             p, frames, resident, structure, flag = plan
             grid = min(resident, -(-B // frames))
-            if route in ("retire_zlane", "retire_zlane_layered", "retire_zlane_sumproduct") \
-                    and self.batch_tile:
+            if route.startswith("retire_zlane") and self.batch_tile:
                 grid = min(grid, max(1, self.batch_tile // frames))
             counter = torch.zeros((1,), dtype=torch.int32, device=llr.device)
             stream = torch.cuda.current_stream(llr.device).cuda_stream
@@ -1049,6 +1191,17 @@ class FusedDecoder:
                 rc = lib.ldpc_retire_zlane_layered(
                     *pointers, scratch.data_ptr(), structure.data_ptr(), B, st.Z, st.R, st.C,
                     st.K, G, self.max_iterations, self.alpha, track, p, frames, grid, stream)
+            elif route == "retire_zlane_layered_sumproduct":
+                scratch = torch.empty(
+                    (grid * frames * retire_zlane_layered_sumproduct_scratch_bytes(self.qc),),
+                    dtype=torch.uint8, device=llr.device)
+                rc = lib.ldpc_retire_zlane_layered_sumproduct(
+                    *pointers, scratch.data_ptr(), structure.data_ptr(), B, st.Z, st.R, st.C,
+                    st.K, G, self.max_iterations, track, p, frames, grid, stream)
+            elif route == "retire_layered_sumproduct":
+                rc = lib.ldpc_retire_layered_sumproduct(
+                    *pointers, structure.data_ptr(), B, st.Z, st.R, st.C, st.K, G,
+                    self.max_iterations, track, p, frames, grid, stream)
             elif route == "retire_zlane_sumproduct":
                 scratch = torch.empty((grid * retire_zlane_sumproduct_scratch_bytes(self.qc),),
                                       dtype=torch.uint8, device=llr.device)
@@ -1096,13 +1249,14 @@ def make_fused_minsum(
     """Build the fused decoder: (B, n) LLRs -> (bits (B, n), conv_iter (B,)).
 
     Min-sum runs on ``fused_retire`` with the flooding schedule and on
-    ``retire_layered`` with the layered one, sum-product flooding on
-    ``retire_sumproduct``, each picking its own frames per block
-    (:func:`retire_plan`, :func:`retire_layered_plan`,
-    :func:`retire_sumproduct_plan`), on the codes they take
-    (:func:`retire_kernel_fits`, :func:`retire_layered_fits`,
-    :func:`retire_sumproduct_fits`); layered sum-product and the codes they
-    do not take run on ``fused``,
+    ``retire_layered`` with the layered one, sum-product on
+    ``retire_sumproduct`` and ``retire_layered_sumproduct``, each picking its
+    own frames per block (:func:`retire_plan`, :func:`retire_layered_plan`,
+    :func:`retire_sumproduct_plan`, :func:`retire_layered_sumproduct_plan`),
+    on the codes they take (:func:`retire_kernel_fits`,
+    :func:`retire_layered_fits`, :func:`retire_sumproduct_fits`,
+    :func:`retire_layered_sumproduct_fits`); the codes they do not take run
+    on ``fused``,
     ``batch_tile`` frames per thread block with all state in shared memory
     (default: :func:`pick_fused_batch_tile`).  ``batch_tile`` is checked against the
     ``fused`` kernel's shared memory either way.  ``mode``: "minsum"
@@ -1150,14 +1304,16 @@ def make_fused_minsum_zlane(
     exceeds a block's shared memory.  On the codes they take, min-sum runs
     on ``retire_zlane`` (flooding, :func:`retire_zlane_fits`) and on
     ``retire_zlane_layered`` (layered, :func:`retire_zlane_layered_fits`),
-    sum-product flooding on ``retire_zlane_sumproduct``
-    (:func:`retire_zlane_sumproduct_fits`): persistent grids of the blocks
-    that can be resident, frames that leave the kernel the iteration they
-    converge, the beliefs in shared memory and the check state, or part of
-    it, in each frame group's slice of a global scratch that the L2 holds
+    sum-product on ``retire_zlane_sumproduct`` (flooding,
+    :func:`retire_zlane_sumproduct_fits`) and on
+    ``retire_zlane_layered_sumproduct`` (layered,
+    :func:`retire_zlane_layered_sumproduct_fits`): persistent grids of the
+    blocks that can be resident, frames that leave the kernel the iteration
+    they converge, the beliefs in shared memory and the check state, or part
+    of it, in each frame group's slice of a global scratch that the L2 holds
     (R*Z*4 bytes of state words; K*Z*4 bytes of c2v for sum-product, one
-    block an SM).  Layered sum-product and codes with rows of more than 27
-    members run on ``fused_zlane``, one frame per thread block at a time,
+    block an SM for the flooding schedule).  Codes with rows of more than 27 members
+    run on ``fused_zlane``, one frame per thread block at a time,
     each block with K*Z*4 bytes of global c2v scratch (default: two blocks
     per streaming multiprocessor).  ``batch_tile``, for any of them, caps
     the frames in flight (at least one block's).  Requires Z % 8 == 0, as

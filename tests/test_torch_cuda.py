@@ -59,17 +59,20 @@ def test_kernel_matches_plain(kind, name, Z, batch, mode, schedule, track, early
     dec = build(qc, 10, 0.75, mode=mode, track_convergence=track, early_exit=early_exit,
                 schedule=schedule)
     llr = _llr(qc.num_vars, batch, 1.0, seed=Z)
-    # min-sum flooding runs on fused_retire / retire_zlane, layered min-sum
-    # on retire_layered / retire_zlane_layered and sum-product flooding on
-    # retire_sumproduct / retire_zlane_sumproduct, the rest (layered
-    # sum-product) on fused / fused_zlane
+    # every mode and schedule runs on its retiring kernel: min-sum flooding
+    # on fused_retire / retire_zlane, layered min-sum on retire_layered /
+    # retire_zlane_layered, sum-product flooding on retire_sumproduct /
+    # retire_zlane_sumproduct, layered sum-product on
+    # retire_layered_sumproduct / retire_zlane_layered_sumproduct
     retiring = {("minsum", "fused", "flooding"): "fused_retire",
                 ("minsum", "fused_zlane", "flooding"): "retire_zlane",
                 ("minsum", "fused", "layered"): "retire_layered",
                 ("minsum", "fused_zlane", "layered"): "retire_zlane_layered",
                 ("sumproduct", "fused", "flooding"): "retire_sumproduct",
-                ("sumproduct", "fused_zlane", "flooding"): "retire_zlane_sumproduct"}
-    assert dec.route == retiring.get((mode, kind, schedule), kind)
+                ("sumproduct", "fused_zlane", "flooding"): "retire_zlane_sumproduct",
+                ("sumproduct", "fused", "layered"): "retire_layered_sumproduct",
+                ("sumproduct", "fused_zlane", "layered"): "retire_zlane_layered_sumproduct"}
+    assert dec.route == retiring[(mode, kind, schedule)]
     before = fm.LAUNCHES[dec.route]
     bits_k, conv_k = dec(llr)
     assert fm.LAUNCHES[dec.route] == before + 1
@@ -248,8 +251,8 @@ def test_one_decoder_on_two_cards():
 def test_minsum_flooding_launches_retire_kernel():
     """Min-sum flooding (builder and serving object) launches fused_retire,
     layered min-sum (builder and serving object) retire_layered; sum-product
-    flooding launches retire_sumproduct, layered sum-product the fused
-    kernel."""
+    flooding launches retire_sumproduct, layered sum-product
+    retire_layered_sumproduct; none launches the fused kernel."""
     from ldpc_tpu_torch.models.classical import MinSumScaledDecoder
 
     qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
@@ -263,9 +266,10 @@ def test_minsum_flooding_launches_retire_kernel():
     fm.make_fused_minsum(qc, 5, mode="sumproduct", schedule="layered")(llr)
     torch.cuda.synchronize()
     moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
-    assert moved == {"fused_retire": 2, "fused": 1, "retire_zlane": 0, "fused_zlane": 0,
+    assert moved == {"fused_retire": 2, "fused": 0, "retire_zlane": 0, "fused_zlane": 0,
                      "retire_layered": 2, "retire_sumproduct": 1, "retire_zlane_layered": 0,
-                     "retire_zlane_sumproduct": 0}
+                     "retire_zlane_sumproduct": 0, "retire_layered_sumproduct": 1,
+                     "retire_zlane_layered_sumproduct": 0}
 
 
 def test_zlane_frames_per_block_loop():
@@ -360,7 +364,8 @@ def test_minsum_flooding_at_z384_launches_retire_zlane():
     moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
     assert moved == {"fused_retire": 0, "fused": 0, "retire_zlane": 2, "fused_zlane": 0,
                      "retire_layered": 0, "retire_sumproduct": 0, "retire_zlane_layered": 0,
-                     "retire_zlane_sumproduct": 0}
+                     "retire_zlane_sumproduct": 0, "retire_layered_sumproduct": 0,
+                     "retire_zlane_layered_sumproduct": 0}
     fm.make_fused_minsum_zlane(qc, 5, mode="sumproduct")(llr)
     fm.make_fused_minsum_zlane(qc, 5, schedule="layered")(llr)
     torch.cuda.synchronize()
@@ -373,7 +378,8 @@ def test_minsum_flooding_at_z384_launches_retire_zlane():
 # retire_zlane_layered and retire_zlane_sumproduct (layered min-sum and
 # sum-product flooding at large Z): Z=256 is a power of two, 288 and 384 are
 # not.
-ZLANE_PATHS = {"layered": {"schedule": "layered"}, "sumproduct": {"mode": "sumproduct"}}
+ZLANE_PATHS = {"layered": {"schedule": "layered"}, "sumproduct": {"mode": "sumproduct"},
+               "layered_sumproduct": {"mode": "sumproduct", "schedule": "layered"}}
 
 
 def _zlane_decoder(qc, path: str, T: int = 12, **kw):
@@ -397,7 +403,7 @@ def _assert_zlane_path(dec, llr, out):
     _assert_identical(dec._launch_zlane(llr), out)
 
 
-@pytest.mark.parametrize("path", ["layered", "sumproduct"])
+@pytest.mark.parametrize("path", ["layered", "sumproduct", "layered_sumproduct"])
 @pytest.mark.parametrize("track,early_exit", [TRACKING, THROUGHPUT, EARLY_EXIT])
 @pytest.mark.parametrize("Z", [256, 288, 384])
 def test_retire_zlane_paths_match_plain(Z, track, early_exit, path):
@@ -420,7 +426,7 @@ def test_retire_zlane_paths_match_plain(Z, track, early_exit, path):
             assert bool((conv == 12).all())
 
 
-@pytest.mark.parametrize("path", ["layered", "sumproduct"])
+@pytest.mark.parametrize("path", ["layered", "sumproduct", "layered_sumproduct"])
 @pytest.mark.parametrize("batch", [1, 7, 513])
 def test_retire_zlane_paths_batches(batch, path):
     """One frame, fewer frames than blocks, and more frames than the frame
@@ -458,7 +464,7 @@ def test_retire_zlane_sumproduct_parts(parts):
         _assert_zlane_path(dec, llr, dec._launch_retire(llr, parts=parts))
 
 
-@pytest.mark.parametrize("path", ["layered", "sumproduct"])
+@pytest.mark.parametrize("path", ["layered", "sumproduct", "layered_sumproduct"])
 def test_retire_zlane_paths_batch_tile(path):
     """batch_tile caps the frames in flight: 1, 2 and 5 frame groups serve
     a batch of 23, outputs identical to the uncapped launch."""
@@ -471,7 +477,7 @@ def test_retire_zlane_paths_batch_tile(path):
     _assert_zlane_path(_zlane_decoder(qc, path), llr, ref)
 
 
-@pytest.mark.parametrize("path", ["layered", "sumproduct"])
+@pytest.mark.parametrize("path", ["layered", "sumproduct", "layered_sumproduct"])
 def test_retire_zlane_paths_refused_plan_raises(path):
     """A plan the kernel cannot take raises; nothing falls back to
     fused_zlane."""
@@ -481,6 +487,33 @@ def test_retire_zlane_paths_refused_plan_raises(path):
     with pytest.raises(RuntimeError, match=dec.route):
         dec._launch_retire(_llr(qc.num_vars, 3, 1.0, seed=1), parts=5)
     assert fm.LAUNCHES == before
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3])
+def test_retire_zlane_layered_sumproduct_parts(parts):
+    """Every split of a frame's row groups at Z=256 (8 warps a part) and at
+    Z=384 (1 and 2 parts), ties and zeros, each group serving many frames
+    (batch_tile=3): identical to fused_zlane."""
+    for Z in (256, 384):
+        qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), Z)
+        if parts not in {p for p, _ in fm.retire_zlane_layered_sumproduct_plans(qc)}:
+            continue
+        llr = _hard_llrs("ties_zeros", qc.num_vars, 29, seed=parts)
+        for track in (True, False):
+            dec = _zlane_decoder(qc, "layered_sumproduct", track_convergence=track,
+                                 batch_tile=3)
+            _assert_zlane_path(dec, llr, dec._launch_retire(llr, parts=parts))
+
+
+def test_retire_zlane_layered_sumproduct_frames_per_sm():
+    """At Z=384 the plan takes two frame groups of one part an SM; one group
+    of two parts (parts=2) gives the same outputs."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 384)
+    llr = _llr(qc.num_vars, 301, 1.0, seed=5)
+    assert fm.retire_zlane_layered_sumproduct_plan(qc, True) == (1, 1, 2)
+    assert fm.retire_zlane_layered_sumproduct_plan(qc, True, 2) == (2, 1, 1)
+    dec = _zlane_decoder(qc, "layered_sumproduct", T=20)
+    _assert_identical(dec(llr), dec._launch_retire(llr, parts=2))
 
 
 def test_probe_zlane_blocks_runs():
@@ -573,6 +606,75 @@ def test_retire_sumproduct_refused_plan_raises():
     before = dict(fm.LAUNCHES)
     with pytest.raises(RuntimeError, match="retire_sumproduct"):
         dec._launch_retire(_llr(qc.num_vars, 3, 1.0, seed=1), parts=5)
+    assert fm.LAUNCHES == before
+
+
+# retire_layered_sumproduct (layered sum-product) at the shapes of
+# retire_sumproduct.
+def _layered_sumproduct(qc, T: int = 12, **flags):
+    dec = fm.make_fused_minsum(qc, T, 1.0, mode="sumproduct", schedule="layered", **flags)
+    assert dec.route == "retire_layered_sumproduct"
+    return dec
+
+
+@pytest.mark.parametrize("snr_db", [-2.0, 1.0, 4.0])
+@pytest.mark.parametrize("track,early_exit", [TRACKING, THROUGHPUT, EARLY_EXIT])
+@pytest.mark.parametrize("name,Z,batch", SUMPRODUCT_SHAPES)
+def test_retire_layered_sumproduct_matches_plain_and_fused(name, Z, batch, track, early_exit,
+                                                           snr_db):
+    """Layered sum-product: frames that never converge (-2 dB), that
+    converge early (4 dB) and a mix; one launch of retire_layered_sumproduct,
+    the sum-product bars against the plain version and identical to the
+    fused kernel it replaced."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+    dec = _layered_sumproduct(qc, track_convergence=track, early_exit=early_exit)
+    llr = _llr(qc.num_vars, batch, snr_db, seed=Z + int(snr_db))
+    before = dict(fm.LAUNCHES)
+    out = dec(llr)
+    moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
+    assert moved == {k: int(k == "retire_layered_sumproduct") for k in before}
+    _assert_sumproduct(dec, llr, out)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3])
+def test_retire_layered_sumproduct_ties_and_zeros(parts):
+    """Quantised LLRs (ties) with exact +0.0 and -0.0, the rows of a row
+    group on 1, 2 or 3 warps of a frame."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    llr = torch.round(_llr(qc.num_vars, 61, 1.0, seed=3) / 2.0) * 2.0
+    llr[::3, ::5] = 0.0
+    llr[1::3, 2::5] = -0.0
+    for track in (True, False):
+        dec = _layered_sumproduct(qc, track_convergence=track)
+        _assert_sumproduct(dec, llr, dec._launch_retire(llr, parts=parts))
+
+
+def test_retire_layered_sumproduct_groups_take_several_frames():
+    """More frames than resident frame groups (each group's c2v, never
+    cleared, serves frame after frame), and a row of 20 members (the
+    run-time loop): identical to the fused kernel."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    dec = _layered_sumproduct(qc, 20)
+    llr = _llr(qc.num_vars, 4001, 1.5, seed=11)
+    parts, frames, per_sm = fm.retire_layered_sumproduct_plan(qc, True)
+    assert 4001 > frames * per_sm * torch.cuda.get_device_properties(0).multi_processor_count
+    _assert_sumproduct(dec, llr, dec(llr))
+    from test_torch_minsum_sumproduct_retire import wide_row_code
+
+    wide = wide_row_code(20)
+    dec = _layered_sumproduct(wide)
+    for snr_db in (3.0, 5.0, 7.0):
+        llr = _llr(wide.num_vars, 37, snr_db, seed=6)
+        _assert_sumproduct(dec, llr, dec(llr))
+
+
+def test_retire_layered_sumproduct_refused_plan_raises():
+    """A plan the kernel cannot take raises; nothing falls back to fused."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    dec = _layered_sumproduct(qc, 5)
+    before = dict(fm.LAUNCHES)
+    with pytest.raises(RuntimeError, match="retire_layered_sumproduct"):
+        dec._launch_retire(_llr(qc.num_vars, 3, 1.0, seed=1), parts=4)
     assert fm.LAUNCHES == before
 
 

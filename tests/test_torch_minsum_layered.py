@@ -321,8 +321,8 @@ def test_plans_and_shared_memory():
 
 def test_routes_and_launch_counters():
     """Layered min-sum routes to retire_layered (retire_zlane_layered on a
-    fused_zlane decoder); sum-product layered and rows over 27 members keep
-    their kernels, min-sum and sum-product flooding go to theirs; the
+    fused_zlane decoder); rows over 27 members keep their kernels, min-sum
+    and sum-product flooding and layered sum-product go to theirs; the
     serving object reaches retire_layered; a CPU tensor moves no launch
     counter."""
     from test_torch_minsum_retire import wide_row_shifts
@@ -332,7 +332,7 @@ def test_routes_and_launch_counters():
     assert dec.route == "retire_layered" and dec.retire and dec.graph is not None
     assert fm.make_fused_minsum(qc, 20, device="cpu").route == "fused_retire"
     sp = fm.make_fused_minsum(qc, 20, mode="sumproduct", schedule="layered", device="cpu")
-    assert sp.route == "fused" and not sp.retire
+    assert sp.route == "retire_layered_sumproduct" and sp.retire
     bp = fm.make_fused_bp(qc, 20, device="cpu")
     assert bp.route == "retire_sumproduct" and bp.retire
     server = MinSumScaledDecoder(qc, 20, 0.75, early_stopping=False, schedule="layered",

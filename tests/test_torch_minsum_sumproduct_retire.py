@@ -45,15 +45,15 @@ def _qc(name: str, Z: int):
     return tcodes.qc_layout(tcodes.get_base_graph(name), Z)
 
 
-def wide_row_code(members: int = 20):
-    """A (4, 32) base graph at Z=4 whose first row has ``members`` members:
+def wide_row_code(members: int = 20, Z: int = 4):
+    """A (4, 32) base graph at ``Z`` whose first row has ``members`` members:
     more than the kernel keeps phi of in registers (12), at most the 27 a
     state word holds signs of.  Every column has a member."""
     rng = np.random.default_rng(3)
     shifts = np.where(rng.random((4, 32)) < 0.4, rng.integers(0, 4, (4, 32)), -1)
     shifts[0] = np.concatenate([rng.integers(0, 4, members), np.full(32 - members, -1)])
     shifts[1, members:] = 1
-    return tcodes.qc_layout(tcodes.BaseGraph("wide", shifts), 4)
+    return tcodes.qc_layout(tcodes.BaseGraph("wide", shifts), Z)
 
 
 def _llrs(kind: str, n: int, seed: int) -> torch.Tensor:
@@ -294,8 +294,9 @@ def test_routes_and_launch_counters():
     """Sum-product flooding (builders and serving object) routes to
     retire_sumproduct where the retiring kernels take the code, keeping the
     CSR structure for the replaced kernel (retire_zlane_sumproduct on a
-    fused_zlane decoder); sum-product layered and rows over 27 members keep
-    their kernels; a CPU tensor moves no launch counter."""
+    fused_zlane decoder); sum-product layered goes to
+    retire_layered_sumproduct and rows over 27 members keep fused; a CPU
+    tensor moves no launch counter."""
     from test_torch_minsum_retire import wide_row_shifts
 
     for name, Z in MODEL_CODES + [("nr_2_0_32", 64)]:
@@ -308,7 +309,7 @@ def test_routes_and_launch_counters():
     server = BeliefPropagationDecoder(qc, 20, early_stopping=False, device="cpu")
     assert server._fused.route == "retire_sumproduct"
     layered = _bp(qc, 20, schedule="layered")
-    assert layered.route == "fused" and not layered.retire
+    assert layered.route == "retire_layered_sumproduct" and layered.retire
     wide = tcodes.qc_layout(tcodes.BaseGraph("wide", wide_row_shifts()), 4)
     assert not fm.retire_sumproduct_fits(wide) and _bp(wide, 5).route == "fused"
     assert fm.retire_sumproduct_fits(wide_row_code(20))

@@ -92,10 +92,10 @@ def test_codes_retire_zlane_refuses():
 
 def test_dispatch():
     """Min-sum flooding on a fused_zlane decoder routes to retire_zlane,
-    sum-product flooding to retire_zlane_sumproduct and layered min-sum to
-    retire_zlane_layered; layered sum-product stays on fused_zlane; auto at
-    Z=384 is still fused_zlane, which serves min-sum flooding on
-    retire_zlane."""
+    sum-product flooding to retire_zlane_sumproduct, layered min-sum to
+    retire_zlane_layered and layered sum-product to
+    retire_zlane_layered_sumproduct; auto at Z=384 is still fused_zlane,
+    which serves min-sum flooding on retire_zlane."""
     qc = _qc(384)
     dec = fm.make_fused_minsum_zlane(qc, 20, device="cpu")
     assert dec.kind == "fused_zlane" and dec.route == "retire_zlane" and dec.retire
@@ -106,14 +106,15 @@ def test_dispatch():
         assert other.route == route and other.retire
     other = fm.make_fused_minsum_zlane(qc, 20, device="cpu", mode="sumproduct",
                                        schedule="layered")
-    assert other.route == "fused_zlane" and not other.retire
+    assert other.route == "retire_zlane_layered_sumproduct" and other.retire
     assert _resolve_backend("auto", qc) == "fused_zlane"
     server = MinSumScaledDecoder(qc, 20, 0.75, early_stopping=False, device="cpu")
     assert server._fused.route == "retire_zlane"
     # The route names a launch counter; a CPU tensor moves none of them.
     assert set(fm.LAUNCHES) == {"fused_retire", "fused", "retire_zlane", "fused_zlane",
                                 "retire_layered", "retire_sumproduct",
-                                "retire_zlane_layered", "retire_zlane_sumproduct"}
+                                "retire_zlane_layered", "retire_zlane_sumproduct",
+                                "retire_layered_sumproduct", "retire_zlane_layered_sumproduct"}
     launches = dict(fm.LAUNCHES)
     small = _qc(24, "nr_2_0_4")
     llr = torch.zeros((2, small.num_vars))

@@ -209,14 +209,15 @@ def test_plans_at_z256():
 def test_routes(name, Z):
     """A fused_zlane decoder sends layered min-sum to retire_zlane_layered
     and sum-product flooding to retire_zlane_sumproduct, keeping the CSR
-    structure for the side door; layered sum-product stays on fused_zlane;
-    min-sum flooding stays on retire_zlane."""
+    structure for the side door; layered sum-product goes to
+    retire_zlane_layered_sumproduct; min-sum flooding stays on
+    retire_zlane."""
     qc = _qc(Z, name)
     assert fm.retire_zlane_layered_fits(qc) and fm.retire_zlane_sumproduct_fits(qc)
     routes = {("minsum", "flooding"): "retire_zlane",
               ("minsum", "layered"): "retire_zlane_layered",
               ("sumproduct", "flooding"): "retire_zlane_sumproduct",
-              ("sumproduct", "layered"): "fused_zlane"}
+              ("sumproduct", "layered"): "retire_zlane_layered_sumproduct"}
     for (mode, schedule), route in routes.items():
         for track, early_exit in ((True, False), (False, False), (True, True)):
             dec = fm.make_fused_minsum_zlane(qc, 5, mode=mode, schedule=schedule,
