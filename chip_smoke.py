@@ -231,23 +231,41 @@ Phases, one JSON line each:
              traced once in a process of its own (trace_msg_gnn: device
              time and launches by kernel; a second profiler session in one
              process recorded no kernel).
-14. serve  — ldpc_tpu_torch.serve_trained_decoder with --model message_gnn
+14. msg_gnn_wide — msg_gnn_v2 and msg_gnn_v4 at h=128 (msg_gnn_wide_tc_kernel,
+             the weights streamed in chunks): against their plain versions
+             at T=2 on nr_2_0_4 Z=4 and nr_2_0_32 Z=32, injection and
+             share_layers, at msg_gnn_compare's bars, the wrapper's shared
+             memory and scratch equal to the library's; identical on
+             EXACT_WIDE_CASES (msg_gnn_v4 also at T=1).  The path: the ported
+             tools/eval_ft_floor.py (ldpc_tpu_torch.tools.eval_ft_floor) at
+             1 dB on the h=128 T=10 checkpoints, 62 batches of 4096 frames
+             each, through msg_gnn_v2 (its main, as the JAX tool serves
+             them) and through msg_gnn_v4 (its loop, error_counts, with the
+             same seeds), each with its counts set to 0 before: FER and BER within 3 combined standard errors (counted
+             on frame errors) of
+             results/gnn_h128t10_ft_floor.json; both kernels on one batch
+             against MessageGNNDecoder.forward: >= 99.9% of the module's
+             confident decisions equal.  Times in five rounds at the path's
+             shape (batch 4096) and msg_gnn_main's shape at h=128, with the
+             plain version, bound, block shape, registers, spills and HMMA
+             count.
+15. serve  — ldpc_tpu_torch.serve_trained_decoder with --model message_gnn
              and --model neural_minsum on the committed nr_2_0_4 checkpoints
              (defaults: batch 4096, 0 dB), BER/FER printed beside
              results/nr_2_0_4_comparison.json's; each launch counter moves
              (neural min-sum: the counter of its route, neural_group).
-15. bench_gnn_kernel — python -m ldpc_tpu_torch.tools.bench_gnn_kernel at
+16. bench_gnn_kernel — python -m ldpc_tpu_torch.tools.bench_gnn_kernel at
              its defaults (nr_2_0_4 Z=4, h=64, T=5, injection, batch 2048) on
              the committed nr_2_0_4 checkpoints: the six fused variants
              (msg_gnn, _v2, _v3, _v4 on the message GNN, corrected and
              corrected_v2 on the corrected GNN) against the module's forward
              on the card: >= 99.9% of the module's confident decisions equal,
              each kernel launched; Mbit/s, MFU and max |diff| printed.
-16. probe  — python -m ldpc_tpu_torch.tools.probe_agg_mxu at its defaults
+17. probe  — python -m ldpc_tpu_torch.tools.probe_agg_mxu at its defaults
              (nr_2_0_32 Z=32, h=64, L=10, 128 frames): variant vpu identical
              to the plain version, mxu within one bf16 step; microseconds per
              frame and iteration.
-17. kernels — per kernel: launches in its path's run (fused and fused_zlane:
+18. kernels — per kernel: launches in its path's run (fused and fused_zlane:
              the wide-row compare cases'), max abs error against
              the plain version, kernel / plain time, and the bound: the
              operations the batch's frames need (over their conv_iter
@@ -259,8 +277,8 @@ The line before the last is the ``kernels`` JSON line; the last line is
 The replaced kernels' times (PERF.md §5) come from this script run from an
 unpacked ``git archive`` of the parent commit, in the same call.
 ``--only classical|gnn|nms|msg_gnn|tools`` runs the build and that part alone
-(for development; the kernels line then lists that part; ``tools`` is phases
-15 and 16).
+(for development; the kernels line then lists that part; ``msg_gnn`` is
+phases 12 to 14, ``tools`` phases 16 and 17).
 """
 from __future__ import annotations
 
@@ -2142,7 +2160,7 @@ TC_KERNELS = {"msg_gnn": ("fused_msg_gnn_tc", "msg_gnn_tc_kernel"),
 def tc_shape(qc, h: int, inject: bool, kind: str = "msg_gnn_v2") -> dict:
     """A tensor-core kernel's block shape from its occupancy plan, and the
     registers a thread and spill bytes of its instantiation from the
-    compiler's report."""
+    compiler's report (at h=128: msg_gnn_wide_tc_kernel's)."""
     import re
 
     from ldpc_tpu_torch.ops import _build, fused_gnn as fg
@@ -2154,7 +2172,8 @@ def tc_shape(qc, h: int, inject: bool, kind: str = "msg_gnn_v2") -> dict:
     stem, kernel = TC_KERNELS[kind]
     log = _build.build_log(stem)
     props = log[log.index("Function properties for _ZN"):]
-    name = f"{kernel}ILi{h}ELb{int(inject)}E"
+    name = (f"msg_gnn_wide_tc_kernelILb{int(inject)}ELi{WIDE_KINDS[kind]}E" if h == 128
+            else f"{kernel}ILi{h}ELb{int(inject)}E")
     report = props[props.index(name):].split("Compile time")[0]
     return {"warps_per_block": warps, "blocks_per_sm": blocks, "warps_per_sm": warps * blocks,
             "registers_per_thread": int(re.search(r"Used (\d+) registers", report).group(1)),
@@ -2356,6 +2375,221 @@ def msg_gnn_phases(smi: str) -> list[dict]:
             "launches": launches[kind], "max_abs_err": max(max_err[kind], err), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None}
     return [entries[kind] for kind in MSG_TPU_LINE]
+
+
+# ---------------------------------------------------------------------------
+# B7 and B9 at h=128: the weights streamed in chunks
+# ---------------------------------------------------------------------------
+
+WIDE_KINDS = {"msg_gnn_v2": 7, "msg_gnn_v4": 9}  # the kernels built at h=128, and their V
+# The JAX record the ported ft-floor path is held against, at 1 dB; each
+# checkpoint gets at least 2.5e5 frames (62 batches of 4096).
+FLOOR_RECORD = "gnn_h128t10_ft_floor.json"
+FLOOR = dict(snr=1.0, trials=62, batch=4096)
+FLOOR_SIGMAS = 3.0
+WIDE_MAIN = dict(MSG_MAIN, H=128)
+
+
+def once_ms(fn):
+    """(device time of one call of fn, its result): for the plain versions,
+    whose one call takes seconds."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def rate_sigma(rate: float, fer: float, frames: int) -> float:
+    """Binomial standard error of a BER or FER estimate counted on frame
+    errors: the rate times the relative error of the frame-error count
+    (bit errors come in frames, so bits are no independent trials)."""
+    return rate * ((1.0 - fer) / (fer * frames)) ** 0.5 if fer > 0 else 0.0
+
+
+def msg_gnn_wide_phases(smi: str) -> list[dict]:
+    """B7 and B9 at h=128: against their plain versions, exact inputs, the
+    ported ft-floor path on the h=128 T=10 checkpoints, and their times."""
+    import tempfile
+
+    from ldpc_tpu_torch.codes import encoder_from_H, expand_base_matrix, get_base_graph, qc_layout
+    from ldpc_tpu_torch.ops import fused_gnn as fg, qc_msg
+    from ldpc_tpu_torch.ops.msg_gnn_exact import EXACT_WIDE_CASES, exact_msg_gnn_case
+    from ldpc_tpu_torch.tools import eval_ft_floor
+    from ldpc_tpu_torch.utils import qpsk_awgn_llr
+
+    tc_lib = fg.tc_kernel_library()
+    builders = {kind: msg_builders()[kind] for kind in WIDE_KINDS}
+    max_err = {kind: 0.0 for kind in WIDE_KINDS}
+    H = 128
+
+    # Compare: T=2 at nr_2_0_4 Z=4 and nr_2_0_32 Z=32, injection and share_layers.
+    for code, Z, B in (("nr_2_0_4", 4, 21), ("nr_2_0_32", 32, 7)):
+        qc = qc_layout(get_base_graph(code), Z)
+        plan = qc_msg.make_plan(qc)
+        dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
+        llr = torch.cat([llrs(qc.num_vars, len(range(i, B, 3)), snr, seed=Z + H + i)
+                         for i, snr in enumerate((0.0, 2.0, 4.0))])
+        for inject, share in ((False, False), (True, False), (True, True)):
+            model = perturbed_msg_model(plan, 2, H, inject, share, seed=7)
+            for kind, build in builders.items():
+                entry = fg.TC_ENTRY[kind]
+                warps = fg.msg_gnn_tc_plan(qc, H, inject, kind)[0]
+                for w in (1, warps):
+                    assert getattr(tc_lib, f"{entry}_tc_smem_bytes")(H, int(inject), *dims, w) \
+                        == fg.msg_gnn_smem_bytes(qc, H, kind, inject, w)
+                assert getattr(tc_lib, f"{entry}_tc_scratch_floats")(H, *dims) == \
+                    fg.msg_gnn_scratch_floats(qc, H, kind)
+                dec = build(qc, model, 2, H, share_layers=share, input_injection=inject)
+                label = f"{kind} {code} Z={Z} h={H} B={B} T=2 inject={inject} share={share}"
+                err = msg_compare(dec(llr), dec.plain(llr), label, "msg_gnn_wide")
+                max_err[kind] = max(max_err[kind], err)
+
+    # Exact inputs at h=128 (EXACT_WIDE_CASES): identical; B9 also at T=1.
+    exact = [(kind, *case, 2) for kind in WIDE_KINDS for case in EXACT_WIDE_CASES]
+    exact += [("msg_gnn_v4", *case, 1) for case in EXACT_WIDE_CASES]
+    for kind, code, Z, h, B, inject, share, T in exact:
+        qc = qc_layout(get_base_graph(code), Z)
+        model, llr_np = exact_msg_gnn_case(qc, h, B, inject, share, num_iterations=T)
+        dec = builders[kind](qc, model, T, h, share_layers=share, input_injection=inject)
+        llr = torch.from_numpy(llr_np).cuda()
+        soft_k, soft_p = dec(llr), dec.plain(llr)
+        torch.cuda.synchronize()
+        ok = bool(torch.equal(soft_k, soft_p))
+        label = f"{kind} exact {code} Z={Z} h={h} B={B} T={T} inject={inject} share={share}"
+        emit({"phase": "msg_gnn_wide", "case": label, "identical": ok,
+              "max_abs_err": (soft_k - soft_p).abs().max().item(),
+              "ones_share": (soft_p > 0.5).float().mean().item(), "ok": ok})
+        if not ok:
+            raise AssertionError(f"differs from its plain version on exact inputs: {label}")
+
+    # The path: the ported tools/eval_ft_floor.py at 1 dB on both h=128 T=10
+    # checkpoints, held against the JAX record: through B7 as the JAX tool
+    # serves them, and through B9 by the tool's loop on the same seeds.
+    record = json.loads((Path(__file__).resolve().parent / "results" / FLOOR_RECORD).read_text())
+    j = record["snr_range"].index(FLOOR["snr"])
+    ref_frames = record["protocol"]["trials"] * record["protocol"]["batch"]
+    path_launches = {}
+    for kind in WIDE_KINDS:
+        for key in fg.LAUNCHES:
+            fg.LAUNCHES[key] = 0
+        if kind == "msg_gnn_v2":
+            with tempfile.TemporaryDirectory() as tmp:
+                floor = eval_ft_floor.main(
+                    ["--snrs", str(FLOOR["snr"]), "--trials", str(FLOOR["trials"]),
+                     "--batch", str(FLOOR["batch"]), "--out", str(Path(tmp) / "floor.json")])
+            got_models, protocol = floor["models"], floor["protocol"]
+        else:
+            got_models = eval_ft_floor.error_counts(
+                builders[kind], [FLOOR["snr"]], FLOOR["trials"], FLOOR["batch"],
+                eval_ft_floor.SEED, torch.device("cuda"))
+            protocol = {"serving": f"eval_ft_floor.error_counts through {kind}"}
+        torch.cuda.synchronize()
+        path_launches[kind] = dict(fg.LAUNCHES)
+        checks = {}
+        for tag, ref in record["models"].items():
+            got = got_models[tag]
+            frames = got["frames"]
+            fer, ber = got["fer"][0], got["ber"][0]
+            fer_ref, ber_ref = ref["fer"][j], ref["ber"][j]
+            sig_fer = (rate_sigma(fer, fer, frames) ** 2
+                       + rate_sigma(fer_ref, fer_ref, ref_frames) ** 2) ** 0.5
+            sig_ber = (rate_sigma(ber, fer, frames) ** 2
+                       + rate_sigma(ber_ref, fer_ref, ref_frames) ** 2) ** 0.5
+            checks[tag] = {"frames": frames, "frame_errors": got["frame_errors"][0],
+                           "bit_errors": got["bit_errors"][0], "fer": fer, "ber": ber,
+                           "fer_ref": fer_ref, "ber_ref": ber_ref, "ref_frames": ref_frames,
+                           "fer_sigmas": abs(fer - fer_ref) / sig_fer,
+                           "ber_sigmas": abs(ber - ber_ref) / sig_ber, "seconds": got["seconds"]}
+        ok = (path_launches[kind][kind] == FLOOR["trials"] * len(checks) and all(
+            c["frames"] >= 2.5e5 and c["fer_sigmas"] <= FLOOR_SIGMAS
+            and c["ber_sigmas"] <= FLOOR_SIGMAS for c in checks.values()))
+        emit({"phase": "msg_gnn_wide", "case": f"ft-floor path (eval_ft_floor) at 1 dB, {kind}",
+              "launches": path_launches[kind], "models": checks, "bar_sigmas": FLOOR_SIGMAS,
+              "protocol": protocol, "ok": ok})
+        if not ok:
+            raise AssertionError(f"the h=128 ft-floor path through {kind} disagrees with "
+                                 f"{FLOOR_RECORD}: {checks}")
+
+    # The kernel against the module's forward on one batch of each checkpoint.
+    qc4 = qc_layout(get_base_graph("nr_2_0_4"), 4)
+    plan4 = qc_msg.make_plan(qc4)
+    enc = encoder_from_H(expand_base_matrix(get_base_graph("nr_2_0_4"), 4))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    bits = enc.random_codewords(gen, FLOOR["batch"])
+    llr4 = qpsk_awgn_llr(gen, bits, FLOOR["snr"])
+    models = {}
+    for tag, name in eval_ft_floor.MODELS[:2]:
+        model = eval_ft_floor.load_model(eval_ft_floor.RESULTS / name, plan4)
+        models[tag] = model
+        with torch.no_grad():
+            soft_m = model(llr4, plan4)[0]
+        confident = (soft_m - 0.5).abs() > MSG_CONFIDENT
+        for kind, build in builders.items():
+            soft_k = build(qc4, model, 10, H, input_injection=True)(llr4)
+            same = ((soft_k > 0.5) == (soft_m > 0.5))[confident].float().mean().item()
+            ok = same >= MSG_MIN_BIT_AGREEMENT
+            emit({"phase": "msg_gnn_wide", "case": f"{kind} against the module, {tag}",
+                  "frames": FLOOR["batch"], "confident_share": confident.float().mean().item(),
+                  "confident_agreement": same,
+                  "max_abs_diff": (soft_k - soft_m).abs().max().item(), "ok": ok})
+            if not ok:
+                raise AssertionError(f"{kind} disagrees with the module on {tag}: {same}")
+
+    # Times: the path's shape (the ft checkpoint) and msg_gnn_main's shape.
+    hmma = sass_mma_counts("fused_msg_gnn_tc")
+    qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
+    m = WIDE_MAIN
+    llr32 = llrs(qc32.num_vars, m["B"], m["SNR"], seed=m["llr_seed"])
+    model32 = perturbed_msg_model(qc_msg.make_plan(qc32), m["T"], H, False, False,
+                                  seed=m["model_seed"])
+    shapes = {"path": ("nr_2_0_4", qc4, models["h=128 T=10 ft"], 10, True, llr4),
+              "main": ("nr_2_0_32", qc32, model32, m["T"], False, llr32)}
+    entries = {}
+    for kind, build in builders.items():
+        timed = {}
+        for shape, (code, qc, model, T, inject, llr) in shapes.items():
+            dec = build(qc, model, T, H, input_injection=inject)
+            for key in fg.LAUNCHES:
+                fg.LAUNCHES[key] = 0
+            soft = dec(llr)
+            torch.cuda.synchronize()
+            launches = dict(fg.LAUNCHES)
+            if launches[kind] != 1:
+                raise AssertionError(f"{shape} did not run the {kind} kernel once: {launches}")
+            rounds_ms = [cuda_ms(lambda: dec(llr), reps=2)[0] for _ in range(5)]
+            plain_ms, soft_p = once_ms(lambda: dec.plain(llr))
+            err = msg_compare(soft, soft_p, f"{kind} h={H} {shape} shape T={T} whole batch",
+                              "msg_gnn_wide", min_agreement=MSG_MIN_BIT_AGREEMENT)
+            del soft_p
+            bms, bby = msg_bound_ms(qc, H, T, inject, kind, llr.shape[0])
+            V = WIDE_KINDS[kind]
+            timed[shape] = {"code": code, "Z": qc.Z, "iterations": T, "inject": inject,
+                            "batch": llr.shape[0], "launches": launches, "rounds_ms": rounds_ms,
+                            "ms": sorted(rounds_ms)[2], "plain_ms": plain_ms, "bound_ms": bms,
+                            "bound_by": bby, "max_abs_err": err,
+                            "hmma": {k: v for k, v in hmma.items()
+                                     if f"msg_gnn_wide_tc_kernelILb{int(inject)}ELi{V}E" in k},
+                            **tc_shape(qc, H, inject, kind)}
+        emit({"phase": "msg_gnn_wide", "kernel": kind, "hidden_dim": H, "times": timed,
+              "nvidia_smi": smi})
+        path = timed["path"]
+        entries[kind] = {
+            "name": f"{kind}_h128", "route": "cuda",
+            "source": "ldpc_tpu_torch/ops/csrc/fused_msg_gnn_tc.cu",
+            "replaces": "ldpc_tpu/ops/pallas_gnn.py:" + MSG_TPU_LINE[kind],
+            "launches": path_launches[kind][kind],
+            "launches_of": f"the ft-floor path through {kind} (eval_ft_floor)",
+            "max_abs_err": max(max_err[kind], path["max_abs_err"], timed["main"]["max_abs_err"]),
+            "ms": path["ms"], "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
+            "bound_by": path["bound_by"], "library_ms": None,
+            "ms_of": "nr_2_0_4 Z=4, T=10, injection, batch 4096 (the ft-floor path's shape)",
+            "variants_ms": {"msg_gnn_main_shape_h128": timed["main"]["ms"]},
+            "variants_plain_ms": {"msg_gnn_main_shape_h128": timed["main"]["plain_ms"]},
+            "variants_bound_ms": {"msg_gnn_main_shape_h128": timed["main"]["bound_ms"]}}
+    return [entries[kind] for kind in WIDE_KINDS]
 
 
 # Printed beside the serving entry point's numbers, not held: that file's
@@ -2604,6 +2838,8 @@ def main(argv=None) -> int:
                 occupancy[f"{name} Z={Z} h=64"] = fg.corrected_tc_plan(qc, 64, True, name)[1]
             for name in ("msg_gnn", "msg_gnn_v2", "msg_gnn_v3", "msg_gnn_v4"):
                 occupancy[f"{name} Z={Z} h=64"] = fg.msg_gnn_tc_plan(qc, 64, False, name)[1]
+            for name in WIDE_KINDS:
+                occupancy[f"{name} Z={Z} h=128"] = fg.msg_gnn_tc_plan(qc, 128, False, name)[1]
             shared, fpb = fn.neural_plan(qc, 10, 2)
             occupancy[f"fused_neural Z={Z} T=10 L=2"] = fn.kernel_library().ldpc_neural_occupancy(
                 *dims, 10, 2, fpb, int(shared))
@@ -2647,7 +2883,10 @@ def main(argv=None) -> int:
           **{f"{kind}_shape": {f"nr_2_0_32 Z=32 h={h} inject={inj}":
                                tc_shape(qc32, h, inj, kind)
                                for h in (16, 64) for inj in (False, True)}
-             for kind in TC_KERNELS}})
+             for kind in TC_KERNELS},
+          **{f"{kind}_h128_shape": {f"nr_2_0_32 Z=32 inject={inj}": tc_shape(qc32, 128, inj, kind)
+                                    for inj in (False, True)}
+             for kind in WIDE_KINDS}})
 
     entries = []
     if only in (None, "classical"):
@@ -2658,13 +2897,14 @@ def main(argv=None) -> int:
         entries += nms_phases(smi)
     if only in (None, "msg_gnn"):
         entries += msg_gnn_phases(smi)
+        entries += msg_gnn_wide_phases(smi)
     if only is None:
         serve_phase()
     if only in (None, "tools"):
         bench_phase(smi)
         entries += probe_phase(smi)
 
-    # 17. kernels
+    # 18. kernels
     print(smi, flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,8 +13,12 @@
 //                                     pallas_call at :882), entry point ldpc_msg_gnn_v3
 //   * msg_gnn_v4_tc_kernel<H, INJ> <- :952 _kernel_v4 (make_fused_gnn_decoder_v4,
 //                                     pallas_call at :1225), entry point ldpc_msg_gnn_v4
+//   * msg_gnn_wide_tc_kernel<INJ, V> <- :295 and :952 at h = 128 (B7, V = 7, and
+//                                     B9, V = 9), entry points ldpc_msg_gnn_v2 and
+//                                     ldpc_msg_gnn_v4 with H = 128
 // One skeleton; the variant V (6 .. 9, the number of the TPU kernel, B6 ..
-// B9) is a template argument.  H is the hidden width, built for 16 and 64;
+// B9) is a template argument.  H is the hidden width, built for 16 and 64,
+// and for B7 and B9 also for 128 (kWideH, its weights streamed in chunks);
 // INJ is input injection.  The Python wrapper, the packed weight layouts
 // (pack_tc_weights) and the plain PyTorch versions (_MsgPlain, _FoldPlain):
 // ldpc_tpu_torch/ops/fused_gnn.py.
@@ -204,11 +208,49 @@
 //     layers and 4E plus a thin product in the last, with B7's scratch
 //     traffic.
 //
-// H = 128 under this design: B7's weights alone are 202,752 B (268,288 B
-// with injection) and a warp's two tile buffers 26,112 B, so one block
-// does not fit the 227 KB a block can use; H = 128 needs the weights
-// streamed through shared memory a matrix at a time, or single-buffered
-// tiles and no injection (not built).
+// H = 128 (kWideH), B7 and B9: msg_gnn_wide_tc_kernel
+// ------------------------------------------------------
+// A layer's packed weights are 268,288 B with injection (202,752 B
+// without): more than the 227 KB a block can use.  So they stream through
+// shared memory in chunks of kWideChunk = 16 hidden units, in the order the
+// wrapper packs them (pack_tc_weights): a chunk holds the W1v and W1c rows
+// of its units (3h + 8, or 2h + 8, bf16 each) and the h rows of [W2v W2c]
+// cut to its units' columns (2 * 16 + 8 each), 35,328 B with injection
+// (27,136 B without), and it is staged with one straight 16-byte cp.async a
+// thread into one of two chunk buffers that every warp of the block reads.
+// Phase 1 (the means) is B7's, with chunk 0 staging meanwhile.  Phase 2 runs
+// in rounds: in round r warp w takes message tile r * warps + w, and the
+// block walks the layer's chunks in lockstep, one __syncthreads a chunk (a
+// warp without a tile in the last round still arrives at every barrier),
+// the next chunk in flight while this one computes.  For its tile a warp
+// computes, per chunk, pv and pc of the chunk's 16 units (the f fragments
+// feed both, ldmatrix from the staged tile; lf from registers), plus b1,
+// relu, bf16-packed into the second layer's A fragments, and adds them at
+// once into the tile's 16 x 128 float32 second-layer accumulator (64
+// registers a thread): pv and pc are never whole.  B9's last layer
+// accumulates its thin product w2last . [h1v | h1c] chunk by chunk, then
+// adds proj8 . f.  The epilogue is B7's and B9's (write_tile, store_last).
+// Against the h = 64 kernels only the float32 order of the second layer's
+// sum changes (chunk by chunk); every bf16 rounding point is the plain
+// version's.  A warp has one tile buffer (13,056 B): its next tile's rows
+// load after its epilogue.  Shared memory at nr_2_0_4 Z = 4 with
+// injection: about 9 KB of state, 70,656 B of chunk buffers; the plan takes
+// the most warps an SM by the occupancy query.  The scratch slice is B7's
+// (B9's) at h = 128, (K + C + R) Z h bf16: 298 KB at nr_2_0_4 Z = 4, 2.38 MB
+// at nr_2_0_32 Z = 32.  Every round re-reads the layer's chunks from L2
+// (282,624 B with injection), so the weights' L2 traffic falls with the
+// warps a block: one tile buffer a warp and chunks of 16 let 11 warps (12
+// without injection) share each chunk, which beat the other choices
+// (kWideChunk, below).  168 registers a thread (the 12-warp launch bound),
+// 0 to 8 bytes spilled.
+// Bound, by the formula above at h = 128 (chip_smoke.py msg_bound_ms): the
+// ft-floor path's shape (nr_2_0_4 Z = 4, T = 10, injection, batch 4096)
+// 5.352 ms for B7, 5.141 ms for B9; msg_gnn_main's shape 38.30 and 37.46
+// ms.  Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, phase
+// msg_gnn_wide): 56.63 and 48.40 ms; 353.61 and 342.50 ms.  The design
+// does the h = 64 kernels' products, with each tile's A fragments re-read
+// from shared memory once a chunk (0.69 ldmatrix a mma) and a block
+// barrier a chunk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -219,6 +261,20 @@ namespace {
 
 constexpr int kMaxWarps = 12;
 constexpr int kTile = 16;  // rows a tile: the mma's M
+
+// H = kWideH streams each layer's weights through shared memory in chunks of
+// kWideChunk hidden units (msg_gnn_wide_tc_kernel, B7 and B9 only), and a
+// warp has one tile buffer there (the other widths two).  Chunks of 16 and
+// one buffer were measured on an H100 80GB HBM3 at 700 W against builds of
+// this kernel with chunks of 32 and with two tile buffers a warp (all four
+// from one source that then chose between them), B7 at the ft-floor path's
+// shape: 57.7 ms (11 warps a block) against 76.8 (32, 6 warps), 81.4 (16
+// and two buffers, 5 warps) and 138.7 ms (32 and two, 3 warps); at
+// msg_gnn_main's shape 387.9 against 375.8 (32: the one case it wins, by
+// 3%), 540.8 and 687.7 ms.
+constexpr int kWideH = 128;
+constexpr int kWideChunk = 16;
+static_assert(kWideH % kWideChunk == 0 && kWideChunk % 16 == 0, "chunks of whole k-tiles");
 
 __host__ __device__ inline int round4(int x) { return (x + 3) / 4 * 4; }
 
@@ -238,10 +294,23 @@ __host__ __device__ constexpr int small_floats(int H, int V) {
 // B9: W1v, W1c of kin + 8 and W2 of 2h + 8 a row; B8: W1v of kin + 8, W1c of
 // kin - h + 8, W1ca of h + 8, W2 of 2h + 8) and the segments of a warp's tile
 // buffer (message-major: f, vmean, rmean rows; B8: f, vmean rows).
+// One weight chunk at H = kWideH: the W1v and W1c rows of its kWideChunk
+// hidden units (kin + 8 each), then the H rows of W2 = [W2v W2c] cut to those
+// units' columns (2 kWideChunk + 8 each).  A layer is H / kWideChunk chunks.
+__host__ __device__ constexpr int chunk_weights(bool inject) {
+  return 2 * kWideChunk * ((inject ? 3 : 2) * kWideH + 8) + kWideH * (2 * kWideChunk + 8);
+}
+
 __host__ __device__ constexpr int layer_weights(int H, bool inject, int V) {
-  return check_major(V)
+  return H == kWideH ? kWideH / kWideChunk * chunk_weights(inject)
+         : check_major(V)
              ? H * (((inject ? 3 : 2) * H + 8) + ((inject ? 2 : 1) * H + 8) + (H + 8) + (2 * H + 8))
              : H * (2 * ((inject ? 3 : 2) * H + 8) + 2 * H + 8);
+}
+
+// Weights a block stages at once: a whole layer, or at H = kWideH two chunks.
+__host__ __device__ constexpr int staged_weights(int H, bool inject, int V) {
+  return H == kWideH ? 2 * chunk_weights(inject) : layer_weights(H, inject, V);
 }
 
 __host__ __device__ constexpr int tile_segments(int V) { return check_major(V) ? 2 : 3; }
@@ -294,9 +363,10 @@ __host__ __device__ inline Layout make_layout(int H, int inject, int Z, int R, i
   L.llr = o; o += 4 * round4(C * Z);
   L.emb = o; o += 4 * round4(3 * H + 1);
   L.small = o; o += 4 * small_floats(H, V);
-  L.w = o; o += 2 * layer_weights(H, inject, V);
+  L.w = o; o += 2 * staged_weights(H, inject, V);
   L.dte = o; o += check_major(V) ? 2 * K * H : 0;  // B8: dte[t + 1], bf16
-  L.stage = o; o += warps * 2 * 2 * tile_segments(V) * kTile * (H + 8);
+  // A warp's tile buffers: two, at H = kWideH one.
+  L.stage = o; o += warps * (H == kWideH ? 1 : 2) * 2 * tile_segments(V) * kTile * (H + 8);
   L.total = o;
   return L;
 }
@@ -405,9 +475,9 @@ struct Block {
   const float *inv_dc, *inv_dr, *emb_w, *emb_b, *proj_w;
   float* llr;
   float* small;          // the staged layer's biases: B7 b2; B8 b1v, b1c, b2
-  __nv_bfloat16* w;      // the staged layer's weights
+  __nv_bfloat16* w;      // the staged layer's weights (H = kWideH: two chunks)
   __nv_bfloat16* dte;    // B8: the staged dte[t + 1] (K x H)
-  __nv_bfloat16* stage;  // this warp's two tile buffers
+  __nv_bfloat16* stage;  // this warp's tile buffers
   __nv_bfloat16 *feats, *vmean, *rmean;  // global scratch, one h-row each
   float* s_all;          // B9: each message's output scalar (global scratch)
   float proj_b;
@@ -632,17 +702,12 @@ __device__ __forceinline__ void load_tile(const Block& b, __nv_bfloat16* buf, in
   cp_async_commit();
 }
 
-// B9's last layer for one tile (rows i0 = g, i1 = g + 8 of this thread): no
-// features, s = w2last . [h1v; h1c] (+ proj8 . f after layer 0) per message,
-// one float32 accumulation as a thin mma, to the scratch.
+// The end of B9's last layer for one tile (rows i0 = g, i1 = g + 8 of this
+// thread): s, which holds w2last . [h1v; h1c], plus proj8 . f after layer 0,
+// to the scratch.
 template <int H>
-__device__ __forceinline__ void last_layer(const Args& a, const Block& b, const __nv_bfloat16* F,
-                                           const uint32_t (&h1v)[H / 16][4],
-                                           const uint32_t (&h1c)[H / 16][4], int i0, int i1,
-                                           bool residual, int lane) {
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  thin_product<H>(s, h1v, a.extra, lane);
-  thin_product<H>(s, h1c, a.extra + H, lane);
+__device__ __forceinline__ void store_last(const Block& b, const __nv_bfloat16* F, float (&s)[4],
+                                           int i0, int i1, bool residual, int lane) {
   if (residual) {
     uint32_t fa[H / 16][4];
 #pragma unroll
@@ -652,6 +717,79 @@ __device__ __forceinline__ void last_layer(const Args& a, const Block& b, const 
   if ((lane & 3) == 0) {
     if (i0 < b.E) b.s_all[i0] = s[0];
     if (i1 < b.E) b.s_all[i1] = s[2];
+  }
+}
+
+// B9's last layer for one tile: no features, s = w2last . [h1v; h1c] (+
+// proj8 . f after layer 0) per message, one float32 accumulation as a thin
+// mma, to the scratch.
+template <int H>
+__device__ __forceinline__ void last_layer(const Args& a, const Block& b, const __nv_bfloat16* F,
+                                           const uint32_t (&h1v)[H / 16][4],
+                                           const uint32_t (&h1c)[H / 16][4], int i0, int i1,
+                                           bool residual, int lane) {
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  thin_product<H>(s, h1v, a.extra, lane);
+  thin_product<H>(s, h1c, a.extra + H, lane);
+  store_last<H>(b, F, s, i0, i1, residual, lane);
+}
+
+// The epilogue of a message-major tile, in place: acc holds the second
+// layer's product.  B7: f = bf16(acc + b2), plus the residual from layer 2
+// on.  B6: f = bf16(out_v + bf16(acc + b2c)), out_v in ov, the same
+// residual.  B9: out = bf16(acc + b2), d = bf16(dte[t + 1, k]); f = bf16(out
+// + d) at t = 0, bf16(bf16(out + d) + f) after.  Then the tile's rows go to
+// the scratch with 16-byte stores.
+template <int H, bool INJ, int V>
+__device__ __forceinline__ void write_tile(const Args& a, const Block& b, __nv_bfloat16* F,
+                                           const float (&acc)[H / 8][4],
+                                           const uint32_t (&ov)[H / 8][2], int tile, int t, int k0,
+                                           int k1, int lane) {
+  using S = Shape<H, INJ, V>;
+  const int g = lane >> 2, tig = lane & 3;
+  const bool residual = t >= 1;
+  const float* b2 = b.small + (V == 7 ? 0 : V == 6 ? H : 2 * H);
+  const float* dte = a.tab + static_cast<size_t>(t + 1) * b.K * H;
+#pragma unroll
+  for (int nt = 0; nt < S::NT; ++nt) {
+    const int j = nt * 8 + 2 * tig;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      __nv_bfloat162* fp = reinterpret_cast<__nv_bfloat162*>(F + (g + 8 * rr) * S::AS + j);
+      float o0 = bf16r(__fadd_rn(acc[nt][2 * rr], b2[j]));
+      float o1 = bf16r(__fadd_rn(acc[nt][2 * rr + 1], b2[j + 1]));
+      if constexpr (V == 6) {
+        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov[nt][rr]));
+        o0 = bf16r(__fadd_rn(v.x, o0));
+        o1 = bf16r(__fadd_rn(v.y, o1));
+      }
+      if constexpr (V == 9) {
+        const float2 d = __ldg(reinterpret_cast<const float2*>(
+            dte + static_cast<size_t>(rr ? k1 : k0) * H + j));
+        o0 = __fadd_rn(o0, bf16r(d.x));
+        o1 = __fadd_rn(o1, bf16r(d.y));
+        if (residual) {
+          o0 = bf16r(o0);
+          o1 = bf16r(o1);
+        }
+      }
+      if (residual) {
+        const float2 old = __bfloat1622float2(*fp);
+        o0 = __fadd_rn(o0, old.x);
+        o1 = __fadd_rn(o1, old.y);
+      }
+      *fp = __floats2bfloat162_rn(o0, o1);
+    }
+  }
+  __syncwarp();
+  const int u = lane % S::CPR;
+#pragma unroll
+  for (int pass = 0; pass < kTile / S::RPP; ++pass) {
+    const int r = lane / S::CPR + pass * S::RPP;
+    const int i = tile * kTile + r;
+    if (i < b.E)
+      *reinterpret_cast<uint4*>(b.feats + static_cast<size_t>(i) * H + u * 8) =
+          *reinterpret_cast<const uint4*>(F + r * S::AS + u * 8);
   }
 }
 
@@ -719,55 +857,7 @@ __device__ __forceinline__ void compute_tile(const Args& a, const Block& b, __nv
     zero<H>(acc);
   }
   second_half<H>(acc, h1c, W2, 1, lane);
-
-  // Epilogue, in place.  B7: f = bf16(acc + b2), plus the residual from
-  // layer 2 on.  B6: f = bf16(out_v + bf16(acc + b2c)), the same residual.
-  // B9: out = bf16(acc + b2), d = bf16(dte[t + 1, k]); f = bf16(out + d) at
-  // t = 0, bf16(bf16(out + d) + f) after.
-  const bool residual = t >= 1;
-  const float* b2 = b.small + (V == 7 ? 0 : V == 6 ? H : 2 * H);
-  const float* dte = a.tab + static_cast<size_t>(t + 1) * b.K * H;
-#pragma unroll
-  for (int nt = 0; nt < S::NT; ++nt) {
-    const int j = nt * 8 + 2 * tig;
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      __nv_bfloat162* fp = reinterpret_cast<__nv_bfloat162*>(F + (g + 8 * rr) * S::AS + j);
-      float o0 = bf16r(__fadd_rn(acc[nt][2 * rr], b2[j]));
-      float o1 = bf16r(__fadd_rn(acc[nt][2 * rr + 1], b2[j + 1]));
-      if constexpr (V == 6) {
-        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov[nt][rr]));
-        o0 = bf16r(__fadd_rn(v.x, o0));
-        o1 = bf16r(__fadd_rn(v.y, o1));
-      }
-      if constexpr (V == 9) {
-        const float2 d = __ldg(reinterpret_cast<const float2*>(
-            dte + static_cast<size_t>(rr ? k1 : k0) * H + j));
-        o0 = __fadd_rn(o0, bf16r(d.x));
-        o1 = __fadd_rn(o1, bf16r(d.y));
-        if (residual) {
-          o0 = bf16r(o0);
-          o1 = bf16r(o1);
-        }
-      }
-      if (residual) {
-        const float2 old = __bfloat1622float2(*fp);
-        o0 = __fadd_rn(o0, old.x);
-        o1 = __fadd_rn(o1, old.y);
-      }
-      *fp = __floats2bfloat162_rn(o0, o1);
-    }
-  }
-  __syncwarp();
-  const int u = lane % S::CPR;
-#pragma unroll
-  for (int pass = 0; pass < kTile / S::RPP; ++pass) {
-    const int r = lane / S::CPR + pass * S::RPP;
-    const int i = tile * kTile + r;
-    if (i < b.E)
-      *reinterpret_cast<uint4*>(b.feats + static_cast<size_t>(i) * H + u * 8) =
-          *reinterpret_cast<const uint4*>(F + r * S::AS + u * 8);
-  }
+  write_tile<H, INJ, V>(a, b, F, acc, ov, tile, t, k0, k1, lane);
 }
 
 // Layer t of one frame, message-major: phase 1 (means; the weights stage
@@ -807,6 +897,166 @@ __device__ void layer(const Args& a, const Block& b, int t) {
     compute_tile<H, INJ, V>(a, b, bufs[cur], tile, t, lane);
     __syncwarp();  // this buffer is read out before it is loaded again
     cur ^= 1;
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// B7 and B9 at H = kWideH: the layer's weights streamed in hidden-unit chunks
+// ---------------------------------------------------------------------------
+
+// Starts the copy of one weight chunk (chunk_weights bf16) from src to dst,
+// 16 bytes a thread: one commit group.
+template <bool INJ>
+__device__ __forceinline__ void stage_chunk(__nv_bfloat16* dst, const __nv_bfloat16* src, int tid,
+                                            int nthreads) {
+  for (int c = tid; c < chunk_weights(INJ) / 8; c += nthreads)
+    cp_async16(dst + c * 8, src + c * 8, true);
+  cp_async_commit();
+}
+
+// Chunk c (hidden units u0 = c kWideChunk ..) of one staged tile (rows i0 =
+// g, i1 = g + 8 of this thread, edges k0, k1) of layer t, weights wc: pv
+// and pc of the chunk's units over [f | mean | lf], plus b1, relu, bf16, and
+// then acc += [h1v | h1c] of those units . their columns of [W2v W2c]; B9's
+// last layer instead s += their terms of w2last . [h1v; h1c].  pv and pc are
+// never whole in registers.
+template <bool INJ, int V>
+__device__ __forceinline__ void chunk_tile(const Args& a, const Block& b,
+                                           const __nv_bfloat16* buf, const __nv_bfloat16* wc,
+                                           int c, int t, int k0, int k1,
+                                           const uint32_t (&lf)[kWideH / 16][4],
+                                           float (&acc)[kWideH / 8][4], float (&s)[4], int lane) {
+  constexpr int H = kWideH, CH = kWideChunk;
+  constexpr int WS1 = (INJ ? 3 : 2) * H + 8, WS2 = 2 * CH + 8;
+  using S = Shape<H, INJ, V>;
+  const int tig = lane & 3, u0 = c * CH;
+  const __nv_bfloat16* W1v = wc;
+  const __nv_bfloat16* W1c = wc + CH * WS1;
+  const __nv_bfloat16* W2 = wc + 2 * CH * WS1;
+
+  // The first layer: f feeds both products, each mean and lf its own.
+  float pv[CH / 8][4], pc[CH / 8][4];
+  zero<CH>(pv);
+  zero<CH>(pc);
+#pragma unroll
+  for (int kt = 0; kt < S::KT; ++kt) {
+    uint32_t x[4];
+    load_a<H>(x, buf, kt, lane);
+    mma_ktile<CH>(pv, x, W1v, WS1, kt * 16, lane);
+    mma_ktile<CH>(pc, x, W1c, WS1, kt * 16, lane);
+  }
+#pragma unroll
+  for (int kt = 0; kt < S::KT; ++kt) {
+    uint32_t x[4];
+    load_a<H>(x, buf + S::SEG, kt, lane);
+    mma_ktile<CH>(pv, x, W1v, WS1, H + kt * 16, lane);
+  }
+#pragma unroll
+  for (int kt = 0; kt < S::KT; ++kt) {
+    uint32_t x[4];
+    load_a<H>(x, buf + 2 * S::SEG, kt, lane);
+    mma_ktile<CH>(pc, x, W1c, WS1, H + kt * 16, lane);
+  }
+  if constexpr (INJ) {
+#pragma unroll
+    for (int kt = 0; kt < S::KT; ++kt) {
+      mma_ktile<CH>(pv, lf[kt], W1v, WS1, 2 * H + kt * 16, lane);
+      mma_ktile<CH>(pc, lf[kt], W1c, WS1, 2 * H + kt * 16, lane);
+    }
+  }
+
+  // b1v (side 0) or b1c (side 1) of units u0 + j, u0 + j + 1 of row g + 8
+  // rr: B9's per layer, staged; B7's per edge, from L2.
+  const float* b1 = a.tab + static_cast<size_t>(t) * 2 * b.K * H + u0;
+  auto bias = [&](int side, int rr, int j) -> float2 {
+    if constexpr (V == 9)
+      return *reinterpret_cast<const float2*>(b.small + side * H + u0 + j);
+    else
+      return __ldg(reinterpret_cast<const float2*>(
+          b1 + static_cast<size_t>(side * b.K + (rr ? k1 : k0)) * H + j));
+  };
+  uint32_t h1v[CH / 16][4], h1c[CH / 16][4];
+  relu_pack<CH>(pv, [&](int rr, int j) { return bias(0, rr, j); }, tig, h1v);
+  relu_pack<CH>(pc, [&](int rr, int j) { return bias(1, rr, j); }, tig, h1c);
+  if constexpr (V == 9) {
+    if (t == a.T - 1) {
+      thin_product<CH>(s, h1v, a.extra + u0, lane);
+      thin_product<CH>(s, h1c, a.extra + H + u0, lane);
+      return;
+    }
+  }
+#pragma unroll
+  for (int kt = 0; kt < CH / 16; ++kt) mma_ktile<H>(acc, h1v[kt], W2, WS2, kt * 16, lane);
+#pragma unroll
+  for (int kt = 0; kt < CH / 16; ++kt) mma_ktile<H>(acc, h1c[kt], W2, WS2, CH + kt * 16, lane);
+}
+
+// Layer t of one frame at H = kWideH, message-major: phase 1 (means; the
+// layer's first weight chunk stages meanwhile), then phase 2 in rounds: in
+// round r warp w takes tile r * warps + w, and the whole block walks the
+// layer's weight chunks in lockstep, one barrier a chunk, the next chunk in
+// flight while this one computes.  A warp without a tile in the last round
+// still arrives at every barrier.  Starts and ends with a barrier.
+template <bool INJ, int V>
+__device__ void layer_wide(const Args& a, const Block& b, int t) {
+  constexpr int H = kWideH, NCH = kWideH / kWideChunk, CW = chunk_weights(INJ);
+  using S = Shape<H, INJ, V>;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+
+  const __nv_bfloat16* wl = a.w + static_cast<size_t>(t) * S::LW;
+  stage_chunk<INJ>(b.w, wl, tid, nthreads);
+  for (int j = tid; j < small_floats(H, V); j += nthreads)
+    b.small[j] = a.small[static_cast<size_t>(t) * small_floats(H, V) + j];
+
+  // Phase 1: one 16-byte chunk of one variable's or check's mean a thread.
+  for (int c = tid; c < (b.n + b.M) * S::CPR; c += nthreads)
+    mean_chunk<H>(b, c / S::CPR, c % S::CPR);
+  cp_async_wait<0>();
+  __syncthreads();  // means, the first chunk and the biases visible to the whole block
+
+  // Phase 2.
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int ntiles = (b.E + kTile - 1) / kTile;
+  const int steps = (ntiles + nwarps - 1) / nwarps * NCH;
+  __nv_bfloat16* buf = b.stage;  // the warp's one tile buffer
+  if (warp < ntiles) load_tile<H, INJ, V>(b, buf, warp, lane);
+  for (int r = 0; r * NCH < steps; ++r) {
+    const int tile = r * nwarps + warp, next = tile + nwarps;
+    const int i0 = tile * kTile + g, i1 = i0 + 8;
+    const int k0 = i0 < b.E ? i0 / b.Z : b.K - 1;
+    const int k1 = i1 < b.E ? i1 / b.Z : b.K - 1;
+    uint32_t lf[H / 16][4];
+    if constexpr (INJ) {
+      const float m0 = i0 < b.E ? b.llr[b.g.col[k0] * b.Z + (i0 - k0 * b.Z)] : 0.0f;
+      const float m1 = i1 < b.E ? b.llr[b.g.col[k1] * b.Z + (i1 - k1 * b.Z)] : 0.0f;
+      llr_frags<H>(lf, b, m0, m1, tig);
+    }
+    float acc[S::NT][4];
+    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    zero<H>(acc);
+    for (int c = 0; c < NCH; ++c) {
+      const int step = r * NCH + c;
+      cp_async_wait<0>();
+      __syncthreads();  // chunk c and this round's tile rows visible; every warp is
+                        // done with the other chunk buffer
+      if (step + 1 < steps)
+        stage_chunk<INJ>(b.w + ((step + 1) & 1) * CW,
+                         wl + static_cast<size_t>((c + 1) % NCH) * CW, tid, nthreads);
+      if (tile < ntiles)
+        chunk_tile<INJ, V>(a, b, buf, b.w + (step & 1) * CW, c, t, k0, k1, lf, acc, s, lane);
+    }
+    if (tile < ntiles) {
+      if (V == 9 && t == a.T - 1) {
+        store_last<H>(b, buf, s, i0, i1, t >= 1, lane);
+      } else {
+        const uint32_t ov[S::NT][2] = {};  // B6's out_v: never read by B7 or B9
+        write_tile<H, INJ, V>(a, b, buf, acc, ov, tile, t, k0, k1, lane);
+      }
+    }
+    __syncwarp();  // the tile is read out before its buffer is loaded again
+    if (next < ntiles) load_tile<H, INJ, V>(b, buf, next, lane);
   }
   __syncthreads();
 }
@@ -1119,7 +1369,8 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
   b.small = reinterpret_cast<float*>(smem + L.small);
   b.w = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
   b.dte = reinterpret_cast<__nv_bfloat16*>(smem + L.dte);
-  b.stage = reinterpret_cast<__nv_bfloat16*>(smem + L.stage) + (tid >> 5) * 2 * S::BUF;
+  b.stage = reinterpret_cast<__nv_bfloat16*>(smem + L.stage) +
+            (tid >> 5) * (H == kWideH ? 1 : 2) * S::BUF;
   b.feats = a.scratch + static_cast<size_t>(blockIdx.x) * scratch_elems(V, H, Z, R, C, K);
   b.vmean = b.feats + static_cast<size_t>(K) * Z * H;
   b.rmean = b.vmean + static_cast<size_t>(n) * H;
@@ -1171,6 +1422,8 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
     for (int t = 0; t < a.T; ++t) {
       if constexpr (check_major(V))
         layer_v3<H, INJ>(a, b, t, &s_queue);
+      else if constexpr (H == kWideH)
+        layer_wide<INJ, V>(a, b, t);
       else
         layer<H, INJ, V>(a, b, t);
     }
@@ -1235,6 +1488,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_v4_tc_kernel(const 
   decode_frames<H, INJ, 9>(a);
 }
 
+// B7 and B9 at H = kWideH: message-major tiles, the layer's weights streamed
+// through shared memory in chunks of kWideChunk hidden units.
+template <bool INJ, int V>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_wide_tc_kernel(const Args a) {
+  decode_frames<kWideH, INJ, V>(a);
+}
+
 using KernelFn = void (*)(const Args);
 
 template <int H, bool INJ>
@@ -1248,10 +1508,20 @@ KernelFn pick_variant(int V) {
   return nullptr;
 }
 
+template <bool INJ>
+KernelFn pick_wide(int V) {
+  switch (V) {
+    case 7: return msg_gnn_wide_tc_kernel<INJ, 7>;
+    case 9: return msg_gnn_wide_tc_kernel<INJ, 9>;
+  }
+  return nullptr;
+}
+
 KernelFn pick_kernel(int V, int H, int inject) {
   switch (H) {
     case 16: return inject ? pick_variant<16, true>(V) : pick_variant<16, false>(V);
     case 64: return inject ? pick_variant<64, true>(V) : pick_variant<64, false>(V);
+    case kWideH: return inject ? pick_wide<true>(V) : pick_wide<false>(V);
   }
   return nullptr;
 }

@@ -34,6 +34,12 @@ in shared memory, the correction's products as bf16 tiles):
   v3's folds on ``msg_gnn_v2``'s layer, the last layer folded into thin
   rows through the output projection (``w2last``, ``proj8``, ``dsc``).
 
+Each kernel is built for the hidden widths in ``KERNEL_HIDDEN_DIMS``:
+``msg_gnn_v2`` and ``msg_gnn_v4`` also at ``WIDE_HIDDEN`` = 128
+(``msg_gnn_wide_tc_kernel``), where a layer's weights exceed a block's
+shared memory and stream through it in chunks of ``WIDE_CHUNK`` hidden
+units (:func:`pack_tc_weights`).
+
 ``params`` is the module or its ``state_dict``.  Input (B, n) float32 LLRs;
 output (B, n) float32 soft bits (probabilities of bit 1) and, for the
 corrected decoders with ``return_iterations``, (B,) float32 ``conv_iter``.
@@ -73,7 +79,14 @@ from ldpc_tpu_torch.ops.qc_msg import _BIG
 LAUNCHES: dict[str, int] = {"corrected_v2": 0, "corrected": 0, "msg_gnn": 0, "msg_gnn_v2": 0,
                             "msg_gnn_v3": 0, "msg_gnn_v4": 0}
 
-KERNEL_HIDDEN_DIMS = (16, 64)  # instantiations in csrc/fused_gnn_tc.cu, fused_msg_gnn_tc.cu
+# The hidden widths each kernel is built for (csrc/fused_gnn_tc.cu,
+# fused_msg_gnn_tc.cu): msg_gnn_v2 and msg_gnn_v4 also at WIDE_HIDDEN, their
+# weights streamed through shared memory in chunks of WIDE_CHUNK units.
+KERNEL_HIDDEN_DIMS = {"corrected_v2": (16, 64), "corrected": (16, 64), "msg_gnn": (16, 64),
+                      "msg_gnn_v2": (16, 64, 128), "msg_gnn_v3": (16, 64),
+                      "msg_gnn_v4": (16, 64, 128)}
+WIDE_HIDDEN = 128  # kWideH in csrc/fused_msg_gnn_tc.cu
+WIDE_CHUNK = 16  # kWideChunk: hidden units a staged weight chunk (one tile buffer a warp)
 _PLAIN_CHUNK_BYTES = 64 * 2**20  # one (frames, K, Z, h) float32 tensor of the plain version
 
 
@@ -691,9 +704,9 @@ def _check_build(kind: str, num_iterations: int, hidden_dim: int, smem_bytes: in
     ``state`` fits the shared memory of a block."""
     if num_iterations < 1:
         raise ValueError(f"num_iterations must be >= 1, got {num_iterations}")
-    if hidden_dim not in KERNEL_HIDDEN_DIMS:
-        raise ValueError(f"the {kind} kernel is built for hidden_dim in {KERNEL_HIDDEN_DIMS}, "
-                         f"got {hidden_dim}")
+    if hidden_dim not in KERNEL_HIDDEN_DIMS[kind]:
+        raise ValueError(f"the {kind} kernel is built for hidden_dim in "
+                         f"{KERNEL_HIDDEN_DIMS[kind]}, got {hidden_dim}")
     if smem_bytes > _SMEM_BUDGET:
         raise ValueError(
             f"{kind} kernel state ({smem_bytes / 1024:.1f} KiB: {state}) exceeds the "
@@ -815,7 +828,7 @@ def make_fused_corrected_gnn_decoder(
     freezes.  ``return_iterations=True`` (requires ``early_exit``): returns
     ``(soft, conv_iter)`` with ``conv_iter`` (B,) float32.
 
-    The kernel needs ``hidden_dim`` in ``KERNEL_HIDDEN_DIMS`` and one frame's
+    The kernel needs ``hidden_dim`` in ``KERNEL_HIDDEN_DIMS[kind]`` and one frame's
     messages plus one layer's weights in a block's shared memory; a code that
     does not fit raises.  The JAX builder's ``interpret`` flag has no
     counterpart: a CPU tensor runs the plain version.
@@ -868,7 +881,9 @@ def tc_weight_blocks(h: int, inject: bool, kind: str = "msg_gnn_v2") -> tuple:
     padded row length in bf16).  Message-major (``msg_gnn``, ``msg_gnn_v2``,
     ``msg_gnn_v4``): W1v = [W1vf W1va (W1vl)], W1c = [W1cf W1ca (W1cl)], W2
     = [W2v W2c].  ``msg_gnn_v3``: W1v = [W1vf W1va (W1vl)], W1c = [W1cf
-    (W1cl)], W1ca, W2 = [W2v W2c]."""
+    (W1cl)], W1ca, W2 = [W2v W2c].  At h = ``WIDE_HIDDEN`` the message-major
+    kernels stream the same three blocks cut into chunks of hidden units
+    (:func:`pack_tc_weights`)."""
     ws1, ws2 = tc_row_widths(h, inject)
     w2 = ((6, 7), ws2)
     if kind != _CHECK_MAJOR:  # _MsgTables.w order: va, ca, vl, cl, vf, cf, W2v, W2c
@@ -878,17 +893,51 @@ def tc_weight_blocks(h: int, inject: bool, kind: str = "msg_gnn_v2") -> tuple:
             ((5, 3) if inject else (5,), (2 if inject else 1) * h + 8), ((1,), h + 8), w2)
 
 
+def tc_chunk_widths(h: int, inject: bool) -> tuple[int, int]:
+    """Padded row lengths (bf16) of a streamed weight chunk at h =
+    ``WIDE_HIDDEN``: the W1v and W1c rows of its ``WIDE_CHUNK`` hidden units
+    (2h or 3h inputs, plus 8), and the h rows of [W2v W2c] cut to those
+    units' columns (2 ``WIDE_CHUNK``, plus 8)."""
+    return (3 if inject else 2) * h + 8, 2 * WIDE_CHUNK + 8
+
+
+def tc_chunk_elems(h: int, inject: bool) -> int:
+    """bf16 elements of one streamed weight chunk (chunk_weights in
+    csrc/fused_msg_gnn_tc.cu): ``WIDE_CHUNK`` rows each of W1v and W1c, h
+    rows of the W2 block."""
+    ws1, ws2 = tc_chunk_widths(h, inject)
+    return 2 * WIDE_CHUNK * ws1 + h * ws2
+
+
 def pack_tc_weights(w: torch.Tensor, inject: bool, kind: str = "msg_gnn_v2") -> torch.Tensor:
     """``_MsgTables.w`` (T, 8, h, h), bf16 values as float32 -> the ``kind``
-    tensor-core kernel's packed bf16 layout (T, h * sum of row lengths), as it
-    stages it in shared memory: the matrices of :func:`tc_weight_blocks`,
-    each h rows (out) of its inputs then zeros."""
+    tensor-core kernel's packed bf16 layout (T, layer elements), in the order
+    it stages it in shared memory: the matrices of :func:`tc_weight_blocks`,
+    each h rows (out) of its inputs then zeros.  At h = ``WIDE_HIDDEN`` (a
+    message-major kernel) the layer is h / ``WIDE_CHUNK`` chunks of
+    :func:`tc_chunk_elems`, each the W1v rows, then the W1c rows, of its
+    units, then the h rows of [W2v W2c] cut to its units' columns
+    (:func:`tc_chunk_widths`)."""
     T, _, h, _ = w.shape
-    parts = []
-    for idx, width in tc_weight_blocks(h, inject, kind):
-        rows = torch.cat([w[:, i] for i in idx], dim=2)  # (T, h, inputs)
-        parts.append(torch.nn.functional.pad(rows, (0, width - rows.shape[2])).reshape(T, -1))
-    return torch.cat(parts, dim=1).to(torch.bfloat16).contiguous()
+    blocks = tc_weight_blocks(h, inject, kind)
+    mats = [torch.cat([w[:, i] for i in idx], dim=2) for idx, _ in blocks]  # (T, h, inputs)
+    pad = torch.nn.functional.pad
+    if h != WIDE_HIDDEN:
+        parts = [pad(m, (0, width - m.shape[2])) for m, (_, width) in zip(mats, blocks)]
+    else:
+        if kind == _CHECK_MAJOR:
+            raise ValueError(f"{kind} has no streamed layout at h={h}")
+        w1v, w1c, w2 = mats
+        ws1, ws2 = tc_chunk_widths(h, inject)
+        chunk = WIDE_CHUNK
+        parts = []
+        for u in range(0, h, chunk):
+            units = slice(u, u + chunk)
+            parts += [pad(w1v[:, units], (0, ws1 - w1v.shape[2])),
+                      pad(w1c[:, units], (0, ws1 - w1c.shape[2])),
+                      pad(torch.cat([w2[:, :, units], w2[:, :, h + u:h + u + chunk]], dim=2),
+                          (0, ws2 - 2 * chunk))]
+    return torch.cat([x.reshape(T, -1) for x in parts], dim=1).to(torch.bfloat16).contiguous()
 
 
 class _MsgTables:
@@ -952,17 +1001,23 @@ def msg_gnn_smem_bytes(qc: QCLayout, hidden_dim: int, kind: str = "msg_gnn",
     """Dynamic shared memory of one ``kind`` block of ``warps`` warps (mirrors
     make_layout in csrc/fused_msg_gnn_tc.cu): graph, inverse degrees, the
     frame's LLRs, embedding and projection, the layer's biases (one row of
-    ``_MsgTables.small``), its packed bf16 weights (:func:`tc_weight_blocks`),
-    v3's staged deltas (K h bf16) and two stage buffers a warp (16 rows of h
-    + 8 bf16 each of the message-major kernels' features, vmean and rmean; of
-    v3's features and vmean)."""
+    ``_MsgTables.small``), its packed bf16 weights (:func:`tc_weight_blocks`;
+    at h = ``WIDE_HIDDEN`` two chunks of :func:`tc_chunk_elems`), v3's staged
+    deltas (K h bf16) and the stage buffers of a warp, two (at
+    ``WIDE_HIDDEN`` one) of 16 rows of h + 8 bf16 each of the
+    message-major kernels' features, vmean and rmean; of v3's features and
+    vmean."""
     K, Z, C, R, h = qc.num_base_edges, qc.Z, qc.num_base_cols, qc.num_base_rows, hidden_dim
     v3 = kind == _CHECK_MAJOR
     small = h if kind == "msg_gnn_v2" else (2 if kind == "msg_gnn" else 3) * h
-    weights = sum(width for _, width in tc_weight_blocks(h, input_injection, kind))
+    if h == WIDE_HIDDEN:
+        weights, bufs = 2 * tc_chunk_elems(h, input_injection), 1
+    else:
+        weights = h * sum(width for _, width in tc_weight_blocks(h, input_injection, kind))
+        bufs = 2
     return (4 * (_r4(6 * K + R + C + 2) + _r4(C + R) + _r4(C * Z) + _r4(3 * h + 1) + small)
-            + 2 * h * weights + (2 * K * h if v3 else 0)
-            + warps * 2 * 2 * (2 if v3 else 3) * _TILE * (h + 8))
+            + 2 * weights + (2 * K * h if v3 else 0)
+            + warps * bufs * 2 * (2 if v3 else 3) * _TILE * (h + 8))
 
 
 def msg_gnn_scratch_floats(qc: QCLayout, hidden_dim: int, kind: str = "msg_gnn") -> int:
@@ -1222,7 +1277,8 @@ def make_fused_gnn_decoder(
 
     ``params``: a ``MessageGNNDecoder`` built by ``create_message_gnn_decoder``
     with matching hyperparameters, or its ``state_dict``.  The kernel needs
-    ``hidden_dim`` in ``KERNEL_HIDDEN_DIMS``; another width raises.  The JAX
+    ``hidden_dim`` in ``KERNEL_HIDDEN_DIMS["msg_gnn"]``; another width raises
+    (the v2 and v4 kernels also take 128).  The JAX
     builder's ``interpret`` flag has no counterpart and changes nothing: a
     CPU tensor runs the plain version.
     """
@@ -1244,9 +1300,10 @@ def make_fused_gnn_decoder_v2(
 ) -> FusedMessageGNNDecoder:
     """The fully-neural decoder with each MLP's second layer summed over both
     halves in float32 and rounded to bf16 once (same flags and outputs as
-    :func:`make_fused_gnn_decoder`; the two differ in that rounding).
-    ``mm_group`` (the TPU kernel's edge-group size) and ``interpret`` are the
-    JAX builder's and change nothing here."""
+    :func:`make_fused_gnn_decoder`; the two differ in that rounding), also
+    at ``hidden_dim`` 128 (``msg_gnn_wide_tc_kernel``).  ``mm_group`` (the
+    TPU kernel's edge-group size) and ``interpret`` are the JAX builder's and
+    change nothing here."""
     del mm_group, interpret
     return _make_msg("msg_gnn_v2", qc, params, num_iterations, hidden_dim, share_layers,
                      input_injection, device)
@@ -1289,9 +1346,10 @@ def make_fused_gnn_decoder_v4(
     v3's folds on :func:`make_fused_gnn_decoder_v2`'s layer (the check mean
     rounded to bf16 and projected, b2 added in float32), with the last
     layer's second product and writeback folded into thin rows through the
-    output projection.  ``mm_group`` (the TPU kernel's edge-group size)
-    changes no number: each message's column of the product is independent;
-    it and ``interpret`` change nothing here."""
+    output projection; also at ``hidden_dim`` 128
+    (``msg_gnn_wide_tc_kernel``).  ``mm_group`` (the TPU kernel's edge-group
+    size) changes no number: each message's column of the product is
+    independent; it and ``interpret`` change nothing here."""
     del mm_group, interpret
     return _make_msg("msg_gnn_v4", qc, params, num_iterations, hidden_dim, share_layers,
                      input_injection, device)

@@ -20,13 +20,16 @@ plain version on these inputs: the bar is ``torch.equal``.  The ReLUs are
 never negative here; the 3e-2 cases hold them.
 
 ``EXACT_CASES`` are the configurations the tests and ``chip_smoke.py`` hold
-to that bar.  ``EXACT_TE_CASES`` add type embeddings of 0, 1/4 or 1/2
-(``EXACT_TYPE_EMBEDDINGS``) for ``msg_gnn_v3``, whose features carry them:
-its seed adds te_0 and each writeback the next block of the delta table
-(te_{t+1} - te_t), so a wrong block or edge index there shows only where
-the embeddings are not zero.  The features stay nonnegative (a writeback
-removes te_t from a value it rounded up from at least te_t), and at T = 3
-the middle block is a difference of two nonzero embeddings.
+to that bar, at the widths every fully-neural kernel is built for;
+``EXACT_WIDE_CASES`` those at h = 128, for B7 and B9 alone (weights of 1/h
+or 2/h are then multiples of 1/128).  ``EXACT_TE_CASES`` add type
+embeddings of 0, 1/4 or 1/2 (``EXACT_TYPE_EMBEDDINGS``) for ``msg_gnn_v3``,
+whose features carry them: its seed adds te_0 and each writeback the next
+block of the delta table (te_{t+1} - te_t), so a wrong block or edge index
+there shows only where the embeddings are not zero.  The features stay
+nonnegative (a writeback removes te_t from a value it rounded up from at
+least te_t), and at T = 3 the middle block is a difference of two nonzero
+embeddings.
 
 ``exact_corrected_case`` does the same for the corrected min-sum GNN
 (``create_corrected_minsum_gnn_decoder``, B4).  There the messages are
@@ -83,6 +86,17 @@ EXACT_CASES = (
     ("nr_2_0_32", 32, 64, 3, True, True),
 )
 EXACT_SEED = 5
+
+# h = 128, the width B7 and B9 alone are built for (their weights streamed in
+# chunks of hidden units): the same values, whose weights' quantum is then
+# 1/128; every sum stays within 2**24 of its quanta (checked value by value
+# in tests/test_torch_msg_gnn_wide.py).
+EXACT_WIDE_CASES = (
+    ("toy_4x8", 4, 128, 7, True, False),
+    ("nr_2_0_4", 4, 128, 5, True, False),
+    ("nr_2_0_4", 4, 128, 5, True, True),
+    ("nr_2_0_32", 32, 128, 2, False, False),
+)
 
 # (code, Z, hidden_dim, batch, input_injection, share_layers, num_iterations)
 EXACT_TE_CASES = (

@@ -9,6 +9,10 @@ the trained checkpoints, then measures steady-state decoded bits/s for:
     and ``corrected_v2`` (fused_v2).
 
 Run:  python -m ldpc_tpu_torch.tools.bench_gnn_kernel [--batch 2048] [--device cuda | cpu]
+      python -m ldpc_tpu_torch.tools.bench_gnn_kernel --hidden 128 --kernels v2,v4 --fresh
+
+Each variant run must be built for ``--hidden`` (``fused_gnn.KERNEL_HIDDEN_DIMS``):
+all six at 16 and 64, ``fused_v2`` and ``fused_v4`` also at 128.
 
 The default device is the card; without one it raises.  ``--device cpu``
 runs the kernels' plain PyTorch versions and the module on the CPU (for
@@ -103,11 +107,23 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _wanted(fusers, kernels: str | None) -> list:
+    """The variants of ``fusers`` that ``--kernels`` names (all without it)."""
+    if not kernels:
+        return list(fusers)
+    want = {k.strip() for k in kernels.split(",")}
+    return [v for v in fusers if v[0].replace("fused_", "").replace("fused", "v1") in want]
+
+
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
-    if args.hidden not in fused_gnn.KERNEL_HIDDEN_DIMS:
-        raise ValueError(f"the fused GNN kernels are built for --hidden in "
-                         f"{fused_gnn.KERNEL_HIDDEN_DIMS}, got {args.hidden}")
+    # --fresh benches the message GNN alone; each variant it runs must be
+    # built for --hidden (msg_gnn_v2 and msg_gnn_v4 also at 128).
+    families = MESSAGE_GNN + ([] if args.fresh else CORRECTED_GNN)
+    for _, _, kernel in _wanted(families, args.kernels):
+        if args.hidden not in fused_gnn.KERNEL_HIDDEN_DIMS[kernel]:
+            raise ValueError(f"the {kernel} kernel is built for --hidden in "
+                             f"{fused_gnn.KERNEL_HIDDEN_DIMS[kernel]}, got {args.hidden}")
     dev = resolve_device(args.device)
     cuda = dev.type == "cuda"
     qc = qc_layout(get_base_graph(args.code), args.Z)
@@ -121,16 +137,10 @@ def main(argv=None) -> dict:
     cases = []
     if args.fresh or Path(args.gnn_checkpoint).exists():
         cases.append(("message_gnn", None if args.fresh else args.gnn_checkpoint,
-                      create_message_gnn_decoder, MESSAGE_GNN))
+                      create_message_gnn_decoder, _wanted(MESSAGE_GNN, args.kernels)))
     if not args.fresh and Path(args.corrected_checkpoint).exists():
         cases.append(("corrected_gnn", args.corrected_checkpoint,
-                      create_corrected_minsum_gnn_decoder, CORRECTED_GNN))
-    if args.kernels:
-        want = {k.strip() for k in args.kernels.split(",")}
-        cases = [(name, ckpt, factory,
-                  [v for v in fusers
-                   if v[0].replace("fused_", "").replace("fused", "v1") in want])
-                 for name, ckpt, factory, fusers in cases]
+                      create_corrected_minsum_gnn_decoder, _wanted(CORRECTED_GNN, args.kernels)))
 
     rl = gnn_roofline(qc, args.hidden, args.iters, input_injection=True)
     bounds = rl.bound_bits_per_s(n)

@@ -19,7 +19,8 @@ trained min-sum kernels (neural_group, fused_neural): bits identical.  The fully
 kernels (msg_gnn, msg_gnn_v2, msg_gnn_v3, msg_gnn_v4) at T=2: soft bits within
 3e-2, decisions equal where the plain version is confident; all four on the
 exact inputs of ops/msg_gnn_exact.py (msg_gnn_v3 and msg_gnn_v4 also with
-nonzero type embeddings, msg_gnn_v4 also at T=1): identical.  The aggregation
+nonzero type embeddings, msg_gnn_v4 also at T=1): identical; msg_gnn_v2 and
+msg_gnn_v4 at h=128 (their weights streamed in chunks) to the same bars.  The aggregation
 probe: vpu identical to its plain version, mxu within one bf16 step (the
 tensor cores' float32 sums need not round as IEEE additions do).
 """
@@ -34,7 +35,8 @@ from ldpc_tpu_torch.models import create_corrected_minsum_gnn_decoder
 from ldpc_tpu_torch.ops import fused_gnn as fg, fused_minsum as fm, qc_msg
 from ldpc_tpu_torch.ops.msg_gnn_exact import (CORRECTED_EXACT_CASES, EXACT_CASES,
                                               EXACT_TE_CASES, EXACT_TYPE_EMBEDDINGS,
-                                              exact_corrected_case, exact_msg_gnn_case)
+                                              EXACT_WIDE_CASES, exact_corrected_case,
+                                              exact_msg_gnn_case)
 from ldpc_tpu_torch.utils import bpsk_awgn_llr
 
 pytestmark = [
@@ -1090,6 +1092,80 @@ def test_msg_gnn_v4_peeled_layers(T):
     model = _msg_model(qc_msg.make_plan(qc), T, 64, True, False)
     dec = fg.make_fused_gnn_decoder_v4(qc, model, T, 64, input_injection=True)
     llr = _llr(qc.num_vars, 9, 2.0, seed=T)
+    soft_k, soft_p = dec(llr), dec.plain(llr)
+    torch.cuda.synchronize()
+    assert (soft_k - soft_p).abs().max().item() <= 3e-2
+    confident = (soft_p - 0.5).abs() > 0.05
+    assert bool(((soft_k > 0.5) == (soft_p > 0.5))[confident].all())
+
+
+WIDE_BUILDERS = {"msg_gnn_v2": fg.make_fused_gnn_decoder_v2,
+                 "msg_gnn_v4": fg.make_fused_gnn_decoder_v4}
+
+
+@pytest.mark.parametrize("kind", list(WIDE_BUILDERS))
+@pytest.mark.parametrize("name,Z,batch", [("nr_2_0_4", 4, 11), ("nr_2_0_32", 32, 3)])
+@pytest.mark.parametrize("inject,share", [(False, False), (True, False), (True, True)])
+def test_msg_gnn_wide_kernel_matches_plain(kind, name, Z, batch, inject, share):
+    """B7 and B9 at h=128 (msg_gnn_wide_tc_kernel) at T=2: soft bits within
+    3e-2 of the plain version, decisions identical where the plain version
+    is confident, one launch; the wrapper's shared memory and scratch are
+    the library's."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+    dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
+    lib, entry = fg.tc_kernel_library(), fg.TC_ENTRY[kind]
+    warps, blocks = fg.msg_gnn_tc_plan(qc, 128, inject, kind)
+    assert warps >= 1 and blocks >= 1
+    for w in (1, warps):
+        assert getattr(lib, f"{entry}_tc_smem_bytes")(128, int(inject), *dims, w) == \
+            fg.msg_gnn_smem_bytes(qc, 128, kind, inject, w)
+    assert getattr(lib, f"{entry}_tc_scratch_floats")(128, *dims) == \
+        fg.msg_gnn_scratch_floats(qc, 128, kind)
+    model = _msg_model(qc_msg.make_plan(qc), 2, 128, inject, share)
+    dec = WIDE_BUILDERS[kind](qc, model, 2, 128, share_layers=share, input_injection=inject)
+    llr = _llr(qc.num_vars, batch, 2.0, seed=Z + 128)
+    before = fg.LAUNCHES[kind]
+    soft_k, soft_p = dec(llr), dec.plain(llr)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES[kind] == before + 1
+    assert soft_k.is_cuda and soft_k.shape == llr.shape
+    assert (soft_k - soft_p).abs().max().item() <= 3e-2
+    confident = (soft_p - 0.5).abs() > 0.05
+    assert bool(((soft_k > 0.5) == (soft_p > 0.5))[confident].all())
+
+
+@pytest.mark.parametrize("kind,code,Z,h,batch,inject,share,T",
+                         [(kind, *case, 2) for kind in WIDE_BUILDERS for case in EXACT_WIDE_CASES]
+                         + [("msg_gnn_v4", *case, 1) for case in EXACT_WIDE_CASES])
+def test_msg_gnn_wide_exact_inputs_identical(kind, code, Z, h, batch, inject, share, T):
+    """B7 and B9 at h=128 on inputs whose every reordered sum is exact in any
+    order (ops/msg_gnn_exact.py): the streamed chunks must give the plain
+    version's soft bits exactly, so a chunk, index or shift fault shows; B9
+    also at T=1 (its thin last layer alone)."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph(code), Z)
+    model, llr = exact_msg_gnn_case(qc, h, batch, inject, share, num_iterations=T)
+    dec = WIDE_BUILDERS[kind](qc, model, T, h, share_layers=share, input_injection=inject)
+    llr = torch.from_numpy(llr).cuda()
+    before = fg.LAUNCHES[kind]
+    soft_k, soft_p = dec(llr), dec.plain(llr)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES[kind] == before + 1
+    assert torch.equal(soft_k, soft_p)
+
+
+@pytest.mark.parametrize("kind", list(WIDE_BUILDERS))
+@pytest.mark.parametrize("T", [1, 3])
+def test_msg_gnn_wide_several_frames_a_block(kind, T):
+    """B7 and B9 at h=128 on three frames or more a resident block (each
+    block takes later frames into the scratch slice its earlier frames used)
+    at T=1 (B9: the thin last layer alone) and T=3 (a middle layer):
+    soft bits within 3e-2, confident decisions identical."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_4"), 4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dec = WIDE_BUILDERS[kind](qc, _msg_model(qc_msg.make_plan(qc), T, 128, True, False), T, 128,
+                              input_injection=True)
+    resident = fg.msg_gnn_tc_plan(qc, 128, True, kind)[1] * sms
+    llr = _llr(qc.num_vars, 3 * resident + 1, 1.0, seed=T)
     soft_k, soft_p = dec(llr), dec.plain(llr)
     torch.cuda.synchronize()
     assert (soft_k - soft_p).abs().max().item() <= 3e-2
