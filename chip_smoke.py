@@ -20,8 +20,8 @@ Phases, one JSON line each:
              msg_gnn_v4, corrected_v2, corrected) block shapes (their
              occupancy plans)
              and registers a thread, and the
-             HMMA (tensor-core) instructions of each of their kernels in
-             cuobjdump -sass (none fails).
+             HMMA and HGMMA (tensor-core: mma.sync and wgmma) instructions
+             of each of their kernels in cuobjdump -sass (none without).
 3. compare — each kernel against its plain PyTorch version on the card, for
              {minsum, sumproduct} x {flooding, layered} x {tracking,
              throughput mode, early exit}: make_fused_minsum (min-sum
@@ -232,7 +232,8 @@ Phases, one JSON line each:
              time and launches by kernel; a second profiler session in one
              process recorded no kernel).
 14. msg_gnn_wide — msg_gnn_v2 and msg_gnn_v4 at h=128 (msg_gnn_wide_tc_kernel,
-             the weights streamed in chunks): against their plain versions
+             warpgroup tiles on wgmma, the weights streamed through a ring
+             of chunks on mbarriers): against their plain versions
              at T=2 on nr_2_0_4 Z=4 and nr_2_0_32 Z=32, injection and
              share_layers, at msg_gnn_compare's bars, the wrapper's shared
              memory and scratch equal to the library's; identical on
@@ -248,7 +249,8 @@ Phases, one JSON line each:
              confident decisions equal.  Times in five rounds at the path's
              shape (batch 4096) and msg_gnn_main's shape at h=128, with the
              plain version, bound, block shape, registers, spills and HMMA
-             count.
+             and HGMMA counts: both kernels on wgmma (HGMMA), msg_gnn_v2
+             with no HMMA, msg_gnn_v4's HMMA its thin last layer's.
 15. serve  — ldpc_tpu_torch.serve_trained_decoder with --model message_gnn
              and --model neural_minsum on the committed nr_2_0_4 checkpoints
              (defaults: batch 4096, 0 dB), BER/FER printed beside
@@ -2539,7 +2541,7 @@ def msg_gnn_wide_phases(smi: str) -> list[dict]:
                 raise AssertionError(f"{kind} disagrees with the module on {tag}: {same}")
 
     # Times: the path's shape (the ft checkpoint) and msg_gnn_main's shape.
-    hmma = sass_mma_counts("fused_msg_gnn_tc")
+    mma = sass_mma_counts("fused_msg_gnn_tc")
     qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
     m = WIDE_MAIN
     llr32 = llrs(qc32.num_vars, m["B"], m["SNR"], seed=m["llr_seed"])
@@ -2566,12 +2568,15 @@ def msg_gnn_wide_phases(smi: str) -> list[dict]:
             del soft_p
             bms, bby = msg_bound_ms(qc, H, T, inject, kind, llr.shape[0])
             V = WIDE_KINDS[kind]
+            # On wgmma; mma.sync (HMMA) only in B9's thin last-layer products.
+            ops = [c for k, c in mma.items()
+                   if f"msg_gnn_wide_tc_kernelILb{int(inject)}ELi{V}E" in k]
+            if len(ops) != 1 or ops[0]["HGMMA"] < 1 or (ops[0]["HMMA"] > 0) != (V == 9):
+                raise AssertionError(f"{kind} at h={H} is not on wgmma as built: {ops}")
             timed[shape] = {"code": code, "Z": qc.Z, "iterations": T, "inject": inject,
                             "batch": llr.shape[0], "launches": launches, "rounds_ms": rounds_ms,
                             "ms": sorted(rounds_ms)[2], "plain_ms": plain_ms, "bound_ms": bms,
-                            "bound_by": bby, "max_abs_err": err,
-                            "hmma": {k: v for k, v in hmma.items()
-                                     if f"msg_gnn_wide_tc_kernelILb{int(inject)}ELi{V}E" in k},
+                            "bound_by": bby, "max_abs_err": err, "mma": ops[0],
                             **tc_shape(qc, H, inject, kind)}
         emit({"phase": "msg_gnn_wide", "kernel": kind, "hidden_dim": H, "times": timed,
               "nvidia_smi": smi})
@@ -2761,8 +2766,9 @@ def zlane_smem_agree(qc) -> bool:
 
 
 def sass_mma_counts(stem: str) -> dict:
-    """HMMA instructions per kernel in ``cuobjdump -sass`` of a built
-    library: the products that run on the tensor cores."""
+    """Per kernel in ``cuobjdump -sass`` of a built library, its HMMA
+    (mma.sync) and HGMMA (wgmma) instructions: the products that run on the
+    tensor cores."""
     from ldpc_tpu_torch.ops import _build
 
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
@@ -2772,9 +2778,11 @@ def sass_mma_counts(stem: str) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = 0
-        elif name is not None and "HMMA" in line:
-            counts[name] += 1
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):  # no HGMMA line holds "HMMA"
+                if op in line:
+                    counts[name][op] += 1
     return counts
 
 
@@ -2865,9 +2873,10 @@ def main(argv=None) -> int:
     if not all(smem_agree.values()):
         raise AssertionError(f"a retiring kernel's shared memory differs from the wrapper's: "
                              f"{smem_agree}")
-    hmma = {stem: sass_mma_counts(stem) for stem in dict(TC_KERNELS.values())}
-    if any(not counts or min(counts.values()) < 1 for counts in hmma.values()):
-        raise AssertionError(f"a tensor-core kernel has no tensor-core instructions: {hmma}")
+    mma = {stem: sass_mma_counts(stem) for stem in dict(TC_KERNELS.values())}
+    if any(not counts or min(sum(c.values()) for c in counts.values()) < 1
+           for counts in mma.values()):
+        raise AssertionError(f"a tensor-core kernel has no tensor-core instructions: {mma}")
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "ptxas": ptxas,
           **{f"{name}_ptxas": ptxas_of("fused_retire", f"{name}_kernel")
              for name in ("retire_layered", "retire_zlane_layered", "retire_sumproduct",
@@ -2879,7 +2888,7 @@ def main(argv=None) -> int:
               ("parts", "frames_per_block", "blocks_per_sm"),
               fm.retire_layered_sumproduct_plan(qc32, True))),
           "retire_smem_bytes_agree": smem_agree,
-          "blocks_per_sm": occupancy, "hmma_per_kernel": hmma,
+          "blocks_per_sm": occupancy, "mma_per_kernel": mma,
           **{f"{kind}_shape": {f"nr_2_0_32 Z=32 h={h} inject={inj}":
                                tc_shape(qc32, h, inj, kind)
                                for h in (16, 64) for inj in (False, True)}

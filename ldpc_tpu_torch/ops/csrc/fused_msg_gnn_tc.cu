@@ -1,8 +1,8 @@
 // The fully-neural message-GNN decoders on the tensor cores for Hopper
 // (sm_90a): the whole forward of a trained MessageGNNDecoder (LLR embedding,
 // T GNN layers, output projection, per-variable sum, sigmoid) in one kernel
-// launch, its message products as bf16 mma.sync tiles with float32
-// accumulators.
+// launch, its message products as bf16 mma.sync tiles (at h = 128 wgmma
+// warpgroup tiles) with float32 accumulators.
 //
 // Replaces the TPU kernels of ldpc_tpu/ops/pallas_gnn.py:
 //   * msg_gnn_tc_kernel<H, INJ>    <- :137 _kernel (make_fused_gnn_decoder,
@@ -210,47 +210,60 @@
 //
 // H = 128 (kWideH), B7 and B9: msg_gnn_wide_tc_kernel
 // ------------------------------------------------------
-// A layer's packed weights are 268,288 B with injection (202,752 B
-// without): more than the 227 KB a block can use.  So they stream through
-// shared memory in chunks of kWideChunk = 16 hidden units, in the order the
-// wrapper packs them (pack_tc_weights): a chunk holds the W1v and W1c rows
-// of its units (3h + 8, or 2h + 8, bf16 each) and the h rows of [W2v W2c]
-// cut to its units' columns (2 * 16 + 8 each), 35,328 B with injection
-// (27,136 B without), and it is staged with one straight 16-byte cp.async a
-// thread into one of two chunk buffers that every warp of the block reads.
-// Phase 1 (the means) is B7's, with chunk 0 staging meanwhile.  Phase 2 runs
-// in rounds: in round r warp w takes message tile r * warps + w, and the
-// block walks the layer's chunks in lockstep, one __syncthreads a chunk (a
-// warp without a tile in the last round still arrives at every barrier),
-// the next chunk in flight while this one computes.  For its tile a warp
-// computes, per chunk, pv and pc of the chunk's 16 units (the f fragments
-// feed both, ldmatrix from the staged tile; lf from registers), plus b1,
-// relu, bf16-packed into the second layer's A fragments, and adds them at
-// once into the tile's 16 x 128 float32 second-layer accumulator (64
-// registers a thread): pv and pc are never whole.  B9's last layer
-// accumulates its thin product w2last . [h1v | h1c] chunk by chunk, then
-// adds proj8 . f.  The epilogue is B7's and B9's (write_tile, store_last).
-// Against the h = 64 kernels only the float32 order of the second layer's
-// sum changes (chunk by chunk); every bf16 rounding point is the plain
-// version's.  A warp has one tile buffer (13,056 B): its next tile's rows
-// load after its epilogue.  Shared memory at nr_2_0_4 Z = 4 with
-// injection: about 9 KB of state, 70,656 B of chunk buffers; the plan takes
-// the most warps an SM by the occupancy query.  The scratch slice is B7's
-// (B9's) at h = 128, (K + C + R) Z h bf16: 298 KB at nr_2_0_4 Z = 4, 2.38 MB
-// at nr_2_0_32 Z = 32.  Every round re-reads the layer's chunks from L2
-// (282,624 B with injection), so the weights' L2 traffic falls with the
-// warps a block: one tile buffer a warp and chunks of 16 let 11 warps (12
-// without injection) share each chunk, which beat the other choices
-// (kWideChunk, below).  168 registers a thread (the 12-warp launch bound),
-// 0 to 8 bytes spilled.
+// A layer's weights are 262,144 B with injection (196,608 B without): more
+// than the 227 KB a block can use.  So they stream through shared memory in
+// chunks of kWideChunk = 16 hidden units, in the order and layout the
+// wrapper packs them (pack_tc_weights): a chunk is five bf16 matrices in
+// core-matrix order (cm), [W1vf; W1cf] (32 x h), W1va and W1ca (16 x h
+// each), with injection [W1vl; W1cl] (32 x h), and [W2v W2c] cut to the
+// units' columns (h x 32): 32,768 B with injection (24,576 B without),
+// filled by one cp.async.bulk into a ring of kWideStages buffers.
+// The block is kWideGroups warpgroups of 4 warps; a warpgroup takes tiles
+// of kWideRows = 64 consecutive messages (any Z: the edge k may change
+// inside a tile), each warp gathering its 16 rows (cp.async) into the
+// warpgroup's tile buffer: f, vmean and rmean, with injection also lf,
+// each 64 x h in core-matrix order.  Per chunk the warpgroup runs on wgmma:
+//   first layer, three products in accumulators of their own
+//   (first_products) so that the tensor cores overlap them: f . [W1vf;
+//   W1cf]^T plus, with injection, lf . [W1vl; W1cl]^T (m64n32, pv's and
+//   pc's units at once), vmean . W1va^T and rmean . W1ca^T (m64n16 each),
+//   all with A and B in shared memory; then, in registers, their sum with
+//   b1 (first_sums), relu and bf16 packed into h1 = [h1v | h1c], whose C
+//   fragments are the A fragments of the second layer: acc += h1 . [W2v
+//   W2c]^T, two m64n128k16 with A from registers into the tile's 64 x 128
+//   float32 accumulator (64 registers a thread), or B9's last layer: s +=
+//   the thin products (mma.sync, B4's) of h1 with w2last, after s = proj8 .
+//   f at the first chunk.
+// A warpgroup waits for a chunk on its full mbarrier (the fill's bytes) and
+// no block barrier a chunk: each warpgroup counts its release of a buffer
+// once its products on it have retired (a shared-memory count, the ring's
+// empty side), and the last warpgroup to release it refills it with the
+// chunk kWideStages on.  A warpgroup without a tile in the last round still
+// waits and releases.  The next tile's rows
+// load as soon as the last chunk's first layer has read the buffer; the
+// epilogue (write_rows_wide) adds b2 (B9: and the delta) and the residual,
+// read from the scratch, and writes each thread's pairs of features back.
+// Phase 1 (the means, means_wide) keeps four (row, 16-byte chunk) items a
+// thread in flight; the frame loop keeps its block barriers.
+// Against the h = 64 kernels only the float32 order of sums changes: each
+// first-layer product sums in the tensor cores' order (lf's inside f's),
+// the products and b1 are added in the plain version's order, the second
+// layer chunk by chunk, B9's s with proj8 . f first; every bf16 rounding
+// point is the plain version's.  Shared memory at nr_2_0_4 Z = 4: 205,040 B with
+// injection (B7), 155,888 B without; one block an SM, 8 warps, up to 255
+// registers a thread.  The scratch slice is (K + C + R) Z h bf16 (B9: and a
+// float32 a message): 298 KB at nr_2_0_4 Z = 4, 2.38 MB at nr_2_0_32 Z = 32.
+// Every round streams the layer's chunks from L2 again (7 rounds a layer of
+// 13 tiles at nr_2_0_4 Z = 4).
 // Bound, by the formula above at h = 128 (chip_smoke.py msg_bound_ms): the
 // ft-floor path's shape (nr_2_0_4 Z = 4, T = 10, injection, batch 4096)
 // 5.352 ms for B7, 5.141 ms for B9; msg_gnn_main's shape 38.30 and 37.46
-// ms.  Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, phase
-// msg_gnn_wide): 56.63 and 48.40 ms; 353.61 and 342.50 ms.  The design
-// does the h = 64 kernels' products, with each tile's A fragments re-read
-// from shared memory once a chunk (0.69 ldmatrix a mma) and a block
-// barrier a chunk.
+// ms.  Measured on an H100 80GB HBM3 at 700 W (probe_wide_split.py): 45.0
+// and 46.4 ms; 306.6 and 312.3 ms, where the design it replaced (mma.sync
+// on 16-message tiles a warp, a block barrier a chunk) took 56.4, 48.1,
+// 352.9 and 340.9 ms in the same call.  Phase 1 takes 14-19% of the time,
+// the tiles' gathers 11-15%, the means' products 6-12%, the second layer
+// and the weights' L2 re-stream under 3% each (the split in PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -263,18 +276,22 @@ constexpr int kMaxWarps = 12;
 constexpr int kTile = 16;  // rows a tile: the mma's M
 
 // H = kWideH streams each layer's weights through shared memory in chunks of
-// kWideChunk hidden units (msg_gnn_wide_tc_kernel, B7 and B9 only), and a
-// warp has one tile buffer there (the other widths two).  Chunks of 16 and
-// one buffer were measured on an H100 80GB HBM3 at 700 W against builds of
-// this kernel with chunks of 32 and with two tile buffers a warp (all four
-// from one source that then chose between them), B7 at the ft-floor path's
-// shape: 57.7 ms (11 warps a block) against 76.8 (32, 6 warps), 81.4 (16
-// and two buffers, 5 warps) and 138.7 ms (32 and two, 3 warps); at
-// msg_gnn_main's shape 387.9 against 375.8 (32: the one case it wins, by
-// 3%), 540.8 and 687.7 ms.
+// kWideChunk hidden units (msg_gnn_wide_tc_kernel, B7 and B9 only), a ring of
+// kWideStages chunk buffers read by kWideGroups warpgroups of 4 warps, each
+// on a tile of kWideRows messages.  Two warpgroups and two stages were
+// measured against three of either (ldpc_tpu_torch/tools/probe_wide_split.py
+// on an H100 80GB HBM3 at 700 W): three warpgroups leave a thread 168
+// registers and spill (B7 427 against 309 ms at msg_gnn_main's shape at
+// h = 128); a third stage fits only without injection and moves that shape
+// by under 2%.
 constexpr int kWideH = 128;
 constexpr int kWideChunk = 16;
-static_assert(kWideH % kWideChunk == 0 && kWideChunk % 16 == 0, "chunks of whole k-tiles");
+constexpr int kWideRows = 64;   // messages a warpgroup tile: wgmma's M
+constexpr int kWideGroups = 2;  // warpgroups a block
+constexpr int kWideStages = 2;  // chunk buffers in the ring
+constexpr int kWideWarps = 4 * kWideGroups;
+static_assert(kWideH % kWideChunk == 0 && kWideChunk == 16, "a chunk is one k-tile of h1v, h1c");
+static_assert(kWideStages >= 2, "a chunk is released one chunk after its wait");
 
 __host__ __device__ inline int round4(int x) { return (x + 3) / 4 * 4; }
 
@@ -294,11 +311,13 @@ __host__ __device__ constexpr int small_floats(int H, int V) {
 // B9: W1v, W1c of kin + 8 and W2 of 2h + 8 a row; B8: W1v of kin + 8, W1c of
 // kin - h + 8, W1ca of h + 8, W2 of 2h + 8) and the segments of a warp's tile
 // buffer (message-major: f, vmean, rmean rows; B8: f, vmean rows).
-// One weight chunk at H = kWideH: the W1v and W1c rows of its kWideChunk
-// hidden units (kin + 8 each), then the H rows of W2 = [W2v W2c] cut to those
-// units' columns (2 kWideChunk + 8 each).  A layer is H / kWideChunk chunks.
+// One weight chunk at H = kWideH, five matrices in core-matrix order (cm,
+// below), unpadded: [W1vf; W1cf] of its kWideChunk hidden units (2 kWideChunk
+// x H), W1va (kWideChunk x H), W1ca (kWideChunk x H), with injection [W1vl;
+// W1cl] (2 kWideChunk x H), then the H rows of W2 = [W2v W2c] cut to those
+// units' columns (H x 2 kWideChunk).  A layer is H / kWideChunk chunks.
 __host__ __device__ constexpr int chunk_weights(bool inject) {
-  return 2 * kWideChunk * ((inject ? 3 : 2) * kWideH + 8) + kWideH * (2 * kWideChunk + 8);
+  return (inject ? 8 : 6) * kWideChunk * kWideH;
 }
 
 __host__ __device__ constexpr int layer_weights(int H, bool inject, int V) {
@@ -308,12 +327,16 @@ __host__ __device__ constexpr int layer_weights(int H, bool inject, int V) {
              : H * (2 * ((inject ? 3 : 2) * H + 8) + 2 * H + 8);
 }
 
-// Weights a block stages at once: a whole layer, or at H = kWideH two chunks.
+// Weights a block stages at once: a whole layer, or at H = kWideH the ring.
 __host__ __device__ constexpr int staged_weights(int H, bool inject, int V) {
-  return H == kWideH ? 2 * chunk_weights(inject) : layer_weights(H, inject, V);
+  return H == kWideH ? kWideStages * chunk_weights(inject) : layer_weights(H, inject, V);
 }
 
 __host__ __device__ constexpr int tile_segments(int V) { return check_major(V) ? 2 : 3; }
+
+// The matrices of a warpgroup's tile buffer at H = kWideH: f, vmean, rmean
+// and, with injection, lf.
+__host__ __device__ constexpr int wide_mats(bool inject) { return inject ? 4 : 3; }
 
 // Compile-time shapes of one instantiation, in bf16 elements.
 template <int H, bool INJ, int V>
@@ -351,7 +374,7 @@ struct Args {
 
 // Byte offsets of a block's dynamic shared memory (all 16-byte aligned).
 struct Layout {
-  int graph, inv, llr, emb, small, w, dte, stage, total;
+  int graph, inv, llr, emb, small, w, dte, stage, bar, total;
 };
 
 __host__ __device__ inline Layout make_layout(int H, int inject, int Z, int R, int C, int K,
@@ -365,8 +388,13 @@ __host__ __device__ inline Layout make_layout(int H, int inject, int Z, int R, i
   L.small = o; o += 4 * small_floats(H, V);
   L.w = o; o += 2 * staged_weights(H, inject, V);
   L.dte = o; o += check_major(V) ? 2 * K * H : 0;  // B8: dte[t + 1], bf16
-  // A warp's tile buffers: two, at H = kWideH one.
-  L.stage = o; o += warps * (H == kWideH ? 1 : 2) * 2 * tile_segments(V) * kTile * (H + 8);
+  // A warp's two tile buffers; at H = kWideH a warpgroup's one (f, vmean and
+  // rmean of kWideRows messages, core-matrix order), then the ring's full
+  // barriers and release counts.
+  L.stage = o;
+  o += H == kWideH ? warps / 4 * wide_mats(inject) * 2 * kWideRows * H
+                   : warps * 2 * 2 * tile_segments(V) * kTile * (H + 8);
+  L.bar = o; o += H == kWideH ? 2 * 8 * kWideStages : 0;
   L.total = o;
   return L;
 }
@@ -475,9 +503,9 @@ struct Block {
   const float *inv_dc, *inv_dr, *emb_w, *emb_b, *proj_w;
   float* llr;
   float* small;          // the staged layer's biases: B7 b2; B8 b1v, b1c, b2
-  __nv_bfloat16* w;      // the staged layer's weights (H = kWideH: two chunks)
+  __nv_bfloat16* w;      // the staged layer's weights (H = kWideH: the chunk ring)
   __nv_bfloat16* dte;    // B8: the staged dte[t + 1] (K x H)
-  __nv_bfloat16* stage;  // this warp's tile buffers
+  __nv_bfloat16* stage;  // this warp's tile buffers (H = kWideH: its warpgroup's)
   __nv_bfloat16 *feats, *vmean, *rmean;  // global scratch, one h-row each
   float* s_all;          // B9: each message's output scalar (global scratch)
   float proj_b;
@@ -902,162 +930,525 @@ __device__ void layer(const Args& a, const Block& b, int t) {
 }
 
 // ---------------------------------------------------------------------------
-// B7 and B9 at H = kWideH: the layer's weights streamed in hidden-unit chunks
+// B7 and B9 at H = kWideH: warpgroup tiles on wgmma, the layer's weights
+// streamed through a ring of chunk buffers
 // ---------------------------------------------------------------------------
 
-// Starts the copy of one weight chunk (chunk_weights bf16) from src to dst,
-// 16 bytes a thread: one commit group.
-template <bool INJ>
-__device__ __forceinline__ void stage_chunk(__nv_bfloat16* dst, const __nv_bfloat16* src, int tid,
-                                            int nthreads) {
-  for (int c = tid; c < chunk_weights(INJ) / 8; c += nthreads)
-    cp_async16(dst + c * 8, src + c * 8, true);
+// Offset (elements) of entry (n, k) of an n x K bf16 matrix in core-matrix
+// order, K-major: 8 x 8 blocks of 128 contiguous bytes (8 rows of 16 bytes),
+// the blocks of an 8-row group along k, then the next group.  wgmma reads it
+// with no swizzle: 128 bytes between blocks along k, K * 16 bytes between
+// row groups; the 8 rows a block are 8 bank quads, so 16-byte accesses of
+// one block never conflict.
+__host__ __device__ constexpr int cm(int n, int k, int K) {
+  return ((n >> 3) * (K >> 3) + (k >> 3)) * 64 + (n & 7) * 8 + (k & 7);
+}
+
+// The wgmma descriptor of k-tile kt of a core-matrix matrix of K columns at
+// p (the start address, the byte strides along k and between row groups).
+__device__ __forceinline__ uint64_t wg_desc(const __nv_bfloat16* p, int K, int kt) {
+  return static_cast<uint64_t>((smem_addr(p + kt * 128) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(128 >> 4) << 16) | (static_cast<uint64_t>(K * 16 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+#define WG_D4(i) "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+
+// d (64 x 16) += A . B^T over one k-tile, A and B in shared memory.
+__device__ __forceinline__ void wgmma_n16(float (&d)[2][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : WG_D4(0), WG_D4(1)
+      : "l"(da), "l"(db));
+}
+
+// d (64 x 32) += A . B^T over one k-tile, A and B in shared memory.
+__device__ __forceinline__ void wgmma_n32(float (&d)[4][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3)
+      : "l"(da), "l"(db));
+}
+
+// d (64 x 128) += A . B^T over one k-tile, A from registers.
+__device__ __forceinline__ void wgmma_n128_rs(float (&d)[16][4], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3), WG_D4(4), WG_D4(5), WG_D4(6), WG_D4(7),
+        WG_D4(8), WG_D4(9), WG_D4(10), WG_D4(11), WG_D4(12), WG_D4(13), WG_D4(14), WG_D4(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+#undef WG_D4
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Pins x in registers here: the compiler moves no access of x across this
+// point, so none falls between an asynchronous wgmma and its wait.
+template <int N>
+__device__ __forceinline__ void wg_keep(float (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" : "+f"(x[i][0]), "+f"(x[i][1]), "+f"(x[i][2]), "+f"(x[i][3])::"memory");
+}
+
+// Waits until the phase of `bar` with this parity has completed.  A wait
+// that outlasts 2^26 polls (seconds; a chunk takes microseconds) traps, so a
+// broken ring fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// One bulk copy of `bytes` from global to shared, completing on `bar`, which
+// expects those bytes (this thread's arrival included).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The 128 threads of warpgroup wg meet (named barrier 1 + wg).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// Starts the copy of this warp's 16 rows (rows0 .. rows0 + 15 of the
+// warpgroup's tile `tile`) of the means into the tile buffer A (f, vmean,
+// rmean of kWideRows messages, each kWideRows x H in core-matrix order):
+// their variables' vmean rows and their checks' rmean rows; rows past the
+// last message are zeros.  One commit group.
+__device__ __forceinline__ void load_means_wide(const Block& b, __nv_bfloat16* A, int tile,
+                                                int rows0, int lane) {
+  constexpr int H = kWideH, MAT = kWideRows * kWideH;
+  const int u = lane & 15;
+#pragma unroll
+  for (int pass = 0; pass < 8; ++pass) {
+    const int r = rows0 + (lane >> 4) + 2 * pass;
+    const int i = tile * kWideRows + r;
+    const bool valid = i < b.E;
+    const int k = valid ? i / b.Z : 0;
+    const int z = valid ? i - k * b.Z : 0;
+    int zc = z - b.g.shift[k];
+    zc = zc < 0 ? zc + b.Z : zc;
+    const int dst = cm(r, u * 8, H);
+    cp_async16(A + MAT + dst,
+               b.vmean + static_cast<size_t>(b.g.col[k] * b.Z + z) * H + u * 8, valid);
+    cp_async16(A + 2 * MAT + dst,
+               b.rmean + static_cast<size_t>(b.g.row[k] * b.Z + zc) * H + u * 8, valid);
+  }
   cp_async_commit();
 }
 
-// Chunk c (hidden units u0 = c kWideChunk ..) of one staged tile (rows i0 =
-// g, i1 = g + 8 of this thread, edges k0, k1) of layer t, weights wc: pv
-// and pc of the chunk's units over [f | mean | lf], plus b1, relu, bf16, and
-// then acc += [h1v | h1c] of those units . their columns of [W2v W2c]; B9's
-// last layer instead s += their terms of w2last . [h1v; h1c].  pv and pc are
-// never whole in registers.
-template <bool INJ, int V>
-__device__ __forceinline__ void chunk_tile(const Args& a, const Block& b,
-                                           const __nv_bfloat16* buf, const __nv_bfloat16* wc,
-                                           int c, int t, int k0, int k1,
-                                           const uint32_t (&lf)[kWideH / 16][4],
-                                           float (&acc)[kWideH / 8][4], float (&s)[4], int lane) {
-  constexpr int H = kWideH, CH = kWideChunk;
-  constexpr int WS1 = (INJ ? 3 : 2) * H + 8, WS2 = 2 * CH + 8;
-  using S = Shape<H, INJ, V>;
-  const int tig = lane & 3, u0 = c * CH;
-  const __nv_bfloat16* W1v = wc;
-  const __nv_bfloat16* W1c = wc + CH * WS1;
-  const __nv_bfloat16* W2 = wc + 2 * CH * WS1;
-
-  // The first layer: f feeds both products, each mean and lf its own.
-  float pv[CH / 8][4], pc[CH / 8][4];
-  zero<CH>(pv);
-  zero<CH>(pc);
+// The same for the rows' features, into A's first matrix.
+__device__ __forceinline__ void load_feats_wide(const Block& b, __nv_bfloat16* A, int tile,
+                                                int rows0, int lane) {
+  constexpr int H = kWideH;
+  const int u = lane & 15;
 #pragma unroll
-  for (int kt = 0; kt < S::KT; ++kt) {
-    uint32_t x[4];
-    load_a<H>(x, buf, kt, lane);
-    mma_ktile<CH>(pv, x, W1v, WS1, kt * 16, lane);
-    mma_ktile<CH>(pc, x, W1c, WS1, kt * 16, lane);
+  for (int pass = 0; pass < 8; ++pass) {
+    const int r = rows0 + (lane >> 4) + 2 * pass;
+    const int i = tile * kWideRows + r;
+    cp_async16(A + cm(r, u * 8, H), b.feats + static_cast<size_t>(i < b.E ? i : 0) * H + u * 8,
+               i < b.E);
   }
-#pragma unroll
-  for (int kt = 0; kt < S::KT; ++kt) {
-    uint32_t x[4];
-    load_a<H>(x, buf + S::SEG, kt, lane);
-    mma_ktile<CH>(pv, x, W1v, WS1, H + kt * 16, lane);
-  }
-#pragma unroll
-  for (int kt = 0; kt < S::KT; ++kt) {
-    uint32_t x[4];
-    load_a<H>(x, buf + 2 * S::SEG, kt, lane);
-    mma_ktile<CH>(pc, x, W1c, WS1, H + kt * 16, lane);
-  }
-  if constexpr (INJ) {
-#pragma unroll
-    for (int kt = 0; kt < S::KT; ++kt) {
-      mma_ktile<CH>(pv, lf[kt], W1v, WS1, 2 * H + kt * 16, lane);
-      mma_ktile<CH>(pc, lf[kt], W1c, WS1, 2 * H + kt * 16, lane);
-    }
-  }
-
-  // b1v (side 0) or b1c (side 1) of units u0 + j, u0 + j + 1 of row g + 8
-  // rr: B9's per layer, staged; B7's per edge, from L2.
-  const float* b1 = a.tab + static_cast<size_t>(t) * 2 * b.K * H + u0;
-  auto bias = [&](int side, int rr, int j) -> float2 {
-    if constexpr (V == 9)
-      return *reinterpret_cast<const float2*>(b.small + side * H + u0 + j);
-    else
-      return __ldg(reinterpret_cast<const float2*>(
-          b1 + static_cast<size_t>(side * b.K + (rr ? k1 : k0)) * H + j));
-  };
-  uint32_t h1v[CH / 16][4], h1c[CH / 16][4];
-  relu_pack<CH>(pv, [&](int rr, int j) { return bias(0, rr, j); }, tig, h1v);
-  relu_pack<CH>(pc, [&](int rr, int j) { return bias(1, rr, j); }, tig, h1c);
-  if constexpr (V == 9) {
-    if (t == a.T - 1) {
-      thin_product<CH>(s, h1v, a.extra + u0, lane);
-      thin_product<CH>(s, h1c, a.extra + H + u0, lane);
-      return;
-    }
-  }
-#pragma unroll
-  for (int kt = 0; kt < CH / 16; ++kt) mma_ktile<H>(acc, h1v[kt], W2, WS2, kt * 16, lane);
-#pragma unroll
-  for (int kt = 0; kt < CH / 16; ++kt) mma_ktile<H>(acc, h1c[kt], W2, WS2, CH + kt * 16, lane);
+  cp_async_commit();
 }
 
-// Layer t of one frame at H = kWideH, message-major: phase 1 (means; the
-// layer's first weight chunk stages meanwhile), then phase 2 in rounds: in
-// round r warp w takes tile r * warps + w, and the whole block walks the
-// layer's weight chunks in lockstep, one barrier a chunk, the next chunk in
-// flight while this one computes.  A warp without a tile in the last round
-// still arrives at every barrier.  Starts and ends with a barrier.
+// Phase 1 at H = kWideH: the bf16 means of kWideMeans (row, 16-byte chunk)
+// items a thread at once (rows as in mean_chunk: variable row < n, else
+// check row - n), their members' loads interleaved two members deep, so that
+// eight loads are in flight where mean_chunk has four; each item's sum is
+// mean_chunk's, in member order.  Four beat two (B7 309 against 322 ms at
+// msg_gnn_main's shape at h = 128) and six (registers spill with injection).
+constexpr int kWideMeans = 4;
+__device__ __forceinline__ void means_wide(const Block& b, int tid, int nthreads) {
+  constexpr int H = kWideH, CPR = H / 8, NB = kWideMeans;
+  const int Z = b.Z, items = (b.n + b.M) * CPR;
+  const Graph& g = b.g;
+  for (int c0 = tid; c0 < items; c0 += NB * nthreads) {
+    const int* list[NB];
+    int j0[NB], deg[NB], zz[NB], u[NB], dmax = 0;
+    bool check[NB];
+    float x[NB][8];
+    __nv_bfloat16* dst[NB];
+    float inv[NB];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int c = c0 + i * nthreads;
+      const int row = c < items ? c / CPR : 0;
+      u[i] = c - row * CPR;
+      check[i] = row >= b.n;
+      if (!check[i]) {
+        const int cc = row / Z;
+        zz[i] = row - cc * Z;
+        list[i] = g.col_edge;
+        j0[i] = g.col_ptr[cc];
+        deg[i] = g.col_ptr[cc + 1] - j0[i];
+        inv[i] = b.inv_dc[cc];
+        dst[i] = b.vmean + static_cast<size_t>(row) * H + u[i] * 8;
+      } else {
+        const int rz = row - b.n, r = rz / Z;
+        zz[i] = rz - r * Z;
+        list[i] = g.row_edge;
+        j0[i] = g.row_ptr[r];
+        deg[i] = g.row_ptr[r + 1] - j0[i];
+        inv[i] = b.inv_dr[r];
+        dst[i] = b.rmean + static_cast<size_t>(rz) * H + u[i] * 8;
+      }
+      if (c >= items) deg[i] = 0;
+      dmax = max(dmax, deg[i]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[i][e] = 0.0f;
+    }
+    auto load = [&](int i, int m) {
+      const int k = list[i][j0[i] + m];
+      int v = zz[i];
+      if (check[i]) {
+        v += g.shift[k];
+        v = v >= Z ? v - Z : v;
+      }
+      return *reinterpret_cast<const uint4*>(b.feats + static_cast<size_t>(k * Z + v) * H +
+                                             u[i] * 8);
+    };
+    for (int m = 0; m < dmax; m += 2) {
+      uint4 v0[NB], v1[NB];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        if (m < deg[i]) v0[i] = load(i, m);
+        if (m + 1 < deg[i]) v1[i] = load(i, m + 1);
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        if (m < deg[i]) add8(x[i], v0[i]);
+        if (m + 1 < deg[i]) add8(x[i], v1[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      if (c0 + i * nthreads >= items) continue;
+      uint4 out;
+      uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[e] = pack_bf16(__fmul_rn(x[i][2 * e], inv[i]), __fmul_rn(x[i][2 * e + 1], inv[i]));
+      *reinterpret_cast<uint4*>(dst[i]) = out;
+    }
+  }
+}
+
+// The epilogue of a warpgroup tile at H = kWideH, this warp's rows first ..
+// first + 15 (B7 and B9 as write_tile): acc plus b2 (B9: and the delta),
+// plus the residual read from the scratch, written back there, each thread
+// its own pairs of features.  The tile buffer already holds the next tile.
 template <bool INJ, int V>
-__device__ void layer_wide(const Args& a, const Block& b, int t) {
+__device__ __forceinline__ void write_rows_wide(const Args& a, const Block& b,
+                                                const float (&acc)[kWideH / 8][4], int first,
+                                                int t, int k0, int k1, int lane) {
+  constexpr int H = kWideH;
+  const int g = lane >> 2, tig = lane & 3;
+  const bool residual = t >= 1;
+  const float* b2 = b.small + (V == 7 ? 0 : 2 * H);
+  const float* dte = a.tab + static_cast<size_t>(t + 1) * b.K * H;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int i = first + g + 8 * rr;
+    if (i >= b.E) continue;
+    __nv_bfloat162* row = reinterpret_cast<__nv_bfloat162*>(b.feats + static_cast<size_t>(i) * H);
+    __nv_bfloat162 old[H / 8];
+    if (residual) {
+#pragma unroll
+      for (int nt = 0; nt < H / 8; ++nt) old[nt] = row[nt * 4 + tig];
+    }
+#pragma unroll
+    for (int nt = 0; nt < H / 8; ++nt) {
+      const int j = nt * 8 + 2 * tig;
+      float o0 = bf16r(__fadd_rn(acc[nt][2 * rr], b2[j]));
+      float o1 = bf16r(__fadd_rn(acc[nt][2 * rr + 1], b2[j + 1]));
+      if constexpr (V == 9) {
+        const float2 d = __ldg(reinterpret_cast<const float2*>(
+            dte + static_cast<size_t>(rr ? k1 : k0) * H + j));
+        o0 = __fadd_rn(o0, bf16r(d.x));
+        o1 = __fadd_rn(o1, bf16r(d.y));
+        if (residual) {
+          o0 = bf16r(o0);
+          o1 = bf16r(o1);
+        }
+      }
+      if (residual) {
+        const float2 f = __bfloat1622float2(old[nt]);
+        o0 = __fadd_rn(o0, f.x);
+        o1 = __fadd_rn(o1, f.y);
+      }
+      row[nt * 4 + tig] = __floats2bfloat162_rn(o0, o1);
+    }
+  }
+}
+
+// The products of chunk wc's first layer over the warpgroup's tile A,
+// issued and committed (not waited for), in accumulators of their own so
+// that the tensor cores overlap them: pf = f . [W1vf; W1cf]^T + lf . [W1vl;
+// W1cl]^T (N = 32: the units' pv columns, then their pc columns; lf with
+// injection), pm = vmean . W1va^T and pr = rmean . W1ca^T (N = 16 each), A
+// and B from shared memory.  first_sums adds them.
+template <bool INJ>
+__device__ __forceinline__ void first_products(float (&pf)[4][4], float (&pm)[2][4],
+                                               float (&pr)[2][4], const __nv_bfloat16* A,
+                                               const __nv_bfloat16* wc) {
+  constexpr int H = kWideH, CH = kWideChunk, MAT = kWideRows * kWideH;
+  const __nv_bfloat16* Bf = wc;                 // [W1vf; W1cf], 2 CH x H
+  const __nv_bfloat16* Bva = wc + 2 * CH * H;   // W1va, CH x H
+  const __nv_bfloat16* Bca = Bva + CH * H;      // W1ca
+  const __nv_bfloat16* Bl = Bca + CH * H;       // [W1vl; W1cl] (INJ)
+  zero<2 * CH>(pf);
+  zero<CH>(pm);
+  zero<CH>(pr);
+  wg_keep(pf);
+  wg_keep(pm);
+  wg_keep(pr);
+  wg_fence();
+#pragma unroll
+  for (int kt = 0; kt < H / 16; ++kt) {
+    wgmma_n32(pf, wg_desc(A, H, kt), wg_desc(Bf, H, kt));
+    wgmma_n16(pm, wg_desc(A + MAT, H, kt), wg_desc(Bva, H, kt));
+    wgmma_n16(pr, wg_desc(A + 2 * MAT, H, kt), wg_desc(Bca, H, kt));
+    if constexpr (INJ) wgmma_n32(pf, wg_desc(A + 3 * MAT, H, kt), wg_desc(Bl, H, kt));
+  }
+  wg_commit();
+}
+
+// The first layer's outputs of first_products, bias b1 added in the plain
+// version's order but for lf, whose product is inside pf: B7 (pf + mean) +
+// b1 for both sides; B9 pv pf + (vmean + b1v), pc pf + (rmean + b1c).
+// bias(rr, j): b1 of output j, j + 1 of row g + 8 rr (j < 16: pv's units,
+// then pc's).  p as the C fragments of a 64 x 32 tile.
+template <int V, typename Bias>
+__device__ __forceinline__ void first_sums(float (&p)[4][4], const float (&pf)[4][4],
+                                           const float (&pm)[2][4], const float (&pr)[2][4],
+                                           Bias&& bias, int tig) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 bb = bias(i >> 1, nt * 8 + 2 * tig);
+      const float b = (i & 1) ? bb.y : bb.x;
+      const float m = nt >= 2 ? pr[nt - 2][i] : pm[nt][i];
+      p[nt][i] = V == 9 ? __fadd_rn(pf[nt][i], __fadd_rn(m, b))
+                        : __fadd_rn(__fadd_rn(pf[nt][i], m), b);
+    }
+  }
+}
+
+// Layer t of one frame at H = kWideH, message-major.
+//   Phase 1: the means (means_wide); the ring's first chunks of the layer
+//   load meanwhile.
+//   Phase 2, in rounds: in round r warpgroup w takes tile r * kWideGroups +
+//   w, kWideRows messages (each warp gathers its 16 rows; with injection it
+//   also writes their lf rows), and walks the layer's chunks: it waits for
+//   chunk c's full barrier, issues the chunk's first layer
+//   (first_products; B7 loads its per-edge b1 from L2 meanwhile), waits for
+//   it, adds the products and b1 (first_sums), packs relu into the A
+//   registers of h1 = [h1v | h1c], issues acc += h1 . [W2v W2c]^T (two
+//   m64n128k16 from registers) and waits for it, then releases the buffer;
+//   or B9's last layer: s += thin products of h1.  After the last chunk's
+//   first layer the warpgroup starts the next tile's rows.  No block barrier
+//   a chunk: each warpgroup counts its release of a buffer, and the last
+//   one to release it refills it with the chunk kWideStages on (one bulk
+//   copy on its full barrier).  A warpgroup without a tile still waits and
+//   releases.
+// Every thread counts the ring's chunks in seq (the same in all), so the
+// barriers' phase parities follow from it.  Starts and ends with a barrier.
+template <bool INJ, int V>
+__device__ void layer_wide(const Args& a, const Block& b, int t, uint64_t* bars, uint32_t& seq) {
   constexpr int H = kWideH, NCH = kWideH / kWideChunk, CW = chunk_weights(INJ);
   using S = Shape<H, INJ, V>;
+  uint64_t* full = bars;
+  unsigned long long* released = reinterpret_cast<unsigned long long*>(bars + kWideStages);
   const int tid = threadIdx.x, nthreads = blockDim.x;
-
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);  // warp-uniform to the compiler too
+  const int ntiles = (b.E + kWideRows - 1) / kWideRows;
+  const int steps = (ntiles + kWideGroups - 1) / kWideGroups * NCH;
   const __nv_bfloat16* wl = a.w + static_cast<size_t>(t) * S::LW;
-  stage_chunk<INJ>(b.w, wl, tid, nthreads);
+
+  // Chunk step s of the layer (chunk s % NCH) into its ring buffer.
+  auto fill = [&](int s) {
+    const int st = (seq + s) % kWideStages;
+    bulk_load(b.w + st * CW, wl + static_cast<size_t>(s % NCH) * CW, 2 * CW, &full[st]);
+  };
+  // This warpgroup is done with step s's buffer (its products on it have
+  // retired in every warp); the last warpgroup to be refills it.
+  auto release = [&](int s) {
+    wg_sync(wg);
+    if ((tid & 127) == 0) {
+      const int st = (seq + s) % kWideStages;
+      if (atomicAdd(&released[st], 1ull) % kWideGroups == kWideGroups - 1 &&
+          s + kWideStages < steps) {
+        __threadfence_block();
+        fill(s + kWideStages);
+      }
+    }
+    __syncwarp();
+  };
+  if (tid == 0)  // every buffer is free: the last layer released them all
+    for (int s = 0; s < steps && s < kWideStages; ++s) fill(s);
   for (int j = tid; j < small_floats(H, V); j += nthreads)
     b.small[j] = a.small[static_cast<size_t>(t) * small_floats(H, V) + j];
 
-  // Phase 1: one 16-byte chunk of one variable's or check's mean a thread.
-  for (int c = tid; c < (b.n + b.M) * S::CPR; c += nthreads)
-    mean_chunk<H>(b, c / S::CPR, c % S::CPR);
-  cp_async_wait<0>();
-  __syncthreads();  // means, the first chunk and the biases visible to the whole block
+  means_wide(b, tid, nthreads);  // phase 1
+  __syncthreads();  // means and biases visible to the whole block
 
-  // Phase 2.
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int ntiles = (b.E + kTile - 1) / kTile;
-  const int steps = (ntiles + nwarps - 1) / nwarps * NCH;
-  __nv_bfloat16* buf = b.stage;  // the warp's one tile buffer
-  if (warp < ntiles) load_tile<H, INJ, V>(b, buf, warp, lane);
+  const int rows0 = 16 * (warp & 3), g = lane >> 2, tig = lane & 3;
+  __nv_bfloat16* A = b.stage;  // the warpgroup's tile buffer: f, vmean, rmean
+  // This warp's A fragments of f in core-matrix order (B9's proj8 . f).
+  const int arow = rows0 + (lane & 7) + ((lane >> 3) & 1) * 8, acol = (lane >> 4) * 8;
+  auto load_f = [&](uint32_t (&x)[4], int kt) { ldmatrix_x4(x, A + cm(arow, kt * 16 + acol, H)); };
+  const bool last = V == 9 && t == a.T - 1;
+  if (wg < ntiles) {
+    load_means_wide(b, A, wg, rows0, lane);
+    load_feats_wide(b, A, wg, rows0, lane);
+  }
   for (int r = 0; r * NCH < steps; ++r) {
-    const int tile = r * nwarps + warp, next = tile + nwarps;
-    const int i0 = tile * kTile + g, i1 = i0 + 8;
+    const int tile = r * kWideGroups + wg;
+    const bool has = tile < ntiles;
+    const int i0 = tile * kWideRows + rows0 + g, i1 = i0 + 8;
     const int k0 = i0 < b.E ? i0 / b.Z : b.K - 1;
     const int k1 = i1 < b.E ? i1 / b.Z : b.K - 1;
-    uint32_t lf[H / 16][4];
-    if constexpr (INJ) {
+    if constexpr (INJ) {  // lf of this thread's rows into the tile buffer's fourth matrix
       const float m0 = i0 < b.E ? b.llr[b.g.col[k0] * b.Z + (i0 - k0 * b.Z)] : 0.0f;
       const float m1 = i1 < b.E ? b.llr[b.g.col[k1] * b.Z + (i1 - k1 * b.Z)] : 0.0f;
-      llr_frags<H>(lf, b, m0, m1, tig);
+      __nv_bfloat16* L = A + 3 * kWideRows * H;
+#pragma unroll
+      for (int q = 2 * tig; q < H; q += 8) {
+        *reinterpret_cast<uint32_t*>(L + cm(rows0 + g, q, H)) = embed2(m0, b.emb_w, b.emb_b, q);
+        *reinterpret_cast<uint32_t*>(L + cm(rows0 + g + 8, q, H)) =
+            embed2(m1, b.emb_w, b.emb_b, q);
+      }
     }
     float acc[S::NT][4];
     float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     zero<H>(acc);
+    cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // rows, lf -> wgmma
+    wg_sync(wg);  // the tile's 64 rows, every warp's, in place
+
     for (int c = 0; c < NCH; ++c) {
       const int step = r * NCH + c;
-      cp_async_wait<0>();
-      __syncthreads();  // chunk c and this round's tile rows visible; every warp is
-                        // done with the other chunk buffer
-      if (step + 1 < steps)
-        stage_chunk<INJ>(b.w + ((step + 1) & 1) * CW,
-                         wl + static_cast<size_t>((c + 1) % NCH) * CW, tid, nthreads);
-      if (tile < ntiles)
-        chunk_tile<INJ, V>(a, b, buf, b.w + (step & 1) * CW, c, t, k0, k1, lf, acc, s, lane);
-    }
-    if (tile < ntiles) {
-      if (V == 9 && t == a.T - 1) {
-        store_last<H>(b, buf, s, i0, i1, t >= 1, lane);
+      const uint32_t q = seq + step;
+      const int st = q % kWideStages;
+      mbar_wait(&full[st], (q / kWideStages) & 1);
+      if (!has) {
+        release(step);
+        continue;
+      }
+      const __nv_bfloat16* wc = b.w + st * CW;
+      float pf[4][4], pm[2][4], pr[2][4];
+      first_products<INJ>(pf, pm, pr, A, wc);
+      // B9's last layer: s = proj8 . f first, while the buffer holds f.
+      if (last && c == 0 && t >= 1) {
+#pragma unroll
+        for (int kt = 0; kt < H / 16; ++kt) {
+          uint32_t x[1][4];
+          load_f(x[0], kt);
+          thin_product<16>(s, x, b.proj_w + kt * 16, lane);
+        }
+      }
+      // b1v (nt < 2) or b1c of units u0 + nt % 2 * 8 + 2 tig, + 1, rows g
+      // and g + 8: B7's per edge, from L2, loaded while the products run;
+      // B9's per layer, staged.
+      const int u0 = c * kWideChunk;
+      auto bias = [&](int nt, int rr) -> float2 {
+        const int side = nt >> 1, u = u0 + (nt & 1) * 8 + 2 * tig;
+        if constexpr (V == 9)
+          return *reinterpret_cast<const float2*>(b.small + side * H + u);
+        else
+          return __ldg(reinterpret_cast<const float2*>(
+              a.tab + (static_cast<size_t>(t) * 2 * b.K + side * b.K + (rr ? k1 : k0)) * H + u));
+      };
+      float2 b1[4][2];
+      if constexpr (V != 9) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) b1[nt][0] = bias(nt, 0), b1[nt][1] = bias(nt, 1);
+      }
+      wg_wait();
+      wg_keep(pf);
+      wg_keep(pm);
+      wg_keep(pr);
+      if (c == NCH - 1 && tile + kWideGroups < ntiles) {
+        wg_sync(wg);  // every warp's products have read the tile: the next one's load
+        load_means_wide(b, A, tile + kWideGroups, rows0, lane);
+        load_feats_wide(b, A, tile + kWideGroups, rows0, lane);
+      }
+      float p[4][4];
+      first_sums<V>(p, pf, pm, pr, [&](int rr, int j) {
+        return V == 9 ? bias(j >> 3, rr) : b1[j >> 3][rr];
+      }, tig);
+      uint32_t h1[2][4];  // k-tile 0: h1v of the chunk's units, 1: h1c
+      relu_pack<2 * kWideChunk>(p, [](int, int) { return make_float2(0.0f, 0.0f); }, tig, h1);
+      if (last) {
+        release(step);
+        thin_product<kWideChunk>(s, *reinterpret_cast<const uint32_t(*)[1][4]>(h1[0]),
+                                 a.extra + u0, lane);
+        thin_product<kWideChunk>(s, *reinterpret_cast<const uint32_t(*)[1][4]>(h1[1]),
+                                 a.extra + H + u0, lane);
       } else {
-        const uint32_t ov[S::NT][2] = {};  // B6's out_v: never read by B7 or B9
-        write_tile<H, INJ, V>(a, b, buf, acc, ov, tile, t, k0, k1, lane);
+        const __nv_bfloat16* W2 = wc + (INJ ? 6 : 4) * kWideChunk * H;  // H x 2 CH
+        wg_keep(acc);
+        wg_fence();
+        wgmma_n128_rs(acc, h1[0], wg_desc(W2, 2 * kWideChunk, 0));
+        wgmma_n128_rs(acc, h1[1], wg_desc(W2, 2 * kWideChunk, 1));
+        wg_commit();
+        wg_wait();
+        wg_keep(acc);
+        release(step);
       }
     }
-    __syncwarp();  // the tile is read out before its buffer is loaded again
-    if (next < ntiles) load_tile<H, INJ, V>(b, buf, next, lane);
+    if (has) {
+      if (last)
+        store_last<H>(b, A, s, i0, i1, false, lane);
+      else
+        write_rows_wide<INJ, V>(a, b, acc, tile * kWideRows + rows0, t, k0, k1, lane);
+    }
   }
+  seq += steps;
   __syncthreads();
 }
 
@@ -1370,7 +1761,7 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
   b.w = reinterpret_cast<__nv_bfloat16*>(smem + L.w);
   b.dte = reinterpret_cast<__nv_bfloat16*>(smem + L.dte);
   b.stage = reinterpret_cast<__nv_bfloat16*>(smem + L.stage) +
-            (tid >> 5) * (H == kWideH ? 1 : 2) * S::BUF;
+            (H == kWideH ? (tid >> 7) * wide_mats(INJ) * kWideRows * H : (tid >> 5) * 2 * S::BUF);
   b.feats = a.scratch + static_cast<size_t>(blockIdx.x) * scratch_elems(V, H, Z, R, C, K);
   b.vmean = b.feats + static_cast<size_t>(K) * Z * H;
   b.rmean = b.vmean + static_cast<size_t>(n) * H;
@@ -1383,6 +1774,20 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
   b.n = n;
   b.M = R * Z;
   const Graph& g = b.g;
+  // H = kWideH: the chunk ring's full barriers (one arrival and the bytes
+  // of a fill), its release counts (one a warpgroup and chunk), and the
+  // count of chunks it has carried.
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar);
+  uint32_t seq = 0;
+  if constexpr (H == kWideH) {
+    if (tid == 0) {
+      for (int st = 0; st < kWideStages; ++st) {
+        mbar_init(&bars[st], 1);
+        bars[kWideStages + st] = 0;
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  }
   __syncthreads();
   b.proj_b = s_emb[3 * H];
 
@@ -1423,7 +1828,7 @@ __device__ __forceinline__ void decode_frames(const Args& a) {
       if constexpr (check_major(V))
         layer_v3<H, INJ>(a, b, t, &s_queue);
       else if constexpr (H == kWideH)
-        layer_wide<INJ, V>(a, b, t);
+        layer_wide<INJ, V>(a, b, t, bars, seq);
       else
         layer<H, INJ, V>(a, b, t);
     }
@@ -1488,10 +1893,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_v4_tc_kernel(const 
   decode_frames<H, INJ, 9>(a);
 }
 
-// B7 and B9 at H = kWideH: message-major tiles, the layer's weights streamed
-// through shared memory in chunks of kWideChunk hidden units.
+// B7 and B9 at H = kWideH: warpgroup tiles on wgmma, the layer's weights
+// streamed through a ring of chunks of kWideChunk hidden units.
 template <bool INJ, int V>
-__global__ void __launch_bounds__(kMaxWarps * 32, 1) msg_gnn_wide_tc_kernel(const Args a) {
+__global__ void __launch_bounds__(kWideWarps * 32, 1) msg_gnn_wide_tc_kernel(const Args a) {
   decode_frames<kWideH, INJ, V>(a);
 }
 
@@ -1528,8 +1933,8 @@ KernelFn pick_kernel(int V, int H, int inject) {
 
 // The block shape: for each warp count 1..kMaxWarps the runtime's occupancy
 // query; *warps, *blocks of the count with the most resident warps per SM
-// (ties: the fewer warps a block).  Returns a cudaError_t; 0 blocks where not
-// even one warp's block fits.
+// (ties: the fewer warps a block).  H = kWideH has the one shape kWideWarps.
+// Returns a cudaError_t; 0 blocks where not even one warp's block fits.
 int plan_blocks(int V, int H, int inject, int Z, int R, int C, int K, int* warps, int* blocks) {
   *warps = 0;
   *blocks = 0;
@@ -1540,7 +1945,7 @@ int plan_blocks(int V, int H, int inject, int Z, int R, int C, int K, int* warps
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  for (int w = 1; w <= kMaxWarps; ++w) {
+  for (int w = H == kWideH ? kWideWarps : 1; w <= (H == kWideH ? kWideWarps : kMaxWarps); ++w) {
     const long long smem = make_layout(H, inject, Z, R, C, K, w, V).total;
     if (smem > optin) break;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1563,7 +1968,8 @@ int launch(int V, int H, const void* llr, void* soft, void* counter, void* scrat
            const void* emb, const void* extra, int B, int Z, int R, int C, int K, int T,
            int inject, int grid, int warps, void* stream) {
   const KernelFn kernel = pick_kernel(V, H, inject);
-  if (kernel == nullptr || grid < 1 || B < 1 || T < 1 || warps < 1 || warps > kMaxWarps)
+  if (kernel == nullptr || grid < 1 || B < 1 || T < 1 || warps < 1 || warps > kMaxWarps ||
+      (H == kWideH && warps != kWideWarps))
     return cudaErrorInvalidValue;
   const long long smem = make_layout(H, inject, Z, R, C, K, warps, V).total;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -36,9 +36,10 @@ in shared memory, the correction's products as bf16 tiles):
 
 Each kernel is built for the hidden widths in ``KERNEL_HIDDEN_DIMS``:
 ``msg_gnn_v2`` and ``msg_gnn_v4`` also at ``WIDE_HIDDEN`` = 128
-(``msg_gnn_wide_tc_kernel``), where a layer's weights exceed a block's
-shared memory and stream through it in chunks of ``WIDE_CHUNK`` hidden
-units (:func:`pack_tc_weights`).
+(``msg_gnn_wide_tc_kernel``, on ``wgmma``), where a layer's weights exceed a
+block's shared memory and stream through a ring of ``WIDE_STAGES`` buffers
+in chunks of ``WIDE_CHUNK`` hidden units (:func:`pack_tc_weights`), read by
+``WIDE_GROUPS`` warpgroups, each on a tile of ``WIDE_ROWS`` messages.
 
 ``params`` is the module or its ``state_dict``.  Input (B, n) float32 LLRs;
 output (B, n) float32 soft bits (probabilities of bit 1) and, for the
@@ -81,12 +82,16 @@ LAUNCHES: dict[str, int] = {"corrected_v2": 0, "corrected": 0, "msg_gnn": 0, "ms
 
 # The hidden widths each kernel is built for (csrc/fused_gnn_tc.cu,
 # fused_msg_gnn_tc.cu): msg_gnn_v2 and msg_gnn_v4 also at WIDE_HIDDEN, their
-# weights streamed through shared memory in chunks of WIDE_CHUNK units.
+# weights streamed through a ring of shared memory in chunks of WIDE_CHUNK units.
 KERNEL_HIDDEN_DIMS = {"corrected_v2": (16, 64), "corrected": (16, 64), "msg_gnn": (16, 64),
                       "msg_gnn_v2": (16, 64, 128), "msg_gnn_v3": (16, 64),
                       "msg_gnn_v4": (16, 64, 128)}
 WIDE_HIDDEN = 128  # kWideH in csrc/fused_msg_gnn_tc.cu
-WIDE_CHUNK = 16  # kWideChunk: hidden units a staged weight chunk (one tile buffer a warp)
+WIDE_CHUNK = 16  # kWideChunk: hidden units a streamed weight chunk
+WIDE_ROWS = 64  # kWideRows: messages a warpgroup tile (wgmma's M)
+WIDE_GROUPS = 2  # kWideGroups: warpgroups a block
+WIDE_STAGES = 2  # kWideStages: chunk buffers in the ring
+WIDE_WARPS = 4 * WIDE_GROUPS  # kWideWarps: the block
 _PLAIN_CHUNK_BYTES = 64 * 2**20  # one (frames, K, Z, h) float32 tensor of the plain version
 
 
@@ -882,8 +887,8 @@ def tc_weight_blocks(h: int, inject: bool, kind: str = "msg_gnn_v2") -> tuple:
     ``msg_gnn_v4``): W1v = [W1vf W1va (W1vl)], W1c = [W1cf W1ca (W1cl)], W2
     = [W2v W2c].  ``msg_gnn_v3``: W1v = [W1vf W1va (W1vl)], W1c = [W1cf
     (W1cl)], W1ca, W2 = [W2v W2c].  At h = ``WIDE_HIDDEN`` the message-major
-    kernels stream the same three blocks cut into chunks of hidden units
-    (:func:`pack_tc_weights`)."""
+    kernels stream the same weights cut into chunks of hidden units
+    (:func:`tc_chunk_matrices`)."""
     ws1, ws2 = tc_row_widths(h, inject)
     w2 = ((6, 7), ws2)
     if kind != _CHECK_MAJOR:  # _MsgTables.w order: va, ca, vl, cl, vf, cf, W2v, W2c
@@ -893,20 +898,30 @@ def tc_weight_blocks(h: int, inject: bool, kind: str = "msg_gnn_v2") -> tuple:
             ((5, 3) if inject else (5,), (2 if inject else 1) * h + 8), ((1,), h + 8), w2)
 
 
-def tc_chunk_widths(h: int, inject: bool) -> tuple[int, int]:
-    """Padded row lengths (bf16) of a streamed weight chunk at h =
-    ``WIDE_HIDDEN``: the W1v and W1c rows of its ``WIDE_CHUNK`` hidden units
-    (2h or 3h inputs, plus 8), and the h rows of [W2v W2c] cut to those
-    units' columns (2 ``WIDE_CHUNK``, plus 8)."""
-    return (3 if inject else 2) * h + 8, 2 * WIDE_CHUNK + 8
+def tc_chunk_matrices(h: int, inject: bool) -> tuple:
+    """The matrices of one streamed weight chunk at h = ``WIDE_HIDDEN``, in
+    order, as (name, rows, columns), for the ``WIDE_CHUNK`` hidden units u of
+    the chunk: [W1vf; W1cf] (their first-layer rows' f columns, W1v's units
+    then W1c's), W1va, W1ca, with injection [W1vl; W1cl], then [W2v W2c]
+    cut to the units' columns (h rows: W2v[:, u] then W2c[:, u])."""
+    ch = WIDE_CHUNK
+    lf = (("W1l", 2 * ch, h),) if inject else ()
+    return (("W1f", 2 * ch, h), ("W1va", ch, h), ("W1ca", ch, h)) + lf + (("W2", h, 2 * ch),)
 
 
 def tc_chunk_elems(h: int, inject: bool) -> int:
     """bf16 elements of one streamed weight chunk (chunk_weights in
-    csrc/fused_msg_gnn_tc.cu): ``WIDE_CHUNK`` rows each of W1v and W1c, h
-    rows of the W2 block."""
-    ws1, ws2 = tc_chunk_widths(h, inject)
-    return 2 * WIDE_CHUNK * ws1 + h * ws2
+    csrc/fused_msg_gnn_tc.cu): its matrices, unpadded."""
+    return sum(rows * cols for _, rows, cols in tc_chunk_matrices(h, inject))
+
+
+def core_matrix_order(m: torch.Tensor) -> torch.Tensor:
+    """(..., n, K) -> (..., n K): the rows in 8 x 8 blocks of 128 contiguous
+    bytes, the blocks of an 8-row group along K, then the next group (cm in
+    csrc/fused_msg_gnn_tc.cu, the layout ``wgmma`` reads with no swizzle)."""
+    *lead, n, k = m.shape
+    blocks = m.reshape(*lead, n // 8, 8, k // 8, 8).transpose(-3, -2)
+    return blocks.reshape(*lead, n * k)
 
 
 def pack_tc_weights(w: torch.Tensor, inject: bool, kind: str = "msg_gnn_v2") -> torch.Tensor:
@@ -915,9 +930,8 @@ def pack_tc_weights(w: torch.Tensor, inject: bool, kind: str = "msg_gnn_v2") -> 
     it stages it in shared memory: the matrices of :func:`tc_weight_blocks`,
     each h rows (out) of its inputs then zeros.  At h = ``WIDE_HIDDEN`` (a
     message-major kernel) the layer is h / ``WIDE_CHUNK`` chunks of
-    :func:`tc_chunk_elems`, each the W1v rows, then the W1c rows, of its
-    units, then the h rows of [W2v W2c] cut to its units' columns
-    (:func:`tc_chunk_widths`)."""
+    :func:`tc_chunk_elems`, each its matrices (:func:`tc_chunk_matrices`)
+    one after another, each in :func:`core_matrix_order`."""
     T, _, h, _ = w.shape
     blocks = tc_weight_blocks(h, inject, kind)
     mats = [torch.cat([w[:, i] for i in idx], dim=2) for idx, _ in blocks]  # (T, h, inputs)
@@ -927,16 +941,17 @@ def pack_tc_weights(w: torch.Tensor, inject: bool, kind: str = "msg_gnn_v2") -> 
     else:
         if kind == _CHECK_MAJOR:
             raise ValueError(f"{kind} has no streamed layout at h={h}")
-        w1v, w1c, w2 = mats
-        ws1, ws2 = tc_chunk_widths(h, inject)
-        chunk = WIDE_CHUNK
+        w1v, w1c, w2 = mats  # [f | mean | lf] columns; W2 [W2v W2c]
         parts = []
-        for u in range(0, h, chunk):
-            units = slice(u, u + chunk)
-            parts += [pad(w1v[:, units], (0, ws1 - w1v.shape[2])),
-                      pad(w1c[:, units], (0, ws1 - w1c.shape[2])),
-                      pad(torch.cat([w2[:, :, units], w2[:, :, h + u:h + u + chunk]], dim=2),
-                          (0, ws2 - 2 * chunk))]
+        for u in range(0, h, WIDE_CHUNK):
+            v, c = w1v[:, u:u + WIDE_CHUNK], w1c[:, u:u + WIDE_CHUNK]
+            chunk = {"W1f": torch.cat([v[..., :h], c[..., :h]], dim=1),
+                     "W1va": v[..., h:2 * h], "W1ca": c[..., h:2 * h],
+                     "W1l": torch.cat([v[..., 2 * h:], c[..., 2 * h:]], dim=1),
+                     "W2": torch.cat([w2[..., u:u + WIDE_CHUNK],
+                                      w2[..., h + u:h + u + WIDE_CHUNK]], dim=2)}
+            parts += [core_matrix_order(chunk[name])
+                      for name, _, _ in tc_chunk_matrices(h, inject)]
     return torch.cat([x.reshape(T, -1) for x in parts], dim=1).to(torch.bfloat16).contiguous()
 
 
@@ -1001,23 +1016,25 @@ def msg_gnn_smem_bytes(qc: QCLayout, hidden_dim: int, kind: str = "msg_gnn",
     """Dynamic shared memory of one ``kind`` block of ``warps`` warps (mirrors
     make_layout in csrc/fused_msg_gnn_tc.cu): graph, inverse degrees, the
     frame's LLRs, embedding and projection, the layer's biases (one row of
-    ``_MsgTables.small``), its packed bf16 weights (:func:`tc_weight_blocks`;
-    at h = ``WIDE_HIDDEN`` two chunks of :func:`tc_chunk_elems`), v3's staged
-    deltas (K h bf16) and the stage buffers of a warp, two (at
-    ``WIDE_HIDDEN`` one) of 16 rows of h + 8 bf16 each of the
-    message-major kernels' features, vmean and rmean; of v3's features and
-    vmean."""
+    ``_MsgTables.small``), its packed bf16 weights (:func:`tc_weight_blocks`),
+    v3's staged deltas (K h bf16) and the two stage buffers of a warp, 16 rows
+    of h + 8 bf16 each of the message-major kernels' features, vmean and
+    rmean; of v3's features and vmean.  At h = ``WIDE_HIDDEN`` the weights
+    are the ring, ``WIDE_STAGES`` chunks of :func:`tc_chunk_elems`, then each
+    whole warpgroup of the block has one tile buffer (features, vmean, rmean
+    and with injection lf of ``WIDE_ROWS`` messages, h bf16 each), then the
+    ring's full barrier and release count (8 bytes each a stage)."""
     K, Z, C, R, h = qc.num_base_edges, qc.Z, qc.num_base_cols, qc.num_base_rows, hidden_dim
     v3 = kind == _CHECK_MAJOR
     small = h if kind == "msg_gnn_v2" else (2 if kind == "msg_gnn" else 3) * h
+    state = 4 * (_r4(6 * K + R + C + 2) + _r4(C + R) + _r4(C * Z) + _r4(3 * h + 1) + small)
     if h == WIDE_HIDDEN:
-        weights, bufs = 2 * tc_chunk_elems(h, input_injection), 1
-    else:
-        weights = h * sum(width for _, width in tc_weight_blocks(h, input_injection, kind))
-        bufs = 2
-    return (4 * (_r4(6 * K + R + C + 2) + _r4(C + R) + _r4(C * Z) + _r4(3 * h + 1) + small)
-            + 2 * weights + (2 * K * h if v3 else 0)
-            + warps * bufs * 2 * (2 if v3 else 3) * _TILE * (h + 8))
+        mats = 4 if input_injection else 3
+        return (state + 2 * WIDE_STAGES * tc_chunk_elems(h, input_injection)
+                + warps // 4 * mats * 2 * WIDE_ROWS * h + 2 * 8 * WIDE_STAGES)
+    weights = h * sum(width for _, width in tc_weight_blocks(h, input_injection, kind))
+    return (state + 2 * weights + (2 * K * h if v3 else 0)
+            + warps * 2 * 2 * (2 if v3 else 3) * _TILE * (h + 8))
 
 
 def msg_gnn_scratch_floats(qc: QCLayout, hidden_dim: int, kind: str = "msg_gnn") -> int:
@@ -1255,9 +1272,12 @@ class FusedMessageGNNDecoder(_ResidentGridDecoder):
 
 def _make_msg(kind: str, qc: QCLayout, params, num_iterations: int, hidden_dim: int,
               share_layers: bool, input_injection: bool, device) -> FusedMessageGNNDecoder:
+    wide = hidden_dim == WIDE_HIDDEN
     _check_build(kind, num_iterations, hidden_dim,
-                 msg_gnn_smem_bytes(qc, hidden_dim, kind, input_injection),
-                 "LLRs, one layer's weights and one warp's tile buffers", qc)
+                 msg_gnn_smem_bytes(qc, hidden_dim, kind, input_injection,
+                                    WIDE_WARPS if wide else 1),
+                 "LLRs, the weight chunk ring and the warpgroups' tile buffers" if wide
+                 else "LLRs, one layer's weights and one warp's tile buffers", qc)
     return FusedMessageGNNDecoder(kind, qc, params, num_iterations, hidden_dim, share_layers,
                                   input_injection, resolve_device(device))
 

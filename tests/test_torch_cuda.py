@@ -20,7 +20,9 @@ kernels (msg_gnn, msg_gnn_v2, msg_gnn_v3, msg_gnn_v4) at T=2: soft bits within
 3e-2, decisions equal where the plain version is confident; all four on the
 exact inputs of ops/msg_gnn_exact.py (msg_gnn_v3 and msg_gnn_v4 also with
 nonzero type embeddings, msg_gnn_v4 also at T=1): identical; msg_gnn_v2 and
-msg_gnn_v4 at h=128 (their weights streamed in chunks) to the same bars.  The aggregation
+msg_gnn_v4 at h=128 (warpgroup tiles on wgmma, their weights streamed through a
+ring of chunks) to the same bars, also over ten layers and several frames a
+block, their SASS on wgmma.  The aggregation
 probe: vpu identical to its plain version, mxu within one bf16 step (the
 tensor cores' float32 sums need not round as IEEE additions do).
 """
@@ -1151,6 +1153,59 @@ def test_msg_gnn_wide_exact_inputs_identical(kind, code, Z, h, batch, inject, sh
     torch.cuda.synchronize()
     assert fg.LAUNCHES[kind] == before + 1
     assert torch.equal(soft_k, soft_p)
+
+
+def test_msg_gnn_wide_block_and_wgmma():
+    """The h=128 kernels' block is fg.WIDE_WARPS warps (two warpgroups),
+    one block an SM, at both shapes the card runs them at; in their SASS the
+    products run on wgmma (HGMMA), msg_gnn_v2 with no mma.sync (HMMA),
+    msg_gnn_v4's mma.sync its thin last layer's alone."""
+    import subprocess
+    from pathlib import Path
+
+    from ldpc_tpu_torch.ops import _build
+
+    for name, Z in (("nr_2_0_4", 4), ("nr_2_0_32", 32)):
+        qc = tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+        for kind in WIDE_BUILDERS:
+            for inject in (False, True):
+                assert fg.msg_gnn_tc_plan(qc, 128, inject, kind) == (fg.WIDE_WARPS, 1)
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("fused_msg_gnn_tc"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    ops, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            ops[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    ops[name][op] += 1
+    for inject in (0, 1):
+        for V in (7, 9):
+            name = f"msg_gnn_wide_tc_kernelILb{inject}ELi{V}E"
+            (count,) = [c for k, c in ops.items() if name in k]
+            assert count["HGMMA"] > 0 and (count["HMMA"] > 0) == (V == 9)
+
+
+@pytest.mark.parametrize("kind", list(WIDE_BUILDERS))
+def test_msg_gnn_wide_ring_over_ten_layers(kind):
+    """T=10 at the ft-floor path's shape (nr_2_0_4 Z=4, injection) on 400
+    frames: every block decodes several frames, each layer walks the ring 56
+    steps, so a stage's barrier phases run on across layers and frames;
+    decisions equal to the plain version's on >= 99.9% of the bits (bf16
+    flips cascade over ten layers), one launch."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_4"), 4)
+    model = _msg_model(qc_msg.make_plan(qc), 10, 128, True, False)
+    dec = WIDE_BUILDERS[kind](qc, model, 10, 128, input_injection=True)
+    llr = _llr(qc.num_vars, 400, 1.0, seed=10)
+    before = fg.LAUNCHES[kind]
+    soft_k, soft_p = dec(llr), dec.plain(llr)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES[kind] == before + 1
+    assert bool(torch.isfinite(soft_k).all())
+    assert ((soft_k > 0.5) == (soft_p > 0.5)).float().mean().item() >= 0.999
 
 
 @pytest.mark.parametrize("kind", list(WIDE_BUILDERS))
