@@ -37,10 +37,13 @@ Phases, one JSON line each:
              Z=32 kernels and the four large-Z kernels at Z=384 and Z=256
              also at -2, 1 and 6 dB and on
              quantised LLRs with ties and exact zeros (-0.0 among them);
-             min-sum flooding and layered sum-product
-             on a code with a row of 31 members (the fused kernel's, and at
-             Z=8 fused_zlane's: wider than the retiring kernels take; their
-             launch counts), layered min-sum and both sum-product schedules
+             all four schedules on codes with a row of 31 and of 58 members
+             at Z=4 (the retiring kernels' 64-bit state word, the *_wide
+             routes; sum-product also identical to fused), min-sum flooding
+             and layered sum-product on a row of 59 members at Z=4 (the fused
+             kernel's) and on a row of 31 at Z=8 (fused_zlane's: wider than
+             the retiring kernels take; their launch counts), layered
+             min-sum and both sum-product schedules
              on one with a row of 20 (the layered kernels' run-time loops
              for rows wider than their unrolled bodies, retire_sumproduct's
              phi parked in the c2v slots); plus the
@@ -137,6 +140,20 @@ Phases, one JSON line each:
              SM (parts=2) against the plan's two groups of one part, median
              and every round; every parts count, bound, plan, occupancy,
              ptxas.
+5e. wide_rows — IEEE 802.3an's (2048, 1723) shape: a (6, 32) array of
+             Z=64 circulants, every cell, shift (r*c) mod 64 (rows of 32
+             members), batch 65536, 20 iterations, alpha 0.75; the SNR steps
+             from 4.0 dB by 0.5 dB to the first whose mean conv_iter (min-sum
+             flooding) lies in [2, 8], each step printed.  All four schedules
+             through make_fused_minsum (and MinSumScaledDecoder, both
+             schedules, BeliefPropagationDecoder, make_fused_bp) on
+             fused_retire_wide, retire_layered_wide, retire_sumproduct_wide
+             and retire_layered_sumproduct_wide, no other kernel; the whole
+             batch against the plain version (min-sum identical, sum-product
+             at its bars; whether identical printed) and identical to fused
+             through _launch_fused; five rounds of each beside fused, every
+             median below fused's; bounds, plans, ptxas of the 64-bit
+             instantiations, bit errors and mean conv_iter.
 6. gnn_compare — the corrected-GNN kernels (corrected_v2, corrected)
              against their plain versions on perturbed seeded parameters:
              {input injection on, off} x {fixed T, early exit with
@@ -268,7 +285,8 @@ Phases, one JSON line each:
              to the plain version, mxu within one bf16 step; microseconds per
              frame and iteration.
 18. kernels — per kernel: launches in its path's run (fused and fused_zlane:
-             the wide-row compare cases'), max abs error against
+             the wide-row compare cases'; the *_wide kernels: wide_rows'),
+             max abs error against
              the plain version, kernel / plain time, and the bound: the
              operations the batch's frames need (over their conv_iter
              iterations where they stop early), or its bytes, whichever
@@ -546,17 +564,25 @@ def split_probe(zdec, llr384: torch.Tensor, iterations: int) -> dict:
 
 
 def wide_row_code(members: int = 31, Z: int = 4):
-    """A (4, 32) base graph at ``Z`` whose first row has ``members`` members:
-    31 is more than fused_retire's state word holds signs of, 20 more than
-    the layered kernels' unrolled rows take.  Every column has a member."""
+    """A (4, max(32, members + 2)) base graph at ``Z`` whose first row has
+    ``members`` members: 20 is more than the layered kernels' unrolled rows
+    take, 31 and 58 more than the retiring kernels' 32-bit state word holds
+    signs of (their 64-bit word takes up to 58), 59 more than that.  Every
+    column has a member."""
     import numpy as np
     from ldpc_tpu_torch.codes import BaseGraph, qc_layout
 
+    cols = 32 if members < 32 else members + 2
     rng = np.random.default_rng(3)
-    shifts = np.where(rng.random((4, 32)) < 0.4, rng.integers(0, 4, (4, 32)), -1)
-    shifts[0] = np.concatenate([rng.integers(0, 4, members), np.full(32 - members, -1)])
+    shifts = np.where(rng.random((4, cols)) < 0.4, rng.integers(0, 4, (4, cols)), -1)
+    shifts[0] = np.concatenate([rng.integers(0, 4, members), np.full(cols - members, -1)])
     shifts[1, members:] = 1
     return qc_layout(BaseGraph("wide", shifts), Z)
+
+
+# The four B1 schedules, each with its 64-bit-word route (fm.WIDE_ROUTES).
+WIDE_SCHEDULES = (("minsum", "flooding"), ("minsum", "layered"), ("sumproduct", "flooding"),
+                  ("sumproduct", "layered"))
 
 
 def llrs(n: int, B: int, snr_db: float, seed: int) -> torch.Tensor:
@@ -618,13 +644,8 @@ def classical_phases(lib, smi: str) -> list[dict]:
         if kind_ == "fused":  # the wrappers' shared-memory plans are the kernels'
             fpb = bt or fm.pick_fused_batch_tile(qc)
             assert lib.ldpc_fused_smem_bytes(*dims, fpb) == fm.fused_smem_bytes(qc, fpb)
-            for parts, frames in fm.retire_plans(qc):
-                assert rlib.ldpc_retire_smem_bytes(*dims, parts, frames) == \
-                    fm.retire_smem_bytes(qc, parts, frames)
+            assert wide_smem_agree(qc, rlib)
             G = len(fm.row_groups(fm._structure(qc))) - 1
-            for _, frames in fm.retire_layered_plans(qc):
-                assert rlib.ldpc_retire_layered_smem_bytes(*dims, G, frames) == \
-                    fm.retire_layered_smem_bytes(qc, frames)
             for parts, frames, staged in fm.retire_sumproduct_plans(qc):
                 assert rlib.ldpc_retire_sumproduct_smem_bytes(*dims, parts, frames, staged) == \
                     fm.retire_sumproduct_smem_bytes(qc, parts, frames, staged)
@@ -676,22 +697,39 @@ def classical_phases(lib, smi: str) -> list[dict]:
                 max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
                 if dec.route in SUMPRODUCT_ROUTES:
                     same_as_replaced(dec, llr, label)
+    # Rows of 28 to 58 members (31 and 58 here, Z=4): every schedule on its
+    # kernel's 64-bit state word, each sum-product case also identical to
+    # fused through _launch_fused.
+    for members in (31, 58):
+        qcw = wide_row_code(members)
+        for snr in (1.0, 4.0, 6.0):
+            llr = llrs(qcw.num_vars, 37, snr, seed=members)
+            for (tr, ee), (mode, sched) in itertools.product(
+                    ((True, False), (False, False), (True, True)), WIDE_SCHEDULES):
+                dec = fm.make_fused_minsum(qcw, 20, 0.75, track_convergence=tr, early_exit=ee,
+                                           mode=mode, schedule=sched)
+                assert dec.route in fm.WIDE_ROUTES
+                label = f"{dec.route} wide rows ({members} members) Z=4 B=37 {snr} dB " \
+                        f"track={tr} early_exit={ee}"
+                max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
+                if mode == "sumproduct":
+                    same_as_replaced(dec, llr, label)
     # Codes whose rows are wider than the retiring kernels take run on the
-    # fused kernel (Z=4) and on fused_zlane (Z=8): min-sum flooding and
-    # layered sum-product.  These are the two kernels' own paths now, so
-    # their launches here are the kernels line's.
+    # fused kernel (59 members, Z=4) and on fused_zlane (31, Z=8): min-sum
+    # flooding and layered sum-product.  These are the two kernels' own
+    # paths now, so their launches here are the kernels line's.
     for key in fm.LAUNCHES:
         fm.LAUNCHES[key] = 0
-    for Z, build in ((4, fm.make_fused_minsum), (8, fm.make_fused_minsum_zlane)):
-        qcw = wide_row_code(Z=Z)
+    for members, Z, build in ((59, 4, fm.make_fused_minsum), (31, 8, fm.make_fused_minsum_zlane)):
+        qcw = wide_row_code(members, Z=Z)
         llr = llrs(qcw.num_vars, 37, 4.0, seed=5)
         for (tr, ee), mode in itertools.product(((True, False), (False, False), (True, True)),
                                                 ("minsum", "sumproduct")):
             dec = build(qcw, 20, 0.75, track_convergence=tr, early_exit=ee, mode=mode,
                         schedule="flooding" if mode == "minsum" else "layered")
             assert dec.route == dec.kind and not dec.retire
-            label = f"{dec.route} wide rows (31 members) Z={Z} B=37 {mode} {dec.schedule} " \
-                    f"track={tr} early_exit={ee}"
+            label = f"{dec.route} wide rows ({members} members) Z={Z} B=37 {mode} " \
+                    f"{dec.schedule} track={tr} early_exit={ee}"
             max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
     torch.cuda.synchronize()
     launches_wide = dict(fm.LAUNCHES)
@@ -1301,8 +1339,9 @@ def classical_phases(lib, smi: str) -> list[dict]:
           "rounds_ms": zsl_rounds, "parts_ms": zsl_parts, "occupancy": zsl_occupancy,
           "bit_errors": bit_errors_zsl, "mean_conv_iter": mean_conv_zsl, "nvidia_smi": smi})
 
+    wide_entries = wide_rows_phase(smi, max_err)
     src = "ldpc_tpu_torch/ops/csrc/fused_minsum.cu"
-    return [
+    return wide_entries + [
         {"name": "fused_retire", "route": "cuda",
          "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
          "replaces": "ldpc_tpu/ops/pallas_minsum.py:143", "launches": launches_main["fused_retire"],
@@ -1327,7 +1366,7 @@ def classical_phases(lib, smi: str) -> list[dict]:
          "launches": launches_sl["retire_layered_sumproduct"],
          "max_abs_err": max(max_err["retire_layered_sumproduct"], err_sl), "ms": ms_sl,
          "plain_ms": plain_ms_sl, "bound_ms": bms_sl, "bound_by": bby_sl, "library_ms": None},
-        # fused serves rows over 27 members (launches: the wide-row compare
+        # fused serves rows over 58 members (launches: the wide-row compare
         # cases); its ms is sum-product flooding through the side door,
         # _launch_fused, on the sumproduct phase's batch, which bound_ms and
         # plain_ms count.
@@ -1371,6 +1410,145 @@ def classical_phases(lib, smi: str) -> list[dict]:
          "ms_of": "sum-product flooding through _launch_zlane (side door)",
          "plain_ms": plain_ms_zs, "bound_ms": bms_zs, "bound_by": bby_zs, "library_ms": None},
     ]
+
+
+# Phase wide_rows: IEEE 802.3an's (2048, 1723) shape, a (6, 32) array of
+# Z=64 circulants with every cell filled, shift (r * c) mod 64 (rows of 32
+# members, columns of 6).  The SNR starts at WIDE["SNR"] and steps by
+# WIDE["STEP"] until the mean conv_iter of min-sum flooding lies in
+# WIDE["CONV"].
+WIDE = dict(B=65536, SNR=4.0, STEP=0.5, CONV=(2.0, 8.0), llr_seed=8, iterations=20)
+
+
+def ieee_shape_code():
+    """The (6, 32) base graph at Z=64, shift (r * c) mod 64 in every cell."""
+    import numpy as np
+    from ldpc_tpu_torch.codes import BaseGraph, qc_layout
+
+    r, c = np.meshgrid(np.arange(6), np.arange(32), indexing="ij")
+    return qc_layout(BaseGraph("ieee_6x32", (r * c) % 64), 64)
+
+
+def wide_rows_phase(smi: str, max_err: dict) -> list[dict]:
+    """B1's four schedules on rows of 32 members through their 64-bit-word
+    routes (fm.WIDE_ROUTES) at the phase's batch: launched alone, identical
+    to the plain version (min-sum) or at the sum-product bars and identical
+    to fused; five rounds beside fused through _launch_fused, each median
+    faster than fused's; bounds, plans and ptxas.  Returns the kernels
+    line's four rows."""
+    from ldpc_tpu_torch.models.classical import BeliefPropagationDecoder, MinSumScaledDecoder
+    from ldpc_tpu_torch.ops import fused_minsum as fm
+    from ldpc_tpu_torch.utils.metrics import decode_throughput
+
+    qc = ieee_shape_code()
+    B, T, n = WIDE["B"], WIDE["iterations"], qc.num_vars
+    assert qc.dr_max == 32 and qc.num_edges == 12288
+    decs = {f"{mode} {sched}": fm.make_fused_minsum(qc, T, 0.75 if mode == "minsum" else 1.0,
+                                                    mode=mode, schedule=sched)
+            for mode, sched in WIDE_SCHEDULES}
+    for (mode, sched), dec in zip(WIDE_SCHEDULES, decs.values()):
+        assert (dec.mode, dec.schedule) == (mode, sched) and dec.route in fm.WIDE_ROUTES
+    # The SNR: steps until min-sum flooding's mean conv_iter lies in CONV
+    # (the plain version's, since the two are held identical below).
+    snr, steps = WIDE["SNR"], {}
+    first = decs["minsum flooding"]
+    while True:
+        llr = llrs(n, B, snr, seed=WIDE["llr_seed"])
+        steps[snr] = float(first(llr)[1].float().mean().item())
+        if WIDE["CONV"][0] <= steps[snr] <= WIDE["CONV"][1] or snr >= WIDE["SNR"] + 4.0:
+            break
+        snr += WIDE["STEP"]
+    if not WIDE["CONV"][0] <= steps[snr] <= WIDE["CONV"][1]:
+        raise AssertionError(f"no SNR gives a mean conv_iter in {WIDE['CONV']}: {steps}")
+    # The entry points a user calls, and the launches of this phase's run.
+    servers = {"minsum flooding": MinSumScaledDecoder(qc, T, 0.75, early_stopping=False),
+               "minsum layered": MinSumScaledDecoder(qc, T, 0.75, early_stopping=False,
+                                                     schedule="layered"),
+               "sumproduct flooding": BeliefPropagationDecoder(qc, T, early_stopping=False)}
+    bp = fm.make_fused_bp(qc, T)
+    for key in fm.LAUNCHES:
+        fm.LAUNCHES[key] = 0
+    outs = {name: dec(llr) for name, dec in decs.items()}
+    served = {name: server.decode(llr)[0] for name, server in servers.items()}
+    bits_bp = bp(llr)[0]
+    torch.cuda.synchronize()
+    launches = dict(fm.LAUNCHES)
+    expected = {dec.route: 1 + (name in servers) + (name == "sumproduct flooding")
+                for name, dec in decs.items()}
+    if {k: v for k, v in launches.items() if v} != expected:
+        raise AssertionError(f"wide_rows did not run the wide kernels alone: {launches}")
+    for name, bits in list(served.items()) + [("sumproduct flooding", bits_bp)]:
+        assert bool(torch.equal(bits, outs[name][0])), name
+    stats, plain_ms, errs = {}, {}, {}
+    for name, dec in decs.items():
+        bits, conv = outs[name]
+        assert bits.shape == (B, n) and conv.shape == (B,)
+        plain_ms[name], plain_out = cuda_ms(lambda d=dec: d.plain(llr), reps=1)
+        errs[name] = compare(dec, llr, f"{dec.route} wide_rows B={B} {snr} dB", plain_out)
+        stats[name] = {"identical_to_plain": bool(torch.equal(bits, plain_out[0]) and
+                                                  torch.equal(conv, plain_out[1])),
+                       "bit_errors": int(bits.sum().item()),
+                       "frame_errors": int((bits.sum(dim=1) > 0).sum().item()),
+                       "mean_conv_iter": float(conv.float().mean().item())}
+        del plain_out
+        max_err[dec.route] = max(max_err[dec.route], errs[name])
+    settle = time.perf_counter() + 1.0
+    while time.perf_counter() < settle:
+        for dec in decs.values():
+            dec(llr)
+        torch.cuda.synchronize()
+    # Each kernel beside fused through the side door on the same batch, in
+    # five interleaved rounds; fused's output identical.
+    rounds = {name: {"kernel": [], "replaced_fused": []} for name in decs}
+    for _ in range(5):
+        for name, dec in decs.items():
+            for which, (fn, reps) in (("kernel", (lambda d=dec: d(llr), 5)),
+                                      ("replaced_fused", (lambda d=dec: d._launch_fused(llr), 1))):
+                t, out = cuda_ms(fn, reps=reps)
+                rounds[name][which].append(t)
+                if not (torch.equal(out[0], outs[name][0]) and torch.equal(out[1], outs[name][1])):
+                    raise AssertionError(f"{which} differs from {dec.route} on wide_rows")
+    median = {name: {w: sorted(r)[len(r) // 2] for w, r in rs.items()} for name, rs in rounds.items()}
+    slower = [name for name in decs if median[name]["kernel"] >= median[name]["replaced_fused"]]
+    if slower:
+        raise AssertionError(f"wide kernels not faster than fused on wide_rows: {slower} {median}")
+    bounds = {}
+    for (mode, sched), (name, dec) in zip(WIDE_SCHEDULES, decs.items()):
+        bound = bound_ms if mode == "minsum" else bp_bound_ms
+        bounds[name] = bound(qc, outs[name][1], layered=sched == "layered")
+    plans = {"fused_retire_wide": fm.retire_plan(qc, True, wide=True),
+             "retire_layered_wide": fm.retire_layered_plan(qc, True, wide=True),
+             "retire_sumproduct_wide": fm.retire_sumproduct_plan(qc, True, wide=True),
+             "retire_layered_sumproduct_wide": fm.retire_layered_sumproduct_plan(qc, True,
+                                                                                 wide=True)}
+    ptxas = {route: {k: v for k, v in ptxas_of("fused_retire", kernel).items() if "EyE" in k}
+             for route, kernel in (("fused_retire_wide", "retire_minsum_kernel"),
+                                   ("retire_layered_wide", "retire_layered_kernel"),
+                                   ("retire_sumproduct_wide", "retire_sumproduct_kernel"),
+                                   ("retire_layered_sumproduct_wide",
+                                    "retire_layered_sumproduct_kernel"))}
+    emit({"phase": "wide_rows", "code": "ieee_6x32 (r*c mod 64)", "Z": 64, "n": n,
+          "edges": qc.num_edges, "batch": B, "iterations": T, "snr_db": snr,
+          "snr_steps_mean_conv_iter": steps, "launches": launches,
+          "ms_per_batch": {decs[k].route: m["kernel"] for k, m in median.items()},
+          "replaced_fused_ms": {decs[k].route: m["replaced_fused"] for k, m in median.items()},
+          "speedup_over_replaced": {decs[k].route: m["replaced_fused"] / m["kernel"]
+                                    for k, m in median.items()},
+          "bits_per_s": {decs[k].route: decode_throughput(B, n, m["kernel"] / 1e3,
+                                                          name="wide_rows")
+                         for k, m in median.items()},
+          "bound_ms": {decs[k].route: b for k, b in bounds.items()},
+          "plain_ms": {decs[k].route: t for k, t in plain_ms.items()},
+          "rounds_ms": {decs[k].route: r for k, r in rounds.items()},
+          "decode": {decs[k].route: v for k, v in stats.items()},
+          "plans": plans, "ptxas": ptxas, "nvidia_smi": smi})
+    return [{"name": dec.route, "route": "cuda",
+             "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
+             "replaces": "ldpc_tpu/ops/pallas_minsum.py:143",
+             "launches": launches[dec.route], "max_abs_err": max_err[dec.route],
+             "ms": median[name]["kernel"], "plain_ms": plain_ms[name],
+             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
+            for name, dec in decs.items()]
 
 
 # ---------------------------------------------------------------------------
@@ -2726,11 +2904,7 @@ def retire_smem_agree(qc32, qc384) -> dict:
     dims = (32, qc32.num_base_rows, qc32.num_base_cols, qc32.num_base_edges)
     G = len(fm.row_groups(fm._structure(qc32))) - 1
     return {
-        "fused_retire": all(rlib.ldpc_retire_smem_bytes(*dims, p, f) == fm.retire_smem_bytes(
-            qc32, p, f) for p, f in fm.retire_plans(qc32)),
-        "retire_layered": all(
-            rlib.ldpc_retire_layered_smem_bytes(*dims, G, f) == fm.retire_layered_smem_bytes(
-                qc32, f) for _, f in fm.retire_layered_plans(qc32)),
+        "fused_retire, retire_layered and their 64-bit words": wide_smem_agree(qc32, rlib),
         "retire_sumproduct": all(
             rlib.ldpc_retire_sumproduct_smem_bytes(*dims, p, f, s) ==
             fm.retire_sumproduct_smem_bytes(qc32, p, f, s)
@@ -2742,6 +2916,22 @@ def retire_smem_agree(qc32, qc384) -> dict:
         "retire_zlane, retire_zlane_layered, retire_zlane_sumproduct, "
         "retire_zlane_layered_sumproduct": zlane_smem_agree(qc384),
     }
+
+
+def wide_smem_agree(qc, rlib) -> bool:
+    """Whether the library's shared-memory bytes of fused_retire and
+    retire_layered equal the wrapper's for every plan it may take, on the
+    32-bit state word and on the 64-bit one (the ``*_wide`` routes)."""
+    from ldpc_tpu_torch.ops import fused_minsum as fm
+
+    dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
+    G = len(fm.row_groups(fm._structure(qc))) - 1
+    return all(
+        all(rlib.ldpc_retire_smem_bytes(*dims, p, f, 64 if wide else 32) ==
+            fm.retire_smem_bytes(qc, p, f, wide) for p, f in fm.retire_plans(qc, wide)) and
+        all(rlib.ldpc_retire_layered_smem_bytes(*dims, G, f, 64 if wide else 32) ==
+            fm.retire_layered_smem_bytes(qc, f, wide) for _, f in fm.retire_layered_plans(qc, wide))
+        for wide in (False, True))
 
 
 def zlane_smem_agree(qc) -> bool:
@@ -2879,8 +3069,9 @@ def main(argv=None) -> int:
         raise AssertionError(f"a tensor-core kernel has no tensor-core instructions: {mma}")
     emit({"phase": "build", "seconds": round(time.time() - t0, 3), "ptxas": ptxas,
           **{f"{name}_ptxas": ptxas_of("fused_retire", f"{name}_kernel")
-             for name in ("retire_layered", "retire_zlane_layered", "retire_sumproduct",
-                          "retire_layered_sumproduct", "retire_zlane_layered_sumproduct")},
+             for name in ("retire_minsum", "retire_layered", "retire_zlane_layered",
+                          "retire_sumproduct", "retire_layered_sumproduct",
+                          "retire_zlane_layered_sumproduct")},
           "retire_sumproduct_plan_nr_2_0_32_Z32": dict(zip(
               ("parts", "frames_per_block", "staged_llrs", "blocks_per_sm"),
               fm.retire_sumproduct_plan(qc32, True))),

@@ -178,11 +178,14 @@ def make_layered_minsum(qc: QCLayout, max_iterations: int = 20, alpha: float = 0
 def _resolve_backend(backend: str, qc: QCLayout | None = None) -> str:
     """``auto`` -> ``fused`` when one frame's state fits a block's shared
     memory, else ``fused_zlane``; raises when neither kernel takes the code.
-    Either backend sends min-sum (flooding and layered) and sum-product
-    flooding on to its retiring kernels where they take the code
-    (``fused_minsum._route``: at large Z ``retire_zlane``,
-    ``retire_zlane_layered`` and ``retire_zlane_sumproduct``); layered
-    sum-product and rows of more than 27 members run on the backend's own
+    Either backend sends both modes and both schedules on to its retiring
+    kernels where they take the code (``fused_minsum._route``: on ``fused``
+    ``fused_retire``, ``retire_layered``, ``retire_sumproduct`` and
+    ``retire_layered_sumproduct``, and for rows of 28 to 58 members the same
+    kernels on their 64-bit state word, the ``*_wide`` routes; at large Z
+    ``retire_zlane``, ``retire_zlane_layered``, ``retire_zlane_sumproduct``
+    and ``retire_zlane_layered_sumproduct``).  Only rows of more than 58
+    members (more than 27 on ``fused_zlane``) run on the backend's own
     kernel.
 
     ``plain`` is the tensor-op path (the JAX package's ``xla``), for tests
@@ -228,7 +231,8 @@ class BeliefPropagationDecoder:
     ``backend``: "auto" (the fused kernel that takes the code), "fused",
     "fused_zlane", or "plain" (the tensor-op path).  Sum-product flooding on
     the fused backends runs on ``retire_sumproduct``, or at large Z on
-    ``retire_zlane_sumproduct``, where they take the code.
+    ``retire_zlane_sumproduct``, where they take the code, and rows of 28 to
+    58 members on ``retire_sumproduct_wide``.
     """
 
     qc: QCLayout
@@ -267,7 +271,8 @@ class MinSumScaledDecoder:
     :class:`BeliefPropagationDecoder`; the fused backends run the flooding
     schedule on ``fused_retire`` (``retire_zlane`` at large Z) and the
     layered one on ``retire_layered`` (``retire_zlane_layered``) where they
-    take the code."""
+    take the code, rows of 28 to 58 members on their 64-bit state word
+    (``fused_retire_wide``, ``retire_layered_wide``)."""
 
     qc: QCLayout
     max_iterations: int = 50

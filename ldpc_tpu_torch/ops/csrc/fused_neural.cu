@@ -438,7 +438,7 @@ __device__ __forceinline__ void check_row(const Structure& s, const float* llr, 
   const float2 a = FIRST ? make_float2(0.0f, 0.0f) : A[q];
   const unsigned w_old = FIRST ? 0u : W[q];
   float m1 = kBig, m2 = kBig;
-  unsigned arg = kNoMember, neg = 0u;
+  unsigned arg = kNoMember<unsigned>, neg = 0u;
   auto member = [&](int j) {
     const int2 m = mem[j];
     const int v = rolled<POW2>(z, m.y, m.x, Z);
@@ -477,7 +477,7 @@ __device__ __forceinline__ void check_row(const Structure& s, const float* llr, 
   const unsigned sp = (__popc(neg) & 1) ? (1u << d) - 1u : 0u;
   const float m1z = m1 < kBig ? m1 : 0.0f, m2z = m2 < kBig ? m2 : 0.0f;
   A[q] = make_float2(alpha * fmaxf(m1z - offset, 0.0f), alpha * fmaxf(m2z - offset, 0.0f));
-  W[q] = (neg ^ sp) | (arg << kSignBits);
+  W[q] = (neg ^ sp) | (arg << kSignBits<unsigned>);
 }
 
 // Variable (c, z)'s c2v, expanded from the check states and summed from +0.0

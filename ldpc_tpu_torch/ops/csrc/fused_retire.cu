@@ -42,8 +42,11 @@
 //                                           schedule "layered"; entry
 //                                           ldpc_retire_zlane_layered_sumproduct
 // They took the place of fused_minsum_kernel and zlane_minsum_kernel
-// (fused_minsum.cu) on every path; codes with rows of more than 27 members
-// (the wrapper's retire_*_fits) stay there.
+// (fused_minsum.cu) on every path.  The first four, templated on the state
+// word (retire.cuh), also run on a 64-bit word for rows of 28 to 58 members
+// (the wrapper's *_wide routes; see "Rows of 28 to 58 members" below); codes
+// with wider rows (more than 27 at large Z) stay on the fused_minsum.cu
+// kernels (the wrapper's retire_*_fits).
 // The flooding kernels run one frame loop (decode_frames) over a check pass
 // and a column pass: the two min-sum kernels share compressed state and
 // passes and differ only in where a frame's state lives; the two sum-product
@@ -151,7 +154,8 @@
 // parts (28 warps, 896 threads) in one block per SM, 57-62 registers a
 // thread (ptxas), no spills.  retire_zlane_kernel: 4 (C*Z + 2 R*Z) bytes of
 // frame state, 208,896 at Z=384 (2 parts: 24 warps, one block per SM).  A
-// row may have at most 27 members (NR rows have at most 19).
+// row may have at most 27 members on the 32-bit state word (NR rows have at
+// most 19), 58 on the 64-bit one (retire_minsum_kernel only).
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): main path
 // about 3.2 ms per batch of 65536, throughput mode 16.2 ms; the kernel it
@@ -164,6 +168,36 @@
 // the L2 slice costs 7-13% against shared memory at Z=240, where both
 // layouts fit one frame of 32 warps per SM (chip_smoke.py split_probe).
 
+// Rows of 28 to 58 members (the 64-bit state word)
+// ================================================
+// What it computes: the same four functions, bit for bit, on codes with
+// rows too wide for the 32-bit word's 27 signs, such as the high-rate QC
+// codes of IEEE 802.3an (a 6 x 32 array of 64 x 64 circulants, rows of 32).
+// They ran on fused_minsum_kernel before: all state in shared memory, pass
+// 1's sub, abs and sign recomputed in pass 2, no frame retiring.
+//
+// What bounds it: the same operation counts per lifted edge, check and
+// variable as the 32-bit kernels (chip_smoke.py bound_ms, bp_bound_ms) over
+// each frame's conv_iter iterations.
+//
+// What the design does about it.  The four kernels take the state word as
+// a template parameter (Word, retire.cuh) and are instantiated on unsigned
+// long long: 58 output signs at bits 0..57 and the argmin in the top 6 bits
+// (kNoMember 63), so a check's compressed min-sum state is 16 bytes (A and
+// W) where it was 12; the structure's column members carry (j, 63 - j) for
+// the argmin compare and the sign shift; the sum-product kernels keep one
+// float of c2v an edge and widen only their sign masks (and the layered
+// one's local phi array, 58 slots).  A 64-bit fold shifts with shift-or,
+// where the 32-bit one uses a funnel shift; counts use __popcll.  min-sum
+// flooding's check pass folds members d - 1 .. 27 from a switch of their
+// own before the 27-member body; the layered kernels' rows of more than 12
+// members run their run-time loops.  The 32-bit instantiations are the
+// same code as before the word was a parameter (every 64-bit form sits
+// behind an overload or an if constexpr), so their SASS does not change
+// (tools/probe_sass_diff.py).
+//
+// Measured: chip_smoke.py phase wide_rows (PERF.md).
+
 #include <cuda_runtime.h>
 
 #include "phi.cuh"
@@ -173,25 +207,30 @@ namespace {
 
 constexpr float kBig = 1e9f;  // stand-in for +inf, as _BIG in the JAX package
 
+template <typename Word>
 __host__ __device__ inline int frame_words(int Z, int R, int C) {
-  return (2 * C * Z + 3 * R * Z + 3) / 4 * 4;
+  return (2 * C * Z + kStateWords<Word> * R * Z + 3) / 4 * 4;
 }
 
 // A frame's check state and what the two passes do with it (decode_frames
 // runs either): min-sum keeps a check's c2v compressed, A = (alpha*m1,
 // alpha*m2) and the state word W; sum-product keeps one float a lifted edge
-// (see the sum-product section below).
+// (see the sum-product section below).  Word: the state word's type (W
+// here, sum-product's sign masks), 32 bits or, for rows of 28 to 58
+// members, 64 (retire.cuh).
+template <typename Word>
 struct MinSumState {
   float2* A;
-  unsigned* W;
+  Word* W;
   float alpha;
   int checks;  // R*Z entries of A and W
 };
 
-__device__ __forceinline__ void clear_state(const MinSumState& st, int i, int step) {
+template <typename Word>
+__device__ __forceinline__ void clear_state(const MinSumState<Word>& st, int i, int step) {
   for (; i < st.checks; i += step) {
     st.A[i] = make_float2(0.0f, 0.0f);
-    st.W[i] = 0u;
+    st.W[i] = Word{0};
   }
 }
 
@@ -207,60 +246,79 @@ __device__ __forceinline__ void clear_state(const MinSumState& st, int i, int st
 // no per-member bound check is made.  m1, m2, the sign product and the
 // parity do not depend on the order; with "<=" the argmin is still the first
 // member that reaches m1 (if no |v2c| is below the sentinel both outputs
-// are 0 and the argmin is not read).
-template <bool TRACK, bool POW2>
+// are 0 and the argmin is not read).  With the 64-bit word a row of more
+// than 27 members folds members d - 1 .. 27 first, from a switch of its
+// own, and falls into the 27-member body; the 32-bit word has no such
+// switch, so its kernels are the ones they were.
+template <bool TRACK, bool POW2, typename Word>
 __device__ __forceinline__ unsigned check_pass(const Structure& s, const float* bel,
-                                               const MinSumState& st, int r, int z, int Z) {
+                                               const MinSumState<Word>& st, int r, int z,
+                                               int Z) {
   float2* A = st.A;
-  unsigned* W = st.W;
+  Word* W = st.W;
   const float alpha = st.alpha;
   const int q = r * Z + z;
   const float2 a = A[q];
-  const unsigned w_old = W[q];
-  const unsigned arg_old = w_old >> kSignBits;
+  const Word w_old = W[q];
+  const unsigned arg_old = argmin_of(w_old);
   const int j0 = s.row_ptr[r], d = s.row_ptr[r + 1] - j0;
   const int2* mem = s.row_mem + j0;
   float m1 = kBig, m2 = kBig;
-  unsigned arg = kNoMember, neg = 0u, parity = 0u;
+  unsigned arg = kNoMember<Word>, parity = 0u;
+  Word neg = 0u;
   auto member = [&](int j) {
     const int2 m = mem[j];
     const float b = bel[rolled<POW2>(z, m.y, m.x, Z)];
-    const float x = b - flip_if(static_cast<unsigned>(j) == arg_old ? a.y : a.x, w_old << (31 - j));
+    const float x = b - flip_if(static_cast<unsigned>(j) == arg_old ? a.y : a.x,
+                                bit_at_31(w_old, j));
     const float mag = fabsf(x);
-    neg = __funnelshift_l(__float_as_uint(x), neg, 1);  // (neg << 1) | (x < 0)
+    neg = push_sign(x, neg);  // (neg << 1) | (x < 0)
     if (TRACK) parity ^= __float_as_uint(b);
     arg = mag <= m1 ? static_cast<unsigned>(j) : arg;
     m2 = fminf(fmaxf(mag, m1), m2);
     m1 = fminf(mag, m1);
   };
-  switch (d) {
 #define RETIRE_MEMBER(J) \
   case (J) + 1:          \
     member(J);           \
     [[fallthrough]];
+  if constexpr (kSignBits<Word> > 27) {
+    switch (d) {
+      RETIRE_MEMBER(57) RETIRE_MEMBER(56) RETIRE_MEMBER(55) RETIRE_MEMBER(54) RETIRE_MEMBER(53)
+      RETIRE_MEMBER(52) RETIRE_MEMBER(51) RETIRE_MEMBER(50) RETIRE_MEMBER(49) RETIRE_MEMBER(48)
+      RETIRE_MEMBER(47) RETIRE_MEMBER(46) RETIRE_MEMBER(45) RETIRE_MEMBER(44) RETIRE_MEMBER(43)
+      RETIRE_MEMBER(42) RETIRE_MEMBER(41) RETIRE_MEMBER(40) RETIRE_MEMBER(39) RETIRE_MEMBER(38)
+      RETIRE_MEMBER(37) RETIRE_MEMBER(36) RETIRE_MEMBER(35) RETIRE_MEMBER(34) RETIRE_MEMBER(33)
+      RETIRE_MEMBER(32) RETIRE_MEMBER(31) RETIRE_MEMBER(30) RETIRE_MEMBER(29) RETIRE_MEMBER(28)
+      RETIRE_MEMBER(27)
+      default:
+        break;
+    }
+  }
+  switch (kSignBits<Word> > 27 && d > 27 ? 27 : d) {
     RETIRE_MEMBER(26) RETIRE_MEMBER(25) RETIRE_MEMBER(24) RETIRE_MEMBER(23) RETIRE_MEMBER(22)
     RETIRE_MEMBER(21) RETIRE_MEMBER(20) RETIRE_MEMBER(19) RETIRE_MEMBER(18) RETIRE_MEMBER(17)
     RETIRE_MEMBER(16) RETIRE_MEMBER(15) RETIRE_MEMBER(14) RETIRE_MEMBER(13) RETIRE_MEMBER(12)
     RETIRE_MEMBER(11) RETIRE_MEMBER(10) RETIRE_MEMBER(9) RETIRE_MEMBER(8) RETIRE_MEMBER(7)
     RETIRE_MEMBER(6) RETIRE_MEMBER(5) RETIRE_MEMBER(4) RETIRE_MEMBER(3) RETIRE_MEMBER(2)
     RETIRE_MEMBER(1) RETIRE_MEMBER(0)
-#undef RETIRE_MEMBER
     default:
       break;
   }
-  const unsigned sp = (__popc(neg) & 1) ? (1u << d) - 1u : 0u;
+#undef RETIRE_MEMBER
+  const Word sp = product_flips(neg, d);
   A[q] = make_float2(alpha * (m1 < kBig ? m1 : 0.0f), alpha * (m2 < kBig ? m2 : 0.0f));
-  W[q] = (neg ^ sp) | (arg << kSignBits);
+  W[q] = state_word(neg ^ sp, arg);
   return parity;
 }
 
 // Column pass of variable (c, z): its c2v expanded from the check states and
 // summed from 0 in col_members order, plus its LLR.
-template <bool POW2>
+template <bool POW2, typename Word>
 __device__ __forceinline__ float column_pass(const Structure& s, const float* llr,
-                                             const MinSumState& st, int c, int z, int Z) {
+                                             const MinSumState<Word>& st, int c, int z, int Z) {
   const float2* A = st.A;
-  const unsigned* W = st.W;
+  const Word* W = st.W;
   float cs = 0.0f;
   const int i1 = s.col_ptr[c + 1];
 #pragma unroll 4
@@ -268,9 +326,9 @@ __device__ __forceinline__ float column_pass(const Structure& s, const float* ll
     const int4 m = s.col_mem[i];
     const int q = rolled<POW2>(z, Z - m.y, m.x, Z);  // (z - shift) mod Z in row r
     const float2 a = A[q];
-    const unsigned w = W[q];
-    const float v = ((w ^ static_cast<unsigned>(m.z)) & 0xf8000000u) == 0u ? a.y : a.x;
-    cs = cs + flip_if(v, w << m.w);
+    const Word w = W[q];
+    const float v = is_argmin(w, m.z) ? a.y : a.x;
+    cs = cs + flip_if(v, member_sign(w, m.w));
   }
   return llr[c * Z + z] + cs;
 }
@@ -348,19 +406,29 @@ __device__ __forceinline__ float v2c_phi(float x) {
 
 // Member j's new c2v from the row's phi sum S and its own phi p: sign bit
 // sp ^ (bit j of neg), the sign product times the sign of its v2c.
-__device__ __forceinline__ float c2v_out(float S, float p, unsigned sp, unsigned neg, int j) {
-  return flip_if(phi(fmaxf(S - p, 1e-7f)), sp ^ (neg << (31 - j)));
+template <typename Word>
+__device__ __forceinline__ float c2v_out(float S, float p, unsigned sp, Word neg, int j) {
+  return flip_if(phi(fmaxf(S - p, 1e-7f)), sp ^ bit_at_31(neg, j));
+}
+
+// The sign bit of x (member j's v2c) at bit j of a Word.
+template <typename Word>
+__device__ __forceinline__ Word sign_at(float x, int j) {
+  return static_cast<Word>(__float_as_uint(x) >> 31) << j;
 }
 
 // c2v of a frame's lifted edges, check-aligned: the edge at row-order
 // position i (member j of row r: i = row_ptr[r] + j) and check lane z is
-// c2v[i*Z + z].
+// c2v[i*Z + z].  Word: the type of a check's sign mask, 64 bits for rows of
+// more than 27 members.
+template <typename Word>
 struct SumProductState {
   float* c2v;
   int edges;  // K*Z
 };
 
-__device__ __forceinline__ void clear_state(const SumProductState& st, int i, int step) {
+template <typename Word>
+__device__ __forceinline__ void clear_state(const SumProductState<Word>& st, int i, int step) {
   for (; i < st.edges; i += step) st.c2v[i] = 0.0f;
 }
 
@@ -368,20 +436,22 @@ __device__ __forceinline__ void clear_state(const SumProductState& st, int i, in
 // beliefs and the old c2v; returns the hard decisions of the beliefs it read
 // XOR-ed together in bit 31.  The members run in row order, so S is summed
 // in the kernels' order; phi_j of each is computed once.
-template <bool TRACK, bool POW2>
+template <bool TRACK, bool POW2, typename Word>
 __device__ __forceinline__ unsigned check_pass(const Structure& s, const float* bel,
-                                               const SumProductState& st, int r, int z, int Z) {
+                                               const SumProductState<Word>& st, int r, int z,
+                                               int Z) {
   const int j0 = s.row_ptr[r], d = s.row_ptr[r + 1] - j0;
   const int2* mem = s.row_mem + j0;
   float* c2v = st.c2v + j0 * Z + z;  // member j's c2v at c2v[j * Z]
   float S = 0.0f;
-  unsigned neg = 0u, parity = 0u;
+  unsigned parity = 0u;
+  Word neg = 0u;
   // Member j's v2c folded in: its sign at bit j of neg; returns phi_j.
   auto fold = [&](int j) {
     const int2 m = mem[j];
     const float b = bel[rolled<POW2>(z, m.y, m.x, Z)];
     const float x = b - c2v[j * Z];
-    neg |= (__float_as_uint(x) >> 31) << j;
+    neg |= sign_at<Word>(x, j);
     if (TRACK) parity ^= __float_as_uint(b);
     const float p = v2c_phi(x);
     S = S + p;
@@ -393,7 +463,7 @@ __device__ __forceinline__ unsigned check_pass(const Structure& s, const float* 
 #pragma unroll
     for (int j = 0; j < kPhiSlots; ++j)
       if (j < d) ph[j] = fold(j);
-    const unsigned sp = (__popc(neg) & 1u) << 31;
+    const unsigned sp = odd(neg) << 31;
 #pragma unroll
     for (int j = 0; j < kPhiSlots; ++j)
       if (j < d) c2v[j * Z] = out(j, ph[j], sp);
@@ -401,7 +471,7 @@ __device__ __forceinline__ unsigned check_pass(const Structure& s, const float* 
     // Wider rows: phi_j waits in member j's own c2v slot, which no other
     // thread reads before the pass's closing barrier.
     for (int j = 0; j < d; ++j) c2v[j * Z] = fold(j);
-    const unsigned sp = (__popc(neg) & 1u) << 31;
+    const unsigned sp = odd(neg) << 31;
     for (int j = 0; j < d; ++j) c2v[j * Z] = out(j, c2v[j * Z], sp);
   }
   return parity;
@@ -410,9 +480,10 @@ __device__ __forceinline__ unsigned check_pass(const Structure& s, const float* 
 // Column pass of variable (c, z): its c2v summed from 0 in col_members
 // order, plus its LLR.  The structure's column members carry the edge's
 // offset i*Z (not min-sum's r*Z).
-template <bool POW2>
+template <bool POW2, typename Word>
 __device__ __forceinline__ float column_pass(const Structure& s, const float* llr,
-                                             const SumProductState& st, int c, int z, int Z) {
+                                             const SumProductState<Word>& st, int c, int z,
+                                             int Z) {
   float cs = 0.0f;
   const int i1 = s.col_ptr[c + 1];
 #pragma unroll 4
@@ -488,7 +559,7 @@ __device__ __forceinline__ void decode_frames(const Structure& s, const Lanes& t
 
 // Up to 15 frame groups a block; a group's beliefs, LLRs and state words in
 // shared memory.
-template <bool TRACK, bool POW2>
+template <bool TRACK, bool POW2, typename Word>
 __global__ void __launch_bounds__(kMaxThreads)
 retire_minsum_kernel(const float* __restrict__ llr, float* __restrict__ bits,
                      int* __restrict__ conv, int* __restrict__ next_frame,
@@ -501,12 +572,13 @@ retire_minsum_kernel(const float* __restrict__ llr, float* __restrict__ bits,
   const Lanes t = lanes_of(s, Z, parts);
   const int n = C * Z;
   float* bel = reinterpret_cast<float*>(s_struct + structure_words(R, C, K, parts)) +
-               t.g * frame_words(Z, R, C);
+               t.g * frame_words<Word>(Z, R, C);
   float* L = bel + n;
   float2* A = reinterpret_cast<float2*>(L + n);  // 8-byte aligned: 2n is even
-  unsigned* W = reinterpret_cast<unsigned*>(A + R * Z);
+  Word* W = reinterpret_cast<Word*>(A + R * Z);
   decode_frames<TRACK, POW2, true>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel, L,
-                                   MinSumState{A, W, alpha, R * Z}, B, Z, C, max_iterations);
+                                   MinSumState<Word>{A, W, alpha, R * Z}, B, Z, C,
+                                   max_iterations);
 }
 
 // One frame group a block, for Z where a whole frame exceeds shared memory:
@@ -530,7 +602,8 @@ retire_zlane_kernel(const float* __restrict__ llr, float* __restrict__ bits,
   float2* A = reinterpret_cast<float2*>(bel + C * Z);  // 8-byte aligned: Z is even
   unsigned* W = scratch + static_cast<size_t>(blockIdx.x) * R * Z;
   decode_frames<TRACK, POW2, false>(s, t, &s_frame, llr, bits, conv, next_frame, bel, nullptr,
-                                    MinSumState{A, W, alpha, R * Z}, B, Z, C, max_iterations);
+                                    MinSumState<unsigned>{A, W, alpha, R * Z}, B, Z, C,
+                                    max_iterations);
 }
 
 // A frame's beliefs, its LLRs if STAGED, then its c2v (K*Z floats), rounded
@@ -542,7 +615,7 @@ __host__ __device__ inline int sumproduct_frame_words(int Z, int C, int K, int s
 // Sum-product flooding: up to 15 frame groups a block, as
 // retire_minsum_kernel; a group's beliefs and c2v in shared memory, and its
 // LLRs too where `staged` (else the column passes read the input row).
-template <bool TRACK, bool POW2>
+template <bool TRACK, bool POW2, typename Word>
 __global__ void __launch_bounds__(kMaxThreads)
 retire_sumproduct_kernel(const float* __restrict__ llr, float* __restrict__ bits,
                          int* __restrict__ conv, int* __restrict__ next_frame,
@@ -558,11 +631,12 @@ retire_sumproduct_kernel(const float* __restrict__ llr, float* __restrict__ bits
                t.g * sumproduct_frame_words(Z, C, K, staged);
   if (staged)
     decode_frames<TRACK, POW2, true>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
-                                     bel + n, SumProductState{bel + 2 * n, K * Z}, B, Z, C,
+                                     bel + n, SumProductState<Word>{bel + 2 * n, K * Z}, B, Z,
+                                     C,
                                      max_iterations);
   else
     decode_frames<TRACK, POW2, false>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
-                                      nullptr, SumProductState{bel + n, K * Z}, B, Z, C,
+                                      nullptr, SumProductState<Word>{bel + n, K * Z}, B, Z, C,
                                       max_iterations);
 }
 
@@ -621,11 +695,12 @@ __host__ __device__ inline int layered_structure_words(int R, int K, int G) {
 }
 
 // A frame's beliefs (C*Z floats, rounded up to 16 bytes), then its check
-// state: A (R*Z float2), W (R*Z words).
+// state: A (R*Z float2), W (R*Z Words).
 __host__ __device__ inline int layered_bel_words(int Z, int C) { return (C * Z + 3) / 4 * 4; }
 
+template <typename Word>
 __host__ __device__ inline int layered_frame_words(int Z, int R, int C) {
-  return layered_bel_words(Z, C) + (3 * R * Z + 3) / 4 * 4;
+  return layered_bel_words(Z, C) + (kStateWords<Word> * R * Z + 3) / 4 * 4;
 }
 
 // Structure in shared memory, as ldpc_tpu_torch/ops/fused_minsum.py
@@ -642,18 +717,21 @@ struct LayeredStructure {
 // (layered_frames runs either): min-sum keeps a check's c2v compressed, A =
 // (alpha*m1, alpha*m2) and the state word W (R*Z entries each); sum-product
 // keeps one float a lifted edge, check-aligned (see its section below).
+// Word: as MinSumState's.
+template <typename Word>
 struct LayeredMinSumState {
   float2* A;
-  unsigned* W;
+  Word* W;
   float alpha;
 };
 
 // The check's new state from the fold of its d members.
-__device__ __forceinline__ void new_state(float m1, float m2, unsigned arg, unsigned neg, int d,
-                                          float alpha, float2& an, unsigned& wn) {
-  const unsigned sp = (__popc(neg) & 1) ? (1u << d) - 1u : 0u;
+template <typename Word>
+__device__ __forceinline__ void new_state(float m1, float m2, unsigned arg, Word neg, int d,
+                                          float alpha, float2& an, Word& wn) {
+  const Word sp = product_flips(neg, d);
   an = make_float2(alpha * (m1 < kBig ? m1 : 0.0f), alpha * (m2 < kBig ? m2 : 0.0f));
-  wn = (neg ^ sp) | (arg << kSignBits);
+  wn = state_word(neg ^ sp, arg);
 }
 
 // Base row r's update at lane z (state at q; FIRST: the first sweep, whose
@@ -664,11 +742,11 @@ __device__ __forceinline__ void new_state(float m1, float m2, unsigned arg, unsi
 // replaces the old one only after every member has used it.  Beliefs are
 // never -0.0 (a load adds +0.0, and (b + new) - old is -0.0 only if b is),
 // so neither is v2c.
-template <int D, bool POW2>
-__device__ __forceinline__ void layered_row(const int2* mem, float* bel, float2* A, unsigned* W,
+template <int D, bool POW2, typename Word>
+__device__ __forceinline__ void layered_row(const int2* mem, float* bel, float2* A, Word* W,
                                             int q, int z, int Z, float alpha, bool first) {
   const float2 a = first ? make_float2(0.0f, 0.0f) : A[q];
-  const unsigned w = first ? 0u : W[q];
+  const Word w = first ? Word{0} : W[q];
   int pos[D];
   float b[D], old[D];
 #pragma unroll
@@ -678,14 +756,15 @@ __device__ __forceinline__ void layered_row(const int2* mem, float* bel, float2*
     b[j] = bel[pos[j]];
   }
   float m1 = kBig, m2 = kBig;
-  unsigned arg = kNoMember, neg = 0u;
+  unsigned arg = kNoMember<Word>;
+  Word neg = 0u;
 #pragma unroll
   for (int j = D - 1; j >= 0; --j) {
     old[j] = c2v_of(a, w, j);
     fold(b[j] - old[j], j, m1, m2, arg, neg);
   }
   float2 an;
-  unsigned wn;
+  Word wn;
   new_state(m1, m2, arg, neg, D, alpha, an, wn);
 #pragma unroll
   for (int j = 0; j < D; ++j) bel[pos[j]] = (b[j] + c2v_of(an, wn, j)) - old[j];
@@ -696,20 +775,21 @@ __device__ __forceinline__ void layered_row(const int2* mem, float* bel, float2*
 // The same for rows of more than 12 members, with a run-time loop: the fold
 // reads the beliefs, the update reads them again (no other thread writes
 // them in between).
-template <bool POW2>
+template <bool POW2, typename Word>
 __device__ __forceinline__ void layered_row_wide(const int2* mem, int d, float* bel, float2* A,
-                                                 unsigned* W, int q, int z, int Z, float alpha,
+                                                 Word* W, int q, int z, int Z, float alpha,
                                                  bool first) {
   const float2 a = first ? make_float2(0.0f, 0.0f) : A[q];
-  const unsigned w = first ? 0u : W[q];
+  const Word w = first ? Word{0} : W[q];
   float m1 = kBig, m2 = kBig;
-  unsigned arg = kNoMember, neg = 0u;
+  unsigned arg = kNoMember<Word>;
+  Word neg = 0u;
   for (int j = d - 1; j >= 0; --j) {
     const int2 m = mem[j];
     fold(bel[rolled<POW2>(z, m.y, m.x, Z)] - c2v_of(a, w, j), j, m1, m2, arg, neg);
   }
   float2 an;
-  unsigned wn;
+  Word wn;
   new_state(m1, m2, arg, neg, d, alpha, an, wn);
   for (int j = 0; j < d; ++j) {
     const int2 m = mem[j];
@@ -724,10 +804,10 @@ __device__ __forceinline__ void layered_row_wide(const int2* mem, int d, float* 
 // has rows of 3 to 10) run an unrolled body with their beliefs and old c2v
 // in registers, wider ones the loop, which keeps the kernel within the 64
 // registers a thread that 1024 threads a block leave.
-template <bool POW2>
+template <bool POW2, typename Word>
 __device__ __forceinline__ void layered_update(const LayeredStructure& s, float* bel,
-                                               const LayeredMinSumState& st, int r, int z, int Z,
-                                               bool first) {
+                                               const LayeredMinSumState<Word>& st, int r, int z,
+                                               int Z, bool first) {
   const int j0 = s.row_ptr[r];
   const int d = s.row_ptr[r + 1] - j0;
   const int2* mem = s.row_mem + j0;
@@ -749,7 +829,9 @@ __device__ __forceinline__ void layered_update(const LayeredStructure& s, float*
 // c2v of a layered sum-product frame, check-aligned as retire_sumproduct's:
 // member j of row r at lane z is c2v[(row_ptr[r] + j) * Z + z], in shared
 // memory or the frame group's slice of global scratch (the layered
-// sum-product section below).
+// sum-product section below).  Word: the type of a check's sign mask, as
+// SumProductState's.
+template <typename Word>
 struct LayeredSumProductState {
   float* c2v;
 };
@@ -762,7 +844,7 @@ struct LayeredSumProductState {
 // sp * sign(x_j) * phi(max(S - phi_j, 1e-7)) and its belief becomes (belief
 // + new) - old.  Beliefs are never -0.0 (see layered_row), so neither is
 // x_j, and its sign bit is its "< 0".
-template <int D, bool POW2>
+template <int D, bool POW2, typename Word>
 __device__ __forceinline__ void layered_sp_row(const int2* mem, float* bel, float* c2v, int z,
                                                int Z, bool first) {
   int pos[D];
@@ -775,15 +857,15 @@ __device__ __forceinline__ void layered_sp_row(const int2* mem, float* bel, floa
     old[j] = first ? 0.0f : c2v[j * Z];
   }
   float S = 0.0f;
-  unsigned neg = 0u;
+  Word neg = 0u;
 #pragma unroll
   for (int j = 0; j < D; ++j) {
     const float x = b[j] - old[j];
-    neg |= (__float_as_uint(x) >> 31) << j;
+    neg |= sign_at<Word>(x, j);
     ph[j] = v2c_phi(x);
     S = S + ph[j];
   }
-  const unsigned sp = (__popc(neg) & 1u) << 31;
+  const unsigned sp = odd(neg) << 31;
 #pragma unroll
   for (int j = 0; j < D; ++j) {
     const float v = c2v_out(S, ph[j], sp, neg, j);
@@ -794,23 +876,24 @@ __device__ __forceinline__ void layered_sp_row(const int2* mem, float* bel, floa
 
 // The same for rows of more than kPhiSlots members, with run-time loops:
 // the update reads each belief and old c2v again (no other thread writes
-// them in between), and phi_j waits in a per-thread array in local memory.
-// Its c2v slot cannot hold it, as check_pass's does: the slot keeps the old
-// c2v, which the belief update subtracts.
-template <bool POW2>
+// them in between), and phi_j waits in a per-thread array in local memory
+// (27 slots with the 32-bit word, 58 with the 64-bit).  Its c2v slot cannot
+// hold it, as check_pass's does: the slot keeps the old c2v, which the
+// belief update subtracts.
+template <bool POW2, typename Word>
 __device__ __forceinline__ void layered_sp_row_wide(const int2* mem, int d, float* bel,
                                                     float* c2v, int z, int Z, bool first) {
-  float ph[kSignBits];
+  float ph[kSignBits<Word>];
   float S = 0.0f;
-  unsigned neg = 0u;
+  Word neg = 0u;
   for (int j = 0; j < d; ++j) {
     const int2 m = mem[j];
     const float x = bel[rolled<POW2>(z, m.y, m.x, Z)] - (first ? 0.0f : c2v[j * Z]);
-    neg |= (__float_as_uint(x) >> 31) << j;
+    neg |= sign_at<Word>(x, j);
     ph[j] = v2c_phi(x);
     S = S + ph[j];
   }
-  const unsigned sp = (__popc(neg) & 1u) << 31;
+  const unsigned sp = odd(neg) << 31;
   for (int j = 0; j < d; ++j) {
     const int2 m = mem[j];
     const int p = rolled<POW2>(z, m.y, m.x, Z);
@@ -823,10 +906,10 @@ __device__ __forceinline__ void layered_sp_row_wide(const int2* mem, int d, floa
 // Base row r's sum-product update at lane z: rows of up to kPhiSlots
 // members (NR base graph 2 has rows of 3 to 10) run an unrolled body with
 // their beliefs, old c2v and phi in registers, wider ones the loop.
-template <bool POW2>
+template <bool POW2, typename Word>
 __device__ __forceinline__ void layered_update(const LayeredStructure& s, float* bel,
-                                               const LayeredSumProductState& st, int r, int z,
-                                               int Z, bool first) {
+                                               const LayeredSumProductState<Word>& st, int r,
+                                               int z, int Z, bool first) {
   const int j0 = s.row_ptr[r];
   const int d = s.row_ptr[r + 1] - j0;
   const int2* mem = s.row_mem + j0;
@@ -834,14 +917,14 @@ __device__ __forceinline__ void layered_update(const LayeredStructure& s, float*
   switch (d) {
 #define LAYERED_SP_ROW(D)                                    \
   case D:                                                    \
-    layered_sp_row<D, POW2>(mem, bel, c2v, z, Z, first); \
+    layered_sp_row<D, POW2, Word>(mem, bel, c2v, z, Z, first); \
     break;
     LAYERED_SP_ROW(1) LAYERED_SP_ROW(2) LAYERED_SP_ROW(3) LAYERED_SP_ROW(4) LAYERED_SP_ROW(5)
     LAYERED_SP_ROW(6) LAYERED_SP_ROW(7) LAYERED_SP_ROW(8) LAYERED_SP_ROW(9) LAYERED_SP_ROW(10)
     LAYERED_SP_ROW(11) LAYERED_SP_ROW(12)
 #undef LAYERED_SP_ROW
     default:
-      layered_sp_row_wide<POW2>(mem, d, bel, c2v, z, Z, first);
+      layered_sp_row_wide<POW2, Word>(mem, d, bel, c2v, z, Z, first);
   }
 }
 
@@ -981,7 +1064,7 @@ __device__ __forceinline__ void layered_frames(const LayeredStructure& s, const 
 // Up to 32 frame groups a block (15 where a group is more than one warp: a
 // named barrier each), each with its beliefs and check state in shared
 // memory.
-template <bool TRACK, bool POW2>
+template <bool TRACK, bool POW2, typename Word>
 __global__ void __launch_bounds__(kMaxThreads)
 retire_layered_kernel(const float* __restrict__ llr, float* __restrict__ bits,
                       int* __restrict__ conv, int* __restrict__ next_frame,
@@ -993,12 +1076,12 @@ retire_layered_kernel(const float* __restrict__ llr, float* __restrict__ bits,
   const LayeredStructure s = load_layered_structure(s_struct, structure, R, K, G);
   const LayeredLanes t = layered_lanes(Z, parts);
   float* bel = reinterpret_cast<float*>(s_struct + layered_structure_words(R, K, G)) +
-               t.g * layered_frame_words(Z, R, C);
+               t.g * layered_frame_words<Word>(Z, R, C);
   float2* A = reinterpret_cast<float2*>(bel + layered_bel_words(Z, C));
-  unsigned* W = reinterpret_cast<unsigned*>(A + R * Z);
+  Word* W = reinterpret_cast<Word*>(A + R * Z);  // 8-byte aligned: 2 R*Z words past A
   layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
-                              LayeredMinSumState{A, W, alpha}, B, Z, R, C, G, max_iterations,
-                              parts);
+                              LayeredMinSumState<Word>{A, W, alpha}, B, Z, R, C, G,
+                              max_iterations, parts);
 }
 
 // ---------------------------------------------------------------------------
@@ -1068,8 +1151,8 @@ retire_zlane_layered_kernel(const float* __restrict__ llr, float* __restrict__ b
   float2* A = reinterpret_cast<float2*>(slice);
   unsigned* W = slice + 2 * R * Z;
   layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
-                              LayeredMinSumState{A, W, alpha}, B, Z, R, C, G, max_iterations,
-                              parts);
+                              LayeredMinSumState<unsigned>{A, W, alpha}, B, Z, R, C, G,
+                              max_iterations, parts);
 }
 
 // ---------------------------------------------------------------------------
@@ -1120,7 +1203,8 @@ retire_zlane_sumproduct_kernel(const float* __restrict__ llr, float* __restrict_
   float* bel = reinterpret_cast<float*>(s_struct + structure_words(R, C, K, parts));
   float* c2v = scratch + static_cast<size_t>(blockIdx.x) * K * Z;
   decode_frames<TRACK, POW2, false>(s, t, &s_frame, llr, bits, conv, next_frame, bel, nullptr,
-                                    SumProductState{c2v, K * Z}, B, Z, C, max_iterations);
+                                    SumProductState<unsigned>{c2v, K * Z}, B, Z, C,
+                                    max_iterations);
 }
 
 // ---------------------------------------------------------------------------
@@ -1217,7 +1301,7 @@ __host__ __device__ inline int layered_sumproduct_frame_words(int Z, int C, int 
 
 // Up to 24 frame groups a block (15 where a group is more than one warp), each
 // with its beliefs and c2v in shared memory.
-template <bool TRACK, bool POW2>
+template <bool TRACK, bool POW2, typename Word>
 __global__ void __launch_bounds__(kLayeredSumProductThreads)
 retire_layered_sumproduct_kernel(const float* __restrict__ llr, float* __restrict__ bits,
                                  int* __restrict__ conv, int* __restrict__ next_frame,
@@ -1231,8 +1315,8 @@ retire_layered_sumproduct_kernel(const float* __restrict__ llr, float* __restric
   float* bel = reinterpret_cast<float*>(s_struct + layered_structure_words(R, K, G)) +
                t.g * layered_sumproduct_frame_words(Z, C, K);
   layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
-                              LayeredSumProductState{bel + layered_bel_words(Z, C)}, B, Z, R, C,
-                              G, max_iterations, parts);
+                              LayeredSumProductState<Word>{bel + layered_bel_words(Z, C)}, B, Z,
+                              R, C, G, max_iterations, parts);
 }
 
 // Beliefs in shared memory, c2v in the frame group's slice (K*Z floats) of
@@ -1254,16 +1338,29 @@ retire_zlane_layered_sumproduct_kernel(const float* __restrict__ llr, float* __r
                t.g * layered_bel_words(Z, C);
   float* c2v = scratch + (static_cast<long long>(blockIdx.x) * frames + t.g) * K * Z;
   layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
-                              LayeredSumProductState{c2v}, B, Z, R, C, G, max_iterations, parts);
+                              LayeredSumProductState<unsigned>{c2v}, B, Z, R, C, G,
+                              max_iterations, parts);
 }
 
-using Kernel = decltype(&retire_minsum_kernel<true, true>);
+using Narrow = unsigned;          // the 32-bit state word: rows of up to 27 members
+using Wide = unsigned long long;  // the 64-bit state word: rows of up to 58 members
+
+// A word_bits argument of the C entries: 32 (Narrow) or 64 (Wide).
+bool valid_word(int word_bits) { return word_bits == 32 || word_bits == 64; }
+
+// The instantiation of kernel template KERNEL<TRACK, POW2, Word> for the
+// run-time track, pow2 and word_bits of the function it is used in.
+#define PICK_WORD(KERNEL, WORD)                                                        \
+  (track ? (pow2 ? &KERNEL<true, true, WORD> : &KERNEL<true, false, WORD>)             \
+         : (pow2 ? &KERNEL<false, true, WORD> : &KERNEL<false, false, WORD>))
+#define PICK(KERNEL) (word_bits == 64 ? PICK_WORD(KERNEL, Wide) : PICK_WORD(KERNEL, Narrow))
+
+using Kernel = decltype(&retire_minsum_kernel<true, true, Narrow>);
 using ZlaneKernel = decltype(&retire_zlane_kernel<true, true>);
 
-Kernel pick_kernel(int track, int Z) {
+Kernel pick_kernel(int track, int Z, int word_bits) {
   const bool pow2 = (Z & (Z - 1)) == 0;
-  return track ? (pow2 ? &retire_minsum_kernel<true, true> : &retire_minsum_kernel<true, false>)
-               : (pow2 ? &retire_minsum_kernel<false, true> : &retire_minsum_kernel<false, false>);
+  return PICK(retire_minsum_kernel);
 }
 
 ZlaneKernel pick_zlane_kernel(int track, int Z) {
@@ -1272,9 +1369,9 @@ ZlaneKernel pick_zlane_kernel(int track, int Z) {
                : (pow2 ? &retire_zlane_kernel<false, true> : &retire_zlane_kernel<false, false>);
 }
 
-long long retire_smem(int Z, int R, int C, int K, int parts, int frames) {
-  return 4LL * (structure_words(R, C, K, parts) +
-                static_cast<long long>(frames) * frame_words(Z, R, C));
+long long retire_smem(int Z, int R, int C, int K, int parts, int frames, int word_bits) {
+  const int frame = word_bits == 64 ? frame_words<Wide>(Z, R, C) : frame_words<Narrow>(Z, R, C);
+  return 4LL * (structure_words(R, C, K, parts) + static_cast<long long>(frames) * frame);
 }
 
 // Structure, beliefs (C*Z floats) and A (R*Z float2).
@@ -1304,14 +1401,11 @@ bool valid_plan(int Z, int parts, int frames) {
 // kernel does.
 bool valid_zlane_plan(int Z, int parts) { return Z % 8 == 0 && valid_plan(Z, parts, 1); }
 
-using SumProductKernel = decltype(&retire_sumproduct_kernel<true, true>);
+using SumProductKernel = decltype(&retire_sumproduct_kernel<true, true, Narrow>);
 
-SumProductKernel pick_sumproduct_kernel(int track, int Z) {
+SumProductKernel pick_sumproduct_kernel(int track, int Z, int word_bits) {
   const bool pow2 = (Z & (Z - 1)) == 0;
-  return track ? (pow2 ? &retire_sumproduct_kernel<true, true>
-                       : &retire_sumproduct_kernel<true, false>)
-               : (pow2 ? &retire_sumproduct_kernel<false, true>
-                       : &retire_sumproduct_kernel<false, false>);
+  return PICK(retire_sumproduct_kernel);
 }
 
 long long sumproduct_smem(int Z, int R, int C, int K, int parts, int frames, int staged) {
@@ -1319,18 +1413,17 @@ long long sumproduct_smem(int Z, int R, int C, int K, int parts, int frames, int
                 static_cast<long long>(frames) * sumproduct_frame_words(Z, C, K, staged));
 }
 
-using LayeredKernel = decltype(&retire_layered_kernel<true, true>);
+using LayeredKernel = decltype(&retire_layered_kernel<true, true, Narrow>);
 
-LayeredKernel pick_layered_kernel(int track, int Z) {
+LayeredKernel pick_layered_kernel(int track, int Z, int word_bits) {
   const bool pow2 = (Z & (Z - 1)) == 0;
-  return track ? (pow2 ? &retire_layered_kernel<true, true> : &retire_layered_kernel<true, false>)
-               : (pow2 ? &retire_layered_kernel<false, true>
-                       : &retire_layered_kernel<false, false>);
+  return PICK(retire_layered_kernel);
 }
 
-long long layered_smem(int Z, int R, int C, int K, int G, int frames) {
-  return 4LL * (layered_structure_words(R, K, G) +
-                static_cast<long long>(frames) * layered_frame_words(Z, R, C));
+long long layered_smem(int Z, int R, int C, int K, int G, int frames, int word_bits) {
+  const int frame = word_bits == 64 ? layered_frame_words<Wide>(Z, R, C)
+                                    : layered_frame_words<Narrow>(Z, R, C);
+  return 4LL * (layered_structure_words(R, K, G) + static_cast<long long>(frames) * frame);
 }
 
 // Up to 32 frame groups of one warp a block, 15 of more (a named barrier
@@ -1377,15 +1470,16 @@ long long zlane_sumproduct_smem(int Z, int R, int C, int K, int parts) {
   return 4LL * (structure_words(R, C, K, parts) + static_cast<long long>(C) * Z);
 }
 
-using LayeredSumProductKernel = decltype(&retire_layered_sumproduct_kernel<true, true>);
+using LayeredSumProductKernel =
+    decltype(&retire_layered_sumproduct_kernel<true, true, Narrow>);
 
-LayeredSumProductKernel pick_layered_sumproduct_kernel(int track, int Z) {
+LayeredSumProductKernel pick_layered_sumproduct_kernel(int track, int Z, int word_bits) {
   const bool pow2 = (Z & (Z - 1)) == 0;
-  return track ? (pow2 ? &retire_layered_sumproduct_kernel<true, true>
-                       : &retire_layered_sumproduct_kernel<true, false>)
-               : (pow2 ? &retire_layered_sumproduct_kernel<false, true>
-                       : &retire_layered_sumproduct_kernel<false, false>);
+  return PICK(retire_layered_sumproduct_kernel);
 }
+
+#undef PICK
+#undef PICK_WORD
 
 long long layered_sumproduct_smem(int Z, int R, int C, int K, int G, int frames) {
   return 4LL * (layered_structure_words(R, K, G) +
@@ -1419,14 +1513,17 @@ extern "C" {
 
 // Decodes B frames: `grid` blocks of `frames` frame groups, each of `parts`
 // parts (the row and column ranges the structure's part tables give);
-// `counter` is one int32 set to 0.  Returns a cudaError_t (0 on success).
-// Launches on `stream`, no sync.
+// `counter` is one int32 set to 0; `word_bits` 32 or 64, the state word (64
+// for rows of 28 to 58 members, with the structure's wide encoding).
+// Returns a cudaError_t (0 on success).  Launches on `stream`, no sync.
 int ldpc_retire_minsum(const void* llr, void* bits, void* conv, void* counter,
                        const void* structure, int B, int Z, int R, int C, int K, int T,
-                       float alpha, int track, int parts, int frames, int grid, void* stream) {
-  if (B < 1 || grid < 1 || !valid_plan(Z, parts, frames)) return cudaErrorInvalidValue;
-  const long long smem = retire_smem(Z, R, C, K, parts, frames);
-  const Kernel kernel = pick_kernel(track, Z);
+                       float alpha, int track, int parts, int frames, int grid, int word_bits,
+                       void* stream) {
+  if (B < 1 || grid < 1 || !valid_plan(Z, parts, frames) || !valid_word(word_bits))
+    return cudaErrorInvalidValue;
+  const long long smem = retire_smem(Z, R, C, K, parts, frames, word_bits);
+  const Kernel kernel = pick_kernel(track, Z, word_bits);
   const int threads = retire_threads(Z, parts, frames);
   cudaError_t err = prepare(kernel, smem, threads, nullptr);
   if (err != cudaSuccess) return err;
@@ -1458,15 +1555,17 @@ int ldpc_retire_zlane(const void* llr, void* bits, void* conv, void* counter, vo
 // Decodes B frames with the layered schedule: `grid` blocks of `frames`
 // frame groups, each of `parts` warps (times ceil(Z / 32)) that run the rows
 // of a row group side by side; the structure holds G row groups; `counter`
-// is one int32 set to 0.  Returns a cudaError_t (0 on success).  Launches on
-// `stream`, no sync.
+// is one int32 set to 0; `word_bits` as ldpc_retire_minsum's.  Returns a
+// cudaError_t (0 on success).  Launches on `stream`, no sync.
 int ldpc_retire_layered(const void* llr, void* bits, void* conv, void* counter,
                         const void* structure, int B, int Z, int R, int C, int K, int G, int T,
-                        float alpha, int track, int parts, int frames, int grid, void* stream) {
-  if (B < 1 || grid < 1 || G < 1 || !valid_layered_plan(Z, parts, frames))
+                        float alpha, int track, int parts, int frames, int grid, int word_bits,
+                        void* stream) {
+  if (B < 1 || grid < 1 || G < 1 || !valid_layered_plan(Z, parts, frames) ||
+      !valid_word(word_bits))
     return cudaErrorInvalidValue;
-  const long long smem = layered_smem(Z, R, C, K, G, frames);
-  const LayeredKernel kernel = pick_layered_kernel(track, Z);
+  const long long smem = layered_smem(Z, R, C, K, G, frames, word_bits);
+  const LayeredKernel kernel = pick_layered_kernel(track, Z, word_bits);
   const int threads = retire_threads(Z, parts, frames);
   cudaError_t err = prepare(kernel, smem, threads, nullptr);
   if (err != cudaSuccess) return err;
@@ -1478,14 +1577,16 @@ int ldpc_retire_layered(const void* llr, void* bits, void* conv, void* counter,
 }
 
 // Sum-product flooding, as ldpc_retire_minsum; `staged` copies each frame's
-// LLRs into shared memory.
+// LLRs into shared memory; `word_bits` sets the sign masks' word (the
+// shared memory does not depend on it).
 int ldpc_retire_sumproduct(const void* llr, void* bits, void* conv, void* counter,
                            const void* structure, int B, int Z, int R, int C, int K, int T,
-                           int track, int parts, int frames, int staged, int grid,
+                           int track, int parts, int frames, int staged, int grid, int word_bits,
                            void* stream) {
-  if (B < 1 || grid < 1 || !valid_plan(Z, parts, frames)) return cudaErrorInvalidValue;
+  if (B < 1 || grid < 1 || !valid_plan(Z, parts, frames) || !valid_word(word_bits))
+    return cudaErrorInvalidValue;
   const long long smem = sumproduct_smem(Z, R, C, K, parts, frames, staged);
-  const SumProductKernel kernel = pick_sumproduct_kernel(track, Z);
+  const SumProductKernel kernel = pick_sumproduct_kernel(track, Z, word_bits);
   const int threads = retire_threads(Z, parts, frames);
   cudaError_t err = prepare(kernel, smem, threads, nullptr);
   if (err != cudaSuccess) return err;
@@ -1502,17 +1603,19 @@ long long ldpc_retire_sumproduct_smem_bytes(int Z, int R, int C, int K, int part
 }
 
 int ldpc_retire_sumproduct_occupancy(int Z, int R, int C, int K, int parts, int frames,
-                                     int staged, int track) {
-  if (!valid_plan(Z, parts, frames)) return -static_cast<int>(cudaErrorInvalidValue);
+                                     int staged, int track, int word_bits) {
+  if (!valid_plan(Z, parts, frames) || !valid_word(word_bits))
+    return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
-  const cudaError_t err =
-      prepare(pick_sumproduct_kernel(track, Z), sumproduct_smem(Z, R, C, K, parts, frames, staged),
-              retire_threads(Z, parts, frames), &blocks);
+  const cudaError_t err = prepare(pick_sumproduct_kernel(track, Z, word_bits),
+                                  sumproduct_smem(Z, R, C, K, parts, frames, staged),
+                                  retire_threads(Z, parts, frames), &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-long long ldpc_retire_smem_bytes(int Z, int R, int C, int K, int parts, int frames) {
-  return retire_smem(Z, R, C, K, parts, frames);
+long long ldpc_retire_smem_bytes(int Z, int R, int C, int K, int parts, int frames,
+                                 int word_bits) {
+  return retire_smem(Z, R, C, K, parts, frames, word_bits);
 }
 
 long long ldpc_retire_zlane_smem_bytes(int Z, int R, int C, int K, int parts) {
@@ -1521,11 +1624,14 @@ long long ldpc_retire_zlane_smem_bytes(int Z, int R, int C, int K, int parts) {
 
 // Resident blocks per SM of a launch with these arguments
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -cudaError_t.
-int ldpc_retire_occupancy(int Z, int R, int C, int K, int parts, int frames, int track) {
-  if (!valid_plan(Z, parts, frames)) return -static_cast<int>(cudaErrorInvalidValue);
+int ldpc_retire_occupancy(int Z, int R, int C, int K, int parts, int frames, int track,
+                          int word_bits) {
+  if (!valid_plan(Z, parts, frames) || !valid_word(word_bits))
+    return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
-  const cudaError_t err = prepare(pick_kernel(track, Z), retire_smem(Z, R, C, K, parts, frames),
-                                  retire_threads(Z, parts, frames), &blocks);
+  const cudaError_t err =
+      prepare(pick_kernel(track, Z, word_bits), retire_smem(Z, R, C, K, parts, frames, word_bits),
+              retire_threads(Z, parts, frames), &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -1537,17 +1643,19 @@ int ldpc_retire_zlane_occupancy(int Z, int R, int C, int K, int parts, int track
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-long long ldpc_retire_layered_smem_bytes(int Z, int R, int C, int K, int G, int frames) {
-  return layered_smem(Z, R, C, K, G, frames);
+long long ldpc_retire_layered_smem_bytes(int Z, int R, int C, int K, int G, int frames,
+                                         int word_bits) {
+  return layered_smem(Z, R, C, K, G, frames, word_bits);
 }
 
 int ldpc_retire_layered_occupancy(int Z, int R, int C, int K, int G, int parts, int frames,
-                                  int track) {
-  if (!valid_layered_plan(Z, parts, frames)) return -static_cast<int>(cudaErrorInvalidValue);
+                                  int track, int word_bits) {
+  if (!valid_layered_plan(Z, parts, frames) || !valid_word(word_bits))
+    return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
-  const cudaError_t err =
-      prepare(pick_layered_kernel(track, Z), layered_smem(Z, R, C, K, G, frames),
-              retire_threads(Z, parts, frames), &blocks);
+  const cudaError_t err = prepare(pick_layered_kernel(track, Z, word_bits),
+                                  layered_smem(Z, R, C, K, G, frames, word_bits),
+                                  retire_threads(Z, parts, frames), &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -1619,15 +1727,17 @@ int ldpc_retire_zlane_sumproduct_occupancy(int Z, int R, int C, int K, int parts
 
 // Layered sum-product, as ldpc_retire_layered: `grid` blocks of `frames`
 // frame groups of `parts` warps (times ceil(Z / 32)), each frame's beliefs
-// and c2v in shared memory; at most 768 threads a block.
+// and c2v in shared memory; at most 768 threads a block; `word_bits` sets
+// the sign masks' word (the shared memory does not depend on it).
 int ldpc_retire_layered_sumproduct(const void* llr, void* bits, void* conv, void* counter,
                                    const void* structure, int B, int Z, int R, int C, int K,
                                    int G, int T, int track, int parts, int frames, int grid,
-                                   void* stream) {
-  if (B < 1 || grid < 1 || G < 1 || !valid_layered_sumproduct_plan(Z, parts, frames))
+                                   int word_bits, void* stream) {
+  if (B < 1 || grid < 1 || G < 1 || !valid_layered_sumproduct_plan(Z, parts, frames) ||
+      !valid_word(word_bits))
     return cudaErrorInvalidValue;
   const long long smem = layered_sumproduct_smem(Z, R, C, K, G, frames);
-  const LayeredSumProductKernel kernel = pick_layered_sumproduct_kernel(track, Z);
+  const LayeredSumProductKernel kernel = pick_layered_sumproduct_kernel(track, Z, word_bits);
   const int threads = retire_threads(Z, parts, frames);
   cudaError_t err = prepare(kernel, smem, threads, nullptr);
   if (err != cudaSuccess) return err;
@@ -1643,12 +1753,12 @@ long long ldpc_retire_layered_sumproduct_smem_bytes(int Z, int R, int C, int K, 
 }
 
 int ldpc_retire_layered_sumproduct_occupancy(int Z, int R, int C, int K, int G, int parts,
-                                             int frames, int track) {
-  if (!valid_layered_sumproduct_plan(Z, parts, frames))
+                                             int frames, int track, int word_bits) {
+  if (!valid_layered_sumproduct_plan(Z, parts, frames) || !valid_word(word_bits))
     return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
   const cudaError_t err =
-      prepare(pick_layered_sumproduct_kernel(track, Z),
+      prepare(pick_layered_sumproduct_kernel(track, Z, word_bits),
               layered_sumproduct_smem(Z, R, C, K, G, frames), retire_threads(Z, parts, frames),
               &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);

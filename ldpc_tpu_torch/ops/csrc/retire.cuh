@@ -2,14 +2,26 @@
 // (fused_retire.cu) and of neural_group_kernel (fused_neural.cu): a frame
 // decoded by a group of warps with a named barrier of its own, the structure
 // tables of ldpc_tpu_torch/ops/fused_minsum.py _retire_structure, rolls
-// without division, and the 12-byte compressed check state (A = the two
+// without division, and the compressed check state (A = the two
 // leave-one-out outputs, W = output signs and argmin).
+//
+// The state word W is a Word: unsigned (12 bytes a check with A) keeps the
+// output signs of members 0..26 at bits 0..26 and the argmin in the top 5
+// bits; unsigned long long (16 bytes a check) keeps members 0..57 at bits
+// 0..57 and the argmin in the top 6, for rows of 28 to 58 members (58, not
+// 64: the argmin needs its 6 bits, and a row of 64 would make 1 << 64
+// undefined).  The 32-bit forms below are the ones the kernels had before
+// the word was a parameter, so those kernels compile as they did.
 #pragma once
 
 namespace {
 
-constexpr int kSignBits = 27;  // members a state word holds signs of
-constexpr unsigned kNoMember = 31;  // argmin of a check whose every |v2c| >= kBig
+template <typename Word>  // members a state word holds signs of
+constexpr int kSignBits = sizeof(Word) == 8 ? 58 : 27;
+template <typename Word>  // argmin of a check whose every |v2c| >= kBig
+constexpr unsigned kNoMember = 8 * sizeof(Word) - 1;
+template <typename Word>  // words of a check's state: A (2) and W
+constexpr int kStateWords = 2 + sizeof(Word) / 4;
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxGroups = 15;  // named barriers 1..15, one a frame group
 
@@ -20,6 +32,50 @@ __host__ __device__ inline int structure_words(int R, int C, int K, int parts) {
 // a with its sign bit flipped where bit 31 of `bits` is set.
 __device__ __forceinline__ float flip_if(float a, unsigned bits) {
   return __uint_as_float(__float_as_uint(a) ^ (bits & 0x80000000u));
+}
+
+// Bit j of a state or sign word at bit 31 (flip_if reads no other bit).
+__device__ __forceinline__ unsigned bit_at_31(unsigned w, int j) { return w << (31 - j); }
+__device__ __forceinline__ unsigned bit_at_31(unsigned long long w, int j) {
+  return static_cast<unsigned>(w >> j) << 31;
+}
+
+// Whether the word has an odd number of bits set: 1 or 0.
+__device__ __forceinline__ unsigned odd(unsigned w) { return __popc(w) & 1u; }
+__device__ __forceinline__ unsigned odd(unsigned long long w) { return __popcll(w) & 1u; }
+
+// What turns the d members' v2c signs (neg: member j's at bit j) into
+// their output signs, neg ^ product_flips: all d bits where the sign
+// product is negative.
+template <typename Word>
+__device__ __forceinline__ Word product_flips(Word neg, int d) {
+  return odd(neg) ? (Word{1} << d) - Word{1} : Word{0};
+}
+
+// A check's state word: output signs and argmin.
+template <typename Word>
+__device__ __forceinline__ Word state_word(Word signs, unsigned arg) {
+  return signs | (static_cast<Word>(arg) << kSignBits<Word>);
+}
+
+// The argmin a state word holds.
+template <typename Word>
+__device__ __forceinline__ unsigned argmin_of(Word w) {
+  return static_cast<unsigned>(w >> kSignBits<Word>);
+}
+
+// The column-member fields of _retire_structure (m.z, m.w) read against a
+// state word: whether the member is its check's argmin, and its output
+// sign at bit 31.  32-bit word: (j << 27, 31 - j); 64-bit: (j, 63 - j).
+__device__ __forceinline__ bool is_argmin(unsigned w, int mz) {
+  return ((w ^ static_cast<unsigned>(mz)) & 0xf8000000u) == 0u;
+}
+__device__ __forceinline__ bool is_argmin(unsigned long long w, int mz) {
+  return argmin_of(w) == static_cast<unsigned>(mz);
+}
+__device__ __forceinline__ unsigned member_sign(unsigned w, int mw) { return w << mw; }
+__device__ __forceinline__ unsigned member_sign(unsigned long long w, int mw) {
+  return static_cast<unsigned>((w << mw) >> 32);
 }
 
 // The threads of one frame group: a warp, or `threads` threads that share
@@ -54,7 +110,8 @@ struct Group {
 
 // Structure in shared memory, as ldpc_tpu_torch/ops/fused_minsum.py
 // _retire_structure lays it out: column members in col_members order (K
-// int4: r*Z, shift, j << 27, 31 - j for member j of its row), row members in
+// int4: r*Z, shift, j << 27, 31 - j for member j of its row; j, 63 - j for
+// the 64-bit state word), row members in
 // row order (K int2: col*Z, shift), row_ptr (R+1),
 // col_ptr (C+1), and the first row and column of each part (parts+1 each).
 struct Structure {
@@ -126,8 +183,17 @@ __device__ __forceinline__ Lanes lanes_of(const Structure& s, int Z, int parts) 
 
 // Member j's c2v, expanded from its check's state (a: alpha*m1, alpha*m2;
 // w: output sign of member j at bit j, argmin in the top bits).
-__device__ __forceinline__ float c2v_of(float2 a, unsigned w, int j) {
-  return flip_if(static_cast<unsigned>(j) == (w >> kSignBits) ? a.y : a.x, w << (31 - j));
+template <typename Word>
+__device__ __forceinline__ float c2v_of(float2 a, Word w, int j) {
+  return flip_if(static_cast<unsigned>(j) == argmin_of(w) ? a.y : a.x, bit_at_31(w, j));
+}
+
+// neg shifted up one with the sign bit of x below: (neg << 1) | (x < 0).
+__device__ __forceinline__ unsigned push_sign(float x, unsigned neg) {
+  return __funnelshift_l(__float_as_uint(x), neg, 1);
+}
+__device__ __forceinline__ unsigned long long push_sign(float x, unsigned long long neg) {
+  return (neg << 1) | (__float_as_uint(x) >> 31);
 }
 
 // One member's v2c folded into the check's running state: m1, m2, the
@@ -136,10 +202,11 @@ __device__ __forceinline__ float c2v_of(float2 a, unsigned w, int j) {
 // member j's sign at bit j.  Callers never pass -0.0 (see layered_row in
 // fused_retire.cu, check_row in fused_neural.cu), so the sign bit of x is
 // its "< 0".
+template <typename Word>
 __device__ __forceinline__ void fold(float x, int j, float& m1, float& m2, unsigned& arg,
-                                     unsigned& neg) {
+                                     Word& neg) {
   const float mag = fabsf(x);
-  neg = __funnelshift_l(__float_as_uint(x), neg, 1);
+  neg = push_sign(x, neg);
   arg = mag <= m1 ? static_cast<unsigned>(j) : arg;
   m2 = fminf(fmaxf(mag, m1), m2);
   m1 = fminf(mag, m1);

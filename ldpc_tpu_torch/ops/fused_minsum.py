@@ -1,7 +1,7 @@
 """Fused min-sum / BP decoders: the whole decode loop in one CUDA kernel
 (counterpart of ``ldpc_tpu.ops.pallas_minsum``).
 
-Ten hand-written kernels replace the two TPU kernels:
+Fourteen hand-written kernels replace the two TPU kernels:
 
 * ``fused_retire`` (``csrc/fused_retire.cu``, replaces
   ``pallas_minsum._kernel`` for scaled min-sum with the flooding schedule,
@@ -41,9 +41,16 @@ Ten hand-written kernels replace the two TPU kernels:
   (check-aligned) and each phi computed once and kept in registers, the
   beliefs and c2v in shared memory (31,872 bytes a frame at NR BG2 Z=32).
   :func:`retire_layered_sumproduct_fits` decides.
+* ``fused_retire_wide``, ``retire_layered_wide``, ``retire_sumproduct_wide``
+  and ``retire_layered_sumproduct_wide`` (same file, replace
+  ``pallas_minsum._kernel`` on codes with rows of 28 to 58 members): the
+  four kernels above on a 64-bit state word (58 output signs and a 6-bit
+  argmin; 16 bytes a check's compressed min-sum state, where the 32-bit
+  word's 27 signs make 12), the sum-product ones with 64-bit sign masks.
+  The ``fits`` functions with ``wide=True`` decide.
 * ``fused`` (``csrc/fused_minsum.cu``, replaces ``pallas_minsum._kernel``
   on codes that the retiring kernels do not take, those with rows of more
-  than 27 members): a few frames per thread block, with all decode state
+  than 58 members): a few frames per thread block, with all decode state
   (c2v, beliefs, channel LLRs) in shared memory.  Fits while one frame's
   state is below the block's shared memory (Z=32 on NR BG2: about 42 KB a
   frame); ``fused_kernel_fits`` decides.
@@ -103,7 +110,11 @@ _MAX_FRAMES_PER_BLOCK = 32  # kMaxFramesPerBlock in csrc/fused_minsum.cu
 _FUSED_THREADS = 256  # kFusedThreads in csrc/fused_minsum.cu
 _RETIRE_MAX_THREADS = 1024  # kMaxThreads in csrc/fused_retire.cu
 _RETIRE_MAX_GROUPS = 15  # kMaxGroups in csrc/fused_retire.cu: frames a block
-_RETIRE_MAX_DEGREE = 27  # kSignBits in csrc/fused_retire.cu: members of a row
+# Members of a row the retiring kernels' state word holds signs of
+# (kSignBits in csrc/retire.cuh): 27 with the 32-bit word, 58 with the
+# 64-bit word of the wide routes (``*_wide``), which take rows of 28 to 58.
+_RETIRE_MAX_DEGREE = 27
+_RETIRE_WIDE_MAX_DEGREE = 58
 _RETIRE_MAX_PARTS = 4  # parts a frame's rows and columns are split into
 # retire_layered: frames a block when a frame is one warp (32 warps); more
 # warps a frame take a named barrier each, so _RETIRE_MAX_GROUPS.
@@ -119,16 +130,22 @@ _ZLANE_SUMPRODUCT_BLOCKS_PER_SM = 1
 _LAYERED_SUMPRODUCT_MAX_THREADS = 768
 
 # The kernels of csrc/fused_retire.cu, each a route of its own; the layered
-# ones read _layered_structure.
+# ones read _layered_structure.  The four ``*_wide`` routes are the B1
+# kernels instantiated on the 64-bit state word, for rows of 28 to 58
+# members.
+WIDE_ROUTES = ("fused_retire_wide", "retire_layered_wide", "retire_sumproduct_wide",
+               "retire_layered_sumproduct_wide")
 RETIRING = ("fused_retire", "retire_zlane", "retire_layered", "retire_sumproduct",
             "retire_zlane_layered", "retire_zlane_sumproduct", "retire_layered_sumproduct",
-            "retire_zlane_layered_sumproduct")
+            "retire_zlane_layered_sumproduct") + WIDE_ROUTES
 _LAYERED_ROUTES = ("retire_layered", "retire_zlane_layered", "retire_layered_sumproduct",
-                   "retire_zlane_layered_sumproduct")
+                   "retire_zlane_layered_sumproduct", "retire_layered_wide",
+                   "retire_layered_sumproduct_wide")
 LAUNCHES: dict[str, int] = {"fused_retire": 0, "fused": 0, "retire_zlane": 0, "fused_zlane": 0,
                             "retire_layered": 0, "retire_sumproduct": 0,
                             "retire_zlane_layered": 0, "retire_zlane_sumproduct": 0,
-                            "retire_layered_sumproduct": 0, "retire_zlane_layered_sumproduct": 0}
+                            "retire_layered_sumproduct": 0, "retire_zlane_layered_sumproduct": 0,
+                            **{route: 0 for route in WIDE_ROUTES}}
 
 
 class _Structure(NamedTuple):
@@ -212,13 +229,24 @@ def _retire_structure_words(qc: QCLayout, parts: int) -> int:
     return -(-(6 * K + R + C + 2 + 2 * (parts + 1)) // 4) * 4
 
 
-def retire_smem_bytes(qc: QCLayout, parts: int = 1, frames: int = 1) -> int:
-    """Dynamic shared memory of one ``fused_retire`` block: structure plus,
-    per frame, the beliefs and the LLRs (C*Z float32 each) and the
-    compressed check state (3 words per lifted check)."""
+def _state_words(wide: bool) -> int:
+    """int32 words of a lifted check's compressed state: (alpha*m1,
+    alpha*m2) and the state word, 32 or (``wide``) 64 bits."""
+    return 4 if wide else 3
+
+
+def _max_degree(wide: bool) -> int:
+    return _RETIRE_WIDE_MAX_DEGREE if wide else _RETIRE_MAX_DEGREE
+
+
+def retire_smem_bytes(qc: QCLayout, parts: int = 1, frames: int = 1, wide: bool = False) -> int:
+    """Dynamic shared memory of one ``fused_retire`` block (``wide``:
+    ``fused_retire_wide``): structure plus, per frame, the beliefs and the
+    LLRs (C*Z float32 each) and the compressed check state (3 words per
+    lifted check, 4 with the 64-bit state word)."""
     Z, C, R = qc.Z, qc.num_base_cols, qc.num_base_rows
     return 4 * (_retire_structure_words(qc, parts)
-                + frames * (-(-(2 * C * Z + 3 * R * Z) // 4) * 4))
+                + frames * (-(-(2 * C * Z + _state_words(wide) * R * Z) // 4) * 4))
 
 
 def retire_threads(qc: QCLayout, parts: int, frames: int) -> int:
@@ -227,19 +255,21 @@ def retire_threads(qc: QCLayout, parts: int, frames: int) -> int:
     return 32 * -(-qc.Z // 32) * parts * frames
 
 
-def retire_plans(qc: QCLayout) -> list[tuple[int, int]]:
-    """The (parts, frames per block) a ``fused_retire`` launch may take:
-    at most 15 frames and 1024 threads a block, within shared memory."""
+def retire_plans(qc: QCLayout, wide: bool = False) -> list[tuple[int, int]]:
+    """The (parts, frames per block) a ``fused_retire`` (``wide``:
+    ``fused_retire_wide``) launch may take: at most 15 frames and 1024
+    threads a block, within shared memory."""
     return [(p, f) for p in range(1, _RETIRE_MAX_PARTS + 1)
             for f in range(1, _RETIRE_MAX_GROUPS + 1)
             if retire_threads(qc, p, f) <= _RETIRE_MAX_THREADS
-            and retire_smem_bytes(qc, p, f) <= _SMEM_BUDGET]
+            and retire_smem_bytes(qc, p, f, wide) <= _SMEM_BUDGET]
 
 
-def retire_kernel_fits(qc: QCLayout) -> bool:
+def retire_kernel_fits(qc: QCLayout, wide: bool = False) -> bool:
     """Whether ``fused_retire`` takes the code: rows of at most 27 members
-    (the signs its state word holds) and a frame within a block."""
-    return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_plans(qc))
+    (the signs its 32-bit state word holds; ``wide``: ``fused_retire_wide``
+    and 58, its 64-bit word's) and a frame within a block."""
+    return qc.dr_max <= _max_degree(wide) and bool(retire_plans(qc, wide))
 
 
 def retire_sumproduct_smem_bytes(qc: QCLayout, parts: int = 1, frames: int = 1,
@@ -262,11 +292,12 @@ def retire_sumproduct_plans(qc: QCLayout) -> list[tuple[int, int, bool]]:
             and retire_sumproduct_smem_bytes(qc, p, f, staged) <= _SMEM_BUDGET]
 
 
-def retire_sumproduct_fits(qc: QCLayout) -> bool:
+def retire_sumproduct_fits(qc: QCLayout, wide: bool = False) -> bool:
     """Whether ``retire_sumproduct`` takes the code: rows of at most 27
-    members (a word holds a check's signs, as in ``fused_retire``) and a
-    frame, with one float of c2v an edge, within a block."""
-    return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_sumproduct_plans(qc))
+    members (a word holds a check's signs, as in ``fused_retire``;
+    ``wide``: ``retire_sumproduct_wide``'s 64-bit word, 58) and a frame,
+    with one float of c2v an edge, within a block."""
+    return qc.dr_max <= _max_degree(wide) and bool(retire_sumproduct_plans(qc))
 
 
 def retire_zlane_smem_bytes(qc: QCLayout, parts: int = 1) -> int:
@@ -321,12 +352,13 @@ def _layered_structure_words(qc: QCLayout) -> int:
     return -(-(2 * qc.num_base_edges + qc.num_base_rows + G + 2) // 4) * 4
 
 
-def retire_layered_smem_bytes(qc: QCLayout, frames: int = 1) -> int:
-    """Dynamic shared memory of one ``retire_layered`` block: structure plus,
-    per frame, the beliefs (C*Z float32) and the compressed check state (3
-    words per lifted check), each rounded up to 16 bytes."""
+def retire_layered_smem_bytes(qc: QCLayout, frames: int = 1, wide: bool = False) -> int:
+    """Dynamic shared memory of one ``retire_layered`` block (``wide``:
+    ``retire_layered_wide``): structure plus, per frame, the beliefs (C*Z
+    float32) and the compressed check state (3 words per lifted check, 4
+    with the 64-bit state word), each rounded up to 16 bytes."""
     Z, C, R = qc.Z, qc.num_base_cols, qc.num_base_rows
-    frame = -(-C * Z // 4) * 4 + -(-3 * R * Z // 4) * 4
+    frame = -(-C * Z // 4) * 4 + -(-_state_words(wide) * R * Z // 4) * 4
     return 4 * (_layered_structure_words(qc) + frames * frame)
 
 
@@ -347,16 +379,16 @@ def _layered_plans(qc: QCLayout, smem_bytes,
     return plans
 
 
-def retire_layered_plans(qc: QCLayout) -> list[tuple[int, int]]:
-    """The (parts, frames per block) a ``retire_layered`` launch may take
-    (:func:`_layered_plans`)."""
-    return _layered_plans(qc, lambda f: retire_layered_smem_bytes(qc, f))
+def retire_layered_plans(qc: QCLayout, wide: bool = False) -> list[tuple[int, int]]:
+    """The (parts, frames per block) a ``retire_layered`` (``wide``:
+    ``retire_layered_wide``) launch may take (:func:`_layered_plans`)."""
+    return _layered_plans(qc, lambda f: retire_layered_smem_bytes(qc, f, wide))
 
 
-def retire_layered_fits(qc: QCLayout) -> bool:
+def retire_layered_fits(qc: QCLayout, wide: bool = False) -> bool:
     """Whether ``retire_layered`` takes the code: rows of at most 27 members
-    and a frame within a block."""
-    return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_layered_plans(qc))
+    (``wide``: ``retire_layered_wide``, 58) and a frame within a block."""
+    return qc.dr_max <= _max_degree(wide) and bool(retire_layered_plans(qc, wide))
 
 
 def retire_zlane_layered_smem_bytes(qc: QCLayout, frames: int = 1) -> int:
@@ -405,11 +437,12 @@ def retire_layered_sumproduct_plans(qc: QCLayout) -> list[tuple[int, int]]:
                           _LAYERED_SUMPRODUCT_MAX_THREADS)
 
 
-def retire_layered_sumproduct_fits(qc: QCLayout) -> bool:
+def retire_layered_sumproduct_fits(qc: QCLayout, wide: bool = False) -> bool:
     """Whether ``retire_layered_sumproduct`` takes the code: rows of at most
-    27 members (a word holds a check's signs) and a frame's beliefs and c2v
-    within a block."""
-    return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_layered_sumproduct_plans(qc))
+    27 members (a word holds a check's signs; ``wide``:
+    ``retire_layered_sumproduct_wide``'s 64-bit word, 58) and a frame's
+    beliefs and c2v within a block."""
+    return qc.dr_max <= _max_degree(wide) and bool(retire_layered_sumproduct_plans(qc))
 
 
 def retire_zlane_layered_sumproduct_smem_bytes(qc: QCLayout, frames: int = 1) -> int:
@@ -478,7 +511,8 @@ def _balanced_bounds(costs, parts: int) -> list[int]:
     return list(np.maximum.accumulate([0] + inner + [len(costs)]))
 
 
-def _retire_structure(st: _Structure, parts: int = 1, per_edge: bool = False) -> np.ndarray:
+def _retire_structure(st: _Structure, parts: int = 1, per_edge: bool = False,
+                      wide: bool = False) -> np.ndarray:
     """Structure for ``fused_retire`` (and ``retire_zlane``), int32: column
     members in col_members order as (r*Z, shift, j << 27, 31 - j) with j the
     member's position in its row (the state word's argmin field, and the
@@ -489,12 +523,15 @@ def _retire_structure(st: _Structure, parts: int = 1, per_edge: bool = False) ->
     members plus 6, a variable its members plus 3).  ``per_edge`` (for
     ``retire_sumproduct``, whose c2v is one float an edge) puts the edge's
     offset i*Z in place of r*Z, with i = row_ptr[r] + j its position in row
-    order."""
+    order.  ``wide`` (the 64-bit state word of the ``*_wide`` routes, the
+    argmin in its top 6 bits) gives each column member (.., .., j, 63 - j):
+    the argmin to compare, and the shift that brings bit j to bit 63."""
     Z = st.Z
     member, i = {}, 0
     for r, members in enumerate(st.row_members):
         for j, k in enumerate(members):
-            member[k] = ((i if per_edge else r) * Z, st.shifts[k], j << 27, 31 - j)
+            fields = (j, 63 - j) if wide else (j << 27, 31 - j)
+            member[k] = ((i if per_edge else r) * Z, st.shifts[k], *fields)
             i += 1
     col_mem = [member[k] for m in st.col_members for k in m]
     row_mem = [(st.cols[k] * Z, st.shifts[k]) for m in st.row_members for k in m]
@@ -725,29 +762,32 @@ _SIGNATURES = {
 }
 _RETIRE_SIGNATURES = {
     # llr, bits, conv, counter, structure, B, Z, R, C, K, T, alpha,
-    # track, parts, frames_per_block, grid, stream
-    "ldpc_retire_minsum": ([_P] * 5 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
+    # track, parts, frames_per_block, grid, word_bits, stream
+    "ldpc_retire_minsum": ([_P] * 5 + [_I] * 6 + [_F] + [_I] * 5 + [_P], _I),
     # llr, bits, conv, counter, scratch, structure, B, Z, R, C, K, T, alpha,
     # track, parts, grid, stream
     "ldpc_retire_zlane": ([_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P], _I),
-    "ldpc_retire_smem_bytes": ([_I] * 6, ctypes.c_longlong),
+    # Z, R, C, K, parts, frames_per_block, word_bits
+    "ldpc_retire_smem_bytes": ([_I] * 7, ctypes.c_longlong),
     "ldpc_retire_zlane_smem_bytes": ([_I] * 5, ctypes.c_longlong),
-    # Z, R, C, K, parts, [frames_per_block,] track -> blocks per SM
-    "ldpc_retire_occupancy": ([_I] * 7, _I),
+    # Z, R, C, K, parts, frames_per_block, track, word_bits -> blocks per SM
+    "ldpc_retire_occupancy": ([_I] * 8, _I),
+    # Z, R, C, K, parts, track -> blocks per SM
     "ldpc_retire_zlane_occupancy": ([_I] * 6, _I),
     # llr, bits, conv, counter, structure, B, Z, R, C, K, G, T, alpha,
-    # track, parts, frames_per_block, grid, stream
-    "ldpc_retire_layered": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 4 + [_P], _I),
-    "ldpc_retire_layered_smem_bytes": ([_I] * 6, ctypes.c_longlong),
-    # Z, R, C, K, G, parts, frames_per_block, track -> blocks per SM
-    "ldpc_retire_layered_occupancy": ([_I] * 8, _I),
+    # track, parts, frames_per_block, grid, word_bits, stream
+    "ldpc_retire_layered": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 5 + [_P], _I),
+    # Z, R, C, K, G, frames_per_block, word_bits
+    "ldpc_retire_layered_smem_bytes": ([_I] * 7, ctypes.c_longlong),
+    # Z, R, C, K, G, parts, frames_per_block, track, word_bits -> blocks per SM
+    "ldpc_retire_layered_occupancy": ([_I] * 9, _I),
     # llr, bits, conv, counter, structure, B, Z, R, C, K, T,
-    # track, parts, frames_per_block, staged, grid, stream
-    "ldpc_retire_sumproduct": ([_P] * 5 + [_I] * 11 + [_P], _I),
+    # track, parts, frames_per_block, staged, grid, word_bits, stream
+    "ldpc_retire_sumproduct": ([_P] * 5 + [_I] * 12 + [_P], _I),
     # Z, R, C, K, parts, frames_per_block, staged
     "ldpc_retire_sumproduct_smem_bytes": ([_I] * 7, ctypes.c_longlong),
-    # Z, R, C, K, parts, frames_per_block, staged, track -> blocks per SM
-    "ldpc_retire_sumproduct_occupancy": ([_I] * 8, _I),
+    # Z, R, C, K, parts, frames_per_block, staged, track, word_bits -> blocks per SM
+    "ldpc_retire_sumproduct_occupancy": ([_I] * 9, _I),
     # llr, bits, conv, counter, scratch, structure, B, Z, R, C, K, G, T,
     # alpha, track, parts, frames_per_block, grid, stream
     "ldpc_retire_zlane_layered": ([_P] * 6 + [_I] * 7 + [_F] + [_I] * 4 + [_P], _I),
@@ -762,12 +802,12 @@ _RETIRE_SIGNATURES = {
     # Z, R, C, K, parts, track -> blocks per SM
     "ldpc_retire_zlane_sumproduct_occupancy": ([_I] * 6, _I),
     # llr, bits, conv, counter, structure, B, Z, R, C, K, G, T,
-    # track, parts, frames_per_block, grid, stream
-    "ldpc_retire_layered_sumproduct": ([_P] * 5 + [_I] * 11 + [_P], _I),
+    # track, parts, frames_per_block, grid, word_bits, stream
+    "ldpc_retire_layered_sumproduct": ([_P] * 5 + [_I] * 12 + [_P], _I),
     # Z, R, C, K, G, frames_per_block
     "ldpc_retire_layered_sumproduct_smem_bytes": ([_I] * 6, ctypes.c_longlong),
-    # Z, R, C, K, G, parts, frames_per_block, track -> blocks per SM
-    "ldpc_retire_layered_sumproduct_occupancy": ([_I] * 8, _I),
+    # Z, R, C, K, G, parts, frames_per_block, track, word_bits -> blocks per SM
+    "ldpc_retire_layered_sumproduct_occupancy": ([_I] * 9, _I),
     # llr, bits, conv, counter, scratch, structure, B, Z, R, C, K, G, T,
     # track, parts, frames_per_block, grid, stream
     "ldpc_retire_zlane_layered_sumproduct": ([_P] * 6 + [_I] * 11 + [_P], _I),
@@ -793,31 +833,37 @@ def retire_kernel_library():
     return _build.load("fused_retire", _RETIRE_SIGNATURES)
 
 
+def _word_bits(wide: bool) -> int:
+    """The C entries' ``word_bits``: the state word's width."""
+    return 64 if wide else 32
+
+
 def retire_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
-                lib=None) -> tuple[int, int, int]:
-    """(parts, frames per block, resident blocks per SM) of ``fused_retire``:
-    of :func:`retire_plans` (those with ``parts`` if given), the most
-    resident frames per SM by the runtime's occupancy query, then the most
-    parts, then the fewest frames per block."""
+                lib=None, wide: bool = False) -> tuple[int, int, int]:
+    """(parts, frames per block, resident blocks per SM) of ``fused_retire``
+    (``wide``: ``fused_retire_wide``): of :func:`retire_plans` (those with
+    ``parts`` if given), the most resident frames per SM by the runtime's
+    occupancy query, then the most parts, then the fewest frames per
+    block."""
     lib = lib or retire_kernel_library()
     dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
     best, key = (0, 0, 0), (0, 0, 0)
-    for p, f in retire_plans(qc):
+    for p, f in retire_plans(qc, wide):
         if parts is not None and p != parts:
             continue
-        per_sm = lib.ldpc_retire_occupancy(*dims, p, f, int(track_convergence))
+        per_sm = lib.ldpc_retire_occupancy(*dims, p, f, int(track_convergence), _word_bits(wide))
         if (per_sm * f, p, -f) > key:
             best, key = (p, f, per_sm), (per_sm * f, p, -f)
     return best
 
 
 def retire_sumproduct_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
-                           lib=None) -> tuple[int, int, bool, int]:
+                           lib=None, wide: bool = False) -> tuple[int, int, bool, int]:
     """(parts, frames per block, staged, resident blocks per SM) of
-    ``retire_sumproduct``: of :func:`retire_sumproduct_plans` (those with
-    ``parts`` if given), the most resident frames per SM by the runtime's
-    occupancy query, then the most parts, then staged LLRs, then the fewest
-    frames per block."""
+    ``retire_sumproduct`` (``wide``: ``retire_sumproduct_wide``): of
+    :func:`retire_sumproduct_plans` (those with ``parts`` if given), the
+    most resident frames per SM by the runtime's occupancy query, then the
+    most parts, then staged LLRs, then the fewest frames per block."""
     lib = lib or retire_kernel_library()
     dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
     best, key = (0, 0, False, 0), (0, 0, False, 0)
@@ -825,7 +871,7 @@ def retire_sumproduct_plan(qc: QCLayout, track_convergence: bool, parts: int | N
         if parts is not None and p != parts:
             continue
         per_sm = lib.ldpc_retire_sumproduct_occupancy(*dims, p, f, int(staged),
-                                                      int(track_convergence))
+                                                      int(track_convergence), _word_bits(wide))
         if (per_sm * f, p, staged, -f) > key:
             best, key = (p, f, staged, per_sm), (per_sm * f, p, staged, -f)
     return best
@@ -849,20 +895,21 @@ def retire_zlane_plan(qc: QCLayout, track_convergence: bool, parts: int | None =
 
 
 def retire_layered_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
-                        lib=None) -> tuple[int, int, int]:
+                        lib=None, wide: bool = False) -> tuple[int, int, int]:
     """(parts, frames per block, resident blocks per SM) of
-    ``retire_layered``: of :func:`retire_layered_plans` (those with
-    ``parts`` if given), the most resident frames per SM by the runtime's
-    occupancy query, then the most parts, then the fewest frames per
-    block."""
+    ``retire_layered`` (``wide``: ``retire_layered_wide``): of
+    :func:`retire_layered_plans` (those with ``parts`` if given), the most
+    resident frames per SM by the runtime's occupancy query, then the most
+    parts, then the fewest frames per block."""
     lib = lib or retire_kernel_library()
     dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges,
             len(row_groups(_structure(qc))) - 1)
     best, key = (0, 0, 0), (0, 0, 0)
-    for p, f in retire_layered_plans(qc):
+    for p, f in retire_layered_plans(qc, wide):
         if parts is not None and p != parts:
             continue
-        per_sm = lib.ldpc_retire_layered_occupancy(*dims, p, f, int(track_convergence))
+        per_sm = lib.ldpc_retire_layered_occupancy(*dims, p, f, int(track_convergence),
+                                                   _word_bits(wide))
         if (per_sm * f, p, -f) > key:
             best, key = (p, f, per_sm), (per_sm * f, p, -f)
     return best
@@ -909,9 +956,11 @@ def retire_zlane_sumproduct_plan(qc: QCLayout, track_convergence: bool, parts: i
 
 
 def retire_layered_sumproduct_plan(qc: QCLayout, track_convergence: bool,
-                                   parts: int | None = None, lib=None) -> tuple[int, int, int]:
+                                   parts: int | None = None, lib=None,
+                                   wide: bool = False) -> tuple[int, int, int]:
     """(parts, frames per block, resident blocks per SM) of
-    ``retire_layered_sumproduct``: of :func:`retire_layered_sumproduct_plans`
+    ``retire_layered_sumproduct`` (``wide``:
+    ``retire_layered_sumproduct_wide``): of :func:`retire_layered_sumproduct_plans`
     (those with ``parts`` if given), the most resident frames per SM by the
     runtime's occupancy query, then the fewest parts, then the fewest frames
     per block.  Fewest parts, where ``retire_layered`` takes the most: at NR
@@ -925,7 +974,8 @@ def retire_layered_sumproduct_plan(qc: QCLayout, track_convergence: bool,
         if parts is not None and p != parts:
             continue
         per_sm = lib.ldpc_retire_layered_sumproduct_occupancy(*dims, p, f,
-                                                             int(track_convergence))
+                                                             int(track_convergence),
+                                                             _word_bits(wide))
         if (per_sm * f, -p, -f) > key:
             best, key = (p, f, per_sm), (per_sm * f, -p, -f)
     return best
@@ -960,7 +1010,10 @@ def retire_zlane_layered_sumproduct_plan(qc: QCLayout, track_convergence: bool,
 def _route(kind: str, qc: QCLayout, mode: str, schedule: str) -> str:
     """The kernel a decoder of ``kind`` launches (its ``LAUNCHES`` key): each
     mode and schedule on the retiring kernel of its size where that takes
-    the code, the rest (rows over 27 members) on ``kind``'s own."""
+    the code; on a ``fused`` decoder, rows of 28 to 58 members on the same
+    kernel on the 64-bit state word (the route's ``*_wide`` form); the rest
+    (``fused``: rows over 58 members; ``fused_zlane``: over 27) on
+    ``kind``'s own."""
     fits = {("fused", "minsum", "flooding"): ("fused_retire", retire_kernel_fits),
             ("fused", "minsum", "layered"): ("retire_layered", retire_layered_fits),
             ("fused", "sumproduct", "flooding"): ("retire_sumproduct", retire_sumproduct_fits),
@@ -974,7 +1027,11 @@ def _route(kind: str, qc: QCLayout, mode: str, schedule: str) -> str:
             ("fused_zlane", "sumproduct", "layered"): ("retire_zlane_layered_sumproduct",
                                                        retire_zlane_layered_sumproduct_fits)}
     route, takes = fits.get((kind, mode, schedule), (kind, None))
-    return route if takes is None or takes(qc) else kind
+    if takes is None or takes(qc):
+        return route
+    if kind == "fused" and takes(qc, wide=True):
+        return f"{route}_wide"
+    return kind
 
 
 def _check_llr(llr: torch.Tensor, device: torch.device, n: int) -> None:
@@ -1016,9 +1073,12 @@ class FusedDecoder:
     ``retire_zlane``, ``retire_zlane_layered``, ``retire_zlane_sumproduct``
     and ``retire_zlane_layered_sumproduct`` (:func:`retire_zlane_fits`,
     :func:`retire_zlane_layered_fits`, :func:`retire_zlane_sumproduct_fits`,
-    :func:`retire_zlane_layered_sumproduct_fits`); the rest (rows over 27
-    members) runs on the ``kind`` kernel.  ``retire`` says whether the
-    route is one of the eight retiring kernels (``RETIRING``).
+    :func:`retire_zlane_layered_sumproduct_fits`).  On a "fused" decoder,
+    rows of 28 to 58 members run on the four B1 kernels' 64-bit state word
+    (``WIDE_ROUTES``, each ``fits`` with ``wide=True``); the rest (rows over
+    58 members, or over 27 on "fused_zlane") runs on the ``kind`` kernel.
+    ``retire`` says whether the route is one of the retiring kernels
+    (``RETIRING``).
     """
 
     def __init__(self, kind: str, qc: QCLayout, max_iterations: int, alpha: float,
@@ -1082,8 +1142,9 @@ class FusedDecoder:
         """``fused`` on ``llr`` (contiguous, on a card) whatever the route:
         the kernel layered min-sum and both sum-product schedules ran on
         before ``retire_layered``, ``retire_sumproduct`` and
-        ``retire_layered_sumproduct``, kept so each can be timed beside
-        it."""
+        ``retire_layered_sumproduct``, and every schedule on rows of 28 to 58
+        members before the ``*_wide`` routes, kept so each can be timed
+        beside it."""
         if self.kind != "fused" or self.graph is None:
             raise ValueError(f"a {self.route} decoder has no fused launch")
         return self._launch_csr(llr, "fused")
@@ -1134,7 +1195,10 @@ class FusedDecoder:
         if B == 0:
             return bits, conv
         lib = retire_kernel_library()
-        route = self.route
+        # A *_wide route launches its kernel's 64-bit-word instantiation.
+        wide = self.route in WIDE_ROUTES
+        route = self.route.removesuffix("_wide") if wide else self.route
+        word_bits = _word_bits(wide)
         with torch.cuda.device(llr.device):
             cache_key = (llr.device, parts)
             plan = self._retire_plans.get(cache_key)
@@ -1151,22 +1215,23 @@ class FusedDecoder:
                                                                   parts, lib)
                 elif route == "retire_layered":
                     p, frames, per_sm = retire_layered_plan(self.qc, self.track_convergence,
-                                                            parts, lib)
+                                                            parts, lib, wide)
                 elif route == "retire_layered_sumproduct":
                     p, frames, per_sm = retire_layered_sumproduct_plan(
-                        self.qc, self.track_convergence, parts, lib)
+                        self.qc, self.track_convergence, parts, lib, wide)
                 elif route == "retire_zlane_layered_sumproduct":
                     p, frames, per_sm = retire_zlane_layered_sumproduct_plan(
                         self.qc, self.track_convergence, parts, lib)
                 elif route == "retire_sumproduct":
                     p, frames, flag, per_sm = retire_sumproduct_plan(
-                        self.qc, self.track_convergence, parts, lib)
+                        self.qc, self.track_convergence, parts, lib, wide)
                 else:
-                    p, frames, per_sm = retire_plan(self.qc, self.track_convergence, parts, lib)
-                resident = _resident_grid(per_sm, route, llr.device)
+                    p, frames, per_sm = retire_plan(self.qc, self.track_convergence, parts, lib,
+                                                    wide)
+                resident = _resident_grid(per_sm, self.route, llr.device)
                 table = (_layered_structure(st) if route in _LAYERED_ROUTES
                          else _retire_structure(st, p, per_edge=route in (
-                             "retire_sumproduct", "retire_zlane_sumproduct")))
+                             "retire_sumproduct", "retire_zlane_sumproduct"), wide=wide))
                 structure = torch.as_tensor(table, device=llr.device)
                 plan = self._retire_plans[cache_key] = (p, frames, resident, structure, flag)
             p, frames, resident, structure, flag = plan
@@ -1201,7 +1266,7 @@ class FusedDecoder:
             elif route == "retire_layered_sumproduct":
                 rc = lib.ldpc_retire_layered_sumproduct(
                     *pointers, structure.data_ptr(), B, st.Z, st.R, st.C, st.K, G,
-                    self.max_iterations, track, p, frames, grid, stream)
+                    self.max_iterations, track, p, frames, grid, word_bits, stream)
             elif route == "retire_zlane_sumproduct":
                 scratch = torch.empty((grid * retire_zlane_sumproduct_scratch_bytes(self.qc),),
                                       dtype=torch.uint8, device=llr.device)
@@ -1211,18 +1276,18 @@ class FusedDecoder:
             elif route == "retire_sumproduct":
                 rc = lib.ldpc_retire_sumproduct(*pointers, structure.data_ptr(), B, st.Z, st.R,
                                                 st.C, st.K, self.max_iterations, track, p,
-                                                frames, int(flag), grid, stream)
+                                                frames, int(flag), grid, word_bits, stream)
             elif route == "retire_layered":
                 rc = lib.ldpc_retire_layered(*pointers, structure.data_ptr(), B, st.Z, st.R,
                                              st.C, st.K, G, self.max_iterations, self.alpha,
-                                             track, p, frames, grid, stream)
+                                             track, p, frames, grid, word_bits, stream)
             else:
                 rc = lib.ldpc_retire_minsum(*pointers, structure.data_ptr(), *args, frames, grid,
-                                            stream)
+                                            word_bits, stream)
         if rc != 0:
             msg = lib.ldpc_retire_error_string(rc).decode()
-            raise RuntimeError(f"{route} kernel launch failed: CUDA error {rc} ({msg})")
-        LAUNCHES[route] += 1
+            raise RuntimeError(f"{self.route} kernel launch failed: CUDA error {rc} ({msg})")
+        LAUNCHES[self.route] += 1
         return bits, conv
 
 
@@ -1255,8 +1320,10 @@ def make_fused_minsum(
     :func:`retire_sumproduct_plan`, :func:`retire_layered_sumproduct_plan`),
     on the codes they take (:func:`retire_kernel_fits`,
     :func:`retire_layered_fits`, :func:`retire_sumproduct_fits`,
-    :func:`retire_layered_sumproduct_fits`); the codes they do not take run
-    on ``fused``,
+    :func:`retire_layered_sumproduct_fits`), and on their 64-bit-word forms
+    (``fused_retire_wide``, ``retire_layered_wide``,
+    ``retire_sumproduct_wide``, ``retire_layered_sumproduct_wide``) for rows
+    of 28 to 58 members; codes with rows of more run on ``fused``,
     ``batch_tile`` frames per thread block with all state in shared memory
     (default: :func:`pick_fused_batch_tile`).  ``batch_tile`` is checked against the
     ``fused`` kernel's shared memory either way.  ``mode``: "minsum"
@@ -1341,7 +1408,7 @@ def make_fused_bp(
     device="cuda",
 ) -> FusedDecoder:
     """Fused sum-product (belief propagation) decoder, flooding: on
-    ``retire_sumproduct`` where it takes the code, else ``fused`` — see
-    make_fused_minsum."""
+    ``retire_sumproduct`` where it takes the code, ``retire_sumproduct_wide``
+    for rows of 28 to 58 members, else ``fused`` — see make_fused_minsum."""
     return make_fused_minsum(qc, max_iterations, alpha=1.0, batch_tile=batch_tile,
                              mode="sumproduct", device=device)

@@ -141,19 +141,58 @@ def test_retire_kernel_groups_take_several_frames():
 
 @pytest.mark.parametrize("track", [True, False])
 def test_wide_rows_run_on_the_fused_kernel(track):
-    """A code with a row of 31 members, more than fused_retire's state word
-    holds signs of: min-sum flooding launches the fused kernel, bits and
-    conv_iter identical to the plain version."""
+    """A code with a row of 31 members, more than fused_retire's 32-bit
+    state word holds signs of: min-sum flooding launches fused_retire_wide
+    (the 64-bit word) and not fused; a row of 59 members, more than the
+    64-bit word holds, still launches the fused kernel.  Bits and conv_iter
+    identical to the plain version."""
     from test_torch_minsum_retire import wide_row_shifts
+    from test_torch_retire_wide import row_code
 
-    qc = tcodes.qc_layout(tcodes.BaseGraph("wide", wide_row_shifts()), 4)
-    dec = fm.make_fused_minsum(qc, 12, 0.75, track_convergence=track)
-    llr = _llr(qc.num_vars, 37, 4.0, seed=5)
-    before = dict(fm.LAUNCHES)
-    out = dec(llr)
-    assert fm.LAUNCHES["fused"] == before["fused"] + 1
-    assert fm.LAUNCHES["fused_retire"] == before["fused_retire"]
-    _assert_identical(out, dec.plain(llr))
+    for qc, route in ((tcodes.qc_layout(tcodes.BaseGraph("wide", wide_row_shifts()), 4),
+                       "fused_retire_wide"), (row_code(59), "fused")):
+        dec = fm.make_fused_minsum(qc, 12, 0.75, track_convergence=track)
+        assert dec.route == route
+        llr = _llr(qc.num_vars, 37, 4.0, seed=5)
+        before = dict(fm.LAUNCHES)
+        out = dec(llr)
+        assert fm.LAUNCHES[route] == before[route] + 1
+        assert sum(fm.LAUNCHES.values()) == sum(before.values()) + 1
+        _assert_identical(out, dec.plain(llr))
+
+
+# The four B1 schedules on the 64-bit state word (fm.WIDE_ROUTES), at rows of
+# 31 and 58 members (Z=4, batches that are not a multiple of a block's
+# frames) and 32 (IEEE 802.3an's shape, Z=64).
+WIDE_SCHEDULES = [("minsum", "flooding"), ("minsum", "layered"), ("sumproduct", "flooding"),
+                  ("sumproduct", "layered")]
+
+
+@pytest.mark.parametrize("mode,schedule", WIDE_SCHEDULES)
+@pytest.mark.parametrize("track,early_exit", [TRACKING, THROUGHPUT, EARLY_EXIT])
+@pytest.mark.parametrize("name", ["w31", "w58", "ieee"])
+def test_wide_rows_match_plain(name, track, early_exit, mode, schedule):
+    """Each wide kernel, one launch of its route: min-sum bits and conv_iter
+    identical to the plain version, sum-product at its bars and identical to
+    the fused kernel (_launch_fused), on frames that never converge, that
+    converge early and a mix."""
+    from test_torch_retire_wide import WIDE_ROUTE, code
+
+    qc = code(name)
+    dec = fm.make_fused_minsum(qc, 12, 0.75 if mode == "minsum" else 1.0, mode=mode,
+                               schedule=schedule, track_convergence=track,
+                               early_exit=early_exit)
+    assert dec.route == WIDE_ROUTE[mode, schedule]
+    for snr_db in ((5.0, 6.0, 7.0) if name == "ieee" else (1.0, 4.0, 6.0)):
+        llr = _llr(qc.num_vars, 301 if name == "ieee" else 37, snr_db, seed=qc.dr_max)
+        before = dict(fm.LAUNCHES)
+        out = dec(llr)
+        assert fm.LAUNCHES[dec.route] == before[dec.route] + 1
+        if mode == "minsum":
+            _assert_identical(out, dec.plain(llr))
+            _assert_identical(dec._launch_fused(llr), out)
+        else:
+            _assert_sumproduct(dec, llr, out)
 
 
 # retire_layered at every shape it serves: Z=4 (one warp, 4 lanes), Z=24 (not
@@ -273,7 +312,7 @@ def test_minsum_flooding_launches_retire_kernel():
     assert moved == {"fused_retire": 2, "fused": 0, "retire_zlane": 0, "fused_zlane": 0,
                      "retire_layered": 2, "retire_sumproduct": 1, "retire_zlane_layered": 0,
                      "retire_zlane_sumproduct": 0, "retire_layered_sumproduct": 1,
-                     "retire_zlane_layered_sumproduct": 0}
+                     "retire_zlane_layered_sumproduct": 0, **{r: 0 for r in fm.WIDE_ROUTES}}
 
 
 def test_zlane_frames_per_block_loop():
@@ -369,7 +408,7 @@ def test_minsum_flooding_at_z384_launches_retire_zlane():
     assert moved == {"fused_retire": 0, "fused": 0, "retire_zlane": 2, "fused_zlane": 0,
                      "retire_layered": 0, "retire_sumproduct": 0, "retire_zlane_layered": 0,
                      "retire_zlane_sumproduct": 0, "retire_layered_sumproduct": 0,
-                     "retire_zlane_layered_sumproduct": 0}
+                     "retire_zlane_layered_sumproduct": 0, **{r: 0 for r in fm.WIDE_ROUTES}}
     fm.make_fused_minsum_zlane(qc, 5, mode="sumproduct")(llr)
     fm.make_fused_minsum_zlane(qc, 5, schedule="layered")(llr)
     torch.cuda.synchronize()

@@ -362,7 +362,7 @@ class _OccupancyModel:
         threads = fm.retire_threads(self.qc, p, f)
         return min(2048 // threads, 65536 // (80 * threads), 233_472 // (smem + 1024))
 
-    def ldpc_retire_layered_sumproduct_occupancy(self, Z, R, C, K, G, p, f, track):
+    def ldpc_retire_layered_sumproduct_occupancy(self, Z, R, C, K, G, p, f, track, word_bits):
         return self._blocks(p, f, fm.retire_layered_sumproduct_smem_bytes(self.qc, f))
 
     def ldpc_retire_zlane_layered_sumproduct_occupancy(self, Z, R, C, K, G, p, f, track):
@@ -390,8 +390,8 @@ def test_routes_and_launch_counters():
     """Layered sum-product routes to retire_layered_sumproduct on a fused
     decoder and to retire_zlane_layered_sumproduct on a fused_zlane decoder,
     every flag set, both keeping the CSR structure for the side doors; a row
-    of 31 members keeps fused / fused_zlane; a CPU tensor moves no launch
-    counter."""
+    of 31 members goes to retire_layered_sumproduct_wide on a fused decoder
+    and keeps fused_zlane; a CPU tensor moves no launch counter."""
     for name, Z in [("toy_4x8", 4), ("nr_2_0_4", 4), ("nr_2_0_32", 24), ("nr_2_0_32", 32),
                     ("nr_2_0_32", 64)]:
         for track, early_exit in ((True, False), (False, False), (True, True)):
@@ -405,8 +405,10 @@ def test_routes_and_launch_counters():
         assert dec.graph is not None
     wide = tcodes.qc_layout(tcodes.BaseGraph("wide", wide_row_shifts()), 8)
     assert wide.dr_max == 31 and not fm.retire_layered_sumproduct_fits(wide)
+    assert fm.retire_layered_sumproduct_fits(wide, wide=True)
     assert not fm.retire_zlane_layered_sumproduct_fits(wide)
-    assert _build(wide, 5).route == "fused" and _build(wide, 5, zlane=True).route == "fused_zlane"
+    assert _build(wide, 5).route == "retire_layered_sumproduct_wide"
+    assert _build(wide, 5, zlane=True).route == "fused_zlane"
     assert {"retire_layered_sumproduct", "retire_zlane_layered_sumproduct"} <= set(fm.RETIRING)
     assert set(fm.RETIRING) <= set(fm.LAUNCHES)
     launches = dict(fm.LAUNCHES)

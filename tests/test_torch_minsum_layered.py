@@ -321,7 +321,8 @@ def test_plans_and_shared_memory():
 
 def test_routes_and_launch_counters():
     """Layered min-sum routes to retire_layered (retire_zlane_layered on a
-    fused_zlane decoder); rows over 27 members keep their kernels, min-sum
+    fused_zlane decoder); rows of 28 to 58 members go to retire_layered_wide
+    on a fused decoder; min-sum
     and sum-product flooding and layered sum-product go to theirs; the
     serving object reaches retire_layered; a CPU tensor moves no launch
     counter."""
@@ -339,8 +340,9 @@ def test_routes_and_launch_counters():
                                  device="cpu")
     assert server._fused.route == "retire_layered"
     wide = tcodes.qc_layout(tcodes.BaseGraph("wide", wide_row_shifts()), 4)
-    assert not fm.retire_layered_fits(wide)
-    assert fm.make_fused_minsum(wide, 5, schedule="layered", device="cpu").route == "fused"
+    assert not fm.retire_layered_fits(wide) and fm.retire_layered_fits(wide, wide=True)
+    assert fm.make_fused_minsum(wide, 5, schedule="layered",
+                                device="cpu").route == "retire_layered_wide"
     zl = fm.make_fused_minsum_zlane(_qc("nr_2_0_32", 384), 5, schedule="layered", device="cpu")
     assert zl.route == "retire_zlane_layered"
     assert "retire_layered" in fm.LAUNCHES

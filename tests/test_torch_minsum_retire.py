@@ -254,12 +254,16 @@ def test_retire_plans_and_shared_memory():
 
 
 def test_rows_beyond_the_state_word_are_refused(monkeypatch):
-    """fused_retire refuses rows of more members than its state word holds
-    signs of; min-sum flooding on such a code goes to the fused kernel."""
+    """fused_retire refuses rows of more members than its 32-bit state word
+    holds signs of, and sends them to its 64-bit word (fused_retire_wide);
+    rows beyond that word too go to the fused kernel."""
     qc = tcodes.qc_layout(tcodes.get_base_graph("toy_4x8"), 4)  # rows of up to 5 members
     assert fm.retire_kernel_fits(qc) and fm.make_fused_minsum(qc, 5, device="cpu").retire
     monkeypatch.setattr(fm, "_RETIRE_MAX_DEGREE", 4)
-    assert not fm.retire_kernel_fits(qc)
+    assert not fm.retire_kernel_fits(qc) and fm.retire_kernel_fits(qc, wide=True)
+    assert fm.make_fused_minsum(qc, 5, device="cpu").route == "fused_retire_wide"
+    monkeypatch.setattr(fm, "_RETIRE_WIDE_MAX_DEGREE", 4)
+    assert not fm.retire_kernel_fits(qc, wide=True)
     dec = fm.make_fused_minsum(qc, 5, device="cpu")
     assert not dec.retire and dec.graph is not None
     assert not fm.make_fused_minsum(qc, 5, mode="sumproduct", device="cpu").retire
@@ -267,7 +271,8 @@ def test_rows_beyond_the_state_word_are_refused(monkeypatch):
 
 def wide_row_shifts() -> np.ndarray:
     """(4, 32) base matrix whose first row has 31 members, more than
-    fused_retire's state word holds signs of; every column has a member."""
+    fused_retire's 32-bit state word holds signs of; every column has a
+    member."""
     rng = np.random.default_rng(3)
     shifts = np.where(rng.random((4, 32)) < 0.4, rng.integers(0, 4, (4, 32)), -1)
     shifts[0] = np.append(rng.integers(0, 4, 31), -1)
@@ -277,8 +282,9 @@ def wide_row_shifts() -> np.ndarray:
 
 @pytest.mark.parametrize("track", [True, False])
 def test_wide_rows_run_on_the_fused_kernel_and_match_jax(track):
-    """A code with a row of 31 members: min-sum flooding is routed to the
-    fused kernel, whose plain version matches the JAX kernel."""
+    """A code with a row of 31 members: min-sum flooding is routed to
+    fused_retire's 64-bit state word (fused_retire_wide) and no longer to
+    the fused kernel; the plain version matches the JAX kernel."""
     import jax.numpy as jnp
     import ldpc_tpu.codes as jcodes
     from ldpc_tpu.ops import pallas_minsum as jpm
@@ -286,8 +292,9 @@ def test_wide_rows_run_on_the_fused_kernel_and_match_jax(track):
     shifts = wide_row_shifts()
     qc = tcodes.qc_layout(tcodes.BaseGraph("wide", shifts), 4)
     assert qc.dr_max == 31 and not fm.retire_kernel_fits(qc)
+    assert fm.retire_kernel_fits(qc, wide=True)
     dec = fm.make_fused_minsum(qc, ITERS, 0.75, track_convergence=track, device="cpu")
-    assert not dec.retire
+    assert dec.retire and dec.route == "fused_retire_wide"
     jdec = jpm.make_fused_minsum(jcodes.qc_layout(jcodes.BaseGraph("wide", shifts), 4), ITERS,
                                  0.75, batch_tile=8, interpret=True, track_convergence=track)
     llr = bpsk_llrs(qc.num_vars, BATCH, 4.0, seed=9)

@@ -295,7 +295,8 @@ def test_routes_and_launch_counters():
     retire_sumproduct where the retiring kernels take the code, keeping the
     CSR structure for the replaced kernel (retire_zlane_sumproduct on a
     fused_zlane decoder); sum-product layered goes to
-    retire_layered_sumproduct and rows over 27 members keep fused; a CPU
+    retire_layered_sumproduct and rows of 31 members to
+    retire_sumproduct_wide; a CPU
     tensor moves no launch counter."""
     from test_torch_minsum_retire import wide_row_shifts
 
@@ -311,7 +312,8 @@ def test_routes_and_launch_counters():
     layered = _bp(qc, 20, schedule="layered")
     assert layered.route == "retire_layered_sumproduct" and layered.retire
     wide = tcodes.qc_layout(tcodes.BaseGraph("wide", wide_row_shifts()), 4)
-    assert not fm.retire_sumproduct_fits(wide) and _bp(wide, 5).route == "fused"
+    assert not fm.retire_sumproduct_fits(wide) and fm.retire_sumproduct_fits(wide, wide=True)
+    assert _bp(wide, 5).route == "retire_sumproduct_wide"
     assert fm.retire_sumproduct_fits(wide_row_code(20))
     zl = fm.make_fused_minsum_zlane(_qc("nr_2_0_32", 384), 5, mode="sumproduct", device="cpu")
     assert zl.route == "retire_zlane_sumproduct"

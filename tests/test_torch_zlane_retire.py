@@ -114,7 +114,9 @@ def test_dispatch():
     assert set(fm.LAUNCHES) == {"fused_retire", "fused", "retire_zlane", "fused_zlane",
                                 "retire_layered", "retire_sumproduct",
                                 "retire_zlane_layered", "retire_zlane_sumproduct",
-                                "retire_layered_sumproduct", "retire_zlane_layered_sumproduct"}
+                                "retire_layered_sumproduct", "retire_zlane_layered_sumproduct",
+                                "fused_retire_wide", "retire_layered_wide",
+                                "retire_sumproduct_wide", "retire_layered_sumproduct_wide"}
     launches = dict(fm.LAUNCHES)
     small = _qc(24, "nr_2_0_4")
     llr = torch.zeros((2, small.num_vars))
