@@ -199,11 +199,14 @@ Phases, one JSON line each:
              version on perturbed parameters, each case through its route
              (one launch of that kernel, no other): every weight sharing,
              depth 0-3, alpha and offset shared and per iteration, at
-             nr_2_0_4 Z=4 and nr_2_0_32 Z=32 on neural_group (also with the
-             weights read from L2, staged where they fit, and through the
-             side door on fused_neural) and Z=128 on fused_neural (state in
-             global scratch).  Bits identical; each plan's shared-memory
-             bytes equal to the wrapper's.
+             nr_2_0_4 Z=4 and nr_2_0_32 Z=12, 32 and 128 on neural_group
+             (Z=128 in a slice form, the FIFO in L2 slices; also with the
+             weights read from L2, staged where they fit, each slice form
+             forced where it has a plan, and through the side door on
+             fused_neural), and on fused_neural (the global-scratch state at
+             Z=128 depth 5; a row of 31 members at Z=4).  Bits identical;
+             each plan's shared-memory bytes and each slice's words equal
+             to the wrapper's.
 9b. nms_serve_shape — the serving entry point's neural min-sum decoder
              (nr_2_0_4 Z=4, T=5, depth 2, the committed checkpoint, batch
              4096, 0 dB): neural_group in five rounds beside fused_neural
@@ -223,6 +226,16 @@ Phases, one JSON line each:
              the replaced kernel beside it, and every split of a frame into
              parts, staged and from L2), the plan and ptxas registers and
              spills.
+11b. nms_large — the codes neural_group took from fused_neural: nr_2_0_32
+             at Z=128 (T=10, depth 2, per-iteration edge weights from
+             perturbed_nms, batch 16384, QPSK at -3 dB on random codewords
+             of nr_codewords), Z=384 (batch 5461: about the same edges a
+             batch) and Z=32 at depth 4 (batch 65536).  Per shape: the whole
+             batch identical to the plain version and to fused_neural
+             through the side door; five rounds of neural_group beside
+             fused_neural; the sweep of layouts, parts and frame groups a
+             block; the plan, ptxas, bound; Z=128 traced in a process of its
+             own (trace_nms_large).
 12. msg_gnn_compare — the fully-neural kernels (msg_gnn_v2, msg_gnn,
              msg_gnn_v3, msg_gnn_v4) against their plain versions, T=2, h 16
              and 64, injection and
@@ -285,7 +298,10 @@ Phases, one JSON line each:
              to the plain version, mxu within one bf16 step; microseconds per
              frame and iteration.
 18. kernels — per kernel: launches in its path's run (fused and fused_zlane:
-             the wide-row compare cases'; the *_wide kernels: wide_rows'),
+             the wide-row compare cases'; the *_wide kernels: wide_rows';
+             neural_group a row for nms_main and one for each nms_large
+             shape; fused_neural nms_compare's routed cases, timed at
+             nms_large's Z=128 through the side door),
              max abs error against
              the plain version, kernel / plain time, and the bound: the
              operations the batch's frames need (over their conv_iter
@@ -2006,6 +2022,72 @@ def perturbed_nms(plan, seed: int, scale: float = 0.1, **kw):
     return add_noise(model, scale, gen)
 
 
+def _gf2_inverse(M: np.ndarray) -> np.ndarray:
+    """The inverse of a square binary matrix over GF(2), by Gauss-Jordan on
+    rows packed into uint64 words; raises if it is singular."""
+    import numpy as np
+
+    n = M.shape[0]
+    A = np.packbits(np.concatenate([M, np.eye(n, dtype=np.uint8)], axis=1), axis=1,
+                    bitorder="little")
+    A = np.pad(A, ((0, 0), (0, -A.shape[1] % 8))).view(np.uint64)
+    for c in range(n):
+        col = (A[:, c // 64] >> np.uint64(c % 64)) & np.uint64(1)
+        rows = np.nonzero(col[c:])[0]
+        if rows.size == 0:
+            raise ValueError("the code's core parity block is singular")
+        pr = c + rows[0]
+        A[[c, pr]] = A[[pr, c]]
+        col[[c, pr]] = col[[pr, c]]
+        col[c] = 0
+        A[col == 1] ^= A[c]
+    bits = np.unpackbits(A.view(np.uint8), axis=1, bitorder="little")
+    return bits[:, n:2 * n]
+
+
+def nr_codewords(base, Z: int, gen: torch.Generator, B: int) -> torch.Tensor:
+    """(B, C*Z) uniformly random codewords of a 5G NR base graph lifted by
+    Z, as float32 bits on ``gen``'s device, encoded from its structure: C -
+    R information columns, a core of 4 rows and 4 parity columns solved
+    with the core's inverse over GF(2), then each extension row's own
+    parity column (shift 0) from the columns before it.  A circulant of
+    shift s maps block x to y[i] = x[(i + s) mod Z] (expand_base_matrix)."""
+    import numpy as np
+
+    S = np.asarray(base.shifts)
+    R, C = S.shape
+    kb, g = C - R, 4
+    if (S[:g, kb + g:] >= 0).any() or any(
+            S[r, kb + r] != 0 or (S[r, kb + r + 1:] >= 0).any() for r in range(g, R)):
+        raise ValueError(f"{base.name} is not of the 5G NR form")
+    dev = gen.device
+    x = torch.zeros((B, C, Z), device=dev)
+    x[:, :kb] = torch.randint(0, 2, (B, kb, Z), generator=gen, device=dev).to(torch.float32)
+
+    def row_sum(r: int, cols) -> torch.Tensor:
+        out = torch.zeros((B, Z), device=dev)
+        for c in cols:
+            if S[r, c] >= 0:
+                out = out + torch.roll(x[:, c], -int(S[r, c] % Z), dims=1)
+        return out
+
+    core = np.zeros((g * Z, g * Z), np.uint8)
+    i = np.arange(Z)
+    for r in range(g):
+        for c in range(g):
+            if S[r, kb + c] >= 0:
+                core[r * Z + i, c * Z + (i + S[r, kb + c]) % Z] = 1
+    inv = torch.from_numpy(_gf2_inverse(core).astype(np.float32)).to(dev)
+    lam = torch.cat([row_sum(r, range(kb)) for r in range(g)], dim=1) % 2
+    x[:, kb:kb + g] = ((lam @ inv.T) % 2).reshape(B, g, Z)
+    for r in range(g, R):
+        x[:, kb + r] = row_sum(r, range(kb + r)) % 2
+    for r in range(R):
+        if (row_sum(r, range(C)) % 2).any():
+            raise AssertionError(f"a codeword of {base.name} at Z={Z} violates row {r}")
+    return x.reshape(B, C * Z)
+
+
 def routed_launch(dec, llr: torch.Tensor, counters: dict) -> torch.Tensor:
     """``dec(llr)`` with every launch counter set to 0 just before and read
     just after: the decoder's route launched once, no other kernel."""
@@ -2030,12 +2112,14 @@ def nms_phases(smi: str) -> list[dict]:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # nms_compare: every weight sharing, depth 0-3, alpha and offset shared
     # and per iteration, perturbed parameters, each through its route: Z=4,
-    # Z=12 (a warp holds 8 and 2 frames side by side) and Z=32 on
-    # neural_group (held also with its weights read from L2 and,
-    # where they fit, from shared memory, and beside fused_neural through the
-    # side door), Z=128 on fused_neural with the state in global scratch,
-    # where each resident block loops over frames: the last case hands every
-    # block three frames or more.  Bits identical to the plain version.
+    # Z=12 (a warp holds 8 and 2 frames side by side), Z=32 and Z=128 (a
+    # slice form) on neural_group (held also with its weights read from L2
+    # and, where they fit, from shared memory, in each slice form that has a
+    # plan, and beside fused_neural through the side door); fused_neural
+    # on what neural_group refuses: depth 5 at Z=128 (the state in global
+    # scratch) and a row of 31 members.  The Z=128 case without a batch
+    # hands every resident frame group of neural_group's plan three frames
+    # or more.  Bits identical to the plain version.
     max_err = {"neural_group": 0.0, "fused_neural": 0.0}
     path_launches = {"neural_group": 0, "fused_neural": 0}
     cases = [("nr_2_0_4", 4, 37, "scalar", 0, False, False, False),
@@ -2049,27 +2133,40 @@ def nms_phases(smi: str) -> list[dict]:
              ("nr_2_0_32", 12, 9, "cell", 3, True, True, True),
              ("nr_2_0_32", 128, 5, "edge", 2, True, True, True),
              ("nr_2_0_32", 128, 5, "scalar", 3, True, False, False),
-             ("nr_2_0_32", 128, None, "edge", 2, True, True, True)]
+             ("nr_2_0_32", 128, None, "edge", 2, True, True, True),
+             ("nr_2_0_32", 128, 5, "edge", 5, True, True, True),
+             ("row31", 4, 37, "edge", 2, True, True, True)]
     for code, Z, B, sharing, L, learn_a, learn_o, per_it in cases:
-        qc = qc_layout(get_base_graph(code), Z)
+        qc = wide_row_code(31, Z) if code == "row31" else qc_layout(get_base_graph(code), Z)
         plan = qc_msg.make_plan(qc)
-        T = 5
+        T = 5 if L < 5 else 7
         model = perturbed_nms(plan, seed=Z + L, num_iterations=T, depth_L=L,
                               weight_sharing=sharing, learnable_alpha=learn_a,
                               learnable_offset=learn_o, per_iteration=per_it)
         dec = fn.make_fused_neural_minsum(qc, model, T, L, per_iteration=per_it)
-        assert dec.route == ("fused_neural" if Z == 128 else "neural_group")
+        assert dec.route == ("fused_neural" if L > 4 or code == "row31" else "neural_group")
         dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
-        # the wrapper's shared-memory plans are the kernels'
+        # the wrapper's shared-memory plans and slices are the kernels'
         assert lib.ldpc_neural_smem_bytes(*dims, T, L, dec.frames_per_block, int(dec.shared)) == \
             fn.neural_smem_bytes(qc, T, L, dec.frames_per_block, dec.shared)
+        layouts = []  # neural_group's layouts with a plan, the route's first
         if dec.route == "neural_group":
-            for staged in (False, True):
-                for p, f in fn.neural_group_plans(qc, L, staged):
-                    assert lib.ldpc_neural_group_smem_bytes(*dims, L, p, f, int(staged)) == \
-                        fn.neural_group_smem_bytes(qc, L, p, f, staged)
-        resident = None if dec.shared else lib.ldpc_neural_occupancy(*dims, T, L, 1, 0) * sms
-        if B is None:  # three frames or more for every resident block
+            layouts = [s for s in fn.SLICE_LAYOUTS if fn.neural_group_plans(qc, L, slice=s)]
+            assert layouts[0] == dec.layout
+            for s in fn.SLICE_LAYOUTS:
+                if s:
+                    assert 4 * lib.ldpc_neural_group_slice_words(Z, dims[1], dims[3], L, s) == \
+                        fn.neural_group_scratch_bytes(qc, L, s)
+                for staged in (False, True):
+                    for p, f in fn.neural_group_plans(qc, L, staged, s):
+                        assert lib.ldpc_neural_group_smem_bytes(*dims, L, p, f, int(staged), s) \
+                            == fn.neural_group_smem_bytes(qc, L, p, f, staged, s)
+        if dec.route == "neural_group":  # frames in flight
+            _, f, _, _, blocks, _ = dec._plan(torch.device("cuda", 0))
+            resident = blocks * f * fn.frames_per_group(qc)
+        else:
+            resident = None if dec.shared else lib.ldpc_neural_occupancy(*dims, T, L, 1, 0) * sms
+        if B is None:  # three frames or more for every resident frame group
             B = 3 * resident + 1
         llr = torch.cat([llrs(qc.num_vars, len(range(i, B, 2)), snr, seed=Z + i)
                          for i, snr in enumerate((0.5, 2.0))])
@@ -2082,6 +2179,8 @@ def nms_phases(smi: str) -> list[dict]:
                       "fused_neural": dec._launch_minsum(llr)}
             if fn.neural_group_plans(qc, L, staged=True):
                 others["weights_staged"] = dec._launch_group(llr, staged=True)
+            for s in layouts[1:] + ([] if dec.layout else [1, 2]):
+                others[f"slice_{s}"] = dec._launch_group(llr, slice=s)
         torch.cuda.synchronize()
         same = {name: bool(torch.equal(out, bits_p))
                 for name, out in (("route", bits_k), *others.items())}
@@ -2089,8 +2188,9 @@ def nms_phases(smi: str) -> list[dict]:
         ok = all(same.values())
         emit({"phase": "nms_compare", "case": f"{code} Z={Z} B={B} T={T} {sharing} L={L} "
               f"alpha={learn_a} offset={learn_o} per_iteration={per_it}", "route": dec.route,
+              "layout": dec.layout,
               "state": "shared" if dec.shared else "global", "frames_per_block":
-              dec.frames_per_block, "resident_blocks": resident, "bits_identical": same,
+              dec.frames_per_block, "resident_frames": resident, "bits_identical": same,
               "bit_errors_vs_zero": int(bits_k.sum().item()), "ok": ok})
         if not ok:
             raise AssertionError(f"{dec.route} disagrees with its plain version: {same}")
@@ -2199,7 +2299,7 @@ def nms_phases(smi: str) -> list[dict]:
         f"{'staged' if staged else 'weights_l2'} parts={p}":
             cuda_ms(lambda: dec._launch_group(llr, parts=p, staged=staged), reps=3)[0]
         for staged in (True, False)
-        for p in sorted({p for p, _ in fn.neural_group_plans(qc32, L, staged)})}
+        for p in sorted({p for p, _ in fn.neural_group_plans(qc32, L, staged) if p <= 16})}
     group_plan = dict(zip(("parts", "frames_per_block", "blocks_per_sm"),
                           fn.neural_group_plan(qc32, L, True)))
     ok = same and same_old and abs(ber / NMS_BER_REF - 1.0) <= NMS_BER_WINDOW
@@ -2220,16 +2320,131 @@ def nms_phases(smi: str) -> list[dict]:
     if not ok:
         raise AssertionError(f"nms main path: identical={same}, replaced identical={same_old}, "
                              f"BER {ber} against {NMS_BER_REF} +- {NMS_BER_WINDOW:.0%}")
+    large_rows, replaced = nms_large_phase(smi, max_err)
     entry = {"route": "cuda", "source": "ldpc_tpu_torch/ops/csrc/fused_neural.cu",
-             "replaces": "ldpc_tpu/ops/pallas_neural.py:111", "plain_ms": plain_ms,
-             "bound_ms": bms, "bound_by": bby, "library_ms": None}
-    # fused_neural's path: the Z=128 nms_compare cases (the codes neural_group
-    # does not take); its ms is nms_main through the side door.
+             "replaces": "ldpc_tpu/ops/pallas_neural.py:111", "library_ms": None}
+    # fused_neural's path: the nms_compare cases neural_group refuses (depth
+    # 5, a row of 31 members); its ms is nms_large's Z=128 shape (its shape
+    # before neural_group took it) through the side door.
     return [{"name": "neural_group", "launches": launches, "max_abs_err": max_err["neural_group"],
-             "ms": ms, **entry},
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, **entry},
+            *large_rows,
             {"name": "fused_neural", "launches": path_launches["fused_neural"],
-             "max_abs_err": max_err["fused_neural"], "ms": median["replaced_fused_neural"],
-             "ms_of": "nms_main through _launch_minsum (side door)", **entry}]
+             "max_abs_err": max_err["fused_neural"], **replaced,
+             "ms_of": "nms_large Z=128 L=2 through _launch_minsum (side door)", **entry}]
+
+
+# nms_large: (Z, depth, batch) of nr_2_0_32, T=10, per-iteration edge
+# weights, QPSK at -3 dB on random codewords.  Z=128 at depth 2 has
+# nms_main's edges a batch; Z=384's batch keeps B * n about equal.
+NMS_LARGE = ((128, 2, 16384), (384, 2, 5461), (32, 4, 65536))
+NMS_LARGE_T, NMS_LARGE_SNR = 10, -3.0
+# Parts of a frame the layout sweep times (each with every frame-group count).
+NMS_SWEEP_PARTS = (1, 2, 3, 4, 6, 8, 12, 14, 16, 21, 24, 28, 32)
+
+
+def nms_large_setup(Z: int, L: int, B: int):
+    """(qc, decoder, codewords, LLRs) of an nms_large shape."""
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+    from ldpc_tpu_torch.ops import fused_neural as fn, qc_msg
+    from ldpc_tpu_torch.utils import qpsk_awgn_llr
+
+    bg = get_base_graph("nr_2_0_32")
+    qc = qc_layout(bg, Z)
+    model = perturbed_nms(qc_msg.make_plan(qc), seed=Z + L, num_iterations=NMS_LARGE_T,
+                          depth_L=L, weight_sharing="edge", learnable_alpha=True,
+                          learnable_offset=True, per_iteration=True)
+    dec = fn.make_fused_neural_minsum(qc, model, NMS_LARGE_T, L, per_iteration=True)
+    gen = torch.Generator(device="cuda").manual_seed(Z + L)
+    tx = nr_codewords(bg, Z, gen, B)
+    return qc, dec, tx, qpsk_awgn_llr(gen, tx, NMS_LARGE_SNR)
+
+
+def trace_nms_large() -> dict:
+    """One neural_group decode of nms_large's Z=128 batch under the profiler."""
+    Z, L, B = NMS_LARGE[0]
+    _, dec, _, llr = nms_large_setup(Z, L, B)
+    dec(llr)  # warm-up: the plan and the first launch
+    return {"phase": "trace_nms_large", "Z": Z, "depth_L": L, "batch": B,
+            **trace_split(lambda: dec(llr), "nms_large")}
+
+
+def nms_large_phase(smi: str, max_err: dict) -> tuple[list[dict], dict]:
+    """nms_large: each shape's kernels-line row of neural_group, and
+    fused_neural's times at Z=128 (its shape before this phase's codes moved
+    to neural_group)."""
+    from ldpc_tpu_torch.ops import fused_neural as fn
+    from ldpc_tpu_torch.utils import compute_ber_fer
+
+    rows, replaced = [], {}
+    for Z, L, B in NMS_LARGE:
+        qc, dec, tx, llr = nms_large_setup(Z, L, B)
+        assert dec.route == "neural_group"
+        bits = routed_launch(dec, llr, fn.LAUNCHES)
+        launches = fn.LAUNCHES["neural_group"]
+        ber, fer = (float(x) for x in compute_ber_fer(tx, bits))
+        del tx
+        old_bits = dec._launch_minsum(llr)
+        plain_ms, bits_p = cuda_ms(lambda: dec.plain(llr), reps=1)
+        same = bool(torch.equal(bits, bits_p))
+        same_old = bool(torch.equal(old_bits, bits_p))
+        err = (bits - bits_p).abs().max().item()
+        max_err["neural_group"] = max(max_err["neural_group"], err)
+        max_err["fused_neural"] = max(max_err["fused_neural"],
+                                      (old_bits - bits_p).abs().max().item())
+        del bits_p, old_bits
+        rounds = [{"neural_group": cuda_ms(lambda: dec(llr), reps=3)[0],
+                   "replaced_fused_neural": cuda_ms(lambda: dec._launch_minsum(llr), reps=1)[0]}
+                  for _ in range(5)]
+        median = {k: sorted(r[k] for r in rounds)[2] for k in rounds[0]}
+        # The sweep: every layout with a plan (staged and from L2 where a
+        # whole frame fits), parts of NMS_SWEEP_PARTS, every frame-group count.
+        sweep = {}
+        for layout in fn.SLICE_LAYOUTS:
+            for staged in ((False, True) if layout == 0 else (False,)):
+                for p, f in fn.neural_group_plans(qc, L, staged, layout):
+                    if p in NMS_SWEEP_PARTS:
+                        sweep[f"layout={layout} staged={staged} parts={p} groups={f}"] = cuda_ms(
+                            lambda: dec._launch_group(llr, parts=p, staged=staged, slice=layout,
+                                                      groups=f), reps=2)[0]
+        fastest = min(sweep, key=sweep.get)
+        ms = median["neural_group"]
+        bms, bby = nms_bound_ms(qc, NMS_LARGE_T, L, B)
+        p, f, staged, layout, blocks, _ = dec._plan(llr.device)
+        slices = (blocks * f * fn.frames_per_group(qc)
+                  * fn.neural_group_scratch_bytes(qc, L, layout) if layout else 0)
+        ok = same and same_old
+        emit({"phase": "nms_large", "code": "nr_2_0_32", "Z": Z, "iterations": NMS_LARGE_T,
+              "depth_L": L, "batch": B, "snr_db": NMS_LARGE_SNR, "route": dec.route,
+              "layout": dec.layout, "launches": launches, "ms_per_batch": ms,
+              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "ber": ber, "fer": fer,
+              "whole_batch_identical": same, "replaced_identical": same_old,
+              "speedup_over_replaced": median["replaced_fused_neural"] / ms,
+              "median_ms": median, "rounds_ms": rounds, "sweep_ms": sweep,
+              "sweep_fastest": fastest,
+              "plan": {"layout": layout, "parts": p, "frames_per_block": f,
+                       "blocks_per_sm": blocks // torch.cuda.get_device_properties(0)
+                       .multi_processor_count, "staged_weights": staged,
+                       "smem_bytes_per_block": fn.neural_group_smem_bytes(qc, L, p, f, staged,
+                                                                          layout),
+                       "slice_bytes_in_flight": slices},
+              "ptxas": ptxas_of("fused_neural", "neural_group_slice_kernel" if dec.layout
+                                else "neural_group_kernel"),
+              "nvidia_smi": smi, "ok": ok})
+        if not ok:
+            raise AssertionError(f"nms_large Z={Z} L={L}: identical={same}, "
+                                 f"fused_neural identical={same_old}")
+        rows.append({"name": f"neural_group nr_2_0_32 Z={Z} L={L}", "route": "cuda",
+                     "source": "ldpc_tpu_torch/ops/csrc/fused_neural.cu",
+                     "replaces": "ldpc_tpu/ops/pallas_neural.py:111", "launches": launches,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": bby, "library_ms": None})
+        if (Z, L) == NMS_LARGE[0][:2]:
+            replaced = {"ms": median["replaced_fused_neural"], "plain_ms": plain_ms,
+                        "bound_ms": bms, "bound_by": bby}
+        del llr, dec
+    emit({"phase": "trace_nms_large", **trace_in_child("nms_large")})
+    return rows, replaced
 
 
 # ---------------------------------------------------------------------------
@@ -2393,7 +2608,8 @@ TRACE_ATTEMPTS = 3
 
 
 def trace_in_child(name: str) -> dict:
-    """trace_z384, trace_layered, trace_sumproduct, trace_gnn or trace_msg_gnn
+    """trace_z384, trace_layered, trace_sumproduct, trace_gnn, trace_nms_large
+    or trace_msg_gnn
     (``name`` a fully-neural kernel's) in a process of its own: a second
     torch.profiler session in one process (after trace_main) recorded no
     kernel on the card.  The child loads the libraries this process built.
@@ -2980,8 +3196,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["classical", "gnn", "nms", "msg_gnn", "tools"],
                     default=None)
-    ap.add_argument("--trace", choices=["z384", "layered", "sumproduct", "gnn", "msg_gnn",
-                                        "msg_gnn_v2", "msg_gnn_v3", "msg_gnn_v4"],
+    ap.add_argument("--trace", choices=["z384", "layered", "sumproduct", "gnn", "nms_large",
+                                        "msg_gnn", "msg_gnn_v2", "msg_gnn_v3", "msg_gnn_v4"],
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = args.only
@@ -2990,7 +3206,7 @@ def main(argv=None) -> int:
         return 1
     if args.trace is not None:  # the child of trace_in_child
         traces = {"z384": trace_z384, "layered": trace_layered, "sumproduct": trace_sumproduct,
-                  "gnn": trace_gnn}
+                  "gnn": trace_gnn, "nms_large": trace_nms_large}
         emit(traces[args.trace]() if args.trace in traces else trace_msg_gnn(args.trace))
         return 0
 

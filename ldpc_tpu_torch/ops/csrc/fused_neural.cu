@@ -2,16 +2,21 @@
 // whole decode of a trained NeuralMinSumDecoder in one kernel launch.
 //
 // Replaces the TPU kernel of ldpc_tpu/ops/pallas_neural.py:111 (`kernel`
-// of make_fused_neural_minsum, :87) with two kernels:
-//   * neural_group_kernel<POW2, L, STAGED>, entry ldpc_neural_group: codes
-//     with rows of at most 27 members, depth L <= 3 and a frame within a
-//     block (the wrapper's neural_group_fits): serve_trained_decoder
-//     --model neural_minsum and the OMS flagship record (chip_smoke.py
-//     nms_main).  Described below.
+// of make_fused_neural_minsum, :87) with three kernels:
+//   * neural_group_kernel<POW2, L, STAGED>, entry ldpc_neural_group (slice
+//     0): codes with rows of at most 27 members and depth L <= 4 whose
+//     whole frame fits a block: serve_trained_decoder --model
+//     neural_minsum, the OMS flagship record (chip_smoke.py nms_main),
+//     depth 4 at Z=32.  Described below.
+//   * neural_group_slice_kernel<POW2, L, WSLICE>, the same entry (slice 1
+//     or 2): the same codes where a frame exceeds a block (NR BG2 from Z of
+//     about 96 at depth 2 to Z=384; chip_smoke.py nms_large), with its FIFO
+//     and, where A and the column sums leave no room, its state words in an
+//     L2 slice.  Described at item 6 below.
 //   * neural_minsum_kernel<SHARED>, entry ldpc_neural_minsum: the rest
-//     (Z = 128 at depth 2, depth 4, ...), and through the wrapper's side
-//     door (FusedNeuralDecoder._launch_minsum) any code, so the two can be
-//     timed side by side.  Described at its section at the end.
+//     (rows over 27 members, depth 5 and more), and through the wrapper's
+//     side door (FusedNeuralDecoder._launch_minsum) any code, so the kernels
+//     can be timed side by side.  Described at its section at the end.
 // Python wrapper, weight packing (_pack_weights, check-aligned planes
 // _Tables.wc) and the plain PyTorch version both are held against
 // (neural_decode_plain): ldpc_tpu_torch/ops/fused_neural.py; a CPU model of
@@ -65,7 +70,11 @@
 // Main path (nr_2_0_32 Z=32: E=6304, M=1344, n=1664; T=10, L=2, batch
 // 65536): T (7E + 8M) + (T - 1)(4 + 2L) E + E + 2n = 1.012e6 operations a
 // frame, 6.63e10 in all: 1.98 ms; the bytes take 0.26 ms.  The bound is
-// arithmetic.
+// arithmetic.  chip_smoke.py nms_large: Z=128 (batch 16384) and Z=384
+// (5461) at depth 2 have the same edges a batch, 1.98 ms; Z=32 at depth 4
+// (65536) 2.42 ms.  The FIFO's traffic (a tap read for each message stored
+// and one write a pass: 39.7 GB a batch at Z=128 depth 2) is the design's,
+// not the function's, and no part of the bound.
 //
 // neural_group_kernel: what its design does about it
 // --------------------------------------------------
@@ -114,19 +123,45 @@
 //    iteration.  Else each weight is read from L2 (14.9 GB of reads for the
 //    main batch).  The wrapper stages wherever a plan with the planes fits
 //    (at depth 2 up to Z = 32).
+// 6. The slice forms (neural_group_slice_kernel), for frames that exceed a
+//    block: a whole frame, 4 (2 C*Z + 3 R*Z + L K*Z) bytes, is 319,488 B at
+//    NR BG2 Z=128 depth 2.  A and the column sums stay in shared memory (the
+//    check pass reads each member's cs, the column pass each edge's A), and
+//    so do the state words W where they fit beside them (slice 1: 4 (3 R*Z
+//    + C*Z) bytes a frame, 91,136 at Z=128); the FIFO, L planes of K*Z
+//    floats (201,728 B at Z=128 depth 2), lives in the frame's slice of a
+//    global scratch, and at Z=384 (slice 2: A and cs alone are 208,896 B)
+//    W too (669,696 B a slice).  The LLRs are read from the frame's input
+//    row, the weights from L2.  A slice entry is touched in the check pass
+//    only by its check's thread (the FIFO is check-aligned, item 4), so the
+//    slice needs no barrier; ordinary coherent loads read it.  L2: one
+//    frame group an SM puts 132 slices in flight, 26.6 MB at Z=128 depth 2
+//    in slice 1, 88 MB at Z=384 (over the 50 MB L2 whatever the plan); two
+//    put 53 MB at Z=128.  The wrapper keeps a layout per shape by
+//    measurement (nms_large's sweep): the whole frame in shared memory
+//    wherever it fits (the slice forms ran 19-30% slower at Z=32 depth 4),
+//    else slice 1 (6-9% faster than slice 2 at Z=128), else slice 2; and
+//    the most groups an SM whose slices fit the L2, then the most parts
+//    (one group of 32 warps at Z=128: two groups of 16 ran 27-31% slower).
 // Shared memory: the structure (6K + R + C + 2 ints and two part tables,
 // 5,232 B at NR BG2 and 14 parts) and, staged, two weight planes once a
 // block; per frame 4 (2 C*Z + 3 R*Z + L K*Z) bytes: LLRs, cs, check state,
-// FIFO: 79,872 at NR BG2 Z=32, L=2 (29,440 at L=0).  The wrapper takes, of
-// the plans of at most 14 warps a group (the parts sweep: 14 parts ran
-// 2-5% faster than 16 at nms_main), the one with the most resident
-// frames by the runtime's occupancy query, then the most parts: main path,
-// 2 frames of 14 parts (28 warps) in one block per SM with the staged
-// planes; 54-64 registers a thread, no spills.
+// FIFO: 79,872 at NR BG2 Z=32, L=2 (29,440 at L=0; 130,304 at L=4, one
+// frame a block).  The wrapper takes, of the plans of at most 14 warps a
+// group where an SM holds two groups or more (the parts sweep: 14 parts ran
+// 2-5% faster than 16 at nms_main), the one with the most resident frames
+// by the runtime's occupancy query, then the most parts: main path, 2
+// frames of 14 parts (28 warps) in one block per SM with the staged
+// planes; 54-64 registers a thread, no spills.  A group alone on its SM
+// takes the most parts (32 warps at Z=32 depth 4).  The slice forms hold 4
+// (3 R*Z + C*Z) or 4 (2 R*Z + C*Z) bytes a frame.
 // Measured (chip_smoke.py nms_main, NVIDIA H100 80GB HBM3, 700.00 W):
 // 13.29 ms per batch of 65536, where neural_minsum_kernel took 38.58 ms in
 // the same call (2.90x), 15% of the bound; the weights read from L2 14.28
-// ms; depth 0 10.95 ms (depth 2 is 1.21x it).
+// ms; depth 0 10.95 ms (depth 2 is 1.21x it).  nms_large: 20.57 ms at
+// Z=128 depth 2 (slice 1, 8 parts), 35.55 ms at Z=384 (slice 2, 2 parts),
+// 18.51 ms at Z=32 depth 4 (32 parts), where neural_minsum_kernel took
+// 75.68, 73.24 and 83.54 ms in the same call (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -362,8 +397,9 @@ cudaError_t prepare(long long smem) {
 // v2c rebuilt in the check pass, a check-aligned FIFO ring
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxDepth = 3;        // FIFO slots a lifted edge keeps at most
-constexpr int kMaxFrameWarps = 16;  // warps a frame group may have
+// FIFO slots a lifted edge keeps at most: depth 4 takes one more tap and
+// read a rebuild, in every layout; fused_neural keeps deeper FIFOs.
+constexpr int kMaxDepth = 4;
 
 // Words of one iteration's channel weights (K*Z floats), rounded up to 16
 // bytes: the wrapper pads each plane so that it can be copied in 16-byte
@@ -613,6 +649,110 @@ neural_group_kernel(const float* __restrict__ llr, float* __restrict__ bits,
   }
 }
 
+// The slice forms, for frames that do not fit a block.  In shared memory a
+// frame's A (R*Z float2), its column sums (C*Z floats) and, unless WSLICE,
+// its state words W (R*Z), rounded up to 16 bytes (A first, so it is 8-byte
+// aligned at any Z).
+__host__ __device__ inline int slice_frame_words(int Z, int R, int C, bool wslice) {
+  return (2 * R * Z + C * Z + (wslice ? 0 : R * Z) + 3) / 4 * 4;
+}
+
+// A frame's slice of the global scratch: W if WSLICE, then its FIFO (L
+// planes of K*Z floats), rounded up to 16 bytes.
+__host__ __device__ inline long long slice_words(int Z, int R, int K, int L, bool wslice) {
+  return ((wslice ? static_cast<long long>(R) * Z : 0LL) + static_cast<long long>(L) * K * Z +
+          3) / 4 * 4;
+}
+
+// B3 on frame groups, the slice forms: neural_group_kernel's frame loop and
+// passes with the weights read from L2, where a frame's FIFO and, if
+// WSLICE, its state words W live in its slice of `scratch` (slice (b *
+// groups + g) * F + f for frame f of group g of block b) and its LLRs are
+// read from its input row; A, the column sums and otherwise W stay in
+// shared memory.  Entry r*Z + z of W and i*Z + z of each FIFO plane are
+// read and written in the check pass only by the thread of check (r, z),
+// and W is read by other threads of the group only after the group's
+// barrier (column pass), so the slice needs no barrier of its own; scratch
+// is neither const nor __restrict__, so its loads are ordinary (coherent)
+// ones, as retire_zlane_kernel's (fused_retire.cu).
+template <bool POW2, int L, bool WSLICE>
+__global__ void __launch_bounds__(kMaxThreads)
+neural_group_slice_kernel(const float* __restrict__ llr, float* __restrict__ bits,
+                          const int* __restrict__ structure, const float* __restrict__ w,
+                          const float* __restrict__ params, unsigned* scratch, int B, int Z,
+                          int R, int C, int K, int T, int per_iteration, int parts, int groups) {
+  extern __shared__ __align__(16) float smem[];  // as neural_minsum_kernel declares it
+  int* s_struct = reinterpret_cast<int*>(smem);
+  const Structure s = load_structure(s_struct, structure, R, C, K, parts);
+  const Lanes ln = lanes_of(s, Z, parts);
+  const Group& grp = ln.grp;
+  const int n = C * Z, KZ = K * Z, S = L > 1 ? L : 1, pw = plane_words(Z, K);
+  const int F = frames_per_group(Z);
+  const int lane = threadIdx.x & 31;
+  const int fl = F > 1 ? min(lane / Z, F - 1) : 0;
+  const int z = F > 1 ? lane - fl * Z : ln.z;
+  const bool active = F > 1 ? lane < F * Z : ln.active;
+  const int slot = ln.g * F + fl;  // the thread's frame among the block's
+  float2* A = reinterpret_cast<float2*>(smem + structure_words(R, C, K, parts) +
+                                        slot * slice_frame_words(Z, R, C, WSLICE));
+  float* s_cs = reinterpret_cast<float*>(A + R * Z);
+  unsigned* own = scratch + (static_cast<size_t>(blockIdx.x) * groups * F + slot) *
+                                slice_words(Z, R, K, L, WSLICE);
+  unsigned* W = WSLICE ? own : reinterpret_cast<unsigned*>(s_cs + n);
+  float* fifo = reinterpret_cast<float*>(WSLICE ? own + R * Z : own);
+  const float* alpha = params;
+  const float* offset = params + T;
+  const float* w_res = params + 2 * T;  // (T, max(L, 1))
+
+  for (int base = blockIdx.x * groups * F; base < B; base += gridDim.x * groups * F) {
+    const int first = base + ln.g * F;
+    if (first >= B) break;
+    const bool owner = first + fl < B;
+    const int f = owner ? first + fl : B - 1;
+    const float* lf = llr + static_cast<size_t>(f) * n;
+
+    for (int p = 0; p < T; ++p) {
+      if (active) {
+        if (p == 0) {
+          const Rebuild none{};
+          for (int r = ln.r0; r < ln.r1; ++r)
+            check_row<true, POW2, L>(s, lf, s_cs, A, W, fifo, none, __ldg(alpha), __ldg(offset),
+                                     r, z, Z);
+        } else {
+          const int t = p - 1;
+          Rebuild rb;
+          rb.w = w + (per_iteration ? static_cast<size_t>(t) * pw : 0);
+          rb.live = t > 0 ? 1.0f : 0.0f;
+          rb.taps = min(L, t);
+          rb.write = L > 0 ? (p % S) * KZ : 0;
+#pragma unroll
+          for (int l = 0; l < kMaxDepth; ++l) {
+            rb.tap[l] = l < L ? __ldg(w_res + t * S + l) : 0.0f;
+            rb.read[l] = l < L ? ((t - l + S) % S) * KZ : 0;
+          }
+          for (int r = ln.r0; r < ln.r1; ++r)
+            check_row<false, POW2, L>(s, lf, s_cs, A, W, fifo, rb, __ldg(alpha + p),
+                                      __ldg(offset + p), r, z, Z);
+        }
+      }
+      grp.sync();
+      const bool last = p + 1 == T;
+      if (active) {
+        float* out = bits + static_cast<size_t>(f) * n;
+        for (int c = ln.c0; c < ln.c1; ++c) {
+          const int v = c * Z + z;
+          const float cs = state_column_sum<POW2>(s, A, W, c, z, Z);
+          if (!last)
+            s_cs[v] = cs;
+          else if (owner)
+            out[v] = lf[v] + cs < 0.0f ? 1.0f : 0.0f;
+        }
+      }
+      grp.sync();  // the next pass (or frame) overwrites what this one read
+    }
+  }
+}
+
 using GroupKernel = decltype(&neural_group_kernel<true, 0, false>);
 
 template <bool POW2, bool STAGED>
@@ -624,8 +764,10 @@ GroupKernel group_kernel_of_depth(int L) {
       return &neural_group_kernel<POW2, 1, STAGED>;
     case 2:
       return &neural_group_kernel<POW2, 2, STAGED>;
-    default:
+    case 3:
       return &neural_group_kernel<POW2, 3, STAGED>;
+    default:
+      return &neural_group_kernel<POW2, 4, STAGED>;
   }
 }
 
@@ -636,21 +778,69 @@ GroupKernel pick_group_kernel(int Z, int L, int staged) {
   return staged ? group_kernel_of_depth<false, true>(L) : group_kernel_of_depth<false, false>(L);
 }
 
+using SliceKernel = decltype(&neural_group_slice_kernel<true, 0, true>);
+
+template <bool POW2, bool WSLICE>
+SliceKernel slice_kernel_of_depth(int L) {
+  switch (L) {
+    case 0:
+      return &neural_group_slice_kernel<POW2, 0, WSLICE>;
+    case 1:
+      return &neural_group_slice_kernel<POW2, 1, WSLICE>;
+    case 2:
+      return &neural_group_slice_kernel<POW2, 2, WSLICE>;
+    case 3:
+      return &neural_group_slice_kernel<POW2, 3, WSLICE>;
+    default:
+      return &neural_group_slice_kernel<POW2, 4, WSLICE>;
+  }
+}
+
+// slice 1: the FIFO in the slices; 2: the FIFO and W.
+SliceKernel pick_slice_kernel(int Z, int L, int slice) {
+  const bool pow2 = (Z & (Z - 1)) == 0, wslice = slice == 2;
+  if (pow2)
+    return wslice ? slice_kernel_of_depth<true, true>(L) : slice_kernel_of_depth<true, false>(L);
+  return wslice ? slice_kernel_of_depth<false, true>(L) : slice_kernel_of_depth<false, false>(L);
+}
+
 int group_threads(int Z, int parts, int groups) { return 32 * ((Z + 31) / 32) * parts * groups; }
 
-bool valid_group_plan(int Z, int L, int parts, int groups) {
+// A block holds at most 1024 threads and 15 groups (one named barrier each);
+// `slice` is 0 (a whole frame in shared memory), 1 (its FIFO in its slice)
+// or 2 (its FIFO and W), and the slice forms read their weights from L2.
+bool valid_group_plan(int Z, int L, int parts, int groups, int staged, int slice) {
   return L >= 0 && L <= kMaxDepth && parts >= 1 && groups >= 1 && groups <= kMaxGroups &&
-         (Z + 31) / 32 * parts <= kMaxFrameWarps && group_threads(Z, parts, groups) <= kMaxThreads;
+         group_threads(Z, parts, groups) <= kMaxThreads && slice >= 0 && slice <= 2 &&
+         !(staged && slice);
+}
+
+long long group_block_smem(int Z, int R, int C, int K, int L, int parts, int groups, int staged,
+                           int slice) {
+  if (!slice) return group_smem(Z, R, C, K, L, parts, groups, staged);
+  return 4LL * (structure_words(R, C, K, parts) + static_cast<long long>(groups) *
+                                                      frames_per_group(Z) *
+                                                      slice_frame_words(Z, R, C, slice == 2));
 }
 
 // Sets the kernel's dynamic shared memory; with `blocks`, also asks the
 // runtime how many blocks of `threads` can be resident on one SM.
-cudaError_t prepare_group(GroupKernel kernel, long long smem, int threads, int* blocks) {
+template <typename Kernel>
+cudaError_t prepare_group(Kernel kernel, long long smem, int threads, int* blocks) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err == cudaSuccess && blocks != nullptr)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
   return err;
+}
+
+// prepare_group for the layout's kernel.
+cudaError_t prepare_layout(int Z, int R, int C, int K, int L, int parts, int groups, int staged,
+                           int slice, int* blocks) {
+  const long long smem = group_block_smem(Z, R, C, K, L, parts, groups, staged, slice);
+  const int threads = group_threads(Z, parts, groups);
+  return slice ? prepare_group(pick_slice_kernel(Z, L, slice), smem, threads, blocks)
+               : prepare_group(pick_group_kernel(Z, L, staged), smem, threads, blocks);
 }
 
 }  // namespace
@@ -715,43 +905,61 @@ int ldpc_neural_minsum(const void* llr, void* bits, const void* graph, const voi
   return cudaGetLastError();
 }
 
-// The entry point of neural_group_kernel: `grid` blocks of `groups` frame
-// groups (each of frames_per_group(Z) frames) of `parts` parts (the
-// structure's part tables, fused_minsum.py _retire_structure), weights
-// check-aligned per plane (plane_words apart), STAGED where `staged`.
-// Launches on `stream`, no sync; returns a cudaError_t (0 on success).
+// The entry point of neural_group_kernel and, where `slice` (1: the FIFO in
+// the slices, 2: the FIFO and W), neural_group_slice_kernel: `grid` blocks
+// of `groups` frame groups (each of frames_per_group(Z) frames) of `parts`
+// parts (the structure's part tables, fused_minsum.py _retire_structure),
+// weights check-aligned per plane (plane_words apart), STAGED where
+// `staged`; `scratch` (slice forms) holds grid * groups *
+// frames_per_group(Z) slices of ldpc_neural_group_slice_words.  Launches on
+// `stream`, no sync; returns a cudaError_t (0 on success).
 int ldpc_neural_group(const void* llr, void* bits, const void* structure, const void* w,
-                      const void* params, int B, int Z, int R, int C, int K, int T, int L,
-                      int per_iteration, int parts, int groups, int staged, int grid,
-                      void* stream) {
-  if (B < 1 || T < 1 || grid < 1 || !valid_group_plan(Z, L, parts, groups))
+                      const void* params, void* scratch, int B, int Z, int R, int C, int K, int T,
+                      int L, int per_iteration, int parts, int groups, int staged, int slice,
+                      int grid, void* stream) {
+  if (B < 1 || T < 1 || grid < 1 || !valid_group_plan(Z, L, parts, groups, staged, slice) ||
+      (slice && scratch == nullptr))
     return cudaErrorInvalidValue;
-  const long long smem = group_smem(Z, R, C, K, L, parts, groups, staged);
-  const GroupKernel kernel = pick_group_kernel(Z, L, staged);
+  const long long smem = group_block_smem(Z, R, C, K, L, parts, groups, staged, slice);
   const int threads = group_threads(Z, parts, groups);
-  cudaError_t err = prepare_group(kernel, smem, threads, nullptr);
+  cudaError_t err = prepare_layout(Z, R, C, K, L, parts, groups, staged, slice, nullptr);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(llr), static_cast<float*>(bits), static_cast<const int*>(structure),
-      static_cast<const float*>(w), static_cast<const float*>(params), B, Z, R, C, K, T,
-      per_iteration, parts, groups);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* in = static_cast<const float*>(llr);
+  auto* out = static_cast<float*>(bits);
+  const auto* st = static_cast<const int*>(structure);
+  const auto* wt = static_cast<const float*>(w);
+  const auto* par = static_cast<const float*>(params);
+  if (slice) {
+    const SliceKernel kernel = pick_slice_kernel(Z, L, slice);
+    kernel<<<grid, threads, smem, s>>>(in, out, st, wt, par, static_cast<unsigned*>(scratch), B, Z,
+                                       R, C, K, T, per_iteration, parts, groups);
+  } else {
+    const GroupKernel kernel = pick_group_kernel(Z, L, staged);
+    kernel<<<grid, threads, smem, s>>>(in, out, st, wt, par, B, Z, R, C, K, T, per_iteration,
+                                       parts, groups);
+  }
   return cudaGetLastError();
 }
 
 long long ldpc_neural_group_smem_bytes(int Z, int R, int C, int K, int L, int parts, int groups,
-                                       int staged) {
-  return group_smem(Z, R, C, K, L, parts, groups, staged);
+                                       int staged, int slice) {
+  return group_block_smem(Z, R, C, K, L, parts, groups, staged, slice);
+}
+
+// Words of one frame's slice of a slice form's scratch.
+long long ldpc_neural_group_slice_words(int Z, int R, int K, int L, int slice) {
+  return slice_words(Z, R, K, L, slice == 2);
 }
 
 // Resident blocks per SM of a neural_group launch with these arguments, or
 // -cudaError_t.
 int ldpc_neural_group_occupancy(int Z, int R, int C, int K, int L, int parts, int groups,
-                                int staged) {
-  if (!valid_group_plan(Z, L, parts, groups)) return -static_cast<int>(cudaErrorInvalidValue);
+                                int staged, int slice) {
+  if (!valid_group_plan(Z, L, parts, groups, staged, slice))
+    return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
-  const cudaError_t err =
-      prepare_group(pick_group_kernel(Z, L, staged), group_smem(Z, R, C, K, L, parts, groups, staged),
-                    group_threads(Z, parts, groups), &blocks);
+  const cudaError_t err = prepare_layout(Z, R, C, K, L, parts, groups, staged, slice, &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 

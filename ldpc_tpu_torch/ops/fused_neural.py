@@ -1,25 +1,33 @@
 """Fused inference decoder for trained neural min-sum decoders: the whole
 decode in one CUDA kernel (counterpart of ``ldpc_tpu.ops.pallas_neural``).
 
-Two hand-written kernels in ``csrc/fused_neural.cu`` replace
+Hand-written kernels in ``csrc/fused_neural.cu`` replace
 ``pallas_neural.kernel``: the min-sum loop of
 :mod:`ldpc_tpu_torch.ops.fused_minsum` with a trained model's per-iteration
 alpha and offset, per-edge channel weights and residual taps on a FIFO of
 past messages applied.  ``neural_group`` (a frame on a group of warps,
 compressed check state, v2c rebuilt in the check pass) takes every code
-with rows of at most 27 members at depth 0 to 3 whose frame fits a block
-(:func:`neural_group_fits`); ``fused_neural`` takes the rest.  They serve a
-:class:`ldpc_tpu_torch.models.neural_min_sum.NeuralMinSumDecoder` with
-``output_mode="sum_plus_input"``: input (B, n) float32 LLRs, output (B, n)
-float32 hard bits of ``llr + colsum(c2v)`` after ``num_iterations`` check
-halves.
+with rows of at most 27 members at depth 0 to 4 (:func:`neural_group_fits`),
+in one of three layouts (:data:`SLICE_LAYOUTS`, :func:`neural_group_layout`)
+chosen by measurement (``chip_smoke.py`` nms_large): the whole frame in
+shared memory wherever it fits (the slice forms ran 19-30% slower at NR BG2
+Z=32 depth 4); else its FIFO in a slice of global scratch that stays in L2,
+its check state and column sums in shared memory (form 1: NR BG2 Z=128,
+201,728 B of FIFO a frame at depth 2); else its state words in the slice
+too (form 2: Z=384, whose A and column sums alone take 208,896 B).
+``fused_neural`` takes the rest: rows over 27 members, depth 5 and more.
+They serve a :class:`ldpc_tpu_torch.models.neural_min_sum.NeuralMinSumDecoder`
+with ``output_mode="sum_plus_input"``: input (B, n) float32 LLRs, output
+(B, n) float32 hard bits of ``llr + colsum(c2v)`` after ``num_iterations``
+check halves.
 
 :func:`make_fused_neural_minsum` returns a :class:`FusedNeuralDecoder`.
 Called on a CUDA tensor it launches its route's kernel (and raises if the
 launch fails); called on a CPU tensor it runs the plain PyTorch version,
 which repeats the kernels' float operations in the same order, so all
-three give identical bits.  ``plain(llr)`` runs the plain version on any
-device.  ``LAUNCHES`` counts kernel launches by kernel.
+give identical bits.  ``plain(llr)`` runs the plain version on any
+device.  ``LAUNCHES`` counts kernel launches by kernel (``neural_group``
+counts every layout).
 """
 from __future__ import annotations
 
@@ -42,10 +50,10 @@ from ldpc_tpu_torch.ops.qc_msg import _BIG
 LAUNCHES: dict[str, int] = {"fused_neural": 0, "neural_group": 0}
 
 _THREADS = 512  # kThreads in csrc/fused_neural.cu
-_GROUP_MAX_DEPTH = 3  # kMaxDepth: FIFO slots a lifted edge keeps
-_GROUP_MAX_FRAME_WARPS = 16  # kMaxFrameWarps: warps a frame group may have
-# Warps a group of the default plan has at most: at nms_main (NR BG2 Z=32,
-# depth 2) 14 parts run 2-5% faster than 16 (PERF.md, chip_smoke.py's parts sweep).
+_GROUP_MAX_DEPTH = 4  # kMaxDepth: FIFO slots a lifted edge keeps
+# Warps a group of the default plan has at most where its SM holds others:
+# at nms_main (NR BG2 Z=32, depth 2, two groups an SM) 14 parts run 2-5%
+# faster than 16 (PERF.md, chip_smoke.py's parts sweep).
 _GROUP_PLAN_WARPS = 14
 
 
@@ -160,13 +168,30 @@ def _plane_words(qc: QCLayout) -> int:
     return -(-qc.num_base_edges * qc.Z // 4) * 4
 
 
-def neural_group_frame_bytes(qc: QCLayout, depth_L: int) -> int:
-    """Shared memory of one ``neural_group`` frame: its LLRs and column sums
-    (C*Z float32 each), its compressed check state (3 words per lifted
-    check) and its FIFO (``depth_L`` floats per lifted edge), rounded up to
-    16 bytes."""
+# neural_group's layouts (``slice``): 0 keeps a whole frame in shared memory;
+# the slice forms keep its FIFO (1), or its FIFO and its state words (2), in
+# its slice of a global scratch.
+SLICE_LAYOUTS = (0, 1, 2)
+
+
+def neural_group_frame_bytes(qc: QCLayout, depth_L: int, slice: int = 0) -> int:
+    """Shared memory of one ``neural_group`` frame, rounded up to 16 bytes:
+    its LLRs and column sums (C*Z float32 each), its compressed check state
+    (A and W, 3 words per lifted check) and its FIFO (``depth_L`` floats per
+    lifted edge); in a slice form only its A, column sums and, in form 1,
+    its W, the rest being in its slice (:func:`neural_group_scratch_bytes`)."""
     Z, R, C, K = qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges
-    return 4 * -(-(2 * C * Z + 3 * R * Z + depth_L * K * Z) // 4) * 4
+    words = {0: 2 * C * Z + 3 * R * Z + depth_L * K * Z, 1: 3 * R * Z + C * Z,
+             2: 2 * R * Z + C * Z}[slice]
+    return 4 * -(-words // 4) * 4
+
+
+def neural_group_scratch_bytes(qc: QCLayout, depth_L: int, slice: int = 2) -> int:
+    """One frame's slice of a slice form's global scratch, rounded up to 16
+    bytes: its state words (R*Z, form 2) and its FIFO (``depth_L`` planes of
+    K*Z float32)."""
+    Z, R, K = qc.Z, qc.num_base_rows, qc.num_base_edges
+    return 4 * -(-((R * Z if slice == 2 else 0) + depth_L * K * Z) // 4) * 4
 
 
 def frames_per_group(qc: QCLayout) -> int:
@@ -176,52 +201,80 @@ def frames_per_group(qc: QCLayout) -> int:
 
 
 def neural_group_smem_bytes(qc: QCLayout, depth_L: int, parts: int = 1, groups: int = 1,
-                            staged: bool = False) -> int:
+                            staged: bool = False, slice: int = 0) -> int:
     """Dynamic shared memory of one ``neural_group`` block: the structure of
     ``parts`` parts, two weight planes if ``staged``, and ``groups`` frame
-    groups of :func:`frames_per_group` frames."""
+    groups of :func:`frames_per_group` frames in layout ``slice``."""
+    if staged and slice:
+        raise ValueError("the slice form reads its weights from L2 (staged=False)")
     return (4 * _retire_structure_words(qc, parts) + (8 * _plane_words(qc) if staged else 0)
-            + groups * frames_per_group(qc) * neural_group_frame_bytes(qc, depth_L))
+            + groups * frames_per_group(qc) * neural_group_frame_bytes(qc, depth_L, slice))
 
 
-def neural_group_plans(qc: QCLayout, depth_L: int, staged: bool = False) -> list[tuple[int, int]]:
+def neural_group_plans(qc: QCLayout, depth_L: int, staged: bool = False,
+                       slice: int = 0) -> list[tuple[int, int]]:
     """The (parts, frame groups per block) a ``neural_group`` launch may
-    take: at most 16 warps a group, 15 groups and 1024 threads a block,
-    parts no more than the base rows or columns, within shared memory."""
-    zw = -(-qc.Z // 32)
-    most = min(_GROUP_MAX_FRAME_WARPS // zw, qc.num_base_rows, qc.num_base_cols)
+    take in the layout asked for: at most 15 groups and 1024 threads a
+    block, parts no more than the base rows or columns, within shared
+    memory.  No plan is both staged and in a slice form."""
+    if staged and slice:
+        return []
+    most = min(qc.num_base_rows, qc.num_base_cols)
     return [(p, f) for p in range(1, most + 1) for f in range(1, _RETIRE_MAX_GROUPS + 1)
             if retire_threads(qc, p, f) <= _RETIRE_MAX_THREADS
-            and neural_group_smem_bytes(qc, depth_L, p, f, staged) <= _SMEM_BUDGET]
+            and neural_group_smem_bytes(qc, depth_L, p, f, staged, slice) <= _SMEM_BUDGET]
 
 
 def neural_group_fits(qc: QCLayout, depth_L: int) -> bool:
     """Whether ``neural_group`` takes the code: rows of at most 27 members
-    (the signs a state word holds), depth 0 to 3 and a frame within a
-    block."""
+    (the signs a state word holds), depth 0 to 4, and a plan in some layout
+    (:data:`SLICE_LAYOUTS`)."""
     return (qc.dr_max <= _RETIRE_MAX_DEGREE and 0 <= depth_L <= _GROUP_MAX_DEPTH
-            and bool(neural_group_plans(qc, depth_L)))
+            and neural_group_layout(qc, depth_L) is not None)
+
+
+def neural_group_layout(qc: QCLayout, depth_L: int) -> int | None:
+    """The layout ``neural_group`` decodes the code in: the first of
+    :data:`SLICE_LAYOUTS` with a plan (a whole frame in shared memory where
+    it fits, else the FIFO in the slices, else the FIFO and the state
+    words), or None."""
+    return next((s for s in SLICE_LAYOUTS if neural_group_plans(qc, depth_L, slice=s)), None)
 
 
 def neural_group_plan(qc: QCLayout, depth_L: int, staged: bool, parts: int | None = None,
-                      lib=None) -> tuple[int, int, int]:
+                      lib=None, slice: int = 0, sms: int | None = None,
+                      l2_bytes: int | None = None) -> tuple[int, int, int]:
     """(parts, frame groups per block, resident blocks per SM) of
-    ``neural_group``: of :func:`neural_group_plans` (those with ``parts``
-    if given, else those of at most 14 warps a group, the fastest in the
-    parts sweep of ``chip_smoke.py`` nms_main), the most resident groups per
-    SM by the runtime's occupancy query, then the most parts, then the
-    fewest groups per block."""
+    ``neural_group`` in layout ``slice``: of :func:`neural_group_plans` (those
+    with ``parts`` if given), the most resident frame groups an SM by the
+    runtime's occupancy query whose slices in flight on ``sms`` SMs fit the
+    ``l2_bytes`` of L2 (one group an SM always does; the current card's
+    counts by default), then the most parts, then the fewest groups a block.
+    Unless ``parts`` is given, a group has more than 14 warps only where it
+    is its SM's only one.  Measured (PERF.md, chip_smoke.py nms_main and
+    nms_large): at two groups an SM 14 parts ran 2-5% faster than 16 at Z=32;
+    alone, the most warps ran fastest (32 at Z=32 depth 4, 8 parts of 4
+    warps at Z=128, 2 of 12 at Z=384), and at Z=128 two groups an SM, 53 MB
+    of slices, ran 27-31% slower than one."""
     lib = lib or kernel_library()
+    if sms is None or l2_bytes is None:
+        props = torch.cuda.get_device_properties(torch.cuda.current_device())
+        sms, l2_bytes = props.multi_processor_count, props.L2_cache_size
     dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges, depth_L)
     zw = -(-qc.Z // 32)
-    best, key = (0, 0, 0), (0, 0, 0)
-    for p, f in neural_group_plans(qc, depth_L, staged):
-        allowed = p == parts if parts is not None else p * zw <= _GROUP_PLAN_WARPS
-        if not allowed:
+    group_slices = neural_group_scratch_bytes(qc, depth_L, slice) * frames_per_group(qc) \
+        if slice else 0
+    best, key = (0, 0, 0), None
+    for p, f in neural_group_plans(qc, depth_L, staged, slice):
+        if parts is not None and p != parts:
             continue
-        per_sm = lib.ldpc_neural_group_occupancy(*dims, p, f, int(staged))
-        if (per_sm * f, p, -f) > key:
-            best, key = (p, f, per_sm), (per_sm * f, p, -f)
+        per_sm = lib.ldpc_neural_group_occupancy(*dims, p, f, int(staged), int(slice))
+        groups = per_sm * f
+        if parts is None and p * zw > _GROUP_PLAN_WARPS and groups > 1:
+            continue
+        fits = groups <= 1 or groups * sms * group_slices <= l2_bytes
+        if per_sm > 0 and (key is None or (fits, groups, p, -f) > key):
+            best, key = (p, f, per_sm), (fits, groups, p, -f)
     return best
 
 
@@ -330,13 +383,15 @@ def neural_decode_plain(llr: torch.Tensor, ix: _PlainIndex, edge_var: torch.Tens
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # llr, bits, structure, w, params, B, Z, R, C, K, T, L, per_iteration,
-    # parts, groups, staged, grid, stream
-    "ldpc_neural_group": ([_P] * 5 + [_I] * 12 + [_P], _I),
-    # Z, R, C, K, L, parts, groups, staged
-    "ldpc_neural_group_smem_bytes": ([_I] * 8, ctypes.c_longlong),
-    # Z, R, C, K, L, parts, groups, staged -> blocks per SM
-    "ldpc_neural_group_occupancy": ([_I] * 8, _I),
+    # llr, bits, structure, w, params, scratch, B, Z, R, C, K, T, L,
+    # per_iteration, parts, groups, staged, slice, grid, stream
+    "ldpc_neural_group": ([_P] * 6 + [_I] * 13 + [_P], _I),
+    # Z, R, C, K, L, parts, groups, staged, slice
+    "ldpc_neural_group_smem_bytes": ([_I] * 9, ctypes.c_longlong),
+    # Z, R, K, L, slice -> words of one frame's slice
+    "ldpc_neural_group_slice_words": ([_I] * 5, ctypes.c_longlong),
+    # Z, R, C, K, L, parts, groups, staged, slice -> blocks per SM
+    "ldpc_neural_group_occupancy": ([_I] * 9, _I),
     # llr, bits, graph, w, params, scratch, B, Z, R, C, K, T, L, per_iteration,
     # fpb, shared, grid, stream
     "ldpc_neural_minsum": ([_P] * 6 + [_I] * 11 + [_P], _I),
@@ -361,7 +416,9 @@ class FusedNeuralDecoder:
     Launches the ``route`` kernel for CUDA tensors and runs the plain
     version for CPU tensors; ``plain(llr)`` runs the plain version on any
     device.  ``route`` is ``neural_group`` where :func:`neural_group_fits`
-    takes the code and depth, else ``fused_neural``.
+    takes the code and depth, else ``fused_neural``; ``layout`` is
+    ``neural_group``'s (:func:`neural_group_layout`), None on the other
+    route.
     """
 
     def __init__(self, qc: QCLayout, params, num_iterations: int, depth_L: int,
@@ -373,6 +430,8 @@ class FusedNeuralDecoder:
         self.depth_L = int(depth_L)
         self.per_iteration = bool(per_iteration)
         self.route = "neural_group" if neural_group_fits(qc, self.depth_L) else "fused_neural"
+        self.layout = (neural_group_layout(qc, self.depth_L) if self.route == "neural_group"
+                       else None)
         self.shared, self.frames_per_block = neural_plan(qc, self.num_iterations, self.depth_L)
         self.tables = _Tables(qc, params, self.num_iterations, self.depth_L, self.per_iteration,
                               device)
@@ -382,9 +441,8 @@ class FusedNeuralDecoder:
         self._edge_var = (qc.edge_col[:, None] * qc.Z + z).reshape(-1)
         self._plain_index: dict[torch.device, tuple] = {}
         self._grid: int | None = None
-        # neural_group's launch plans (parts, frame groups per block, staged,
-        # resident blocks, structure on that card) by (card, parts, staged
-        # asked for).
+        # neural_group's launch plans (_plan) by (card, parts, staged,
+        # layout, groups asked for).
         self._group_plans: dict[tuple, tuple] = {}
 
     def __call__(self, llr: torch.Tensor) -> torch.Tensor:
@@ -409,12 +467,10 @@ class FusedNeuralDecoder:
                                        self.depth_L)
 
     def _launch_group(self, llr: torch.Tensor, parts: int | None = None,
-                      staged: bool | None = None) -> torch.Tensor:
-        """``neural_group`` on ``llr`` (contiguous, on a card); ``parts``
-        fixes the parts a frame is split into and ``staged`` whether the
-        weights are read from shared memory, instead of the plan's choice
-        (staged where a plan with the two weight planes fits, since that ran
-        7% faster at nms_main; from L2 elsewhere)."""
+                      staged: bool | None = None, slice: int | None = None,
+                      groups: int | None = None) -> torch.Tensor:
+        """``neural_group`` on ``llr`` (contiguous, on a card), on the plan
+        of :meth:`_plan` with the same arguments."""
         st, tb = self.st, self.tables
         B = llr.shape[0]
         bits = torch.empty_like(llr)
@@ -422,29 +478,71 @@ class FusedNeuralDecoder:
             return bits
         lib = kernel_library()
         with torch.cuda.device(llr.device):
-            key = (llr.device, parts, staged)
-            plan = self._group_plans.get(key)
-            if plan is None:
-                stage = True if staged is None else staged
-                p, groups, per_sm = neural_group_plan(self.qc, self.depth_L, stage, parts, lib)
-                if staged is None and not per_sm:
-                    stage = False
-                    p, groups, per_sm = neural_group_plan(self.qc, self.depth_L, False, parts, lib)
-                resident = _resident_grid(per_sm, "neural_group", llr.device)
-                structure = torch.as_tensor(_retire_structure(st, p), device=llr.device)
-                plan = self._group_plans[key] = (p, groups, stage, resident, structure)
-            p, groups, stage, resident, structure = plan
-            grid = min(resident, -(-B // (groups * frames_per_group(self.qc))))
+            p, f, stage, sliced, resident, structure = self._plan(llr.device, parts, staged,
+                                                                  slice, groups)
+            frames = f * frames_per_group(self.qc)
+            grid = min(resident, -(-B // frames))
+            scratch = None
+            if sliced:
+                words = grid * frames * neural_group_scratch_bytes(self.qc, self.depth_L,
+                                                                   sliced) // 4
+                scratch = torch.empty((max(words, 4),), dtype=torch.float32, device=llr.device)
             stream = torch.cuda.current_stream(llr.device).cuda_stream
             rc = lib.ldpc_neural_group(
                 llr.data_ptr(), bits.data_ptr(), structure.data_ptr(), tb.wc.data_ptr(),
-                tb.params.data_ptr(), B, st.Z, st.R, st.C, st.K, self.num_iterations,
-                self.depth_L, int(self.per_iteration), p, groups, int(stage), grid, stream)
+                tb.params.data_ptr(), None if scratch is None else scratch.data_ptr(), B, st.Z,
+                st.R, st.C, st.K, self.num_iterations, self.depth_L, int(self.per_iteration), p, f,
+                int(stage), int(sliced), grid, stream)
         if rc != 0:
             msg = lib.ldpc_neural_cuda_error_string(rc).decode()
             raise RuntimeError(f"neural_group kernel launch failed: CUDA error {rc} ({msg})")
         LAUNCHES["neural_group"] += 1
         return bits
+
+    def _plan(self, device: torch.device, parts: int | None = None, staged: bool | None = None,
+              slice: int | None = None, groups: int | None = None) -> tuple:
+        """``neural_group``'s launch plan on ``device`` (a card): (parts,
+        frame groups a block, staged, layout, resident blocks on the card,
+        structure tensor).  ``parts`` fixes the parts a frame is split into,
+        ``staged`` whether the weights are read from shared memory,
+        ``slice`` the layout (:data:`SLICE_LAYOUTS`) and ``groups`` the frame
+        groups a block, instead of the plan's choice (:attr:`layout`; staged
+        where a plan with the two weight planes fits, since that ran 7%
+        faster at nms_main; from L2 elsewhere)."""
+        key = (device, parts, staged, slice, groups)
+        plan = self._group_plans.get(key)
+        if plan is None:
+            lib = kernel_library()
+            sliced = self.layout if slice is None else slice
+            if sliced is None:
+                raise ValueError("neural_group does not take this code "
+                                 f"(rows of {self.qc.dr_max} members, depth {self.depth_L})")
+            with torch.cuda.device(device):
+                stage = (not sliced) if staged is None else staged
+                p, f, per_sm = self._group_plan(stage, parts, sliced, groups, lib)
+                if staged is None and stage and not per_sm:
+                    stage = False
+                    p, f, per_sm = self._group_plan(False, parts, sliced, groups, lib)
+                resident = _resident_grid(per_sm, "neural_group", device)
+            structure = torch.as_tensor(_retire_structure(self.st, p), device=device)
+            plan = self._group_plans[key] = (p, f, stage, sliced, resident, structure)
+        return plan
+
+    def _group_plan(self, staged: bool, parts: int | None, slice: int, groups: int | None,
+                    lib) -> tuple[int, int, int]:
+        """:func:`neural_group_plan`, or with ``groups`` the plan of that
+        many groups a block (and ``parts``, else the most that fit)."""
+        if groups is None:
+            return neural_group_plan(self.qc, self.depth_L, staged, parts, lib, slice)
+        dims = (self.qc.Z, self.qc.num_base_rows, self.qc.num_base_cols,
+                self.qc.num_base_edges, self.depth_L)
+        p = max((q for q, f in neural_group_plans(self.qc, self.depth_L, staged, slice)
+                 if f == groups and (parts is None or q == parts)), default=0)
+        if not p:
+            raise ValueError(f"neural_group has no plan of {groups} groups a block"
+                             f"{'' if parts is None else f' and {parts} parts'}")
+        return p, groups, lib.ldpc_neural_group_occupancy(*dims, p, groups, int(staged),
+                                                          int(slice))
 
     def _launch_minsum(self, llr: torch.Tensor) -> torch.Tensor:
         """``fused_neural`` on ``llr`` (contiguous, on a card) whatever the

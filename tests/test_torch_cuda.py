@@ -853,25 +853,42 @@ def _nms_model(plan, T, L, sharing, learn_a, learn_o, per_it):
     return _add_noise(model, 0.1, torch.Generator().manual_seed(T + L))
 
 
+def _row31_code():
+    """A (4, 32) base graph at Z=4 whose first row has 31 members, more than
+    neural_group's state word holds signs of."""
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    shifts = np.where(rng.random((4, 32)) < 0.3, rng.integers(0, 4, (4, 32)), -1)
+    shifts[0] = np.where(np.arange(32) < 31, rng.integers(0, 4, 32), -1)
+    shifts[1, 31:] = 0
+    return tcodes.qc_layout(tcodes.BaseGraph("row31", shifts), 4)
+
+
 @pytest.mark.parametrize("name,Z,batch", [("toy_4x8", 4, 19), ("nr_2_0_4", 4, 21),
-                                          ("nr_2_0_32", 32, 5), ("nr_2_0_32", 128, 3)])
+                                          ("nr_2_0_32", 32, 5), ("nr_2_0_32", 128, 3),
+                                          ("row31", 4, 19)])
 @pytest.mark.parametrize("sharing,L,learn_a,learn_o,per_it", [
     ("scalar", 0, False, False, False), ("cell", 2, True, False, False),
     ("type", 1, True, False, True), ("edge", 2, True, True, True), ("edge", 3, True, True, False)])
 def test_fused_neural_kernel_matches_plain(name, Z, batch, sharing, L, learn_a, learn_o, per_it):
-    """B3: bits identical to the plain version; Z=128 keeps the state in
-    global scratch."""
+    """B3's fused_neural: bits identical to the plain version; Z=128 keeps
+    the state in global scratch.  Codes neural_group takes reach it through
+    the side door (_launch_minsum); the row of 31 members through its
+    route."""
     from ldpc_tpu_torch.ops import fused_neural as fn
 
-    qc = tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+    qc = _row31_code() if name == "row31" else tcodes.qc_layout(tcodes.get_base_graph(name), Z)
     model = _nms_model(qc_msg.make_plan(qc), 4, L, sharing, learn_a, learn_o, per_it)
     dec = fn.make_fused_neural_minsum(qc, model, 4, L, per_iteration=per_it)
     assert dec.shared == (Z != 128)
+    assert dec.route == ("fused_neural" if name == "row31" else "neural_group")
     llr = _llr(qc.num_vars, batch, 1.0, seed=Z + L)
-    before = fn.LAUNCHES[dec.route]
-    bits_k, bits_p = dec(llr), dec.plain(llr)
+    before = fn.LAUNCHES["fused_neural"]
+    bits_k = dec(llr) if dec.route == "fused_neural" else dec._launch_minsum(llr)
+    bits_p = dec.plain(llr)
     torch.cuda.synchronize()
-    assert fn.LAUNCHES[dec.route] == before + 1
+    assert fn.LAUNCHES["fused_neural"] == before + 1
     assert bits_k.is_cuda and torch.equal(bits_k, bits_p)
 
 
@@ -947,6 +964,60 @@ def test_neural_group_groups_take_several_frames(staged):
     F = fn.frames_per_group(qc)
     llr = _llr(qc.num_vars, 3 * groups * F + per_block * F // 2 + 3, 1.0, seed=4)
     assert torch.equal(dec._launch_group(llr, staged=staged), dec.plain(llr))
+
+
+@pytest.mark.parametrize("L", [0, 2, 4])
+@pytest.mark.parametrize("Z,batch", [(128, 7), (384, 3)])
+def test_neural_group_large_z_matches_plain(Z, batch, L):
+    """B3 on neural_group at nr_2_0_32 Z=128 and Z=384, where a frame
+    exceeds a block (but at Z=128 depth 0): its route, and every slice form
+    with a plan (the FIFO in the slices, at Z=128 also with W there; Z=384
+    only with both) at every parts count and frame-group count, bits
+    identical to the plain version; T=6 so that depth 4's taps all run."""
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    qc, dec = _neural_group_decoder("nr_2_0_32", Z, "edge", L, True, True, True, T=6)
+    assert dec.layout == (2 if Z == 384 else 1 if L else 0)  # Z=128 L=0: 117,760 B a frame
+    llr = _llr(qc.num_vars, batch, 1.0, seed=Z + L)
+    bits_p = dec.plain(llr)
+    assert torch.equal(dec(llr), bits_p)
+    for layout in (1, 2):
+        for p, f in fn.neural_group_plans(qc, L, slice=layout):
+            assert torch.equal(dec._launch_group(llr, parts=p, slice=layout, groups=f),
+                               bits_p), (layout, p, f)
+
+
+@pytest.mark.parametrize("Z,batch", [(32, 9), (4, 37)])
+def test_neural_group_depth_4_matches_plain(Z, batch):
+    """Depth 4 at nr_2_0_32 Z=32 (one whole frame a block, 130,304 B) and
+    Z=4: the route and each layout forced, every parts count of each."""
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    qc, dec = _neural_group_decoder("nr_2_0_32" if Z == 32 else "nr_2_0_4", Z, "edge", 4, True,
+                                    True, True, T=7)
+    llr = _llr(qc.num_vars, batch, 1.0, seed=Z)
+    bits_p = dec.plain(llr)
+    assert torch.equal(dec(llr), bits_p)
+    for layout in fn.SLICE_LAYOUTS:
+        for p in sorted({p for p, _ in fn.neural_group_plans(qc, 4, slice=layout)}):
+            assert torch.equal(dec._launch_group(llr, parts=p, slice=layout, staged=False),
+                               bits_p), (layout, p)
+
+
+@pytest.mark.parametrize("layout", [1, 2])
+@pytest.mark.parametrize("name,Z,batch,sharing,L,learn_a,learn_o,per_it", NEURAL_GROUP_CASES)
+def test_neural_group_slice_forced_matches_shared(name, Z, batch, sharing, L, learn_a, learn_o,
+                                                  per_it, layout):
+    """The slice forms forced where a whole frame fits a block (Z=4 to
+    64): bits identical to the shared layout's and the plain version's,
+    with the plan's parts and with one part."""
+    qc, dec = _neural_group_decoder(name, Z, sharing, L, learn_a, learn_o, per_it)
+    assert dec.layout == 0
+    llr = _llr(qc.num_vars, batch, 1.0, seed=Z + L + layout)
+    shared, bits_p = dec._launch_group(llr, slice=0), dec.plain(llr)
+    assert torch.equal(shared, bits_p)
+    assert torch.equal(dec._launch_group(llr, slice=layout), bits_p)
+    assert torch.equal(dec._launch_group(llr, slice=layout, parts=1), bits_p)
 
 
 @pytest.mark.parametrize("name,Z,batch,sharing,L,learn_a,learn_o,per_it", NEURAL_GROUP_CASES)
@@ -1061,22 +1132,28 @@ def test_msg_gnn_v1_v4_exact_inputs_identical(kind, code, Z, h, batch, inject, s
     assert torch.equal(soft_k, soft_p)
 
 
-@pytest.mark.parametrize("kind", ["fused_neural", *MSG_BUILDERS, *GNN_BUILDERS])
+@pytest.mark.parametrize("kind", ["fused_neural", "neural_group", *MSG_BUILDERS, *GNN_BUILDERS])
 def test_resident_blocks_decode_several_frames(kind):
     """A batch of three frames or more per resident block, so that each block
     takes later frames into the scratch slice or shared state its earlier
-    frames used: B3 with its state in global scratch (Z=128) bits identical,
-    B6-B9 at the T=2 bar, B4 and B5 at the corrected bars."""
+    frames used: B3 at Z=128 with its state in global scratch (fused_neural,
+    through the side door) and in the slice form (neural_group, three frames
+    or more for every resident frame group) bits identical, B6-B9 at the
+    T=2 bar, B4 and B5 at the corrected bars."""
     from ldpc_tpu_torch.ops import fused_neural as fn
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    if kind == "fused_neural":
+    if kind in ("fused_neural", "neural_group"):
         qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 128)
         dec = fn.make_fused_neural_minsum(qc, _nms_model(qc_msg.make_plan(qc), 4, 2, "edge", True,
                                                          True, True), 4, 2, per_iteration=True)
-        assert not dec.shared
-        dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges, 4, 2)
-        resident = fn.kernel_library().ldpc_neural_occupancy(*dims, 1, 0) * sms
+        assert not dec.shared and dec.route == "neural_group" and dec.layout
+        if kind == "fused_neural":
+            dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges, 4, 2)
+            resident = fn.kernel_library().ldpc_neural_occupancy(*dims, 1, 0) * sms
+        else:  # frame groups in flight
+            _, f, _, _, blocks, _ = dec._plan(torch.device("cuda", 0))
+            resident = blocks * f
     elif kind in GNN_BUILDERS:
         qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_4"), 4)
         dec = GNN_BUILDERS[kind](qc, _corrected_model(qc_msg.make_plan(qc), 2, 64, True, False,
@@ -1089,9 +1166,10 @@ def test_resident_blocks_decode_several_frames(kind):
                                  input_injection=True)
         resident = fg.msg_gnn_tc_plan(qc, 64, True, kind)[1] * sms
     llr = _llr(qc.num_vars, 3 * resident + 1, 1.0, seed=5)
-    out_k, out_p = dec(llr), dec.plain(llr)
+    out_k = dec._launch_minsum(llr) if kind == "fused_neural" else dec(llr)
+    out_p = dec.plain(llr)
     torch.cuda.synchronize()
-    if kind == "fused_neural":
+    if kind in ("fused_neural", "neural_group"):
         assert torch.equal(out_k, out_p)
     elif kind in GNN_BUILDERS:
         (soft_k, conv_k), (soft_p, conv_p) = out_k, out_p

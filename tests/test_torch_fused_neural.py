@@ -1,8 +1,10 @@
-"""B3, the ``fused_neural`` kernel (replaces ldpc_tpu/ops/pallas_neural.py:111
-``kernel``): ``_pack_weights`` equal to the JAX function's; the kernel's plain
-PyTorch version against ``make_fused_neural_minsum(..., interpret=True)`` at
-toy_4x8 and against ``model.apply`` at nr_2_0_4 Z=4 and toy_4x8 Z=32, bits
-identical (the JAX package's own bar, tests/test_pallas_neural.py)."""
+"""B3, the ``fused_neural`` and ``neural_group`` kernels (replace
+ldpc_tpu/ops/pallas_neural.py:111 ``kernel``): ``_pack_weights`` equal to
+the JAX function's; the kernels' plain PyTorch version against
+``make_fused_neural_minsum(..., interpret=True)`` at toy_4x8 (depth 0, 1
+and 4) and against ``model.apply`` at nr_2_0_4 Z=4 (depth 1, 2 and 4),
+toy_4x8 Z=32 and nr_2_0_32 Z=128 (the slice form's shape), bits identical
+(the JAX package's own bar, tests/test_pallas_neural.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,18 +38,21 @@ def test_pack_weights_matches_jax(sharing, depth, learn_a, learn_o, per_it):
             np.testing.assert_array_equal(g, np.asarray(w))
 
 
-@pytest.mark.parametrize("sharing,depth,learn_a,learn_o,per_it", [FLAG_CASES[0], FLAG_CASES[3]])
+@pytest.mark.parametrize("sharing,depth,learn_a,learn_o,per_it",
+                         [FLAG_CASES[0], FLAG_CASES[3], ("edge", 4, True, True, True)])
 def test_plain_matches_jax_kernel(sharing, depth, learn_a, learn_o, per_it):
     """The JAX kernel in Pallas interpret mode, on a batch that is not a
-    multiple of its batch tile."""
+    multiple of its batch tile; depth 4 over 6 iterations, so that every
+    tap of its FIFO reaches the decisions."""
     qj, pj, qt, pt = plans("toy_4x8", 4)
     llr = bpsk_llrs(qt.num_vars, 11, 1.0, seed=1)
-    kw = flags(sharing, depth, learn_a, learn_o, per_it)
+    T = 6 if depth == 4 else 3
+    kw = flags(sharing, depth, learn_a, learn_o, per_it, T=T)
     _, params, mt = nms_pair(pj, pt, llr, seed=2, **kw)
-    want = jpn.make_fused_neural_minsum(qj, params, 3, depth, batch_tile=8, interpret=True,
+    want = jpn.make_fused_neural_minsum(qj, params, T, depth, batch_tile=8, interpret=True,
                                         per_iteration=per_it)(jnp.asarray(llr))
     launches = dict(tfn.LAUNCHES)
-    dec = tfn.make_fused_neural_minsum(qt, mt, 3, depth, per_iteration=per_it, device="cpu")
+    dec = tfn.make_fused_neural_minsum(qt, mt, T, depth, per_iteration=per_it, device="cpu")
     got = dec(torch.from_numpy(llr))
     assert tfn.LAUNCHES == launches  # a CPU tensor never reaches the kernel
     assert got.shape == llr.shape and got.dtype == torch.float32
@@ -58,17 +63,22 @@ def test_plain_matches_jax_kernel(sharing, depth, learn_a, learn_o, per_it):
 @pytest.mark.parametrize("name,Z,case", [("nr_2_0_4", 4, FLAG_CASES[1]),
                                          ("nr_2_0_4", 4, FLAG_CASES[2]),
                                          ("nr_2_0_4", 4, FLAG_CASES[3]),
-                                         ("toy_4x8", 32, ("edge", 2, True, True, True))])
+                                         ("toy_4x8", 32, ("edge", 2, True, True, True)),
+                                         ("nr_2_0_32", 128, ("edge", 2, True, True, True)),
+                                         ("nr_2_0_4", 4, ("edge", 4, True, True, True))])
 def test_plain_matches_module(name, Z, case):
     """Bits identical to ``model.decode`` of the flax module, at a 5G base
     graph and at the production lifting Z=32 (per-iteration offset min-sum,
-    edge sharing, as the committed Z=32 checkpoint)."""
+    edge sharing, as the committed Z=32 checkpoint), at nr_2_0_32 Z=128
+    (neural_group's slice form) and at depth 4 over 6 iterations."""
     _, pj, qt, pt = plans(name, Z)
     llr = bpsk_llrs(qt.num_vars, 8, 1.5, seed=4)
-    kw = flags(*case, T=4)
+    T = 6 if case[1] == 4 else 4
+    kw = flags(*case, T=T)
     mj, params, mt = nms_pair(pj, pt, llr, seed=5, **kw)
     want = np.asarray(mj.decode(params, jnp.asarray(llr), pj))
-    dec = tfn.make_fused_neural_minsum(qt, mt, 4, case[1], per_iteration=case[4], device="cpu")
+    dec = tfn.make_fused_neural_minsum(qt, mt, T, case[1], per_iteration=case[4], device="cpu")
+    assert dec.route == "neural_group"
     got = dec(torch.from_numpy(llr)).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(dec.plain(torch.from_numpy(llr)).numpy(), got)

@@ -14,10 +14,13 @@ tests/test_torch_fused_neural.py):
   tables (structure and parts, check-aligned weights, parameters), whose
   c2v, expanded from the state after every iteration, and bits equal
   ``neural_decode_plain``'s bit for bit, over every weight sharing, depth
-  0-3, per-iteration parameters on and off, learnable alpha and offset
-  (negative ones too), tied magnitudes and +-0.0 LLRs;
-* the shared-memory plans with fixed byte counts, the weight repacking and
-  the routes.
+  0-4, per-iteration parameters on and off, learnable alpha and offset
+  (negative ones too), tied magnitudes and +-0.0 LLRs; in the slice forms
+  (``neural_group_slice_kernel``) with the FIFO, and in form 2 the state
+  words, read and written in place in a NaN-filled flat scratch laid out
+  as the kernel's slices, reused frame after frame and never cleared;
+* the shared-memory and scratch plans with fixed byte counts (Z=32, 128
+  and 384), the weight repacking and the routes.
 """
 import numpy as np
 import pytest
@@ -92,14 +95,43 @@ def _c2v_of(a: torch.Tensor, w: torch.Tensor, j: int) -> torch.Tensor:
     return _flip(v, (w >> j) & 1)
 
 
-def kernel_model(dec, llr: torch.Tensor, parts: int, record: list | None = None):
+def kernel_model(dec, llr: torch.Tensor, parts: int, record: list | None = None,
+                 slices: int = 0, layout: int = 2):
     """csrc/fused_neural.cu's neural_group algorithm on (frame, lane) tensors,
     on the decoder's own tables: check pass p of each part's rows (pass 0
     folds LLR + 0.0; later passes rebuild each member's v2c as ((cs - c2v) +
     w * llr) + live * taps, store it in the FIFO ring slot p mod L and fold
     it, members last first), then the column pass of each part's columns
     (c2v expanded from the state, summed from +0.0); bits from the last.
-    ``record`` receives c2v, var-aligned (B, K*Z), after every check pass."""
+    ``record`` receives c2v, var-aligned (B, K*Z), after every check pass.
+
+    ``slices`` > 0: slice form ``layout`` (1 or 2).  Each frame's FIFO and
+    (form 2) state words live in one of ``slices`` slices of a flat int32
+    scratch laid out as the kernel's (form 2: W at word r*Z + z, then FIFO
+    plane l at R*Z + l*K*Z; form 1: plane l at l*K*Z; the edge at row-order
+    position i and check lane z at i*Z + z), filled with NaN once and never
+    cleared; frames take the slices ``slices`` at a time, as a block's frame
+    groups take them, so a read before the frame's own write would reach
+    an earlier frame's state or a NaN."""
+    if not slices:
+        return _model(dec, llr, parts, record, None, 0)
+    words = fn.neural_group_scratch_bytes(dec.qc, dec.depth_L, layout) // 4
+    scratch = torch.full((slices, words), 0x7FC00000, dtype=torch.int32)  # NaN
+    outs, recs = [], []
+    for f0 in range(0, llr.shape[0], slices):
+        rec = [] if record is not None else None
+        chunk = llr[f0:f0 + slices]
+        outs.append(_model(dec, chunk, parts, rec, scratch[:chunk.shape[0]], layout))
+        recs.append(rec)
+    if record is not None:
+        record.extend(torch.cat(per_t) for per_t in zip(*recs))
+    return torch.cat(outs)
+
+
+def _model(dec, llr: torch.Tensor, parts: int, record: list | None,
+           scratch: torch.Tensor | None, layout: int):
+    """kernel_model on a batch, with the FIFO and (``layout`` 2) W in
+    ``scratch`` (a slice form) or in tensors of their own."""
     st, tb = dec.st, dec.tables
     Z, R, C, K, T, L = st.Z, st.R, st.C, st.K, dec.num_iterations, dec.depth_L
     col_mem, row_mem, row_ptr, col_ptr, row_part, col_part = _unpack(st, parts)
@@ -117,9 +149,15 @@ def kernel_model(dec, llr: torch.Tensor, parts: int, record: list | None = None)
         return torch.where(v >= Z, v - Z, v) + offset_
 
     A = torch.zeros((B, R * Z, 2))
-    W = torch.zeros((B, R * Z), dtype=torch.int64)
     cs = torch.zeros((B, C * Z))
-    fifo = torch.zeros((B, L * KZ))
+    w_words = R * Z if layout == 2 else 0  # W's words in the slice
+    W = torch.zeros((B, R * Z), dtype=torch.int64)
+    if scratch is None:
+        fifo = torch.zeros((B, L * KZ))
+    else:
+        fifo = scratch[:, w_words:w_words + L * KZ].view(torch.float32)  # writes land there
+    if w_words:
+        W = scratch[:, :w_words].long() & 0xFFFFFFFF  # whatever the slice holds
     # Every row and column belongs to exactly one part.
     assert row_part[0] == 0 and row_part[-1] == R and (np.diff(row_part) >= 0).all()
     assert col_part[0] == 0 and col_part[-1] == C and (np.diff(col_part) >= 0).all()
@@ -165,6 +203,9 @@ def kernel_model(dec, llr: torch.Tensor, parts: int, record: list | None = None)
                 A_new[:, q, 1] = alpha[p] * torch.clamp(m2z - offset[p], min=0.0)
                 W_new[:, q] = (neg ^ sp) | (arg << SIGN_BITS)
         A, W = A_new, W_new  # the barrier between the passes
+        if w_words:  # the new words, as uint32 bits, into the slice
+            scratch[:, :w_words] = (W - ((W >> 31) << 32)).to(torch.int32)
+            W = scratch[:, :w_words].long() & 0xFFFFFFFF
         if record is not None:
             record.append(_expand(st, row_mem, row_ptr, A, W))
         cs_new = torch.zeros_like(cs)
@@ -213,12 +254,13 @@ def _bits_of(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.int32)
 
 
-def assert_model_is_plain(dec, llr: torch.Tensor, parts: int) -> None:
+def assert_model_is_plain(dec, llr: torch.Tensor, parts: int, slices: int = 0,
+                          layout: int = 2) -> None:
     """The model's bits and its c2v after every iteration equal the plain
     version's, value and sign bit (+-0.0 too)."""
     want_c2v, got_c2v = [], []
     want = _plain(dec, llr, want_c2v)
-    got = kernel_model(dec, llr, parts, got_c2v)
+    got = kernel_model(dec, llr, parts, got_c2v, slices, layout)
     assert len(got_c2v) == len(want_c2v) == dec.num_iterations
     for t, (g, w) in enumerate(zip(got_c2v, want_c2v)):
         assert torch.equal(_bits_of(g), _bits_of(w)), f"c2v differs after iteration {t}"
@@ -241,6 +283,8 @@ CASES = [
     ("nr_2_0_32", 32, 2, 4, 3, "type", True, 9, True),
     ("nr_2_0_32", 32, 2, 3, 0, "scalar", False, 4, False),
     ("nr_2_0_32", 24, 2, 4, 1, "edge", False, 6, False),
+    ("toy_4x8", 4, 5, 6, 4, "edge", True, 2, True),
+    ("nr_2_0_4", 4, 4, 6, 4, "type", True, 5, False),
 ]
 
 
@@ -253,6 +297,21 @@ def test_model_matches_plain(name, Z, batch, T, L, sharing, per_it, parts, negat
     assert dec.route == "neural_group"
     llr = torch.from_numpy(bpsk_llrs(qc.num_vars, batch, 1.0, seed=T + L))
     assert_model_is_plain(dec, llr, parts)
+
+
+@pytest.mark.parametrize("layout", [1, 2])
+@pytest.mark.parametrize("L", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("name,Z,batch,parts,slices", [("nr_2_0_4", 4, 7, 3, 3),
+                                                       ("nr_2_0_32", 12, 5, 4, 2)])
+def test_slice_model_matches_plain(name, Z, batch, parts, slices, L, layout):
+    """The slice forms forced where a frame fits a block: the FIFO (and in
+    form 2 W) in a NaN-filled scratch of fewer slices than frames, so later
+    frames find an earlier frame's state in their slice; T=6 so that depth
+    4's taps all run; Z=12 takes the non-power-of-two roll."""
+    qc = _qc(name, Z)
+    dec = _decoder(qc, 6, L, "edge", True, seed=Z + L, negative=L % 2 == 1)
+    llr = torch.from_numpy(bpsk_llrs(qc.num_vars, batch, 1.0, seed=L))
+    assert_model_is_plain(dec, llr, parts, slices, layout)
 
 
 @pytest.mark.parametrize("kind", ["ties", "zeros"])
@@ -309,17 +368,136 @@ def test_plans_at_nr_bg2_z32():
     assert all(p * f <= 32 for p, f in fn.neural_group_plans(qc, 1))
 
 
+@pytest.mark.parametrize("Z,L,layout,frame,scratch", [(128, 2, 1, 91_136, 201_728),
+                                                      (128, 2, 2, 69_632, 223_232),
+                                                      (128, 4, 2, 69_632, 424_960),
+                                                      (384, 2, 2, 208_896, 669_696),
+                                                      (384, 0, 2, 208_896, 64_512)])
+def test_slice_bytes_at_nr_bg2(Z, L, layout, frame, scratch):
+    """The slice forms: 4 (3 R*Z + C*Z) bytes of shared memory a frame (A,
+    column sums, W) and 4 L K*Z bytes of scratch (FIFO) in form 1; 4 (2 R*Z
+    + C*Z) and 4 (R*Z + L K*Z) in form 2 (W in the slice); the whole frame,
+    4 (2 C*Z + 3 R*Z + L K*Z) bytes, exceeds a block."""
+    qc = _qc("nr_2_0_32", Z)
+    assert fn.neural_group_frame_bytes(qc, L, layout) == frame
+    assert fn.neural_group_scratch_bytes(qc, L, layout) == scratch
+    assert fn.neural_group_frame_bytes(qc, L) == 4 * (2 * 52 * Z + 3 * 42 * Z + L * 197 * Z)
+    assert fn.neural_group_frame_bytes(qc, L) > fm._SMEM_BUDGET
+    structure = 4 * fm._retire_structure_words(qc, 2)
+    assert fn.neural_group_smem_bytes(qc, L, 2, 1, slice=layout) == structure + frame
+    with pytest.raises(ValueError, match="slice form"):
+        fn.neural_group_smem_bytes(qc, L, 2, 1, staged=True, slice=layout)
+
+
+def test_slice_plans_at_nr_bg2():
+    """No plan holds a whole frame at Z=128 (depth 2) or Z=384.  At Z=128
+    form 1 takes up to 2 frames a block, form 2 up to 3 of 2 parts (24
+    warps, 214,032 B); at Z=384 only form 2, one frame of at most 2 parts
+    (24 warps); never with the weights staged.  Z=32 at depth 4: one whole
+    frame a block (130,304 B)."""
+    z128, z384, z32 = (_qc("nr_2_0_32", Z) for Z in (128, 384, 32))
+    for qc in (z128, z384):
+        assert not fn.neural_group_plans(qc, 2)
+        assert not fn.neural_group_plans(qc, 2, staged=True, slice=2)
+        assert fn.neural_group_fits(qc, 2) and fn.neural_group_fits(qc, 4)
+    assert max(f for _, f in fn.neural_group_plans(z128, 2, slice=1)) == 2
+    plans = fn.neural_group_plans(z128, 2, slice=2)
+    assert max(f for _, f in plans) == 3 and max(p for p, f in plans if f == 3) == 2
+    assert fn.neural_group_smem_bytes(z128, 2, 2, 3, slice=2) == 214_032
+    assert not fn.neural_group_plans(z384, 4, slice=1)
+    assert fn.neural_group_plans(z384, 4, slice=2) == [(1, 1), (2, 1)]
+    assert fn.neural_group_smem_bytes(z384, 4, 2, 1, slice=2) == 214_032
+    assert [fn.neural_group_layout(qc, L) for qc, L in
+            ((z32, 2), (z32, 4), (z128, 2), (z128, 4), (z384, 0), (z384, 4))] == [0, 0, 1, 1, 2, 2]
+    assert fn.neural_group_frame_bytes(z32, 4) == 130_304
+    assert max(f for _, f in fn.neural_group_plans(z32, 4)) == 1
+    assert max(f for p, f in fn.neural_group_plans(z32, 4, slice=2) if p == 2) == 12
+
+
+class _OccupancyModel:
+    """Stands in for the kernel library's occupancy query: resident blocks
+    an SM limited by 2048 threads, 65,536 registers at 64 a thread (the
+    kernels' launch bound of 1024 threads) and 233,472 bytes of shared
+    memory (1 KB of it kept back a block)."""
+
+    def __init__(self, qc):
+        self.qc = qc
+
+    def ldpc_neural_group_occupancy(self, Z, R, C, K, L, p, f, staged, slice):
+        threads = fm.retire_threads(self.qc, p, f)
+        smem = fn.neural_group_smem_bytes(self.qc, L, p, f, bool(staged), slice)
+        return min(2048 // threads, 65536 // (64 * threads), 233_472 // (smem + 1024))
+
+
+@pytest.mark.parametrize("Z,L,staged,layout,parts,plan", [
+    (32, 2, True, 0, None, (14, 2, 1)), (32, 2, False, 0, None, (14, 1, 2)),
+    (4, 2, True, 0, None, (14, 1, 2)), (32, 4, True, 0, None, (32, 1, 1)),
+    (128, 2, False, 1, None, (8, 1, 1)), (128, 2, False, 2, None, (8, 1, 1)),
+    (384, 2, False, 2, None, (2, 1, 1)), (128, 2, False, 1, 3, (3, 1, 2)),
+    (32, 4, False, 1, None, (10, 1, 3))])
+def test_plan_rule(Z, L, staged, layout, parts, plan):
+    """On a stand-in occupancy query of the H100 (132 SMs, 50 MB of L2):
+    nms_main's plan stays two groups of 14 parts; a group alone on its SM
+    takes the most parts (32 at Z=32 depth 4, 8 of 4 warps at Z=128, 2 of 12
+    at Z=384); at Z=128 two groups an SM would put 53 MB of slices in
+    flight, so one; with ``parts`` given the slices' size gives way; at
+    Z=32 depth 4 in form 1 three groups' 39.9 MB fit."""
+    qc = _qc("nr_2_0_4" if Z == 4 else "nr_2_0_32", Z)
+    assert fn.neural_group_plan(qc, L, staged, parts, _OccupancyModel(qc), layout, sms=132,
+                                l2_bytes=50 * 2**20) == plan
+
+
+@pytest.mark.parametrize("name,Z", [("nr_2_0_4", 4), ("nr_2_0_32", 12), ("nr_2_0_32", 24),
+                                    ("nr_2_0_32", 32), ("nr_2_0_32", 64)])
+def test_plan_rule_keeps_shared_plans(name, Z):
+    """Where a whole frame fits, the plan is the one of the rule before the
+    slice forms (the most resident groups of at most 14 warps, then the
+    most parts, then the fewest groups a block) whenever that rule keeps two
+    groups or more an SM; where it keeps one, the group takes the most parts
+    a block holds."""
+    qc = _qc(name, Z)
+    lib, zw = _OccupancyModel(qc), -(-Z // 32)
+    for L in range(5):
+        for staged in (False, True):
+            plans = fn.neural_group_plans(qc, L, staged)
+            if not plans:
+                continue
+            old = max(((lib.ldpc_neural_group_occupancy(Z, 0, 0, 0, L, p, f, staged, 0) * f, p,
+                        -f), (p, f)) for p, f in plans if p * zw <= 14)
+            got = fn.neural_group_plan(qc, L, staged, None, lib, sms=132, l2_bytes=50 * 2**20)
+            if old[0][0] > 1:
+                assert got[:2] == old[1], (L, staged)
+            else:
+                assert got[0] == max(p for p, _ in plans), (L, staged)
+
+
+def _row_code(members: int, Z: int = 4):
+    """A (4, 32) base graph whose first row has ``members`` members; every
+    column has one."""
+    rng = np.random.default_rng(members)
+    shifts = np.where(rng.random((4, 32)) < 0.3, rng.integers(0, Z, (4, 32)), -1)
+    shifts[0] = np.where(np.arange(32) < members, rng.integers(0, Z, 32), -1)
+    shifts[1, members:] = 0
+    return tcodes.qc_layout(tcodes.BaseGraph(f"row{members}", shifts), Z)
+
+
 @pytest.mark.parametrize("name,Z,L,route", [
     ("nr_2_0_32", 32, 2, "neural_group"), ("nr_2_0_32", 32, 0, "neural_group"),
     ("nr_2_0_4", 4, 3, "neural_group"), ("nr_2_0_32", 64, 2, "neural_group"),
-    ("nr_2_0_32", 128, 2, "fused_neural"), ("nr_2_0_32", 32, 4, "fused_neural")])
+    ("nr_2_0_32", 128, 2, "neural_group"), ("nr_2_0_32", 32, 4, "neural_group"),
+    ("nr_2_0_32", 384, 4, "neural_group"), ("nr_2_0_4", 4, 5, "fused_neural"),
+    ("row31", 4, 2, "fused_neural")])
 def test_routes(name, Z, L, route):
-    """Z=128 at depth 2 (319,488 B a frame) and depth 4 stay on
+    """Z=128 at depth 2 (319,488 B a frame), Z=384 and depth 4 on
+    neural_group (the slice form where a frame does not fit a block); depth
+    5 and a row of 31 members (over the state word's 27 signs) on
     fused_neural; CPU tensors reach neither kernel."""
-    qc = _qc(name, Z)
+    qc = _row_code(31) if name == "row31" else _qc(name, Z)
     assert fn.neural_group_fits(qc, L) == (route == "neural_group")
     dec = _decoder(qc, 2, L, "scalar", False, seed=1)
     assert dec.route == route
+    if route == "neural_group":
+        assert dec.layout == (0 if Z < 128 else 1 if Z == 128 else 2)
     launches = dict(fn.LAUNCHES)
     dec(torch.zeros((1, qc.num_vars)))
     assert fn.LAUNCHES == launches
