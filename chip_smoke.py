@@ -39,10 +39,11 @@ Phases, one JSON line each:
              quantised LLRs with ties and exact zeros (-0.0 among them);
              all four schedules on codes with a row of 31 and of 58 members
              at Z=4 (the retiring kernels' 64-bit state word, the *_wide
+             routes) and of 121 (their 128-bit word's limit, the *_w128
              routes; sum-product also identical to fused), min-sum flooding
-             and layered sum-product on a row of 59 members at Z=4 (the fused
-             kernel's) and on a row of 31 at Z=8 (fused_zlane's: wider than
-             the retiring kernels take; their launch counts), layered
+             and layered sum-product on a row of 122 members at Z=4 (the
+             fused kernel's) and on a row of 31 at Z=8 (fused_zlane's: wider
+             than the retiring kernels take; their launch counts), layered
              min-sum and both sum-product schedules
              on one with a row of 20 (the layered kernels' run-time loops
              for rows wider than their unrolled bodies, retire_sumproduct's
@@ -154,6 +155,16 @@ Phases, one JSON line each:
              through _launch_fused; five rounds of each beside fused, every
              median below fused's; bounds, plans, ptxas of the 64-bit
              instantiations, bit errors and mean conv_iter.
+5f. widest_rows — J. L. Fan's array LDPC code ("Array codes as low-density
+             parity-check codes", 2000) at p = Z = 67: a (4, 64) array of
+             67 x 67 circulants, every cell, shift (r*c) mod 67 (rows of 64
+             members, columns of 4, n = 4288, rate about 0.94, no 4-cycles),
+             batch 49152, 20 iterations; the SNR steps from 6.0 dB by 0.5
+             dB as wide_rows'.  The four schedules on fused_retire_w128,
+             retire_layered_w128, retire_sumproduct_w128 and
+             retire_layered_sumproduct_w128 (the 128-bit state word), each
+             checked and timed as in wide_rows, ptxas of the 128-bit
+             instantiations.
 6. gnn_compare — the corrected-GNN kernels (corrected_v2, corrected)
              against their plain versions on perturbed seeded parameters:
              {input injection on, off} x {fixed T, early exit with
@@ -299,6 +310,7 @@ Phases, one JSON line each:
              frame and iteration.
 18. kernels — per kernel: launches in its path's run (fused and fused_zlane:
              the wide-row compare cases'; the *_wide kernels: wide_rows';
+             the *_w128 kernels: widest_rows';
              neural_group a row for nms_main and one for each nms_large
              shape; fused_neural nms_compare's routed cases, timed at
              nms_large's Z=128 through the side door),
@@ -312,9 +324,10 @@ The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 The replaced kernels' times (PERF.md §5) come from this script run from an
 unpacked ``git archive`` of the parent commit, in the same call.
-``--only classical|gnn|nms|msg_gnn|tools`` runs the build and that part alone
-(for development; the kernels line then lists that part; ``msg_gnn`` is
-phases 12 to 14, ``tools`` phases 16 and 17).
+``--only classical|wide|gnn|nms|msg_gnn|tools`` runs the build and that part
+alone (for development; the kernels line then lists that part; ``wide`` is
+phase 3's wide-row cases and phases 5e and 5f, ``msg_gnn`` phases 12 to 14,
+``tools`` phases 16 and 17).
 """
 from __future__ import annotations
 
@@ -412,9 +425,10 @@ def bp_bound_ms(qc, conv: torch.Tensor, layered: bool = False) -> tuple[float, s
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def ptxas_of(stem: str, kernel: str) -> dict:
+def ptxas_of(stem: str, kernel: str, width: int = 12) -> dict:
     """Registers a thread and spill bytes of each instantiation of
-    ``kernel`` in the compiler's report for ``stem``."""
+    ``kernel`` in the compiler's report for ``stem``, keyed by the first
+    ``width`` characters of its mangled template arguments."""
     from ldpc_tpu_torch.ops import _build
 
     out, name = {}, None
@@ -426,7 +440,7 @@ def ptxas_of(stem: str, kernel: str) -> dict:
                                          if w.isdigit()][1:3]}
         elif name and "registers" in line:
             out[name]["registers"] = int(line.split("Used ")[1].split()[0])
-    return {k.split(kernel)[1][:12]: v for k, v in out.items()}
+    return {k.split(kernel)[1][:width]: v for k, v in out.items()}
 
 
 def trace_split(fn, name: str) -> dict:
@@ -583,8 +597,9 @@ def wide_row_code(members: int = 31, Z: int = 4):
     """A (4, max(32, members + 2)) base graph at ``Z`` whose first row has
     ``members`` members: 20 is more than the layered kernels' unrolled rows
     take, 31 and 58 more than the retiring kernels' 32-bit state word holds
-    signs of (their 64-bit word takes up to 58), 59 more than that.  Every
-    column has a member."""
+    signs of (their 64-bit word takes up to 58), 59 and 121 more than that
+    (their 128-bit word takes up to 121), 122 more than any.  Every column
+    has a member."""
     import numpy as np
     from ldpc_tpu_torch.codes import BaseGraph, qc_layout
 
@@ -596,7 +611,8 @@ def wide_row_code(members: int = 31, Z: int = 4):
     return qc_layout(BaseGraph("wide", shifts), Z)
 
 
-# The four B1 schedules, each with its 64-bit-word route (fm.WIDE_ROUTES).
+# The four B1 schedules, each with its 64-bit-word route (fm.WIDE_ROUTES) and
+# its 128-bit-word route (fm.W128_ROUTES).
 WIDE_SCHEDULES = (("minsum", "flooding"), ("minsum", "layered"), ("sumproduct", "flooding"),
                   ("sumproduct", "layered"))
 
@@ -632,6 +648,51 @@ def compare(dec, llr: torch.Tensor, label: str, plain_out=None) -> float:
     if not ok:
         raise AssertionError(f"kernel disagrees with its plain version: {label}")
     return err
+
+
+def wide_compare(max_err: dict) -> dict:
+    """Phase 3's wide-row cases: rows of 31 and 58 members (Z=4), every
+    schedule on its kernel's 64-bit state word, and of 121 (the limit) on
+    its 128-bit word, each sum-product case also identical to fused through
+    _launch_fused; then rows wider than the retiring kernels take on the
+    fused kernel (122 members, Z=4) and on fused_zlane (31, Z=8): min-sum
+    flooding and layered sum-product.  These are the two kernels' own paths
+    now, so their launches here (returned) are the kernels line's."""
+    from ldpc_tpu_torch.ops import fused_minsum as fm
+
+    for members, routes in ((31, fm.WIDE_ROUTES), (58, fm.WIDE_ROUTES), (121, fm.W128_ROUTES)):
+        qcw = wide_row_code(members)
+        for snr in (1.0, 4.0, 6.0):
+            llr = llrs(qcw.num_vars, 37, snr, seed=members)
+            for (tr, ee), (mode, sched) in itertools.product(
+                    ((True, False), (False, False), (True, True)), WIDE_SCHEDULES):
+                dec = fm.make_fused_minsum(qcw, 20, 0.75, track_convergence=tr, early_exit=ee,
+                                           mode=mode, schedule=sched)
+                assert dec.route in routes
+                label = f"{dec.route} wide rows ({members} members) Z=4 B=37 {snr} dB " \
+                        f"track={tr} early_exit={ee}"
+                max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
+                if mode == "sumproduct":
+                    same_as_replaced(dec, llr, label)
+    for key in fm.LAUNCHES:
+        fm.LAUNCHES[key] = 0
+    for members, Z, build in ((122, 4, fm.make_fused_minsum), (31, 8, fm.make_fused_minsum_zlane)):
+        qcw = wide_row_code(members, Z=Z)
+        llr = llrs(qcw.num_vars, 37, 4.0, seed=5)
+        for (tr, ee), mode in itertools.product(((True, False), (False, False), (True, True)),
+                                                ("minsum", "sumproduct")):
+            dec = build(qcw, 20, 0.75, track_convergence=tr, early_exit=ee, mode=mode,
+                        schedule="flooding" if mode == "minsum" else "layered")
+            assert dec.route == dec.kind and not dec.retire
+            label = f"{dec.route} wide rows ({members} members) Z={Z} B=37 {mode} " \
+                    f"{dec.schedule} track={tr} early_exit={ee}"
+            max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
+    torch.cuda.synchronize()
+    launches = dict(fm.LAUNCHES)
+    if launches["fused"] < 6 or launches["fused_zlane"] < 6 or \
+            sum(launches.values()) != launches["fused"] + launches["fused_zlane"]:
+        raise AssertionError(f"wide rows did not run fused and fused_zlane alone: {launches}")
+    return launches
 
 
 def classical_phases(lib, smi: str) -> list[dict]:
@@ -713,45 +774,7 @@ def classical_phases(lib, smi: str) -> list[dict]:
                 max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
                 if dec.route in SUMPRODUCT_ROUTES:
                     same_as_replaced(dec, llr, label)
-    # Rows of 28 to 58 members (31 and 58 here, Z=4): every schedule on its
-    # kernel's 64-bit state word, each sum-product case also identical to
-    # fused through _launch_fused.
-    for members in (31, 58):
-        qcw = wide_row_code(members)
-        for snr in (1.0, 4.0, 6.0):
-            llr = llrs(qcw.num_vars, 37, snr, seed=members)
-            for (tr, ee), (mode, sched) in itertools.product(
-                    ((True, False), (False, False), (True, True)), WIDE_SCHEDULES):
-                dec = fm.make_fused_minsum(qcw, 20, 0.75, track_convergence=tr, early_exit=ee,
-                                           mode=mode, schedule=sched)
-                assert dec.route in fm.WIDE_ROUTES
-                label = f"{dec.route} wide rows ({members} members) Z=4 B=37 {snr} dB " \
-                        f"track={tr} early_exit={ee}"
-                max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
-                if mode == "sumproduct":
-                    same_as_replaced(dec, llr, label)
-    # Codes whose rows are wider than the retiring kernels take run on the
-    # fused kernel (59 members, Z=4) and on fused_zlane (31, Z=8): min-sum
-    # flooding and layered sum-product.  These are the two kernels' own
-    # paths now, so their launches here are the kernels line's.
-    for key in fm.LAUNCHES:
-        fm.LAUNCHES[key] = 0
-    for members, Z, build in ((59, 4, fm.make_fused_minsum), (31, 8, fm.make_fused_minsum_zlane)):
-        qcw = wide_row_code(members, Z=Z)
-        llr = llrs(qcw.num_vars, 37, 4.0, seed=5)
-        for (tr, ee), mode in itertools.product(((True, False), (False, False), (True, True)),
-                                                ("minsum", "sumproduct")):
-            dec = build(qcw, 20, 0.75, track_convergence=tr, early_exit=ee, mode=mode,
-                        schedule="flooding" if mode == "minsum" else "layered")
-            assert dec.route == dec.kind and not dec.retire
-            label = f"{dec.route} wide rows ({members} members) Z={Z} B=37 {mode} " \
-                    f"{dec.schedule} track={tr} early_exit={ee}"
-            max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
-    torch.cuda.synchronize()
-    launches_wide = dict(fm.LAUNCHES)
-    if launches_wide["fused"] < 6 or launches_wide["fused_zlane"] < 6 or \
-            sum(launches_wide.values()) != launches_wide["fused"] + launches_wide["fused_zlane"]:
-        raise AssertionError(f"wide rows did not run fused and fused_zlane alone: {launches_wide}")
+    launches_wide = wide_compare(max_err)
     # Layered min-sum and both sum-product schedules on a row of 20 members:
     # the layered kernels' run-time loops for rows wider than their unrolled
     # bodies, and retire_sumproduct's phi parked in the c2v slots of rows
@@ -1355,7 +1378,7 @@ def classical_phases(lib, smi: str) -> list[dict]:
           "rounds_ms": zsl_rounds, "parts_ms": zsl_parts, "occupancy": zsl_occupancy,
           "bit_errors": bit_errors_zsl, "mean_conv_iter": mean_conv_zsl, "nvidia_smi": smi})
 
-    wide_entries = wide_rows_phase(smi, max_err)
+    wide_entries = wide_rows_phase(smi, max_err) + widest_rows_phase(smi, max_err)
     src = "ldpc_tpu_torch/ops/csrc/fused_minsum.cu"
     return wide_entries + [
         {"name": "fused_retire", "route": "cuda",
@@ -1382,7 +1405,7 @@ def classical_phases(lib, smi: str) -> list[dict]:
          "launches": launches_sl["retire_layered_sumproduct"],
          "max_abs_err": max(max_err["retire_layered_sumproduct"], err_sl), "ms": ms_sl,
          "plain_ms": plain_ms_sl, "bound_ms": bms_sl, "bound_by": bby_sl, "library_ms": None},
-        # fused serves rows over 58 members (launches: the wide-row compare
+        # fused serves rows over 121 members (launches: the wide-row compare
         # cases); its ms is sum-product flooding through the side door,
         # _launch_fused, on the sumproduct phase's batch, which bound_ms and
         # plain_ms count.
@@ -1434,6 +1457,11 @@ def classical_phases(lib, smi: str) -> list[dict]:
 # WIDE["STEP"] until the mean conv_iter of min-sum flooding lies in
 # WIDE["CONV"].
 WIDE = dict(B=65536, SNR=4.0, STEP=0.5, CONV=(2.0, 8.0), llr_seed=8, iterations=20)
+# Phase widest_rows: J. L. Fan's array LDPC code at p = 67, a (4, 64) array of
+# 67 x 67 circulants, shift (r * c) mod 67 (rows of 64 members, columns of
+# 4; n = 4288, 17,152 edges a frame).  B = 49152 frames hold 8.4e8 lifted
+# edges, within 5% of wide_rows' batch; the SNR steps as wide_rows'.
+WIDEST = dict(B=49152, SNR=6.0, STEP=0.5, CONV=(2.0, 8.0), llr_seed=9, iterations=20)
 
 
 def ieee_shape_code():
@@ -1445,37 +1473,75 @@ def ieee_shape_code():
     return qc_layout(BaseGraph("ieee_6x32", (r * c) % 64), 64)
 
 
+def array_code(p: int = 67, rows: int = 4, cols: int = 64):
+    """J. L. Fan's array LDPC code: a (rows, cols) array of p x p circulants,
+    shift (r * c) mod p in every cell (rows of ``cols`` members, columns of
+    ``rows``); for prime p it has no 4-cycle."""
+    import numpy as np
+    from ldpc_tpu_torch.codes import BaseGraph, qc_layout
+
+    r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    return qc_layout(BaseGraph(f"array_{rows}x{cols}_p{p}", (r * c) % p), p)
+
+
+def wide_phases(smi: str) -> list[dict]:
+    """``--only wide``: phase 3's wide-row cases, then wide_rows and
+    widest_rows; the kernels line's rows of the eight wider-word routes."""
+    from ldpc_tpu_torch.ops import fused_minsum as fm
+
+    max_err = {name: 0.0 for name in fm.LAUNCHES}
+    wide_compare(max_err)
+    return wide_rows_phase(smi, max_err) + widest_rows_phase(smi, max_err)
+
+
 def wide_rows_phase(smi: str, max_err: dict) -> list[dict]:
     """B1's four schedules on rows of 32 members through their 64-bit-word
-    routes (fm.WIDE_ROUTES) at the phase's batch: launched alone, identical
-    to the plain version (min-sum) or at the sum-product bars and identical
-    to fused; five rounds beside fused through _launch_fused, each median
-    faster than fused's; bounds, plans and ptxas.  Returns the kernels
-    line's four rows."""
+    routes (fm.WIDE_ROUTES) at WIDE's batch (wide_phase)."""
+    qc = ieee_shape_code()
+    assert qc.dr_max == 32 and qc.num_edges == 12288
+    return wide_phase(smi, max_err, "wide_rows", "ieee_6x32 (r*c mod 64)", qc, WIDE, 64)
+
+
+def widest_rows_phase(smi: str, max_err: dict) -> list[dict]:
+    """B1's four schedules on rows of 64 members through their 128-bit-word
+    routes (fm.W128_ROUTES) at WIDEST's batch (wide_phase)."""
+    qc = array_code()
+    assert (qc.dr_max, qc.num_vars, qc.num_base_rows * qc.Z, qc.num_edges) == \
+        (64, 4288, 268, 17152)
+    return wide_phase(smi, max_err, "widest_rows", "array_4x64_p67 (r*c mod 67)", qc, WIDEST, 128)
+
+
+def wide_phase(smi: str, max_err: dict, phase: str, label: str, qc, cfg: dict,
+               word_bits: int) -> list[dict]:
+    """B1's four schedules on ``qc`` through their routes on the state word
+    of ``word_bits`` (64: fm.WIDE_ROUTES, 128: fm.W128_ROUTES) at ``cfg``'s
+    batch: launched alone, identical to the plain version (min-sum) or at
+    the sum-product bars and identical to fused; five rounds beside fused
+    through _launch_fused, each median faster than fused's; bounds, plans
+    and ptxas.  Returns the kernels line's four rows."""
     from ldpc_tpu_torch.models.classical import BeliefPropagationDecoder, MinSumScaledDecoder
     from ldpc_tpu_torch.ops import fused_minsum as fm
     from ldpc_tpu_torch.utils.metrics import decode_throughput
 
-    qc = ieee_shape_code()
-    B, T, n = WIDE["B"], WIDE["iterations"], qc.num_vars
-    assert qc.dr_max == 32 and qc.num_edges == 12288
+    routes = fm.WIDE_ROUTES if word_bits == 64 else fm.W128_ROUTES
+    B, T, n = cfg["B"], cfg["iterations"], qc.num_vars
     decs = {f"{mode} {sched}": fm.make_fused_minsum(qc, T, 0.75 if mode == "minsum" else 1.0,
                                                     mode=mode, schedule=sched)
             for mode, sched in WIDE_SCHEDULES}
     for (mode, sched), dec in zip(WIDE_SCHEDULES, decs.values()):
-        assert (dec.mode, dec.schedule) == (mode, sched) and dec.route in fm.WIDE_ROUTES
+        assert (dec.mode, dec.schedule) == (mode, sched) and dec.route in routes
     # The SNR: steps until min-sum flooding's mean conv_iter lies in CONV
     # (the plain version's, since the two are held identical below).
-    snr, steps = WIDE["SNR"], {}
+    snr, steps = cfg["SNR"], {}
     first = decs["minsum flooding"]
     while True:
-        llr = llrs(n, B, snr, seed=WIDE["llr_seed"])
+        llr = llrs(n, B, snr, seed=cfg["llr_seed"])
         steps[snr] = float(first(llr)[1].float().mean().item())
-        if WIDE["CONV"][0] <= steps[snr] <= WIDE["CONV"][1] or snr >= WIDE["SNR"] + 4.0:
+        if cfg["CONV"][0] <= steps[snr] <= cfg["CONV"][1] or snr >= cfg["SNR"] + 4.0:
             break
-        snr += WIDE["STEP"]
-    if not WIDE["CONV"][0] <= steps[snr] <= WIDE["CONV"][1]:
-        raise AssertionError(f"no SNR gives a mean conv_iter in {WIDE['CONV']}: {steps}")
+        snr += cfg["STEP"]
+    if not cfg["CONV"][0] <= steps[snr] <= cfg["CONV"][1]:
+        raise AssertionError(f"no SNR gives a mean conv_iter in {cfg['CONV']}: {steps}")
     # The entry points a user calls, and the launches of this phase's run.
     servers = {"minsum flooding": MinSumScaledDecoder(qc, T, 0.75, early_stopping=False),
                "minsum layered": MinSumScaledDecoder(qc, T, 0.75, early_stopping=False,
@@ -1492,7 +1558,7 @@ def wide_rows_phase(smi: str, max_err: dict) -> list[dict]:
     expected = {dec.route: 1 + (name in servers) + (name == "sumproduct flooding")
                 for name, dec in decs.items()}
     if {k: v for k, v in launches.items() if v} != expected:
-        raise AssertionError(f"wide_rows did not run the wide kernels alone: {launches}")
+        raise AssertionError(f"{phase} did not run its kernels alone: {launches}")
     for name, bits in list(served.items()) + [("sumproduct flooding", bits_bp)]:
         assert bool(torch.equal(bits, outs[name][0])), name
     stats, plain_ms, errs = {}, {}, {}
@@ -1500,7 +1566,7 @@ def wide_rows_phase(smi: str, max_err: dict) -> list[dict]:
         bits, conv = outs[name]
         assert bits.shape == (B, n) and conv.shape == (B,)
         plain_ms[name], plain_out = cuda_ms(lambda d=dec: d.plain(llr), reps=1)
-        errs[name] = compare(dec, llr, f"{dec.route} wide_rows B={B} {snr} dB", plain_out)
+        errs[name] = compare(dec, llr, f"{dec.route} {phase} B={B} {snr} dB", plain_out)
         stats[name] = {"identical_to_plain": bool(torch.equal(bits, plain_out[0]) and
                                                   torch.equal(conv, plain_out[1])),
                        "bit_errors": int(bits.sum().item()),
@@ -1523,35 +1589,34 @@ def wide_rows_phase(smi: str, max_err: dict) -> list[dict]:
                 t, out = cuda_ms(fn, reps=reps)
                 rounds[name][which].append(t)
                 if not (torch.equal(out[0], outs[name][0]) and torch.equal(out[1], outs[name][1])):
-                    raise AssertionError(f"{which} differs from {dec.route} on wide_rows")
+                    raise AssertionError(f"{which} differs from {dec.route} on {phase}")
     median = {name: {w: sorted(r)[len(r) // 2] for w, r in rs.items()} for name, rs in rounds.items()}
     slower = [name for name in decs if median[name]["kernel"] >= median[name]["replaced_fused"]]
     if slower:
-        raise AssertionError(f"wide kernels not faster than fused on wide_rows: {slower} {median}")
+        raise AssertionError(f"{phase} kernels not faster than fused: {slower} {median}")
     bounds = {}
     for (mode, sched), (name, dec) in zip(WIDE_SCHEDULES, decs.items()):
         bound = bound_ms if mode == "minsum" else bp_bound_ms
         bounds[name] = bound(qc, outs[name][1], layered=sched == "layered")
-    plans = {"fused_retire_wide": fm.retire_plan(qc, True, wide=True),
-             "retire_layered_wide": fm.retire_layered_plan(qc, True, wide=True),
-             "retire_sumproduct_wide": fm.retire_sumproduct_plan(qc, True, wide=True),
-             "retire_layered_sumproduct_wide": fm.retire_layered_sumproduct_plan(qc, True,
-                                                                                 wide=True)}
-    ptxas = {route: {k: v for k, v in ptxas_of("fused_retire", kernel).items() if "EyE" in k}
-             for route, kernel in (("fused_retire_wide", "retire_minsum_kernel"),
-                                   ("retire_layered_wide", "retire_layered_kernel"),
-                                   ("retire_sumproduct_wide", "retire_sumproduct_kernel"),
-                                   ("retire_layered_sumproduct_wide",
-                                    "retire_layered_sumproduct_kernel"))}
-    emit({"phase": "wide_rows", "code": "ieee_6x32 (r*c mod 64)", "Z": 64, "n": n,
+    plans = {routes[0]: fm.retire_plan(qc, True, word_bits=word_bits),
+             routes[1]: fm.retire_layered_plan(qc, True, word_bits=word_bits),
+             routes[2]: fm.retire_sumproduct_plan(qc, True, word_bits=word_bits),
+             routes[3]: fm.retire_layered_sumproduct_plan(qc, True, word_bits=word_bits)}
+    # The instantiations on this word: template argument y (unsigned long
+    # long) or the Word128 struct.
+    word, width = ("EyE", 12) if word_bits == 64 else ("Word128", 40)
+    ptxas = {route: {k: v for k, v in ptxas_of("fused_retire", kernel, width).items() if word in k}
+             for route, kernel in zip(routes, ("retire_minsum_kernel", "retire_layered_kernel",
+                                               "retire_sumproduct_kernel",
+                                               "retire_layered_sumproduct_kernel"))}
+    emit({"phase": phase, "code": label, "Z": qc.Z, "n": n,
           "edges": qc.num_edges, "batch": B, "iterations": T, "snr_db": snr,
           "snr_steps_mean_conv_iter": steps, "launches": launches,
           "ms_per_batch": {decs[k].route: m["kernel"] for k, m in median.items()},
           "replaced_fused_ms": {decs[k].route: m["replaced_fused"] for k, m in median.items()},
           "speedup_over_replaced": {decs[k].route: m["replaced_fused"] / m["kernel"]
                                     for k, m in median.items()},
-          "bits_per_s": {decs[k].route: decode_throughput(B, n, m["kernel"] / 1e3,
-                                                          name="wide_rows")
+          "bits_per_s": {decs[k].route: decode_throughput(B, n, m["kernel"] / 1e3, name=phase)
                          for k, m in median.items()},
           "bound_ms": {decs[k].route: b for k, b in bounds.items()},
           "plain_ms": {decs[k].route: t for k, t in plain_ms.items()},
@@ -3120,7 +3185,8 @@ def retire_smem_agree(qc32, qc384) -> dict:
     dims = (32, qc32.num_base_rows, qc32.num_base_cols, qc32.num_base_edges)
     G = len(fm.row_groups(fm._structure(qc32))) - 1
     return {
-        "fused_retire, retire_layered and their 64-bit words": wide_smem_agree(qc32, rlib),
+        "fused_retire, retire_layered and their 64-bit and 128-bit words":
+            wide_smem_agree(qc32, rlib),
         "retire_sumproduct": all(
             rlib.ldpc_retire_sumproduct_smem_bytes(*dims, p, f, s) ==
             fm.retire_sumproduct_smem_bytes(qc32, p, f, s)
@@ -3137,17 +3203,18 @@ def retire_smem_agree(qc32, qc384) -> dict:
 def wide_smem_agree(qc, rlib) -> bool:
     """Whether the library's shared-memory bytes of fused_retire and
     retire_layered equal the wrapper's for every plan it may take, on the
-    32-bit state word and on the 64-bit one (the ``*_wide`` routes)."""
+    32-bit state word, the 64-bit one (the ``*_wide`` routes) and the
+    128-bit one (the ``*_w128`` routes)."""
     from ldpc_tpu_torch.ops import fused_minsum as fm
 
     dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
     G = len(fm.row_groups(fm._structure(qc))) - 1
     return all(
-        all(rlib.ldpc_retire_smem_bytes(*dims, p, f, 64 if wide else 32) ==
-            fm.retire_smem_bytes(qc, p, f, wide) for p, f in fm.retire_plans(qc, wide)) and
-        all(rlib.ldpc_retire_layered_smem_bytes(*dims, G, f, 64 if wide else 32) ==
-            fm.retire_layered_smem_bytes(qc, f, wide) for _, f in fm.retire_layered_plans(qc, wide))
-        for wide in (False, True))
+        all(rlib.ldpc_retire_smem_bytes(*dims, p, f, bits) == fm.retire_smem_bytes(qc, p, f, bits)
+            for p, f in fm.retire_plans(qc, bits)) and
+        all(rlib.ldpc_retire_layered_smem_bytes(*dims, G, f, bits) ==
+            fm.retire_layered_smem_bytes(qc, f, bits) for _, f in fm.retire_layered_plans(qc, bits))
+        for bits in fm.WORD_BITS)
 
 
 def zlane_smem_agree(qc) -> bool:
@@ -3194,7 +3261,7 @@ def sass_mma_counts(stem: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["classical", "gnn", "nms", "msg_gnn", "tools"],
+    ap.add_argument("--only", choices=["classical", "wide", "gnn", "nms", "msg_gnn", "tools"],
                     default=None)
     ap.add_argument("--trace", choices=["z384", "layered", "sumproduct", "gnn", "nms_large",
                                         "msg_gnn", "msg_gnn_v2", "msg_gnn_v3", "msg_gnn_v4"],
@@ -3307,6 +3374,8 @@ def main(argv=None) -> int:
     entries = []
     if only in (None, "classical"):
         entries += classical_phases(lib, smi)
+    if only == "wide":
+        entries += wide_phases(smi)
     if only in (None, "gnn"):
         entries += gnn_phases(smi)
     if only in (None, "nms"):

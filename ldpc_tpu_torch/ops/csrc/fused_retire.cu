@@ -44,9 +44,10 @@
 // They took the place of fused_minsum_kernel and zlane_minsum_kernel
 // (fused_minsum.cu) on every path.  The first four, templated on the state
 // word (retire.cuh), also run on a 64-bit word for rows of 28 to 58 members
-// (the wrapper's *_wide routes; see "Rows of 28 to 58 members" below); codes
-// with wider rows (more than 27 at large Z) stay on the fused_minsum.cu
-// kernels (the wrapper's retire_*_fits).
+// (the wrapper's *_wide routes; see "Rows of 28 to 58 members" below) and on
+// a 128-bit word of two limbs for rows of 59 to 121 (the *_w128 routes; see
+// "Rows of 59 to 121 members"); codes with wider rows (more than 27 at large
+// Z) stay on the fused_minsum.cu kernels (the wrapper's retire_*_fits).
 // The flooding kernels run one frame loop (decode_frames) over a check pass
 // and a column pass: the two min-sum kernels share compressed state and
 // passes and differ only in where a frame's state lives; the two sum-product
@@ -155,7 +156,8 @@
 // thread (ptxas), no spills.  retire_zlane_kernel: 4 (C*Z + 2 R*Z) bytes of
 // frame state, 208,896 at Z=384 (2 parts: 24 warps, one block per SM).  A
 // row may have at most 27 members on the 32-bit state word (NR rows have at
-// most 19), 58 on the 64-bit one (retire_minsum_kernel only).
+// most 19), 58 on the 64-bit one and 121 on the 128-bit one
+// (retire_minsum_kernel only).
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): main path
 // about 3.2 ms per batch of 65536, throughput mode 16.2 ms; the kernel it
@@ -197,6 +199,47 @@
 // (tools/probe_sass_diff.py).
 //
 // Measured: chip_smoke.py phase wide_rows (PERF.md).
+
+// Rows of 59 to 121 members (the 128-bit state word)
+// ==================================================
+// What it computes: the same four functions, bit for bit, on codes whose
+// rows are too wide for the 64-bit word's 58 signs: array LDPC codes (J. L.
+// Fan's, a p x p circulant in every cell of a J x L array, shift r*c mod p)
+// and other QC codes of rate 0.93 and above, such as chip_smoke.py's
+// widest_rows (p = 67, 4 x 64 cells, rows of 64 members).  They ran on
+// fused_minsum_kernel before.
+//
+// What bounds it: the same operation counts per lifted edge, check and
+// variable (chip_smoke.py bound_ms, bp_bound_ms) over each frame's conv_iter
+// iterations.
+//
+// What the design does about it.  The four kernels are instantiated on
+// Word128 (retire.cuh): two 64-bit limbs, 121 output signs at bits 0..120
+// and the argmin in the top 7 bits (kNoMember 127), so a check's compressed
+// min-sum state is 24 bytes (A and W); the structure's column members carry
+// (j, 127 - j).  Every Word128 operation is an overload of its own that
+// works limb by limb (no limb is shifted by 64 or more): push_sign carries
+// bit 63 of lo into hi, odd adds two __popcll, product_flips builds a mask
+// of d bits across the limbs, bit_at_31 and member_sign pick the limb, and
+// sign_at has its own specialization below.  What grows per thread: a
+// check's old word and its fold's sign word (neg) are two limbs each (four
+// registers where the 64-bit word takes two).  Rows this wide take the
+// kernels' run-time member loops: min-sum flooding's check pass folds
+// members d - 1 .. 58 in a loop before the 58-member switch; layered
+// min-sum (layered_row_wide), sum-product flooding (phi parked in the c2v
+// slots) and layered sum-product (layered_sp_row_wide, whose local phi
+// array grows to 121 slots) run loops over the whole row, as on the 64-bit
+// word past 12 members.  The 32-bit and 64-bit instantiations compile as
+// they did (tools/probe_sass_diff.py: all 48 kernels of this file, and
+// fused_neural.cu's, same registers, spills and SASS).
+//
+// Registers a thread and spills on the 128-bit word (ptxas, sm_90a):
+// retire_minsum_kernel 63-64, none spilled; retire_layered_kernel 64, 0-4
+// bytes; retire_sumproduct_kernel 60-64, 0-4 bytes;
+// retire_layered_sumproduct_kernel 80, none spilled, and a 488-byte stack
+// frame (the 121-slot phi array).
+//
+// Measured: chip_smoke.py phase widest_rows (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -249,7 +292,9 @@ __device__ __forceinline__ void clear_state(const MinSumState<Word>& st, int i, 
 // are 0 and the argmin is not read).  With the 64-bit word a row of more
 // than 27 members folds members d - 1 .. 27 first, from a switch of its
 // own, and falls into the 27-member body; the 32-bit word has no such
-// switch, so its kernels are the ones they were.
+// switch, so its kernels are the ones they were.  With the 128-bit word a
+// row of more than 58 members folds members d - 1 .. 58 in a run-time loop
+// before that switch.
 template <bool TRACK, bool POW2, typename Word>
 __device__ __forceinline__ unsigned check_pass(const Structure& s, const float* bel,
                                                const MinSumState<Word>& st, int r, int z,
@@ -282,8 +327,12 @@ __device__ __forceinline__ unsigned check_pass(const Structure& s, const float* 
   case (J) + 1:          \
     member(J);           \
     [[fallthrough]];
+  // The 128-bit word's rows of more than 58 members fold members d - 1 .. 58
+  // in a run-time loop, then fall into the 58-member switch.
+  if constexpr (kSignBits<Word> > 58)
+    for (int j = d - 1; j >= 58; --j) member(j);
   if constexpr (kSignBits<Word> > 27) {
-    switch (d) {
+    switch (kSignBits<Word> > 58 && d > 58 ? 58 : d) {
       RETIRE_MEMBER(57) RETIRE_MEMBER(56) RETIRE_MEMBER(55) RETIRE_MEMBER(54) RETIRE_MEMBER(53)
       RETIRE_MEMBER(52) RETIRE_MEMBER(51) RETIRE_MEMBER(50) RETIRE_MEMBER(49) RETIRE_MEMBER(48)
       RETIRE_MEMBER(47) RETIRE_MEMBER(46) RETIRE_MEMBER(45) RETIRE_MEMBER(44) RETIRE_MEMBER(43)
@@ -415,6 +464,12 @@ __device__ __forceinline__ float c2v_out(float S, float p, unsigned sp, Word neg
 template <typename Word>
 __device__ __forceinline__ Word sign_at(float x, int j) {
   return static_cast<Word>(__float_as_uint(x) >> 31) << j;
+}
+template <>
+__device__ __forceinline__ Word128 sign_at<Word128>(float x, int j) {
+  const unsigned long long b = static_cast<unsigned long long>(__float_as_uint(x) >> 31)
+                               << (j & 63);
+  return j < 64 ? Word128(b) : Word128(0ull, b);
 }
 
 // c2v of a frame's lifted edges, check-aligned: the edge at row-order
@@ -877,9 +932,9 @@ __device__ __forceinline__ void layered_sp_row(const int2* mem, float* bel, floa
 // The same for rows of more than kPhiSlots members, with run-time loops:
 // the update reads each belief and old c2v again (no other thread writes
 // them in between), and phi_j waits in a per-thread array in local memory
-// (27 slots with the 32-bit word, 58 with the 64-bit).  Its c2v slot cannot
-// hold it, as check_pass's does: the slot keeps the old c2v, which the
-// belief update subtracts.
+// (27 slots with the 32-bit word, 58 with the 64-bit, 121 with the
+// 128-bit).  Its c2v slot cannot hold it, as check_pass's does: the slot
+// keeps the old c2v, which the belief update subtracts.
 template <bool POW2, typename Word>
 __device__ __forceinline__ void layered_sp_row_wide(const int2* mem, int d, float* bel,
                                                     float* c2v, int z, int Z, bool first) {
@@ -1344,16 +1399,21 @@ retire_zlane_layered_sumproduct_kernel(const float* __restrict__ llr, float* __r
 
 using Narrow = unsigned;          // the 32-bit state word: rows of up to 27 members
 using Wide = unsigned long long;  // the 64-bit state word: rows of up to 58 members
+using Wider = Word128;            // the 128-bit state word: rows of up to 121 members
 
-// A word_bits argument of the C entries: 32 (Narrow) or 64 (Wide).
-bool valid_word(int word_bits) { return word_bits == 32 || word_bits == 64; }
+// A word_bits argument of the C entries: 32 (Narrow), 64 (Wide) or 128
+// (Wider).
+bool valid_word(int word_bits) { return word_bits == 32 || word_bits == 64 || word_bits == 128; }
 
 // The instantiation of kernel template KERNEL<TRACK, POW2, Word> for the
 // run-time track, pow2 and word_bits of the function it is used in.
 #define PICK_WORD(KERNEL, WORD)                                                        \
   (track ? (pow2 ? &KERNEL<true, true, WORD> : &KERNEL<true, false, WORD>)             \
          : (pow2 ? &KERNEL<false, true, WORD> : &KERNEL<false, false, WORD>))
-#define PICK(KERNEL) (word_bits == 64 ? PICK_WORD(KERNEL, Wide) : PICK_WORD(KERNEL, Narrow))
+#define PICK(KERNEL)                                  \
+  (word_bits == 128  ? PICK_WORD(KERNEL, Wider)       \
+   : word_bits == 64 ? PICK_WORD(KERNEL, Wide)        \
+                     : PICK_WORD(KERNEL, Narrow))
 
 using Kernel = decltype(&retire_minsum_kernel<true, true, Narrow>);
 using ZlaneKernel = decltype(&retire_zlane_kernel<true, true>);
@@ -1370,7 +1430,9 @@ ZlaneKernel pick_zlane_kernel(int track, int Z) {
 }
 
 long long retire_smem(int Z, int R, int C, int K, int parts, int frames, int word_bits) {
-  const int frame = word_bits == 64 ? frame_words<Wide>(Z, R, C) : frame_words<Narrow>(Z, R, C);
+  const int frame = word_bits == 128  ? frame_words<Wider>(Z, R, C)
+                    : word_bits == 64 ? frame_words<Wide>(Z, R, C)
+                                      : frame_words<Narrow>(Z, R, C);
   return 4LL * (structure_words(R, C, K, parts) + static_cast<long long>(frames) * frame);
 }
 
@@ -1421,8 +1483,9 @@ LayeredKernel pick_layered_kernel(int track, int Z, int word_bits) {
 }
 
 long long layered_smem(int Z, int R, int C, int K, int G, int frames, int word_bits) {
-  const int frame = word_bits == 64 ? layered_frame_words<Wide>(Z, R, C)
-                                    : layered_frame_words<Narrow>(Z, R, C);
+  const int frame = word_bits == 128  ? layered_frame_words<Wider>(Z, R, C)
+                    : word_bits == 64 ? layered_frame_words<Wide>(Z, R, C)
+                                      : layered_frame_words<Narrow>(Z, R, C);
   return 4LL * (layered_structure_words(R, K, G) + static_cast<long long>(frames) * frame);
 }
 
@@ -1513,8 +1576,9 @@ extern "C" {
 
 // Decodes B frames: `grid` blocks of `frames` frame groups, each of `parts`
 // parts (the row and column ranges the structure's part tables give);
-// `counter` is one int32 set to 0; `word_bits` 32 or 64, the state word (64
-// for rows of 28 to 58 members, with the structure's wide encoding).
+// `counter` is one int32 set to 0; `word_bits` 32, 64 or 128, the state
+// word (64 for rows of 28 to 58 members, 128 for rows of 59 to 121, each
+// with the structure's encoding for its word).
 // Returns a cudaError_t (0 on success).  Launches on `stream`, no sync.
 int ldpc_retire_minsum(const void* llr, void* bits, void* conv, void* counter,
                        const void* structure, int B, int Z, int R, int C, int K, int T,

@@ -10,14 +10,32 @@
 // bits; unsigned long long (16 bytes a check) keeps members 0..57 at bits
 // 0..57 and the argmin in the top 6, for rows of 28 to 58 members (58, not
 // 64: the argmin needs its 6 bits, and a row of 64 would make 1 << 64
-// undefined).  The 32-bit forms below are the ones the kernels had before
-// the word was a parameter, so those kernels compile as they did.
+// undefined); Word128 (24 bytes a check), two 64-bit limbs, keeps members
+// 0..120 at bits 0..120 and the argmin in the top 7, for rows of 59 to 121
+// members.  The 32-bit forms below are the ones the kernels had before the
+// word was a parameter, so those kernels compile as they did; the 64-bit
+// ones are as they were, and every Word128 form is an overload of its own.
 #pragma once
 
 namespace {
 
+// The 128-bit state word: bits 0..63 in lo, 64..127 in hi.  Its overloads
+// below work limb by limb and never shift a limb by 64 or more.
+struct Word128 {
+  unsigned long long lo, hi;
+  __host__ __device__ constexpr Word128(unsigned long long l = 0ull, unsigned long long h = 0ull)
+      : lo(l), hi(h) {}
+};
+__device__ __forceinline__ Word128 operator|(Word128 a, Word128 b) {
+  return Word128(a.lo | b.lo, a.hi | b.hi);
+}
+__device__ __forceinline__ Word128 operator^(Word128 a, Word128 b) {
+  return Word128(a.lo ^ b.lo, a.hi ^ b.hi);
+}
+__device__ __forceinline__ Word128& operator|=(Word128& a, Word128 b) { return a = a | b; }
+
 template <typename Word>  // members a state word holds signs of
-constexpr int kSignBits = sizeof(Word) == 8 ? 58 : 27;
+constexpr int kSignBits = sizeof(Word) == 16 ? 121 : sizeof(Word) == 8 ? 58 : 27;
 template <typename Word>  // argmin of a check whose every |v2c| >= kBig
 constexpr unsigned kNoMember = 8 * sizeof(Word) - 1;
 template <typename Word>  // words of a check's state: A (2) and W
@@ -39,10 +57,16 @@ __device__ __forceinline__ unsigned bit_at_31(unsigned w, int j) { return w << (
 __device__ __forceinline__ unsigned bit_at_31(unsigned long long w, int j) {
   return static_cast<unsigned>(w >> j) << 31;
 }
+__device__ __forceinline__ unsigned bit_at_31(Word128 w, int j) {
+  return static_cast<unsigned>((j < 64 ? w.lo : w.hi) >> (j & 63)) << 31;
+}
 
 // Whether the word has an odd number of bits set: 1 or 0.
 __device__ __forceinline__ unsigned odd(unsigned w) { return __popc(w) & 1u; }
 __device__ __forceinline__ unsigned odd(unsigned long long w) { return __popcll(w) & 1u; }
+__device__ __forceinline__ unsigned odd(Word128 w) {
+  return (__popcll(w.lo) + __popcll(w.hi)) & 1u;
+}
 
 // What turns the d members' v2c signs (neg: member j's at bit j) into
 // their output signs, neg ^ product_flips: all d bits where the sign
@@ -51,11 +75,20 @@ template <typename Word>
 __device__ __forceinline__ Word product_flips(Word neg, int d) {
   return odd(neg) ? (Word{1} << d) - Word{1} : Word{0};
 }
+// The 128-bit form: a mask of d bits across the limbs (d <= 121).
+__device__ __forceinline__ Word128 product_flips(Word128 neg, int d) {
+  if (!odd(neg)) return Word128();
+  return d < 64 ? Word128((1ull << d) - 1ull) : Word128(~0ull, (1ull << (d - 64)) - 1ull);
+}
 
 // A check's state word: output signs and argmin.
 template <typename Word>
 __device__ __forceinline__ Word state_word(Word signs, unsigned arg) {
   return signs | (static_cast<Word>(arg) << kSignBits<Word>);
+}
+__device__ __forceinline__ Word128 state_word(Word128 signs, unsigned arg) {
+  return Word128(signs.lo,
+                 signs.hi | (static_cast<unsigned long long>(arg) << (kSignBits<Word128> - 64)));
 }
 
 // The argmin a state word holds.
@@ -63,10 +96,15 @@ template <typename Word>
 __device__ __forceinline__ unsigned argmin_of(Word w) {
   return static_cast<unsigned>(w >> kSignBits<Word>);
 }
+__device__ __forceinline__ unsigned argmin_of(Word128 w) {
+  return static_cast<unsigned>(w.hi >> (kSignBits<Word128> - 64));
+}
 
 // The column-member fields of _retire_structure (m.z, m.w) read against a
 // state word: whether the member is its check's argmin, and its output
-// sign at bit 31.  32-bit word: (j << 27, 31 - j); 64-bit: (j, 63 - j).
+// sign at bit 31.  32-bit word: (j << 27, 31 - j); 64-bit: (j, 63 - j);
+// 128-bit: (j, 127 - j), where a shift by 127 - j >= 64 is one of lo by
+// 63 - j.
 __device__ __forceinline__ bool is_argmin(unsigned w, int mz) {
   return ((w ^ static_cast<unsigned>(mz)) & 0xf8000000u) == 0u;
 }
@@ -74,8 +112,14 @@ __device__ __forceinline__ bool is_argmin(unsigned long long w, int mz) {
   return argmin_of(w) == static_cast<unsigned>(mz);
 }
 __device__ __forceinline__ unsigned member_sign(unsigned w, int mw) { return w << mw; }
+__device__ __forceinline__ bool is_argmin(Word128 w, int mz) {
+  return argmin_of(w) == static_cast<unsigned>(mz);
+}
 __device__ __forceinline__ unsigned member_sign(unsigned long long w, int mw) {
   return static_cast<unsigned>((w << mw) >> 32);
+}
+__device__ __forceinline__ unsigned member_sign(Word128 w, int mw) {
+  return static_cast<unsigned>(((mw >= 64 ? w.lo : w.hi) << (mw & 63)) >> 32);
 }
 
 // The threads of one frame group: a warp, or `threads` threads that share
@@ -111,7 +155,7 @@ struct Group {
 // Structure in shared memory, as ldpc_tpu_torch/ops/fused_minsum.py
 // _retire_structure lays it out: column members in col_members order (K
 // int4: r*Z, shift, j << 27, 31 - j for member j of its row; j, 63 - j for
-// the 64-bit state word), row members in
+// the 64-bit state word; j, 127 - j for the 128-bit one), row members in
 // row order (K int2: col*Z, shift), row_ptr (R+1),
 // col_ptr (C+1), and the first row and column of each part (parts+1 each).
 struct Structure {
@@ -194,6 +238,10 @@ __device__ __forceinline__ unsigned push_sign(float x, unsigned neg) {
 }
 __device__ __forceinline__ unsigned long long push_sign(float x, unsigned long long neg) {
   return (neg << 1) | (__float_as_uint(x) >> 31);
+}
+// The 128-bit form carries bit 63 of lo into bit 0 of hi.
+__device__ __forceinline__ Word128 push_sign(float x, Word128 neg) {
+  return Word128((neg.lo << 1) | (__float_as_uint(x) >> 31), (neg.hi << 1) | (neg.lo >> 63));
 }
 
 // One member's v2c folded into the check's running state: m1, m2, the

@@ -47,10 +47,17 @@ Fourteen hand-written kernels replace the two TPU kernels:
   four kernels above on a 64-bit state word (58 output signs and a 6-bit
   argmin; 16 bytes a check's compressed min-sum state, where the 32-bit
   word's 27 signs make 12), the sum-product ones with 64-bit sign masks.
-  The ``fits`` functions with ``wide=True`` decide.
+  The ``fits`` functions with ``word_bits=64`` decide.
+* ``fused_retire_w128``, ``retire_layered_w128``, ``retire_sumproduct_w128``
+  and ``retire_layered_sumproduct_w128`` (same file, replace
+  ``pallas_minsum._kernel`` on codes with rows of 59 to 121 members, such
+  as array LDPC codes): the same four kernels on a 128-bit state word of
+  two 64-bit limbs (121 output signs and a 7-bit argmin; 24 bytes a check's
+  compressed min-sum state), the sum-product ones with 128-bit sign masks.
+  The ``fits`` functions with ``word_bits=128`` decide.
 * ``fused`` (``csrc/fused_minsum.cu``, replaces ``pallas_minsum._kernel``
   on codes that the retiring kernels do not take, those with rows of more
-  than 58 members): a few frames per thread block, with all decode state
+  than 121 members): a few frames per thread block, with all decode state
   (c2v, beliefs, channel LLRs) in shared memory.  Fits while one frame's
   state is below the block's shared memory (Z=32 on NR BG2: about 42 KB a
   frame); ``fused_kernel_fits`` decides.
@@ -112,9 +119,15 @@ _RETIRE_MAX_THREADS = 1024  # kMaxThreads in csrc/fused_retire.cu
 _RETIRE_MAX_GROUPS = 15  # kMaxGroups in csrc/fused_retire.cu: frames a block
 # Members of a row the retiring kernels' state word holds signs of
 # (kSignBits in csrc/retire.cuh): 27 with the 32-bit word, 58 with the
-# 64-bit word of the wide routes (``*_wide``), which take rows of 28 to 58.
+# 64-bit word of the wide routes (``*_wide``), which take rows of 28 to 58,
+# and 121 with the 128-bit word of the ``*_w128`` routes, rows of 59 to 121.
 _RETIRE_MAX_DEGREE = 27
 _RETIRE_WIDE_MAX_DEGREE = 58
+_RETIRE_WIDER_MAX_DEGREE = 121
+# The state words' widths (the C entries' word_bits) and the suffix of the
+# routes on each wider word.
+WORD_BITS = (32, 64, 128)
+_WORD_SUFFIX = {64: "_wide", 128: "_w128"}
 _RETIRE_MAX_PARTS = 4  # parts a frame's rows and columns are split into
 # retire_layered: frames a block when a frame is one warp (32 warps); more
 # warps a frame take a named barrier each, so _RETIRE_MAX_GROUPS.
@@ -132,20 +145,26 @@ _LAYERED_SUMPRODUCT_MAX_THREADS = 768
 # The kernels of csrc/fused_retire.cu, each a route of its own; the layered
 # ones read _layered_structure.  The four ``*_wide`` routes are the B1
 # kernels instantiated on the 64-bit state word, for rows of 28 to 58
-# members.
-WIDE_ROUTES = ("fused_retire_wide", "retire_layered_wide", "retire_sumproduct_wide",
-               "retire_layered_sumproduct_wide")
+# members, the four ``*_w128`` routes the same kernels on the 128-bit word,
+# for rows of 59 to 121.
+_B1_ROUTES = ("fused_retire", "retire_layered", "retire_sumproduct", "retire_layered_sumproduct")
+WIDE_ROUTES = tuple(route + "_wide" for route in _B1_ROUTES)
+W128_ROUTES = tuple(route + "_w128" for route in _B1_ROUTES)
+# A B1 route on a wider word: (the kernel's own route, word_bits).
+_ROUTE_WORD = {route + suffix: (route, bits) for route in _B1_ROUTES
+               for bits, suffix in _WORD_SUFFIX.items()}
 RETIRING = ("fused_retire", "retire_zlane", "retire_layered", "retire_sumproduct",
             "retire_zlane_layered", "retire_zlane_sumproduct", "retire_layered_sumproduct",
-            "retire_zlane_layered_sumproduct") + WIDE_ROUTES
+            "retire_zlane_layered_sumproduct") + WIDE_ROUTES + W128_ROUTES
 _LAYERED_ROUTES = ("retire_layered", "retire_zlane_layered", "retire_layered_sumproduct",
                    "retire_zlane_layered_sumproduct", "retire_layered_wide",
-                   "retire_layered_sumproduct_wide")
+                   "retire_layered_sumproduct_wide", "retire_layered_w128",
+                   "retire_layered_sumproduct_w128")
 LAUNCHES: dict[str, int] = {"fused_retire": 0, "fused": 0, "retire_zlane": 0, "fused_zlane": 0,
                             "retire_layered": 0, "retire_sumproduct": 0,
                             "retire_zlane_layered": 0, "retire_zlane_sumproduct": 0,
                             "retire_layered_sumproduct": 0, "retire_zlane_layered_sumproduct": 0,
-                            **{route: 0 for route in WIDE_ROUTES}}
+                            **{route: 0 for route in WIDE_ROUTES + W128_ROUTES}}
 
 
 class _Structure(NamedTuple):
@@ -229,24 +248,27 @@ def _retire_structure_words(qc: QCLayout, parts: int) -> int:
     return -(-(6 * K + R + C + 2 + 2 * (parts + 1)) // 4) * 4
 
 
-def _state_words(wide: bool) -> int:
+def _state_words(word_bits: int) -> int:
     """int32 words of a lifted check's compressed state: (alpha*m1,
-    alpha*m2) and the state word, 32 or (``wide``) 64 bits."""
-    return 4 if wide else 3
+    alpha*m2) and the state word of ``word_bits`` (32, 64 or 128) bits."""
+    return 2 + word_bits // 32
 
 
-def _max_degree(wide: bool) -> int:
-    return _RETIRE_WIDE_MAX_DEGREE if wide else _RETIRE_MAX_DEGREE
+def _max_degree(word_bits: int) -> int:
+    """Members of a row whose signs a state word of ``word_bits`` holds."""
+    return {32: _RETIRE_MAX_DEGREE, 64: _RETIRE_WIDE_MAX_DEGREE,
+            128: _RETIRE_WIDER_MAX_DEGREE}[word_bits]
 
 
-def retire_smem_bytes(qc: QCLayout, parts: int = 1, frames: int = 1, wide: bool = False) -> int:
-    """Dynamic shared memory of one ``fused_retire`` block (``wide``:
-    ``fused_retire_wide``): structure plus, per frame, the beliefs and the
-    LLRs (C*Z float32 each) and the compressed check state (3 words per
-    lifted check, 4 with the 64-bit state word)."""
+def retire_smem_bytes(qc: QCLayout, parts: int = 1, frames: int = 1, word_bits: int = 32) -> int:
+    """Dynamic shared memory of one ``fused_retire`` block (``word_bits``
+    64: ``fused_retire_wide``, 128: ``fused_retire_w128``): structure plus,
+    per frame, the beliefs and the LLRs (C*Z float32 each) and the
+    compressed check state (3 words per lifted check, 4 with the 64-bit
+    state word, 6 with the 128-bit one)."""
     Z, C, R = qc.Z, qc.num_base_cols, qc.num_base_rows
     return 4 * (_retire_structure_words(qc, parts)
-                + frames * (-(-(2 * C * Z + _state_words(wide) * R * Z) // 4) * 4))
+                + frames * (-(-(2 * C * Z + _state_words(word_bits) * R * Z) // 4) * 4))
 
 
 def retire_threads(qc: QCLayout, parts: int, frames: int) -> int:
@@ -255,21 +277,22 @@ def retire_threads(qc: QCLayout, parts: int, frames: int) -> int:
     return 32 * -(-qc.Z // 32) * parts * frames
 
 
-def retire_plans(qc: QCLayout, wide: bool = False) -> list[tuple[int, int]]:
-    """The (parts, frames per block) a ``fused_retire`` (``wide``:
-    ``fused_retire_wide``) launch may take: at most 15 frames and 1024
-    threads a block, within shared memory."""
+def retire_plans(qc: QCLayout, word_bits: int = 32) -> list[tuple[int, int]]:
+    """The (parts, frames per block) a ``fused_retire`` launch on the state
+    word of ``word_bits`` may take: at most 15 frames and 1024 threads a
+    block, within shared memory."""
     return [(p, f) for p in range(1, _RETIRE_MAX_PARTS + 1)
             for f in range(1, _RETIRE_MAX_GROUPS + 1)
             if retire_threads(qc, p, f) <= _RETIRE_MAX_THREADS
-            and retire_smem_bytes(qc, p, f, wide) <= _SMEM_BUDGET]
+            and retire_smem_bytes(qc, p, f, word_bits) <= _SMEM_BUDGET]
 
 
-def retire_kernel_fits(qc: QCLayout, wide: bool = False) -> bool:
-    """Whether ``fused_retire`` takes the code: rows of at most 27 members
-    (the signs its 32-bit state word holds; ``wide``: ``fused_retire_wide``
-    and 58, its 64-bit word's) and a frame within a block."""
-    return qc.dr_max <= _max_degree(wide) and bool(retire_plans(qc, wide))
+def retire_kernel_fits(qc: QCLayout, word_bits: int = 32) -> bool:
+    """Whether ``fused_retire`` takes the code on the state word of
+    ``word_bits``: rows of at most the members whose signs it holds (27 on
+    the 32-bit word; 58 on the 64-bit one, ``fused_retire_wide``; 121 on
+    the 128-bit one, ``fused_retire_w128``) and a frame within a block."""
+    return qc.dr_max <= _max_degree(word_bits) and bool(retire_plans(qc, word_bits))
 
 
 def retire_sumproduct_smem_bytes(qc: QCLayout, parts: int = 1, frames: int = 1,
@@ -292,12 +315,13 @@ def retire_sumproduct_plans(qc: QCLayout) -> list[tuple[int, int, bool]]:
             and retire_sumproduct_smem_bytes(qc, p, f, staged) <= _SMEM_BUDGET]
 
 
-def retire_sumproduct_fits(qc: QCLayout, wide: bool = False) -> bool:
-    """Whether ``retire_sumproduct`` takes the code: rows of at most 27
-    members (a word holds a check's signs, as in ``fused_retire``;
-    ``wide``: ``retire_sumproduct_wide``'s 64-bit word, 58) and a frame,
-    with one float of c2v an edge, within a block."""
-    return qc.dr_max <= _max_degree(wide) and bool(retire_sumproduct_plans(qc))
+def retire_sumproduct_fits(qc: QCLayout, word_bits: int = 32) -> bool:
+    """Whether ``retire_sumproduct`` takes the code with sign masks of
+    ``word_bits``: rows of at most 27 members (a word holds a check's
+    signs, as in ``fused_retire``; 58 on ``retire_sumproduct_wide``'s 64-bit
+    word, 121 on ``retire_sumproduct_w128``'s 128-bit one) and a frame, with
+    one float of c2v an edge, within a block."""
+    return qc.dr_max <= _max_degree(word_bits) and bool(retire_sumproduct_plans(qc))
 
 
 def retire_zlane_smem_bytes(qc: QCLayout, parts: int = 1) -> int:
@@ -352,13 +376,14 @@ def _layered_structure_words(qc: QCLayout) -> int:
     return -(-(2 * qc.num_base_edges + qc.num_base_rows + G + 2) // 4) * 4
 
 
-def retire_layered_smem_bytes(qc: QCLayout, frames: int = 1, wide: bool = False) -> int:
-    """Dynamic shared memory of one ``retire_layered`` block (``wide``:
-    ``retire_layered_wide``): structure plus, per frame, the beliefs (C*Z
-    float32) and the compressed check state (3 words per lifted check, 4
-    with the 64-bit state word), each rounded up to 16 bytes."""
+def retire_layered_smem_bytes(qc: QCLayout, frames: int = 1, word_bits: int = 32) -> int:
+    """Dynamic shared memory of one ``retire_layered`` block (``word_bits``
+    64: ``retire_layered_wide``, 128: ``retire_layered_w128``): structure
+    plus, per frame, the beliefs (C*Z float32) and the compressed check
+    state (3 words per lifted check, 4 with the 64-bit state word, 6 with
+    the 128-bit one), each rounded up to 16 bytes."""
     Z, C, R = qc.Z, qc.num_base_cols, qc.num_base_rows
-    frame = -(-C * Z // 4) * 4 + -(-_state_words(wide) * R * Z // 4) * 4
+    frame = -(-C * Z // 4) * 4 + -(-_state_words(word_bits) * R * Z // 4) * 4
     return 4 * (_layered_structure_words(qc) + frames * frame)
 
 
@@ -379,16 +404,18 @@ def _layered_plans(qc: QCLayout, smem_bytes,
     return plans
 
 
-def retire_layered_plans(qc: QCLayout, wide: bool = False) -> list[tuple[int, int]]:
-    """The (parts, frames per block) a ``retire_layered`` (``wide``:
-    ``retire_layered_wide``) launch may take (:func:`_layered_plans`)."""
-    return _layered_plans(qc, lambda f: retire_layered_smem_bytes(qc, f, wide))
+def retire_layered_plans(qc: QCLayout, word_bits: int = 32) -> list[tuple[int, int]]:
+    """The (parts, frames per block) a ``retire_layered`` launch on the state
+    word of ``word_bits`` may take (:func:`_layered_plans`)."""
+    return _layered_plans(qc, lambda f: retire_layered_smem_bytes(qc, f, word_bits))
 
 
-def retire_layered_fits(qc: QCLayout, wide: bool = False) -> bool:
-    """Whether ``retire_layered`` takes the code: rows of at most 27 members
-    (``wide``: ``retire_layered_wide``, 58) and a frame within a block."""
-    return qc.dr_max <= _max_degree(wide) and bool(retire_layered_plans(qc, wide))
+def retire_layered_fits(qc: QCLayout, word_bits: int = 32) -> bool:
+    """Whether ``retire_layered`` takes the code on the state word of
+    ``word_bits``: rows of at most 27 members (58 on
+    ``retire_layered_wide``'s 64-bit word, 121 on ``retire_layered_w128``'s
+    128-bit one) and a frame within a block."""
+    return qc.dr_max <= _max_degree(word_bits) and bool(retire_layered_plans(qc, word_bits))
 
 
 def retire_zlane_layered_smem_bytes(qc: QCLayout, frames: int = 1) -> int:
@@ -437,12 +464,13 @@ def retire_layered_sumproduct_plans(qc: QCLayout) -> list[tuple[int, int]]:
                           _LAYERED_SUMPRODUCT_MAX_THREADS)
 
 
-def retire_layered_sumproduct_fits(qc: QCLayout, wide: bool = False) -> bool:
-    """Whether ``retire_layered_sumproduct`` takes the code: rows of at most
-    27 members (a word holds a check's signs; ``wide``:
-    ``retire_layered_sumproduct_wide``'s 64-bit word, 58) and a frame's
-    beliefs and c2v within a block."""
-    return qc.dr_max <= _max_degree(wide) and bool(retire_layered_sumproduct_plans(qc))
+def retire_layered_sumproduct_fits(qc: QCLayout, word_bits: int = 32) -> bool:
+    """Whether ``retire_layered_sumproduct`` takes the code with sign masks
+    of ``word_bits``: rows of at most 27 members (a word holds a check's
+    signs; 58 on ``retire_layered_sumproduct_wide``'s 64-bit word, 121 on
+    ``retire_layered_sumproduct_w128``'s 128-bit one) and a frame's beliefs
+    and c2v within a block."""
+    return qc.dr_max <= _max_degree(word_bits) and bool(retire_layered_sumproduct_plans(qc))
 
 
 def retire_zlane_layered_sumproduct_smem_bytes(qc: QCLayout, frames: int = 1) -> int:
@@ -512,7 +540,7 @@ def _balanced_bounds(costs, parts: int) -> list[int]:
 
 
 def _retire_structure(st: _Structure, parts: int = 1, per_edge: bool = False,
-                      wide: bool = False) -> np.ndarray:
+                      word_bits: int = 32) -> np.ndarray:
     """Structure for ``fused_retire`` (and ``retire_zlane``), int32: column
     members in col_members order as (r*Z, shift, j << 27, 31 - j) with j the
     member's position in its row (the state word's argmin field, and the
@@ -523,14 +551,16 @@ def _retire_structure(st: _Structure, parts: int = 1, per_edge: bool = False,
     members plus 6, a variable its members plus 3).  ``per_edge`` (for
     ``retire_sumproduct``, whose c2v is one float an edge) puts the edge's
     offset i*Z in place of r*Z, with i = row_ptr[r] + j its position in row
-    order.  ``wide`` (the 64-bit state word of the ``*_wide`` routes, the
-    argmin in its top 6 bits) gives each column member (.., .., j, 63 - j):
-    the argmin to compare, and the shift that brings bit j to bit 63."""
+    order.  ``word_bits`` 64 (the state word of the ``*_wide`` routes, the
+    argmin in its top 6 bits) gives each column member (.., .., j, 63 - j),
+    and 128 (the ``*_w128`` routes' two-limb word, the argmin in its top 7
+    bits) (.., .., j, 127 - j): the argmin to compare, and the shift that
+    brings bit j to the word's top bit."""
     Z = st.Z
     member, i = {}, 0
     for r, members in enumerate(st.row_members):
         for j, k in enumerate(members):
-            fields = (j, 63 - j) if wide else (j << 27, 31 - j)
+            fields = (j << 27, 31 - j) if word_bits == 32 else (j, word_bits - 1 - j)
             member[k] = ((i if per_edge else r) * Z, st.shifts[k], *fields)
             i += 1
     col_mem = [member[k] for m in st.col_members for k in m]
@@ -833,34 +863,29 @@ def retire_kernel_library():
     return _build.load("fused_retire", _RETIRE_SIGNATURES)
 
 
-def _word_bits(wide: bool) -> int:
-    """The C entries' ``word_bits``: the state word's width."""
-    return 64 if wide else 32
-
-
 def retire_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
-                lib=None, wide: bool = False) -> tuple[int, int, int]:
+                lib=None, word_bits: int = 32) -> tuple[int, int, int]:
     """(parts, frames per block, resident blocks per SM) of ``fused_retire``
-    (``wide``: ``fused_retire_wide``): of :func:`retire_plans` (those with
+    on the state word of ``word_bits``: of :func:`retire_plans` (those with
     ``parts`` if given), the most resident frames per SM by the runtime's
     occupancy query, then the most parts, then the fewest frames per
     block."""
     lib = lib or retire_kernel_library()
     dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
     best, key = (0, 0, 0), (0, 0, 0)
-    for p, f in retire_plans(qc, wide):
+    for p, f in retire_plans(qc, word_bits):
         if parts is not None and p != parts:
             continue
-        per_sm = lib.ldpc_retire_occupancy(*dims, p, f, int(track_convergence), _word_bits(wide))
+        per_sm = lib.ldpc_retire_occupancy(*dims, p, f, int(track_convergence), word_bits)
         if (per_sm * f, p, -f) > key:
             best, key = (p, f, per_sm), (per_sm * f, p, -f)
     return best
 
 
 def retire_sumproduct_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
-                           lib=None, wide: bool = False) -> tuple[int, int, bool, int]:
+                           lib=None, word_bits: int = 32) -> tuple[int, int, bool, int]:
     """(parts, frames per block, staged, resident blocks per SM) of
-    ``retire_sumproduct`` (``wide``: ``retire_sumproduct_wide``): of
+    ``retire_sumproduct`` with sign masks of ``word_bits``: of
     :func:`retire_sumproduct_plans` (those with ``parts`` if given), the
     most resident frames per SM by the runtime's occupancy query, then the
     most parts, then staged LLRs, then the fewest frames per block."""
@@ -871,7 +896,7 @@ def retire_sumproduct_plan(qc: QCLayout, track_convergence: bool, parts: int | N
         if parts is not None and p != parts:
             continue
         per_sm = lib.ldpc_retire_sumproduct_occupancy(*dims, p, f, int(staged),
-                                                      int(track_convergence), _word_bits(wide))
+                                                      int(track_convergence), word_bits)
         if (per_sm * f, p, staged, -f) > key:
             best, key = (p, f, staged, per_sm), (per_sm * f, p, staged, -f)
     return best
@@ -895,9 +920,9 @@ def retire_zlane_plan(qc: QCLayout, track_convergence: bool, parts: int | None =
 
 
 def retire_layered_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
-                        lib=None, wide: bool = False) -> tuple[int, int, int]:
+                        lib=None, word_bits: int = 32) -> tuple[int, int, int]:
     """(parts, frames per block, resident blocks per SM) of
-    ``retire_layered`` (``wide``: ``retire_layered_wide``): of
+    ``retire_layered`` on the state word of ``word_bits``: of
     :func:`retire_layered_plans` (those with ``parts`` if given), the most
     resident frames per SM by the runtime's occupancy query, then the most
     parts, then the fewest frames per block."""
@@ -905,11 +930,11 @@ def retire_layered_plan(qc: QCLayout, track_convergence: bool, parts: int | None
     dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges,
             len(row_groups(_structure(qc))) - 1)
     best, key = (0, 0, 0), (0, 0, 0)
-    for p, f in retire_layered_plans(qc, wide):
+    for p, f in retire_layered_plans(qc, word_bits):
         if parts is not None and p != parts:
             continue
         per_sm = lib.ldpc_retire_layered_occupancy(*dims, p, f, int(track_convergence),
-                                                   _word_bits(wide))
+                                                   word_bits)
         if (per_sm * f, p, -f) > key:
             best, key = (p, f, per_sm), (per_sm * f, p, -f)
     return best
@@ -957,10 +982,10 @@ def retire_zlane_sumproduct_plan(qc: QCLayout, track_convergence: bool, parts: i
 
 def retire_layered_sumproduct_plan(qc: QCLayout, track_convergence: bool,
                                    parts: int | None = None, lib=None,
-                                   wide: bool = False) -> tuple[int, int, int]:
+                                   word_bits: int = 32) -> tuple[int, int, int]:
     """(parts, frames per block, resident blocks per SM) of
-    ``retire_layered_sumproduct`` (``wide``:
-    ``retire_layered_sumproduct_wide``): of :func:`retire_layered_sumproduct_plans`
+    ``retire_layered_sumproduct`` with sign masks of ``word_bits``: of
+    :func:`retire_layered_sumproduct_plans`
     (those with ``parts`` if given), the most resident frames per SM by the
     runtime's occupancy query, then the fewest parts, then the fewest frames
     per block.  Fewest parts, where ``retire_layered`` takes the most: at NR
@@ -975,7 +1000,7 @@ def retire_layered_sumproduct_plan(qc: QCLayout, track_convergence: bool,
             continue
         per_sm = lib.ldpc_retire_layered_sumproduct_occupancy(*dims, p, f,
                                                              int(track_convergence),
-                                                             _word_bits(wide))
+                                                             word_bits)
         if (per_sm * f, -p, -f) > key:
             best, key = (p, f, per_sm), (per_sm * f, -p, -f)
     return best
@@ -1011,8 +1036,9 @@ def _route(kind: str, qc: QCLayout, mode: str, schedule: str) -> str:
     """The kernel a decoder of ``kind`` launches (its ``LAUNCHES`` key): each
     mode and schedule on the retiring kernel of its size where that takes
     the code; on a ``fused`` decoder, rows of 28 to 58 members on the same
-    kernel on the 64-bit state word (the route's ``*_wide`` form); the rest
-    (``fused``: rows over 58 members; ``fused_zlane``: over 27) on
+    kernel on the 64-bit state word (the route's ``*_wide`` form) and rows
+    of 59 to 121 on the 128-bit one (its ``*_w128`` form); the rest
+    (``fused``: rows over 121 members; ``fused_zlane``: over 27) on
     ``kind``'s own."""
     fits = {("fused", "minsum", "flooding"): ("fused_retire", retire_kernel_fits),
             ("fused", "minsum", "layered"): ("retire_layered", retire_layered_fits),
@@ -1029,8 +1055,10 @@ def _route(kind: str, qc: QCLayout, mode: str, schedule: str) -> str:
     route, takes = fits.get((kind, mode, schedule), (kind, None))
     if takes is None or takes(qc):
         return route
-    if kind == "fused" and takes(qc, wide=True):
-        return f"{route}_wide"
+    if kind == "fused":
+        for bits, suffix in _WORD_SUFFIX.items():
+            if takes(qc, word_bits=bits):
+                return route + suffix
     return kind
 
 
@@ -1075,8 +1103,10 @@ class FusedDecoder:
     :func:`retire_zlane_layered_fits`, :func:`retire_zlane_sumproduct_fits`,
     :func:`retire_zlane_layered_sumproduct_fits`).  On a "fused" decoder,
     rows of 28 to 58 members run on the four B1 kernels' 64-bit state word
-    (``WIDE_ROUTES``, each ``fits`` with ``wide=True``); the rest (rows over
-    58 members, or over 27 on "fused_zlane") runs on the ``kind`` kernel.
+    (``WIDE_ROUTES``, each ``fits`` with ``word_bits=64``) and rows of 59 to
+    121 on their 128-bit word (``W128_ROUTES``, ``word_bits=128``); the rest
+    (rows over 121 members, or over 27 on "fused_zlane") runs on the
+    ``kind`` kernel.
     ``retire`` says whether the route is one of the retiring kernels
     (``RETIRING``).
     """
@@ -1142,9 +1172,9 @@ class FusedDecoder:
         """``fused`` on ``llr`` (contiguous, on a card) whatever the route:
         the kernel layered min-sum and both sum-product schedules ran on
         before ``retire_layered``, ``retire_sumproduct`` and
-        ``retire_layered_sumproduct``, and every schedule on rows of 28 to 58
-        members before the ``*_wide`` routes, kept so each can be timed
-        beside it."""
+        ``retire_layered_sumproduct``, and every schedule on rows of 28 to
+        121 members before the ``*_wide`` and ``*_w128`` routes, kept so each
+        can be timed beside it."""
         if self.kind != "fused" or self.graph is None:
             raise ValueError(f"a {self.route} decoder has no fused launch")
         return self._launch_csr(llr, "fused")
@@ -1195,10 +1225,9 @@ class FusedDecoder:
         if B == 0:
             return bits, conv
         lib = retire_kernel_library()
-        # A *_wide route launches its kernel's 64-bit-word instantiation.
-        wide = self.route in WIDE_ROUTES
-        route = self.route.removesuffix("_wide") if wide else self.route
-        word_bits = _word_bits(wide)
+        # A *_wide or *_w128 route launches its kernel's instantiation on the
+        # 64-bit or 128-bit state word.
+        route, word_bits = _ROUTE_WORD.get(self.route, (self.route, 32))
         with torch.cuda.device(llr.device):
             cache_key = (llr.device, parts)
             plan = self._retire_plans.get(cache_key)
@@ -1215,23 +1244,24 @@ class FusedDecoder:
                                                                   parts, lib)
                 elif route == "retire_layered":
                     p, frames, per_sm = retire_layered_plan(self.qc, self.track_convergence,
-                                                            parts, lib, wide)
+                                                            parts, lib, word_bits)
                 elif route == "retire_layered_sumproduct":
                     p, frames, per_sm = retire_layered_sumproduct_plan(
-                        self.qc, self.track_convergence, parts, lib, wide)
+                        self.qc, self.track_convergence, parts, lib, word_bits)
                 elif route == "retire_zlane_layered_sumproduct":
                     p, frames, per_sm = retire_zlane_layered_sumproduct_plan(
                         self.qc, self.track_convergence, parts, lib)
                 elif route == "retire_sumproduct":
                     p, frames, flag, per_sm = retire_sumproduct_plan(
-                        self.qc, self.track_convergence, parts, lib, wide)
+                        self.qc, self.track_convergence, parts, lib, word_bits)
                 else:
                     p, frames, per_sm = retire_plan(self.qc, self.track_convergence, parts, lib,
-                                                    wide)
+                                                    word_bits)
                 resident = _resident_grid(per_sm, self.route, llr.device)
                 table = (_layered_structure(st) if route in _LAYERED_ROUTES
                          else _retire_structure(st, p, per_edge=route in (
-                             "retire_sumproduct", "retire_zlane_sumproduct"), wide=wide))
+                             "retire_sumproduct", "retire_zlane_sumproduct"),
+                                                 word_bits=word_bits))
                 structure = torch.as_tensor(table, device=llr.device)
                 plan = self._retire_plans[cache_key] = (p, frames, resident, structure, flag)
             p, frames, resident, structure, flag = plan
@@ -1320,10 +1350,11 @@ def make_fused_minsum(
     :func:`retire_sumproduct_plan`, :func:`retire_layered_sumproduct_plan`),
     on the codes they take (:func:`retire_kernel_fits`,
     :func:`retire_layered_fits`, :func:`retire_sumproduct_fits`,
-    :func:`retire_layered_sumproduct_fits`), and on their 64-bit-word forms
+    :func:`retire_layered_sumproduct_fits`), on their 64-bit-word forms
     (``fused_retire_wide``, ``retire_layered_wide``,
     ``retire_sumproduct_wide``, ``retire_layered_sumproduct_wide``) for rows
-    of 28 to 58 members; codes with rows of more run on ``fused``,
+    of 28 to 58 members and on their 128-bit-word forms (``*_w128``) for
+    rows of 59 to 121; codes with rows of more run on ``fused``,
     ``batch_tile`` frames per thread block with all state in shared memory
     (default: :func:`pick_fused_batch_tile`).  ``batch_tile`` is checked against the
     ``fused`` kernel's shared memory either way.  ``mode``: "minsum"
@@ -1409,6 +1440,7 @@ def make_fused_bp(
 ) -> FusedDecoder:
     """Fused sum-product (belief propagation) decoder, flooding: on
     ``retire_sumproduct`` where it takes the code, ``retire_sumproduct_wide``
-    for rows of 28 to 58 members, else ``fused`` — see make_fused_minsum."""
+    for rows of 28 to 58 members, ``retire_sumproduct_w128`` for rows of 59
+    to 121, else ``fused`` — see make_fused_minsum."""
     return make_fused_minsum(qc, max_iterations, alpha=1.0, batch_tile=batch_tile,
                              mode="sumproduct", device=device)

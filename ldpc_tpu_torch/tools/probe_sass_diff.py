@@ -9,7 +9,8 @@ same registers and spills (``-Xptxas -v``) and the same SASS instructions
 by name with the anonymous namespace's hash removed (it follows the file's
 path); this tree's retiring kernels instantiated on the 32-bit state word
 (template argument ``unsigned``, mangled ``j``) are matched to kernels with
-no such argument, and those on the 64-bit word (``y``) are listed apart.
+no such argument, and those on the 64-bit word (``y``) and on the 128-bit
+word (the struct ``Word128``) that the other tree lacks are listed apart.
 
 Run:  python -m ldpc_tpu_torch.tools.probe_sass_diff --other <checkout>
       [--stems fused_retire fused_neural]
@@ -32,7 +33,7 @@ _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
 # The retiring kernels' <TRACK, POW2, Word> on the 32-bit word, matched to a
 # <TRACK, POW2> of the other tree.
 _NARROW_WORD = re.compile(r"(ILb[01]ELb[01]E)jE")
-_WIDE_WORD = re.compile(r"ILb[01]ELb[01]EyE")
+_WIDE_WORD = re.compile(r"ILb[01]ELb[01]E(yE|\w*Word128E)")
 
 
 def _key(name: str) -> str:
@@ -93,7 +94,7 @@ def compare(lib: Path, log: str, other_lib: Path, other_log: str) -> dict:
             i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
             kernels[key]["first_difference"] = [i, a[i:i + 3], b[i:i + 3]]
             kernels[key]["lines_differing"] = sum(x != y for x, y in zip(a, b))
-    wide = {k: v for k, v in ptx.items() if _WIDE_WORD.search(k)}
+    wide = {k: v for k, v in ptx.items() if _WIDE_WORD.search(k) and k not in other_ptx}
     return {"kernels": len(kernels),
             "same_ptxas": sum(v["same_ptxas"] for v in kernels.values()),
             "same_sass": sum(v["same_sass"] for v in kernels.values()),

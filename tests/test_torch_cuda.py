@@ -143,14 +143,14 @@ def test_retire_kernel_groups_take_several_frames():
 def test_wide_rows_run_on_the_fused_kernel(track):
     """A code with a row of 31 members, more than fused_retire's 32-bit
     state word holds signs of: min-sum flooding launches fused_retire_wide
-    (the 64-bit word) and not fused; a row of 59 members, more than the
-    64-bit word holds, still launches the fused kernel.  Bits and conv_iter
+    (the 64-bit word) and not fused; a row of 122 members, more than the
+    128-bit word holds, still launches the fused kernel.  Bits and conv_iter
     identical to the plain version."""
     from test_torch_minsum_retire import wide_row_shifts
     from test_torch_retire_wide import row_code
 
     for qc, route in ((tcodes.qc_layout(tcodes.BaseGraph("wide", wide_row_shifts()), 4),
-                       "fused_retire_wide"), (row_code(59), "fused")):
+                       "fused_retire_wide"), (row_code(122, cols=124), "fused")):
         dec = fm.make_fused_minsum(qc, 12, 0.75, track_convergence=track)
         assert dec.route == route
         llr = _llr(qc.num_vars, 37, 4.0, seed=5)
@@ -193,6 +193,57 @@ def test_wide_rows_match_plain(name, track, early_exit, mode, schedule):
             _assert_identical(dec._launch_fused(llr), out)
         else:
             _assert_sumproduct(dec, llr, out)
+
+
+@pytest.mark.parametrize("mode,schedule", WIDE_SCHEDULES)
+@pytest.mark.parametrize("track,early_exit", [TRACKING, THROUGHPUT, EARLY_EXIT])
+@pytest.mark.parametrize("name", ["w59", "w64", "w121", "array61"])
+def test_w128_rows_match_plain(name, track, early_exit, mode, schedule):
+    """The four B1 kernels on the 128-bit state word (fm.W128_ROUTES), one
+    launch of the route and no other kernel, at rows of 59, 64 and 121
+    members (Z=4) and on the array code at p = 61 (Z=61, not a power of
+    two): min-sum bits and conv_iter identical to the plain version and to
+    fused (_launch_fused), sum-product at its bars and identical to fused,
+    on frames that never converge, that converge early and a mix."""
+    from test_torch_retire_w128 import W128_ROUTE, code
+
+    qc = code(name)
+    dec = fm.make_fused_minsum(qc, 12, 0.75 if mode == "minsum" else 1.0, mode=mode,
+                               schedule=schedule, track_convergence=track,
+                               early_exit=early_exit)
+    assert dec.route == W128_ROUTE[mode, schedule]
+    for snr_db in ((6.0, 7.25, 8.5) if name == "array61" else (1.0, 5.0, 7.0)):
+        llr = _llr(qc.num_vars, 29 if name == "array61" else 37, snr_db, seed=qc.dr_max)
+        before = dict(fm.LAUNCHES)
+        out = dec(llr)
+        moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
+        assert moved == {k: int(k == dec.route) for k in before}
+        if mode == "minsum":
+            _assert_identical(out, dec.plain(llr))
+            _assert_identical(dec._launch_fused(llr), out)
+        else:
+            _assert_sumproduct(dec, llr, out)
+
+
+@pytest.mark.parametrize("mode,schedule", WIDE_SCHEDULES)
+def test_fused_holds_rows_over_121(mode, schedule):
+    """A row of 122 members, more than the 128-bit word holds: every
+    schedule launches fused, held against the plain version (min-sum
+    identical, sum-product at its bars)."""
+    from test_torch_retire_w128 import wide_row_code
+
+    qc = wide_row_code(122)
+    dec = fm.make_fused_minsum(qc, 12, 0.75 if mode == "minsum" else 1.0, mode=mode,
+                               schedule=schedule)
+    assert dec.route == "fused" and not dec.retire
+    llr = _llr(qc.num_vars, 37, 5.0, seed=122)
+    before = dict(fm.LAUNCHES)
+    bits_k, conv_k = dec(llr)
+    assert fm.LAUNCHES["fused"] == before["fused"] + 1
+    bits_p, conv_p = dec.plain(llr)
+    torch.cuda.synchronize()
+    assert_decoder_parity(mode, to_numpy(bits_k), to_numpy(conv_k), to_numpy(bits_p),
+                          to_numpy(conv_p))
 
 
 # retire_layered at every shape it serves: Z=4 (one warp, 4 lanes), Z=24 (not
@@ -312,7 +363,8 @@ def test_minsum_flooding_launches_retire_kernel():
     assert moved == {"fused_retire": 2, "fused": 0, "retire_zlane": 0, "fused_zlane": 0,
                      "retire_layered": 2, "retire_sumproduct": 1, "retire_zlane_layered": 0,
                      "retire_zlane_sumproduct": 0, "retire_layered_sumproduct": 1,
-                     "retire_zlane_layered_sumproduct": 0, **{r: 0 for r in fm.WIDE_ROUTES}}
+                     "retire_zlane_layered_sumproduct": 0,
+                     **{r: 0 for r in fm.WIDE_ROUTES + fm.W128_ROUTES}}
 
 
 def test_zlane_frames_per_block_loop():
@@ -408,7 +460,8 @@ def test_minsum_flooding_at_z384_launches_retire_zlane():
     assert moved == {"fused_retire": 0, "fused": 0, "retire_zlane": 2, "fused_zlane": 0,
                      "retire_layered": 0, "retire_sumproduct": 0, "retire_zlane_layered": 0,
                      "retire_zlane_sumproduct": 0, "retire_layered_sumproduct": 0,
-                     "retire_zlane_layered_sumproduct": 0, **{r: 0 for r in fm.WIDE_ROUTES}}
+                     "retire_zlane_layered_sumproduct": 0,
+                     **{r: 0 for r in fm.WIDE_ROUTES + fm.W128_ROUTES}}
     fm.make_fused_minsum_zlane(qc, 5, mode="sumproduct")(llr)
     fm.make_fused_minsum_zlane(qc, 5, schedule="layered")(llr)
     torch.cuda.synchronize()

@@ -405,7 +405,7 @@ def test_routes_and_launch_counters():
         assert dec.graph is not None
     wide = tcodes.qc_layout(tcodes.BaseGraph("wide", wide_row_shifts()), 8)
     assert wide.dr_max == 31 and not fm.retire_layered_sumproduct_fits(wide)
-    assert fm.retire_layered_sumproduct_fits(wide, wide=True)
+    assert fm.retire_layered_sumproduct_fits(wide, word_bits=64)
     assert not fm.retire_zlane_layered_sumproduct_fits(wide)
     assert _build(wide, 5).route == "retire_layered_sumproduct_wide"
     assert _build(wide, 5, zlane=True).route == "fused_zlane"

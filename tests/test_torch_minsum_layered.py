@@ -340,7 +340,7 @@ def test_routes_and_launch_counters():
                                  device="cpu")
     assert server._fused.route == "retire_layered"
     wide = tcodes.qc_layout(tcodes.BaseGraph("wide", wide_row_shifts()), 4)
-    assert not fm.retire_layered_fits(wide) and fm.retire_layered_fits(wide, wide=True)
+    assert not fm.retire_layered_fits(wide) and fm.retire_layered_fits(wide, word_bits=64)
     assert fm.make_fused_minsum(wide, 5, schedule="layered",
                                 device="cpu").route == "retire_layered_wide"
     zl = fm.make_fused_minsum_zlane(_qc("nr_2_0_32", 384), 5, schedule="layered", device="cpu")

@@ -255,15 +255,19 @@ def test_retire_plans_and_shared_memory():
 
 def test_rows_beyond_the_state_word_are_refused(monkeypatch):
     """fused_retire refuses rows of more members than its 32-bit state word
-    holds signs of, and sends them to its 64-bit word (fused_retire_wide);
-    rows beyond that word too go to the fused kernel."""
+    holds signs of, and sends them to its 64-bit word (fused_retire_wide),
+    then to its 128-bit word (fused_retire_w128); rows beyond that word too
+    go to the fused kernel."""
     qc = tcodes.qc_layout(tcodes.get_base_graph("toy_4x8"), 4)  # rows of up to 5 members
     assert fm.retire_kernel_fits(qc) and fm.make_fused_minsum(qc, 5, device="cpu").retire
     monkeypatch.setattr(fm, "_RETIRE_MAX_DEGREE", 4)
-    assert not fm.retire_kernel_fits(qc) and fm.retire_kernel_fits(qc, wide=True)
+    assert not fm.retire_kernel_fits(qc) and fm.retire_kernel_fits(qc, word_bits=64)
     assert fm.make_fused_minsum(qc, 5, device="cpu").route == "fused_retire_wide"
     monkeypatch.setattr(fm, "_RETIRE_WIDE_MAX_DEGREE", 4)
-    assert not fm.retire_kernel_fits(qc, wide=True)
+    assert not fm.retire_kernel_fits(qc, word_bits=64)
+    assert fm.make_fused_minsum(qc, 5, device="cpu").route == "fused_retire_w128"
+    monkeypatch.setattr(fm, "_RETIRE_WIDER_MAX_DEGREE", 4)
+    assert not fm.retire_kernel_fits(qc, word_bits=128)
     dec = fm.make_fused_minsum(qc, 5, device="cpu")
     assert not dec.retire and dec.graph is not None
     assert not fm.make_fused_minsum(qc, 5, mode="sumproduct", device="cpu").retire
@@ -292,7 +296,7 @@ def test_wide_rows_run_on_the_fused_kernel_and_match_jax(track):
     shifts = wide_row_shifts()
     qc = tcodes.qc_layout(tcodes.BaseGraph("wide", shifts), 4)
     assert qc.dr_max == 31 and not fm.retire_kernel_fits(qc)
-    assert fm.retire_kernel_fits(qc, wide=True)
+    assert fm.retire_kernel_fits(qc, word_bits=64)
     dec = fm.make_fused_minsum(qc, ITERS, 0.75, track_convergence=track, device="cpu")
     assert dec.retire and dec.route == "fused_retire_wide"
     jdec = jpm.make_fused_minsum(jcodes.qc_layout(jcodes.BaseGraph("wide", shifts), 4), ITERS,

@@ -312,7 +312,7 @@ def test_routes_and_launch_counters():
     layered = _bp(qc, 20, schedule="layered")
     assert layered.route == "retire_layered_sumproduct" and layered.retire
     wide = tcodes.qc_layout(tcodes.BaseGraph("wide", wide_row_shifts()), 4)
-    assert not fm.retire_sumproduct_fits(wide) and fm.retire_sumproduct_fits(wide, wide=True)
+    assert not fm.retire_sumproduct_fits(wide) and fm.retire_sumproduct_fits(wide, word_bits=64)
     assert _bp(wide, 5).route == "retire_sumproduct_wide"
     assert fm.retire_sumproduct_fits(wide_row_code(20))
     zl = fm.make_fused_minsum_zlane(_qc("nr_2_0_32", 384), 5, mode="sumproduct", device="cpu")

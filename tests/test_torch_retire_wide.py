@@ -18,8 +18,9 @@ the CPU:
   58 members, and IEEE 802.3an's shape (a (6, 32) array of Z=64 circulants,
   every cell filled, shift (r*c) mod 64) at a small batch;
 * the routes (27 members -> the 32-bit word, 28 to 58 -> the 64-bit word, 59
-  -> ``fused``), the launch counters, the shared-memory plans with fixed
-  byte counts, and the wide structure encoding;
+  to 121 -> the 128-bit word of the ``*_w128`` routes, 122 -> ``fused``),
+  the launch counters, the shared-memory plans with fixed byte counts, and
+  the wide structure encoding;
 * one JAX case: sum-product flooding on the 31-member code through
   ``pallas_minsum.make_fused_bp`` in interpret mode against the plain
   version behind ``retire_sumproduct_wide``.
@@ -132,15 +133,22 @@ def _c2v_of(a, w, j):
     return _flip(np.where(_argmin_of(w) == j, a[..., 1], a[..., 0]), _bit_at_31(w, j))
 
 
+def _c2v_row(a, w, d):
+    """c2v_of for members 0..d-1 of a check row at once (d, ...)."""
+    j = np.arange(d).reshape((d,) + (1,) * w.ndim)
+    loo = np.where(_argmin_of(w) == j, a[..., 1], a[..., 0])
+    return _flip(loo, ((w >> j.astype(U64)) & U64(1)).astype(U32) << U32(31))
+
+
 def _phi_np(x):
     """The plain version's phi (torch), on numpy float32."""
     return _phi(torch.from_numpy(np.ascontiguousarray(x))).numpy()
 
 
-def _unpack(qc, per_edge: bool):
+def _unpack(qc, per_edge: bool, word_bits: int = 64):
     st = fm._structure(qc)
     K, R, C = st.K, st.R, st.C
-    g = fm._retire_structure(st, 1, per_edge=per_edge, wide=True)
+    g = fm._retire_structure(st, 1, per_edge=per_edge, word_bits=word_bits)
     return (st, g[:4 * K].reshape(K, 4), g[4 * K:6 * K].reshape(K, 2), g[6 * K:6 * K + R + 1],
             g[6 * K + R + 1:6 * K + R + C + 2])
 
@@ -149,8 +157,9 @@ class _Frames:
     """What the models share: lanes, rolls, retirement and the c2v in the
     plain version's layout (var-aligned per base edge)."""
 
-    def __init__(self, qc, llr: np.ndarray, per_edge: bool):
-        self.st, self.col_mem, self.row_mem, self.row_ptr, self.col_ptr = _unpack(qc, per_edge)
+    def __init__(self, qc, llr: np.ndarray, per_edge: bool, word_bits: int = 64):
+        self.st, self.col_mem, self.row_mem, self.row_ptr, self.col_ptr = _unpack(
+            qc, per_edge, word_bits)
         self.Z = self.st.Z
         self.z = np.arange(self.Z)
         self.e_idx = fm._PlainIndex(self.st, torch.device("cpu")).e_idx.numpy()
@@ -161,6 +170,7 @@ class _Frames:
         self.bits = np.zeros_like(llr)
         self.conv = None
         self.history = []
+        self.rows = {}
 
     def rolled(self, s, offset):
         Z, z = self.Z, self.z
@@ -171,10 +181,11 @@ class _Frames:
 
     def row(self, r):
         """Row r's degree, first member index and member belief lanes."""
-        j0, d = int(self.row_ptr[r]), int(self.row_ptr[r + 1] - self.row_ptr[r])
-        pos = [self.rolled(int(self.row_mem[j0 + j, 1]), int(self.row_mem[j0 + j, 0]))
-               for j in range(d)]
-        return j0, d, pos
+        if r not in self.rows:
+            j0, d = int(self.row_ptr[r]), int(self.row_ptr[r + 1] - self.row_ptr[r])
+            self.rows[r] = j0, d, [self.rolled(int(self.row_mem[j0 + j, 1]),
+                                               int(self.row_mem[j0 + j, 0])) for j in range(d)]
+        return self.rows[r]
 
     def retire(self, done, t):
         self.bits[done] = (self.bel[done] < 0).astype(f32)
@@ -226,17 +237,43 @@ def _sumproduct_out(S, p, sp, neg, j):
     return _flip(_phi_np(np.maximum(S - p, f32(1e-7))), sp ^ _bit_at_31(neg, j))
 
 
-def flooding_model(qc, llr: np.ndarray, T: int, track: bool, mode: str, alpha: float):
-    """retire_minsum_kernel / retire_sumproduct_kernel on the 64-bit word
-    (decode_frames): a check pass that reads the syndrome of the beliefs it
-    reads, retirement, a column pass.  Returns bits, conv_iter and, per
-    iteration, (live frames, beliefs, c2v in the plain layout)."""
+class Word64:
+    """The 64-bit state word's operations (csrc/retire.cuh) on uint64 arrays,
+    as the models below use them: a word, a check's fold and new state,
+    sum-product's sign mask, and a column member's c2v (is_argmin,
+    member_sign)."""
+
+    bits = 64
+
+    @staticmethod
+    def zeros(shape):
+        return np.zeros(shape, U64)
+
+    c2v_row = staticmethod(_c2v_row)
+    fold = staticmethod(_minsum_fold)
+    new_state = staticmethod(_new_minsum_state)
+    sp_fold = staticmethod(_sumproduct_fold)
+    sp_out = staticmethod(_sumproduct_out)
+
+    @staticmethod
+    def member_c2v(a, w, jz, sa):
+        v = np.where(_argmin_of(w) == jz, a[..., 1], a[..., 0])
+        return _flip(v, ((w << U64(sa)) >> U64(32)).astype(U32))
+
+
+def flooding_model(qc, llr: np.ndarray, T: int, track: bool, mode: str, alpha: float,
+                   word=Word64):
+    """retire_minsum_kernel / retire_sumproduct_kernel on ``word`` (the
+    64-bit one by default; decode_frames): a check pass that reads the
+    syndrome of the beliefs it reads, retirement, a column pass.  Returns
+    bits, conv_iter and, per iteration, (live frames, beliefs, c2v in the
+    plain layout)."""
     sumproduct = mode == "sumproduct"
-    m = _Frames(qc, llr, per_edge=sumproduct)
+    m = _Frames(qc, llr, per_edge=sumproduct, word_bits=word.bits)
     st, Z, z, B = m.st, m.Z, m.z, m.B
     alpha = f32(alpha)
     A = np.zeros((B, st.R * Z, 2), f32)
-    W = np.zeros((B, st.R * Z), U64)
+    W = word.zeros((B, st.R * Z))
     c2v = np.zeros((B, st.K * Z), f32)  # sum-product: check-aligned
     m.conv = np.full(B, T, np.int32)
     for t in range(T):
@@ -252,16 +289,16 @@ def flooding_model(qc, llr: np.ndarray, T: int, track: bool, mode: str, alpha: f
             violated |= (parity >> U32(31)).astype(bool).any(axis=1)
             if sumproduct:
                 slots = [(j0 + j) * Z + z for j in range(d)]
-                ph, S, neg, sp = _sumproduct_fold(b, [c2v[:, e] for e in slots], d)
+                ph, S, neg, sp = word.sp_fold(b, [c2v[:, e] for e in slots], d)
                 for j, e in enumerate(slots):
-                    c2v[:, e] = _sumproduct_out(S, ph[j], sp, neg, j)
+                    c2v[:, e] = word.sp_out(S, ph[j], sp, neg, j)
                     plain_c2v[:, m.e_idx[j, q]] = c2v[:, e]
             else:
-                a, w = A[:, q], W[:, q]
-                old = [_c2v_of(a, w, j) for j in range(d)]
-                A[:, q], W[:, q] = _new_minsum_state(*_minsum_fold(b, old, d), d, alpha)
+                old = word.c2v_row(A[:, q], W[:, q], d)
+                A[:, q], W[:, q] = word.new_state(*word.fold(b, old, d), d, alpha)
+                new = word.c2v_row(A[:, q], W[:, q], d)
                 for j in range(d):
-                    plain_c2v[:, m.e_idx[j, q]] = _c2v_of(A[:, q], W[:, q], j)
+                    plain_c2v[:, m.e_idx[j, q]] = new[j]
         if track and t > 0:
             m.retire(m.live & ~violated, t)
         out = m.bel.copy()
@@ -273,27 +310,26 @@ def flooding_model(qc, llr: np.ndarray, T: int, track: bool, mode: str, alpha: f
                 if sumproduct:
                     cs = cs + c2v[:, q]
                 else:
-                    w = W[:, q]  # is_argmin, member_sign of the 64-bit word
-                    v = np.where(_argmin_of(w) == jz, A[:, q, 1], A[:, q, 0])
-                    cs = cs + _flip(v, ((w << U64(sa)) >> U64(32)).astype(U32))
+                    cs = cs + word.member_c2v(A[:, q], W[:, q], jz, sa)
             out[:, c * Z + z] = llr[:, c * Z + z] + cs
         m.bel = np.where(m.live[:, None], out, m.bel)
         m.history.append((m.live.copy(), m.bel.copy(), plain_c2v))
     return m.finish()
 
 
-def layered_model(qc, llr: np.ndarray, T: int, track: bool, mode: str, alpha: float):
-    """retire_layered_kernel / retire_layered_sumproduct_kernel on the 64-bit
-    word (layered_frames, one part): rows in order, each member's belief
-    (belief + new) - old, a parity pass after every sweep but the last,
-    retirement.  Returns as flooding_model (live: the frames that ran the
-    sweep)."""
+def layered_model(qc, llr: np.ndarray, T: int, track: bool, mode: str, alpha: float,
+                  word=Word64):
+    """retire_layered_kernel / retire_layered_sumproduct_kernel on ``word``
+    (the 64-bit one by default; layered_frames, one part): rows in order,
+    each member's belief (belief + new) - old, a parity pass after every
+    sweep but the last, retirement.  Returns as flooding_model (live: the
+    frames that ran the sweep)."""
     sumproduct = mode == "sumproduct"
-    m = _Frames(qc, llr, per_edge=False)
+    m = _Frames(qc, llr, per_edge=False, word_bits=word.bits)
     st, Z, z, B = m.st, m.Z, m.z, m.B
     alpha = f32(alpha)
     A = np.zeros((B, st.R * Z, 2), f32)
-    W = np.zeros((B, st.R * Z), U64)
+    W = word.zeros((B, st.R * Z))
     c2v = np.zeros((B, st.K * Z), f32)  # sum-product: check-aligned
     plain_c2v = np.zeros((B, st.K * Z), f32)
     m.conv = np.full(B, T, np.int32)
@@ -305,15 +341,14 @@ def layered_model(qc, llr: np.ndarray, T: int, track: bool, mode: str, alpha: fl
             if sumproduct:
                 slots = [(j0 + j) * Z + z for j in range(d)]
                 old = [c2v[:, e] for e in slots]
-                ph, S, neg, sp = _sumproduct_fold(b, old, d)
-                new = [_sumproduct_out(S, ph[j], sp, neg, j) for j in range(d)]
+                ph, S, neg, sp = word.sp_fold(b, old, d)
+                new = [word.sp_out(S, ph[j], sp, neg, j) for j in range(d)]
                 for j, e in enumerate(slots):
                     c2v[:, e] = new[j]
             else:
-                a, w = A[:, q], W[:, q]
-                old = [_c2v_of(a, w, j) for j in range(d)]
-                A[:, q], W[:, q] = _new_minsum_state(*_minsum_fold(b, old, d), d, alpha)
-                new = [_c2v_of(A[:, q], W[:, q], j) for j in range(d)]
+                old = word.c2v_row(A[:, q], W[:, q], d)
+                A[:, q], W[:, q] = word.new_state(*word.fold(b, old, d), d, alpha)
+                new = word.c2v_row(A[:, q], W[:, q], d)
             for j, p in enumerate(pos):
                 m.bel[:, p] = np.where(m.live[:, None], (b[j] + new[j]) - old[j], b[j])
                 plain_c2v[:, m.e_idx[j, q]] = np.where(m.live[:, None], new[j],
@@ -419,25 +454,28 @@ def test_state_word_holds_58_members():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("members", [27, 28, 58, 59])
+@pytest.mark.parametrize("members", [27, 28, 58, 59, 121, 122])
 def test_routes_by_row_width(members):
     """A row of 27 members runs on the 32-bit word, 28 to 58 on the 64-bit
-    word (``*_wide``), 59 on fused; the builders, the serving objects with
-    backend "auto" and "fused"; fused_zlane decoders keep their own kernel
-    over 27 members."""
-    qc = row_code(members)
+    word (``*_wide``), 59 to 121 on the 128-bit word (``*_w128``), 122 on
+    fused; the builders, the serving objects with backend "auto" and
+    "fused"; fused_zlane decoders keep their own kernel over 27 members."""
+    qc = row_code(members, cols=max(64, members + 2))
     assert qc.dr_max == members
+    suffix = "" if members <= 58 else "_w128"
     for mode, schedule in SCHEDULES:
         dec = fm.make_fused_minsum(qc, 5, mode=mode, schedule=schedule, device="cpu")
         if members <= 27:
             assert dec.route == NARROW_ROUTE[mode, schedule]
-        elif members <= 58:
-            assert dec.route == WIDE_ROUTE[mode, schedule] and dec.retire
+        elif members <= 121:
+            route = WIDE_ROUTE[mode, schedule].removesuffix("_wide" if suffix else "")
+            assert dec.route == route + suffix and dec.retire
             assert dec.graph is not None  # _launch_fused, the side door
         else:
             assert dec.route == "fused" and not dec.retire
     expected = ("retire_sumproduct" if members <= 27 else
-                "retire_sumproduct_wide" if members <= 58 else "fused")
+                "retire_sumproduct_wide" if members <= 58 else
+                "retire_sumproduct_w128" if members <= 121 else "fused")
     assert fm.make_fused_bp(qc, 5, device="cpu").route == expected
     for backend in ("auto", "fused"):
         bp = BeliefPropagationDecoder(qc, 5, early_stopping=False, backend=backend,
@@ -446,11 +484,14 @@ def test_routes_by_row_width(members):
         ms = MinSumScaledDecoder(qc, 5, 0.75, early_stopping=False, backend=backend,
                                  schedule="layered", device="cpu")
         assert ms._fused.route == ("retire_layered" if members <= 27 else "retire_layered_wide"
-                                   if members <= 58 else "fused")
+                                   if members <= 58 else "retire_layered_w128"
+                                   if members <= 121 else "fused")
     wide = 27 < members <= 58
-    assert fm.retire_kernel_fits(qc, wide=True) == (members <= 58)
+    assert fm.retire_kernel_fits(qc, word_bits=128) == (members <= 121)
+    assert fm.retire_kernel_fits(qc, word_bits=64) == (members <= 58)
     assert fm.retire_kernel_fits(qc) == (members <= 27)
-    zl = fm.make_fused_minsum_zlane(row_code(members, Z=8), 5, device="cpu")
+    zl = fm.make_fused_minsum_zlane(row_code(members, cols=max(64, members + 2), Z=8), 5,
+                                    device="cpu")
     assert zl.route == ("retire_zlane" if members <= 27 else "fused_zlane")
     if wide:
         assert set(WIDE_ROUTE.values()) == set(fm.WIDE_ROUTES)
@@ -481,24 +522,25 @@ def test_shared_memory_plans():
     words = -(-(6 * K + R + C + 2 + 2 * 2) // 4) * 4
     assert 4 * words == 4784
     for parts, frames in ((1, 1), (2, 3), (4, 9)):
-        assert fm.retire_smem_bytes(qc, parts, frames, wide=True) == \
+        assert fm.retire_smem_bytes(qc, parts, frames, word_bits=64) == \
             4 * (-(-(6 * K + R + C + 2 + 2 * (parts + 1)) // 4) * 4) + frames * 22528
         assert fm.retire_smem_bytes(qc, parts, frames) == \
-            fm.retire_smem_bytes(qc, parts, frames, wide=True) - frames * 4 * R * Z
+            fm.retire_smem_bytes(qc, parts, frames, word_bits=64) - frames * 4 * R * Z
     assert 4 * (2 * C * Z + 4 * R * Z) == 22528
     layered_words = -(-(2 * K + R + 1 + len(fm.row_groups(fm._structure(qc)))) // 4) * 4
     for frames in (1, 7, 15):
-        assert fm.retire_layered_smem_bytes(qc, frames, wide=True) == \
+        assert fm.retire_layered_smem_bytes(qc, frames, word_bits=64) == \
             4 * layered_words + frames * 14336
         assert fm.retire_layered_smem_bytes(qc, frames) == 4 * layered_words + frames * 12800
-    assert fm.retire_plans(qc, wide=True)[-1] == (4, 4)
-    assert max(f for p, f in fm.retire_layered_plans(qc, wide=True)) == 15
-    assert {p for p, _ in fm.retire_layered_plans(qc, wide=True)} == {1}  # every row its own group
+    assert fm.retire_plans(qc, word_bits=64)[-1] == (4, 4)
+    assert max(f for p, f in fm.retire_layered_plans(qc, word_bits=64)) == 15
+    # every row its own group
+    assert {p for p, _ in fm.retire_layered_plans(qc, word_bits=64)} == {1}
     assert max(f for _, f, s in fm.retire_sumproduct_plans(qc) if not s) == 3
     assert max(f for _, f in fm.retire_layered_sumproduct_plans(qc)) == 4
     # A row of 58 members at Z=4: wide plans exist, the 32-bit word refuses it.
     w58 = code("w58")
-    assert fm.retire_plans(w58, wide=True) and not fm.retire_kernel_fits(w58)
+    assert fm.retire_plans(w58, word_bits=64) and not fm.retire_kernel_fits(w58)
 
 
 def test_wide_structure_encoding():
@@ -514,7 +556,7 @@ def test_wide_structure_encoding():
     for per_edge in (False, True):
         for parts in (1, 3):
             narrow = fm._retire_structure(st, parts, per_edge=per_edge)
-            wide = fm._retire_structure(st, parts, per_edge=per_edge, wide=True)
+            wide = fm._retire_structure(st, parts, per_edge=per_edge, word_bits=64)
             np.testing.assert_array_equal(narrow[4 * K:], wide[4 * K:])
             cols_n, cols_w = narrow[:4 * K].reshape(K, 4), wide[:4 * K].reshape(K, 4)
             np.testing.assert_array_equal(cols_n[:, :2], cols_w[:, :2])

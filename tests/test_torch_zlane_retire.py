@@ -116,7 +116,9 @@ def test_dispatch():
                                 "retire_zlane_layered", "retire_zlane_sumproduct",
                                 "retire_layered_sumproduct", "retire_zlane_layered_sumproduct",
                                 "fused_retire_wide", "retire_layered_wide",
-                                "retire_sumproduct_wide", "retire_layered_sumproduct_wide"}
+                                "retire_sumproduct_wide", "retire_layered_sumproduct_wide",
+                                "fused_retire_w128", "retire_layered_w128",
+                                "retire_sumproduct_w128", "retire_layered_sumproduct_w128"}
     launches = dict(fm.LAUNCHES)
     small = _qc(24, "nr_2_0_4")
     llr = torch.zeros((2, small.num_vars))
