@@ -214,10 +214,13 @@ Phases, one JSON line each:
              (Z=128 in a slice form, the FIFO in L2 slices; also with the
              weights read from L2, staged where they fit, each slice form
              forced where it has a plan, and through the side door on
-             fused_neural), and on fused_neural (the global-scratch state at
-             Z=128 depth 5; a row of 31 members at Z=4).  Bits identical;
-             each plan's shared-memory bytes and each slice's words equal
-             to the wrapper's.
+             fused_neural); depth 5 and 8 at Z=128 on neural_group's
+             run-time-depth form; rows of 31 members on neural_group_wide
+             (64-bit state word) and of 64 and 121 on neural_group_w128
+             (128-bit), Z=4; and on fused_neural a row of 122 members at
+             Z=4, which no state word holds.  Bits identical; each plan's
+             shared-memory bytes and each slice's words equal to the
+             wrapper's.
 9b. nms_serve_shape — the serving entry point's neural min-sum decoder
              (nr_2_0_4 Z=4, T=5, depth 2, the committed checkpoint, batch
              4096, 0 dB): neural_group in five rounds beside fused_neural
@@ -247,6 +250,19 @@ Phases, one JSON line each:
              fused_neural; the sweep of layouts, parts and frame groups a
              block; the plan, ptxas, bound; Z=128 traced in a process of its
              own (trace_nms_large).
+11c. nms_wide — the codes fused_neural alone served before neural_group took
+             rows of 28-121 members and depths past 4, at full width: T=10,
+             per-iteration edge weights from perturbed_nms, QPSK on random
+             codewords (encoder_from_H): wide_rows' code (rows of 32, Z=64,
+             batch 65536, depth 2) on neural_group_wide, widest_rows' (Fan's
+             array code at p = 67, rows of 64, batch 49152, depth 2) on
+             neural_group_w128, nr_2_0_32 Z=32 at depth 6 (batch 65536) on
+             neural_group's run-time-depth form; the SNR stepped by 0.25 dB
+             until the route's BER is at most 1e-2, the BER printed.  Per
+             shape: launched alone, the whole batch identical to the plain
+             version and to fused_neural through the side door; five rounds
+             of the route beside fused_neural; a sweep of layouts and parts;
+             the plan, ptxas, bound.  ``--only nms_wide`` runs it alone.
 12. msg_gnn_compare — the fully-neural kernels (msg_gnn_v2, msg_gnn,
              msg_gnn_v3, msg_gnn_v4) against their plain versions, T=2, h 16
              and 64, injection and
@@ -312,8 +328,10 @@ Phases, one JSON line each:
              the wide-row compare cases'; the *_wide kernels: wide_rows';
              the *_w128 kernels: widest_rows';
              neural_group a row for nms_main and one for each nms_large
-             shape; fused_neural nms_compare's routed cases, timed at
-             nms_large's Z=128 through the side door),
+             shape; neural_group_wide, neural_group_w128 and neural_group's
+             run-time-depth form a row each for nms_wide's shapes;
+             fused_neural nms_compare's routed case (a row of 122
+             members), timed at nms_large's Z=128 through the side door),
              max abs error against
              the plain version, kernel / plain time, and the bound: the
              operations the batch's frames need (over their conv_iter
@@ -324,10 +342,11 @@ The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 The replaced kernels' times (PERF.md §5) come from this script run from an
 unpacked ``git archive`` of the parent commit, in the same call.
-``--only classical|wide|gnn|nms|msg_gnn|tools`` runs the build and that part
-alone (for development; the kernels line then lists that part; ``wide`` is
-phase 3's wide-row cases and phases 5e and 5f, ``msg_gnn`` phases 12 to 14,
-``tools`` phases 16 and 17).
+``--only classical|wide|gnn|nms|nms_wide|msg_gnn|tools`` runs the build and
+that part alone (for development; the kernels line then lists that part;
+``wide`` is phase 3's wide-row cases and phases 5e and 5f, ``nms`` phases 9
+to 11b, ``nms_wide`` phase 11c, ``msg_gnn`` phases 12 to 14, ``tools``
+phases 16 and 17).
 """
 from __future__ import annotations
 
@@ -1464,24 +1483,39 @@ WIDE = dict(B=65536, SNR=4.0, STEP=0.5, CONV=(2.0, 8.0), llr_seed=8, iterations=
 WIDEST = dict(B=49152, SNR=6.0, STEP=0.5, CONV=(2.0, 8.0), llr_seed=9, iterations=20)
 
 
-def ieee_shape_code():
-    """The (6, 32) base graph at Z=64, shift (r * c) mod 64 in every cell."""
+def ieee_shape_base():
+    """The (6, 32) base graph of Z=64 circulants, shift (r * c) mod 64 in
+    every cell."""
     import numpy as np
-    from ldpc_tpu_torch.codes import BaseGraph, qc_layout
+    from ldpc_tpu_torch.codes import BaseGraph
 
     r, c = np.meshgrid(np.arange(6), np.arange(32), indexing="ij")
-    return qc_layout(BaseGraph("ieee_6x32", (r * c) % 64), 64)
+    return BaseGraph("ieee_6x32", (r * c) % 64)
 
 
-def array_code(p: int = 67, rows: int = 4, cols: int = 64):
+def ieee_shape_code():
+    """ieee_shape_base at Z=64."""
+    from ldpc_tpu_torch.codes import qc_layout
+
+    return qc_layout(ieee_shape_base(), 64)
+
+
+def array_base(p: int = 67, rows: int = 4, cols: int = 64):
     """J. L. Fan's array LDPC code: a (rows, cols) array of p x p circulants,
     shift (r * c) mod p in every cell (rows of ``cols`` members, columns of
     ``rows``); for prime p it has no 4-cycle."""
     import numpy as np
-    from ldpc_tpu_torch.codes import BaseGraph, qc_layout
+    from ldpc_tpu_torch.codes import BaseGraph
 
     r, c = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
-    return qc_layout(BaseGraph(f"array_{rows}x{cols}_p{p}", (r * c) % p), p)
+    return BaseGraph(f"array_{rows}x{cols}_p{p}", (r * c) % p)
+
+
+def array_code(p: int = 67, rows: int = 4, cols: int = 64):
+    """array_base lifted by p."""
+    from ldpc_tpu_torch.codes import qc_layout
+
+    return qc_layout(array_base(p, rows, cols), p)
 
 
 def wide_phases(smi: str) -> list[dict]:
@@ -2153,6 +2187,24 @@ def nr_codewords(base, Z: int, gen: torch.Generator, B: int) -> torch.Tensor:
     return x.reshape(B, C * Z)
 
 
+# The mangled template argument of each state word (unsigned, unsigned long
+# long, the Word128 struct), and the run-time-depth form's L = -1.
+WORD_TAG = {32: "jE", 64: "yE", 128: "Word128"}
+RUN_TIME_DEPTH_TAG = "Lin1E"
+
+
+def group_ptxas(layout: int, word_bits: int, run_time_depth: bool) -> dict:
+    """ptxas registers and spills of neural_group's instantiations in
+    ``layout`` (neural_group_kernel, or neural_group_slice_kernel) on the
+    state word of ``word_bits`` (built from its own source), of the
+    run-time-depth form or of the forms of their own depth."""
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    kernel = "neural_group_slice_kernel" if layout else "neural_group_kernel"
+    return {k: v for k, v in ptxas_of(fn.GROUP_STEMS[word_bits], kernel, 40).items()
+            if WORD_TAG[word_bits] in k and (RUN_TIME_DEPTH_TAG in k) == run_time_depth}
+
+
 def routed_launch(dec, llr: torch.Tensor, counters: dict) -> torch.Tensor:
     """``dec(llr)`` with every launch counter set to 0 just before and read
     just after: the decoder's route launched once, no other kernel."""
@@ -2180,13 +2232,15 @@ def nms_phases(smi: str) -> list[dict]:
     # Z=12 (a warp holds 8 and 2 frames side by side), Z=32 and Z=128 (a
     # slice form) on neural_group (held also with its weights read from L2
     # and, where they fit, from shared memory, in each slice form that has a
-    # plan, and beside fused_neural through the side door); fused_neural
-    # on what neural_group refuses: depth 5 at Z=128 (the state in global
-    # scratch) and a row of 31 members.  The Z=128 case without a batch
-    # hands every resident frame group of neural_group's plan three frames
-    # or more.  Bits identical to the plain version.
-    max_err = {"neural_group": 0.0, "fused_neural": 0.0}
-    path_launches = {"neural_group": 0, "fused_neural": 0}
+    # plan, and beside fused_neural through the side door); depth 5 and 8 at
+    # Z=128 on neural_group's run-time-depth form; rows of 31 members on
+    # neural_group_wide, of 64 and 121 on neural_group_w128 (Z=4); fused_neural
+    # on what every neural_group route refuses, a row of 122 members.  The
+    # Z=128 case without a batch hands every resident frame group of
+    # neural_group's plan three frames or more.  Bits identical to the plain
+    # version.
+    max_err = {name: 0.0 for name in fn.LAUNCHES}
+    path_launches = {name: 0 for name in fn.LAUNCHES}
     cases = [("nr_2_0_4", 4, 37, "scalar", 0, False, False, False),
              ("nr_2_0_4", 4, 37, "cell", 2, True, False, False),
              ("nr_2_0_4", 4, 37, "type", 1, True, False, True),
@@ -2200,33 +2254,45 @@ def nms_phases(smi: str) -> list[dict]:
              ("nr_2_0_32", 128, 5, "scalar", 3, True, False, False),
              ("nr_2_0_32", 128, None, "edge", 2, True, True, True),
              ("nr_2_0_32", 128, 5, "edge", 5, True, True, True),
-             ("row31", 4, 37, "edge", 2, True, True, True)]
+             ("nr_2_0_32", 128, 5, "edge", 8, True, True, True),
+             ("row31", 4, 37, "edge", 2, True, True, True),
+             ("row64", 4, 37, "cell", 3, True, True, True),
+             ("row121", 4, 37, "edge", 2, True, True, False),
+             ("row122", 4, 37, "edge", 2, True, True, True)]
     for code, Z, B, sharing, L, learn_a, learn_o, per_it in cases:
-        qc = wide_row_code(31, Z) if code == "row31" else qc_layout(get_base_graph(code), Z)
+        qc = (wide_row_code(int(code[3:]), Z) if code.startswith("row")
+              else qc_layout(get_base_graph(code), Z))
         plan = qc_msg.make_plan(qc)
-        T = 5 if L < 5 else 7
+        T = 5 if L < 5 else L + 2
         model = perturbed_nms(plan, seed=Z + L, num_iterations=T, depth_L=L,
                               weight_sharing=sharing, learnable_alpha=learn_a,
                               learnable_offset=learn_o, per_iteration=per_it)
         dec = fn.make_fused_neural_minsum(qc, model, T, L, per_iteration=per_it)
-        assert dec.route == ("fused_neural" if L > 4 or code == "row31" else "neural_group")
+        assert dec.route == {"row31": "neural_group_wide", "row64": "neural_group_w128",
+                             "row121": "neural_group_w128", "row122": "fused_neural"}.get(
+                                 code, "neural_group")
+        assert dec.run_time_depth == (L > 4)
+        grouped = dec.route != "fused_neural"
         dims = (Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
         # the wrapper's shared-memory plans and slices are the kernels'
         assert lib.ldpc_neural_smem_bytes(*dims, T, L, dec.frames_per_block, int(dec.shared)) == \
             fn.neural_smem_bytes(qc, T, L, dec.frames_per_block, dec.shared)
         layouts = []  # neural_group's layouts with a plan, the route's first
-        if dec.route == "neural_group":
+        if grouped:
             layouts = [s for s in fn.SLICE_LAYOUTS if fn.neural_group_plans(qc, L, slice=s)]
             assert layouts[0] == dec.layout
+            glib = fn.kernel_library(dec.word_bits)  # the word's library
             for s in fn.SLICE_LAYOUTS:
                 if s:
-                    assert 4 * lib.ldpc_neural_group_slice_words(Z, dims[1], dims[3], L, s) == \
+                    assert 4 * glib.ldpc_neural_group_slice_words(Z, dims[1], dims[3], L, s,
+                                                                  dec.word_bits) == \
                         fn.neural_group_scratch_bytes(qc, L, s)
                 for staged in (False, True):
                     for p, f in fn.neural_group_plans(qc, L, staged, s):
-                        assert lib.ldpc_neural_group_smem_bytes(*dims, L, p, f, int(staged), s) \
+                        assert glib.ldpc_neural_group_smem_bytes(*dims, L, p, f, int(staged), s,
+                                                                 dec.word_bits) \
                             == fn.neural_group_smem_bytes(qc, L, p, f, staged, s)
-        if dec.route == "neural_group":  # frames in flight
+        if grouped:  # frames in flight
             _, f, _, _, blocks, _ = dec._plan(torch.device("cuda", 0))
             resident = blocks * f * fn.frames_per_group(qc)
         else:
@@ -2239,7 +2305,7 @@ def nms_phases(smi: str) -> list[dict]:
         path_launches[dec.route] += 1
         bits_p = dec.plain(llr)
         others = {}
-        if dec.route == "neural_group":
+        if grouped:
             others = {"weights_l2": dec._launch_group(llr, staged=False),
                       "fused_neural": dec._launch_minsum(llr)}
             if fn.neural_group_plans(qc, L, staged=True):
@@ -2253,7 +2319,8 @@ def nms_phases(smi: str) -> list[dict]:
         ok = all(same.values())
         emit({"phase": "nms_compare", "case": f"{code} Z={Z} B={B} T={T} {sharing} L={L} "
               f"alpha={learn_a} offset={learn_o} per_iteration={per_it}", "route": dec.route,
-              "layout": dec.layout,
+              "layout": dec.layout, "word_bits": dec.word_bits,
+              "run_time_depth": dec.run_time_depth,
               "state": "shared" if dec.shared else "global", "frames_per_block":
               dec.frames_per_block, "resident_frames": resident, "bits_identical": same,
               "bit_errors_vs_zero": int(bits_k.sum().item()), "ok": ok})
@@ -2380,7 +2447,7 @@ def nms_phases(smi: str) -> list[dict]:
           "plan": {**group_plan, "staged_weights": True,
                    "smem_bytes_per_block": fn.neural_group_smem_bytes(
                        qc32, L, group_plan["parts"], group_plan["frames_per_block"], True)},
-          "ptxas": ptxas_of("fused_neural", "neural_group_kernel"),
+          "ptxas": group_ptxas(0, 32, False),
           "nvidia_smi": smi, "ok": ok})
     if not ok:
         raise AssertionError(f"nms main path: identical={same}, replaced identical={same_old}, "
@@ -2388,8 +2455,8 @@ def nms_phases(smi: str) -> list[dict]:
     large_rows, replaced = nms_large_phase(smi, max_err)
     entry = {"route": "cuda", "source": "ldpc_tpu_torch/ops/csrc/fused_neural.cu",
              "replaces": "ldpc_tpu/ops/pallas_neural.py:111", "library_ms": None}
-    # fused_neural's path: the nms_compare cases neural_group refuses (depth
-    # 5, a row of 31 members); its ms is nms_large's Z=128 shape (its shape
+    # fused_neural's path: the nms_compare case no neural_group route takes
+    # (a row of 122 members); its ms is nms_large's Z=128 shape (its shape
     # before neural_group took it) through the side door.
     return [{"name": "neural_group", "launches": launches, "max_abs_err": max_err["neural_group"],
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, **entry},
@@ -2493,8 +2560,7 @@ def nms_large_phase(smi: str, max_err: dict) -> tuple[list[dict], dict]:
                        "smem_bytes_per_block": fn.neural_group_smem_bytes(qc, L, p, f, staged,
                                                                           layout),
                        "slice_bytes_in_flight": slices},
-              "ptxas": ptxas_of("fused_neural", "neural_group_slice_kernel" if dec.layout
-                                else "neural_group_kernel"),
+              "ptxas": group_ptxas(dec.layout, 32, False),
               "nvidia_smi": smi, "ok": ok})
         if not ok:
             raise AssertionError(f"nms_large Z={Z} L={L}: identical={same}, "
@@ -2510,6 +2576,133 @@ def nms_large_phase(smi: str, max_err: dict) -> tuple[list[dict], dict]:
         del llr, dec
     emit({"phase": "trace_nms_large", **trace_in_child("nms_large")})
     return rows, replaced
+
+
+# nms_wide: the trained min-sum decoders of the codes that only fused_neural
+# served before neural_group took rows of 28-121 members and depths past 4.
+# (name, code, depth, batch, first SNR): wide_rows' code (rows of 32, Z=64)
+# on neural_group_wide and widest_rows' (rows of 64, p = 67) on
+# neural_group_w128 at depth 2 and those phases' batches; NR BG2 Z=32 at
+# depth 6 on the run-time-depth form at nms_main's batch.  T=10, every
+# parameter per iteration (perturbed_nms), QPSK on random codewords; the SNR
+# steps by NMS_WIDE_STEP from its first value until the route's BER is at
+# most NMS_WIDE_BER (the first SNRs from the plain version on 24-48 frames:
+# BER 5e-3 at 6 dB, 3.4e-3 at 7.25 dB, 3.9e-3 at -2.5 dB).
+NMS_WIDE = (("wide_rows", "ieee_6x32 Z=64", 2, 65536, 5.5),
+            ("widest_rows", "array_4x64_p67", 2, 49152, 6.75),
+            ("nr_2_0_32", "nr_2_0_32 Z=32", 6, 65536, -3.0))
+NMS_WIDE_T, NMS_WIDE_STEP, NMS_WIDE_BER, NMS_WIDE_STEPS = 10, 0.25, 1e-2, 12
+
+
+def nms_wide_setup(name: str, L: int):
+    """(qc, base graph, decoder) of an nms_wide shape."""
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+    from ldpc_tpu_torch.ops import fused_neural as fn, qc_msg
+
+    base = {"wide_rows": ieee_shape_base, "widest_rows": array_base,
+            "nr_2_0_32": lambda: get_base_graph("nr_2_0_32")}[name]()
+    qc = qc_layout(base, {"wide_rows": 64, "widest_rows": 67, "nr_2_0_32": 32}[name])
+    model = perturbed_nms(qc_msg.make_plan(qc), seed=qc.Z + L, num_iterations=NMS_WIDE_T,
+                          depth_L=L, weight_sharing="edge", learnable_alpha=True,
+                          learnable_offset=True, per_iteration=True)
+    dec = fn.make_fused_neural_minsum(qc, model, NMS_WIDE_T, L, per_iteration=True)
+    return qc, base, dec
+
+
+def nms_wide_phase(smi: str) -> list[dict]:
+    """nms_wide: each shape through its route, launched alone; the whole
+    batch identical to the plain version and to fused_neural through the
+    side door; five rounds of the route beside fused_neural; a sweep of
+    layouts and parts (each with its plan's frame groups); plan, ptxas and
+    bound.  Returns the kernels line's three rows."""
+    from ldpc_tpu_torch.codes import encoder_from_H, expand_base_matrix
+    from ldpc_tpu_torch.ops import fused_neural as fn
+    from ldpc_tpu_torch.utils import compute_ber_fer, qpsk_awgn_llr
+    from ldpc_tpu_torch.utils.metrics import decode_throughput
+
+    rows = []
+    for name, label, L, B, first_snr in NMS_WIDE:
+        qc, base, dec = nms_wide_setup(name, L)
+        route = dec.route
+        assert route == {"wide_rows": "neural_group_wide", "widest_rows": "neural_group_w128",
+                         "nr_2_0_32": "neural_group"}[name] and dec.run_time_depth == (L > 4)
+        enc = encoder_from_H(expand_base_matrix(base, qc.Z))
+        n = qc.num_vars
+        # The SNR: steps until the route's BER is at most NMS_WIDE_BER.
+        steps = {}
+        for step in range(NMS_WIDE_STEPS):
+            snr = first_snr + step * NMS_WIDE_STEP
+            gen = torch.Generator(device="cuda").manual_seed(qc.Z + L)
+            tx = enc.random_codewords(gen, B)
+            llr = qpsk_awgn_llr(gen, tx, snr)
+            steps[snr] = float(compute_ber_fer(tx, dec(llr))[0])
+            if steps[snr] <= NMS_WIDE_BER:
+                break
+        if steps[snr] > NMS_WIDE_BER:
+            raise AssertionError(f"nms_wide {name}: no SNR gives a BER <= {NMS_WIDE_BER}: {steps}")
+        bits = routed_launch(dec, llr, fn.LAUNCHES)
+        launches = fn.LAUNCHES[route]
+        assert bits.shape == (B, n) and bits.dtype == torch.float32
+        assert bool(torch.isfinite(bits).all())
+        ber, fer = (float(x) for x in compute_ber_fer(tx, bits))
+        del tx
+        old_bits = dec._launch_minsum(llr)
+        plain_ms, bits_p = cuda_ms(lambda: dec.plain(llr), reps=1)
+        same = bool(torch.equal(bits, bits_p))
+        same_old = bool(torch.equal(old_bits, bits_p))
+        err = max((bits - bits_p).abs().max().item(), (old_bits - bits_p).abs().max().item())
+        del bits_p, old_bits
+        rounds = [{route: cuda_ms(lambda: dec(llr), reps=3)[0],
+                   "replaced_fused_neural": cuda_ms(lambda: dec._launch_minsum(llr), reps=1)[0]}
+                  for _ in range(5)]
+        median = {k: sorted(r[k] for r in rounds)[2] for k in rounds[0]}
+        # The sweep: every layout with a plan (staged and from L2 where a
+        # whole frame fits), every parts count with the plan's frame groups.
+        sweep = {}
+        for layout in fn.SLICE_LAYOUTS:
+            for staged in ((False, True) if layout == 0 else (False,)):
+                for p in sorted({p for p, _ in fn.neural_group_plans(qc, L, staged, layout)
+                                 if p in NMS_SWEEP_PARTS}):
+                    sweep[f"layout={layout} staged={staged} parts={p}"] = cuda_ms(
+                        lambda: dec._launch_group(llr, parts=p, staged=staged, slice=layout),
+                        reps=1)[0]
+        ms = median[route]
+        bms, bby = nms_bound_ms(qc, NMS_WIDE_T, L, B)
+        p, f, staged, layout, blocks, _ = dec._plan(llr.device)
+        slices = (blocks * f * fn.frames_per_group(qc)
+                  * fn.neural_group_scratch_bytes(qc, L, layout) if layout else 0)
+        ok = same and same_old
+        emit({"phase": "nms_wide", "shape": name, "code": label, "Z": qc.Z, "n": n,
+              "edges": qc.num_edges, "dr_max": qc.dr_max, "iterations": NMS_WIDE_T,
+              "depth_L": L, "batch": B, "snr_db": snr, "snr_steps_ber": steps, "route": route,
+              "word_bits": dec.word_bits, "run_time_depth": dec.run_time_depth,
+              "layout": dec.layout, "launches": launches, "ms_per_batch": ms,
+              "bits_per_s": decode_throughput(B, n, ms / 1e3, name="nms_wide"),
+              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "ber": ber, "fer": fer,
+              "whole_batch_identical": same, "replaced_identical": same_old,
+              "speedup_over_replaced": median["replaced_fused_neural"] / ms,
+              "median_ms": median, "rounds_ms": rounds, "sweep_ms": sweep,
+              "sweep_fastest": min(sweep, key=sweep.get),
+              "plan": {"layout": layout, "parts": p, "frames_per_block": f,
+                       "blocks_per_sm": blocks // torch.cuda.get_device_properties(0)
+                       .multi_processor_count, "staged_weights": staged,
+                       "smem_bytes_per_block": fn.neural_group_smem_bytes(qc, L, p, f, staged,
+                                                                          layout),
+                       "slice_bytes_in_flight": slices},
+              "ptxas": group_ptxas(layout, dec.word_bits, dec.run_time_depth),
+              "nvidia_smi": smi, "ok": ok})
+        if not ok:
+            raise AssertionError(f"nms_wide {name}: identical={same}, "
+                                 f"fused_neural identical={same_old}")
+        rows.append({"name": route if L <= 4 else f"{route} run-time depth {label} L={L}",
+                     "route": "cuda",
+                     "source": f"ldpc_tpu_torch/ops/csrc/{fn.GROUP_STEMS[dec.word_bits]}.cu",
+                     "replaces": "ldpc_tpu/ops/pallas_neural.py:111", "launches": launches,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                     "bound_by": bby, "library_ms": None,
+                     "replaced_fused_neural_ms": median["replaced_fused_neural"]})
+        del llr, dec
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3166,8 +3359,8 @@ def build_all() -> dict:
     """Compile every CUDA source of the port, one nvcc per source, together."""
     from ldpc_tpu_torch.ops import _build
 
-    stems = ("fused_minsum", "fused_retire", "fused_gnn_tc", "fused_neural", "fused_msg_gnn_tc",
-             "probe_agg_mxu", "probe_phi")
+    stems = ("fused_minsum", "fused_retire", "fused_gnn_tc", "fused_neural", "fused_neural_wide",
+             "fused_neural_w128", "fused_msg_gnn_tc", "probe_agg_mxu", "probe_phi")
     with ThreadPoolExecutor(len(stems)) as pool:
         list(pool.map(_build.build, stems))
     return {stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
@@ -3261,8 +3454,8 @@ def sass_mma_counts(stem: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["classical", "wide", "gnn", "nms", "msg_gnn", "tools"],
-                    default=None)
+    ap.add_argument("--only", choices=["classical", "wide", "gnn", "nms", "nms_wide", "msg_gnn",
+                                       "tools"], default=None)
     ap.add_argument("--trace", choices=["z384", "layered", "sumproduct", "gnn", "nms_large",
                                         "msg_gnn", "msg_gnn_v2", "msg_gnn_v3", "msg_gnn_v4"],
                     help=argparse.SUPPRESS)
@@ -3380,6 +3573,8 @@ def main(argv=None) -> int:
         entries += gnn_phases(smi)
     if only in (None, "nms"):
         entries += nms_phases(smi)
+    if only in (None, "nms_wide"):
+        entries += nms_wide_phase(smi)
     if only in (None, "msg_gnn"):
         entries += msg_gnn_phases(smi)
         entries += msg_gnn_wide_phases(smi)

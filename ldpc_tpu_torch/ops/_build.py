@@ -26,11 +26,13 @@ NVCC_FLAGS = (
 )
 
 # Flags of single sources: no contraction of a * b + c into an FMA, so the
-# elementwise steps round like the plain versions.  The tensor-core sources
-# fused_gnn_tc.cu and fused_msg_gnn_tc.cu need no flag: their products are
-# mma and their elementwise multiplies are __fmul_rn, which is never
-# contracted (see their headers).
-EXTRA_FLAGS: dict[str, tuple[str, ...]] = {"fused_neural": ("-fmad=false",)}
+# elementwise steps round like the plain versions (the trained min-sum
+# sources: fused_neural.cu and neural_group.cuh's two other words).  The
+# tensor-core sources fused_gnn_tc.cu and fused_msg_gnn_tc.cu need no flag:
+# their products are mma and their elementwise multiplies are __fmul_rn,
+# which is never contracted (see their headers).
+EXTRA_FLAGS: dict[str, tuple[str, ...]] = {
+    stem: ("-fmad=false",) for stem in ("fused_neural", "fused_neural_wide", "fused_neural_w128")}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -3,20 +3,21 @@
 //
 // Replaces the TPU kernel of ldpc_tpu/ops/pallas_neural.py:111 (`kernel`
 // of make_fused_neural_minsum, :87) with three kernels:
-//   * neural_group_kernel<POW2, L, STAGED>, entry ldpc_neural_group (slice
-//     0): codes with rows of at most 27 members and depth L <= 4 whose
-//     whole frame fits a block: serve_trained_decoder --model
-//     neural_minsum, the OMS flagship record (chip_smoke.py nms_main),
-//     depth 4 at Z=32.  Described below.
-//   * neural_group_slice_kernel<POW2, L, WSLICE>, the same entry (slice 1
-//     or 2): the same codes where a frame exceeds a block (NR BG2 from Z of
-//     about 96 at depth 2 to Z=384; chip_smoke.py nms_large), with its FIFO
-//     and, where A and the column sums leave no room, its state words in an
-//     L2 slice.  Described at item 6 below.
+//   * neural_group_kernel<POW2, L, STAGED, Word>, entry ldpc_neural_group
+//     (slice 0): codes with rows of at most 121 members whose whole frame
+//     fits a block: serve_trained_decoder --model neural_minsum, the OMS
+//     flagship record (chip_smoke.py nms_main), depth 4 at Z=32, and
+//     (nms_wide) the high-rate codes of rows of 32 and 64 and depth 6 at
+//     Z=32.  Described below; its state word and depths past 4 at item 7.
+//   * neural_group_slice_kernel<POW2, L, WSLICE, Word>, the same entry
+//     (slice 1 or 2): the same codes where a frame exceeds a block (NR BG2
+//     from Z of about 96 at depth 2 to Z=384; chip_smoke.py nms_large), with
+//     its FIFO and, where A and the column sums leave no room, its state
+//     words in an L2 slice.  Described at item 6 below.
 //   * neural_minsum_kernel<SHARED>, entry ldpc_neural_minsum: the rest
-//     (rows over 27 members, depth 5 and more), and through the wrapper's
-//     side door (FusedNeuralDecoder._launch_minsum) any code, so the kernels
-//     can be timed side by side.  Described at its section at the end.
+//     (rows over 121 members), and through the wrapper's side door
+//     (FusedNeuralDecoder._launch_minsum) any code, so the kernels can be
+//     timed side by side.  Described at its section at the end.
 // Python wrapper, weight packing (_pack_weights, check-aligned planes
 // _Tables.wc) and the plain PyTorch version both are held against
 // (neural_decode_plain): ldpc_tpu_torch/ops/fused_neural.py; a CPU model of
@@ -155,6 +156,47 @@
 // planes; 54-64 registers a thread, no spills.  A group alone on its SM
 // takes the most parts (32 warps at Z=32 depth 4).  The slice forms hold 4
 // (3 R*Z + C*Z) or 4 (2 R*Z + C*Z) bytes a frame.
+// 7. Rows of 28 to 121 members and FIFOs deeper than 4 (routes
+//    neural_group_wide, neural_group_w128; chip_smoke.py nms_wide).  Both
+//    kernels take the state word W as a template parameter (Word,
+//    retire.cuh), as fused_retire.cu's B1 kernels do: unsigned (27 output
+//    signs and a 5-bit argmin, 12 bytes a check with A), unsigned long long
+//    (58 signs, 6-bit argmin, 16 bytes) for rows of 28 to 58 members, and
+//    Word128 (two 64-bit limbs, 121 signs, 7-bit argmin, 24 bytes) for rows
+//    of 59 to 121.  The wrapper encodes the structure's column members for
+//    the word (j, bits - 1 - j), and every operation on W is an overload of
+//    retire.cuh (push_sign's carry between the limbs, product_flips' mask
+//    across them, argmin_of, is_argmin, member_sign); the check pass folds
+//    members d - 1 .. 27 (64-bit) from a switch of their own and d - 1 ..
+//    58 (128-bit) in a loop before it.  A frame's state grows to 4 or 6
+//    words a check: 4 (2 C*Z + 4 R*Z + L K*Z) bytes a frame on the 64-bit
+//    word (120,832 at wide_rows' code, depth 2); the slice forms' column
+//    sums are padded to an even count so that W after them stays 8-byte
+//    aligned.  A W entry has one owner thread, its check's, in every
+//    layout: the 128-bit word's two limbs are written by it alone and read
+//    by others only after the group's barrier, so no store is torn.
+//    Depth: the forms of their own, L = 0..4, keep the taps and the FIFO
+//    offsets of slot (t - l) mod L in registers, each tap unrolled; a
+//    deeper FIFO runs the form of run-time depth (L = kRunDepth), whose
+//    depth rides in `flags` above per_iteration, whose taps are read from
+//    the parameters through the read-only cache (one address a warp, where
+//    the forms of their own read them once a pass) in a loop of min(L, t)
+//    taps, and whose FIFO offset steps down one plane a tap from slot t mod
+//    L, wrapping from slot 0 to L - 1, so no tap divides.  The FIFO is L
+//    planes of K*Z floats in whatever layout holds the frame (deep FIFOs
+//    take the slice forms, whose shared memory does not grow with L; NR
+//    BG2 Z=32 keeps a whole frame up to depth 7, 205,952 B); the only limit
+//    is the FIFO's 32-bit offsets, (L + 1) K*Z < 2^30 words.  The kernels
+//    live in neural_group.cuh: this source instantiates them on the 32-bit
+//    word, fused_neural_wide.cu and fused_neural_w128.cu on the other two,
+//    48 kernels each, one nvcc run a source side by side (one source of
+//    all 146 took 327 s).  The 32-bit forms of depth 0..4 compile as they
+//    did before Word and the run-time form existed
+//    (tools/probe_sass_diff.py against the parent tree).  Measured
+//    (chip_smoke.py nms_wide, NVIDIA H100 80GB HBM3, 700.00 W): 31.5 ms at
+//    rows of 32 (Z=64, batch 65536), 65.9 ms at rows of 64 (p = 67, 49152),
+//    30.9 ms at NR BG2 Z=32 depth 6 (65536), where neural_minsum_kernel
+//    took 77.0, 95.4 and 94.5 ms in the same call (PERF.md).
 // Measured (chip_smoke.py nms_main, NVIDIA H100 80GB HBM3, 700.00 W):
 // 13.29 ms per batch of 65536, where neural_minsum_kernel took 38.58 ms in
 // the same call (2.90x), 15% of the bound; the weights read from L2 14.28
@@ -168,8 +210,13 @@
 #include "retire.cuh"
 
 namespace {
+using NeuralWord = unsigned;  // this library's neural_group: rows of up to 27 members
+}  // namespace
 
-constexpr float kBig = 1e9f;  // stand-in for +inf, as _BIG in the JAX package
+#include "neural_group.cuh"
+
+namespace {
+
 constexpr int kMaxFramesPerBlock = 32;  // neural_minsum_kernel
 // At one frame a block (Z=32) two blocks fit an SM; 512 threads a block
 // hide more shared-memory latency than 256 (PERF.md section 6, B3's times).
@@ -391,458 +438,6 @@ cudaError_t prepare(long long smem) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
 }
 
-
-// ---------------------------------------------------------------------------
-// neural_group_kernel: a frame on a group of warps, compressed check state,
-// v2c rebuilt in the check pass, a check-aligned FIFO ring
-// ---------------------------------------------------------------------------
-
-// FIFO slots a lifted edge keeps at most: depth 4 takes one more tap and
-// read a rebuild, in every layout; fused_neural keeps deeper FIFOs.
-constexpr int kMaxDepth = 4;
-
-// Words of one iteration's channel weights (K*Z floats), rounded up to 16
-// bytes: the wrapper pads each plane so that it can be copied in 16-byte
-// pieces.
-__host__ __device__ inline int plane_words(int Z, int K) { return (K * Z + 3) / 4 * 4; }
-
-// A frame: its LLRs and column sums (C*Z floats each), its check state (A:
-// R*Z float2, W: R*Z words) and its FIFO (L planes of K*Z floats), rounded
-// up to 16 bytes.
-__host__ __device__ inline int group_frame_words(int Z, int R, int C, int K, int L) {
-  return (2 * C * Z + 3 * R * Z + L * K * Z + 3) / 4 * 4;
-}
-
-// Frames a frame group decodes side by side: 32 / Z where Z <= 16 (lane =
-// frame * Z + z), else one.
-__host__ __device__ inline int frames_per_group(int Z) { return Z <= 16 ? 32 / Z : 1; }
-
-long long group_smem(int Z, int R, int C, int K, int L, int parts, int groups, int staged) {
-  return 4LL * (structure_words(R, C, K, parts) + (staged ? 2LL * plane_words(Z, K) : 0LL) +
-                static_cast<long long>(groups) * frames_per_group(Z) *
-                    group_frame_words(Z, R, C, K, L));
-}
-
-// Copies `words` floats (a multiple of 4, 16-byte aligned) from global to
-// shared memory with cp.async, all threads of the block, as one group.
-__device__ __forceinline__ void stage_plane(float* dst, const float* src, int words) {
-  for (int i = 4 * threadIdx.x; i < words; i += 4 * blockDim.x) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src + i) : "memory");
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void staged_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-// What check pass p > 0 needs to rebuild its members' v2c: the variable half
-// of iteration t = p - 1 as neural_decode_plain runs it.
-struct Rebuild {
-  const float* w;        // iteration t's channel weights, check-aligned (i*Z + z)
-  float tap[kMaxDepth];  // w_res[t, l]
-  int read[kMaxDepth];   // FIFO offset (slot * K*Z) of q_{t-l}, slot (t - l) mod L
-  int write;             // FIFO offset of q_{t+1}, slot (t + 1) mod L
-  int taps;              // taps whose message is stored: min(L, t)
-  float live;            // 0 at t = 0, else 1
-};
-
-// Check pass of lifted check (r, z).  FIRST (pass 0): member j's v2c is its
-// LLR + 0.0 (-0.0 folds as +0.0, whose sign the plain version takes as +1).
-// Otherwise it is rebuilt from its variable's column sum, its old c2v (the
-// check's state, read once into registers), its weight times its LLR and
-// the taps on its FIFO,
-//   q = ((cs - c2v) + w * llr) + live * (sum over l < taps of tap_l * q_{t-l}),
-// and stored in the FIFO before it is folded (its own slot, which only this
-// thread reads: the member's edge is check-aligned).  q is never -0.0 (cs
-// starts from +0.0, so neither cs - c2v nor the sums after it are), so its
-// sign bit is its "< 0".  Taps whose slot the plain version holds at zero
-// (t - l < 1) are left out: they add +-0.0 to a sum that is never -0.0.  The
-// members are folded last first from a switch that falls through, as in
-// fused_retire.cu; then the check's new state: A = alpha * max(m' - offset,
-// 0) for m1 and m2 (m' the sentinel replaced by 0), W = output signs and
-// argmin.  Exact: ((alpha * sp) * sign) * loo is +-(alpha * loo), since
-// products of +-1 do not round, and at a tie every tied member's loo is the
-// same; a negative alpha or offset changes none of that.
-template <bool FIRST, bool POW2, int L>
-__device__ __forceinline__ void check_row(const Structure& s, const float* llr, const float* cs,
-                                          float2* A, unsigned* W, float* fifo, const Rebuild& rb,
-                                          float alpha, float offset, int r, int z, int Z) {
-  const int q = r * Z + z;
-  const int j0 = s.row_ptr[r], d = s.row_ptr[r + 1] - j0;
-  const int2* mem = s.row_mem + j0;
-  const int e0 = j0 * Z + z;  // member j's edge, check-aligned: e0 + j * Z
-  const float2 a = FIRST ? make_float2(0.0f, 0.0f) : A[q];
-  const unsigned w_old = FIRST ? 0u : W[q];
-  float m1 = kBig, m2 = kBig;
-  unsigned arg = kNoMember<unsigned>, neg = 0u;
-  auto member = [&](int j) {
-    const int2 m = mem[j];
-    const int v = rolled<POW2>(z, m.y, m.x, Z);
-    float x;
-    if (FIRST) {
-      x = llr[v] + 0.0f;
-    } else {
-      const int e = e0 + j * Z;
-      x = (cs[v] - c2v_of(a, w_old, j)) + rb.w[e] * llr[v];
-      if (L > 0) {
-        float res = 0.0f;
-#pragma unroll
-        for (int l = 0; l < L; ++l)
-          if (l < rb.taps) res = res + rb.tap[l] * fifo[rb.read[l] + e];
-        x = x + rb.live * res;
-        fifo[rb.write + e] = x;
-      }
-    }
-    fold(x, j, m1, m2, arg, neg);
-  };
-  switch (d) {
-#define NEURAL_MEMBER(J) \
-  case (J) + 1:          \
-    member(J);           \
-    [[fallthrough]];
-    NEURAL_MEMBER(26) NEURAL_MEMBER(25) NEURAL_MEMBER(24) NEURAL_MEMBER(23) NEURAL_MEMBER(22)
-    NEURAL_MEMBER(21) NEURAL_MEMBER(20) NEURAL_MEMBER(19) NEURAL_MEMBER(18) NEURAL_MEMBER(17)
-    NEURAL_MEMBER(16) NEURAL_MEMBER(15) NEURAL_MEMBER(14) NEURAL_MEMBER(13) NEURAL_MEMBER(12)
-    NEURAL_MEMBER(11) NEURAL_MEMBER(10) NEURAL_MEMBER(9) NEURAL_MEMBER(8) NEURAL_MEMBER(7)
-    NEURAL_MEMBER(6) NEURAL_MEMBER(5) NEURAL_MEMBER(4) NEURAL_MEMBER(3) NEURAL_MEMBER(2)
-    NEURAL_MEMBER(1) NEURAL_MEMBER(0)
-#undef NEURAL_MEMBER
-    default:
-      break;
-  }
-  const unsigned sp = (__popc(neg) & 1) ? (1u << d) - 1u : 0u;
-  const float m1z = m1 < kBig ? m1 : 0.0f, m2z = m2 < kBig ? m2 : 0.0f;
-  A[q] = make_float2(alpha * fmaxf(m1z - offset, 0.0f), alpha * fmaxf(m2z - offset, 0.0f));
-  W[q] = (neg ^ sp) | (arg << kSignBits<unsigned>);
-}
-
-// Variable (c, z)'s c2v, expanded from the check states and summed from +0.0
-// in col_members order.
-template <bool POW2>
-__device__ __forceinline__ float state_column_sum(const Structure& s, const float2* A,
-                                                  const unsigned* W, int c, int z, int Z) {
-  float cs = 0.0f;
-  const int i1 = s.col_ptr[c + 1];
-#pragma unroll 4
-  for (int i = s.col_ptr[c]; i < i1; ++i) {
-    const int4 m = s.col_mem[i];
-    const int q = rolled<POW2>(z, Z - m.y, m.x, Z);  // (z - shift) mod Z in row r
-    const float2 a = A[q];
-    const unsigned w = W[q];
-    const float v = ((w ^ static_cast<unsigned>(m.z)) & 0xf8000000u) == 0u ? a.y : a.x;
-    cs = cs + flip_if(v, w << m.w);
-  }
-  return cs;
-}
-
-// B3 on frame groups.  A block holds `groups` groups of `parts` * ceil(Z /
-// 32) warps, and a group decodes F = frames_per_group(Z) frames side by
-// side (at Z <= 16 lane = f * Z + z: no frame leaves early, so frames can
-// share a warp's passes).  Block b's groups take frames (b * groups + g) * F
-// + f, then + gridDim.x * groups * F, ... (a group past the batch leaves,
-// or, where a block barrier waits for it, decodes the batch's last frame
-// again and writes nothing; so does a lane past the batch).  A frame runs T
-// check passes, each followed by a column pass,
-// with its group's named barrier between them; the last column pass writes
-// the bits (llr + cs < 0).  STAGED: the channel weights are read from shared
-// memory, copied there with cp.async: a shared plane once a block, per-
-// iteration planes double-buffered, iteration t's plane (read by check pass
-// t + 1) copied during iteration t, with one block barrier an iteration in
-// place of the group's second.  Else each weight is read from global memory
-// (L2), 32 consecutive floats a warp.
-template <bool POW2, int L, bool STAGED>
-__global__ void __launch_bounds__(kMaxThreads)
-neural_group_kernel(const float* __restrict__ llr, float* __restrict__ bits,
-                    const int* __restrict__ structure, const float* __restrict__ w,
-                    const float* __restrict__ params, int B, int Z, int R, int C, int K, int T,
-                    int per_iteration, int parts, int groups) {
-  extern __shared__ __align__(16) float smem[];  // as neural_minsum_kernel declares it
-  int* s_struct = reinterpret_cast<int*>(smem);
-  const int pw = plane_words(Z, K);
-  float* s_w = reinterpret_cast<float*>(s_struct + structure_words(R, C, K, parts));
-  const bool restage = STAGED && per_iteration;
-  if (STAGED && !per_iteration) {
-    stage_plane(s_w, w, pw);
-    staged_wait();  // load_structure's barrier makes the plane visible
-  }
-  const Structure s = load_structure(s_struct, structure, R, C, K, parts);
-  const Lanes ln = lanes_of(s, Z, parts);
-  const Group& grp = ln.grp;
-  const int n = C * Z, KZ = K * Z, S = L > 1 ? L : 1;
-  // The thread's frame within its group (fl) and lane (z); once, at start.
-  const int F = frames_per_group(Z), fw = group_frame_words(Z, R, C, K, L);
-  const int lane = threadIdx.x & 31;
-  const int fl = F > 1 ? min(lane / Z, F - 1) : 0;
-  const int z = F > 1 ? lane - fl * Z : ln.z;
-  const bool active = F > 1 ? lane < F * Z : ln.active;
-  float* group_frames = s_w + (STAGED ? 2 * pw : 0) + ln.g * F * fw;
-  float* frame = group_frames + fl * fw;
-  float* s_llr = frame;
-  float* s_cs = frame + n;
-  float2* A = reinterpret_cast<float2*>(frame + 2 * n);  // 8-byte aligned: 2n is even
-  unsigned* W = reinterpret_cast<unsigned*>(A + R * Z);
-  float* fifo = reinterpret_cast<float*>(W + R * Z);
-  const float* alpha = params;
-  const float* offset = params + T;
-  const float* w_res = params + 2 * T;  // (T, max(L, 1))
-
-  for (int base = blockIdx.x * groups * F; base < B; base += gridDim.x * groups * F) {
-    const int first = base + ln.g * F;
-    if (first >= B && !restage) break;  // no block barrier waits for this group
-    for (int k = 0; k < F; ++k) {
-      const float* src = llr + static_cast<size_t>(min(first + k, B - 1)) * n;
-      for (int i = ln.gi; i < n; i += grp.threads) group_frames[k * fw + i] = src[i];
-    }
-    const bool owner = first + fl < B;
-    const int f = owner ? first + fl : B - 1;
-    if (restage && T > 1) stage_plane(s_w, w, pw);  // iteration 0's, for check pass 1
-    grp.sync();
-
-    for (int p = 0; p < T; ++p) {
-      if (active) {
-        if (p == 0) {
-          const Rebuild none{};
-          for (int r = ln.r0; r < ln.r1; ++r)
-            check_row<true, POW2, L>(s, s_llr, s_cs, A, W, fifo, none, __ldg(alpha),
-                                     __ldg(offset), r, z, Z);
-        } else {
-          const int t = p - 1;
-          Rebuild rb;
-          rb.w = STAGED ? s_w + (restage ? (t & 1) * pw : 0)
-                        : w + (per_iteration ? static_cast<size_t>(t) * pw : 0);
-          rb.live = t > 0 ? 1.0f : 0.0f;
-          rb.taps = min(L, t);
-          rb.write = L > 0 ? (p % S) * KZ : 0;
-#pragma unroll
-          for (int l = 0; l < kMaxDepth; ++l) {
-            rb.tap[l] = l < L ? __ldg(w_res + t * S + l) : 0.0f;
-            rb.read[l] = l < L ? ((t - l + S) % S) * KZ : 0;
-          }
-          for (int r = ln.r0; r < ln.r1; ++r)
-            check_row<false, POW2, L>(s, s_llr, s_cs, A, W, fifo, rb, __ldg(alpha + p),
-                                      __ldg(offset + p), r, z, Z);
-        }
-      }
-      grp.sync();
-      const bool last = p + 1 == T;
-      if (active) {
-        float* out = bits + static_cast<size_t>(f) * n;
-        for (int c = ln.c0; c < ln.c1; ++c) {
-          const int v = c * Z + z;
-          const float cs = state_column_sum<POW2>(s, A, W, c, z, Z);
-          if (!last)
-            s_cs[v] = cs;
-          else if (owner)
-            out[v] = s_llr[v] + cs < 0.0f ? 1.0f : 0.0f;
-        }
-      }
-      if (restage) {
-        // Every group is past check pass p, which read the other buffer.
-        staged_wait();
-        __syncthreads();
-        if (p + 1 < T - 1)
-          stage_plane(s_w + ((p + 1) & 1) * pw, w + static_cast<size_t>(p + 1) * pw, pw);
-      } else {
-        grp.sync();  // the next pass (or frame) overwrites what this one read
-      }
-    }
-  }
-}
-
-// The slice forms, for frames that do not fit a block.  In shared memory a
-// frame's A (R*Z float2), its column sums (C*Z floats) and, unless WSLICE,
-// its state words W (R*Z), rounded up to 16 bytes (A first, so it is 8-byte
-// aligned at any Z).
-__host__ __device__ inline int slice_frame_words(int Z, int R, int C, bool wslice) {
-  return (2 * R * Z + C * Z + (wslice ? 0 : R * Z) + 3) / 4 * 4;
-}
-
-// A frame's slice of the global scratch: W if WSLICE, then its FIFO (L
-// planes of K*Z floats), rounded up to 16 bytes.
-__host__ __device__ inline long long slice_words(int Z, int R, int K, int L, bool wslice) {
-  return ((wslice ? static_cast<long long>(R) * Z : 0LL) + static_cast<long long>(L) * K * Z +
-          3) / 4 * 4;
-}
-
-// B3 on frame groups, the slice forms: neural_group_kernel's frame loop and
-// passes with the weights read from L2, where a frame's FIFO and, if
-// WSLICE, its state words W live in its slice of `scratch` (slice (b *
-// groups + g) * F + f for frame f of group g of block b) and its LLRs are
-// read from its input row; A, the column sums and otherwise W stay in
-// shared memory.  Entry r*Z + z of W and i*Z + z of each FIFO plane are
-// read and written in the check pass only by the thread of check (r, z),
-// and W is read by other threads of the group only after the group's
-// barrier (column pass), so the slice needs no barrier of its own; scratch
-// is neither const nor __restrict__, so its loads are ordinary (coherent)
-// ones, as retire_zlane_kernel's (fused_retire.cu).
-template <bool POW2, int L, bool WSLICE>
-__global__ void __launch_bounds__(kMaxThreads)
-neural_group_slice_kernel(const float* __restrict__ llr, float* __restrict__ bits,
-                          const int* __restrict__ structure, const float* __restrict__ w,
-                          const float* __restrict__ params, unsigned* scratch, int B, int Z,
-                          int R, int C, int K, int T, int per_iteration, int parts, int groups) {
-  extern __shared__ __align__(16) float smem[];  // as neural_minsum_kernel declares it
-  int* s_struct = reinterpret_cast<int*>(smem);
-  const Structure s = load_structure(s_struct, structure, R, C, K, parts);
-  const Lanes ln = lanes_of(s, Z, parts);
-  const Group& grp = ln.grp;
-  const int n = C * Z, KZ = K * Z, S = L > 1 ? L : 1, pw = plane_words(Z, K);
-  const int F = frames_per_group(Z);
-  const int lane = threadIdx.x & 31;
-  const int fl = F > 1 ? min(lane / Z, F - 1) : 0;
-  const int z = F > 1 ? lane - fl * Z : ln.z;
-  const bool active = F > 1 ? lane < F * Z : ln.active;
-  const int slot = ln.g * F + fl;  // the thread's frame among the block's
-  float2* A = reinterpret_cast<float2*>(smem + structure_words(R, C, K, parts) +
-                                        slot * slice_frame_words(Z, R, C, WSLICE));
-  float* s_cs = reinterpret_cast<float*>(A + R * Z);
-  unsigned* own = scratch + (static_cast<size_t>(blockIdx.x) * groups * F + slot) *
-                                slice_words(Z, R, K, L, WSLICE);
-  unsigned* W = WSLICE ? own : reinterpret_cast<unsigned*>(s_cs + n);
-  float* fifo = reinterpret_cast<float*>(WSLICE ? own + R * Z : own);
-  const float* alpha = params;
-  const float* offset = params + T;
-  const float* w_res = params + 2 * T;  // (T, max(L, 1))
-
-  for (int base = blockIdx.x * groups * F; base < B; base += gridDim.x * groups * F) {
-    const int first = base + ln.g * F;
-    if (first >= B) break;
-    const bool owner = first + fl < B;
-    const int f = owner ? first + fl : B - 1;
-    const float* lf = llr + static_cast<size_t>(f) * n;
-
-    for (int p = 0; p < T; ++p) {
-      if (active) {
-        if (p == 0) {
-          const Rebuild none{};
-          for (int r = ln.r0; r < ln.r1; ++r)
-            check_row<true, POW2, L>(s, lf, s_cs, A, W, fifo, none, __ldg(alpha), __ldg(offset),
-                                     r, z, Z);
-        } else {
-          const int t = p - 1;
-          Rebuild rb;
-          rb.w = w + (per_iteration ? static_cast<size_t>(t) * pw : 0);
-          rb.live = t > 0 ? 1.0f : 0.0f;
-          rb.taps = min(L, t);
-          rb.write = L > 0 ? (p % S) * KZ : 0;
-#pragma unroll
-          for (int l = 0; l < kMaxDepth; ++l) {
-            rb.tap[l] = l < L ? __ldg(w_res + t * S + l) : 0.0f;
-            rb.read[l] = l < L ? ((t - l + S) % S) * KZ : 0;
-          }
-          for (int r = ln.r0; r < ln.r1; ++r)
-            check_row<false, POW2, L>(s, lf, s_cs, A, W, fifo, rb, __ldg(alpha + p),
-                                      __ldg(offset + p), r, z, Z);
-        }
-      }
-      grp.sync();
-      const bool last = p + 1 == T;
-      if (active) {
-        float* out = bits + static_cast<size_t>(f) * n;
-        for (int c = ln.c0; c < ln.c1; ++c) {
-          const int v = c * Z + z;
-          const float cs = state_column_sum<POW2>(s, A, W, c, z, Z);
-          if (!last)
-            s_cs[v] = cs;
-          else if (owner)
-            out[v] = lf[v] + cs < 0.0f ? 1.0f : 0.0f;
-        }
-      }
-      grp.sync();  // the next pass (or frame) overwrites what this one read
-    }
-  }
-}
-
-using GroupKernel = decltype(&neural_group_kernel<true, 0, false>);
-
-template <bool POW2, bool STAGED>
-GroupKernel group_kernel_of_depth(int L) {
-  switch (L) {
-    case 0:
-      return &neural_group_kernel<POW2, 0, STAGED>;
-    case 1:
-      return &neural_group_kernel<POW2, 1, STAGED>;
-    case 2:
-      return &neural_group_kernel<POW2, 2, STAGED>;
-    case 3:
-      return &neural_group_kernel<POW2, 3, STAGED>;
-    default:
-      return &neural_group_kernel<POW2, 4, STAGED>;
-  }
-}
-
-GroupKernel pick_group_kernel(int Z, int L, int staged) {
-  const bool pow2 = (Z & (Z - 1)) == 0;
-  if (pow2)
-    return staged ? group_kernel_of_depth<true, true>(L) : group_kernel_of_depth<true, false>(L);
-  return staged ? group_kernel_of_depth<false, true>(L) : group_kernel_of_depth<false, false>(L);
-}
-
-using SliceKernel = decltype(&neural_group_slice_kernel<true, 0, true>);
-
-template <bool POW2, bool WSLICE>
-SliceKernel slice_kernel_of_depth(int L) {
-  switch (L) {
-    case 0:
-      return &neural_group_slice_kernel<POW2, 0, WSLICE>;
-    case 1:
-      return &neural_group_slice_kernel<POW2, 1, WSLICE>;
-    case 2:
-      return &neural_group_slice_kernel<POW2, 2, WSLICE>;
-    case 3:
-      return &neural_group_slice_kernel<POW2, 3, WSLICE>;
-    default:
-      return &neural_group_slice_kernel<POW2, 4, WSLICE>;
-  }
-}
-
-// slice 1: the FIFO in the slices; 2: the FIFO and W.
-SliceKernel pick_slice_kernel(int Z, int L, int slice) {
-  const bool pow2 = (Z & (Z - 1)) == 0, wslice = slice == 2;
-  if (pow2)
-    return wslice ? slice_kernel_of_depth<true, true>(L) : slice_kernel_of_depth<true, false>(L);
-  return wslice ? slice_kernel_of_depth<false, true>(L) : slice_kernel_of_depth<false, false>(L);
-}
-
-int group_threads(int Z, int parts, int groups) { return 32 * ((Z + 31) / 32) * parts * groups; }
-
-// A block holds at most 1024 threads and 15 groups (one named barrier each);
-// `slice` is 0 (a whole frame in shared memory), 1 (its FIFO in its slice)
-// or 2 (its FIFO and W), and the slice forms read their weights from L2.
-bool valid_group_plan(int Z, int L, int parts, int groups, int staged, int slice) {
-  return L >= 0 && L <= kMaxDepth && parts >= 1 && groups >= 1 && groups <= kMaxGroups &&
-         group_threads(Z, parts, groups) <= kMaxThreads && slice >= 0 && slice <= 2 &&
-         !(staged && slice);
-}
-
-long long group_block_smem(int Z, int R, int C, int K, int L, int parts, int groups, int staged,
-                           int slice) {
-  if (!slice) return group_smem(Z, R, C, K, L, parts, groups, staged);
-  return 4LL * (structure_words(R, C, K, parts) + static_cast<long long>(groups) *
-                                                      frames_per_group(Z) *
-                                                      slice_frame_words(Z, R, C, slice == 2));
-}
-
-// Sets the kernel's dynamic shared memory; with `blocks`, also asks the
-// runtime how many blocks of `threads` can be resident on one SM.
-template <typename Kernel>
-cudaError_t prepare_group(Kernel kernel, long long smem, int threads, int* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err == cudaSuccess && blocks != nullptr)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
-  return err;
-}
-
-// prepare_group for the layout's kernel.
-cudaError_t prepare_layout(int Z, int R, int C, int K, int L, int parts, int groups, int staged,
-                           int slice, int* blocks) {
-  const long long smem = group_block_smem(Z, R, C, K, L, parts, groups, staged, slice);
-  const int threads = group_threads(Z, parts, groups);
-  return slice ? prepare_group(pick_slice_kernel(Z, L, slice), smem, threads, blocks)
-               : prepare_group(pick_group_kernel(Z, L, staged), smem, threads, blocks);
-}
-
 }  // namespace
 
 extern "C" {
@@ -903,68 +498,6 @@ int ldpc_neural_minsum(const void* llr, void* bits, const void* graph, const voi
   else
     neural_minsum_kernel<false><<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
-}
-
-// The entry point of neural_group_kernel and, where `slice` (1: the FIFO in
-// the slices, 2: the FIFO and W), neural_group_slice_kernel: `grid` blocks
-// of `groups` frame groups (each of frames_per_group(Z) frames) of `parts`
-// parts (the structure's part tables, fused_minsum.py _retire_structure),
-// weights check-aligned per plane (plane_words apart), STAGED where
-// `staged`; `scratch` (slice forms) holds grid * groups *
-// frames_per_group(Z) slices of ldpc_neural_group_slice_words.  Launches on
-// `stream`, no sync; returns a cudaError_t (0 on success).
-int ldpc_neural_group(const void* llr, void* bits, const void* structure, const void* w,
-                      const void* params, void* scratch, int B, int Z, int R, int C, int K, int T,
-                      int L, int per_iteration, int parts, int groups, int staged, int slice,
-                      int grid, void* stream) {
-  if (B < 1 || T < 1 || grid < 1 || !valid_group_plan(Z, L, parts, groups, staged, slice) ||
-      (slice && scratch == nullptr))
-    return cudaErrorInvalidValue;
-  const long long smem = group_block_smem(Z, R, C, K, L, parts, groups, staged, slice);
-  const int threads = group_threads(Z, parts, groups);
-  cudaError_t err = prepare_layout(Z, R, C, K, L, parts, groups, staged, slice, nullptr);
-  if (err != cudaSuccess) return err;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* in = static_cast<const float*>(llr);
-  auto* out = static_cast<float*>(bits);
-  const auto* st = static_cast<const int*>(structure);
-  const auto* wt = static_cast<const float*>(w);
-  const auto* par = static_cast<const float*>(params);
-  if (slice) {
-    const SliceKernel kernel = pick_slice_kernel(Z, L, slice);
-    kernel<<<grid, threads, smem, s>>>(in, out, st, wt, par, static_cast<unsigned*>(scratch), B, Z,
-                                       R, C, K, T, per_iteration, parts, groups);
-  } else {
-    const GroupKernel kernel = pick_group_kernel(Z, L, staged);
-    kernel<<<grid, threads, smem, s>>>(in, out, st, wt, par, B, Z, R, C, K, T, per_iteration,
-                                       parts, groups);
-  }
-  return cudaGetLastError();
-}
-
-long long ldpc_neural_group_smem_bytes(int Z, int R, int C, int K, int L, int parts, int groups,
-                                       int staged, int slice) {
-  return group_block_smem(Z, R, C, K, L, parts, groups, staged, slice);
-}
-
-// Words of one frame's slice of a slice form's scratch.
-long long ldpc_neural_group_slice_words(int Z, int R, int K, int L, int slice) {
-  return slice_words(Z, R, K, L, slice == 2);
-}
-
-// Resident blocks per SM of a neural_group launch with these arguments, or
-// -cudaError_t.
-int ldpc_neural_group_occupancy(int Z, int R, int C, int K, int L, int parts, int groups,
-                                int staged, int slice) {
-  if (!valid_group_plan(Z, L, parts, groups, staged, slice))
-    return -static_cast<int>(cudaErrorInvalidValue);
-  int blocks = 0;
-  const cudaError_t err = prepare_layout(Z, R, C, K, L, parts, groups, staged, slice, &blocks);
-  return err == cudaSuccess ? blocks : -static_cast<int>(err);
-}
-
-const char* ldpc_neural_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

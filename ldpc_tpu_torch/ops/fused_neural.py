@@ -1,21 +1,29 @@
 """Fused inference decoder for trained neural min-sum decoders: the whole
 decode in one CUDA kernel (counterpart of ``ldpc_tpu.ops.pallas_neural``).
 
-Hand-written kernels in ``csrc/fused_neural.cu`` replace
+Hand-written kernels in ``csrc/fused_neural.cu`` (and ``neural_group``'s
+64-bit and 128-bit words in ``csrc/fused_neural_wide.cu`` and
+``csrc/fused_neural_w128.cu``, from ``csrc/neural_group.cuh``) replace
 ``pallas_neural.kernel``: the min-sum loop of
 :mod:`ldpc_tpu_torch.ops.fused_minsum` with a trained model's per-iteration
 alpha and offset, per-edge channel weights and residual taps on a FIFO of
 past messages applied.  ``neural_group`` (a frame on a group of warps,
 compressed check state, v2c rebuilt in the check pass) takes every code
-with rows of at most 27 members at depth 0 to 4 (:func:`neural_group_fits`),
-in one of three layouts (:data:`SLICE_LAYOUTS`, :func:`neural_group_layout`)
-chosen by measurement (``chip_smoke.py`` nms_large): the whole frame in
-shared memory wherever it fits (the slice forms ran 19-30% slower at NR BG2
-Z=32 depth 4); else its FIFO in a slice of global scratch that stays in L2,
-its check state and column sums in shared memory (form 1: NR BG2 Z=128,
-201,728 B of FIFO a frame at depth 2); else its state words in the slice
-too (form 2: Z=384, whose A and column sums alone take 208,896 B).
-``fused_neural`` takes the rest: rows over 27 members, depth 5 and more.
+with rows of at most 121 members at any depth (:func:`neural_group_fits`),
+on the state word that holds a row's signs (:func:`neural_group_word_bits`:
+32 bits for rows of up to 27 members, route ``neural_group``; 64 for 28 to
+58, ``neural_group_wide``; 128 for 59 to 121, ``neural_group_w128``), with
+forms of their own for depth 0 to 4 and one form of run-time depth for
+deeper FIFOs, in one of three layouts (:data:`SLICE_LAYOUTS`,
+:func:`neural_group_layout`) chosen by measurement (``chip_smoke.py``
+nms_large): the whole frame in shared memory wherever it fits (the slice
+forms ran 19-30% slower at NR BG2 Z=32 depth 4); else its FIFO in a slice
+of global scratch that stays in L2, its check state and column sums in
+shared memory (form 1: NR BG2 Z=128, 201,728 B of FIFO a frame at depth 2);
+else its state words in the slice too (form 2: Z=384, whose A and column
+sums alone take 208,896 B).  Its only depth limit is that of its 32-bit
+FIFO offsets, (depth + 1) K*Z < 2^30 words.  ``fused_neural`` takes the
+rest: rows over 121 members.
 They serve a :class:`ldpc_tpu_torch.models.neural_min_sum.NeuralMinSumDecoder`
 with ``output_mode="sum_plus_input"``: input (B, n) float32 LLRs, output
 (B, n) float32 hard bits of ``llr + colsum(c2v)`` after ``num_iterations``
@@ -26,8 +34,8 @@ Called on a CUDA tensor it launches its route's kernel (and raises if the
 launch fails); called on a CPU tensor it runs the plain PyTorch version,
 which repeats the kernels' float operations in the same order, so all
 give identical bits.  ``plain(llr)`` runs the plain version on any
-device.  ``LAUNCHES`` counts kernel launches by kernel (``neural_group``
-counts every layout).
+device.  ``LAUNCHES`` counts kernel launches by route (each
+``neural_group`` route counts every layout and depth of its word).
 """
 from __future__ import annotations
 
@@ -39,18 +47,27 @@ import torch
 
 from ldpc_tpu_torch._device import resolve_device
 from ldpc_tpu_torch.codes.edge_layout import QCLayout
-from ldpc_tpu_torch.ops.fused_minsum import (_MAX_FRAMES_PER_BLOCK, _RETIRE_MAX_DEGREE,
-                                             _RETIRE_MAX_GROUPS, _RETIRE_MAX_THREADS,
-                                             _SMEM_BUDGET, _check_llr, _graph_array,
-                                             _graph_words, _PlainIndex, _resident_grid,
+from ldpc_tpu_torch.ops.fused_minsum import (_MAX_FRAMES_PER_BLOCK, _RETIRE_MAX_GROUPS,
+                                             _RETIRE_MAX_THREADS, _SMEM_BUDGET, _WORD_SUFFIX,
+                                             WORD_BITS, _check_llr, _graph_array, _graph_words,
+                                             _max_degree, _PlainIndex, _resident_grid,
                                              _retire_structure, _retire_structure_words,
-                                             _sgn, _structure, retire_threads)
+                                             _sgn, _state_words, _structure, retire_threads)
 from ldpc_tpu_torch.ops.qc_msg import _BIG
 
-LAUNCHES: dict[str, int] = {"fused_neural": 0, "neural_group": 0}
+# neural_group's route on each state word (neural_group_word_bits), and the
+# source (library) that builds its kernels.
+GROUP_ROUTES = {bits: "neural_group" + _WORD_SUFFIX.get(bits, "") for bits in WORD_BITS}
+GROUP_STEMS = {bits: "fused_neural" + _WORD_SUFFIX.get(bits, "") for bits in WORD_BITS}
+LAUNCHES: dict[str, int] = {"fused_neural": 0, **{r: 0 for r in GROUP_ROUTES.values()}}
 
 _THREADS = 512  # kThreads in csrc/fused_neural.cu
-_GROUP_MAX_DEPTH = 4  # kMaxDepth: FIFO slots a lifted edge keeps
+# kMaxDepth: the deepest FIFO with neural_group forms of its own; deeper ones
+# run on its run-time-depth form.
+_GROUP_STATIC_DEPTH = 4
+# A FIFO's offsets are 32-bit: (depth + 1) K*Z words stay below 2^30
+# (valid_group_plan).
+_GROUP_MAX_FIFO_WORDS = 1 << 30
 # Warps a group of the default plan has at most where its SM holds others:
 # at nms_main (NR BG2 Z=32, depth 2, two groups an SM) 14 parts run 2-5%
 # faster than 16 (PERF.md, chip_smoke.py's parts sweep).
@@ -174,24 +191,44 @@ def _plane_words(qc: QCLayout) -> int:
 SLICE_LAYOUTS = (0, 1, 2)
 
 
+def neural_group_word_bits(qc: QCLayout) -> int | None:
+    """The state word ``neural_group`` decodes the code on: the narrowest of
+    :data:`WORD_BITS` that holds the signs of its widest row (27, 58 or 121
+    members), or None."""
+    return next((bits for bits in WORD_BITS if qc.dr_max <= _max_degree(bits)), None)
+
+
+def _word(qc: QCLayout) -> int:
+    bits = neural_group_word_bits(qc)
+    if bits is None:
+        raise ValueError(f"neural_group has no state word for rows of {qc.dr_max} members")
+    return bits
+
+
 def neural_group_frame_bytes(qc: QCLayout, depth_L: int, slice: int = 0) -> int:
     """Shared memory of one ``neural_group`` frame, rounded up to 16 bytes:
     its LLRs and column sums (C*Z float32 each), its compressed check state
-    (A and W, 3 words per lifted check) and its FIFO (``depth_L`` floats per
-    lifted edge); in a slice form only its A, column sums and, in form 1,
+    (A and W: 3, 4 or 6 words per lifted check on the code's 32-, 64- or
+    128-bit state word) and its FIFO (``depth_L`` floats per lifted edge);
+    in a slice form only its A, column sums (padded to an even count on the
+    wider words, so that W after them is 8-byte aligned) and, in form 1,
     its W, the rest being in its slice (:func:`neural_group_scratch_bytes`)."""
     Z, R, C, K = qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges
-    words = {0: 2 * C * Z + 3 * R * Z + depth_L * K * Z, 1: 3 * R * Z + C * Z,
-             2: 2 * R * Z + C * Z}[slice]
+    bits = _word(qc)
+    state = _state_words(bits)
+    cs = C * Z + (C * Z) % 2 if bits > 32 else C * Z
+    words = {0: 2 * C * Z + state * R * Z + depth_L * K * Z,
+             1: 2 * R * Z + cs + (state - 2) * R * Z, 2: 2 * R * Z + cs}[slice]
     return 4 * -(-words // 4) * 4
 
 
 def neural_group_scratch_bytes(qc: QCLayout, depth_L: int, slice: int = 2) -> int:
     """One frame's slice of a slice form's global scratch, rounded up to 16
-    bytes: its state words (R*Z, form 2) and its FIFO (``depth_L`` planes of
-    K*Z float32)."""
+    bytes: its state words (R*Z words of the code's state word; form 2) and
+    its FIFO (``depth_L`` planes of K*Z float32)."""
     Z, R, K = qc.Z, qc.num_base_rows, qc.num_base_edges
-    return 4 * -(-((R * Z if slice == 2 else 0) + depth_L * K * Z) // 4) * 4
+    w_words = (_state_words(_word(qc)) - 2) * R * Z if slice == 2 else 0
+    return 4 * -(-(w_words + depth_L * K * Z) // 4) * 4
 
 
 def frames_per_group(qc: QCLayout) -> int:
@@ -214,10 +251,11 @@ def neural_group_smem_bytes(qc: QCLayout, depth_L: int, parts: int = 1, groups: 
 def neural_group_plans(qc: QCLayout, depth_L: int, staged: bool = False,
                        slice: int = 0) -> list[tuple[int, int]]:
     """The (parts, frame groups per block) a ``neural_group`` launch may
-    take in the layout asked for: at most 15 groups and 1024 threads a
-    block, parts no more than the base rows or columns, within shared
-    memory.  No plan is both staged and in a slice form."""
-    if staged and slice:
+    take in the layout asked for, on the code's state word: at most 15
+    groups and 1024 threads a block, parts no more than the base rows or
+    columns, within shared memory.  No plan is both staged and in a slice
+    form; none where no word holds the code's rows."""
+    if (staged and slice) or neural_group_word_bits(qc) is None:
         return []
     most = min(qc.num_base_rows, qc.num_base_cols)
     return [(p, f) for p in range(1, most + 1) for f in range(1, _RETIRE_MAX_GROUPS + 1)
@@ -226,11 +264,24 @@ def neural_group_plans(qc: QCLayout, depth_L: int, staged: bool = False,
 
 
 def neural_group_fits(qc: QCLayout, depth_L: int) -> bool:
-    """Whether ``neural_group`` takes the code: rows of at most 27 members
-    (the signs a state word holds), depth 0 to 4, and a plan in some layout
-    (:data:`SLICE_LAYOUTS`)."""
-    return (qc.dr_max <= _RETIRE_MAX_DEGREE and 0 <= depth_L <= _GROUP_MAX_DEPTH
+    """Whether ``neural_group`` takes the code: rows of at most 121 members
+    (the signs its widest state word holds), a depth >= 0 whose FIFO offsets
+    stay 32-bit ((depth + 1) K*Z < 2^30 words), and a plan in some layout
+    (:data:`SLICE_LAYOUTS`; the slice forms keep the FIFO out of shared
+    memory, so every such depth has one wherever a frame's check state
+    fits)."""
+    return (neural_group_word_bits(qc) is not None and depth_L >= 0
+            and (depth_L + 1) * qc.num_base_edges * qc.Z < _GROUP_MAX_FIFO_WORDS
             and neural_group_layout(qc, depth_L) is not None)
+
+
+def neural_group_route(qc: QCLayout, depth_L: int) -> str:
+    """The route of the code and depth: ``neural_group``, ``neural_group_wide``
+    or ``neural_group_w128`` (:data:`GROUP_ROUTES`) where
+    :func:`neural_group_fits`, else ``fused_neural``."""
+    if not neural_group_fits(qc, depth_L):
+        return "fused_neural"
+    return GROUP_ROUTES[neural_group_word_bits(qc)]
 
 
 def neural_group_layout(qc: QCLayout, depth_L: int) -> int | None:
@@ -256,7 +307,8 @@ def neural_group_plan(qc: QCLayout, depth_L: int, staged: bool, parts: int | Non
     alone, the most warps ran fastest (32 at Z=32 depth 4, 8 parts of 4
     warps at Z=128, 2 of 12 at Z=384), and at Z=128 two groups an SM, 53 MB
     of slices, ran 27-31% slower than one."""
-    lib = lib or kernel_library()
+    word_bits = neural_group_word_bits(qc)
+    lib = lib or kernel_library(word_bits)
     if sms is None or l2_bytes is None:
         props = torch.cuda.get_device_properties(torch.cuda.current_device())
         sms, l2_bytes = props.multi_processor_count, props.L2_cache_size
@@ -268,7 +320,7 @@ def neural_group_plan(qc: QCLayout, depth_L: int, staged: bool, parts: int | Non
     for p, f in neural_group_plans(qc, depth_L, staged, slice):
         if parts is not None and p != parts:
             continue
-        per_sm = lib.ldpc_neural_group_occupancy(*dims, p, f, int(staged), int(slice))
+        per_sm = lib.ldpc_neural_group_occupancy(*dims, p, f, int(staged), int(slice), word_bits)
         groups = per_sm * f
         if parts is None and p * zw > _GROUP_PLAN_WARPS and groups > 1:
             continue
@@ -382,16 +434,22 @@ def neural_decode_plain(llr: torch.Tensor, ix: _PlainIndex, edge_var: torch.Tens
 # ---------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
+# The C entries of neural_group.cuh, in each word's library.
+_GROUP_SIGNATURES = {
     # llr, bits, structure, w, params, scratch, B, Z, R, C, K, T, L,
-    # per_iteration, parts, groups, staged, slice, grid, stream
-    "ldpc_neural_group": ([_P] * 6 + [_I] * 13 + [_P], _I),
-    # Z, R, C, K, L, parts, groups, staged, slice
-    "ldpc_neural_group_smem_bytes": ([_I] * 9, ctypes.c_longlong),
-    # Z, R, K, L, slice -> words of one frame's slice
-    "ldpc_neural_group_slice_words": ([_I] * 5, ctypes.c_longlong),
-    # Z, R, C, K, L, parts, groups, staged, slice -> blocks per SM
-    "ldpc_neural_group_occupancy": ([_I] * 9, _I),
+    # per_iteration, parts, groups, staged, slice, grid, word_bits, stream
+    "ldpc_neural_group": ([_P] * 6 + [_I] * 14 + [_P], _I),
+    # Z, R, C, K, L, parts, groups, staged, slice, word_bits
+    "ldpc_neural_group_smem_bytes": ([_I] * 10, ctypes.c_longlong),
+    # Z, R, K, L, slice, word_bits -> words of one frame's slice
+    "ldpc_neural_group_slice_words": ([_I] * 6, ctypes.c_longlong),
+    # Z, R, C, K, L, parts, groups, staged, slice, word_bits -> blocks per SM
+    "ldpc_neural_group_occupancy": ([_I] * 10, _I),
+    "ldpc_neural_cuda_error_string": ([_I], ctypes.c_char_p),
+}
+# The 32-bit word's library also holds fused_neural's entries.
+_SIGNATURES = {
+    **_GROUP_SIGNATURES,
     # llr, bits, graph, w, params, scratch, B, Z, R, C, K, T, L, per_iteration,
     # fpb, shared, grid, stream
     "ldpc_neural_minsum": ([_P] * 6 + [_I] * 11 + [_P], _I),
@@ -399,15 +457,17 @@ _SIGNATURES = {
     "ldpc_neural_scratch_floats": ([_I] * 3, ctypes.c_longlong),
     # Z, R, C, K, T, L, fpb, shared -> blocks per SM
     "ldpc_neural_occupancy": ([_I] * 8, _I),
-    "ldpc_neural_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
 
-def kernel_library():
-    """The compiled ``csrc/fused_neural.cu``, built on first use."""
+def kernel_library(word_bits: int = 32):
+    """The compiled source of ``neural_group`` on the state word of
+    ``word_bits`` (:data:`GROUP_STEMS`: ``csrc/fused_neural.cu``, which also
+    holds ``fused_neural``, for 32), built on first use."""
     from ldpc_tpu_torch.ops import _build
 
-    return _build.load("fused_neural", _SIGNATURES)
+    return _build.load(GROUP_STEMS[word_bits], _SIGNATURES if word_bits == 32
+                       else _GROUP_SIGNATURES)
 
 
 class FusedNeuralDecoder:
@@ -415,10 +475,12 @@ class FusedNeuralDecoder:
 
     Launches the ``route`` kernel for CUDA tensors and runs the plain
     version for CPU tensors; ``plain(llr)`` runs the plain version on any
-    device.  ``route`` is ``neural_group`` where :func:`neural_group_fits`
-    takes the code and depth, else ``fused_neural``; ``layout`` is
-    ``neural_group``'s (:func:`neural_group_layout`), None on the other
-    route.
+    device.  ``route`` is :func:`neural_group_route`'s: ``neural_group``,
+    ``neural_group_wide`` or ``neural_group_w128`` by the code's state word
+    (``word_bits``) where :func:`neural_group_fits` takes the code and
+    depth, else ``fused_neural``; ``layout`` is ``neural_group``'s
+    (:func:`neural_group_layout`), None on ``fused_neural``; ``run_time_depth``
+    whether ``neural_group`` runs its form of run-time depth (depth over 4).
     """
 
     def __init__(self, qc: QCLayout, params, num_iterations: int, depth_L: int,
@@ -429,9 +491,11 @@ class FusedNeuralDecoder:
         self.num_iterations = int(num_iterations)
         self.depth_L = int(depth_L)
         self.per_iteration = bool(per_iteration)
-        self.route = "neural_group" if neural_group_fits(qc, self.depth_L) else "fused_neural"
-        self.layout = (neural_group_layout(qc, self.depth_L) if self.route == "neural_group"
+        self.route = neural_group_route(qc, self.depth_L)
+        self.word_bits = neural_group_word_bits(qc)
+        self.layout = (neural_group_layout(qc, self.depth_L) if self.route != "fused_neural"
                        else None)
+        self.run_time_depth = self.depth_L > _GROUP_STATIC_DEPTH
         self.shared, self.frames_per_block = neural_plan(qc, self.num_iterations, self.depth_L)
         self.tables = _Tables(qc, params, self.num_iterations, self.depth_L, self.per_iteration,
                               device)
@@ -451,9 +515,9 @@ class FusedNeuralDecoder:
             return self.plain(llr)
         if not llr.is_contiguous():
             raise ValueError("llr must be contiguous")
-        if self.route == "neural_group":
-            return self._launch_group(llr)
-        return self._launch_minsum(llr)
+        if self.route == "fused_neural":
+            return self._launch_minsum(llr)
+        return self._launch_group(llr)
 
     def plain(self, llr: torch.Tensor) -> torch.Tensor:
         _check_llr(llr, self.device, self.n)
@@ -469,14 +533,15 @@ class FusedNeuralDecoder:
     def _launch_group(self, llr: torch.Tensor, parts: int | None = None,
                       staged: bool | None = None, slice: int | None = None,
                       groups: int | None = None) -> torch.Tensor:
-        """``neural_group`` on ``llr`` (contiguous, on a card), on the plan
-        of :meth:`_plan` with the same arguments."""
+        """``neural_group`` on ``llr`` (contiguous, on a card) on the
+        code's state word, on the plan of :meth:`_plan` with the same
+        arguments; counted under the word's route (:data:`GROUP_ROUTES`)."""
         st, tb = self.st, self.tables
         B = llr.shape[0]
         bits = torch.empty_like(llr)
         if B == 0:
             return bits
-        lib = kernel_library()
+        lib = kernel_library(self.word_bits)
         with torch.cuda.device(llr.device):
             p, f, stage, sliced, resident, structure = self._plan(llr.device, parts, staged,
                                                                   slice, groups)
@@ -492,11 +557,12 @@ class FusedNeuralDecoder:
                 llr.data_ptr(), bits.data_ptr(), structure.data_ptr(), tb.wc.data_ptr(),
                 tb.params.data_ptr(), None if scratch is None else scratch.data_ptr(), B, st.Z,
                 st.R, st.C, st.K, self.num_iterations, self.depth_L, int(self.per_iteration), p, f,
-                int(stage), int(sliced), grid, stream)
+                int(stage), int(sliced), grid, self.word_bits, stream)
+        route = GROUP_ROUTES[self.word_bits]
         if rc != 0:
             msg = lib.ldpc_neural_cuda_error_string(rc).decode()
-            raise RuntimeError(f"neural_group kernel launch failed: CUDA error {rc} ({msg})")
-        LAUNCHES["neural_group"] += 1
+            raise RuntimeError(f"{route} kernel launch failed: CUDA error {rc} ({msg})")
+        LAUNCHES[route] += 1
         return bits
 
     def _plan(self, device: torch.device, parts: int | None = None, staged: bool | None = None,
@@ -512,11 +578,11 @@ class FusedNeuralDecoder:
         key = (device, parts, staged, slice, groups)
         plan = self._group_plans.get(key)
         if plan is None:
-            lib = kernel_library()
             sliced = self.layout if slice is None else slice
             if sliced is None:
                 raise ValueError("neural_group does not take this code "
                                  f"(rows of {self.qc.dr_max} members, depth {self.depth_L})")
+            lib = kernel_library(self.word_bits)
             with torch.cuda.device(device):
                 stage = (not sliced) if staged is None else staged
                 p, f, per_sm = self._group_plan(stage, parts, sliced, groups, lib)
@@ -524,7 +590,8 @@ class FusedNeuralDecoder:
                     stage = False
                     p, f, per_sm = self._group_plan(False, parts, sliced, groups, lib)
                 resident = _resident_grid(per_sm, "neural_group", device)
-            structure = torch.as_tensor(_retire_structure(self.st, p), device=device)
+            structure = torch.as_tensor(_retire_structure(self.st, p, word_bits=self.word_bits),
+                                        device=device)
             plan = self._group_plans[key] = (p, f, stage, sliced, resident, structure)
         return plan
 
@@ -542,7 +609,7 @@ class FusedNeuralDecoder:
             raise ValueError(f"neural_group has no plan of {groups} groups a block"
                              f"{'' if parts is None else f' and {parts} parts'}")
         return p, groups, lib.ldpc_neural_group_occupancy(*dims, p, groups, int(staged),
-                                                          int(slice))
+                                                          int(slice), self.word_bits)
 
     def _launch_minsum(self, llr: torch.Tensor) -> torch.Tensor:
         """``fused_neural`` on ``llr`` (contiguous, on a card) whatever the

@@ -8,9 +8,11 @@ same registers and spills (``-Xptxas -v``) and the same SASS instructions
 (``cuobjdump -sass``, addresses and encodings dropped).  Kernels are matched
 by name with the anonymous namespace's hash removed (it follows the file's
 path); this tree's retiring kernels instantiated on the 32-bit state word
-(template argument ``unsigned``, mangled ``j``) are matched to kernels with
-no such argument, and those on the 64-bit word (``y``) and on the 128-bit
-word (the struct ``Word128``) that the other tree lacks are listed apart.
+(template argument ``unsigned``, mangled ``j``) and its trained min-sum
+kernels (``neural_group_kernel``, ``neural_group_slice_kernel``) on that
+word are matched to kernels with no such argument, and those on the 64-bit
+word (``y``) and on the 128-bit word (the struct ``Word128``) that the other
+tree lacks are listed apart.
 
 Run:  python -m ldpc_tpu_torch.tools.probe_sass_diff --other <checkout>
       [--stems fused_retire fused_neural]
@@ -30,10 +32,11 @@ from pathlib import Path
 from ldpc_tpu_torch.ops import _build
 
 _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
-# The retiring kernels' <TRACK, POW2, Word> on the 32-bit word, matched to a
-# <TRACK, POW2> of the other tree.
-_NARROW_WORD = re.compile(r"(ILb[01]ELb[01]E)jE")
-_WIDE_WORD = re.compile(r"ILb[01]ELb[01]E(yE|\w*Word128E)")
+# A kernel whose last template argument is the state word (the retiring
+# kernels' <TRACK, POW2, Word>, neural_group's <POW2, L, STAGED, Word>), on
+# the 32-bit word, matched to the other tree's kernel without it.
+_NARROW_WORD = re.compile(r"(I(?:L[a-z]+n?\d+E)+)jE")
+_WIDE_WORD = re.compile(r"I(?:L[a-z]+n?\d+E)+(yE|\w*Word128E)")
 
 
 def _key(name: str) -> str:

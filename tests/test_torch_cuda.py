@@ -906,36 +906,41 @@ def _nms_model(plan, T, L, sharing, learn_a, learn_o, per_it):
     return _add_noise(model, 0.1, torch.Generator().manual_seed(T + L))
 
 
-def _row31_code():
-    """A (4, 32) base graph at Z=4 whose first row has 31 members, more than
-    neural_group's state word holds signs of."""
+def _row_code(members: int, Z: int = 4):
+    """A base graph at Z whose first row has ``members`` members, (4, 32) up
+    to 31 members and (4, members + 2) above (tests/test_torch_neural_group.py's
+    row_shifts): 31 and 58 take neural_group's 64-bit state word, 64 and 121
+    its 128-bit one, 122 none."""
     import numpy as np
 
-    rng = np.random.default_rng(31)
-    shifts = np.where(rng.random((4, 32)) < 0.3, rng.integers(0, 4, (4, 32)), -1)
-    shifts[0] = np.where(np.arange(32) < 31, rng.integers(0, 4, 32), -1)
-    shifts[1, 31:] = 0
-    return tcodes.qc_layout(tcodes.BaseGraph("row31", shifts), 4)
+    cols = 32 if members < 32 else members + 2
+    rng = np.random.default_rng(members)
+    shifts = np.where(rng.random((4, cols)) < 0.3, rng.integers(0, Z, (4, cols)), -1)
+    shifts[0] = np.where(np.arange(cols) < members, rng.integers(0, Z, cols), -1)
+    shifts[1, members:] = 0
+    return tcodes.qc_layout(tcodes.BaseGraph(f"row{members}", shifts), Z)
 
 
 @pytest.mark.parametrize("name,Z,batch", [("toy_4x8", 4, 19), ("nr_2_0_4", 4, 21),
                                           ("nr_2_0_32", 32, 5), ("nr_2_0_32", 128, 3),
-                                          ("row31", 4, 19)])
+                                          ("row31", 4, 19), ("row122", 4, 19)])
 @pytest.mark.parametrize("sharing,L,learn_a,learn_o,per_it", [
     ("scalar", 0, False, False, False), ("cell", 2, True, False, False),
     ("type", 1, True, False, True), ("edge", 2, True, True, True), ("edge", 3, True, True, False)])
 def test_fused_neural_kernel_matches_plain(name, Z, batch, sharing, L, learn_a, learn_o, per_it):
     """B3's fused_neural: bits identical to the plain version; Z=128 keeps
-    the state in global scratch.  Codes neural_group takes reach it through
-    the side door (_launch_minsum); the row of 31 members through its
-    route."""
+    the state in global scratch.  Codes neural_group takes (the row of 31
+    members on its 64-bit word) reach it through the side door
+    (_launch_minsum); the row of 122 members through its route."""
     from ldpc_tpu_torch.ops import fused_neural as fn
 
-    qc = _row31_code() if name == "row31" else tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+    qc = (_row_code(int(name[3:])) if name.startswith("row")
+          else tcodes.qc_layout(tcodes.get_base_graph(name), Z))
     model = _nms_model(qc_msg.make_plan(qc), 4, L, sharing, learn_a, learn_o, per_it)
     dec = fn.make_fused_neural_minsum(qc, model, 4, L, per_iteration=per_it)
     assert dec.shared == (Z != 128)
-    assert dec.route == ("fused_neural" if name == "row31" else "neural_group")
+    assert dec.route == {"row122": "fused_neural", "row31": "neural_group_wide"}.get(
+        name, "neural_group")
     llr = _llr(qc.num_vars, batch, 1.0, seed=Z + L)
     before = fn.LAUNCHES["fused_neural"]
     bits_k = dec(llr) if dec.route == "fused_neural" else dec._launch_minsum(llr)
@@ -1086,7 +1091,112 @@ def test_neural_group_side_door_is_fused_neural(name, Z, batch, sharing, L, lear
     new, old = dec(llr), dec._launch_minsum(llr)
     torch.cuda.synchronize()
     assert torch.equal(new, old)
-    assert fn.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert fn.LAUNCHES == {k: v + (k in ("neural_group", "fused_neural"))
+                           for k, v in before.items()}
+
+
+def _wide_decoder(members, L, T, sharing="edge", per_it=True):
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    qc = _row_code(members)
+    model = _nms_model(qc_msg.make_plan(qc), T, L, sharing, True, True, per_it)
+    return qc, fn.make_fused_neural_minsum(qc, model, T, L, per_iteration=per_it)
+
+
+@pytest.mark.parametrize("members,L,sharing,per_it", [
+    (28, 2, "edge", True), (31, 0, "scalar", False), (31, 3, "cell", True), (58, 2, "edge", False),
+    (59, 1, "type", True), (64, 2, "edge", True), (64, 4, "edge", True), (121, 2, "edge", True),
+    (121, 6, "edge", True), (58, 5, "cell", True)])
+def test_neural_group_wide_words_match_plain(members, L, sharing, per_it):
+    """neural_group_wide (rows of 28-58 members, 64-bit state word) and
+    neural_group_w128 (59-121, 128-bit) at Z=4 and depths 0-6: the route,
+    then every layout with a plan at every parts count, staged and from L2
+    where the staged weights fit, bits identical to the plain version and
+    to fused_neural through the side door; each launch moves only its
+    route's counter."""
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    qc, dec = _wide_decoder(members, L, L + 2 if L > 2 else 4, sharing, per_it)
+    route = "neural_group_wide" if members <= 58 else "neural_group_w128"
+    assert dec.route == route and dec.word_bits == (64 if members <= 58 else 128)
+    llr = _llr(qc.num_vars, 37, 1.0, seed=members + L)
+    bits_p = dec.plain(llr)
+    before = dict(fn.LAUNCHES)
+    assert torch.equal(dec(llr), bits_p)
+    assert torch.equal(dec._launch_minsum(llr), bits_p)
+    torch.cuda.synchronize()
+    assert fn.LAUNCHES == {k: v + (k in (route, "fused_neural")) for k, v in before.items()}
+    for layout in fn.SLICE_LAYOUTS:
+        for staged in ((False, True) if layout == 0 else (False,)):
+            for p in sorted({p for p, _ in fn.neural_group_plans(qc, L, staged, layout)}):
+                got = dec._launch_group(llr, parts=p, staged=staged, slice=layout)
+                assert torch.equal(got, bits_p), (layout, staged, p)
+
+
+@pytest.mark.parametrize("kind", ["ties", "zeros"])
+@pytest.mark.parametrize("members,L", [(31, 2), (121, 6)])
+def test_neural_group_wide_words_ties_and_zeros(members, L, kind):
+    """Quantised LLRs (tied magnitudes) and LLRs of +0.0 and -0.0 on the
+    wider words, bits identical in each slice form too."""
+    qc, dec = _wide_decoder(members, L, L + 2)
+    llr = _llr(qc.num_vars, 11, 1.0, seed=3)
+    if kind == "ties":
+        llr = torch.floor(llr / 2.0) * 2.0 + 1.0
+    else:
+        mask = torch.rand(llr.shape, generator=torch.Generator().manual_seed(1)).to(llr.device)
+        llr = torch.where(mask < 0.2, 0.0, torch.where(mask > 0.9, -0.0, llr))
+    bits_p = dec.plain(llr)
+    assert torch.equal(dec(llr), bits_p)
+    for layout in (1, 2):
+        assert torch.equal(dec._launch_group(llr, slice=layout), bits_p), layout
+
+
+@pytest.mark.parametrize("name,Z,batch,L", [("nr_2_0_32", 32, 9, 5), ("nr_2_0_32", 32, 9, 8),
+                                            ("nr_2_0_4", 4, 37, 6), ("nr_2_0_32", 128, 5, 8),
+                                            ("nr_2_0_32", 12, 9, 7)])
+def test_neural_group_run_time_depth_matches_plain(name, Z, batch, L):
+    """Depths over 4 on neural_group's run-time-depth form: its route (a
+    whole frame a block at Z=32 depth 5, the FIFO in the slices from depth
+    8 and at Z=128), then every layout with a plan at every parts count,
+    bits identical to the plain version; T = depth + 2, so every tap
+    reaches the decisions."""
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    qc, dec = _neural_group_decoder(name, Z, "edge", L, True, True, True, T=L + 2)
+    assert dec.run_time_depth
+    llr = _llr(qc.num_vars, batch, 1.0, seed=Z + L)
+    bits_p = dec.plain(llr)
+    assert torch.equal(dec(llr), bits_p)
+    for layout in fn.SLICE_LAYOUTS:
+        for p in sorted({p for p, _ in fn.neural_group_plans(qc, L, slice=layout)}):
+            assert torch.equal(dec._launch_group(llr, parts=p, slice=layout, staged=False),
+                               bits_p), (layout, p)
+
+
+@pytest.mark.parametrize("members,L", [(20, 2), (31, 2), (58, 6), (64, 2), (121, 5)])
+def test_neural_group_bytes_match_the_library(members, L):
+    """The library of the code's state word (32 bits at 20 members, 64 at
+    31 and 58, 128 at 64 and 121): its shared memory of every plan and its
+    slice words equal the wrapper's; another word's library refuses the
+    code's queries."""
+    from ldpc_tpu_torch.ops import fused_neural as fn
+
+    qc = _row_code(members)
+    bits = fn.neural_group_word_bits(qc)
+    lib = fn.kernel_library(bits)
+    dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
+    other = fn.kernel_library(64 if bits != 64 else 32)
+    assert other.ldpc_neural_group_smem_bytes(*dims, L, 1, 1, 0, 0, bits) == -1
+    for layout in fn.SLICE_LAYOUTS:
+        if layout:
+            assert 4 * lib.ldpc_neural_group_slice_words(qc.Z, dims[1], dims[3], L, layout,
+                                                         bits) == \
+                fn.neural_group_scratch_bytes(qc, L, layout)
+        for staged in (False, True):
+            for p, f in fn.neural_group_plans(qc, L, staged, layout):
+                assert lib.ldpc_neural_group_smem_bytes(*dims, L, p, f, int(staged), layout,
+                                                        bits) == \
+                    fn.neural_group_smem_bytes(qc, L, p, f, staged, layout)
 
 
 def _msg_model(plan, T, h, inject, share):

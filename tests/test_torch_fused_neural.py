@@ -1,20 +1,36 @@
 """B3, the ``fused_neural`` and ``neural_group`` kernels (replace
 ldpc_tpu/ops/pallas_neural.py:111 ``kernel``): ``_pack_weights`` equal to
 the JAX function's; the kernels' plain PyTorch version against
-``make_fused_neural_minsum(..., interpret=True)`` at toy_4x8 (depth 0, 1
-and 4) and against ``model.apply`` at nr_2_0_4 Z=4 (depth 1, 2 and 4),
-toy_4x8 Z=32 and nr_2_0_32 Z=128 (the slice form's shape), bits identical
-(the JAX package's own bar, tests/test_pallas_neural.py)."""
+``make_fused_neural_minsum(..., interpret=True)`` at toy_4x8 (depth 0, 1,
+4 and 6) and on rows of 31 and 64 members at Z=4 (the routes of the 64-bit
+and 128-bit state words), and against ``model.apply`` at nr_2_0_4 Z=4
+(depth 1, 2 and 4), toy_4x8 Z=32 and nr_2_0_32 Z=128 (the slice form's
+shape), bits identical (the JAX package's own bar,
+tests/test_pallas_neural.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import ldpc_tpu.codes as jcodes
 from ldpc_tpu.ops import pallas_neural as jpn
+from ldpc_tpu.ops import qc_msg as jqc
+import ldpc_tpu_torch.codes as tcodes
 from ldpc_tpu_torch.ops import fused_neural as tfn
+from ldpc_tpu_torch.ops import qc_msg as tqc
+from test_torch_neural_group import row_shifts
 from test_torch_neural_min_sum import FLAG_CASES, nms_pair, plans
 from test_torch_parity import bpsk_llrs
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread: the suite's workers run side by side."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def flags(sharing, depth, learn_a, learn_o, per_it, T=3):
@@ -39,14 +55,16 @@ def test_pack_weights_matches_jax(sharing, depth, learn_a, learn_o, per_it):
 
 
 @pytest.mark.parametrize("sharing,depth,learn_a,learn_o,per_it",
-                         [FLAG_CASES[0], FLAG_CASES[3], ("edge", 4, True, True, True)])
+                         [FLAG_CASES[0], FLAG_CASES[3], ("edge", 4, True, True, True),
+                          ("edge", 6, True, True, True)])
 def test_plain_matches_jax_kernel(sharing, depth, learn_a, learn_o, per_it):
     """The JAX kernel in Pallas interpret mode, on a batch that is not a
-    multiple of its batch tile; depth 4 over 6 iterations, so that every
-    tap of its FIFO reaches the decisions."""
+    multiple of its batch tile; depths 4 and 6 (neural_group's run-time-depth
+    form) over depth + 2 iterations, so that every tap of the FIFO reaches
+    the decisions."""
     qj, pj, qt, pt = plans("toy_4x8", 4)
     llr = bpsk_llrs(qt.num_vars, 11, 1.0, seed=1)
-    T = 6 if depth == 4 else 3
+    T = depth + 2 if depth >= 4 else 3
     kw = flags(sharing, depth, learn_a, learn_o, per_it, T=T)
     _, params, mt = nms_pair(pj, pt, llr, seed=2, **kw)
     want = jpn.make_fused_neural_minsum(qj, params, T, depth, batch_tile=8, interpret=True,
@@ -58,6 +76,31 @@ def test_plain_matches_jax_kernel(sharing, depth, learn_a, learn_o, per_it):
     assert got.shape == llr.shape and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert 0 < got.numpy().mean() < 0.5  # some decisions are wrong, not all
+
+
+@pytest.mark.parametrize("members,depth,T,route", [(31, 2, 4, "neural_group_wide"),
+                                                 (64, 3, 5, "neural_group_w128")])
+def test_plain_matches_jax_kernel_on_wide_rows(members, depth, T, route):
+    """Rows of 31 and 64 members at Z=4 (more signs than the 32-bit and the
+    64-bit state words hold): the plain version behind neural_group_wide and
+    neural_group_w128 against the JAX kernel in interpret mode, edge weights
+    and every parameter per iteration, bits identical."""
+    shifts = row_shifts(members)
+    qj = jcodes.qc_layout(jcodes.BaseGraph(f"row{members}", shifts), 4)
+    qt = tcodes.qc_layout(tcodes.BaseGraph(f"row{members}", shifts), 4)
+    pj, pt = jqc.make_plan(qj), tqc.make_plan(qt, "cpu")
+    llr = bpsk_llrs(qt.num_vars, 11, 1.0, seed=members)
+    kw = flags("edge", depth, True, True, True, T=T)
+    _, params, mt = nms_pair(pj, pt, llr, seed=members, **kw)
+    want = jpn.make_fused_neural_minsum(qj, params, T, depth, batch_tile=8, interpret=True,
+                                        per_iteration=True)(jnp.asarray(llr))
+    launches = dict(tfn.LAUNCHES)
+    dec = tfn.make_fused_neural_minsum(qt, mt, T, depth, per_iteration=True, device="cpu")
+    assert qt.dr_max == members and dec.route == route
+    got = dec(torch.from_numpy(llr))
+    assert tfn.LAUNCHES == launches
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert 0 < got.numpy().mean() < 0.5
 
 
 @pytest.mark.parametrize("name,Z,case", [("nr_2_0_4", 4, FLAG_CASES[1]),

@@ -34,8 +34,12 @@ from ldpc_tpu_torch.models import NeuralMinSumDecoder
 from ldpc_tpu_torch.ops import fused_minsum as fm, fused_neural as fn, qc_msg
 from ldpc_tpu_torch.ops.qc_msg import _BIG
 
-SIGN_BITS = 27
-NO_MEMBER = 31
+# Per state word (csrc/retire.cuh): the signs it holds (kSignBits), its
+# argmin when no member is below the sentinel (kNoMember), and its 64-bit
+# limbs (one for the 32-bit word, whose value stays below 2^32).
+SIGN_BITS = {32: 27, 64: 58, 128: 121}
+NO_MEMBER = {32: 31, 64: 63, 128: 127}
+LIMBS = {32: 1, 64: 1, 128: 2}
 
 
 @pytest.fixture(autouse=True)
@@ -49,6 +53,21 @@ def _one_thread():
 
 def _qc(name: str, Z: int):
     return tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+
+
+def row_shifts(members: int, Z: int = 4) -> np.ndarray:
+    """A base matrix whose first row has ``members`` members, (4, 32) up to
+    31 members and (4, members + 2) above; every column has one."""
+    cols = 32 if members < 32 else members + 2
+    rng = np.random.default_rng(members)
+    shifts = np.where(rng.random((4, cols)) < 0.3, rng.integers(0, Z, (4, cols)), -1)
+    shifts[0] = np.where(np.arange(cols) < members, rng.integers(0, Z, cols), -1)
+    shifts[1, members:] = 0
+    return shifts
+
+
+def _row_code(members: int, Z: int = 4):
+    return tcodes.qc_layout(tcodes.BaseGraph(f"row{members}", row_shifts(members, Z)), Z)
 
 
 def _decoder(qc, T: int, L: int, sharing: str, per_it: bool, seed: int,
@@ -70,12 +89,13 @@ def _decoder(qc, T: int, L: int, sharing: str, per_it: bool, seed: int,
     return fn.make_fused_neural_minsum(qc, model, T, L, per_iteration=per_it, device="cpu")
 
 
-def _unpack(st, parts: int):
+def _unpack(st, parts: int, word_bits: int = 32):
     """The wrapper's structure of ``parts`` parts: column members (r*Z,
-    shift, j << 27, 31 - j), row members (col*Z, shift), row_ptr, col_ptr,
-    first row and first column of each part."""
+    shift, j << 27, 31 - j; on the wider words j, bits - 1 - j), row
+    members (col*Z, shift), row_ptr, col_ptr, first row and first column of
+    each part."""
     K, R, C = st.K, st.R, st.C
-    g = fm._retire_structure(st, parts).view(np.uint32).astype(np.int64)
+    g = fm._retire_structure(st, parts, word_bits=word_bits).view(np.uint32).astype(np.int64)
     col_mem = g[:4 * K].reshape(K, 4)
     row_mem = g[4 * K:6 * K].reshape(K, 2)
     o = 6 * K
@@ -89,10 +109,99 @@ def _flip(v: torch.Tensor, bit: torch.Tensor) -> torch.Tensor:
     return torch.where(bit.bool(), -v, v)
 
 
-def _c2v_of(a: torch.Tensor, w: torch.Tensor, j: int) -> torch.Tensor:
-    """Member j's c2v from its check's state (a (..., 2), w int64 words)."""
-    v = torch.where((w >> SIGN_BITS) == j, a[..., 1], a[..., 0])
-    return _flip(v, (w >> j) & 1)
+# ---------------------------------------------------------------------------
+# The state word, as csrc/retire.cuh reads and writes it: int64 tensors of
+# shape (..., LIMBS[bits]), limb 0 bits 0..63 (lo), limb 1 bits 64..127 (hi);
+# the 32-bit word is one limb below 2^32.  Shifts of a limb wrap at 64 bits.
+# ---------------------------------------------------------------------------
+
+
+def _zeros(shape, bits: int) -> torch.Tensor:
+    return torch.zeros(tuple(shape) + (LIMBS[bits],), dtype=torch.int64)
+
+
+def _popcount(x: torch.Tensor) -> torch.Tensor:
+    """Bits set in each 64-bit limb (the masks drop what >> shifts in)."""
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F0F0F0F0F
+    return (x * 0x0101010101010101) >> 56
+
+
+def _push_sign(neg: torch.Tensor, x: torch.Tensor, bits: int) -> torch.Tensor:
+    """push_sign: the word shifted up one (bit 63 of lo carried into hi),
+    the sign bit of x at bit 0."""
+    out = neg << 1
+    out[..., 0] |= torch.signbit(x).long()
+    if bits == 32:
+        out &= 0xFFFFFFFF
+    if LIMBS[bits] == 2:
+        out[..., 1] |= (neg[..., 0] >> 63) & 1
+    return out
+
+
+def _product_flips(neg: torch.Tensor, d: int, bits: int) -> torch.Tensor:
+    """product_flips: the d low bits, across the limbs, where the count of
+    set bits is odd."""
+    mask = torch.tensor([(1 << d) - 1 if d < 64 else -1, (1 << max(d - 64, 0)) - 1][:LIMBS[bits]])
+    return torch.where((_popcount(neg).sum(-1) % 2 == 1)[..., None], mask, 0)
+
+
+def _state_word(signs: torch.Tensor, arg: torch.Tensor, bits: int) -> torch.Tensor:
+    """state_word: the argmin above the signs, in the top limb."""
+    out = signs.clone()
+    out[..., -1] |= arg << (SIGN_BITS[bits] - 64 * (LIMBS[bits] - 1))
+    return out
+
+
+def _argmin_of(w: torch.Tensor, bits: int) -> torch.Tensor:
+    shift = SIGN_BITS[bits] - 64 * (LIMBS[bits] - 1)
+    return (w[..., -1] >> shift) & (2 ** (bits - SIGN_BITS[bits]) - 1)
+
+
+def _bit(w: torch.Tensor, j: int) -> torch.Tensor:
+    """bit_at_31's bit: bit j of the word, from the limb that holds it."""
+    return (w[..., j // 64] >> (j % 64)) & 1
+
+
+def _c2v_of(a: torch.Tensor, w: torch.Tensor, j: int, bits: int) -> torch.Tensor:
+    """Member j's c2v from its check's state (a (..., 2), w (..., limbs))."""
+    v = torch.where(_argmin_of(w, bits) == j, a[..., 1], a[..., 0])
+    return _flip(v, _bit(w, j))
+
+
+def _member_c2v(a: torch.Tensor, w: torch.Tensor, jz: int, jw: int, bits: int) -> torch.Tensor:
+    """The column pass's read of a check state through the structure's
+    fields: is_argmin, then member_sign's bit 31.  32-bit word: (w ^ jz) &
+    0xf8000000 with jz = j << 27, then w << jw (jw = 31 - j); 64-bit: the
+    argmin against jz = j, then bit 31 of (w << jw) >> 32 (jw = 63 - j);
+    128-bit: the same with jw = 127 - j, shifting lo by 63 - j where jw >=
+    64, else hi."""
+    if bits == 32:
+        v = torch.where(((w[..., 0] ^ jz) & 0xF8000000) == 0, a[..., 1], a[..., 0])
+        return _flip(v, (w[..., 0] >> (31 - jw)) & 1)
+    v = torch.where(_argmin_of(w, bits) == jz, a[..., 1], a[..., 0])
+    limb = w[..., 0] if jw >= 64 else w[..., -1]
+    return _flip(v, ((limb << (jw & 63)) >> 63) & 1)
+
+
+def _to_words(W: torch.Tensor, bits: int) -> torch.Tensor:
+    """(B, R*Z, limbs) words -> (B, R*Z * bits/32) int32, as the kernel
+    lays them out in memory (little-endian, lo limb first)."""
+    if bits == 32:
+        halves = W & 0xFFFFFFFF
+    else:
+        halves = torch.stack([W & 0xFFFFFFFF, (W >> 32) & 0xFFFFFFFF], dim=-1)
+    return (halves - ((halves >> 31) << 32)).to(torch.int32).reshape(W.shape[0], -1)
+
+
+def _from_words(words: torch.Tensor, bits: int) -> torch.Tensor:
+    """_to_words' inverse on whatever the words hold."""
+    u = words.long() & 0xFFFFFFFF
+    if bits == 32:
+        return u.reshape(u.shape[0], -1, 1)
+    u = u.reshape(u.shape[0], -1, LIMBS[bits], 2)
+    return u[..., 0] | (u[..., 1] << 32)
 
 
 def kernel_model(dec, llr: torch.Tensor, parts: int, record: list | None = None,
@@ -105,14 +214,20 @@ def kernel_model(dec, llr: torch.Tensor, parts: int, record: list | None = None,
     (c2v expanded from the state, summed from +0.0); bits from the last.
     ``record`` receives c2v, var-aligned (B, K*Z), after every check pass.
 
+    The state word is the decoder's (``dec.word_bits``: 32, 64 or 128
+    bits, as limbs, with every limb operation of retire.cuh), and depths
+    over 4 step their FIFO offsets as the run-time-depth form does: from
+    slot t mod L down one plane a tap, slot 0 wrapping to L - 1.
+
     ``slices`` > 0: slice form ``layout`` (1 or 2).  Each frame's FIFO and
     (form 2) state words live in one of ``slices`` slices of a flat int32
-    scratch laid out as the kernel's (form 2: W at word r*Z + z, then FIFO
-    plane l at R*Z + l*K*Z; form 1: plane l at l*K*Z; the edge at row-order
-    position i and check lane z at i*Z + z), filled with NaN once and never
-    cleared; frames take the slices ``slices`` at a time, as a block's frame
-    groups take them, so a read before the frame's own write would reach
-    an earlier frame's state or a NaN."""
+    scratch laid out as the kernel's (form 2: W entry r*Z + z at words
+    (r*Z + z) * bits/32 on, then FIFO plane l at bits/32 R*Z + l*K*Z; form
+    1: plane l at l*K*Z; the edge at row-order position i and check lane z
+    at i*Z + z), filled with NaN once and never cleared; frames take the
+    slices ``slices`` at a time, as a block's frame groups take them, so a
+    read before the frame's own write would reach an earlier frame's state
+    or a NaN."""
     if not slices:
         return _model(dec, llr, parts, record, None, 0)
     words = fn.neural_group_scratch_bytes(dec.qc, dec.depth_L, layout) // 4
@@ -134,7 +249,8 @@ def _model(dec, llr: torch.Tensor, parts: int, record: list | None,
     ``scratch`` (a slice form) or in tensors of their own."""
     st, tb = dec.st, dec.tables
     Z, R, C, K, T, L = st.Z, st.R, st.C, st.K, dec.num_iterations, dec.depth_L
-    col_mem, row_mem, row_ptr, col_ptr, row_part, col_part = _unpack(st, parts)
+    bits = dec.word_bits
+    col_mem, row_mem, row_ptr, col_ptr, row_part, col_part = _unpack(st, parts, bits)
     B, KZ, S = llr.shape[0], K * Z, max(L, 1)
     params = tb.params.tolist()
     alpha, offset, w_res = params[:T], params[T:2 * T], params[2 * T:]
@@ -150,14 +266,14 @@ def _model(dec, llr: torch.Tensor, parts: int, record: list | None,
 
     A = torch.zeros((B, R * Z, 2))
     cs = torch.zeros((B, C * Z))
-    w_words = R * Z if layout == 2 else 0  # W's words in the slice
-    W = torch.zeros((B, R * Z), dtype=torch.int64)
+    w_words = bits // 32 * R * Z if layout == 2 else 0  # W's words in the slice
+    W = _zeros((B, R * Z), bits)
     if scratch is None:
         fifo = torch.zeros((B, L * KZ))
     else:
         fifo = scratch[:, w_words:w_words + L * KZ].view(torch.float32)  # writes land there
     if w_words:
-        W = scratch[:, :w_words].long() & 0xFFFFFFFF  # whatever the slice holds
+        W = _from_words(scratch[:, :w_words], bits)  # whatever the slice holds
     # Every row and column belongs to exactly one part.
     assert row_part[0] == 0 and row_part[-1] == R and (np.diff(row_part) >= 0).all()
     assert col_part[0] == 0 and col_part[-1] == C and (np.diff(col_part) >= 0).all()
@@ -175,8 +291,8 @@ def _model(dec, llr: torch.Tensor, parts: int, record: list | None,
                 a_old, w_old = A[:, q], W[:, q]
                 m1 = torch.full((B, Z), _BIG)
                 m2 = m1.clone()
-                arg = torch.full((B, Z), NO_MEMBER, dtype=torch.int64)
-                neg = torch.zeros((B, Z), dtype=torch.int64)
+                arg = torch.full((B, Z), NO_MEMBER[bits], dtype=torch.int64)
+                neg = _zeros((B, Z), bits)
                 for j in reversed(range(d)):
                     col_z, shift = row_mem[j0 + j]
                     v = rolled(int(shift), int(col_z))
@@ -184,30 +300,30 @@ def _model(dec, llr: torch.Tensor, parts: int, record: list | None,
                         x = llr[:, v] + 0.0
                     else:
                         e = (j0 + j) * Z + z
-                        x = (cs[:, v] - _c2v_of(a_old, w_old, j)) + w_plane[e] * llr[:, v]
+                        x = (cs[:, v] - _c2v_of(a_old, w_old, j, bits)) + w_plane[e] * llr[:, v]
                         if L:
                             res = torch.zeros((B, Z))
-                            for l in range(taps):
-                                res = res + w_res[t * S + l] * fifo[:, ((t - l) % L) * KZ + e]
+                            for l, slot in zip(range(taps), _read_offsets(t, L, KZ)):
+                                res = res + w_res[t * S + l] * fifo[:, slot + e]
                             x = x + live * res
                             fifo[:, (p % L) * KZ + e] = x
                     mag = x.abs()
-                    neg = (neg << 1) | torch.signbit(x).long()
+                    neg = _push_sign(neg, x, bits)
                     arg = torch.where(mag <= m1, j, arg)
                     m2 = torch.minimum(torch.maximum(mag, m1), m2)
                     m1 = torch.minimum(mag, m1)
-                sp = torch.where(_popcount(neg) % 2 == 1, (1 << d) - 1, 0)
+                sp = _product_flips(neg, d, bits)
                 m1z = torch.where(m1 < _BIG, m1, 0.0)
                 m2z = torch.where(m2 < _BIG, m2, 0.0)
                 A_new[:, q, 0] = alpha[p] * torch.clamp(m1z - offset[p], min=0.0)
                 A_new[:, q, 1] = alpha[p] * torch.clamp(m2z - offset[p], min=0.0)
-                W_new[:, q] = (neg ^ sp) | (arg << SIGN_BITS)
+                W_new[:, q] = _state_word(neg ^ sp, arg, bits)
         A, W = A_new, W_new  # the barrier between the passes
         if w_words:  # the new words, as uint32 bits, into the slice
-            scratch[:, :w_words] = (W - ((W >> 31) << 32)).to(torch.int32)
-            W = scratch[:, :w_words].long() & 0xFFFFFFFF
+            scratch[:, :w_words] = _to_words(W, bits)
+            W = _from_words(scratch[:, :w_words], bits)
         if record is not None:
-            record.append(_expand(st, row_mem, row_ptr, A, W))
+            record.append(_expand(st, row_mem, row_ptr, A, W, bits))
         cs_new = torch.zeros_like(cs)
         for part in range(parts):
             for c in range(col_part[part], col_part[part + 1]):
@@ -215,22 +331,27 @@ def _model(dec, llr: torch.Tensor, parts: int, record: list | None,
                 for i in range(int(col_ptr[c]), int(col_ptr[c + 1])):
                     r_z, shift, jz, jw = col_mem[i]
                     q = rolled(Z - int(shift), int(r_z))
-                    a, w = A[:, q], W[:, q]
-                    v = torch.where(((w ^ int(jz)) & 0xF8000000) == 0, a[..., 1], a[..., 0])
-                    acc = acc + _flip(v, (w >> (31 - int(jw))) & 1)
+                    acc = acc + _member_c2v(A[:, q], W[:, q], int(jz), int(jw), bits)
                 cs_new[:, c * Z + z] = acc
         cs = cs_new
     return ((llr + cs) < 0).to(torch.float32)
 
 
-def _popcount(x: torch.Tensor) -> torch.Tensor:
-    count = torch.zeros_like(x)
-    for b in range(SIGN_BITS):
-        count += (x >> b) & 1
-    return count
+def _read_offsets(t: int, L: int, KZ: int) -> list[int]:
+    """The FIFO offsets of q_t, q_{t-1}, ... (slot (t - l) mod L times K*Z):
+    found apart for depth 1 to 4, as those forms find them once a pass;
+    over 4 stepped as the run-time-depth form steps them, from slot t mod L
+    down one plane a tap, slot 0 wrapping to L - 1."""
+    if L <= 4:
+        return [((t - l) % L) * KZ for l in range(L)]
+    out, slot = [], (t % L) * KZ
+    for _ in range(L):
+        out.append(slot)
+        slot = (L - 1) * KZ if slot == 0 else slot - KZ
+    return out
 
 
-def _expand(st, row_mem, row_ptr, A, W) -> torch.Tensor:
+def _expand(st, row_mem, row_ptr, A, W, bits: int) -> torch.Tensor:
     """Every lifted edge's c2v from the check states, var-aligned (B, K*Z)
     as the plain version keeps it: base edge k's variable lane v is check
     lane (v - shift) mod Z."""
@@ -240,7 +361,7 @@ def _expand(st, row_mem, row_ptr, A, W) -> torch.Tensor:
     for r, members in enumerate(st.row_members):
         for j, k in enumerate(members):
             zc = (v - st.shifts[k]) % Z
-            out[:, k * Z + v] = _c2v_of(A[:, r * Z + zc], W[:, r * Z + zc], j)
+            out[:, k * Z + v] = _c2v_of(A[:, r * Z + zc], W[:, r * Z + zc], j, bits)
     return out
 
 
@@ -324,6 +445,105 @@ def test_model_on_ties_and_zeros(name, Z, L, parts, kind):
     dec = _decoder(qc, 4, L, "edge", True, seed=11, negative=True)
     llr = torch.from_numpy(hard_llrs(kind, qc.num_vars, seed=3)[:6])
     assert_model_is_plain(dec, llr, parts)
+
+
+# The wider state words: (row members, T, depth, sharing, per_iteration,
+# parts, negative).  28, 31 and 58 members on the 64-bit word, 59, 64 and 121
+# on the 128-bit one (a row of 64 folds members 63..58 in the loop, then the
+# 58-member switch, and carries bit 63 of lo into hi).
+WIDE_CASES = [(28, 4, 2, "edge", True, 2, False), (31, 5, 3, "cell", True, 3, True),
+              (58, 4, 1, "type", False, 2, True), (59, 4, 2, "edge", True, 4, False),
+              (64, 6, 4, "edge", True, 2, True), (121, 4, 2, "scalar", True, 3, True),
+              (121, 3, 0, "edge", False, 1, False)]
+
+
+@pytest.mark.parametrize("members,T,L,sharing,per_it,parts,negative", WIDE_CASES)
+def test_wide_model_matches_plain(members, T, L, sharing, per_it, parts, negative):
+    """The model on the 64-bit and 128-bit state words at rows of 28 to 121
+    members (Z=4), noise at 1 dB: c2v after every iteration and bits equal
+    the plain version's, sign bits too."""
+    qc = _row_code(members)
+    assert qc.dr_max == members
+    dec = _decoder(qc, T, L, sharing, per_it, seed=members + L, negative=negative)
+    assert dec.word_bits == (64 if members <= 58 else 128)
+    assert dec.route == fn.GROUP_ROUTES[dec.word_bits]
+    llr = torch.from_numpy(bpsk_llrs(qc.num_vars, 4, 1.0, seed=members))
+    assert_model_is_plain(dec, llr, parts)
+
+
+# Depths over 4, on the run-time-depth form: (code, Z, batch, depth,
+# sharing, per_iteration, parts, negative), T = depth + 2 so that every tap
+# reaches the decisions.
+DEEP_CASES = [("toy_4x8", 4, 5, 5, "edge", True, 2, True),
+              ("toy_4x8", 4, 5, 6, "cell", False, 3, False),
+              ("nr_2_0_4", 4, 4, 8, "edge", True, 5, True),
+              ("nr_2_0_32", 24, 2, 5, "type", True, 6, False),
+              ("row31", 4, 3, 6, "edge", True, 2, True),
+              ("row64", 4, 3, 8, "edge", True, 3, False)]
+
+
+@pytest.mark.parametrize("name,Z,batch,L,sharing,per_it,parts,negative", DEEP_CASES)
+def test_deep_model_matches_plain(name, Z, batch, L, sharing, per_it, parts, negative):
+    """Depths 5, 6 and 8 with their FIFO offsets stepped as the run-time
+    form steps them, on each state word; Z=24 takes the non-power-of-two
+    roll."""
+    qc = _row_code(int(name[3:])) if name.startswith("row") else _qc(name, Z)
+    dec = _decoder(qc, L + 2, L, sharing, per_it, seed=Z + L, negative=negative)
+    assert dec.run_time_depth and dec.route == fn.GROUP_ROUTES[dec.word_bits]
+    llr = torch.from_numpy(bpsk_llrs(qc.num_vars, batch, 1.0, seed=L))
+    assert_model_is_plain(dec, llr, parts)
+
+
+@pytest.mark.parametrize("layout", [1, 2])
+@pytest.mark.parametrize("name,L,parts,slices", [("row31", 2, 2, 2), ("row64", 3, 3, 2),
+                                                 ("row121", 5, 2, 2), ("nr_2_0_4", 6, 3, 3)])
+def test_wide_and_deep_slice_model_matches_plain(name, L, parts, slices, layout):
+    """The slice forms on the wider words (form 2 keeps 2 or 4 words an
+    entry of W in the slice, lo limb first) and at depth 5 and 6, in a
+    NaN-filled scratch of fewer slices than frames."""
+    qc = _row_code(int(name[3:])) if name.startswith("row") else _qc(name, 4)
+    dec = _decoder(qc, L + 2, L, "edge", True, seed=L + layout, negative=layout == 2)
+    llr = torch.from_numpy(bpsk_llrs(qc.num_vars, 5, 1.0, seed=L))
+    assert_model_is_plain(dec, llr, parts, slices, layout)
+
+
+@pytest.mark.parametrize("kind", ["ties", "zeros"])
+@pytest.mark.parametrize("members,L,parts", [(31, 2, 2), (64, 6, 3), (121, 2, 2)])
+def test_wide_model_on_ties_and_zeros(members, L, parts, kind):
+    """Tied magnitudes (quantised to odd integers, with negative offsets)
+    and LLRs of +0.0 and -0.0 (with positive offsets, so that many c2v are
+    +-0.0, of both signs, which the model must reproduce bit for bit) on the
+    wider words and at depth 6."""
+    qc = _row_code(members)
+    dec = _decoder(qc, L + 2, L, "edge", True, seed=members, negative=kind == "ties")
+    llr = hard_llrs(kind, qc.num_vars, seed=members)[:6]
+    if kind == "ties":
+        llr = np.floor(llr / 2.0) * 2.0 + 1.0
+    llr = torch.from_numpy(llr.astype(np.float32))
+    if kind == "zeros":
+        want = []
+        _plain(dec, llr, want)
+        c2v = torch.stack(want)
+        assert ((c2v == 0) & torch.signbit(c2v)).any() and ((c2v == 0) & ~torch.signbit(c2v)).any()
+    assert_model_is_plain(dec, llr, parts)
+
+
+def test_word_limbs():
+    """The limb operations the model shares with the kernel: a push carries
+    bit 63 of lo into hi, product_flips spans the limbs, the argmin sits in
+    the top bits of the top limb, and the words round-trip through memory."""
+    neg = torch.tensor([[-(1 << 63), 0]])  # bit 63 of lo
+    pushed = _push_sign(neg, torch.tensor([-1.0]), 128)
+    assert pushed.tolist() == [[1, 1]]
+    flips = _product_flips(torch.tensor([[1, 0]]), 121, 128)
+    assert flips.tolist() == [[-1, (1 << 57) - 1]]
+    assert _product_flips(torch.tensor([[3, 0]]), 121, 128).tolist() == [[0, 0]]
+    w = _state_word(torch.tensor([[5, 1]]), torch.tensor([100]), 128)
+    assert _argmin_of(w, 128).tolist() == [100] and _bit(w, 64).tolist() == [1]
+    assert _argmin_of(_state_word(torch.tensor([[7]]), torch.tensor([57]), 64), 64).tolist() == [57]
+    for bits in (32, 64, 128):
+        word = _state_word(_zeros((1, 3), bits) + 6, torch.tensor([[1, 2, 3]]), bits)
+        assert torch.equal(_from_words(_to_words(word, bits), bits), word)
 
 
 def test_zero_c2v_reach_only_sums_from_zero():
@@ -414,6 +634,67 @@ def test_slice_plans_at_nr_bg2():
     assert max(f for p, f in fn.neural_group_plans(z32, 4, slice=2) if p == 2) == 12
 
 
+def _ieee_shape():
+    """chip_smoke.py's wide_rows code: (6, 32) at Z=64, shift (r*c) mod 64."""
+    r, c = np.meshgrid(np.arange(6), np.arange(32), indexing="ij")
+    return tcodes.qc_layout(tcodes.BaseGraph("ieee", (r * c) % 64), 64)
+
+
+def _array_code(p: int, cols: int):
+    """J. L. Fan's array code (chip_smoke.py's array_code), 4 rows."""
+    r, c = np.meshgrid(np.arange(4), np.arange(cols), indexing="ij")
+    return tcodes.qc_layout(tcodes.BaseGraph(f"array_p{p}", (r * c) % p), p)
+
+
+@pytest.mark.parametrize("code,bits,frame,form1,form2,scratch1,scratch2", [
+    ("ieee", 64, 120_832, 14_336, 11_264, 98_304, 101_376),
+    ("array67", 128, 177_952, 23_584, 19_296, 137_216, 141_504),
+    ("array61", 128, 154_704, 20_752, 16_848, 119_072, 122_976)])
+def test_wide_frame_and_slice_bytes(code, bits, frame, form1, form2, scratch1, scratch2):
+    """Depth 2 on the wider words: 4 (2 C*Z + (2 + bits/32) R*Z + 2 K*Z)
+    bytes a whole frame; in the slice forms A, the column sums padded to an
+    even count (C*Z = 3721 at p = 61) and in form 1 W (2 or 4 words a
+    check); the slices hold the FIFO and in form 2 W.  wide_rows' frame
+    fits a block with its two staged weight planes (223,968 B of 231,424)."""
+    qc = {"ieee": _ieee_shape, "array67": lambda: _array_code(67, 64),
+          "array61": lambda: _array_code(61, 61)}[code]()
+    assert fn.neural_group_word_bits(qc) == bits
+    got = (fn.neural_group_frame_bytes(qc, 2), fn.neural_group_frame_bytes(qc, 2, 1),
+           fn.neural_group_frame_bytes(qc, 2, 2), fn.neural_group_scratch_bytes(qc, 2, 1),
+           fn.neural_group_scratch_bytes(qc, 2, 2))
+    assert got == (frame, form1, form2, scratch1, scratch2)
+    Z, R, C, K = qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges
+    assert frame == 4 * -(-(2 * C * Z + (2 + bits // 32) * R * Z + 2 * K * Z) // 4) * 4
+    if code == "ieee":
+        assert fn.neural_group_smem_bytes(qc, 2, 6, 1, staged=True) == 223_968
+        assert fn.neural_group_layout(qc, 2) == 0 and (6, 1) in fn.neural_group_plans(qc, 2, True)
+
+
+@pytest.mark.parametrize("L,layout,frame", [(5, 0, 155_520), (6, 0, 180_736), (8, 1, 22_784),
+                                            (12, 1, 22_784)])
+def test_deep_frame_bytes_at_nr_bg2_z32(L, layout, frame):
+    """Depths over 4 at NR BG2 Z=32: a whole frame a block up to depth 7
+    (180,736 B at depth 6), then the FIFO in the slices (form 1, whose
+    shared memory does not grow with the depth)."""
+    qc = _qc("nr_2_0_32", 32)
+    assert fn.neural_group_layout(qc, L) == layout
+    assert fn.neural_group_frame_bytes(qc, L, layout) == frame
+    assert fn.neural_group_scratch_bytes(qc, L, 1) == 4 * L * 6304
+    assert max(f for _, f in fn.neural_group_plans(qc, L, slice=layout)) >= 1
+
+
+def test_depth_limit():
+    """neural_group takes any depth whose FIFO offsets stay 32-bit ((L + 1)
+    K*Z < 2^30 words); fused_neural what lies beyond."""
+    qc = _qc("nr_2_0_32", 384)
+    KZ = qc.num_base_edges * 384
+    deepest = (1 << 30) // KZ - 1
+    assert (deepest + 1) * KZ < 1 << 30 <= (deepest + 2) * KZ
+    assert fn.neural_group_fits(qc, deepest) and fn.neural_group_route(qc, deepest) == "neural_group"
+    assert not fn.neural_group_fits(qc, deepest + 1)
+    assert fn.neural_group_route(qc, deepest + 1) == "fused_neural"
+
+
 class _OccupancyModel:
     """Stands in for the kernel library's occupancy query: resident blocks
     an SM limited by 2048 threads, 65,536 registers at 64 a thread (the
@@ -423,7 +704,7 @@ class _OccupancyModel:
     def __init__(self, qc):
         self.qc = qc
 
-    def ldpc_neural_group_occupancy(self, Z, R, C, K, L, p, f, staged, slice):
+    def ldpc_neural_group_occupancy(self, Z, R, C, K, L, p, f, staged, slice, word_bits=32):
         threads = fm.retire_threads(self.qc, p, f)
         smem = fn.neural_group_smem_bytes(self.qc, L, p, f, bool(staged), slice)
         return min(2048 // threads, 65536 // (64 * threads), 233_472 // (smem + 1024))
@@ -471,32 +752,30 @@ def test_plan_rule_keeps_shared_plans(name, Z):
                 assert got[0] == max(p for p, _ in plans), (L, staged)
 
 
-def _row_code(members: int, Z: int = 4):
-    """A (4, 32) base graph whose first row has ``members`` members; every
-    column has one."""
-    rng = np.random.default_rng(members)
-    shifts = np.where(rng.random((4, 32)) < 0.3, rng.integers(0, Z, (4, 32)), -1)
-    shifts[0] = np.where(np.arange(32) < members, rng.integers(0, Z, 32), -1)
-    shifts[1, members:] = 0
-    return tcodes.qc_layout(tcodes.BaseGraph(f"row{members}", shifts), Z)
-
-
 @pytest.mark.parametrize("name,Z,L,route", [
     ("nr_2_0_32", 32, 2, "neural_group"), ("nr_2_0_32", 32, 0, "neural_group"),
     ("nr_2_0_4", 4, 3, "neural_group"), ("nr_2_0_32", 64, 2, "neural_group"),
     ("nr_2_0_32", 128, 2, "neural_group"), ("nr_2_0_32", 32, 4, "neural_group"),
-    ("nr_2_0_32", 384, 4, "neural_group"), ("nr_2_0_4", 4, 5, "fused_neural"),
-    ("row31", 4, 2, "fused_neural")])
+    ("nr_2_0_32", 384, 4, "neural_group"), ("nr_2_0_4", 4, 5, "neural_group"),
+    ("nr_2_0_32", 32, 6, "neural_group"), ("nr_2_0_32", 384, 8, "neural_group"),
+    ("row27", 4, 2, "neural_group"), ("row28", 4, 2, "neural_group_wide"),
+    ("row31", 4, 2, "neural_group_wide"), ("row58", 4, 5, "neural_group_wide"),
+    ("row59", 4, 2, "neural_group_w128"), ("row121", 4, 6, "neural_group_w128"),
+    ("row122", 4, 2, "fused_neural")])
 def test_routes(name, Z, L, route):
     """Z=128 at depth 2 (319,488 B a frame), Z=384 and depth 4 on
     neural_group (the slice form where a frame does not fit a block); depth
-    5 and a row of 31 members (over the state word's 27 signs) on
-    fused_neural; CPU tensors reach neither kernel."""
-    qc = _row_code(31) if name == "row31" else _qc(name, Z)
-    assert fn.neural_group_fits(qc, L) == (route == "neural_group")
+    5 and more on its run-time-depth form; rows of 28 to 58 members on the
+    64-bit state word (neural_group_wide), 59 to 121 on the 128-bit one
+    (neural_group_w128), a row of 122 (over the widest word's 121 signs) on
+    fused_neural; CPU tensors reach no kernel."""
+    qc = _row_code(int(name[3:])) if name.startswith("row") else _qc(name, Z)
+    assert fn.neural_group_fits(qc, L) == (route != "fused_neural")
+    assert fn.neural_group_route(qc, L) == route
     dec = _decoder(qc, 2, L, "scalar", False, seed=1)
-    assert dec.route == route
-    if route == "neural_group":
+    assert dec.route == route and dec.run_time_depth == (L > 4)
+    if route != "fused_neural":
+        assert fn.GROUP_ROUTES[dec.word_bits] == route
         assert dec.layout == (0 if Z < 128 else 1 if Z == 128 else 2)
     launches = dict(fn.LAUNCHES)
     dec(torch.zeros((1, qc.num_vars)))
