@@ -40,9 +40,12 @@ Phases, one JSON line each:
              all four schedules on codes with a row of 31 and of 58 members
              at Z=4 (the retiring kernels' 64-bit state word, the *_wide
              routes) and of 121 (their 128-bit word's limit, the *_w128
-             routes; sum-product also identical to fused), min-sum flooding
+             routes; sum-product also identical to fused), the same rows at
+             Z=8 on fused_zlane decoders (the large-Z kernels' 64-bit and
+             128-bit words, every flag set and schedule, each case also
+             identical to fused_zlane), min-sum flooding
              and layered sum-product on a row of 122 members at Z=4 (the
-             fused kernel's) and on a row of 31 at Z=8 (fused_zlane's: wider
+             fused kernel's) and at Z=8 (fused_zlane's: wider
              than the retiring kernels take; their launch counts), layered
              min-sum and both sum-product schedules
              on one with a row of 20 (the layered kernels' run-time loops
@@ -165,6 +168,21 @@ Phases, one JSON line each:
              retire_layered_sumproduct_w128 (the 128-bit state word), each
              checked and timed as in wide_rows, ptxas of the 128-bit
              instantiations.
+5g. zlane_wide — the two shapes at large Z, where a frame exceeds a block
+             (fused would need 393 KB of shared memory for each) and auto
+             takes fused_zlane: 802.3an's at Z=384 (shift (r*c) mod 384,
+             rows of 32, n = 12288) on retire_zlane_wide,
+             retire_zlane_layered_wide, retire_zlane_sumproduct_wide and
+             retire_zlane_layered_sumproduct_wide, and the array shape at
+             p = Z = 256 (rows of 64, n = 16384) on the four *_w128 forms of
+             the same kernels; batch 512, 20 iterations, the SNR stepped
+             from 6.0 and 7.5 dB by 0.25 dB until the mean conv_iter is in
+             [2, 8].  Each checked as in wide_rows against the plain version
+             and identical to fused_zlane (_launch_zlane), and timed in five
+             rounds beside fused_zlane, its throughput mode and, where its
+             plan takes the frame, B1's route on the same word (a "fused"
+             decoder built past the fused kernel's memory check); plans and
+             ptxas of the instantiations.
 6. gnn_compare — the corrected-GNN kernels (corrected_v2, corrected)
              against their plain versions on perturbed seeded parameters:
              {input injection on, off} x {fixed T, early exit with
@@ -322,11 +340,13 @@ Phases, one JSON line each:
              each kernel launched; Mbit/s, MFU and max |diff| printed.
 17. probe  — python -m ldpc_tpu_torch.tools.probe_agg_mxu at its defaults
              (nr_2_0_32 Z=32, h=64, L=10, 128 frames): variant vpu identical
-             to the plain version, mxu within one bf16 step; microseconds per
+             to the plain version, mxu within one bf16 step, both identical
+             on integer-valued features (exact_features); microseconds per
              frame and iteration.
 18. kernels — per kernel: launches in its path's run (fused and fused_zlane:
              the wide-row compare cases'; the *_wide kernels: wide_rows';
-             the *_w128 kernels: widest_rows';
+             the *_w128 kernels: widest_rows'; the retire_zlane*_wide and
+             *_w128 kernels: zlane_wide's;
              neural_group a row for nms_main and one for each nms_large
              shape; neural_group_wide, neural_group_w128 and neural_group's
              run-time-depth form a row each for nms_wide's shapes;
@@ -344,7 +364,7 @@ The replaced kernels' times (PERF.md §5) come from this script run from an
 unpacked ``git archive`` of the parent commit, in the same call.
 ``--only classical|wide|gnn|nms|nms_wide|msg_gnn|tools`` runs the build and
 that part alone (for development; the kernels line then lists that part;
-``wide`` is phase 3's wide-row cases and phases 5e and 5f, ``nms`` phases 9
+``wide`` is phase 3's wide-row cases and phases 5e to 5g, ``nms`` phases 9
 to 11b, ``nms_wide`` phase 11c, ``msg_gnn`` phases 12 to 14, ``tools``
 phases 16 and 17).
 """
@@ -536,11 +556,12 @@ SUMPRODUCT_ROUTES = ("retire_sumproduct", "retire_zlane_sumproduct", "retire_lay
 
 
 def same_as_replaced(dec, llr: torch.Tensor, label: str) -> None:
-    """A sum-product retiring decoder's output (SUMPRODUCT_ROUTES) identical
-    (bits and conv_iter) to the kernel it replaced on the same input (fused
-    through _launch_fused on a fused decoder, fused_zlane through
-    _launch_zlane on a fused_zlane decoder): the same float operations in
-    the same order."""
+    """A retiring decoder's output identical (bits and conv_iter) to the
+    kernel it replaced on the same input (fused through _launch_fused on a
+    fused decoder, fused_zlane through _launch_zlane on a fused_zlane
+    decoder): for sum-product (SUMPRODUCT_ROUTES and their wider words) the
+    same float operations in the same order; for min-sum both equal the
+    plain version."""
     old, replaced = ((dec._launch_fused, "fused") if dec.kind == "fused"
                      else (dec._launch_zlane, "fused_zlane"))
     (bits_k, conv_k), (bits_f, conv_f) = dec(llr), old(llr)
@@ -673,18 +694,21 @@ def wide_compare(max_err: dict) -> dict:
     """Phase 3's wide-row cases: rows of 31 and 58 members (Z=4), every
     schedule on its kernel's 64-bit state word, and of 121 (the limit) on
     its 128-bit word, each sum-product case also identical to fused through
-    _launch_fused; then rows wider than the retiring kernels take on the
-    fused kernel (122 members, Z=4) and on fused_zlane (31, Z=8): min-sum
-    flooding and layered sum-product.  These are the two kernels' own paths
-    now, so their launches here (returned) are the kernels line's."""
+    _launch_fused; the same rows at Z=8 on a fused_zlane decoder, every
+    schedule on its large-Z kernel's 64-bit and 128-bit words, each case
+    identical to fused_zlane through _launch_zlane; then rows wider than the
+    retiring kernels take on the fused kernel (122 members, Z=4) and on
+    fused_zlane (122, Z=8): min-sum flooding and layered sum-product.  These
+    are the two kernels' own paths now, so their launches here (returned)
+    are the kernels line's."""
     from ldpc_tpu_torch.ops import fused_minsum as fm
 
+    flag_sets = ((True, False), (False, False), (True, True))
     for members, routes in ((31, fm.WIDE_ROUTES), (58, fm.WIDE_ROUTES), (121, fm.W128_ROUTES)):
         qcw = wide_row_code(members)
         for snr in (1.0, 4.0, 6.0):
             llr = llrs(qcw.num_vars, 37, snr, seed=members)
-            for (tr, ee), (mode, sched) in itertools.product(
-                    ((True, False), (False, False), (True, True)), WIDE_SCHEDULES):
+            for (tr, ee), (mode, sched) in itertools.product(flag_sets, WIDE_SCHEDULES):
                 dec = fm.make_fused_minsum(qcw, 20, 0.75, track_convergence=tr, early_exit=ee,
                                            mode=mode, schedule=sched)
                 assert dec.route in routes
@@ -693,17 +717,30 @@ def wide_compare(max_err: dict) -> dict:
                 max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
                 if mode == "sumproduct":
                     same_as_replaced(dec, llr, label)
+    for members, routes in ((31, fm.ZLANE_WIDE_ROUTES), (58, fm.ZLANE_WIDE_ROUTES),
+                            (121, fm.ZLANE_W128_ROUTES)):
+        qcw = wide_row_code(members, Z=8)
+        for snr in (1.0, 7.0):
+            llr = llrs(qcw.num_vars, 37, snr, seed=members + 8)
+            for (tr, ee), (mode, sched) in itertools.product(flag_sets, WIDE_SCHEDULES):
+                dec = fm.make_fused_minsum_zlane(qcw, 20, 0.75, track_convergence=tr,
+                                                 early_exit=ee, mode=mode, schedule=sched)
+                assert dec.route in routes
+                label = f"{dec.route} wide rows ({members} members) Z=8 B=37 {snr} dB " \
+                        f"track={tr} early_exit={ee}"
+                max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
+                same_as_replaced(dec, llr, label)
     for key in fm.LAUNCHES:
         fm.LAUNCHES[key] = 0
-    for members, Z, build in ((122, 4, fm.make_fused_minsum), (31, 8, fm.make_fused_minsum_zlane)):
-        qcw = wide_row_code(members, Z=Z)
+    for Z, build in ((4, fm.make_fused_minsum), (8, fm.make_fused_minsum_zlane)):
+        qcw = wide_row_code(122, Z=Z)
         llr = llrs(qcw.num_vars, 37, 4.0, seed=5)
         for (tr, ee), mode in itertools.product(((True, False), (False, False), (True, True)),
                                                 ("minsum", "sumproduct")):
             dec = build(qcw, 20, 0.75, track_convergence=tr, early_exit=ee, mode=mode,
                         schedule="flooding" if mode == "minsum" else "layered")
             assert dec.route == dec.kind and not dec.retire
-            label = f"{dec.route} wide rows ({members} members) Z={Z} B=37 {mode} " \
+            label = f"{dec.route} wide rows (122 members) Z={Z} B=37 {mode} " \
                     f"{dec.schedule} track={tr} early_exit={ee}"
             max_err[dec.route] = max(max_err[dec.route], compare(dec, llr, label))
     torch.cuda.synchronize()
@@ -1307,7 +1344,7 @@ def classical_phases(lib, smi: str) -> list[dict]:
     # What the occupancy query allows before the plan's cap.
     zs_occupancy["blocks_per_sm_by_occupancy"] = {
         p: fm.retire_kernel_library().ldpc_retire_zlane_sumproduct_occupancy(
-            384, qc384.num_base_rows, qc384.num_base_cols, qc384.num_base_edges, p, 1)
+            384, qc384.num_base_rows, qc384.num_base_cols, qc384.num_base_edges, p, 1, 32)
         for p in fm.retire_zlane_sumproduct_plans(qc384)}
     zs_occupancy["smem_bytes"] = fm.retire_zlane_sumproduct_smem_bytes(qc384,
                                                                        zs_occupancy["parts"])
@@ -1397,7 +1434,8 @@ def classical_phases(lib, smi: str) -> list[dict]:
           "rounds_ms": zsl_rounds, "parts_ms": zsl_parts, "occupancy": zsl_occupancy,
           "bit_errors": bit_errors_zsl, "mean_conv_iter": mean_conv_zsl, "nvidia_smi": smi})
 
-    wide_entries = wide_rows_phase(smi, max_err) + widest_rows_phase(smi, max_err)
+    wide_entries = (wide_rows_phase(smi, max_err) + widest_rows_phase(smi, max_err)
+                    + zlane_wide_phase(smi, max_err))
     src = "ldpc_tpu_torch/ops/csrc/fused_minsum.cu"
     return wide_entries + [
         {"name": "fused_retire", "route": "cuda",
@@ -1456,7 +1494,7 @@ def classical_phases(lib, smi: str) -> list[dict]:
          "launches": launches_zsl["retire_zlane_layered_sumproduct"],
          "max_abs_err": max(max_err["retire_zlane_layered_sumproduct"], err_zsl), "ms": ms_zsl,
          "plain_ms": plain_ms_zsl, "bound_ms": bms_zsl, "bound_by": bby_zsl, "library_ms": None},
-        # fused_zlane serves rows over 27 members at large Z (launches: the
+        # fused_zlane serves rows over 121 members at large Z (launches: the
         # wide-row compare cases); its ms is sum-product flooding through
         # the side door, _launch_zlane, on the z384_sumproduct phase's batch,
         # which bound_ms and plain_ms count.
@@ -1481,23 +1519,32 @@ WIDE = dict(B=65536, SNR=4.0, STEP=0.5, CONV=(2.0, 8.0), llr_seed=8, iterations=
 # 4; n = 4288, 17,152 edges a frame).  B = 49152 frames hold 8.4e8 lifted
 # edges, within 5% of wide_rows' batch; the SNR steps as wide_rows'.
 WIDEST = dict(B=49152, SNR=6.0, STEP=0.5, CONV=(2.0, 8.0), llr_seed=9, iterations=20)
+# Phase zlane_wide: the same two shapes at large Z, where a frame exceeds a
+# block's shared memory (fused would need 393 KB of it for each) and auto
+# takes fused_zlane: 802.3an's shape at Z=384 (rows of 32, n = 12288, no
+# 4-cycle: |dr * dc| <= 155 < 384) on the 64-bit word, and the array shape
+# at p = Z = 256 (rows of 64, n = 16384, rate 0.94; |dr * dc| <= 189 < 256)
+# on the 128-bit word.  Batch 512 (3.77e7 and 3.36e7 lifted edges, against
+# z384's 3.87e7); the SNR steps by 0.25 dB as wide_rows' does.
+ZLANE_WIDE = dict(B=512, STEP=0.25, CONV=(2.0, 8.0), llr_seed=10, iterations=20)
+ZLANE_WIDE_SNR = {64: 6.0, 128: 7.5}
 
 
-def ieee_shape_base():
-    """The (6, 32) base graph of Z=64 circulants, shift (r * c) mod 64 in
-    every cell."""
+def ieee_shape_base(Z: int = 64):
+    """The (6, 32) base graph of Z x Z circulants, shift (r * c) mod Z in
+    every cell (IEEE 802.3an's shape at Z=64)."""
     import numpy as np
     from ldpc_tpu_torch.codes import BaseGraph
 
     r, c = np.meshgrid(np.arange(6), np.arange(32), indexing="ij")
-    return BaseGraph("ieee_6x32", (r * c) % 64)
+    return BaseGraph("ieee_6x32", (r * c) % Z)
 
 
-def ieee_shape_code():
-    """ieee_shape_base at Z=64."""
+def ieee_shape_code(Z: int = 64):
+    """ieee_shape_base lifted by Z."""
     from ldpc_tpu_torch.codes import qc_layout
 
-    return qc_layout(ieee_shape_base(), 64)
+    return qc_layout(ieee_shape_base(Z), Z)
 
 
 def array_base(p: int = 67, rows: int = 4, cols: int = 64):
@@ -1519,13 +1566,15 @@ def array_code(p: int = 67, rows: int = 4, cols: int = 64):
 
 
 def wide_phases(smi: str) -> list[dict]:
-    """``--only wide``: phase 3's wide-row cases, then wide_rows and
-    widest_rows; the kernels line's rows of the eight wider-word routes."""
+    """``--only wide``: phase 3's wide-row cases, then wide_rows,
+    widest_rows and zlane_wide; the kernels line's rows of the sixteen
+    wider-word routes."""
     from ldpc_tpu_torch.ops import fused_minsum as fm
 
     max_err = {name: 0.0 for name in fm.LAUNCHES}
     wide_compare(max_err)
-    return wide_rows_phase(smi, max_err) + widest_rows_phase(smi, max_err)
+    return (wide_rows_phase(smi, max_err) + widest_rows_phase(smi, max_err)
+            + zlane_wide_phase(smi, max_err))
 
 
 def wide_rows_phase(smi: str, max_err: dict) -> list[dict]:
@@ -1534,6 +1583,20 @@ def wide_rows_phase(smi: str, max_err: dict) -> list[dict]:
     qc = ieee_shape_code()
     assert qc.dr_max == 32 and qc.num_edges == 12288
     return wide_phase(smi, max_err, "wide_rows", "ieee_6x32 (r*c mod 64)", qc, WIDE, 64)
+
+
+def zlane_wide_phase(smi: str, max_err: dict) -> list[dict]:
+    """B2's four schedules at large Z on rows of 32 members (802.3an's shape
+    at Z=384) through their 64-bit-word routes (fm.ZLANE_WIDE_ROUTES) and
+    on rows of 64 (the array shape at Z=256) through their 128-bit-word
+    routes (fm.ZLANE_W128_ROUTES), at ZLANE_WIDE's batch (wide_phase)."""
+    ieee, array = ieee_shape_code(384), array_code(256)
+    assert (ieee.dr_max, ieee.num_vars, ieee.num_edges) == (32, 12288, 73728)
+    assert (array.dr_max, array.num_vars, array.num_edges) == (64, 16384, 65536)
+    return (wide_phase(smi, max_err, "zlane_wide", "ieee_6x32 (r*c mod 384) Z=384", ieee,
+                       dict(ZLANE_WIDE, SNR=ZLANE_WIDE_SNR[64]), 64, large_z=True)
+            + wide_phase(smi, max_err, "zlane_wide", "array_4x64 (r*c mod 256) Z=256", array,
+                         dict(ZLANE_WIDE, SNR=ZLANE_WIDE_SNR[128]), 128, large_z=True))
 
 
 def widest_rows_phase(smi: str, max_err: dict) -> list[dict]:
@@ -1546,21 +1609,30 @@ def widest_rows_phase(smi: str, max_err: dict) -> list[dict]:
 
 
 def wide_phase(smi: str, max_err: dict, phase: str, label: str, qc, cfg: dict,
-               word_bits: int) -> list[dict]:
-    """B1's four schedules on ``qc`` through their routes on the state word
-    of ``word_bits`` (64: fm.WIDE_ROUTES, 128: fm.W128_ROUTES) at ``cfg``'s
+               word_bits: int, large_z: bool = False) -> list[dict]:
+    """The four schedules on ``qc`` through their routes on the state word
+    of ``word_bits`` (64: fm.WIDE_ROUTES, or fm.ZLANE_WIDE_ROUTES where
+    ``large_z``; 128: fm.W128_ROUTES, fm.ZLANE_W128_ROUTES) at ``cfg``'s
     batch: launched alone, identical to the plain version (min-sum) or at
-    the sum-product bars and identical to fused; five rounds beside fused
-    through _launch_fused, each median faster than fused's; bounds, plans
-    and ptxas.  Returns the kernels line's four rows."""
+    the sum-product bars, and identical to the kernel they replaced (fused
+    through _launch_fused, fused_zlane through _launch_zlane); five rounds
+    beside it, each median faster than its; bounds, plans and ptxas.  At
+    large Z also each route's throughput mode and B1's route on the same
+    word where its plan takes the frame (``auto`` picks fused_zlane there
+    for fused's full-c2v memory), timed in the same rounds.  Returns the
+    kernels line's four rows."""
     from ldpc_tpu_torch.models.classical import BeliefPropagationDecoder, MinSumScaledDecoder
     from ldpc_tpu_torch.ops import fused_minsum as fm
     from ldpc_tpu_torch.utils.metrics import decode_throughput
 
-    routes = fm.WIDE_ROUTES if word_bits == 64 else fm.W128_ROUTES
+    routes = {(64, False): fm.WIDE_ROUTES, (128, False): fm.W128_ROUTES,
+              (64, True): fm.ZLANE_WIDE_ROUTES, (128, True): fm.ZLANE_W128_ROUTES}[
+        word_bits, large_z]
+    build = fm.make_fused_minsum_zlane if large_z else fm.make_fused_minsum
+    replaced = "replaced_fused_zlane" if large_z else "replaced_fused"
     B, T, n = cfg["B"], cfg["iterations"], qc.num_vars
-    decs = {f"{mode} {sched}": fm.make_fused_minsum(qc, T, 0.75 if mode == "minsum" else 1.0,
-                                                    mode=mode, schedule=sched)
+    alpha = {"minsum": 0.75, "sumproduct": 1.0}
+    decs = {f"{mode} {sched}": build(qc, T, alpha[mode], mode=mode, schedule=sched)
             for mode, sched in WIDE_SCHEDULES}
     for (mode, sched), dec in zip(WIDE_SCHEDULES, decs.values()):
         assert (dec.mode, dec.schedule) == (mode, sched) and dec.route in routes
@@ -1581,7 +1653,7 @@ def wide_phase(smi: str, max_err: dict, phase: str, label: str, qc, cfg: dict,
                "minsum layered": MinSumScaledDecoder(qc, T, 0.75, early_stopping=False,
                                                      schedule="layered"),
                "sumproduct flooding": BeliefPropagationDecoder(qc, T, early_stopping=False)}
-    bp = fm.make_fused_bp(qc, T)
+    bp = build(qc, T, 1.0, mode="sumproduct")
     for key in fm.LAUNCHES:
         fm.LAUNCHES[key] = 0
     outs = {name: dec(llr) for name, dec in decs.items()}
@@ -1608,48 +1680,78 @@ def wide_phase(smi: str, max_err: dict, phase: str, label: str, qc, cfg: dict,
                        "mean_conv_iter": float(conv.float().mean().item())}
         del plain_out
         max_err[dec.route] = max(max_err[dec.route], errs[name])
+    # Each kernel beside the one it replaced through the side door on the
+    # same batch, in five interleaved rounds; the replaced kernel's output
+    # identical.  At large Z also the throughput mode, and B1's route on
+    # this word (a "fused" decoder's, built past the fused kernel's own
+    # shared-memory check) where its plan takes the frame, identical too.
+    runs, b1_routes = {}, {}
+    for (mode, sched), (name, dec) in zip(WIDE_SCHEDULES, decs.items()):
+        side_door = dec._launch_zlane if large_z else dec._launch_fused
+        runs[name] = {"kernel": (lambda d=dec: d(llr), 5),
+                      replaced: (lambda f=side_door: f(llr), 1)}
+        if large_z:
+            thr = build(qc, T, alpha[mode], mode=mode, schedule=sched, track_convergence=False)
+            compare(thr, llr, f"{thr.route} {phase} B={B} {snr} dB throughput mode")
+            runs[name]["throughput_mode"] = (lambda d=thr: d(llr), 2)
+            b1 = fm.FusedDecoder("fused", qc, T, alpha[mode], 1, mode, True, False, sched,
+                                 dec.device)
+            b1_routes[dec.route] = b1.route
+            if b1.retire:
+                runs[name]["b1_route"] = (lambda d=b1: d(llr), 2)
     settle = time.perf_counter() + 1.0
     while time.perf_counter() < settle:
         for dec in decs.values():
             dec(llr)
         torch.cuda.synchronize()
-    # Each kernel beside fused through the side door on the same batch, in
-    # five interleaved rounds; fused's output identical.
-    rounds = {name: {"kernel": [], "replaced_fused": []} for name in decs}
+    rounds = {name: {which: [] for which in r} for name, r in runs.items()}
     for _ in range(5):
-        for name, dec in decs.items():
-            for which, (fn, reps) in (("kernel", (lambda d=dec: d(llr), 5)),
-                                      ("replaced_fused", (lambda d=dec: d._launch_fused(llr), 1))):
+        for name, r in runs.items():
+            for which, (fn, reps) in r.items():
                 t, out = cuda_ms(fn, reps=reps)
                 rounds[name][which].append(t)
-                if not (torch.equal(out[0], outs[name][0]) and torch.equal(out[1], outs[name][1])):
-                    raise AssertionError(f"{which} differs from {dec.route} on {phase}")
+                if which != "throughput_mode" and not (torch.equal(out[0], outs[name][0]) and
+                                                       torch.equal(out[1], outs[name][1])):
+                    raise AssertionError(f"{which} differs from {decs[name].route} on {phase}")
     median = {name: {w: sorted(r)[len(r) // 2] for w, r in rs.items()} for name, rs in rounds.items()}
-    slower = [name for name in decs if median[name]["kernel"] >= median[name]["replaced_fused"]]
+    slower = [name for name in decs if median[name]["kernel"] >= median[name][replaced]]
     if slower:
-        raise AssertionError(f"{phase} kernels not faster than fused: {slower} {median}")
+        raise AssertionError(f"{phase} kernels not faster than the replaced kernel: {slower} "
+                             f"{median}")
     bounds = {}
     for (mode, sched), (name, dec) in zip(WIDE_SCHEDULES, decs.items()):
         bound = bound_ms if mode == "minsum" else bp_bound_ms
         bounds[name] = bound(qc, outs[name][1], layered=sched == "layered")
-    plans = {routes[0]: fm.retire_plan(qc, True, word_bits=word_bits),
-             routes[1]: fm.retire_layered_plan(qc, True, word_bits=word_bits),
-             routes[2]: fm.retire_sumproduct_plan(qc, True, word_bits=word_bits),
-             routes[3]: fm.retire_layered_sumproduct_plan(qc, True, word_bits=word_bits)}
+    if large_z:
+        plans = {routes[0]: fm.retire_zlane_plan(qc, True, word_bits=word_bits),
+                 routes[1]: fm.retire_zlane_layered_plan(qc, True, word_bits=word_bits),
+                 routes[2]: fm.retire_zlane_sumproduct_plan(qc, True, word_bits=word_bits),
+                 routes[3]: fm.retire_zlane_layered_sumproduct_plan(qc, True,
+                                                                    word_bits=word_bits)}
+        kernels = ("retire_zlane_kernel", "retire_zlane_layered_kernel",
+                   "retire_zlane_sumproduct_kernel", "retire_zlane_layered_sumproduct_kernel")
+    else:
+        plans = {routes[0]: fm.retire_plan(qc, True, word_bits=word_bits),
+                 routes[1]: fm.retire_layered_plan(qc, True, word_bits=word_bits),
+                 routes[2]: fm.retire_sumproduct_plan(qc, True, word_bits=word_bits),
+                 routes[3]: fm.retire_layered_sumproduct_plan(qc, True, word_bits=word_bits)}
+        kernels = ("retire_minsum_kernel", "retire_layered_kernel", "retire_sumproduct_kernel",
+                   "retire_layered_sumproduct_kernel")
     # The instantiations on this word: template argument y (unsigned long
     # long) or the Word128 struct.
     word, width = ("EyE", 12) if word_bits == 64 else ("Word128", 40)
     ptxas = {route: {k: v for k, v in ptxas_of("fused_retire", kernel, width).items() if word in k}
-             for route, kernel in zip(routes, ("retire_minsum_kernel", "retire_layered_kernel",
-                                               "retire_sumproduct_kernel",
-                                               "retire_layered_sumproduct_kernel"))}
+             for route, kernel in zip(routes, kernels)}
+    others = [w for w in ("throughput_mode", "b1_route") if any(w in m for m in median.values())]
     emit({"phase": phase, "code": label, "Z": qc.Z, "n": n,
           "edges": qc.num_edges, "batch": B, "iterations": T, "snr_db": snr,
           "snr_steps_mean_conv_iter": steps, "launches": launches,
           "ms_per_batch": {decs[k].route: m["kernel"] for k, m in median.items()},
-          "replaced_fused_ms": {decs[k].route: m["replaced_fused"] for k, m in median.items()},
-          "speedup_over_replaced": {decs[k].route: m["replaced_fused"] / m["kernel"]
+          f"{replaced}_ms": {decs[k].route: m[replaced] for k, m in median.items()},
+          "speedup_over_replaced": {decs[k].route: m[replaced] / m["kernel"]
                                     for k, m in median.items()},
+          **{f"{w}_ms": {decs[k].route: m.get(w) for k, m in median.items()} for w in others},
+          "b1_routes": b1_routes or None,
           "bits_per_s": {decs[k].route: decode_throughput(B, n, m["kernel"] / 1e3, name=phase)
                          for k, m in median.items()},
           "bound_ms": {decs[k].route: b for k, b in bounds.items()},
@@ -1659,7 +1761,7 @@ def wide_phase(smi: str, max_err: dict, phase: str, label: str, qc, cfg: dict,
           "plans": plans, "ptxas": ptxas, "nvidia_smi": smi})
     return [{"name": dec.route, "route": "cuda",
              "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
-             "replaces": "ldpc_tpu/ops/pallas_minsum.py:143",
+             "replaces": f"ldpc_tpu/ops/pallas_minsum.py:{399 if large_z else 143}",
              "launches": launches[dec.route], "max_abs_err": max_err[dec.route],
              "ms": median[name]["kernel"], "plain_ms": plain_ms[name],
              "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
@@ -3329,6 +3431,7 @@ def probe_phase(smi: str) -> list[dict]:
     launches = dict(pm.LAUNCHES)
     res = out["results"]
     ok = (res["vpu"]["identical"] and res["mxu"]["bf16_steps"] <= PROBE_MXU_MAX_STEPS
+          and all(r["identical_on_exact"] for r in res.values())
           and min(launches.values()) >= 1)
     cfg = out["config"]
     qc = qc_layout(get_base_graph(cfg["code"]), cfg["Z"])
@@ -3355,17 +3458,24 @@ def probe_phase(smi: str) -> list[dict]:
              "us_per_frame_iteration": {v: r["us_per_frame_iteration"] for v, r in res.items()}}]
 
 
-def build_all() -> dict:
-    """Compile every CUDA source of the port, one nvcc per source, together."""
+def build_all() -> tuple[dict, dict]:
+    """Compile every CUDA source of the port, one nvcc per source, together;
+    (each source's ptxas lines, each source's seconds)."""
     from ldpc_tpu_torch.ops import _build
 
     stems = ("fused_minsum", "fused_retire", "fused_gnn_tc", "fused_neural", "fused_neural_wide",
              "fused_neural_w128", "fused_msg_gnn_tc", "probe_agg_mxu", "probe_phi")
+
+    def timed(stem: str) -> float:
+        t0 = time.time()
+        _build.build(stem)
+        return round(time.time() - t0, 3)
+
     with ThreadPoolExecutor(len(stems)) as pool:
-        list(pool.map(_build.build, stems))
+        seconds = dict(zip(stems, pool.map(timed, stems)))
     return {stem: [ln.strip() for ln in _build.build_log(stem).splitlines()
                    if "registers" in ln or "spill" in ln or "Function properties" in ln]
-            for stem in stems}
+            for stem in stems}, seconds
 
 
 def retire_smem_agree(qc32, qc384) -> dict:
@@ -3488,7 +3598,7 @@ def main(argv=None) -> int:
 
     # 2. build
     t0 = time.time()
-    ptxas = build_all()
+    ptxas, build_seconds = build_all()
     lib = fm.kernel_library()
     # Resident blocks per SM of the main-path kernels, from the CUDA runtime.
     occupancy = {}
@@ -3543,7 +3653,8 @@ def main(argv=None) -> int:
     if any(not counts or min(sum(c.values()) for c in counts.values()) < 1
            for counts in mma.values()):
         raise AssertionError(f"a tensor-core kernel has no tensor-core instructions: {mma}")
-    emit({"phase": "build", "seconds": round(time.time() - t0, 3), "ptxas": ptxas,
+    emit({"phase": "build", "seconds": round(time.time() - t0, 3),
+          "seconds_per_source": build_seconds, "ptxas": ptxas,
           **{f"{name}_ptxas": ptxas_of("fused_retire", f"{name}_kernel")
              for name in ("retire_minsum", "retire_layered", "retire_zlane_layered",
                           "retire_sumproduct", "retire_layered_sumproduct",

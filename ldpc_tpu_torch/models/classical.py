@@ -181,13 +181,13 @@ def _resolve_backend(backend: str, qc: QCLayout | None = None) -> str:
     Either backend sends both modes and both schedules on to its retiring
     kernels where they take the code (``fused_minsum._route``: on ``fused``
     ``fused_retire``, ``retire_layered``, ``retire_sumproduct`` and
-    ``retire_layered_sumproduct``, for rows of 28 to 58 members the same
-    kernels on their 64-bit state word, the ``*_wide`` routes, and for rows
-    of 59 to 121 on their 128-bit word, the ``*_w128`` routes; at large Z
-    ``retire_zlane``, ``retire_zlane_layered``, ``retire_zlane_sumproduct``
-    and ``retire_zlane_layered_sumproduct``).  Only rows of more than 121
-    members (more than 27 on ``fused_zlane``) run on the backend's own
-    kernel.
+    ``retire_layered_sumproduct``; at large Z ``retire_zlane``,
+    ``retire_zlane_layered``, ``retire_zlane_sumproduct`` and
+    ``retire_zlane_layered_sumproduct``; on either backend, for rows of 28
+    to 58 members the same kernels on their 64-bit state word, the
+    ``*_wide`` routes, and for rows of 59 to 121 on their 128-bit word, the
+    ``*_w128`` routes).  Only rows of more than 121 members run on the
+    backend's own kernel.
 
     ``plain`` is the tensor-op path (the JAX package's ``xla``), for tests
     and comparisons; it is never chosen by ``auto``.
@@ -233,8 +233,9 @@ class BeliefPropagationDecoder:
     "fused_zlane", or "plain" (the tensor-op path).  Sum-product flooding on
     the fused backends runs on ``retire_sumproduct``, or at large Z on
     ``retire_zlane_sumproduct``, where they take the code, rows of 28 to 58
-    members on ``retire_sumproduct_wide`` and rows of 59 to 121 on
-    ``retire_sumproduct_w128``.
+    members on ``retire_sumproduct_wide`` (``retire_zlane_sumproduct_wide``)
+    and rows of 59 to 121 on ``retire_sumproduct_w128``
+    (``retire_zlane_sumproduct_w128``).
     """
 
     qc: QCLayout
@@ -274,8 +275,9 @@ class MinSumScaledDecoder:
     schedule on ``fused_retire`` (``retire_zlane`` at large Z) and the
     layered one on ``retire_layered`` (``retire_zlane_layered``) where they
     take the code, rows of 28 to 58 members on their 64-bit state word
-    (``fused_retire_wide``, ``retire_layered_wide``) and rows of 59 to 121
-    on their 128-bit word (``fused_retire_w128``, ``retire_layered_w128``)."""
+    (``fused_retire_wide``, ``retire_layered_wide``; ``retire_zlane_wide``,
+    ``retire_zlane_layered_wide``) and rows of 59 to 121 on their 128-bit
+    word (the ``*_w128`` forms)."""
 
     qc: QCLayout
     max_iterations: int = 50

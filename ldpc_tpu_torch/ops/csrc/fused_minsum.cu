@@ -11,14 +11,13 @@
 // layered sum-product to retire_layered_sumproduct_kernel (rows of up to 27
 // members on their 32-bit state word, 28 to 58 on their 64-bit word, 59 to
 // 121 on their 128-bit word) and,
-// at large Z and rows of up to 27 members, min-sum flooding to
-// retire_zlane_kernel (bench.py's z384 section), layered min-sum to
-// retire_zlane_layered_kernel, sum-product flooding to
+// at large Z and rows of up to 121 members (the same three words), min-sum
+// flooding to retire_zlane_kernel (bench.py's z384 section), layered
+// min-sum to retire_zlane_layered_kernel, sum-product flooding to
 // retire_zlane_sumproduct_kernel and layered sum-product to
-// retire_zlane_layered_sumproduct_kernel.  So fused_minsum_kernel serves
-// rows of more than 121 members alone (no standard code has such rows),
-// zlane_minsum_kernel rows of more than
-// 27 at large Z (and both stay callable
+// retire_zlane_layered_sumproduct_kernel.  So fused_minsum_kernel and
+// zlane_minsum_kernel serve rows of more than 121 members alone (no
+// standard code has such rows; and both stay callable
 // for the paths they served before, so the wrapper's _launch_fused and
 // _launch_zlane can time them beside the kernels that replaced them).  The
 // note below is this file's.

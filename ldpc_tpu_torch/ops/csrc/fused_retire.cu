@@ -42,12 +42,13 @@
 //                                           schedule "layered"; entry
 //                                           ldpc_retire_zlane_layered_sumproduct
 // They took the place of fused_minsum_kernel and zlane_minsum_kernel
-// (fused_minsum.cu) on every path.  The first four, templated on the state
-// word (retire.cuh), also run on a 64-bit word for rows of 28 to 58 members
-// (the wrapper's *_wide routes; see "Rows of 28 to 58 members" below) and on
-// a 128-bit word of two limbs for rows of 59 to 121 (the *_w128 routes; see
-// "Rows of 59 to 121 members"); codes with wider rows (more than 27 at large
-// Z) stay on the fused_minsum.cu kernels (the wrapper's retire_*_fits).
+// (fused_minsum.cu) on every path.  All eight, templated on the state word
+// (retire.cuh), also run on a 64-bit word for rows of 28 to 58 members (the
+// wrapper's *_wide routes; see "Rows of 28 to 58 members" below) and on a
+// 128-bit word of two limbs for rows of 59 to 121 (the *_w128 routes; see
+// "Rows of 59 to 121 members" and, for the four large-Z kernels, "Large Z
+// on the wider words"); codes with wider rows stay on the fused_minsum.cu
+// kernels (the wrapper's retire_*_fits).
 // The flooding kernels run one frame loop (decode_frames) over a check pass
 // and a column pass: the two min-sum kernels share compressed state and
 // passes and differ only in where a frame's state lives; the two sum-product
@@ -156,8 +157,7 @@
 // thread (ptxas), no spills.  retire_zlane_kernel: 4 (C*Z + 2 R*Z) bytes of
 // frame state, 208,896 at Z=384 (2 parts: 24 warps, one block per SM).  A
 // row may have at most 27 members on the 32-bit state word (NR rows have at
-// most 19), 58 on the 64-bit one and 121 on the 128-bit one
-// (retire_minsum_kernel only).
+// most 19), 58 on the 64-bit one and 121 on the 128-bit one.
 //
 // Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): main path
 // about 3.2 ms per batch of 65536, throughput mode 16.2 ms; the kernel it
@@ -240,6 +240,35 @@
 // frame (the 121-slot phi array).
 //
 // Measured: chip_smoke.py phase widest_rows (PERF.md).
+
+// Large Z on the wider words
+// ==========================
+// What it computes: the four large-Z kernels' functions (retire_zlane,
+// retire_zlane_layered, retire_zlane_sumproduct,
+// retire_zlane_layered_sumproduct), bit for bit, on codes whose frames
+// exceed a block's shared memory and whose rows have 28 to 121 members,
+// such as chip_smoke.py's zlane_wide codes (IEEE 802.3an's shape at Z=384,
+// rows of 32; Fan's array shape at Z=256, rows of 64).  They ran on
+// zlane_minsum_kernel (fused_minsum.cu) before: one frame a block, c2v
+// through an HBM scratch of K*Z floats a block, no frame retiring.
+//
+// What bounds it: the same operation counts per lifted edge, check and
+// variable (chip_smoke.py bound_ms, bp_bound_ms) over each frame's conv_iter
+// iterations.
+//
+// What the design does about it.  The four kernels take the state word as
+// the B1 kernels do (Word: unsigned, unsigned long long, Word128), with
+// every wider operation one of retire.cuh's overloads, so the 32-bit
+// instantiations compile as before.  Only where the word lives changes:
+// retire_zlane's slice in L2 is R*Z Words (8 or 16 bytes a check where it
+// was 4), retire_zlane_layered's slice holds A then R*Z Words (16 or 24
+// bytes a check where it was 12); the sum-product kernels keep one float of
+// c2v an edge and widen only their sign masks (and the layered one's local
+// phi array, 58 or 121 slots).  Shared memory does not depend on the word,
+// so the plans are the 32-bit ones', taken by the occupancy query of each
+// instantiation.
+//
+// Measured: chip_smoke.py phase zlane_wide (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -642,7 +671,10 @@ retire_minsum_kernel(const float* __restrict__ llr, float* __restrict__ bits,
 // the check pass and read by other threads of the group after a barrier,
 // so it is read with ordinary (coherent) loads: scratch is neither const
 // nor __restrict__, which keeps the compiler off the read-only path.
-template <bool TRACK, bool POW2>
+// Word: the state word, as retire_minsum_kernel's; the slice is R*Z Words
+// (scratch is addressed in 32-bit words whatever the Word, so every
+// instantiation has one signature).
+template <bool TRACK, bool POW2, typename Word>
 __global__ void __launch_bounds__(kMaxThreads)
 retire_zlane_kernel(const float* __restrict__ llr, float* __restrict__ bits,
                     int* __restrict__ conv, int* __restrict__ next_frame, unsigned* scratch,
@@ -655,9 +687,9 @@ retire_zlane_kernel(const float* __restrict__ llr, float* __restrict__ bits,
   const Lanes t = lanes_of(s, Z, parts);
   float* bel = reinterpret_cast<float*>(s_struct + structure_words(R, C, K, parts));
   float2* A = reinterpret_cast<float2*>(bel + C * Z);  // 8-byte aligned: Z is even
-  unsigned* W = scratch + static_cast<size_t>(blockIdx.x) * R * Z;
+  Word* W = reinterpret_cast<Word*>(scratch) + static_cast<size_t>(blockIdx.x) * R * Z;
   decode_frames<TRACK, POW2, false>(s, t, &s_frame, llr, bits, conv, next_frame, bel, nullptr,
-                                    MinSumState<unsigned>{A, W, alpha, R * Z}, B, Z, C,
+                                    MinSumState<Word>{A, W, alpha, R * Z}, B, Z, C,
                                     max_iterations);
 }
 
@@ -1181,13 +1213,14 @@ retire_layered_kernel(const float* __restrict__ llr, float* __restrict__ bits,
 // and was dropped.  At Z=256, where retire_layered's whole frame fits a
 // block, the slices cost nothing measurable (split_probe).
 
-// Scratch words of a frame group: A (8-byte aligned since Z % 8 == 0), then
-// W.
+// Scratch words (32-bit) of a frame group: A (8-byte aligned since Z % 8 ==
+// 0), then W (R*Z Words: 3, 4 or 6 words a check in all).
+template <typename Word>
 __host__ __device__ inline long long zlane_layered_slice_words(int Z, int R) {
-  return 3LL * R * Z;
+  return static_cast<long long>(kStateWords<Word>) * R * Z;
 }
 
-template <bool TRACK, bool POW2>
+template <bool TRACK, bool POW2, typename Word>
 __global__ void __launch_bounds__(kMaxThreads)
 retire_zlane_layered_kernel(const float* __restrict__ llr, float* __restrict__ bits,
                             int* __restrict__ conv, int* __restrict__ next_frame,
@@ -1202,11 +1235,11 @@ retire_zlane_layered_kernel(const float* __restrict__ llr, float* __restrict__ b
   float* bel = reinterpret_cast<float*>(s_struct + layered_structure_words(R, K, G)) +
                t.g * layered_bel_words(Z, C);
   unsigned* slice = scratch + (static_cast<long long>(blockIdx.x) * frames + t.g) *
-                                  zlane_layered_slice_words(Z, R);
+                                  zlane_layered_slice_words<Word>(Z, R);
   float2* A = reinterpret_cast<float2*>(slice);
-  unsigned* W = slice + 2 * R * Z;
+  Word* W = reinterpret_cast<Word*>(slice + 2 * R * Z);  // 8-byte aligned: Z % 8 == 0
   layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
-                              LayeredMinSumState<unsigned>{A, W, alpha}, B, Z, R, C, G,
+                              LayeredMinSumState<Word>{A, W, alpha}, B, Z, R, C, G,
                               max_iterations, parts);
 }
 
@@ -1244,7 +1277,7 @@ retire_zlane_layered_kernel(const float* __restrict__ llr, float* __restrict__ b
 // blocks an SM took 12% longer; at Z=224, where retire_sumproduct's whole
 // frame fits a block, the c2v slice costs 13% (split_probe).
 
-template <bool TRACK, bool POW2>
+template <bool TRACK, bool POW2, typename Word>
 __global__ void __launch_bounds__(kMaxThreads)
 retire_zlane_sumproduct_kernel(const float* __restrict__ llr, float* __restrict__ bits,
                                int* __restrict__ conv, int* __restrict__ next_frame,
@@ -1258,7 +1291,7 @@ retire_zlane_sumproduct_kernel(const float* __restrict__ llr, float* __restrict_
   float* bel = reinterpret_cast<float*>(s_struct + structure_words(R, C, K, parts));
   float* c2v = scratch + static_cast<size_t>(blockIdx.x) * K * Z;
   decode_frames<TRACK, POW2, false>(s, t, &s_frame, llr, bits, conv, next_frame, bel, nullptr,
-                                    SumProductState<unsigned>{c2v, K * Z}, B, Z, C,
+                                    SumProductState<Word>{c2v, K * Z}, B, Z, C,
                                     max_iterations);
 }
 
@@ -1377,7 +1410,7 @@ retire_layered_sumproduct_kernel(const float* __restrict__ llr, float* __restric
 // Beliefs in shared memory, c2v in the frame group's slice (K*Z floats) of
 // `scratch`; a slice is read and written only by the thread that owns each
 // of its checks, so it needs no barrier and ordinary loads.
-template <bool TRACK, bool POW2>
+template <bool TRACK, bool POW2, typename Word>
 __global__ void __launch_bounds__(kLayeredSumProductThreads)
 retire_zlane_layered_sumproduct_kernel(const float* __restrict__ llr, float* __restrict__ bits,
                                        int* __restrict__ conv, int* __restrict__ next_frame,
@@ -1393,7 +1426,7 @@ retire_zlane_layered_sumproduct_kernel(const float* __restrict__ llr, float* __r
                t.g * layered_bel_words(Z, C);
   float* c2v = scratch + (static_cast<long long>(blockIdx.x) * frames + t.g) * K * Z;
   layered_frames<TRACK, POW2>(s, t, s_frame + t.g, llr, bits, conv, next_frame, bel,
-                              LayeredSumProductState<unsigned>{c2v}, B, Z, R, C, G,
+                              LayeredSumProductState<Word>{c2v}, B, Z, R, C, G,
                               max_iterations, parts);
 }
 
@@ -1416,17 +1449,16 @@ bool valid_word(int word_bits) { return word_bits == 32 || word_bits == 64 || wo
                      : PICK_WORD(KERNEL, Narrow))
 
 using Kernel = decltype(&retire_minsum_kernel<true, true, Narrow>);
-using ZlaneKernel = decltype(&retire_zlane_kernel<true, true>);
+using ZlaneKernel = decltype(&retire_zlane_kernel<true, true, Narrow>);
 
 Kernel pick_kernel(int track, int Z, int word_bits) {
   const bool pow2 = (Z & (Z - 1)) == 0;
   return PICK(retire_minsum_kernel);
 }
 
-ZlaneKernel pick_zlane_kernel(int track, int Z) {
+ZlaneKernel pick_zlane_kernel(int track, int Z, int word_bits) {
   const bool pow2 = (Z & (Z - 1)) == 0;
-  return track ? (pow2 ? &retire_zlane_kernel<true, true> : &retire_zlane_kernel<true, false>)
-               : (pow2 ? &retire_zlane_kernel<false, true> : &retire_zlane_kernel<false, false>);
+  return PICK(retire_zlane_kernel);
 }
 
 long long retire_smem(int Z, int R, int C, int K, int parts, int frames, int word_bits) {
@@ -1497,14 +1529,11 @@ bool valid_layered_plan(int Z, int parts, int frames) {
          (frames <= kMaxGroups || threads == 32 * frames);
 }
 
-using ZlaneLayeredKernel = decltype(&retire_zlane_layered_kernel<true, true>);
+using ZlaneLayeredKernel = decltype(&retire_zlane_layered_kernel<true, true, Narrow>);
 
-ZlaneLayeredKernel pick_zlane_layered_kernel(int track, int Z) {
+ZlaneLayeredKernel pick_zlane_layered_kernel(int track, int Z, int word_bits) {
   const bool pow2 = (Z & (Z - 1)) == 0;
-  return track ? (pow2 ? &retire_zlane_layered_kernel<true, true>
-                       : &retire_zlane_layered_kernel<true, false>)
-               : (pow2 ? &retire_zlane_layered_kernel<false, true>
-                       : &retire_zlane_layered_kernel<false, false>);
+  return PICK(retire_zlane_layered_kernel);
 }
 
 // Structure and each frame's beliefs.
@@ -1518,14 +1547,11 @@ bool valid_zlane_layered_plan(int Z, int parts, int frames) {
   return Z % 8 == 0 && valid_layered_plan(Z, parts, frames);
 }
 
-using ZlaneSumProductKernel = decltype(&retire_zlane_sumproduct_kernel<true, true>);
+using ZlaneSumProductKernel = decltype(&retire_zlane_sumproduct_kernel<true, true, Narrow>);
 
-ZlaneSumProductKernel pick_zlane_sumproduct_kernel(int track, int Z) {
+ZlaneSumProductKernel pick_zlane_sumproduct_kernel(int track, int Z, int word_bits) {
   const bool pow2 = (Z & (Z - 1)) == 0;
-  return track ? (pow2 ? &retire_zlane_sumproduct_kernel<true, true>
-                       : &retire_zlane_sumproduct_kernel<true, false>)
-               : (pow2 ? &retire_zlane_sumproduct_kernel<false, true>
-                       : &retire_zlane_sumproduct_kernel<false, false>);
+  return PICK(retire_zlane_sumproduct_kernel);
 }
 
 // Structure and one frame's beliefs (C*Z floats).
@@ -1541,9 +1567,6 @@ LayeredSumProductKernel pick_layered_sumproduct_kernel(int track, int Z, int wor
   return PICK(retire_layered_sumproduct_kernel);
 }
 
-#undef PICK
-#undef PICK_WORD
-
 long long layered_sumproduct_smem(int Z, int R, int C, int K, int G, int frames) {
   return 4LL * (layered_structure_words(R, K, G) +
                 static_cast<long long>(frames) * layered_sumproduct_frame_words(Z, C, K));
@@ -1555,15 +1578,16 @@ bool valid_layered_sumproduct_plan(int Z, int parts, int frames) {
 }
 
 using ZlaneLayeredSumProductKernel =
-    decltype(&retire_zlane_layered_sumproduct_kernel<true, true>);
+    decltype(&retire_zlane_layered_sumproduct_kernel<true, true, Narrow>);
 
-ZlaneLayeredSumProductKernel pick_zlane_layered_sumproduct_kernel(int track, int Z) {
+ZlaneLayeredSumProductKernel pick_zlane_layered_sumproduct_kernel(int track, int Z,
+                                                                  int word_bits) {
   const bool pow2 = (Z & (Z - 1)) == 0;
-  return track ? (pow2 ? &retire_zlane_layered_sumproduct_kernel<true, true>
-                       : &retire_zlane_layered_sumproduct_kernel<true, false>)
-               : (pow2 ? &retire_zlane_layered_sumproduct_kernel<false, true>
-                       : &retire_zlane_layered_sumproduct_kernel<false, false>);
+  return PICK(retire_zlane_layered_sumproduct_kernel);
 }
+
+#undef PICK
+#undef PICK_WORD
 
 // Z % 8 == 0, as the TPU kernel asks.
 bool valid_zlane_layered_sumproduct_plan(int Z, int parts, int frames) {
@@ -1599,13 +1623,15 @@ int ldpc_retire_minsum(const void* llr, void* bits, void* conv, void* counter,
 }
 
 // As ldpc_retire_minsum, one frame group a block: `scratch` holds grid * R*Z
-// uint32 state words, one slice a block.
+// state words of `word_bits` (32, 64 or 128), one slice a block.
 int ldpc_retire_zlane(const void* llr, void* bits, void* conv, void* counter, void* scratch,
                       const void* structure, int B, int Z, int R, int C, int K, int T,
-                      float alpha, int track, int parts, int grid, void* stream) {
-  if (B < 1 || grid < 1 || !valid_zlane_plan(Z, parts)) return cudaErrorInvalidValue;
+                      float alpha, int track, int parts, int grid, int word_bits,
+                      void* stream) {
+  if (B < 1 || grid < 1 || !valid_zlane_plan(Z, parts) || !valid_word(word_bits))
+    return cudaErrorInvalidValue;
   const long long smem = zlane_smem(Z, R, C, K, parts);
-  const ZlaneKernel kernel = pick_zlane_kernel(track, Z);
+  const ZlaneKernel kernel = pick_zlane_kernel(track, Z, word_bits);
   const int threads = retire_threads(Z, parts, 1);
   cudaError_t err = prepare(kernel, smem, threads, nullptr);
   if (err != cudaSuccess) return err;
@@ -1699,11 +1725,14 @@ int ldpc_retire_occupancy(int Z, int R, int C, int K, int parts, int frames, int
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-int ldpc_retire_zlane_occupancy(int Z, int R, int C, int K, int parts, int track) {
-  if (!valid_zlane_plan(Z, parts)) return -static_cast<int>(cudaErrorInvalidValue);
+int ldpc_retire_zlane_occupancy(int Z, int R, int C, int K, int parts, int track,
+                                int word_bits) {
+  if (!valid_zlane_plan(Z, parts) || !valid_word(word_bits))
+    return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
-  const cudaError_t err = prepare(pick_zlane_kernel(track, Z), zlane_smem(Z, R, C, K, parts),
-                                  retire_threads(Z, parts, 1), &blocks);
+  const cudaError_t err =
+      prepare(pick_zlane_kernel(track, Z, word_bits), zlane_smem(Z, R, C, K, parts),
+              retire_threads(Z, parts, 1), &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -1724,16 +1753,17 @@ int ldpc_retire_layered_occupancy(int Z, int R, int C, int K, int G, int parts, 
 }
 
 // Layered min-sum at large Z, as ldpc_retire_layered: `scratch` holds grid
-// * frames slices of 3 R*Z words (A, then the uint32 state words W), one a
-// frame group.
+// * frames slices of (2 + word_bits / 32) R*Z words (A, then the state
+// words W of `word_bits`), one a frame group.
 int ldpc_retire_zlane_layered(const void* llr, void* bits, void* conv, void* counter,
                               void* scratch, const void* structure, int B, int Z, int R, int C,
                               int K, int G, int T, float alpha, int track, int parts, int frames,
-                              int grid, void* stream) {
-  if (B < 1 || grid < 1 || G < 1 || !valid_zlane_layered_plan(Z, parts, frames))
+                              int grid, int word_bits, void* stream) {
+  if (B < 1 || grid < 1 || G < 1 || !valid_zlane_layered_plan(Z, parts, frames) ||
+      !valid_word(word_bits))
     return cudaErrorInvalidValue;
   const long long smem = zlane_layered_smem(Z, R, C, K, G, frames);
-  const ZlaneLayeredKernel kernel = pick_zlane_layered_kernel(track, Z);
+  const ZlaneLayeredKernel kernel = pick_zlane_layered_kernel(track, Z, word_bits);
   const int threads = retire_threads(Z, parts, frames);
   cudaError_t err = prepare(kernel, smem, threads, nullptr);
   if (err != cudaSuccess) return err;
@@ -1749,23 +1779,28 @@ long long ldpc_retire_zlane_layered_smem_bytes(int Z, int R, int C, int K, int G
 }
 
 int ldpc_retire_zlane_layered_occupancy(int Z, int R, int C, int K, int G, int parts, int frames,
-                                        int track) {
-  if (!valid_zlane_layered_plan(Z, parts, frames)) return -static_cast<int>(cudaErrorInvalidValue);
+                                        int track, int word_bits) {
+  if (!valid_zlane_layered_plan(Z, parts, frames) || !valid_word(word_bits))
+    return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
-  const cudaError_t err = prepare(pick_zlane_layered_kernel(track, Z),
+  const cudaError_t err = prepare(pick_zlane_layered_kernel(track, Z, word_bits),
                                   zlane_layered_smem(Z, R, C, K, G, frames),
                                   retire_threads(Z, parts, frames), &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 // Sum-product flooding at large Z, as ldpc_retire_zlane: one frame group a
-// block; `scratch` holds grid slices of K*Z floats of c2v, one a block.
+// block; `scratch` holds grid slices of K*Z floats of c2v, one a block;
+// `word_bits` sets the sign masks' word (neither the shared memory nor the
+// scratch depends on it).
 int ldpc_retire_zlane_sumproduct(const void* llr, void* bits, void* conv, void* counter,
                                  void* scratch, const void* structure, int B, int Z, int R, int C,
-                                 int K, int T, int track, int parts, int grid, void* stream) {
-  if (B < 1 || grid < 1 || !valid_zlane_plan(Z, parts)) return cudaErrorInvalidValue;
+                                 int K, int T, int track, int parts, int grid, int word_bits,
+                                 void* stream) {
+  if (B < 1 || grid < 1 || !valid_zlane_plan(Z, parts) || !valid_word(word_bits))
+    return cudaErrorInvalidValue;
   const long long smem = zlane_sumproduct_smem(Z, R, C, K, parts);
-  const ZlaneSumProductKernel kernel = pick_zlane_sumproduct_kernel(track, Z);
+  const ZlaneSumProductKernel kernel = pick_zlane_sumproduct_kernel(track, Z, word_bits);
   const int threads = retire_threads(Z, parts, 1);
   cudaError_t err = prepare(kernel, smem, threads, nullptr);
   if (err != cudaSuccess) return err;
@@ -1780,12 +1815,14 @@ long long ldpc_retire_zlane_sumproduct_smem_bytes(int Z, int R, int C, int K, in
   return zlane_sumproduct_smem(Z, R, C, K, parts);
 }
 
-int ldpc_retire_zlane_sumproduct_occupancy(int Z, int R, int C, int K, int parts, int track) {
-  if (!valid_zlane_plan(Z, parts)) return -static_cast<int>(cudaErrorInvalidValue);
+int ldpc_retire_zlane_sumproduct_occupancy(int Z, int R, int C, int K, int parts, int track,
+                                           int word_bits) {
+  if (!valid_zlane_plan(Z, parts) || !valid_word(word_bits))
+    return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
-  const cudaError_t err =
-      prepare(pick_zlane_sumproduct_kernel(track, Z), zlane_sumproduct_smem(Z, R, C, K, parts),
-              retire_threads(Z, parts, 1), &blocks);
+  const cudaError_t err = prepare(pick_zlane_sumproduct_kernel(track, Z, word_bits),
+                                  zlane_sumproduct_smem(Z, R, C, K, parts),
+                                  retire_threads(Z, parts, 1), &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -1829,15 +1866,18 @@ int ldpc_retire_layered_sumproduct_occupancy(int Z, int R, int C, int K, int G, 
 }
 
 // Layered sum-product at large Z, as ldpc_retire_zlane_layered: `scratch`
-// holds grid * frames slices of K*Z floats of c2v, one a frame group.
+// holds grid * frames slices of K*Z floats of c2v, one a frame group;
+// `word_bits` sets the sign masks' word.
 int ldpc_retire_zlane_layered_sumproduct(const void* llr, void* bits, void* conv, void* counter,
                                          void* scratch, const void* structure, int B, int Z,
                                          int R, int C, int K, int G, int T, int track, int parts,
-                                         int frames, int grid, void* stream) {
-  if (B < 1 || grid < 1 || G < 1 || !valid_zlane_layered_sumproduct_plan(Z, parts, frames))
+                                         int frames, int grid, int word_bits, void* stream) {
+  if (B < 1 || grid < 1 || G < 1 || !valid_zlane_layered_sumproduct_plan(Z, parts, frames) ||
+      !valid_word(word_bits))
     return cudaErrorInvalidValue;
   const long long smem = zlane_layered_smem(Z, R, C, K, G, frames);
-  const ZlaneLayeredSumProductKernel kernel = pick_zlane_layered_sumproduct_kernel(track, Z);
+  const ZlaneLayeredSumProductKernel kernel =
+      pick_zlane_layered_sumproduct_kernel(track, Z, word_bits);
   const int threads = retire_threads(Z, parts, frames);
   cudaError_t err = prepare(kernel, smem, threads, nullptr);
   if (err != cudaSuccess) return err;
@@ -1854,11 +1894,11 @@ long long ldpc_retire_zlane_layered_sumproduct_smem_bytes(int Z, int R, int C, i
 }
 
 int ldpc_retire_zlane_layered_sumproduct_occupancy(int Z, int R, int C, int K, int G, int parts,
-                                                   int frames, int track) {
-  if (!valid_zlane_layered_sumproduct_plan(Z, parts, frames))
+                                                   int frames, int track, int word_bits) {
+  if (!valid_zlane_layered_sumproduct_plan(Z, parts, frames) || !valid_word(word_bits))
     return -static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0;
-  const cudaError_t err = prepare(pick_zlane_layered_sumproduct_kernel(track, Z),
+  const cudaError_t err = prepare(pick_zlane_layered_sumproduct_kernel(track, Z, word_bits),
                                   zlane_layered_smem(Z, R, C, K, G, frames),
                                   retire_threads(Z, parts, frames), &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);

@@ -1,7 +1,7 @@
 """Fused min-sum / BP decoders: the whole decode loop in one CUDA kernel
 (counterpart of ``ldpc_tpu.ops.pallas_minsum``).
 
-Fourteen hand-written kernels replace the two TPU kernels:
+Hand-written kernels, each a route of its own, replace the two TPU kernels:
 
 * ``fused_retire`` (``csrc/fused_retire.cu``, replaces
   ``pallas_minsum._kernel`` for scaled min-sum with the flooding schedule,
@@ -73,9 +73,17 @@ Fourteen hand-written kernels replace the two TPU kernels:
   frame group's, as many frame groups an SM as the occupancy query allows).
   :func:`retire_zlane_layered_fits`, :func:`retire_zlane_sumproduct_fits`
   and :func:`retire_zlane_layered_sumproduct_fits` decide.
+* ``retire_zlane_wide``, ``retire_zlane_layered_wide``,
+  ``retire_zlane_sumproduct_wide``, ``retire_zlane_layered_sumproduct_wide``
+  and the same four with ``_w128`` (same file, replace
+  ``pallas_minsum._kernel_zlane`` at large Z on codes with rows of 28 to 58
+  and of 59 to 121 members): the four large-Z kernels on the 64-bit and
+  128-bit state words, whose slices grow with the word (retire_zlane: 8 or
+  16 bytes a check; retire_zlane_layered: 16 or 24), the sum-product ones
+  with wider sign masks.  The ``fits`` functions with ``word_bits`` decide.
 * ``fused_zlane`` (``csrc/fused_minsum.cu``, replaces
   ``pallas_minsum._kernel_zlane`` for codes the retiring kernels do not
-  take, rows of more than 27 members): the same semantics when a frame's
+  take, rows of more than 121 members): the same semantics when a frame's
   state exceeds shared memory (the 5G maximum Z=384): c2v lives in a
   global scratch buffer, beliefs in shared memory, and each block walks
   over frames one at a time.
@@ -143,28 +151,35 @@ _ZLANE_SUMPRODUCT_BLOCKS_PER_SM = 1
 _LAYERED_SUMPRODUCT_MAX_THREADS = 768
 
 # The kernels of csrc/fused_retire.cu, each a route of its own; the layered
-# ones read _layered_structure.  The four ``*_wide`` routes are the B1
-# kernels instantiated on the 64-bit state word, for rows of 28 to 58
+# ones read _layered_structure.  The four ``*_wide`` routes of each set are
+# its kernels instantiated on the 64-bit state word, for rows of 28 to 58
 # members, the four ``*_w128`` routes the same kernels on the 128-bit word,
-# for rows of 59 to 121.
+# for rows of 59 to 121: B1's (``WIDE_ROUTES``, ``W128_ROUTES``) and the
+# large-Z kernels' (``ZLANE_WIDE_ROUTES``, ``ZLANE_W128_ROUTES``).
 _B1_ROUTES = ("fused_retire", "retire_layered", "retire_sumproduct", "retire_layered_sumproduct")
+_ZLANE_ROUTES = ("retire_zlane", "retire_zlane_layered", "retire_zlane_sumproduct",
+                 "retire_zlane_layered_sumproduct")
 WIDE_ROUTES = tuple(route + "_wide" for route in _B1_ROUTES)
 W128_ROUTES = tuple(route + "_w128" for route in _B1_ROUTES)
-# A B1 route on a wider word: (the kernel's own route, word_bits).
-_ROUTE_WORD = {route + suffix: (route, bits) for route in _B1_ROUTES
+ZLANE_WIDE_ROUTES = tuple(route + "_wide" for route in _ZLANE_ROUTES)
+ZLANE_W128_ROUTES = tuple(route + "_w128" for route in _ZLANE_ROUTES)
+_WIDER_ROUTES = WIDE_ROUTES + W128_ROUTES + ZLANE_WIDE_ROUTES + ZLANE_W128_ROUTES
+# A route on a wider word: (the kernel's own route, word_bits).
+_ROUTE_WORD = {route + suffix: (route, bits) for route in _B1_ROUTES + _ZLANE_ROUTES
                for bits, suffix in _WORD_SUFFIX.items()}
 RETIRING = ("fused_retire", "retire_zlane", "retire_layered", "retire_sumproduct",
             "retire_zlane_layered", "retire_zlane_sumproduct", "retire_layered_sumproduct",
-            "retire_zlane_layered_sumproduct") + WIDE_ROUTES + W128_ROUTES
-_LAYERED_ROUTES = ("retire_layered", "retire_zlane_layered", "retire_layered_sumproduct",
-                   "retire_zlane_layered_sumproduct", "retire_layered_wide",
-                   "retire_layered_sumproduct_wide", "retire_layered_w128",
-                   "retire_layered_sumproduct_w128")
+            "retire_zlane_layered_sumproduct") + _WIDER_ROUTES
+_LAYERED_ROUTES = tuple(route + suffix
+                        for route in ("retire_layered", "retire_zlane_layered",
+                                      "retire_layered_sumproduct",
+                                      "retire_zlane_layered_sumproduct")
+                        for suffix in ("", "_wide", "_w128"))
 LAUNCHES: dict[str, int] = {"fused_retire": 0, "fused": 0, "retire_zlane": 0, "fused_zlane": 0,
                             "retire_layered": 0, "retire_sumproduct": 0,
                             "retire_zlane_layered": 0, "retire_zlane_sumproduct": 0,
                             "retire_layered_sumproduct": 0, "retire_zlane_layered_sumproduct": 0,
-                            **{route: 0 for route in WIDE_ROUTES + W128_ROUTES}}
+                            **{route: 0 for route in _WIDER_ROUTES}}
 
 
 class _Structure(NamedTuple):
@@ -332,10 +347,11 @@ def retire_zlane_smem_bytes(qc: QCLayout, parts: int = 1) -> int:
     return 4 * (_retire_structure_words(qc, parts) + C * Z + 2 * R * Z)
 
 
-def retire_zlane_scratch_bytes(qc: QCLayout) -> int:
+def retire_zlane_scratch_bytes(qc: QCLayout, word_bits: int = 32) -> int:
     """Global scratch of one ``retire_zlane`` block: a state word (argmin
-    and signs) per lifted check."""
-    return 4 * qc.num_base_rows * qc.Z
+    and signs) of ``word_bits`` per lifted check (64: ``retire_zlane_wide``,
+    128: ``retire_zlane_w128``)."""
+    return word_bits // 8 * qc.num_base_rows * qc.Z
 
 
 def retire_zlane_plans(qc: QCLayout) -> list[int]:
@@ -346,11 +362,13 @@ def retire_zlane_plans(qc: QCLayout) -> list[int]:
             and retire_zlane_smem_bytes(qc, p) <= _SMEM_BUDGET]
 
 
-def retire_zlane_fits(qc: QCLayout) -> bool:
-    """Whether ``retire_zlane`` takes the code: Z % 8 == 0 (as the TPU
-    kernel), rows of at most 27 members and a frame's beliefs and check
-    state within a block."""
-    return (qc.Z % 8 == 0 and qc.dr_max <= _RETIRE_MAX_DEGREE
+def retire_zlane_fits(qc: QCLayout, word_bits: int = 32) -> bool:
+    """Whether ``retire_zlane`` takes the code on the state word of
+    ``word_bits``: Z % 8 == 0 (as the TPU kernel), rows of at most 27
+    members (58 on ``retire_zlane_wide``'s 64-bit word, 121 on
+    ``retire_zlane_w128``'s 128-bit one) and a frame's beliefs and (alpha*m1,
+    alpha*m2) within a block (the words live in the L2 slice)."""
+    return (qc.Z % 8 == 0 and qc.dr_max <= _max_degree(word_bits)
             and bool(retire_zlane_plans(qc)))
 
 
@@ -426,11 +444,12 @@ def retire_zlane_layered_smem_bytes(qc: QCLayout, frames: int = 1) -> int:
     return 4 * (_layered_structure_words(qc) + frames * frame)
 
 
-def retire_zlane_layered_scratch_bytes(qc: QCLayout) -> int:
+def retire_zlane_layered_scratch_bytes(qc: QCLayout, word_bits: int = 32) -> int:
     """Global scratch of one ``retire_zlane_layered`` frame group:
-    (alpha*m1, alpha*m2), then a state word (argmin and signs), per lifted
-    check."""
-    return 12 * qc.num_base_rows * qc.Z
+    (alpha*m1, alpha*m2), then a state word (argmin and signs) of
+    ``word_bits``, per lifted check: 12 bytes, 16 on
+    ``retire_zlane_layered_wide``'s word, 24 on ``retire_zlane_layered_w128``'s."""
+    return 4 * _state_words(word_bits) * qc.num_base_rows * qc.Z
 
 
 def retire_zlane_layered_plans(qc: QCLayout) -> list[tuple[int, int]]:
@@ -441,11 +460,12 @@ def retire_zlane_layered_plans(qc: QCLayout) -> list[tuple[int, int]]:
     return _layered_plans(qc, lambda f: retire_zlane_layered_smem_bytes(qc, f))
 
 
-def retire_zlane_layered_fits(qc: QCLayout) -> bool:
-    """Whether ``retire_zlane_layered`` takes the code: Z % 8 == 0 (as the
-    TPU kernel), rows of at most 27 members and a frame's beliefs within a
-    block."""
-    return qc.dr_max <= _RETIRE_MAX_DEGREE and bool(retire_zlane_layered_plans(qc))
+def retire_zlane_layered_fits(qc: QCLayout, word_bits: int = 32) -> bool:
+    """Whether ``retire_zlane_layered`` takes the code on the state word of
+    ``word_bits``: Z % 8 == 0 (as the TPU kernel), rows of at most 27
+    members (58 on the 64-bit word, 121 on the 128-bit one) and a frame's
+    beliefs within a block."""
+    return qc.dr_max <= _max_degree(word_bits) and bool(retire_zlane_layered_plans(qc))
 
 
 def retire_layered_sumproduct_smem_bytes(qc: QCLayout, frames: int = 1) -> int:
@@ -480,9 +500,10 @@ def retire_zlane_layered_sumproduct_smem_bytes(qc: QCLayout, frames: int = 1) ->
     return retire_zlane_layered_smem_bytes(qc, frames)
 
 
-def retire_zlane_layered_sumproduct_scratch_bytes(qc: QCLayout) -> int:
+def retire_zlane_layered_sumproduct_scratch_bytes(qc: QCLayout, word_bits: int = 32) -> int:
     """Global scratch of one ``retire_zlane_layered_sumproduct`` frame
-    group: c2v, one float32 per lifted edge."""
+    group: c2v, one float32 per lifted edge, whatever the sign masks' word
+    (``word_bits``)."""
     return 4 * qc.num_base_edges * qc.Z
 
 
@@ -496,11 +517,12 @@ def retire_zlane_layered_sumproduct_plans(qc: QCLayout) -> list[tuple[int, int]]
                           _LAYERED_SUMPRODUCT_MAX_THREADS)
 
 
-def retire_zlane_layered_sumproduct_fits(qc: QCLayout) -> bool:
-    """Whether ``retire_zlane_layered_sumproduct`` takes the code: Z % 8 ==
-    0 (as the TPU kernel), rows of at most 27 members and a frame's beliefs
-    within a block."""
-    return (qc.dr_max <= _RETIRE_MAX_DEGREE
+def retire_zlane_layered_sumproduct_fits(qc: QCLayout, word_bits: int = 32) -> bool:
+    """Whether ``retire_zlane_layered_sumproduct`` takes the code with sign
+    masks of ``word_bits``: Z % 8 == 0 (as the TPU kernel), rows of at most
+    27 members (58 on the 64-bit word, 121 on the 128-bit one) and a
+    frame's beliefs within a block."""
+    return (qc.dr_max <= _max_degree(word_bits)
             and bool(retire_zlane_layered_sumproduct_plans(qc)))
 
 
@@ -510,9 +532,10 @@ def retire_zlane_sumproduct_smem_bytes(qc: QCLayout, parts: int = 1) -> int:
     return 4 * (_retire_structure_words(qc, parts) + qc.num_base_cols * qc.Z)
 
 
-def retire_zlane_sumproduct_scratch_bytes(qc: QCLayout) -> int:
+def retire_zlane_sumproduct_scratch_bytes(qc: QCLayout, word_bits: int = 32) -> int:
     """Global scratch of one ``retire_zlane_sumproduct`` block: c2v, one
-    float32 per lifted edge."""
+    float32 per lifted edge, whatever the sign masks' word
+    (``word_bits``)."""
     return 4 * qc.num_base_edges * qc.Z
 
 
@@ -524,10 +547,11 @@ def retire_zlane_sumproduct_plans(qc: QCLayout) -> list[int]:
             and retire_zlane_sumproduct_smem_bytes(qc, p) <= _SMEM_BUDGET]
 
 
-def retire_zlane_sumproduct_fits(qc: QCLayout) -> bool:
-    """Whether ``retire_zlane_sumproduct`` takes the code: Z % 8 == 0, rows
-    of at most 27 members and a frame's beliefs within a block."""
-    return (qc.Z % 8 == 0 and qc.dr_max <= _RETIRE_MAX_DEGREE
+def retire_zlane_sumproduct_fits(qc: QCLayout, word_bits: int = 32) -> bool:
+    """Whether ``retire_zlane_sumproduct`` takes the code with sign masks of
+    ``word_bits``: Z % 8 == 0, rows of at most 27 members (58 on the 64-bit
+    word, 121 on the 128-bit one) and a frame's beliefs within a block."""
+    return (qc.Z % 8 == 0 and qc.dr_max <= _max_degree(word_bits)
             and bool(retire_zlane_sumproduct_plans(qc)))
 
 
@@ -795,15 +819,15 @@ _RETIRE_SIGNATURES = {
     # track, parts, frames_per_block, grid, word_bits, stream
     "ldpc_retire_minsum": ([_P] * 5 + [_I] * 6 + [_F] + [_I] * 5 + [_P], _I),
     # llr, bits, conv, counter, scratch, structure, B, Z, R, C, K, T, alpha,
-    # track, parts, grid, stream
-    "ldpc_retire_zlane": ([_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P], _I),
+    # track, parts, grid, word_bits, stream
+    "ldpc_retire_zlane": ([_P] * 6 + [_I] * 6 + [_F] + [_I] * 4 + [_P], _I),
     # Z, R, C, K, parts, frames_per_block, word_bits
     "ldpc_retire_smem_bytes": ([_I] * 7, ctypes.c_longlong),
     "ldpc_retire_zlane_smem_bytes": ([_I] * 5, ctypes.c_longlong),
     # Z, R, C, K, parts, frames_per_block, track, word_bits -> blocks per SM
     "ldpc_retire_occupancy": ([_I] * 8, _I),
-    # Z, R, C, K, parts, track -> blocks per SM
-    "ldpc_retire_zlane_occupancy": ([_I] * 6, _I),
+    # Z, R, C, K, parts, track, word_bits -> blocks per SM
+    "ldpc_retire_zlane_occupancy": ([_I] * 7, _I),
     # llr, bits, conv, counter, structure, B, Z, R, C, K, G, T, alpha,
     # track, parts, frames_per_block, grid, word_bits, stream
     "ldpc_retire_layered": ([_P] * 5 + [_I] * 7 + [_F] + [_I] * 5 + [_P], _I),
@@ -819,18 +843,18 @@ _RETIRE_SIGNATURES = {
     # Z, R, C, K, parts, frames_per_block, staged, track, word_bits -> blocks per SM
     "ldpc_retire_sumproduct_occupancy": ([_I] * 9, _I),
     # llr, bits, conv, counter, scratch, structure, B, Z, R, C, K, G, T,
-    # alpha, track, parts, frames_per_block, grid, stream
-    "ldpc_retire_zlane_layered": ([_P] * 6 + [_I] * 7 + [_F] + [_I] * 4 + [_P], _I),
+    # alpha, track, parts, frames_per_block, grid, word_bits, stream
+    "ldpc_retire_zlane_layered": ([_P] * 6 + [_I] * 7 + [_F] + [_I] * 5 + [_P], _I),
     # Z, R, C, K, G, frames_per_block
     "ldpc_retire_zlane_layered_smem_bytes": ([_I] * 6, ctypes.c_longlong),
-    # Z, R, C, K, G, parts, frames_per_block, track -> blocks per SM
-    "ldpc_retire_zlane_layered_occupancy": ([_I] * 8, _I),
+    # Z, R, C, K, G, parts, frames_per_block, track, word_bits -> blocks per SM
+    "ldpc_retire_zlane_layered_occupancy": ([_I] * 9, _I),
     # llr, bits, conv, counter, scratch, structure, B, Z, R, C, K, T,
-    # track, parts, grid, stream
-    "ldpc_retire_zlane_sumproduct": ([_P] * 6 + [_I] * 9 + [_P], _I),
+    # track, parts, grid, word_bits, stream
+    "ldpc_retire_zlane_sumproduct": ([_P] * 6 + [_I] * 10 + [_P], _I),
     "ldpc_retire_zlane_sumproduct_smem_bytes": ([_I] * 5, ctypes.c_longlong),
-    # Z, R, C, K, parts, track -> blocks per SM
-    "ldpc_retire_zlane_sumproduct_occupancy": ([_I] * 6, _I),
+    # Z, R, C, K, parts, track, word_bits -> blocks per SM
+    "ldpc_retire_zlane_sumproduct_occupancy": ([_I] * 7, _I),
     # llr, bits, conv, counter, structure, B, Z, R, C, K, G, T,
     # track, parts, frames_per_block, grid, word_bits, stream
     "ldpc_retire_layered_sumproduct": ([_P] * 5 + [_I] * 12 + [_P], _I),
@@ -839,12 +863,12 @@ _RETIRE_SIGNATURES = {
     # Z, R, C, K, G, parts, frames_per_block, track, word_bits -> blocks per SM
     "ldpc_retire_layered_sumproduct_occupancy": ([_I] * 9, _I),
     # llr, bits, conv, counter, scratch, structure, B, Z, R, C, K, G, T,
-    # track, parts, frames_per_block, grid, stream
-    "ldpc_retire_zlane_layered_sumproduct": ([_P] * 6 + [_I] * 11 + [_P], _I),
+    # track, parts, frames_per_block, grid, word_bits, stream
+    "ldpc_retire_zlane_layered_sumproduct": ([_P] * 6 + [_I] * 12 + [_P], _I),
     # Z, R, C, K, G, frames_per_block
     "ldpc_retire_zlane_layered_sumproduct_smem_bytes": ([_I] * 6, ctypes.c_longlong),
-    # Z, R, C, K, G, parts, frames_per_block, track -> blocks per SM
-    "ldpc_retire_zlane_layered_sumproduct_occupancy": ([_I] * 8, _I),
+    # Z, R, C, K, G, parts, frames_per_block, track, word_bits -> blocks per SM
+    "ldpc_retire_zlane_layered_sumproduct_occupancy": ([_I] * 9, _I),
     "ldpc_retire_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -903,17 +927,18 @@ def retire_sumproduct_plan(qc: QCLayout, track_convergence: bool, parts: int | N
 
 
 def retire_zlane_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
-                      lib=None) -> tuple[int, int]:
-    """(parts, resident blocks per SM) of ``retire_zlane``: of
-    :func:`retire_zlane_plans` (``parts`` if given), the most resident
-    blocks per SM by the runtime's occupancy query, then the most parts."""
+                      lib=None, word_bits: int = 32) -> tuple[int, int]:
+    """(parts, resident blocks per SM) of ``retire_zlane`` on the state word
+    of ``word_bits``: of :func:`retire_zlane_plans` (``parts`` if given),
+    the most resident blocks per SM by the runtime's occupancy query, then
+    the most parts."""
     lib = lib or retire_kernel_library()
     dims = (qc.Z, qc.num_base_rows, qc.num_base_cols, qc.num_base_edges)
     best = (0, 0)
     for p in retire_zlane_plans(qc):
         if parts is not None and p != parts:
             continue
-        per_sm = lib.ldpc_retire_zlane_occupancy(*dims, p, int(track_convergence))
+        per_sm = lib.ldpc_retire_zlane_occupancy(*dims, p, int(track_convergence), word_bits)
         if (per_sm, p) > best[::-1]:
             best = (p, per_sm)
     return best
@@ -941,9 +966,10 @@ def retire_layered_plan(qc: QCLayout, track_convergence: bool, parts: int | None
 
 
 def retire_zlane_layered_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
-                              lib=None) -> tuple[int, int, int]:
+                              lib=None, word_bits: int = 32) -> tuple[int, int, int]:
     """(parts, frames per block, resident blocks per SM) of
-    ``retire_zlane_layered``: of :func:`retire_zlane_layered_plans` with
+    ``retire_zlane_layered`` on the state word of ``word_bits``: of
+    :func:`retire_zlane_layered_plans` with
     ``parts`` if given, the most resident frames per SM by the runtime's
     occupancy query, then the most parts, then the fewest frames per
     block."""
@@ -954,15 +980,17 @@ def retire_zlane_layered_plan(qc: QCLayout, track_convergence: bool, parts: int 
     for p, f in retire_zlane_layered_plans(qc):
         if parts is not None and p != parts:
             continue
-        per_sm = lib.ldpc_retire_zlane_layered_occupancy(*dims, p, f, int(track_convergence))
+        per_sm = lib.ldpc_retire_zlane_layered_occupancy(*dims, p, f, int(track_convergence),
+                                                         word_bits)
         if (per_sm * f, p, -f) > key:
             best, key = (p, f, per_sm), (per_sm * f, p, -f)
     return best
 
 
 def retire_zlane_sumproduct_plan(qc: QCLayout, track_convergence: bool, parts: int | None = None,
-                                 lib=None) -> tuple[int, int]:
-    """(parts, resident blocks per SM) of ``retire_zlane_sumproduct``: of
+                                 lib=None, word_bits: int = 32) -> tuple[int, int]:
+    """(parts, resident blocks per SM) of ``retire_zlane_sumproduct`` with
+    sign masks of ``word_bits``: of
     :func:`retire_zlane_sumproduct_plans` (``parts`` if given), with the
     blocks an SM capped at ``_ZLANE_SUMPRODUCT_BLOCKS_PER_SM`` (what the L2
     holds), the most resident warps per SM by the runtime's occupancy
@@ -974,7 +1002,7 @@ def retire_zlane_sumproduct_plan(qc: QCLayout, track_convergence: bool, parts: i
         if parts is not None and p != parts:
             continue
         per_sm = min(_ZLANE_SUMPRODUCT_BLOCKS_PER_SM, lib.ldpc_retire_zlane_sumproduct_occupancy(
-            *dims, p, int(track_convergence)))
+            *dims, p, int(track_convergence), word_bits))
         if (per_sm * p, p) > key:
             best, key = (p, per_sm), (per_sm * p, p)
     return best
@@ -1007,10 +1035,11 @@ def retire_layered_sumproduct_plan(qc: QCLayout, track_convergence: bool,
 
 
 def retire_zlane_layered_sumproduct_plan(qc: QCLayout, track_convergence: bool,
-                                         parts: int | None = None,
-                                         lib=None) -> tuple[int, int, int]:
+                                         parts: int | None = None, lib=None,
+                                         word_bits: int = 32) -> tuple[int, int, int]:
     """(parts, frames per block, resident blocks per SM) of
-    ``retire_zlane_layered_sumproduct``: of
+    ``retire_zlane_layered_sumproduct`` with sign masks of ``word_bits``:
+    of
     :func:`retire_zlane_layered_sumproduct_plans` (those with ``parts`` if
     given), the most resident frames per SM by the runtime's occupancy
     query, then the fewest parts, then the fewest frames per block.  At NR
@@ -1025,8 +1054,8 @@ def retire_zlane_layered_sumproduct_plan(qc: QCLayout, track_convergence: bool,
     for p, f in retire_zlane_layered_sumproduct_plans(qc):
         if parts is not None and p != parts:
             continue
-        per_sm = lib.ldpc_retire_zlane_layered_sumproduct_occupancy(*dims, p, f,
-                                                                   int(track_convergence))
+        per_sm = lib.ldpc_retire_zlane_layered_sumproduct_occupancy(
+            *dims, p, f, int(track_convergence), word_bits)
         if (per_sm * f, -p, -f) > key:
             best, key = (p, f, per_sm), (per_sm * f, -p, -f)
     return best
@@ -1035,10 +1064,9 @@ def retire_zlane_layered_sumproduct_plan(qc: QCLayout, track_convergence: bool,
 def _route(kind: str, qc: QCLayout, mode: str, schedule: str) -> str:
     """The kernel a decoder of ``kind`` launches (its ``LAUNCHES`` key): each
     mode and schedule on the retiring kernel of its size where that takes
-    the code; on a ``fused`` decoder, rows of 28 to 58 members on the same
-    kernel on the 64-bit state word (the route's ``*_wide`` form) and rows
-    of 59 to 121 on the 128-bit one (its ``*_w128`` form); the rest
-    (``fused``: rows over 121 members; ``fused_zlane``: over 27) on
+    the code; rows of 28 to 58 members on the same kernel on the 64-bit
+    state word (the route's ``*_wide`` form) and rows of 59 to 121 on the
+    128-bit one (its ``*_w128`` form); the rest (rows over 121 members) on
     ``kind``'s own."""
     fits = {("fused", "minsum", "flooding"): ("fused_retire", retire_kernel_fits),
             ("fused", "minsum", "layered"): ("retire_layered", retire_layered_fits),
@@ -1055,10 +1083,9 @@ def _route(kind: str, qc: QCLayout, mode: str, schedule: str) -> str:
     route, takes = fits.get((kind, mode, schedule), (kind, None))
     if takes is None or takes(qc):
         return route
-    if kind == "fused":
-        for bits, suffix in _WORD_SUFFIX.items():
-            if takes(qc, word_bits=bits):
-                return route + suffix
+    for bits, suffix in _WORD_SUFFIX.items():
+        if takes(qc, word_bits=bits):
+            return route + suffix
     return kind
 
 
@@ -1101,11 +1128,11 @@ class FusedDecoder:
     ``retire_zlane``, ``retire_zlane_layered``, ``retire_zlane_sumproduct``
     and ``retire_zlane_layered_sumproduct`` (:func:`retire_zlane_fits`,
     :func:`retire_zlane_layered_fits`, :func:`retire_zlane_sumproduct_fits`,
-    :func:`retire_zlane_layered_sumproduct_fits`).  On a "fused" decoder,
-    rows of 28 to 58 members run on the four B1 kernels' 64-bit state word
-    (``WIDE_ROUTES``, each ``fits`` with ``word_bits=64``) and rows of 59 to
-    121 on their 128-bit word (``W128_ROUTES``, ``word_bits=128``); the rest
-    (rows over 121 members, or over 27 on "fused_zlane") runs on the
+    :func:`retire_zlane_layered_sumproduct_fits`).  Rows of 28 to 58
+    members run on the same kernels' 64-bit state word (``WIDE_ROUTES``,
+    ``ZLANE_WIDE_ROUTES``, each ``fits`` with ``word_bits=64``) and rows of
+    59 to 121 on their 128-bit word (``W128_ROUTES``, ``ZLANE_W128_ROUTES``,
+    ``word_bits=128``); the rest (rows over 121 members) runs on the
     ``kind`` kernel.
     ``retire`` says whether the route is one of the retiring kernels
     (``RETIRING``).
@@ -1163,7 +1190,9 @@ class FusedDecoder:
     def _launch_zlane(self, llr: torch.Tensor):
         """``fused_zlane`` on ``llr`` (contiguous, on a card) whatever the
         route: the kernel every mode and schedule ran on before the
-        ``retire_zlane*`` kernels, kept so each can be timed beside it."""
+        ``retire_zlane*`` kernels (and on rows of 28 to 121 members before
+        their ``*_wide`` and ``*_w128`` forms), kept so each can be timed
+        beside it."""
         if self.kind != "fused_zlane":
             raise ValueError(f"a {self.kind} decoder has no zlane launch")
         return self._launch_csr(llr, "fused_zlane")
@@ -1235,13 +1264,14 @@ class FusedDecoder:
                 # flag: staged LLRs (retire_sumproduct).
                 flag, frames = False, 1
                 if route == "retire_zlane":
-                    p, per_sm = retire_zlane_plan(self.qc, self.track_convergence, parts, lib)
+                    p, per_sm = retire_zlane_plan(self.qc, self.track_convergence, parts, lib,
+                                                  word_bits)
                 elif route == "retire_zlane_sumproduct":
                     p, per_sm = retire_zlane_sumproduct_plan(self.qc, self.track_convergence,
-                                                             parts, lib)
+                                                             parts, lib, word_bits)
                 elif route == "retire_zlane_layered":
                     p, frames, per_sm = retire_zlane_layered_plan(self.qc, self.track_convergence,
-                                                                  parts, lib)
+                                                                  parts, lib, word_bits)
                 elif route == "retire_layered":
                     p, frames, per_sm = retire_layered_plan(self.qc, self.track_convergence,
                                                             parts, lib, word_bits)
@@ -1250,7 +1280,7 @@ class FusedDecoder:
                         self.qc, self.track_convergence, parts, lib, word_bits)
                 elif route == "retire_zlane_layered_sumproduct":
                     p, frames, per_sm = retire_zlane_layered_sumproduct_plan(
-                        self.qc, self.track_convergence, parts, lib)
+                        self.qc, self.track_convergence, parts, lib, word_bits)
                 elif route == "retire_sumproduct":
                     p, frames, flag, per_sm = retire_sumproduct_plan(
                         self.qc, self.track_convergence, parts, lib, word_bits)
@@ -1275,24 +1305,25 @@ class FusedDecoder:
             args = (B, st.Z, st.R, st.C, st.K, self.max_iterations, self.alpha, track, p)
             G = structure.shape[0] - 2 * st.K - st.R - 2
             if route == "retire_zlane":
-                scratch = torch.empty((grid * retire_zlane_scratch_bytes(self.qc),),
+                scratch = torch.empty((grid * retire_zlane_scratch_bytes(self.qc, word_bits),),
                                       dtype=torch.uint8, device=llr.device)
                 rc = lib.ldpc_retire_zlane(*pointers, scratch.data_ptr(), structure.data_ptr(),
-                                           *args, grid, stream)
+                                           *args, grid, word_bits, stream)
             elif route == "retire_zlane_layered":
                 scratch = torch.empty(
-                    (grid * frames * retire_zlane_layered_scratch_bytes(self.qc),),
+                    (grid * frames * retire_zlane_layered_scratch_bytes(self.qc, word_bits),),
                     dtype=torch.uint8, device=llr.device)
                 rc = lib.ldpc_retire_zlane_layered(
                     *pointers, scratch.data_ptr(), structure.data_ptr(), B, st.Z, st.R, st.C,
-                    st.K, G, self.max_iterations, self.alpha, track, p, frames, grid, stream)
+                    st.K, G, self.max_iterations, self.alpha, track, p, frames, grid, word_bits,
+                    stream)
             elif route == "retire_zlane_layered_sumproduct":
                 scratch = torch.empty(
                     (grid * frames * retire_zlane_layered_sumproduct_scratch_bytes(self.qc),),
                     dtype=torch.uint8, device=llr.device)
                 rc = lib.ldpc_retire_zlane_layered_sumproduct(
                     *pointers, scratch.data_ptr(), structure.data_ptr(), B, st.Z, st.R, st.C,
-                    st.K, G, self.max_iterations, track, p, frames, grid, stream)
+                    st.K, G, self.max_iterations, track, p, frames, grid, word_bits, stream)
             elif route == "retire_layered_sumproduct":
                 rc = lib.ldpc_retire_layered_sumproduct(
                     *pointers, structure.data_ptr(), B, st.Z, st.R, st.C, st.K, G,
@@ -1302,7 +1333,7 @@ class FusedDecoder:
                                       dtype=torch.uint8, device=llr.device)
                 rc = lib.ldpc_retire_zlane_sumproduct(
                     *pointers, scratch.data_ptr(), structure.data_ptr(), B, st.Z, st.R, st.C,
-                    st.K, self.max_iterations, track, p, grid, stream)
+                    st.K, self.max_iterations, track, p, grid, word_bits, stream)
             elif route == "retire_sumproduct":
                 rc = lib.ldpc_retire_sumproduct(*pointers, structure.data_ptr(), B, st.Z, st.R,
                                                 st.C, st.K, self.max_iterations, track, p,
@@ -1410,7 +1441,10 @@ def make_fused_minsum_zlane(
     they converge, the beliefs in shared memory and the check state, or part
     of it, in each frame group's slice of a global scratch that the L2 holds
     (R*Z*4 bytes of state words; K*Z*4 bytes of c2v for sum-product, one
-    block an SM for the flooding schedule).  Codes with rows of more than 27 members
+    block an SM for the flooding schedule).  Rows of 28 to 58 members run
+    on the same kernels' 64-bit state word (``ZLANE_WIDE_ROUTES``), rows of
+    59 to 121 on their 128-bit word (``ZLANE_W128_ROUTES``), whose slices
+    grow with the word.  Codes with rows of more than 121 members
     run on ``fused_zlane``, one frame per thread block at a time,
     each block with K*Z*4 bytes of global c2v scratch (default: two blocks
     per streaming multiprocessor).  ``batch_tile``, for any of them, caps

@@ -4,11 +4,20 @@ counterpart of ``tools/probe_agg_mxu.py``).
 The aggregation stage of a message-GNN layer, iterated L times over the same
 features: per base row, the mean of its members' features aligned to the
 check, written back to each member rolled to its variable.  Two variants of
-one hand-written CUDA kernel (``ops/csrc/probe_agg_mxu.cu``):
+hand-written CUDA kernels (``ops/csrc/probe_agg_mxu.cu``), each warp a task
+of hidden units of one (frame, base row) for all L iterations:
 
-* ``vpu``: the alignment by a circulant shift is an index on the CUDA cores;
+* ``vpu``: the alignment by a circulant shift is an index on the CUDA cores:
+  a warp shuffle between the lanes of a Z-lane segment where Z <= 32
+  (:func:`vpu_in_registers`), else a read of the warp's slice of shared
+  memory;
 * ``mxu``: the alignment is a product with a 0/1 rotation matrix on the
-  tensor cores (bf16 in, float32 accumulate), Z padded to a multiple of 16.
+  tensor cores (``mma.sync``, bf16 in, float32 accumulate), Z padded to a
+  multiple of 32; the rotation fragment is built in registers from the
+  shift, so no rotation matrix is stored.
+
+Both take rows of at most ``MAX_DEG`` members (the kernels specialise on a
+row's degree).
 
 Features are (frames, K, h, Z) bf16.  The TPU tool packs them as (K*h,
 ntiles*128) with frame ``tile * Bt + b`` at lane ``z * Bt + b``, Bt = 128 //
@@ -23,7 +32,8 @@ Usage:
 The default device is the card; without one it raises.  ``--device cpu``
 runs the plain PyTorch version, which the kernel repeats.  On the card each
 variant is held against the plain version (``vpu`` identical, ``mxu`` within
-one bf16 step) and timed; ``main(argv)`` returns what it prints.
+one bf16 step, both identical on :func:`exact_features`) and timed;
+``main(argv)`` returns what it prints.
 """
 from __future__ import annotations
 
@@ -43,12 +53,19 @@ from ldpc_tpu_torch.ops.fused_gnn import _PlainIndex, _r, _row_sum
 VARIANTS = {"vpu": 0, "mxu": 1}
 LAUNCHES: dict[str, int] = {name: 0 for name in VARIANTS}
 CHECK_TOL = 2e-2  # the JAX tool's bar against its reference, times the largest |value|
+EXACT_MAX = 64  # exact_features: integers in [-EXACT_MAX, EXACT_MAX]
+MAX_DEG = 24  # kMaxDeg in ops/csrc/probe_agg_mxu.cu: members a row may have
+TILE_ROWS = 16  # hidden units of an mxu task (kTileRows)
+MXU_MAX_WARPS = 4  # mxu warps a block at most
+# One thread block can use 227 KB (232,448 bytes) of shared memory on Hopper;
+# 1 KB is kept back.
+_SMEM_BUDGET = 232_448 - 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # variant, in, out, graph, inv, rot, frames, K, R, H, Z, Zp, max_deg, L, stream
-    "ldpc_probe_agg": ([_I] + [_P] * 5 + [_I] * 8 + [_P], _I),
-    "ldpc_probe_smem_bytes": ([_I] * 4, ctypes.c_longlong),  # variant, H, Zp, max_deg
+    # variant, in, out, graph, inv, frames, K, R, H, Z, max_deg, L, warps, stream
+    "ldpc_probe_agg": ([_I] + [_P] * 4 + [_I] * 8 + [_P], _I),
+    "ldpc_probe_smem_bytes": ([_I] * 4, ctypes.c_longlong),  # variant, Z, max_deg, warps
     "ldpc_probe_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -58,6 +75,31 @@ def kernel_library():
     from ldpc_tpu_torch.ops import _build
 
     return _build.load("probe_agg_mxu", _SIGNATURES)
+
+
+def vpu_in_registers(Z: int) -> bool:
+    """Whether ``vpu`` keeps a row's members in registers and aligns them by
+    warp shuffles (Z <= 32); else it uses a slice of shared memory a warp."""
+    return Z <= 32
+
+
+def smem_bytes(variant: str, Z: int, max_deg: int, warps: int = MXU_MAX_WARPS) -> int:
+    """Dynamic shared memory of one block (``ldpc_probe_smem_bytes``):
+    ``vpu`` in registers none, in shared memory (max_deg + 1) * Z floats for
+    each of its 8 warps; ``mxu``, for each of its ``warps`` warps, the row's
+    shifts (max_deg int32, rounded up to 16 bytes) and (max_deg + 1) * 16 *
+    (Zp + 8) bf16 (Zp: Z rounded up to 32, rows padded by 8)."""
+    if variant == "vpu":
+        return 0 if vpu_in_registers(Z) else 4 * 8 * (max_deg + 1) * Z
+    Zp = -(-Z // 32) * 32
+    return warps * (4 * -(-max_deg // 4) * 4 + 2 * (max_deg + 1) * TILE_ROWS * (Zp + 8))
+
+
+def mxu_warps(Z: int, max_deg: int) -> int:
+    """Warps an ``mxu`` block takes: up to ``MXU_MAX_WARPS`` within shared
+    memory (0 if one warp's slice does not fit)."""
+    return max((w for w in range(1, MXU_MAX_WARPS + 1)
+                if smem_bytes("mxu", Z, max_deg, w) <= _SMEM_BUDGET), default=0)
 
 
 def frames_of(ntiles: int, Z: int) -> int:
@@ -114,20 +156,24 @@ class Probe:
             raise ValueError(f"the probe kernel needs hidden_dim % 16 == 0, got {hidden_dim}")
         self.qc, self.h, self.L, self.variant = qc, hidden_dim, int(iterations), variant
         self.device = device
-        K, R, Z = qc.num_base_edges, qc.num_base_rows, qc.Z
+        K, Z = qc.num_base_edges, qc.Z
         members = [[int(k) for k in row if k != K] for row in qc.row_edges]
         self.max_deg = max(len(m) for m in members)
-        self.Zp = -(-Z // 16) * 16
+        if self.max_deg > MAX_DEG:
+            raise ValueError(f"the probe's kernels take rows of at most {MAX_DEG} members, "
+                             f"got {self.max_deg}")
+        # mxu: warps a block (each with its slice of shared memory).
+        self.warps = mxu_warps(Z, self.max_deg) if variant == "mxu" else 1
+        if not self.warps:
+            raise ValueError(f"the mxu probe's slice of one warp exceeds shared memory at "
+                             f"Z={Z}, rows of {self.max_deg} members")
         row_ptr = np.cumsum([0] + [len(m) for m in members])
+        # row_ptr, then each row's edges and shifts in row order.
         self.graph = torch.from_numpy(np.concatenate(
-            [row_ptr, [k for m in members for k in m], qc.edge_shift]).astype(np.int32)).to(device)
+            [row_ptr, [k for m in members for k in m],
+             [qc.edge_shift[k] for m in members for k in m]]).astype(np.int32)).to(device)
         deg = np.maximum(np.array([len(m) for m in members]), 1)
         self.inv_dr = torch.from_numpy((1.0 / deg).astype(np.float32)).to(device)
-        rot = np.zeros((Z, self.Zp, self.Zp), np.float32)  # rot[u][v][w] = [v == (w + u) mod Z]
-        w = np.arange(Z)
-        for u in range(Z):
-            rot[u, (w + u) % Z, w] = 1.0
-        self.rot = torch.from_numpy(rot).to(device=device, dtype=torch.bfloat16)
         self._ix = None
 
     def _check(self, feats: torch.Tensor) -> None:
@@ -160,9 +206,8 @@ class Probe:
             stream = torch.cuda.current_stream(feats.device).cuda_stream
             rc = lib.ldpc_probe_agg(VARIANTS[self.variant], feats.data_ptr(), out.data_ptr(),
                                     self.graph.data_ptr(), self.inv_dr.data_ptr(),
-                                    self.rot.data_ptr(), feats.shape[0], qc.num_base_edges,
-                                    qc.num_base_rows, self.h, qc.Z, self.Zp, self.max_deg,
-                                    self.L, stream)
+                                    feats.shape[0], qc.num_base_edges, qc.num_base_rows,
+                                    self.h, qc.Z, self.max_deg, self.L, self.warps, stream)
         if rc != 0:
             msg = lib.ldpc_probe_cuda_error_string(rc).decode()
             raise RuntimeError(f"probe {self.variant} kernel launch failed: CUDA error {rc} "
@@ -191,6 +236,18 @@ def random_features(qc: QCLayout, h: int, frames: int, device: torch.device,
     gen = torch.Generator(device=device).manual_seed(seed)
     return torch.randn((frames, qc.num_base_edges, h, qc.Z), generator=gen,
                        device=device).to(torch.bfloat16)
+
+
+def exact_features(qc: QCLayout, h: int, frames: int, device: torch.device,
+                   seed: int = 0) -> torch.Tensor:
+    """Integer-valued features in [-EXACT_MAX, EXACT_MAX], bf16: every row sum
+    of the first iteration is an integer of at most 11 bits, and after it
+    every member of a row carries the row mean, so each later sum adds deg
+    equal bf16 values; each is exact in any order, and ``mxu`` must then
+    equal ``vpu`` and the plain version bit for bit."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-EXACT_MAX, EXACT_MAX + 1, (frames, qc.num_base_edges, h, qc.Z),
+                         generator=gen, device=device).to(torch.bfloat16)
 
 
 def _time(fn, feats, reps: int, windows: int, cuda: bool) -> list[float]:
@@ -245,13 +302,16 @@ def main(argv=None) -> dict:
     cuda = dev.type == "cuda"
     results = {}
     ref = reference(feats, qc, L)
+    exact = exact_features(qc, h, frames, dev, seed=1)
+    ref_exact = reference(exact, qc, L)
     scale = ref.to(torch.float32).abs().max().item()
     for variant in VARIANTS:
         probe = make_probe(qc, h, L, variant, dev)
         out = probe(feats)
         diff = (out.to(torch.float32) - ref.to(torch.float32)).abs().max().item()
         res = {"max_abs_err": diff, "identical": bool(torch.equal(out, ref)),
-               "bf16_steps": bf16_steps(out, ref)}
+               "bf16_steps": bf16_steps(out, ref),
+               "identical_on_exact": bool(torch.equal(probe(exact), ref_exact))}
         if args.check:
             print(f"{variant}: max|diff| {diff:.3e} (scale {scale:.3e})")
             if diff > CHECK_TOL * scale:

@@ -24,7 +24,8 @@ msg_gnn_v4 at h=128 (warpgroup tiles on wgmma, their weights streamed through a
 ring of chunks) to the same bars, also over ten layers and several frames a
 block, their SASS on wgmma.  The aggregation
 probe: vpu identical to its plain version, mxu within one bf16 step (the
-tensor cores' float32 sums need not round as IEEE additions do).
+tensor cores' float32 sums need not round as IEEE additions do), both
+identical on integer-valued features.
 """
 import pytest
 import torch
@@ -226,6 +227,35 @@ def test_w128_rows_match_plain(name, track, early_exit, mode, schedule):
 
 
 @pytest.mark.parametrize("mode,schedule", WIDE_SCHEDULES)
+@pytest.mark.parametrize("track,early_exit", [TRACKING, THROUGHPUT, EARLY_EXIT])
+@pytest.mark.parametrize("name", ["w31", "w58", "w64", "w121", "ieee384", "array256"])
+def test_zlane_wide_rows_match_plain(name, track, early_exit, mode, schedule):
+    """The four large-Z kernels on the 64-bit word (rows of 31 and 58 at
+    Z=8, of 32 at Z=384, not a power of two) and on the 128-bit word (rows
+    of 64 and 121 at Z=8, of 64 at Z=256, a power of two), one launch of
+    the route and no other kernel: min-sum bits and conv_iter identical to
+    the plain version, sum-product at its bars, and both identical to
+    fused_zlane (_launch_zlane), on frames that never converge, that
+    converge early and a mix."""
+    from test_torch_zlane_retire_wide import ROUTE, array_256, code, ieee_384
+
+    qc = {"ieee384": ieee_384, "array256": array_256}.get(name, lambda: code(name))()
+    suffix = "_wide" if qc.dr_max <= 58 else "_w128"
+    dec = fm.make_fused_minsum_zlane(qc, 12, 0.75 if mode == "minsum" else 1.0, mode=mode,
+                                     schedule=schedule, track_convergence=track,
+                                     early_exit=early_exit)
+    assert dec.route == ROUTE[mode, schedule] + suffix
+    large = qc.Z > 8
+    for snr_db in ((5.5, 7.0, 9.0) if large else (1.0, 6.0, 8.0)):
+        llr = _llr(qc.num_vars, 9 if large else 37, snr_db, seed=qc.dr_max + qc.Z)
+        before = dict(fm.LAUNCHES)
+        out = dec(llr)
+        moved = {k: fm.LAUNCHES[k] - before[k] for k in before}
+        assert moved == {k: int(k == dec.route) for k in before}
+        _assert_zlane_path(dec, llr, out)
+
+
+@pytest.mark.parametrize("mode,schedule", WIDE_SCHEDULES)
 def test_fused_holds_rows_over_121(mode, schedule):
     """A row of 122 members, more than the 128-bit word holds: every
     schedule launches fused, held against the plain version (min-sum
@@ -364,7 +394,11 @@ def test_minsum_flooding_launches_retire_kernel():
                      "retire_layered": 2, "retire_sumproduct": 1, "retire_zlane_layered": 0,
                      "retire_zlane_sumproduct": 0, "retire_layered_sumproduct": 1,
                      "retire_zlane_layered_sumproduct": 0,
-                     **{r: 0 for r in fm.WIDE_ROUTES + fm.W128_ROUTES}}
+                     **{r: 0 for r in fm.WIDE_ROUTES + fm.W128_ROUTES},
+                     "retire_zlane_wide": 0, "retire_zlane_layered_wide": 0,
+                     "retire_zlane_sumproduct_wide": 0, "retire_zlane_layered_sumproduct_wide": 0,
+                     "retire_zlane_w128": 0, "retire_zlane_layered_w128": 0,
+                     "retire_zlane_sumproduct_w128": 0, "retire_zlane_layered_sumproduct_w128": 0}
 
 
 def test_zlane_frames_per_block_loop():
@@ -461,7 +495,11 @@ def test_minsum_flooding_at_z384_launches_retire_zlane():
                      "retire_layered": 0, "retire_sumproduct": 0, "retire_zlane_layered": 0,
                      "retire_zlane_sumproduct": 0, "retire_layered_sumproduct": 0,
                      "retire_zlane_layered_sumproduct": 0,
-                     **{r: 0 for r in fm.WIDE_ROUTES + fm.W128_ROUTES}}
+                     **{r: 0 for r in fm.WIDE_ROUTES + fm.W128_ROUTES},
+                     "retire_zlane_wide": 0, "retire_zlane_layered_wide": 0,
+                     "retire_zlane_sumproduct_wide": 0, "retire_zlane_layered_sumproduct_wide": 0,
+                     "retire_zlane_w128": 0, "retire_zlane_layered_w128": 0,
+                     "retire_zlane_sumproduct_w128": 0, "retire_zlane_layered_sumproduct_w128": 0}
     fm.make_fused_minsum_zlane(qc, 5, mode="sumproduct")(llr)
     fm.make_fused_minsum_zlane(qc, 5, schedule="layered")(llr)
     torch.cuda.synchronize()
@@ -1529,6 +1567,35 @@ def test_probe_kernel_matches_plain(variant, name, Z, h, L, frames):
         assert torch.equal(out_k, out_p)
     else:
         assert pm.bf16_steps(out_k, out_p) <= 1.0
+
+
+@pytest.mark.parametrize("variant", ["vpu", "mxu"])
+@pytest.mark.parametrize("name,Z,h,L,frames", [("toy_4x8", 4, 16, 3, 5), ("nr_2_0_4", 8, 32, 4, 3),
+                                               ("nr_2_0_32", 32, 64, 10, 3),
+                                               ("nr_2_0_32", 64, 32, 5, 2)])
+def test_probe_kernels_exact_features(variant, name, Z, h, L, frames):
+    """B10 on each of its paths (vpu's shuffles at Z=4, 8 and 32, its
+    shared-memory slices at Z=64; mxu's tensor-core tiles at all four):
+    random features at the bars (vpu identical, mxu within one bf16 step),
+    and on integer-valued features, whose every sum is exact in any order,
+    both identical to the plain version."""
+    from ldpc_tpu_torch.tools import probe_agg_mxu as pm
+
+    qc = tcodes.qc_layout(tcodes.get_base_graph(name), Z)
+    assert pm.vpu_in_registers(Z) == (Z <= 32)
+    probe = pm.make_probe(qc, h, L, variant)
+    dev = torch.device("cuda")
+    for exact in (False, True):
+        make = pm.exact_features if exact else pm.random_features
+        feats = make(qc, h, frames, dev, seed=Z + exact)
+        before = pm.LAUNCHES[variant]
+        out_k, out_p = probe(feats), probe.plain(feats)
+        torch.cuda.synchronize()
+        assert pm.LAUNCHES[variant] == before + 1
+        if exact or variant == "vpu":
+            assert torch.equal(out_k, out_p)
+        else:
+            assert pm.bf16_steps(out_k, out_p) <= 1.0
 
 
 def test_probe_raising_paths():

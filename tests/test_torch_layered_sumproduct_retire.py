@@ -365,7 +365,8 @@ class _OccupancyModel:
     def ldpc_retire_layered_sumproduct_occupancy(self, Z, R, C, K, G, p, f, track, word_bits):
         return self._blocks(p, f, fm.retire_layered_sumproduct_smem_bytes(self.qc, f))
 
-    def ldpc_retire_zlane_layered_sumproduct_occupancy(self, Z, R, C, K, G, p, f, track):
+    def ldpc_retire_zlane_layered_sumproduct_occupancy(self, Z, R, C, K, G, p, f, track,
+                                                       word_bits):
         return self._blocks(p, f, fm.retire_zlane_layered_sumproduct_smem_bytes(self.qc, f))
 
 
@@ -391,7 +392,8 @@ def test_routes_and_launch_counters():
     decoder and to retire_zlane_layered_sumproduct on a fused_zlane decoder,
     every flag set, both keeping the CSR structure for the side doors; a row
     of 31 members goes to retire_layered_sumproduct_wide on a fused decoder
-    and keeps fused_zlane; a CPU tensor moves no launch counter."""
+    and to retire_zlane_layered_sumproduct_wide on a fused_zlane one, a row
+    of 122 keeps fused_zlane; a CPU tensor moves no launch counter."""
     for name, Z in [("toy_4x8", 4), ("nr_2_0_4", 4), ("nr_2_0_32", 24), ("nr_2_0_32", 32),
                     ("nr_2_0_32", 64)]:
         for track, early_exit in ((True, False), (False, False), (True, True)):
@@ -408,7 +410,10 @@ def test_routes_and_launch_counters():
     assert fm.retire_layered_sumproduct_fits(wide, word_bits=64)
     assert not fm.retire_zlane_layered_sumproduct_fits(wide)
     assert _build(wide, 5).route == "retire_layered_sumproduct_wide"
-    assert _build(wide, 5, zlane=True).route == "fused_zlane"
+    assert _build(wide, 5, zlane=True).route == "retire_zlane_layered_sumproduct_wide"
+    from test_torch_retire_wide import row_code
+
+    assert _build(row_code(122, cols=124, Z=8), 5, zlane=True).route == "fused_zlane"
     assert {"retire_layered_sumproduct", "retire_zlane_layered_sumproduct"} <= set(fm.RETIRING)
     assert set(fm.RETIRING) <= set(fm.LAUNCHES)
     launches = dict(fm.LAUNCHES)

@@ -91,3 +91,74 @@ def test_bf16_steps_and_raising_paths():
     probe = tp.make_probe(qc, 16, 2, "vpu", device="cpu")
     with pytest.raises(ValueError, match="bf16"):
         probe(torch.zeros((2, qc.num_base_edges, 16, 4)))
+
+
+def test_kernel_plans_and_arguments():
+    """What the wrapper hands the kernels: no rotation tensor (mxu builds
+    its 0/1 fragments in registers), the shared memory of each path with
+    fixed byte counts, and the mxu warps a block within shared memory."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+    probe = tp.make_probe(qc, 64, 10, "mxu", device="cpu")
+    assert not hasattr(probe, "rot") and probe.max_deg == 10 and probe.warps == 4
+    argtypes, _ = tp._SIGNATURES["ldpc_probe_agg"]
+    assert len(argtypes) == 14  # variant, in, out, graph, inv, 8 ints, stream
+    assert tp.vpu_in_registers(32) and tp.vpu_in_registers(4) and not tp.vpu_in_registers(64)
+    # row_ptr, then each row's edges and shifts in row order
+    K, R = qc.num_base_edges, qc.num_base_rows
+    graph = probe.graph.numpy()
+    edges = graph[R + 1:R + 1 + K]
+    np.testing.assert_array_equal(graph[R + 1 + K:], np.asarray(qc.edge_shift)[edges])
+    assert sorted(edges.tolist()) == list(range(K)) and graph.size == R + 1 + 2 * K
+    assert tp.smem_bytes("vpu", 32, 10) == 0
+    assert tp.smem_bytes("vpu", 64, 10) == 22_528 == 4 * 8 * 11 * 64
+    assert tp.smem_bytes("mxu", 32, 10) == 56_512 == 4 * (4 * 12 + 2 * 11 * 16 * 40)
+    assert tp.smem_bytes("mxu", 4, 5, 1) == 4 * 8 + 2 * 6 * 16 * 40  # Z=4 pads to 32 lanes
+    assert tp.mxu_warps(128, 10) == 4 and tp.mxu_warps(384, 10) == 1
+    assert tp.smem_bytes("mxu", 384, 10, 2) > tp._SMEM_BUDGET >= tp.smem_bytes("mxu", 384, 10, 1)
+    assert tp.mxu_warps(4096, 10) == 0
+    wide = np.full((2, 26), -1)
+    wide[0] = 0
+    wide[1, :2] = 1
+    with pytest.raises(ValueError, match="at most 24 members"):
+        tp.make_probe(tcodes.qc_layout(tcodes.BaseGraph("wide", wide), 4), 16, 1, "vpu",
+                      device="cpu")
+    with pytest.raises(ValueError, match="exceeds shared memory"):
+        tp.Probe(tcodes.qc_layout(tcodes.get_base_graph("toy_4x8"), 4096), 16, 1, "mxu",
+                 torch.device("cpu"))
+
+
+def _sum_model(feats: torch.Tensor, qc, L: int, reverse: bool) -> torch.Tensor:
+    """The aggregation with each row sum taken in float64 and in ``reverse``
+    member order, then float32, times float32(1 / degree), to bf16."""
+    K, Z = qc.num_base_edges, qc.Z
+    cur = feats.to(torch.float64)
+    z = torch.arange(Z)
+    for _ in range(L):
+        new = cur.clone()
+        for row in qc.row_edges:
+            members = [int(k) for k in row if k != K]
+            inv = torch.tensor(1.0 / len(members), dtype=torch.float32)
+            acc = torch.zeros_like(cur[:, 0])
+            for k in (reversed(members) if reverse else members):
+                acc = acc + cur[:, k][..., (z + int(qc.edge_shift[k])) % Z]
+            mean = (acc.to(torch.float32) * inv).to(torch.bfloat16).to(torch.float64)
+            for k in members:
+                new[:, k] = mean[..., (z - int(qc.edge_shift[k])) % Z]
+        cur = new
+    return cur.to(torch.bfloat16)
+
+
+def test_exact_features_sum_exactly_in_any_order():
+    """exact_features, the card's exact case: integers in [-64, 64] whose
+    sums are exact in any order and any precision, so a model that sums in
+    float64 in reverse member order equals the plain version bit for bit
+    after every iteration count."""
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_4"), 8)
+    feats = tp.exact_features(qc, 16, 6, torch.device("cpu"), seed=3)
+    assert feats.dtype == torch.bfloat16 and feats.shape == (6, qc.num_base_edges, 16, 8)
+    values = feats.to(torch.float32)
+    assert bool((values == values.round()).all()) and values.abs().max().item() == tp.EXACT_MAX
+    for L in (1, 2, 4):
+        want = tp.reference(feats, qc, L)
+        assert torch.equal(_sum_model(feats, qc, L, reverse=True), want)
+        assert torch.equal(_sum_model(feats, qc, L, reverse=False), want)

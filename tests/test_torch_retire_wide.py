@@ -261,20 +261,27 @@ class Word64:
         return _flip(v, ((w << U64(sa)) >> U64(32)).astype(U32))
 
 
+def _zero_state(B: int, RZ: int, KZ: int, word):
+    """The models' check state in arrays of their own: A (B, RZ, 2), W of
+    ``word`` and check-aligned c2v (B, KZ)."""
+    return np.zeros((B, RZ, 2), f32), word.zeros((B, RZ)), np.zeros((B, KZ), f32)
+
+
 def flooding_model(qc, llr: np.ndarray, T: int, track: bool, mode: str, alpha: float,
-                   word=Word64):
+                   word=Word64, state=_zero_state):
     """retire_minsum_kernel / retire_sumproduct_kernel on ``word`` (the
     64-bit one by default; decode_frames): a check pass that reads the
-    syndrome of the beliefs it reads, retirement, a column pass.  Returns
-    bits, conv_iter and, per iteration, (live frames, beliefs, c2v in the
-    plain layout)."""
+    syndrome of the beliefs it reads, retirement, a column pass.  ``state``
+    gives the (A, W, c2v) arrays the kernel reads and writes (its slices of
+    scratch for the large-Z kernels), which are cleared first, as
+    clear_state clears them.  Returns bits, conv_iter and, per iteration,
+    (live frames, beliefs, c2v in the plain layout)."""
     sumproduct = mode == "sumproduct"
     m = _Frames(qc, llr, per_edge=sumproduct, word_bits=word.bits)
     st, Z, z, B = m.st, m.Z, m.z, m.B
     alpha = f32(alpha)
-    A = np.zeros((B, st.R * Z, 2), f32)
-    W = word.zeros((B, st.R * Z))
-    c2v = np.zeros((B, st.K * Z), f32)  # sum-product: check-aligned
+    A, W, c2v = state(B, st.R * Z, st.K * Z, word)  # sum-product's c2v: check-aligned
+    A[...], W[...], c2v[...] = 0, 0, 0
     m.conv = np.full(B, T, np.int32)
     for t in range(T):
         violated = np.zeros(B, bool)
@@ -318,19 +325,18 @@ def flooding_model(qc, llr: np.ndarray, T: int, track: bool, mode: str, alpha: f
 
 
 def layered_model(qc, llr: np.ndarray, T: int, track: bool, mode: str, alpha: float,
-                  word=Word64):
+                  word=Word64, state=_zero_state):
     """retire_layered_kernel / retire_layered_sumproduct_kernel on ``word``
     (the 64-bit one by default; layered_frames, one part): rows in order,
     each member's belief (belief + new) - old, a parity pass after every
-    sweep but the last, retirement.  Returns as flooding_model (live: the
-    frames that ran the sweep)."""
+    sweep but the last, retirement.  ``state`` as flooding_model's, never
+    cleared: the first sweep reads none of it (old c2v +0.0).  Returns as
+    flooding_model (live: the frames that ran the sweep)."""
     sumproduct = mode == "sumproduct"
     m = _Frames(qc, llr, per_edge=False, word_bits=word.bits)
     st, Z, z, B = m.st, m.Z, m.z, m.B
     alpha = f32(alpha)
-    A = np.zeros((B, st.R * Z, 2), f32)
-    W = word.zeros((B, st.R * Z))
-    c2v = np.zeros((B, st.K * Z), f32)  # sum-product: check-aligned
+    A, W, c2v = state(B, st.R * Z, st.K * Z, word)  # sum-product's c2v: check-aligned
     plain_c2v = np.zeros((B, st.K * Z), f32)
     m.conv = np.full(B, T, np.int32)
     for t in range(T):
@@ -340,13 +346,14 @@ def layered_model(qc, llr: np.ndarray, T: int, track: bool, mode: str, alpha: fl
             b = [m.bel[:, p] for p in pos]
             if sumproduct:
                 slots = [(j0 + j) * Z + z for j in range(d)]
-                old = [c2v[:, e] for e in slots]
+                old = [c2v[:, e] if t else np.zeros((B, Z), f32) for e in slots]
                 ph, S, neg, sp = word.sp_fold(b, old, d)
                 new = [word.sp_out(S, ph[j], sp, neg, j) for j in range(d)]
                 for j, e in enumerate(slots):
                     c2v[:, e] = new[j]
             else:
-                old = word.c2v_row(A[:, q], W[:, q], d)
+                old = (word.c2v_row(A[:, q], W[:, q], d) if t
+                       else np.zeros((d, B, Z), f32))
                 A[:, q], W[:, q] = word.new_state(*word.fold(b, old, d), d, alpha)
                 new = word.c2v_row(A[:, q], W[:, q], d)
             for j, p in enumerate(pos):
@@ -459,7 +466,8 @@ def test_routes_by_row_width(members):
     """A row of 27 members runs on the 32-bit word, 28 to 58 on the 64-bit
     word (``*_wide``), 59 to 121 on the 128-bit word (``*_w128``), 122 on
     fused; the builders, the serving objects with backend "auto" and
-    "fused"; fused_zlane decoders keep their own kernel over 27 members."""
+    "fused"; fused_zlane decoders take the same words' large-Z forms and
+    keep their own kernel over 121 members."""
     qc = row_code(members, cols=max(64, members + 2))
     assert qc.dr_max == members
     suffix = "" if members <= 58 else "_w128"
@@ -492,7 +500,8 @@ def test_routes_by_row_width(members):
     assert fm.retire_kernel_fits(qc) == (members <= 27)
     zl = fm.make_fused_minsum_zlane(row_code(members, cols=max(64, members + 2), Z=8), 5,
                                     device="cpu")
-    assert zl.route == ("retire_zlane" if members <= 27 else "fused_zlane")
+    assert zl.route == ("retire_zlane" if members <= 27 else "retire_zlane_wide" if members <= 58
+                        else "retire_zlane_w128" if members <= 121 else "fused_zlane")
     if wide:
         assert set(WIDE_ROUTE.values()) == set(fm.WIDE_ROUTES)
 

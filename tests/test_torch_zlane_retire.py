@@ -79,14 +79,21 @@ def test_large_z_takes_the_zlane_retiring_kernel(Z):
 
 
 def test_codes_retire_zlane_refuses():
-    """Z % 8 != 0, or a row with more members than the state word holds
-    signs of: no retire_zlane."""
+    """Z % 8 != 0, or a row with more members than the 32-bit state word
+    holds signs of: no retire_zlane (a row of 31 runs on its 64-bit word,
+    retire_zlane_wide); a row of more than the 128-bit word's 121: no
+    retiring kernel, fused_zlane."""
     assert not fm.retire_zlane_fits(_qc(12, "nr_2_0_4"))
     from test_torch_minsum_retire import wide_row_shifts
+    from test_torch_retire_wide import row_code
 
     wide = tcodes.qc_layout(tcodes.BaseGraph("wide", wide_row_shifts()), 8)
     assert wide.dr_max == 31 and not fm.retire_zlane_fits(wide)
-    dec = fm.make_fused_minsum_zlane(wide, ITERS, device="cpu")
+    assert fm.retire_zlane_fits(wide, word_bits=64)
+    assert fm.make_fused_minsum_zlane(wide, ITERS, device="cpu").route == "retire_zlane_wide"
+    widest = row_code(122, cols=124, Z=8)
+    assert not fm.retire_zlane_fits(widest, word_bits=128)
+    dec = fm.make_fused_minsum_zlane(widest, ITERS, device="cpu")
     assert dec.route == "fused_zlane" and not dec.retire
 
 
@@ -118,7 +125,13 @@ def test_dispatch():
                                 "fused_retire_wide", "retire_layered_wide",
                                 "retire_sumproduct_wide", "retire_layered_sumproduct_wide",
                                 "fused_retire_w128", "retire_layered_w128",
-                                "retire_sumproduct_w128", "retire_layered_sumproduct_w128"}
+                                "retire_sumproduct_w128", "retire_layered_sumproduct_w128",
+                                "retire_zlane_wide", "retire_zlane_layered_wide",
+                                "retire_zlane_sumproduct_wide",
+                                "retire_zlane_layered_sumproduct_wide",
+                                "retire_zlane_w128", "retire_zlane_layered_w128",
+                                "retire_zlane_sumproduct_w128",
+                                "retire_zlane_layered_sumproduct_w128"}
     launches = dict(fm.LAUNCHES)
     small = _qc(24, "nr_2_0_4")
     llr = torch.zeros((2, small.num_vars))

@@ -230,8 +230,8 @@ def test_routes(name, Z):
 def test_serving_objects_and_wide_rows():
     """At Z=384 (auto resolves to fused_zlane) the layered serving object
     reaches retire_zlane_layered and BeliefPropagationDecoder
-    retire_zlane_sumproduct; a row of 31 members keeps fused_zlane; Z % 8
-    != 0 takes neither."""
+    retire_zlane_sumproduct; a row of 31 members takes their 64-bit-word
+    forms and a row of 122 keeps fused_zlane; Z % 8 != 0 takes neither."""
     from test_torch_minsum_retire import wide_row_shifts
 
     qc = _qc(384)
@@ -242,8 +242,13 @@ def test_serving_objects_and_wide_rows():
     assert BeliefPropagationDecoder(qc, 5, device="cpu")._fused.route == "retire_zlane_sumproduct"
     wide = tcodes.qc_layout(tcodes.BaseGraph("wide", wide_row_shifts()), 8)
     assert not fm.retire_zlane_layered_fits(wide) and not fm.retire_zlane_sumproduct_fits(wide)
-    for kw in ({"schedule": "layered"}, {"mode": "sumproduct"}):
-        assert fm.make_fused_minsum_zlane(wide, 5, device="cpu", **kw).route == "fused_zlane"
+    from test_torch_retire_wide import row_code
+
+    widest = row_code(122, cols=124, Z=8)
+    for kw, route in (({"schedule": "layered"}, "retire_zlane_layered_wide"),
+                      ({"mode": "sumproduct"}, "retire_zlane_sumproduct_wide")):
+        assert fm.make_fused_minsum_zlane(wide, 5, device="cpu", **kw).route == route
+        assert fm.make_fused_minsum_zlane(widest, 5, device="cpu", **kw).route == "fused_zlane"
     odd = _qc(12, "nr_2_0_4")
     assert not fm.retire_zlane_layered_fits(odd) and not fm.retire_zlane_sumproduct_fits(odd)
     assert fm.retire_zlane_layered_plans(odd) == []
