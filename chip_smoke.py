@@ -343,7 +343,37 @@ Phases, one JSON line each:
              to the plain version, mxu within one bf16 step, both identical
              on integer-valued features (exact_features); microseconds per
              frame and iteration.
-18. kernels — per kernel: launches in its path's run (fused and fused_zlane:
+18. train  — the training path (ldpc_tpu_torch.training) and what it trains,
+             served.  (a) the flagship fine-tune of results/README.md: the
+             corrected GNN at T=10, h=64, injection, nr_2_0_32 Z=32, from
+             corrected10_gnn_nr_2_0_32_ft3 through LDPCDecoderTrainer.
+             load_model, bf16, Adam 3e-4 on the cosine schedule, grad_clip
+             1.0, SNR uniform in [-4, -1] dB, random codewords, batch 64,
+             20 updates in chunks of 10, with remat and again without:
+             ms per update (CUDA events around each chunk), peak device
+             memory, losses; the first loss equal within 1e-5 and the remat
+             peak lower; one update traced in a child (trace_train: device
+             time of the costliest kernels, busy share).  (b) resume, in a child with deterministic
+             algorithms: 20 updates saved after 10, a fresh trainer loads
+             the state and takes the other 10, parameters and losses
+             identical.  (c) the fine-tuned weights through corrected_v2
+             (B4), batch 2048 at 0 dB, against the module's forward: >=
+             99.9% of its confident decisions (|p - 0.5| > 0.05) equal.
+             (d) OMS(10, per-iteration) from results/ fine-tuned 20 Adam
+             updates at batch 4096 (SNR [-4, -1], random codewords), served
+             through neural_group (B3) on nms_main's batch: bits identical
+             to the plain version.  (e) the node GNN
+             (make_base_graph_gnn_decoder, T=5, depth 2) by train at the
+             reference defaults (SGD, momentum 0.9, weight decay 1e-4, 2
+             epochs over [-2, 0, 2, 4] dB, batch 256): losses finite, ms a
+             step.  (f) ComparativeEvaluator at nr_2_0_32 Z=32, [-3, -2, -1]
+             dB, batch 4096, 2 trials: fused min-sum (fused_retire, 20
+             iterations, alpha 0.75) and BP (retire_sumproduct, 50), each
+             launched twice a trial (counts, then avg_iterations), and the
+             fine-tuned GNN; the fused min-sum's results equal those of the
+             same evaluator with fused=False.  Kernel rows for B4, B3 and
+             the two B1 kernels with this phase's launches.
+19. kernels — per kernel: launches in its path's run (fused and fused_zlane:
              the wide-row compare cases'; the *_wide kernels: wide_rows';
              the *_w128 kernels: widest_rows'; the retire_zlane*_wide and
              *_w128 kernels: zlane_wide's;
@@ -362,11 +392,11 @@ The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 The replaced kernels' times (PERF.md §5) come from this script run from an
 unpacked ``git archive`` of the parent commit, in the same call.
-``--only classical|wide|gnn|nms|nms_wide|msg_gnn|tools`` runs the build and
-that part alone (for development; the kernels line then lists that part;
-``wide`` is phase 3's wide-row cases and phases 5e to 5g, ``nms`` phases 9
-to 11b, ``nms_wide`` phase 11c, ``msg_gnn`` phases 12 to 14, ``tools``
-phases 16 and 17).
+``--only classical|wide|gnn|nms|nms_wide|msg_gnn|tools|train`` runs the
+build and that part alone (for development; the kernels line then lists that
+part; ``wide`` is phase 3's wide-row cases and phases 5e to 5g, ``nms``
+phases 9 to 11b, ``nms_wide`` phase 11c, ``msg_gnn`` phases 12 to 14,
+``tools`` phases 16 and 17, ``train`` phase 18).
 """
 from __future__ import annotations
 
@@ -374,6 +404,7 @@ import argparse
 import functools
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -485,7 +516,8 @@ def ptxas_of(stem: str, kernel: str, width: int = 12) -> dict:
 def trace_split(fn, name: str) -> dict:
     """One call of ``fn`` under ``utils.profiling.trace`` (the trace is written
     to build/traces/<name>/): device time and launches of each kernel, and
-    the wall time of the call, synchronised."""
+    the wall time of the call, synchronised.  Only the card's events count:
+    the PyTorch operator that launched a kernel carries its device time too."""
     from ldpc_tpu_torch.utils import profiling
 
     torch.cuda.synchronize()
@@ -495,7 +527,8 @@ def trace_split(fn, name: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {e.key: {"device_ms": e.self_device_time_total / 1e3, "launches": e.count}
-               for e in prof.key_averages() if e.self_device_time_total > 0}
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
     return {"wall_ms": wall_ms, "device_ms": sum(k["device_ms"] for k in kernels.values()),
             "kernels": kernels}
 
@@ -2968,8 +3001,8 @@ TRACE_ATTEMPTS = 3
 
 
 def trace_in_child(name: str) -> dict:
-    """trace_z384, trace_layered, trace_sumproduct, trace_gnn, trace_nms_large
-    or trace_msg_gnn
+    """trace_z384, trace_layered, trace_sumproduct, trace_gnn, trace_nms_large,
+    trace_train or trace_msg_gnn
     (``name`` a fully-neural kernel's) in a process of its own: a second
     torch.profiler session in one process (after trace_main) recorded no
     kernel on the card.  The child loads the libraries this process built.
@@ -3458,6 +3491,325 @@ def probe_phase(smi: str) -> list[dict]:
              "us_per_frame_iteration": {v: r["us_per_frame_iteration"] for v, r in res.items()}}]
 
 
+# ---------------------------------------------------------------------------
+# Training and comparative evaluation
+# ---------------------------------------------------------------------------
+
+# The flagship fine-tune of results/README.md: the corrected GNN at T=10,
+# h=64, injection, nr_2_0_32 Z=32, from the ft3 checkpoint; bf16 compute,
+# Adam at 3e-4 on the cosine schedule, grad_clip 1.0, SNR uniform in
+# [-4, -1] dB, random codewords, batch 64; 20 updates in chunks of 10.
+TRAIN_FT = dict(T=10, H=64, steps=20, chunk=10, checkpoint="corrected10_gnn_nr_2_0_32_ft3.msgpack",
+                kw=dict(batch_size=64, learning_rate=3e-4, snr_range=[-4.0, -1.0],
+                        optimizer="adam", grad_clip=1.0, lr_schedule="cosine"))
+TRAIN_SERVE = dict(B=2048, SNR=0.0, llr_seed=11)  # B4 against the module
+TRAIN_CONFIDENT = 0.05  # |p - 0.5| above which the module's decision counts
+TRAIN_MIN_AGREEMENT = 0.999
+TRAIN_REMAT_LOSS_RTOL = 1e-5  # the first update's loss with and without remat
+# The trained min-sum: OMS(10, per-iteration) from results/, 20 Adam updates
+# at batch 4096 (tools/train_flagship.py's rate), then B3 on nms_main's batch.
+TRAIN_NMS = dict(steps=20, chunk=10, checkpoint="oms10_per_iter_nr_2_0_32.msgpack",
+                 kw=dict(batch_size=4096, learning_rate=1e-3, snr_range=[-4.0, -1.0],
+                         optimizer="adam"), serve_B=65536, serve_snr=-3.0)
+# The node GNN at the reference defaults (ldpc_tpu/config.py): SGD, momentum
+# 0.9, weight decay 1e-4, lr 1e-3, 2 epochs over 4 SNRs at batch 256.
+TRAIN_NODE = dict(T=5, L=2, epochs=2, B=256, lr=1e-3, snrs=[-2.0, 0.0, 2.0, 4.0])
+TRAIN_EVAL = dict(snrs=[-3.0, -2.0, -1.0], B=4096, trials=2)
+
+
+def flagship_trainer(remat: bool, seed: int):
+    """The T=10 corrected GNN loaded from the ft3 checkpoint through the
+    trainer, on the card, drawing random codewords from its own generator."""
+    from ldpc_tpu_torch.codes import encoder_from_H, expand_base_matrix, get_base_graph, qc_layout
+    from ldpc_tpu_torch.models import create_corrected_minsum_gnn_decoder
+    from ldpc_tpu_torch.ops import qc_msg
+    from ldpc_tpu_torch.training import LDPCDecoderTrainer
+
+    f = TRAIN_FT
+    plan = qc_msg.make_plan(qc_layout(get_base_graph("nr_2_0_32"), 32))
+    model = create_corrected_minsum_gnn_decoder(plan, num_iterations=f["T"], hidden_dim=f["H"],
+                                                input_injection=True, remat=remat)
+    enc = encoder_from_H(expand_base_matrix(get_base_graph("nr_2_0_32"), 32))
+    trainer = LDPCDecoderTrainer(model, plan, seed=seed, encoder=enc)
+    trainer.load_model(Path(__file__).resolve().parent / "results" / f["checkpoint"])
+    return trainer
+
+
+def timed_train_steps(trainer, steps: int, chunk: int, kw: dict) -> dict:
+    """``train_steps`` with a CUDA event at the start and after each chunk
+    (``checkpoint_fn``), the peak device memory reset before: ms per update
+    of each chunk, the peak, the losses."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[0].record()
+
+    def mark():
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+    trainer.train_steps(steps, scan_steps=chunk, checkpoint_fn=mark, log=None, **kw)
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) / chunk for a, b in zip(marks, marks[1:])]
+    losses = trainer.train_losses[-steps:]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    return {"ms_per_step_by_chunk": ms, "ms_per_step": ms[-1],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(), "losses": losses}
+
+
+def trace_train() -> dict:
+    """One update of the flagship fine-tune (remat) under the profiler, after
+    two warm-up updates: the device time of its 12 costliest kernels, all
+    kernels' time and launches, and the device's busy share of the wall."""
+    trainer = flagship_trainer(remat=True, seed=1)
+    kw = TRAIN_FT["kw"]
+    trainer.train_steps(2, scan_steps=1, log=None, **kw)
+    out = trace_split(lambda: trainer.train_steps(3, scan_steps=1, log=None, **kw), "train")
+    top = sorted(out["kernels"].items(), key=lambda kv: -kv[1]["device_ms"])[:12]
+    return {"phase": "trace_train", "updates": 1, "wall_ms": out["wall_ms"],
+            "device_ms": out["device_ms"], "busy_share": out["device_ms"] / out["wall_ms"],
+            "launches": sum(k["launches"] for k in out["kernels"].values()),
+            "kernels": len(out["kernels"]), "top_kernels": dict(top)}
+
+
+def resume_child() -> dict:
+    """(b), in a process of its own (CUBLAS_WORKSPACE_CONFIG set before CUDA
+    starts, deterministic algorithms on): 20 updates of the flagship
+    fine-tune with the state saved after 10, a fresh trainer that loads it
+    and takes the other 10, and the parameters of both compared."""
+    import tempfile
+
+    torch.use_deterministic_algorithms(True)
+    f = TRAIN_FT
+    with tempfile.TemporaryDirectory() as tmp:
+        state = Path(tmp) / "state.pt"
+        whole = flagship_trainer(remat=True, seed=5)
+
+        def save():
+            if whole.step == f["chunk"]:
+                whole.save_state(state)
+
+        whole.train_steps(f["steps"], scan_steps=f["chunk"], checkpoint_fn=save, log=None,
+                          **f["kw"])
+        resumed = flagship_trainer(remat=True, seed=6)  # other data: the state restores it
+        resumed.load_state(state)
+        resumed_from = resumed.step
+        resumed.train_steps(f["steps"], scan_steps=f["chunk"], log=None, **f["kw"])
+    a, b = whole.model.state_dict(), resumed.model.state_dict()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    return {"phase": "train_resume", "deterministic_algorithms": True, "steps": f["steps"],
+            "resumed_from": resumed_from, "parameters": len(a),
+            "parameters_differing": differ,
+            "max_abs_diff": max((a[k] - b[k]).abs().max().item() for k in a if a[k].numel()),
+            "losses_identical": whole.train_losses == resumed.train_losses,
+            "identical": not differ and whole.train_losses == resumed.train_losses}
+
+
+def train_phase(smi: str) -> list[dict]:
+    """18. train: the training path and the evaluator, with the weights it
+    trains served through B4 and B3."""
+    import os
+
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+    from ldpc_tpu_torch.models import NeuralMinSumDecoder, make_base_graph_gnn_decoder
+    from ldpc_tpu_torch.ops import fused_gnn as fg, fused_minsum as fm, fused_neural as fn
+    from ldpc_tpu_torch.ops import qc_msg
+    from ldpc_tpu_torch.parallel import trial_data, trial_generator
+    from ldpc_tpu_torch.training import ComparativeEvaluator, LDPCDecoderTrainer
+    from ldpc_tpu_torch.utils import compute_ber_fer, qpsk_awgn_llr
+    from ldpc_tpu_torch.utils.metrics import REGISTRY
+
+    f = TRAIN_FT
+    qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
+    n = qc32.num_vars
+    entries = []
+
+    # (a) the flagship fine-tune, with remat and without, same data
+    runs = {}
+    for remat in (True, False):
+        trainer = flagship_trainer(remat=remat, seed=1)
+        runs[remat] = (trainer, timed_train_steps(trainer, f["steps"], f["chunk"], f["kw"]))
+    trainer, with_remat = runs[True]
+    without = runs[False][1]
+    first_rel = abs(with_remat["losses"][0] / without["losses"][0] - 1.0)
+    ok = (first_rel <= TRAIN_REMAT_LOSS_RTOL
+          and with_remat["peak_memory_bytes"] < without["peak_memory_bytes"])
+    emit({"phase": "train_flagship", "checkpoint": f["checkpoint"], "code": "nr_2_0_32", "Z": 32,
+          "iterations": f["T"], "hidden_dim": f["H"], "steps": f["steps"], "chunk": f["chunk"],
+          **{k: v for k, v in f["kw"].items()}, "compute_dtype": "bfloat16",
+          "remat": with_remat, "no_remat": without,
+          "peak_memory_ratio": without["peak_memory_bytes"] / with_remat["peak_memory_bytes"],
+          "remat_time_ratio": with_remat["ms_per_step"] / without["ms_per_step"],
+          "first_loss_rel_diff": first_rel,
+          "train_steps_per_s": REGISTRY.gauges.get("train_steps_per_s"),
+          "nvidia_smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError("remat changed the first loss or did not lower the peak memory")
+    model = trainer.model
+    del runs
+    emit(trace_in_child("train"))
+
+    # (b) resume, bit for bit, in a child with deterministic algorithms
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--resume-child"],
+                          capture_output=True, text=True, timeout=600, env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"the resume child failed:\n{proc.stderr[-4000:]}")
+    resume = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit({**resume, "ok": resume["identical"]})
+    if not resume["identical"]:
+        raise AssertionError("a resumed train_steps run differs from the uninterrupted one")
+
+    # (c) the fine-tuned weights through B4 and through the module
+    s = TRAIN_SERVE
+    plan32 = trainer.plan
+    dec = fg.make_fused_corrected_gnn_decoder_v2(qc32, model, f["T"], f["H"],
+                                                 input_injection=True)
+    llr = llrs(n, s["B"], s["SNR"], seed=s["llr_seed"])
+    for key in fg.LAUNCHES:
+        fg.LAUNCHES[key] = 0
+    soft_k = dec(llr)
+    torch.cuda.synchronize()
+    launches = dict(fg.LAUNCHES)
+    if launches["corrected_v2"] != 1:
+        raise AssertionError(f"serving the fine-tuned GNN did not run corrected_v2: {launches}")
+    with torch.no_grad():
+        soft_m, _ = model(llr, plan32)
+    confident = (soft_m - 0.5).abs() > TRAIN_CONFIDENT
+    agreement = ((soft_k > 0.5) == (soft_m > 0.5))[confident].double().mean().item()
+    ms = sorted(cuda_ms(lambda: dec(llr), reps=3)[0] for _ in range(3))[1]
+    plain_ms, plain_out = cuda_ms(lambda: dec.plain(llr), reps=1)
+    err = gnn_compare(dec, llr, "corrected_v2 fine-tuned T=10 whole batch", phase="train_serve",
+                      kernel_out=soft_k, plain_out=plain_out)
+    del plain_out
+    conv = torch.full((s["B"],), float(f["T"]), device="cuda")
+    bms, bby = gnn_bound_ms(qc32, f["H"], True, "corrected_v2", conv)
+    ok = agreement >= TRAIN_MIN_AGREEMENT
+    emit({"phase": "train_serve", "kernel": "corrected_v2", "batch": s["B"], "snr_db": s["SNR"],
+          "launches": launches, "confident_share": confident.double().mean().item(),
+          "confident_agreement": agreement,
+          "module_max_abs_err": (soft_k - soft_m).abs().max().item(),
+          "ms_per_batch": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+          "nvidia_smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"B4 on the fine-tuned weights agrees with the module on {agreement}"
+                             f" of its confident decisions")
+    del soft_m, soft_k
+    entries.append({"name": "corrected_v2 (train: fine-tuned weights)", "route": "cuda",
+                    "source": "ldpc_tpu_torch/ops/csrc/fused_gnn_tc.cu",
+                    "replaces": "ldpc_tpu/ops/pallas_gnn.py:1791",
+                    "launches": launches["corrected_v2"], "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby, "library_ms": None})
+
+    # (d) the trained min-sum: fine-tuned by train_steps, served through B3
+    m = TRAIN_NMS
+    nms = NeuralMinSumDecoder(plan32, num_iterations=10, depth_L=2, weight_sharing="edge",
+                              learnable_alpha=True, learnable_offset=True, per_iteration=True,
+                              loss_mode="mean")
+    nms_trainer = LDPCDecoderTrainer(nms, plan32, seed=2, encoder=trainer.encoder)
+    nms_trainer.load_model(Path(__file__).resolve().parent / "results" / m["checkpoint"])
+    nms_run = timed_train_steps(nms_trainer, m["steps"], m["chunk"], m["kw"])
+    ndec = fn.make_fused_neural_minsum(qc32, nms, 10, 2, per_iteration=True)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tx = trainer.encoder.random_codewords(gen, m["serve_B"])
+    nllr = qpsk_awgn_llr(gen, tx, m["serve_snr"])
+    for key in fn.LAUNCHES:
+        fn.LAUNCHES[key] = 0
+    bits = ndec(nllr)
+    torch.cuda.synchronize()
+    nlaunches = dict(fn.LAUNCHES)
+    if ndec.route != "neural_group" or nlaunches["neural_group"] != 1:
+        raise AssertionError(f"serving the fine-tuned min-sum did not run neural_group: "
+                             f"{ndec.route} {nlaunches}")
+    ber, fer = (float(x) for x in compute_ber_fer(tx, bits))
+    nms_ms = sorted(cuda_ms(lambda: ndec(nllr), reps=3)[0] for _ in range(3))[1]
+    nms_plain_ms, bits_p = cuda_ms(lambda: ndec.plain(nllr), reps=1)
+    same = bool(torch.equal(bits, bits_p))
+    nms_err = (bits - bits_p).abs().max().item()
+    del bits_p
+    nbms, nbby = nms_bound_ms(qc32, 10, 2, m["serve_B"])
+    emit({"phase": "train_nms", "checkpoint": m["checkpoint"], "steps": m["steps"],
+          **m["kw"], **nms_run, "route": ndec.route, "launches": nlaunches,
+          "batch": m["serve_B"], "snr_db": m["serve_snr"], "ber": ber, "fer": fer,
+          "whole_batch_identical": same, "ms_per_batch": nms_ms, "plain_ms": nms_plain_ms,
+          "bound_ms": nbms, "bound_by": nbby, "nvidia_smi": smi, "ok": same})
+    if not same:
+        raise AssertionError("B3 on the fine-tuned min-sum differs from its plain version")
+    entries.append({"name": "neural_group (train: fine-tuned min-sum)", "route": "cuda",
+                    "source": "ldpc_tpu_torch/ops/csrc/fused_neural.cu",
+                    "replaces": "ldpc_tpu/ops/pallas_neural.py:111",
+                    "launches": nlaunches["neural_group"], "max_abs_err": nms_err, "ms": nms_ms,
+                    "plain_ms": nms_plain_ms, "bound_ms": nbms, "bound_by": nbby,
+                    "library_ms": None})
+    del nms_trainer, nllr, tx, bits
+
+    # (e) the node GNN at the reference defaults
+    g = TRAIN_NODE
+    node = make_base_graph_gnn_decoder(plan32, g["T"], g["L"])
+    node_trainer = LDPCDecoderTrainer(node, plan32, seed=3)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    node_trainer.train(num_epochs=g["epochs"], batch_size=g["B"], learning_rate=g["lr"],
+                       snr_range=g["snrs"], log=None)
+    end.record()
+    torch.cuda.synchronize()
+    steps = g["epochs"] * len(g["snrs"])
+    losses = node_trainer.train_losses
+    ok = len(losses) == g["epochs"] and all(math.isfinite(x) for x in losses)
+    emit({"phase": "train_node_gnn", "factory": "make_base_graph_gnn_decoder",
+          "iterations": g["T"], "depth_L": g["L"], "epochs": g["epochs"], "batch": g["B"],
+          "snr_range": g["snrs"], "optimizer": "sgd", "momentum": 0.9, "weight_decay": 1e-4,
+          "learning_rate": g["lr"], "epoch_losses": losses,
+          "ms_per_step": start.elapsed_time(end) / steps, "nvidia_smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"node GNN training gave losses {losses}")
+
+    # (f) the evaluator: fused min-sum and BP on B1, the fine-tuned GNN
+    e = TRAIN_EVAL
+    kw = dict(snr_range=e["snrs"], batch_size=e["B"], num_trials=e["trials"])
+    ev = ComparativeEvaluator(plan32, **kw)
+    ev.add_min_sum(20, 0.75, qc=qc32, fused=True)
+    ev.add_belief_propagation(50, qc=qc32, fused=True)
+    ev.add_model("Corrected GNN 10it (fine-tuned)", model)
+    for key in fm.LAUNCHES:
+        fm.LAUNCHES[key] = 0
+    t0 = time.time()
+    res = ev.evaluate_all(log=None)["decoders"]
+    torch.cuda.synchronize()
+    eval_s = time.time() - t0
+    elaunches = dict(fm.LAUNCHES)
+    plain_ev = ComparativeEvaluator(plan32, **kw)
+    plain_ev.add_min_sum(20, 0.75)
+    plain = plain_ev.evaluate_all(log=None)["decoders"]["Min-Sum Scaled"]
+    ok = (res["Min-Sum Scaled"] == plain and elaunches["fused_retire"] >= 1
+          and elaunches["retire_sumproduct"] >= 1)
+    emit({"phase": "train_evaluator", **kw, "decoders": res, "plain_min_sum": plain,
+          "fused_min_sum_equals_plain": res["Min-Sum Scaled"] == plain, "launches": elaunches,
+          "seconds": eval_s, "nvidia_smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"evaluator: fused min-sum {res['Min-Sum Scaled']} against plain "
+                             f"{plain}, launches {elaunches}")
+    # The two B1 kernels on the evaluator's first trial, timed beside their
+    # plain versions (these launches are not the path's).
+    _, ellr = trial_data(trial_generator(ev.seed, 0, 0, "cuda"), n, e["B"], e["snrs"][0])
+    for name, dec_, bound in (
+            ("fused_retire", fm.make_fused_minsum(qc32, 20, 0.75, early_exit=True), bound_ms),
+            ("retire_sumproduct", fm.make_fused_minsum(qc32, 50, 1.0, mode="sumproduct",
+                                                       early_exit=True), bp_bound_ms)):
+        kms, (_, kconv) = cuda_ms(lambda: dec_(ellr), reps=3)
+        pms, pout = cuda_ms(lambda: dec_.plain(ellr), reps=1)
+        kerr = compare(dec_, ellr, f"{name} evaluator trial 0, {e['snrs'][0]} dB", plain_out=pout)
+        bms_, bby_ = bound(qc32, kconv)
+        entries.append({"name": f"{name} (train: evaluator)", "route": "cuda",
+                        "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
+                        "replaces": "ldpc_tpu/ops/pallas_minsum.py:143",
+                        "launches": elaunches[name], "max_abs_err": kerr, "ms": kms,
+                        "plain_ms": pms, "bound_ms": bms_, "bound_by": bby_, "library_ms": None})
+    return entries
+
+
 def build_all() -> tuple[dict, dict]:
     """Compile every CUDA source of the port, one nvcc per source, together;
     (each source's ptxas lines, each source's seconds)."""
@@ -3565,10 +3917,12 @@ def sass_mma_counts(stem: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["classical", "wide", "gnn", "nms", "nms_wide", "msg_gnn",
-                                       "tools"], default=None)
+                                       "tools", "train"], default=None)
     ap.add_argument("--trace", choices=["z384", "layered", "sumproduct", "gnn", "nms_large",
-                                        "msg_gnn", "msg_gnn_v2", "msg_gnn_v3", "msg_gnn_v4"],
+                                        "msg_gnn", "msg_gnn_v2", "msg_gnn_v3", "msg_gnn_v4",
+                                        "train"],
                     help=argparse.SUPPRESS)
+    ap.add_argument("--resume-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = args.only
     if not torch.cuda.is_available():
@@ -3576,8 +3930,11 @@ def main(argv=None) -> int:
         return 1
     if args.trace is not None:  # the child of trace_in_child
         traces = {"z384": trace_z384, "layered": trace_layered, "sumproduct": trace_sumproduct,
-                  "gnn": trace_gnn, "nms_large": trace_nms_large}
+                  "gnn": trace_gnn, "nms_large": trace_nms_large, "train": trace_train}
         emit(traces[args.trace]() if args.trace in traces else trace_msg_gnn(args.trace))
+        return 0
+    if args.resume_child:  # the child of train_phase's resume check
+        emit(resume_child())
         return 0
 
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
@@ -3694,8 +4051,10 @@ def main(argv=None) -> int:
     if only in (None, "tools"):
         bench_phase(smi)
         entries += probe_phase(smi)
+    if only in (None, "train"):
+        entries += train_phase(smi)
 
-    # 18. kernels
+    # 19. kernels
     print(smi, flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

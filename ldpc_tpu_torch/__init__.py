@@ -10,6 +10,9 @@ imports torch and numpy only, never JAX or ``ldpc_tpu``:
 - Classical BP / scaled min-sum decoders           -> :mod:`ldpc_tpu_torch.models`
 - Message-centered GNN decoder family              -> :mod:`ldpc_tpu_torch.models.message_gnn`
 - Neural / offset min-sum decoders                 -> :mod:`ldpc_tpu_torch.models.neural_min_sum`
+- Node-centered GNN decoder                        -> :mod:`ldpc_tpu_torch.models.gnn`
+- Training, checkpoints, comparative evaluation    -> :mod:`ldpc_tpu_torch.training`
+- Monte-Carlo BER/FER sweeps (one device)          -> :mod:`ldpc_tpu_torch.parallel`
 - Fused GNN serving kernels, CUDA C++              -> :mod:`ldpc_tpu_torch.ops.fused_gnn`
 - Fused trained min-sum kernel, CUDA C++           -> :mod:`ldpc_tpu_torch.ops.fused_neural`
 - flax msgpack checkpoints -> ``state_dict``       -> :mod:`ldpc_tpu_torch.convert`
@@ -31,3 +34,4 @@ from ldpc_tpu_torch.codes import (  # noqa: F401
     EdgeLayout,
     QCLayout,
 )
+from ldpc_tpu_torch.training import LDPCDecoderTrainer  # noqa: F401,E402

@@ -13,7 +13,10 @@ renames and transposes the flax tree into the ``state_dict`` of
 :class:`ldpc_tpu_torch.models.message_gnn.MessageGNNDecoder`, and
 :func:`load_message_gnn` does both for a model.  A neural min-sum tree
 (``w_ch``, ``w_res``, ``alpha``, ``offset``) carries over as stored:
-:func:`neural_min_sum_state_dict_from_numpy` and :func:`load_neural_min_sum`.
+:func:`neural_min_sum_state_dict_from_numpy` and :func:`load_neural_min_sum`;
+so does a node-centered GNN tree (``w_ch``, ``w_c2v``, ``w_res``):
+:func:`gnn_state_dict_from_numpy` and :func:`load_gnn`.
+:func:`state_dict_from_flax` picks the conversion by the model's class.
 """
 from __future__ import annotations
 
@@ -234,3 +237,38 @@ def load_neural_min_sum(path, model) -> None:
     if "params" not in tree:
         raise KeyError(f"{path} holds no 'params' entry")
     model.load_state_dict(neural_min_sum_state_dict_from_numpy(tree["params"]), strict=True)
+
+
+_GNN_PARAMS = ("w_ch", "w_c2v", "w_res")
+
+
+def gnn_state_dict_from_numpy(tree: Mapping, dtype=torch.float32) -> dict:
+    """flax parameter tree of a ``GNNLDPCDecoder`` -> the port module's
+    ``state_dict``: the same names, the shapes as stored."""
+    p = _flax_params(tree)
+    unknown = set(p) - set(_GNN_PARAMS)
+    if unknown:
+        raise KeyError(f"unexpected entries {sorted(unknown)} in a GNNLDPCDecoder parameter tree")
+    return {k: torch.as_tensor(np.array(v), dtype=dtype) for k, v in p.items()}
+
+
+def load_gnn(path, model) -> None:
+    """Load a flax checkpoint's parameters into ``model`` (a
+    ``GNNLDPCDecoder`` with matching hyperparameters), strictly."""
+    tree = read_flax_msgpack(path)
+    if "params" not in tree:
+        raise KeyError(f"{path} holds no 'params' entry")
+    model.load_state_dict(gnn_state_dict_from_numpy(tree["params"]), strict=True)
+
+
+def state_dict_from_flax(tree: Mapping, model) -> dict:
+    """The ``state_dict`` for ``model`` (a ``MessageGNNDecoder``,
+    ``NeuralMinSumDecoder`` or ``GNNLDPCDecoder``) from a flax parameter tree."""
+    from ldpc_tpu_torch.models import GNNLDPCDecoder, MessageGNNDecoder, NeuralMinSumDecoder
+
+    for cls, convert in ((MessageGNNDecoder, message_gnn_state_dict_from_numpy),
+                         (NeuralMinSumDecoder, neural_min_sum_state_dict_from_numpy),
+                         (GNNLDPCDecoder, gnn_state_dict_from_numpy)):
+        if isinstance(model, cls):
+            return convert(tree)
+    raise TypeError(f"no flax conversion for {type(model).__name__}")

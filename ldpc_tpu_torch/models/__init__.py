@@ -1,6 +1,6 @@
 """Decoder model families: the classical decoders, the neural min-sum
-decoders and the message-centered GNN family (fully neural, hybrid and
-corrected min-sum).  The node-centered GNN follows in a later slice."""
+decoders, the node-centered GNN and the message-centered GNN family (fully
+neural, hybrid and corrected min-sum)."""
 
 from ldpc_tpu_torch.models.classical import (  # noqa: F401
     BeliefPropagationDecoder,
@@ -8,6 +8,11 @@ from ldpc_tpu_torch.models.classical import (  # noqa: F401
     MinSumScaledDecoder,
     decode_bp,
     decode_min_sum,
+)
+from ldpc_tpu_torch.models.gnn import (  # noqa: F401
+    GNNLDPCDecoder,
+    make_base_graph_gnn_decoder,
+    make_gnn_decoder,
 )
 from ldpc_tpu_torch.models.message_gnn import (  # noqa: F401
     MessageGNNDecoder,

@@ -12,12 +12,13 @@ min-sum half-update, or ``"corrected"``: min-sum *plus* a GNN correction
 whose projection starts at zero, so the untrained decoder is exactly scaled
 min-sum.  The corrected decoder is served on the card by the kernels of
 :mod:`ldpc_tpu_torch.ops.fused_gnn`; this module is the reference forward
-(and, in a later slice, what training differentiates).
+and what :class:`ldpc_tpu_torch.training.LDPCDecoderTrainer` differentiates.
 
 Parameter names follow the flax module (``check_3_gnn.var_to_check_update.
 Dense_0.weight`` for ``check_3_gnn/var_to_check_update/Dense_0/kernel``), so
 :mod:`ldpc_tpu_torch.convert` carries checkpoints across by renaming alone.
-The flax module's ``remat`` flag (a training aid) is not ported yet.
+``remat=True`` recomputes each GNN layer on the backward pass
+(``torch.utils.checkpoint``), as the flax module's ``nn.remat`` does.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ldpc_tpu_torch.ops import qc_msg
 from ldpc_tpu_torch.ops.qc_msg import QCPlan
@@ -140,7 +142,10 @@ class MessageGNNDecoder(nn.Module):
     the FIFO of past v2c messages the classical variable update adds back
     through ``w_res``; ``damping`` mixes the new v2c with c2v after the first
     iteration.  Initialisation (from ``generator``) keeps the untrained
-    identities: projections zero, ``w_ch`` one, ``alpha`` 0.8.
+    identities: projections zero, ``w_ch`` one, ``alpha`` 0.8.  ``remat``
+    keeps only each GNN layer's inputs for the backward pass and recomputes
+    the layer there: less activation memory for about one more forward of
+    the layers; the function and its gradients are unchanged.
     """
 
     def __init__(self, num_iterations: int = 5, hidden_dim: int = 64,
@@ -148,7 +153,8 @@ class MessageGNNDecoder(nn.Module):
                  check_mode: str = "neural", share_layers: bool = False, depth_L: int = 3,
                  damping: float = 0.5, loss_mode: str = "mean",
                  compute_dtype: torch.dtype = torch.bfloat16, input_injection: bool = False,
-                 multiloss: bool = False, generator: torch.Generator | None = None):
+                 multiloss: bool = False, remat: bool = False,
+                 generator: torch.Generator | None = None):
         super().__init__()
         if var_mode not in MODES or check_mode not in MODES:
             raise ValueError(f"modes must be among {MODES}, got {var_mode!r}, {check_mode!r}")
@@ -168,6 +174,7 @@ class MessageGNNDecoder(nn.Module):
         self.compute_dtype = compute_dtype
         self.input_injection = bool(input_injection)
         self.multiloss = bool(multiloss)
+        self.remat = bool(remat)
         self.fully_neural = var_mode == "neural" and check_mode == "neural"
 
         def layer():
@@ -199,6 +206,12 @@ class MessageGNNDecoder(nn.Module):
 
     # -- forward ------------------------------------------------------------
 
+    def _layer(self, layer: MessageGNNLayer, feats: torch.Tensor, plan: QCPlan,
+               llr_feats: torch.Tensor | None) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(layer, feats, plan, llr_feats, use_reentrant=False)
+        return layer(feats, plan, llr_feats)
+
     def forward(self, llr: torch.Tensor, plan: QCPlan, ground_truth: torch.Tensor | None = None):
         llr_cz = qc_msg.llr_to_cz(llr, plan)
         edge_llr = llr_cz[plan.edge_col]  # (K, Z, B): message (v, c) starts from LLR of v
@@ -210,7 +223,7 @@ class MessageGNNDecoder(nn.Module):
             llr_feats = feats if self.input_injection else None
             for i in range(self.num_iterations):
                 layer = self.gnn_layer if self.share_layers else getattr(self, f"gnn_layer_{i}")
-                new = layer(feats, plan, llr_feats)
+                new = self._layer(layer, feats, plan, llr_feats)
                 if i > 0:  # residual skip from iteration 2 on
                     new = new + feats
                 feats = new
@@ -256,7 +269,7 @@ class MessageGNNDecoder(nn.Module):
         def gnn(prefix, i, msgs):
             layer, proj = self._half(prefix, i)
             feats = _embed(self.input_embedding, msgs)
-            return _project(proj, layer(feats, plan, llr_feats))
+            return _project(proj, self._layer(layer, feats, plan, llr_feats))
 
         for i in range(self.num_iterations):
             # ---- check half ----

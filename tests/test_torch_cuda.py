@@ -1626,3 +1626,131 @@ def test_trace_records_the_cards_kernels(tmp_path):
     device_us = sum(e.device_time_total for e in prof.key_averages() if "probe_vpu" in e.key)
     assert device_us > 0
     assert "probe_vpu" in (tmp_path / "trace.json").read_text()
+
+
+# ---------------------------------------------------------------------------
+# Training and evaluation on the card
+# ---------------------------------------------------------------------------
+
+
+def _train_nms(device):
+    """A float32 neural min-sum (type sharing, per-iteration, learnable alpha
+    and offset) at toy_4x8 Z=4 on ``device``, its weights moved by seeded
+    noise, and a batch of LLRs and ground truth made on the CPU."""
+    from ldpc_tpu_torch.models import NeuralMinSumDecoder
+
+    qc = tcodes.qc_layout(tcodes.get_base_graph("toy_4x8"), 4)
+    plan = qc_msg.make_plan(qc, device)
+    model = NeuralMinSumDecoder(plan, num_iterations=3, depth_L=2, weight_sharing="type",
+                                learnable_alpha=True, learnable_offset=True, per_iteration=True)
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_((0.1 * torch.randn(p.shape, generator=gen)).to(device))
+    bits = (torch.rand((16, qc.num_vars), generator=gen) < 0.5).to(torch.float32)
+    llr = bpsk_awgn_llr(gen, bits, 1.0)
+    return model, plan, llr.to(device), bits.to(device)
+
+
+def test_adam_step_on_the_card_matches_the_cpu():
+    """One Adam update (clip acting, weight decay on) through the trainer's
+    make_optimizer and train_step, on the card and on the CPU from identical
+    parameters and batch: loss within 1e-5 relative, clipped gradients
+    within 1e-5 relative to their largest magnitude, parameters within atol
+    1e-6 (the update is about lr = 1e-3 an entry)."""
+    from ldpc_tpu_torch.training.trainer import make_optimizer, train_step
+
+    out = {}
+    for device in ("cpu", "cuda"):
+        model, plan, llr, bits = _train_nms(device)
+        opt = make_optimizer(model.parameters(), "adam", 1e-3, 1e-2)
+        loss = train_step(model, plan, opt, llr, bits, grad_clip=0.05)
+        out[device] = (float(loss), {n: (p.detach().cpu(), p.grad.cpu())
+                                     for n, p in model.named_parameters()})
+    (loss_c, cpu), (loss_g, card) = out["cpu"], out["cuda"]
+    assert abs(loss_g / loss_c - 1.0) <= 1e-5
+    for name, (p_c, g_c) in cpu.items():
+        p_g, g_g = card[name]
+        assert (g_g - g_c).abs().max() <= 1e-5 * g_c.abs().max(), name
+        torch.testing.assert_close(p_g, p_c, rtol=0, atol=1e-6, msg=name)
+
+
+def test_remat_transparent_on_the_card():
+    """remat on the card, float32 compute: forward identical, gradients
+    within rtol 1e-5, atol 1e-6 (the backward's index sums accumulate in
+    another order from run to run)."""
+    from ldpc_tpu_torch.models import create_corrected_minsum_gnn_decoder
+
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_4"), 4)
+    plan = qc_msg.make_plan(qc)
+    kw = dict(num_iterations=3, hidden_dim=16, input_injection=True, multiloss=True,
+              compute_dtype=torch.float32)
+    base = create_corrected_minsum_gnn_decoder(plan, generator=torch.Generator().manual_seed(1),
+                                               **kw)
+    with torch.no_grad():
+        for p in base.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel()))
+                   .cuda())
+    rmt = create_corrected_minsum_gnn_decoder(plan, remat=True, **kw)
+    rmt.load_state_dict(base.state_dict())
+    llr = _llr(qc.num_vars, 32, 1.0, seed=4)
+    truth = torch.zeros_like(llr)
+    outs, grads = [], []
+    for model in (base, rmt):
+        soft, loss = model(llr, plan, truth)
+        loss.mean().backward()
+        outs.append((soft.detach(), loss.detach()))
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    for name, g in grads[0].items():
+        torch.testing.assert_close(grads[1][name], g, rtol=1e-5, atol=1e-6, msg=name)
+
+
+def test_fine_tuned_corrected_through_b4():
+    """The committed nr_2_0_4 corrected GNN (T=5, h=64) fine-tuned three
+    Adam updates on the card by train_steps (remat, random codewords), then
+    served through corrected_v2: >= 99.9% of the module's confident
+    decisions (|p - 0.5| > 0.05) equal, and the kernel launched."""
+    from pathlib import Path
+
+    from ldpc_tpu_torch.training import LDPCDecoderTrainer
+
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_4"), 4)
+    plan = qc_msg.make_plan(qc)
+    model = create_corrected_minsum_gnn_decoder(plan, num_iterations=5, hidden_dim=64,
+                                                input_injection=True, remat=True)
+    enc = tcodes.encoder_from_H(tcodes.expand_base_matrix(tcodes.get_base_graph("nr_2_0_4"), 4))
+    trainer = LDPCDecoderTrainer(model, plan, seed=0, encoder=enc)
+    trainer.load_model(Path(__file__).resolve().parent.parent / "results"
+                       / "corrected_gnn_nr_2_0_4.msgpack")
+    trainer.train_steps(3, batch_size=32, learning_rate=3e-4, snr_range=[-1.0, 2.0],
+                        grad_clip=1.0, warmup_steps=1)
+    dec = fg.make_fused_corrected_gnn_decoder_v2(qc, model, 5, 64, input_injection=True)
+    llr = _llr(qc.num_vars, 512, 1.0, seed=5)
+    before = fg.LAUNCHES["corrected_v2"]
+    soft_k = dec(llr)
+    with torch.no_grad():
+        soft_m, _ = model(llr, plan)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES["corrected_v2"] == before + 1
+    confident = (soft_m - 0.5).abs() > 0.05
+    agreement = ((soft_k > 0.5) == (soft_m > 0.5))[confident].double().mean().item()
+    assert agreement >= 0.999
+
+
+def test_evaluator_fused_counts_equal_plain():
+    """ComparativeEvaluator's fused min-sum (fused_retire) on the card gives
+    the plain tensor-op path's BER, FER and mean iterations, and launches
+    the kernel twice a trial (counts, then iterations)."""
+    from ldpc_tpu_torch.training import ComparativeEvaluator
+
+    qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_4"), 4)
+    plan = qc_msg.make_plan(qc)
+    kw = dict(snr_range=[0.0, 1.0, 2.0], batch_size=512, num_trials=2)
+    fused, plain = ComparativeEvaluator(plan, **kw), ComparativeEvaluator(plan, **kw)
+    fused.add_min_sum(20, 0.75, qc=qc, fused=True)
+    plain.add_min_sum(20, 0.75)
+    before = fm.LAUNCHES["fused_retire"]
+    got = fused.evaluate_all(log=None)
+    assert fm.LAUNCHES["fused_retire"] == before + 12
+    assert got == plain.evaluate_all(log=None)
