@@ -373,6 +373,32 @@ Phases, one JSON line each:
              fine-tuned GNN; the fused min-sum's results equal those of the
              same evaluator with fused=False.  Kernel rows for B4, B3 and
              the two B1 kernels with this phase's launches.
+18b. cli   — ldpc_tpu_torch.cli.main in this process: workflow (train,
+             evaluate, compare, and visualize where matplotlib imports; the
+             line says whether it ran) at nr_2_0_32 Z=32 on the tied neural
+             min-sum, 2 epochs at batch 256, 2 SNRs, 2 trials, into a
+             temporary directory; then compare on
+             results/corrected10_gnn_nr_2_0_32_ft3.msgpack (T=10, h=64,
+             random codewords, QPSK, -3 dB, batch 2048, 10 trials, no
+             classical rows): 702,870 parameters, BER and FER within 3
+             combined binomial standard errors (counted on frame errors) of
+             results/nr_2_0_32_corrected10_ft3_highprecision.json.
+18c. parallel — ldpc_tpu_torch.parallel in child processes, the world set
+             up in their environment: an NCCL world of 1, then two gloo
+             ranks sharing the card.  Each rank: shard_decode over
+             make_fused_minsum (fused_retire) at nr_2_0_32 Z=32, batch
+             65536, 20 iterations, 3 dB, bits and conv_iter identical to the
+             unsharded call, both timed (host clock around a synchronised
+             call); mc_sweep(mesh=...) over that decoder identical to the
+             unsharded sweep; the data-parallel Adam step on the tied
+             decoder (batch 256) within 1e-5 of the 1-rank step's losses and
+             parameters; fused_retire's launches per path.
+18d. waterfall — ldpc_tpu_torch.tools.high_precision_curve at its defaults
+             (1e9 bits a point, batch 65536, 20 iterations, 7 SNRs, 63 calls
+             of fused_retire in throughput mode): every point's BER and FER
+             within 3 combined binomial standard errors of
+             results/nr_2_0_32_minsum_highprecision.json; wall seconds and
+             decoded bits/s.
 19. kernels — per kernel: launches in its path's run (fused and fused_zlane:
              the wide-row compare cases'; the *_wide kernels: wide_rows';
              the *_w128 kernels: widest_rows'; the retire_zlane*_wide and
@@ -392,11 +418,13 @@ The line before the last is the ``kernels`` JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 The replaced kernels' times (PERF.md §5) come from this script run from an
 unpacked ``git archive`` of the parent commit, in the same call.
-``--only classical|wide|gnn|nms|nms_wide|msg_gnn|tools|train`` runs the
-build and that part alone (for development; the kernels line then lists that
-part; ``wide`` is phase 3's wide-row cases and phases 5e to 5g, ``nms``
-phases 9 to 11b, ``nms_wide`` phase 11c, ``msg_gnn`` phases 12 to 14,
-``tools`` phases 16 and 17, ``train`` phase 18).
+``--only PART [PART ...]`` (classical, wide, gnn, nms, nms_wide, msg_gnn,
+tools, train, cli, parallel, waterfall) runs the build and those parts alone
+(for development; the kernels line then lists those parts; ``wide`` is phase
+3's wide-row cases and phases 5e to 5g, ``nms`` phases 9 to 11b,
+``nms_wide`` phase 11c, ``msg_gnn`` phases 12 to 14, ``tools`` phases 16 and
+17, ``train`` phase 18, ``cli``, ``parallel`` and ``waterfall`` phases 18b to
+18d; each part prints its seconds).
 """
 from __future__ import annotations
 
@@ -3810,6 +3838,322 @@ def train_phase(smi: str) -> list[dict]:
     return entries
 
 
+# 18b-18d: the CLI, the data-parallel layer and the waterfall tool.
+RESULTS = Path(__file__).resolve().parent / "results"
+RATE_SIGMAS = 3.0  # combined binomial standard errors, counted on frame errors
+# The CLI's workflow at full width: nr_2_0_32 Z=32, the tied neural min-sum,
+# 2 epochs at batch 256 over 2 SNRs, 2 trials a point.
+CLI_WORKFLOW = ["--base-graph", "nr_2_0_32", "--lifting-factor", "32", "--model-type", "tied",
+                "--num-epochs", "2", "--batch-size", "256", "--snr-min", "-2", "--snr-max", "-1",
+                "--snr-step", "1", "--num-trials", "2"]
+# The CLI's compare on the flagship checkpoint at -3 dB, held against the JAX
+# package's 1e9-bit record of the same model (a decode rate, not a speed).
+CLI_FLAGSHIP = dict(snr=-3.0, batch=2048, trials=10, params=702870,
+                    checkpoint="corrected10_gnn_nr_2_0_32_ft3.msgpack",
+                    record="nr_2_0_32_corrected10_ft3_highprecision.json",
+                    record_decoder="Corrected GNN 10it (trained)")
+# shard_decode, the sharded sweep and the data-parallel step, in child worlds.
+PARALLEL = dict(B=65536, SNR=3.0, iterations=20, llr_seed=21, sweep_snrs=[1.0, 2.0],
+                sweep_trials=2, train_B=256, train_steps=2, train_rtol=1e-5)
+PARALLEL_WORLDS = (("nccl", 1), ("gloo", 2))
+WATERFALL_RECORD = "nr_2_0_32_minsum_highprecision.json"
+
+
+def within_sigmas(rate: float, fer: float, frames: int, ref_rate: float, ref_fer: float,
+                  ref_frames: int) -> float:
+    """|rate - ref_rate| in combined binomial standard errors counted on
+    frame errors (rate_sigma of each side)."""
+    sigma = (rate_sigma(rate, fer, frames) ** 2
+             + rate_sigma(ref_rate, ref_fer, ref_frames) ** 2) ** 0.5
+    return abs(rate - ref_rate) / sigma if sigma > 0 else (0.0 if rate == ref_rate else math.inf)
+
+
+def cli_phase(smi: str) -> None:
+    """18b. cli: ``ldpc_tpu_torch.cli.main`` in this process: the workflow at
+    full width (visualize where matplotlib imports), then compare on the
+    flagship checkpoint at -3 dB against the JAX package's record."""
+    import importlib.util
+    import tempfile
+
+    from ldpc_tpu_torch import cli
+
+    has_matplotlib = importlib.util.find_spec("matplotlib") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        wf = [*CLI_WORKFLOW, "--device", "cuda", "--model-path", f"{tmp}/model.pt",
+              "--results-dir", f"{tmp}/workflow"]
+        t0 = time.time()
+        if has_matplotlib:
+            cli.main(["workflow", *wf])
+        else:
+            for mode in ("train", "evaluate", "compare"):
+                cli.main([mode, *wf])
+        workflow_s = time.time() - t0
+        out = Path(tmp) / "workflow"
+        wf_res = json.loads((out / "comparison_results.json").read_text())
+        values = [x for e in wf_res["decoders"].values() for k in ("ber", "fer") for x in e[k]]
+        wf_ok = (list(wf_res["decoders"]) == ["Belief Propagation", "Min-Sum Scaled",
+                                             "Neural (tied)"]
+                 and len(wf_res["snr_range"]) == 2 and all(0.0 <= x <= 1.0 for x in values)
+                 and (Path(tmp) / "model.pt").exists()
+                 and (out / "evaluation_results.json").exists()
+                 and (not has_matplotlib or (out / "combined_comparison.png").exists()))
+
+        f = CLI_FLAGSHIP
+        args = ["compare", "--device", "cuda", "--base-graph", "nr_2_0_32", "--lifting-factor",
+                "32", "--model-type", "message_gnn_corrected", "--num-iterations", "10",
+                "--hidden-dim", "64", "--model-path", str(RESULTS / f["checkpoint"]),
+                "--random-codewords", "--modulation", "qpsk", "--snr-min", str(f["snr"]),
+                "--snr-max", str(f["snr"]), "--batch-size", str(f["batch"]), "--num-trials",
+                str(f["trials"]), "--no-compare-with-traditional", "--results-dir",
+                f"{tmp}/flagship"]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cli.main(args)
+        torch.cuda.synchronize()
+        flagship_s = time.time() - t0
+        got = json.loads((Path(tmp) / "flagship" / "comparison_results.json").read_text())
+    entry = got["decoders"]["Neural (message_gnn_corrected)"]
+    record = json.loads((RESULTS / f["record"]).read_text())
+    ref = record["decoders"][f["record_decoder"]]
+    i = record["snr"].index(f["snr"])
+    frames = f["batch"] * f["trials"]
+    ref_frames = record["bits_per_point"] // 1664  # nr_2_0_32 at Z=32: n = 1664
+    fer, ber = entry["fer"][0], entry["ber"][0]
+    fer_sig = within_sigmas(fer, fer, frames, ref["fer"][i], ref["fer"][i], ref_frames)
+    ber_sig = within_sigmas(ber, fer, frames, ref["ber"][i], ref["fer"][i], ref_frames)
+    ok = (wf_ok and entry["param_count"] == f["params"] and fer_sig <= RATE_SIGMAS
+          and ber_sig <= RATE_SIGMAS)
+    emit({"phase": "cli", "workflow": {"args": CLI_WORKFLOW, "visualize_ran": has_matplotlib,
+                                       "results": wf_res, "seconds": workflow_s, "ok": wf_ok},
+          "flagship_compare": {"args": args[1:], "frames": frames, "ber": ber, "fer": fer,
+                               "param_count": entry["param_count"],
+                               "frame_errors": round(fer * frames),
+                               "record": f["record"], "record_ber": ref["ber"][i],
+                               "record_fer": ref["fer"][i], "record_frames": ref_frames,
+                               "ber_sigmas": ber_sig, "fer_sigmas": fer_sig,
+                               "seconds": flagship_s},
+          "bar_sigmas": RATE_SIGMAS, "nvidia_smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError("the CLI's workflow or its flagship compare failed its checks")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_child(backend: str) -> dict:
+    """One rank of a world set up in the environment (RANK, WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT): shard_decode over fused_retire, the sharded
+    mc_sweep over it and the data-parallel train step on the tied decoder,
+    each against the unsharded call in this process."""
+    import torch.distributed as dist
+
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+    from ldpc_tpu_torch.models import make_tied_decoder
+    from ldpc_tpu_torch.ops import fused_minsum as fm, qc_msg
+    from ldpc_tpu_torch.parallel import (distributed_init, make_mesh, make_sharded_train_step,
+                                         mc_sweep, shard_decode, trial_data, trial_generator)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed_init(backend=backend, timeout=300)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh()
+    p = PARALLEL
+    qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
+    plan = qc_msg.make_plan(qc32)
+    fused = fm.make_fused_minsum(qc32, p["iterations"], 0.75)
+    sharded = shard_decode(fused, mesh)
+    llr = llrs(qc32.num_vars, p["B"], p["SNR"], seed=p["llr_seed"])
+    launches = {}
+
+    def counted(name, fn):
+        for key in fm.LAUNCHES:
+            fm.LAUNCHES[key] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = {k: v for k, v in fm.LAUNCHES.items() if v}
+        return out
+
+    def wall_ms(fn, reps: int = 5) -> float:
+        fn()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    bits1, conv1 = counted("unsharded", lambda: fused(llr))
+    bits_n, conv_n = counted("shard_decode", lambda: sharded(llr))
+    decode_same = bool(torch.equal(bits_n, bits1)) and bool(torch.equal(conv_n, conv1))
+    times = {"unsharded_ms": wall_ms(lambda: fused(llr)),
+             "shard_decode_ms": wall_ms(lambda: sharded(llr))}
+    del bits_n, conv_n
+
+    kw = dict(snr_range=p["sweep_snrs"], batch_size=p["B"], num_trials=p["sweep_trials"],
+              seed=5, modulation="bpsk")
+    decode = lambda x: fused(x)[0]  # noqa: E731
+    sweep_n = counted("mc_sweep", lambda: mc_sweep(decode, plan, mesh=mesh, **kw))
+    sweep_1 = mc_sweep(decode, plan, mesh=None, **kw)
+
+    train = {}
+    for tag, m in (("sharded", mesh), ("single", None)):
+        torch.manual_seed(0)
+        model = make_tied_decoder(plan, 5, 2).cuda()
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        step = make_sharded_train_step(model, plan, opt, m, p["train_B"])
+        losses = [step(torch.Generator(device="cuda").manual_seed(7 + k), 0.0).item()
+                  for k in range(p["train_steps"])]
+        train[tag] = (losses, {k: v.clone() for k, v in model.state_dict().items()})
+    loss_rel = max(abs(a / b - 1.0) for a, b in zip(train["sharded"][0], train["single"][0]))
+    param_rel = max(((train["sharded"][1][k] - v).abs() / v.abs().clamp_min(1e-30)).max().item()
+                    for k, v in train["single"][1].items())
+    out = {"phase": "parallel_rank", "backend": backend, "rank": rank, "world": world,
+           "batch": p["B"], "rows": p["B"] // world, "shard_decode_identical": decode_same,
+           **times, "sweep": sweep_n, "sweep_identical": sweep_n == sweep_1,
+           "train_losses": train["sharded"][0], "train_loss_max_rel_diff": loss_rel,
+           "train_param_max_rel_diff": param_rel, "launches": launches}
+    if rank == 0 and backend == "nccl":  # the kernel against its plain version, B1's row
+        err = compare(fused, llr, "fused_retire shard_decode batch, unsharded")
+        kms = cuda_ms(lambda: fused(llr), reps=5)[0]
+        pms = once_ms(lambda: fused.plain(llr))[0]
+        bms, bby = bound_ms(qc32, conv1)
+        out["kernel"] = {"max_abs_err": err, "ms": kms, "plain_ms": pms, "bound_ms": bms,
+                         "bound_by": bby}
+        # what every rank pays for drawing the whole batch: one trial's LLRs
+        out["llr_draw_ms"] = cuda_ms(lambda: trial_data(trial_generator(5, 0, 0, "cuda"),
+                                                        qc32.num_vars, p["B"], 1.0,
+                                                        modulation="bpsk"), reps=5)[0]
+    out["ok"] = (decode_same and out["sweep_identical"] and loss_rel <= p["train_rtol"]
+                 and param_rel <= p["train_rtol"])
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def run_world(backend: str, world: int) -> list[dict]:
+    """parallel_child on ``world`` ranks of this script, the environment set
+    by hand (one card: every rank on it); each rank's last line."""
+    import os
+
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+               "RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0"}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--parallel-child", backend],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, (stdout, stderr) in zip(procs, outs):
+        if proc.returncode != 0:
+            raise AssertionError(f"a {backend} rank failed (exit {proc.returncode}):\n"
+                                 f"{stdout[-3000:]}\n{stderr[-4000:]}")
+    return [json.loads(stdout.strip().splitlines()[-1]) for stdout, _ in outs]
+
+
+def parallel_phase(smi: str) -> list[dict]:
+    """18c. parallel: an NCCL world of 1 and two gloo ranks sharing the card,
+    each rank in a child process."""
+    worlds = {}
+    for backend, world in PARALLEL_WORLDS:
+        t0 = time.time()
+        worlds[backend] = (run_world(backend, world), time.time() - t0)
+    ok = all(r["ok"] for ranks, _ in worlds.values() for r in ranks)
+    emit({"phase": "parallel",
+          "worlds": {b: {"ranks": ranks, "seconds": s} for b, (ranks, s) in worlds.items()},
+          "fused_retire_launches": {b: {r["rank"]: {path: n.get("fused_retire", 0)
+                                                    for path, n in r["launches"].items()}
+                                        for r in ranks}
+                                    for b, (ranks, _) in worlds.items()},
+          "train_rtol": PARALLEL["train_rtol"], "nvidia_smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError("a sharded path differs from its unsharded call")
+    rank0 = worlds["nccl"][0][0]
+    k = rank0["kernel"]
+    return [{"name": "fused_retire (parallel: NCCL world of 1)", "route": "cuda",
+             "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
+             "replaces": "ldpc_tpu/ops/pallas_minsum.py:143",
+             "launches": sum(n.get("fused_retire", 0) for path, n in rank0["launches"].items()
+                             if path != "unsharded"),
+             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None}]
+
+
+def waterfall_phase(smi: str) -> list[dict]:
+    """18d. waterfall: ldpc_tpu_torch.tools.high_precision_curve at its
+    defaults on fused_retire in throughput mode, every point against the
+    JAX package's record."""
+    import tempfile
+
+    from ldpc_tpu_torch.codes import get_base_graph, qc_layout
+    from ldpc_tpu_torch.ops import fused_minsum as fm
+    from ldpc_tpu_torch.parallel import trial_generator
+    from ldpc_tpu_torch.tools import high_precision_curve as hpc
+    from ldpc_tpu_torch.utils import bpsk_awgn_llr
+
+    record = json.loads((RESULTS / WATERFALL_RECORD).read_text())
+    for key in fm.LAUNCHES:
+        fm.LAUNCHES[key] = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        res = hpc.main(["--out", f"{tmp}/curve.json"])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fm.LAUNCHES.items() if v}
+    n = 1664  # nr_2_0_32 at Z=32
+    frames, ref_frames = res["bits_per_point"] // n, record["bits_per_point"] // n
+    points = []
+    for i, snr in enumerate(res["snr"]):
+        ber, fer = res["ber"][i], res["fer"][i]
+        rb, rf = record["ber"][i], record["fer"][i]
+        points.append({"snr": snr, "ber": ber, "fer": fer, "frame_errors": res["frame_errors"][i],
+                       "record_ber": rb, "record_fer": rf,
+                       "ber_sigmas": within_sigmas(ber, fer, frames, rb, rf, ref_frames),
+                       "fer_sigmas": within_sigmas(fer, fer, frames, rf, rf, ref_frames)})
+    calls = len(res["snr"]) * res["trials_per_point"]
+    ok = (res["snr"] == record["snr"] and res["bits_per_point"] == record["bits_per_point"]
+          and launches == {"fused_retire": calls}
+          and all(p["ber_sigmas"] <= RATE_SIGMAS and p["fer_sigmas"] <= RATE_SIGMAS
+                  for p in points))
+    emit({"phase": "waterfall", "bits_per_point": res["bits_per_point"],
+          "trials_per_point": res["trials_per_point"], "batch": res["batch"],
+          "iterations": res["iterations"], "kernel_calls": calls, "launches": launches,
+          "points": points, "bar_sigmas": RATE_SIGMAS, "wall_seconds": res["wall_seconds"],
+          "decoded_bits_per_s": res["decoded_bits_per_s"], "tool_nvidia_smi": res["nvidia_smi"],
+          "nvidia_smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError("the waterfall differs from the JAX package's record")
+    # The kernel in throughput mode on the -2 dB point's first batch, beside
+    # its plain version (these launches are not the path's).
+    qc32 = qc_layout(get_base_graph("nr_2_0_32"), 32)
+    dec = fm.make_fused_minsum(qc32, res["iterations"], 0.75, track_convergence=False)
+    i = len(res["snr"]) - 1
+    llr = bpsk_awgn_llr(trial_generator(hpc.SEED, i, 0, "cuda"),
+                        torch.zeros((res["batch"], n), device="cuda"), res["snr"][i])
+    kms, (_, conv) = cuda_ms(lambda: dec(llr), reps=5)
+    pms, pout = once_ms(lambda: dec.plain(llr))
+    err = compare(dec, llr, f"fused_retire throughput mode, waterfall {res['snr'][i]} dB",
+                  plain_out=pout)
+    bms, bby = bound_ms(qc32, conv)
+    return [{"name": "fused_retire (waterfall: throughput mode)", "route": "cuda",
+             "source": "ldpc_tpu_torch/ops/csrc/fused_retire.cu",
+             "replaces": "ldpc_tpu/ops/pallas_minsum.py:143", "launches": launches["fused_retire"],
+             "max_abs_err": err, "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
+             "library_ms": None}]
+
+
 def build_all() -> tuple[dict, dict]:
     """Compile every CUDA source of the port, one nvcc per source, together;
     (each source's ptxas lines, each source's seconds)."""
@@ -3916,15 +4260,21 @@ def sass_mma_counts(stem: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["classical", "wide", "gnn", "nms", "nms_wide", "msg_gnn",
-                                       "tools", "train"], default=None)
+    ap.add_argument("--only", nargs="+", choices=["classical", "wide", "gnn", "nms", "nms_wide",
+                                                  "msg_gnn", "tools", "train", "cli", "parallel",
+                                                  "waterfall"], default=None)
     ap.add_argument("--trace", choices=["z384", "layered", "sumproduct", "gnn", "nms_large",
                                         "msg_gnn", "msg_gnn_v2", "msg_gnn_v3", "msg_gnn_v4",
                                         "train"],
                     help=argparse.SUPPRESS)
     ap.add_argument("--resume-child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-child", choices=["nccl", "gloo"], help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = args.only
+
+    def runs(part: str) -> bool:
+        return only is None or part in only
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
@@ -3936,6 +4286,9 @@ def main(argv=None) -> int:
     if args.resume_child:  # the child of train_phase's resume check
         emit(resume_child())
         return 0
+    if args.parallel_child:  # a rank of parallel_phase's worlds
+        emit(parallel_child(args.parallel_child))
+        return 0
 
     from ldpc_tpu_torch.codes import get_base_graph, qc_layout
     from ldpc_tpu_torch.ops import fused_gnn as fg, fused_minsum as fm, fused_neural as fn
@@ -3944,6 +4297,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
+    started = time.time()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -4033,27 +4387,45 @@ def main(argv=None) -> int:
              for kind in WIDE_KINDS}})
 
     entries = []
-    if only in (None, "classical"):
-        entries += classical_phases(lib, smi)
-    if only == "wide":
-        entries += wide_phases(smi)
-    if only in (None, "gnn"):
-        entries += gnn_phases(smi)
-    if only in (None, "nms"):
-        entries += nms_phases(smi)
-    if only in (None, "nms_wide"):
-        entries += nms_wide_phase(smi)
-    if only in (None, "msg_gnn"):
-        entries += msg_gnn_phases(smi)
-        entries += msg_gnn_wide_phases(smi)
-    if only is None:
-        serve_phase()
-    if only in (None, "tools"):
-        bench_phase(smi)
-        entries += probe_phase(smi)
-    if only in (None, "train"):
-        entries += train_phase(smi)
+    seconds = {}
 
+    def timed_phase(part: str, fn) -> None:
+        t0 = time.time()
+        entries.extend(fn() or [])
+        seconds[part] = round(time.time() - t0, 1)
+        emit({"phase": "seconds", "part": part, "seconds": seconds[part]})
+
+    if runs("classical"):
+        timed_phase("classical", lambda: classical_phases(lib, smi))
+    if only is not None and "wide" in only:
+        timed_phase("wide", lambda: wide_phases(smi))
+    if runs("gnn"):
+        timed_phase("gnn", lambda: gnn_phases(smi))
+    if runs("nms"):
+        timed_phase("nms", lambda: nms_phases(smi))
+    if runs("nms_wide"):
+        timed_phase("nms_wide", lambda: nms_wide_phase(smi))
+    if runs("msg_gnn"):
+        timed_phase("msg_gnn", lambda: msg_gnn_phases(smi) + msg_gnn_wide_phases(smi))
+    if only is None:
+        timed_phase("serve", serve_phase)
+    def tools() -> list[dict]:
+        bench_phase(smi)
+        return probe_phase(smi)
+
+    if runs("tools"):
+        timed_phase("tools", tools)
+    if runs("train"):
+        timed_phase("train", lambda: train_phase(smi))
+    if runs("cli"):
+        timed_phase("cli", lambda: cli_phase(smi))
+    if runs("parallel"):
+        timed_phase("parallel", lambda: parallel_phase(smi))
+    if runs("waterfall"):
+        timed_phase("waterfall", lambda: waterfall_phase(smi))
+
+    emit({"phase": "seconds", "part": "total", "seconds": round(time.time() - started, 1),
+          "parts": seconds})
     # 19. kernels
     print(smi, flush=True)
     emit({"kernels": entries})

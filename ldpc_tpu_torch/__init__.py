@@ -12,12 +12,14 @@ imports torch and numpy only, never JAX or ``ldpc_tpu``:
 - Neural / offset min-sum decoders                 -> :mod:`ldpc_tpu_torch.models.neural_min_sum`
 - Node-centered GNN decoder                        -> :mod:`ldpc_tpu_torch.models.gnn`
 - Training, checkpoints, comparative evaluation    -> :mod:`ldpc_tpu_torch.training`
-- Monte-Carlo BER/FER sweeps (one device)          -> :mod:`ldpc_tpu_torch.parallel`
+- Sweeps, sharded decode, data-parallel training   -> :mod:`ldpc_tpu_torch.parallel`
+- One typed configuration, the CLI (``python -m``) -> :mod:`ldpc_tpu_torch.config`, :mod:`ldpc_tpu_torch.cli`
+- Plots and reports (the one matplotlib module)    -> :mod:`ldpc_tpu_torch.visualization`
 - Fused GNN serving kernels, CUDA C++              -> :mod:`ldpc_tpu_torch.ops.fused_gnn`
 - Fused trained min-sum kernel, CUDA C++           -> :mod:`ldpc_tpu_torch.ops.fused_neural`
 - flax msgpack checkpoints -> ``state_dict``       -> :mod:`ldpc_tpu_torch.convert`
 - Serving entry point (``python -m``)              -> :mod:`ldpc_tpu_torch.serve_trained_decoder`
-- GNN kernel bench, aggregation probe (``-m``)     -> :mod:`ldpc_tpu_torch.tools`
+- GNN kernel bench, probes, waterfall (``-m``)     -> :mod:`ldpc_tpu_torch.tools`
 - Rooflines at the H100's peaks, profiler traces  -> :mod:`ldpc_tpu_torch.utils.profiling`
 
 Entry points take ``device`` (default ``"cuda"``) and raise without a card

@@ -11,6 +11,11 @@ the JAX package's JSON (``snr_range``, ``decoders`` -> ``ber``, ``fer``,
 :mod:`ldpc_tpu_torch.ops.fused_minsum` (their plain versions on a CPU
 device).  Where no kernel takes the code it raises: unlike the JAX package,
 which falls back to XLA there, the port never falls back quietly.
+
+Under a ``mesh`` (:func:`ldpc_tpu_torch.parallel.make_mesh`) every rank
+registers the same decoders and decodes its rows of each trial; the counts
+and the iteration sums are summed over the ranks, so every rank gets the
+1-rank results.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from ldpc_tpu_torch._device import resolve_device
 from ldpc_tpu_torch.models.classical import (_make_fused, _resolve_backend, decode_bp,
                                              decode_min_sum)
 from ldpc_tpu_torch.ops.qc_msg import QCPlan
-from ldpc_tpu_torch.parallel.sharding import (channel_llr, mc_sweep, require_one_device,
+from ldpc_tpu_torch.parallel.sharding import (channel_llr, data_rows, mc_sweep, reduce_sum,
                                               trial_generator)
 from ldpc_tpu_torch.utils.logging import get_logger
 from ldpc_tpu_torch.utils.metrics import REGISTRY, MetricsRegistry, decode_throughput
@@ -47,12 +52,13 @@ class ComparativeEvaluator:
                  num_trials: int = 100, mesh=None, modulation: str = "qpsk",
                  convention: str = "consistent", seed: int = 4321, encoder=None,
                  device="cuda"):
-        require_one_device(mesh)
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.plan = plan.to(self.device)
         self.snr_range = [float(s) for s in (snr_range if snr_range is not None
                                              else range(-2, 7))]
         self.batch_size = batch_size
+        data_rows(batch_size, mesh)  # raises unless the batch divides by the data axis
         self.num_trials = num_trials
         self.modulation = modulation
         self.convention = convention
@@ -133,7 +139,7 @@ class ComparativeEvaluator:
                 log(f"evaluating {name} ...")
             t0 = time.time()
             sweep = mc_sweep(spec["decode"], self.plan, self.snr_range, self.batch_size,
-                             self.num_trials, seed=self.seed,
+                             self.num_trials, mesh=self.mesh, seed=self.seed,
                              modulation=self.modulation, convention=self.convention,
                              encoder=self.encoder, device=self.device)
             seconds = time.time() - t0
@@ -151,17 +157,18 @@ class ComparativeEvaluator:
     def _avg_iterations(self, iters_fn) -> list[float]:
         """Mean convergence iteration per SNR point, on the all-zero
         codeword LLRs of each trial's generator (the sweep's own LLRs when
-        there is no encoder)."""
+        there is no encoder); under a mesh each rank sums its rows."""
         n = self.plan.C * self.plan.Z
+        rows = data_rows(self.batch_size, self.mesh)
         avg = []
         for i, snr_db in enumerate(self.snr_range):
             total = torch.zeros((), dtype=torch.float64, device=self.device)
             for t in range(self.num_trials):
                 gen = trial_generator(self.seed, i, t, self.device)
                 bits = torch.zeros((self.batch_size, n), dtype=torch.float32, device=self.device)
-                total += iters_fn(channel_llr(gen, bits, snr_db, self.modulation,
-                                              self.convention)).double().sum()
-            avg.append(float(total) / (self.num_trials * self.batch_size))
+                llr = channel_llr(gen, bits, snr_db, self.modulation, self.convention)
+                total += iters_fn(llr[rows].contiguous()).double().sum()
+            avg.append(float(reduce_sum(total, self.mesh)) / (self.num_trials * self.batch_size))
         return avg
 
     # -- persistence and reporting -----------------------------------------------

@@ -378,3 +378,20 @@ class LDPCDecoderTrainer:
         payload = mgr.restore(step)
         hist = payload.get("history", {})
         self._restore_state(payload, hist["step"], hist["data_generator"])
+
+    # -- plotting (imports matplotlib only when called) ---------------------------
+
+    def plot_training_history(self):
+        """(loss figure, BER/FER figure or None) of this trainer's history."""
+        from ldpc_tpu_torch.visualization.plots import plot_training_history
+
+        return plot_training_history(self.history())
+
+    def plot_snr_performance(self, snr_range, ber_results, fer_results,
+                             comparison_ber=None, comparison_fer=None):
+        """(BER figure, FER figure) over ``snr_range``, each with a
+        conventional decoder's curve where given."""
+        from ldpc_tpu_torch.visualization.plots import plot_snr_performance
+
+        return plot_snr_performance(snr_range, ber_results, fer_results, comparison_ber,
+                                    comparison_fer)

@@ -1754,3 +1754,68 @@ def test_evaluator_fused_counts_equal_plain():
     got = fused.evaluate_all(log=None)
     assert fm.LAUNCHES["fused_retire"] == before + 12
     assert got == plain.evaluate_all(log=None)
+
+
+def test_cli_compare_on_the_card(tmp_path):
+    """``python -m ldpc_tpu_torch.cli compare`` on the card at nr_2_0_4 Z=4:
+    BP, min-sum and a fresh tied model, the JAX CLI's results schema."""
+    import json
+
+    from ldpc_tpu_torch import cli
+
+    cli.main(["compare", "--base-graph", "nr_2_0_4", "--lifting-factor", "4",
+              "--model-type", "tied", "--snr-min", "0", "--snr-max", "2", "--batch-size", "256",
+              "--num-trials", "2", "--model-path", str(tmp_path / "none.pt"),
+              "--results-dir", str(tmp_path)])
+    res = json.loads((tmp_path / "comparison_results.json").read_text())
+    assert res["snr_range"] == [0.0, 1.0, 2.0]
+    assert list(res["decoders"]) == ["Belief Propagation", "Min-Sum Scaled", "Neural (tied)"]
+    for entry in res["decoders"].values():
+        assert all(0.0 <= x <= 1.0 for k in ("ber", "fer") for x in entry[k])
+        assert entry["ber"][0] > entry["ber"][2]
+    assert res["decoders"]["Neural (tied)"]["param_count"] > 0
+
+
+def test_shard_decode_fused_retire_world_of_one(tmp_path):
+    """shard_decode over fused_retire in an NCCL world of 1: one launch, the
+    unsharded call's bits and conv_iter."""
+    import torch.distributed as dist
+
+    from ldpc_tpu_torch.parallel import distributed_init, make_mesh, mc_sweep, shard_decode
+
+    distributed_init(f"file://{tmp_path / 'store'}", world_size=1, rank=0, backend="nccl",
+                     timeout=60)
+    try:
+        qc = tcodes.qc_layout(tcodes.get_base_graph("nr_2_0_32"), 32)
+        mesh = make_mesh()
+        dec = fm.make_fused_minsum(qc, 20, 0.75)
+        llr = _llr(qc.num_vars, 4096, 2.0, seed=26)
+        bits1, conv1 = dec(llr)
+        before = fm.LAUNCHES["fused_retire"]
+        bits_n, conv_n = shard_decode(dec, mesh)(llr)
+        torch.cuda.synchronize()
+        assert fm.LAUNCHES["fused_retire"] == before + 1
+        assert torch.equal(bits_n, bits1) and torch.equal(conv_n, conv1)
+        plan = qc_msg.make_plan(qc)
+        kw = dict(snr_range=[1.0], batch_size=4096, num_trials=2, modulation="bpsk")
+        decode = lambda x: dec(x)[0]  # noqa: E731
+        assert mc_sweep(decode, plan, mesh=mesh, **kw) == mc_sweep(decode, plan, **kw)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_waterfall_tool_on_the_card(tmp_path):
+    """The waterfall tool at a small --bits-per-point: one fused_retire
+    launch a point, the JAX tool's keys, the card's name beside the time."""
+    from ldpc_tpu_torch.tools import high_precision_curve
+
+    before = fm.LAUNCHES["fused_retire"]
+    res = high_precision_curve.main(["--bits-per-point", "1e7", "--batch", "4096",
+                                     "--out", str(tmp_path / "curve.json")])
+    assert fm.LAUNCHES["fused_retire"] == before + 7
+    assert res["trials_per_point"] == 1 and res["bits_per_point"] == 4096 * 1664
+    for key in ("snr", "ber", "fer", "bits_per_point", "iterations", "batch", "code",
+                "wall_seconds", "decoded_bits_per_s"):
+        assert key in res
+    assert res["nvidia_smi"] and res["device"].startswith("cuda")
+    assert res["fer"][0] > 0.9 and res["ber"][0] > res["ber"][-1]

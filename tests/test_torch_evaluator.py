@@ -7,7 +7,8 @@
 * The registered plain min-sum and BP decoders give the bits of the JAX
   package's ``decode_min_sum`` / ``decode_bp`` on identical LLRs.
 * ``mc_sweep`` is a pure function of its seed; ``avg_iterations`` sees the
-  sweep's own LLRs; ``mesh=`` raises and names ROADMAP §A6.
+  sweep's own LLRs; a ``mesh=`` that is not ``make_mesh``'s raises (the
+  sharded forms are in ``tests/test_torch_parallel.py``).
 * ``fused=True`` runs the kernels' plain versions on a CPU device, with the
   counts of the tensor-op path, and raises where no kernel takes the code:
   never a fallback.
@@ -124,9 +125,9 @@ def test_sweep_is_a_function_of_its_seed(one_thread):
     x = trial_data(trial_generator(7, 1, 2, "cpu"), qt.num_vars, 4, 2.0)[1]
     assert torch.equal(x, trial_data(trial_generator(7, 1, 2, "cpu"), qt.num_vars, 4, 2.0)[1])
     assert not torch.equal(x, trial_data(trial_generator(7, 2, 1, "cpu"), qt.num_vars, 4, 2.0)[1])
-    with pytest.raises(NotImplementedError, match="§A6"):
+    with pytest.raises(TypeError, match="make_mesh"):
         mc_sweep(decode, pt, [0.0], 4, 1, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="§A6"):
+    with pytest.raises(TypeError, match="make_mesh"):
         ComparativeEvaluator(pt, mesh=object(), device="cpu")
 
 
